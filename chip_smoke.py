@@ -8,8 +8,9 @@ Phases, in order:
 
 1. the card's name and power limit (``nvidia-smi``) and the float32
    precision pins;
-2. build the CUDA kernels from ``xslam_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print the build seconds;
+2. build the CUDA kernels from ``xslam_tpu_torch/csrc`` (one
+   ``torch.utils.cpp_extension.load`` of all sources) and print the build
+   seconds;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the main path (one JSON line each): K1 on a 480x640 rendered frame,
    K2 on the 256^3 volume after 3 fused frames, K3 on that volume;
@@ -150,8 +151,11 @@ def phase_fusion(ctx):
     updated = int((a[2] != vol.weight).sum())
     ms = time_ms(lambda: kernels.fuse_volume(*a, *args), 20)
     plain = time_ms(lambda: kernels.fuse_volume_plain(*b, *args), 2)
-    n_vox = a[0].numel()
-    bms, by = bound_ms(n_vox * 3 * 4 * 2 + depth_m.numel() * 4 + 24 * 4, n_vox * 110)
+    # What the kernel needs: every voxel projects (69 operations up to the
+    # pixel gate); an updated voxel does 60 more and reads and writes its
+    # three planes (24 B). Voxels that pass the pixel gate and then fail the
+    # depth or truncation test are not counted, so this is a lower bound.
+    bms, by = bound_ms(depth_m.numel() * 4 + 24 * 4 + updated * 24, a[0].numel() * 69 + updated * 60)
     del a, b
     emit("K2 fuse_volume", shape=list(vol.value.shape), weight_frac_equal=w_eq, max_abs_err_value=err_v,
          max_abs_err_grad=err_g, voxels_updated=updated, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -287,10 +291,6 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_kernels()
     emit("build", seconds=time.perf_counter() - t0)
-    for name, log in kernels.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     config = load_config(os.path.join(ROOT, "configs", "synthetic.yaml"))
     config.end_frame = N_FRAMES

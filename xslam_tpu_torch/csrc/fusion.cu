@@ -7,15 +7,17 @@
 // in (1, W-1) x (1, H-1); the nearest depth at round(img) (rintf: half to
 // even, as jnp.round); the dual SDF dp * sqrt(lambda^2) - |v_c|; the
 // truncation gate and the "beyond" saturation; the running average with the
-// weight clamp. value, grad and weight are read, and rewritten only where the
-// frame updates the voxel.
+// weight clamp. value, grad and weight are read and rewritten only where the
+// frame updates the voxel: every other voxel returns at a gate first.
 //
-// Bound on the H100: bytes. Three float32 planes of the volume (201 MB at
-// 256^3) are read once and written once per frame, against ~100 flops per
-// voxel. Design: one thread per voxel, z fastest, so a warp reads 32
-// neighbouring voxels of each plane in one coalesced transaction; the 24
+// Bound on the H100: operations. Every voxel does the 69 operations up to
+// the pixel gate (dual camera coordinates and projection); only the voxels
+// the frame updates (about 6% of a 256^3 volume on the synthetic orbit) do
+// the other 60 and move 24 bytes each (three planes read and written), plus
+// the 1.2 MB depth image. Design: one thread per voxel, z fastest, so a
+// warp's updated voxels of each plane lie in neighbouring addresses; the 24
 // pose floats come from a small device tensor (no host read), and the depth
-// image (1.2 MB) stays in L2. The dual arithmetic repeats the reference's
+// image stays in L2. The dual arithmetic repeats the reference's
 // operation order one rounding at a time (built with -fmad=false); terms
 // that the reference multiplies by a lifted constant's zero derivative are
 // dropped, which changes no finite result.

@@ -18,6 +18,9 @@
 // march times and sample points are computed one rounding at a time in the
 // reference's order (built with -fmad=false), and p / voxel is a true
 // division, so the voxel chosen at a floor boundary is the reference's.
+// A floored coordinate becomes an index as the plain version's to_index
+// makes it (NaN -> -1, clamped to +-2^30), since a bare cast of NaN or of an
+// out-of-range float to int is undefined in C++.
 
 #include <cuda_runtime.h>
 
@@ -25,6 +28,12 @@ namespace {
 
 constexpr float RAY_MIN = 0.2f;
 constexpr float INF_T = 1e9f;
+constexpr float INDEX_LIMIT = 1073741824.0f;  // 2^30
+
+__device__ __forceinline__ int to_index(float floored) {
+  if (isnan(floored)) return -1;
+  return (int)fminf(fmaxf(floored, -INDEX_LIMIT), INDEX_LIMIT);
+}
 
 __global__ void march_kernel(const float* __restrict__ value, const float* __restrict__ start,
                              const float* __restrict__ dirs, float* __restrict__ t_found_out,
@@ -36,9 +45,9 @@ __global__ void march_kernel(const float* __restrict__ value, const float* __res
   const float dx = dirs[pix], dy = dirs[HW + pix], dz = dirs[2 * HW + pix];
 
   // first sample at 0.2 m, clamped into the volume
-  int gx = (int)floorf((sx + dx * RAY_MIN) / vs);
-  int gy = (int)floorf((sy + dy * RAY_MIN) / vs);
-  int gz = (int)floorf((sz + dz * RAY_MIN) / vs);
+  int gx = to_index(floorf((sx + dx * RAY_MIN) / vs));
+  int gy = to_index(floorf((sy + dy * RAY_MIN) / vs));
+  int gz = to_index(floorf((sz + dz * RAY_MIN) / vs));
   gx = min(max(gx, 0), X - 1);
   gy = min(max(gy, 0), Y - 1);
   gz = min(max(gz, 0), Z - 1);
@@ -47,9 +56,9 @@ __global__ void march_kernel(const float* __restrict__ value, const float* __res
   float t_found = INF_T, t_dead = INF_T;
   for (int k = 0; k < n_steps; ++k) {
     const float t_next = RAY_MIN + (float)(k + 1) * step;
-    gx = (int)floorf((sx + dx * t_next) / vs);
-    gy = (int)floorf((sy + dy * t_next) / vs);
-    gz = (int)floorf((sz + dz * t_next) / vs);
+    gx = to_index(floorf((sx + dx * t_next) / vs));
+    gy = to_index(floorf((sy + dy * t_next) / vs));
+    gz = to_index(floorf((sz + dz * t_next) / vs));
     const bool inside = gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z;
     const float tsdf = (inside ? __ldg(value + ((long long)gx * Y + gy) * Z + gz) : 0.0f) + 1e-5f;
     const float t_curr = RAY_MIN + (float)k * step;

@@ -17,13 +17,14 @@ A wrapper runs the plain version when its tensors lie on the CPU (the tests)
 and launches its kernel when they lie on a CUDA device; any other device
 raises. It never falls back from the kernel to the plain version.
 
-The sources are compiled on first use by ``nvcc`` into shared libraries with
-a plain C interface, one ``nvcc`` per source, all started together, under
-``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
-A library is named by the hash of its source and flags, so an edited source
-rebuilds. ``-fmad=false`` keeps ``a*b+c`` as two roundings, as the reference
-computes it, so a kernel agrees with its plain version except where an
-intrinsic (``expf``) or PyTorch's own division by a scalar rounds otherwise.
+The sources are compiled on first use by ``torch.utils.cpp_extension.load``,
+all in one call, into ``build/torch_kernels/`` at the repository root: the
+three ``.cu`` files have a plain C interface, and ``csrc/binding.cpp``, the
+only source that includes PyTorch's headers, binds them. ``load`` rebuilds
+when a source or flag changes. ``-fmad=false`` keeps ``a*b+c`` as two
+roundings, as the reference computes it, so a kernel agrees with its plain
+version except where an intrinsic (``expf``) or PyTorch's own division by a
+scalar rounds otherwise.
 
 Each wrapper adds one to :data:`launch_counts` where it launches its kernel,
 and nowhere else.
@@ -31,11 +32,6 @@ and nowhere else.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -48,28 +44,15 @@ from .sampling import gather2d, gather3d, to_index
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"bilateral": "bilateral.cu", "fusion": "fusion.cu", "march": "march.cu"}
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCES = ("binding.cpp", "bilateral.cu", "fusion.cu", "march.cu")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
 
 RAY_MIN_M = 0.2
 RAY_MAX_M = 5.0
 INF_T = 1e9
 
 launch_counts = {"bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0}
-# nvcc's output (ptxas register and shared-memory report) per source
-build_log: dict[str, str] = {}
-_libs: dict[str, ctypes.CDLL] = {}
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    # (function, argtypes): every pointer and the stream as c_void_p
-    "bilateral": ("xs_bilateral_filter", [_P, _P, _I, _I, _P]),
-    "fusion": ("xs_fuse_volume", [_P] * 5 + [_I] * 5 + [_F] * 10 + [_P]),
-    "march": ("xs_march_fixed", [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P]),
-}
+_ext = None  # the built extension module
 
 
 def reset_launch_counts() -> None:
@@ -77,59 +60,27 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+def build_kernels():
+    """Compile (where not yet built) and load the kernels' extension module."""
+    global _ext
+    if _ext is None:
+        from torch.utils.cpp_extension import load
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _ext = load(
+            name="xslam_tpu_torch_kernels", sources=[str(CSRC_DIR / src) for src in SOURCES],
+            build_directory=str(BUILD_DIR), extra_cuda_cflags=list(NVCC_FLAGS), verbose=False,
+        )
+    return _ext
 
 
-def build_kernels() -> dict[str, ctypes.CDLL]:
-    """Compile (where not yet built) and load every kernel library."""
-    if len(_libs) == len(SOURCES):
-        return _libs
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths, jobs = {}, {}
-    for name, src in SOURCES.items():
-        src_path = CSRC_DIR / src
-        digest = hashlib.sha256(src_path.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
-        paths[name] = out
-        if not out.exists():
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs[name] = (proc, tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        build_log[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {name} ---\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    for name, path in paths.items():
-        lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs
-
-
-def _launch(lib: str, device: torch.device, *args) -> None:
+def _launch(kernel: str, device: torch.device, *args) -> None:
     """Launch on ``device``'s current PyTorch stream; raise if refused."""
-    fn = getattr(build_kernels()[lib], _ARGTYPES[lib][0])
+    fn = getattr(build_kernels(), kernel)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {lib} failed to launch: cudaError {err}")
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError {err}")
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -170,7 +121,7 @@ def bilateral_filter(depth_u16: torch.Tensor) -> torch.Tensor:
     _check(depth_u16, "depth", torch.uint16)
     H, W = depth_u16.shape
     out = torch.empty((H, W), dtype=torch.float32, device=depth_u16.device)
-    _launch("bilateral", depth_u16.device, depth_u16.data_ptr(), out.data_ptr(), H, W)
+    _launch("bilateral_filter", depth_u16.device, depth_u16, out)
     launch_counts["bilateral_filter"] += 1
     return out
 
@@ -199,7 +150,6 @@ def fuse_volume(
         fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight)
         return
     X, Y, Z = value.shape
-    H, W = depth_m.shape
     for t, n in ((value, "value"), (grad, "grad"), (weight, "weight")):
         _check(t, n, torch.float32, (X, Y, Z))
     _check(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
@@ -208,9 +158,7 @@ def fuse_volume(
     inv_fx = _f32(np.float32(1.0) / np.float32(intr.fx))
     inv_fy = _f32(np.float32(1.0) / np.float32(intr.fy))
     _launch(
-        "fusion", value.device,
-        value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth_m.data_ptr(), pose.data_ptr(),
-        X, Y, Z, H, W,
+        "fuse_volume", value.device, value, grad, weight, depth_m, pose,
         _f32(voxel_size), _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
         inv_fx, inv_fy, _f32(trunc_dist), _f32(1.0 / trunc_dist), _f32(max_weight),
     )
@@ -296,7 +244,8 @@ def march_fixed(value: torch.Tensor, ray_start: CSFD, ray_dir: CSFD, voxel_size:
     start, dirs = ray_start.v, ray_dir.v
     if _on_cpu(value, start, dirs):
         return march_fixed_plain(value, ray_start, ray_dir, voxel_size, trunc_dist)
-    X, Y, Z = value.shape
+    if value.dim() != 3:
+        raise ValueError(f"value: expected (X, Y, Z), got {tuple(value.shape)}")
     H, W = dirs.shape[-2:]
     _check(value, "value", torch.float32)
     start = start.to(torch.float32).contiguous()
@@ -305,9 +254,8 @@ def march_fixed(value: torch.Tensor, ray_start: CSFD, ray_dir: CSFD, voxel_size:
     t_found = torch.empty((H, W), dtype=torch.float32, device=value.device)
     t_dead = torch.empty_like(t_found)
     _launch(
-        "march", value.device,
-        value.data_ptr(), start.data_ptr(), dirs.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(),
-        X, Y, Z, H, W, march_steps(trunc_dist), _f32(voxel_size), _f32(trunc_dist * 0.8),
+        "march_fixed", value.device, value, start, dirs, t_found, t_dead,
+        march_steps(trunc_dist), _f32(voxel_size), _f32(trunc_dist * 0.8),
     )
     launch_counts["march_fixed"] += 1
     return t_found, t_dead

@@ -32,8 +32,7 @@ from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
-# the hand kernels' device names (csrc/*.cu); launched through ctypes, they
-# are not correlated with the stage ranges, so they are reported apart
+# the hand kernels' device names (csrc/*.cu), reported apart from the stages
 HAND_KERNELS = {"bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel"}
 
 
