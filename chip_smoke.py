@@ -13,11 +13,20 @@ Phases, in order:
    seconds;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the main path (one JSON line each): K1 on a 480x640 rendered frame,
-   K2 on the 256^3 volume after 3 fused frames, K3 on that volume;
-4. the main path: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
-   runs 10 frames of the 640x480 synthetic orbit on the card; every frame
+   K2 on the 256^3 volume after 3 fused frames, K3 on that volume, K4 (the
+   ICP system and the cached association) on model maps raycast from that
+   volume and the next frame's depth pyramid, at the three level shapes of
+   both main-path configurations, and the five gather probes;
+4. the probe path: ``xslam_tpu_torch.apps.probe_gather.run`` on the card;
+5. the main path, twice: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
+   runs 10 frames of the 640x480 synthetic orbit on the card, then 6 frames
+   with ``icp_fixed_assoc=True, model_map_level=1``; in each run every frame
    must align, the ATE must stay under 0.02 m, the model maps must be
-   finite where valid, and every kernel must have launched.
+   finite where valid, and every kernel must have launched as often as the
+   run's frames and ICP iterations say.
+
+The launch counts are set to 0 just before each path is driven and read just
+after it.
 
 The second-to-last line is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``, printed only when every phase
@@ -39,22 +48,36 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+HOLD_CYCLES = 30_000_000  # about 20 ms of device spinning at the card's clock
 N_FRAMES = 10
+N_FRAMES_FIXED_ASSOC = 6
 WARM_FRAMES = 2
+PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 
-# (kernel, source, the TPU/XLA code it replaces)
+# kernel: (source, the TPU/XLA code it replaces, the path whose launches are reported)
 KERNELS = {
-    "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99"),
-    "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108"),
-    "march_fixed": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136"),
+    "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
+    "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
+    "march_fixed": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136", "main path"),
+    "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
+    "icp_associate": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:72", "main path, fixed association"),
+    "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
+    "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
+    "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
+    "probe_d": (PROBES_SRC, "apps/probe_pallas_gather.py:121", "probe path"),
+    "probe_e": (PROBES_SRC, "apps/probe_pallas_gather.py:142", "probe path"),
 }
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events. The
+    stream is first held busy for some 20 ms, so that the host queues the
+    calls ahead of the device and a kernel shorter than the host's launch
+    pace is timed at its own length, not the host's."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -219,25 +242,272 @@ def phase_march(ctx):
          max_abs_err_t_found=err, hit_fraction=hits, samples=samples, bytes_needed=n_bytes, ms=ms,
          plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
          library_note="no single PyTorch call computes it")
-    del ctx["volume"]  # the main path's peak memory counts its own volume only
     check(eq_f >= 0.999 and eq_d >= 0.999, f"K3 disagrees with its plain version: {eq_f}, {eq_d}")
     check(hits > 0.5, f"K3 found surfaces on only {hits:.3f} of the rays")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
-def phase_main_path(ctx):
+def _icp_inputs(ctx, L: int):
+    """Inputs of K4 as the main path gives them at ``model_map_level=L``:
+    model maps raycast from the fused volume at frame 3's pose (seeded
+    derivative lane) with their pyramid, frame 4's current maps, and the
+    ICP's starting pose (the previous frame's)."""
+    from xslam_tpu_torch.csfd.single import CSFD, lift
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.models.kinfu import _resize_nmap_dual
+    from xslam_tpu_torch.ops import kernels, preprocess, raycast
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    intr = cfg.intrinsics
+    _, c2v = _v2c(ctx, np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3], np.random.default_rng(2))
+    v2w = se3.inverse(lift(torch.as_tensor(np.asarray(cfg.world2volume, np.float32), device=dev)))
+    c2w = se3.matmul(v2w, c2v)
+    w2c = se3.inverse(c2w)
+    vmap0, nmap0 = raycast.raycast(
+        ctx["volume"], se3.rotation(c2v), se3.translation(c2v), se3.rotation(v2w), se3.translation(v2w),
+        intr.level(L), eng, normals_mode=cfg.raycast_normals, march_mode=cfg.raycast_march,
+        packed_taps=cfg.raycast_packed_taps,
+    )
+    vprev, nprev = [vmap0], [nmap0]
+    for _ in range(1, cfg.num_levels):
+        vprev.append(CSFD(preprocess.resize_vmap(vprev[-1].v), preprocess.resize_vmap(vprev[-1].g)))
+        nprev.append(_resize_nmap_dual(nprev[-1]))
+    depths = [kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))]
+    for _ in range(1, cfg.num_levels):
+        depths.append(preprocess.pyr_down(depths[-1]))
+    vcurr = [preprocess.create_vmap(intr.level(i), depths[i]) for i in range(cfg.num_levels)]
+    ncurr = [preprocess.create_nmap(v) for v in vcurr]
+    pose = dict(r_curr=se3.rotation(c2w), t_curr=se3.translation(c2w), r_prev_inv=se3.rotation(w2c),
+                t_prev=se3.translation(c2w))
+    return vprev, nprev, vcurr, ncurr, pose
+
+
+def _system_err(a, b) -> float:
+    """Largest |kernel - plain| over A and b, both lanes, relative to the
+    lane's largest entry."""
+    worst = 0.0
+    for name in ("A", "b"):
+        for lane in ("v", "g"):
+            x, y = getattr(getattr(a, name), lane), getattr(getattr(b, name), lane)
+            worst = max(worst, float((x - y).abs().max() / y.abs().max()))
+    return worst
+
+
+def phase_icp(ctx):
+    """K4 against its plain version at the three level shapes of both
+    main-path configurations, with and without the cached association (made
+    at the starting pose, used there and at a moved pose), and twice for
+    equal bits. Times at ``model_map_level=0``."""
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.ops import icp, kernels
+
+    cfg, dev = ctx["config"], ctx["device"]
+    intr = cfg.intrinsics
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    worst_err, worst_inl, worst_idx, abs_err = 0.0, 0.0, 1.0, 0.0
+    table, assoc_row = [], None
+    for L in (0, 1):
+        vprev, nprev, vcurr, ncurr, pose = _icp_inputs(ctx, L)
+        moved = dict(pose, t_curr=CSFD(pose["t_curr"].v + torch.tensor([2e-3, -1e-3, 1.5e-3], device=dev),
+                                       pose["t_curr"].g))
+        for level in reversed(range(cfg.num_levels)):
+            lintr = intr.level(level + L)
+            prev_shape = tuple(vprev[level].v.shape[-2:])
+
+            def args(p, level=level, lintr=lintr):
+                return (p["r_curr"], p["t_curr"], vcurr[level], ncurr[level], p["r_prev_inv"], p["t_prev"], lintr,
+                        vprev[level], nprev[level], cfg.dist_thres, cfg.angle_thres_sine)
+
+            index = icp.associate_index(pose["r_curr"], pose["t_curr"], vcurr[level], pose["r_prev_inv"],
+                                        pose["t_prev"], lintr, prev_shape)
+            index_plain = icp.associate_index_plain(pose["r_curr"], pose["t_curr"], vcurr[level],
+                                                    pose["r_prev_inv"], pose["t_prev"], lintr, prev_shape)
+            idx_eq = float((index == index_plain).float().mean())
+            worst_idx = min(worst_idx, idx_eq)
+            cases = (("projected", pose, None, None), ("cached", pose, index, index_plain),
+                     ("cached, moved pose", moved, index, index_plain))
+            for tag, p, a_k, a_p in cases:
+                k = icp.build_system(*args(p), assoc=a_k)
+                k2 = icp.build_system(*args(p), assoc=a_k)
+                ref = icp.build_system_plain(*args(p), assoc=a_p)
+                torch.cuda.synchronize()
+                same_bits = all(bool(torch.equal(x, y)) for x, y in
+                                ((k.A.v, k2.A.v), (k.A.g, k2.A.g), (k.b.v, k2.b.v), (k.b.g, k2.b.g)))
+                check(same_bits, f"K4 gave other bits on a second run (L={L}, level {level}, {tag})")
+                for i in range(6):
+                    check(bool(torch.equal(k.A.v[i], k.A.v[:, i])), "K4's A is not symmetric")
+                err = _system_err(k, ref)
+                n_k, n_p = int(k.inlier_count), int(ref.inlier_count)
+                inl = abs(n_k - n_p) / max(1, n_p)
+                worst_err, worst_inl = max(worst_err, err), max(worst_inl, inl)
+                row = dict(model_map_level=L, level=level, case=tag, curr_shape=list(vcurr[level].shape[1:]),
+                           prev_shape=list(prev_shape), inliers=n_k, inliers_plain=n_p, rel_err=err,
+                           index_frac_equal=idx_eq)
+                if L == 0 and tag != "cached, moved pose":
+                    # the kernel alone, from prepared arguments; the wrapper, which also
+                    # packs the pose (a few small launches) and allocates the outputs
+                    packed = icp.pack_pose(p["r_curr"], p["t_curr"], p["r_prev_inv"], p["t_prev"])
+                    partials = torch.empty((icp.ICP_MAX_BLOCKS, icp.ICP_SUMS), dtype=torch.float64, device=dev)
+                    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+                    out = torch.empty(84, dtype=torch.float32, device=dev)
+                    count = torch.empty((), dtype=torch.int32, device=dev)
+                    maps = (vcurr[level], ncurr[level], vprev[level].v, vprev[level].g, nprev[level].v, nprev[level].g)
+                    consts = [kernels.f32(x) for x in (lintr.fx, lintr.fy, lintr.cx, lintr.cy, cfg.dist_thres,
+                                                       cfg.angle_thres_sine)]
+
+                    def launch():
+                        err_code = ext.icp_system(*maps, a_k, packed, partials, ticket, out, count, *consts, stream)
+                        check(err_code == 0, f"icp_system launch failed: cudaError {err_code}")
+
+                    ms = time_ms(launch, 200)
+                    check(bool(torch.equal(out[:36].view(6, 6), k.A.v)), "K4 timed launch differs from the wrapper's")
+                    wrapper_ms = time_ms(lambda: icp.build_system(*args(p), assoc=a_k), 50)
+                    plain = time_ms(lambda: icp.build_system_plain(*args(p), assoc=a_p), 3)
+                    # What the kernel needs (csrc/icp.cu's header): 72 B per pixel, 4 B
+                    # more where the index is cached, the pose in, 85 numbers out; 36
+                    # operations per pixel with a normal to move the vertex and 31 to
+                    # project it (not where cached), 10 for the distance gate of a pixel
+                    # with a target, 270 for an inlier's angle gate, row and sums.
+                    # Pixels that pass the distance gate and fail the angle gate are
+                    # not counted, so this is a lower bound.
+                    n = vcurr[level][0].numel()
+                    has_normal = ~torch.isnan(ncurr[level][0])
+                    n_normal = int(has_normal.sum())
+                    target = index_plain.long().clamp(min=0)
+                    n_target = int((has_normal & (index_plain >= 0)
+                                    & ~torch.isnan(nprev[level].v[0].reshape(-1)[target])).sum())
+                    n_bytes = n * (72 + (4 if a_k is not None else 0)) + 36 * 4 + 85 * 4
+                    n_ops = n_normal * (36 + (31 if a_k is None else 0)) + n_target * 10 + n_k * 270
+                    bms, by = bound_ms(n_bytes, n_ops)
+                    row.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                    if level == 0 and tag == "projected":
+                        abs_err = max(float((k.A.v - ref.A.v).abs().max()), float((k.b.v - ref.b.v).abs().max()))
+                        table = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                emit("K4 icp_system", **row)
+            if L == 0:
+                args_a = (pose["r_curr"], pose["t_curr"], vcurr[level], pose["r_prev_inv"], pose["t_prev"], lintr,
+                          prev_shape)
+                packed = icp.pack_pose(pose["r_curr"], pose["t_curr"], pose["r_prev_inv"], pose["t_prev"])
+                out_idx = torch.empty_like(index)
+                consts = [kernels.f32(x) for x in (lintr.fx, lintr.fy, lintr.cx, lintr.cy)]
+
+                def launch_a():
+                    err_code = ext.icp_associate(vcurr[level], packed, out_idx, *prev_shape, *consts, stream)
+                    check(err_code == 0, f"icp_associate launch failed: cudaError {err_code}")
+
+                ms = time_ms(launch_a, 200)
+                plain = time_ms(lambda: icp.associate_index_plain(*args_a), 3)
+                n = index.numel()
+                bms, by = bound_ms(n * (12 + 4) + 36 * 4, n * 67)
+                emit("K4 icp_associate", level=level, shape=list(index.shape), index_frac_equal=idx_eq, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by)
+                if level == 0:
+                    assoc_row = dict(max_abs_err=float((index - index_plain).abs().max()), ms=ms, plain_ms=plain,
+                                     bound_ms=bms, bound_by=by)
+    emit("K4 summary", worst_rel_err=worst_err, worst_inlier_rel_diff=worst_inl, worst_index_frac_equal=worst_idx,
+         library_ms=None, library_note="no single PyTorch call computes it")
+    check(worst_err <= 1e-4, f"K4 disagrees with its plain version: A/b {worst_err} of a lane's largest entry")
+    check(worst_inl <= 1e-3, f"K4's inlier count differs from the plain version's by {worst_inl}")
+    check(worst_idx >= 0.9999, f"K4's association differs from the plain version's: equal on {worst_idx}")
+    ctx["icp_associate"] = assoc_row
+    return table
+
+
+def phase_probes(ctx):
+    """The five gather probes, bit-equal to their plain versions, and the
+    probe path itself: the entry point's ``run`` on the card."""
+    from xslam_tpu_torch.apps import probe_gather as pg
+    from xslam_tpu_torch.ops import kernels
+
+    dev = ctx["device"]
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ta, ia = pg.inputs_a(dev)
+    tb, ib = pg.inputs_b(dev)
+    (tc,), (td,) = pg.inputs_c(dev), pg.inputs_d(dev)
+    te, ie = pg.inputs_e(dev)
+    n_e = ie.numel()
+    # name: (wrapper call, plain call, prepared launch, bytes needed, operations, library call)
+    f32 = dict(dtype=torch.float32, device=dev)
+    oa, ob, oc, od = (torch.empty(s, **f32) for s in ((8, 128), (8, 128), (1, 1), (8, 128)))
+    oe = torch.empty_like(ie)
+    ia64, ib64 = ia.long(), ib.long()
+    probes = {
+        "probe_a": (lambda: pg.probe_a(ta, ia), lambda: pg.probe_a_plain(ta, ia),
+                    lambda: ext.probe_a(ta, ia, oa, stream), 1024 * 12, 1024 * 2,
+                    lambda: torch.take_along_dim(ta, ia64, 0)),
+        "probe_b": (lambda: pg.probe_b(tb, ib), lambda: pg.probe_b_plain(tb, ib),
+                    lambda: ext.probe_b(tb, ib, ob, stream), 1024 * 12, 1024 * 2,
+                    lambda: torch.take_along_dim(tb, ib64, 1)),
+        "probe_c": (lambda: pg.probe_c(tc), lambda: pg.probe_c_plain(tc),
+                    lambda: ext.probe_c(tc, oc, stream), 17 * 4, 16 * 3, None),
+        "probe_d": (lambda: pg.probe_d(td), lambda: pg.probe_d_plain(td),
+                    lambda: ext.probe_d(td, od, stream), 1024 * 4 * 9, 1024 * 8 * 3, None),
+        # 64 steps: each ray reads one 4-byte element per step, then its start and result
+        "probe_e": (lambda: pg.probe_e(te, ie, 64), lambda: pg.probe_e_plain(te, ie, 64),
+                    lambda: ext.probe_e(te, ie, oe, 64, stream), n_e * (64 * 4 + 8), n_e * 64 * 5, None),
+    }
+    rows = {}
+    for name, (wrapper, plain_fn, prepared, n_bytes, n_ops, library) in probes.items():
+        out, ref = wrapper(), plain_fn()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+
+        def launch(prepared=prepared, name=name):
+            err_code = prepared()
+            check(err_code == 0, f"{name} launch failed: cudaError {err_code}")
+
+        ms = time_ms(launch, 200)
+        plain = time_ms(plain_fn, 5)
+        lib = time_ms(library, 50) if library is not None else None
+        if library is not None:
+            check(bool(torch.equal(library(), out)), f"{name} differs from torch.take_along_dim")
+        bms, by = bound_ms(n_bytes, n_ops)
+        err = float((out.double() - ref.double()).abs().max())
+        emit(name, shape=list(out.shape), bit_equal=equal, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+             bound_by=by, library_ms=lib,
+             library_note="torch.take_along_dim" if library is not None else "no single PyTorch call computes it")
+        check(equal, f"{name} is not bit-equal to its plain version")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
+
+    # the probe path, through its entry point
+    kernels.reset_launch_counts()
+    results = pg.run(dev)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    emit("probe path", kernels=counts, E=results["E_bench"], canary=results["canary"])
+    check(results["canary"]["ok"] and "skipped" not in results["canary"], f"canary: {results['canary']}")
+    check(results["E_bench"]["timed_on"] == "cuda" and results["E_bench"]["t64_ms"] > 0, f"E: {results['E_bench']}")
+    for name in probes:
+        check(counts[name] >= 1, f"the probe path never launched {name}: {counts}")
+    check(counts["bilateral_filter"] >= 1, f"the canary never launched the bilateral kernel: {counts}")
+    ctx["probe_counts"] = counts
+    return rows
+
+
+def phase_main_path(ctx, fixed_assoc: bool = False):
+    """Drive the engine over the synthetic orbit: as ``configs/synthetic.yaml``
+    says (association every ICP iteration, full-resolution model maps), or
+    with ``icp_fixed_assoc=True, model_map_level=1`` on fewer frames."""
+    import dataclasses
+
     from xslam_tpu_torch.models.kinfu import XSlamEngine
     from xslam_tpu_torch.ops import kernels
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
-    cfg = ctx["config"]
+    cfg, n_frames, tag = ctx["config"], N_FRAMES, "main path"
+    if fixed_assoc:
+        cfg = dataclasses.replace(cfg, icp_fixed_assoc=True, model_map_level=1, end_frame=N_FRAMES_FIXED_ASSOC)
+        n_frames, tag = N_FRAMES_FIXED_ASSOC, "main path, fixed association"
+    L = cfg.model_map_level
     engine = XSlamEngine(cfg, device=ctx["device"])
     state = engine.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     times, aligned, integrated = [], [], 0
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, res = engine.process_frame(state, ctx["depths"][i])
@@ -249,23 +519,34 @@ def phase_main_path(ctx):
         integrated += ok
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:N_FRAMES]))
+    ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:n_frames]))
     vmap, nmap = state.vmaps_prev[0], state.nmaps_prev[0]
     valid = ~torch.isnan(vmap.v[0]) & ~torch.isnan(nmap.v[0])
     valid_frac = float(valid.float().mean())
     finite = all(bool(torch.isfinite(x[:, valid]).all()) for x in (vmap.v, vmap.g, nmap.v, nmap.g))
     steady = np.asarray(times[WARM_FRAMES:])
-    emit("main path", config="configs/synthetic.yaml", frames=N_FRAMES, depth=[cfg.depth_height, cfg.depth_width],
+    emit(tag, config="configs/synthetic.yaml", icp_fixed_assoc=cfg.icp_fixed_assoc, model_map_level=L,
+         frames=n_frames, depth=[cfg.depth_height, cfg.depth_width],
          volume=list(cfg.tsdf_size), mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)),
          frame_ms=times, ate_m=ate, all_aligned=all(aligned), peak_mem_bytes=peak,
          model_map_valid_fraction=valid_frac, kernels=counts)
     check(all(aligned), f"frames failed to align: {aligned}")
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
-    check(tuple(vmap.v.shape) == (3, cfg.depth_height, cfg.depth_width) and finite and valid_frac > 0.5,
+    check(tuple(vmap.v.shape) == (3, cfg.depth_height >> L, cfg.depth_width >> L) and finite and valid_frac > 0.5,
           f"model maps: shape {tuple(vmap.v.shape)}, finite {finite}, valid fraction {valid_frac}")
-    check(counts["bilateral_filter"] == N_FRAMES and counts["march_fixed"] == N_FRAMES
-          and counts["fuse_volume"] == integrated, f"launch counts {counts}")
+    # every frame tracks, frame 0 too (its estimate is then set aside), so
+    # K4 runs once per ICP iteration of every frame, and the association
+    # kernel once per level where it is cached
+    iterations = sum(cfg.icp_iterations[: cfg.num_levels])
+    check(counts["bilateral_filter"] == n_frames and counts["march_fixed"] == n_frames
+          and counts["fuse_volume"] == integrated and counts["icp_system"] == iterations * n_frames
+          and counts["icp_associate"] == (cfg.num_levels * n_frames if fixed_assoc else 0),
+          f"launch counts {counts}")
     return counts
+
+
+def phase_main_path_fixed_assoc(ctx):
+    return phase_main_path(ctx, fixed_assoc=True)
 
 
 def main() -> int:
@@ -305,7 +586,11 @@ def main() -> int:
 
     results, failed = {}, []
     for name, phase in (("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
-                        ("march_fixed", phase_march), ("main path", phase_main_path)):
+                        ("march_fixed", phase_march), ("icp_system", phase_icp), ("probes", phase_probes),
+                        ("main path", phase_main_path),
+                        ("main path, fixed association", phase_main_path_fixed_assoc)):
+        if name == "probes":
+            ctx.pop("volume", None)  # a main path's peak memory counts its own volume only
         try:
             results[name] = phase(ctx)
         except Exception:  # noqa: BLE001 — report every phase, then fail the run
@@ -316,12 +601,19 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: FAILED phases: {failed}", file=sys.stderr)
         return 1
-    counts = results["main path"]
+    results["icp_associate"] = ctx["icp_associate"]
+    results.update(results.pop("probes"))
+    counts = {"main path": results["main path"], "main path, fixed association": results["main path, fixed association"],
+              "probe path": ctx["probe_counts"]}
     table = [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k], **results[k],
-         "library_ms": None}
-        for k, (src, rep) in KERNELS.items()
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],
+         "library_ms": None, **results[k]}
+        for k, (src, rep, path) in KERNELS.items()
     ]
+    never = [row["name"] for row in table if row["launches"] < 1]
+    if never:
+        print(f"chip_smoke: kernels never launched on their path: {never}", file=sys.stderr)
+        return 1
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Python binding of the kernels' C entry points (bilateral.cu, fusion.cu,
-// march.cu), built with them by torch.utils.cpp_extension.load. The only
+// march.cu, icp.cu, gather_probes.cu), built with them by torch.utils.cpp_extension.load. The only
 // source that includes PyTorch's headers. The wrappers in ops/kernels.py
 // check device, type, shape and contiguity; each function here launches on
 // the stream it is given and returns the launch's cudaError_t.
@@ -15,6 +15,19 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
 extern "C" int xs_march_fixed(const void* value, const void* start, const void* dirs, void* t_found,
                               void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
                               float step, void* stream);
+extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* vprev_v, const void* vprev_g,
+                             const void* nprev_v, const void* nprev_g, const void* assoc, const void* pose,
+                             void* partials, void* ticket, int max_blocks, void* out, void* inliers, int Hc,
+                             int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy, float dist_thres,
+                             float angle_thres, void* stream);
+extern "C" int xs_icp_associate(const void* vcurr, const void* pose, void* assoc, int Hc, int Wc, int Hp,
+                                int Wp, float fx, float fy, float cx, float cy, void* stream);
+extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
+extern "C" int xs_probe_b(const void* table, const void* idx, void* out, int n, void* stream);
+extern "C" int xs_probe_c(const void* table, void* out, void* stream);
+extern "C" int xs_probe_d(const void* table, void* out, int n, void* stream);
+extern "C" int xs_probe_e(const void* table, const void* idx0, void* out, int n, int n_rows, int n_steps,
+                          void* stream);
 
 namespace {
 
@@ -40,10 +53,58 @@ int march_fixed(const torch::Tensor& value, const torch::Tensor& start, const to
                         t_found.size(1), n_steps, vs, step, as_stream(stream));
 }
 
+// assoc: the cached int32 index map, or None to project in the kernel
+int icp_system(const torch::Tensor& vcurr, const torch::Tensor& ncurr, const torch::Tensor& vprev_v,
+               const torch::Tensor& vprev_g, const torch::Tensor& nprev_v, const torch::Tensor& nprev_g,
+               const std::optional<torch::Tensor>& assoc, const torch::Tensor& pose, torch::Tensor partials,
+               torch::Tensor ticket, torch::Tensor out, torch::Tensor inliers, float fx, float fy, float cx,
+               float cy, float dist_thres, float angle_thres, int64_t stream) {
+  return xs_icp_system(vcurr.data_ptr(), ncurr.data_ptr(), vprev_v.data_ptr(), vprev_g.data_ptr(),
+                       nprev_v.data_ptr(), nprev_g.data_ptr(), assoc.has_value() ? assoc->data_ptr() : nullptr,
+                       pose.data_ptr(), partials.data_ptr(), ticket.data_ptr(), partials.size(0), out.data_ptr(),
+                       inliers.data_ptr(), vcurr.size(1), vcurr.size(2), vprev_v.size(1), vprev_v.size(2), fx, fy,
+                       cx, cy, dist_thres, angle_thres, as_stream(stream));
+}
+
+int icp_associate(const torch::Tensor& vcurr, const torch::Tensor& pose, torch::Tensor assoc, int64_t Hp,
+                  int64_t Wp, float fx, float fy, float cx, float cy, int64_t stream) {
+  return xs_icp_associate(vcurr.data_ptr(), pose.data_ptr(), assoc.data_ptr(), vcurr.size(1), vcurr.size(2), Hp,
+                          Wp, fx, fy, cx, cy, as_stream(stream));
+}
+
+int probe_a(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {
+  return xs_probe_a(table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.numel(), as_stream(stream));
+}
+
+int probe_b(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {
+  return xs_probe_b(table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.numel(), as_stream(stream));
+}
+
+int probe_c(const torch::Tensor& table, torch::Tensor out, int64_t stream) {
+  return xs_probe_c(table.data_ptr(), out.data_ptr(), as_stream(stream));
+}
+
+int probe_d(const torch::Tensor& table, torch::Tensor out, int64_t stream) {
+  return xs_probe_d(table.data_ptr(), out.data_ptr(), out.numel(), as_stream(stream));
+}
+
+int probe_e(const torch::Tensor& table, const torch::Tensor& idx0, torch::Tensor out, int64_t n_steps,
+            int64_t stream) {
+  return xs_probe_e(table.data_ptr(), idx0.data_ptr(), out.data_ptr(), out.numel(), table.size(0), n_steps,
+                    as_stream(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bilateral_filter", &bilateral_filter);
   m.def("fuse_volume", &fuse_volume);
   m.def("march_fixed", &march_fixed);
+  m.def("icp_system", &icp_system);
+  m.def("icp_associate", &icp_associate);
+  m.def("probe_a", &probe_a);
+  m.def("probe_b", &probe_b);
+  m.def("probe_c", &probe_c);
+  m.def("probe_d", &probe_d);
+  m.def("probe_e", &probe_e);
 }

@@ -1,13 +1,15 @@
 """The KinectFusion-style differentiable SLAM engine, dense reference path.
 
-Port of ``xslam_tpu/models/kinfu.py`` for the configuration that
-``SlamConfig()``'s defaults select (dense volume, dense fusion, fixed march,
-``secant2`` refine, TSDF normals, full-resolution model maps, association
-every ICP iteration, nearest-depth fusion). Each frame runs:
+Port of ``xslam_tpu/models/kinfu.py`` for the dense layout (dense volume,
+dense fusion, fixed march, ``secant2`` refine, TSDF normals, nearest-depth
+fusion), with the model maps at any ``model_map_level`` and the ICP
+association computed every iteration or once per level
+(``icp_fixed_assoc``). Each frame runs:
 
 1. bilateral filter (kernel K1), two ``pyr_down``s, vertex/normal maps;
 2. coarse-to-fine ICP, levels 2 -> 1 -> 0 with {5, 4, 3} iterations, as a
-   Python loop whose ``ok`` flags stay on the device;
+   Python loop whose ``ok`` flags stay on the device; each iteration's normal
+   equations are one launch of kernel K4;
 3. TSDF fusion (kernel K2, in place) when the frame aligned;
 4. raycast of the model maps (march kernel K3, plain refine) and their
    pyramid.
@@ -65,8 +67,6 @@ _SLICE = {
     "raycast_refine": "secant2",
     "raycast_normals": "tsdf",
     "raycast_packed_taps": False,
-    "model_map_level": 0,
-    "icp_fixed_assoc": False,
 }
 
 
@@ -111,14 +111,15 @@ class XSlamEngine:
             )
 
         levels = self.config.num_levels
+        L = self.config.model_map_level
         return SlamState(
             volume=fusion.create_volume(self.vol_cfg, dev),
             world2camera=lift(torch.eye(4, dtype=torch.float32, device=dev)),
-            vmaps_prev=tuple(nan_map(H >> i, W >> i) for i in range(levels)),
-            nmaps_prev=tuple(nan_map(H >> i, W >> i) for i in range(levels)),
+            vmaps_prev=tuple(nan_map(H >> (i + L), W >> (i + L)) for i in range(levels)),
+            nmaps_prev=tuple(nan_map(H >> (i + L), W >> (i + L)) for i in range(levels)),
             frame_idx=0,
             last_align_ok=torch.ones((), dtype=torch.bool, device=dev),
-            t_prev=torch.full((H, W), torch.inf, dtype=torch.float32, device=dev),
+            t_prev=torch.full((H >> L, W >> L), torch.inf, dtype=torch.float32, device=dev),
         )
 
     def process_frame(
@@ -151,14 +152,25 @@ def _pose_estimate(state: SlamState, vmaps_curr, nmaps_curr, config: SlamConfig,
     r_curr, t_curr = r_prev, t_prev
     ok = torch.ones((), dtype=torch.bool, device=state.world2camera.v.device)
     inliers = None
+    # the model maps may be rendered model_map_level pyramid levels coarser
+    # than the depth: the association then targets the model map's intrinsics
+    L = config.model_map_level
     for level in reversed(range(config.num_levels)):
+        model_intr = intr.level(level + L)
+        level_assoc = None
+        if config.icp_fixed_assoc:
+            level_assoc = icp.associate_index(
+                r_curr, t_curr, vmaps_curr[level], r_prev_inv, t_prev, model_intr,
+                state.vmaps_prev[level].v.shape[-2:],
+            )
         for _ in range(config.icp_iterations[level]):
             system = icp.build_system(
                 r_curr, t_curr,
                 vmaps_curr[level], nmaps_curr[level],
-                r_prev_inv, t_prev, intr.level(level),
+                r_prev_inv, t_prev, model_intr,
                 state.vmaps_prev[level], state.nmaps_prev[level],
                 config.dist_thres, config.angle_thres_sine,
+                assoc=level_assoc,
             )
             x, step_ok = icp.solve_increment(system, damping=config.icp_damping)
             inc = se3.euler_xyz_increment(*(CSFD(x.v[i], x.g[i]) for i in range(6)))
@@ -218,7 +230,8 @@ def process_frame(
         # previous pose and skips integration (ProcessFrame:150-154)
         c2w_prev = se3.inverse(state.world2camera)
         if config.min_inlier_fraction > 0:
-            npix = intr.height * intr.width
+            L = config.model_map_level
+            npix = (intr.height >> L) * (intr.width >> L)
             align_ok = align_ok & (inliers >= int(config.min_inlier_fraction * npix))
         if config.max_translation_per_frame > 0:
             delta = torch.linalg.norm(c2w_est.v[:3, 3] - c2w_prev.v[:3, 3])
@@ -251,7 +264,7 @@ def process_frame(
         v2w = se3.inverse(world2volume)
         vmap0, nmap0 = raycast.raycast(
             volume, se3.rotation(c2v), se3.translation(c2v), se3.rotation(v2w), se3.translation(v2w),
-            intr, vol_cfg, normals_mode=config.raycast_normals, march_mode=config.raycast_march,
+            intr.level(config.model_map_level), vol_cfg, normals_mode=config.raycast_normals, march_mode=config.raycast_march,
             packed_taps=config.raycast_packed_taps,
         )
         vmaps_prev = [vmap0]

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the dense SLAM step, their wrappers and their
 plain PyTorch versions.
 
-Counterpart of ``xslam_tpu/ops/pallas_kernels.py``. Three kernels carry the
-frame's heavy passes:
+Counterpart of ``xslam_tpu/ops/pallas_kernels.py``. This module builds and
+launches every kernel of the package and holds the wrappers of three:
 
 - K1 :func:`bilateral_filter` (``csrc/bilateral.cu``) replaces
   ``xslam_tpu/ops/pallas_kernels.py::bilateral_filter_pallas``; its plain
@@ -13,13 +13,17 @@ frame's heavy passes:
 - K3 :func:`march_fixed` (``csrc/march.cu``) replaces the XLA code of
   ``xslam_tpu/ops/raycast.py::march``; plain version :func:`march_fixed_plain`.
 
+Two more sources are built here and wrapped where their plain versions live:
+K4 (``csrc/icp.cu``) in :mod:`xslam_tpu_torch.ops.icp` and the five gather
+probes (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
+
 A wrapper runs the plain version when its tensors lie on the CPU (the tests)
 and launches its kernel when they lie on a CUDA device; any other device
 raises. It never falls back from the kernel to the plain version.
 
 The sources are compiled on first use by ``torch.utils.cpp_extension.load``,
 all in one call, into ``build/torch_kernels/`` at the repository root: the
-three ``.cu`` files have a plain C interface, and ``csrc/binding.cpp``, the
+``.cu`` files have a plain C interface, and ``csrc/binding.cpp``, the
 only source that includes PyTorch's headers, binds them. ``load`` rebuilds
 when a source or flag changes. ``-fmad=false`` keeps ``a*b+c`` as two
 roundings, as the reference computes it, so a kernel agrees with its plain
@@ -44,14 +48,17 @@ from .sampling import gather2d, gather3d, to_index
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("binding.cpp", "bilateral.cu", "fusion.cu", "march.cu")
+SOURCES = ("binding.cpp", "bilateral.cu", "fusion.cu", "march.cu", "icp.cu", "gather_probes.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
 
 RAY_MIN_M = 0.2
 RAY_MAX_M = 5.0
 INF_T = 1e9
 
-launch_counts = {"bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0}
+launch_counts = {
+    "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
+    "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
+}
 _ext = None  # the built extension module
 
 
@@ -74,7 +81,7 @@ def build_kernels():
     return _ext
 
 
-def _launch(kernel: str, device: torch.device, *args) -> None:
+def launch(kernel: str, device: torch.device, *args) -> None:
     """Launch on ``device``'s current PyTorch stream; raise if refused."""
     fn = getattr(build_kernels(), kernel)
     with torch.cuda.device(device):
@@ -83,7 +90,7 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError {err}")
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
+def on_cpu(*ts: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU; raises unless all lie on one
     CUDA device otherwise."""
     devices = {t.device for t in ts}
@@ -94,7 +101,7 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return False
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -103,7 +110,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _f32(x) -> float:
+def f32(x) -> float:
     """``x`` rounded to float32, as a Python float."""
     return float(np.float32(x))
 
@@ -114,14 +121,14 @@ def bilateral_filter(depth_u16: torch.Tensor) -> torch.Tensor:
 
     Same contract as :func:`xslam_tpu_torch.ops.preprocess.bilateral_filter`
     (its plain version)."""
-    if _on_cpu(depth_u16):
+    if on_cpu(depth_u16):
         return preprocess.bilateral_filter(depth_u16)
     if depth_u16.dim() != 2:
         raise ValueError(f"depth: expected (H, W), got {tuple(depth_u16.shape)}")
-    _check(depth_u16, "depth", torch.uint16)
+    check_tensor(depth_u16, "depth", torch.uint16)
     H, W = depth_u16.shape
     out = torch.empty((H, W), dtype=torch.float32, device=depth_u16.device)
-    _launch("bilateral_filter", depth_u16.device, depth_u16, out)
+    launch("bilateral_filter", depth_u16.device, depth_u16, out)
     launch_counts["bilateral_filter"] += 1
     return out
 
@@ -146,21 +153,21 @@ def fuse_volume(
     ``r_v2c``/``t_v2c``: dual volume->camera rotation (3, 3) and translation
     (3,). Nearest-depth branch of the reference (``bi_threshold <= 0``)."""
     pose = torch.cat([r_v2c.v.reshape(-1), r_v2c.g.reshape(-1), t_v2c.v.reshape(-1), t_v2c.g.reshape(-1)])
-    if _on_cpu(value, grad, weight, depth_m, pose):
+    if on_cpu(value, grad, weight, depth_m, pose):
         fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight)
         return
     X, Y, Z = value.shape
     for t, n in ((value, "value"), (grad, "grad"), (weight, "weight")):
-        _check(t, n, torch.float32, (X, Y, Z))
-    _check(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
+        check_tensor(t, n, torch.float32, (X, Y, Z))
+    check_tensor(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
     pose = pose.to(torch.float32).contiguous()
-    _check(pose, "pose", torch.float32, (24,))
-    inv_fx = _f32(np.float32(1.0) / np.float32(intr.fx))
-    inv_fy = _f32(np.float32(1.0) / np.float32(intr.fy))
-    _launch(
+    check_tensor(pose, "pose", torch.float32, (24,))
+    inv_fx = f32(np.float32(1.0) / np.float32(intr.fx))
+    inv_fy = f32(np.float32(1.0) / np.float32(intr.fy))
+    launch(
         "fuse_volume", value.device, value, grad, weight, depth_m, pose,
-        _f32(voxel_size), _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
-        inv_fx, inv_fy, _f32(trunc_dist), _f32(1.0 / trunc_dist), _f32(max_weight),
+        f32(voxel_size), f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy),
+        inv_fx, inv_fy, f32(trunc_dist), f32(1.0 / trunc_dist), f32(max_weight),
     )
     launch_counts["fuse_volume"] += 1
 
@@ -242,20 +249,20 @@ def march_fixed(value: torch.Tensor, ray_start: CSFD, ray_dir: CSFD, voxel_size:
     (H, W) float32: the march time of the first +->- crossing and of the
     first death (volume exit or -->+ step), ``INF_T`` where none."""
     start, dirs = ray_start.v, ray_dir.v
-    if _on_cpu(value, start, dirs):
+    if on_cpu(value, start, dirs):
         return march_fixed_plain(value, ray_start, ray_dir, voxel_size, trunc_dist)
     if value.dim() != 3:
         raise ValueError(f"value: expected (X, Y, Z), got {tuple(value.shape)}")
     H, W = dirs.shape[-2:]
-    _check(value, "value", torch.float32)
+    check_tensor(value, "value", torch.float32)
     start = start.to(torch.float32).contiguous()
-    _check(start, "ray_start", torch.float32, (3,))
-    _check(dirs, "ray_dir", torch.float32, (3, H, W))
+    check_tensor(start, "ray_start", torch.float32, (3,))
+    check_tensor(dirs, "ray_dir", torch.float32, (3, H, W))
     t_found = torch.empty((H, W), dtype=torch.float32, device=value.device)
     t_dead = torch.empty_like(t_found)
-    _launch(
+    launch(
         "march_fixed", value.device, value, start, dirs, t_found, t_dead,
-        march_steps(trunc_dist), _f32(voxel_size), _f32(trunc_dist * 0.8),
+        march_steps(trunc_dist), f32(voxel_size), f32(trunc_dist * 0.8),
     )
     launch_counts["march_fixed"] += 1
     return t_found, t_dead
@@ -286,8 +293,8 @@ def march_fixed_plain(value, ray_start: CSFD, ray_dir: CSFD, voxel_size: float, 
     t_dead = torch.full_like(t_found, INF_T)
     for k in range(march_steps(trunc_dist)):
         # march times in float32 arithmetic, as the reference's loop computes them
-        t_next = _f32(np.float32(RAY_MIN_M) + np.float32(k + 1) * np.float32(step))
-        t_curr = _f32(np.float32(RAY_MIN_M) + np.float32(k) * np.float32(step))
+        t_next = f32(np.float32(RAY_MIN_M) + np.float32(k + 1) * np.float32(step))
+        t_curr = f32(np.float32(RAY_MIN_M) + np.float32(k) * np.float32(step))
         g = voxel_of(start_v + dirs_v * t_next)
         ins = inside(g)
         tsdf = read(g)

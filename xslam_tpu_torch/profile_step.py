@@ -3,15 +3,19 @@ port's SLAM step.
 
 Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
+        [--fixed-assoc] [--model-map-level L]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
 power limit, the wall time per frame, the device's busy time per frame (sum
 of the kernels' and copies' device time) and idle share, each stage's host
-and device time per frame (the engine's profiler ranges ``preprocess``,
-``icp``, ``fusion``, ``raycast``; a stage's device time leaves out the hand
-kernels, which are reported apart), the launches per frame, and the kernels
-that take the most device time. ``--trace`` also writes the Chrome trace.
+and device time and launches per frame (the engine's profiler ranges
+``preprocess``, ``icp``, ``fusion``, ``raycast``; a stage's device time
+leaves out the hand kernels, which are reported apart), the launches per
+frame, and the kernels
+that take the most device time. ``--trace`` also writes the Chrome trace;
+``--fixed-assoc`` and ``--model-map-level`` set ``icp_fixed_assoc`` and
+``model_map_level`` over the file's values.
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -19,6 +23,7 @@ The profiler's own host cost inflates the wall time: take frame times from
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import time
@@ -32,8 +37,12 @@ from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
 # the hand kernels' device names (csrc/*.cu), reported apart from the stages
-HAND_KERNELS = {"bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel"}
+HAND_KERNELS = {
+    "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
+    "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
+}
 
 
 def card() -> str:
@@ -48,6 +57,8 @@ def main(argv=None):
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
+    ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
+    ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step measures the CUDA card; none is available")
@@ -55,6 +66,10 @@ def main(argv=None):
     config = load_config(args.config)
     n = args.warm + args.frames
     config.end_frame = n
+    if args.fixed_assoc:
+        config.icp_fixed_assoc = True
+    if args.model_map_level is not None:
+        config.model_map_level = args.model_map_level
     ds = SyntheticDataset(n_frames=n, intr=config.intrinsics)
     depths = [ds.get_depth(i) for i in range(n)]
     engine = XSlamEngine(config)
@@ -89,11 +104,23 @@ def main(argv=None):
     stages = {}
     for e in prof.key_averages():
         if e.key in STAGES and e.device_type == DeviceType.CPU:
-            stages[e.key] = {"host_ms": e.cpu_time_total / 1e3 / f, "device_ms": e.device_time_total / 1e3 / f}
+            stages[e.key] = {"host_ms": e.cpu_time_total / 1e3 / f, "device_ms": e.device_time_total / 1e3 / f,
+                             "launches": 0.0}
+    # a stage's launches: the host's launch, copy and fill calls that start inside its range
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.name in stages and e.device_type == DeviceType.CPU)
+    starts = [r[0] for r in ranges]
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS):
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= ranges[i][1]:
+                stages[ranges[i][2]]["launches"] += 1.0 / f
     print(json.dumps({
         "card": card(),
         "device": torch.cuda.get_device_name(0),
         "config": args.config,
+        "icp_fixed_assoc": config.icp_fixed_assoc,
+        "model_map_level": config.model_map_level,
         "frames_profiled": f,
         "wall_ms_per_frame": wall_ms / f,
         "device_busy_ms_per_frame": busy_ms / f,

@@ -6,12 +6,18 @@ engines must share. The exchange format is a dict of numpy arrays:
 - ``value``, ``grad``, ``weight``: (X, Y, Z) float32 volume planes;
 - ``world2camera_v``, ``world2camera_g``: (4, 4) float32;
 - ``vmaps_v``, ``vmaps_g``, ``nmaps_v``, ``nmaps_g``: lists over pyramid
-  levels of (3, H >> l, W >> l) float32 maps;
-- ``frame_idx`` (int), ``last_align_ok`` (bool), ``t_prev`` ((H, W) float32).
+  levels ``l`` of (3, H >> (l + L), W >> (l + L)) float32 maps, ``L`` the
+  configuration's ``model_map_level``;
+- ``frame_idx`` (int), ``last_align_ok`` (bool), ``t_prev``
+  ((H >> L, W >> L) float32).
 
 A JAX ``SlamState`` is written into this format with ``np.asarray`` on each
 leaf (the JAX engine donates its state to the next step, so convert it
 before that step).
+
+An ICP ``Association`` of the JAX package (its cache of gathered rows)
+crosses as the numpy arrays of its leaves (:func:`association_from_numpy`);
+an ``IcpSystem`` needs no converter, the tests compare its leaves as numpy.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from ..csfd.single import CSFD
 from ..models.kinfu import SlamState
 from ..ops.fusion import VolumeState
+from ..ops.icp import Association
 
 
 def state_from_numpy(d: dict, device) -> SlamState:
@@ -64,3 +71,17 @@ def state_to_numpy(state: SlamState) -> dict:
         "last_align_ok": bool(state.last_align_ok),
         "t_prev": n(state.t_prev),
     }
+
+
+def _dual(v, g, device) -> CSFD:
+    return CSFD(torch.as_tensor(np.ascontiguousarray(v, np.float32), device=device),
+                torch.as_tensor(np.ascontiguousarray(g, np.float32), device=device))
+
+
+def association_from_numpy(nprev_v, nprev_g, vprev_v, vprev_g, in_img, device) -> Association:
+    """The port's :class:`Association` from the leaves of a JAX one."""
+    return Association(
+        nprev_g=_dual(nprev_v, nprev_g, device), vprev_g=_dual(vprev_v, vprev_g, device),
+        in_img=torch.as_tensor(np.ascontiguousarray(in_img, bool), device=device),
+    )
+
