@@ -13,17 +13,21 @@ Phases, in order:
    seconds;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the main path (one JSON line each): K1 on a 480x640 rendered frame,
-   K2 on the 256^3 volume after 3 fused frames, K3 on that volume, K4 (the
-   ICP system and the cached association) on model maps raycast from that
-   volume and the next frame's depth pyramid, at the three level shapes of
-   both main-path configurations, and the five gather probes;
+   K2 on the 256^3 volume after 3 fused frames (bit-equal, at the orbit's
+   next pose, at a pose that looks along the volume from a corner and at the
+   pose of the JAX package's window-coverage regression test), K3 on that
+   volume, K4 (the ICP system, its tail and the cached association) on
+   model maps raycast from that volume and the next frame's depth pyramid,
+   at the three level shapes of both main-path configurations, and the five
+   gather probes;
 4. the probe path: ``xslam_tpu_torch.apps.probe_gather.run`` on the card;
 5. the main path, twice: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
    runs 10 frames of the 640x480 synthetic orbit on the card, then 6 frames
    with ``icp_fixed_assoc=True, model_map_level=1``; in each run every frame
    must align, the ATE must stay under 0.02 m, the model maps must be
-   finite where valid, and every kernel must have launched as often as the
-   run's frames and ICP iterations say.
+   finite where valid, every kernel must have launched as often as the
+   run's frames and ICP iterations say, and a profiled frame must show
+   nothing on the device between its ICP launches.
 
 The launch counts are set to 0 just before each path is driven and read just
 after it.
@@ -145,47 +149,105 @@ def _v2c(ctx, pose_c2w: np.ndarray, rng):
     return se3.inverse(CSFD(c2v, g)), CSFD(c2v, g)
 
 
+def _look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """Camera-to-volume pose of a camera at ``eye`` looking at ``target``."""
+    z = (target - eye) / np.linalg.norm(target - eye)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x /= np.linalg.norm(x)
+    c2v = np.eye(4)
+    c2v[:3, :3] = np.stack([x, np.cross(z, x), z], axis=1)
+    c2v[:3, 3] = eye
+    return c2v
+
+
+def _regression_pose() -> np.ndarray:
+    """The camera-to-world pose on which the JAX package's brick fusion once
+    left dense fusion by 22 voxels (its window-coverage regression test):
+    Rx Ry Rz of the angles, then the translation, carried here as numbers."""
+    ang = np.array([-0.13110635, -0.27977643, -0.03972851])
+    c, s = np.cos(ang), np.sin(ang)
+    rx = np.array([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]])
+    ry = np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+    rz = np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+    c2w = np.eye(4)
+    c2w[:3, :3] = rx @ ry @ rz
+    c2w[:3, 3] = [0.29632427, -0.26935779, -0.4479787]
+    return c2w
+
+
 def phase_fusion(ctx):
+    from xslam_tpu_torch.csfd.single import CSFD
     from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.io.synthetic import default_scene, render_depth
     from xslam_tpu_torch.ops import fusion, kernels
 
-    cfg, eng = ctx["config"], ctx["engine_cfg"]
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
     intr = cfg.intrinsics
     rng = np.random.default_rng(0)
-    vol = fusion.create_volume(eng, ctx["device"])
+    vol = fusion.create_volume(eng, dev)
     poses = [np.linalg.inv(ctx["gt"][0]) @ p for p in ctx["gt"]]
     for i in range(3):
         v2c, _ = _v2c(ctx, poses[i], rng)
-        depth_m = fusion.scale_depth(torch.as_tensor(ctx["depths"][i], device=ctx["device"]))
+        depth_m = fusion.scale_depth(torch.as_tensor(ctx["depths"][i], device=dev))
         fusion.integrate(vol, depth_m, se3.rotation(v2c), se3.translation(v2c), intr, eng)
     ctx["volume"] = vol
-    v2c, _ = _v2c(ctx, poses[3], rng)
-    r, t = se3.rotation(v2c), se3.translation(v2c)
-    depth_m = fusion.scale_depth(torch.as_tensor(ctx["depths"][3], device=ctx["device"]))
-    args = (depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
-    a = [x.clone() for x in vol]
-    b = [x.clone() for x in vol]
-    kernels.fuse_volume(*a, *args)
-    kernels.fuse_volume_plain(*b, *args)
-    torch.cuda.synchronize()
-    w_eq = frac_equal(a[2], b[2])
-    same_w = a[2] == b[2]
-    err_v, err_g = max_abs(a[0], b[0], same_w), max_abs(a[1], b[1], same_w)
-    updated = int((a[2] != vol.weight).sum())
-    ms = time_ms(lambda: kernels.fuse_volume(*a, *args), 20)
-    plain = time_ms(lambda: kernels.fuse_volume_plain(*b, *args), 2)
-    # What the kernel needs: every voxel projects (69 operations up to the
-    # pixel gate); an updated voxel does 60 more and reads and writes its
-    # three planes (24 B). Voxels that pass the pixel gate and then fail the
-    # depth or truncation test are not counted, so this is a lower bound.
-    bms, by = bound_ms(depth_m.numel() * 4 + 24 * 4 + updated * 24, a[0].numel() * 69 + updated * 60)
-    del a, b
-    emit("K2 fuse_volume", shape=list(vol.value.shape), weight_frac_equal=w_eq, max_abs_err_value=err_v,
-         max_abs_err_grad=err_g, voxels_updated=updated, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-         library_ms=None, library_note="no single PyTorch call computes it")
-    check(w_eq >= 0.9999 and err_v <= 1e-5 and err_g <= 1e-5,
-          f"K2 disagrees with its plain version: weight equal {w_eq}, value {err_v}, grad {err_g}")
-    return dict(max_abs_err=max(err_v, err_g), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+    orbit_v2c, _ = _v2c(ctx, poses[3], rng)
+
+    def dual_v2c(c2v: np.ndarray) -> CSFD:
+        g = torch.as_tensor((1e-2 * rng.standard_normal((4, 4))).astype(np.float32), device=dev)
+        g[3] = 0.0
+        return se3.inverse(CSFD(torch.as_tensor(c2v.astype(np.float32), device=dev), g))
+
+    # (name, volume->camera pose, depth in metres): the orbit's next frame; a camera in a corner of
+    # the volume that looks at its middle, on a seeded depth; the regression pose, on the scene it sees
+    w2v = np.asarray(cfg.world2volume, np.float64)
+    extent = np.asarray(eng.resolution, np.float64) * eng.voxel_size
+    seeded = rng.uniform(300.0, 6000.0, (intr.height, intr.width))
+    seeded[rng.random(seeded.shape) < 0.1] = 0.0
+    regression = _regression_pose()
+    cases = [
+        ("orbit frame 3", orbit_v2c, ctx["depths"][3]),
+        ("volume corner", dual_v2c(_look_at(np.full(3, 0.2), extent / 2)), seeded.astype(np.uint16)),
+        ("window-coverage regression pose", dual_v2c(w2v @ regression),
+         render_depth(default_scene(), regression, intr)),
+    ]
+    table = None
+    for name, v2c, depth_u16 in cases:
+        r, t = se3.rotation(v2c), se3.translation(v2c)
+        depth_m = fusion.scale_depth(torch.as_tensor(depth_u16, device=dev))
+        args = (depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+        a = [x.clone() for x in vol]
+        b = [x.clone() for x in vol]
+        kernels.fuse_volume(*a, *args)
+        kernels.fuse_volume_plain(*b, *args)
+        torch.cuda.synchronize()
+        equal = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+        err_v, err_g = max_abs(a[0], b[0]), max_abs(a[1], b[1])
+        updated = int((b[2] != vol.weight).sum())
+        keep = fusion.tile_keep_mask(r, t, intr, eng.resolution, eng.voxel_size)
+        kept_voxels = int(keep.sum()) * int(np.prod(fusion.FUSE_TILE))
+        ms = time_ms(lambda: kernels.fuse_volume(*a, *args), 20)
+        plain = time_ms(lambda: kernels.fuse_volume_plain(*b, *args), 2)
+        # What the kernel needs: every voxel projects (69 operations up to the
+        # pixel gate); an updated voxel does 60 more and reads and writes its
+        # three planes (24 B). Voxels that pass the pixel gate and then fail the
+        # depth or truncation test are not counted, so this is a lower bound.
+        n_bytes = depth_m.numel() * 4 + 24 * 4 + updated * 24
+        bms, by = bound_ms(n_bytes, a[0].numel() * 69 + updated * 60)
+        bound_note = "every voxel to its pixel gate"
+        if ms < bms:  # the tile test spared more than that: count the voxels of the tiles it kept
+            bms, by = bound_ms(n_bytes, kept_voxels * 69 + updated * 60)
+            bound_note = "the voxels of the kept tiles to their pixel gate"
+        del a, b
+        emit("K2 fuse_volume", case=name, shape=list(vol.value.shape), planes_bit_equal=equal,
+             max_abs_err_value=err_v, max_abs_err_grad=err_g, voxels_updated=updated,
+             tiles_kept_fraction=float(keep.float().mean()), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+             bound_counts=bound_note, library_ms=None, library_note="no single PyTorch call computes it")
+        check(all(equal), f"K2 is not bit-equal to its plain version at {name}: value, grad, weight {equal}")
+        check(updated > 100_000, f"K2's case {name} updates only {updated} voxels")
+        if table is None:
+            table = dict(max_abs_err=max(err_v, err_g), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+    return table
 
 
 def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
@@ -293,11 +355,89 @@ def _system_err(a, b) -> float:
     return worst
 
 
+class _K4Launch:
+    """``icp_system`` launched from prepared arguments, as the engine's loop
+    does it: no packing, no allocation. ``blocks`` overrides the grid."""
+
+    def __init__(self, ctx, lintr, vcurr, ncurr, vprev, nprev, pose, assoc):
+        from xslam_tpu_torch.ops import icp, kernels
+
+        cfg, dev = ctx["config"], ctx["device"]
+        self.ext = kernels.build_kernels()
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.maps = (vcurr, ncurr, icp.pack_model_rows(vprev, nprev), assoc)
+        self.pose = icp.pack_pose(pose["r_curr"], pose["t_curr"], pose["r_prev_inv"], pose["t_prev"])
+        self.partials = torch.empty((4 * icp.ICP_MAX_BLOCKS, icp.ICP_SUMS), dtype=torch.float64, device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.out = torch.empty(84, dtype=torch.float32, device=dev)
+        self.count = torch.empty((), dtype=torch.int32, device=dev)
+        self.tail = (torch.empty(icp.POSE_FLOATS, dtype=torch.float32, device=dev),
+                     torch.empty(12, dtype=torch.float32, device=dev), torch.zeros(2, dtype=torch.int32, device=dev))
+        self.blocks = icp.icp_blocks(vcurr[0].numel())
+        self.consts = [int(n) for n in vprev.v.shape[-2:]] + [
+            kernels.f32(x) for x in (lintr.fx, lintr.fy, lintr.cx, lintr.cy, cfg.dist_thres, cfg.angle_thres_sine)]
+
+    def __call__(self, tail: bool = False, blocks=None, maps=None):
+        err_code = self.ext.icp_system(
+            *(maps or self.maps), self.pose, self.partials, self.ticket, blocks or self.blocks, self.out, self.count,
+            *(self.tail if tail else (None, None, None)), 0.0, True, *self.consts, self.stream)
+        check(err_code == 0, f"icp_system launch failed: cudaError {err_code}")
+
+
+def _residual(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative residual of a solve, ``|A x - b| / (|A| |x| + |b|)``, in double."""
+    A, x, b = A.double(), x.double(), b.double()
+    return float(torch.linalg.norm(A @ x - b) / (torch.linalg.norm(A) * torch.linalg.norm(x) + torch.linalg.norm(b)))
+
+
+def _check_tail(step, ref, tag: str) -> dict:
+    """K4's tail against ``icp_step_plain`` fed the kernel's own ``A``, ``b``.
+
+    Tolerances: the kernel's LU and the library's pivot alike but round in
+    another order, and the ICP matrix is ill-conditioned (rotations against
+    translations), so ``x`` is held within rtol 1e-3 (atol 1e-6; the
+    derivative lane within 1e-3 of its largest entry), as the CPU tests hold
+    the JAX solve against PyTorch's, and the kernel's relative residual
+    within 4 times the plain one's (plus 1e-6). The pose follows ``x``
+    (|x| ~ 1e-2): value lane within 2e-5, derivative lane within 1e-3 of its
+    largest entry. The flags must be equal."""
+    A, b = step.system.A, step.system.b
+    res_k, res_p = _residual(A.v, step.x.v, b.v), _residual(A.v, ref.x.v, b.v)
+    rhs = b.g - A.g @ ref.x.v
+    res_kg, res_pg = _residual(A.v, step.x.g, b.g - A.g @ step.x.v), _residual(A.v, ref.x.g, rhs)
+    x_err = float((step.x.v - ref.x.v).abs().max())
+    g_scale = float(ref.x.g.abs().max())
+    xg_err = float((step.x.g - ref.x.g).abs().max()) / max(g_scale, 1e-30)
+    pose_err = max(max_abs(step.r_curr.v, ref.r_curr.v), max_abs(step.t_curr.v, ref.t_curr.v))
+    pg_scale = max(1.0, float(ref.r_curr.g.abs().max()), float(ref.t_curr.g.abs().max()))
+    pose_g_err = max(max_abs(step.r_curr.g, ref.r_curr.g), max_abs(step.t_curr.g, ref.t_curr.g)) / pg_scale
+    check(bool(step.ok) == bool(ref.ok), f"K4's tail flag {bool(step.ok)} against plain {bool(ref.ok)} ({tag})")
+    check(bool(torch.allclose(step.x.v, ref.x.v, rtol=1e-3, atol=1e-6)), f"K4's tail x.v off by {x_err} ({tag})")
+    check(bool(torch.allclose(step.x.g, ref.x.g, rtol=1e-3, atol=1e-3 * g_scale)),
+          f"K4's tail x.g off by {xg_err} of its largest entry ({tag})")
+    check(res_k <= 4 * res_p + 1e-6 and res_kg <= 4 * res_pg + 1e-6,
+          f"K4's tail residuals {res_k}, {res_kg} against plain {res_p}, {res_pg} ({tag})")
+    check(pose_err <= 2e-5 and pose_g_err <= 1e-3, f"K4's tail pose off by {pose_err}, {pose_g_err} ({tag})")
+    return dict(tail_ok=bool(step.ok), tail_x_abs_err=x_err, tail_xg_rel_err=xg_err, tail_pose_abs_err=pose_err,
+                tail_pose_g_rel_err=pose_g_err, tail_residual=res_k, plain_residual=res_p,
+                tail_residual_g=res_kg, plain_residual_g=res_pg)
+
+
+def _same_step(a, b) -> bool:
+    pairs = ((a.r_curr, b.r_curr), (a.t_curr, b.t_curr), (a.x, b.x), (a.system.A, b.system.A), (a.system.b, b.system.b))
+    return all(bool(torch.equal(x.v, y.v)) and bool(torch.equal(x.g, y.g)) for x, y in pairs) \
+        and bool(a.ok) == bool(b.ok)
+
+
 def phase_icp(ctx):
-    """K4 against its plain version at the three level shapes of both
+    """K4 against its plain versions at the three level shapes of both
     main-path configurations, with and without the cached association (made
-    at the starting pose, used there and at a moved pose), and twice for
-    equal bits. Times at ``model_map_level=0``."""
+    at the starting pose, used there and at a moved pose): without the tail
+    against ``build_system_plain``, with it against ``icp_step_plain`` on the
+    kernel's own system, each twice for equal bits; a damped step; a
+    degenerate step (NaN model maps) that must freeze the pose. Times, a
+    sweep of the grid and runs with parts of the work switched off by their
+    inputs, at ``model_map_level=0``."""
     from xslam_tpu_torch.csfd.single import CSFD
     from xslam_tpu_torch.ops import icp, kernels
 
@@ -328,13 +468,14 @@ def phase_icp(ctx):
             cases = (("projected", pose, None, None), ("cached", pose, index, index_plain),
                      ("cached, moved pose", moved, index, index_plain))
             for tag, p, a_k, a_p in cases:
+                where = f"L={L}, level {level}, {tag}"
                 k = icp.build_system(*args(p), assoc=a_k)
                 k2 = icp.build_system(*args(p), assoc=a_k)
                 ref = icp.build_system_plain(*args(p), assoc=a_p)
                 torch.cuda.synchronize()
                 same_bits = all(bool(torch.equal(x, y)) for x, y in
                                 ((k.A.v, k2.A.v), (k.A.g, k2.A.g), (k.b.v, k2.b.v), (k.b.g, k2.b.g)))
-                check(same_bits, f"K4 gave other bits on a second run (L={L}, level {level}, {tag})")
+                check(same_bits, f"K4 gave other bits on a second run ({where})")
                 for i in range(6):
                     check(bool(torch.equal(k.A.v[i], k.A.v[:, i])), "K4's A is not symmetric")
                 err = _system_err(k, ref)
@@ -344,26 +485,28 @@ def phase_icp(ctx):
                 row = dict(model_map_level=L, level=level, case=tag, curr_shape=list(vcurr[level].shape[1:]),
                            prev_shape=list(prev_shape), inliers=n_k, inliers_plain=n_p, rel_err=err,
                            index_frac_equal=idx_eq)
+
+                # the whole iteration: the same system, then the tail against the plain step on it
+                step = icp.icp_step(*args(p), damping=cfg.icp_damping, assoc=a_k)
+                step2 = icp.icp_step(*args(p), damping=cfg.icp_damping, assoc=a_k)
+                torch.cuda.synchronize()
+                check(_same_step(step, step2), f"K4 with its tail gave other bits on a second run ({where})")
+                check(bool(torch.equal(step.system.A.v, k.A.v)) and bool(torch.equal(step.system.b.g, k.b.g))
+                      and int(step.system.inlier_count) == n_k, f"K4's system differs with and without the tail ({where})")
+                plain_step = icp.icp_step_plain(step.system, p["r_curr"], p["t_curr"], cfg.icp_damping)
+                check(bool(step.ok), f"K4's tail rejected a good step ({where})")
+                row.update(_check_tail(step, plain_step, where))
+
                 if L == 0 and tag != "cached, moved pose":
-                    # the kernel alone, from prepared arguments; the wrapper, which also
-                    # packs the pose (a few small launches) and allocates the outputs
-                    packed = icp.pack_pose(p["r_curr"], p["t_curr"], p["r_prev_inv"], p["t_prev"])
-                    partials = torch.empty((icp.ICP_MAX_BLOCKS, icp.ICP_SUMS), dtype=torch.float64, device=dev)
-                    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-                    out = torch.empty(84, dtype=torch.float32, device=dev)
-                    count = torch.empty((), dtype=torch.int32, device=dev)
-                    maps = (vcurr[level], ncurr[level], vprev[level].v, vprev[level].g, nprev[level].v, nprev[level].g)
-                    consts = [kernels.f32(x) for x in (lintr.fx, lintr.fy, lintr.cx, lintr.cy, cfg.dist_thres,
-                                                       cfg.angle_thres_sine)]
-
-                    def launch():
-                        err_code = ext.icp_system(*maps, a_k, packed, partials, ticket, out, count, *consts, stream)
-                        check(err_code == 0, f"icp_system launch failed: cudaError {err_code}")
-
+                    # the kernel alone, from prepared arguments, without and with its tail; the
+                    # wrapper, which also packs the pose and the model's rows and allocates
+                    launch = _K4Launch(ctx, lintr, vcurr[level], ncurr[level], vprev[level], nprev[level], p, a_k)
                     ms = time_ms(launch, 200)
-                    check(bool(torch.equal(out[:36].view(6, 6), k.A.v)), "K4 timed launch differs from the wrapper's")
+                    check(bool(torch.equal(launch.out[:36].view(6, 6), k.A.v)), "K4 timed launch differs from the wrapper's")
+                    tail_ms = time_ms(lambda: launch(tail=True), 200)
                     wrapper_ms = time_ms(lambda: icp.build_system(*args(p), assoc=a_k), 50)
                     plain = time_ms(lambda: icp.build_system_plain(*args(p), assoc=a_p), 3)
+                    plain_step_ms = time_ms(lambda: icp.icp_step_plain(step.system, p["r_curr"], p["t_curr"], 0.0), 3)
                     # What the kernel needs (csrc/icp.cu's header): 72 B per pixel, 4 B
                     # more where the index is cached, the pose in, 85 numbers out; 36
                     # operations per pixel with a normal to move the vertex and 31 to
@@ -380,10 +523,29 @@ def phase_icp(ctx):
                     n_bytes = n * (72 + (4 if a_k is not None else 0)) + 36 * 4 + 85 * 4
                     n_ops = n_normal * (36 + (31 if a_k is None else 0)) + n_target * 10 + n_k * 270
                     bms, by = bound_ms(n_bytes, n_ops)
-                    row.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                    row.update(ms=ms, tail_ms=tail_ms, wrapper_ms=wrapper_ms, plain_ms=plain,
+                               plain_step_ms=plain_step_ms, bound_ms=bms, bound_by=by, blocks=launch.blocks)
+                    if tag == "projected":
+                        # where the time goes: other grids; no current normal (every pixel leaves at
+                        # its first gate: the launch, the reductions and the tail are left); no model
+                        # (every pixel moves, projects and fetches a row, none is added)
+                        sweep = {}
+                        for blocks in (16, 33, 66, 132, 198, 264, 396, 528, 1056):
+                            if blocks * 32 < 2 * n:  # a grid with pixels for most of its blocks
+                                sweep[blocks] = [time_ms(lambda: launch(blocks=blocks), 200),
+                                                 time_ms(lambda: launch(tail=True, blocks=blocks), 200)]
+                        no_normal = (launch.maps[0], torch.full_like(ncurr[level], torch.nan)) + launch.maps[2:]
+                        no_model = launch.maps[:2] + (torch.full_like(launch.maps[2], torch.nan), launch.maps[3])
+                        row.update(grid_sweep_ms_without_and_with_tail=sweep,
+                                   no_normal_ms=[time_ms(lambda: launch(maps=no_normal), 200),
+                                                 time_ms(lambda: launch(tail=True, maps=no_normal), 200)],
+                                   no_model_ms=time_ms(lambda: launch(maps=no_model), 200))
+                        launch()
+                        check(bool(torch.equal(launch.out[:36].view(6, 6), k.A.v)), "K4's grid sweep left its scratch changed")
                     if level == 0 and tag == "projected":
                         abs_err = max(float((k.A.v - ref.A.v).abs().max()), float((k.b.v - ref.b.v).abs().max()))
-                        table = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                        table = dict(max_abs_err=abs_err, ms=ms, tail_ms=tail_ms, plain_ms=plain, bound_ms=bms,
+                                     bound_by=by)
                 emit("K4 icp_system", **row)
             if L == 0:
                 args_a = (pose["r_curr"], pose["t_curr"], vcurr[level], pose["r_prev_inv"], pose["t_prev"], lintr,
@@ -405,6 +567,26 @@ def phase_icp(ctx):
                 if level == 0:
                     assoc_row = dict(max_abs_err=float((index - index_plain).abs().max()), ms=ms, plain_ms=plain,
                                      bound_ms=bms, bound_by=by)
+        if L == 0:
+            # a damped step, and a step with nothing to align to (frame 0 tracks against NaN maps)
+            damped = icp.icp_step(*args(pose, 0, intr.level(0)), damping=1e-3)
+            row = _check_tail(damped, icp.icp_step_plain(damped.system, pose["r_curr"], pose["t_curr"], 1e-3),
+                              "damped")
+            undamped = icp.icp_step(*args(pose, 0, intr.level(0)))
+            check(not bool(torch.equal(damped.x.v, undamped.x.v)), "K4's tail ignored the damping")
+            emit("K4 tail, damped", damping=1e-3, **row)
+            nan_map = CSFD(torch.full_like(vprev[0].v, torch.nan), torch.zeros_like(vprev[0].g))
+            frozen = icp.icp_step(pose["r_curr"], pose["t_curr"], vcurr[0], ncurr[0], pose["r_prev_inv"],
+                                  pose["t_prev"], intr.level(0), nan_map, nan_map, cfg.dist_thres, cfg.angle_thres_sine)
+            torch.cuda.synchronize()
+            kept = all(bool(torch.equal(x, y)) for x, y in
+                       ((frozen.r_curr.v, pose["r_curr"].v), (frozen.r_curr.g, pose["r_curr"].g),
+                        (frozen.t_curr.v, pose["t_curr"].v), (frozen.t_curr.g, pose["t_curr"].g)))
+            emit("K4 tail, degenerate", ok=bool(frozen.ok), pose_kept=kept, inliers=int(frozen.system.inlier_count),
+                 x_abs_max=float(frozen.x.v.abs().max()))
+            check(not bool(frozen.ok) and kept and int(frozen.system.inlier_count) == 0
+                  and float(frozen.x.v.abs().max()) == 0.0 and float(frozen.x.g.abs().max()) == 0.0,
+                  "K4's tail did not freeze the pose on a system without correspondences")
     emit("K4 summary", worst_rel_err=worst_err, worst_inlier_rel_diff=worst_inl, worst_index_frac_equal=worst_idx,
          library_ms=None, library_note="no single PyTorch call computes it")
     check(worst_err <= 1e-4, f"K4 disagrees with its plain version: A/b {worst_err} of a lane's largest entry")
@@ -492,8 +674,12 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     with ``icp_fixed_assoc=True, model_map_level=1`` on fewer frames."""
     import dataclasses
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from xslam_tpu_torch.models.kinfu import XSlamEngine
     from xslam_tpu_torch.ops import kernels
+    from xslam_tpu_torch.profile_step import STAGES
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
     cfg, n_frames, tag = ctx["config"], N_FRAMES, "main path"
@@ -510,13 +696,27 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     for i in range(n_frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, res = engine.process_frame(state, ctx["depths"][i])
+        if i == n_frames - 1:  # the last frame runs under the profiler and is left out of the times
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, res = engine.process_frame(state, ctx["depths"][i])
+                torch.cuda.synchronize()
+        else:
+            state, res = engine.process_frame(state, ctx["depths"][i])
         engine.log_pose(res)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         ok = bool(res.align_ok)
         aligned.append(ok)
         integrated += ok
+    times = times[:-1]
+    # what ran on the device from the frame's first ICP launch to its last
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in STAGES),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in device]
+    icp_at = [j for j, name in enumerate(names) if "icp_system_kernel" in name]
+    check(len(icp_at) > 0, "the profiler saw no icp_system launch: it does not trace the card here")
+    loop_names = names[icp_at[0]: icp_at[-1] + 1]
+    between = [name for name in loop_names if "icp_system_kernel" not in name and "icp_associate_kernel" not in name]
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:n_frames]))
@@ -529,7 +729,8 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
          frames=n_frames, depth=[cfg.depth_height, cfg.depth_width],
          volume=list(cfg.tsdf_size), mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)),
          frame_ms=times, ate_m=ate, all_aligned=all(aligned), peak_mem_bytes=peak,
-         model_map_valid_fraction=valid_frac, kernels=counts)
+         model_map_valid_fraction=valid_frac, kernels=counts, device_launches_in_profiled_frame=len(names),
+         icp_launches_in_profiled_frame=len(icp_at), other_device_work_inside_icp_loop=between[:8])
     check(all(aligned), f"frames failed to align: {aligned}")
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
     check(tuple(vmap.v.shape) == (3, cfg.depth_height >> L, cfg.depth_width >> L) and finite and valid_frac > 0.5,
@@ -542,6 +743,10 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
           and counts["fuse_volume"] == integrated and counts["icp_system"] == iterations * n_frames
           and counts["icp_associate"] == (cfg.num_levels * n_frames if fixed_assoc else 0),
           f"launch counts {counts}")
+    # the loop on the card: one launch per iteration and nothing else on the device between them
+    check(len(icp_at) == iterations and not between,
+          f"the profiled frame ran {len(icp_at)} icp_system launches for {iterations} iterations, with other "
+          f"device work between them: {between[:8]}")
     return counts
 
 

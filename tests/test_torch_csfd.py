@@ -111,6 +111,13 @@ def test_se3_inverse_matmul_matvec():
     _close(jse3.matvec(jse3.rotation(ja), jse3.translation(jb)), tse3.matvec(tse3.rotation(ta), tse3.translation(tb)))
 
 
+def test_se3_from_rotation_translation():
+    """The pose assembled by slices is the pose its parts were cut from."""
+    ta = to_torch(_rigid_dual(np.random.default_rng(6)))
+    back = tse3.from_rotation_translation(tse3.rotation(ta), tse3.translation(ta))
+    assert torch.equal(back.v, ta.v) and torch.equal(back.g, ta.g)
+
+
 def test_euler_xyz_increment():
     rng = np.random.default_rng(5)
     x = [_pair(rng, (), -0.1, 0.1) for _ in range(6)]

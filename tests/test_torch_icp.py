@@ -7,7 +7,16 @@ sums over ~19k rows reduced in another order); inlier counts within 0.1%
 (a pixel on a distance or angle gate may flip). The same holds with the
 association cached (the port's int32 index map against the JAX package's
 gathered rows), also after the pose has moved, and for
-``compute_optimize_matrix`` (rtol 1e-4 of the largest entry)."""
+``compute_optimize_matrix`` (rtol 1e-4 of the largest entry).
+
+The rest of an ICP iteration (``icp_step_plain``, the plain version of K4's
+tail: damping, solve, Euler increment, pose update) is held against the JAX
+package's ``solve_increment`` + ``euler_xyz_increment`` + composition on the
+SAME system (the JAX one, carried across as numpy), so only that arithmetic
+differs: ``x`` within rtol 1e-3 (the ICP matrix is ill-conditioned and the
+two LAPACKs pivot alike but round in another order), the pose within 2e-5
+(``x`` is of order 1e-2) and its derivative lane within 1e-3 of its largest
+entry."""
 
 import jax
 import numpy as np
@@ -188,3 +197,114 @@ def test_degenerate_system_fails_guard():
     x, ok = ticp.solve_increment(system)
     assert not bool(ok)
     assert torch.all(x.v == 0)
+
+
+# --- the rest of an iteration: icp_step_plain (plain version of K4's tail) ---
+def _jax_step(js, r_curr, t_curr, damping):
+    """One pose update as xslam_tpu/models/kinfu.py::_pose_estimate's body."""
+    from xslam_tpu.csfd.single import CSFD as JCSFD
+
+    x, ok = jicp.solve_increment(js, damping=damping)
+    inc = jse3.euler_xyz_increment(*(JCSFD(x.v[i], x.g[i]) for i in range(6)))
+    r_inc = jse3.rotation(inc)
+    t_new = jse3.matvec(r_inc, t_curr) + jse3.translation(inc)
+    r_new = jse3.matmul(r_inc, r_curr)
+    return x, ok, r_new, t_new
+
+
+def _port_system(js):
+    from xslam_tpu_torch.csfd.single import CSFD
+
+    n = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    return ticp.IcpSystem(A=CSFD(n(js.A.v), n(js.A.g)), b=CSFD(n(js.b.v), n(js.b.g)),
+                          inlier_count=torch.tensor(int(js.inlier_count)))
+
+
+@pytest.mark.parametrize("damping", [0.0, 1e-3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("level", LEVELS)
+def test_icp_step_plain(icp_inputs, systems, level, damping):
+    js, _ = systems[level]
+    p = icp_inputs[5]
+    jx, jok, jr, jt = _jax_step(js, p["r_curr"], p["t_curr"], damping)
+    step = ticp.icp_step_plain(_port_system(js), to_torch(p["r_curr"]), to_torch(p["t_curr"]), damping)
+    assert bool(jok) and bool(step.ok)
+    np.testing.assert_allclose(step.x.v.numpy(), np.asarray(jx.v), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(step.x.g.numpy(), np.asarray(jx.g), rtol=1e-3, atol=1e-3 * np.abs(np.asarray(jx.g)).max())
+    assert np.abs(np.asarray(jt.v) - np.asarray(p["t_curr"].v)).max() > 1e-4  # the step moved the pose
+    for got, want in ((step.r_curr, jr), (step.t_curr, jt)):
+        np.testing.assert_allclose(got.v.numpy(), np.asarray(want.v), atol=2e-5)
+        np.testing.assert_allclose(got.g.numpy(), np.asarray(want.g), atol=1e-3 * max(1.0, np.abs(np.asarray(want.g)).max()))
+    if damping > 0:  # damping shortened the step
+        x0 = ticp.icp_step_plain(_port_system(js), to_torch(p["r_curr"]), to_torch(p["t_curr"]), 0.0).x
+        assert not np.array_equal(x0.v.numpy(), step.x.v.numpy())
+
+
+def test_icp_step_on_cpu_is_the_plain_step(icp_inputs):
+    """The wrapper of a whole iteration on CPU tensors: the plain system,
+    then the plain step, and no launch."""
+    from xslam_tpu_torch.ops import kernels
+
+    _, _, targs, tkw = _level_args(icp_inputs, 2)
+    step = ticp.icp_step(*targs, **tkw, damping=0.0)
+    ref = ticp.icp_step_plain(ticp.build_system_plain(*targs, **tkw), targs[0], targs[1], 0.0)
+    for got, want in ((step.r_curr, ref.r_curr), (step.t_curr, ref.t_curr), (step.x, ref.x), (step.system.A, ref.system.A)):
+        assert torch.equal(got.v, want.v) and torch.equal(got.g, want.g)
+    assert bool(step.ok) and kernels.launch_counts["icp_system"] == 0
+
+
+def test_pose_pack_round_trip():
+    from xslam_tpu_torch.csfd.single import CSFD
+
+    rng = np.random.default_rng(11)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    r, t, rpi, tp = CSFD(f(3, 3), f(3, 3)), CSFD(f(3), f(3)), CSFD(f(3, 3), f(3, 3)), CSFD(f(3), f(3))
+    pose = ticp.pack_pose(r, t, rpi, tp)
+    assert pose.dtype == torch.float32 and tuple(pose.shape) == (ticp.POSE_FLOATS,) and pose.is_contiguous()
+    r2, t2 = ticp.unpack_pose(pose)
+    for got, want in ((r2, r), (t2, t)):
+        assert torch.equal(got.v, want.v) and torch.equal(got.g, want.g)
+    assert torch.equal(pose[24:33].view(3, 3), rpi.v) and torch.equal(pose[33:36], tp.v)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_packed_model_rows_match_the_planes(icp_inputs, level):
+    _, _, _, tkw = _level_args(icp_inputs, level)
+    vmap, nmap = tkw["vmap_g_prev"], tkw["nmap_g_prev"]
+    rows = ticp.pack_model_rows(vmap, nmap)
+    H, W = vmap.v.shape[-2:]
+    assert tuple(rows.shape) == (H * W, 12) and rows.is_contiguous() and rows.dtype == torch.float32
+    planes = (vmap.v, vmap.g, nmap.v, nmap.g)
+    for k, plane in enumerate(planes):
+        got, want = rows[:, 3 * k:3 * k + 3].numpy(), plane.reshape(3, -1).T.numpy()
+        np.testing.assert_array_equal(got, want)  # NaN where the model has no surface, bit for bit elsewhere
+    assert np.isfinite(rows.numpy()).any() and np.isnan(rows.numpy()).any()
+
+
+def test_icp_blocks_follow_the_shape():
+    assert ticp.icp_blocks(1) == 1
+    assert ticp.icp_blocks(120 * 160) == -(-120 * 160 // ticp.ICP_PIXELS_PER_BLOCK)
+    assert ticp.icp_blocks(480 * 640) <= ticp.ICP_MAX_BLOCKS
+    assert ticp.icp_blocks(4000 * 4000) == ticp.ICP_MAX_BLOCKS
+
+
+def test_degenerate_step_freezes_the_pose():
+    """No correspondences (frame 0 tracks against NaN maps): the guard
+    fails, the increment is zero and the pose comes back bit for bit, with
+    its derivative lane, not NaN."""
+    from xslam_tpu_torch.csfd.single import CSFD
+
+    rng = np.random.default_rng(3)
+    r = CSFD(torch.eye(3), torch.from_numpy(rng.standard_normal((3, 3)).astype(np.float32)))
+    t = CSFD(torch.tensor([0.1, -0.2, 0.3]), torch.from_numpy(rng.standard_normal(3).astype(np.float32)))
+    z = torch.zeros((6, 6))
+    system = ticp.IcpSystem(A=CSFD(z, z), b=CSFD(torch.zeros(6), torch.zeros(6)), inlier_count=torch.tensor(0))
+    for damping in (0.0, 1e-3):
+        step = ticp.icp_step_plain(system, r, t, damping)
+        assert not bool(step.ok)
+        assert torch.equal(step.r_curr.v, r.v) and torch.equal(step.r_curr.g, r.g)
+        assert torch.equal(step.t_curr.v, t.v) and torch.equal(step.t_curr.g, t.g)
+        assert torch.all(step.x.v == 0) and torch.all(step.x.g == 0)
+    # a NaN system (a NaN pose upstream) fails the guard as well
+    nan = torch.full((6, 6), float("nan"))
+    step = ticp.icp_step_plain(system._replace(A=CSFD(nan, z)), r, t, 0.0)
+    assert not bool(step.ok) and torch.equal(step.t_curr.v, t.v)

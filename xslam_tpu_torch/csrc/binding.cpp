@@ -15,11 +15,11 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
 extern "C" int xs_march_fixed(const void* value, const void* start, const void* dirs, void* t_found,
                               void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
                               float step, void* stream);
-extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* vprev_v, const void* vprev_g,
-                             const void* nprev_v, const void* nprev_g, const void* assoc, const void* pose,
-                             void* partials, void* ticket, int max_blocks, void* out, void* inliers, int Hc,
-                             int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy, float dist_thres,
-                             float angle_thres, void* stream);
+extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
+                             const void* pose, void* partials, void* ticket, int blocks, void* out,
+                             void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
+                             int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy,
+                             float dist_thres, float angle_thres, void* stream);
 extern "C" int xs_icp_associate(const void* vcurr, const void* pose, void* assoc, int Hc, int Wc, int Hp,
                                 int Wp, float fx, float fy, float cx, float cy, void* stream);
 extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
@@ -53,17 +53,21 @@ int march_fixed(const torch::Tensor& value, const torch::Tensor& start, const to
                         t_found.size(1), n_steps, vs, step, as_stream(stream));
 }
 
-// assoc: the cached int32 index map, or None to project in the kernel
-int icp_system(const torch::Tensor& vcurr, const torch::Tensor& ncurr, const torch::Tensor& vprev_v,
-               const torch::Tensor& vprev_g, const torch::Tensor& nprev_v, const torch::Tensor& nprev_g,
+void* data_or_null(const std::optional<torch::Tensor>& t) { return t.has_value() ? t->data_ptr() : nullptr; }
+
+// assoc: the cached int32 index map, or None to project in the kernel.
+// pose_out, x_out, flags: the tail's outputs, or None to stop after A and b.
+int icp_system(const torch::Tensor& vcurr, const torch::Tensor& ncurr, const torch::Tensor& rows,
                const std::optional<torch::Tensor>& assoc, const torch::Tensor& pose, torch::Tensor partials,
-               torch::Tensor ticket, torch::Tensor out, torch::Tensor inliers, float fx, float fy, float cx,
-               float cy, float dist_thres, float angle_thres, int64_t stream) {
-  return xs_icp_system(vcurr.data_ptr(), ncurr.data_ptr(), vprev_v.data_ptr(), vprev_g.data_ptr(),
-                       nprev_v.data_ptr(), nprev_g.data_ptr(), assoc.has_value() ? assoc->data_ptr() : nullptr,
-                       pose.data_ptr(), partials.data_ptr(), ticket.data_ptr(), partials.size(0), out.data_ptr(),
-                       inliers.data_ptr(), vcurr.size(1), vcurr.size(2), vprev_v.size(1), vprev_v.size(2), fx, fy,
-                       cx, cy, dist_thres, angle_thres, as_stream(stream));
+               torch::Tensor ticket, int64_t blocks, torch::Tensor out, torch::Tensor inliers,
+               const std::optional<torch::Tensor>& pose_out, const std::optional<torch::Tensor>& x_out,
+               const std::optional<torch::Tensor>& flags, float damping, bool first, int64_t Hp, int64_t Wp,
+               float fx, float fy, float cx, float cy, float dist_thres, float angle_thres, int64_t stream) {
+  return xs_icp_system(vcurr.data_ptr(), ncurr.data_ptr(), rows.data_ptr(), data_or_null(assoc), pose.data_ptr(),
+                       partials.data_ptr(), ticket.data_ptr(), blocks, out.data_ptr(), inliers.data_ptr(),
+                       data_or_null(pose_out), data_or_null(x_out), data_or_null(flags), damping, first ? 1 : 0,
+                       vcurr.size(1), vcurr.size(2), Hp, Wp, fx, fy, cx, cy, dist_thres, angle_thres,
+                       as_stream(stream));
 }
 
 int icp_associate(const torch::Tensor& vcurr, const torch::Tensor& pose, torch::Tensor assoc, int64_t Hp,

@@ -14,100 +14,164 @@
 // the pixel gate (dual camera coordinates and projection); only the voxels
 // the frame updates (about 6% of a 256^3 volume on the synthetic orbit) do
 // the other 60 and move 24 bytes each (three planes read and written), plus
-// the 1.2 MB depth image. Design: one thread per voxel, z fastest, so a
-// warp's updated voxels of each plane lie in neighbouring addresses; the 24
-// pose floats come from a small device tensor (no host read), and the depth
-// image stays in L2. The dual arithmetic repeats the reference's
-// operation order one rounding at a time (built with -fmad=false); terms
-// that the reference multiplies by a lifted constant's zero derivative are
-// dropped, which changes no finite result.
+// the 1.2 MB depth image. What the design does about it:
+//
+// - A 3-D launch: a block of 32 x 8 threads owns a tile of 4 x 8 x 64 voxels
+//   (x, y, z), z fastest within the warp, so a warp's updated voxels of each
+//   plane lie in neighbouring addresses, and x, y, z come from block and
+//   thread indices with 32-bit arithmetic (no division).
+// - The block first tests its tile against the camera. The camera
+//   coordinates are affine in the voxel index, so each of five linear
+//   functions of them (depth; the four sides of the pixel gate, multiplied
+//   through by the depth so that nothing is divided) takes its largest value
+//   over the tile at one of the eight corner voxels. Where one of them is
+//   below zero at all eight corners by a margin that covers float32
+//   rounding, no voxel of the tile can pass its gates and the block returns.
+//   The test may keep a tile that updates nothing; it never drops a voxel
+//   that the frame updates (ops/fusion.py::tile_keep_mask is its plain twin).
+// - A thread walks the tile's x slices and, within one, its z steps, so the
+//   sums R[i][0] gx + R[i][1] gy of a z column are computed once. The
+//   reference adds ((a + b) + c) + t, so hoisting (a + b) keeps every bit.
+// - Inside a kept tile each voxel runs the reference's operations in its
+//   order, one rounding at a time (built with -fmad=false); terms that the
+//   reference multiplies by a lifted constant's zero derivative are dropped,
+//   which changes no finite result. The 24 pose floats come from a small
+//   device tensor (no host read), and the depth image stays in L2.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int TILE_X = 4, TILE_Y = 8, TILE_Z = 64;  // ops/fusion.py::FUSE_TILE
+constexpr int LANES_Z = 32;                         // threads along z; TILE_Y threads along y
+constexpr float CULL_MARGIN = 4e-6f;                // ops/fusion.py::FUSE_CULL_MARGIN
+// the pixel gate needs 2.5 <= img < size - 0.5; the tile test asks only for
+// 1 <= img <= size, a pixel and a half looser
+constexpr float CULL_LO = 1.0f;
 
 struct Params {
   int X, Y, Z, H, W;
   float vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w;
 };
 
-__global__ void fuse_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
-                            const float* __restrict__ depth, const float* __restrict__ pose, Params p) {
-  const long long n = (long long)p.X * p.Y * p.Z;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int z = (int)(idx % p.Z);
-  const int y = (int)((idx / p.Z) % p.Y);
-  const int x = (int)(idx / ((long long)p.Y * p.Z));
+// True where no voxel of the tile whose first voxel is (x0, y0, z0) can pass
+// the in-front test and the pixel gate. Every lane of the calling warp takes
+// one of the eight corner voxels (lane & 7).
+__device__ __forceinline__ bool tile_outside(const float* __restrict__ pose, const Params& p, int x0, int y0,
+                                             int z0, int lane) {
+  const int x = (lane & 1) ? min(x0 + TILE_X, p.X) - 1 : x0;
+  const int y = (lane & 2) ? min(y0 + TILE_Y, p.Y) - 1 : y0;
+  const int z = (lane & 4) ? min(z0 + TILE_Z, p.Z) - 1 : z0;
+  const float gx = ((float)x + 0.5f) * p.vs, gy = ((float)y + 0.5f) * p.vs, gz = ((float)z + 0.5f) * p.vs;
+  float c[3];
+  for (int i = 0; i < 3; ++i) c[i] = ((pose[3 * i] * gx + pose[3 * i + 1] * gy) + pose[3 * i + 2] * gz) + pose[18 + i];
+  float cmax = fmaxf(fmaxf(fabsf(c[0]), fabsf(c[1])), fabsf(c[2]));
+  for (int off = 4; off > 0; off >>= 1) cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+  const float scale = CULL_MARGIN * (cmax + 1.0f);
+  const float eps_x = scale * ((fabsf(p.fx) + fabsf(p.cx)) + (float)p.W);
+  const float eps_y = scale * ((fabsf(p.fy) + fabsf(p.cy)) + (float)p.H);
+  const float ax = c[0] * p.fx, ay = c[1] * p.fy;
+  const bool outside[5] = {
+      c[2] < -scale,                               // behind the camera
+      ax - (CULL_LO - p.cx) * c[2] < -eps_x,       // img_x < 1
+      ((float)p.W - p.cx) * c[2] - ax < -eps_x,    // img_x > W
+      ay - (CULL_LO - p.cy) * c[2] < -eps_y,       // img_y < 1
+      ((float)p.H - p.cy) * c[2] - ay < -eps_y,    // img_y > H
+  };
+  bool all_outside = false;
+  for (int k = 0; k < 5; ++k) all_outside = all_outside || __all_sync(0xffffffffu, outside[k]);
+  return all_outside;
+}
+
+__global__ void __launch_bounds__(LANES_Z * TILE_Y)
+fuse_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
+            const float* __restrict__ depth, const float* __restrict__ pose, Params p) {
+  const int z0 = blockIdx.x * TILE_Z, y0 = blockIdx.y * TILE_Y, x0 = blockIdx.z * TILE_X;
+  const int keep = threadIdx.y == 0 && !tile_outside(pose, p, x0, y0, z0, threadIdx.x);
+  if (!__syncthreads_or(keep)) return;
+
+  const int y = y0 + threadIdx.y;
+  if (y >= p.Y) return;
+  const int x_end = min(x0 + TILE_X, p.X), z_end = min(z0 + TILE_Z, p.Z);
 
   // pose layout: R.v (row-major 3x3), R.g, t.v, t.g
   const float* Rv = pose;
   const float* Rg = pose + 9;
   const float* tv = pose + 18;
   const float* tg = pose + 21;
-
-  const float gx = ((float)x + 0.5f) * p.vs;
   const float gy = ((float)y + 0.5f) * p.vs;
-  const float gz = ((float)z + 0.5f) * p.vs;
 
-  float cv[3], cg[3];  // camera coordinates, value and derivative lanes
-  for (int i = 0; i < 3; ++i) {
-    cv[i] = ((Rv[3 * i] * gx + Rv[3 * i + 1] * gy) + Rv[3 * i + 2] * gz) + tv[i];
-    cg[i] = ((Rg[3 * i] * gx + Rg[3 * i + 1] * gy) + Rg[3 * i + 2] * gz) + tg[i];
+  for (int x = x0; x < x_end; ++x) {
+    const float gx = ((float)x + 0.5f) * p.vs;
+    float bv[3], bg[3];  // the part of the camera coordinates that a z column shares
+    for (int i = 0; i < 3; ++i) {
+      bv[i] = Rv[3 * i] * gx + Rv[3 * i + 1] * gy;
+      bg[i] = Rg[3 * i] * gx + Rg[3 * i + 1] * gy;
+    }
+    for (int z = z0 + threadIdx.x; z < z_end; z += LANES_Z) {
+      const float gz = ((float)z + 0.5f) * p.vs;
+      float cv[3], cg[3];  // camera coordinates, value and derivative lanes
+      for (int i = 0; i < 3; ++i) {
+        cv[i] = (bv[i] + Rv[3 * i + 2] * gz) + tv[i];
+        cg[i] = (bg[i] + Rg[3 * i + 2] * gz) + tg[i];
+      }
+
+      // inv_z = 1 / v_c.z
+      const float izv = 1.0f / cv[2];
+      const float izg = (0.0f - izv * cg[2]) * izv;
+      const bool in_front = izv >= 0.0f;
+
+      // image = v_c * f * inv_z + c
+      const float axv = cv[0] * p.fx, axg = cg[0] * p.fx;
+      const float ixv = axv * izv + p.cx;
+      const float ixg = axg * izv + axv * izg;
+      const float ayv = cv[1] * p.fy, ayg = cg[1] * p.fy;
+      const float iyv = ayv * izv + p.cy;
+      const float iyg = ayg * izv + ayv * izg;
+
+      // pixel gate on floor(img - 0.5), compared as floats (NaN fails)
+      const float cxf = floorf(ixv - 0.5f), cyf = floorf(iyv - 0.5f);
+      const bool in_bounds = cxf > 1.0f && cyf > 1.0f && cxf < (float)(p.W - 1) && cyf < (float)(p.H - 1);
+      if (!(in_front && in_bounds)) continue;
+
+      // inside the gate, round(img) lies in [2, size-1]
+      const int px = __float2int_rn(ixv), py = __float2int_rn(iyv);
+      const float dv = depth[py * p.W + px];
+      if (!(dv > 0.0f)) continue;
+
+      // lambda^2 = xl^2 + yl^2 + 1 with xl = (img_x - cx) / fx
+      const float xlv = (ixv - p.cx) * p.inv_fx, xlg = ixg * p.inv_fx;
+      const float ylv = (iyv - p.cy) * p.inv_fy, ylg = iyg * p.inv_fy;
+      const float l2v = (xlv * xlv + ylv * ylv) + 1.0f;
+      const float l2g = (xlg * xlv + xlv * xlg) + (ylg * ylv + ylv * ylg);
+      const float slv = sqrtf(l2v);
+      const float slg = (0.5f * l2g) / slv;
+
+      // |v_c|
+      const float nv = (cv[0] * cv[0] + cv[1] * cv[1]) + cv[2] * cv[2];
+      const float ng =
+          (cg[0] * cv[0] + cv[0] * cg[0]) + (cg[1] * cv[1] + cv[1] * cg[1]) + (cg[2] * cv[2] + cv[2] * cg[2]);
+      const float snv = sqrtf(nv);
+      const float sng = (0.5f * ng) / snv;
+
+      const float sdfv = dv * slv - snv;
+      const float sdfg = dv * slg - sng;
+      if (!(sdfv >= -p.trunc)) continue;
+
+      float tsv = sdfv * p.inv_trunc, tsg = sdfg * p.inv_trunc;
+      if (sdfv > p.trunc) {  // constant 1 + 0i past +trunc
+        tsv = 1.0f;
+        tsg = 0.0f;
+      }
+
+      const size_t idx = ((size_t)x * p.Y + y) * p.Z + z;
+      const float w = weight[idx];
+      const float inv = 1.0f / (w + 1.0f);
+      value[idx] = (value[idx] * w + tsv) * inv;
+      grad[idx] = (grad[idx] * w + tsg) * inv;
+      weight[idx] = fminf(w + 1.0f, p.max_w);
+    }
   }
-
-  // inv_z = 1 / v_c.z
-  const float izv = 1.0f / cv[2];
-  const float izg = (0.0f - izv * cg[2]) * izv;
-  const bool in_front = izv >= 0.0f;
-
-  // image = v_c * f * inv_z + c
-  const float axv = cv[0] * p.fx, axg = cg[0] * p.fx;
-  const float ixv = axv * izv + p.cx;
-  const float ixg = axg * izv + axv * izg;
-  const float ayv = cv[1] * p.fy, ayg = cg[1] * p.fy;
-  const float iyv = ayv * izv + p.cy;
-  const float iyg = ayg * izv + ayv * izg;
-
-  // pixel gate on floor(img - 0.5), compared as floats (NaN fails)
-  const float cxf = floorf(ixv - 0.5f), cyf = floorf(iyv - 0.5f);
-  const bool in_bounds = cxf > 1.0f && cyf > 1.0f && cxf < (float)(p.W - 1) && cyf < (float)(p.H - 1);
-  if (!(in_front && in_bounds)) return;
-
-  // inside the gate, round(img) lies in [2, size-1]
-  const int px = __float2int_rn(ixv), py = __float2int_rn(iyv);
-  const float dv = depth[py * p.W + px];
-  if (!(dv > 0.0f)) return;
-
-  // lambda^2 = xl^2 + yl^2 + 1 with xl = (img_x - cx) / fx
-  const float xlv = (ixv - p.cx) * p.inv_fx, xlg = ixg * p.inv_fx;
-  const float ylv = (iyv - p.cy) * p.inv_fy, ylg = iyg * p.inv_fy;
-  const float l2v = (xlv * xlv + ylv * ylv) + 1.0f;
-  const float l2g = (xlg * xlv + xlv * xlg) + (ylg * ylv + ylv * ylg);
-  const float slv = sqrtf(l2v);
-  const float slg = (0.5f * l2g) / slv;
-
-  // |v_c|
-  const float nv = (cv[0] * cv[0] + cv[1] * cv[1]) + cv[2] * cv[2];
-  const float ng = (cg[0] * cv[0] + cv[0] * cg[0]) + (cg[1] * cv[1] + cv[1] * cg[1]) + (cg[2] * cv[2] + cv[2] * cg[2]);
-  const float snv = sqrtf(nv);
-  const float sng = (0.5f * ng) / snv;
-
-  const float sdfv = dv * slv - snv;
-  const float sdfg = dv * slg - sng;
-  if (!(sdfv >= -p.trunc)) return;
-
-  float tsv = sdfv * p.inv_trunc, tsg = sdfg * p.inv_trunc;
-  if (sdfv > p.trunc) {  // constant 1 + 0i past +trunc
-    tsv = 1.0f;
-    tsg = 0.0f;
-  }
-
-  const float w = weight[idx];
-  const float inv = 1.0f / (w + 1.0f);
-  value[idx] = (value[idx] * w + tsv) * inv;
-  grad[idx] = (grad[idx] * w + tsg) * inv;
-  weight[idx] = fminf(w + 1.0f, p.max_w);
 }
 
 }  // namespace
@@ -118,9 +182,9 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
                               void* stream) {
   const Params p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w};
-  const long long n = (long long)X * Y * Z;
-  const int block = 256;
-  const unsigned int grid = (unsigned int)((n + block - 1) / block);
+  const dim3 block(LANES_Z, TILE_Y);
+  const dim3 grid((Z + TILE_Z - 1) / TILE_Z, (Y + TILE_Y - 1) / TILE_Y, (X + TILE_X - 1) / TILE_X);
+  if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
   fuse_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((float*)value, (float*)grad, (float*)weight,
                                                         (const float*)depth, (const float*)pose, p);
   return (int)cudaGetLastError();

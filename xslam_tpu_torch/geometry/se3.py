@@ -93,3 +93,15 @@ def rotation(T: CSFD) -> CSFD:
 
 def translation(T: CSFD) -> CSFD:
     return CSFD(T.v[:3, 3], T.g[:3, 3])
+
+
+def from_rotation_translation(r: CSFD, t: CSFD) -> CSFD:
+    """The (4, 4) dual pose ``[R t; 0 0 0 1]``, assembled by slices."""
+    def lane(rot, trans, corner):
+        m = rot.new_zeros((4, 4))
+        m[:3, :3] = rot
+        m[:3, 3] = trans
+        m[3, 3] = corner
+        return m
+
+    return CSFD(lane(r.v, t.v, 1.0), lane(r.g, t.g, 0.0))

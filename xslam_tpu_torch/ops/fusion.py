@@ -5,7 +5,9 @@ Port of ``xslam_tpu/ops/fusion.py`` (reference ``TsdfFusion.cu``,
 tsdf), grad (Im tsdf) and weight. The per-voxel update is kernel K2
 (:func:`xslam_tpu_torch.ops.kernels.fuse_volume`), which rewrites the
 volume in place; its plain version is
-:func:`xslam_tpu_torch.ops.kernels.fuse_volume_plain`.
+:func:`xslam_tpu_torch.ops.kernels.fuse_volume_plain`. The kernel skips the
+tiles of the volume that the camera cannot see; :func:`tile_keep_mask` is
+that test's plain twin, which the tests hold against the plain update.
 """
 
 from __future__ import annotations
@@ -19,6 +21,13 @@ from ..csfd.single import CSFD
 from ..geometry.intrinsics import Intrinsics
 from . import kernels
 from .preprocess import DEPTH_MAX_MM, DEPTH_MIN_MM
+
+
+# csrc/fusion.cu: the tile of voxels (x, y, z) one block owns, the relative
+# margin of its test against the camera, and the lower pixel bound it asks for
+FUSE_TILE = (4, 8, 64)
+FUSE_CULL_MARGIN = 4e-6
+FUSE_CULL_LO = 1.0
 
 
 @dataclass(frozen=True)
@@ -75,3 +84,49 @@ def integrate(
         cfg.voxel_size, cfg.trunc_dist, cfg.max_weight,
     )
     return vol
+
+
+def tile_keep_mask(r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics, resolution, voxel_size: float) -> torch.Tensor:
+    """Plain twin of K2's tile test: a bool ``(ceil(X/4), ceil(Y/8),
+    ceil(Z/64))`` tensor, False where the kernel's block returns before it
+    looks at a voxel.
+
+    A voxel is updated only if it lies in front of the camera (``z > 0``) and
+    its pixel passes the gate, which needs ``2.5 <= img < size - 0.5``. With
+    ``z > 0`` each side of the gate is a linear function of the camera
+    coordinates (``img_x >= 1`` is ``x * fx - (1 - cx) * z >= 0``, whatever
+    the sign of ``fx`` or ``fy``), and the camera coordinates are affine in
+    the voxel index, so a function that is below zero at the tile's eight
+    corner voxels is below zero at all of them. The tile is dropped where
+    one of the five functions is below zero at every corner by a margin of
+    ``FUSE_CULL_MARGIN`` times the operands' size, which covers the float32
+    rounding of both this test and the voxels' own arithmetic."""
+    X, Y, Z = resolution
+    dev = r_v2c.v.device
+    R, t = r_v2c.v.to(torch.float32), t_v2c.v.to(torch.float32)
+
+    def corners(n, tile):
+        first = torch.arange(0, n, tile, device=dev)
+        last = torch.clamp(first + tile, max=n) - 1
+        return (torch.stack([first, last], dim=-1).to(torch.float32) + 0.5) * voxel_size  # (tiles, 2)
+
+    gx = corners(X, FUSE_TILE[0])[:, None, None, :, None, None]
+    gy = corners(Y, FUSE_TILE[1])[None, :, None, None, :, None]
+    gz = corners(Z, FUSE_TILE[2])[None, None, :, None, None, :]
+    c = [((R[i, 0] * gx + R[i, 1] * gy) + R[i, 2] * gz) + t[i] for i in range(3)]  # (tx, ty, tz, 2, 2, 2)
+    cmax = torch.stack([x.abs() for x in c]).amax(dim=(0, 4, 5, 6), keepdim=True)[0]
+    scale = FUSE_CULL_MARGIN * (cmax + 1.0)
+    eps_x = scale * ((abs(intr.fx) + abs(intr.cx)) + intr.width)
+    eps_y = scale * ((abs(intr.fy) + abs(intr.cy)) + intr.height)
+    ax, ay = c[0] * intr.fx, c[1] * intr.fy
+    outside = (
+        c[2] < -scale,
+        ax - (FUSE_CULL_LO - intr.cx) * c[2] < -eps_x,
+        (intr.width - intr.cx) * c[2] - ax < -eps_x,
+        ay - (FUSE_CULL_LO - intr.cy) * c[2] < -eps_y,
+        (intr.height - intr.cy) * c[2] - ay < -eps_y,
+    )
+    dropped = torch.zeros(cmax.shape[:3], dtype=torch.bool, device=dev)
+    for o in outside:
+        dropped |= o.all(dim=(3, 4, 5))
+    return ~dropped

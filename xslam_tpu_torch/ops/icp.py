@@ -1,18 +1,25 @@
 """Projective point-to-plane ICP: correspondence search + normal equations.
 
 Port of ``xslam_tpu/ops/icp.py`` (reference ``ICP.cu``): ``associate``,
-``build_system``, ``compute_optimize_matrix`` and ``solve_increment``. Per
+``build_system``, ``compute_optimize_matrix`` and ``solve_increment``, and of
+the pose update of ``xslam_tpu/models/kinfu.py::_pose_estimate``. Per
 pixel the dual row ``[cross(s,n), n | n·(d−s)]`` is built, and ``A = JᵀJ``,
-``b = Jᵀr`` are reduced over all pixels.
+``b = Jᵀr`` are reduced over all pixels; the 6x6 dual system is solved and
+the pose moved by the Euler increment.
 
-:func:`build_system` and :func:`associate_index` are the wrappers of kernel
-K4 (``csrc/icp.cu``, two entry points): on CUDA tensors they launch it, on
-CPU tensors they run :func:`build_system_plain` and
+:func:`build_system`, :func:`icp_step`, :class:`IcpLoop` and
+:func:`associate_index` are the wrappers of kernel K4 (``csrc/icp.cu``, two
+entry points): on CUDA tensors they launch it, on CPU tensors they run
+:func:`build_system_plain`, :func:`icp_step_plain` and
 :func:`associate_index_plain`, its plain versions, and they never fall back
-from one to the other. The kernel adds the rows in double and rounds once;
-the plain version reduces in 4096-row float32 blocks and then over the
-blocks, as the JAX package does (its matmuls run in full float32: the
-package pins TF32 off at import).
+from one to the other. ``icp_system`` has two modes: :func:`build_system`
+stops after ``A``, ``b`` and the inlier count; :func:`icp_step` and
+:class:`IcpLoop` give it a pose output, and the kernel then also solves the
+system and writes the next iteration's pose (its "tail"), so an ICP loop on
+the card is one launch per iteration with nothing between them. The kernel
+adds the rows in double and rounds once; the plain version reduces in
+4096-row float32 blocks and then over the blocks, as the JAX package does
+(its matmuls run in full float32: the package pins TF32 off at import).
 
 The cached association (``SlamConfig.icp_fixed_assoc``) is an int32 (H, W)
 map of the flat index of each pixel's target in the previous model, −1 where
@@ -33,20 +40,43 @@ import torch
 
 from ..csfd import vec3
 from ..csfd.single import CSFD, lift, solve
+from ..geometry import se3
 from ..geometry.intrinsics import Intrinsics
 from . import kernels
 from .sampling import to_index
 
-# csrc/icp.cu: the most blocks a launch uses (two for each of the 132 SMs)
-# and the doubles each block writes (54 sums and the inlier count)
-ICP_MAX_BLOCKS = 264
+# csrc/icp.cu: the pixels one block of a launch takes (half a warp's tile of
+# 32 pixels for each of its 8 warps: measured on the H100, more and smaller
+# blocks beat fewer partial sums down to this size), the most blocks a
+# launch uses (three for each of the 132 SMs, one wave), the doubles each
+# block writes (54 sums and the inlier count) and the floats of the packed pose
+ICP_PIXELS_PER_BLOCK = 128
+ICP_MAX_BLOCKS = 396
 ICP_SUMS = 55
+POSE_FLOATS = 36
+
+
+def icp_blocks(n_pixels: int) -> int:
+    """The grid of an ``icp_system`` launch over ``n_pixels`` current pixels.
+    It depends on the shape alone, and with it the order of the sums."""
+    return max(1, min(ICP_MAX_BLOCKS, -(-n_pixels // ICP_PIXELS_PER_BLOCK)))
 
 
 class IcpSystem(NamedTuple):
     A: CSFD  # (6, 6) dual normal matrix
     b: CSFD  # (6,) dual rhs
     inlier_count: torch.Tensor  # scalar
+
+
+class IcpStep(NamedTuple):
+    """One whole ICP iteration: the system, the pose after the step (the
+    pose before it where the step failed), the increment and the flag."""
+
+    system: IcpSystem
+    r_curr: CSFD  # (3, 3)
+    t_curr: CSFD  # (3,)
+    x: CSFD  # (6,) [alpha beta gamma tx ty tz]
+    ok: torch.Tensor  # bool scalar
 
 
 class Association(NamedTuple):
@@ -64,11 +94,21 @@ def _gather_prev_rows(vmap_g_prev: CSFD, nmap_g_prev: CSFD, iy, ix):
     H, W = vmap_g_prev.v.shape[-2:]
     ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
     flat = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(-1)
-    table = torch.cat([vmap_g_prev.v, vmap_g_prev.g, nmap_g_prev.v, nmap_g_prev.g]).reshape(12, -1)
-    r = table[:, flat].reshape(12, *iy.shape)
+    r = _model_table(vmap_g_prev, nmap_g_prev)[:, flat].reshape(12, *iy.shape)
     vprev = CSFD(torch.where(ok, r[0:3], torch.nan), torch.where(ok, r[3:6], 0.0))
     nprev = CSFD(torch.where(ok, r[6:9], torch.nan), torch.where(ok, r[9:12], 0.0))
     return vprev, nprev
+
+
+def _model_table(vmap_g_prev: CSFD, nmap_g_prev: CSFD) -> torch.Tensor:
+    """The model's twelve planes as (12, H * W): v.v, v.g, n.v, n.g."""
+    return torch.cat([vmap_g_prev.v, vmap_g_prev.g, nmap_g_prev.v, nmap_g_prev.g]).reshape(12, -1)
+
+
+def pack_model_rows(vmap_g_prev: CSFD, nmap_g_prev: CSFD) -> torch.Tensor:
+    """The model maps of one level as K4 reads them: (H * W, 12) float32, one
+    48-byte row per pixel (v.v, v.g, n.v, n.g), packed once per frame."""
+    return _model_table(vmap_g_prev, nmap_g_prev).t().contiguous()
 
 
 def _project(r_curr: CSFD, t_curr: CSFD, vmap_curr, r_prev_inv: CSFD, t_prev: CSFD, intr: Intrinsics, H: int, W: int):
@@ -135,6 +175,11 @@ def pack_pose(r_curr: CSFD, t_curr: CSFD, r_prev_inv: CSFD, t_prev: CSFD) -> tor
     return torch.cat([p.reshape(-1) for p in parts]).to(torch.float32).contiguous()
 
 
+def unpack_pose(pose: torch.Tensor) -> Tuple[CSFD, CSFD]:
+    """``(R_curr, t_curr)`` of a packed pose, as views of it."""
+    return CSFD(pose[0:9].view(3, 3), pose[9:18].view(3, 3)), CSFD(pose[18:21], pose[21:24])
+
+
 def _check_maps(vmap_curr, maps, names):
     if vmap_curr.dim() != 3 or vmap_curr.shape[0] != 3:
         raise ValueError(f"vmap_curr: expected (3, H, W), got {tuple(vmap_curr.shape)}")
@@ -150,7 +195,10 @@ def associate_index(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr: Intrins
     version on CPU tensors."""
     if kernels.on_cpu(vmap_curr, r_curr.v, t_curr.v, r_prev_inv.v, t_prev.v):
         return associate_index_plain(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr, prev_shape)
-    pose = pack_pose(r_curr, t_curr, r_prev_inv, t_prev)
+    return _launch_associate(pack_pose(r_curr, t_curr, r_prev_inv, t_prev), vmap_curr, intr, prev_shape)
+
+
+def _launch_associate(pose: torch.Tensor, vmap_curr: torch.Tensor, intr: Intrinsics, prev_shape) -> torch.Tensor:
     _check_maps(vmap_curr, (vmap_curr,), ("vmap_curr",))
     H, W = prev_shape
     index = torch.empty(vmap_curr.shape[1:], dtype=torch.int32, device=vmap_curr.device)
@@ -162,20 +210,59 @@ def associate_index(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr: Intrins
     return index
 
 
-_scratch: dict = {}  # (device, stream) -> (block partials, zeroed ticket) of K4
+class _Scratch:
+    """K4's scratch on one device and stream, since launches on one stream
+    run in order: the blocks' partial sums; the ticket counter, which the
+    kernel leaves zeroed; and what an ICP loop keeps on the device between
+    its launches: the pose pair (one read, the other written, then swapped),
+    ``A`` and ``b``, the inlier count, ``x`` and the two flags (this step
+    solved; every step of the frame solved)."""
+
+    def __init__(self, device: torch.device):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.partials = torch.empty((ICP_MAX_BLOCKS, ICP_SUMS), dtype=torch.float64, device=device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.pose = torch.zeros((2, POSE_FLOATS), **f32)
+        self.out = torch.empty(84, **f32)
+        self.inliers = torch.empty((), dtype=torch.int32, device=device)
+        self.x = torch.empty(12, **f32)
+        self.flags = torch.zeros(2, dtype=torch.int32, device=device)
 
 
-def _icp_scratch(device: torch.device):
-    """K4's scratch: the blocks' partial sums and the ticket counter, which
-    the kernel leaves zeroed. One pair per device and stream, since launches
-    on one stream run in order."""
+_scratch: dict = {}  # (device, stream) -> _Scratch
+
+
+def _icp_scratch(device: torch.device) -> _Scratch:
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     if key not in _scratch:
-        _scratch[key] = (
-            torch.empty((ICP_MAX_BLOCKS, ICP_SUMS), dtype=torch.float64, device=device),
-            torch.zeros(1, dtype=torch.int32, device=device),
-        )
+        _scratch[key] = _Scratch(device)
     return _scratch[key]
+
+
+def _launch_system(scratch, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, pose, out, inliers, intr,
+                   dist_thres, angle_thres, tail=None, damping=0.0, first=False) -> None:
+    """Check the tensors and launch ``icp_system`` once. ``tail`` is ``None``
+    or ``(pose_out, x_out, flags)``. Nothing here runs on the device but the
+    kernel."""
+    _check_maps(vmap_curr, (vmap_curr, nmap_curr), ("vmap_curr", "nmap_curr"))
+    if nmap_curr.shape != vmap_curr.shape:
+        raise ValueError("the current maps must share one shape")
+    H, W = (int(n) for n in prev_shape)
+    kernels.check_tensor(model_rows, "model_rows", torch.float32, (H * W, 12))
+    kernels.check_tensor(pose, "pose", torch.float32, (POSE_FLOATS,))
+    if assoc is not None:
+        if not isinstance(assoc, torch.Tensor):
+            raise TypeError("on CUDA the cached association is the int32 index map of associate_index")
+        kernels.check_tensor(assoc, "assoc", torch.int32, vmap_curr.shape[1:])
+    kernels.on_cpu(vmap_curr, nmap_curr, model_rows, pose, *(() if assoc is None else (assoc,)))  # one CUDA device
+    kernels.launch(
+        "icp_system", vmap_curr.device, vmap_curr, nmap_curr, model_rows, assoc, pose, scratch.partials,
+        scratch.ticket, icp_blocks(vmap_curr[0].numel()), out, inliers, *(tail or (None, None, None)),
+        kernels.f32(damping), bool(first), H, W,
+        kernels.f32(intr.fx), kernels.f32(intr.fy), kernels.f32(intr.cx), kernels.f32(intr.cy),
+        kernels.f32(dist_thres), kernels.f32(angle_thres),
+    )
+    kernels.launch_counts["icp_system"] += 1
 
 
 def build_system(
@@ -192,38 +279,117 @@ def build_system(
     angle_thres: float,
     assoc=None,
 ) -> IcpSystem:
-    """One ICP iteration's normal equations: kernel K4 (``icp_system``) on
-    CUDA tensors, :func:`build_system_plain` on CPU tensors. Same contract as
-    the plain version; on CUDA ``assoc`` is ``None`` or the int32 index map
-    of :func:`associate_index`."""
+    """One ICP iteration's normal equations: kernel K4 (``icp_system``
+    without its tail) on CUDA tensors, :func:`build_system_plain` on CPU
+    tensors. Same contract as the plain version; on CUDA ``assoc`` is
+    ``None`` or the int32 index map of :func:`associate_index`."""
     maps = (vmap_curr, nmap_curr, vmap_g_prev.v, vmap_g_prev.g, nmap_g_prev.v, nmap_g_prev.g)
     if kernels.on_cpu(r_curr.v, t_curr.v, r_prev_inv.v, t_prev.v, *maps):
         return build_system_plain(
             r_curr, t_curr, vmap_curr, nmap_curr, r_prev_inv, t_prev, intr, vmap_g_prev, nmap_g_prev,
             dist_thres, angle_thres, assoc=assoc,
         )
-    _check_maps(vmap_curr, maps, ("vmap_curr", "nmap_curr", "vmap_prev.v", "vmap_prev.g", "nmap_prev.v", "nmap_prev.g"))
-    if nmap_curr.shape != vmap_curr.shape or any(m.shape != vmap_g_prev.v.shape for m in maps[3:]):
-        raise ValueError("current maps must share one shape, previous maps another")
-    if assoc is not None:
-        if not isinstance(assoc, torch.Tensor):
-            raise TypeError("on CUDA the cached association is the int32 index map of associate_index")
-        kernels.on_cpu(assoc, vmap_curr)  # raises unless on the same device
-        kernels.check_tensor(assoc, "assoc", torch.int32, vmap_curr.shape[1:])
+    _check_model_maps(vmap_g_prev, nmap_g_prev)
     dev = vmap_curr.device
-    pose = pack_pose(r_curr, t_curr, r_prev_inv, t_prev)
-    partials, ticket = _icp_scratch(dev)
     out = torch.empty(84, dtype=torch.float32, device=dev)
     inliers = torch.empty((), dtype=torch.int32, device=dev)
-    kernels.launch(
-        "icp_system", dev, *maps, assoc, pose, partials, ticket, out, inliers,
-        kernels.f32(intr.fx), kernels.f32(intr.fy), kernels.f32(intr.cx), kernels.f32(intr.cy),
-        kernels.f32(dist_thres), kernels.f32(angle_thres),
+    _launch_system(
+        _icp_scratch(dev), vmap_curr, nmap_curr, pack_model_rows(vmap_g_prev, nmap_g_prev),
+        vmap_g_prev.v.shape[-2:], assoc, pack_pose(r_curr, t_curr, r_prev_inv, t_prev), out, inliers, intr,
+        dist_thres, angle_thres,
     )
-    kernels.launch_counts["icp_system"] += 1
+    return _system_of(out, inliers)
+
+
+def _check_model_maps(vmap_g_prev: CSFD, nmap_g_prev: CSFD) -> None:
+    maps = (vmap_g_prev.v, vmap_g_prev.g, nmap_g_prev.v, nmap_g_prev.g)
+    _check_maps(maps[0], maps, ("vmap_prev.v", "vmap_prev.g", "nmap_prev.v", "nmap_prev.g"))
+    if any(m.shape != maps[0].shape for m in maps):
+        raise ValueError("the previous model's maps must share one shape")
+
+
+def _system_of(out: torch.Tensor, inliers: torch.Tensor) -> IcpSystem:
     A = CSFD(out[0:36].view(6, 6), out[36:72].view(6, 6))
     b = CSFD(out[72:78], out[78:84])
     return IcpSystem(A=A, b=b, inlier_count=inliers)
+
+
+class IcpLoop:
+    """One frame's ICP loop on the card. The pose lives in K4's scratch:
+    every :meth:`iterate` is exactly one ``icp_system`` launch with its tail,
+    which reads the pose from one buffer and writes the next pose into the
+    other, and every :meth:`associate` one ``icp_associate`` launch on the
+    current buffer. Nothing else runs on the device between them, and
+    nothing is read back. :meth:`result` copies the outcome out of the
+    scratch, which the next loop on this device and stream reuses."""
+
+    def __init__(self, pose: torch.Tensor):
+        """``pose``: the 36 floats of :func:`pack_pose` on a CUDA device."""
+        if pose.device.type != "cuda":
+            raise ValueError("IcpLoop drives the kernel: its pose must lie on a CUDA device")
+        self._scratch = _icp_scratch(pose.device)
+        self._scratch.pose[0].copy_(pose)
+        self._cur = 0
+        self._first = True
+
+    def associate(self, vmap_curr: torch.Tensor, intr: Intrinsics, prev_shape) -> torch.Tensor:
+        return _launch_associate(self._scratch.pose[self._cur], vmap_curr, intr, prev_shape)
+
+    def iterate(self, vmap_curr, nmap_curr, model_rows, prev_shape, intr: Intrinsics, dist_thres: float,
+                angle_thres: float, damping: float = 0.0, assoc=None) -> None:
+        s = self._scratch
+        _launch_system(
+            s, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, s.pose[self._cur], s.out, s.inliers, intr,
+            dist_thres, angle_thres, tail=(s.pose[1 - self._cur], s.x, s.flags), damping=damping,
+            first=self._first,
+        )
+        self._cur = 1 - self._cur
+        self._first = False
+
+    def result(self) -> IcpStep:
+        """The last iteration's system and increment, the pose after it and
+        whether every iteration of the loop solved."""
+        s = self._scratch
+        r_curr, t_curr = unpack_pose(s.pose[self._cur].clone())
+        x = s.x.clone()
+        return IcpStep(
+            system=_system_of(s.out.clone(), s.inliers.clone()), r_curr=r_curr, t_curr=t_curr,
+            x=CSFD(x[0:6], x[6:12]), ok=s.flags[1] != 0,
+        )
+
+
+def icp_step(
+    r_curr: CSFD,
+    t_curr: CSFD,
+    vmap_curr: torch.Tensor,
+    nmap_curr: torch.Tensor,
+    r_prev_inv: CSFD,
+    t_prev: CSFD,
+    intr: Intrinsics,
+    vmap_g_prev: CSFD,
+    nmap_g_prev: CSFD,
+    dist_thres: float,
+    angle_thres: float,
+    damping: float = 0.0,
+    assoc=None,
+) -> IcpStep:
+    """One whole ICP iteration from a given pose: one launch of kernel K4
+    with its tail on CUDA tensors; :func:`build_system_plain` and
+    :func:`icp_step_plain` on CPU tensors."""
+    maps = (vmap_curr, nmap_curr, vmap_g_prev.v, vmap_g_prev.g, nmap_g_prev.v, nmap_g_prev.g)
+    if kernels.on_cpu(r_curr.v, t_curr.v, r_prev_inv.v, t_prev.v, *maps):
+        system = build_system_plain(
+            r_curr, t_curr, vmap_curr, nmap_curr, r_prev_inv, t_prev, intr, vmap_g_prev, nmap_g_prev,
+            dist_thres, angle_thres, assoc=assoc,
+        )
+        return icp_step_plain(system, r_curr, t_curr, damping)
+    _check_model_maps(vmap_g_prev, nmap_g_prev)
+    loop = IcpLoop(pack_pose(r_curr, t_curr, r_prev_inv, t_prev))
+    loop.iterate(
+        vmap_curr, nmap_curr, pack_model_rows(vmap_g_prev, nmap_g_prev), vmap_g_prev.v.shape[-2:], intr,
+        dist_thres, angle_thres, damping, assoc,
+    )
+    return loop.result()
 
 
 def _gated_association(
@@ -404,3 +570,21 @@ def solve_increment(system: IcpSystem, damping: float = 0.0) -> Tuple[CSFD, torc
     x = solve(safe_A, safe_b)
     x_ok = ~torch.any(torch.isnan(x.v))
     return CSFD(torch.nan_to_num(x.v), torch.nan_to_num(x.g)), ok & x_ok
+
+
+def icp_step_plain(system: IcpSystem, r_curr: CSFD, t_curr: CSFD, damping: float = 0.0) -> IcpStep:
+    """Plain version of K4's tail: solve the system, build the Euler
+    increment ``Rz Ry Rx`` and left-multiply it onto the pose
+    (KinectFusionReconstruction.cpp:212-224); where the step failed its guard
+    the pose stays as it was."""
+    x, ok = solve_increment(system, damping=damping)
+    inc = se3.euler_xyz_increment(*(CSFD(x.v[i], x.g[i]) for i in range(6)))
+    r_inc = se3.rotation(inc)
+    t_new = se3.matvec(r_inc, t_curr) + se3.translation(inc)
+    r_new = se3.matmul(r_inc, r_curr)
+    return IcpStep(
+        system=system,
+        r_curr=CSFD(torch.where(ok, r_new.v, r_curr.v), torch.where(ok, r_new.g, r_curr.g)),
+        t_curr=CSFD(torch.where(ok, t_new.v, t_curr.v), torch.where(ok, t_new.g, t_curr.g)),
+        x=x, ok=ok,
+    )
