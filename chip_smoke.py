@@ -12,14 +12,19 @@ Phases, in order:
    ``torch.utils.cpp_extension.load`` of all sources) and print the build
    seconds;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the main path (one JSON line each): K1 on a 480x640 rendered frame,
-   K2 on the 256^3 volume after 3 fused frames (bit-equal, at the orbit's
-   next pose, at a pose that looks along the volume from a corner and at the
-   pose of the JAX package's window-coverage regression test), K3 on that
-   volume, K4 (the ICP system, its tail and the cached association) on
-   model maps raycast from that volume and the next frame's depth pyramid,
-   at the three level shapes of both main-path configurations, and the five
-   gather probes;
+   of the main path (one JSON line each): K1 on a 480x640 rendered frame
+   (with its grid sweep, its expf-per-tap route and its earlier design timed
+   beside it), K2 on the 256^3 volume after 3 fused frames (bit-equal, at
+   the orbit's next pose, at a pose that looks along the volume from a
+   corner and at the pose of the JAX package's window-coverage regression
+   test), K3 on that volume (also bit-equal to its earlier design, and swept
+   over its unroll depths and both pixel mappings), K5 (the secant refine
+   with normals) on that volume at the shapes of ``model_map_level`` 0 and
+   1, K6 (model-map pyramid), K7 (depth pyramid) and K8 (vertex and normal
+   maps) at every level shape of both configurations, K4 (the ICP system,
+   its tail and the cached association) on model maps raycast from that
+   volume and the next frame's depth pyramid, at the three level shapes of
+   both main-path configurations, and the five gather probes;
 4. the probe path: ``xslam_tpu_torch.apps.probe_gather.run`` on the card;
 5. the main path, twice: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
    runs 10 frames of the 640x480 synthetic orbit on the card, then 6 frames
@@ -63,6 +68,10 @@ KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
     "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
     "march_fixed": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136", "main path"),
+    "raycast_refine": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:901", "main path"),
+    "resize_model_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/models/kinfu.py:546", "main path"),
+    "pyr_down": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:78", "main path"),
+    "vertex_normal_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:115", "main path"),
     "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
     "icp_associate": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:72", "main path, fixed association"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
@@ -108,6 +117,22 @@ def max_abs(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 steps between ``a`` and ``b`` where both
+    are numbers (0: equal everywhere they are)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    both = ~torch.isnan(a) & ~torch.isnan(b)
+    d = (ordered(a) - ordered(b)).abs()[both]
+    return int(d.max()) if d.numel() else 0
+
+
+def same_nans(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+
+
 def emit(tag: str, **fields):
     print(json.dumps({"phase": tag, **fields}), flush=True)
 
@@ -130,9 +155,41 @@ def phase_bilateral(ctx):
     plain = time_ms(lambda: preprocess.bilateral_filter(depth), 3)
     H, W = depth.shape
     bms, by = bound_ms(H * W * (2 + 4), H * W * 169 * 8)
+
+    # beside it, in the same call: the tile shapes and other grids (blocks walking over the tiles), the
+    # table filled by every block, the route that keeps one expf a tap, and the earlier design (one
+    # thread a pixel, one expf and one tile read a tap)
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(ctx["device"]).cuda_stream
+    weights = kernels.bilateral_weights(depth.device)
+    scratch = torch.empty_like(out)
+    routes_equal = {}
+
+    def timed(name, mode, shape, blocks):
+        def launch():
+            check(ext.bilateral_filter(depth, weights, scratch, mode, shape, blocks, stream) == 0,
+                  "bilateral_filter launch failed")
+
+        t = time_ms(launch, 50)
+        routes_equal[name] = frac_equal(scratch, ref)
+        return t
+
+    def launch_direct():
+        check(ext.bilateral_filter_direct(depth, scratch, stream) == 0, "bilateral_filter_direct launch failed")
+
+    shapes = {"128x8": 0, "128x4": 1, "64x8": 2}
+    sweep = {f"{name}/{blocks or 'tiles'}": timed(f"{name}/{blocks}", 1, shape, blocks)
+             for name, shape in shapes.items() for blocks in (0, 132, 264, 396)}
+    filled_ms = timed("table filled by each block", 2, 0, 0)
+    expf_ms = timed("expf per tap", 0, 0, 0)
+    direct_ms = time_ms(launch_direct, 50)
+    routes_equal["earlier design"] = frac_equal(scratch, ref)
     emit("K1 bilateral_filter", shape=[H, W], max_abs_err=err, frac_equal=eq, ms=ms, plain_ms=plain,
-         bound_ms=bms, bound_by=by, library_ms=None, library_note="no single PyTorch call computes it")
+         bound_ms=bms, bound_by=by, library_ms=None, library_note="no single PyTorch call computes it",
+         tile_and_grid_sweep_ms=sweep, table_filled_by_each_block_ms=filled_ms, expf_per_tap_ms=expf_ms,
+         earlier_design_ms=direct_ms, worst_route_frac_equal=min(routes_equal.values()))
     check(err <= 1.0 and eq > 0.999, f"K1 disagrees with its plain version: max {err}, equal {eq}")
+    check(min(routes_equal.values()) > 0.999, f"K1's other routes disagree: {routes_equal}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
@@ -276,37 +333,269 @@ def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
     distinct = int(torch.unique(idx[live & inside]).numel())
     samples = int(live.sum())
     rays = d.shape[1]
-    return distinct * 4 + rays * (12 + 8) + 12, samples * 20, samples
+    # the pose in, two times out a ray; some 60 operations to make a ray, 20 a sample
+    return distinct * 4 + rays * 8 + 96, rays * 60 + samples * 20, samples
+
+
+def _ray_pose(ctx, seed: int):
+    """The packed pose of K3 and K5 at the orbit's frame 3, with a seeded
+    derivative lane, and its parts."""
+    from xslam_tpu_torch.csfd.single import lift
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.ops import kernels
+
+    _, c2v = _v2c(ctx, np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3], np.random.default_rng(seed))
+    w2v = lift(torch.as_tensor(np.asarray(ctx["config"].world2volume, np.float32), device=ctx["device"]))
+    v2w = se3.inverse(w2v)
+    parts = (se3.rotation(c2v), se3.translation(c2v), se3.rotation(v2w), se3.translation(v2w))
+    return kernels.pack_ray_pose(*parts), parts
 
 
 def phase_march(ctx):
-    from xslam_tpu_torch.geometry import se3
-    from xslam_tpu_torch.ops import kernels, raycast
+    from xslam_tpu_torch.ops import kernels
     from xslam_tpu_torch.ops.kernels import INF_T
 
     cfg, eng = ctx["config"], ctx["engine_cfg"]
-    vol = ctx["volume"]
-    _, c2v = _v2c(ctx, np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3], np.random.default_rng(1))
-    ray_dir, ray_start = raycast._camera_rays(se3.rotation(c2v), se3.translation(c2v), cfg.intrinsics)
-    tf, td = kernels.march_fixed(vol.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist)
+    vol, intr = ctx["volume"], cfg.intrinsics
+    pose, parts = _ray_pose(ctx, 1)
+    ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
+    tf, td = kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist)
     pf, pd = kernels.march_fixed_plain(vol.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist)
     torch.cuda.synchronize()
     eq_f, eq_d = frac_equal(tf, pf), frac_equal(td, pd)
     both = (tf < INF_T) & (pf < INF_T)
     err = max_abs(tf, pf, both)
     hits = float((tf < torch.clamp(td, max=INF_T)).float().mean())
-    ms = time_ms(lambda: kernels.march_fixed(vol.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist), 50)
+    ms = time_ms(lambda: kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist), 50)
     plain = time_ms(
         lambda: kernels.march_fixed_plain(vol.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist), 3)
     n_bytes, n_ops, samples = _march_bytes_ops(vol.value, ray_start.v, ray_dir.v, tf, td, eng)
     bms, by = bound_ms(n_bytes, n_ops)
+
+    # the earlier design (direction planes from memory, one load in flight) on the same rays: equal
+    # bits asked; and every unroll depth in both pixel mappings, with three divisions a sample or
+    # with floor_div, each equal to it bit for bit
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(ctx["device"]).cuda_stream
+    n_steps, vs, step = kernels.march_steps(eng.trunc_dist), kernels.f32(eng.voxel_size), kernels.f32(eng.trunc_dist * 0.8)
+    start, dirs = ray_start.v.contiguous(), ray_dir.v.contiguous()
+    cf, cd = torch.empty_like(tf), torch.empty_like(td)
+
+    def chain():
+        check(ext.march_fixed_chain(vol.value, start, dirs, cf, cd, n_steps, vs, step, stream) == 0,
+              "march_fixed_chain launch failed")
+
+    chain_ms = time_ms(chain, 50)
+    chain_equal = bool(torch.equal(tf, cf)) and bool(torch.equal(td, cd))
+    sweep, sweep_equal = {}, True
+    vf, vd = torch.empty_like(tf), torch.empty_like(td)
+    variants = [(1, tile, False) for tile in (False, True)]  # (unroll, tile, floor_div)
+    variants += [(unroll, tile, True) for tile in (False, True) for unroll in (1, 2, 4, 8)]
+    for unroll, tile, fast in variants:
+        def variant(unroll=unroll, tile=tile, fast=fast):
+            check(ext.march_fixed(vol.value, pose, vf, vd, n_steps, vs, step, *kernels.camera_args(intr),
+                                  unroll, tile, fast, stream) == 0, "march_fixed launch failed")
+
+        name = f"{'floor_div' if fast else 'divisions'}/{'tile8x4' if tile else 'strip32x1'}/U{unroll}"
+        vf.fill_(-1.0), vd.fill_(-1.0)
+        sweep[name] = time_ms(variant, 50)
+        sweep_equal = sweep_equal and bool(torch.equal(vf, cf)) and bool(torch.equal(vd, cd))
     emit("K3 march_fixed", shape=list(tf.shape), t_found_frac_equal=eq_f, t_dead_frac_equal=eq_d,
          max_abs_err_t_found=err, hit_fraction=hits, samples=samples, bytes_needed=n_bytes, ms=ms,
          plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-         library_note="no single PyTorch call computes it")
+         library_note="no single PyTorch call computes it", unroll=kernels.MARCH_UNROLL, tile=kernels.MARCH_TILE,
+         earlier_design_ms=chain_ms, bit_equal_to_earlier_design=chain_equal,
+         rays_differing_from_earlier_design=int(((tf != cf) | (td != cd)).sum()), sweep_ms=sweep,
+         sweep_bit_equal_to_earlier_design=sweep_equal)
     check(eq_f >= 0.999 and eq_d >= 0.999, f"K3 disagrees with its plain version: {eq_f}, {eq_d}")
     check(hits > 0.5, f"K3 found surfaces on only {hits:.3f} of the rays")
+    check(chain_equal and sweep_equal, f"K3 is not bit-equal to its earlier design: {chain_equal}, sweep {sweep_equal}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng):
+    """What this run's refine must move and do: the distinct voxels that the
+    accepted pixels' eight trilinears tap (both planes, 8 B each), two times
+    in and four (3,) float32 vectors out a pixel, the pose; some 8 x 16 x 6
+    operations an accepted pixel."""
+    from xslam_tpu_torch.ops import raycast
+
+    X, Y, Z = vol.value.shape
+    voxel, step = eng.voxel_size, eng.trunc_dist * 0.8
+    t = t_found[accept]
+    d = ray_dir.v[:, accept]
+    s = ray_start.v[:, None]
+
+    def tsdf_at(p):
+        from xslam_tpu_torch.csfd.single import lift
+        return raycast.trilinear_tsdf_shard(vol.value, vol.grad, lift(p[0]), lift(p[1]), lift(p[2]), voxel).v
+
+    p0, p1 = s + d * t, s + d * (t + step)
+    ft, ftdt = tsdf_at(p0), tsdf_at(p1)
+    vertex = s + d * (t - step * ft / (ftdt - ft))
+    points = [p0, p1]
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            q = vertex.clone()
+            q[axis] += sign * voxel * 0.5
+            points.append(q)
+    cells = []
+    for p in points:
+        g = torch.floor(torch.nan_to_num(p) / voxel)
+        g = g - (torch.nan_to_num(p) < (g + 0.5) * voxel).float()
+        g = g.long()
+        ok = ((g >= 0) & (g < torch.tensor([X - 1, Y - 1, Z - 1], device=g.device)[:, None])).all(dim=0)
+        g = g[:, ok]
+        base = (g[0] * Y + g[1]) * Z + g[2]
+        cells.append(torch.cat([base + dx * Y * Z + dy * Z + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]))
+    distinct = int(torch.unique(torch.cat(cells)).numel())
+    n_pix, n_acc = accept.numel(), int(accept.sum())
+    return distinct * 8 + n_pix * (8 + 48) + 192, n_acc * 8 * 16 * 6 + n_pix * 4, distinct
+
+
+def phase_refine(ctx):
+    """K5 against ``refine`` + ``finalize_maps`` on the fused volume, at the
+    image shapes of ``model_map_level`` 0 and 1; its outputs also feed K6's
+    phase. Bit-equality asked of the NaN masks; of the numbers at most 2 ulp
+    on at most 1e-4 of them (none expected: the kernel rounds as the plain
+    version's operators do)."""
+    from xslam_tpu_torch.ops import kernels, raycast
+    from xslam_tpu_torch.ops.kernels import INF_T
+
+    cfg, eng, vol = ctx["config"], ctx["engine_cfg"], ctx["volume"]
+    pose, parts = _ray_pose(ctx, 3)
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(ctx["device"]).cuda_stream
+    table, ctx["model_maps"] = None, {}
+    for L in (0, 1):
+        intr = cfg.intrinsics.level(L)
+        t_found, t_dead = kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist)
+        ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
+        accept = t_found < torch.clamp(t_dead, max=INF_T)
+
+        def plain_fn():
+            return raycast.finalize_maps(*raycast.refine(vol, ray_start, ray_dir, t_found, accept, parts[2], parts[3], eng))
+
+        out = raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng)
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        lanes = {"vmap.v": (out[0].v, ref[0].v), "vmap.g": (out[0].g, ref[0].g),
+                 "nmap.v": (out[1].v, ref[1].v), "nmap.g": (out[1].g, ref[1].g)}
+        eq = {k: frac_equal(a, b) for k, (a, b) in lanes.items()}
+        ulp = {k: max_ulp(a, b) for k, (a, b) in lanes.items()}
+        nans = all(same_nans(a, b) for a, b in lanes.values())
+        err = max(max_abs(a, b) for a, b in lanes.values())
+        valid = float((~torch.isnan(out[1].v[0])).float().mean())
+        ms = time_ms(lambda: raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng), 50)
+        plain = time_ms(plain_fn, 3)
+        outs = [torch.empty_like(out[0].v) for _ in range(4)]
+        f32 = kernels.f32
+
+        def strip():
+            check(ext.raycast_refine(vol.value, vol.grad, pose, t_found, t_dead, *outs, f32(eng.voxel_size),
+                                     kernels.reciprocal_f32(eng.voxel_size), f32(eng.voxel_size * 0.5), f32(eng.trunc_dist * 0.8), *kernels.camera_args(intr),
+                                     False, stream) == 0, "raycast_refine launch failed")
+
+        strip_ms = time_ms(strip, 50)
+        strip_equal = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                          for a, b in zip(outs, (out[0].v, out[0].g, out[1].v, out[1].g)))
+        n_bytes, n_ops, distinct = _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng)
+        bms, by = bound_ms(n_bytes, n_ops)
+        emit("K5 raycast_refine", model_map_level=L, shape=[intr.height, intr.width], frac_equal=eq, max_ulp=ulp,
+             nan_masks_equal=nans, max_abs_err=err, accepted_fraction=float(accept.float().mean()),
+             normal_valid_fraction=valid, distinct_voxels=distinct, ms=ms, strip32x1_ms=strip_ms,
+             strip_bit_equal=strip_equal, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+             library_note="no single PyTorch call computes it")
+        check(nans, f"K5's NaN masks differ from the plain version's (L={L})")
+        check(min(eq.values()) >= 1.0 - 1e-4 and max(ulp.values()) <= 2,
+              f"K5 disagrees with its plain version (L={L}): equal {eq}, ulp {ulp}")
+        check(valid > 0.5 and strip_equal, f"K5: normals on {valid:.3f} of the pixels, strip mapping equal {strip_equal}")
+        ctx["model_maps"][L] = out
+        if L == 0:
+            table = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+    return table
+
+
+def _compare(tag, pairs, **fields):
+    """Emit and return (all NaN masks equal, worst equal fraction, worst ulp, max abs error)."""
+    eq = min(frac_equal(a, b) for a, b in pairs)
+    ulp = max(max_ulp(a, b) for a, b in pairs)
+    nans = all(same_nans(a, b) for a, b in pairs)
+    err = max(max_abs(a, b) for a, b in pairs)
+    emit(tag, frac_equal=eq, max_ulp=ulp, nan_masks_equal=nans, max_abs_err=err, **fields)
+    return nans, eq, ulp, err
+
+
+def phase_maps(ctx):
+    """K6, K7 and K8 against their plain versions at every level shape of
+    both main-path configurations. K7 must be bit-equal; K6 and K8 must have
+    the plain versions' NaN masks and lie within 2 ulp of their numbers (the
+    fractions of unequal numbers are printed; none expected). The table rows
+    carry the times at the largest shape."""
+    import torch.nn.functional as F
+
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.models.kinfu import _resize_nmap_dual, resize_model_maps
+    from xslam_tpu_torch.ops import kernels, preprocess
+
+    cfg, dev = ctx["config"], ctx["device"]
+    rows = {}
+
+    # K7 and K8 on the depth pyramid of frame 4
+    depth = kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))
+    for level in range(cfg.num_levels):
+        intr = cfg.intrinsics.level(level)
+        H, W = depth.shape
+        vmap, nmap = kernels.vertex_normal_maps(intr, depth)
+        pv = preprocess.create_vmap(intr, depth)
+        pn = preprocess.create_nmap(pv)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: kernels.vertex_normal_maps(intr, depth), 100)
+        plain = time_ms(lambda: preprocess.create_nmap(preprocess.create_vmap(intr, depth)), 5)
+        bms, by = bound_ms(H * W * (4 + 24), H * W * 60)
+        nans, eq, ulp, err = _compare("K8 vertex_normal_maps", [(vmap, pv), (nmap, pn)], level=level, shape=[H, W],
+                                      normal_valid_fraction=float((~torch.isnan(nmap[0])).float().mean()), ms=ms,
+                                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+        check(nans and ulp <= 2 and eq >= 1.0 - 1e-4, f"K8 disagrees with its plain versions at level {level}")
+        rows.setdefault("vertex_normal_maps", dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+        if level + 1 < cfg.num_levels:
+            down = kernels.pyr_down(depth)
+            ref = preprocess.pyr_down(depth)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: kernels.pyr_down(depth), 100)
+            plain = time_ms(lambda: preprocess.pyr_down(depth), 5)
+            bms, by = bound_ms(H * W * 4 + (H // 2) * (W // 2) * 4, (H // 2) * (W // 2) * 25 * 5)
+            equal = bool(torch.equal(down, ref))
+            _compare("K7 pyr_down", [(down, ref)], level=level, shape=[H, W], bit_equal=equal, ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=None)
+            check(equal, f"K7 is not bit-equal to its plain version at level {level}")
+            rows.setdefault("pyr_down", dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+            depth = down
+
+    # K6 on the model maps K5 rendered, down both configurations' pyramids
+    for L, (vmap, nmap) in ctx["model_maps"].items():
+        for level in range(1, cfg.num_levels):
+            H, W = vmap.v.shape[-2:]
+            v2, n2 = resize_model_maps(vmap, nmap)
+            pv = CSFD(preprocess.resize_vmap(vmap.v), preprocess.resize_vmap(vmap.g))
+            pn = _resize_nmap_dual(nmap)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: resize_model_maps(vmap, nmap), 100)
+            plain = time_ms(lambda: (preprocess.resize_vmap(vmap.v), preprocess.resize_vmap(vmap.g),
+                                     _resize_nmap_dual(nmap)), 5)
+            lib = time_ms(lambda: F.avg_pool2d(vmap.v, 2), 100)  # a yardstick: one of the four planes' means
+            bms, by = bound_ms(12 * H * W * 4 + 12 * (H // 2) * (W // 2) * 4, (H // 2) * (W // 2) * 120)
+            nans, eq, ulp, err = _compare(
+                "K6 resize_model_maps", [(v2.v, pv.v), (v2.g, pv.g), (n2.v, pn.v), (n2.g, pn.g)], model_map_level=L,
+                level=level, shape=[H, W], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                library_note="torch.nn.functional.avg_pool2d of the vertex map's value lane alone")
+            check(nans and ulp <= 2 and eq >= 1.0 - 1e-4,
+                  f"K6 disagrees with its plain versions at L={L}, level {level}")
+            rows.setdefault("resize_model_maps",
+                            dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib))
+            vmap, nmap = v2, n2
+    ctx.pop("model_maps")
+    return rows
 
 
 def _icp_inputs(ctx, L: int):
@@ -314,10 +603,10 @@ def _icp_inputs(ctx, L: int):
     model maps raycast from the fused volume at frame 3's pose (seeded
     derivative lane) with their pyramid, frame 4's current maps, and the
     ICP's starting pose (the previous frame's)."""
-    from xslam_tpu_torch.csfd.single import CSFD, lift
+    from xslam_tpu_torch.csfd.single import lift
     from xslam_tpu_torch.geometry import se3
-    from xslam_tpu_torch.models.kinfu import _resize_nmap_dual
-    from xslam_tpu_torch.ops import kernels, preprocess, raycast
+    from xslam_tpu_torch.models.kinfu import resize_model_maps
+    from xslam_tpu_torch.ops import kernels, raycast
 
     cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
     intr = cfg.intrinsics
@@ -332,13 +621,13 @@ def _icp_inputs(ctx, L: int):
     )
     vprev, nprev = [vmap0], [nmap0]
     for _ in range(1, cfg.num_levels):
-        vprev.append(CSFD(preprocess.resize_vmap(vprev[-1].v), preprocess.resize_vmap(vprev[-1].g)))
-        nprev.append(_resize_nmap_dual(nprev[-1]))
+        vmap, nmap = resize_model_maps(vprev[-1], nprev[-1])
+        vprev.append(vmap)
+        nprev.append(nmap)
     depths = [kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))]
     for _ in range(1, cfg.num_levels):
-        depths.append(preprocess.pyr_down(depths[-1]))
-    vcurr = [preprocess.create_vmap(intr.level(i), depths[i]) for i in range(cfg.num_levels)]
-    ncurr = [preprocess.create_nmap(v) for v in vcurr]
+        depths.append(kernels.pyr_down(depths[-1]))
+    vcurr, ncurr = zip(*(kernels.vertex_normal_maps(intr.level(i), depths[i]) for i in range(cfg.num_levels)))
     pose = dict(r_curr=se3.rotation(c2w), t_curr=se3.translation(c2w), r_prev_inv=se3.rotation(w2c),
                 t_prev=se3.translation(c2w))
     return vprev, nprev, vcurr, ncurr, pose
@@ -740,6 +1029,9 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     # kernel once per level where it is cached
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
     check(counts["bilateral_filter"] == n_frames and counts["march_fixed"] == n_frames
+          and counts["raycast_refine"] == n_frames and counts["resize_model_maps"] == (cfg.num_levels - 1) * n_frames
+          and counts["pyr_down"] == (cfg.num_levels - 1) * n_frames
+          and counts["vertex_normal_maps"] == cfg.num_levels * n_frames
           and counts["fuse_volume"] == integrated and counts["icp_system"] == iterations * n_frames
           and counts["icp_associate"] == (cfg.num_levels * n_frames if fixed_assoc else 0),
           f"launch counts {counts}")
@@ -791,7 +1083,8 @@ def main() -> int:
 
     results, failed = {}, []
     for name, phase in (("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
-                        ("march_fixed", phase_march), ("icp_system", phase_icp), ("probes", phase_probes),
+                        ("march_fixed", phase_march), ("raycast_refine", phase_refine), ("maps", phase_maps),
+                        ("icp_system", phase_icp), ("probes", phase_probes),
                         ("main path", phase_main_path),
                         ("main path, fixed association", phase_main_path_fixed_assoc)):
         if name == "probes":
@@ -808,11 +1101,12 @@ def main() -> int:
         return 1
     results["icp_associate"] = ctx["icp_associate"]
     results.update(results.pop("probes"))
+    results.update(results.pop("maps"))
     counts = {"main path": results["main path"], "main path, fixed association": results["main path, fixed association"],
               "probe path": ctx["probe_counts"]}
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],
-         "library_ms": None, **results[k]}
+         **{"library_ms": None, **results[k]}}
         for k, (src, rep, path) in KERNELS.items()
     ]
     never = [row["name"] for row in table if row["launches"] < 1]

@@ -1,9 +1,14 @@
 """The reader of ``ptxas -v`` output in
 ``xslam_tpu_torch.apps.kernel_resources`` (the compiler itself runs only on
 the machine with the card): registers, shared memory, stack and spills per
-kernel, from the text ``nvcc -Xptxas -v`` prints."""
+kernel, from the text ``nvcc -Xptxas -v`` prints. And
+``xslam_tpu_torch.apps.torch_rounding`` on the CPU, where PyTorch divides
+truly."""
 
-from xslam_tpu_torch.apps.kernel_resources import parse_ptxas
+import pytest
+
+from xslam_tpu_torch.apps.kernel_resources import BLOCK_THREADS, function_name, parse_ptxas
+from xslam_tpu_torch.ops.kernels import CSRC_DIR, HEADERS, SOURCES
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
@@ -28,3 +33,50 @@ def test_parse_ptxas_reads_registers_and_spills():
 
 def test_parse_ptxas_of_nothing_is_empty():
     assert parse_ptxas("nvcc warning : nothing here\n") == {}
+
+
+@pytest.mark.parametrize("demangled, name", [
+    ("(anonymous namespace)::fuse_kernel(float*, float*, int)", "fuse_kernel"),
+    ("void (anonymous namespace)::march_kernel<4, true>((anonymous namespace)::Volume, float const*, int)",
+     "march_kernel<4, true>"),
+    ("void (anonymous namespace)::bilateral_kernel<false>(unsigned short const*, float*, int, int, int, int)",
+     "bilateral_kernel<false>"),
+    ("_Z4nope", None),
+])
+def test_function_name_of_a_demangled_signature(demangled, name):
+    assert function_name(demangled) == name
+
+
+def test_every_source_is_present_and_every_kernel_has_its_block_size():
+    """The sources the build and the resource report compile exist, with the
+    headers they include, and each ``__global__`` function in them has its
+    block size in the report's table."""
+    import re
+
+    for src in SOURCES + HEADERS:
+        assert (CSRC_DIR / src).is_file(), src
+    text = "".join((CSRC_DIR / src).read_text() for src in SOURCES if src.endswith(".cu"))
+    for header in HEADERS:
+        assert f'#include "{header}"' in text or any(
+            f'#include "{header}"' in (CSRC_DIR / h).read_text() for h in HEADERS), header
+    kernels = set(re.findall(r"\b(\w+_kernel)\s*\(", text))
+    main_path = {k for k in kernels if not k.startswith("probe")}
+    assert main_path and main_path <= set(BLOCK_THREADS), main_path - set(BLOCK_THREADS)
+
+
+def test_torch_rounding_on_the_cpu():
+    """On the CPU ``x / c`` is the true division and the 2x2 mean and the sum
+    of three match one of the listed orders; the factor the kernels use on the
+    card is the double reciprocal rounded once."""
+    import numpy as np
+
+    from xslam_tpu_torch.apps.torch_rounding import DIVISORS, measure
+    from xslam_tpu_torch.ops.kernels import reciprocal_f32
+
+    out = measure("cpu")
+    assert out["device"] == "cpu"
+    for c in DIVISORS:
+        assert out[f"div_{c}"]["true_division"] == 1.0
+        assert reciprocal_f32(c) == float(np.float32(1.0 / c))
+    assert max(out["mean_2x2"].values()) == 1.0
+    assert max(out["sum_3"].values()) == 1.0

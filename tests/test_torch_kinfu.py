@@ -20,6 +20,10 @@ reference configuration).
     a 20x15 coarsest model map on this input) and both together, each a
     6-frame run on both engines in the same ATE class as (b), with state
     shapes equal to the JAX state's.
+(f) The stages as the engine composes them from the kernels' wrappers: the
+    model-map pyramid of a processed frame is ``resize_model_maps`` applied
+    level by level to its finest maps, bit for bit, and the engine's cached
+    volume->world pose gives the state that inverting it every frame gives.
 """
 
 import numpy as np
@@ -30,6 +34,8 @@ from tests.helpers import small_config, small_dataset
 from tests.torch_port_helpers import jax_state_to_numpy, seed_jax_state, seeded_pose_direction, torch_config
 from xslam_tpu.models.kinfu import XSlamEngine as JaxEngine
 from xslam_tpu.utils.evaluation import ate_rmse, normalize_to_first
+from xslam_tpu_torch.geometry import se3 as tse3
+from xslam_tpu_torch.models import kinfu as tkinfu
 from xslam_tpu_torch.models.kinfu import XSlamEngine as TorchEngine
 from xslam_tpu_torch.ops import kernels
 from xslam_tpu_torch.utils.convert import state_from_numpy
@@ -118,7 +124,9 @@ def test_six_frame_ate_class(runs):
 
 
 def test_cpu_run_launches_no_kernel(runs):
-    assert set(kernels.launch_counts) >= {"bilateral_filter", "fuse_volume", "march_fixed", "icp_system"}
+    assert set(kernels.launch_counts) >= {
+        "bilateral_filter", "fuse_volume", "march_fixed", "icp_system", "raycast_refine", "resize_model_maps",
+        "pyr_down", "vertex_normal_maps"}
     assert all(n == 0 for n in kernels.launch_counts.values()), kernels.launch_counts
 
 
@@ -248,3 +256,36 @@ def test_min_inlier_fraction_counts_model_map_pixels():
     assert np.abs(engine.pose_log[2] - engine.pose_log[0]).max() > 1e-3  # tracked, not frozen
     _, _, _, oks_full = _port_run(3, model_map_level=0, num_levels=2, min_inlier_fraction=1.0)
     assert oks_full == [True, False, False]
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_model_map_pyramid_is_the_wrappers_composition(runs, level):
+    tstate = runs[1][0]
+    vmap, nmap = tstate.vmaps_prev[0], tstate.nmaps_prev[0]
+    for _ in range(level):
+        vmap, nmap = tkinfu.resize_model_maps(vmap, nmap)
+    for got, want in ((vmap, tstate.vmaps_prev[level]), (nmap, tstate.nmaps_prev[level])):
+        assert torch.equal(got.v.view(torch.int32), want.v.view(torch.int32))
+        assert torch.equal(got.g.view(torch.int32), want.g.view(torch.int32))
+
+
+def test_cached_volume2world_gives_the_same_frame():
+    cfg = small_config(end_frame=2)
+    ds = small_dataset(2, degrees_per_frame=1.0)
+    engine = TorchEngine(torch_config(cfg), device="cpu")
+    inverse = tse3.inverse(engine.world2volume)
+    assert torch.equal(engine.volume2world.v, inverse.v) and torch.equal(engine.volume2world.g, inverse.g)
+    states = []
+    for v2w in (engine.volume2world, None):  # handed over, or inverted inside the frame
+        state = engine.init_state()
+        for i in range(2):
+            state, _ = tkinfu.process_frame(
+                state, torch.as_tensor(np.asarray(ds.get_depth(i), np.uint16)), np.eye(4, dtype=np.float32),
+                config=engine.config, intr=engine.intr, vol_cfg=engine.vol_cfg, world2volume=engine.world2volume,
+                volume2world=v2w)
+        states.append(state)
+    a, b = states
+    assert torch.equal(a.world2camera.v, b.world2camera.v)
+    assert torch.equal(a.volume.value, b.volume.value)
+    for x, y in zip(a.vmaps_prev + a.nmaps_prev, b.vmaps_prev + b.nmaps_prev):
+        assert torch.equal(x.v.view(torch.int32), y.v.view(torch.int32))

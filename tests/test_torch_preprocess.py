@@ -1,5 +1,11 @@
 """The port's preprocessing (bilateral plain version = kernel K1's twin,
-pyr_down, vertex/normal maps, resizes) against xslam_tpu on the CPU."""
+pyr_down, vertex/normal maps, resizes) against xslam_tpu on the CPU.
+
+The wrappers of the preprocess stage (K1 ``kernels.bilateral_filter``, K7
+``kernels.pyr_down``, K8 ``kernels.vertex_normal_maps``) return their plain
+versions' results bit for bit on CPU tensors and launch nothing; composed as
+the engine composes them, they are held against the JAX functions level by
+level."""
 
 import functools
 
@@ -108,3 +114,60 @@ def test_pyramid_and_maps(source):
         _maps_close(tn, jn)
         _maps_close(tpre.resize_vmap(torch.from_numpy(np.array(jv))), _jresize_vmap(jv))
         _maps_close(tpre.resize_nmap(torch.from_numpy(np.array(jn))), _jresize_nmap(jn))
+
+
+@pytest.mark.parametrize("wrapper", ["pyr_down", "vertex_normal_maps"])
+def test_preprocess_wrappers_use_plain_versions_on_cpu(wrapper):
+    depth = tpre.bilateral_filter(torch.from_numpy(_rendered_depth()))
+    H, W = depth.shape
+    intr = TIntrinsics(fx=120.3, fy=-120.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H)
+    before = dict(kernels.launch_counts)
+    if wrapper == "pyr_down":
+        pairs = [(kernels.pyr_down(depth), tpre.pyr_down(depth))]
+    else:
+        vmap, nmap = kernels.vertex_normal_maps(intr, depth)
+        plain_v = tpre.create_vmap(intr, depth)
+        pairs = [(vmap, plain_v), (nmap, tpre.create_nmap(plain_v))]
+    for got, want in pairs:
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert kernels.launch_counts == before  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("source", ["golden", "rendered"])
+def test_composed_preprocess_stage(source):
+    """K1 wrapper -> K7 wrapper x 2 -> K8 wrapper x 3, as ``process_frame``
+    runs them, against the JAX stage on the same depth. The depth pyramids
+    must be equal except where the two bilateral filters differ by their one
+    allowed millimetre (> 99.9% of pixels equal at every level); the maps are
+    compared where the depths are equal: NaN masks equal, vertices within
+    1e-5, normals within 1e-4 (a normal is a cross product of differences of
+    neighbouring vertices, which amplifies the last-bit differences that the
+    two vertex maps are allowed; fed the same vertex map, as in
+    ``test_pyramid_and_maps``, the normals agree to 1e-5)."""
+    depth_u16 = _DEPTHS[source]()
+    H, W = depth_u16.shape
+    jintr = JIntrinsics(fx=120.3, fy=-120.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H)
+    tintr = TIntrinsics(*jintr)
+    td = [kernels.bilateral_filter(torch.from_numpy(depth_u16))]
+    jd = [jnp.asarray(_jax_bilateral(source))]
+    for _ in range(2):
+        td.append(kernels.pyr_down(td[-1]))
+        jd.append(_jpyr_down(jd[-1]))
+    for level in range(3):
+        t, j = td[level].numpy(), np.asarray(jd[level])
+        assert t.shape == j.shape == (H >> level, W >> level)
+        same = (t == j) | (np.isnan(t) & np.isnan(j))
+        assert same.mean() > 0.999
+        tv, tn = kernels.vertex_normal_maps(tintr.level(level), td[level])
+        jv = _jcreate_vmap(jintr.level(level), jd[level])
+        jn = np.asarray(_jcreate_nmap(jv))
+        jv = np.asarray(jv)
+        np.testing.assert_array_equal(np.isnan(tv.numpy())[:, same], np.isnan(jv)[:, same])
+        np.testing.assert_allclose(tv.numpy()[:, same], jv[:, same], atol=1e-5, equal_nan=True)
+        # a normal reads its right and lower neighbours too
+        near = same.copy()
+        near[:, :-1] &= same[:, 1:]
+        near[:-1, :] &= same[1:, :]
+        np.testing.assert_array_equal(np.isnan(tn.numpy())[:, near], np.isnan(jn)[:, near])
+        np.testing.assert_allclose(tn.numpy()[:, near], jn[:, near], atol=1e-4, equal_nan=True)

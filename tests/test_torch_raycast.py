@@ -10,7 +10,16 @@ its CUDA kernel built with ``-fmad=false``, rounds twice, so a time may
 differ in its last bit;
 vertex/normal finite masks agree on >= 99.5% of pixels and values within
 1e-4 where both are finite (derivative lanes relative to their largest
-entry)."""
+entry).
+
+The wrappers of the raycast stage (K3 ``kernels.march_fixed``, K5
+``raycast_refine``, K6 ``resize_model_maps``) take the packed pose; on CPU
+tensors each returns its plain version's result bit for bit and launches
+nothing, and their composition is held against the JAX functions at the
+pyramid's coarser levels with ``test_model_maps``' tolerances. The stop rule
+of K3's unrolled loop (take U samples, apply the tests in step order, stop
+after the first step at which both events are known) has a numpy twin here,
+held equal to ``march_fixed_plain`` for U in {1, 2, 4, 8}."""
 
 import functools
 
@@ -25,13 +34,17 @@ from tests.torch_port_helpers import jax_state_to_numpy, seed_jax_state, seeded_
 from xslam_tpu.csfd.single import lift as jlift
 from xslam_tpu.geometry import se3 as jse3
 from xslam_tpu.models.kinfu import XSlamEngine
+from xslam_tpu.models.kinfu import _resize_nmap_dual as j_resize_nmap_dual
+from xslam_tpu.ops import preprocess as jpre
 from xslam_tpu.ops import fusion as jfusion
 from xslam_tpu.ops import raycast as jray
 from xslam_tpu_torch.csfd.single import lift as tlift
 from xslam_tpu_torch.geometry import se3 as tse3
 from xslam_tpu_torch.geometry.intrinsics import Intrinsics
+from xslam_tpu_torch.models.kinfu import _resize_nmap_dual, resize_model_maps
 from xslam_tpu_torch.ops import fusion as tfusion
 from xslam_tpu_torch.ops import kernels
+from xslam_tpu_torch.ops import preprocess as tpre
 from xslam_tpu_torch.ops import raycast as tray
 from xslam_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
@@ -66,9 +79,10 @@ def rendered():
     tp = _poses(tse3, tlift, tstate.world2camera, torch.from_numpy(w2v))
     tintr = Intrinsics(*engine.intr)
     t_dir, t_start = tray._camera_rays(tp[0], tp[1], tintr)
-    t_hit = kernels.march_fixed(tstate.volume.value, t_start, t_dir, tvc.voxel_size, tvc.trunc_dist)
+    pose = kernels.pack_ray_pose(*tp)
+    t_hit = kernels.march_fixed(tstate.volume.value, pose, tintr, tvc.voxel_size, tvc.trunc_dist)
     t_maps = tray.raycast(tstate.volume, *tp, tintr, tvc)
-    return d, tstate, (j_rays, j_hit, j_maps), (t_dir, t_hit, t_maps)
+    return d, tstate, (j_rays, j_hit, j_maps), (t_dir, t_hit, t_maps), (tp, pose, tintr, tvc, t_start)
 
 
 def test_state_roundtrip(rendered):
@@ -121,3 +135,150 @@ def test_other_march_modes_not_ported(rendered):
     tstate = rendered[1]
     with pytest.raises(NotImplementedError):
         tray.raycast(tstate.volume, *([None] * 4), None, None, march_mode="skip")
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def test_packed_pose_roundtrip(rendered):
+    tp, pose = rendered[4][:2]
+    assert pose.shape == (kernels.RAY_POSE_FLOATS,) and pose.dtype == torch.float32
+    for back, orig in zip(kernels.unpack_ray_pose(pose), tp):
+        assert _bits_equal(back.v, orig.v.contiguous()) and _bits_equal(back.g, orig.g.contiguous())
+
+
+def test_camera_args_are_the_rays_roundings(rendered):
+    """The float32 numbers handed to K3, K5 and K8 against what
+    ``camera_rays`` and ``create_vmap`` compute with the Python floats: the
+    subtraction is the same, the division by the focal length is a multiply
+    by its reciprocal, taken in double and rounded to float32 (PyTorch's CUDA
+    rounding), one ulp at most from the CPU's true division."""
+    tintr = rendered[4][2]
+    cx, cy, inv_fx, inv_fy = kernels.camera_args(tintr)
+    assert inv_fx == float(np.float32(1.0 / tintr.fx))
+    assert inv_fy == float(np.float32(1.0 / tintr.fy))
+    for n, c, inv, f in ((tintr.width, cx, inv_fx, tintr.fx), (tintr.height, cy, inv_fy, tintr.fy)):
+        u = torch.arange(n, dtype=torch.float32)
+        centred = u - (tintr.cx if n == tintr.width else tintr.cy)
+        np.testing.assert_array_equal(centred.numpy(), np.arange(n, dtype=np.float32) - np.float32(c))
+        on_card = centred.numpy() * np.float32(inv)
+        on_cpu = (centred / f).numpy()
+        assert np.all(np.abs(on_card - on_cpu) <= np.spacing(np.abs(on_cpu)))
+    assert kernels.reciprocal_f32(1000.0) == float(np.float32(0.001))  # K8's literal
+
+
+@pytest.mark.parametrize("wrapper", ["march_fixed", "raycast_refine", "resize_model_maps"])
+def test_raycast_wrappers_use_plain_versions_on_cpu(rendered, wrapper):
+    tstate, t_hit, t_maps = rendered[1], rendered[3][1], rendered[3][2]
+    tp, pose, tintr, tvc, t_start = rendered[4]
+    before = dict(kernels.launch_counts)
+    if wrapper == "march_fixed":
+        ray_dir, ray_start = kernels.camera_rays(tp[0], tp[1], tintr)
+        plain = kernels.march_fixed_plain(tstate.volume.value, ray_start, ray_dir, tvc.voxel_size, tvc.trunc_dist)
+        pairs = list(zip(t_hit, plain))
+    elif wrapper == "raycast_refine":
+        ray_dir, ray_start = kernels.camera_rays(tp[0], tp[1], tintr)
+        accept = t_hit[0] < torch.clamp(t_hit[1], max=kernels.INF_T)
+        plain = tray.finalize_maps(*tray.refine(tstate.volume, ray_start, ray_dir, t_hit[0], accept, tp[2], tp[3], tvc))
+        out = tray.raycast_refine(tstate.volume, pose, *t_hit, tintr, tvc)
+        pairs = [(o.v, p.v) for o, p in zip(out, plain)] + [(o.g, p.g) for o, p in zip(out, plain)]
+        pairs += [(o.v, m.v) for o, m in zip(out, t_maps)]  # and raycast() is the composition
+    else:
+        vmap, nmap = resize_model_maps(*t_maps)
+        plain_n = _resize_nmap_dual(t_maps[1])
+        pairs = [(vmap.v, tpre.resize_vmap(t_maps[0].v)), (vmap.g, tpre.resize_vmap(t_maps[0].g)),
+                 (nmap.v, plain_n.v), (nmap.g, plain_n.g)]
+    for got, want in pairs:
+        assert _bits_equal(got, want)
+    assert kernels.launch_counts == before  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("which", ["vmap", "nmap"])
+def test_model_map_pyramid(rendered, which, level):
+    """The composed stage, K3 wrapper -> K5 wrapper -> K6 wrapper, against the
+    JAX raycast and its pyramid (``resize_vmap`` on both lanes,
+    ``_resize_nmap_dual``), with ``test_model_maps``' tolerances."""
+    j_maps, tstate = rendered[2][2], rendered[1]
+    _, pose, tintr, tvc, _ = rendered[4]
+    t_found, t_dead = kernels.march_fixed(tstate.volume.value, pose, tintr, tvc.voxel_size, tvc.trunc_dist)
+    tv, tn = tray.raycast_refine(tstate.volume, pose, t_found, t_dead, tintr, tvc)
+    jv, jn = j_maps
+    for _ in range(level):
+        tv, tn = resize_model_maps(tv, tn)
+        jv = type(jv)(jpre.resize_vmap(jv.v), jpre.resize_vmap(jv.g))
+        jn = j_resize_nmap_dual(jn)
+    t, j = (tv, jv) if which == "vmap" else (tn, jn)
+    assert t.v.shape == (3, tintr.height >> level, tintr.width >> level)
+    jval, jg = np.asarray(j.v), np.asarray(j.g)
+    tval, tg = t.v.numpy(), t.g.numpy()
+    jf, tf = np.isfinite(jval[0]), np.isfinite(tval[0])
+    assert jf.mean() > 0.4
+    assert np.mean(jf == tf) >= 0.995
+    both = jf & tf
+    np.testing.assert_allclose(tval[:, both], jval[:, both], atol=1e-4)
+    np.testing.assert_allclose(tg[:, both], jg[:, both], atol=1e-4 * max(1.0, np.abs(jg[:, both]).max()))
+
+
+def _march_unrolled_twin(value, start, dirs, voxel_size, trunc_dist, unroll):
+    """K3's loop in numpy: every live ray takes ``unroll`` samples at once
+    (bounds-checked reads, also past the last step), then applies the crossing
+    and death tests in step order and stops after the first step at which
+    both events are known; samples past that step, or past the last step, are
+    read and ignored."""
+    X, Y, Z = value.shape
+    f = np.float32
+    step, vs = f(trunc_dist * 0.8), f(voxel_size)
+    n_steps = kernels.march_steps(trunc_dist)
+    d = dirs.reshape(3, -1)
+    n = d.shape[1]
+
+    def sample(t):
+        g = [np.nan_to_num(np.floor((start[i] + d[i] * f(t)) / vs), nan=-1.0).clip(-2 ** 30, 2 ** 30).astype(np.int64)
+             for i in range(3)]
+        inside = (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
+        return g, inside
+
+    g0, _ = sample(kernels.RAY_MIN_M)
+    prev = value[g0[0].clip(0, X - 1), g0[1].clip(0, Y - 1), g0[2].clip(0, Z - 1)] + f(1e-5)
+    t_found = np.full(n, kernels.INF_T, f)
+    t_dead = np.full(n, kernels.INF_T, f)
+    done = np.zeros(n, bool)
+    reads = 0
+    for k0 in range(0, n_steps, unroll):
+        if done.all():
+            break
+        batch = []
+        for j in range(unroll):  # the loads, started together
+            g, inside = sample(f(kernels.RAY_MIN_M) + f(k0 + j + 1) * step)
+            tsdf = np.where(inside, value[g[0].clip(0, X - 1), g[1].clip(0, Y - 1), g[2].clip(0, Z - 1)], f(0)) + f(1e-5)
+            batch.append((inside, tsdf.astype(f)))
+            reads += int((~done).sum())
+        for j, (inside, tsdf) in enumerate(batch):  # the tests, in step order
+            k = k0 + j
+            if k >= n_steps:
+                break
+            live = ~done
+            t_curr = f(kernels.RAY_MIN_M) + f(k) * step
+            death = ~inside | (inside & (prev < 0) & (tsdf > 0))
+            crossing = inside & (prev > 0) & (tsdf < 0)
+            t_found = np.where(live & crossing & (t_curr < t_found), t_curr, t_found)
+            t_dead = np.where(live & death & (t_curr < t_dead), t_curr, t_dead)
+            prev = np.where(live, tsdf, prev)
+            done = done | ((t_found < kernels.INF_T) & (t_dead < kernels.INF_T))
+    return t_found.reshape(dirs.shape[1:]), t_dead.reshape(dirs.shape[1:]), reads
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+def test_unrolled_march_stop_rule(rendered, unroll):
+    tstate, t_dir = rendered[1], rendered[3][0]
+    _, _, _, tvc, t_start = rendered[4]
+    plain = kernels.march_fixed_plain(tstate.volume.value, t_start, t_dir, tvc.voxel_size, tvc.trunc_dist)
+    found, dead, reads = _march_unrolled_twin(
+        tstate.volume.value.numpy(), t_start.v.numpy(), t_dir.v.numpy(), tvc.voxel_size, tvc.trunc_dist, unroll)
+    np.testing.assert_array_equal(found, plain[0].numpy())
+    np.testing.assert_array_equal(dead, plain[1].numpy())
+    # stopping early is what the rule is for: fewer reads than the lockstep march's
+    n_steps = kernels.march_steps(tvc.trunc_dist)
+    assert reads < t_dir.v[0].numel() * (-(-n_steps // unroll) * unroll)

@@ -25,9 +25,22 @@ from pathlib import Path
 from ..ops.kernels import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, SOURCES
 
 # threads per block of each kernel (csrc/*.cu), for the occupancy by registers
-BLOCK_THREADS = {"icp_system_kernel": 256, "icp_associate_kernel": 256, "fuse_kernel": 256}
+BLOCK_THREADS = {
+    "icp_system_kernel": 256, "icp_associate_kernel": 256, "fuse_kernel": 256, "bilateral_kernel": 256,
+    "bilateral_weights_kernel": 256,
+    "bilateral_direct_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 256,
+    "resize_model_maps_kernel": 256, "pyr_down_kernel": 256, "vertex_normal_maps_kernel": 256,
+}
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64
+
+
+def function_name(demangled: str):
+    """The function's own name, with its template arguments, out of a
+    demangled signature such as ``void (anonymous namespace)::march_kernel<4,
+    true>(float*, int)``; ``None`` where there is none."""
+    m = re.search(r"(\w+)(<[^<>()]*>)?\(", demangled)
+    return m.group(1) + (m.group(2) or "") if m else None
 
 
 def _demangled(symbol: str) -> str:
@@ -38,9 +51,9 @@ def _demangled(symbol: str) -> str:
             text = subprocess.run([tool, symbol], capture_output=True, text=True, timeout=30).stdout
         except (OSError, subprocess.SubprocessError):
             continue
-        m = re.search(r"(\w+)\s*\(", text)
-        if m:
-            return m.group(1)
+        name = function_name(text)
+        if name:
+            return name
     return symbol
 
 
@@ -89,7 +102,7 @@ def main(argv=None) -> int:
             continue
         kernels = parse_ptxas(text)
         for name, k in kernels.items():
-            threads = BLOCK_THREADS.get(name)
+            threads = BLOCK_THREADS.get(name.split("<")[0])
             if threads and k.get("registers"):
                 # registers are granted to a warp in units of 256
                 per_warp = -(-k["registers"] * 32 // 256) * 256

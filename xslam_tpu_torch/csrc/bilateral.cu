@@ -8,14 +8,39 @@
 // rounds half away from zero), zeroed outside [200, 5000] mm and clipped to
 // [0, 32767].
 //
-// Bound on the H100: operations. 169 taps per pixel, each an expf and a few
-// multiply-adds, against 6 bytes of device memory per pixel (u16 in, f32 out).
-// Design: one thread per output pixel; a block stages its 32x8 tile plus the
-// 6-pixel halo, converted to float, in shared memory once, so the 169 taps
-// read shared memory and device memory is read about 2.3 times per pixel
-// instead of 169. No fast-math: the sum is rounded to an integer, so expf and
-// the division keep their IEEE-accurate forms, and the tap order (dy outer,
-// dx inner) is the reference's.
+// Bound on the H100: operations, and among them the accurate expf of each of
+// the 169 taps a pixel (some 25 instructions with its range reduction, one of
+// them on the quarter-rate special-function unit), against 6 bytes of device
+// memory a pixel. What the design does about it:
+//
+// - No expf in the tap loop. The weight is exp(-(space2 * inv_ss + diff^2 *
+//   inv_sc)); space2 = dy^2 + dx^2 takes 27 distinct values, and the depths
+//   are whole millimetres, so diff is an integer and the weight is exactly 0
+//   in float32 from |diff| = 440 on. The 27 x 448 weights are a table (48
+//   KB), made once for a device by xs_bilateral_weights with the tap's own
+//   expression and the same expf; a block copies it into shared memory, then
+//   a tap is one table read at (space2's rank, min(|diff|, 447)): the bits
+//   of the weight are those of the direct evaluation, so the output equals
+//   the plain version's as the earlier kernel's did.
+// - The index comes without a float-to-int conversion (quarter rate): |diff|
+//   + 2^23 has the integer in its low mantissa bits.
+// - A thread computes P horizontally adjacent pixels from a register window
+//   of P + 12 tile values per row (vector shared-memory reads), so a tap
+//   costs a fraction of a tile read, one table read and five float operations.
+// - The [0, size-2] rule and the image border need no branch: a tile cell
+//   that may not count holds -1e6, whose |diff| clamps to the table's zero
+//   column, and nbr * 0 adds nothing. The centre is read from the image.
+// - Tap order (dy outer, dx inner), rintf, the division and the NaN-keeping
+//   clip are the reference's; no fast math.
+//
+// Blocks walk over the tiles (`blocks` of them; as many as tiles by default).
+// The entry point takes the tile shape and how a tap gets its weight, so a
+// smoke run can time the routes beside each other: the table copied from
+// device memory (the main path's), the table filled by every block (47 expf a
+// thread), and expf per tap with the window, skipping taps whose exponent is
+// past 105 (weight exactly 0). xs_bilateral_filter_direct is the earlier
+// design (one thread a pixel, one expf and one shared-memory read a tap), kept
+// as a test-only entry so a smoke run times both in one call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,16 +48,158 @@
 namespace {
 
 constexpr int R = 6;
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int SW = TX + 2 * R;
-constexpr int SH = TY + 2 * R;
+constexpr int TXT = 32;              // threads across a tile; P pixels each
+constexpr int NS = 27;               // distinct dy^2 + dx^2 for |dy|, |dx| <= 6
+constexpr int ND = 448;              // |diff| columns; the last holds exactly 0
+constexpr float OUTSIDE = -1e6f;     // a tile cell that may not count
+constexpr float MAGIC = 8388608.0f;  // 2^23
 
-__global__ void bilateral_kernel(const uint16_t* __restrict__ src, float* __restrict__ dst, int H, int W) {
-  __shared__ float tile[SH][SW];
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  for (int i = threadIdx.y * TX + threadIdx.x; i < SH * SW; i += TX * TY) {
-    const int ty = i / SW, tx = i % SW;
+// how a tap gets its weight
+constexpr int EXPF = 0;          // expf per tap
+constexpr int TABLE = 1;         // the table, copied from device memory (xs_bilateral_weights made it)
+constexpr int TABLE_FILLED = 2;  // the table, filled by the block itself
+
+// rank of dy^2 + dx^2 among its distinct values, by (|dy|, |dx|), and the values
+__constant__ unsigned char S_RANK[7 * 7] = {
+    0,  1,  3,  6,  9,  13, 18,  //
+    1,  2,  4,  7,  10, 14, 19,  //
+    3,  4,  5,  8,  12, 15, 20,  //
+    6,  7,  8,  11, 13, 17, 22,  //
+    9,  10, 12, 13, 16, 21, 24,  //
+    13, 14, 15, 17, 21, 23, 25,  //
+    18, 19, 20, 22, 24, 25, 26};
+__constant__ float S_VALUE[NS] = {0,  1,  2,  4,  5,  8,  9,  10, 13, 16, 17, 18, 20, 25,
+                                  26, 29, 32, 34, 36, 37, 40, 41, 45, 50, 52, 61, 72};
+
+// 0.5 / sigma^2 computed in double and rounded once, as the reference's
+// Python-float constants are
+__device__ __forceinline__ float inv_sigma_space() { return (float)(0.5 / (4.5 * 4.5)); }
+__device__ __forceinline__ float inv_sigma_color() { return (float)(0.5 / (30.0 * 30.0)); }
+
+// entry i of the [NS][ND] weight table: the tap's own expression
+__device__ __forceinline__ float table_weight(int i) {
+  const int d = i % ND;
+  const float color2 = (float)d * (float)d;
+  return expf(-(S_VALUE[i / ND] * inv_sigma_space() + color2 * inv_sigma_color()));
+}
+
+__global__ void bilateral_weights_kernel(float* __restrict__ table) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < NS * ND) table[i] = table_weight(i);
+}
+
+__device__ __forceinline__ float finish(float sum1, float sum2) {
+  float res = rintf(sum1 / sum2);
+  if (res > 5000.0f || res < 200.0f) res = 0.0f;
+  // clip without fminf/fmaxf, which would turn a NaN (0/0 at the last
+  // row/column) into a number where jnp.clip keeps it
+  if (res > 32767.0f) res = 32767.0f;
+  if (res < 0.0f) res = 0.0f;
+  return res;
+}
+
+// P pixels a thread, TXT x TYT threads, so a tile of (TXT * P) x TYT pixels
+template <int MODE, int P, int TYT>
+__global__ void __launch_bounds__(TXT* TYT)
+    bilateral_kernel(const uint16_t* __restrict__ src, const float* __restrict__ weights, float* __restrict__ dst,
+                     int H, int W, int tiles_x, int n_tiles) {
+  constexpr int TW = TXT * P, TH = TYT, SW = TW + 2 * R, SH = TH + 2 * R, THREADS = TXT * TYT;
+  constexpr int WIN = P + 2 * R;  // tile values one row gives a thread's pixels
+  static_assert(WIN % P == 0 && SW % P == 0 && (NS * ND) % 4 == 0, "the window is read as vectors of P floats");
+  extern __shared__ __align__(16) float smem[];
+  float* table = smem;                                  // [NS][ND], not where MODE == EXPF
+  float* tile = smem + (MODE == EXPF ? 0 : NS * ND);    // [SH][SW]
+  const int tid = threadIdx.y * TXT + threadIdx.x;
+  const float inv_ss = inv_sigma_space(), inv_sc = inv_sigma_color();
+  if (MODE == TABLE) {
+    for (int i = tid; i < NS * ND / 4; i += THREADS)
+      reinterpret_cast<float4*>(table)[i] = reinterpret_cast<const float4*>(weights)[i];
+  } else if (MODE == TABLE_FILLED) {
+    for (int i = tid; i < NS * ND; i += THREADS) table[i] = table_weight(i);
+  }
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int x0 = (t % tiles_x) * TW, y0 = (t / tiles_x) * TH;
+    __syncthreads();  // the table is there; the previous tile is done with
+    for (int i = tid; i < SH * SW; i += THREADS) {
+      const int gy = y0 + i / SW - R, gx = x0 + i % SW - R;
+      tile[i] = (gy >= 0 && gy <= H - 2 && gx >= 0 && gx <= W - 2) ? (float)src[gy * W + gx] : OUTSIDE;
+    }
+    __syncthreads();
+
+    const int y = y0 + threadIdx.y, px = x0 + threadIdx.x * P;
+    if (y >= H || px >= W) continue;
+    float center[P], sum1[P], sum2[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      center[p] = px + p < W ? (float)src[y * W + px + p] : 0.0f;
+      sum1[p] = 0.0f;
+      sum2[p] = 0.0f;
+    }
+#pragma unroll 1
+    for (int dy = -R; dy <= R; ++dy) {
+      const float* row = tile + (threadIdx.y + R + dy) * SW + threadIdx.x * P;
+      float win[WIN];
+#pragma unroll
+      for (int q = 0; q < WIN / P; ++q) {
+        if constexpr (P == 4) {
+          const float4 v = reinterpret_cast<const float4*>(row)[q];
+          win[4 * q] = v.x, win[4 * q + 1] = v.y, win[4 * q + 2] = v.z, win[4 * q + 3] = v.w;
+        } else {
+          const float2 v = reinterpret_cast<const float2*>(row)[q];
+          win[2 * q] = v.x, win[2 * q + 1] = v.y;
+        }
+      }
+      const int ady = dy < 0 ? -dy : dy;
+#pragma unroll
+      for (int dx = -R; dx <= R; ++dx) {
+        const int rank = S_RANK[ady * 7 + (dx < 0 ? -dx : dx)];
+        const float* column = table + rank * ND;
+        const float space = (float)(dy * dy + dx * dx) * inv_ss;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const float nbr = win[p + dx + R];
+          const float diff = center[p] - nbr;
+          float w;
+          if (MODE == EXPF) {
+            const float arg = space + (diff * diff) * inv_sc;
+            if (arg > 105.0f) continue;  // expf(-arg) is exactly 0
+            w = expf(-arg);
+          } else {
+            const float at = fminf(fabsf(diff), (float)(ND - 1)) + MAGIC;
+            w = column[__float_as_int(at) & 0x1ff];
+          }
+          sum1[p] = sum1[p] + nbr * w;
+          sum2[p] = sum2[p] + w;
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (px + p < W) dst[y * W + px + p] = finish(sum1[p], sum2[p]);
+  }
+}
+
+template <int MODE, int P, int TYT>
+int launch_bilateral(const uint16_t* src, const float* weights, float* dst, int H, int W, int blocks,
+                     cudaStream_t stream) {
+  constexpr int TW = TXT * P, TH = TYT;
+  const int tiles_x = (W + TW - 1) / TW, n_tiles = tiles_x * ((H + TH - 1) / TH);
+  const int grid = blocks > 0 && blocks < n_tiles ? blocks : n_tiles;
+  const int bytes = ((MODE == EXPF ? 0 : NS * ND) + (TH + 2 * R) * (TW + 2 * R)) * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(bilateral_kernel<MODE, P, TYT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  bilateral_kernel<MODE, P, TYT><<<grid, dim3(TXT, TYT), bytes, stream>>>(src, weights, dst, H, W, tiles_x, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// the earlier design: see the header
+constexpr int DX = 32, DY = 8;
+__global__ void bilateral_direct_kernel(const uint16_t* __restrict__ src, float* __restrict__ dst, int H, int W) {
+  __shared__ float tile[DY + 2 * R][DX + 2 * R];
+  const int x0 = blockIdx.x * DX, y0 = blockIdx.y * DY;
+  for (int i = threadIdx.y * DX + threadIdx.x; i < (DY + 2 * R) * (DX + 2 * R); i += DX * DY) {
+    const int ty = i / (DX + 2 * R), tx = i % (DX + 2 * R);
     const int gy = y0 + ty - R, gx = x0 + tx - R;
     tile[ty][tx] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? (float)src[gy * W + gx] : 0.0f;
   }
@@ -40,10 +207,7 @@ __global__ void bilateral_kernel(const uint16_t* __restrict__ src, float* __rest
 
   const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
   if (x >= W || y >= H) return;
-  // 0.5 / sigma^2 computed in double and rounded once, as the reference's
-  // Python-float constants are
-  const float inv_ss = (float)(0.5 / (4.5 * 4.5));
-  const float inv_sc = (float)(0.5 / (30.0 * 30.0));
+  const float inv_ss = inv_sigma_space(), inv_sc = inv_sigma_color();
   const float center = tile[threadIdx.y + R][threadIdx.x + R];
   float sum1 = 0.0f, sum2 = 0.0f;
   for (int dy = -R; dy <= R; ++dy) {
@@ -61,20 +225,37 @@ __global__ void bilateral_kernel(const uint16_t* __restrict__ src, float* __rest
       sum2 = sum2 + w;
     }
   }
-  float res = rintf(sum1 / sum2);
-  if (res > 5000.0f || res < 200.0f) res = 0.0f;
-  // clip without fminf/fmaxf, which would turn a NaN (0/0 at the last
-  // row/column) into a number where jnp.clip keeps it
-  if (res > 32767.0f) res = 32767.0f;
-  if (res < 0.0f) res = 0.0f;
-  dst[y * W + x] = res;
+  dst[y * W + x] = finish(sum1, sum2);
 }
 
 }  // namespace
 
-extern "C" int xs_bilateral_filter(const void* src, void* dst, int H, int W, void* stream) {
-  const dim3 block(TX, TY);
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  bilateral_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((const uint16_t*)src, (float*)dst, H, W);
+// the [27][448] weight table, made once for a device and handed to every launch
+extern "C" int xs_bilateral_weights(void* table, void* stream) {
+  bilateral_weights_kernel<<<(NS * ND + 255) / 256, 256, 0, (cudaStream_t)stream>>>((float*)table);
+  return (int)cudaGetLastError();
+}
+
+// mode: 0 expf per tap, 1 the weight table copied from `weights`, 2 the table filled by each block;
+// shape: 0 a 128 x 8 pixel tile (4 pixels a thread), 1 a 128 x 4 tile (4 a thread, 128 threads),
+// 2 a 64 x 8 tile (2 a thread); blocks: the grid (0: one block a tile)
+extern "C" int xs_bilateral_filter(const void* src, const void* weights, void* dst, int H, int W, int mode,
+                                   int shape, int blocks, void* stream) {
+  const uint16_t* in = (const uint16_t*)src;
+  const float* w = (const float*)weights;
+  float* out = (float*)dst;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == EXPF && shape == 0) return launch_bilateral<EXPF, 4, 8>(in, w, out, H, W, blocks, s);
+  if (mode == TABLE_FILLED && shape == 0) return launch_bilateral<TABLE_FILLED, 4, 8>(in, w, out, H, W, blocks, s);
+  if (mode == TABLE && shape == 0) return launch_bilateral<TABLE, 4, 8>(in, w, out, H, W, blocks, s);
+  if (mode == TABLE && shape == 1) return launch_bilateral<TABLE, 4, 4>(in, w, out, H, W, blocks, s);
+  if (mode == TABLE && shape == 2) return launch_bilateral<TABLE, 2, 8>(in, w, out, H, W, blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int xs_bilateral_filter_direct(const void* src, void* dst, int H, int W, void* stream) {
+  const dim3 block(DX, DY);
+  const dim3 grid((W + DX - 1) / DX, (H + DY - 1) / DY);
+  bilateral_direct_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((const uint16_t*)src, (float*)dst, H, W);
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,36 @@
 // Python binding of the kernels' C entry points (bilateral.cu, fusion.cu,
-// march.cu, icp.cu, gather_probes.cu), built with them by torch.utils.cpp_extension.load. The only
+// march.cu, refine.cu, maps.cu, icp.cu, gather_probes.cu), built with them by
+// torch.utils.cpp_extension.load. The only
 // source that includes PyTorch's headers. The wrappers in ops/kernels.py
 // check device, type, shape and contiguity; each function here launches on
 // the stream it is given and returns the launch's cudaError_t.
 
 #include <torch/extension.h>
 
-extern "C" int xs_bilateral_filter(const void* src, void* dst, int H, int W, void* stream);
+extern "C" int xs_bilateral_weights(void* table, void* stream);
+extern "C" int xs_bilateral_filter(const void* src, const void* weights, void* dst, int H, int W, int mode,
+                                   int shape, int blocks, void* stream);
+extern "C" int xs_bilateral_filter_direct(const void* src, void* dst, int H, int W, void* stream);
 extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               int X, int Y, int Z, int H, int W,
                               float vs, float fx, float fy, float cx, float cy,
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
                               void* stream);
-extern "C" int xs_march_fixed(const void* value, const void* start, const void* dirs, void* t_found,
-                              void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
-                              float step, void* stream);
+extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
+                              int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
+                              float inv_fx, float inv_fy, int unroll, int tile, int fast, void* stream);
+extern "C" int xs_march_fixed_chain(const void* value, const void* start, const void* dirs, void* t_found,
+                                    void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
+                                    float step, void* stream);
+extern "C" int xs_raycast_refine(const void* value, const void* grad, const void* pose, const void* t_found,
+                                 const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, int X,
+                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy, int tile,
+                                 void* stream);
+extern "C" int xs_resize_model_maps(const void* vv, const void* vg, const void* nv, const void* ng, void* out_vv,
+                                    void* out_vg, void* out_nv, void* out_ng, int H, int W, void* stream);
+extern "C" int xs_pyr_down(const void* src, void* dst, int H, int W, void* stream);
+extern "C" int xs_vertex_normal_maps(const void* depth, void* vmap, void* nmap, int H, int W, float cx, float cy,
+                                     float inv_fx, float inv_fy, void* stream);
 extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
                              const void* pose, void* partials, void* ticket, int blocks, void* out,
                              void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
@@ -33,8 +49,20 @@ namespace {
 
 void* as_stream(int64_t stream) { return reinterpret_cast<void*>(stream); }
 
-int bilateral_filter(const torch::Tensor& depth, torch::Tensor out, int64_t stream) {
-  return xs_bilateral_filter(depth.data_ptr(), out.data_ptr(), depth.size(0), depth.size(1), as_stream(stream));
+int bilateral_weights(torch::Tensor table, int64_t stream) {
+  return xs_bilateral_weights(table.data_ptr(), as_stream(stream));
+}
+
+// weights: the table of bilateral_weights; mode, shape, blocks: see csrc/bilateral.cu
+int bilateral_filter(const torch::Tensor& depth, const torch::Tensor& weights, torch::Tensor out, int64_t mode,
+                     int64_t shape, int64_t blocks, int64_t stream) {
+  return xs_bilateral_filter(depth.data_ptr(), weights.data_ptr(), out.data_ptr(), depth.size(0), depth.size(1), mode,
+                             shape, blocks, as_stream(stream));
+}
+
+int bilateral_filter_direct(const torch::Tensor& depth, torch::Tensor out, int64_t stream) {
+  return xs_bilateral_filter_direct(depth.data_ptr(), out.data_ptr(), depth.size(0), depth.size(1),
+                                    as_stream(stream));
 }
 
 int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
@@ -45,12 +73,52 @@ int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
                         vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, as_stream(stream));
 }
 
-int march_fixed(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
-                torch::Tensor t_found, torch::Tensor t_dead, int64_t n_steps, float vs, float step,
-                int64_t stream) {
-  return xs_march_fixed(value.data_ptr(), start.data_ptr(), dirs.data_ptr(), t_found.data_ptr(),
-                        t_dead.data_ptr(), value.size(0), value.size(1), value.size(2), t_found.size(0),
-                        t_found.size(1), n_steps, vs, step, as_stream(stream));
+int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
+                int64_t n_steps, float vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                int64_t unroll, bool tile, bool fast, int64_t stream) {
+  return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
+                        value.size(1), value.size(2), t_found.size(0), t_found.size(1), n_steps, vs, step, cx, cy,
+                        inv_fx, inv_fy, unroll, tile ? 1 : 0, fast ? 1 : 0, as_stream(stream));
+}
+
+int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
+                      torch::Tensor t_found, torch::Tensor t_dead, int64_t n_steps, float vs, float step,
+                      int64_t stream) {
+  return xs_march_fixed_chain(value.data_ptr(), start.data_ptr(), dirs.data_ptr(), t_found.data_ptr(),
+                              t_dead.data_ptr(), value.size(0), value.size(1), value.size(2), t_found.size(0),
+                              t_found.size(1), n_steps, vs, step, as_stream(stream));
+}
+
+// vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs
+int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
+                   const torch::Tensor& t_found, const torch::Tensor& t_dead, torch::Tensor vmap_v,
+                   torch::Tensor vmap_g, torch::Tensor nmap_v, torch::Tensor nmap_g, float vs, float inv_vs,
+                   float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                   bool tile, int64_t stream) {
+  return xs_raycast_refine(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), t_found.data_ptr(),
+                           t_dead.data_ptr(), vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(),
+                           nmap_g.data_ptr(), value.size(0), value.size(1), value.size(2), t_found.size(0),
+                           t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
+                           tile ? 1 : 0, as_stream(stream));
+}
+
+// the (3, H, W) maps of one level in, the (3, H/2, W/2) maps of the next out
+int resize_model_maps(const torch::Tensor& vv, const torch::Tensor& vg, const torch::Tensor& nv,
+                      const torch::Tensor& ng, torch::Tensor out_vv, torch::Tensor out_vg, torch::Tensor out_nv,
+                      torch::Tensor out_ng, int64_t stream) {
+  return xs_resize_model_maps(vv.data_ptr(), vg.data_ptr(), nv.data_ptr(), ng.data_ptr(), out_vv.data_ptr(),
+                              out_vg.data_ptr(), out_nv.data_ptr(), out_ng.data_ptr(), vv.size(1), vv.size(2),
+                              as_stream(stream));
+}
+
+int pyr_down(const torch::Tensor& src, torch::Tensor dst, int64_t stream) {
+  return xs_pyr_down(src.data_ptr(), dst.data_ptr(), src.size(0), src.size(1), as_stream(stream));
+}
+
+int vertex_normal_maps(const torch::Tensor& depth, torch::Tensor vmap, torch::Tensor nmap, float cx, float cy,
+                       float inv_fx, float inv_fy, int64_t stream) {
+  return xs_vertex_normal_maps(depth.data_ptr(), vmap.data_ptr(), nmap.data_ptr(), depth.size(0), depth.size(1), cx,
+                               cy, inv_fx, inv_fy, as_stream(stream));
 }
 
 void* data_or_null(const std::optional<torch::Tensor>& t) { return t.has_value() ? t->data_ptr() : nullptr; }
@@ -101,9 +169,16 @@ int probe_e(const torch::Tensor& table, const torch::Tensor& idx0, torch::Tensor
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("bilateral_weights", &bilateral_weights);
   m.def("bilateral_filter", &bilateral_filter);
+  m.def("bilateral_filter_direct", &bilateral_filter_direct);
   m.def("fuse_volume", &fuse_volume);
   m.def("march_fixed", &march_fixed);
+  m.def("march_fixed_chain", &march_fixed_chain);
+  m.def("raycast_refine", &raycast_refine);
+  m.def("resize_model_maps", &resize_model_maps);
+  m.def("pyr_down", &pyr_down);
+  m.def("vertex_normal_maps", &vertex_normal_maps);
   m.def("icp_system", &icp_system);
   m.def("icp_associate", &icp_associate);
   m.def("probe_a", &probe_a);
