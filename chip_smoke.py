@@ -400,7 +400,19 @@ def phase_march(ctx):
         vf.fill_(-1.0), vd.fill_(-1.0)
         sweep[name] = time_ms(variant, 50)
         sweep_equal = sweep_equal and bool(torch.equal(vf, cf)) and bool(torch.equal(vd, cd))
-    emit("K3 march_fixed", shape=list(tf.shape), t_found_frac_equal=eq_f, t_dead_frac_equal=eq_d,
+    # rays with a NaN or an infinity never enter the new kernel's loop: the same outputs asked
+    # as from the earlier design, which marches them (every sample lies outside)
+    odd_equal = True
+    for at, bad in ((4, float("nan")), (4, float("inf")), (18, float("inf"))):  # rotation, rotation, origin
+        odd_pose = pose.clone()
+        odd_pose[at] = bad  # every ray is hit
+        odd_dir, odd_start = kernels.camera_rays(*kernels.unpack_ray_pose(odd_pose)[:2], intr)
+        of, od = kernels.march_fixed(vol.value, odd_pose, intr, eng.voxel_size, eng.trunc_dist)
+        check(ext.march_fixed_chain(vol.value, odd_start.v.contiguous(), odd_dir.v.contiguous(), cf, cd, n_steps, vs,
+                                    step, stream) == 0, "march_fixed_chain launch failed")
+        odd_equal = odd_equal and bool(torch.equal(of, cf)) and bool(torch.equal(od, cd))
+    chain()  # cf, cd back to the real rays' outputs
+    emit("K3 march_fixed", shape=list(tf.shape), nan_and_inf_rays_equal_to_earlier_design=odd_equal, t_found_frac_equal=eq_f, t_dead_frac_equal=eq_d,
          max_abs_err_t_found=err, hit_fraction=hits, samples=samples, bytes_needed=n_bytes, ms=ms,
          plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
          library_note="no single PyTorch call computes it", unroll=kernels.MARCH_UNROLL, tile=kernels.MARCH_TILE,
@@ -409,7 +421,8 @@ def phase_march(ctx):
          sweep_bit_equal_to_earlier_design=sweep_equal)
     check(eq_f >= 0.999 and eq_d >= 0.999, f"K3 disagrees with its plain version: {eq_f}, {eq_d}")
     check(hits > 0.5, f"K3 found surfaces on only {hits:.3f} of the rays")
-    check(chain_equal and sweep_equal, f"K3 is not bit-equal to its earlier design: {chain_equal}, sweep {sweep_equal}")
+    check(chain_equal and sweep_equal and odd_equal,
+          f"K3 is not bit-equal to its earlier design: {chain_equal}, sweep {sweep_equal}, NaN and inf rays {odd_equal}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
