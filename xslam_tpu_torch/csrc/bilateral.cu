@@ -9,7 +9,7 @@
 // [0, 32767].
 //
 // Bound on the H100: operations, and among them the accurate expf of each of
-// the 169 taps a pixel (some 25 instructions with its range reduction, one of
+// the 169 taps a pixel (some 25 operations with its range reduction, one of
 // them on the quarter-rate special-function unit), against 6 bytes of device
 // memory a pixel. What the design does about it:
 //
