@@ -3,7 +3,8 @@
 the machine with the card): registers, shared memory, stack and spills per
 kernel, from the text ``nvcc -Xptxas -v`` prints. And
 ``xslam_tpu_torch.apps.torch_rounding`` on the CPU, where PyTorch divides
-truly."""
+truly, and the reader of a smoke run's output in
+``xslam_tpu_torch.apps.compare_trees``."""
 
 import pytest
 
@@ -70,7 +71,7 @@ def test_torch_rounding_on_the_cpu():
     card is the double reciprocal rounded once."""
     import numpy as np
 
-    from xslam_tpu_torch.apps.torch_rounding import DIVISORS, measure
+    from xslam_tpu_torch.apps.torch_rounding import DIVISORS, measure, not_followed
     from xslam_tpu_torch.ops.kernels import reciprocal_f32
 
     out = measure("cpu")
@@ -80,3 +81,34 @@ def test_torch_rounding_on_the_cpu():
         assert reciprocal_f32(c) == float(np.float32(1.0 / c))
     assert max(out["mean_2x2"].values()) == 1.0
     assert max(out["sum_3"].values()) == 1.0
+    # the CPU divides truly, so the card's variant is reported as not followed here; a report in
+    # which every followed variant reads 1.0 passes
+    assert any(line.startswith("div_") for line in not_followed(out))
+    card = {f"div_{c}": {"reciprocal_in_double": 1.0} for c in DIVISORS}
+    card.update(mean_2x2={"(q00+q10)+(q01+q11)": 1.0}, sum_3={"(0+1)+2": 1.0})
+    assert not_followed(card) == []
+
+
+def test_compare_trees_reads_a_smoke_runs_output(tmp_path):
+    import json
+
+    from xslam_tpu_torch.apps.compare_trees import COMMANDS, smoke_summary
+
+    lines = [
+        "card: NVIDIA H100 80GB HBM3, 700.00 W",
+        json.dumps({"phase": "build", "seconds": 41.5}),
+        json.dumps({"phase": "main path", "mean_frame_ms": 12.5, "p50_frame_ms": 12.4, "ate_m": 0.00124,
+                    "peak_mem_bytes": 3, "device_launches_in_profiled_frame": 662, "frames": 10}),
+        json.dumps({"phase": "main path, fixed association", "mean_frame_ms": 15.0, "ate_m": 0.00123}),
+        json.dumps({"kernels": [{"name": "march_fixed", "ms": 0.0585}, {"name": "pyr_down", "ms": 0.0038}]}),
+        json.dumps({"ok": True, "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}),
+    ]
+    path = tmp_path / "smoke.txt"
+    path.write_text("\n".join(lines) + "\n")
+    out = smoke_summary(path)
+    assert out["build_seconds"] == 41.5
+    assert out["kernel_ms"] == {"march_fixed": 0.0585, "pyr_down": 0.0038}
+    assert out["main path"] == dict(mean_frame_ms=12.5, p50_frame_ms=12.4, ate_m=0.00124, peak_mem_bytes=3,
+                                    device_launches_in_profiled_frame=662)
+    assert out["main path, fixed association"] == dict(mean_frame_ms=15.0, ate_m=0.00123)
+    assert COMMANDS["smoke"] == ["chip_smoke.py"]

@@ -275,16 +275,14 @@ def test_cached_volume2world_gives_the_same_frame():
     engine = TorchEngine(torch_config(cfg), device="cpu")
     inverse = tse3.inverse(engine.world2volume)
     assert torch.equal(engine.volume2world.v, inverse.v) and torch.equal(engine.volume2world.g, inverse.g)
-    states = []
-    for v2w in (engine.volume2world, None):  # handed over, or inverted inside the frame
-        state = engine.init_state()
-        for i in range(2):
-            state, _ = tkinfu.process_frame(
-                state, torch.as_tensor(np.asarray(ds.get_depth(i), np.uint16)), np.eye(4, dtype=np.float32),
-                config=engine.config, intr=engine.intr, vol_cfg=engine.vol_cfg, world2volume=engine.world2volume,
-                volume2world=v2w)
-        states.append(state)
-    a, b = states
+    # the engine's frame is the module's frame at the two constants the engine holds
+    a, b = engine.init_state(), engine.init_state()
+    for i in range(2):
+        a, _ = engine.process_frame(a, ds.get_depth(i))
+        b, _ = tkinfu.process_frame(
+            b, torch.as_tensor(np.asarray(ds.get_depth(i), np.uint16)), np.eye(4, dtype=np.float32),
+            config=engine.config, intr=engine.intr, vol_cfg=engine.vol_cfg, world2volume=engine.world2volume,
+            volume2world=inverse)
     assert torch.equal(a.world2camera.v, b.world2camera.v)
     assert torch.equal(a.volume.value, b.volume.value)
     for x, y in zip(a.vmaps_prev + a.nmaps_prev, b.vmaps_prev + b.nmaps_prev):

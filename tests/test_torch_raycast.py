@@ -78,7 +78,7 @@ def rendered():
 
     tp = _poses(tse3, tlift, tstate.world2camera, torch.from_numpy(w2v))
     tintr = Intrinsics(*engine.intr)
-    t_dir, t_start = tray._camera_rays(tp[0], tp[1], tintr)
+    t_dir, t_start = kernels.camera_rays(tp[0], tp[1], tintr)
     pose = kernels.pack_ray_pose(*tp)
     t_hit = kernels.march_fixed(tstate.volume.value, pose, tintr, tvc.voxel_size, tvc.trunc_dist)
     t_maps = tray.raycast(tstate.volume, *tp, tintr, tvc)

@@ -14,9 +14,13 @@ Prints one JSON object with fractions of equal results over seeded inputs:
   numbers;
 - ``sum_3``: ``torch.sum`` over a leading axis of 3 against the three orders.
 
-On a CUDA device the kernels of ``csrc/`` follow the variant that reads 1.0
-(``ops/kernels.py::reciprocal_f32``, ``csrc/maps.cu``); on the CPU the
-division is the true one.
+On a CUDA device the kernels of ``csrc/`` follow the variants in
+:data:`FOLLOWED` (``ops/kernels.py::reciprocal_f32``, ``csrc/maps.cu``,
+``csrc/dual.cuh``), which read 1.0 on torch 2.11; on the CPU the division is
+the true one. :func:`not_followed` lists those that no longer read 1.0: after
+an upgrade of PyTorch that changes one of them, K3, K5, K6 and K8 leave their
+plain versions by an ulp with no change of their own, and ``chip_smoke.py``
+says so before it compares them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 
 DIVISORS = (1000.0, 481.2, 0.03, -480.0, 240.6, 0.12)
+# what the kernels repeat on a CUDA device: report key (or its prefix) -> variant
+FOLLOWED = {"div_": "reciprocal_in_double", "mean_2x2": "(q00+q10)+(q01+q11)", "sum_3": "(0+1)+2"}
 
 
 def measure(device) -> dict:
@@ -65,6 +71,14 @@ def measure(device) -> dict:
     }
     return {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "torch": torch.__version__, **out}
+
+
+def not_followed(report: dict) -> list:
+    """The entries of a CUDA device's report in which the variant the kernels
+    follow is not PyTorch's own (does not read 1.0)."""
+    return [f"{key}: {variant} = {entry[variant]}"
+            for prefix, variant in FOLLOWED.items()
+            for key, entry in report.items() if key.startswith(prefix) and entry[variant] != 1.0]
 
 
 def main(argv=None) -> int:

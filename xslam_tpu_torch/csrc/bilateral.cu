@@ -24,23 +24,22 @@
 //   the plain version's as the earlier kernel's did.
 // - The index comes without a float-to-int conversion (quarter rate): |diff|
 //   + 2^23 has the integer in its low mantissa bits.
-// - A thread computes P horizontally adjacent pixels from a register window
-//   of P + 12 tile values per row (vector shared-memory reads), so a tap
-//   costs a fraction of a tile read, one table read and five float operations.
+// - A thread computes P = 2 horizontally adjacent pixels from a register
+//   window of P + 12 tile values per row (vector shared-memory reads), so a
+//   tap costs a fraction of a tile read, one table read and five float
+//   operations.
 // - The [0, size-2] rule and the image border need no branch: a tile cell
 //   that may not count holds -1e6, whose |diff| clamps to the table's zero
 //   column, and nbr * 0 adds nothing. The centre is read from the image.
 // - Tap order (dy outer, dx inner), rintf, the division and the NaN-keeping
 //   clip are the reference's; no fast math.
 //
-// Blocks walk over the tiles (`blocks` of them; as many as tiles by default).
-// The entry point takes the tile shape and how a tap gets its weight, so a
-// smoke run can time the routes beside each other: the table copied from
-// device memory (the main path's), the table filled by every block (47 expf a
-// thread), and expf per tap with the window, skipping taps whose exponent is
-// past 105 (weight exactly 0). xs_bilateral_filter_direct is the earlier
-// design (one thread a pixel, one expf and one shared-memory read a tap), kept
-// as a test-only entry so a smoke run times both in one call.
+// 264 blocks (two a multiprocessor of the H100) walk over the 64 x 8 pixel
+// tiles, so the table is copied once for two or three tiles. Measured beside
+// it and slower: 128 x 8 and 128 x 4 tiles at 4 pixels a thread, a block a
+// tile, the table filled by every block (47 expf a thread), one expf a tap
+// with the window and a skip of taps past the underflow, and the earlier
+// design (one thread a pixel, one expf and one shared-memory read a tap).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,16 +47,13 @@
 namespace {
 
 constexpr int R = 6;
-constexpr int TXT = 32;              // threads across a tile; P pixels each
+constexpr int TXT = 32, TYT = 8;     // threads of a block
+constexpr int P = 2;                 // horizontally adjacent pixels a thread
+constexpr int BLOCKS = 264;          // the grid, where there are that many tiles
 constexpr int NS = 27;               // distinct dy^2 + dx^2 for |dy|, |dx| <= 6
 constexpr int ND = 448;              // |diff| columns; the last holds exactly 0
 constexpr float OUTSIDE = -1e6f;     // a tile cell that may not count
 constexpr float MAGIC = 8388608.0f;  // 2^23
-
-// how a tap gets its weight
-constexpr int EXPF = 0;          // expf per tap
-constexpr int TABLE = 1;         // the table, copied from device memory (xs_bilateral_weights made it)
-constexpr int TABLE_FILLED = 2;  // the table, filled by the block itself
 
 // rank of dy^2 + dx^2 among its distinct values, by (|dy|, |dx|), and the values
 __constant__ unsigned char S_RANK[7 * 7] = {
@@ -77,15 +73,12 @@ __device__ __forceinline__ float inv_sigma_space() { return (float)(0.5 / (4.5 *
 __device__ __forceinline__ float inv_sigma_color() { return (float)(0.5 / (30.0 * 30.0)); }
 
 // entry i of the [NS][ND] weight table: the tap's own expression
-__device__ __forceinline__ float table_weight(int i) {
-  const int d = i % ND;
-  const float color2 = (float)d * (float)d;
-  return expf(-(S_VALUE[i / ND] * inv_sigma_space() + color2 * inv_sigma_color()));
-}
-
 __global__ void bilateral_weights_kernel(float* __restrict__ table) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < NS * ND) table[i] = table_weight(i);
+  if (i >= NS * ND) return;
+  const int d = i % ND;
+  const float color2 = (float)d * (float)d;
+  table[i] = expf(-(S_VALUE[i / ND] * inv_sigma_space() + color2 * inv_sigma_color()));
 }
 
 __device__ __forceinline__ float finish(float sum1, float sum2) {
@@ -98,8 +91,7 @@ __device__ __forceinline__ float finish(float sum1, float sum2) {
   return res;
 }
 
-// P pixels a thread, TXT x TYT threads, so a tile of (TXT * P) x TYT pixels
-template <int MODE, int P, int TYT>
+// a tile of (TXT * P) x TYT pixels at a time
 __global__ void __launch_bounds__(TXT* TYT)
     bilateral_kernel(const uint16_t* __restrict__ src, const float* __restrict__ weights, float* __restrict__ dst,
                      int H, int W, int tiles_x, int n_tiles) {
@@ -107,16 +99,11 @@ __global__ void __launch_bounds__(TXT* TYT)
   constexpr int WIN = P + 2 * R;  // tile values one row gives a thread's pixels
   static_assert(WIN % P == 0 && SW % P == 0 && (NS * ND) % 4 == 0, "the window is read as vectors of P floats");
   extern __shared__ __align__(16) float smem[];
-  float* table = smem;                                  // [NS][ND], not where MODE == EXPF
-  float* tile = smem + (MODE == EXPF ? 0 : NS * ND);    // [SH][SW]
+  float* table = smem;           // [NS][ND]
+  float* tile = smem + NS * ND;  // [SH][SW]
   const int tid = threadIdx.y * TXT + threadIdx.x;
-  const float inv_ss = inv_sigma_space(), inv_sc = inv_sigma_color();
-  if (MODE == TABLE) {
-    for (int i = tid; i < NS * ND / 4; i += THREADS)
-      reinterpret_cast<float4*>(table)[i] = reinterpret_cast<const float4*>(weights)[i];
-  } else if (MODE == TABLE_FILLED) {
-    for (int i = tid; i < NS * ND; i += THREADS) table[i] = table_weight(i);
-  }
+  for (int i = tid; i < NS * ND / 4; i += THREADS)
+    reinterpret_cast<float4*>(table)[i] = reinterpret_cast<const float4*>(weights)[i];
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int x0 = (t % tiles_x) * TW, y0 = (t / tiles_x) * TH;
     __syncthreads();  // the table is there; the previous tile is done with
@@ -141,33 +128,20 @@ __global__ void __launch_bounds__(TXT* TYT)
       float win[WIN];
 #pragma unroll
       for (int q = 0; q < WIN / P; ++q) {
-        if constexpr (P == 4) {
-          const float4 v = reinterpret_cast<const float4*>(row)[q];
-          win[4 * q] = v.x, win[4 * q + 1] = v.y, win[4 * q + 2] = v.z, win[4 * q + 3] = v.w;
-        } else {
-          const float2 v = reinterpret_cast<const float2*>(row)[q];
-          win[2 * q] = v.x, win[2 * q + 1] = v.y;
-        }
+        const float2 v = reinterpret_cast<const float2*>(row)[q];
+        win[2 * q] = v.x, win[2 * q + 1] = v.y;
       }
       const int ady = dy < 0 ? -dy : dy;
 #pragma unroll
       for (int dx = -R; dx <= R; ++dx) {
         const int rank = S_RANK[ady * 7 + (dx < 0 ? -dx : dx)];
         const float* column = table + rank * ND;
-        const float space = (float)(dy * dy + dx * dx) * inv_ss;
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           const float nbr = win[p + dx + R];
           const float diff = center[p] - nbr;
-          float w;
-          if (MODE == EXPF) {
-            const float arg = space + (diff * diff) * inv_sc;
-            if (arg > 105.0f) continue;  // expf(-arg) is exactly 0
-            w = expf(-arg);
-          } else {
-            const float at = fminf(fabsf(diff), (float)(ND - 1)) + MAGIC;
-            w = column[__float_as_int(at) & 0x1ff];
-          }
+          const float at = fminf(fabsf(diff), (float)(ND - 1)) + MAGIC;
+          const float w = column[__float_as_int(at) & 0x1ff];
           sum1[p] = sum1[p] + nbr * w;
           sum2[p] = sum2[p] + w;
         }
@@ -179,55 +153,6 @@ __global__ void __launch_bounds__(TXT* TYT)
   }
 }
 
-template <int MODE, int P, int TYT>
-int launch_bilateral(const uint16_t* src, const float* weights, float* dst, int H, int W, int blocks,
-                     cudaStream_t stream) {
-  constexpr int TW = TXT * P, TH = TYT;
-  const int tiles_x = (W + TW - 1) / TW, n_tiles = tiles_x * ((H + TH - 1) / TH);
-  const int grid = blocks > 0 && blocks < n_tiles ? blocks : n_tiles;
-  const int bytes = ((MODE == EXPF ? 0 : NS * ND) + (TH + 2 * R) * (TW + 2 * R)) * (int)sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(bilateral_kernel<MODE, P, TYT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  bilateral_kernel<MODE, P, TYT><<<grid, dim3(TXT, TYT), bytes, stream>>>(src, weights, dst, H, W, tiles_x, n_tiles);
-  return (int)cudaGetLastError();
-}
-
-// the earlier design: see the header
-constexpr int DX = 32, DY = 8;
-__global__ void bilateral_direct_kernel(const uint16_t* __restrict__ src, float* __restrict__ dst, int H, int W) {
-  __shared__ float tile[DY + 2 * R][DX + 2 * R];
-  const int x0 = blockIdx.x * DX, y0 = blockIdx.y * DY;
-  for (int i = threadIdx.y * DX + threadIdx.x; i < (DY + 2 * R) * (DX + 2 * R); i += DX * DY) {
-    const int ty = i / (DX + 2 * R), tx = i % (DX + 2 * R);
-    const int gy = y0 + ty - R, gx = x0 + tx - R;
-    tile[ty][tx] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? (float)src[gy * W + gx] : 0.0f;
-  }
-  __syncthreads();
-
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const float inv_ss = inv_sigma_space(), inv_sc = inv_sigma_color();
-  const float center = tile[threadIdx.y + R][threadIdx.x + R];
-  float sum1 = 0.0f, sum2 = 0.0f;
-  for (int dy = -R; dy <= R; ++dy) {
-    const int ny = y + dy;
-    if (ny < 0 || ny > H - 2) continue;  // invalid taps add exactly 0
-    for (int dx = -R; dx <= R; ++dx) {
-      const int nx = x + dx;
-      if (nx < 0 || nx > W - 2) continue;
-      const float nbr = tile[threadIdx.y + R + dy][threadIdx.x + R + dx];
-      const float space2 = (float)(dy * dy + dx * dx);
-      const float diff = center - nbr;
-      const float color2 = diff * diff;
-      const float w = expf(-(space2 * inv_ss + color2 * inv_sc));
-      sum1 = sum1 + nbr * w;
-      sum2 = sum2 + w;
-    }
-  }
-  dst[y * W + x] = finish(sum1, sum2);
-}
-
 }  // namespace
 
 // the [27][448] weight table, made once for a device and handed to every launch
@@ -236,26 +161,13 @@ extern "C" int xs_bilateral_weights(void* table, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// mode: 0 expf per tap, 1 the weight table copied from `weights`, 2 the table filled by each block;
-// shape: 0 a 128 x 8 pixel tile (4 pixels a thread), 1 a 128 x 4 tile (4 a thread, 128 threads),
-// 2 a 64 x 8 tile (2 a thread); blocks: the grid (0: one block a tile)
-extern "C" int xs_bilateral_filter(const void* src, const void* weights, void* dst, int H, int W, int mode,
-                                   int shape, int blocks, void* stream) {
-  const uint16_t* in = (const uint16_t*)src;
-  const float* w = (const float*)weights;
-  float* out = (float*)dst;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == EXPF && shape == 0) return launch_bilateral<EXPF, 4, 8>(in, w, out, H, W, blocks, s);
-  if (mode == TABLE_FILLED && shape == 0) return launch_bilateral<TABLE_FILLED, 4, 8>(in, w, out, H, W, blocks, s);
-  if (mode == TABLE && shape == 0) return launch_bilateral<TABLE, 4, 8>(in, w, out, H, W, blocks, s);
-  if (mode == TABLE && shape == 1) return launch_bilateral<TABLE, 4, 4>(in, w, out, H, W, blocks, s);
-  if (mode == TABLE && shape == 2) return launch_bilateral<TABLE, 2, 8>(in, w, out, H, W, blocks, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int xs_bilateral_filter_direct(const void* src, void* dst, int H, int W, void* stream) {
-  const dim3 block(DX, DY);
-  const dim3 grid((W + DX - 1) / DX, (H + DY - 1) / DY);
-  bilateral_direct_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((const uint16_t*)src, (float*)dst, H, W);
+extern "C" int xs_bilateral_filter(const void* src, const void* weights, void* dst, int H, int W, void* stream) {
+  constexpr int TW = TXT * P, TH = TYT;
+  const int tiles_x = (W + TW - 1) / TW, n_tiles = tiles_x * ((H + TH - 1) / TH);
+  const int bytes = (NS * ND + (TH + 2 * R) * (TW + 2 * R)) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(bilateral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  bilateral_kernel<<<n_tiles < BLOCKS ? n_tiles : BLOCKS, dim3(TXT, TYT), bytes, (cudaStream_t)stream>>>(
+      (const uint16_t*)src, (const float*)weights, (float*)dst, H, W, tiles_x, n_tiles);
   return (int)cudaGetLastError();
 }

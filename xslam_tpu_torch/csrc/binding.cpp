@@ -8,9 +8,7 @@
 #include <torch/extension.h>
 
 extern "C" int xs_bilateral_weights(void* table, void* stream);
-extern "C" int xs_bilateral_filter(const void* src, const void* weights, void* dst, int H, int W, int mode,
-                                   int shape, int blocks, void* stream);
-extern "C" int xs_bilateral_filter_direct(const void* src, void* dst, int H, int W, void* stream);
+extern "C" int xs_bilateral_filter(const void* src, const void* weights, void* dst, int H, int W, void* stream);
 extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               int X, int Y, int Z, int H, int W,
                               float vs, float fx, float fy, float cx, float cy,
@@ -18,14 +16,14 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
-                              float inv_fx, float inv_fy, int unroll, int tile, int fast, void* stream);
+                              float inv_fx, float inv_fy, void* stream);
 extern "C" int xs_march_fixed_chain(const void* value, const void* start, const void* dirs, void* t_found,
                                     void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
                                     float step, void* stream);
 extern "C" int xs_raycast_refine(const void* value, const void* grad, const void* pose, const void* t_found,
                                  const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, int X,
-                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy, int tile,
-                                 void* stream);
+                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step,
+                                 float cx, float cy, float inv_fx, float inv_fy, void* stream);
 extern "C" int xs_resize_model_maps(const void* vv, const void* vg, const void* nv, const void* ng, void* out_vv,
                                     void* out_vg, void* out_nv, void* out_ng, int H, int W, void* stream);
 extern "C" int xs_pyr_down(const void* src, void* dst, int H, int W, void* stream);
@@ -53,16 +51,10 @@ int bilateral_weights(torch::Tensor table, int64_t stream) {
   return xs_bilateral_weights(table.data_ptr(), as_stream(stream));
 }
 
-// weights: the table of bilateral_weights; mode, shape, blocks: see csrc/bilateral.cu
-int bilateral_filter(const torch::Tensor& depth, const torch::Tensor& weights, torch::Tensor out, int64_t mode,
-                     int64_t shape, int64_t blocks, int64_t stream) {
-  return xs_bilateral_filter(depth.data_ptr(), weights.data_ptr(), out.data_ptr(), depth.size(0), depth.size(1), mode,
-                             shape, blocks, as_stream(stream));
-}
-
-int bilateral_filter_direct(const torch::Tensor& depth, torch::Tensor out, int64_t stream) {
-  return xs_bilateral_filter_direct(depth.data_ptr(), out.data_ptr(), depth.size(0), depth.size(1),
-                                    as_stream(stream));
+// weights: the table of bilateral_weights
+int bilateral_filter(const torch::Tensor& depth, const torch::Tensor& weights, torch::Tensor out, int64_t stream) {
+  return xs_bilateral_filter(depth.data_ptr(), weights.data_ptr(), out.data_ptr(), depth.size(0), depth.size(1),
+                             as_stream(stream));
 }
 
 int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
@@ -75,10 +67,10 @@ int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
 
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
                 int64_t n_steps, float vs, float step, float cx, float cy, float inv_fx, float inv_fy,
-                int64_t unroll, bool tile, bool fast, int64_t stream) {
+                int64_t stream) {
   return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
                         value.size(1), value.size(2), t_found.size(0), t_found.size(1), n_steps, vs, step, cx, cy,
-                        inv_fx, inv_fy, unroll, tile ? 1 : 0, fast ? 1 : 0, as_stream(stream));
+                        inv_fx, inv_fy, as_stream(stream));
 }
 
 int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
@@ -93,13 +85,12 @@ int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, co
 int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
                    const torch::Tensor& t_found, const torch::Tensor& t_dead, torch::Tensor vmap_v,
                    torch::Tensor vmap_g, torch::Tensor nmap_v, torch::Tensor nmap_g, float vs, float inv_vs,
-                   float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
-                   bool tile, int64_t stream) {
+                   float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
   return xs_raycast_refine(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), t_found.data_ptr(),
                            t_dead.data_ptr(), vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(),
                            nmap_g.data_ptr(), value.size(0), value.size(1), value.size(2), t_found.size(0),
                            t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
-                           tile ? 1 : 0, as_stream(stream));
+                           as_stream(stream));
 }
 
 // the (3, H, W) maps of one level in, the (3, H/2, W/2) maps of the next out
@@ -171,7 +162,6 @@ int probe_e(const torch::Tensor& table, const torch::Tensor& idx0, torch::Tensor
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bilateral_weights", &bilateral_weights);
   m.def("bilateral_filter", &bilateral_filter);
-  m.def("bilateral_filter_direct", &bilateral_filter_direct);
   m.def("fuse_volume", &fuse_volume);
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);

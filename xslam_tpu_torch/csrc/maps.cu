@@ -35,10 +35,11 @@
 
 #include <cuda_runtime.h>
 
-#include "dual.cuh"
+#include "rays.cuh"
 
 namespace {
 
+using xs::Camera;
 using xs::Dual;
 
 constexpr int BLOCK = 256;
@@ -113,10 +114,6 @@ __global__ void __launch_bounds__(BLOCK)
   }
   dst[o] = floorf(sum / fmaxf(cnt, 1.0f));
 }
-
-struct Camera {
-  float cx, cy, inv_fx, inv_fy;
-};
 
 // create_vmap at one pixel; false where the depth is 0 (the vertex is NaN)
 __device__ __forceinline__ bool vertex_of(const float* __restrict__ depth, int W, int x, int y, const Camera& cam,

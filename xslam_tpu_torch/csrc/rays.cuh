@@ -1,7 +1,7 @@
 // The camera ray of a pixel, computed in the kernel, and the pixel a thread
 // of a 256-thread block owns. Shared by K3 (march.cu) and K5 (refine.cu).
 //
-// camera_ray follows xslam_tpu_torch/ops/raycast.py::_camera_rays operation
+// camera_ray follows xslam_tpu_torch/ops/kernels.py::camera_rays operation
 // by operation: ((u - cx) / fx, (v - cy) / fy, 1) through the dual
 // camera->volume rotation (vec3.matvec), vec3.normalized, and a value lane
 // that is exactly 0 patched to 1e-15 (RayCaster.cu:211-213). The division by
@@ -40,21 +40,14 @@ __device__ __forceinline__ void camera_ray(const float* c2v, float u, float v, c
   for (int i = 0; i < 3; ++i) dir[i].v = dir[i].v == 0.0f ? 1e-15f : dir[i].v;
 }
 
-// The pixel of thread `tid` in a block of BLOCK_W x BLOCK_H pixels. TILE: a
-// warp owns 8 x 4 pixels, so its 32 rays stay a compact bundle and their
-// samples at one step fall into few cache lines of the (X, Y, Z) volume;
-// else a warp owns 32 x 1 pixels of one image row and its rays fan out in a
-// plane.
-template <bool TILE>
+// The pixel of thread `tid` in a block of BLOCK_W x BLOCK_H pixels: a warp
+// owns 8 x 4 pixels, not 32 x 1 of one image row, so its 32 rays stay a
+// compact bundle and their samples at one step fall into few cache lines of
+// the (X, Y, Z) volume.
 __device__ __forceinline__ void block_pixel(int tid, int& x, int& y) {
-  if (TILE) {
-    const int warp = tid >> 5, lane = tid & 31;
-    x = blockIdx.x * BLOCK_W + (warp & 3) * 8 + (lane & 7);
-    y = blockIdx.y * BLOCK_H + (warp >> 2) * 4 + (lane >> 3);
-  } else {
-    x = blockIdx.x * BLOCK_W + (tid & 31);
-    y = blockIdx.y * BLOCK_H + (tid >> 5);
-  }
+  const int warp = tid >> 5, lane = tid & 31;
+  x = blockIdx.x * BLOCK_W + (warp & 3) * 8 + (lane & 7);
+  y = blockIdx.y * BLOCK_H + (warp >> 2) * 4 + (lane >> 3);
 }
 
 }  // namespace xs

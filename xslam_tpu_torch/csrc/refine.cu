@@ -106,7 +106,6 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
-template <bool TILE>
 __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
     refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
                   const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
@@ -116,7 +115,7 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   if (tid < xs::POSE_FLOATS) sp[tid] = pose[tid];
   __syncthreads();
   int x, y;
-  xs::block_pixel<TILE>(tid, x, y);
+  xs::block_pixel(tid, x, y);
   if (x >= W || y >= H) return;
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
@@ -189,20 +188,13 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
 
 extern "C" int xs_raycast_refine(const void* value, const void* grad, const void* pose, const void* t_found,
                                  const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, int X,
-                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy, int tile,
-                                 void* stream) {
+                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step,
+                                 float cx, float cy, float inv_fx, float inv_fy, void* stream) {
   const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs};
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
   const dim3 grid((W + xs::BLOCK_W - 1) / xs::BLOCK_W, (H + xs::BLOCK_H - 1) / xs::BLOCK_H);
-  const int block = xs::BLOCK_W * xs::BLOCK_H;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (tile)
-    refine_kernel<true><<<grid, block, 0, s>>>(vol, (const float*)pose, (const float*)t_found,
-                                               (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
-                                               (float*)nmap_v, (float*)nmap_g, H, W, step, cam);
-  else
-    refine_kernel<false><<<grid, block, 0, s>>>(vol, (const float*)pose, (const float*)t_found,
-                                                (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
-                                                (float*)nmap_v, (float*)nmap_g, H, W, step, cam);
+  refine_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
+      vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
+      (float*)nmap_v, (float*)nmap_g, H, W, step, cam);
   return (int)cudaGetLastError();
 }

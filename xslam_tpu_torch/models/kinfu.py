@@ -215,7 +215,7 @@ def process_frame(
     intr: Intrinsics,
     vol_cfg: fusion.VolumeConfig,
     world2volume: CSFD,
-    volume2world: Optional[CSFD] = None,
+    volume2world: CSFD,
 ) -> Tuple[SlamState, FrameResult]:
     levels = config.num_levels
     dev = depth_u16.device
@@ -272,9 +272,9 @@ def process_frame(
 
     # --- model maps for the next frame's ICP ------------------------------
     with record_function("raycast"):
-        v2w = se3.inverse(world2volume) if volume2world is None else volume2world
         vmap0, nmap0 = raycast.raycast(
-            volume, se3.rotation(c2v), se3.translation(c2v), se3.rotation(v2w), se3.translation(v2w),
+            volume, se3.rotation(c2v), se3.translation(c2v), se3.rotation(volume2world),
+            se3.translation(volume2world),
             intr.level(config.model_map_level), vol_cfg, normals_mode=config.raycast_normals, march_mode=config.raycast_march,
             packed_taps=config.raycast_packed_taps,
         )
