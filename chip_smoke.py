@@ -63,6 +63,10 @@ HOLD_CYCLES = 30_000_000  # about 20 ms of device spinning at the card's clock
 N_FRAMES = 10
 N_FRAMES_FIXED_ASSOC = 6
 WARM_FRAMES = 2
+# device launches of a frame (profile_step.py's count): as configs/synthetic.yaml says, and with the cached
+# association at half-resolution model maps; 4 of them in `preprocess` (K1, K7 twice, K8 once)
+FRAME_LAUNCHES = {False: 660, True: 663}
+PREPROCESS_LAUNCHES = 4
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 
 # kernel: (source, the TPU/XLA code it replaces, the path whose launches are reported)
@@ -337,14 +341,21 @@ def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
     return distinct * 4 + rays * 8 + 96, rays * 60 + samples * 20, samples
 
 
-def _ray_pose(ctx, seed: int):
-    """The packed pose of K3 and K5 at the orbit's frame 3, with a seeded
-    derivative lane, and its parts."""
-    from xslam_tpu_torch.csfd.single import lift
+def _ray_pose(ctx, seed: int, c2v_np=None):
+    """The packed pose of K3 and K5 at the orbit's frame 3, or at the
+    camera->volume pose ``c2v_np``, with a seeded derivative lane, and its
+    parts."""
+    from xslam_tpu_torch.csfd.single import CSFD, lift
     from xslam_tpu_torch.geometry import se3
     from xslam_tpu_torch.ops import kernels
 
-    _, c2v = _v2c(ctx, np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3], np.random.default_rng(seed))
+    rng = np.random.default_rng(seed)
+    if c2v_np is None:
+        _, c2v = _v2c(ctx, np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3], rng)
+    else:
+        g = torch.as_tensor((1e-2 * rng.standard_normal((4, 4))).astype(np.float32), device=ctx["device"])
+        g[3] = 0.0
+        c2v = CSFD(torch.as_tensor(np.asarray(c2v_np, np.float32), device=ctx["device"]), g)
     w2v = lift(torch.as_tensor(np.asarray(ctx["config"].world2volume, np.float32), device=ctx["device"]))
     v2w = se3.inverse(w2v)
     parts = (se3.rotation(c2v), se3.translation(c2v), se3.rotation(v2w), se3.translation(v2w))
@@ -451,19 +462,51 @@ def _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng):
     return distinct * 8 + n_pix * (8 + 48) + 192, n_acc * 8 * 16 * 6 + n_pix * 4, distinct
 
 
+def _planar_volume(ctx, offset: float):
+    """A volume whose TSDF is the plane z = (Z / 2 + offset) voxels, linear
+    over 0.5 m on either side (so the secant is exact to rounding), with the
+    taps' +1e-5 bias taken out of its place: the refined vertices lie within a
+    few ulps of a plane of voxel centres (offset 0.5) or of cell edges (0),
+    where the rounding of v / voxel and of v +- half a voxel decides the cells.
+    Its derivative plane is seeded; and the camera->volume pose of a camera
+    2.5 m in front of it, looking along +z."""
+    from xslam_tpu_torch.ops import fusion
+
+    eng, dev = ctx["engine_cfg"], ctx["device"]
+    X, Y, Z = eng.resolution
+    vs = eng.voxel_size
+    z_plane = (Z // 2 + offset) * vs - 1e-5 * 0.5
+    zc = (torch.arange(Z, dtype=torch.float32, device=dev) + 0.5) * vs
+    value = ((z_plane - zc) / 0.5).clamp(-1.0, 1.0).expand(X, Y, Z).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grad = 1e-2 * torch.randn((X, Y, Z), generator=gen, device=dev)
+    c2v = np.eye(4)
+    c2v[:3, 3] = [X * vs / 2 + 0.013, Y * vs / 2 - 0.021, z_plane - 2.5]
+    return fusion.VolumeState(value, grad, torch.ones_like(value)), c2v
+
+
 def phase_refine(ctx):
-    """K5 against ``refine`` + ``finalize_maps`` on the fused volume, at the
-    image shapes of ``model_map_level`` 0 and 1; its outputs also feed K6's
-    phase. Bit-equality asked of the NaN masks; of the numbers at most 2 ulp
-    on at most 1e-4 of them (none expected: the kernel rounds as the plain
-    version's operators do)."""
+    """K5 against ``refine`` + ``finalize_maps``, bit for bit (every lane
+    equal, NaN masks equal): on the fused volume at the orbit's frame 3 at the
+    image shapes of ``model_map_level`` 0 and 1 (timed; its outputs also feed
+    K6's phase), and on two planar volumes
+    whose vertices lie within a few ulps of voxel centres and of cell edges,
+    where many of the six normal samples leave the rule of the shared block and
+    read their own taps (their count is printed)."""
     from xslam_tpu_torch.ops import kernels, raycast
     from xslam_tpu_torch.ops.kernels import INF_T
 
-    cfg, eng, vol = ctx["config"], ctx["engine_cfg"], ctx["volume"]
-    pose, parts = _ray_pose(ctx, 3)
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    planes = {name: _planar_volume(ctx, offset) for name, offset in (("plane on voxel centres", 0.5),
+                                                                     ("plane on cell edges", 0.0))}
+    cases = [("orbit frame 3", 0, ctx["volume"], None), ("orbit frame 3", 1, ctx["volume"], None)]
+    cases += [(name, 0, vol, c2v) for name, (vol, c2v) in planes.items()]
     table, ctx["model_maps"] = None, {}
-    for L in (0, 1):
+    direct = torch.zeros(1, dtype=torch.int32, device=dev)
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, L, vol, c2v in cases:
+        pose, parts = _ray_pose(ctx, 3, c2v)
         intr = cfg.intrinsics.level(L)
         t_found, t_dead = kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist)
         ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
@@ -472,7 +515,8 @@ def phase_refine(ctx):
         def plain_fn():
             return raycast.finalize_maps(*raycast.refine(vol, ray_start, ray_dir, t_found, accept, parts[2], parts[3], eng))
 
-        out = raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng)
+        direct.zero_()
+        out = raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng, direct=direct)
         ref = plain_fn()
         torch.cuda.synchronize()
         lanes = {"vmap.v": (out[0].v, ref[0].v), "vmap.g": (out[0].g, ref[0].g),
@@ -482,21 +526,36 @@ def phase_refine(ctx):
         nans = all(same_nans(a, b) for a, b in lanes.values())
         err = max(max_abs(a, b) for a, b in lanes.values())
         valid = float((~torch.isnan(out[1].v[0])).float().mean())
-        ms = time_ms(lambda: raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng), 50)
-        plain = time_ms(plain_fn, 3)
-        n_bytes, n_ops, distinct = _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng)
-        bms, by = bound_ms(n_bytes, n_ops)
-        emit("K5 raycast_refine", model_map_level=L, shape=[intr.height, intr.width], frac_equal=eq, max_ulp=ulp,
-             nan_masks_equal=nans, max_abs_err=err, accepted_fraction=float(accept.float().mean()),
-             normal_valid_fraction=valid, distinct_voxels=distinct, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-             library_note="no single PyTorch call computes it")
-        check(nans, f"K5's NaN masks differ from the plain version's (L={L})")
-        check(min(eq.values()) >= 1.0 - 1e-4 and max(ulp.values()) <= 2,
-              f"K5 disagrees with its plain version (L={L}): equal {eq}, ulp {ulp}")
-        check(valid > 0.5, f"K5: normals on only {valid:.3f} of the pixels")
-        ctx["model_maps"][L] = out
-        if L == 0:
-            table = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        n_direct = int(direct.item())
+        row = dict(case=name, model_map_level=L, shape=[intr.height, intr.width], frac_equal=eq, max_ulp=ulp,
+                   nan_masks_equal=nans, max_abs_err=err, accepted_fraction=float(accept.float().mean()),
+                   normal_valid_fraction=valid, direct_samples=n_direct,
+                   direct_fraction_of_normal_samples=n_direct / max(1, 6 * int((~torch.isnan(out[1].v[0])).sum())))
+        if name == "orbit frame 3":
+            ms = time_ms(lambda: raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng), 50)
+            plain = time_ms(plain_fn, 3)
+            n_bytes, n_ops, distinct = _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng)
+            bms, by = bound_ms(n_bytes, n_ops)
+            consts = (kernels.f32(eng.voxel_size), kernels.reciprocal_f32(eng.voxel_size),
+                      kernels.f32(eng.voxel_size * 0.5), kernels.f32(eng.trunc_dist * 0.8), *kernels.camera_args(intr))
+            sweep = {}
+            # block threads (+ the minimum of blocks an SM); 1000: the secant samples alone, 1001: up to the vertex
+            for threads in (64, 64 + 12, 64 + 16, 64 + 20, 128, 128 + 6, 128 + 8, 128 + 10, 256, 1000, 1001):
+                def launch_shape(threads=threads):
+                    check(ext.raycast_refine(vol.value, vol.grad, pose, t_found, t_dead, *(x for m in out for x in m),
+                                             None, *consts, threads, stream) == 0, "raycast_refine launch failed")
+                sweep[threads] = time_ms(launch_shape, 50)
+            out = raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng)
+            row.update(distinct_voxels=distinct, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                       library_note="no single PyTorch call computes it", block_threads_sweep_ms=sweep)
+            ctx["model_maps"][L] = out
+            if L == 0:
+                table = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        emit("K5 raycast_refine", **row)
+        check(nans and min(eq.values()) == 1.0 and max(ulp.values()) == 0,
+              f"K5 is not bit-equal to its plain version ({name}, L={L}): equal {eq}, ulp {ulp}, NaN masks {nans}")
+        least = 0.5
+        check(valid > least, f"K5: normals on only {valid:.3f} of the pixels ({name}, L={L})")
     return table
 
 
@@ -512,10 +571,11 @@ def _compare(tag, pairs, **fields):
 
 def phase_maps(ctx):
     """K6, K7 and K8 against their plain versions at every level shape of
-    both main-path configurations. K7 must be bit-equal; K6 and K8 must have
-    the plain versions' NaN masks and lie within 2 ulp of their numbers (the
-    fractions of unequal numbers are printed; none expected). The table rows
-    carry the times at the largest shape."""
+    both main-path configurations. K7 and K8 (one launch for the whole
+    pyramid, held level by level) must be bit-equal; K6 must have the plain
+    versions' NaN masks and lie within 2 ulp of their numbers (the fractions
+    of unequal numbers are printed; none expected). The table rows carry the
+    times at the largest shape, K8's of the whole pyramid."""
     import torch.nn.functional as F
 
     from xslam_tpu_torch.csfd.single import CSFD
@@ -525,36 +585,43 @@ def phase_maps(ctx):
     cfg, dev = ctx["config"], ctx["device"]
     rows = {}
 
-    # K7 and K8 on the depth pyramid of frame 4
+    # K7 on the depth pyramid of frame 4, then K8 on every level of it in one launch
     depth = kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))
-    for level in range(cfg.num_levels):
-        intr = cfg.intrinsics.level(level)
+    depths = [depth]
+    for level in range(cfg.num_levels - 1):
         H, W = depth.shape
-        vmap, nmap = kernels.vertex_normal_maps(intr, depth)
-        pv = preprocess.create_vmap(intr, depth)
-        pn = preprocess.create_nmap(pv)
+        down = kernels.pyr_down(depth)
+        ref = preprocess.pyr_down(depth)
         torch.cuda.synchronize()
-        ms = time_ms(lambda: kernels.vertex_normal_maps(intr, depth), 100)
-        plain = time_ms(lambda: preprocess.create_nmap(preprocess.create_vmap(intr, depth)), 5)
-        bms, by = bound_ms(H * W * (4 + 24), H * W * 60)
-        nans, eq, ulp, err = _compare("K8 vertex_normal_maps", [(vmap, pv), (nmap, pn)], level=level, shape=[H, W],
-                                      normal_valid_fraction=float((~torch.isnan(nmap[0])).float().mean()), ms=ms,
-                                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
-        check(nans and ulp <= 2 and eq >= 1.0 - 1e-4, f"K8 disagrees with its plain versions at level {level}")
-        rows.setdefault("vertex_normal_maps", dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
-        if level + 1 < cfg.num_levels:
-            down = kernels.pyr_down(depth)
-            ref = preprocess.pyr_down(depth)
-            torch.cuda.synchronize()
-            ms = time_ms(lambda: kernels.pyr_down(depth), 100)
-            plain = time_ms(lambda: preprocess.pyr_down(depth), 5)
-            bms, by = bound_ms(H * W * 4 + (H // 2) * (W // 2) * 4, (H // 2) * (W // 2) * 25 * 5)
-            equal = bool(torch.equal(down, ref))
-            _compare("K7 pyr_down", [(down, ref)], level=level, shape=[H, W], bit_equal=equal, ms=ms, plain_ms=plain,
-                     bound_ms=bms, bound_by=by, library_ms=None)
-            check(equal, f"K7 is not bit-equal to its plain version at level {level}")
-            rows.setdefault("pyr_down", dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
-            depth = down
+        ms = time_ms(lambda: kernels.pyr_down(depth), 100)
+        plain = time_ms(lambda: preprocess.pyr_down(depth), 5)
+        bms, by = bound_ms(H * W * 4 + (H // 2) * (W // 2) * 4, (H // 2) * (W // 2) * 25 * 5)
+        equal = bool(torch.equal(down, ref))
+        _compare("K7 pyr_down", [(down, ref)], level=level, shape=[H, W], bit_equal=equal, ms=ms, plain_ms=plain,
+                 bound_ms=bms, bound_by=by, library_ms=None)
+        check(equal, f"K7 is not bit-equal to its plain version at level {level}")
+        rows.setdefault("pyr_down", dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+        depth = down
+        depths.append(depth)
+    intrs = [cfg.intrinsics.level(level) for level in range(cfg.num_levels)]
+    vmaps, nmaps = kernels.vertex_normal_pyramid(intrs, depths)
+    plain_maps = [preprocess.create_vmap(intr, d) for intr, d in zip(intrs, depths)]
+    plain_maps = [(v, preprocess.create_nmap(v)) for v in plain_maps]
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: kernels.vertex_normal_pyramid(intrs, depths), 100)
+    plain = time_ms(lambda: [preprocess.create_nmap(preprocess.create_vmap(i, d)) for i, d in zip(intrs, depths)], 5)
+    pixels = sum(d.numel() for d in depths)
+    bms, by = bound_ms(pixels * (4 + 24), pixels * 60)  # a depth in, two (3,) float32 entries out; ~60 operations
+    worst_err = 0.0
+    for level, (vmap, nmap, (pv, pn)) in enumerate(zip(vmaps, nmaps, plain_maps)):
+        nans, eq, ulp, err = _compare("K8 vertex_normal_maps", [(vmap, pv), (nmap, pn)], level=level,
+                                      shape=list(depths[level].shape),
+                                      normal_valid_fraction=float((~torch.isnan(nmap[0])).float().mean()))
+        check(nans and ulp == 0 and eq == 1.0, f"K8 is not bit-equal to its plain versions at level {level}")
+        worst_err = max(worst_err, err)
+    emit("K8 vertex_normal_maps, all levels in one launch", levels=len(depths), pixels=pixels, ms=ms,
+         plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+    rows["vertex_normal_maps"] = dict(max_abs_err=worst_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
     # K6 on the model maps K5 rendered, down both configurations' pyramids
     for L, (vmap, nmap) in ctx["model_maps"].items():
@@ -611,7 +678,7 @@ def _icp_inputs(ctx, L: int):
     depths = [kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))]
     for _ in range(1, cfg.num_levels):
         depths.append(kernels.pyr_down(depths[-1]))
-    vcurr, ncurr = zip(*(kernels.vertex_normal_maps(intr.level(i), depths[i]) for i in range(cfg.num_levels)))
+    vcurr, ncurr = kernels.vertex_normal_pyramid([intr.level(i) for i in range(cfg.num_levels)], depths)
     pose = dict(r_curr=se3.rotation(c2w), t_curr=se3.translation(c2w), r_prev_inv=se3.rotation(w2c),
                 t_prev=se3.translation(c2w))
     return vprev, nprev, vcurr, ncurr, pose
@@ -952,7 +1019,7 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
 
     from xslam_tpu_torch.models.kinfu import XSlamEngine
     from xslam_tpu_torch.ops import kernels
-    from xslam_tpu_torch.profile_step import STAGES
+    from xslam_tpu_torch.profile_step import STAGES, stage_launches
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
     cfg, n_frames, tag = ctx["config"], N_FRAMES, "main path"
@@ -972,10 +1039,11 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
         if i == n_frames - 1:  # the last frame runs under the profiler and is left out of the times
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 state, res = engine.process_frame(state, ctx["depths"][i])
+                engine.log_pose(res)  # as profile_step.py profiles a frame
                 torch.cuda.synchronize()
         else:
             state, res = engine.process_frame(state, ctx["depths"][i])
-        engine.log_pose(res)
+            engine.log_pose(res)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         ok = bool(res.align_ok)
@@ -990,6 +1058,7 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     check(len(icp_at) > 0, "the profiler saw no icp_system launch: it does not trace the card here")
     loop_names = names[icp_at[0]: icp_at[-1] + 1]
     between = [name for name in loop_names if "icp_system_kernel" not in name and "icp_associate_kernel" not in name]
+    stages = stage_launches(prof.events(), 1)
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:n_frames]))
@@ -1003,6 +1072,7 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
          volume=list(cfg.tsdf_size), mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)),
          frame_ms=times, ate_m=ate, all_aligned=all(aligned), peak_mem_bytes=peak,
          model_map_valid_fraction=valid_frac, kernels=counts, device_launches_in_profiled_frame=len(names),
+         stage_launches_in_profiled_frame=stages,
          icp_launches_in_profiled_frame=len(icp_at), other_device_work_inside_icp_loop=between[:8])
     check(all(aligned), f"frames failed to align: {aligned}")
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
@@ -1015,7 +1085,7 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     check(counts["bilateral_filter"] == n_frames and counts["march_fixed"] == n_frames
           and counts["raycast_refine"] == n_frames and counts["resize_model_maps"] == (cfg.num_levels - 1) * n_frames
           and counts["pyr_down"] == (cfg.num_levels - 1) * n_frames
-          and counts["vertex_normal_maps"] == cfg.num_levels * n_frames
+          and counts["vertex_normal_maps"] == n_frames
           and counts["fuse_volume"] == integrated and counts["icp_system"] == iterations * n_frames
           and counts["icp_associate"] == (cfg.num_levels * n_frames if fixed_assoc else 0),
           f"launch counts {counts}")
@@ -1023,6 +1093,10 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     check(len(icp_at) == iterations and not between,
           f"the profiled frame ran {len(icp_at)} icp_system launches for {iterations} iterations, with other "
           f"device work between them: {between[:8]}")
+    want = FRAME_LAUNCHES[fixed_assoc]
+    check(len(names) == want and stages.get("preprocess") == PREPROCESS_LAUNCHES,
+          f"the profiled frame made {len(names)} device launches ({want} expected), preprocess "
+          f"{stages.get('preprocess')} ({PREPROCESS_LAUNCHES} expected)")
     return counts
 
 

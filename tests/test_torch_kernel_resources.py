@@ -8,7 +8,7 @@ truly, and the reader of a smoke run's output in
 
 import pytest
 
-from xslam_tpu_torch.apps.kernel_resources import BLOCK_THREADS, function_name, parse_ptxas
+from xslam_tpu_torch.apps.kernel_resources import BLOCK_THREADS, function_name, parse_ptxas, parse_sass
 from xslam_tpu_torch.ops.kernels import CSRC_DIR, HEADERS, SOURCES
 
 PTXAS = """\
@@ -63,6 +63,39 @@ def test_every_source_is_present_and_every_kernel_has_its_block_size():
     kernels = set(re.findall(r"\b(\w+_kernel)\s*\(", text))
     main_path = {k for k in kernels if not k.startswith("probe")}
     assert main_path and main_path <= set(BLOCK_THREADS), main_path - set(BLOCK_THREADS)
+
+
+def test_block_threads_covers_every_global_function():
+    """Every ``__global__`` function of the sources, whatever its name, has its
+    block size in the report's table (the probes' kernels aside)."""
+    import re
+
+    text = "".join((CSRC_DIR / src).read_text() for src in SOURCES if src.endswith(".cu"))
+    declared = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^()]*\)\s*)?(\w+)\s*\(", text))
+    assert {"refine_kernel", "vertex_normal_maps_kernel", "march_kernel", "icp_system_kernel"} <= declared
+    assert len(declared) == text.count("__global__")
+    main_path = {k for k in declared if not k.startswith("probe")}
+    assert main_path <= set(BLOCK_THREADS), main_path - set(BLOCK_THREADS)
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : refine_kernel
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0090*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*00a0*/                   LDG.E R5, desc[UR4][R6.64] ;
+        /*00b0*/                   LDS R8, [R9] ;
+        /*00c0*/                   STG.E desc[UR4][R2.64], R5 ;
+\t\tFunction : pyr_down_kernel
+        /*0010*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+\t\tFunction : bilateral_weights_kernel
+        /*0010*/                   STG.E desc[UR4][R2.64], R5 ;
+"""
+
+
+def test_parse_sass_counts_global_loads():
+    assert parse_sass(SASS) == {"refine_kernel": 2, "pyr_down_kernel": 1, "bilateral_weights_kernel": 0}
+    assert parse_sass("") == {}
 
 
 def test_torch_rounding_on_the_cpu():

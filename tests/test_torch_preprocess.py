@@ -2,10 +2,11 @@
 pyr_down, vertex/normal maps, resizes) against xslam_tpu on the CPU.
 
 The wrappers of the preprocess stage (K1 ``kernels.bilateral_filter``, K7
-``kernels.pyr_down``, K8 ``kernels.vertex_normal_maps``) return their plain
+``kernels.pyr_down``, K8 ``kernels.vertex_normal_pyramid``) return their plain
 versions' results bit for bit on CPU tensors and launch nothing; composed as
 the engine composes them, they are held against the JAX functions level by
-level."""
+level. K8 writes every level's maps into one buffer on the card; where, is
+computed in Python (``kernels.map_pyramid_layout``) and tested here."""
 
 import functools
 
@@ -125,9 +126,13 @@ def test_preprocess_wrappers_use_plain_versions_on_cpu(wrapper):
     if wrapper == "pyr_down":
         pairs = [(kernels.pyr_down(depth), tpre.pyr_down(depth))]
     else:
-        vmap, nmap = kernels.vertex_normal_maps(intr, depth)
-        plain_v = tpre.create_vmap(intr, depth)
-        pairs = [(vmap, plain_v), (nmap, tpre.create_nmap(plain_v))]
+        depths = [depth, tpre.pyr_down(depth)]
+        intrs = [intr, intr.level(1)]
+        vmaps, nmaps = kernels.vertex_normal_pyramid(intrs, depths)
+        pairs = []
+        for level in range(2):
+            plain_v = tpre.create_vmap(intrs[level], depths[level])
+            pairs += [(vmaps[level], plain_v), (nmaps[level], tpre.create_nmap(plain_v))]
     for got, want in pairs:
         assert got.shape == want.shape
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -136,7 +141,7 @@ def test_preprocess_wrappers_use_plain_versions_on_cpu(wrapper):
 
 @pytest.mark.parametrize("source", ["golden", "rendered"])
 def test_composed_preprocess_stage(source):
-    """K1 wrapper -> K7 wrapper x 2 -> K8 wrapper x 3, as ``process_frame``
+    """K1 wrapper -> K7 wrapper x 2 -> K8 wrapper, as ``process_frame``
     runs them, against the JAX stage on the same depth. The depth pyramids
     must be equal except where the two bilateral filters differ by their one
     allowed millimetre (> 99.9% of pixels equal at every level); the maps are
@@ -154,12 +159,13 @@ def test_composed_preprocess_stage(source):
     for _ in range(2):
         td.append(kernels.pyr_down(td[-1]))
         jd.append(_jpyr_down(jd[-1]))
+    tvs, tns = kernels.vertex_normal_pyramid([tintr.level(level) for level in range(3)], td)
     for level in range(3):
         t, j = td[level].numpy(), np.asarray(jd[level])
         assert t.shape == j.shape == (H >> level, W >> level)
         same = (t == j) | (np.isnan(t) & np.isnan(j))
         assert same.mean() > 0.999
-        tv, tn = kernels.vertex_normal_maps(tintr.level(level), td[level])
+        tv, tn = tvs[level], tns[level]
         jv = _jcreate_vmap(jintr.level(level), jd[level])
         jn = np.asarray(_jcreate_nmap(jv))
         jv = np.asarray(jv)
@@ -171,3 +177,64 @@ def test_composed_preprocess_stage(source):
         near[:-1, :] &= same[1:, :]
         np.testing.assert_array_equal(np.isnan(tn.numpy())[:, near], np.isnan(jn)[:, near])
         np.testing.assert_allclose(tn.numpy()[:, near], jn[:, near], atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("source", ["golden", "rendered"])
+def test_vertex_normal_pyramid_matches_jax(source):
+    """K8's wrapper, all three levels in one call, against JAX ``create_vmap``
+    and ``create_nmap`` level by level on the same depth pyramid (the JAX
+    one): NaN masks equal, vertices within 1e-5, normals within 1e-4 (each
+    from its own package's vertex map, whose last bits may differ: see
+    ``test_composed_preprocess_stage``)."""
+    jd = [jnp.asarray(_jax_bilateral(source))]
+    for _ in range(2):
+        jd.append(_jpyr_down(jd[-1]))
+    H, W = jd[0].shape
+    jintr = JIntrinsics(fx=120.3, fy=-120.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H)
+    tintr = TIntrinsics(*jintr)
+    before = dict(kernels.launch_counts)
+    vmaps, nmaps = kernels.vertex_normal_pyramid([tintr.level(level) for level in range(3)],
+                                                 [torch.from_numpy(np.array(d)) for d in jd])
+    assert kernels.launch_counts == before  # CPU tensors launch nothing
+    assert len(vmaps) == len(nmaps) == 3
+    for level in range(3):
+        jv = _jcreate_vmap(jintr.level(level), jd[level])
+        assert vmaps[level].shape == nmaps[level].shape == (3, H >> level, W >> level)
+        _maps_close(vmaps[level], jv)
+        tn, jn = nmaps[level].numpy(), np.asarray(_jcreate_nmap(jv))
+        np.testing.assert_array_equal(np.isnan(tn), np.isnan(jn))
+        np.testing.assert_allclose(tn, jn, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("shapes", [
+    [(480, 640), (240, 320), (120, 160)],
+    [(240, 320), (120, 160)],
+    [(75, 101), (37, 50), (18, 25), (9, 12)],
+    [(1, 1)],
+])
+def test_map_pyramid_layout(shapes):
+    """Where K8 writes: level by level, the vertex map then the normal map,
+    each (3, H, W), back to back in one buffer; the views are contiguous,
+    disjoint and cover it, at the offsets handed to the kernel."""
+    offsets, size = kernels.map_pyramid_layout(shapes)
+    assert size == sum(6 * H * W for H, W in shapes)
+    buffer = torch.arange(size, dtype=torch.float32)
+    vmaps, nmaps = kernels.map_pyramid_views(buffer, shapes)
+    at = 0
+    for (v_off, n_off), vmap, nmap, (H, W) in zip(offsets, vmaps, nmaps, shapes):
+        assert (v_off, n_off) == (at, at + 3 * H * W)
+        for view, off in ((vmap, v_off), (nmap, n_off)):
+            assert view.shape == (3, H, W) and view.is_contiguous()
+            assert view.data_ptr() == buffer.data_ptr() + 4 * off
+            assert view[0, 0, 0] == off and view[-1, -1, -1] == off + 3 * H * W - 1
+        at += 6 * H * W
+    assert at == size
+
+
+def test_map_pyramid_views_and_wrapper_check_their_inputs():
+    with pytest.raises(ValueError):
+        kernels.map_pyramid_views(torch.zeros(10), [(2, 2)])
+    depth = torch.ones((4, 6))
+    intr = TIntrinsics(fx=5.0, fy=5.0, cx=2.5, cy=1.5, width=6, height=4)
+    with pytest.raises(ValueError):
+        kernels.vertex_normal_pyramid([intr, intr.level(1)], [depth])

@@ -282,3 +282,115 @@ def test_unrolled_march_stop_rule(rendered, unroll):
     # stopping early is what the rule is for: fewer reads than the lockstep march's
     n_steps = kernels.march_steps(tvc.trunc_dist)
     assert reads < t_dir.v[0].numel() * (-(-n_steps // unroll) * unroll)
+
+
+def _cell_twin(p, inv_vs, vs, size):
+    """``csrc/refine.cu::cell_at`` in numpy float32 on (N,) coordinates of one
+    axis: the base cell (shifted down below the voxel centre) and the bounds
+    test on the unshifted index."""
+    f = np.float32
+    g = np.nan_to_num(np.floor(p * inv_vs), nan=-1.0).clip(-2 ** 30, 2 ** 30).astype(np.int64)
+    ok = (g > 0) & (g < size - 1)
+    g = g - (p < (g.astype(f) + f(0.5)) * vs)
+    return g, ok
+
+
+def _shared_block_twin(vertex, voxel_size, shape):
+    """K5's rule for the six normal samples (``csrc/refine.cu::axis_difference``)
+    in numpy float32, for vertices (3, N) inside the normal's margin.
+
+    Returns ``(own, block, staged, distinct)``: for each of the six samples
+    (axis a, then + before -), the flat indices (N, 8) of the eight taps its
+    own cell names, as ``trilinear_tsdf_shard`` computes the cell; the flat
+    indices (N, 8) the kernel takes from the shared block instead (the
+    vertex's 2x2x2 block and the face across axis a, picked by h); whether
+    the kernel takes them (the sample's cell is where the rule says, else it
+    reads its own taps); and the number of distinct voxels of the block and
+    the three faces, a vertex."""
+    f = np.float32
+    vs, inv_vs, half = f(voxel_size), f(kernels.reciprocal_f32(voxel_size)), f(voxel_size * 0.5)
+    X, Y, Z = shape
+
+    def flat(x, y, z):
+        return (x * Y + y) * Z + z
+
+    gv = [np.floor(vertex[i] * inv_vs).astype(np.int64) for i in range(3)]
+    cv = [_cell_twin(vertex[i], inv_vs, vs, shape[i])[0] for i in range(3)]
+    own, block, staged, voxels = [], [], [], [flat(*(cv[i] + ((k >> (2 - i)) & 1) for i in range(3)))
+                                              for k in range(8)]
+    for a in range(3):
+        others = [i for i in range(3) if i != a]
+        upper = cv[a] == gv[a]  # h = 1: the vertex lies in the upper half of its cell
+        face = np.where(upper, gv[a] - 1, gv[a] + 1)
+        for j in range(4):
+            coords = [None] * 3
+            coords[a] = face
+            coords[others[0]], coords[others[1]] = cv[others[0]] + (j >> 1), cv[others[1]] + (j & 1)
+            voxels.append(flat(*coords))
+        # along axis a, line m holds the voxel at g - 1 + m: from the block (at cv, cv + 1) or the face
+        line = [np.where(upper, face, cv[a]), np.where(upper, cv[a], cv[a] + 1), np.where(upper, cv[a] + 1, face)]
+        for s, sign in enumerate((1.0, -1.0)):
+            q = [vertex[i].copy() for i in range(3)]
+            q[a] = (vertex[a] + f(sign) * half).astype(f)
+            cells = [_cell_twin(q[i], inv_vs, vs, shape[i]) for i in range(3)]
+            ok = cells[0][1] & cells[1][1] & cells[2][1]
+            staged.append(ok & (cells[a][0] == gv[a] - s)
+                          & (cells[others[0]][0] == cv[others[0]]) & (cells[others[1]][0] == cv[others[1]]))
+            corners = [[(k >> 2) & 1, (k >> 1) & 1, k & 1] for k in range(8)]
+            own.append(np.stack([flat(*(cells[i][0] + d[i] for i in range(3))) for d in corners], axis=1))
+            picked = []
+            for d in corners:
+                coords = [cv[i] + d[i] for i in range(3)]
+                coords[a] = line[d[a] + 1 - s]
+                picked.append(flat(*coords))
+            block.append(np.stack(picked, axis=1))
+    distinct = np.array([len(set(col)) for col in np.stack(voxels, axis=1)])
+    return own, block, staged, distinct
+
+
+def _rule_vertices(kind, voxel_size, shape, n=4000):
+    """float32 vertices (3, n) inside the normal's margin: seeded at random, or
+    within two ulps of a cell edge (g * voxel) or of a cell centre
+    ((g + 1/2) * voxel) on every axis."""
+    rng = np.random.default_rng({"random": 11, "cell edges": 12, "cell centres": 13}[kind])
+    f = np.float32
+    out = []
+    for i in range(3):
+        if kind == "random":
+            out.append(rng.uniform(2.5 * voxel_size, (shape[i] - 2.5) * voxel_size, n).astype(f))
+            continue
+        g = rng.integers(3, shape[i] - 3, n)
+        at = (g + (0.5 if kind == "cell centres" else 0.0)).astype(f) * f(voxel_size)
+        for _ in range(2):  # up to two ulps either way
+            step = rng.integers(-1, 2, n)
+            at = np.where(step > 0, np.nextafter(at, f(np.inf)), np.where(step < 0, np.nextafter(at, f(-np.inf)), at))
+        out.append(at.astype(f))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("voxel_size, shape", [(0.03, (256, 256, 256)), (0.12, (64, 64, 48))])
+@pytest.mark.parametrize("kind", ["random", "cell edges", "cell centres"])
+def test_normal_samples_shared_block_rule(kind, voxel_size, shape):
+    """Every normal sample that K5 feeds from the shared block gets the very
+    voxels its own cell names, tap by tap, so the kernel's sums equal the
+    plain version's; the block and the three faces are 20 distinct voxels
+    (40 loads where the plain version makes 96). Samples whose cells rounding
+    puts elsewhere read their own taps, and none is missed: frequent on
+    vertices within an ulp of a cell edge, where the vertex's cell and a
+    sample's (half a voxel off, at a voxel centre) come from separate
+    roundings; rare on random vertices; none within an ulp of a cell centre,
+    where the samples sit half a voxel from any rounding that moves them."""
+    vertex = _rule_vertices(kind, voxel_size, shape)
+    f = np.float32
+    gv = np.floor(vertex * f(kernels.reciprocal_f32(voxel_size)))
+    margin = np.all((gv > 1) & (gv < np.array(shape)[:, None] - 2), axis=0)
+    assert margin.all()
+    own, block, staged, distinct = _shared_block_twin(vertex, voxel_size, shape)
+    assert (distinct == 20).all()
+    for o, b, s in zip(own, block, staged):
+        np.testing.assert_array_equal(o[s], b[s])
+    direct = 1.0 - np.mean(staged)
+    if kind == "cell edges":
+        assert 0.0 < direct < 0.5, direct  # the exact path is needed, and stays the exception
+    else:
+        assert direct < 1e-3, direct

@@ -8,9 +8,12 @@ read another revision's kernels; plain C interface, a few seconds each, all
 started together) with the flags of :mod:`xslam_tpu_torch.ops.kernels` plus
 ``-Xptxas -v`` into ``build/torch_kernels/resources/`` and prints one JSON
 object: per kernel its registers per thread, static shared memory, stack
-frame and spill bytes, as ``ptxas`` reports them, and, for the block size
-given here, how many blocks and warps an SM of 65,536 registers holds by
-registers alone. Needs ``nvcc``; loads nothing onto a card.
+frame and spill bytes, as ``ptxas`` reports them, the global loads (``LDG``)
+in its machine code as ``cuobjdump -sass`` lists them (instructions in the
+code, not loads executed: a branch's loads count whether it runs or not),
+and, for the block size given here, how many blocks and warps an SM of
+65,536 registers holds by registers alone. Needs ``nvcc``; loads nothing
+onto a card.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..ops.kernels import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, SOURCES
 # threads per block of each kernel (csrc/*.cu), for the occupancy by registers
 BLOCK_THREADS = {
     "icp_system_kernel": 256, "icp_associate_kernel": 256, "fuse_kernel": 256, "bilateral_kernel": 256,
-    "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 256,
+    "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 128,
     "resize_model_maps_kernel": 256, "pyr_down_kernel": 256, "vertex_normal_maps_kernel": 256,
 }
 SM_REGISTERS = 65_536
@@ -78,6 +81,29 @@ def parse_ptxas(text: str) -> dict:
     return out
 
 
+def parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {kernel: number of global load
+    instructions (LDG) in its code}."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = _demangled(m.group(1))
+            out[current] = 0
+        elif current is not None and re.search(r"\bLDG(\.|\s)", line):
+            out[current] += 1
+    return out
+
+
+def global_loads(obj: Path) -> dict:
+    """:func:`parse_sass` of an object file; empty where ``cuobjdump`` does not run."""
+    try:
+        proc = subprocess.run(["cuobjdump", "-sass", str(obj)], capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    return parse_sass(proc.stdout) if proc.returncode == 0 else {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--csrc", default=str(CSRC_DIR), help="directory of the .cu sources")
@@ -100,6 +126,8 @@ def main(argv=None) -> int:
             print(text, file=sys.stderr)
             continue
         kernels = parse_ptxas(text)
+        for name, n in global_loads(out_dir / (src + ".o")).items():
+            kernels.setdefault(name, {})["global_load_instructions"] = n
         for name, k in kernels.items():
             threads = BLOCK_THREADS.get(name.split("<")[0])
             if threads and k.get("registers"):

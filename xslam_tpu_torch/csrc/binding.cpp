@@ -21,14 +21,15 @@ extern "C" int xs_march_fixed_chain(const void* value, const void* start, const 
                                     void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
                                     float step, void* stream);
 extern "C" int xs_raycast_refine(const void* value, const void* grad, const void* pose, const void* t_found,
-                                 const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, int X,
-                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step,
-                                 float cx, float cy, float inv_fx, float inv_fy, void* stream);
+                                 const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
+                                 void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
+                                 float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                                 int block_threads, void* stream);
 extern "C" int xs_resize_model_maps(const void* vv, const void* vg, const void* nv, const void* ng, void* out_vv,
                                     void* out_vg, void* out_nv, void* out_ng, int H, int W, void* stream);
 extern "C" int xs_pyr_down(const void* src, void* dst, int H, int W, void* stream);
-extern "C" int xs_vertex_normal_maps(const void* depth, void* vmap, void* nmap, int H, int W, float cx, float cy,
-                                     float inv_fx, float inv_fy, void* stream);
+extern "C" int xs_vertex_normal_maps(const void* const* depths, const int* H, const int* W, void* out,
+                                     const long long* offsets, const float* cams, int levels, void* stream);
 extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
                              const void* pose, void* partials, void* ticket, int blocks, void* out,
                              void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
@@ -81,16 +82,20 @@ int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, co
                               t_found.size(1), n_steps, vs, step, as_stream(stream));
 }
 
-// vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs
+void* data_or_null(const std::optional<torch::Tensor>& t) { return t.has_value() ? t->data_ptr() : nullptr; }
+
+// vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs; direct: an int32 counter of the normal samples read
+// directly, or None
 int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
                    const torch::Tensor& t_found, const torch::Tensor& t_dead, torch::Tensor vmap_v,
-                   torch::Tensor vmap_g, torch::Tensor nmap_v, torch::Tensor nmap_g, float vs, float inv_vs,
-                   float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
+                   torch::Tensor vmap_g, torch::Tensor nmap_v, torch::Tensor nmap_g,
+                   const std::optional<torch::Tensor>& direct, float vs, float inv_vs, float half_vs, float step,
+                   float cx, float cy, float inv_fx, float inv_fy, int64_t block_threads, int64_t stream) {
   return xs_raycast_refine(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), t_found.data_ptr(),
                            t_dead.data_ptr(), vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(),
-                           nmap_g.data_ptr(), value.size(0), value.size(1), value.size(2), t_found.size(0),
-                           t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
-                           as_stream(stream));
+                           nmap_g.data_ptr(), data_or_null(direct), value.size(0), value.size(1), value.size(2),
+                           t_found.size(0), t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
+                           block_threads, as_stream(stream));
 }
 
 // the (3, H, W) maps of one level in, the (3, H/2, W/2) maps of the next out
@@ -106,13 +111,24 @@ int pyr_down(const torch::Tensor& src, torch::Tensor dst, int64_t stream) {
   return xs_pyr_down(src.data_ptr(), dst.data_ptr(), src.size(0), src.size(1), as_stream(stream));
 }
 
-int vertex_normal_maps(const torch::Tensor& depth, torch::Tensor vmap, torch::Tensor nmap, float cx, float cy,
-                       float inv_fx, float inv_fy, int64_t stream) {
-  return xs_vertex_normal_maps(depth.data_ptr(), vmap.data_ptr(), nmap.data_ptr(), depth.size(0), depth.size(1), cx,
-                               cy, inv_fx, inv_fy, as_stream(stream));
+// depths: the (H, W) depth of each level; out: the buffer of all the maps; offsets: two a level (vertex map,
+// normal map), in floats; cams: four a level (cx, cy, 1 / fx, 1 / fy)
+int vertex_normal_maps(const std::vector<torch::Tensor>& depths, torch::Tensor out,
+                       const std::vector<int64_t>& offsets, const std::vector<double>& cams, int64_t stream) {
+  const size_t levels = depths.size();
+  if (offsets.size() != 2 * levels || cams.size() != 4 * levels) return 1;  // cudaErrorInvalidValue
+  std::vector<const void*> ptrs;
+  std::vector<int> H, W;
+  for (const auto& d : depths) {
+    ptrs.push_back(d.data_ptr());
+    H.push_back(d.size(0));
+    W.push_back(d.size(1));
+  }
+  const std::vector<long long> offs(offsets.begin(), offsets.end());
+  const std::vector<float> cam(cams.begin(), cams.end());  // float32 values, carried exactly in double
+  return xs_vertex_normal_maps(ptrs.data(), H.data(), W.data(), out.data_ptr(), offs.data(), cam.data(),
+                               (int)levels, as_stream(stream));
 }
-
-void* data_or_null(const std::optional<torch::Tensor>& t) { return t.has_value() ? t->data_ptr() : nullptr; }
 
 // assoc: the cached int32 index map, or None to project in the kernel.
 // pose_out, x_out, flags: the tail's outputs, or None to stop after A and b.

@@ -24,19 +24,33 @@
 // from floor(p * (1 / voxel)) in the trilinear and from floor(vertex / voxel)
 // in the margin (a division by a host scalar, which PyTorch's CUDA operator
 // rounds as a multiply by the reciprocal taken in double and rounded to
-// float32: the same factor; the CPU divides truly there); to_index; every dual formula of csfd/single.py in its order
-// (dual.cuh), the constants lifted to {c, 0} as there.
+// float32: the same factor; the CPU divides truly there); to_index; every dual
+// formula of csfd/single.py in its order (dual.cuh), the constants lifted to
+// {c, 0} as there; each trilinear's eight products added in the plain
+// version's order, the first not added to 0 (which would turn -0 into +0).
 //
-// Bound on the H100: latency and sectors of scattered gathers. An accepted
-// pixel reads 8 trilinears x 8 taps x 2 planes = 128 floats, whose cells
-// overlap heavily (the two secant samples are 0.8 trunc apart, the six normal
-// samples half a voxel around the vertex), so the distinct bytes are few; the
-// arithmetic is some 8 x 100 operations. What the design does: one thread a
-// pixel in K3's 8 x 4 warp tiles, so neighbouring pixels' cells share
-// sectors; a pixel that is not accepted, or fails a gate, writes its
-// sentinels and leaves before any further gather (the plain version runs all
-// 128 gathers for all pixels); the 16 loads of one trilinear are independent
-// and started together.
+// Bound on the H100: the instructions a pixel issues and the latency of its
+// dependent gathers, not bytes (the accepted pixels' taps overlap, so the
+// distinct voxels are few). The design cuts both:
+// - The six normal samples read 20 voxels, not 48. With g = floor(v / voxel)
+//   and h = 1 where the vertex lies in the upper half of its cell, the
+//   trilinear base of the sample at v -+ half a voxel is, in exact
+//   arithmetic, g - 1 (minus) or g (plus) on the shifted axis and g - 1 + h
+//   (the vertex's own base) on the others. The union is the vertex's 2x2x2
+//   block plus, for each axis, the 2x2 face on the side that block does not
+//   reach: 16 + 3 x 8 = 40 loads instead of 96. Each sample still computes
+//   its own cell; where rounding puts it elsewhere than the rule says (a
+//   vertex within a few ulps of a cell edge or centre), or its bounds test
+//   fails, that sample reads its own taps: the same tap values reach the
+//   same weights in the same order either way, so the bits cannot change.
+//   `direct`, where given, counts those samples.
+// - The two secant samples' 32 loads are issued before either sum.
+// - A pixel that is not accepted, or fails a gate, writes its sentinels and
+//   leaves before any further gather.
+// - 32-bit voxel offsets (the wrapper refuses volumes of 2^31 voxels).
+// - Blocks of WARPS_X x WARPS_Y warps, each warp an 8 x 4 pixel tile, so
+//   neighbouring rays' cells share sectors and small images still fill the
+//   132 SMs.
 
 #include <cuda_runtime.h>
 
@@ -58,38 +72,129 @@ struct Volume {
   float half_vs;    // float32 of (voxel size * 0.5)
 };
 
-// ops/raycast.py::trilinear_tsdf_shard at one point
-__device__ __forceinline__ Dual trilinear(const Volume& vol, const Dual p[3]) {
-  int g[3];
-  const int size[3] = {vol.X, vol.Y, vol.Z};
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    g[i] = xs::to_index(floorf(p[i].v * vol.inv_vs));
-    ok = ok && g[i] > 0 && g[i] < size[i] - 1;
-  }
-  if (!ok) return {xs::quiet_nan(), 0.0f};
+// ops/raycast.py::trilinear_tsdf_shard's cell at one point: the base (shifted
+// down below the voxel centre), the bounds test on the unshifted index, the
+// weights of the base (w1) and of its +1 neighbour (w0) on each axis
+struct Cell {
+  int b[3];
+  bool ok;
   Dual w0[3], w1[3];
+};
+
+__device__ __forceinline__ Cell cell_at(const Volume& vol, const Dual p[3]) {
+  Cell c;
+  const int size[3] = {vol.X, vol.Y, vol.Z};
+  c.ok = true;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    g[i] -= (p[i].v < ((float)g[i] + 0.5f) * vol.vs) ? 1 : 0;
-    w0[i] = p[i] * lift(vol.inv_vs) - lift((float)g[i] + 0.5f);
-    w1[i] = lift(1.0f) - w0[i];
+    int g = xs::to_index(floorf(p[i].v * vol.inv_vs));
+    c.ok = c.ok && g > 0 && g < size[i] - 1;
+    g -= (p[i].v < ((float)g + 0.5f) * vol.vs) ? 1 : 0;
+    c.b[i] = g;
+    c.w0[i] = p[i] * lift(vol.inv_vs) - lift((float)g + 0.5f);
+    c.w1[i] = lift(1.0f) - c.w0[i];
   }
-  // ok: the shifted base cell and its +1 neighbours lie inside the volume
-  const long long base = ((long long)g[0] * vol.Y + g[1]) * vol.Z + g[2];
-  const long long sx = (long long)vol.Y * vol.Z, sy = vol.Z;
-  Dual tap[8];
+  return c;
+}
+
+// offset of a cell (unsigned: no overflow where the cell is out of bounds and
+// the offset unused)
+__device__ __forceinline__ unsigned offset_of(const Volume& vol, int x, int y, int z) {
+  return ((unsigned)x * (unsigned)vol.Y + (unsigned)y) * (unsigned)vol.Z + (unsigned)z;
+}
+
+// offset of corner k (x = k >> 2, y = (k >> 1) & 1, z = k & 1) from its cell's base
+__device__ __forceinline__ unsigned corner(const Volume& vol, int k) {
+  return (unsigned)(k >> 2) * (unsigned)vol.Y * (unsigned)vol.Z + (unsigned)((k >> 1) & 1) * (unsigned)vol.Z +
+         (unsigned)(k & 1);
+}
+
+__device__ __forceinline__ Dual tap_at(const Volume& vol, unsigned off) {
+  return {__ldg(vol.value + off) + 1e-5f, __ldg(vol.grad + off)};
+}
+
+// the eight taps weighted and added in the plain version's order; (NaN, 0)
+// out of bounds
+__device__ __forceinline__ Dual combine(const Cell& c, const Dual tap[8]) {
+  Dual res = tap[0] * ((c.w1[0] * c.w1[1]) * c.w1[2]);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const long long off = base + (c >> 2) * sx + ((c >> 1) & 1) * sy + (c & 1);
-    tap[c] = {__ldg(vol.value + off) + 1e-5f, __ldg(vol.grad + off)};
+  for (int k = 1; k < 8; ++k) {
+    const Dual& wx = (k >> 2) ? c.w0[0] : c.w1[0];
+    const Dual& wy = ((k >> 1) & 1) ? c.w0[1] : c.w1[1];
+    const Dual& wz = (k & 1) ? c.w0[2] : c.w1[2];
+    res = res + tap[k] * ((wx * wy) * wz);
   }
-  const Dual* a[2] = {w1, w0};  // a[0]: weight of the base cell, a[1]: of its +1 neighbour
-  Dual res = tap[0] * ((a[0][0] * a[0][1]) * a[0][2]);
+  return c.ok ? res : Dual{xs::quiet_nan(), 0.0f};
+}
+
+// the loads of one cell's eight taps (from voxel 0 where out of bounds: read, then discarded by combine)
+__device__ __forceinline__ void load_taps(const Volume& vol, const Cell& c, Dual tap[8]) {
+  const unsigned base = c.ok ? offset_of(vol, c.b[0], c.b[1], c.b[2]) : 0u;
 #pragma unroll
-  for (int c = 1; c < 8; ++c) res = res + tap[c] * ((a[c >> 2][0] * a[(c >> 1) & 1][1]) * a[c & 1][2]);
-  return res;
+  for (int k = 0; k < 8; ++k) tap[k] = tap_at(vol, base + corner(vol, k));
+}
+
+// corner index k of the tap at offset e along axis A and j (the other two
+// axes' offsets, the lower axis first) across it
+template <int A>
+__device__ __forceinline__ constexpr int corner_index(int e, int j) {
+  return A == 0 ? e * 4 + j : A == 1 ? (j >> 1) * 4 + e * 2 + (j & 1) : (j >> 1) * 4 + (j & 1) * 2 + e;
+}
+
+// the difference of the trilinears at vertex + half and vertex - half along
+// axis A, from the vertex's block `ctr` (base cv) and the face across axis A
+template <int A>
+__device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual vertex[3], const int gv[3],
+                                                const int cv[3], const Dual ctr[8], unsigned* direct) {
+  constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
+  const bool upper = cv[A] == gv[A];                      // h = 1
+  // the face at g + 1 (h = 0) or g - 1 (h = 1) on axis A
+  int fb[3] = {cv[0], cv[1], cv[2]};
+  fb[A] = upper ? gv[A] - 1 : gv[A] + 1;
+  const unsigned fbase = offset_of(vol, fb[0], fb[1], fb[2]);
+  const unsigned step1 = O1 == 0 ? (unsigned)vol.Y * (unsigned)vol.Z : (unsigned)vol.Z;
+  const unsigned step2 = O2 == 2 ? 1u : (unsigned)vol.Z;
+  Dual line[3][4];  // the voxels at g - 1, g, g + 1 on axis A; j across it
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const Dual face = tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
+    const Dual& lo = ctr[corner_index<A>(0, j)];
+    const Dual& hi = ctr[corner_index<A>(1, j)];
+    line[0][j] = upper ? face : lo;
+    line[1][j] = upper ? lo : hi;
+    line[2][j] = upper ? hi : face;
+  }
+
+  Dual res[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {  // s = 0: vertex + half (base g), s = 1: vertex - half (base g - 1)
+    Dual q[3] = {vertex[0], vertex[1], vertex[2]};
+    q[A] = vertex[A] + lift(s == 0 ? vol.half_vs : -vol.half_vs);
+    const Cell c = cell_at(vol, q);
+    const bool staged = c.ok && c.b[A] == gv[A] - s && c.b[O1] == cv[O1] && c.b[O2] == cv[O2];
+    Dual tap[8];
+    if (staged) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = A == 0 ? k >> 2 : A == 1 ? (k >> 1) & 1 : k & 1;
+        const int j = A == 0 ? k & 3 : A == 1 ? ((k >> 2) << 1) | (k & 1) : k >> 1;
+        tap[k] = line[e + 1 - s][j];
+      }
+    } else {
+      load_taps(vol, c, tap);
+      if (direct != nullptr) atomicAdd(direct, 1u);
+    }
+    res[s] = combine(c, tap);
+  }
+  return res[0] - res[1];
+}
+
+// the pixel of thread `tid` in a block of WARPS_X x WARPS_Y warps, each an 8 x 4 tile
+template <int WARPS_X, int WARPS_Y>
+__device__ __forceinline__ void tile_pixel(int tid, int& x, int& y) {
+  const int warp = tid >> 5, lane = tid & 31;
+  x = blockIdx.x * (8 * WARPS_X) + (warp % WARPS_X) * 8 + (lane & 7);
+  y = blockIdx.y * (4 * WARPS_Y) + (warp / WARPS_X) * 4 + (lane >> 3);
 }
 
 __device__ __forceinline__ void point_at(const Dual start[3], const Dual dir[3], Dual t, Dual p[3]) {
@@ -97,6 +202,7 @@ __device__ __forceinline__ void point_at(const Dual start[3], const Dual dir[3],
   for (int i = 0; i < 3; ++i) p[i] = start[i] + dir[i] * t;
 }
 
+// one (3,) map entry: nan_to_num'ed numbers where ok, else (NaN, 0)
 __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restrict__ out_g, int HW, int pix,
                                        bool ok, const Dual m[3]) {
 #pragma unroll
@@ -106,16 +212,19 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
-__global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
+template <int WARPS_X, int WARPS_Y, int MIN_BLOCKS, int PART>
+__global__ void __launch_bounds__(32 * WARPS_X * WARPS_Y, MIN_BLOCKS)
     refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
                   const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
-                  float* __restrict__ nmap_v, float* __restrict__ nmap_g, int H, int W, float step, xs::Camera cam) {
+                  float* __restrict__ nmap_v, float* __restrict__ nmap_g, int H, int W, float step, xs::Camera cam,
+                  unsigned* direct) {
+  static_assert(32 * WARPS_X * WARPS_Y >= xs::POSE_FLOATS, "a block loads the pose, one float a thread");
   __shared__ float sp[xs::POSE_FLOATS];
   const int tid = threadIdx.x;
   if (tid < xs::POSE_FLOATS) sp[tid] = pose[tid];
   __syncthreads();
   int x, y;
-  xs::block_pixel(tid, x, y);
+  tile_pixel<WARPS_X, WARPS_Y>(tid, x, y);
   if (x >= W || y >= H) return;
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
@@ -130,16 +239,25 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
 
   const float* c2v = sp + xs::POSE_C2V;
   const float* v2w = sp + xs::POSE_V2W;
-  Dual dir[3], start[3], p[3];
+  Dual dir[3], start[3], p0[3], p1[3];
   xs::camera_ray(c2v, (float)x, (float)y, cam, dir);
 #pragma unroll
   for (int i = 0; i < 3; ++i) start[i] = {c2v[18 + i], c2v[21 + i]};
 
+  // the secant samples: both cells, then all 32 loads, then the sums
   const Dual t = lift(hit_t);
-  point_at(start, dir, t, p);
-  const Dual ft = trilinear(vol, p);
-  point_at(start, dir, t + lift(step), p);
-  const Dual ftdt = trilinear(vol, p);
+  point_at(start, dir, t, p0);
+  point_at(start, dir, t + lift(step), p1);
+  const Cell c0 = cell_at(vol, p0), c1 = cell_at(vol, p1);
+  Dual tap0[8], tap1[8];
+  load_taps(vol, c0, tap0);
+  load_taps(vol, c1, tap1);
+  const Dual ft = combine(c0, tap0);
+  const Dual ftdt = combine(c1, tap1);
+  if (PART == 0) {
+    vmap_v[pix] = ft.v + ftdt.g;
+    return;
+  }
   const bool ok = !isnan(ft.v) && !isnan(ftdt.v) && ft.v >= 0.0f && ftdt.v <= 0.0f && ftdt.v != ft.v;
   if (!ok) {
     store3(vmap_v, vmap_g, HW, pix, false, none);
@@ -154,47 +272,76 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
 #pragma unroll
   for (int i = 0; i < 3; ++i) vertex_w[i] = vertex_w[i] + Dual{v2w[18 + i], v2w[21 + i]};
   store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
+  if (PART == 1) return;
 
   // central-difference normal, inside the reference's margin (RayCaster.cu:270-271)
   const int size[3] = {vol.X, vol.Y, vol.Z};
+  int gv[3];
   bool n_ok = true;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const int gv = xs::to_index(floorf(vertex[i].v * vol.inv_vs));
-    n_ok = n_ok && gv > 1 && gv < size[i] - 2;
+    gv[i] = xs::to_index(floorf(vertex[i].v * vol.inv_vs));
+    n_ok = n_ok && gv[i] > 1 && gv[i] < size[i] - 2;
   }
-  Dual n[3] = {lift(0.0f), lift(0.0f), lift(0.0f)}, n_w[3];
+  Dual n_w[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
   if (n_ok) {
-#pragma unroll
-    for (int axis = 0; axis < 3; ++axis) {
-      Dual q[3] = {vertex[0], vertex[1], vertex[2]};
-      q[axis] = vertex[axis] + lift(vol.half_vs);
-      const Dual plus = trilinear(vol, q);
-      q[axis] = vertex[axis] + lift(-vol.half_vs);
-      n[axis] = plus - trilinear(vol, q);
-    }
+    // the vertex's own cell: base g - 1 + h on each axis; inside the margin all 20 voxels lie in the volume
+    const Cell cv = cell_at(vol, vertex);
+    Dual ctr[8];
+    load_taps(vol, cv, ctr);
+    Dual n[3];
+    n[0] = axis_difference<0>(vol, vertex, gv, cv.b, ctr, direct);
+    n[1] = axis_difference<1>(vol, vertex, gv, cv.b, ctr, direct);
+    n[2] = axis_difference<2>(vol, vertex, gv, cv.b, ctr, direct);
     const Dual nsq = xs::dot3(n, n);
     n_ok = nsq.v > 0.0f && !isnan(nsq.v);
+    if (n_ok) {
+      Dual unit[3];
+      xs::normalized3(n, unit);
+      xs::matvec3(v2w, unit, n_w);
+    }
   }
-  if (n_ok) {
-    Dual unit[3];
-    xs::normalized3(n, unit);
-    xs::matvec3(v2w, unit, n_w);
-  }
-  store3(nmap_v, nmap_g, HW, pix, n_ok, n_ok ? n_w : none);
+  store3(nmap_v, nmap_g, HW, pix, n_ok, n_w);
+}
+
+template <int WARPS_X, int WARPS_Y, int MIN_BLOCKS, int PART = 2>
+int launch_refine(const Volume& vol, const float* pose, const float* t_found, const float* t_dead, float* vmap_v,
+                  float* vmap_g, float* nmap_v, float* nmap_g, int H, int W, float step, const xs::Camera& cam,
+                  unsigned* direct, cudaStream_t stream) {
+  const dim3 grid((W + 8 * WARPS_X - 1) / (8 * WARPS_X), (H + 4 * WARPS_Y - 1) / (4 * WARPS_Y));
+  refine_kernel<WARPS_X, WARPS_Y, MIN_BLOCKS, PART><<<grid, 32 * WARPS_X * WARPS_Y, 0, stream>>>(
+      vol, pose, t_found, t_dead, vmap_v, vmap_g, nmap_v, nmap_g, H, W, step, cam, direct);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// direct: a counter of the normal samples read outside the shared block, or null.
+// block_threads: 64, 128 or 256 (8 x 8, 16 x 8, 32 x 8 pixels), plus the minimum of blocks an SM
+// (__launch_bounds__) where one is asked: 64 + 12, 16 or 20; 128 + 6, 8 or 10
 extern "C" int xs_raycast_refine(const void* value, const void* grad, const void* pose, const void* t_found,
-                                 const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, int X,
-                                 int Y, int Z, int H, int W, float vs, float inv_vs, float half_vs, float step,
-                                 float cx, float cy, float inv_fx, float inv_fy, void* stream) {
+                                 const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
+                                 void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
+                                 float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                                 int block_threads, void* stream) {
   const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs};
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
-  const dim3 grid((W + xs::BLOCK_W - 1) / xs::BLOCK_W, (H + xs::BLOCK_H - 1) / xs::BLOCK_H);
-  refine_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
-      vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
-      (float*)nmap_v, (float*)nmap_g, H, W, step, cam);
-  return (int)cudaGetLastError();
+  switch (block_threads) {
+#define XS_REFINE_ARGS                                                                                       \
+  vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,      \
+      (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct, (cudaStream_t)stream
+    case 64: return launch_refine<1, 2, 1>(XS_REFINE_ARGS);
+    case 64 + 12: return launch_refine<1, 2, 12>(XS_REFINE_ARGS);
+    case 64 + 16: return launch_refine<1, 2, 16>(XS_REFINE_ARGS);
+    case 64 + 20: return launch_refine<1, 2, 20>(XS_REFINE_ARGS);
+    case 128: return launch_refine<2, 2, 1>(XS_REFINE_ARGS);
+    case 128 + 6: return launch_refine<2, 2, 6>(XS_REFINE_ARGS);
+    case 128 + 8: return launch_refine<2, 2, 8>(XS_REFINE_ARGS);
+    case 128 + 10: return launch_refine<2, 2, 10>(XS_REFINE_ARGS);
+    case 256: return launch_refine<4, 2, 1>(XS_REFINE_ARGS);
+    case 1000: return launch_refine<2, 2, 1, 0>(XS_REFINE_ARGS);
+    case 1001: return launch_refine<2, 2, 1, 1>(XS_REFINE_ARGS);
+#undef XS_REFINE_ARGS
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

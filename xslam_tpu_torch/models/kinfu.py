@@ -7,7 +7,7 @@ association computed every iteration or once per level
 (``icp_fixed_assoc``). Each frame runs:
 
 1. bilateral filter (kernel K1), the depth pyramid (K7, one launch a
-   level), vertex and normal maps (K8, one launch a level);
+   level), vertex and normal maps of every level (K8, one launch);
 2. coarse-to-fine ICP, levels 2 -> 1 -> 0 with {5, 4, 3} iterations, as a
    Python loop whose pose and ``ok`` flag stay on the device; each iteration
    (normal equations, 6x6 dual solve, pose update) is one launch of kernel
@@ -225,7 +225,7 @@ def process_frame(
         depths = [kernels.bilateral_filter(depth_u16)]
         for _ in range(1, levels):
             depths.append(kernels.pyr_down(depths[-1]))
-        vmaps_curr, nmaps_curr = zip(*(kernels.vertex_normal_maps(intr.level(i), depths[i]) for i in range(levels)))
+        vmaps_curr, nmaps_curr = kernels.vertex_normal_pyramid([intr.level(i) for i in range(levels)], depths)
 
     is_first = state.frame_idx == 0
 

@@ -53,6 +53,21 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "unknown"
 
 
+def stage_launches(events, n_frames: int) -> dict:
+    """Launches per frame of each stage: the host's launch, copy and fill
+    calls that start inside the stage's profiler range, over ``n_frames``."""
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.name in STAGES and e.device_type == DeviceType.CPU)
+    starts = [r[0] for r in ranges]
+    out = {name: 0.0 for _, _, name in ranges}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS):
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= ranges[i][1]:
+                out[ranges[i][2]] += 1.0 / n_frames
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("config")
@@ -103,20 +118,12 @@ def main(argv=None):
     hand = {
         k: sum(v[0] for name, v in by_name.items() if pat in name) / f for k, pat in HAND_KERNELS.items()
     }
+    launches = stage_launches(prof.events(), f)
     stages = {}
     for e in prof.key_averages():
         if e.key in STAGES and e.device_type == DeviceType.CPU:
             stages[e.key] = {"host_ms": e.cpu_time_total / 1e3 / f, "device_ms": e.device_time_total / 1e3 / f,
-                             "launches": 0.0}
-    # a stage's launches: the host's launch, copy and fill calls that start inside its range
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                    if e.name in stages and e.device_type == DeviceType.CPU)
-    starts = [r[0] for r in ranges]
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS):
-            i = bisect.bisect_right(starts, e.time_range.start) - 1
-            if i >= 0 and e.time_range.start <= ranges[i][1]:
-                stages[ranges[i][2]]["launches"] += 1.0 / f
+                             "launches": launches.get(e.key, 0.0)}
     print(json.dumps({
         "card": card(),
         "device": torch.cuda.get_device_name(0),
