@@ -197,17 +197,24 @@ def phase_bilateral(ctx):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
-def _v2c(ctx, pose_c2w: np.ndarray, rng):
-    """Dual volume->camera pose of a ground-truth camera, with a seeded
-    derivative lane so the kernels' grad lane carries real values."""
+def _seeded_c2v(ctx, c2v: np.ndarray, rng):
+    """The dual camera->volume pose ``c2v`` with a seeded derivative lane, so
+    the kernels' grad lane carries real values."""
     from xslam_tpu_torch.csfd.single import CSFD
+
+    g = torch.as_tensor((1e-2 * rng.standard_normal((4, 4))).astype(np.float32), device=ctx["device"])
+    g[3] = 0.0
+    return CSFD(torch.as_tensor(np.asarray(c2v, np.float32), device=ctx["device"]), g)
+
+
+def _v2c(ctx, pose_c2w: np.ndarray, rng):
+    """Dual volume->camera and camera->volume poses of a ground-truth camera
+    (:func:`_seeded_c2v`)."""
     from xslam_tpu_torch.geometry import se3
 
     w2v = np.asarray(ctx["config"].world2volume, np.float32)
-    c2v = torch.as_tensor((w2v @ pose_c2w).astype(np.float32), device=ctx["device"])
-    g = torch.as_tensor((1e-2 * rng.standard_normal((4, 4))).astype(np.float32), device=ctx["device"])
-    g[3] = 0.0
-    return se3.inverse(CSFD(c2v, g)), CSFD(c2v, g)
+    c2v = _seeded_c2v(ctx, (w2v @ pose_c2w).astype(np.float32), rng)
+    return se3.inverse(c2v), c2v
 
 
 def _look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
@@ -255,9 +262,7 @@ def phase_fusion(ctx):
     orbit_v2c, _ = _v2c(ctx, poses[3], rng)
 
     def dual_v2c(c2v: np.ndarray) -> CSFD:
-        g = torch.as_tensor((1e-2 * rng.standard_normal((4, 4))).astype(np.float32), device=dev)
-        g[3] = 0.0
-        return se3.inverse(CSFD(torch.as_tensor(c2v.astype(np.float32), device=dev), g))
+        return se3.inverse(_seeded_c2v(ctx, c2v, rng))
 
     # (name, volume->camera pose, depth in metres): the orbit's next frame; a camera in a corner of
     # the volume that looks at its middle, on a seeded depth; the regression pose, on the scene it sees
@@ -345,7 +350,7 @@ def _ray_pose(ctx, seed: int, c2v_np=None):
     """The packed pose of K3 and K5 at the orbit's frame 3, or at the
     camera->volume pose ``c2v_np``, with a seeded derivative lane, and its
     parts."""
-    from xslam_tpu_torch.csfd.single import CSFD, lift
+    from xslam_tpu_torch.csfd.single import lift
     from xslam_tpu_torch.geometry import se3
     from xslam_tpu_torch.ops import kernels
 
@@ -353,9 +358,7 @@ def _ray_pose(ctx, seed: int, c2v_np=None):
     if c2v_np is None:
         _, c2v = _v2c(ctx, np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3], rng)
     else:
-        g = torch.as_tensor((1e-2 * rng.standard_normal((4, 4))).astype(np.float32), device=ctx["device"])
-        g[3] = 0.0
-        c2v = CSFD(torch.as_tensor(np.asarray(c2v_np, np.float32), device=ctx["device"]), g)
+        c2v = _seeded_c2v(ctx, c2v_np, rng)
     w2v = lift(torch.as_tensor(np.asarray(ctx["config"].world2volume, np.float32), device=ctx["device"]))
     v2w = se3.inverse(w2v)
     parts = (se3.rotation(c2v), se3.translation(c2v), se3.rotation(v2w), se3.translation(v2w))
@@ -503,8 +506,6 @@ def phase_refine(ctx):
     cases += [(name, 0, vol, c2v) for name, (vol, c2v) in planes.items()]
     table, ctx["model_maps"] = None, {}
     direct = torch.zeros(1, dtype=torch.int32, device=dev)
-    ext = kernels.build_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for name, L, vol, c2v in cases:
         pose, parts = _ray_pose(ctx, 3, c2v)
         intr = cfg.intrinsics.level(L)
@@ -536,26 +537,15 @@ def phase_refine(ctx):
             plain = time_ms(plain_fn, 3)
             n_bytes, n_ops, distinct = _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng)
             bms, by = bound_ms(n_bytes, n_ops)
-            consts = (kernels.f32(eng.voxel_size), kernels.reciprocal_f32(eng.voxel_size),
-                      kernels.f32(eng.voxel_size * 0.5), kernels.f32(eng.trunc_dist * 0.8), *kernels.camera_args(intr))
-            sweep = {}
-            # block threads (+ the minimum of blocks an SM); 1000: the secant samples alone, 1001: up to the vertex
-            for threads in (64, 64 + 12, 64 + 16, 64 + 20, 128, 128 + 6, 128 + 8, 128 + 10, 256, 1000, 1001):
-                def launch_shape(threads=threads):
-                    check(ext.raycast_refine(vol.value, vol.grad, pose, t_found, t_dead, *(x for m in out for x in m),
-                                             None, *consts, threads, stream) == 0, "raycast_refine launch failed")
-                sweep[threads] = time_ms(launch_shape, 50)
-            out = raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng)
             row.update(distinct_voxels=distinct, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                       library_note="no single PyTorch call computes it", block_threads_sweep_ms=sweep)
+                       library_note="no single PyTorch call computes it")
             ctx["model_maps"][L] = out
             if L == 0:
                 table = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
         emit("K5 raycast_refine", **row)
         check(nans and min(eq.values()) == 1.0 and max(ulp.values()) == 0,
               f"K5 is not bit-equal to its plain version ({name}, L={L}): equal {eq}, ulp {ulp}, NaN masks {nans}")
-        least = 0.5
-        check(valid > least, f"K5: normals on only {valid:.3f} of the pixels ({name}, L={L})")
+        check(valid > 0.5, f"K5: normals on only {valid:.3f} of the pixels ({name}, L={L})")
     return table
 
 

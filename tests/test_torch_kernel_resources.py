@@ -145,3 +145,26 @@ def test_compare_trees_reads_a_smoke_runs_output(tmp_path):
                                     device_launches_in_profiled_frame=662)
     assert out["main path, fixed association"] == dict(mean_frame_ms=15.0, ate_m=0.00123)
     assert COMMANDS["smoke"] == ["chip_smoke.py"]
+
+
+def test_stage_launches_counts_the_calls_inside_each_range():
+    """``profile_step.stage_launches``, which ``chip_smoke.py`` asserts on: a
+    launch, copy or fill call counts for the stage whose range it starts in,
+    averaged over the frames; calls outside every range and device events
+    count nowhere."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from xslam_tpu_torch.profile_step import stage_launches
+
+    def event(name, start, end, device=DeviceType.CPU):
+        return SimpleNamespace(name=name, device_type=device, time_range=SimpleNamespace(start=start, end=end))
+
+    events = [
+        event("preprocess", 0, 10), event("cudaLaunchKernel", 1, 2), event("cudaMemcpyAsync", 3, 4),
+        event("bilateral_kernel", 1, 2, DeviceType.CUDA), event("cudaLaunchKernel", 15, 16),
+        event("icp", 20, 30), event("cudaLaunchKernel", 21, 22), event("aten::add", 23, 24),
+        event("preprocess", 40, 50), event("cudaMemsetAsync", 41, 42),
+    ]
+    assert stage_launches(events, 2) == {"preprocess": 1.5, "icp": 0.5}

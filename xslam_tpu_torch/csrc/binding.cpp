@@ -24,7 +24,7 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
-                                 int block_threads, void* stream);
+                                 void* stream);
 extern "C" int xs_resize_model_maps(const void* vv, const void* vg, const void* nv, const void* ng, void* out_vv,
                                     void* out_vg, void* out_nv, void* out_ng, int H, int W, void* stream);
 extern "C" int xs_pyr_down(const void* src, void* dst, int H, int W, void* stream);
@@ -90,12 +90,12 @@ int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const 
                    const torch::Tensor& t_found, const torch::Tensor& t_dead, torch::Tensor vmap_v,
                    torch::Tensor vmap_g, torch::Tensor nmap_v, torch::Tensor nmap_g,
                    const std::optional<torch::Tensor>& direct, float vs, float inv_vs, float half_vs, float step,
-                   float cx, float cy, float inv_fx, float inv_fy, int64_t block_threads, int64_t stream) {
+                   float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
   return xs_raycast_refine(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), t_found.data_ptr(),
                            t_dead.data_ptr(), vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(),
                            nmap_g.data_ptr(), data_or_null(direct), value.size(0), value.size(1), value.size(2),
                            t_found.size(0), t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
-                           block_threads, as_stream(stream));
+                           as_stream(stream));
 }
 
 // the (3, H, W) maps of one level in, the (3, H/2, W/2) maps of the next out

@@ -48,9 +48,13 @@
 // - A pixel that is not accepted, or fails a gate, writes its sentinels and
 //   leaves before any further gather.
 // - 32-bit voxel offsets (the wrapper refuses volumes of 2^31 voxels).
-// - Blocks of WARPS_X x WARPS_Y warps, each warp an 8 x 4 pixel tile, so
-//   neighbouring rays' cells share sectors and small images still fill the
-//   132 SMs.
+// - Blocks of two warps, 8 x 8 pixels, each warp an 8 x 4 tile, so
+//   neighbouring rays' cells share sectors and 240 x 320 is 1,200 blocks,
+//   not 300: every SM gets work.
+// What bounds it then (measured on the H100, PERF.md): the arithmetic of the
+// eight dual trilinears, some 1,700 instructions an accepted pixel, issued at
+// about half the SM's rate; the loads cut by 44% bought 7%, and capping the
+// registers (111 a thread, 20 warps an SM) to raise the occupancy spills.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +66,7 @@ using xs::Dual;
 using xs::lift;
 
 constexpr float INF_T = 1e9f;
+constexpr int BLOCK_W = 8, BLOCK_H = 8, BLOCK_THREADS = BLOCK_W * BLOCK_H;  // two warps of 8 x 4 pixels
 
 struct Volume {
   const float* value;
@@ -189,12 +194,11 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
   return res[0] - res[1];
 }
 
-// the pixel of thread `tid` in a block of WARPS_X x WARPS_Y warps, each an 8 x 4 tile
-template <int WARPS_X, int WARPS_Y>
+// the pixel of thread `tid`: warp w of a block owns the 8 x 4 tile at rows 4 w
 __device__ __forceinline__ void tile_pixel(int tid, int& x, int& y) {
   const int warp = tid >> 5, lane = tid & 31;
-  x = blockIdx.x * (8 * WARPS_X) + (warp % WARPS_X) * 8 + (lane & 7);
-  y = blockIdx.y * (4 * WARPS_Y) + (warp / WARPS_X) * 4 + (lane >> 3);
+  x = blockIdx.x * BLOCK_W + (lane & 7);
+  y = blockIdx.y * BLOCK_H + warp * 4 + (lane >> 3);
 }
 
 __device__ __forceinline__ void point_at(const Dual start[3], const Dual dir[3], Dual t, Dual p[3]) {
@@ -212,19 +216,18 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
-template <int WARPS_X, int WARPS_Y, int MIN_BLOCKS, int PART>
-__global__ void __launch_bounds__(32 * WARPS_X * WARPS_Y, MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK_THREADS)
     refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
                   const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
                   float* __restrict__ nmap_v, float* __restrict__ nmap_g, int H, int W, float step, xs::Camera cam,
                   unsigned* direct) {
-  static_assert(32 * WARPS_X * WARPS_Y >= xs::POSE_FLOATS, "a block loads the pose, one float a thread");
+  static_assert(BLOCK_THREADS >= xs::POSE_FLOATS, "a block loads the pose, one float a thread");
   __shared__ float sp[xs::POSE_FLOATS];
   const int tid = threadIdx.x;
   if (tid < xs::POSE_FLOATS) sp[tid] = pose[tid];
   __syncthreads();
   int x, y;
-  tile_pixel<WARPS_X, WARPS_Y>(tid, x, y);
+  tile_pixel(tid, x, y);
   if (x >= W || y >= H) return;
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
@@ -254,10 +257,6 @@ __global__ void __launch_bounds__(32 * WARPS_X * WARPS_Y, MIN_BLOCKS)
   load_taps(vol, c1, tap1);
   const Dual ft = combine(c0, tap0);
   const Dual ftdt = combine(c1, tap1);
-  if (PART == 0) {
-    vmap_v[pix] = ft.v + ftdt.g;
-    return;
-  }
   const bool ok = !isnan(ft.v) && !isnan(ftdt.v) && ft.v >= 0.0f && ftdt.v <= 0.0f && ftdt.v != ft.v;
   if (!ok) {
     store3(vmap_v, vmap_g, HW, pix, false, none);
@@ -272,7 +271,6 @@ __global__ void __launch_bounds__(32 * WARPS_X * WARPS_Y, MIN_BLOCKS)
 #pragma unroll
   for (int i = 0; i < 3; ++i) vertex_w[i] = vertex_w[i] + Dual{v2w[18 + i], v2w[21 + i]};
   store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
-  if (PART == 1) return;
 
   // central-difference normal, inside the reference's margin (RayCaster.cu:270-271)
   const int size[3] = {vol.X, vol.Y, vol.Z};
@@ -304,44 +302,19 @@ __global__ void __launch_bounds__(32 * WARPS_X * WARPS_Y, MIN_BLOCKS)
   store3(nmap_v, nmap_g, HW, pix, n_ok, n_w);
 }
 
-template <int WARPS_X, int WARPS_Y, int MIN_BLOCKS, int PART = 2>
-int launch_refine(const Volume& vol, const float* pose, const float* t_found, const float* t_dead, float* vmap_v,
-                  float* vmap_g, float* nmap_v, float* nmap_g, int H, int W, float step, const xs::Camera& cam,
-                  unsigned* direct, cudaStream_t stream) {
-  const dim3 grid((W + 8 * WARPS_X - 1) / (8 * WARPS_X), (H + 4 * WARPS_Y - 1) / (4 * WARPS_Y));
-  refine_kernel<WARPS_X, WARPS_Y, MIN_BLOCKS, PART><<<grid, 32 * WARPS_X * WARPS_Y, 0, stream>>>(
-      vol, pose, t_found, t_dead, vmap_v, vmap_g, nmap_v, nmap_g, H, W, step, cam, direct);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// direct: a counter of the normal samples read outside the shared block, or null.
-// block_threads: 64, 128 or 256 (8 x 8, 16 x 8, 32 x 8 pixels), plus the minimum of blocks an SM
-// (__launch_bounds__) where one is asked: 64 + 12, 16 or 20; 128 + 6, 8 or 10
+// direct: a counter of the normal samples read outside the shared block, or null
 extern "C" int xs_raycast_refine(const void* value, const void* grad, const void* pose, const void* t_found,
                                  const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
-                                 int block_threads, void* stream) {
+                                 void* stream) {
   const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs};
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
-  switch (block_threads) {
-#define XS_REFINE_ARGS                                                                                       \
-  vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,      \
-      (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct, (cudaStream_t)stream
-    case 64: return launch_refine<1, 2, 1>(XS_REFINE_ARGS);
-    case 64 + 12: return launch_refine<1, 2, 12>(XS_REFINE_ARGS);
-    case 64 + 16: return launch_refine<1, 2, 16>(XS_REFINE_ARGS);
-    case 64 + 20: return launch_refine<1, 2, 20>(XS_REFINE_ARGS);
-    case 128: return launch_refine<2, 2, 1>(XS_REFINE_ARGS);
-    case 128 + 6: return launch_refine<2, 2, 6>(XS_REFINE_ARGS);
-    case 128 + 8: return launch_refine<2, 2, 8>(XS_REFINE_ARGS);
-    case 128 + 10: return launch_refine<2, 2, 10>(XS_REFINE_ARGS);
-    case 256: return launch_refine<4, 2, 1>(XS_REFINE_ARGS);
-    case 1000: return launch_refine<2, 2, 1, 0>(XS_REFINE_ARGS);
-    case 1001: return launch_refine<2, 2, 1, 1>(XS_REFINE_ARGS);
-#undef XS_REFINE_ARGS
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
+  refine_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+      vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
+      (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
+  return (int)cudaGetLastError();
 }

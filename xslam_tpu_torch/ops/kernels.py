@@ -74,7 +74,7 @@ RAY_MAX_M = 5.0
 INF_T = 1e9
 RAY_POSE_FLOATS = 48
 BILATERAL_TABLE_FLOATS = 27 * 448  # K1's weight table (csrc/bilateral.cu)
-MAX_MAP_LEVELS = 4  # K8's levels in one launch (csrc/maps.cu)
+MAX_MAP_LEVELS = 3  # K8's levels in one launch (csrc/maps.cu); the ICP runs at most 3
 
 launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,

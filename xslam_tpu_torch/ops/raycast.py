@@ -27,7 +27,6 @@ from .kernels import INF_T, RAY_MIN_M
 from .sampling import gather3d, to_index
 
 MARCH_MODES = ("fixed",)
-REFINE_BLOCK_THREADS = 128
 
 
 def trilinear_tsdf_shard(
@@ -177,7 +176,7 @@ def raycast_refine(
     ``direct``, an int32 (1,) tensor on the card, gets added the number of
     normal samples the kernel read outside the block of voxels it shares
     between a pixel's six (``csrc/refine.cu``); unused on the CPU."""
-    if kernels.on_cpu(vol.value, vol.grad, pose, t_found, t_dead):
+    if kernels.on_cpu(vol.value, vol.grad, pose, t_found, t_dead, *(() if direct is None else (direct,))):
         r_c2v, t_c2v, r_v2w, t_v2w = kernels.unpack_ray_pose(pose)
         ray_dir, ray_start = kernels.camera_rays(r_c2v, t_c2v, intr)
         accept = t_found < torch.clamp(t_dead, max=INF_T)
@@ -198,7 +197,7 @@ def raycast_refine(
     kernels.launch(
         "raycast_refine", pose.device, vol.value, vol.grad, pose, t_found, t_dead, *out, direct,
         f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(cfg.voxel_size * 0.5),
-        f32(cfg.trunc_dist * 0.8), *kernels.camera_args(intr), REFINE_BLOCK_THREADS,
+        f32(cfg.trunc_dist * 0.8), *kernels.camera_args(intr),
     )
     kernels.launch_counts["raycast_refine"] += 1
     return CSFD(out[0], out[1]), CSFD(out[2], out[3])
