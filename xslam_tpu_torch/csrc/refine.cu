@@ -146,36 +146,28 @@ __device__ __forceinline__ constexpr int corner_index(int e, int j) {
   return A == 0 ? e * 4 + j : A == 1 ? (j >> 1) * 4 + e * 2 + (j & 1) : (j >> 1) * 4 + (j & 1) * 2 + e;
 }
 
-// the loads of the 2 x 2 face across axis A on the side the vertex's block
-// (base cv) does not reach: at g + 1 (h = 0) or g - 1 (h = 1); j across it
-template <int A>
-__device__ __forceinline__ void load_face(const Volume& vol, const int gv[3], const int cv[3], Dual face[4]) {
-  constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
-  int fb[3] = {cv[0], cv[1], cv[2]};
-  fb[A] = cv[A] == gv[A] ? gv[A] - 1 : gv[A] + 1;
-  const unsigned fbase = offset_of(vol, fb[0], fb[1], fb[2]);
-  const unsigned step1 = O1 == 0 ? (unsigned)vol.Y * (unsigned)vol.Z : (unsigned)vol.Z;
-  const unsigned step2 = O2 == 2 ? 1u : (unsigned)vol.Z;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) face[j] = tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
-}
-
 // the difference of the trilinears at vertex + half and vertex - half along
 // axis A, from the vertex's block `ctr` (base cv) and the face across axis A
 template <int A>
 __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual vertex[3], const int gv[3],
-                                                const int cv[3], const Dual ctr[8], const Dual face[4],
-                                                unsigned* direct) {
+                                                const int cv[3], const Dual ctr[8], unsigned* direct) {
   constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
   const bool upper = cv[A] == gv[A];                      // h = 1
+  // the face at g + 1 (h = 0) or g - 1 (h = 1) on axis A
+  int fb[3] = {cv[0], cv[1], cv[2]};
+  fb[A] = upper ? gv[A] - 1 : gv[A] + 1;
+  const unsigned fbase = offset_of(vol, fb[0], fb[1], fb[2]);
+  const unsigned step1 = O1 == 0 ? (unsigned)vol.Y * (unsigned)vol.Z : (unsigned)vol.Z;
+  const unsigned step2 = O2 == 2 ? 1u : (unsigned)vol.Z;
   Dual line[3][4];  // the voxels at g - 1, g, g + 1 on axis A; j across it
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
+    const Dual face = tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
     const Dual& lo = ctr[corner_index<A>(0, j)];
     const Dual& hi = ctr[corner_index<A>(1, j)];
-    line[0][j] = upper ? face[j] : lo;
+    line[0][j] = upper ? face : lo;
     line[1][j] = upper ? lo : hi;
-    line[2][j] = upper ? hi : face[j];
+    line[2][j] = upper ? hi : face;
   }
 
   Dual res[2];
@@ -240,20 +232,20 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
 
-  // the ray is made while t_found and t_dead are on their way
-  const float hit_t = t_found[pix], dead_t = t_dead[pix];
+  const float hit_t = t_found[pix];
+  const bool accept = hit_t < fminf(t_dead[pix], INF_T);
+  if (!accept) {
+    store3(vmap_v, vmap_g, HW, pix, false, none);
+    store3(nmap_v, nmap_g, HW, pix, false, none);
+    return;
+  }
+
   const float* c2v = sp + xs::POSE_C2V;
   const float* v2w = sp + xs::POSE_V2W;
   Dual dir[3], start[3], p0[3], p1[3];
   xs::camera_ray(c2v, (float)x, (float)y, cam, dir);
 #pragma unroll
   for (int i = 0; i < 3; ++i) start[i] = {c2v[18 + i], c2v[21 + i]};
-  const bool accept = hit_t < fminf(dead_t, INF_T);
-  if (!accept) {
-    store3(vmap_v, vmap_g, HW, pix, false, none);
-    store3(nmap_v, nmap_g, HW, pix, false, none);
-    return;
-  }
 
   // the secant samples: both cells, then all 32 loads, then the sums
   const Dual t = lift(hit_t);
@@ -292,17 +284,13 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   Dual n_w[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
   if (n_ok) {
     // the vertex's own cell: base g - 1 + h on each axis; inside the margin all 20 voxels lie in the volume
-    // all 40 loads are issued before the first sum
     const Cell cv = cell_at(vol, vertex);
-    Dual ctr[8], face0[4], face1[4], face2[4];
+    Dual ctr[8];
     load_taps(vol, cv, ctr);
-    load_face<0>(vol, gv, cv.b, face0);
-    load_face<1>(vol, gv, cv.b, face1);
-    load_face<2>(vol, gv, cv.b, face2);
     Dual n[3];
-    n[0] = axis_difference<0>(vol, vertex, gv, cv.b, ctr, face0, direct);
-    n[1] = axis_difference<1>(vol, vertex, gv, cv.b, ctr, face1, direct);
-    n[2] = axis_difference<2>(vol, vertex, gv, cv.b, ctr, face2, direct);
+    n[0] = axis_difference<0>(vol, vertex, gv, cv.b, ctr, direct);
+    n[1] = axis_difference<1>(vol, vertex, gv, cv.b, ctr, direct);
+    n[2] = axis_difference<2>(vol, vertex, gv, cv.b, ctr, direct);
     const Dual nsq = xs::dot3(n, n);
     n_ok = nsq.v > 0.0f && !isnan(nsq.v);
     if (n_ok) {
