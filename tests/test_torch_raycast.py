@@ -334,8 +334,10 @@ def _shared_block_twin(vertex, voxel_size, shape):
             q[a] = (vertex[a] + f(sign) * half).astype(f)
             cells = [_cell_twin(q[i], inv_vs, vs, shape[i]) for i in range(3)]
             ok = cells[0][1] & cells[1][1] & cells[2][1]
-            staged.append(ok & (cells[a][0] == gv[a] - s)
-                          & (cells[others[0]][0] == cv[others[0]]) & (cells[others[1]][0] == cv[others[1]]))
+            # the kernel takes the vertex's cell on the other two axes: the same coordinates, so the same cell
+            for i in others:
+                np.testing.assert_array_equal(cells[i][0], cv[i])
+            staged.append(ok & (cells[a][0] == gv[a] - s))
             corners = [[(k >> 2) & 1, (k >> 1) & 1, k & 1] for k in range(8)]
             own.append(np.stack([flat(*(cells[i][0] + d[i] for i in range(3))) for d in corners], axis=1))
             picked = []

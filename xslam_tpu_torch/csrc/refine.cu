@@ -38,12 +38,14 @@
 //   arithmetic, g - 1 (minus) or g (plus) on the shifted axis and g - 1 + h
 //   (the vertex's own base) on the others. The union is the vertex's 2x2x2
 //   block plus, for each axis, the 2x2 face on the side that block does not
-//   reach: 16 + 3 x 8 = 40 loads instead of 96. Each sample still computes
-//   its own cell; where rounding puts it elsewhere than the rule says (a
-//   vertex within a few ulps of a cell edge or centre), or its bounds test
-//   fails, that sample reads its own taps: the same tap values reach the
-//   same weights in the same order either way, so the bits cannot change.
-//   `direct`, where given, counts those samples.
+//   reach: 16 + 3 x 8 = 40 loads instead of 96. On the two axes it does not
+//   shift, a sample's coordinates are the vertex's, and so is its cell and
+//   its weights there (the same operations on the same numbers): only the
+//   shifted axis's cell is computed. Where rounding puts that cell elsewhere
+//   than the rule says (a vertex within a few ulps of a cell edge), or its
+//   bounds test fails, the sample reads its own taps: the same tap values
+//   reach the same weights in the same order either way, so the bits cannot
+//   change. `direct`, where given, counts those samples.
 // - The two secant samples' 32 loads are issued before either sum.
 // - A pixel that is not accepted, or fails a gate, writes its sentinels and
 //   leaves before any further gather.
@@ -51,10 +53,12 @@
 // - Blocks of two warps, 8 x 8 pixels, each warp an 8 x 4 tile, so
 //   neighbouring rays' cells share sectors and 240 x 320 is 1,200 blocks,
 //   not 300: every SM gets work.
-// What bounds it then (measured on the H100, PERF.md): the arithmetic of the
-// eight dual trilinears, some 1,700 instructions an accepted pixel, issued at
-// about half the SM's rate; the loads cut by 44% bought 7%, and capping the
-// registers (111 a thread, 20 warps an SM) to raise the occupancy spills.
+// What bounds it then (measured on the H100, PERF.md): the instructions it
+// issues, above all the arithmetic of the eight dual trilinears. Cutting the
+// loads by 44% bought 7%, the unshifted axes' cells (8% of the instructions)
+// 10%. It takes 96 registers a thread (20 warps an SM): capping them to 80
+// or fewer for more warps spills, and issuing the normal stage's 40 loads
+// together takes 126; neither was faster.
 
 #include <cuda_runtime.h>
 
@@ -86,19 +90,22 @@ struct Cell {
   Dual w0[3], w1[3];
 };
 
+// one axis of the cell at coordinate p (axis size n)
+__device__ __forceinline__ void axis_cell(const Volume& vol, Dual p, int n, Cell& c, int i) {
+  int g = xs::to_index(floorf(p.v * vol.inv_vs));
+  c.ok = c.ok && g > 0 && g < n - 1;
+  g -= (p.v < ((float)g + 0.5f) * vol.vs) ? 1 : 0;
+  c.b[i] = g;
+  c.w0[i] = p * lift(vol.inv_vs) - lift((float)g + 0.5f);
+  c.w1[i] = lift(1.0f) - c.w0[i];
+}
+
 __device__ __forceinline__ Cell cell_at(const Volume& vol, const Dual p[3]) {
   Cell c;
   const int size[3] = {vol.X, vol.Y, vol.Z};
   c.ok = true;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    int g = xs::to_index(floorf(p[i].v * vol.inv_vs));
-    c.ok = c.ok && g > 0 && g < size[i] - 1;
-    g -= (p[i].v < ((float)g + 0.5f) * vol.vs) ? 1 : 0;
-    c.b[i] = g;
-    c.w0[i] = p[i] * lift(vol.inv_vs) - lift((float)g + 0.5f);
-    c.w1[i] = lift(1.0f) - c.w0[i];
-  }
+  for (int i = 0; i < 3; ++i) axis_cell(vol, p[i], size[i], c, i);
   return c;
 }
 
@@ -150,8 +157,9 @@ __device__ __forceinline__ constexpr int corner_index(int e, int j) {
 // axis A, from the vertex's block `ctr` (base cv) and the face across axis A
 template <int A>
 __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual vertex[3], const int gv[3],
-                                                const int cv[3], const Dual ctr[8], unsigned* direct) {
+                                                const Cell& vc, const Dual ctr[8], unsigned* direct) {
   constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
+  const int* cv = vc.b;
   const bool upper = cv[A] == gv[A];                      // h = 1
   // the face at g + 1 (h = 0) or g - 1 (h = 1) on axis A
   int fb[3] = {cv[0], cv[1], cv[2]};
@@ -173,10 +181,12 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
   Dual res[2];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {  // s = 0: vertex + half (base g), s = 1: vertex - half (base g - 1)
-    Dual q[3] = {vertex[0], vertex[1], vertex[2]};
-    q[A] = vertex[A] + lift(s == 0 ? vol.half_vs : -vol.half_vs);
-    const Cell c = cell_at(vol, q);
-    const bool staged = c.ok && c.b[A] == gv[A] - s && c.b[O1] == cv[O1] && c.b[O2] == cv[O2];
+    // the sample's cell: on the other two axes its coordinates are the vertex's, so is its cell there (the
+    // same operations on the same numbers); on axis A its own
+    Cell c = vc;
+    const int size[3] = {vol.X, vol.Y, vol.Z};
+    axis_cell(vol, vertex[A] + lift(s == 0 ? vol.half_vs : -vol.half_vs), size[A], c, A);
+    const bool staged = c.ok && c.b[A] == gv[A] - s;
     Dual tap[8];
     if (staged) {
 #pragma unroll
@@ -288,9 +298,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     Dual ctr[8];
     load_taps(vol, cv, ctr);
     Dual n[3];
-    n[0] = axis_difference<0>(vol, vertex, gv, cv.b, ctr, direct);
-    n[1] = axis_difference<1>(vol, vertex, gv, cv.b, ctr, direct);
-    n[2] = axis_difference<2>(vol, vertex, gv, cv.b, ctr, direct);
+    n[0] = axis_difference<0>(vol, vertex, gv, cv, ctr, direct);
+    n[1] = axis_difference<1>(vol, vertex, gv, cv, ctr, direct);
+    n[2] = axis_difference<2>(vol, vertex, gv, cv, ctr, direct);
     const Dual nsq = xs::dot3(n, n);
     n_ok = nsq.v > 0.0f && !isnan(nsq.v);
     if (n_ok) {
