@@ -22,11 +22,14 @@ Phases, in order:
    test), K3 on that volume (also bit-equal to its earlier design, timed
    beside it, on these rays and on rays with a NaN or an infinity), K5 (the secant refine
    with normals) on that volume at the shapes of ``model_map_level`` 0 and
-   1, K6 (model-map pyramid), K7 (depth pyramid) and K8 (vertex and normal
-   maps) at every level shape of both configurations, K4 (the ICP system,
-   its tail and the cached association) on model maps raycast from that
-   volume and the next frame's depth pyramid, at the three level shapes of
-   both main-path configurations, and the five gather probes;
+   1, K6 (the model-map pyramid, every coarser level in one launch, on K5's
+   maps of both configurations and at two shapes with odd halvings), K7
+   (depth pyramid) and K8 (vertex and normal maps) at every level shape of
+   both configurations, K4 (the ICP system, its tail, the association that
+   a level's first launch writes, and the association kernel it is held
+   against) on model maps raycast from that volume and the next frame's
+   depth pyramid, at the three level shapes of both main-path
+   configurations, and the five gather probes;
 4. the probe path: ``xslam_tpu_torch.apps.probe_gather.run`` on the card;
 5. the main path, twice: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
    runs 10 frames of the 640x480 synthetic orbit on the card, then 6 frames
@@ -64,18 +67,22 @@ N_FRAMES = 10
 N_FRAMES_FIXED_ASSOC = 6
 WARM_FRAMES = 2
 # device launches of a frame (profile_step.py's count): as configs/synthetic.yaml says, and with the cached
-# association at half-resolution model maps; 4 of them in `preprocess` (K1, K7 twice, K8 once)
-FRAME_LAUNCHES = {False: 660, True: 663}
+# association at half-resolution model maps (each level's first ICP launch writes it: no launch of its own);
+# 4 of them in `preprocess` (K1, K7 twice, K8 once)
+FRAME_LAUNCHES = {False: 659, True: 659}
 PREPROCESS_LAUNCHES = 4
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 
-# kernel: (source, the TPU/XLA code it replaces, the path whose launches are reported)
+# kernel: (source, the TPU/XLA code it replaces, the path whose launches are reported); the association
+# kernel runs on no path: each level's first icp_system launch writes the association, and the kernel is the
+# reference that index is held against, so it is listed with its main-path count, 0
+FOLDED = {"icp_associate": "icp_system"}
 KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
     "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
     "march_fixed": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136", "main path"),
     "raycast_refine": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:901", "main path"),
-    "resize_model_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/models/kinfu.py:546", "main path"),
+    "resize_model_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/models/kinfu.py:527-529,546", "main path"),
     "pyr_down": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:78", "main path"),
     "vertex_normal_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:115", "main path"),
     "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
@@ -565,15 +572,15 @@ def _compare(tag, pairs, **fields):
 
 def phase_maps(ctx):
     """K6, K7 and K8 against their plain versions at every level shape of
-    both main-path configurations. K7 and K8 (one launch for the whole
-    pyramid, held level by level) must be bit-equal; K6 must have the plain
-    versions' NaN masks and lie within 2 ulp of their numbers (the fractions
-    of unequal numbers are printed; none expected). The table rows carry the
-    times at the largest shape, K8's of the whole pyramid."""
+    both main-path configurations, each held level by level and bit-equal
+    (K6 and K8: one launch for the whole pyramid; K6 also at two shapes
+    whose halvings are odd, and with one coarser level only). The table rows
+    carry the times at the largest shape, K6's and K8's of the whole
+    pyramid."""
     import torch.nn.functional as F
 
     from xslam_tpu_torch.csfd.single import CSFD
-    from xslam_tpu_torch.models.kinfu import _resize_nmap_dual, resize_model_maps
+    from xslam_tpu_torch.models.kinfu import model_map_pyramid, resize_model_maps
     from xslam_tpu_torch.ops import kernels, preprocess
 
     cfg, dev = ctx["config"], ctx["device"]
@@ -623,29 +630,61 @@ def phase_maps(ctx):
          wrapper_ms=wrapper_ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
     rows["vertex_normal_maps"] = dict(max_abs_err=worst_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
-    # K6 on the model maps K5 rendered, down both configurations' pyramids
-    for L, (vmap, nmap) in ctx["model_maps"].items():
-        for level in range(1, cfg.num_levels):
-            H, W = vmap.v.shape[-2:]
-            v2, n2 = resize_model_maps(vmap, nmap)
-            pv = CSFD(preprocess.resize_vmap(vmap.v), preprocess.resize_vmap(vmap.g))
-            pn = _resize_nmap_dual(nmap)
-            torch.cuda.synchronize()
-            ms = time_ms(lambda: resize_model_maps(vmap, nmap), 100)
-            plain = time_ms(lambda: (preprocess.resize_vmap(vmap.v), preprocess.resize_vmap(vmap.g),
-                                     _resize_nmap_dual(nmap)), 5)
-            lib = time_ms(lambda: F.avg_pool2d(vmap.v, 2), 100)  # a yardstick: one of the four planes' means
-            bms, by = bound_ms(12 * H * W * 4 + 12 * (H // 2) * (W // 2) * 4, (H // 2) * (W // 2) * 120)
-            nans, eq, ulp, err = _compare(
-                "K6 resize_model_maps", [(v2.v, pv.v), (v2.g, pv.g), (n2.v, pn.v), (n2.g, pn.g)], model_map_level=L,
-                level=level, shape=[H, W], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-                library_note="torch.nn.functional.avg_pool2d of the vertex map's value lane alone")
-            check(nans and ulp <= 2 and eq >= 1.0 - 1e-4,
-                  f"K6 disagrees with its plain versions at L={L}, level {level}")
-            rows.setdefault("resize_model_maps",
-                            dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib))
-            vmap, nmap = v2, n2
-    ctx.pop("model_maps")
+    # K6 on the model maps K5 rendered (both configurations), and on two crops of them whose halvings are odd
+    # (478 x 638: the paired loads; 477 x 637: the single loads), every coarser level in one launch
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = [(f"model_map_level {L}", vmap, nmap) for L, (vmap, nmap) in ctx.pop("model_maps").items()]
+    v0, n0 = cases[0][1], cases[0][2]
+    for H, W in ((478, 638), (477, 637)):
+        def crop(m, H=H, W=W):
+            return CSFD(m.v[:, :H, :W].contiguous(), m.g[:, :H, :W].contiguous())
+        cases.append((f"crop {H}x{W}", crop(v0), crop(n0)))
+    levels = cfg.num_levels
+    for name, vmap, nmap in cases:
+        H, W = vmap.v.shape[-2:]
+        vmaps, nmaps = model_map_pyramid(vmap, nmap, levels)
+        plain_v, plain_n = [vmap], [nmap]
+        for _ in range(1, levels):
+            v, n = resize_model_maps(plain_v[-1], plain_n[-1])
+            plain_v.append(v)
+            plain_n.append(n)
+        one_level = model_map_pyramid(vmap, nmap, 2) if name.startswith("model_map_level 0") else None
+        torch.cuda.synchronize()
+        # the kernel timed from prepared arguments (K8's lesson: a wrapper's host work can outlast the held
+        # stream), the wrapper beside it
+        shapes = [(H >> level, W >> level) for level in range(1, levels)]
+        offsets, size = kernels.map_pyramid_layout(shapes, 4)
+        prepared = (vmap.v, vmap.g, nmap.v, nmap.g, torch.empty(size, dtype=torch.float32, device=dev),
+                    [o for level in offsets for o in level], levels, stream)
+
+        def launch(prepared=prepared):
+            err_code = ext.model_map_pyramid(*prepared)
+            check(err_code == 0, f"model_map_pyramid launch failed: cudaError {err_code}")
+
+        ms = time_ms(launch, 100)
+        wrapper_ms = time_ms(lambda: model_map_pyramid(vmap, nmap, levels), 100)
+        plain = time_ms(lambda: [resize_model_maps(*pair) for pair in zip(plain_v[:-1], plain_n[:-1])], 5)
+        lib = time_ms(lambda: F.avg_pool2d(vmap.v, 2), 100)  # a yardstick: one of the twelve planes' means
+        out_px = sum(h * w for h, w in shapes)
+        bms, by = bound_ms(12 * H * W * 4 + 12 * out_px * 4, out_px * 120)
+        worst = []
+        for level in range(1, levels):
+            pairs = [(vmaps[level].v, plain_v[level].v), (vmaps[level].g, plain_v[level].g),
+                     (nmaps[level].v, plain_n[level].v), (nmaps[level].g, plain_n[level].g)]
+            if one_level is not None and level == 1:
+                pairs += [(one_level[0][1].v, plain_v[1].v), (one_level[0][1].g, plain_v[1].g),
+                          (one_level[1][1].v, plain_n[1].v), (one_level[1][1].g, plain_n[1].g)]
+            nans, eq, ulp, err = _compare("K6 resize_model_maps", pairs, case=name, level=level, shape=[H, W],
+                                          out_shape=list(shapes[level - 1]))
+            check(nans and ulp == 0 and eq == 1.0,
+                  f"K6 is not bit-equal to its plain versions ({name}, level {level}): equal {eq}, ulp {ulp}")
+            worst.append(err)
+        emit("K6 resize_model_maps, all coarser levels in one launch", case=name, shape=[H, W], levels=levels,
+             ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+             library_note="torch.nn.functional.avg_pool2d of the vertex map's value lane alone, level 1 only")
+        rows.setdefault("resize_model_maps", dict(max_abs_err=max(worst), ms=ms, plain_ms=plain, bound_ms=bms,
+                                                  bound_by=by, library_ms=lib))
     return rows
 
 
@@ -656,7 +695,7 @@ def _icp_inputs(ctx, L: int):
     ICP's starting pose (the previous frame's)."""
     from xslam_tpu_torch.csfd.single import lift
     from xslam_tpu_torch.geometry import se3
-    from xslam_tpu_torch.models.kinfu import resize_model_maps
+    from xslam_tpu_torch.models.kinfu import model_map_pyramid
     from xslam_tpu_torch.ops import kernels, raycast
 
     cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
@@ -670,11 +709,7 @@ def _icp_inputs(ctx, L: int):
         intr.level(L), eng, normals_mode=cfg.raycast_normals, march_mode=cfg.raycast_march,
         packed_taps=cfg.raycast_packed_taps,
     )
-    vprev, nprev = [vmap0], [nmap0]
-    for _ in range(1, cfg.num_levels):
-        vmap, nmap = resize_model_maps(vprev[-1], nprev[-1])
-        vprev.append(vmap)
-        nprev.append(nmap)
+    vprev, nprev = model_map_pyramid(vmap0, nmap0, cfg.num_levels)
     depths = [kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))]
     for _ in range(1, cfg.num_levels):
         depths.append(kernels.pyr_down(depths[-1]))
@@ -717,10 +752,10 @@ class _K4Launch:
         self.consts = [int(n) for n in vprev.v.shape[-2:]] + [
             kernels.f32(x) for x in (lintr.fx, lintr.fy, lintr.cx, lintr.cy, cfg.dist_thres, cfg.angle_thres_sine)]
 
-    def __call__(self, tail: bool = False, blocks=None, maps=None):
+    def __call__(self, tail: bool = False, blocks=None, maps=None, assoc_out=None):
         err_code = self.ext.icp_system(
-            *(maps or self.maps), self.pose, self.partials, self.ticket, blocks or self.blocks, self.out, self.count,
-            *(self.tail if tail else (None, None, None)), 0.0, True, *self.consts, self.stream)
+            *(maps or self.maps), assoc_out, self.pose, self.partials, self.ticket, blocks or self.blocks, self.out,
+            self.count, *(self.tail if tail else (None, None, None)), 0.0, True, *self.consts, self.stream)
         check(err_code == 0, f"icp_system launch failed: cudaError {err_code}")
 
 
@@ -769,6 +804,33 @@ def _same_step(a, b) -> bool:
         and bool(a.ok) == bool(b.ok)
 
 
+def _check_fold(ctx, lintr, vcurr, ncurr, vprev, nprev, pose, index, where: str) -> dict:
+    """The association folded into a level's first ``icp_system`` launch: the
+    index map it writes equals ``icp_associate``'s ``index`` at every pixel
+    with a current normal and is -1 elsewhere, and the launch's A, b, inlier
+    count, pose, x and flags equal those of the launch that reads ``index``
+    instead, bit for bit. Returns the three first-iteration times (with the
+    tail): projecting, projecting and storing the index, reading it."""
+    project = _K4Launch(ctx, lintr, vcurr, ncurr, vprev, nprev, pose, None)
+    cached = _K4Launch(ctx, lintr, vcurr, ncurr, vprev, nprev, pose, index)
+    folded = torch.full_like(index, -7)
+    project(tail=True, assoc_out=folded)
+    cached(tail=True)
+    torch.cuda.synchronize()
+    has_normal = ~torch.isnan(ncurr[0])
+    index_equal = bool(torch.equal(folded[has_normal], index[has_normal]))
+    elsewhere = bool((folded[~has_normal] == -1).all())
+    outputs = [(project.out, cached.out), (project.count, cached.count)] + list(zip(project.tail, cached.tail))
+    same = all(bool(torch.equal(a, b)) for a, b in outputs)
+    check(index_equal and elsewhere, f"the folded association differs from icp_associate's ({where}): equal where "
+                                     f"the normal is a number {index_equal}, -1 elsewhere {elsewhere}")
+    check(same, f"the folded first launch's system, pose or flags differ from the cached-index launch's ({where})")
+    return dict(folded_index_equal=index_equal, folded_minus_one_without_normal=elsewhere, folded_system_equal=same,
+                first_iteration_ms=time_ms(lambda: project(tail=True), 200),
+                first_iteration_folded_ms=time_ms(lambda: project(tail=True, assoc_out=folded), 200),
+                cached_iteration_ms=time_ms(lambda: cached(tail=True), 200))
+
+
 def phase_icp(ctx):
     """K4 against its plain versions at the three level shapes of both
     main-path configurations, with and without the cached association (made
@@ -785,7 +847,7 @@ def phase_icp(ctx):
     intr = cfg.intrinsics
     ext = kernels.build_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    worst_err, worst_inl, worst_idx, abs_err = 0.0, 0.0, 1.0, 0.0
+    worst_err, worst_inl, worst_idx, abs_err, fold_ms = 0.0, 0.0, 1.0, 0.0, 0.0
     table, assoc_row = [], None
     for L in (0, 1):
         vprev, nprev, vcurr, ncurr, pose = _icp_inputs(ctx, L)
@@ -805,6 +867,13 @@ def phase_icp(ctx):
                                                     pose["r_prev_inv"], pose["t_prev"], lintr, prev_shape)
             idx_eq = float((index == index_plain).float().mean())
             worst_idx = min(worst_idx, idx_eq)
+            fold = _check_fold(ctx, lintr, vcurr[level], ncurr[level], vprev[level], nprev[level], pose, index,
+                               f"L={L}, level {level}")
+            emit("K4 icp_system, association folded into the first launch", model_map_level=L, level=level,
+                 curr_shape=list(vcurr[level].shape[1:]), prev_shape=list(prev_shape), **fold,
+                 index_store_ms=fold["first_iteration_folded_ms"] - fold["first_iteration_ms"])
+            if L == 1:  # the fixed setting's levels: what the fold adds to a frame there
+                fold_ms += fold["first_iteration_folded_ms"] - fold["first_iteration_ms"]
             cases = (("projected", pose, None, None), ("cached", pose, index, index_plain),
                      ("cached, moved pose", moved, index, index_plain))
             for tag, p, a_k, a_p in cases:
@@ -932,6 +1001,7 @@ def phase_icp(ctx):
     check(worst_err <= 1e-4, f"K4 disagrees with its plain version: A/b {worst_err} of a lane's largest entry")
     check(worst_inl <= 1e-3, f"K4's inlier count differs from the plain version's by {worst_inl}")
     check(worst_idx >= 0.9999, f"K4's association differs from the plain version's: equal on {worst_idx}")
+    assoc_row.update(folded_into="icp_system", fold_ms_per_frame_fixed_setting=fold_ms)
     ctx["icp_associate"] = assoc_row
     return table
 
@@ -1057,7 +1127,7 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     icp_at = [j for j, name in enumerate(names) if "icp_system_kernel" in name]
     check(len(icp_at) > 0, "the profiler saw no icp_system launch: it does not trace the card here")
     loop_names = names[icp_at[0]: icp_at[-1] + 1]
-    between = [name for name in loop_names if "icp_system_kernel" not in name and "icp_associate_kernel" not in name]
+    between = [name for name in loop_names if "icp_system_kernel" not in name]
     stages = stage_launches(prof.events(), 1)
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
@@ -1079,15 +1149,16 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     check(tuple(vmap.v.shape) == (3, cfg.depth_height >> L, cfg.depth_width >> L) and finite and valid_frac > 0.5,
           f"model maps: shape {tuple(vmap.v.shape)}, finite {finite}, valid fraction {valid_frac}")
     # every frame tracks, frame 0 too (its estimate is then set aside), so
-    # K4 runs once per ICP iteration of every frame, and the association
-    # kernel once per level where it is cached
+    # K4 runs once per ICP iteration of every frame; the association is
+    # written by each level's first K4 launch and never launched on its own;
+    # K6 makes every coarser level of the model maps in one launch a frame
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
     check(counts["bilateral_filter"] == n_frames and counts["march_fixed"] == n_frames
-          and counts["raycast_refine"] == n_frames and counts["resize_model_maps"] == (cfg.num_levels - 1) * n_frames
+          and counts["raycast_refine"] == n_frames and counts["resize_model_maps"] == n_frames
           and counts["pyr_down"] == (cfg.num_levels - 1) * n_frames
           and counts["vertex_normal_maps"] == n_frames
           and counts["fuse_volume"] == integrated and counts["icp_system"] == iterations * n_frames
-          and counts["icp_associate"] == (cfg.num_levels * n_frames if fixed_assoc else 0),
+          and counts["icp_associate"] == 0,
           f"launch counts {counts}")
     # the loop on the card: one launch per iteration and nothing else on the device between them
     check(len(icp_at) == iterations and not between,
@@ -1165,10 +1236,10 @@ def main() -> int:
               "probe path": ctx["probe_counts"]}
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],
-         **{"library_ms": None, **results[k]}}
+         **({"folded_into": FOLDED[k]} if k in FOLDED else {}), **{"library_ms": None, **results[k]}}
         for k, (src, rep, path) in KERNELS.items()
     ]
-    never = [row["name"] for row in table if row["launches"] < 1]
+    never = [row["name"] for row in table if row["launches"] < 1 and row["name"] not in FOLDED]
     if never:
         print(f"chip_smoke: kernels never launched on their path: {never}", file=sys.stderr)
         return 1

@@ -111,6 +111,27 @@ def test_se3_inverse_matmul_matvec():
     _close(jse3.matvec(jse3.rotation(ja), jse3.translation(jb)), tse3.matvec(tse3.rotation(ta), tse3.translation(tb)))
 
 
+def test_se3_inverse_corner_carries_a_derivative():
+    """The homogeneous corner of an inverse is 1 + 1e in both packages
+    (``xslam_tpu/geometry/se3.py:190``), and on frame 0, where ``c2w`` is the
+    inverse of the identity ``world2camera``, it gives ``c2v = world2volume @
+    c2w`` ``world2volume``'s translation as its translation derivative."""
+    from tests.helpers import small_config
+
+    ja = _rigid_dual(np.random.default_rng(7))
+    assert float(jse3.inverse(ja).g[3, 3]) == 1.0 and float(tse3.inverse(to_torch(ja)).g[3, 3]) == 1.0
+    w2v = np.asarray(small_config().world2volume, np.float32)
+    assert np.abs(w2v[:3, 3]).max() > 0
+    eye = np.eye(4, dtype=np.float32)
+    j_c2v = jse3.matmul(jcs.lift(jnp.asarray(w2v)), jse3.inverse(jcs.lift(jnp.asarray(eye))))
+    t_c2v = tse3.matmul(tcs.lift(torch.from_numpy(w2v)), tse3.inverse(tcs.lift(torch.from_numpy(eye))))
+    want = np.zeros((4, 4), np.float32)
+    want[:, 3] = w2v[:, 3]  # the translation, and the corner's own 1
+    np.testing.assert_array_equal(np.asarray(j_c2v.g), want)
+    np.testing.assert_array_equal(t_c2v.g.numpy(), want)
+    np.testing.assert_array_equal(t_c2v.v.numpy(), np.asarray(j_c2v.v))
+
+
 def test_se3_from_rotation_translation():
     """The pose assembled by slices is the pose its parts were cut from."""
     ta = to_torch(_rigid_dual(np.random.default_rng(6)))

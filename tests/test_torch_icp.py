@@ -143,6 +143,40 @@ def test_build_system_cached_association(icp_inputs, level, moved):
     _assert_systems_close(ts_rows, js, 0)
 
 
+def _bits(x):
+    return np.asarray(x).view(np.int32)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_cached_association_at_its_own_pose_is_the_projection(icp_inputs, level):
+    """What lets the card fold the association into a level's first ICP
+    launch: at the pose the association is made at, the system built from
+    the cached association is the system built by projecting, bit for bit, in
+    both packages (JAX run eagerly, one operation at a time, so no fusion
+    rounds the two programs apart). In the port's index form this holds also
+    with -1 stored wherever the current normal is NaN, as the folded launch
+    stores it."""
+    args, jkw, targs, tkw = _level_args(icp_inputs, level)
+    jassoc = jicp.associate(args[0], args[1], args[2], args[4], args[5], jkw["intr"], jkw["vmap_g_prev"],
+                            jkw["nmap_g_prev"])
+    j_cached, j_projected = jicp.build_system(*args, **jkw, assoc=jassoc), jicp.build_system(*args, **jkw)
+    index = ticp.associate_index_plain(targs[0], targs[1], targs[2], targs[4], targs[5], tkw["intr"],
+                                       tkw["vmap_g_prev"].v.shape[-2:])
+    folded = torch.where(torch.isnan(targs[3][0]), -1, index).to(torch.int32)
+    assert bool((folded != index).any())  # some pixel without a normal projects into the image
+    t_projected = ticp.build_system_plain(*targs, **tkw)
+    for name in ("A", "b"):
+        for lane in ("v", "g"):
+            want = _bits(getattr(getattr(j_projected, name), lane))
+            np.testing.assert_array_equal(_bits(getattr(getattr(j_cached, name), lane)), want)
+            want = _bits(getattr(getattr(t_projected, name), lane).numpy())
+            for cached in (index, folded):
+                got = getattr(getattr(ticp.build_system_plain(*targs, **tkw, assoc=cached), name), lane)
+                np.testing.assert_array_equal(_bits(got.numpy()), want)
+    assert int(j_cached.inlier_count) == int(j_projected.inlier_count) > 0
+    assert int(t_projected.inlier_count) > 0
+
+
 @pytest.mark.parametrize("level", LEVELS)
 def test_compute_optimize_matrix(icp_inputs, level):
     args, jkw, targs, tkw = _level_args(icp_inputs, level)

@@ -13,7 +13,7 @@ vertex/normal finite masks agree on >= 99.5% of pixels and values within
 entry).
 
 The wrappers of the raycast stage (K3 ``kernels.march_fixed``, K5
-``raycast_refine``, K6 ``resize_model_maps``) take the packed pose; on CPU
+``raycast_refine``, K6 ``model_map_pyramid``) take the packed pose; on CPU
 tensors each returns its plain version's result bit for bit and launches
 nothing, and their composition is held against the JAX functions at the
 pyramid's coarser levels with ``test_model_maps``' tolerances. The stop rule
@@ -41,7 +41,7 @@ from xslam_tpu.ops import raycast as jray
 from xslam_tpu_torch.csfd.single import lift as tlift
 from xslam_tpu_torch.geometry import se3 as tse3
 from xslam_tpu_torch.geometry.intrinsics import Intrinsics
-from xslam_tpu_torch.models.kinfu import _resize_nmap_dual, resize_model_maps
+from xslam_tpu_torch.models.kinfu import _resize_nmap_dual, model_map_pyramid
 from xslam_tpu_torch.ops import fusion as tfusion
 from xslam_tpu_torch.ops import kernels
 from xslam_tpu_torch.ops import preprocess as tpre
@@ -184,11 +184,14 @@ def test_raycast_wrappers_use_plain_versions_on_cpu(rendered, wrapper):
         out = tray.raycast_refine(tstate.volume, pose, *t_hit, tintr, tvc)
         pairs = [(o.v, p.v) for o, p in zip(out, plain)] + [(o.g, p.g) for o, p in zip(out, plain)]
         pairs += [(o.v, m.v) for o, m in zip(out, t_maps)]  # and raycast() is the composition
-    else:
-        vmap, nmap = resize_model_maps(*t_maps)
-        plain_n = _resize_nmap_dual(t_maps[1])
-        pairs = [(vmap.v, tpre.resize_vmap(t_maps[0].v)), (vmap.g, tpre.resize_vmap(t_maps[0].g)),
-                 (nmap.v, plain_n.v), (nmap.g, plain_n.g)]
+    else:  # K6, whose launch count keeps the name of its first, one-level design
+        vmaps, nmaps = model_map_pyramid(*t_maps, 3)
+        assert vmaps[0] is t_maps[0] and nmaps[0] is t_maps[1]
+        pairs, v, n = [], t_maps[0], t_maps[1]
+        for level in (1, 2):
+            v = type(v)(tpre.resize_vmap(v.v), tpre.resize_vmap(v.g))
+            n = _resize_nmap_dual(n)
+            pairs += [(vmaps[level].v, v.v), (vmaps[level].g, v.g), (nmaps[level].v, n.v), (nmaps[level].g, n.g)]
     for got, want in pairs:
         assert _bits_equal(got, want)
     assert kernels.launch_counts == before  # CPU tensors launch nothing
@@ -197,16 +200,18 @@ def test_raycast_wrappers_use_plain_versions_on_cpu(rendered, wrapper):
 @pytest.mark.parametrize("level", [1, 2])
 @pytest.mark.parametrize("which", ["vmap", "nmap"])
 def test_model_map_pyramid(rendered, which, level):
-    """The composed stage, K3 wrapper -> K5 wrapper -> K6 wrapper, against the
-    JAX raycast and its pyramid (``resize_vmap`` on both lanes,
-    ``_resize_nmap_dual``), with ``test_model_maps``' tolerances."""
+    """The composed stage, K3 wrapper -> K5 wrapper -> K6 wrapper (all
+    levels at once), against the JAX raycast and its pyramid (``resize_vmap``
+    on both lanes, ``_resize_nmap_dual``), with ``test_model_maps``'
+    tolerances."""
     j_maps, tstate = rendered[2][2], rendered[1]
     _, pose, tintr, tvc, _ = rendered[4]
     t_found, t_dead = kernels.march_fixed(tstate.volume.value, pose, tintr, tvc.voxel_size, tvc.trunc_dist)
     tv, tn = tray.raycast_refine(tstate.volume, pose, t_found, t_dead, tintr, tvc)
     jv, jn = j_maps
+    tvmaps, tnmaps = model_map_pyramid(tv, tn, level + 1)
+    tv, tn = tvmaps[level], tnmaps[level]
     for _ in range(level):
-        tv, tn = resize_model_maps(tv, tn)
         jv = type(jv)(jpre.resize_vmap(jv.v), jpre.resize_vmap(jv.g))
         jn = j_resize_nmap_dual(jn)
     t, j = (tv, jv) if which == "vmap" else (tn, jn)

@@ -25,13 +25,13 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
                                  void* stream);
-extern "C" int xs_resize_model_maps(const void* vv, const void* vg, const void* nv, const void* ng, void* out_vv,
-                                    void* out_vg, void* out_nv, void* out_ng, int H, int W, void* stream);
+extern "C" int xs_model_map_pyramid(const void* const* in, void* out, const long long* offsets, int levels, int H,
+                                    int W, void* stream);
 extern "C" int xs_pyr_down(const void* src, void* dst, int H, int W, void* stream);
 extern "C" int xs_vertex_normal_maps(const void* const* depths, const int* H, const int* W, void* out,
                                      const long long* offsets, const float* cams, int levels, void* stream);
 extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
-                             const void* pose, void* partials, void* ticket, int blocks, void* out,
+                             void* assoc_out, const void* pose, void* partials, void* ticket, int blocks, void* out,
                              void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
                              int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy,
                              float dist_thres, float angle_thres, void* stream);
@@ -98,12 +98,15 @@ int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const 
                            as_stream(stream));
 }
 
-// the (3, H, W) maps of one level in, the (3, H/2, W/2) maps of the next out
-int resize_model_maps(const torch::Tensor& vv, const torch::Tensor& vg, const torch::Tensor& nv,
-                      const torch::Tensor& ng, torch::Tensor out_vv, torch::Tensor out_vg, torch::Tensor out_nv,
-                      torch::Tensor out_ng, int64_t stream) {
-  return xs_resize_model_maps(vv.data_ptr(), vg.data_ptr(), nv.data_ptr(), ng.data_ptr(), out_vv.data_ptr(),
-                              out_vg.data_ptr(), out_nv.data_ptr(), out_ng.data_ptr(), vv.size(1), vv.size(2),
+// level 0's maps in (v.v, v.g, n.v, n.g, each (3, H, W)); out: the buffer of the coarser levels' maps;
+// offsets: four a coarser level, in floats
+int model_map_pyramid(const torch::Tensor& vv, const torch::Tensor& vg, const torch::Tensor& nv,
+                      const torch::Tensor& ng, torch::Tensor out, const std::vector<int64_t>& offsets, int64_t levels,
+                      int64_t stream) {
+  if ((int64_t)offsets.size() != 4 * (levels - 1)) return 1;  // cudaErrorInvalidValue
+  const void* in[4] = {vv.data_ptr(), vg.data_ptr(), nv.data_ptr(), ng.data_ptr()};
+  const std::vector<long long> offs(offsets.begin(), offsets.end());
+  return xs_model_map_pyramid(in, out.data_ptr(), offs.data(), (int)levels, vv.size(1), vv.size(2),
                               as_stream(stream));
 }
 
@@ -130,15 +133,18 @@ int vertex_normal_maps(const std::vector<torch::Tensor>& depths, torch::Tensor o
                                (int)levels, as_stream(stream));
 }
 
-// assoc: the cached int32 index map, or None to project in the kernel.
+// assoc: the cached int32 index map, or None to project in the kernel; assoc_out: where a projecting launch
+// writes the index map it makes, or None.
 // pose_out, x_out, flags: the tail's outputs, or None to stop after A and b.
 int icp_system(const torch::Tensor& vcurr, const torch::Tensor& ncurr, const torch::Tensor& rows,
-               const std::optional<torch::Tensor>& assoc, const torch::Tensor& pose, torch::Tensor partials,
+               const std::optional<torch::Tensor>& assoc, const std::optional<torch::Tensor>& assoc_out,
+               const torch::Tensor& pose, torch::Tensor partials,
                torch::Tensor ticket, int64_t blocks, torch::Tensor out, torch::Tensor inliers,
                const std::optional<torch::Tensor>& pose_out, const std::optional<torch::Tensor>& x_out,
                const std::optional<torch::Tensor>& flags, float damping, bool first, int64_t Hp, int64_t Wp,
                float fx, float fy, float cx, float cy, float dist_thres, float angle_thres, int64_t stream) {
-  return xs_icp_system(vcurr.data_ptr(), ncurr.data_ptr(), rows.data_ptr(), data_or_null(assoc), pose.data_ptr(),
+  return xs_icp_system(vcurr.data_ptr(), ncurr.data_ptr(), rows.data_ptr(), data_or_null(assoc),
+                       data_or_null(assoc_out), pose.data_ptr(),
                        partials.data_ptr(), ticket.data_ptr(), blocks, out.data_ptr(), inliers.data_ptr(),
                        data_or_null(pose_out), data_or_null(x_out), data_or_null(flags), damping, first ? 1 : 0,
                        vcurr.size(1), vcurr.size(2), Hp, Wp, fx, fy, cx, cy, dist_thres, angle_thres,
@@ -182,7 +188,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("raycast_refine", &raycast_refine);
-  m.def("resize_model_maps", &resize_model_maps);
+  m.def("model_map_pyramid", &model_map_pyramid);
   m.def("pyr_down", &pyr_down);
   m.def("vertex_normal_maps", &vertex_normal_maps);
   m.def("icp_system", &icp_system);

@@ -23,13 +23,20 @@
 //   It writes the next launch's 36 pose floats, x, the step's flag and the
 //   frame's flag, so a frame's ICP loop is one launch per iteration with no
 //   other device work between them.
-// - xs_icp_associate: the projection alone, written as an int32 (H, W) map of
-//   the flat target index, -1 where the pixel is not in the image. Caching the
-//   index is equivalent to caching the 12 gathered floats, because a row is
-//   valid only where the pixel is in the image.
+//   A projecting launch may also be given an index map to write (assoc_out):
+//   each pixel with a current normal stores the flat index it projected to,
+//   -1 where the pixel is not in the image, and each pixel without one stores
+//   -1 (no launch reads it: such a pixel leaves at its first gate). Caching
+//   the index is equivalent to caching the 12 gathered floats, because a row
+//   is valid only where the pixel is in the image. So with icp_fixed_assoc
+//   the first launch of a level, which starts from the pose the association
+//   is made at, makes the cache, and the level's later launches read it.
+// - xs_icp_associate: the projection alone, written as the same index map
+//   (also at pixels without a normal). The engine no longer launches it: it
+//   is the reference the folded index is held against (chip_smoke.py).
 //
 // Bound on the H100: bytes. 72 B per pixel (24 B of current maps, a 48 B row
-// of the model, 4 B more where the index is cached) against, per pixel with
+// of the model, 4 B more where the index is cached or written) against, per pixel with
 // a current normal, 36 operations to move the vertex and 31 to project it;
 // 10 for the distance gate of a pixel that fetched a target; 31 for the angle
 // gate; and some 180 for an inlier's dual row, nan_to_num and 54 sums. What
@@ -151,15 +158,21 @@ __global__ void icp_associate_kernel(const float* __restrict__ vcurr, const floa
 // doubles: J.v (6), r.v, J.g (6), r.g, after nan_to_num. The lane that built
 // the row converts it, once, so the lanes that add it do not (conversions to
 // double are the card's slowest arithmetic: 16 a clock on an SM).
+// Where the launch caches the association, assoc_out[p] gets the pixel's index.
 __device__ __forceinline__ bool pixel_row(int p, const float* __restrict__ vcurr, const float* __restrict__ ncurr,
                                           const float4* __restrict__ rows, const int* __restrict__ assoc,
-                                          const float* __restrict__ pose, const Geom& g, double* row) {
+                                          int* __restrict__ assoc_out, const float* __restrict__ pose,
+                                          const Geom& g, double* row) {
   const float nc0 = ncurr[p];
-  if (isnan(nc0)) return false;
+  if (isnan(nc0)) {
+    if (assoc_out != nullptr) assoc_out[p] = -1;
+    return false;
+  }
   const float v[3] = {vcurr[p], vcurr[g.n_curr + p], vcurr[2 * g.n_curr + p]};
   float sv[3], sg[3];
   world_vertex(pose, v, sv, sg);
   const int idx = assoc != nullptr ? assoc[p] : project(pose, sv, g);
+  if (assoc_out != nullptr) assoc_out[p] = idx;
   if (idx < 0) return false;
 
   // the model's row: v.v (3), v.g (3), n.v (3), n.g (3)
@@ -399,7 +412,7 @@ __device__ void icp_tail(const double* totals, const float* __restrict__ pose, c
 
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 icp_system_kernel(const float* __restrict__ vcurr, const float* __restrict__ ncurr,
-                  const float4* __restrict__ rows, const int* __restrict__ assoc,
+                  const float4* __restrict__ rows, const int* __restrict__ assoc, int* __restrict__ assoc_out,
                   const float* __restrict__ pose, double* partials, unsigned int* ticket,
                   float* __restrict__ out, int* __restrict__ inliers, Tail tail, Geom g) {
   __shared__ double pixel_rows[WARPS][32 * ROW_STRIDE];
@@ -428,7 +441,8 @@ icp_system_kernel(const float* __restrict__ vcurr, const float* __restrict__ ncu
   double* my_rows = pixel_rows[warp];
   for (int base = (blockIdx.x * WARPS + warp) * 32; base < g.n_curr; base += gridDim.x * BLOCK) {
     const int p = base + lane;
-    const bool inlier = p < g.n_curr && pixel_row(p, vcurr, ncurr, rows, assoc, pose, g, my_rows + lane * ROW_STRIDE);
+    const bool inlier = p < g.n_curr && pixel_row(p, vcurr, ncurr, rows, assoc, assoc_out, pose, g,
+                                                         my_rows + lane * ROW_STRIDE);
     const unsigned int mask = __ballot_sync(0xffffffffu, inlier);
     if (mask == 0u) continue;
     __syncwarp();
@@ -507,21 +521,21 @@ Geom make_geom(int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, flo
 // rows: the model's packed rows, (Hp * Wp, 12) float32, 16-byte aligned.
 // partials: room for blocks * 55 doubles; ticket: one zeroed unsigned int
 // that the kernel leaves zeroed. pose_out (which must not be pose), x_out and
-// flags are given together or not at all. All scratch belongs to one stream
-// at a time.
+// flags are given together or not at all. assoc_out, an int32 (Hc, Wc) map,
+// only where assoc is not given. All scratch belongs to one stream at a time.
 extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
-                             const void* pose, void* partials, void* ticket, int blocks, void* out,
+                             void* assoc_out, const void* pose, void* partials, void* ticket, int blocks, void* out,
                              void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
                              int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy,
                              float dist_thres, float angle_thres, void* stream) {
   const Geom g = make_geom(Hc, Wc, Hp, Wp, fx, fy, cx, cy, dist_thres, angle_thres);
-  if (blocks < 1 || pose_out == pose) return (int)cudaErrorInvalidValue;
+  if (blocks < 1 || pose_out == pose || (assoc != nullptr && assoc_out != nullptr)) return (int)cudaErrorInvalidValue;
   if ((pose_out == nullptr) != (x_out == nullptr) || (pose_out == nullptr) != (flags == nullptr))
     return (int)cudaErrorInvalidValue;
   const Tail tail{(float*)pose_out, (float*)x_out, (int*)flags, damping, first};
   icp_system_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)vcurr, (const float*)ncurr, (const float4*)rows, (const int*)assoc, (const float*)pose,
-      (double*)partials, (unsigned int*)ticket, (float*)out, (int*)inliers, tail, g);
+      (const float*)vcurr, (const float*)ncurr, (const float4*)rows, (const int*)assoc, (int*)assoc_out,
+      (const float*)pose, (double*)partials, (unsigned int*)ticket, (float*)out, (int*)inliers, tail, g);
   return (int)cudaGetLastError();
 }
 

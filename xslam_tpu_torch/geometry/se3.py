@@ -74,7 +74,11 @@ def euler_xyz_increment(alpha, beta, gamma, tx, ty, tz) -> CSFD:
 
 
 def inverse(T: CSFD) -> CSFD:
-    """Inverse of a dual SE(3) matrix: ``[R^T, -R^T t]``."""
+    """Inverse of a dual SE(3) matrix: ``[R^T, -R^T t]``. As in the JAX
+    package, the homogeneous corner is ``1 + 1ε``, not ``1 + 0ε``: its
+    derivative lane reads 1 there, so a ``matmul`` whose right operand is an
+    inverse adds the left operand's translation value to the product's
+    translation derivative (no value changes)."""
     rows = []
     for i in range(3):
         r = [elem(T, j, i) for j in range(3)]

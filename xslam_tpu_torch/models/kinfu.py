@@ -14,7 +14,8 @@ association computed every iteration or once per level
    K4, with no other device work between the launches;
 3. TSDF fusion (kernel K2, in place) when the frame aligned;
 4. raycast of the model maps (the poses packed once, march kernel K3,
-   refine kernel K5) and their pyramid (K6, one launch a level).
+   refine kernel K5) and their pyramid (K6, one launch for all coarser
+   levels).
 
 On CPU tensors every wrapper runs its plain PyTorch version instead.
 
@@ -151,11 +152,12 @@ def _pose_estimate(state: SlamState, vmaps_curr, nmaps_curr, config: SlamConfig,
     KinectFusionReconstruction.cpp:177-235). Returns (c2w_new, ok, inliers).
 
     On the card the loop is :class:`icp.IcpLoop`: the pose and the model's
-    rows are packed once, then every iteration is one launch of kernel K4
-    (and every level's cached association one more), with nothing between
-    them; the pose, the flag and the inlier count are unpacked after the
-    loop. On the CPU each iteration is K4's plain version,
-    ``build_system_plain`` and ``icp_step_plain``."""
+    rows are packed once, then every iteration is one launch of kernel K4,
+    with nothing between them (with the cached association a level's first
+    launch writes the index map as well); the pose, the flag and the inlier
+    count are unpacked after the loop. On the CPU each iteration is K4's
+    plain version, ``build_system_plain`` and ``icp_step_plain``, and the
+    cached association is ``icp.associate_index``'s plain version."""
     c2w_prev = se3.inverse(state.world2camera)
     r_prev = se3.rotation(c2w_prev)
     t_prev = se3.translation(c2w_prev)
@@ -194,13 +196,19 @@ def _pose_estimate(state: SlamState, vmaps_curr, nmaps_curr, config: SlamConfig,
         loop = icp.IcpLoop(icp.pack_pose(r_prev, t_prev, r_prev_inv, t_prev))
         for level, model_intr, prev_shape in levels:
             level_assoc = None
-            if config.icp_fixed_assoc:
-                level_assoc = loop.associate(vmaps_curr[level], model_intr, prev_shape)
-            for _ in range(config.icp_iterations[level]):
+            for i in range(config.icp_iterations[level]):
+                # the cached association: the level's first launch starts from the pose it is made at, so it
+                # writes the index map as it projects, and the later launches read it
+                assoc_out = None
+                if config.icp_fixed_assoc and i == 0:
+                    assoc_out = torch.empty(vmaps_curr[level].shape[1:], dtype=torch.int32, device=r_prev.v.device)
                 loop.iterate(
                     vmaps_curr[level], nmaps_curr[level], rows[level], prev_shape, model_intr,
                     config.dist_thres, config.angle_thres_sine, config.icp_damping, assoc=level_assoc,
+                    assoc_out=assoc_out,
                 )
+                if assoc_out is not None:
+                    level_assoc = assoc_out
         step = loop.result()
         r_curr, t_curr, ok, inliers = step.r_curr, step.t_curr, step.ok, step.system.inlier_count
     return se3.from_rotation_translation(r_curr, t_curr), ok, inliers
@@ -217,6 +225,13 @@ def process_frame(
     world2volume: CSFD,
     volume2world: CSFD,
 ) -> Tuple[SlamState, FrameResult]:
+    """One frame of the engine (:meth:`XSlamEngine.process_frame` with its
+    constants passed in): preprocess, ICP, fusion, raycast and the model-map
+    pyramid. Where it tracks (not ``use_gt_pose``), on frame 0 and on every
+    rejected frame ``c2w`` is ``se3.inverse(state.world2camera)``, whose
+    homogeneous corner carries a derivative of 1 (:func:`se3.inverse`), so
+    ``c2v = world2volume @ c2w`` then has ``world2volume``'s translation as
+    its translation derivative, as in the JAX package."""
     levels = config.num_levels
     dev = depth_u16.device
 
@@ -278,18 +293,13 @@ def process_frame(
             intr.level(config.model_map_level), vol_cfg, normals_mode=config.raycast_normals, march_mode=config.raycast_march,
             packed_taps=config.raycast_packed_taps,
         )
-        vmaps_prev = [vmap0]
-        nmaps_prev = [nmap0]
-        for _ in range(1, levels):
-            vmap, nmap = resize_model_maps(vmaps_prev[-1], nmaps_prev[-1])
-            vmaps_prev.append(vmap)
-            nmaps_prev.append(nmap)
+        vmaps_prev, nmaps_prev = model_map_pyramid(vmap0, nmap0, levels)
 
     new_state = SlamState(
         volume=volume,
         world2camera=w2c,
-        vmaps_prev=tuple(vmaps_prev),
-        nmaps_prev=tuple(nmaps_prev),
+        vmaps_prev=vmaps_prev,
+        nmaps_prev=nmaps_prev,
         frame_idx=state.frame_idx + config.frame_step,
         last_align_ok=align_ok,
         t_prev=state.t_prev,
@@ -300,23 +310,51 @@ def process_frame(
     )
 
 
-def resize_model_maps(vmap: CSFD, nmap: CSFD) -> Tuple[CSFD, CSFD]:
-    """Kernel K6 (``csrc/maps.cu``): the next coarser level of the model-map
-    pyramid, both maps and both lanes in one launch. On CPU tensors its plain
-    version: ``preprocess.resize_vmap`` of the vertex map's value and
-    derivative, :func:`_resize_nmap_dual` of the normal map."""
-    maps = (vmap.v, vmap.g, nmap.v, nmap.g)
+def model_map_pyramid(vmap0: CSFD, nmap0: CSFD, levels: int) -> Tuple[Tuple[CSFD, ...], Tuple[CSFD, ...]]:
+    """Kernel K6 (``csrc/maps.cu``): the model-map pyramid of ``levels``
+    levels over level 0's dual (3, H, W) maps ``vmap0``, ``nmap0``, each
+    coarser level the 2x2 mean of the one before: ``(vmaps, nmaps)``, one
+    dual map a level, level 0 the maps given. On CPU tensors its plain
+    version, :func:`resize_model_maps` level after level. On the card, ONE
+    launch for every coarser level, at most ``kernels.MAX_MAP_LEVELS`` levels
+    in all; their maps are views of one buffer (``kernels.map_pyramid_views``
+    with four maps a level: v.v, v.g, n.v, n.g), and level 0 stays the
+    tensors given."""
+    maps = (vmap0.v, vmap0.g, nmap0.v, nmap0.g)
+    if levels < 1:
+        raise ValueError(f"levels: expected at least 1, got {levels}")
     if kernels.on_cpu(*maps):
-        return CSFD(preprocess.resize_vmap(vmap.v), preprocess.resize_vmap(vmap.g)), _resize_nmap_dual(nmap)
-    if vmap.v.dim() != 3 or vmap.v.shape[0] != 3:
-        raise ValueError(f"vmap: expected (3, H, W), got {tuple(vmap.v.shape)}")
+        vmaps, nmaps = [vmap0], [nmap0]
+        for _ in range(1, levels):
+            vmap, nmap = resize_model_maps(vmaps[-1], nmaps[-1])
+            vmaps.append(vmap)
+            nmaps.append(nmap)
+        return tuple(vmaps), tuple(nmaps)
+    if levels > kernels.MAX_MAP_LEVELS:
+        raise ValueError(f"K6 takes at most {kernels.MAX_MAP_LEVELS} levels, got {levels}")
+    if vmap0.v.dim() != 3 or vmap0.v.shape[0] != 3:
+        raise ValueError(f"vmap: expected (3, H, W), got {tuple(vmap0.v.shape)}")
     for t, name in zip(maps, ("vmap.v", "vmap.g", "nmap.v", "nmap.g")):
-        kernels.check_tensor(t, name, torch.float32, vmap.v.shape)
-    H, W = vmap.v.shape[-2:]
-    out = [torch.empty((3, H // 2, W // 2), dtype=torch.float32, device=vmap.v.device) for _ in range(4)]
-    kernels.launch("resize_model_maps", vmap.v.device, *maps, *out)
+        kernels.check_tensor(t, name, torch.float32, vmap0.v.shape)
+    if levels == 1:
+        return (vmap0,), (nmap0,)
+    H, W = vmap0.v.shape[-2:]
+    shapes = [(H >> level, W >> level) for level in range(1, levels)]
+    if min(min(shape) for shape in shapes) < 1:
+        raise ValueError(f"maps of {H}x{W} have no level {levels - 1}")
+    offsets, size = kernels.map_pyramid_layout(shapes, 4)
+    buffer = torch.empty(size, dtype=torch.float32, device=vmap0.v.device)
+    kernels.launch("model_map_pyramid", vmap0.v.device, *maps, buffer, [o for level in offsets for o in level], levels)
     kernels.launch_counts["resize_model_maps"] += 1
-    return CSFD(out[0], out[1]), CSFD(out[2], out[3])
+    vv, vg, nv, ng = kernels.map_pyramid_views(buffer, shapes, 4)
+    return (vmap0,) + tuple(map(CSFD, vv, vg)), (nmap0,) + tuple(map(CSFD, nv, ng))
+
+
+def resize_model_maps(vmap: CSFD, nmap: CSFD) -> Tuple[CSFD, CSFD]:
+    """One level of K6's plain version, on any device: the next coarser
+    level of both maps, ``preprocess.resize_vmap`` of the vertex map's value
+    and derivative and :func:`_resize_nmap_dual` of the normal map."""
+    return CSFD(preprocess.resize_vmap(vmap.v), preprocess.resize_vmap(vmap.g)), _resize_nmap_dual(nmap)
 
 
 def _resize_nmap_dual(n: CSFD) -> CSFD:

@@ -26,7 +26,11 @@ map of the flat index of each pixel's target in the previous model, −1 where
 the pixel does not project into the image. That is equivalent to the JAX
 package's cache of the 12 gathered floats (:class:`Association`), because a
 row is valid only where the pixel is in the image; :func:`build_system_plain`
-takes either form.
+takes either form. On the card the engine does not launch the association
+on its own: the level's first ``icp_system`` launch, which runs at the pose
+the association is made at and projects every pixel anyway, writes the map
+(``IcpLoop.iterate(..., assoc_out=)``; −1 also where the current normal is
+NaN, a pixel no iteration adds), and the level's later launches read it.
 
 Nothing here reads a value back to the host, so the ICP loop queues on the
 device without a sync; the per-step ``ok`` flags stay device booleans.
@@ -192,7 +196,9 @@ def _check_maps(vmap_curr, maps, names):
 def associate_index(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr: Intrinsics, prev_shape) -> torch.Tensor:
     """The cached association of one pyramid level (``icp_fixed_assoc``):
     kernel K4's ``icp_associate`` entry point on CUDA tensors, its plain
-    version on CPU tensors."""
+    version on CPU tensors. The engine calls it on the CPU only; on the card
+    the level's first ICP launch writes the same map (:class:`IcpLoop`), and
+    this entry point is the reference it is held against."""
     if kernels.on_cpu(vmap_curr, r_curr.v, t_curr.v, r_prev_inv.v, t_prev.v):
         return associate_index_plain(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr, prev_shape)
     return _launch_associate(pack_pose(r_curr, t_curr, r_prev_inv, t_prev), vmap_curr, intr, prev_shape)
@@ -240,10 +246,11 @@ def _icp_scratch(device: torch.device) -> _Scratch:
 
 
 def _launch_system(scratch, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, pose, out, inliers, intr,
-                   dist_thres, angle_thres, tail=None, damping=0.0, first=False) -> None:
+                   dist_thres, angle_thres, tail=None, damping=0.0, first=False, assoc_out=None) -> None:
     """Check the tensors and launch ``icp_system`` once. ``tail`` is ``None``
-    or ``(pose_out, x_out, flags)``. Nothing here runs on the device but the
-    kernel."""
+    or ``(pose_out, x_out, flags)``; ``assoc_out``, where ``assoc`` is
+    ``None``, the int32 (H, W) map the launch writes its association into.
+    Nothing here runs on the device but the kernel."""
     _check_maps(vmap_curr, (vmap_curr, nmap_curr), ("vmap_curr", "nmap_curr"))
     if nmap_curr.shape != vmap_curr.shape:
         raise ValueError("the current maps must share one shape")
@@ -254,9 +261,14 @@ def _launch_system(scratch, vmap_curr, nmap_curr, model_rows, prev_shape, assoc,
         if not isinstance(assoc, torch.Tensor):
             raise TypeError("on CUDA the cached association is the int32 index map of associate_index")
         kernels.check_tensor(assoc, "assoc", torch.int32, vmap_curr.shape[1:])
-    kernels.on_cpu(vmap_curr, nmap_curr, model_rows, pose, *(() if assoc is None else (assoc,)))  # one CUDA device
+    if assoc_out is not None:
+        if assoc is not None:
+            raise ValueError("a launch that reads a cached association writes none")
+        kernels.check_tensor(assoc_out, "assoc_out", torch.int32, vmap_curr.shape[1:])
+    cached = tuple(a for a in (assoc, assoc_out) if a is not None)
+    kernels.on_cpu(vmap_curr, nmap_curr, model_rows, pose, *cached)  # one CUDA device
     kernels.launch(
-        "icp_system", vmap_curr.device, vmap_curr, nmap_curr, model_rows, assoc, pose, scratch.partials,
+        "icp_system", vmap_curr.device, vmap_curr, nmap_curr, model_rows, assoc, assoc_out, pose, scratch.partials,
         scratch.ticket, icp_blocks(vmap_curr[0].numel()), out, inliers, *(tail or (None, None, None)),
         kernels.f32(damping), bool(first), H, W,
         kernels.f32(intr.fx), kernels.f32(intr.fy), kernels.f32(intr.cx), kernels.f32(intr.cy),
@@ -318,10 +330,11 @@ class IcpLoop:
     """One frame's ICP loop on the card. The pose lives in K4's scratch:
     every :meth:`iterate` is exactly one ``icp_system`` launch with its tail,
     which reads the pose from one buffer and writes the next pose into the
-    other, and every :meth:`associate` one ``icp_associate`` launch on the
-    current buffer. Nothing else runs on the device between them, and
-    nothing is read back. :meth:`result` copies the outcome out of the
-    scratch, which the next loop on this device and stream reuses."""
+    other; with the cached association a level's first launch also writes
+    the index map its later launches read. Nothing else runs on the device
+    between them, and nothing is read back. :meth:`result` copies the
+    outcome out of the scratch, which the next loop on this device and
+    stream reuses."""
 
     def __init__(self, pose: torch.Tensor):
         """``pose``: the 36 floats of :func:`pack_pose` on a CUDA device."""
@@ -332,16 +345,18 @@ class IcpLoop:
         self._cur = 0
         self._first = True
 
-    def associate(self, vmap_curr: torch.Tensor, intr: Intrinsics, prev_shape) -> torch.Tensor:
-        return _launch_associate(self._scratch.pose[self._cur], vmap_curr, intr, prev_shape)
-
     def iterate(self, vmap_curr, nmap_curr, model_rows, prev_shape, intr: Intrinsics, dist_thres: float,
-                angle_thres: float, damping: float = 0.0, assoc=None) -> None:
+                angle_thres: float, damping: float = 0.0, assoc=None, assoc_out=None) -> None:
+        """One iteration: ``assoc`` is the cached index map to read, or
+        ``None`` to project; ``assoc_out`` (int32, the current maps' (H, W)),
+        given only with ``assoc=None``, receives the index map this launch
+        makes at the pose it starts from: :func:`associate_index`'s map
+        wherever the current normal is a number, −1 elsewhere."""
         s = self._scratch
         _launch_system(
             s, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, s.pose[self._cur], s.out, s.inliers, intr,
             dist_thres, angle_thres, tail=(s.pose[1 - self._cur], s.x, s.flags), damping=damping,
-            first=self._first,
+            first=self._first, assoc_out=assoc_out,
         )
         self._cur = 1 - self._cur
         self._first = False

@@ -74,7 +74,7 @@ RAY_MAX_M = 5.0
 INF_T = 1e9
 RAY_POSE_FLOATS = 48
 BILATERAL_TABLE_FLOATS = 27 * 448  # K1's weight table (csrc/bilateral.cu)
-MAX_MAP_LEVELS = 3  # K8's levels in one launch (csrc/maps.cu); the ICP runs at most 3
+MAX_MAP_LEVELS = 3  # K6's and K8's levels in one launch (csrc/maps.cu); the ICP runs at most 3
 
 launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
@@ -195,28 +195,32 @@ def pyr_down(depth: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def map_pyramid_layout(shapes) -> Tuple[list, int]:
-    """Where K8 writes each level's maps in its one buffer: ``([(vertex
-    offset, normal offset), ...], size)`` in float32 elements, for levels of
-    ``shapes`` ``[(H, W), ...]``: level by level, the vertex map then the
-    normal map, each (3, H, W) contiguous."""
+def map_pyramid_layout(shapes, maps: int = 2) -> Tuple[list, int]:
+    """Where a kernel writes each level's maps in its one buffer: ``([(offset
+    of map 0, ..., offset of map maps - 1), ...], size)`` in float32
+    elements, for levels of ``shapes`` ``[(H, W), ...]``: level by level, the
+    ``maps`` maps one after the other, each (3, H, W) contiguous. K8 writes
+    two a level (vertex, normal), K6 four (:func:`~xslam_tpu_torch.models.
+    kinfu.model_map_pyramid`: v.v, v.g, n.v, n.g)."""
     offsets, at = [], 0
     for H, W in shapes:
         n = 3 * H * W
-        offsets.append((at, at + n))
-        at += 2 * n
+        offsets.append(tuple(at + m * n for m in range(maps)))
+        at += maps * n
     return offsets, at
 
 
-def map_pyramid_views(buffer: torch.Tensor, shapes):
-    """The (3, H, W) vertex and normal maps of each level as views of
-    ``buffer``, at :func:`map_pyramid_layout`'s offsets."""
-    offsets, size = map_pyramid_layout(shapes)
+def map_pyramid_views(buffer: torch.Tensor, shapes, maps: int = 2):
+    """The (3, H, W) maps of each level as views of ``buffer``, at
+    :func:`map_pyramid_layout`'s offsets: ``maps`` tuples, the i-th holding
+    map i of every level."""
+    offsets, size = map_pyramid_layout(shapes, maps)
     if buffer.numel() != size:
         raise ValueError(f"buffer: expected {size} elements, got {buffer.numel()}")
-    vmaps = tuple(buffer[v:v + 3 * H * W].view(3, H, W) for (v, _), (H, W) in zip(offsets, shapes))
-    nmaps = tuple(buffer[n:n + 3 * H * W].view(3, H, W) for (_, n), (H, W) in zip(offsets, shapes))
-    return vmaps, nmaps
+    return tuple(
+        tuple(buffer[level[m]:level[m] + 3 * H * W].view(3, H, W) for level, (H, W) in zip(offsets, shapes))
+        for m in range(maps)
+    )
 
 
 def vertex_normal_pyramid(intr_levels, depths):

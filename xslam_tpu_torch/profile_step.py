@@ -42,7 +42,7 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
-    "raycast_refine": "refine_kernel", "resize_model_maps": "resize_model_maps_kernel",
+    "raycast_refine": "refine_kernel", "resize_model_maps": "model_map_pyramid_kernel",
     "pyr_down": "pyr_down_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
 }
 
