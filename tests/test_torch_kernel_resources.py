@@ -21,6 +21,10 @@ ptxas info    : Compiling entry function 'icp_system_kernel' for 'sm_90a'
 ptxas info    : Function properties for icp_system_kernel
     184 bytes stack frame, 208 bytes spill stores, 300 bytes spill loads
 ptxas info    : Used 48 registers, used 1 barriers, 184 bytes cumulative stack size, 36729 bytes smem
+ptxas info    : Compiling entry function 'model_map_pyramid_kernel<true>' for 'sm_90a'
+ptxas info    : Function properties for model_map_pyramid_kernel<true>
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 496 bytes cmem[0]
 """
 
 
@@ -30,6 +34,9 @@ def test_parse_ptxas_reads_registers_and_spills():
                                       shared_bytes=0)
     assert out["icp_system_kernel"] == dict(stack_bytes=184, spill_store_bytes=208, spill_load_bytes=300,
                                             registers=48, shared_bytes=36729)
+    assert out["model_map_pyramid_kernel<true>"] == dict(stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+                                                         registers=64, shared_bytes=0)
+    assert BLOCK_THREADS["model_map_pyramid_kernel<true>".split("<")[0]] == 32
 
 
 def test_parse_ptxas_of_nothing_is_empty():

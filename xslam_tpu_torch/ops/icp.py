@@ -197,16 +197,14 @@ def associate_index(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr: Intrins
     """The cached association of one pyramid level (``icp_fixed_assoc``):
     kernel K4's ``icp_associate`` entry point on CUDA tensors, its plain
     version on CPU tensors. The engine calls it on the CPU only; on the card
-    the level's first ICP launch writes the same map (:class:`IcpLoop`), and
-    this entry point is the reference it is held against."""
+    the level's first ICP launch writes the same map wherever the current
+    normal is a number (:class:`IcpLoop`), and this entry point is the
+    reference it is held against."""
     if kernels.on_cpu(vmap_curr, r_curr.v, t_curr.v, r_prev_inv.v, t_prev.v):
         return associate_index_plain(r_curr, t_curr, vmap_curr, r_prev_inv, t_prev, intr, prev_shape)
-    return _launch_associate(pack_pose(r_curr, t_curr, r_prev_inv, t_prev), vmap_curr, intr, prev_shape)
-
-
-def _launch_associate(pose: torch.Tensor, vmap_curr: torch.Tensor, intr: Intrinsics, prev_shape) -> torch.Tensor:
     _check_maps(vmap_curr, (vmap_curr,), ("vmap_curr",))
     H, W = prev_shape
+    pose = pack_pose(r_curr, t_curr, r_prev_inv, t_prev)
     index = torch.empty(vmap_curr.shape[1:], dtype=torch.int32, device=vmap_curr.device)
     kernels.launch(
         "icp_associate", vmap_curr.device, vmap_curr, pose, index, int(H), int(W),
