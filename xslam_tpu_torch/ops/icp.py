@@ -263,8 +263,8 @@ def _launch_system(scratch, vmap_curr, nmap_curr, model_rows, prev_shape, assoc,
         if assoc is not None:
             raise ValueError("a launch that reads a cached association writes none")
         kernels.check_tensor(assoc_out, "assoc_out", torch.int32, vmap_curr.shape[1:])
-    cached = tuple(a for a in (assoc, assoc_out) if a is not None)
-    kernels.on_cpu(vmap_curr, nmap_curr, model_rows, pose, *cached)  # one CUDA device
+    index_maps = tuple(a for a in (assoc, assoc_out) if a is not None)
+    kernels.on_cpu(vmap_curr, nmap_curr, model_rows, pose, *index_maps)  # one CUDA device
     kernels.launch(
         "icp_system", vmap_curr.device, vmap_curr, nmap_curr, model_rows, assoc, assoc_out, pose, scratch.partials,
         scratch.ticket, icp_blocks(vmap_curr[0].numel()), out, inliers, *(tail or (None, None, None)),
