@@ -24,20 +24,28 @@ Phases, in order:
    with normals) on that volume at the shapes of ``model_map_level`` 0 and
    1, K6 (the model-map pyramid, every coarser level in one launch, on K5's
    maps of both configurations and at two shapes with odd halvings), K7
-   (depth pyramid) and K8 (vertex and normal maps) at every level shape of
-   both configurations, K4 (the ICP system, its tail, the association that
+   (both coarser depth levels in one launch, at 480x640 and on crops of
+   478x638 and 477x637) and K8 (vertex and normal maps) at every level
+   shape of both configurations, the brick fusion kernels B3a (depth mips),
+   B3b (classes and lists) and B3c (the brick pass) each against its plain
+   version, B3c's volume also against K2's bit for bit at K2's three poses
+   and with cap 64 in both overflow modes, K4 (the ICP system, its tail, the association that
    a level's first launch writes, and the association kernel it is held
    against) on model maps raycast from that volume and the next frame's
    depth pyramid, at the three level shapes of both main-path
    configurations, and the five gather probes;
 4. the probe path: ``xslam_tpu_torch.apps.probe_gather.run`` on the card;
-5. the main path, twice: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
+5. the main path, three times: ``XSlamEngine(load_config("configs/synthetic.yaml"))``
    runs 10 frames of the 640x480 synthetic orbit on the card, then 6 frames
-   with ``icp_fixed_assoc=True, model_map_level=1``; in each run every frame
-   must align, the ATE must stay under 0.02 m, the model maps must be
-   finite where valid, every kernel must have launched as often as the
-   run's frames and ICP iterations say, and a profiled frame must show
-   nothing on the device between its ICP launches.
+   with ``icp_fixed_assoc=True, model_map_level=1``, then 10 frames with
+   bench.py's fusion (``fusion_mode="brick"``, cap 2816,
+   ``fusion_overflow="dense"``); in each run every frame must align, the ATE
+   must stay under 0.02 m, the model maps must be finite where valid, every
+   kernel must have launched as often as the run's frames and ICP
+   iterations say, and a profiled frame must show nothing on the device
+   between its ICP launches; the brick run must never overflow its cap and
+   must give the first run's ATE to every digit (its volume is dense
+   fusion's, bit for bit).
 
 The launch counts are set to 0 just before each path is driven and read just
 after it.
@@ -66,11 +74,14 @@ HOLD_CYCLES = 30_000_000  # about 20 ms of device spinning at the card's clock
 N_FRAMES = 10
 N_FRAMES_FIXED_ASSOC = 6
 WARM_FRAMES = 2
-# device launches of a frame (profile_step.py's count): as configs/synthetic.yaml says, and with the cached
-# association at half-resolution model maps (each level's first ICP launch writes it: no launch of its own);
-# 4 of them in `preprocess` (K1, K7 twice, K8 once)
-FRAME_LAUNCHES = {False: 659, True: 659}
-PREPROCESS_LAUNCHES = 4
+N_FRAMES_BRICK = 10
+BRICK_CAP = 2816  # bench.py's fusion_brick_cap
+# device launches of a frame (profile_step.py's count): as configs/synthetic.yaml says, with the cached
+# association at half-resolution model maps (each level's first ICP launch writes it: no launch of its own),
+# and with brick fusion (B3a, B3b's two kernels and B3c where K2 was); 3 of them in `preprocess` (K1, K7 once
+# for both coarser levels, K8 once for all levels)
+FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main path, brick fusion": 661}
+PREPROCESS_LAUNCHES = 3
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 
 # kernel: (source, the TPU/XLA code it replaces, the path whose launches are reported); the association
@@ -84,6 +95,10 @@ KERNELS = {
     "raycast_refine": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:901", "main path"),
     "resize_model_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/models/kinfu.py:527-529,546", "main path"),
     "pyr_down": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:78", "main path"),
+    "depth_mips": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:60", "main path, brick fusion"),
+    "classify_bricks": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:219",
+                        "main path, brick fusion"),
+    "fuse_bricks": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:636", "main path, brick fusion"),
     "vertex_normal_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:115", "main path"),
     "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
     "icp_associate": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:72", "main path, fixed association"),
@@ -284,6 +299,7 @@ def phase_fusion(ctx):
         ("window-coverage regression pose", dual_v2c(w2v @ regression),
          render_depth(default_scene(), regression, intr)),
     ]
+    ctx["fusion_cases"] = cases
     table = None
     for name, v2c, depth_u16 in cases:
         r, t = se3.rotation(v2c), se3.translation(v2c)
@@ -320,7 +336,139 @@ def phase_fusion(ctx):
         check(updated > 100_000, f"K2's case {name} updates only {updated} voxels")
         if table is None:
             table = dict(max_abs_err=max(err_v, err_g), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+            ctx["fuse_volume_ms"] = ms
     return table
+
+
+def _bricks_equal(a, b) -> bool:
+    """Two BrickClasses hold the same classes, ranks, counts, flag and lists
+    (each list up to its count: the kernel leaves the rest unwritten)."""
+    n_active, n_work = (int(x) for x in b.totals)
+    return (bool(torch.equal(a.cls, b.cls)) and bool(torch.equal(a.rank, b.rank))
+            and bool(torch.equal(a.totals, b.totals)) and bool(a.overflow) == bool(b.overflow)
+            and bool(torch.equal(a.active_ids[:n_active], b.active_ids[:n_active]))
+            and bool(torch.equal(a.work_ids[:n_work], b.work_ids[:n_work])))
+
+
+def phase_bricks(ctx):
+    """B3a, B3b and B3c against their plain versions, and B3c's volume
+    against K2's, on the volume of three fused frames at K2's three poses:
+    the mip table and the classes and lists equal; the fused planes equal
+    K2's with ``==`` and equal NaN masks, bit for bit (the sign of zero
+    counted apart); with cap 64, ``"flag"`` equals the plain version and
+    ``"dense"`` equals K2. Each kernel timed from prepared arguments beside
+    K2 on the same frame. The classes are taken with a cap of every brick
+    (the volume corner's seeded depth makes some 5,700 bricks ACTIVE, past
+    bench.py's 2816), so B3c fuses every ACTIVE brick exactly at each pose."""
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.ops import fusion, kernels
+    from xslam_tpu_torch.ops import fusion_brick as fb
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    intr = cfg.intrinsics
+    vol = ctx["volume"]
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    H, W = intr.height, intr.width
+    layout = fb.mip_layout(H, W)
+    fargs = kernels.fusion_args(intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+    cap = int(np.prod(eng.resolution)) // fb.BRICK ** 3
+    rows = {}
+    for name, v2c, depth_u16 in ctx["fusion_cases"]:
+        r, t = se3.rotation(v2c), se3.translation(v2c)
+        depth_m = fusion.scale_depth(torch.as_tensor(depth_u16, device=dev))
+        pose = kernels.fusion_pose(r, t)
+        table = fb.depth_mips(depth_m)
+        table_plain = fb.depth_mips_plain(depth_m)
+        classes = fb.classify_bricks(table, pose, intr, eng, cap)
+        classes_plain = fb.rank_bricks_plain(fb.classify_bricks_plain(table_plain, pose, intr, eng), cap)
+        k2 = [x.clone() for x in vol]
+        brick = [x.clone() for x in vol]
+        plain = [x.clone() for x in vol]
+        kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+        fb.fuse_bricks(*brick, depth_m, pose, intr, eng, classes, cap, True)
+        fb.fuse_bricks_plain(*plain, depth_m, pose, intr, eng, classes_plain, cap, True)
+        torch.cuda.synchronize()
+        table_equal = bool(torch.equal(table, table_plain))
+        classes_equal = _bricks_equal(classes, classes_plain)
+        eq_k2 = [bool(torch.equal(a, b)) and same_nans(a, b) for a, b in zip(brick, k2)]
+        bits_k2 = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32))) for a, b in zip(brick, k2)]
+        zero_sign = sum(int(((a == b) & (a.view(torch.int32) != b.view(torch.int32))).sum()) for a, b in zip(brick, k2))
+        eq_plain = [bool(torch.equal(a, b)) for a, b in zip(brick, plain)]
+        n_active, n_work = (int(x) for x in classes.totals)
+        counts = torch.bincount(classes.cls.reshape(-1), minlength=4).tolist()
+        updated = int((k2[2] != vol.weight).sum())
+
+        # cap 64: the frame overflows; "flag" leaves the bricks past the cap unfused, "dense" fuses it exactly
+        small = fb.classify_bricks(table, pose, intr, eng, 64)
+        flag_k, flag_p, dense_k = ([x.clone() for x in vol] for _ in range(3))
+        fb.fuse_bricks(*flag_k, depth_m, pose, intr, eng, small, 64, False)
+        fb.fuse_bricks_plain(*flag_p, depth_m, pose, intr, eng, small, 64, False)
+        fb.fuse_bricks(*dense_k, depth_m, pose, intr, eng, small, 64, True)
+        torch.cuda.synchronize()
+        flag_equal = all(bool(torch.equal(a, b)) for a, b in zip(flag_k, flag_p))
+        flag_unfused = not all(bool(torch.equal(a, b)) for a, b in zip(flag_k, k2))
+        dense_equal = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32))) for a, b in zip(dense_k, k2))
+        del flag_k, flag_p, dense_k, plain
+
+        # each kernel from prepared arguments, the plain versions and K2 beside them
+        out_table = torch.empty_like(table)
+        scratch = fb.classify_bricks(table, pose, intr, eng, cap)
+        counts_buf = torch.empty(2 * (-(-classes.rank.numel() // fb.CLASSIFY_BLOCK)), dtype=torch.int32, device=dev)
+        lv, consts = fb._layout_ints(layout), fb.classify_consts(intr, eng)
+
+        def run(kernel, *args):
+            err_code = getattr(ext, kernel)(*args, stream)
+            check(err_code == 0, f"{kernel} launch failed: cudaError {err_code}")
+
+        ms_a = time_ms(lambda: run("depth_mips", depth_m, out_table, lv), 100)
+        ms_b = time_ms(lambda: run("classify_bricks", table, pose, scratch.cls, counts_buf, scratch.rank,
+                                   scratch.active_ids, scratch.work_ids, scratch.totals, scratch.overflow, H, W, lv,
+                                   consts, cap), 100)
+        ms_c = time_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
+                                   classes.totals, classes.overflow, *fargs, cap, True), 20)
+        ms_k2 = time_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
+                                                    eng.max_weight), 20)
+        plain_a = time_ms(lambda: fb.depth_mips_plain(depth_m), 3)
+        plain_b = time_ms(lambda: fb.rank_bricks_plain(fb.classify_bricks_plain(table, pose, intr, eng), cap), 3)
+        plain_c = time_ms(lambda: fb.fuse_bricks_plain(*brick, depth_m, pose, intr, eng, classes, cap, True), 2)
+        # bounds: B3a the image once and the table; 22 x 3 operations a pixel. B3b four table rows in and 16 B
+        # out a brick; ~600 operations a brick (eight corners' projections and planes, the intervals, the
+        # level scan). B3c the depth image and 24 B a voxel it updates; 69 operations a voxel of the work list
+        # to its gate, 60 more an exact update
+        n_bricks = classes.rank.numel()
+        b_a = bound_ms(depth_m.numel() * 4 + table.numel() * 4, depth_m.numel() * 3 * len(layout.sizes))
+        b_b = bound_ms(n_bricks * (4 * 12 + 16), n_bricks * 600)
+        b_c = bound_ms(depth_m.numel() * 4 + updated * 24, n_work * 512 * 69 + n_active * 512 * 60)
+        emit("B3 brick fusion", case=name, classes=dict(zip(("none", "far", "active", "far_partial"), counts)),
+             n_active=n_active, n_work=n_work, cap=cap, table_rows=layout.rows, table_equal=table_equal,
+             classes_and_lists_equal=classes_equal, equal_to_k2=eq_k2, bit_equal_to_k2=bits_k2,
+             sign_of_zero_differences=zero_sign, equal_to_plain=eq_plain, voxels_updated=updated,
+             cap64=dict(n_active=int(small.totals[0]), overflow=bool(small.overflow), flag_equal_to_plain=flag_equal,
+                        flag_leaves_bricks_unfused=flag_unfused, dense_bit_equal_to_k2=dense_equal),
+             ms=dict(depth_mips=ms_a, classify_bricks=ms_b, fuse_bricks=ms_c, sum=ms_a + ms_b + ms_c,
+                     fuse_volume=ms_k2),
+             plain_ms=dict(depth_mips=plain_a, classify_bricks=plain_b, fuse_bricks=plain_c),
+             bound_ms=dict(depth_mips=b_a, classify_bricks=b_b, fuse_bricks=b_c), library_ms=None,
+             library_note="no single PyTorch call computes them")
+        check(table_equal, f"B3a's table differs from its plain version at {name}")
+        check(classes_equal, f"B3b's classes or lists differ from its plain version at {name}")
+        check(all(eq_k2) and all(bits_k2), f"B3c's volume is not K2's bit for bit at {name}: == {eq_k2}, bits {bits_k2}")
+        check(all(eq_plain), f"B3c's volume differs from its plain version at {name}: {eq_plain}")
+        check(bool(small.overflow) and flag_equal and flag_unfused and dense_equal,
+              f"cap 64 at {name}: overflow {bool(small.overflow)}, flag == plain {flag_equal}, flag leaves bricks "
+              f"unfused {flag_unfused}, dense == K2 {dense_equal}")
+        check(not bool(classes.overflow) and updated > 100_000,
+              f"{name}: overflow, or too few updates ({n_active} ACTIVE bricks, {updated} voxels)")
+        if not rows:
+            rows = {
+                "depth_mips": dict(max_abs_err=0.0, ms=ms_a, plain_ms=plain_a, bound_ms=b_a[0], bound_by=b_a[1]),
+                "classify_bricks": dict(max_abs_err=0.0, ms=ms_b, plain_ms=plain_b, bound_ms=b_b[0],
+                                        bound_by=b_b[1]),
+                "fuse_bricks": dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c, bound_ms=b_c[0], bound_by=b_c[1]),
+            }
+        del k2, brick
+    return rows
 
 
 def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
@@ -573,10 +721,9 @@ def _compare(tag, pairs, **fields):
 def phase_maps(ctx):
     """K6, K7 and K8 against their plain versions at every level shape of
     both main-path configurations, each held level by level and bit-equal
-    (K6 and K8: one launch for the whole pyramid; K6 also at two shapes
-    whose halvings are odd, and with one coarser level only). The table rows
-    carry the times at the largest shape, K6's and K8's of the whole
-    pyramid."""
+    (each one launch for the whole pyramid; K6 and K7 also at two shapes
+    whose halvings are odd, K6 with one coarser level only). The table rows
+    carry the times at the largest shape, of the whole pyramid."""
     import torch.nn.functional as F
 
     from xslam_tpu_torch.csfd.single import CSFD
@@ -586,24 +733,39 @@ def phase_maps(ctx):
     cfg, dev = ctx["config"], ctx["device"]
     rows = {}
 
-    # K7 on the depth pyramid of frame 4, then K8 on every level of it in one launch
-    depth = kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))
-    depths = [depth]
-    for level in range(cfg.num_levels - 1):
-        H, W = depth.shape
-        down = kernels.pyr_down(depth)
-        ref = preprocess.pyr_down(depth)
+    # K7 on frame 4's bilateral output (and on two crops whose halvings are odd), both coarser levels in one
+    # launch against the plain chain; then K8 on every level of the 480x640 pyramid in one launch
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    frame = kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))
+    levels = cfg.num_levels
+    for H, W in ((480, 640), (478, 638), (477, 637)):
+        src = frame[:H, :W].contiguous()
+        pyramid = kernels.depth_pyramid(src, levels)
+        plain = [src]
+        for _ in range(1, levels):
+            plain.append(preprocess.pyr_down(plain[-1]))
         torch.cuda.synchronize()
-        ms = time_ms(lambda: kernels.pyr_down(depth), 100)
-        plain = time_ms(lambda: preprocess.pyr_down(depth), 5)
-        bms, by = bound_ms(H * W * 4 + (H // 2) * (W // 2) * 4, (H // 2) * (W // 2) * 25 * 5)
-        equal = bool(torch.equal(down, ref))
-        _compare("K7 pyr_down", [(down, ref)], level=level, shape=[H, W], bit_equal=equal, ms=ms, plain_ms=plain,
-                 bound_ms=bms, bound_by=by, library_ms=None)
-        check(equal, f"K7 is not bit-equal to its plain version at level {level}")
-        rows.setdefault("pyr_down", dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
-        depth = down
-        depths.append(depth)
+        equal = [bool(torch.equal(a, b)) for a, b in zip(pyramid[1:], plain[1:])]
+        # the kernel timed from prepared arguments (the wrapper beside it)
+        outs = [torch.empty((H >> level, W >> level), dtype=torch.float32, device=dev) for level in (1, 2)]
+
+        def launch_k7(src=src, outs=outs):
+            err_code = ext.depth_pyramid(src, outs[0], outs[1], levels, stream)
+            check(err_code == 0, f"depth_pyramid launch failed: cudaError {err_code}")
+
+        ms = time_ms(launch_k7, 100)
+        wrapper_ms = time_ms(lambda src=src: kernels.depth_pyramid(src, levels), 100)
+        plain_ms = time_ms(lambda src=src: preprocess.pyr_down(preprocess.pyr_down(src)), 5)
+        out_px = sum(p.numel() for p in plain[1:])
+        bms, by = bound_ms(H * W * 4 + out_px * 4, out_px * 25 * 5)
+        _compare("K7 depth_pyramid, both coarser levels in one launch", list(zip(pyramid[1:], plain[1:])),
+                 shape=[H, W], bit_equal=equal, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=by, library_ms=None)
+        check(all(equal), f"K7 is not bit-equal to its plain chain at {H}x{W}: levels 1, 2 {equal}")
+        rows.setdefault("pyr_down", dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+        if (H, W) == (480, 640):
+            depths = pyramid
     intrs = [cfg.intrinsics.level(level) for level in range(cfg.num_levels)]
     vmaps, nmaps = kernels.vertex_normal_pyramid(intrs, depths)
     plain_maps = [preprocess.create_vmap(intr, d) for intr, d in zip(intrs, depths)]
@@ -632,8 +794,6 @@ def phase_maps(ctx):
 
     # K6 on the model maps K5 rendered (both configurations), and on two crops of them whose halvings are odd
     # (478 x 638: the paired loads; 477 x 637: the single loads), every coarser level in one launch
-    ext = kernels.build_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     cases = [(f"model_map_level {L}", vmap, nmap) for L, (vmap, nmap) in ctx.pop("model_maps").items()]
     v0, n0 = cases[0][1], cases[0][2]
     for H, W in ((478, 638), (477, 637)):
@@ -710,9 +870,8 @@ def _icp_inputs(ctx, L: int):
         packed_taps=cfg.raycast_packed_taps,
     )
     vprev, nprev = model_map_pyramid(vmap0, nmap0, cfg.num_levels)
-    depths = [kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev))]
-    for _ in range(1, cfg.num_levels):
-        depths.append(kernels.pyr_down(depths[-1]))
+    depths = kernels.depth_pyramid(kernels.bilateral_filter(torch.as_tensor(ctx["depths"][4], device=dev)),
+                                   cfg.num_levels)
     vcurr, ncurr = kernels.vertex_normal_pyramid([intr.level(i) for i in range(cfg.num_levels)], depths)
     pose = dict(r_curr=se3.rotation(c2w), t_curr=se3.translation(c2w), r_prev_inv=se3.rotation(w2c),
                 t_prev=se3.translation(c2w))
@@ -1078,10 +1237,11 @@ def phase_probes(ctx):
     return rows
 
 
-def phase_main_path(ctx, fixed_assoc: bool = False):
+def phase_main_path(ctx, tag: str = "main path"):
     """Drive the engine over the synthetic orbit: as ``configs/synthetic.yaml``
-    says (association every ICP iteration, full-resolution model maps), or
-    with ``icp_fixed_assoc=True, model_map_level=1`` on fewer frames."""
+    says (association every ICP iteration, full-resolution model maps, dense
+    fusion), with ``icp_fixed_assoc=True, model_map_level=1`` on fewer
+    frames, or with bench.py's fusion (brick, cap 2816, dense on overflow)."""
     import dataclasses
 
     from torch.autograd import DeviceType
@@ -1092,17 +1252,22 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     from xslam_tpu_torch.profile_step import STAGES, stage_launches
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
-    cfg, n_frames, tag = ctx["config"], N_FRAMES, "main path"
-    if fixed_assoc:
+    cfg, n_frames = ctx["config"], N_FRAMES
+    if tag == "main path, fixed association":
         cfg = dataclasses.replace(cfg, icp_fixed_assoc=True, model_map_level=1, end_frame=N_FRAMES_FIXED_ASSOC)
-        n_frames, tag = N_FRAMES_FIXED_ASSOC, "main path, fixed association"
+        n_frames = N_FRAMES_FIXED_ASSOC
+    elif tag == "main path, brick fusion":
+        cfg = dataclasses.replace(cfg, fusion_mode="brick", fusion_brick_cap=BRICK_CAP, fusion_overflow="dense",
+                                  end_frame=N_FRAMES_BRICK)
+        n_frames = N_FRAMES_BRICK
+    brick = cfg.fusion_mode == "brick"
     L = cfg.model_map_level
     engine = XSlamEngine(cfg, device=ctx["device"])
     state = engine.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    times, aligned, integrated = [], [], 0
+    times, aligned, integrated, active = [], [], 0, []
     for i in range(n_frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1119,6 +1284,7 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
         ok = bool(res.align_ok)
         aligned.append(ok)
         integrated += ok
+        active.append(None if res.fusion_active is None else int(res.fusion_active))
     times = times[:-1]
     # what ran on the device from the frame's first ICP launch to its last
     device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in STAGES),
@@ -1143,7 +1309,9 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
          frame_ms=times, ate_m=ate, all_aligned=all(aligned), peak_mem_bytes=peak,
          model_map_valid_fraction=valid_frac, kernels=counts, device_launches_in_profiled_frame=len(names),
          stage_launches_in_profiled_frame=stages,
-         icp_launches_in_profiled_frame=len(icp_at), other_device_work_inside_icp_loop=between[:8])
+         icp_launches_in_profiled_frame=len(icp_at), other_device_work_inside_icp_loop=between[:8],
+         **(dict(fusion_mode="brick", cap=cfg.fusion_brick_cap, fusion_overflow=cfg.fusion_overflow,
+                 active_bricks=active, max_active_bricks=max(active)) if brick else {}))
     check(all(aligned), f"frames failed to align: {aligned}")
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
     check(tuple(vmap.v.shape) == (3, cfg.depth_height >> L, cfg.depth_width >> L) and finite and valid_frac > 0.5,
@@ -1153,18 +1321,27 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
     # written by each level's first K4 launch and never launched on its own;
     # K6 makes every coarser level of the model maps in one launch a frame
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
+    fused = {"fuse_volume": 0 if brick else integrated}
+    fused.update({k: integrated if brick else 0 for k in ("depth_mips", "classify_bricks", "fuse_bricks")})
     check(counts["bilateral_filter"] == n_frames and counts["march_fixed"] == n_frames
           and counts["raycast_refine"] == n_frames and counts["resize_model_maps"] == n_frames
-          and counts["pyr_down"] == (cfg.num_levels - 1) * n_frames
-          and counts["vertex_normal_maps"] == n_frames
-          and counts["fuse_volume"] == integrated and counts["icp_system"] == iterations * n_frames
+          and counts["pyr_down"] == n_frames and counts["vertex_normal_maps"] == n_frames
+          and all(counts[k] == n for k, n in fused.items()) and counts["icp_system"] == iterations * n_frames
           and counts["icp_associate"] == 0,
           f"launch counts {counts}")
+    if brick:
+        # the ACTIVE list never overflowed, and the volume is dense fusion's bit for bit, so the run is the
+        # first main path's to every digit
+        check(all(a is not None and a <= cfg.fusion_brick_cap for a in active),
+              f"brick fusion overflowed its cap {cfg.fusion_brick_cap}: ACTIVE bricks {active}")
+        check(ate == ctx["ate"], f"brick fusion's ATE {ate!r} m differs from dense fusion's {ctx['ate']!r} m")
+    elif tag == "main path":
+        ctx["ate"] = ate
     # the loop on the card: one launch per iteration and nothing else on the device between them
     check(len(icp_at) == iterations and not between,
           f"the profiled frame ran {len(icp_at)} icp_system launches for {iterations} iterations, with other "
           f"device work between them: {between[:8]}")
-    want = FRAME_LAUNCHES[fixed_assoc]
+    want = FRAME_LAUNCHES[tag]
     check(len(names) == want and stages.get("preprocess") == PREPROCESS_LAUNCHES,
           f"the profiled frame made {len(names)} device launches ({want} expected), preprocess "
           f"{stages.get('preprocess')} ({PREPROCESS_LAUNCHES} expected)")
@@ -1172,7 +1349,11 @@ def phase_main_path(ctx, fixed_assoc: bool = False):
 
 
 def phase_main_path_fixed_assoc(ctx):
-    return phase_main_path(ctx, fixed_assoc=True)
+    return phase_main_path(ctx, "main path, fixed association")
+
+
+def phase_main_path_brick(ctx):
+    return phase_main_path(ctx, "main path, brick fusion")
 
 
 def main() -> int:
@@ -1212,10 +1393,11 @@ def main() -> int:
 
     results, failed = {}, []
     for name, phase in (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
-                        ("march_fixed", phase_march), ("raycast_refine", phase_refine), ("maps", phase_maps),
-                        ("icp_system", phase_icp), ("probes", phase_probes),
+                        ("bricks", phase_bricks), ("march_fixed", phase_march), ("raycast_refine", phase_refine),
+                        ("maps", phase_maps), ("icp_system", phase_icp), ("probes", phase_probes),
                         ("main path", phase_main_path),
-                        ("main path, fixed association", phase_main_path_fixed_assoc)):
+                        ("main path, fixed association", phase_main_path_fixed_assoc),
+                        ("main path, brick fusion", phase_main_path_brick)):
         if name == "probes":
             ctx.pop("volume", None)  # a main path's peak memory counts its own volume only
         try:
@@ -1232,8 +1414,9 @@ def main() -> int:
     results["icp_associate"] = ctx["icp_associate"]
     results.update(results.pop("probes"))
     results.update(results.pop("maps"))
-    counts = {"main path": results["main path"], "main path, fixed association": results["main path, fixed association"],
-              "probe path": ctx["probe_counts"]}
+    results.update(results.pop("bricks"))
+    counts = {path: results[path] for path in ("main path", "main path, fixed association", "main path, brick fusion")}
+    counts["probe path"] = ctx["probe_counts"]
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],
          **({"folded_into": FOLDED[k]} if k in FOLDED else {}), **{"library_ms": None, **results[k]}}

@@ -126,7 +126,7 @@ def test_six_frame_ate_class(runs):
 def test_cpu_run_launches_no_kernel(runs):
     assert set(kernels.launch_counts) >= {
         "bilateral_filter", "fuse_volume", "march_fixed", "icp_system", "raycast_refine", "resize_model_maps",
-        "pyr_down", "vertex_normal_maps"}
+        "pyr_down", "vertex_normal_maps", "depth_mips", "classify_bricks", "fuse_bricks"}
     assert all(n == 0 for n in kernels.launch_counts.values()), kernels.launch_counts
 
 
@@ -141,6 +141,9 @@ def test_default_device_needs_cuda():
     "option",
     [
         dict(volume_layout="brick", fusion_mode="brick"),
+        dict(fusion_mode="brick", fusion_classify_fine=True),
+        dict(fusion_mode="brick", fusion_classify_split=True),
+        dict(fusion_mode="brick", fusion_subcell_cap=64),
         dict(raycast_march="skip"),
         dict(raycast_normals="screen"),
         dict(bi_interpolate_threshold=0.1),

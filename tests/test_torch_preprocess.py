@@ -2,11 +2,14 @@
 pyr_down, vertex/normal maps, resizes) against xslam_tpu on the CPU.
 
 The wrappers of the preprocess stage (K1 ``kernels.bilateral_filter``, K7
-``kernels.pyr_down``, K8 ``kernels.vertex_normal_pyramid``) return their plain
-versions' results bit for bit on CPU tensors and launch nothing; composed as
-the engine composes them, they are held against the JAX functions level by
-level. K8 writes every level's maps into one buffer on the card; where, is
-computed in Python (``kernels.map_pyramid_layout``) and tested here."""
+``kernels.depth_pyramid``, K8 ``kernels.vertex_normal_pyramid``) return their
+plain versions' results bit for bit on CPU tensors and launch nothing;
+composed as the engine composes them, they are held against the JAX functions
+level by level. K8 writes every level's maps into one buffer on the card;
+where, is computed in Python (``kernels.map_pyramid_layout``) and tested
+here. K7 makes both coarser depth levels in one launch from tiles staged in
+shared memory; a numpy twin of its tile and halo mapping shows every pixel
+written once and every tap it counts staged."""
 
 import functools
 
@@ -124,7 +127,9 @@ def test_preprocess_wrappers_use_plain_versions_on_cpu(wrapper):
     intr = TIntrinsics(fx=120.3, fy=-120.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H)
     before = dict(kernels.launch_counts)
     if wrapper == "pyr_down":
-        pairs = [(kernels.pyr_down(depth), tpre.pyr_down(depth))]
+        pyramid = kernels.depth_pyramid(depth, 3)
+        half = tpre.pyr_down(depth)
+        pairs = [(pyramid[0], depth), (pyramid[1], half), (pyramid[2], tpre.pyr_down(half))]
     else:
         depths = [depth, tpre.pyr_down(depth)]
         intrs = [intr, intr.level(1)]
@@ -141,7 +146,7 @@ def test_preprocess_wrappers_use_plain_versions_on_cpu(wrapper):
 
 @pytest.mark.parametrize("source", ["golden", "rendered"])
 def test_composed_preprocess_stage(source):
-    """K1 wrapper -> K7 wrapper x 2 -> K8 wrapper, as ``process_frame``
+    """K1 wrapper -> K7 wrapper (both coarser levels) -> K8 wrapper, as ``process_frame``
     runs them, against the JAX stage on the same depth. The depth pyramids
     must be equal except where the two bilateral filters differ by their one
     allowed millimetre (> 99.9% of pixels equal at every level); the maps are
@@ -154,10 +159,9 @@ def test_composed_preprocess_stage(source):
     H, W = depth_u16.shape
     jintr = JIntrinsics(fx=120.3, fy=-120.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H)
     tintr = TIntrinsics(*jintr)
-    td = [kernels.bilateral_filter(torch.from_numpy(depth_u16))]
+    td = kernels.depth_pyramid(kernels.bilateral_filter(torch.from_numpy(depth_u16)), 3)
     jd = [jnp.asarray(_jax_bilateral(source))]
     for _ in range(2):
-        td.append(kernels.pyr_down(td[-1]))
         jd.append(_jpyr_down(jd[-1]))
     tvs, tns = kernels.vertex_normal_pyramid([tintr.level(level) for level in range(3)], td)
     for level in range(3):
@@ -238,3 +242,80 @@ def test_map_pyramid_views_and_wrapper_check_their_inputs():
     intr = TIntrinsics(fx=5.0, fy=5.0, cx=2.5, cy=1.5, width=6, height=4)
     with pytest.raises(ValueError):
         kernels.vertex_normal_pyramid([intr, intr.level(1)], [depth])
+
+
+# --- K7: both coarser levels in one launch (csrc/maps.cu::depth_pyramid_kernel) ---
+def _pyramid_tile():
+    """K7's tile (level-2 rows, columns a block owns), as csrc/maps.cu defines it."""
+    import re
+
+    text = (kernels.CSRC_DIR / "maps.cu").read_text()
+    return tuple(int(re.search(rf"#define XS_PYR_{axis} (\d+)", text).group(1)) for axis in ("TY", "TX"))
+
+
+PYRAMID_SHAPES = [(480, 640), (478, 638), (477, 637)]
+
+
+@pytest.mark.parametrize("shape", PYRAMID_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_depth_pyramid_tiles_cover_both_levels(shape):
+    """numpy twin of K7's mapping: block (bx, by) stages level-0 rows from
+    4 TY by - 6 (4 TY + 9 of them) and columns alike, computes the level-1
+    tile with a 2-pixel halo where it lies in level 1, writes the tile's
+    2 TY x 2 TX interior, then writes its TY x TX level-2 pixels. Every
+    level-1 and level-2 pixel is written exactly once, and every tap that
+    the [0, size - 2] rule counts is staged (level 0) or computed in the
+    block (level 1)."""
+    ty_, tx_ = _pyramid_tile()
+    H, W = shape
+    H1, W1, H2, W2 = H // 2, W // 2, H // 4, W // 4
+    l0_rows, l0_cols = 2 * (2 * ty_ + 3) + 3, 2 * (2 * tx_ + 3) + 3
+    written1 = np.zeros((H1, W1), np.int32)
+    written2 = np.zeros((H2, W2), np.int32)
+    taps = np.arange(-2, 3)
+    for by in range(-(-H1 // (2 * ty_))):
+        for bx in range(-(-W1 // (2 * tx_))):
+            r1, c1 = 2 * ty_ * by - 2, 2 * tx_ * bx - 2
+            r0, c0 = 2 * r1 - 2, 2 * c1 - 2
+            computed1 = np.zeros((2 * ty_ + 3, 2 * tx_ + 3), bool)
+            for ty in range(2 * ty_ + 3):
+                for tx in range(2 * tx_ + 3):
+                    y, x = r1 + ty, c1 + tx
+                    if not (0 <= y < H1 and 0 <= x < W1):
+                        continue
+                    computed1[ty, tx] = True
+                    ys, xs = 2 * y + taps, 2 * x + taps
+                    ys, xs = ys[(ys >= 0) & (ys <= H - 2)], xs[(xs >= 0) & (xs <= W - 2)]
+                    assert ys.min() >= r0 and ys.max() < r0 + l0_rows
+                    assert xs.min() >= c0 and xs.max() < c0 + l0_cols
+                    if 2 <= ty < 2 + 2 * ty_ and 2 <= tx < 2 + 2 * tx_:
+                        written1[y, x] += 1
+            for ty in range(ty_):
+                for tx in range(tx_):
+                    y, x = ty_ * by + ty, tx_ * bx + tx
+                    if not (y < H2 and x < W2):
+                        continue
+                    written2[y, x] += 1
+                    ys, xs = 2 * y + taps, 2 * x + taps
+                    ys, xs = ys[(ys >= 0) & (ys <= H1 - 2)], xs[(xs >= 0) & (xs <= W1 - 2)]
+                    assert computed1[np.ix_(ys - r1, xs - c1)].all()
+    assert (written1 == 1).all() and (written2 == 1).all()
+
+
+@pytest.mark.parametrize("shape", PYRAMID_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_depth_pyramid_plain_chain_matches_jax(shape):
+    """K7's plain version (``pyr_down`` level after level, as the wrapper runs
+    it on the CPU) against the JAX package's ``pyr_down`` applied twice, on
+    a seeded depth with holes and jumps beyond the 90 mm window, equal."""
+    rng = np.random.default_rng(shape[1])
+    H, W = shape
+    depth = (1000.0 + 60.0 * rng.integers(0, 40, (H // 8 + 1, W // 8 + 1))).repeat(8, 0).repeat(8, 1)[:H, :W]
+    depth = depth + rng.uniform(-40.0, 40.0, (H, W))
+    depth[rng.random((H, W)) < 0.05] = 0.0
+    depth = depth.astype(np.float32)
+    port = kernels.depth_pyramid(torch.from_numpy(depth), 3)
+    jd = [jnp.asarray(depth)]
+    for _ in range(2):
+        jd.append(_jpyr_down(jd[-1]))
+    for level in range(3):
+        assert tuple(port[level].shape) == (H >> level, W >> level)
+        np.testing.assert_array_equal(port[level].numpy(), np.asarray(jd[level]))

@@ -1,5 +1,5 @@
 // Python binding of the kernels' C entry points (bilateral.cu, fusion.cu,
-// march.cu, refine.cu, maps.cu, icp.cu, gather_probes.cu), built with them by
+// bricks.cu, march.cu, refine.cu, maps.cu, icp.cu, gather_probes.cu), built with them by
 // torch.utils.cpp_extension.load. The only
 // source that includes PyTorch's headers. The wrappers in ops/kernels.py
 // check device, type, shape and contiguity; each function here launches on
@@ -14,6 +14,17 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               float vs, float fx, float fy, float cx, float cy,
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
                               void* stream);
+extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const int* levels, int n_levels, int rows,
+                             void* stream);
+extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* counts, void* rank,
+                                  void* active_ids, void* work_ids, void* totals, void* overflow, int nbx, int nby,
+                                  int nbz, int H, int W, const int* levels, int n_levels, int rows,
+                                  const float* consts, int cap, void* stream);
+extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
+                              const void* cls, const void* rank, const void* work_ids, const void* totals,
+                              const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
+                              float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
+                              float max_w, int cap, int dense_on_overflow, void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, void* stream);
@@ -27,7 +38,7 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* stream);
 extern "C" int xs_model_map_pyramid(const void* const* in, void* out, const long long* offsets, int levels, int H,
                                     int W, void* stream);
-extern "C" int xs_pyr_down(const void* src, void* dst, int H, int W, void* stream);
+extern "C" int xs_depth_pyramid(const void* src, void* l1, void* l2, int H, int W, int levels, void* stream);
 extern "C" int xs_vertex_normal_maps(const void* const* depths, const int* H, const int* W, void* out,
                                      const long long* offsets, const float* cams, int levels, void* stream);
 extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
@@ -64,6 +75,40 @@ int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
   return xs_fuse_volume(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
                         value.size(0), value.size(1), value.size(2), depth.size(0), depth.size(1),
                         vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, as_stream(stream));
+}
+
+// levels: 4 ints a mip level (tile size, tiles down, tiles across, first row of the table)
+int depth_mips(const torch::Tensor& depth, torch::Tensor table, const std::vector<int64_t>& levels, int64_t stream) {
+  if (levels.size() % 4 != 0) return 1;  // cudaErrorInvalidValue
+  const std::vector<int> lv(levels.begin(), levels.end());
+  return xs_depth_mips(depth.data_ptr(), table.data_ptr(), depth.size(0), depth.size(1), lv.data(),
+                       (int)(lv.size() / 4), table.size(0), as_stream(stream));
+}
+
+// cls: (nbx, nby, nbz); counts: two ints a block of 256 bricks; rank, active_ids, work_ids: one int a brick;
+// totals: (2,) int32; overflow: () bool; consts: the classifier's thirteen float32 constants
+int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor counts,
+                    torch::Tensor rank, torch::Tensor active_ids, torch::Tensor work_ids, torch::Tensor totals,
+                    torch::Tensor overflow, int64_t H, int64_t W, const std::vector<int64_t>& levels,
+                    const std::vector<double>& consts, int64_t cap, int64_t stream) {
+  if (levels.size() % 4 != 0 || consts.size() != 13) return 1;  // cudaErrorInvalidValue
+  const std::vector<int> lv(levels.begin(), levels.end());
+  const std::vector<float> c(consts.begin(), consts.end());  // float32 values, carried exactly in double
+  return xs_classify_bricks(table.data_ptr(), pose.data_ptr(), cls.data_ptr(), counts.data_ptr(), rank.data_ptr(),
+                            active_ids.data_ptr(), work_ids.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
+                            cls.size(0), cls.size(1), cls.size(2), H, W, lv.data(), (int)(lv.size() / 4),
+                            table.size(0), c.data(), cap, as_stream(stream));
+}
+
+int fuse_bricks(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
+                const torch::Tensor& pose, const torch::Tensor& cls, const torch::Tensor& rank,
+                const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow, float vs,
+                float fx, float fy, float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
+                float max_w, int64_t cap, bool dense_on_overflow, int64_t stream) {
+  return xs_fuse_bricks(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
+                        cls.data_ptr(), rank.data_ptr(), work_ids.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
+                        value.size(0), value.size(1), value.size(2), depth.size(0), depth.size(1), vs, fx, fy, cx, cy,
+                        inv_fx, inv_fy, trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, as_stream(stream));
 }
 
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
@@ -110,8 +155,10 @@ int model_map_pyramid(const torch::Tensor& vv, const torch::Tensor& vg, const to
                               as_stream(stream));
 }
 
-int pyr_down(const torch::Tensor& src, torch::Tensor dst, int64_t stream) {
-  return xs_pyr_down(src.data_ptr(), dst.data_ptr(), src.size(0), src.size(1), as_stream(stream));
+// l1, l2: the (H / 2, W / 2) and (H / 4, W / 4) outputs (l2 unused with 2 levels)
+int depth_pyramid(const torch::Tensor& src, torch::Tensor l1, torch::Tensor l2, int64_t levels, int64_t stream) {
+  return xs_depth_pyramid(src.data_ptr(), l1.data_ptr(), l2.data_ptr(), src.size(0), src.size(1), (int)levels,
+                          as_stream(stream));
 }
 
 // depths: the (H, W) depth of each level; out: the buffer of all the maps; offsets: two a level (vertex map,
@@ -185,11 +232,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bilateral_weights", &bilateral_weights);
   m.def("bilateral_filter", &bilateral_filter);
   m.def("fuse_volume", &fuse_volume);
+  m.def("depth_mips", &depth_mips);
+  m.def("classify_bricks", &classify_bricks);
+  m.def("fuse_bricks", &fuse_bricks);
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("raycast_refine", &raycast_refine);
   m.def("model_map_pyramid", &model_map_pyramid);
-  m.def("pyr_down", &pyr_down);
+  m.def("depth_pyramid", &depth_pyramid);
   m.def("vertex_normal_maps", &vertex_normal_maps);
   m.def("icp_system", &icp_system);
   m.def("icp_associate", &icp_associate);

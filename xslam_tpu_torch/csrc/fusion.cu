@@ -33,14 +33,19 @@
 //   sums R[i][0] gx + R[i][1] gy of a z column are computed once. The
 //   reference adds ((a + b) + c) + t, so hoisting (a + b) keeps every bit.
 // - Inside a kept tile each voxel runs the reference's operations in its
-//   order, one rounding at a time (built with -fmad=false); terms that the
-//   reference multiplies by a lifted constant's zero derivative are dropped,
-//   which changes no finite result. The 24 pose floats come from a small
-//   device tensor (no host read), and the depth image stays in L2.
+//   order, one rounding at a time (built with -fmad=false): the per-voxel
+//   code is fusion.cuh's, which the brick pass (bricks.cu) shares. The 24
+//   pose floats come from a small device tensor (no host read), and the
+//   depth image stays in L2.
 
 #include <cuda_runtime.h>
 
+#include "fusion.cuh"
+
 namespace {
+
+using xs::FuseParams;
+using Params = FuseParams;
 
 constexpr int TILE_X = 4, TILE_Y = 8, TILE_Z = 64;  // ops/fusion.py::FUSE_TILE
 constexpr int LANES_Z = 32;                         // threads along z; TILE_Y threads along y
@@ -48,11 +53,6 @@ constexpr float CULL_MARGIN = 4e-6f;                // ops/fusion.py::FUSE_CULL_
 // the pixel gate needs 2.5 <= img < size - 0.5; the tile test asks only for
 // 1 <= img <= size, a pixel and a half looser
 constexpr float CULL_LO = 1.0f;
-
-struct Params {
-  int X, Y, Z, H, W;
-  float vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w;
-};
 
 // True where no voxel of the tile whose first voxel is (x0, y0, z0) can pass
 // the in-front test and the pixel gate. Every lane of the calling warp takes
@@ -93,83 +93,15 @@ fuse_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restri
   const int y = y0 + threadIdx.y;
   if (y >= p.Y) return;
   const int x_end = min(x0 + TILE_X, p.X), z_end = min(z0 + TILE_Z, p.Z);
-
-  // pose layout: R.v (row-major 3x3), R.g, t.v, t.g
-  const float* Rv = pose;
-  const float* Rg = pose + 9;
-  const float* tv = pose + 18;
-  const float* tg = pose + 21;
-  const float gy = ((float)y + 0.5f) * p.vs;
+  const xs::FusePose dual_pose(pose);
+  const float gy = xs::voxel_centre(y, p.vs);
 
   for (int x = x0; x < x_end; ++x) {
-    const float gx = ((float)x + 0.5f) * p.vs;
-    float bv[3], bg[3];  // the part of the camera coordinates that a z column shares
-    for (int i = 0; i < 3; ++i) {
-      bv[i] = Rv[3 * i] * gx + Rv[3 * i + 1] * gy;
-      bg[i] = Rg[3 * i] * gx + Rg[3 * i + 1] * gy;
-    }
+    const xs::ColumnSums sums = xs::column_sums(dual_pose, xs::voxel_centre(x, p.vs), gy);
     for (int z = z0 + threadIdx.x; z < z_end; z += LANES_Z) {
-      const float gz = ((float)z + 0.5f) * p.vs;
-      float cv[3], cg[3];  // camera coordinates, value and derivative lanes
-      for (int i = 0; i < 3; ++i) {
-        cv[i] = (bv[i] + Rv[3 * i + 2] * gz) + tv[i];
-        cg[i] = (bg[i] + Rg[3 * i + 2] * gz) + tg[i];
-      }
-
-      // inv_z = 1 / v_c.z
-      const float izv = 1.0f / cv[2];
-      const float izg = (0.0f - izv * cg[2]) * izv;
-      const bool in_front = izv >= 0.0f;
-
-      // image = v_c * f * inv_z + c
-      const float axv = cv[0] * p.fx, axg = cg[0] * p.fx;
-      const float ixv = axv * izv + p.cx;
-      const float ixg = axg * izv + axv * izg;
-      const float ayv = cv[1] * p.fy, ayg = cg[1] * p.fy;
-      const float iyv = ayv * izv + p.cy;
-      const float iyg = ayg * izv + ayv * izg;
-
-      // pixel gate on floor(img - 0.5), compared as floats (NaN fails)
-      const float cxf = floorf(ixv - 0.5f), cyf = floorf(iyv - 0.5f);
-      const bool in_bounds = cxf > 1.0f && cyf > 1.0f && cxf < (float)(p.W - 1) && cyf < (float)(p.H - 1);
-      if (!(in_front && in_bounds)) continue;
-
-      // inside the gate, round(img) lies in [2, size-1]
-      const int px = __float2int_rn(ixv), py = __float2int_rn(iyv);
-      const float dv = depth[py * p.W + px];
-      if (!(dv > 0.0f)) continue;
-
-      // lambda^2 = xl^2 + yl^2 + 1 with xl = (img_x - cx) / fx
-      const float xlv = (ixv - p.cx) * p.inv_fx, xlg = ixg * p.inv_fx;
-      const float ylv = (iyv - p.cy) * p.inv_fy, ylg = iyg * p.inv_fy;
-      const float l2v = (xlv * xlv + ylv * ylv) + 1.0f;
-      const float l2g = (xlg * xlv + xlv * xlg) + (ylg * ylv + ylv * ylg);
-      const float slv = sqrtf(l2v);
-      const float slg = (0.5f * l2g) / slv;
-
-      // |v_c|
-      const float nv = (cv[0] * cv[0] + cv[1] * cv[1]) + cv[2] * cv[2];
-      const float ng =
-          (cg[0] * cv[0] + cv[0] * cg[0]) + (cg[1] * cv[1] + cv[1] * cg[1]) + (cg[2] * cv[2] + cv[2] * cg[2]);
-      const float snv = sqrtf(nv);
-      const float sng = (0.5f * ng) / snv;
-
-      const float sdfv = dv * slv - snv;
-      const float sdfg = dv * slg - sng;
-      if (!(sdfv >= -p.trunc)) continue;
-
-      float tsv = sdfv * p.inv_trunc, tsg = sdfg * p.inv_trunc;
-      if (sdfv > p.trunc) {  // constant 1 + 0i past +trunc
-        tsv = 1.0f;
-        tsg = 0.0f;
-      }
-
-      const size_t idx = ((size_t)x * p.Y + y) * p.Z + z;
-      const float w = weight[idx];
-      const float inv = 1.0f / (w + 1.0f);
-      value[idx] = (value[idx] * w + tsv) * inv;
-      grad[idx] = (grad[idx] * w + tsg) * inv;
-      weight[idx] = fminf(w + 1.0f, p.max_w);
+      const xs::VoxelView o = xs::voxel_view(dual_pose, p, sums, xs::voxel_centre(z, p.vs));
+      if (!o.gated) continue;
+      xs::fuse_gated_voxel(value, grad, weight, depth, p, o, ((size_t)x * p.Y + y) * p.Z + z);
     }
   }
 }

@@ -1,18 +1,21 @@
-"""The KinectFusion-style differentiable SLAM engine, dense reference path.
+"""The KinectFusion-style differentiable SLAM engine, dense layout.
 
-Port of ``xslam_tpu/models/kinfu.py`` for the dense layout (dense volume,
-dense fusion, fixed march, ``secant2`` refine, TSDF normals, nearest-depth
-fusion), with the model maps at any ``model_map_level`` and the ICP
-association computed every iteration or once per level
+Port of ``xslam_tpu/models/kinfu.py`` for the dense volume (fixed march,
+``secant2`` refine, TSDF normals, nearest-depth fusion), with dense or brick
+fusion (``fusion_mode``; the coarse brick classifier, ``fusion_overflow``
+``"flag"`` or ``"dense"``), the model maps at any ``model_map_level`` and the
+ICP association computed every iteration or once per level
 (``icp_fixed_assoc``). Each frame runs:
 
-1. bilateral filter (kernel K1), the depth pyramid (K7, one launch a
-   level), vertex and normal maps of every level (K8, one launch);
+1. bilateral filter (kernel K1), the depth pyramid (K7, one launch for its
+   coarser levels), vertex and normal maps of every level (K8, one launch);
 2. coarse-to-fine ICP, levels 2 -> 1 -> 0 with {5, 4, 3} iterations, as a
    Python loop whose pose and ``ok`` flag stay on the device; each iteration
    (normal equations, 6x6 dual solve, pose update) is one launch of kernel
    K4, with no other device work between the launches;
-3. TSDF fusion (kernel K2, in place) when the frame aligned;
+3. TSDF fusion when the frame aligned, in place: kernel K2, or with
+   ``fusion_mode="brick"`` the mip table (B3a), the bricks' classes (B3b)
+   and the brick pass (B3c), which give K2's volume bit for bit;
 4. raycast of the model maps (the poses packed once, march kernel K3,
    refine kernel K5) and their pyramid (K6, one launch for all coarser
    levels).
@@ -61,17 +64,26 @@ class FrameResult(NamedTuple):
     camera2world: CSFD  # (4, 4) dual pose estimate of this frame
     align_ok: torch.Tensor
     inlier_count: torch.Tensor
-    fusion_overflow: torch.Tensor  # always False: dense fusion has no cap
+    # brick fusion's ACTIVE list overflowed this frame (always False for dense
+    # fusion and for fusion_overflow="dense", which fuses such a frame exactly)
+    fusion_overflow: torch.Tensor
+    # brick fusion's ACTIVE bricks this frame (int32; None for dense fusion
+    # and for a frame that was not fused)
+    fusion_active: Optional[torch.Tensor] = None
 
 
-# options whose other values select paths this port does not have yet
+# the values of each option that select paths this port has; the others raise
 _SLICE = {
-    "volume_layout": "dense",
-    "fusion_mode": "dense",
-    "raycast_march": "fixed",
-    "raycast_refine": "secant2",
-    "raycast_normals": "tsdf",
-    "raycast_packed_taps": False,
+    "volume_layout": ("dense",),
+    "fusion_mode": ("dense", "brick"),
+    "fusion_overflow": fusion.OVERFLOW_MODES,
+    "fusion_classify_fine": (False,),
+    "fusion_classify_split": (False,),
+    "fusion_subcell_cap": (0,),
+    "raycast_march": ("fixed",),
+    "raycast_refine": ("secant2",),
+    "raycast_normals": ("tsdf",),
+    "raycast_packed_taps": (False,),
 }
 
 
@@ -88,9 +100,9 @@ class XSlamEngine:
     API of ``KinectFusionReconstruction`` (SetYamlParameters/ProcessFrame)."""
 
     def __init__(self, config: SlamConfig, device=None):
-        for key, want in _SLICE.items():
-            if getattr(config, key) != want:
-                raise NotImplementedError(f"{key}={getattr(config, key)!r} is not ported yet (only {want!r})")
+        for key, allowed in _SLICE.items():
+            if getattr(config, key) not in allowed:
+                raise NotImplementedError(f"{key}={getattr(config, key)!r} is not ported yet (only {allowed!r})")
         if config.bi_interpolate_threshold > 0:
             raise NotImplementedError("bilinear depth sampling (biInterpolate_threshold > 0) is not ported yet")
         self.config = config
@@ -237,9 +249,7 @@ def process_frame(
 
     # --- SurfaceMeasure (KinectFusionReconstruction.cpp:280-299) ----------
     with record_function("preprocess"):
-        depths = [kernels.bilateral_filter(depth_u16)]
-        for _ in range(1, levels):
-            depths.append(kernels.pyr_down(depths[-1]))
+        depths = kernels.depth_pyramid(kernels.bilateral_filter(depth_u16), levels)
         vmaps_curr, nmaps_curr = kernels.vertex_normal_pyramid([intr.level(i) for i in range(levels)], depths)
 
     is_first = state.frame_idx == 0
@@ -277,12 +287,22 @@ def process_frame(
     c2v = se3.matmul(world2volume, c2w)
     v2c = se3.inverse(c2v)
     # the frame's one host read: JAX's lax.cond on the same flag
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    n_active = None
     if is_first or bool(align_ok):
         with record_function("fusion"):
-            fusion.integrate(
-                state.volume, fusion.scale_depth(depth_u16), se3.rotation(v2c), se3.translation(v2c),
-                intr, vol_cfg, bi_threshold=config.bi_interpolate_threshold,
-            )
+            depth_m = fusion.scale_depth(depth_u16)
+            r_v2c, t_v2c = se3.rotation(v2c), se3.translation(v2c)
+            if config.fusion_mode == "brick":
+                flag, n_active = fusion.integrate_brick(
+                    state.volume, depth_m, r_v2c, t_v2c, intr, vol_cfg, cap=config.fusion_brick_cap,
+                    overflow=config.fusion_overflow,
+                )
+                if config.fusion_overflow == "flag":
+                    overflow = flag
+            else:
+                fusion.integrate(state.volume, depth_m, r_v2c, t_v2c, intr, vol_cfg,
+                                 bi_threshold=config.bi_interpolate_threshold)
     volume = state.volume
 
     # --- model maps for the next frame's ICP ------------------------------
@@ -305,8 +325,7 @@ def process_frame(
         t_prev=state.t_prev,
     )
     return new_state, FrameResult(
-        camera2world=c2w, align_ok=align_ok, inlier_count=inliers,
-        fusion_overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        camera2world=c2w, align_ok=align_ok, inlier_count=inliers, fusion_overflow=overflow, fusion_active=n_active,
     )
 
 

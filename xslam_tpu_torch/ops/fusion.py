@@ -8,6 +8,10 @@ volume in place; its plain version is
 :func:`xslam_tpu_torch.ops.kernels.fuse_volume_plain`. The kernel skips the
 tiles of the volume that the camera cannot see; :func:`tile_keep_mask` is
 that test's plain twin, which the tests hold against the plain update.
+
+:func:`integrate_brick` fuses the same frame brick by brick
+(:mod:`xslam_tpu_torch.ops.fusion_brick`, kernels B3a-c): the same volume, bit
+for bit, with the depth read only where a brick is ACTIVE.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from ..csfd.single import CSFD
 from ..geometry.intrinsics import Intrinsics
-from . import kernels
+from . import fusion_brick, kernels
 from .preprocess import DEPTH_MAX_MM, DEPTH_MIN_MM
 
 
@@ -84,6 +88,42 @@ def integrate(
         cfg.voxel_size, cfg.trunc_dist, cfg.max_weight,
     )
     return vol
+
+
+OVERFLOW_MODES = ("flag", "dense")
+
+
+def integrate_brick(
+    vol: VolumeState,
+    depth_m: torch.Tensor,
+    r_v2c: CSFD,
+    t_v2c: CSFD,
+    intr: Intrinsics,
+    cfg: VolumeConfig,
+    cap: int,
+    overflow: str = "flag",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fuse one scaled depth frame into the volume IN PLACE, brick by brick
+    (port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick`` with the
+    coarse classifier; nearest-depth branch): the mip table (B3a), the
+    bricks' classes and lists (B3b), the fusion pass (B3c). Returns
+    ``(overflowed, n_active)``, device tensors: whether the frame had more
+    than ``cap`` ACTIVE bricks, and how many it had.
+
+    ``overflow="flag"``: the ACTIVE bricks past the first ``cap`` in flat
+    order stay unfused this frame. ``"dense"``: such a frame is fused exactly
+    everywhere instead, from the pre-frame volume (on the card the fusion
+    kernel reads the flag; no host read), as the JAX engine reruns dense
+    fusion."""
+    if overflow not in OVERFLOW_MODES:
+        raise ValueError(f"overflow: expected one of {OVERFLOW_MODES}, got {overflow!r}")
+    if tuple(vol.value.shape) != tuple(cfg.resolution):
+        raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
+    pose = kernels.fusion_pose(r_v2c, t_v2c)
+    table = fusion_brick.depth_mips(depth_m)
+    classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap)
+    fusion_brick.fuse_bricks(*vol, depth_m, pose, intr, cfg, classes, cap, overflow == "dense")
+    return classes.overflow, classes.totals[0]
 
 
 def tile_keep_mask(r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics, resolution, voxel_size: float) -> torch.Tensor:

@@ -13,16 +13,19 @@ launches every kernel of the package and holds the wrappers of five:
 - K3 :func:`march_fixed` (``csrc/march.cu``) replaces the XLA code of
   ``xslam_tpu/ops/raycast.py::_camera_rays`` and ``::march``; plain version
   :func:`camera_rays` then :func:`march_fixed_plain`.
-- K7 :func:`pyr_down` and K8 :func:`vertex_normal_pyramid` (``csrc/maps.cu``)
-  replace the XLA code of ``xslam_tpu/ops/preprocess.py::pyr_down`` and of
-  ``::create_vmap`` + ``::create_nmap`` (K8: every level in one launch);
+- K7 :func:`depth_pyramid` and K8 :func:`vertex_normal_pyramid`
+  (``csrc/maps.cu``) replace the XLA code of
+  ``xslam_tpu/ops/preprocess.py::pyr_down`` applied level after level and of
+  ``::create_vmap`` + ``::create_nmap``, each in one launch for every level;
   their plain versions are the functions of those names in
   :mod:`xslam_tpu_torch.ops.preprocess`.
 
 More sources are built here and wrapped where their plain versions live: K4
 (``csrc/icp.cu``) in :mod:`xslam_tpu_torch.ops.icp`, K5 (``csrc/refine.cu``)
 in :mod:`xslam_tpu_torch.ops.raycast`, K6 (``csrc/maps.cu``) in
-:mod:`xslam_tpu_torch.models.kinfu` and the five gather probes
+:mod:`xslam_tpu_torch.models.kinfu`, the three brick-fusion kernels B3a-c
+(``csrc/bricks.cu``) in :mod:`xslam_tpu_torch.ops.fusion_brick` and the five
+gather probes
 (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
 
 A wrapper runs the plain version when its tensors lie on the CPU (the tests)
@@ -64,21 +67,24 @@ from .sampling import gather2d, gather3d, to_index
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
-    "binding.cpp", "bilateral.cu", "fusion.cu", "march.cu", "refine.cu", "maps.cu", "icp.cu", "gather_probes.cu",
+    "binding.cpp", "bilateral.cu", "fusion.cu", "bricks.cu", "march.cu", "refine.cu", "maps.cu", "icp.cu",
+    "gather_probes.cu",
 )
-HEADERS = ("dual.cuh", "rays.cuh")  # included by the sources above
+HEADERS = ("dual.cuh", "rays.cuh", "fusion.cuh")  # included by the sources above
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
 
 RAY_MIN_M = 0.2
 RAY_MAX_M = 5.0
 INF_T = 1e9
 RAY_POSE_FLOATS = 48
+FUSION_POSE_FLOATS = 24
 BILATERAL_TABLE_FLOATS = 27 * 448  # K1's weight table (csrc/bilateral.cu)
 MAX_MAP_LEVELS = 3  # K6's and K8's levels in one launch (csrc/maps.cu); the ICP runs at most 3
 
 launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "pyr_down": 0, "vertex_normal_maps": 0,
+    "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
 _ext = None  # the built extension module
@@ -180,17 +186,33 @@ def bilateral_filter(depth_u16: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------- K7, K8 pyramid and maps
-def pyr_down(depth: torch.Tensor) -> torch.Tensor:
-    """Half-resolution depth (f32 mm). Same contract as
-    :func:`xslam_tpu_torch.ops.preprocess.pyr_down` (its plain version)."""
-    if on_cpu(depth):
-        return preprocess.pyr_down(depth)
+def depth_pyramid(depth: torch.Tensor, levels: int) -> list:
+    """The depth pyramid of ``levels`` levels (f32 mm): ``[depth, half, quarter,
+    ...]``, each the next coarser level of the one before. On CPU tensors its
+    plain version, :func:`~xslam_tpu_torch.ops.preprocess.pyr_down` level
+    after level. On the card, levels 1 and 2 in ONE launch of K7 (at most
+    :data:`MAX_MAP_LEVELS` levels); the launch count keeps the name
+    ``pyr_down``."""
+    if levels < 1:
+        raise ValueError(f"levels: expected at least 1, got {levels}")
     if depth.dim() != 2:
         raise ValueError(f"depth: expected (H, W), got {tuple(depth.shape)}")
+    if on_cpu(depth):
+        out = [depth]
+        for _ in range(1, levels):
+            out.append(preprocess.pyr_down(out[-1]))
+        return out
+    if levels > MAX_MAP_LEVELS:
+        raise ValueError(f"K7 takes at most {MAX_MAP_LEVELS} levels, got {levels}")
     check_tensor(depth, "depth", torch.float32)
+    if levels == 1:
+        return [depth]
     H, W = depth.shape
-    out = torch.empty((H // 2, W // 2), dtype=torch.float32, device=depth.device)
-    launch("pyr_down", depth.device, depth, out)
+    if min(H, W) >> (levels - 1) < 1:
+        raise ValueError(f"a {H}x{W} depth has no level {levels - 1}")
+    out = [depth] + [torch.empty((H >> level, W >> level), dtype=torch.float32, device=depth.device)
+                     for level in range(1, levels)]
+    launch("depth_pyramid", depth.device, depth, out[1], out[-1], levels)
     launch_counts["pyr_down"] += 1
     return out
 
@@ -270,7 +292,7 @@ def fuse_volume(
 
     ``r_v2c``/``t_v2c``: dual volume->camera rotation (3, 3) and translation
     (3,). Nearest-depth branch of the reference (``bi_threshold <= 0``)."""
-    pose = torch.cat([r_v2c.v.reshape(-1), r_v2c.g.reshape(-1), t_v2c.v.reshape(-1), t_v2c.g.reshape(-1)])
+    pose = fusion_pose(r_v2c, t_v2c)
     if on_cpu(value, grad, weight, depth_m, pose):
         fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight)
         return
@@ -278,16 +300,32 @@ def fuse_volume(
     for t, n in ((value, "value"), (grad, "grad"), (weight, "weight")):
         check_tensor(t, n, torch.float32, (X, Y, Z))
     check_tensor(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
-    pose = pose.to(torch.float32).contiguous()
-    check_tensor(pose, "pose", torch.float32, (24,))
+    check_tensor(pose, "pose", torch.float32, (FUSION_POSE_FLOATS,))
+    launch("fuse_volume", value.device, value, grad, weight, depth_m, pose,
+           *fusion_args(intr, voxel_size, trunc_dist, max_weight))
+    launch_counts["fuse_volume"] += 1
+
+
+def fusion_pose(r_v2c: CSFD, t_v2c: CSFD) -> torch.Tensor:
+    """The 24 pose floats K2 and the brick kernels read, as one device tensor
+    (no host read): volume->camera R.v (row-major), R.g, t.v, t.g."""
+    parts = (r_v2c.v, r_v2c.g, t_v2c.v, t_v2c.g)
+    return torch.cat([p.reshape(-1) for p in parts]).to(torch.float32).contiguous()
+
+
+def unpack_fusion_pose(pose: torch.Tensor) -> Tuple[CSFD, CSFD]:
+    """``(r_v2c, t_v2c)`` of a :func:`fusion_pose`, as views of it."""
+    return CSFD(pose[:9].view(3, 3), pose[9:18].view(3, 3)), CSFD(pose[18:21], pose[21:24])
+
+
+def fusion_args(intr: Intrinsics, voxel_size: float, trunc_dist: float, max_weight: float) -> tuple:
+    """The scalars of a fusion launch, each a float32: voxel size, fx, fy, cx,
+    cy, 1/fx and 1/fy (taken in float32, as the plain version's dual division
+    by a host number), trunc, 1/trunc, the weight clamp."""
     inv_fx = f32(np.float32(1.0) / np.float32(intr.fx))
     inv_fy = f32(np.float32(1.0) / np.float32(intr.fy))
-    launch(
-        "fuse_volume", value.device, value, grad, weight, depth_m, pose,
-        f32(voxel_size), f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy),
-        inv_fx, inv_fy, f32(trunc_dist), f32(1.0 / trunc_dist), f32(max_weight),
-    )
-    launch_counts["fuse_volume"] += 1
+    return (f32(voxel_size), f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy), inv_fx, inv_fy,
+            f32(trunc_dist), f32(1.0 / trunc_dist), f32(max_weight))
 
 
 def fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight):
@@ -299,6 +337,16 @@ def fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_si
     gx = ((torch.arange(X, dtype=torch.float32, device=dev) + 0.5)[:, None, None] * voxel_size)
     gy = ((torch.arange(Y, dtype=torch.float32, device=dev) + 0.5)[None, :, None] * voxel_size)
     gz = ((torch.arange(Z, dtype=torch.float32, device=dev) + 0.5)[None, None, :] * voxel_size)
+    new = voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight)
+    for plane, updated in zip((value, grad, weight), new):
+        plane.copy_(updated)
+
+
+def voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight):
+    """The port of ``xslam_tpu/ops/fusion.py::_voxel_update``, nearest-depth
+    branch: voxel metric coordinates (any broadcastable shapes) and the
+    matching planes in, the updated ``(value, grad, weight)`` out (new
+    tensors). K2's and the brick pass's per-voxel arithmetic."""
 
     def R(i, j):
         return CSFD(r_v2c.v[i, j], r_v2c.g[i, j])
@@ -341,16 +389,10 @@ def fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_si
     tsdf = CSFD(torch.where(beyond, 1.0, tsdf.v), torch.where(beyond, 0.0, tsdf.g))
 
     # running weighted average with weight clamp (TsdfFusion.cu:160-167)
-    w_prev = weight
-    w_new = torch.clamp(w_prev + 1.0, max=float(max_weight))
-    fused = (CSFD(value, grad) * w_prev + tsdf) / (w_prev + 1.0)
-
-    new_value = torch.where(update, fused.v, value)
-    new_grad = torch.where(update, fused.g, grad)
-    new_weight = torch.where(update, w_new, weight)
-    value.copy_(new_value)
-    grad.copy_(new_grad)
-    weight.copy_(new_weight)
+    w_new = torch.clamp(weight + 1.0, max=float(max_weight))
+    fused = (CSFD(value, grad) * weight + tsdf) / (weight + 1.0)
+    return (torch.where(update, fused.v, value), torch.where(update, fused.g, grad),
+            torch.where(update, w_new, weight))
 
 
 # --------------------------------------------------------------------- K3 march

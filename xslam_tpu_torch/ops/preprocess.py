@@ -4,10 +4,11 @@ maps, map resizing.
 Port of ``xslam_tpu/ops/preprocess.py`` (the reference's ``Map.cu``). Maps
 are real float32 ``(3, H, W)`` tensors with NaN at invalid pixels.
 
-:func:`bilateral_filter`, :func:`pyr_down` and :func:`create_vmap` with
-:func:`create_nmap` here are the plain versions of kernels K1, K7 and K8;
-the pipeline calls their wrappers in :mod:`xslam_tpu_torch.ops.kernels`
-(``bilateral_filter``, ``pyr_down``, ``vertex_normal_pyramid``), which launch
+:func:`bilateral_filter`, :func:`pyr_down` (level after level) and
+:func:`create_vmap` with :func:`create_nmap` here are the plain versions of
+kernels K1, K7 and K8; the pipeline calls their wrappers in
+:mod:`xslam_tpu_torch.ops.kernels` (``bilateral_filter``, ``depth_pyramid``,
+``vertex_normal_pyramid``), which launch
 on a CUDA tensor. :func:`resize_vmap` is part of K6's plain version
 (:func:`xslam_tpu_torch.models.kinfu.resize_model_maps`).
 """

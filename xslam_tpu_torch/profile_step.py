@@ -3,7 +3,7 @@ port's SLAM step.
 
 Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
-        [--fixed-assoc] [--model-map-level L]
+        [--fixed-assoc] [--model-map-level L] [--fusion-mode brick [--brick-cap N]]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
@@ -15,7 +15,9 @@ leaves out the hand kernels, which are reported apart), the launches per
 frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
 ``--fixed-assoc`` and ``--model-map-level`` set ``icp_fixed_assoc`` and
-``model_map_level`` over the file's values.
+``model_map_level`` over the file's values, ``--fusion-mode brick`` selects
+brick fusion with bench.py's cap (``--brick-cap``, 2816) and
+``fusion_overflow="dense"``.
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -43,7 +45,9 @@ HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
     "raycast_refine": "refine_kernel", "resize_model_maps": "model_map_pyramid_kernel",
-    "pyr_down": "pyr_down_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
+    "pyr_down": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
+    "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
+    "rank_bricks": "rank_bricks_kernel", "fuse_bricks": "fuse_bricks_kernel",
 }
 
 
@@ -76,6 +80,8 @@ def main(argv=None):
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
     ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
     ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
+    ap.add_argument("--fusion-mode", choices=("dense", "brick"), default=None, help="fusion_mode")
+    ap.add_argument("--brick-cap", type=int, default=2816, help="fusion_brick_cap with --fusion-mode brick")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step measures the CUDA card; none is available")
@@ -87,6 +93,11 @@ def main(argv=None):
         config.icp_fixed_assoc = True
     if args.model_map_level is not None:
         config.model_map_level = args.model_map_level
+    if args.fusion_mode is not None:
+        config.fusion_mode = args.fusion_mode
+    if config.fusion_mode == "brick":
+        config.fusion_brick_cap = args.brick_cap
+        config.fusion_overflow = "dense"
     ds = SyntheticDataset(n_frames=n, intr=config.intrinsics)
     depths = [ds.get_depth(i) for i in range(n)]
     engine = XSlamEngine(config)
@@ -130,6 +141,7 @@ def main(argv=None):
         "config": args.config,
         "icp_fixed_assoc": config.icp_fixed_assoc,
         "model_map_level": config.model_map_level,
+        "fusion_mode": config.fusion_mode,
         "frames_profiled": f,
         "wall_ms_per_frame": wall_ms / f,
         "device_busy_ms_per_frame": busy_ms / f,
