@@ -249,8 +249,8 @@ def _pyramid_tile():
     """K7's tile (level-2 rows, columns a block owns), as csrc/maps.cu defines it."""
     import re
 
-    text = (kernels.CSRC_DIR / "maps.cu").read_text()
-    return tuple(int(re.search(rf"#define XS_PYR_{axis} (\d+)", text).group(1)) for axis in ("TY", "TX"))
+    m = re.search(r"constexpr int PYR_TY = (\d+), PYR_TX = (\d+);", (kernels.CSRC_DIR / "maps.cu").read_text())
+    return int(m.group(1)), int(m.group(2))
 
 
 PYRAMID_SHAPES = [(480, 640), (478, 638), (477, 637)]
