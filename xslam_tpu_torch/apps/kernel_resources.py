@@ -32,7 +32,7 @@ BLOCK_THREADS = {
     "icp_system_kernel": 256, "icp_associate_kernel": 256, "fuse_kernel": 256, "bilateral_kernel": 256,
     "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 64,
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
-    "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "rank_bricks_kernel": 256, "fuse_bricks_kernel": 512,
+    "depth_mips_kernel": 512, "classify_bricks_kernel": 256, "rank_bricks_kernel": 256, "fuse_bricks_kernel": 512,
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64

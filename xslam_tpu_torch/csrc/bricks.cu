@@ -18,11 +18,10 @@
 //   loads in flight, then shuffles (and a shared-memory step past a warp);
 //   so the grid is about one wave and no thread waits on a long chain of
 //   loads. Min and max round nothing: the bits are the plain version's by
-//   construction. The largest tiles' blocks start first. (One warp a tile
-//   walking up to 512 pixels a lane, one load at a time, took 0.108 ms; up
-//   to sixteen warps a tile, with one warp even for 64 pixels, 0.033 ms.)
-//   Bound: the 1.2 MB image once (it stays in L2 for the 22 levels) plus the
-//   table.
+//   construction. The largest tiles' blocks start first. (One warp a tile,
+//   its lanes walking up to 512 pixels one load at a time, was several times
+//   slower.) Bound: the 1.2 MB image once (it stays in L2 for the 22
+//   levels) plus the table.
 // B3b xs_classify_bricks: two kernels. classify_bricks_kernel: one thread a
 //   brick: the eight corners' projections and the four frustum planes, the
 //   exact point-to-box distance interval, the footprint, the smallest

@@ -56,7 +56,6 @@ MIP_LEVELS = (
 )
 NONE, FAR, ACTIVE, FAR_PARTIAL = 0, 1, 2, 3
 CLASSIFY_BLOCK = 256  # bricks a block of csrc/bricks.cu's classifier counts
-CLASSIFY_CONSTS = 13  # the float32 constants the classifier kernel takes
 
 
 class MipLayout(NamedTuple):
@@ -362,14 +361,12 @@ def classify_consts(intr: Intrinsics, cfg) -> list:
     planes' constant terms, 1/|fx| and 1/|fy| (the reciprocal in double, as
     the card divides by a host number), trunc, -trunc."""
     f32, W, H = kernels.f32, intr.width, intr.height
-    consts = [
+    return [
         f32(BRICK * cfg.voxel_size), f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy),
         f32(intr.cx - 2.5), f32((W - 0.5) - intr.cx), f32(intr.cy - 2.5), f32((H - 0.5) - intr.cy),
         kernels.reciprocal_f32(abs(intr.fx)), kernels.reciprocal_f32(abs(intr.fy)),
         f32(cfg.trunc_dist), f32(-cfg.trunc_dist),
     ]
-    assert len(consts) == CLASSIFY_CONSTS
-    return consts
 
 
 # -------------------------------------------------------------- B3c fusion
