@@ -170,7 +170,8 @@ def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrins
     layout = mip_layout(H, W)
     nb = _check_resolution(cfg.resolution)
     dev = table.device
-    R, t = pose[:9].view(3, 3), pose[18:21]
+    r_v2c, t_v2c = kernels.unpack_fusion_pose(pose)
+    R, t = r_v2c.v, t_v2c.v
     bm = BRICK * cfg.voxel_size
     bx0 = torch.arange(nb[0], dtype=torch.float32, device=dev)[:, None, None] * bm
     by0 = torch.arange(nb[1], dtype=torch.float32, device=dev)[None, :, None] * bm

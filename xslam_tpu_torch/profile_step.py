@@ -3,7 +3,7 @@ port's SLAM step.
 
 Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
-        [--fixed-assoc] [--model-map-level L] [--fusion-mode brick [--brick-cap N]]
+        [--fixed-assoc] [--model-map-level L] [--fusion-mode brick]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
@@ -16,8 +16,7 @@ frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
 ``--fixed-assoc`` and ``--model-map-level`` set ``icp_fixed_assoc`` and
 ``model_map_level`` over the file's values, ``--fusion-mode brick`` selects
-brick fusion with bench.py's cap (``--brick-cap``, 2816) and
-``fusion_overflow="dense"``.
+bench.py's brick fusion (cap 2816, ``fusion_overflow="dense"``).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -39,6 +38,7 @@ from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
+BENCH_BRICK_CAP = 2816  # bench.py's fusion_brick_cap
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
 # the hand kernels' device names (csrc/*.cu), reported apart from the stages
 HAND_KERNELS = {
@@ -81,7 +81,6 @@ def main(argv=None):
     ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
     ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
     ap.add_argument("--fusion-mode", choices=("dense", "brick"), default=None, help="fusion_mode")
-    ap.add_argument("--brick-cap", type=int, default=2816, help="fusion_brick_cap with --fusion-mode brick")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step measures the CUDA card; none is available")
@@ -96,7 +95,7 @@ def main(argv=None):
     if args.fusion_mode is not None:
         config.fusion_mode = args.fusion_mode
     if config.fusion_mode == "brick":
-        config.fusion_brick_cap = args.brick_cap
+        config.fusion_brick_cap = BENCH_BRICK_CAP
         config.fusion_overflow = "dense"
     ds = SyntheticDataset(n_frames=n, intr=config.intrinsics)
     depths = [ds.get_depth(i) for i in range(n)]
