@@ -88,13 +88,15 @@ PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 # kernel runs on no path: each level's first icp_system launch writes the association, and the kernel is the
 # reference that index is held against, so it is listed with its main-path count, 0
 FOLDED = {"icp_associate": "icp_system"}
+# wrappers whose one launch (one count) runs more than one device kernel, listed by their device names
+DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel", "rank_bricks_kernel")}
 KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
     "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
     "march_fixed": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136", "main path"),
     "raycast_refine": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:901", "main path"),
     "resize_model_maps": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/models/kinfu.py:527-529,546", "main path"),
-    "pyr_down": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:78", "main path"),
+    "depth_pyramid": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/preprocess.py:78", "main path"),
     "depth_mips": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:60", "main path, brick fusion"),
     "classify_bricks": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:219",
                         "main path, brick fusion"),
@@ -432,13 +434,14 @@ def phase_bricks(ctx):
         plain_a = time_ms(lambda: fb.depth_mips_plain(depth_m), 3)
         plain_b = time_ms(lambda: fb.rank_bricks_plain(fb.classify_bricks_plain(table, pose, intr, eng), cap), 3)
         plain_c = time_ms(lambda: fb.fuse_bricks_plain(*brick, depth_m, pose, intr, eng, classes, cap, True), 2)
-        # bounds: B3a the image once and the table; 22 x 3 operations a pixel. B3b four table rows in and 16 B
-        # out a brick; ~600 operations a brick (eight corners' projections and planes, the intervals, the
-        # level scan). B3c the depth image and 24 B a voxel it updates; 69 operations a voxel of the work list
-        # to its gate, 60 more an exact update
+        # bounds: B3a the image once and the table; 22 x 3 operations a pixel. B3b the table once, the pose,
+        # a class and a rank out a brick, the listed ids, the counts and the flag; ~600 operations a brick
+        # (eight corners' projections and planes, the intervals, the level scan). B3c the depth image and 24 B
+        # a voxel it updates; 69 operations a voxel of the work list to its gate, 60 more an exact update
         n_bricks = classes.rank.numel()
         b_a = bound_ms(depth_m.numel() * 4 + table.numel() * 4, depth_m.numel() * 3 * len(layout.sizes))
-        b_b = bound_ms(n_bricks * (4 * 12 + 16), n_bricks * 600)
+        b_b = bound_ms(table.numel() * 4 + pose.numel() * 4 + n_bricks * 8 + (n_active + n_work) * 4 + 9,
+                       n_bricks * 600)
         b_c = bound_ms(depth_m.numel() * 4 + updated * 24, n_work * 512 * 69 + n_active * 512 * 60)
         emit("B3 brick fusion", case=name, classes=dict(zip(("none", "far", "active", "far_partial"), counts)),
              n_active=n_active, n_work=n_work, cap=cap, table_rows=layout.rows, table_equal=table_equal,
@@ -763,7 +766,7 @@ def phase_maps(ctx):
                  shape=[H, W], bit_equal=equal, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
                  bound_by=by, library_ms=None)
         check(all(equal), f"K7 is not bit-equal to its plain chain at {H}x{W}: levels 1, 2 {equal}")
-        rows.setdefault("pyr_down", dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+        rows.setdefault("depth_pyramid", dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by))
         if (H, W) == (480, 640):
             depths = pyramid
     intrs = [cfg.intrinsics.level(level) for level in range(cfg.num_levels)]
@@ -1325,7 +1328,7 @@ def phase_main_path(ctx, tag: str = "main path"):
     fused.update({k: integrated if brick else 0 for k in ("depth_mips", "classify_bricks", "fuse_bricks")})
     check(counts["bilateral_filter"] == n_frames and counts["march_fixed"] == n_frames
           and counts["raycast_refine"] == n_frames and counts["resize_model_maps"] == n_frames
-          and counts["pyr_down"] == n_frames and counts["vertex_normal_maps"] == n_frames
+          and counts["depth_pyramid"] == n_frames and counts["vertex_normal_maps"] == n_frames
           and all(counts[k] == n for k, n in fused.items()) and counts["icp_system"] == iterations * n_frames
           and counts["icp_associate"] == 0,
           f"launch counts {counts}")
@@ -1419,7 +1422,9 @@ def main() -> int:
     counts["probe path"] = ctx["probe_counts"]
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],
-         **({"folded_into": FOLDED[k]} if k in FOLDED else {}), **{"library_ms": None, **results[k]}}
+         **({"folded_into": FOLDED[k]} if k in FOLDED else {}),
+         **({"device_kernels_per_launch": list(DEVICE_KERNELS[k])} if k in DEVICE_KERNELS else {}),
+         **{"library_ms": None, **results[k]}}
         for k, (src, rep, path) in KERNELS.items()
     ]
     never = [row["name"] for row in table if row["launches"] < 1 and row["name"] not in FOLDED]

@@ -175,3 +175,40 @@ def test_stage_launches_counts_the_calls_inside_each_range():
         event("preprocess", 40, 50), event("cudaMemsetAsync", 41, 42),
     ]
     assert stage_launches(events, 2) == {"preprocess": 1.5, "icp": 0.5}
+
+
+@pytest.mark.parametrize("flags, want", [
+    ([], ("brick", 1234, "flag")),
+    (["--fusion-mode", "dense"], ("dense", 1234, "flag")),
+    (["--fusion-brick-cap", "2816", "--fusion-overflow", "dense"], ("brick", 2816, "dense")),
+])
+def test_profile_step_keeps_the_files_fusion_settings(flags, want):
+    """``profile_step`` profiles a file's brick settings as the file states
+    them; only the options given on the command line change."""
+    from xslam_tpu_torch.io.config import SlamConfig
+    from xslam_tpu_torch.profile_step import parser, set_options
+
+    config = SlamConfig(fusion_mode="brick", fusion_brick_cap=1234, fusion_overflow="flag")
+    set_options(config, parser().parse_args(["configs/synthetic.yaml", *flags]))
+    assert (config.fusion_mode, config.fusion_brick_cap, config.fusion_overflow) == want
+    assert (config.icp_fixed_assoc, config.model_map_level) == (SlamConfig().icp_fixed_assoc,
+                                                                 SlamConfig().model_map_level)
+
+
+def test_compare_trees_profiles_benchs_brick_fusion():
+    from xslam_tpu_torch.apps.compare_trees import COMMANDS
+
+    assert COMMANDS["profile_brick"][-6:] == ["--fusion-mode", "brick", "--fusion-brick-cap", "2816",
+                                              "--fusion-overflow", "dense"]
+
+
+def test_frame_turns_alternate_and_summarise():
+    """``apps/frame_turns``: the trees take turns parent, change, change,
+    parent, as many of each; the summary's quartiles are numpy's."""
+    from xslam_tpu_torch.apps.frame_turns import summary, turn_order
+
+    order = turn_order(3)
+    assert order == ["parent", "change", "change", "parent", "parent", "change"]
+    assert order.count("parent") == order.count("change") == 3
+    out = summary([10.0, 14.0, 11.0, 12.0, 13.0])
+    assert out == dict(turns=5, median_ms=12.0, q1_ms=11.0, q3_ms=13.0, min_ms=10.0, max_ms=14.0)

@@ -126,7 +126,7 @@ def test_six_frame_ate_class(runs):
 def test_cpu_run_launches_no_kernel(runs):
     assert set(kernels.launch_counts) >= {
         "bilateral_filter", "fuse_volume", "march_fixed", "icp_system", "raycast_refine", "resize_model_maps",
-        "pyr_down", "vertex_normal_maps", "depth_mips", "classify_bricks", "fuse_bricks"}
+        "depth_pyramid", "vertex_normal_maps", "depth_mips", "classify_bricks", "fuse_bricks"}
     assert all(n == 0 for n in kernels.launch_counts.values()), kernels.launch_counts
 
 

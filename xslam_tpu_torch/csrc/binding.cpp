@@ -156,9 +156,11 @@ int model_map_pyramid(const torch::Tensor& vv, const torch::Tensor& vg, const to
 }
 
 // l1, l2: the (H / 2, W / 2) and (H / 4, W / 4) outputs (l2 unused with 2 levels)
-int depth_pyramid(const torch::Tensor& src, torch::Tensor l1, torch::Tensor l2, int64_t levels, int64_t stream) {
-  return xs_depth_pyramid(src.data_ptr(), l1.data_ptr(), l2.data_ptr(), src.size(0), src.size(1), (int)levels,
-                          as_stream(stream));
+// l2: the level-2 output with 3 levels, None with 2
+int depth_pyramid(const torch::Tensor& src, torch::Tensor l1, std::optional<torch::Tensor> l2, int64_t levels,
+                  int64_t stream) {
+  return xs_depth_pyramid(src.data_ptr(), l1.data_ptr(), l2 ? l2->data_ptr() : nullptr, src.size(0), src.size(1),
+                          (int)levels, as_stream(stream));
 }
 
 // depths: the (H, W) depth of each level; out: the buffer of all the maps; offsets: two a level (vertex map,

@@ -83,7 +83,7 @@ MAX_MAP_LEVELS = 3  # K6's and K8's levels in one launch (csrc/maps.cu); the ICP
 
 launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
-    "raycast_refine": 0, "resize_model_maps": 0, "pyr_down": 0, "vertex_normal_maps": 0,
+    "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
@@ -191,8 +191,7 @@ def depth_pyramid(depth: torch.Tensor, levels: int) -> list:
     ...]``, each the next coarser level of the one before. On CPU tensors its
     plain version, :func:`~xslam_tpu_torch.ops.preprocess.pyr_down` level
     after level. On the card, levels 1 and 2 in ONE launch of K7 (at most
-    :data:`MAX_MAP_LEVELS` levels); the launch count keeps the name
-    ``pyr_down``."""
+    :data:`MAX_MAP_LEVELS` levels)."""
     if levels < 1:
         raise ValueError(f"levels: expected at least 1, got {levels}")
     if depth.dim() != 2:
@@ -212,8 +211,8 @@ def depth_pyramid(depth: torch.Tensor, levels: int) -> list:
         raise ValueError(f"a {H}x{W} depth has no level {levels - 1}")
     out = [depth] + [torch.empty((H >> level, W >> level), dtype=torch.float32, device=depth.device)
                      for level in range(1, levels)]
-    launch("depth_pyramid", depth.device, depth, out[1], out[-1], levels)
-    launch_counts["pyr_down"] += 1
+    launch("depth_pyramid", depth.device, depth, out[1], out[2] if levels > 2 else None, levels)
+    launch_counts["depth_pyramid"] += 1
     return out
 
 

@@ -3,7 +3,8 @@ port's SLAM step.
 
 Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
-        [--fixed-assoc] [--model-map-level L] [--fusion-mode brick]
+        [--fixed-assoc] [--model-map-level L] [--fusion-mode brick] [--fusion-brick-cap N]
+        [--fusion-overflow dense]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
@@ -14,9 +15,11 @@ and device time and launches per frame (the engine's profiler ranges
 leaves out the hand kernels, which are reported apart), the launches per
 frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
-``--fixed-assoc`` and ``--model-map-level`` set ``icp_fixed_assoc`` and
-``model_map_level`` over the file's values, ``--fusion-mode brick`` selects
-bench.py's brick fusion (cap 2816, ``fusion_overflow="dense"``).
+``--fixed-assoc``, ``--model-map-level``, ``--fusion-mode``,
+``--fusion-brick-cap`` and ``--fusion-overflow`` set ``icp_fixed_assoc``,
+``model_map_level``, ``fusion_mode``, ``fusion_brick_cap`` and
+``fusion_overflow`` over the file's values (bench.py's brick fusion:
+``--fusion-mode brick --fusion-brick-cap 2816 --fusion-overflow dense``).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -38,14 +41,13 @@ from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
-BENCH_BRICK_CAP = 2816  # bench.py's fusion_brick_cap
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
 # the hand kernels' device names (csrc/*.cu), reported apart from the stages
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
     "raycast_refine": "refine_kernel", "resize_model_maps": "model_map_pyramid_kernel",
-    "pyr_down": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
+    "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
     "rank_bricks": "rank_bricks_kernel", "fuse_bricks": "fuse_bricks_kernel",
 }
@@ -72,7 +74,17 @@ def stage_launches(events, n_frames: int) -> dict:
     return out
 
 
-def main(argv=None):
+def set_options(config, args) -> None:
+    """Set on ``config`` the options given on the command line; the others
+    keep the file's values."""
+    for key in ("model_map_level", "fusion_mode", "fusion_brick_cap", "fusion_overflow"):
+        if getattr(args, key) is not None:
+            setattr(config, key, getattr(args, key))
+    if args.fixed_assoc:
+        config.icp_fixed_assoc = True
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("config")
     ap.add_argument("--warm", type=int, default=3)
@@ -81,22 +93,20 @@ def main(argv=None):
     ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
     ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
     ap.add_argument("--fusion-mode", choices=("dense", "brick"), default=None, help="fusion_mode")
-    args = ap.parse_args(argv)
+    ap.add_argument("--fusion-brick-cap", type=int, default=None, help="fusion_brick_cap")
+    ap.add_argument("--fusion-overflow", choices=("flag", "dense"), default=None, help="fusion_overflow")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step measures the CUDA card; none is available")
 
     config = load_config(args.config)
     n = args.warm + args.frames
     config.end_frame = n
-    if args.fixed_assoc:
-        config.icp_fixed_assoc = True
-    if args.model_map_level is not None:
-        config.model_map_level = args.model_map_level
-    if args.fusion_mode is not None:
-        config.fusion_mode = args.fusion_mode
-    if config.fusion_mode == "brick":
-        config.fusion_brick_cap = BENCH_BRICK_CAP
-        config.fusion_overflow = "dense"
+    set_options(config, args)
     ds = SyntheticDataset(n_frames=n, intr=config.intrinsics)
     depths = [ds.get_depth(i) for i in range(n)]
     engine = XSlamEngine(config)
@@ -141,6 +151,8 @@ def main(argv=None):
         "icp_fixed_assoc": config.icp_fixed_assoc,
         "model_map_level": config.model_map_level,
         "fusion_mode": config.fusion_mode,
+        **({"fusion_brick_cap": config.fusion_brick_cap, "fusion_overflow": config.fusion_overflow}
+           if config.fusion_mode == "brick" else {}),
         "frames_profiled": f,
         "wall_ms_per_frame": wall_ms / f,
         "device_busy_ms_per_frame": busy_ms / f,
