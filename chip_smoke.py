@@ -71,6 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 HOLD_CYCLES = 30_000_000  # about 20 ms of device spinning at the card's clock
+L2_FLUSH_BYTES = 128 << 20  # written before each cold launch: more than the H100's 50 MB of L2
 N_FRAMES = 10
 N_FRAMES_FIXED_ASSOC = 6
 WARM_FRAMES = 2
@@ -127,6 +128,25 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` as a caller finds it after other work: the
+    L2 cache is flushed by writing a scratch buffer larger than it before
+    each call, and only the call itself is timed, by CUDA events around it,
+    on a stream held busy as in :func:`time_ms`."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(HOLD_CYCLES)
+    for i, (start, end) in enumerate(events):
+        scratch.fill_(float(i))
+        start.record()
+        fn()
+        end.record()
+    events[-1][1].synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -318,6 +338,7 @@ def phase_fusion(ctx):
         keep = fusion.tile_keep_mask(r, t, intr, eng.resolution, eng.voxel_size)
         kept_voxels = int(keep.sum()) * int(np.prod(fusion.FUSE_TILE))
         ms = time_ms(lambda: kernels.fuse_volume(*a, *args), 20)
+        cold = time_cold_ms(lambda: kernels.fuse_volume(*a, *args), 20)  # the planes out of L2, as in the frame
         plain = time_ms(lambda: kernels.fuse_volume_plain(*b, *args), 2)
         # What the kernel needs: every voxel projects (69 operations up to the
         # pixel gate); an updated voxel does 60 more and reads and writes its
@@ -332,12 +353,14 @@ def phase_fusion(ctx):
         del a, b
         emit("K2 fuse_volume", case=name, shape=list(vol.value.shape), planes_bit_equal=equal,
              max_abs_err_value=err_v, max_abs_err_grad=err_g, voxels_updated=updated,
-             tiles_kept_fraction=float(keep.float().mean()), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+             tiles_kept_fraction=float(keep.float().mean()), ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
+             bound_by=by,
              bound_counts=bound_note, library_ms=None, library_note="no single PyTorch call computes it")
         check(all(equal), f"K2 is not bit-equal to its plain version at {name}: value, grad, weight {equal}")
         check(updated > 100_000, f"K2's case {name} updates only {updated} voxels")
         if table is None:
-            table = dict(max_abs_err=max(err_v, err_g), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+            table = dict(max_abs_err=max(err_v, err_g), ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
+                         bound_by=by)
             ctx["fuse_volume_ms"] = ms
     return table
 
@@ -359,7 +382,9 @@ def phase_bricks(ctx):
     K2's with ``==`` and equal NaN masks, bit for bit (the sign of zero
     counted apart); with cap 64, ``"flag"`` equals the plain version and
     ``"dense"`` equals K2. Each kernel timed from prepared arguments beside
-    K2 on the same frame. The classes are taken with a cap of every brick
+    K2 on the same frame, warm; B3c and K2 also cold (L2 flushed before each
+    launch, as the frame finds the planes); B3a beside ``torch.amax`` over
+    its 8 px tiles, a yardstick. The classes are taken with a cap of every brick
     (the volume corner's seeded depth makes some 5,700 bricks ACTIVE, past
     bench.py's 2816), so B3c fuses every ACTIVE brick exactly at each pose."""
     from xslam_tpu_torch.geometry import se3
@@ -431,6 +456,14 @@ def phase_bricks(ctx):
                                    classes.totals, classes.overflow, *fargs, cap, True), 20)
         ms_k2 = time_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
                                                     eng.max_weight), 20)
+        # as the frame finds them: the planes out of L2 (B3c's work bricks, ~19 MB at the orbit, fit in it)
+        cold_c = time_cold_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank,
+                                          classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True), 20)
+        cold_k2 = time_cold_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
+                                                           eng.max_weight), 20)
+        # a yardstick for B3a, not a library call for it: one of its 22 levels and one of its three statistics
+        lib_a = time_ms(lambda: torch.amax(depth_m[:H - H % 8, :W - W % 8].reshape(H // 8, 8, W // 8, 8), dim=(1, 3)),
+                        100)
         plain_a = time_ms(lambda: fb.depth_mips_plain(depth_m), 3)
         plain_b = time_ms(lambda: fb.rank_bricks_plain(fb.classify_bricks_plain(table, pose, intr, eng), cap), 3)
         plain_c = time_ms(lambda: fb.fuse_bricks_plain(*brick, depth_m, pose, intr, eng, classes, cap, True), 2)
@@ -451,9 +484,12 @@ def phase_bricks(ctx):
                         flag_leaves_bricks_unfused=flag_unfused, dense_bit_equal_to_k2=dense_equal),
              ms=dict(depth_mips=ms_a, classify_bricks=ms_b, fuse_bricks=ms_c, sum=ms_a + ms_b + ms_c,
                      fuse_volume=ms_k2),
+             cold_ms=dict(fuse_bricks=cold_c, fuse_volume=cold_k2),
              plain_ms=dict(depth_mips=plain_a, classify_bricks=plain_b, fuse_bricks=plain_c),
-             bound_ms=dict(depth_mips=b_a, classify_bricks=b_b, fuse_bricks=b_c), library_ms=None,
-             library_note="no single PyTorch call computes them")
+             bound_ms=dict(depth_mips=b_a, classify_bricks=b_b, fuse_bricks=b_c),
+             library_ms=dict(depth_mips=lib_a, classify_bricks=None, fuse_bricks=None),
+             library_note="depth_mips: torch.amax over the 8 px tiles, a yardstick (one of 22 levels, the max "
+                          "alone); no single PyTorch call computes any of the three")
         check(table_equal, f"B3a's table differs from its plain version at {name}")
         check(classes_equal, f"B3b's classes or lists differ from its plain version at {name}")
         check(all(eq_k2) and all(bits_k2), f"B3c's volume is not K2's bit for bit at {name}: == {eq_k2}, bits {bits_k2}")
@@ -465,10 +501,12 @@ def phase_bricks(ctx):
               f"{name}: overflow, or too few updates ({n_active} ACTIVE bricks, {updated} voxels)")
         if not rows:
             rows = {
-                "depth_mips": dict(max_abs_err=0.0, ms=ms_a, plain_ms=plain_a, bound_ms=b_a[0], bound_by=b_a[1]),
+                "depth_mips": dict(max_abs_err=0.0, ms=ms_a, plain_ms=plain_a, bound_ms=b_a[0], bound_by=b_a[1],
+                                   library_ms=lib_a),
                 "classify_bricks": dict(max_abs_err=0.0, ms=ms_b, plain_ms=plain_b, bound_ms=b_b[0],
                                         bound_by=b_b[1]),
-                "fuse_bricks": dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c, bound_ms=b_c[0], bound_by=b_c[1]),
+                "fuse_bricks": dict(max_abs_err=0.0, ms=ms_c, cold_ms=cold_c, plain_ms=plain_c, bound_ms=b_c[0],
+                                    bound_by=b_c[1]),
             }
         del k2, brick
     return rows

@@ -18,9 +18,13 @@ the port's own dense fusion, on the CPU at the tests' scale (64^3 at 0.12 m,
   ``"flag"`` leaves the same bricks unfused; in the engine the flag
   propagates, ``"dense"`` gives the dense engine's volume bit for bit, and
   a brick-fusion run lies in the JAX brick engine's ATE class.
-- B3b ranks bricks by per-block counts and warp ballots, and B3a walks a
-  tile's pixels lane by lane; their numpy twins here show the ranks are
-  flat brick order and every pixel is read once.
+- B3b ranks bricks by per-block counts and warp ballots, B3a walks pixel
+  columns with lanes adjacent in x and reduces each tile in a group of
+  lanes, and B3c gives a warp a brick and a lane two z columns; their numpy
+  twins here show the ranks are flat brick order, every pixel is read once
+  and every mip row has one owner (the twin's table the plain version's),
+  every voxel of a brick is visited once with the plain order of its
+  camera-coordinate sums, and every work item is taken once.
 """
 
 import numpy as np
@@ -142,35 +146,160 @@ def test_mip_layout_offsets():
     assert layout.rows == sum(h * w for h, w in layout.shapes)
 
 
-def _mip_tile_threads(ts):
-    """csrc/bricks.cu::mip_tile_threads: a power of two up to 512, about 32 pixels a thread."""
-    want, t = ts * ts // 32, 1
-    while 2 * t <= want and t < 512:
-        t *= 2
-    return t
+MIP_THREADS, MIP_ROWS = 256, 64  # csrc/bricks.cu: threads of a depth_mips block, most rows a thread walks
+
+
+def _mip_blocks(ts, h, w):
+    """csrc/bricks.cu::read_levels for one level: (tiles a warp or a block
+    takes across, blocks of the level)."""
+    if ts <= min(32, MIP_ROWS):  # a warp's tiles: 32 // ts across, MIP_ROWS // ts tile rows down
+        across, stack = 32 // ts, MIP_ROWS // ts
+        warps = -(-h // stack) * -(-w // across)
+        return across, -(-warps // (MIP_THREADS // 32))
+    runs = -(-ts // MIP_ROWS)
+    blocks_across = -(-w // (MIP_THREADS // (ts * runs)))
+    return -(-w // blocks_across), h * blocks_across
+
+
+def _segment_reduce(vals, ops, ends):
+    """numpy twin of csrc/bricks.cu::segment_reduce: the shuffle-down steps
+    1, 2, 4, 8, 16, each lane taking lane + off while that lies before its
+    segment's end. ``vals``: a list of (32,) arrays, reduced by ``ops``."""
+    lane = np.arange(32)
+    vals = [v.copy() for v in vals]
+    for off in (1, 2, 4, 8, 16):
+        src = np.minimum(lane + off, 31)  # a shuffle past lane 31 returns the lane's own value
+        take = lane + off < ends
+        vals = [np.where(take, op(v, v[src]), v) for v, op in zip(vals, ops)]
+    return vals
+
+
+def _twin_mip_level(depth, ts, h, w):
+    """numpy twin of csrc/bricks.cu::depth_mips_kernel at one level: the
+    level's (h * w, 3) rows, each pixel's read count and each row's owner
+    count. A tile up to a warp wide: warp u takes 32 // ts tiles side by
+    side and MIP_ROWS // ts tile rows down, lane = (tile, column), each lane
+    walking its pixel column with the warp, and at each tile row's end the
+    lanes of a tile reduce it by segment_reduce, its first lane writing the
+    row. A wider tile: a block's thread (run, column) walks at most MIP_ROWS
+    rows of one column; the partials go through shared memory and G aligned
+    lanes reduce each tile. Asserts what the design promises: at most
+    MIP_ROWS loads a thread, lanes adjacent in x on one row (two, where a
+    warp holds the end of one run and the start of the next)."""
+    H, W = depth.shape
+    per_block, blocks = _mip_blocks(ts, h, w)
+    rows = np.full((h * w, 3), np.nan, np.float32)
+    reads = np.zeros((H, W), np.int64)
+    owners = np.zeros(h * w, np.int64)
+    fmin, fmax, fand = np.minimum, np.maximum, np.logical_and
+    if ts <= min(32, MIP_ROWS):
+        across, stack = per_block, MIP_ROWS // ts
+        strips = -(-w // across)
+        lane = np.arange(32)
+        t, c = lane // ts, lane % ts
+        for u in range(blocks * (MIP_THREADS // 32)):
+            ty0, tx0 = (u // strips) * stack, (u % strips) * across
+            if ty0 >= h:
+                continue
+            x = (tx0 + t) * ts + c
+            tile_ok = (t < across) & (tx0 + t < w)
+            readable = tile_ok & (x < W)
+            yb = min(min(ty0 + stack, h) * ts, H)
+            assert yb - ty0 * ts <= MIP_ROWS
+            xs = x[readable]
+            assert np.array_equal(xs, np.arange(xs[0], xs[0] + len(xs)))  # one contiguous run of the row
+            for ty in range(ty0, min(ty0 + stack, h)):
+                ys = np.arange(ty * ts, min((ty + 1) * ts, H))
+                d = depth[np.ix_(ys, np.clip(x, 0, W - 1))]
+                reads[np.ix_(ys, x[readable])] += 1
+                ok = readable[None, :]
+                mn = np.where(ok & (d > 0), d, np.inf).min(0).astype(np.float32)
+                mx = np.where(ok & (d > 0), d, -np.inf).max(0).astype(np.float32)
+                av = ~(ok & ~(d > 0)).any(0)
+                mn, mx, av = _segment_reduce([mn, mx, av], (fmin, fmax, fand), (t + 1) * ts)
+                for tt in np.flatnonzero(tile_ok & (c == 0)):
+                    row = ty * w + tx0 + t[tt]
+                    owners[row] += 1
+                    rows[row] = (mn[tt], mx[tt], float(av[tt]))
+        return rows, reads, owners
+    runs = -(-ts // MIP_ROWS)
+    run_rows, span, cells = -(-ts // runs), per_block * ts, ts * runs
+    blocks_across = blocks // h
+    G = 1
+    while 2 * G <= cells and G < 32:
+        G *= 2
+    assert 32 % G == 0 and cells <= MIP_THREADS and per_block * G <= MIP_THREADS
+    tid = np.arange(MIP_THREADS)
+    r, c = tid // span, tid % span
+    for bi in range(blocks):
+        ty, tx0 = bi // blocks_across, (bi % blocks_across) * per_block
+        n_tiles = min(per_block, w - tx0)
+        x = tx0 * ts + c
+        ya = ty * ts + r * run_rows
+        yb = np.minimum(np.minimum(ya + run_rows, (ty + 1) * ts), H)
+        live = (r < runs) & (c < n_tiles * ts) & (x < W)
+        assert (yb - ya)[live].max(initial=0) <= MIP_ROWS
+        for warp in range(MIP_THREADS // 32):
+            lanes = np.flatnonzero(live[32 * warp:32 * warp + 32]) + 32 * warp
+            firsts = np.unique(ya[lanes])
+            assert len(firsts) <= 2
+            for y0 in firsts:
+                xs = x[lanes][ya[lanes] == y0]
+                assert np.array_equal(xs, np.arange(xs[0], xs[0] + len(xs)))
+        ys = ya[:, None] + np.arange(MIP_ROWS)[None, :]
+        take = live[:, None] & (ys < yb[:, None])
+        xs = np.broadcast_to(x[:, None], ys.shape)
+        np.add.at(reads, (ys[take], xs[take]), 1)
+        d = depth[np.clip(ys, 0, H - 1), np.clip(xs, 0, W - 1)]
+        s_mn = np.where(take & (d > 0), d, np.inf).min(1)
+        s_mx = np.where(take & (d > 0), d, -np.inf).max(1)
+        s_av = ~(take & ~(d > 0)).any(1)
+        for t_ in range(n_tiles):
+            group = np.flatnonzero(tid // G == t_)
+            assert len(group) == G and group[0] % G == 0
+            cell = np.concatenate([np.arange(jj, cells, G) for jj in range(G)])  # every cell by one lane
+            assert np.array_equal(np.sort(cell), np.arange(cells))
+            q = (cell // ts) * span + t_ * ts + cell % ts
+            assert np.array_equal(np.sort(q), np.flatnonzero((r < runs) & (c // ts == t_)))
+            row = ty * w + tx0 + t_
+            owners[row] += 1
+            rows[row] = (s_mn[q].min(), s_mx[q].max(), float(s_av[q].all()))
+    return rows, reads, owners
+
+
+def _seeded_depth(H=480, W=640, seed=8):
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(0.3, 7.0, (H, W)).astype(np.float32)
+    depth[rng.random((H, W)) < 0.05] = 0.0
+    depth[100:160, 200:330] = 0.0  # tiles with no valid depth
+    return depth
 
 
 @pytest.mark.parametrize("ts", tbrick.MIP_LEVELS)
 def test_mip_walk_reads_every_pixel_once(ts):
-    """numpy twin of csrc/bricks.cu::depth_mips_kernel's walk: thread q of
-    the tile's T threads starts at pixel q of the tile in row order and steps
-    T pixels by (T // ts) rows and (T % ts) columns with one carry; a thread
-    reads at most 63 pixels (eight rounds of eight loads), and a tile's
-    threads are an aligned run of lanes or whole warps."""
-    threads = _mip_tile_threads(ts)
-    assert ts * ts / threads < 64 and (threads <= 32 or threads % 32 == 0) and 512 % threads == 0
-    seen = np.zeros((ts, ts), np.int32)
-    step_y, step_x = threads // ts, threads - (threads // ts) * ts
-    for q in range(threads):
-        yy, xx = q // ts, q % ts
-        while yy < ts:
-            seen[yy, xx] += 1
-            xx += step_x
-            yy += step_y
-            if xx >= ts:
-                xx -= ts
-                yy += 1
-    assert (seen == 1).all()
+    """The twin of depth_mips_kernel at each level of a 480x640 frame: every
+    pixel of the image read once (the tiles' padding, past the image, read
+    by none), every row of the level written by one owner, and the rows the
+    plain version's bit for bit."""
+    depth = _seeded_depth()
+    layout = tbrick.mip_layout(*depth.shape)
+    k = layout.sizes.index(ts)
+    h, w = layout.shapes[k]
+    rows, reads, owners = _twin_mip_level(depth, ts, h, w)
+    assert (reads == 1).all() and (owners == 1).all()
+    plain = tbrick.depth_mips_plain(torch.from_numpy(depth)).numpy()
+    assert np.array_equal(rows, plain[layout.offsets[k]:layout.offsets[k] + h * w])
+
+
+@pytest.mark.parametrize("shape", [(117, 157), (120, 160), (477, 637)])
+def test_mip_twin_table_equals_plain(shape):
+    """The twin's whole table, level after level, at shapes whose tiles
+    leave padded rows and columns: the plain version's, inf pads included."""
+    depth = _seeded_depth(*shape, seed=shape[0])
+    layout = tbrick.mip_layout(*shape)
+    table = np.concatenate([_twin_mip_level(depth, ts, h, w)[0] for ts, (h, w) in zip(layout.sizes, layout.shapes)])
+    assert table.shape == (layout.rows, 3)
+    assert np.array_equal(table, tbrick.depth_mips_plain(torch.from_numpy(depth)).numpy())
 
 
 # --------------------------------------------------------- B3b: classes
@@ -268,6 +397,125 @@ def _fuse_both(name, seed=None, cap=512, overflow="flag"):
     tfusion.integrate(dense, dm, tr, tt, TINTR, tcfg)
     flags = tfusion.integrate_brick(brick, dm, tr, tt, TINTR, tcfg, cap=cap, overflow=overflow)
     return pre, dense, brick, flags
+
+
+def _twin_brick_column(b, c, nby, nbz, Y, Z):
+    """numpy twin of csrc/bricks.cu::brick_column: brick b's (x, y) column c
+    (0..63) -> (x, y, z0, index of its first voxel in the dense planes)."""
+    bz, by, bx = b % nbz, (b // nbz) % nby, b // (nby * nbz)
+    x, y, z0 = bx * 8 + c // 8, by * 8 + c % 8, bz * 8 + 0 * c
+    return x, y, z0, (x * Y + y) * Z + z0
+
+
+def _twin_brick_columns(b, nby, nbz, Y, Z):
+    """What fuse_bricks_kernel's warp does with brick(s) ``b``: lane l
+    computes columns l and l + 32; the staging loads take float4 f = l + 32 q
+    (q < 4), the half f % 2 of column f // 2. Returns the computed columns'
+    (x, y, z0, first index), each (..., 32, 2), and the staged float4s'
+    first indices, (..., 32, 4)."""
+    b = np.asarray(b)[..., None, None]
+    lane = np.arange(32)[:, None]
+    x, y, z0, idx = _twin_brick_column(b, lane + 32 * np.arange(2)[None, :], nby, nbz, Y, Z)
+    f = lane + 32 * np.arange(4)[None, :]
+    staged = _twin_brick_column(b, f // 2, nby, nbz, Y, Z)[3] + 4 * (f % 2)
+    return x, y, z0, idx, staged
+
+
+@pytest.mark.parametrize("res", [(8, 8, 8), (16, 24, 32), (64, 64, 64)])
+def test_brick_columns_cover_each_voxel_once(res):
+    """A warp's 32 lanes x 2 columns x 8 z voxels cover each voxel of its
+    brick once, and the bricks together the volume; brick b's voxels are
+    row b of ``to_bricks``, the plain version's. The staging loads, 16 bytes
+    each, also cover every voxel once, 16-byte aligned."""
+    X, Y, Z = res
+    nbx, nby, nbz = X // 8, Y // 8, Z // 8
+    x, y, z0, idx, staged = _twin_brick_columns(np.arange(nbx * nby * nbz), nby, nbz, Y, Z)
+    assert (idx % 8 == 0).all() and (z0 % 8 == 0).all() and (staged % 4 == 0).all()
+    rows = tbrick.to_bricks(torch.arange(X * Y * Z).reshape(X, Y, Z)).numpy()
+    for first, n in ((idx, 8), (staged, 4)):
+        voxels = first[..., None] + np.arange(n)  # (bricks, lanes, columns or loads, z)
+        assert (np.bincount(voxels.reshape(-1), minlength=X * Y * Z) == 1).all()
+        assert np.array_equal(np.sort(voxels.reshape(len(rows), -1), axis=1), np.sort(rows, axis=1))
+    assert np.array_equal(idx, (x * Y + y) * Z + z0)
+
+
+def test_staged_brick_slots_and_write_back_cover_each_voxel_once():
+    """fuse_bricks_kernel's shared-memory brick: the staging loads (float4
+    f = lane + 32 q of each plane: half f % 2 of column f // 2) fill slot
+    c * 9 + z of each (column c, z) once; the compute reads a lane's columns
+    lane and lane + 32 there; the write-back takes (column 4 s + lane // 8,
+    z = lane % 8), so 8 lanes store a column's 32 contiguous bytes and every
+    (column, z) is taken once."""
+    stride = 9  # csrc/bricks.cu::COLUMN_STRIDE
+    lane = np.arange(32)
+    f = (lane[:, None] + 32 * np.arange(4)[None, :]).reshape(-1)
+    slots = ((f // 2) * stride + 4 * (f % 2))[:, None] + np.arange(4)
+    want = (np.arange(64)[:, None] * stride + np.arange(8)).reshape(-1)
+    assert np.array_equal(np.sort(slots.reshape(-1)), want)
+    computed = (np.concatenate([lane, lane + 32])[:, None] * stride + np.arange(8)).reshape(-1)
+    assert np.array_equal(np.sort(computed), want)
+    banks = (lane * stride) % 32  # a z step of the compute: the lanes' slots lie in 32 different banks
+    assert len(set(banks.tolist())) == 32
+    taken = np.zeros((64, 8), np.int64)
+    for s_ in range(16):
+        c, z = 4 * s_ + lane // 8, lane % 8
+        taken[c, z] += 1
+        for group in range(4):  # 8 lanes, one column, z in order: 32 contiguous bytes
+            assert len(set(c[8 * group:8 * group + 8].tolist())) == 1
+            assert np.array_equal(z[8 * group:8 * group + 8], np.arange(8))
+    assert (taken == 1).all()
+
+
+def test_brick_column_sums_keep_the_plain_order():
+    """B3c takes R[i][0] gx + R[i][1] gy once a column (fusion.cuh's
+    column_sums), then adds R[i][2] gz and t for each of its 8 voxels: the
+    sum ((a + b) + c) + t of the plain version's camera coordinates, bit
+    for bit in float32, on both lanes of a seeded pose."""
+    v2c, _ = _case("regression")
+    _, _, tr, tt = _poses(v2c, seed=5)
+    vs = np.float32(0.12)
+    x, y, z0, _, _ = _twin_brick_columns(np.arange(512), 8, 8, 64, 64)
+    gx, gy = (x.astype(np.float32) + np.float32(0.5)) * vs, (y.astype(np.float32) + np.float32(0.5)) * vs
+    gz = (z0[..., None].astype(np.float32) + np.arange(8, dtype=np.float32) + np.float32(0.5)) * vs
+    for R, t in ((tr.v.numpy(), tt.v.numpy()), (tr.g.numpy(), tt.g.numpy())):
+        for i in range(3):
+            sums = R[i, 0] * gx + R[i, 1] * gy  # once a column
+            hoisted = (sums[..., None] + R[i, 2] * gz) + t[i]
+            R_t, t_t = torch.from_numpy(R), torch.from_numpy(t)
+            plain = (R_t[i, 0] * torch.from_numpy(np.broadcast_to(gx[..., None], gz.shape).copy())
+                     + R_t[i, 1] * torch.from_numpy(np.broadcast_to(gy[..., None], gz.shape).copy())
+                     + R_t[i, 2] * torch.from_numpy(gz) + t_t[i]).numpy()
+            assert hoisted.dtype == np.float32
+            assert np.array_equal(hoisted.view(np.int32), plain.view(np.int32))
+
+
+def _twin_fuse_schedule(n_warps, items, n_bricks):
+    """numpy twin of fuse_bricks_kernel's walk: warp w takes items w,
+    w + n_warps, ...; lane i of a batch of 32 fetches item first + i n_warps,
+    the warp stops at the first item past ``items``. How often each item is
+    taken, and the most batches of fetches a warp makes."""
+    taken = np.zeros(n_bricks, np.int64)
+    batches = 0
+    for warp in range(n_warps):
+        b = 0
+        for first in range(warp, n_bricks, 32 * n_warps):
+            if first >= items:
+                break
+            b += 1
+            item = first + np.arange(32) * n_warps
+            taken[item[item < items]] += 1
+        batches = max(batches, b)
+    return taken, batches
+
+
+@pytest.mark.parametrize("n_warps, items", [(4224, 3119), (4224, 5671), (4224, 32768), (8448, 32768), (100, 32768),
+                                            (100, 5000), (4224, 0)])
+def test_fuse_schedule_takes_every_item_once(n_warps, items):
+    taken, batches = _twin_fuse_schedule(n_warps, items, 32768)
+    assert (taken[:items] == 1).all() and (taken[items:] == 0).all()
+    assert batches == -(-items // (32 * n_warps))  # warp 0 has the most
+    if n_warps >= 1024:  # a card's wave: one batch of fetches a warp, the chain of loads once
+        assert batches <= 1
 
 
 @pytest.mark.parametrize("seed", [None, 4], ids=["no_seed", "gradient_seed"])

@@ -12,16 +12,21 @@
 //
 // B3a xs_depth_mips: per tile (min over valid depths, max over valid depths,
 //   every pixel valid) at each of the MIP_LEVELS tile sizes, edge tiles padded
-//   with +inf / -inf / true, into ONE (rows, 3) table, level after level.
-//   A tile takes a power of two of threads, about 32 pixels each (2 threads
-//   for 8 x 8, 512 for 128 x 128), walking the tile in row order with eight
-//   loads in flight, then shuffles (and a shared-memory step past a warp);
-//   so the grid is about one wave and no thread waits on a long chain of
-//   loads. Min and max round nothing: the bits are the plain version's by
-//   construction. The largest tiles' blocks start first. (One warp a tile,
-//   its lanes walking up to 512 pixels one load at a time, was several times
-//   slower.) Bound: the 1.2 MB image once (it stays in L2 for the 22
-//   levels) plus the table.
+//   with +inf / -inf / true, into ONE (rows, 3) table, level after level. A
+//   thread walks one pixel column, eight loads in flight, and keeps the
+//   column's min, max and validity in registers; lanes are adjacent in x, so
+//   a warp loads 128 contiguous bytes of one image row at any tile size.
+//   Tiles up to 32 px wide: a warp takes 32 / ts tiles side by side and
+//   MIP_ROWS / ts tile rows down; at the end of each tile row its lanes reduce
+//   each tile by shuffles (segment_reduce) and the tile's first lane writes
+//   the row: no shared memory, no block barrier. Wider tiles: a block takes
+//   whole tiles of one tile row, their rows cut into runs of at most MIP_ROWS,
+//   a thread a column of a run; the partials go through shared memory and a
+//   group of lanes reduces each tile. One owner a row, no atomics. Min, max
+//   and AND round nothing: the bits are the plain version's in any order. The
+//   largest tiles' blocks start first; the grid is about one wave. Bound: the
+//   1.2 MB image once plus the table; each level re-reads the image from L2,
+//   and the 22 re-reads are what the kernel waits on.
 // B3b xs_classify_bricks: two kernels. classify_bricks_kernel: one thread a
 //   brick: the eight corners' projections and the four frustum planes, the
 //   exact point-to-box distance interval, the footprint, the smallest
@@ -39,22 +44,31 @@
 //   operator divides by a host scalar, so the classes are the plain
 //   version's on the card. A float-to-int convert saturates as
 //   ops/sampling.py::to_index does (NaN -> -1, clamped to +-2^30).
-// B3c xs_fuse_bricks: in place on the dense planes. A block of 512 threads
-//   takes one brick at a time from the work list (z fastest: four 32-byte
-//   z runs a warp), so the NONE bricks cost nothing; the grid is as many
-//   blocks as the SMs hold at once. FAR and FAR_PARTIAL: K2's gate, then the
-//   update the exact one saturates to, (v w + 1) / (w + 1) and (g w + 0) /
-//   (w + 1), with no depth read. ACTIVE with rank < cap: K2's exact update.
-//   An ACTIVE brick past the cap stays unfused (the "flag" overflow). With
-//   dense_on_overflow the kernel reads the flag and, where it is set, updates
-//   every brick of the volume exactly: K2's result from the pre-frame volume,
-//   with no host read. Bound: bytes, 24 B a voxel it updates (three planes
-//   read and written), plus the depth image; 69 operations a visited voxel to
-//   its gate.
+// B3c xs_fuse_bricks: in place on the dense planes. A warp takes one brick of
+//   the work list at a time; the grid is as many warps as the SMs hold at
+//   once, about as many as the work bricks of a frame, so a warp usually
+//   takes one. Each lane fetches one of its warp's items up front (the id,
+//   then the class and rank together, loaded with the flag and the work
+//   count), and the warp broadcasts them by shuffles: one chain of loads a
+//   warp, not one a brick. The warp stages the brick's three planes in
+//   shared memory, twelve 16-byte loads a lane all in flight before any
+//   arithmetic; then a lane takes two of the brick's 64 (x, y) columns of 8
+//   z voxels, their column sums once (as K2 does), and walks their voxels
+//   side by side, storing the updated ones alone. FAR and FAR_PARTIAL: K2's
+//   gate, then the update the exact one saturates to, (v w + 1) / (w + 1)
+//   and (g w + 0) / (w + 1), with no depth read. ACTIVE with rank < cap:
+//   K2's exact update. An ACTIVE brick past the cap stays unfused (the "flag"
+//   overflow). With dense_on_overflow the kernel reads the flag and, where it
+//   is set, updates every brick of the volume exactly: K2's result from the
+//   pre-frame volume, with no host read. The per-voxel arithmetic is
+//   fusion.cuh's, so the bits are K2's. Bound: bytes, 24 B a voxel it updates
+//   (three planes read and written), plus the depth image; 69 operations a
+//   visited voxel to its gate.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "fusion.cuh"
 
@@ -62,9 +76,15 @@ namespace {
 
 constexpr int BRICK = 8;
 constexpr int MAX_MIP_LEVELS = 22;  // ops/fusion_brick.py::MIP_LEVELS
-constexpr int MIP_THREADS = 512;    // threads of a depth_mips block
+constexpr int MIP_THREADS = 256;    // threads of a depth_mips block
+constexpr int MIP_ROWS = 64;        // most rows one depth_mips thread walks
+constexpr int MIP_INFLIGHT = 8;     // loads a depth_mips thread keeps in flight
+constexpr int MIP_MIN_BLOCKS = 6;   // depth_mips blocks an SM holds at least: at most 40 registers a thread
 constexpr int CLASSIFY_THREADS = 256;
-constexpr int FUSE_THREADS = BRICK * BRICK * BRICK;
+constexpr int FUSE_WARPS = 4;       // warps of a fuse_bricks block, one brick each at a time
+constexpr int FUSE_THREADS = 32 * FUSE_WARPS;
+constexpr int FUSE_MIN_BLOCKS = 6;  // fuse_bricks blocks an SM holds at least: at most 80 registers a thread
+constexpr int COLUMN_STRIDE = BRICK + 1;  // floats between a staged brick's z columns
 constexpr int INDEX_LIMIT = 1 << 30;  // ops/sampling.py::_INDEX_LIMIT
 enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3 };
 
@@ -72,99 +92,154 @@ enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3 };
 struct MipLevels {
   int n, rows;
   int ts[MAX_MIP_LEVELS], h[MAX_MIP_LEVELS], w[MAX_MIP_LEVELS], offset[MAX_MIP_LEVELS];
-  int first_block[MAX_MIP_LEVELS], blocks[MAX_MIP_LEVELS];
+  int first_block[MAX_MIP_LEVELS], blocks[MAX_MIP_LEVELS], per_block[MAX_MIP_LEVELS];
 };
 
 // ---------------------------------------------------------------- B3a
-// threads a tile of ts x ts pixels takes: a power of two up to MIP_THREADS, about 32 pixels a thread (at most
-// 63), so a thread has at most eight rounds of eight loads and the grid is about one wave of the card
-__host__ __device__ __forceinline__ int mip_tile_threads(int ts) {
-  const int want = ts * ts / 32;
-  int t = 1;
-  while (2 * t <= want && t < MIP_THREADS) t *= 2;
-  return t;
+// How a level's tiles of ts x ts pixels are walked. A tile up to a warp wide belongs to one warp: the warp takes
+// `32 / ts` tiles side by side and `MIP_ROWS / ts` tile rows down. A wider tile belongs to a block: its rows are
+// cut into `runs` runs of at most MIP_ROWS rows, each walked by its own threads, and a block takes as many such
+// tiles side by side as its threads cover.
+__host__ __device__ __forceinline__ bool mip_warp_level(int ts) { return ts <= 32 && ts <= MIP_ROWS; }
+__host__ __device__ __forceinline__ int mip_runs(int ts) { return (ts + MIP_ROWS - 1) / MIP_ROWS; }
+
+// max, min and AND of (mn, mx, av) over lanes [lane, end) of the warp (end <= 32): the whole segment at its
+// first lane
+__device__ __forceinline__ void segment_reduce(float& mn, float& mx, int& av, int lane, int end) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float omn = __shfl_down_sync(0xffffffffu, mn, off), omx = __shfl_down_sync(0xffffffffu, mx, off);
+    const int oav = __shfl_down_sync(0xffffffffu, av, off);
+    if (lane + off < end) {
+      mn = fminf(mn, omn);
+      mx = fmaxf(mx, omx);
+      av &= oav;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(MIP_THREADS)
+// lanes that reduce one tile's ts * runs column partials: a power of two, at most 32
+__device__ __forceinline__ int mip_group(int cells) {
+  int g = 1;
+  while (2 * g <= cells && g < 32) g *= 2;
+  return g;
+}
+
+// A tile row's partial of one pixel column: d past the image is padding and counts for nothing.
+__device__ __forceinline__ void mip_take(float d, float& mn, float& mx, int& av) {
+  if (d > 0.0f) {
+    mn = fminf(mn, d);
+    mx = fmaxf(mx, d);
+  } else {
+    av = 0;
+  }
+}
+
+__device__ __forceinline__ void mip_store(float* __restrict__ table, int row, float mn, float mx, int av) {
+  table[3 * row] = mn;
+  table[3 * row + 1] = mx;
+  table[3 * row + 2] = av ? 1.0f : 0.0f;
+}
+
+__global__ void __launch_bounds__(MIP_THREADS, MIP_MIN_BLOCKS)
     depth_mips_kernel(const float* __restrict__ depth, float* __restrict__ table, int H, int W, const MipLevels m) {
-  __shared__ float s_mn[MIP_THREADS / 32], s_mx[MIP_THREADS / 32];
-  __shared__ int s_av[MIP_THREADS / 32];
+  __shared__ float s_mn[MIP_THREADS], s_mx[MIP_THREADS];
+  __shared__ unsigned char s_av[MIP_THREADS];
   // the block's level (the largest tiles' blocks come first), picked by selects
-  int ts = m.ts[0], tiles_w = m.w[0], tiles = m.h[0] * m.w[0], first = m.offset[0], first_block = m.first_block[0];
+  int ts = m.ts[0], tiles_h = m.h[0], tiles_w = m.w[0], first = m.offset[0], first_block = m.first_block[0];
+  int per_block = m.per_block[0];
 #pragma unroll
   for (int k = 1; k < MAX_MIP_LEVELS; ++k) {
     if (k < m.n && (int)blockIdx.x >= m.first_block[k] && (int)blockIdx.x < m.first_block[k] + m.blocks[k]) {
       ts = m.ts[k];
+      tiles_h = m.h[k];
       tiles_w = m.w[k];
-      tiles = m.h[k] * m.w[k];
       first = m.offset[k];
       first_block = m.first_block[k];
+      per_block = m.per_block[k];
     }
   }
-  const int threads = mip_tile_threads(ts);  // the same for the whole block
-  const int tile = ((int)blockIdx.x - first_block) * (MIP_THREADS / threads) + (int)threadIdx.x / threads;
-  const bool live = tile < tiles;
-  const int ty = tile / tiles_w, tx = tile - ty * tiles_w;
-  const int y0 = ty * ts, x0 = tx * ts;
+  const float inf = __int_as_float(0x7f800000);
+  float mn = inf, mx = -inf;
+  int av = 1;
+  const int bi = (int)blockIdx.x - first_block;
 
-  float mn = __int_as_float(0x7f800000), mx = -mn;
-  int all_valid = 1;
-  // thread q of the tile's takes pixels q, q + threads, ... in row order, eight loads at a time
-  const int q = threadIdx.x % threads;
-  const int step_y = threads / ts, step_x = threads - step_y * ts;
-  int yy = live ? q / ts : ts, xx = q - (q / ts) * ts;
-  while (yy < ts) {
-    float d[8];
-    bool in[8];
+  if (mip_warp_level(ts)) {
+    // warp u of the level: tiles [tx0, tx0 + across) of tile rows [ty0, ty0 + stack); lane = tile t, column c
+    const int across = 32 / ts, stack = MIP_ROWS / ts, strips = (tiles_w + across - 1) / across;
+    const int lane = threadIdx.x & 31, u = bi * (MIP_THREADS / 32) + ((int)threadIdx.x >> 5);
+    const int ty0 = (u / strips) * stack, tx0 = (u % strips) * across;
+    if (ty0 >= tiles_h) return;  // past the level's last warp
+    const int t = lane / ts, c = lane - t * ts, x = (tx0 + t) * ts + c;
+    const bool owner = c == 0 && t < across && tx0 + t < tiles_w;
+    const bool reads = t < across && tx0 + t < tiles_w && x < W;
+    const float* col = depth + x;
+    for (int ty = ty0; ty < min(ty0 + stack, tiles_h); ++ty) {  // warp-uniform, as are the rows
+      const int yb = min((ty + 1) * ts, H);
+      for (int y = ty * ts; y < yb; y += MIP_INFLIGHT) {
+        float d[MIP_INFLIGHT];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int y = y0 + yy, x = x0 + xx;
-      in[k] = yy < ts && y < H && x < W;  // past the image: padding (+inf, -inf, valid)
-      d[k] = in[k] ? __ldg(depth + y * W + x) : 0.0f;
-      xx += step_x;
-      yy += step_y;
-      if (xx >= ts) {
-        xx -= ts;
-        ++yy;
+        for (int i = 0; i < MIP_INFLIGHT; ++i) d[i] = reads && y + i < yb ? __ldg(col + (size_t)(y + i) * W) : 1.0f;
+#pragma unroll
+        for (int i = 0; i < MIP_INFLIGHT; ++i)
+          if (reads && y + i < yb) mip_take(d[i], mn, mx, av);
       }
+      // the tile row is complete: reduce each tile over its lanes
+      segment_reduce(mn, mx, av, lane, (t + 1) * ts);
+      if (owner) mip_store(table, first + ty * tiles_w + tx0 + t, mn, mx, av);
+      mn = inf;
+      mx = -inf;
+      av = 1;
     }
+    return;
+  }
+
+  // a block's tiles: per_block of tile row ty from tile tx0 (fewer at the row's end); thread (run r, column c
+  // of the span) walks rows [ya, yb) of pixel column x; past the image: padding
+  const int runs = mip_runs(ts), run_rows = (ts + runs - 1) / runs;
+  const int blocks_across = (tiles_w + per_block - 1) / per_block;
+  const int ty = bi / blocks_across, tx0 = (bi - ty * blocks_across) * per_block;
+  const int n_tiles = min(per_block, tiles_w - tx0);
+  const int span = per_block * ts;  // threads of one run: the block's pixel columns in x order
+  const int r = (int)threadIdx.x / span, c = (int)threadIdx.x - r * span;
+  const int x = tx0 * ts + c;
+  const int ya = ty * ts + r * run_rows, yb = min(min(ya + run_rows, (ty + 1) * ts), H);
+  if (r < runs && c < n_tiles * ts && x < W) {
+    const float* col = depth + x;
+    for (int y = ya; y < yb; y += MIP_INFLIGHT) {
+      float d[MIP_INFLIGHT];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (!in[k]) continue;
-      if (d[k] > 0.0f) {
-        mn = fminf(mn, d[k]);
-        mx = fmaxf(mx, d[k]);
-      } else {
-        all_valid = 0;
-      }
+      for (int i = 0; i < MIP_INFLIGHT; ++i) d[i] = y + i < yb ? __ldg(col + (size_t)(y + i) * W) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < MIP_INFLIGHT; ++i)
+        if (y + i < yb) mip_take(d[i], mn, mx, av);
     }
   }
-  // the tile's threads: an aligned run of lanes (threads <= 32), or whole warps
-  for (int off = min(threads, 32) / 2; off > 0; off >>= 1) {
+  s_mn[threadIdx.x] = mn;
+  s_mx[threadIdx.x] = mx;
+  s_av[threadIdx.x] = (unsigned char)av;
+  __syncthreads();
+
+  // tile t of the block: its ts columns of each run, reduced by the G aligned lanes t * G .. t * G + G - 1
+  const int cells = ts * runs, G = mip_group(cells);
+  const int t = (int)threadIdx.x / G, j = (int)threadIdx.x - t * G;
+  mn = inf;
+  mx = -inf;
+  av = 1;
+  if (t < n_tiles) {
+    for (int i = j; i < cells; i += G) {
+      const int ri = i / ts, q = ri * span + t * ts + (i - ri * ts);
+      mn = fminf(mn, s_mn[q]);
+      mx = fmaxf(mx, s_mx[q]);
+      av &= s_av[q];
+    }
+  }
+  for (int off = G / 2; off > 0; off >>= 1) {
     mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    all_valid &= __shfl_xor_sync(0xffffffffu, all_valid, off);
+    av &= __shfl_xor_sync(0xffffffffu, av, off);
   }
-  if (threads > 32) {
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-      s_mn[warp] = mn;
-      s_mx[warp] = mx;
-      s_av[warp] = all_valid;
-    }
-    __syncthreads();
-    if (q != 0) return;
-    for (int w = warp + 1; w < warp + threads / 32; ++w) {
-      mn = fminf(mn, s_mn[w]);
-      mx = fmaxf(mx, s_mx[w]);
-      all_valid &= s_av[w];
-    }
-  }
-  if (q != 0 || !live) return;
-  const int row = first + tile;
-  table[3 * row] = mn;
-  table[3 * row + 1] = mx;
-  table[3 * row + 2] = all_valid ? 1.0f : 0.0f;
+  if (j == 0 && t < n_tiles) mip_store(table, first + ty * tiles_w + tx0 + t, mn, mx, av);
 }
 
 // ---------------------------------------------------------------- B3b
@@ -407,32 +482,143 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
 }
 
 // ---------------------------------------------------------------- B3c
-__global__ void __launch_bounds__(FUSE_THREADS)
+// What fuse_bricks does with a brick: nothing (an ACTIVE brick past the cap), the FAR update, the exact one.
+enum : int { SKIP = 0, FAR_UPDATE = 1, EXACT_UPDATE = 2 };
+
+// A brick's (x, y) column c (0..63: x offset c / 8, y offset c % 8) in the dense (X, Y, Z) planes: its 8 z
+// voxels from z0, a multiple of 8, so the run is 32-byte aligned. The one place where a brick and a column
+// become dense addresses.
+struct BrickColumn {
+  int x, y, z0;
+  size_t idx;  // of the column's first voxel
+};
+
+__device__ __forceinline__ BrickColumn brick_column(int b, int c, int nby, int nbz, const xs::FuseParams& p) {
+  const int bz = b % nbz, by = (b / nbz) % nby, bx = b / (nby * nbz);
+  BrickColumn col;
+  col.x = bx * BRICK + (c >> 3);
+  col.y = by * BRICK + (c & 7);
+  col.z0 = bz * BRICK;
+  col.idx = ((size_t)col.x * p.Y + col.y) * p.Z + col.z0;
+  return col;
+}
+
+// The updated voxels of a staged brick back to the planes: 8 lanes a column, 32 contiguous bytes, a column's
+// voxels where its bit in `updated` is set.
+__device__ __forceinline__ void write_back(float* __restrict__ value, float* __restrict__ grad,
+                                           float* __restrict__ weight, int b, int lane, const float* s_v,
+                                           const float* s_g, const float* s_w, const unsigned char* updated, int nby,
+                                           int nbz, const xs::FuseParams& p) {
+  const int z = lane & (BRICK - 1);
+#pragma unroll 4
+  for (int c = lane >> 3; c < BRICK * BRICK; c += 32 / BRICK) {
+    if (!(updated[c] >> z & 1)) continue;
+    const size_t at = brick_column(b, c, nby, nbz, p).idx + z;
+    const int s = c * COLUMN_STRIDE + z;
+    value[at] = s_v[s];
+    grad[at] = s_g[s];
+    weight[at] = s_w[s];
+  }
+}
+
+// A voxel of a staged column whose sample is (tsv, tsg): its running average in shared memory where ok.
+// fusion.cuh's arithmetic, so the bits are K2's.
+__device__ __forceinline__ void update_voxel(float* s_v, float* s_g, float* s_w, bool ok, float tsv, float tsg,
+                                             float max_w) {
+  float v = *s_v, g = *s_g, w = *s_w;
+  xs::average(v, g, w, tsv, tsg, max_w);
+  if (!ok) return;
+  *s_v = v;
+  *s_g = g;
+  *s_w = w;
+}
+
+__global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
     fuse_bricks_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
                        const float* __restrict__ depth, const float* __restrict__ pose, const int* __restrict__ cls,
                        const int* __restrict__ rank, const int* __restrict__ work_ids,
                        const int* __restrict__ totals, const unsigned char* __restrict__ overflow, int cap,
                        int dense_on_overflow, const xs::FuseParams p) {
+  // the warp's brick, staged: three planes of 64 columns, COLUMN_STRIDE floats apart (no bank conflicts), and
+  // a bit a voxel that says it was updated
+  __shared__ float s_planes[FUSE_WARPS][3][BRICK * BRICK * COLUMN_STRIDE];
+  __shared__ unsigned char s_updated[FUSE_WARPS][BRICK * BRICK];
   const int nby = p.Y / BRICK, nbz = p.Z / BRICK, n_bricks = (p.X / BRICK) * nby * nbz;
-  const bool dense = dense_on_overflow && *overflow != 0;  // every brick exactly: K2's result
-  const int items = dense ? n_bricks : totals[1];
-  const int lx = threadIdx.x >> 6, ly = (threadIdx.x >> 3) & 7, lz = threadIdx.x & 7;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int warp = blockIdx.x * FUSE_WARPS + w, n_warps = gridDim.x * FUSE_WARPS;
+  float* s_v = s_planes[w][0];
+  float* s_g = s_planes[w][1];
+  float* s_w = s_planes[w][2];
   const xs::FusePose dual_pose(pose);
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int b = dense ? item : work_ids[item];
-    const int c = cls[b];
-    const bool exact = dense || (c == ACTIVE && rank[b] < cap);
-    if (!exact && c == ACTIVE) continue;  // past the cap: left unfused this frame, and flagged
-    const int bz = b % nbz, by = (b / nbz) % nby, bx = b / (nby * nbz);
-    const int x = bx * BRICK + lx, y = by * BRICK + ly, z = bz * BRICK + lz;
-    const xs::ColumnSums sums = xs::column_sums(dual_pose, xs::voxel_centre(x, p.vs), xs::voxel_centre(y, p.vs));
-    const xs::VoxelView o = xs::voxel_view(dual_pose, p, sums, xs::voxel_centre(z, p.vs));
-    if (!o.gated) continue;
-    const size_t idx = ((size_t)x * p.Y + y) * p.Z + z;
-    if (exact)
-      xs::fuse_gated_voxel(value, grad, weight, depth, p, o, idx);
-    else
-      xs::fuse_far_voxel(value, grad, weight, p, idx);
+  // the warp's items are warp, warp + n_warps, ...; lane i fetches item i of the next 32 (an id past the work
+  // count is loaded with the flag and the count, then not used)
+  for (int first = warp; first < n_bricks; first += 32 * n_warps) {
+    const int item = first + lane * n_warps;
+    const int listed = item < n_bricks ? work_ids[item] : 0;
+    const bool dense = dense_on_overflow && *overflow != 0;  // every brick exactly: K2's result
+    const int items = dense ? n_bricks : totals[1];
+    if (first >= items) return;
+    const int b = dense ? item : min(max(listed, 0), n_bricks - 1);
+    int mode = dense ? EXACT_UPDATE : SKIP;
+    if (!dense && item < items) {
+      const int c = cls[b], rk = rank[b];
+      mode = (c == FAR || c == FAR_PARTIAL) ? FAR_UPDATE : (c == ACTIVE && rk < cap ? EXACT_UPDATE : SKIP);
+    }
+    for (int i = 0; i < 32 && first + i * n_warps < items; ++i) {
+      const int bi = __shfl_sync(0xffffffffu, b, i), mi = __shfl_sync(0xffffffffu, mode, i);
+      if (mi == SKIP) continue;  // past the cap: left unfused this frame, and flagged
+      // stage the brick's planes: lane pairs load a column's two 16-byte halves, all twelve loads in flight
+      float4 run[4][3];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const size_t at = brick_column(bi, (lane + 32 * q) >> 1, nby, nbz, p).idx + 4 * (lane & 1);
+        run[q][0] = *reinterpret_cast<const float4*>(value + at);
+        run[q][1] = *reinterpret_cast<const float4*>(grad + at);
+        run[q][2] = *reinterpret_cast<const float4*>(weight + at);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int at = ((lane + 32 * q) >> 1) * COLUMN_STRIDE + 4 * (lane & 1);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float* s = s_planes[w][k] + at;
+          s[0] = run[q][k].x;
+          s[1] = run[q][k].y;
+          s[2] = run[q][k].z;
+          s[3] = run[q][k].w;
+        }
+      }
+      __syncwarp();
+      // the lane's columns lane and lane + 32, their sums once, their voxels at each z side by side without
+      // branches (both depth loads in flight), updated in shared memory
+      const BrickColumn c0 = brick_column(bi, lane, nby, nbz, p), c1 = brick_column(bi, lane + 32, nby, nbz, p);
+      const xs::ColumnSums sums0 = xs::column_sums(dual_pose, xs::voxel_centre(c0.x, p.vs), xs::voxel_centre(c0.y, p.vs));
+      const xs::ColumnSums sums1 = xs::column_sums(dual_pose, xs::voxel_centre(c1.x, p.vs), xs::voxel_centre(c1.y, p.vs));
+      const int s0 = lane * COLUMN_STRIDE, s1 = (lane + 32) * COLUMN_STRIDE;
+      const bool exact = mi == EXACT_UPDATE;
+      unsigned up0 = 0, up1 = 0;
+      for (int z = 0; z < BRICK; ++z) {
+        const float gz = xs::voxel_centre(c0.z0 + z, p.vs);
+        const xs::VoxelView o0 = xs::voxel_view(dual_pose, p, sums0, gz), o1 = xs::voxel_view(dual_pose, p, sums1, gz);
+        float t0v = xs::BEYOND_V, t0g = xs::BEYOND_G, t1v = xs::BEYOND_V, t1g = xs::BEYOND_G;
+        bool ok0 = o0.gated, ok1 = o1.gated;
+        if (exact) {
+          const float d0 = ok0 ? __ldg(depth + xs::depth_index(o0, p)) : 0.0f;
+          const float d1 = ok1 ? __ldg(depth + xs::depth_index(o1, p)) : 0.0f;
+          ok0 = xs::sample_at(d0, p, o0, t0v, t0g) && ok0;
+          ok1 = xs::sample_at(d1, p, o1, t1v, t1g) && ok1;
+        }
+        update_voxel(s_v + s0 + z, s_g + s0 + z, s_w + s0 + z, ok0, t0v, t0g, p.max_w);
+        update_voxel(s_v + s1 + z, s_g + s1 + z, s_w + s1 + z, ok1, t1v, t1g, p.max_w);
+        up0 |= (unsigned)ok0 << z;
+        up1 |= (unsigned)ok1 << z;
+      }
+      s_updated[w][lane] = (unsigned char)up0;
+      s_updated[w][lane + 32] = (unsigned char)up1;
+      __syncwarp();
+      write_back(value, grad, weight, bi, lane, s_v, s_g, s_w, s_updated[w], nby, nbz, p);
+      __syncwarp();  // the staged brick is read before the next one overwrites it
+    }
   }
 }
 
@@ -446,14 +632,26 @@ bool read_levels(const int* levels, int n_levels, int rows, MipLevels& m) {
     m.h[k] = l[1];
     m.w[k] = l[2];
     m.offset[k] = l[3];
-    if (k < n_levels && l[0] < BRICK) return false;  // depth_mips' lane walk needs tiles of 8 pixels or more
+    if (k < n_levels && (l[0] < 1 || l[0] * mip_runs(l[0]) > MIP_THREADS)) return false;
   }
-  // depth_mips' blocks, the largest tiles' first: a block holds MIP_THREADS / mip_tile_threads(ts) tiles
+  // depth_mips' blocks, the largest tiles' first: a warp-level tile's blocks hold MIP_THREADS / 32 warps; a
+  // wider tile's block takes up to MIP_THREADS / (ts * runs) tiles of a row, as many in each block of the row
   int at = 0;
   for (int k = MAX_MIP_LEVELS - 1; k >= 0; --k) {
-    const int per_block = MIP_THREADS / mip_tile_threads(m.ts[k]);
+    const int ts = m.ts[k];
+    if (mip_warp_level(ts)) {
+      const int across = 32 / ts, stack = MIP_ROWS / ts;
+      const int warps = ((m.h[k] + stack - 1) / stack) * ((m.w[k] + across - 1) / across);
+      m.per_block[k] = across;
+      m.blocks[k] = (warps + MIP_THREADS / 32 - 1) / (MIP_THREADS / 32);
+    } else {
+      const int most = MIP_THREADS / (ts * mip_runs(ts));
+      const int blocks_across = (m.w[k] + most - 1) / most;
+      m.per_block[k] = (m.w[k] + blocks_across - 1) / blocks_across;
+      m.blocks[k] = m.h[k] * blocks_across;
+    }
+    if (k >= n_levels) m.blocks[k] = 0;
     m.first_block[k] = at;
-    m.blocks[k] = k < n_levels ? (m.h[k] * m.w[k] + per_block - 1) / per_block : 0;
     at += m.blocks[k];
   }
   return true;
@@ -523,6 +721,9 @@ extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void*
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                               float max_w, int cap, int dense_on_overflow, void* stream) {
   if (X % BRICK || Y % BRICK || Z % BRICK) return (int)cudaErrorInvalidValue;
+  const uintptr_t planes = reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(grad) |
+                           reinterpret_cast<uintptr_t>(weight);
+  if (planes % 16) return (int)cudaErrorMisalignedAddress;  // the column runs are loaded 16 bytes at a time
   static int grid[64] = {};  // per device: as many blocks as its SMs hold at once
   int dev = 0;
   cudaGetDevice(&dev);

@@ -92,28 +92,29 @@ __device__ __forceinline__ VoxelView voxel_view(const FusePose& pose, const Fuse
   return o;
 }
 
-// The running average with the weight clamp, for a TSDF sample (tsv, tsg).
-__device__ __forceinline__ void running_average(float* __restrict__ value, float* __restrict__ grad,
-                                                float* __restrict__ weight, size_t idx, float tsv, float tsg,
-                                                float max_w) {
-  const float w = weight[idx];
+// The "beyond" sample 1 + 0i that a voxel takes past +trunc.
+constexpr float BEYOND_V = 1.0f, BEYOND_G = 0.0f;
+
+// The running average with the weight clamp, for a TSDF sample (tsv, tsg),
+// on a voxel's (value, grad, weight) held in registers.
+__device__ __forceinline__ void average(float& v, float& g, float& w, float tsv, float tsg, float max_w) {
   const float inv = 1.0f / (w + 1.0f);
-  value[idx] = (value[idx] * w + tsv) * inv;
-  grad[idx] = (grad[idx] * w + tsg) * inv;
-  weight[idx] = fminf(w + 1.0f, max_w);
+  v = (v * w + tsv) * inv;
+  g = (g * w + tsg) * inv;
+  w = fminf(w + 1.0f, max_w);
 }
 
-// The exact update of a gated voxel: the nearest depth, the dual SDF, the
-// truncation gate and the running average. Writes nothing where the depth
-// is 0 or the voxel lies beyond the band behind the surface.
-__device__ __forceinline__ void fuse_gated_voxel(float* __restrict__ value, float* __restrict__ grad,
-                                                 float* __restrict__ weight, const float* __restrict__ depth,
-                                                 const FuseParams& p, const VoxelView& o, size_t idx) {
-  // inside the gate, round(img) lies in [2, size-1]
-  const int px = __float2int_rn(o.ixv), py = __float2int_rn(o.iyv);
-  const float dv = depth[py * p.W + px];
-  if (!(dv > 0.0f)) return;
+// The depth pixel a gated voxel reads: round(img), inside the gate in
+// [2, size-1].
+__device__ __forceinline__ int depth_index(const VoxelView& o, const FuseParams& p) {
+  return __float2int_rn(o.iyv) * p.W + __float2int_rn(o.ixv);
+}
 
+// The TSDF sample of a gated voxel from its nearest depth dv: the dual SDF
+// and the truncation gate. Computed whatever dv is; false where dv is not
+// positive or the voxel lies beyond the band behind the surface: the voxel
+// is then left as it is.
+__device__ __forceinline__ bool sample_at(float dv, const FuseParams& p, const VoxelView& o, float& tsv, float& tsg) {
   // lambda^2 = xl^2 + yl^2 + 1 with xl = (img_x - cx) / fx
   const float xlv = (o.ixv - p.cx) * p.inv_fx, xlg = o.ixg * p.inv_fx;
   const float ylv = (o.iyv - p.cy) * p.inv_fy, ylg = o.iyg * p.inv_fy;
@@ -131,23 +132,32 @@ __device__ __forceinline__ void fuse_gated_voxel(float* __restrict__ value, floa
 
   const float sdfv = dv * slv - snv;
   const float sdfg = dv * slg - sng;
-  if (!(sdfv >= -p.trunc)) return;
-
-  float tsv = sdfv * p.inv_trunc, tsg = sdfg * p.inv_trunc;
-  if (sdfv > p.trunc) {  // constant 1 + 0i past +trunc
-    tsv = 1.0f;
-    tsg = 0.0f;
-  }
-  running_average(value, grad, weight, idx, tsv, tsg, p.max_w);
+  const bool beyond = sdfv > p.trunc;  // constant 1 + 0i past +trunc
+  tsv = beyond ? BEYOND_V : sdfv * p.inv_trunc;
+  tsg = beyond ? BEYOND_G : sdfg * p.inv_trunc;
+  return dv > 0.0f && sdfv >= -p.trunc;
 }
 
-// The update of a gated voxel that the frame provably sees far in front of
-// its surface: the "beyond" sample 1 + 0i, with no depth read. The same
-// running average as fuse_gated_voxel's, so the same bits where the exact
-// update would saturate.
-__device__ __forceinline__ void fuse_far_voxel(float* __restrict__ value, float* __restrict__ grad,
-                                               float* __restrict__ weight, const FuseParams& p, size_t idx) {
-  running_average(value, grad, weight, idx, 1.0f, 0.0f, p.max_w);
+// The TSDF sample of a gated voxel: its nearest depth, then sample_at.
+__device__ __forceinline__ bool gated_sample(const float* __restrict__ depth, const FuseParams& p,
+                                             const VoxelView& o, float& tsv, float& tsg) {
+  const float dv = depth[depth_index(o, p)];
+  if (!(dv > 0.0f)) return false;
+  return sample_at(dv, p, o, tsv, tsg);
+}
+
+// The exact update of a gated voxel in the planes: its sample, then the
+// running average. Writes nothing where gated_sample says so.
+__device__ __forceinline__ void fuse_gated_voxel(float* __restrict__ value, float* __restrict__ grad,
+                                                 float* __restrict__ weight, const float* __restrict__ depth,
+                                                 const FuseParams& p, const VoxelView& o, size_t idx) {
+  float tsv, tsg;
+  if (!gated_sample(depth, p, o, tsv, tsg)) return;
+  float v = value[idx], g = grad[idx], w = weight[idx];
+  average(v, g, w, tsv, tsg, p.max_w);
+  value[idx] = v;
+  grad[idx] = g;
+  weight[idx] = w;
 }
 
 }  // namespace xs
