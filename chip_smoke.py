@@ -338,7 +338,6 @@ def phase_fusion(ctx):
         keep = fusion.tile_keep_mask(r, t, intr, eng.resolution, eng.voxel_size)
         kept_voxels = int(keep.sum()) * int(np.prod(fusion.FUSE_TILE))
         ms = time_ms(lambda: kernels.fuse_volume(*a, *args), 20)
-        cold = time_cold_ms(lambda: kernels.fuse_volume(*a, *args), 20)  # the planes out of L2, as in the frame
         plain = time_ms(lambda: kernels.fuse_volume_plain(*b, *args), 2)
         # What the kernel needs: every voxel projects (69 operations up to the
         # pixel gate); an updated voxel does 60 more and reads and writes its
@@ -353,14 +352,12 @@ def phase_fusion(ctx):
         del a, b
         emit("K2 fuse_volume", case=name, shape=list(vol.value.shape), planes_bit_equal=equal,
              max_abs_err_value=err_v, max_abs_err_grad=err_g, voxels_updated=updated,
-             tiles_kept_fraction=float(keep.float().mean()), ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
-             bound_by=by,
+             tiles_kept_fraction=float(keep.float().mean()), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
              bound_counts=bound_note, library_ms=None, library_note="no single PyTorch call computes it")
         check(all(equal), f"K2 is not bit-equal to its plain version at {name}: value, grad, weight {equal}")
         check(updated > 100_000, f"K2's case {name} updates only {updated} voxels")
         if table is None:
-            table = dict(max_abs_err=max(err_v, err_g), ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
-                         bound_by=by)
+            table = dict(max_abs_err=max(err_v, err_g), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
             ctx["fuse_volume_ms"] = ms
     return table
 

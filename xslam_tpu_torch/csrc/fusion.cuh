@@ -138,21 +138,15 @@ __device__ __forceinline__ bool sample_at(float dv, const FuseParams& p, const V
   return dv > 0.0f && sdfv >= -p.trunc;
 }
 
-// The TSDF sample of a gated voxel: its nearest depth, then sample_at.
-__device__ __forceinline__ bool gated_sample(const float* __restrict__ depth, const FuseParams& p,
-                                             const VoxelView& o, float& tsv, float& tsg) {
-  const float dv = depth[depth_index(o, p)];
-  if (!(dv > 0.0f)) return false;
-  return sample_at(dv, p, o, tsv, tsg);
-}
-
-// The exact update of a gated voxel in the planes: its sample, then the
-// running average. Writes nothing where gated_sample says so.
+// The exact update of a gated voxel in the planes: its nearest depth, its
+// sample, then the running average. Writes nothing where the depth is 0 or
+// sample_at says so.
 __device__ __forceinline__ void fuse_gated_voxel(float* __restrict__ value, float* __restrict__ grad,
                                                  float* __restrict__ weight, const float* __restrict__ depth,
                                                  const FuseParams& p, const VoxelView& o, size_t idx) {
+  const float dv = depth[depth_index(o, p)];
   float tsv, tsg;
-  if (!gated_sample(depth, p, o, tsv, tsg)) return;
+  if (!(dv > 0.0f) || !sample_at(dv, p, o, tsv, tsg)) return;
   float v = value[idx], g = grad[idx], w = weight[idx];
   average(v, g, w, tsv, tsg, p.max_w);
   value[idx] = v;
