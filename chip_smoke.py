@@ -79,9 +79,9 @@ N_FRAMES_BRICK = 10
 BRICK_CAP = 2816  # bench.py's fusion_brick_cap
 # device launches of a frame (profile_step.py's count): as configs/synthetic.yaml says, with the cached
 # association at half-resolution model maps (each level's first ICP launch writes it: no launch of its own),
-# and with brick fusion (B3a, B3b's two kernels and B3c where K2 was); 3 of them in `preprocess` (K1, K7 once
-# for both coarser levels, K8 once for all levels)
-FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main path, brick fusion": 661}
+# and with brick fusion (B3a, B3b and B3c where K2 was, one launch each); 3 of them in `preprocess` (K1, K7
+# once for both coarser levels, K8 once for all levels)
+FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main path, brick fusion": 660}
 PREPROCESS_LAUNCHES = 3
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 
@@ -89,8 +89,9 @@ PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 # kernel runs on no path: each level's first icp_system launch writes the association, and the kernel is the
 # reference that index is held against, so it is listed with its main-path count, 0
 FOLDED = {"icp_associate": "icp_system"}
-# wrappers whose one launch (one count) runs more than one device kernel, listed by their device names
-DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel", "rank_bricks_kernel")}
+# the device kernels that one launch count of a wrapper stands for, listed where the wrapper's work is more
+# than a kernel's name says: B3b's classes and ranks are one kernel
+DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel",)}
 KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
     "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
@@ -378,12 +379,16 @@ def phase_bricks(ctx):
     the mip table and the classes and lists equal; the fused planes equal
     K2's with ``==`` and equal NaN masks, bit for bit (the sign of zero
     counted apart); with cap 64, ``"flag"`` equals the plain version and
-    ``"dense"`` equals K2. Each kernel timed from prepared arguments beside
-    K2 on the same frame, warm; B3c and K2 also cold (L2 flushed before each
-    launch, as the frame finds the planes); B3a beside ``torch.amax`` over
-    its 8 px tiles, a yardstick. The classes are taken with a cap of every brick
-    (the volume corner's seeded depth makes some 5,700 bricks ACTIVE, past
-    bench.py's 2816), so B3c fuses every ACTIVE brick exactly at each pose."""
+    ``"dense"`` equals K2. B3b runs twice back to back, the second time on
+    the next pose's table, and both results equal the plain version's: its
+    one launch leaves its ticket and status words zeroed for the next. Each
+    kernel timed from prepared arguments beside K2 on the same frame, warm
+    and cold (L2 flushed before each launch, as the frame finds its inputs);
+    B3a beside ``torch.amax`` over its 8 px tiles and B3b beside
+    ``torch.cumsum`` over its ACTIVE flags, yardsticks. The classes are taken
+    with a cap of every brick (the volume corner's seeded depth makes some
+    5,700 bricks ACTIVE, past bench.py's 2816), so B3c fuses every ACTIVE
+    brick exactly at each pose."""
     from xslam_tpu_torch.geometry import se3
     from xslam_tpu_torch.ops import fusion, kernels
     from xslam_tpu_torch.ops import fusion_brick as fb
@@ -398,14 +403,21 @@ def phase_bricks(ctx):
     fargs = kernels.fusion_args(intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
     cap = int(np.prod(eng.resolution)) // fb.BRICK ** 3
     rows = {}
-    for name, v2c, depth_u16 in ctx["fusion_cases"]:
-        r, t = se3.rotation(v2c), se3.translation(v2c)
+    cases = ctx["fusion_cases"]
+    frames = []  # (depth in metres, fusion pose, B3a's table) of each case
+    for _, v2c, depth_u16 in cases:
         depth_m = fusion.scale_depth(torch.as_tensor(depth_u16, device=dev))
-        pose = kernels.fusion_pose(r, t)
-        table = fb.depth_mips(depth_m)
+        frames.append((depth_m, kernels.fusion_pose(se3.rotation(v2c), se3.translation(v2c)), fb.depth_mips(depth_m)))
+    for i, (name, v2c, _) in enumerate(cases):
+        r, t = se3.rotation(v2c), se3.translation(v2c)
+        depth_m, pose, table = frames[i]
         table_plain = fb.depth_mips_plain(depth_m)
+        # B3b twice back to back, the second time on the next case's table and pose
         classes = fb.classify_bricks(table, pose, intr, eng, cap)
+        _, pose_next, table_next = frames[(i + 1) % len(frames)]
+        second = fb.classify_bricks(table_next, pose_next, intr, eng, cap)
         classes_plain = fb.rank_bricks_plain(fb.classify_bricks_plain(table_plain, pose, intr, eng), cap)
+        second_plain = fb.rank_bricks_plain(fb.classify_bricks_plain(table_next, pose_next, intr, eng), cap)
         k2 = [x.clone() for x in vol]
         brick = [x.clone() for x in vol]
         plain = [x.clone() for x in vol]
@@ -415,6 +427,8 @@ def phase_bricks(ctx):
         torch.cuda.synchronize()
         table_equal = bool(torch.equal(table, table_plain))
         classes_equal = _bricks_equal(classes, classes_plain)
+        second_equal = _bricks_equal(second, second_plain)
+        second_differs = not bool(torch.equal(classes_plain.cls, second_plain.cls))
         eq_k2 = [bool(torch.equal(a, b)) and same_nans(a, b) for a, b in zip(brick, k2)]
         bits_k2 = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32))) for a, b in zip(brick, k2)]
         zero_sign = sum(int(((a == b) & (a.view(torch.int32) != b.view(torch.int32))).sum()) for a, b in zip(brick, k2))
@@ -438,17 +452,23 @@ def phase_bricks(ctx):
         # each kernel from prepared arguments, the plain versions and K2 beside them
         out_table = torch.empty_like(table)
         scratch = fb.classify_bricks(table, pose, intr, eng, cap)
-        counts_buf = torch.empty(2 * (-(-classes.rank.numel() // fb.CLASSIFY_BLOCK)), dtype=torch.int32, device=dev)
+        words = fb.classify_scratch(dev, classes.rank.numel())
         lv, consts = fb._layout_ints(layout), fb.classify_consts(intr, eng)
+        active_flags = (classes.cls.reshape(-1) == fb.ACTIVE).to(torch.int32)
 
         def run(kernel, *args):
             err_code = getattr(ext, kernel)(*args, stream)
             check(err_code == 0, f"{kernel} launch failed: cudaError {err_code}")
 
+        def run_b():
+            run("classify_bricks", table, pose, scratch.cls, words, scratch.rank, scratch.active_ids,
+                scratch.work_ids, scratch.totals, scratch.overflow, H, W, lv, consts, cap)
+
         ms_a = time_ms(lambda: run("depth_mips", depth_m, out_table, lv), 100)
-        ms_b = time_ms(lambda: run("classify_bricks", table, pose, scratch.cls, counts_buf, scratch.rank,
-                                   scratch.active_ids, scratch.work_ids, scratch.totals, scratch.overflow, H, W, lv,
-                                   consts, cap), 100)
+        ms_b = time_ms(run_b, 100)
+        # as the frame finds them: the depth image, the table and the lists out of L2
+        cold_a = time_cold_ms(lambda: run("depth_mips", depth_m, out_table, lv), 50)
+        cold_b = time_cold_ms(run_b, 50)
         ms_c = time_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
                                    classes.totals, classes.overflow, *fargs, cap, True), 20)
         ms_k2 = time_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
@@ -461,6 +481,11 @@ def phase_bricks(ctx):
         # a yardstick for B3a, not a library call for it: one of its 22 levels and one of its three statistics
         lib_a = time_ms(lambda: torch.amax(depth_m[:H - H % 8, :W - W % 8].reshape(H // 8, 8, W // 8, 8), dim=(1, 3)),
                         100)
+        # a yardstick for B3b: the prefix of its ACTIVE flags, one of its two lists' ranks, without the classes
+        lib_b = time_ms(lambda: torch.cumsum(active_flags, 0, dtype=torch.int32), 100)
+        check(bool(torch.equal(torch.cumsum(active_flags, 0, dtype=torch.int32)[active_flags.bool()] - 1,
+                               classes.rank.reshape(-1)[active_flags.bool()])),
+              f"B3b's ranks differ from torch.cumsum over its ACTIVE flags at {name}")
         plain_a = time_ms(lambda: fb.depth_mips_plain(depth_m), 3)
         plain_b = time_ms(lambda: fb.rank_bricks_plain(fb.classify_bricks_plain(table, pose, intr, eng), cap), 3)
         plain_c = time_ms(lambda: fb.fuse_bricks_plain(*brick, depth_m, pose, intr, eng, classes, cap, True), 2)
@@ -475,20 +500,25 @@ def phase_bricks(ctx):
         b_c = bound_ms(depth_m.numel() * 4 + updated * 24, n_work * 512 * 69 + n_active * 512 * 60)
         emit("B3 brick fusion", case=name, classes=dict(zip(("none", "far", "active", "far_partial"), counts)),
              n_active=n_active, n_work=n_work, cap=cap, table_rows=layout.rows, table_equal=table_equal,
-             classes_and_lists_equal=classes_equal, equal_to_k2=eq_k2, bit_equal_to_k2=bits_k2,
+             classes_and_lists_equal=classes_equal, back_to_back_equal=second_equal,
+             back_to_back_classes_differ=second_differs, equal_to_k2=eq_k2, bit_equal_to_k2=bits_k2,
              sign_of_zero_differences=zero_sign, equal_to_plain=eq_plain, voxels_updated=updated,
              cap64=dict(n_active=int(small.totals[0]), overflow=bool(small.overflow), flag_equal_to_plain=flag_equal,
                         flag_leaves_bricks_unfused=flag_unfused, dense_bit_equal_to_k2=dense_equal),
              ms=dict(depth_mips=ms_a, classify_bricks=ms_b, fuse_bricks=ms_c, sum=ms_a + ms_b + ms_c,
                      fuse_volume=ms_k2),
-             cold_ms=dict(fuse_bricks=cold_c, fuse_volume=cold_k2),
+             cold_ms=dict(depth_mips=cold_a, classify_bricks=cold_b, fuse_bricks=cold_c, fuse_volume=cold_k2),
              plain_ms=dict(depth_mips=plain_a, classify_bricks=plain_b, fuse_bricks=plain_c),
              bound_ms=dict(depth_mips=b_a, classify_bricks=b_b, fuse_bricks=b_c),
-             library_ms=dict(depth_mips=lib_a, classify_bricks=None, fuse_bricks=None),
-             library_note="depth_mips: torch.amax over the 8 px tiles, a yardstick (one of 22 levels, the max "
-                          "alone); no single PyTorch call computes any of the three")
+             library_ms=dict(depth_mips=lib_a, classify_bricks=lib_b, fuse_bricks=None),
+             library_note="yardsticks, no single PyTorch call computes any of the three: depth_mips torch.amax "
+                          "over the 8 px tiles (one of 22 levels, the max alone); classify_bricks torch.cumsum "
+                          "over the cls == ACTIVE flags (one of its two lists' ranks, without the classes)")
         check(table_equal, f"B3a's table differs from its plain version at {name}")
         check(classes_equal, f"B3b's classes or lists differ from its plain version at {name}")
+        check(second_equal and second_differs,
+              f"B3b's second launch, back to back on the next pose's table, at {name}: equal to plain "
+              f"{second_equal}, other classes than the first {second_differs}")
         check(all(eq_k2) and all(bits_k2), f"B3c's volume is not K2's bit for bit at {name}: == {eq_k2}, bits {bits_k2}")
         check(all(eq_plain), f"B3c's volume differs from its plain version at {name}: {eq_plain}")
         check(bool(small.overflow) and flag_equal and flag_unfused and dense_equal,
@@ -498,10 +528,10 @@ def phase_bricks(ctx):
               f"{name}: overflow, or too few updates ({n_active} ACTIVE bricks, {updated} voxels)")
         if not rows:
             rows = {
-                "depth_mips": dict(max_abs_err=0.0, ms=ms_a, plain_ms=plain_a, bound_ms=b_a[0], bound_by=b_a[1],
-                                   library_ms=lib_a),
-                "classify_bricks": dict(max_abs_err=0.0, ms=ms_b, plain_ms=plain_b, bound_ms=b_b[0],
-                                        bound_by=b_b[1]),
+                "depth_mips": dict(max_abs_err=0.0, ms=ms_a, cold_ms=cold_a, plain_ms=plain_a, bound_ms=b_a[0],
+                                   bound_by=b_a[1], library_ms=lib_a),
+                "classify_bricks": dict(max_abs_err=0.0, ms=ms_b, cold_ms=cold_b, plain_ms=plain_b, bound_ms=b_b[0],
+                                        bound_by=b_b[1], library_ms=lib_b),
                 "fuse_bricks": dict(max_abs_err=0.0, ms=ms_c, cold_ms=cold_c, plain_ms=plain_c, bound_ms=b_c[0],
                                     bound_by=b_c[1]),
             }

@@ -18,13 +18,17 @@ the port's own dense fusion, on the CPU at the tests' scale (64^3 at 0.12 m,
   ``"flag"`` leaves the same bricks unfused; in the engine the flag
   propagates, ``"dense"`` gives the dense engine's volume bit for bit, and
   a brick-fusion run lies in the JAX brick engine's ATE class.
-- B3b ranks bricks by per-block counts and warp ballots, B3a walks pixel
+- B3b gives a brick eight lanes, a corner each, reduced by xor shuffles,
+  picks the level by ballots and divides by a multiply-high, then ranks the
+  bricks by a single-pass scan over tiles taken by ticket; B3a walks pixel
   columns with lanes adjacent in x and reduces each tile in a group of
-  lanes, and B3c gives a warp a brick and a lane two z columns; their numpy
-  twins here show the ranks are flat brick order, every pixel is read once
-  and every mip row has one owner (the twin's table the plain version's),
-  every voxel of a brick is visited once with the plain order of its
-  camera-coordinate sums, and every work item is taken once.
+  lanes, and B3c gives a warp a brick and a lane two z columns. Their numpy
+  twins here show the division exact, the level and the classes the plain
+  version's in any reduction order, the ranks flat brick order however the
+  blocks interleave (and again on the same scratch), every pixel read once
+  and every mip row with one owner (the twin's table the plain version's),
+  every voxel of a brick visited once with the plain order of its
+  camera-coordinate sums, and every work item taken once.
 """
 
 import numpy as np
@@ -334,46 +338,385 @@ def test_classes_reach_far_and_far_partial():
     assert (tcls != jcls).sum() <= 0.001 * tcls.size
 
 
-def _twin_rank(cls_flat, cap, block=tbrick.CLASSIFY_BLOCK):
-    """numpy twin of csrc/bricks.cu's rank_bricks_kernel: block b adds the
-    counts of blocks < b, then ranks its own bricks by warp ballots (the
-    warps' popcounts before it, then the lanes' below it)."""
+CORNER_LANES, CLASSIFY_THREADS = 8, 256  # csrc/bricks.cu: lanes of a brick (a corner each), threads of a block
+DIVIDE_LIMIT = 1 << 16  # csrc/bricks.cu: the classifier's exact division holds below this
+TILE_COUNTS, TILE_PREFIX = 1 << 62, 2 << 62  # csrc/bricks.cu: the flags of a tile's status word
+
+
+def _magic(ts):
+    """csrc/bricks.cu::read_levels: ceil(2^32 / ts), for each tile size."""
+    ts = np.asarray(ts, np.uint64)
+    return (np.uint64(2 ** 32 - 1) + ts) // ts
+
+
+def _divide(i, ts):
+    """csrc/bricks.cu::divide: the high word of i * magic(ts)."""
+    return ((np.asarray(i, np.uint64) * _magic(ts)) >> np.uint64(32)).astype(np.int64)
+
+
+@pytest.mark.parametrize("ts", tbrick.MIP_LEVELS)
+def test_exact_division_equals_floor_division(ts):
+    """The classifier's multiply-high equals ``//`` for every pixel index below
+    the limit the kernel checks, the image's [0, 640) among them."""
+    i = np.arange(DIVIDE_LIMIT)
+    assert _magic(ts) < 2 ** 32
+    assert np.array_equal(_divide(i, ts), i // ts)
+    assert np.array_equal(_divide(i[:640], ts), np.arange(640) // ts)
+
+
+def _min_nan(a, b):
+    """torch.minimum: NaN if either is."""
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.minimum(a, b)))
+
+
+def _max_nan(a, b):
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.maximum(a, b)))
+
+
+def _to_index(x):
+    """ops/sampling.py::to_index: NaN -> -1, clamped to +-2^30, truncated."""
+    return np.clip(np.where(np.isnan(x), np.float32(-1.0), x), -(2.0 ** 30), 2.0 ** 30).astype(np.int64)
+
+
+def _group(x, op, width):
+    """csrc/bricks.cu::group_min / group_max and the cells' reduction: xor
+    shuffles over offsets 1, 2, ... below ``width``, on (bricks, lanes)
+    arrays; every lane of a group of ``width`` gets the result."""
+    lane = np.arange(x.shape[-1])
+    off = 1
+    while off < width:
+        x = op(x, x[..., lane ^ off])
+        off <<= 1
+    return x
+
+
+def _twin_level(pr, cu, cv, ucl, vcl, sizes, lanes=CORNER_LANES):
+    """csrc/bricks.cu's level: lane j of a brick tests levels j, j + lanes,
+    ...; per round, two ballots collect which levels have tiles smaller than
+    ``pr`` and which cover the footprint, as bits over the levels; the level
+    is the lowest covering bit above the smaller ones (the sizes ascend), or
+    ``len(sizes)``. Arrays of bricks in, levels out."""
+    n = len(sizes)
+    smaller = np.zeros(pr.shape, np.int64)
+    covering = np.zeros(pr.shape, np.int64)
+    for r in range(-(-22 // lanes)):
+        for j in range(lanes):
+            k = r * lanes + j
+            if k >= n:
+                continue
+            s = sizes[k]
+            below = np.float32(s) < pr
+            cover = (ucl < ((_divide(cu, s) + 2) * s).astype(np.float32)) & (
+                vcl < ((_divide(cv, s) + 2) * s).astype(np.float32))
+            smaller |= below.astype(np.int64) << k
+            covering |= cover.astype(np.int64) << k
+    candidates = covering & ~smaller
+    lowest = candidates & -candidates
+    return np.where(candidates != 0, np.log2(np.maximum(lowest, 1)).astype(np.int64), n)
+
+
+def _top_down_level(pr, cu, cv, ucl, vcl, sizes):
+    """classify_bricks_plain's scan: searchsorted's level, then every level
+    from the top down, keeping the last that covers at or above it."""
+    n = len(sizes)
+    base = torch.searchsorted(torch.tensor(sizes, dtype=torch.float32), torch.from_numpy(pr)).numpy()
+    level = np.full(pr.shape, n)
+    for li in reversed(range(n)):
+        s = sizes[li]
+        cover = (ucl < ((cu // s) + 2) * s) & (vcl < ((cv // s) + 2) * s)
+        level = np.where(cover & (base <= li), li, level)
+    return level
+
+
+def _twin_classify(table, pose, intr, cfg, corners=tuple(range(8)), lanes=CORNER_LANES):
+    """numpy twin of csrc/bricks.cu::classify_brick on every brick: lane j of
+    a brick's ``lanes`` takes corners ``corners[j * 8 // lanes:...]`` (the
+    kernel: j * 8 / lanes onward, in order) and reduces them, then the group
+    reduces by xor shuffles; the level by ballots (:func:`_twin_level`); lane
+    j reads the window's cell j & 3 and the group reduces the four cells over
+    lanes j ^ 1, then j ^ 2. The division by |f| is a true one, as the plain
+    version's on the CPU (the kernel multiplies by the reciprocal, as the
+    plain version on the card). Returns the classes (every lane's must
+    agree) and the footprint (pr, cu, cv, ucl, vcl) and level of each brick."""
+    f = np.float32
+    H, W = intr.height, intr.width
+    layout = tbrick.mip_layout(H, W)
+    sizes = layout.sizes
+    nbx, nby, nbz = (s // 8 for s in cfg.resolution)
+    R, t = pose[:9].reshape(3, 3), pose[18:21]
+    bm = f(8 * cfg.voxel_size)
+    b = np.arange(nbx * nby * nbz)
+    bx0 = (b // (nby * nbz)).astype(f)[:, None] * bm
+    by0 = ((b // nbz) % nby).astype(f)[:, None] * bm
+    bz0 = (b % nbz).astype(f)[:, None] * bm
+    planes = ((f(intr.fx), f(0), f(intr.cx - 2.5)), (f(-intr.fx), f(0), f((W - 0.5) - intr.cx)),
+              (f(0), f(intr.fy), f(intr.cy - 2.5)), (f(0), f(-intr.fy), f((H - 0.5) - intr.cy)))
+    per = 8 // lanes
+    lane_corners = np.asarray(corners).reshape(lanes, per)
+    acc = None
+    for c in range(per):
+        k = lane_corners[:, c][None, :]
+        px = bx0 + np.where(k & 4, bm, f(0))
+        py = by0 + np.where(k & 2, bm, f(0))
+        pz = bz0 + np.where(k & 1, bm, f(0))
+        cam = [((R[i, 0] * px + R[i, 1] * py) + R[i, 2] * pz) + t[i] for i in range(3)]
+        zc = _max_nan(cam[2], f(1e-6))
+        vals = [(f(intr.fx) * cam[0]) / zc + f(intr.cx), (f(intr.fy) * cam[1]) / zc + f(intr.cy), cam[2]]
+        vals += [(a * cam[0] + b_ * cam[1]) + c_ * cam[2] for a, b_, c_ in planes]
+        ops = (_min_nan, _max_nan, _min_nan, _max_nan, _min_nan, _max_nan) + (_max_nan,) * 4
+        now = [vals[0], vals[0], vals[1], vals[1], vals[2], vals[2]] + vals[3:]
+        acc = now if acc is None else [op(a, x) for op, a, x in zip(ops, acc, now)]
+    umin, umax, vmin, vmax, zmin, zmax, *pmax = [_group(a, op, lanes) for op, a in zip(ops, acc)]
+    frustum_out = (pmax[0] < 0) | (pmax[1] < 0) | (pmax[2] < 0) | (pmax[3] < 0)
+    o = [-((R[0, i] * t[0] + R[1, i] * t[1]) + R[2, i] * t[2]) for i in range(3)]
+    lo, hi = [], []
+    for b0, oi in zip((bx0, by0, bz0), o):
+        lo.append(np.abs(oi - _min_nan(_max_nan(oi, b0), b0 + bm)))
+        hi.append(_max_nan(np.abs(b0 - oi), np.abs(b0 + bm - oi)))
+    dist_min = _max_nan(np.sqrt((lo[0] * lo[0] + lo[1] * lo[1]) + lo[2] * lo[2]), f(1e-3))
+    dist_max = np.sqrt((hi[0] * hi[0] + hi[1] * hi[1]) + hi[2] * hi[2])
+    umin, umax, vmin, vmax = umin - f(1), umax + f(1), vmin - f(1), vmax + f(1)
+    fully_behind = zmax < 0
+    z_safe = zmin > f(1e-3)
+    fully_outside = z_safe & ((umax < f(2.5)) | (umin > f(W - 0.5)) | (vmax < f(2.5)) | (vmin > f(H - 0.5)))
+    fully_inside = z_safe & (umin >= f(2.5)) & (umax <= f(W - 1.5)) & (vmin >= f(2.5)) & (vmax <= f(H - 1.5))
+    pr = np.where(z_safe, f(0.5) * _max_nan(umax - umin, vmax - vmin), f(np.inf))
+    u, v = f(0.5) * (umin + umax), f(0.5) * (vmin + vmax)
+    cu = np.clip(_to_index(u - pr), 0, W - 1)
+    cv = np.clip(_to_index(v - pr), 0, H - 1)
+    ucl = _min_nan(_max_nan(umax, f(0)), f(W - 1))
+    vcl = _min_nan(_max_nan(vmax, f(0)), f(H - 1))
+    level = _twin_level(pr, cu, cv, ucl, vcl, sizes, lanes)
+    level_ok = level < len(sizes)
+    lv = np.minimum(level, len(sizes) - 1)
+    ts = np.asarray(sizes)[lv]
+    mh = np.asarray([h for h, _ in layout.shapes])[lv]
+    mw = np.asarray([w for _, w in layout.shapes])[lv]
+    first = np.asarray(layout.offsets)[lv]
+    cu0 = np.minimum(_divide(cu, ts), mw - 1)
+    cv0 = np.minimum(_divide(cv, ts), mh - 1)
+    cell = np.arange(lanes)[None, :] & 3
+    y = np.minimum(cv0 + (cell >> 1), mh - 1)
+    x = np.minimum(cu0 + (cell & 1), mw - 1)
+    rows = table[first + y * mw + x]
+    dmin = _group(rows[..., 0], _min_nan, 4)
+    dmax = _group(rows[..., 1], _max_nan, 4)
+    all_valid = _group(rows[..., 2], np.multiply, 4) > f(0.5)
+
+    def coord_interval(c0, c1, centre, fl):
+        a0, a1 = np.abs(c0 - f(centre)), np.abs(c1 - f(centre))
+        inside = (c0 <= f(centre)) & (f(centre) <= c1)
+        return np.where(inside, f(0), _min_nan(a0, a1)) / f(abs(fl)), _max_nan(a0, a1) / f(abs(fl))
+
+    xl_lo, xl_hi = coord_interval(_min_nan(_max_nan(umin, f(0)), f(W - 1)), ucl, intr.cx, intr.fx)
+    yl_lo, yl_hi = coord_interval(_min_nan(_max_nan(vmin, f(0)), f(H - 1)), vcl, intr.cy, intr.fy)
+    lam_min = np.sqrt((xl_lo * xl_lo + yl_lo * yl_lo) + f(1))
+    lam_max = np.sqrt((xl_hi * xl_hi + yl_hi * yl_hi) + f(1))
+    proj_ok = z_safe & level_ok
+    none = fully_behind | fully_outside | frustum_out | (proj_ok & (dmax * lam_max - dist_min < f(-cfg.trunc_dist)))
+    far = proj_ok & all_valid & (dmin * lam_min - dist_max > f(cfg.trunc_dist))
+    cls = np.where(none, tbrick.NONE, np.where(far, np.where(fully_inside, tbrick.FAR, tbrick.FAR_PARTIAL),
+                                                  tbrick.ACTIVE))
+    assert (cls == cls[:, :1]).all()  # the group agrees
+    return cls[:, 0].reshape(nbx, nby, nbz), dict(pr=pr[:, 0], cu=cu[:, 0], cv=cv[:, 0], ucl=ucl[:, 0],
+                                                    vcl=vcl[:, 0], level=level[:, 0])
+
+
+@pytest.mark.parametrize("lanes, corners", [(8, tuple(range(8))), (8, (5, 2, 7, 0, 3, 6, 1, 4)),
+                                            (4, (6, 1, 3, 4, 0, 7, 2, 5))],
+                         ids=["8_lanes", "8_lanes_shuffled", "4_lanes_shuffled"])
+@pytest.mark.parametrize("name", CASES)
+def test_lane_split_twin_gives_plain_classes(name, lanes, corners):
+    """The twin of the kernel's lane split (corners on lanes, xor-shuffle
+    reductions, ballots for the level, a cell a lane) gives the plain
+    version's classes, whichever corner a lane takes and in whatever order
+    the reductions meet them: min and max round nothing, and no class reads
+    the sign of a zero."""
+    _, _, tcfg = _cfgs()
+    v2c, depth = _case(name)
+    _, _, tr, tt = _poses(v2c)
+    pose = kernels.fusion_pose(tr, tt)
+    table = tbrick.depth_mips(tfusion.scale_depth(torch.from_numpy(depth)))
+    plain = tbrick.classify_bricks_plain(table, pose, TINTR, tcfg).numpy()
+    twin, _ = _twin_classify(table.numpy(), pose.numpy(), TINTR, tcfg, corners, lanes)
+    assert np.array_equal(twin, plain)
+    assert len(np.unique(plain)) >= 2
+
+
+@pytest.mark.parametrize("source", ("random",) + CASES)
+def test_level_ballot_equals_top_down_scan(source):
+    """The level the ballots give (the lowest covering level above those with
+    smaller tiles) is the top-down scan's, on random footprints of a 480x640
+    frame and on every brick of the three test poses."""
+    if source == "random":
+        rng = np.random.default_rng(3)
+        n = 200_000
+        sizes = tbrick.mip_layout(480, 640).sizes
+        pr = rng.uniform(0.0, 200.0, n).astype(np.float32)
+        pr[rng.random(n) < 0.05] = np.inf  # a brick not safely in front of the camera
+        cu, cv = rng.integers(0, 640, n), rng.integers(0, 480, n)
+        ucl = np.minimum(cu + rng.uniform(0.0, 4.0, n) * np.minimum(pr, 300), 639).astype(np.float32)
+        vcl = np.minimum(cv + rng.uniform(0.0, 4.0, n) * np.minimum(pr, 300), 479).astype(np.float32)
+    else:
+        _, _, tcfg = _cfgs()
+        v2c, depth = _case(source)
+        _, _, tr, tt = _poses(v2c)
+        table = tbrick.depth_mips(tfusion.scale_depth(torch.from_numpy(depth)))
+        sizes = tbrick.mip_layout(SMALL_INTR.height, SMALL_INTR.width).sizes
+        _, fp = _twin_classify(table.numpy(), kernels.fusion_pose(tr, tt).numpy(), TINTR, tcfg)
+        pr, cu, cv, ucl, vcl = (np.ascontiguousarray(fp[k]) for k in ("pr", "cu", "cv", "ucl", "vcl"))
+    level = _twin_level(pr, cu, cv, ucl, vcl, sizes)
+    assert np.array_equal(level, _top_down_level(pr, cu, cv, ucl, vcl, sizes))
+    assert (level < len(sizes)).any() and len(np.unique(level)) >= 3
+
+
+def _status(flag, n_active, n_work):
+    return flag | (n_active << 31) | n_work
+
+
+def _twin_scan(cls_flat, cap, rng, scratch=None, resident=5, passes=1, lanes=CORNER_LANES):
+    """numpy twin of classify_bricks_kernel's ranks, blocks as coroutines: the
+    blocks start in a seeded order, at most ``resident`` at a time, and each
+    takes its tile by the ticket; a step of a random running block at a time.
+    A block ballots its bricks' ACTIVE and work flags (a leader lane a brick,
+    every ``lanes`` lanes), publishes its tile's counts, looks back 32 tiles
+    at a time (waiting while a tile up to the nearest prefix has published
+    nothing), publishes its prefix, writes its ranks and lists; the block
+    that finishes last zeroes the scratch. Returns (rank, active_ids,
+    work_ids, totals, overflow, tile of each block, scratch)."""
     n = cls_flat.size
-    blocks = -(-n // block)
-    padded = np.full(blocks * block, tbrick.NONE, np.int64)
-    padded[:n] = cls_flat
-    per_block = padded.reshape(blocks, block)
-    counts = [((per_block == tbrick.ACTIVE).sum(1)), ((per_block != tbrick.NONE).sum(1))]
-    rank = np.full(n, -1, np.int64)
-    active_ids = np.full(n, -1, np.int64)
-    work_ids = np.full(n, -1, np.int64)
-    for b in range(blocks):
-        for pred, before, out in ((per_block[b] == tbrick.ACTIVE, counts[0][:b].sum(), active_ids),
-                                  (per_block[b] != tbrick.NONE, counts[1][:b].sum(), work_ids)):
-            warps = pred.reshape(-1, 32)
-            pops = warps.sum(1)
-            for w in range(warps.shape[0]):
-                for lane in range(32):
-                    if warps[w, lane]:
-                        r = before + pops[:w].sum() + warps[w, :lane].sum()
-                        out[r] = b * block + w * 32 + lane
-                        if out is active_ids:
-                            rank[b * block + w * 32 + lane] = r
-    return rank, active_ids, work_ids, counts[0].sum(), counts[1].sum()
+    warps = CLASSIFY_THREADS // 32
+    per_pass = CLASSIFY_THREADS // lanes
+    tile_size = passes * per_pass
+    tiles = -(-n // tile_size)
+    scratch = scratch if scratch is not None else dict(ticket=0, done=0, status=[0] * tiles)
+    assert scratch["ticket"] == scratch["done"] == 0 and not any(scratch["status"])
+    status = scratch["status"]
+    rank, active_ids, work_ids = (np.full(n, -7, np.int64) for _ in range(3))  # -7: never written
+    out = dict(tiles={})
+
+    def block(idx):
+        tile = scratch["ticket"]
+        scratch["ticket"] += 1
+        out["tiles"][idx] = tile
+        yield
+        words = []  # (pass, warp) ballots of ACTIVE and of work leaders, in flat order
+        for q in range(passes):
+            for w in range(warps):
+                act = wrk = 0
+                for g in range(32 // lanes):
+                    b = tile * tile_size + q * per_pass + w * (32 // lanes) + g
+                    c = cls_flat[b] if b < n else tbrick.NONE
+                    act |= int(c == tbrick.ACTIVE) << (g * lanes)
+                    wrk |= int(c != tbrick.NONE) << (g * lanes)
+                words.append((act, wrk))
+        pops = np.array([[bin(a).count("1"), bin(w_).count("1")] for a, w_ in words])
+        before = np.cumsum(pops, 0) - pops  # within the tile
+        tile_a, tile_w = (int(x) for x in pops.sum(0))
+        ba = bw = 0
+        if tile > 0:
+            status[tile] = _status(TILE_COUNTS, tile_a, tile_w)
+            yield
+            newest = tile - 1
+            while True:
+                window = [status[i] if i >= 0 else TILE_PREFIX for i in range(newest, newest - 32, -1)]
+                published = sum(int(s >> 62 != 0) << lane for lane, s in enumerate(window))
+                prefixes = sum(int(s >> 62 == 2) << lane for lane, s in enumerate(window))
+                needed = ((prefixes & -prefixes) << 1) - 1 if prefixes else 0xFFFFFFFF
+                if published & needed != needed:
+                    yield  # spin
+                    continue
+                take = [s for lane, s in enumerate(window) if needed >> lane & 1]
+                ba += sum((s >> 31) & 0x7FFFFFFF for s in take)
+                bw += sum(s & 0x7FFFFFFF for s in take)
+                if prefixes:
+                    break
+                newest -= 32
+                yield
+        status[tile] = _status(TILE_PREFIX, ba + tile_a, bw + tile_w)
+        if tile == tiles - 1:
+            out["totals"] = (ba + tile_a, bw + tile_w)
+            out["overflow"] = ba + tile_a > cap
+        yield
+        for wi, (act, wrk) in enumerate(words):
+            for g in range(32 // lanes):
+                lane = g * lanes
+                b = tile * tile_size + (wi // warps) * per_pass + (wi % warps) * (32 // lanes) + g
+                if b >= n:
+                    continue
+                below = (1 << lane) - 1
+                ra = ba + int(before[wi, 0]) + bin(act & below).count("1")
+                rank[b] = ra if act >> lane & 1 else -1
+                if act >> lane & 1:
+                    active_ids[ra] = b
+                if wrk >> lane & 1:
+                    work_ids[bw + int(before[wi, 1]) + bin(wrk & below).count("1")] = b
+        scratch["done"] += 1
+        if scratch["done"] == tiles:  # the last block to finish: ready for the next launch
+            status[:tiles] = [0] * tiles
+            scratch["ticket"] = scratch["done"] = 0
+
+    waiting = list(rng.permutation(tiles))  # blockIdx in the order the blocks start
+    running = []
+    while waiting or running:
+        if waiting and (len(running) < resident) and (not running or rng.random() < 0.5):
+            idx = int(waiting.pop(0))
+            running.append(block(idx))
+        k = int(rng.integers(len(running)))
+        try:
+            next(running[k])
+        except StopIteration:
+            running.pop(k)
+    return rank, active_ids, work_ids, out["totals"], out["overflow"], out["tiles"], scratch
 
 
 @pytest.mark.parametrize("n", [512, 1000, 32768])
 def test_rank_twin_is_flat_order(n):
+    """The single-pass scan's twin, its tiles taken in a shuffled ticket
+    order, gives rank_bricks_plain's ranks, lists, counts and flag."""
     rng = np.random.default_rng(n)
     cls = rng.choice(4, size=n, p=[0.6, 0.2, 0.15, 0.05]).astype(np.int32)
-    rank, active_ids, work_ids, n_active, n_work = _twin_rank(cls, cap=0)
-    plain = tbrick.rank_bricks_plain(torch.from_numpy(cls), cap=int(n_active) - 1)
+    n_active = int((cls == tbrick.ACTIVE).sum())
+    rank, active_ids, work_ids, totals, overflow, tiles, scratch = _twin_scan(cls, n_active - 1, rng)
+    plain = tbrick.rank_bricks_plain(torch.from_numpy(cls), cap=n_active - 1)
+    n_work = int(plain.totals[1])
+    assert list(totals) == plain.totals.tolist() and overflow and bool(plain.overflow)
     assert np.array_equal(rank, plain.rank.numpy())
     assert np.array_equal(active_ids[:n_active], plain.active_ids[:n_active].numpy())
     assert np.array_equal(work_ids[:n_work], plain.work_ids[:n_work].numpy())
     assert np.array_equal(active_ids[:n_active], np.flatnonzero(cls == tbrick.ACTIVE))
-    assert plain.totals.tolist() == [n_active, n_work] and bool(plain.overflow)
     assert (plain.active_ids[n_active:] == n).all()  # the plain version pads with NB
+    assert sorted(tiles.values()) == list(range(len(tiles)))
+    if len(tiles) > 2:
+        assert any(idx != tile for idx, tile in tiles.items())  # tiles follow the tickets, not blockIdx
+    assert scratch["ticket"] == scratch["done"] == 0 and not any(scratch["status"])
+
+
+@pytest.mark.parametrize("passes, lanes", [(1, 8), (4, 8), (2, 4)])
+@pytest.mark.parametrize("resident", [1, 3, 64])
+def test_scan_twin_back_to_back_on_one_scratch(resident, passes, lanes):
+    """Two launches back to back on one scratch, with different classes (the
+    second overflows its cap, the first does not), each give the plain
+    lists: the first launch leaves its ticket and status words zeroed. With
+    one resident block the tiles run one after another; a look-back never
+    waits on a tile whose block has not started."""
+    rng = np.random.default_rng(resident * 10 + passes)
+    n = 32 * 8 * 12 + 5  # a cut last tile
+    first = rng.choice(4, size=n, p=[0.5, 0.2, 0.2, 0.1]).astype(np.int32)
+    second = rng.choice(4, size=n, p=[0.3, 0.1, 0.5, 0.1]).astype(np.int32)
+    cap = int((first == tbrick.ACTIVE).sum())
+    scratch, flags = None, []
+    for cls in (first, second):
+        rank, active_ids, work_ids, totals, overflow, _, scratch = _twin_scan(cls, cap, rng, scratch, resident,
+                                                                             passes, lanes)
+        plain = tbrick.rank_bricks_plain(torch.from_numpy(cls), cap)
+        n_active, n_work = plain.totals.tolist()
+        assert list(totals) == [n_active, n_work] and overflow == bool(plain.overflow)
+        assert np.array_equal(rank, plain.rank.numpy())
+        assert np.array_equal(active_ids[:n_active], plain.active_ids[:n_active].numpy())
+        assert np.array_equal(work_ids[:n_work], plain.work_ids[:n_work].numpy())
+        flags.append(overflow)
+    assert flags == [False, True]
 
 
 # ---------------------------------------------------- B3c: the fused volume

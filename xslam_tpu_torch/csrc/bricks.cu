@@ -27,23 +27,34 @@
 //   largest tiles' blocks start first; the grid is about one wave. Bound: the
 //   1.2 MB image once plus the table; each level re-reads the image from L2,
 //   and the 22 re-reads are what the kernel waits on.
-// B3b xs_classify_bricks: two kernels. classify_bricks_kernel: one thread a
-//   brick: the eight corners' projections and the four frustum planes, the
-//   exact point-to-box distance interval, the footprint, the smallest
-//   covering mip level (scanned from the level searchsorted picks, as the
-//   top-down scan of :358-366 keeps the smallest), four table reads, the
-//   lambda interval, the class (0 NONE, 1 FAR, 2 ACTIVE, 3 FAR_PARTIAL); each
-//   block counts its ACTIVE and its non-NONE bricks. rank_bricks_kernel:
-//   each block adds the counts of the blocks before it (integer sums: the
-//   same in any order) and scans its own bricks by warp ballots, so the
-//   ranks are flat brick order whatever order the blocks run in: the ACTIVE
-//   list, each ACTIVE brick's rank, the work list (every non-NONE brick),
-//   n_active, n_work and overflow = n_active > cap, on the device. Every
-//   operation follows the plain version one rounding at a time; a division by
-//   |f| is a multiply by its reciprocal (taken in double), as PyTorch's CUDA
-//   operator divides by a host scalar, so the classes are the plain
-//   version's on the card. A float-to-int convert saturates as
-//   ops/sampling.py::to_index does (NaN -> -1, clamped to +-2^30).
+// B3b xs_classify_bricks: ONE kernel for the classes and the ranks. Per
+//   brick: the eight corners' projections (16 IEEE divisions) and the four
+//   frustum planes, the exact point-to-box distance interval, the footprint,
+//   the smallest covering mip level at or above the one searchsorted picks,
+//   four table reads, the lambda interval, the class (0 NONE, 1 FAR, 2
+//   ACTIVE, 3 FAR_PARTIAL). That is a long dependent chain and little memory
+//   (the table's 280 KB, 16 B a brick out): one thread a brick left some 8
+//   warps an SM waiting on it. Here a brick has CORNER_LANES lanes, a corner
+//   each: xor shuffles reduce the corners' bounds and the planes' maxima;
+//   the lanes test the levels side by side, ballots give the level (no
+//   integer division: i / ts is a multiply-high by a magic number, exact for
+//   i < 2^16); four lanes read the four cells. Then the ranks, in the same
+//   launch: the lists in flat brick order by a single-pass scan over tiles of
+//   CLASSIFY_TILE bricks, a block a tile taken by an atomic ticket, each tile
+//   publishing its counts, then its prefix, in one 64-bit status word (the
+//   decoupled look-back); warp ballots rank the bricks inside the tile.
+//   Integer sums: the same in any order, so the ranks are flat brick order
+//   however the blocks run: the ACTIVE list, each ACTIVE brick's rank, the
+//   work list (every non-NONE brick), n_active, n_work and overflow =
+//   n_active > cap, on the device. The block that finishes last zeroes the
+//   ticket and status words for the next launch: no fill launch, no host
+//   read. Every operation follows the plain version one rounding at a time
+//   (min and max in any order: they round nothing, and no class reads the
+//   sign of a zero); a division by |f| is a multiply by its reciprocal
+//   (taken in double), as PyTorch's CUDA operator divides by a host scalar,
+//   so the classes are the plain version's on the card. A float-to-int
+//   convert saturates as ops/sampling.py::to_index does (NaN -> -1, clamped
+//   to +-2^30).
 // B3c xs_fuse_bricks: in place on the dense planes. A warp takes one brick of
 //   the work list at a time; the grid is as many warps as the SMs hold at
 //   once, about as many as the work bricks of a frame, so a warp usually
@@ -80,7 +91,19 @@ constexpr int MIP_THREADS = 256;    // threads of a depth_mips block
 constexpr int MIP_ROWS = 64;        // most rows one depth_mips thread walks
 constexpr int MIP_INFLIGHT = 8;     // loads a depth_mips thread keeps in flight
 constexpr int MIP_MIN_BLOCKS = 6;   // depth_mips blocks an SM holds at least: at most 40 registers a thread
-constexpr int CLASSIFY_THREADS = 256;
+constexpr int CLASSIFY_THREADS = 256;  // threads of a classify_bricks block
+constexpr int CORNER_LANES = 8;        // lanes that classify one brick, a corner each
+constexpr int CORNERS_PER_LANE = 8 / CORNER_LANES;
+constexpr int CLASSIFY_PASSES = 1;     // bricks a classify_bricks thread group takes, one after the other
+constexpr int BRICKS_PER_PASS = CLASSIFY_THREADS / CORNER_LANES;
+constexpr int CLASSIFY_TILE = CLASSIFY_PASSES * BRICKS_PER_PASS;  // bricks of a block: ops/fusion_brick.py
+constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;  // levels a lane tests
+constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
+constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
+constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks look-back waits less
+static_assert(8 % CORNER_LANES == 0 && CORNER_LANES >= 4, "a brick's lanes take its 8 corners and 4 cells");
+static_assert(CLASSIFY_PASSES * (CLASSIFY_THREADS / 32) <= 32, "warp 0 scans a block's ballots, one a lane");
+static_assert(LEVEL_ROUNDS * CORNER_LANES <= 32, "a level mask fits 32 bits");
 constexpr int FUSE_WARPS = 4;       // warps of a fuse_bricks block, one brick each at a time
 constexpr int FUSE_THREADS = 32 * FUSE_WARPS;
 constexpr int FUSE_MIN_BLOCKS = 6;  // fuse_bricks blocks an SM holds at least: at most 80 registers a thread
@@ -92,6 +115,7 @@ enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3 };
 struct MipLevels {
   int n, rows;
   int ts[MAX_MIP_LEVELS], h[MAX_MIP_LEVELS], w[MAX_MIP_LEVELS], offset[MAX_MIP_LEVELS];
+  unsigned magic[MAX_MIP_LEVELS];  // ceil(2^32 / ts): the classifier's division by ts (divide)
   int first_block[MAX_MIP_LEVELS], blocks[MAX_MIP_LEVELS], per_block[MAX_MIP_LEVELS];
 };
 
@@ -245,11 +269,13 @@ __global__ void __launch_bounds__(MIP_THREADS, MIP_MIN_BLOCKS)
 // ---------------------------------------------------------------- B3b
 struct ClassifyParams {
   int nbx, nby, nbz, H, W;
+  int tiles;             // tiles of the scan: CLASSIFY_TILE bricks each, the last one cut at the volume's end
   float bm;              // brick edge in metres
   float fx, fy, cx, cy;  // the camera, as float32
   float plane_c[4];      // constant terms of the gate planes: cx - 2.5, (W - 0.5) - cx, cy - 2.5, (H - 0.5) - cy
   float inv_abs_fx, inv_abs_fy;
   float trunc, neg_trunc;
+  int cap;
   MipLevels m;
 };
 
@@ -258,11 +284,31 @@ __device__ __forceinline__ float min_nan(float a, float b) { return isnan(a) ? a
 __device__ __forceinline__ float max_nan(float a, float b) { return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b)); }
 __device__ __forceinline__ float clip(float x, float lo, float hi) { return min_nan(max_nan(x, lo), hi); }
 
+// min_nan / max_nan over the aligned group of `lanes` lanes (a power of two up to 8), by xor shuffles: every
+// lane of the group gets the result. Min and max round nothing and propagate NaN in any order; only the sign
+// of a zero can follow the order, and no class reads it (each use compares, or adds a nonzero constant).
+template <int lanes>
+__device__ __forceinline__ float group_min(float x) {
+#pragma unroll
+  for (int off = 1; off < lanes; off <<= 1) x = min_nan(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+template <int lanes>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = 1; off < lanes; off <<= 1) x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
 // ops/sampling.py::to_index: NaN -> -1, then clamp to +-2^30 and truncate
 __device__ __forceinline__ int to_index(float x) {
   if (isnan(x)) return -1;
   return (int)fminf(fmaxf(x, -(float)INDEX_LIMIT), (float)INDEX_LIMIT);
 }
+
+// i / ts for 0 <= i < DIVIDE_LIMIT, by a multiply-high with magic = ceil(2^32 / ts) (read_levels): exact there
+// for every ts from 2 to 2^16 (tests/test_torch_fusion_brick.py checks the mip sizes exhaustively)
+__device__ __forceinline__ int divide(int i, unsigned magic) { return (int)__umulhi((unsigned)i, magic); }
 
 // _classify_boxes' coord_interval: the |c - centre| interval over [c0, c1], times 1 / |f|
 __device__ __forceinline__ void coord_interval(float c0, float c1, float centre, float inv_abs_f, float& lo,
@@ -279,17 +325,20 @@ __device__ __forceinline__ void axis_interval(float b0, float bm, float o, float
   hi = max_nan(fabsf(b0 - o), fabsf(b0 + bm - o));
 }
 
+// Brick (bx, by, bz)'s class, computed by the CORNER_LANES lanes of its group, j the lane's place in it (all
+// 32 lanes of the warp call this together: it ballots); every lane of the group returns the class.
 __device__ __forceinline__ int classify_brick(const float* __restrict__ table, const float* __restrict__ pose,
-                              const ClassifyParams& p, int bx, int by, int bz) {
+                                              const ClassifyParams& p, int bx, int by, int bz, int j) {
   const float* R = pose;       // value lane of the rotation
   const float* t = pose + 18;  // value lane of the translation
   const float bx0 = (float)bx * p.bm, by0 = (float)by * p.bm, bz0 = (float)bz * p.bm;
   const float fW = (float)p.W, fH = (float)p.H;
 
-  // the eight corners: projections, camera z and the four gate planes' maxima
+  // the lane's corners: projections, camera z and the four gate planes' values; then over the group
   float umin = 0, umax = 0, vmin = 0, vmax = 0, zmin = 0, zmax = 0, plane_max[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
+  for (int c = 0; c < CORNERS_PER_LANE; ++c) {
+    const int k = j * CORNERS_PER_LANE + c;
     const float px = bx0 + ((k & 4) ? p.bm : 0.0f);
     const float py = by0 + ((k & 2) ? p.bm : 0.0f);
     const float pz = bz0 + ((k & 1) ? p.bm : 0.0f);
@@ -305,7 +354,7 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
         (0.0f * cx_ + p.fy * cy_) + p.plane_c[2] * cz_,
         (0.0f * cx_ + (-p.fy) * cy_) + p.plane_c[3] * cz_,
     };
-    if (k == 0) {
+    if (c == 0) {
       umin = umax = u;
       vmin = vmax = v;
       zmin = zmax = cz_;
@@ -322,6 +371,14 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
       for (int i = 0; i < 4; ++i) plane_max[i] = max_nan(plane_max[i], val[i]);
     }
   }
+  umin = group_min<CORNER_LANES>(umin);
+  umax = group_max<CORNER_LANES>(umax);
+  vmin = group_min<CORNER_LANES>(vmin);
+  vmax = group_max<CORNER_LANES>(vmax);
+  zmin = group_min<CORNER_LANES>(zmin);
+  zmax = group_max<CORNER_LANES>(zmax);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) plane_max[i] = group_max<CORNER_LANES>(plane_max[i]);
   const bool frustum_out = plane_max[0] < 0.0f || plane_max[1] < 0.0f || plane_max[2] < 0.0f || plane_max[3] < 0.0f;
 
   // the camera's distance interval to the solid brick (camera origin in volume coordinates: -R^T t)
@@ -346,47 +403,47 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   const float pr = z_safe ? 0.5f * max_nan(umax - umin, vmax - vmin) : __int_as_float(0x7f800000);
   const float u = 0.5f * (umin + umax), v = 0.5f * (vmin + vmax);
 
-  // searchsorted(sizes, pr), left side: the levels whose tile is smaller than pr
+  // The level: the smallest at or above searchsorted(sizes, pr) (left side: the count of tiles smaller than
+  // pr) whose aligned 2 x 2 window covers the clipped footprint. Lane j tests levels j, j + CORNER_LANES, ...
+  // and the group's ballots collect both sets as bit masks over the levels; the sizes ascend, so the smaller
+  // tiles are the levels below that count, and the level is the lowest covering bit above them.
   const MipLevels& m = p.m;
-  int base = 0;
-#pragma unroll
-  for (int k = 0; k < MAX_MIP_LEVELS; ++k) base += (k < m.n && (float)m.ts[k] < pr) ? 1 : 0;
   const int cu = min(max(to_index(u - pr), 0), p.W - 1);
   const int cv = min(max(to_index(v - pr), 0), p.H - 1);
-  // the smallest level from base up whose aligned 2 x 2 window covers the clipped footprint
   const float ucl = clip(umax, 0.0f, fW - 1.0f), vcl = clip(vmax, 0.0f, fH - 1.0f);
-  int level = m.n, ts = m.ts[0], mh = m.h[0], mw = m.w[0], first = m.offset[0];
+  const int group_first = ((int)threadIdx.x & 31) & ~(CORNER_LANES - 1);
+  unsigned smaller = 0u, covering = 0u;
 #pragma unroll
-  for (int k = MAX_MIP_LEVELS - 1; k >= 0; --k) {
-    if (k < m.n && k >= base) {
+  for (int r = 0; r < LEVEL_ROUNDS; ++r) {
+    const int k = r * CORNER_LANES + j;
+    bool below = false, cover = false;
+    if (k < m.n) {
       const int s = m.ts[k];
-      if (ucl < (float)(((cu / s) + 2) * s) && vcl < (float)(((cv / s) + 2) * s)) level = k;
+      below = (float)s < pr;
+      cover = ucl < (float)((divide(cu, m.magic[k]) + 2) * s) && vcl < (float)((divide(cv, m.magic[k]) + 2) * s);
     }
+    smaller |= ((__ballot_sync(0xffffffffu, below) >> group_first) & GROUP_BITS) << (r * CORNER_LANES);
+    covering |= ((__ballot_sync(0xffffffffu, cover) >> group_first) & GROUP_BITS) << (r * CORNER_LANES);
   }
-  const bool level_ok = level < m.n;
-  const int lv = min(level, m.n - 1);
+  const unsigned candidates = covering & ~smaller;
+  const bool level_ok = candidates != 0u;
+  const int lv = level_ok ? __ffs((int)candidates) - 1 : m.n - 1;
+  const int mh = m.h[lv], mw = m.w[lv];
+  const int cu0 = min(divide(cu, m.magic[lv]), mw - 1), cv0 = min(divide(cv, m.magic[lv]), mh - 1);
+
+  // the window's four cells, one a lane (lanes 4-7 repeat 0-3), reduced over lanes j ^ 1, then j ^ 2: the
+  // plain version's order, min(min(c0, c1), min(c2, c3)); the valid flags are 0 or 1, so their product is exact
+  const int cell = j & 3;
+  const int y = min(cv0 + (cell >> 1), mh - 1), x = min(cu0 + (cell & 1), mw - 1);
+  const float* row = table + 3 * (size_t)(m.offset[lv] + y * mw + x);
+  float dmin = __ldg(row), dmax = __ldg(row + 1), av = __ldg(row + 2);
 #pragma unroll
-  for (int k = 1; k < MAX_MIP_LEVELS; ++k) {
-    if (k == lv) {
-      ts = m.ts[k];
-      mh = m.h[k];
-      mw = m.w[k];
-      first = m.offset[k];
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    dmin = min_nan(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
+    dmax = max_nan(dmax, __shfl_xor_sync(0xffffffffu, dmax, off));
+    av = av * __shfl_xor_sync(0xffffffffu, av, off);
   }
-  const int cu0 = min(cu / ts, mw - 1), cv0 = min(cv / ts, mh - 1);
-  float c_mn[4], c_mx[4], c_av[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int y = min(cv0 + (c >> 1), mh - 1), x = min(cu0 + (c & 1), mw - 1);
-    const float* r = table + 3 * (size_t)(first + y * mw + x);
-    c_mn[c] = __ldg(r);
-    c_mx[c] = __ldg(r + 1);
-    c_av[c] = __ldg(r + 2);
-  }
-  const float dmin = min_nan(min_nan(c_mn[0], c_mn[1]), min_nan(c_mn[2], c_mn[3]));
-  const float dmax = max_nan(max_nan(c_mx[0], c_mx[1]), max_nan(c_mx[2], c_mx[3]));
-  const bool all_valid = ((c_av[0] * c_av[1]) * c_av[2]) * c_av[3] > 0.5f;
+  const bool all_valid = av > 0.5f;
 
   // the ray-length factor lambda over the footprint clipped to the image
   float xl_lo, xl_hi, yl_lo, yl_hi;
@@ -403,82 +460,166 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   return ACTIVE;
 }
 
+// A tile's status word in the single-pass scan: the flag in the top two bits (0: nothing yet, 1: the tile's
+// own counts, 2: the counts of every brick up to the tile's end), then the ACTIVE count and the work count,
+// 31 bits each.
+constexpr unsigned long long TILE_COUNTS = 1ull << 62, TILE_PREFIX = 2ull << 62;
+__device__ __forceinline__ unsigned long long tile_status(unsigned long long flag, int n_active, int n_work) {
+  return flag | ((unsigned long long)n_active << 31) | (unsigned long long)n_work;
+}
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* s) {
+  return *reinterpret_cast<const volatile unsigned long long*>(s);
+}
+__device__ __forceinline__ void store_status(unsigned long long* s, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(s) = v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The counts of every brick before tile `tile`, by warp 0 of its block once the tile's own counts are
+// published: the look-back reads the 32 tiles before the newest one not yet added, waits until each of
+// them up to the nearest prefix has published, adds their counts and stops at that prefix (before tile 0:
+// a prefix of nothing). Integer sums: the same in any order. The tiles it waits on belong to running blocks
+// (the ticket), so a wait of LOOK_BACK_LIMIT_NS means a fault: the launch traps and its wrapper raises.
+__device__ __forceinline__ void look_back(const unsigned long long* status, int tile, int lane, int& before_a,
+                                          int& before_w) {
+  before_a = 0;
+  before_w = 0;
+  unsigned long long waiting_since = 0ull;
+  for (int newest = tile - 1;;) {
+    const int i = newest - lane;
+    const unsigned long long s = i >= 0 ? load_status(status + i) : TILE_PREFIX;
+    const unsigned published = __ballot_sync(0xffffffffu, (s >> 62) != 0ull);
+    const unsigned prefixes = __ballot_sync(0xffffffffu, (s >> 62) == 2ull);
+    const unsigned needed = prefixes ? ((prefixes & (0u - prefixes)) << 1) - 1u : 0xffffffffu;
+    if ((published & needed) != needed) {
+      const unsigned long long now = global_ns();
+      if (waiting_since == 0ull) waiting_since = now;
+      if (now - waiting_since > LOOK_BACK_LIMIT_NS) __trap();
+      continue;
+    }
+    const bool take = (needed >> lane) & 1u;
+    int a = take ? (int)((s >> 31) & 0x7fffffffull) : 0, w = take ? (int)(s & 0x7fffffffull) : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      w += __shfl_xor_sync(0xffffffffu, w, off);
+    }
+    before_a += a;
+    before_w += w;
+    if (prefixes) return;
+    newest -= 32;
+  }
+}
+
+// One launch: the classes, then the ranks in flat brick order by a single-pass scan over tiles of
+// CLASSIFY_TILE bricks. A block takes its tile by an atomic ticket, so every tile before it belongs to a
+// block that has started: its look-back waits only on running blocks. scratch: word 0 holds the ticket and
+// the count of finished blocks (two unsigned ints), words 1.. the tiles' status words; zeroed once per device,
+// and zeroed again by the block that finishes last, ready for the next launch on the stream.
 __global__ void __launch_bounds__(CLASSIFY_THREADS)
     classify_bricks_kernel(const float* __restrict__ table, const float* __restrict__ pose, int* __restrict__ cls,
-                           int* __restrict__ counts, const ClassifyParams p) {
+                           unsigned long long* __restrict__ scratch, int* __restrict__ rank,
+                           int* __restrict__ active_ids, int* __restrict__ work_ids, int* __restrict__ totals,
+                           unsigned char* __restrict__ overflow, const __grid_constant__ ClassifyParams p) {
+  constexpr int WARPS = CLASSIFY_THREADS / 32, WORDS = CLASSIFY_PASSES * WARPS;
+  __shared__ unsigned s_active[WORDS], s_work[WORDS];  // each (pass, warp)'s ballot of ACTIVE and of work bricks
+  __shared__ int s_before_a[WORDS], s_before_w[WORDS];  // the bricks of the tile before each ballot's
+  __shared__ int s_tile, s_last;
+  unsigned* counters = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* status = scratch + 1;
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int j = lane & (CORNER_LANES - 1);
   const int n = p.nbx * p.nby * p.nbz;
-  const int b = blockIdx.x * CLASSIFY_THREADS + threadIdx.x;
-  int c = NONE;
-  if (b < n) {
-    const int bz = b % p.nbz, by = (b / p.nbz) % p.nby, bx = b / (p.nby * p.nbz);
-    c = classify_brick(table, pose, p, bx, by, bz);
-    cls[b] = c;
-  }
-  const int n_active = __syncthreads_count(c == ACTIVE);
-  const int n_work = __syncthreads_count(c != NONE);
-  if (threadIdx.x == 0) {
-    counts[2 * blockIdx.x] = n_active;
-    counts[2 * blockIdx.x + 1] = n_work;
-  }
-}
 
-// sum of v over the block (every thread gets it); s: 32 ints of shared memory
-__device__ __forceinline__ int block_sum(int v, int* s) {
+  if (threadIdx.x == 0) s_tile = (int)atomicAdd(&counters[0], 1u);
+  __syncthreads();
+  const int tile = s_tile;
+
+  // brick tile * CLASSIFY_TILE + q * BRICKS_PER_PASS + threadIdx.x / CORNER_LANES in pass q
+  int c[CLASSIFY_PASSES];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int q = 0; q < CLASSIFY_PASSES; ++q) {
+    const int b = tile * CLASSIFY_TILE + q * BRICKS_PER_PASS + (int)threadIdx.x / CORNER_LANES;
+    const int bb = min(b, n - 1);  // past the volume's end the lanes repeat its last brick, for the ballots
+    const int bz = bb % p.nbz, by = (bb / p.nbz) % p.nby, bx = bb / (p.nby * p.nbz);
+    c[q] = classify_brick(table, pose, p, bx, by, bz, j);
+    if (b >= n) c[q] = NONE;
+    const bool leader = j == 0;
+    const unsigned active = __ballot_sync(0xffffffffu, leader && c[q] == ACTIVE);
+    const unsigned work = __ballot_sync(0xffffffffu, leader && c[q] != NONE);
+    if (lane == 0) {
+      s_active[q * WARPS + warp] = active;
+      s_work[q * WARPS + warp] = work;
+    }
+    if (leader && b < n) cls[b] = c[q];
+  }
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < CLASSIFY_THREADS / 32; ++w) total += s[w];
-  return total;
-}
 
-// the block's exclusive prefix of a predicate, in thread order; s: 32 ints of shared memory
-__device__ __forceinline__ int block_rank(bool pred, int* s) {
-  const unsigned ballot = __ballot_sync(0xffffffffu, pred);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) s[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += s[w];
-  return before + __popc(ballot & ((1u << lane) - 1u));
-}
-
-__global__ void __launch_bounds__(CLASSIFY_THREADS)
-    rank_bricks_kernel(const int* __restrict__ cls, const int* __restrict__ counts, int n, int blocks, int cap,
-                       int* __restrict__ rank, int* __restrict__ active_ids, int* __restrict__ work_ids,
-                       int* __restrict__ totals, unsigned char* __restrict__ overflow) {
-  __shared__ int s[32];
-  int before_a = 0, before_w = 0, all_a = 0, all_w = 0;
-  for (int j = threadIdx.x; j < blocks; j += CLASSIFY_THREADS) {
-    const int a = counts[2 * j], w = counts[2 * j + 1];
-    all_a += a;
-    all_w += w;
-    if (j < (int)blockIdx.x) {
-      before_a += a;
-      before_w += w;
+  if (warp == 0) {
+    // the tile's counts, and the bricks of the tile before each ballot's (a scan over the ballots in order)
+    int a = lane < WORDS ? __popc(s_active[lane]) : 0, w = lane < WORDS ? __popc(s_work[lane]) : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int ua = __shfl_up_sync(0xffffffffu, a, off), uw = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) {
+        a += ua;
+        w += uw;
+      }
+    }
+    if (lane < WORDS) {
+      s_before_a[lane] = a - __popc(s_active[lane]);
+      s_before_w[lane] = w - __popc(s_work[lane]);
+    }
+    const int tile_a = __shfl_sync(0xffffffffu, a, 31), tile_w = __shfl_sync(0xffffffffu, w, 31);
+    int before_a = 0, before_w = 0;
+    if (tile > 0) {
+      if (lane == 0) store_status(status + tile, tile_status(TILE_COUNTS, tile_a, tile_w));
+      look_back(status, tile, lane, before_a, before_w);
+    }
+    if (lane == 0) {
+      store_status(status + tile, tile_status(TILE_PREFIX, before_a + tile_a, before_w + tile_w));
+      if (tile == p.tiles - 1) {
+        totals[0] = before_a + tile_a;
+        totals[1] = before_w + tile_w;
+        *overflow = before_a + tile_a > p.cap ? 1 : 0;
+      }
+    }
+    if (lane < WORDS) {
+      s_before_a[lane] += before_a;
+      s_before_w[lane] += before_w;
     }
   }
-  before_a = block_sum(before_a, s);
-  before_w = block_sum(before_w, s);
-  all_a = block_sum(all_a, s);
-  all_w = block_sum(all_w, s);
+  __syncthreads();
 
-  const int b = blockIdx.x * CLASSIFY_THREADS + threadIdx.x;
-  const int c = b < n ? cls[b] : NONE;
-  const bool active = c == ACTIVE, work = c != NONE;
-  const int ra = before_a + block_rank(active, s);
-  const int rw = before_w + block_rank(work, s);
-  if (b < n) rank[b] = active ? ra : -1;
-  if (active) active_ids[ra] = b;
-  if (work) work_ids[rw] = b;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    totals[0] = all_a;
-    totals[1] = all_w;
-    *overflow = all_a > cap ? 1 : 0;
+  // each brick's rank and list entries: the bricks before its ballot, then the leaders below it in the ballot
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < CLASSIFY_PASSES; ++q) {
+    const int b = tile * CLASSIFY_TILE + q * BRICKS_PER_PASS + (int)threadIdx.x / CORNER_LANES;
+    const int word = q * WARPS + warp;
+    if (j != 0 || b >= n) continue;
+    const bool active = c[q] == ACTIVE;
+    const int ra = s_before_a[word] + __popc(s_active[word] & below);
+    rank[b] = active ? ra : -1;
+    if (active) active_ids[ra] = b;
+    if (c[q] != NONE) work_ids[s_before_w[word] + __popc(s_work[word] & below)] = b;
   }
+
+  // the block that finishes last zeroes the scratch: every other block has read its last status word
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(&counters[1], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  for (int i = (int)threadIdx.x; i < p.tiles; i += CLASSIFY_THREADS) status[i] = 0ull;
+  if (threadIdx.x == 0) scratch[0] = 0ull;
 }
 
 // ---------------------------------------------------------------- B3c
@@ -632,7 +773,10 @@ bool read_levels(const int* levels, int n_levels, int rows, MipLevels& m) {
     m.h[k] = l[1];
     m.w[k] = l[2];
     m.offset[k] = l[3];
-    if (k < n_levels && (l[0] < 1 || l[0] * mip_runs(l[0]) > MIP_THREADS)) return false;
+    m.magic[k] = (unsigned)((0x100000000ull + (unsigned)l[0] - 1u) / (unsigned)l[0]);
+    // tiles of 2 px or more (the magic fits 32 bits), ascending (the classifier counts the smaller ones)
+    if (k < n_levels && (l[0] < 2 || l[0] * mip_runs(l[0]) > MIP_THREADS || (k > 0 && l[0] <= m.ts[k - 1])))
+      return false;
   }
   // depth_mips' blocks, the largest tiles' first: a warp-level tile's blocks hold MIP_THREADS / 32 warps; a
   // wider tile's block takes up to MIP_THREADS / (ts * runs) tiles of a row, as many in each block of the row
@@ -676,15 +820,18 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 }
 
 // table: depth_mips' (rows, 3); pose: the 24 floats of the dual volume->camera pose (value lanes read);
-// counts: 2 ints a block of 256 bricks (scratch); cls, rank, active_ids, work_ids: one int a brick; totals:
-// n_active, n_work; overflow: one byte. consts: brick edge, fx, fy, cx, cy, the four plane constants,
-// 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32.
-extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* counts, void* rank,
-                                  void* active_ids, void* work_ids, void* totals, void* overflow, int nbx, int nby,
-                                  int nbz, int H, int W, const int* levels, int n_levels, int rows,
-                                  const float* consts, int cap, void* stream) {
+// scratch: scratch_words zeroed 8-byte words, one more than the tiles of CLASSIFY_TILE bricks at least, that
+// belong to one stream at a time (the kernel leaves them zeroed); cls, rank, active_ids, work_ids: one int a
+// brick; totals: n_active, n_work; overflow: one byte. consts: brick edge, fx, fy, cx, cy, the four plane
+// constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32.
+extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
+                                  long long scratch_words, void* rank, void* active_ids, void* work_ids,
+                                  void* totals, void* overflow, int nbx, int nby, int nbz, int H, int W,
+                                  const int* levels, int n_levels, int rows, const float* consts, int cap,
+                                  void* stream) {
   ClassifyParams p{};
   if (!read_levels(levels, n_levels, rows, p.m)) return (int)cudaErrorInvalidValue;
+  if (H < 1 || W < 1 || H > DIVIDE_LIMIT || W > DIVIDE_LIMIT) return (int)cudaErrorInvalidValue;
   p.nbx = nbx;
   p.nby = nby;
   p.nbz = nbz;
@@ -700,16 +847,14 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   p.inv_abs_fy = consts[10];
   p.trunc = consts[11];
   p.neg_trunc = consts[12];
-  const int n = nbx * nby * nbz;
-  const int blocks = (n + CLASSIFY_THREADS - 1) / CLASSIFY_THREADS;
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
-  classify_bricks_kernel<<<blocks, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const float*)pose, (int*)cls, (int*)counts, p);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  rank_bricks_kernel<<<blocks, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)cls, (const int*)counts, n, blocks, cap, (int*)rank, (int*)active_ids, (int*)work_ids,
-      (int*)totals, (unsigned char*)overflow);
+  p.cap = cap;
+  const long long n = (long long)nbx * nby * nbz;
+  if (nbx < 1 || nby < 1 || nbz < 1 || n >= (1ll << 31) - CLASSIFY_TILE) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)((n + CLASSIFY_TILE - 1) / CLASSIFY_TILE);
+  if (scratch_words < 1 + (long long)p.tiles) return (int)cudaErrorInvalidValue;
+  classify_bricks_kernel<<<p.tiles, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)table, (const float*)pose, (int*)cls, (unsigned long long*)scratch, (int*)rank, (int*)active_ids,
+      (int*)work_ids, (int*)totals, (unsigned char*)overflow, p);
   return (int)cudaGetLastError();
 }
 

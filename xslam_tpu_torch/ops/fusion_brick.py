@@ -26,7 +26,7 @@ kernel on CUDA tensors, never falling back:
   :func:`rank_bricks_plain`, the ports of ``_classify_boxes`` with
   ``split=False`` and of the compaction in ``_integrate_rows_core``): the
   classes, the ACTIVE list and the work list in flat brick order, the
-  counts and the overflow flag, all on the device;
+  counts and the overflow flag, all on the device, in one launch;
 - B3c :func:`fuse_bricks` (plain :func:`fuse_bricks_plain`, the port of
   ``_integrate_rows_core`` with ``subcell_cap=0`` over ``to_bricks`` rows):
   the FAR pass and the exact update of the ACTIVE bricks, in place.
@@ -55,7 +55,7 @@ MIP_LEVELS = (
     80, 92, 106, 128,
 )
 NONE, FAR, ACTIVE, FAR_PARTIAL = 0, 1, 2, 3
-CLASSIFY_BLOCK = 256  # bricks a block of csrc/bricks.cu's classifier counts
+CLASSIFY_TILE = 32  # bricks a tile of csrc/bricks.cu's classifier scan: one status word in its scratch
 
 
 class MipLayout(NamedTuple):
@@ -329,13 +329,29 @@ def rank_bricks_plain(cls: torch.Tensor, cap: int) -> BrickClasses:
     return BrickClasses(cls, rank, active_ids, work_ids, totals, totals[0] > cap)
 
 
+_classify_scratch: dict = {}  # (device, stream) -> B3b's zeroed ticket and status words
+
+
+def classify_scratch(device: torch.device, n_bricks: int) -> torch.Tensor:
+    """B3b's scratch on ``device``'s current stream, since launches on one
+    stream run in order: word 0 the ticket and the count of finished blocks,
+    then one status word a tile of :data:`CLASSIFY_TILE` bricks. Zeroed when
+    made (once a device and stream, or when a larger volume needs more
+    tiles); the kernel leaves it zeroed."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    words = 1 + -(-n_bricks // CLASSIFY_TILE)
+    if key not in _classify_scratch or _classify_scratch[key].numel() < words:
+        _classify_scratch[key] = torch.zeros(words, dtype=torch.int64, device=device)
+    return _classify_scratch[key]
+
+
 def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, cap: int) -> BrickClasses:
     """B3b: the bricks' classes against the frame whose mip table is ``table``
     at the volume->camera ``pose`` (:func:`kernels.fusion_pose`), with the
     ACTIVE and work lists in flat brick order, the counts and the overflow
     flag (:func:`classify_bricks_plain` then :func:`rank_bricks_plain`). On
-    the card two launches (the classes with each block's counts, then the
-    ranks), no host read."""
+    the card one launch (the classes, then the ranks by a single-pass scan),
+    no host read; entries of a list past its count are left unwritten."""
     if kernels.on_cpu(table, pose):
         return rank_bricks_plain(classify_bricks_plain(table, pose, intr, cfg), cap)
     nb = _check_resolution(cfg.resolution)
@@ -346,12 +362,11 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     n = nb[0] * nb[1] * nb[2]
     dev = table.device
     cls = torch.empty(nb, dtype=torch.int32, device=dev)
-    counts = torch.empty(2 * (-(-n // CLASSIFY_BLOCK)), dtype=torch.int32, device=dev)
     rank, active_ids, work_ids = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
     totals = torch.empty(2, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.launch("classify_bricks", dev, table, pose, cls, counts, rank, active_ids, work_ids, totals, overflow,
-                   H, W, _layout_ints(layout), classify_consts(intr, cfg), int(cap))
+    kernels.launch("classify_bricks", dev, table, pose, cls, classify_scratch(dev, n), rank, active_ids, work_ids,
+                   totals, overflow, H, W, _layout_ints(layout), classify_consts(intr, cfg), int(cap))
     kernels.launch_counts["classify_bricks"] += 1
     return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow)
 

@@ -49,7 +49,7 @@ HAND_KERNELS = {
     "raycast_refine": "refine_kernel", "resize_model_maps": "model_map_pyramid_kernel",
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
-    "rank_bricks": "rank_bricks_kernel", "fuse_bricks": "fuse_bricks_kernel",
+    "fuse_bricks": "fuse_bricks_kernel",
 }
 
 
