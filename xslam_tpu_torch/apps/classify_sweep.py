@@ -11,7 +11,8 @@ Each is compiled with ``nvcc`` (plain C interface, all started together)
 into ``build/torch_kernels/classify_sweep/`` and loaded with ``ctypes``. A
 split ("to_corners", "to_level", "to_table") returns a class made of the
 values computed up to that point, so the work before it stays and the work
-after it goes; its lists are not checked. Every other variant's classes,
+after it goes; "classes_only" skips the scan across tiles, "scan_only" the
+classes; a split's lists are not checked. Every other variant's classes,
 ranks, lists, counts and flag must equal ``classify_bricks_plain`` then
 ``rank_bricks_plain`` on the card, on two launches back to back at two
 poses. The poses: frame 3 of the synthetic orbit (480x640, 256^3 at 3 cm:
@@ -41,23 +42,19 @@ from .kernel_resources import parse_ptxas
 
 HOLD_CYCLES = 30_000_000
 L2_FLUSH_BYTES = 128 << 20
+NO_SCAN = ("code:split", ("  int before_a, before_w;\n  counts_before(status, tile, before_a, before_w, s_sum);",
+                          "  int before_a = 0, before_w = 0;\n  __syncthreads();"))
 VARIANTS = {
     "tree": {},
     "lanes4": {"CORNER_LANES": 4},
-    "passes2": {"CLASSIFY_PASSES": 2},
-    "passes4": {"CLASSIFY_PASSES": 4},
-    "to_corners": {"code:split": (
-        "  const bool frustum_out = plane_max[0] < 0.0f",
-        "  if (CLASSIFY_SPLIT) return (umin + umax + vmin + vmax + zmin + zmax + plane_max[0] + plane_max[1] + "
-        "plane_max[2] + plane_max[3] > 1e30f) ? ACTIVE : NONE;\n  const bool frustum_out = plane_max[0] < 0.0f")},
-    "to_level": {"code:split": (
-        "  const int mh = m.h[lv], mw = m.w[lv];\n",
-        "  if (CLASSIFY_SPLIT) return ((lv + cu + cv) & 1) ? ACTIVE : ((dist_min + dist_max > 1e30f) ? FAR : NONE);\n"
-        "  const int mh = m.h[lv], mw = m.w[lv];\n")},
-    "to_table": {"code:split": (
-        "  const bool all_valid = av > 0.5f;\n",
-        "  const bool all_valid = av > 0.5f;\n  if (CLASSIFY_SPLIT) return (dmin + dmax > 1e30f || all_valid || "
-        "dist_min + dist_max > 1e30f) ? ACTIVE : NONE;\n")},
+    "lanes2": {"CORNER_LANES": 2},
+    "lanes1": {"CORNER_LANES": 1},
+    "threads512": {"CLASSIFY_THREADS": 512},
+    "lanes4_threads512": {"CORNER_LANES": 4, "CLASSIFY_THREADS": 512},
+    "lanes8_classes_only": dict([NO_SCAN]),
+    "lanes4_classes_only": dict([NO_SCAN], CORNER_LANES=4),
+    "lanes2_classes_only": dict([NO_SCAN], CORNER_LANES=2),
+    "lanes1_classes_only": dict([NO_SCAN], CORNER_LANES=1),
     "scan_only": {"code:split": (
         "  const float* R = pose;       // value lane of the rotation\n",
         "  if (CLASSIFY_SPLIT) return (bx + by + bz + j) & 1 ? ACTIVE : NONE;\n"
@@ -66,25 +63,10 @@ VARIANTS = {
 # the two-kernel classifier of an earlier revision: its phases, and its classes without the rank kernel
 PARENT_VARIANTS = {
     "parent": {},
-    "parent_to_corners": {"code:split": (
-        "  const bool frustum_out = plane_max[0] < 0.0f",
-        "  if (CLASSIFY_SPLIT) return (umin + umax + vmin + vmax + zmin + zmax + plane_max[0] + plane_max[1] + "
-        "plane_max[2] + plane_max[3] > 1e30f) ? ACTIVE : NONE;\n  const bool frustum_out = plane_max[0] < 0.0f"),
-        "code:no_ranks": ("  if (err != 0) return err;\n  rank_bricks_kernel", "  return err;\n  rank_bricks_kernel")},
-    "parent_to_level": {"code:split": (
-        "  const bool level_ok = level < m.n;\n",
-        "  if (CLASSIFY_SPLIT) return ((level + cu + cv) & 1) ? ACTIVE : ((dist_min + dist_max > 1e30f) ? FAR : NONE);\n"
-        "  const bool level_ok = level < m.n;\n"),
-        "code:no_ranks": ("  if (err != 0) return err;\n  rank_bricks_kernel", "  return err;\n  rank_bricks_kernel")},
-    "parent_to_table": {"code:split": (
-        "  const bool all_valid = ((c_av[0] * c_av[1]) * c_av[2]) * c_av[3] > 0.5f;\n",
-        "  const bool all_valid = ((c_av[0] * c_av[1]) * c_av[2]) * c_av[3] > 0.5f;\n  if (CLASSIFY_SPLIT) return "
-        "(dmin + dmax > 1e30f || all_valid || dist_min + dist_max > 1e30f) ? ACTIVE : NONE;\n"),
-        "code:no_ranks": ("  if (err != 0) return err;\n  rank_bricks_kernel", "  return err;\n  rank_bricks_kernel")},
     "parent_classes": {
         "code:no_ranks": ("  if (err != 0) return err;\n  rank_bricks_kernel", "  return err;\n  rank_bricks_kernel")},
 }
-SPLITS = ("to_corners", "to_level", "to_table", "scan_only")
+SPLITS = ("to_corners", "to_level", "to_table", "scan_only", "classes_only")
 
 # the timed build of the tree: thread 0 of each block records the global timer (ns) after its ticket, after
 # its classes, after its look-back and at its end, with its tile

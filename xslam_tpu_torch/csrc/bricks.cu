@@ -94,14 +94,17 @@ constexpr int MIP_MIN_BLOCKS = 6;   // depth_mips blocks an SM holds at least: a
 constexpr int CLASSIFY_THREADS = 256;  // threads of a classify_bricks block
 constexpr int CORNER_LANES = 8;        // lanes that classify one brick, a corner each
 constexpr int CORNERS_PER_LANE = 8 / CORNER_LANES;
+constexpr int CELL_LANES = CORNER_LANES < 4 ? CORNER_LANES : 4;  // lanes that read the window's 4 cells
+constexpr int CELLS_PER_LANE = 4 / CELL_LANES;
 constexpr int CLASSIFY_PASSES = 1;     // bricks a classify_bricks thread group takes, one after the other
 constexpr int BRICKS_PER_PASS = CLASSIFY_THREADS / CORNER_LANES;
 constexpr int CLASSIFY_TILE = CLASSIFY_PASSES * BRICKS_PER_PASS;  // bricks of a block: ops/fusion_brick.py
 constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;  // levels a lane tests
 constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
 constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
-constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks look-back waits less
-static_assert(8 % CORNER_LANES == 0 && CORNER_LANES >= 4, "a brick's lanes take its 8 corners and 4 cells");
+constexpr int LOOK_BACK_LOADS = 4;  // status words a classify_bricks thread loads at once
+constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks wait lasts less
+static_assert(8 % CORNER_LANES == 0, "a brick's lanes share its 8 corners");
 static_assert(CLASSIFY_PASSES * (CLASSIFY_THREADS / 32) <= 32, "warp 0 scans a block's ballots, one a lane");
 static_assert(LEVEL_ROUNDS * CORNER_LANES <= 32, "a level mask fits 32 bits");
 constexpr int FUSE_WARPS = 4;       // warps of a fuse_bricks block, one brick each at a time
@@ -279,9 +282,17 @@ struct ClassifyParams {
   MipLevels m;
 };
 
-// torch.minimum / torch.maximum: NaN if either is
-__device__ __forceinline__ float min_nan(float a, float b) { return isnan(a) ? a : (isnan(b) ? b : fminf(a, b)); }
-__device__ __forceinline__ float max_nan(float a, float b) { return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b)); }
+// torch.minimum / torch.maximum: NaN if either is (the canonical NaN: no class reads a payload), one instruction
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 __device__ __forceinline__ float clip(float x, float lo, float hi) { return min_nan(max_nan(x, lo), hi); }
 
 // min_nan / max_nan over the aligned group of `lanes` lanes (a power of two up to 8), by xor shuffles: every
@@ -431,14 +442,22 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   const int mh = m.h[lv], mw = m.w[lv];
   const int cu0 = min(divide(cu, m.magic[lv]), mw - 1), cv0 = min(divide(cv, m.magic[lv]), mh - 1);
 
-  // the window's four cells, one a lane (lanes 4-7 repeat 0-3), reduced over lanes j ^ 1, then j ^ 2: the
-  // plain version's order, min(min(c0, c1), min(c2, c3)); the valid flags are 0 or 1, so their product is exact
-  const int cell = j & 3;
-  const int y = min(cv0 + (cell >> 1), mh - 1), x = min(cu0 + (cell & 1), mw - 1);
-  const float* row = table + 3 * (size_t)(m.offset[lv] + y * mw + x);
-  float dmin = __ldg(row), dmax = __ldg(row + 1), av = __ldg(row + 2);
+  // the window's four cells, CELLS_PER_LANE a lane of the first CELL_LANES (the others repeat them), then
+  // reduced over lanes j ^ 1, j ^ 2: with 2 lanes or more the plain version's order, min(min(c0, c1),
+  // min(c2, c3)) (min and max are exact in any order); the valid flags are 0 or 1, so their product is exact
+  float dmin = 0, dmax = 0, av = 0;
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
+  for (int c = 0; c < CELLS_PER_LANE; ++c) {
+    const int cell = (j & (CELL_LANES - 1)) * CELLS_PER_LANE + c;
+    const int y = min(cv0 + (cell >> 1), mh - 1), x = min(cu0 + (cell & 1), mw - 1);
+    const float* row = table + 3 * (size_t)(m.offset[lv] + y * mw + x);
+    const float mn = __ldg(row), mx = __ldg(row + 1), ok = __ldg(row + 2);
+    dmin = c == 0 ? mn : min_nan(dmin, mn);
+    dmax = c == 0 ? mx : max_nan(dmax, mx);
+    av = c == 0 ? ok : av * ok;
+  }
+#pragma unroll
+  for (int off = 1; off < CELL_LANES; off <<= 1) {
     dmin = min_nan(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
     dmax = max_nan(dmax, __shfl_xor_sync(0xffffffffu, dmax, off));
     av = av * __shfl_xor_sync(0xffffffffu, av, off);
@@ -460,67 +479,77 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   return ACTIVE;
 }
 
-// A tile's status word in the single-pass scan: the flag in the top two bits (0: nothing yet, 1: the tile's
-// own counts, 2: the counts of every brick up to the tile's end), then the ACTIVE count and the work count,
-// 31 bits each.
-constexpr unsigned long long TILE_COUNTS = 1ull << 62, TILE_PREFIX = 2ull << 62;
-__device__ __forceinline__ unsigned long long tile_status(unsigned long long flag, int n_active, int n_work) {
-  return flag | ((unsigned long long)n_active << 31) | (unsigned long long)n_work;
+// A tile's status word in the single-pass scan: PUBLISHED once written, then the tile's ACTIVE count and its
+// work count, 31 bits each.
+constexpr unsigned long long PUBLISHED = 1ull << 63;
+__device__ __forceinline__ unsigned long long tile_status(int n_active, int n_work) {
+  return PUBLISHED | ((unsigned long long)n_active << 31) | (unsigned long long)n_work;
 }
 __device__ __forceinline__ unsigned long long load_status(const unsigned long long* s) {
-  return *reinterpret_cast<const volatile unsigned long long*>(s);
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(s));
+  return v;
 }
 __device__ __forceinline__ void store_status(unsigned long long* s, unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(s) = v;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(s), "l"(v));
 }
-
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 
-// The counts of every brick before tile `tile`, by warp 0 of its block once the tile's own counts are
-// published: the look-back reads the 32 tiles before the newest one not yet added, waits until each of
-// them up to the nearest prefix has published, adds their counts and stops at that prefix (before tile 0:
-// a prefix of nothing). Integer sums: the same in any order. The tiles it waits on belong to running blocks
-// (the ticket), so a wait of LOOK_BACK_LIMIT_NS means a fault: the launch traps and its wrapper raises.
-__device__ __forceinline__ void look_back(const unsigned long long* status, int tile, int lane, int& before_a,
-                                          int& before_w) {
+// The counts of every brick before tile `tile`, summed by the whole block: thread i takes the status words
+// of tiles i, i + CLASSIFY_THREADS, ... below `tile`, LOOK_BACK_LOADS loads in flight, and waits on any not
+// yet published. Every tile before `tile` belongs to a block that has started (the ticket) and publishes its
+// counts before it waits on anything, so the waits end; one that lasts LOOK_BACK_LIMIT_NS means a fault: the
+// launch traps and its wrapper raises. Integer sums: the same in any order. Every thread gets the sums.
+__device__ __forceinline__ void counts_before(const unsigned long long* status, int tile, int& before_a,
+                                              int& before_w, int* s_sum) {
+  int a = 0, w = 0;
+  for (int first = (int)threadIdx.x; first < tile; first += LOOK_BACK_LOADS * CLASSIFY_THREADS) {
+    unsigned long long s[LOOK_BACK_LOADS];
+#pragma unroll
+    for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
+      const int i = first + k * CLASSIFY_THREADS;
+      s[k] = i < tile ? load_status(status + i) : PUBLISHED;
+    }
+#pragma unroll
+    for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
+      const unsigned long long since = (s[k] & PUBLISHED) ? 0ull : global_ns();
+      while (!(s[k] & PUBLISHED)) {
+        if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
+        s[k] = load_status(status + first + k * CLASSIFY_THREADS);
+      }
+      a += (int)((s[k] >> 31) & 0x7fffffffull);
+      w += (int)(s[k] & 0x7fffffffull);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    w += __shfl_xor_sync(0xffffffffu, w, off);
+  }
+  const int warp = (int)threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    s_sum[2 * warp] = a;
+    s_sum[2 * warp + 1] = w;
+  }
+  __syncthreads();
   before_a = 0;
   before_w = 0;
-  unsigned long long waiting_since = 0ull;
-  for (int newest = tile - 1;;) {
-    const int i = newest - lane;
-    const unsigned long long s = i >= 0 ? load_status(status + i) : TILE_PREFIX;
-    const unsigned published = __ballot_sync(0xffffffffu, (s >> 62) != 0ull);
-    const unsigned prefixes = __ballot_sync(0xffffffffu, (s >> 62) == 2ull);
-    const unsigned needed = prefixes ? ((prefixes & (0u - prefixes)) << 1) - 1u : 0xffffffffu;
-    if ((published & needed) != needed) {
-      const unsigned long long now = global_ns();
-      if (waiting_since == 0ull) waiting_since = now;
-      if (now - waiting_since > LOOK_BACK_LIMIT_NS) __trap();
-      continue;
-    }
-    const bool take = (needed >> lane) & 1u;
-    int a = take ? (int)((s >> 31) & 0x7fffffffull) : 0, w = take ? (int)(s & 0x7fffffffull) : 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-      w += __shfl_xor_sync(0xffffffffu, w, off);
-    }
-    before_a += a;
-    before_w += w;
-    if (prefixes) return;
-    newest -= 32;
+  for (int k = 0; k < CLASSIFY_THREADS / 32; ++k) {
+    before_a += s_sum[2 * k];
+    before_w += s_sum[2 * k + 1];
   }
 }
 
 // One launch: the classes, then the ranks in flat brick order by a single-pass scan over tiles of
-// CLASSIFY_TILE bricks. A block takes its tile by an atomic ticket, so every tile before it belongs to a
-// block that has started: its look-back waits only on running blocks. scratch: word 0 holds the ticket and
-// the count of finished blocks (two unsigned ints), words 1.. the tiles' status words; zeroed once per device,
-// and zeroed again by the block that finishes last, ready for the next launch on the stream.
+// CLASSIFY_TILE bricks. A block takes its tile by an atomic ticket, publishes the tile's counts and sums the
+// counts of the tiles before it (counts_before): no chain from tile to tile. scratch: word 0 holds the ticket
+// and the count of finished blocks (two unsigned ints), words 1.. the tiles' status words; zeroed once per
+// device, and zeroed again by the block that finishes last, ready for the next launch on the stream.
 __global__ void __launch_bounds__(CLASSIFY_THREADS)
     classify_bricks_kernel(const float* __restrict__ table, const float* __restrict__ pose, int* __restrict__ cls,
                            unsigned long long* __restrict__ scratch, int* __restrict__ rank,
@@ -529,6 +558,7 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   constexpr int WARPS = CLASSIFY_THREADS / 32, WORDS = CLASSIFY_PASSES * WARPS;
   __shared__ unsigned s_active[WORDS], s_work[WORDS];  // each (pass, warp)'s ballot of ACTIVE and of work bricks
   __shared__ int s_before_a[WORDS], s_before_w[WORDS];  // the bricks of the tile before each ballot's
+  __shared__ int s_sum[2 * WARPS];
   __shared__ int s_tile, s_last;
   unsigned* counters = reinterpret_cast<unsigned*>(scratch);
   unsigned long long* status = scratch + 1;
@@ -561,7 +591,8 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   __syncthreads();
 
   if (warp == 0) {
-    // the tile's counts, and the bricks of the tile before each ballot's (a scan over the ballots in order)
+    // the tile's counts, published at once, and the bricks of the tile before each ballot's (a scan over the
+    // ballots in order)
     int a = lane < WORDS ? __popc(s_active[lane]) : 0, w = lane < WORDS ? __popc(s_work[lane]) : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
@@ -571,32 +602,23 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
         w += uw;
       }
     }
+    if (lane == 31) store_status(status + tile, tile_status(a, w));
     if (lane < WORDS) {
       s_before_a[lane] = a - __popc(s_active[lane]);
       s_before_w[lane] = w - __popc(s_work[lane]);
     }
-    const int tile_a = __shfl_sync(0xffffffffu, a, 31), tile_w = __shfl_sync(0xffffffffu, w, 31);
-    int before_a = 0, before_w = 0;
-    if (tile > 0) {
-      if (lane == 0) store_status(status + tile, tile_status(TILE_COUNTS, tile_a, tile_w));
-      look_back(status, tile, lane, before_a, before_w);
-    }
-    if (lane == 0) {
-      store_status(status + tile, tile_status(TILE_PREFIX, before_a + tile_a, before_w + tile_w));
-      if (tile == p.tiles - 1) {
-        totals[0] = before_a + tile_a;
-        totals[1] = before_w + tile_w;
-        *overflow = before_a + tile_a > p.cap ? 1 : 0;
-      }
-    }
-    if (lane < WORDS) {
-      s_before_a[lane] += before_a;
-      s_before_w[lane] += before_w;
-    }
   }
-  __syncthreads();
+  int before_a, before_w;
+  counts_before(status, tile, before_a, before_w, s_sum);  // its barrier also orders s_before_* for every warp
+  if (tile == p.tiles - 1 && threadIdx.x == 0) {
+    const int all_a = before_a + s_before_a[WORDS - 1] + __popc(s_active[WORDS - 1]);
+    totals[0] = all_a;
+    totals[1] = before_w + s_before_w[WORDS - 1] + __popc(s_work[WORDS - 1]);
+    *overflow = all_a > p.cap ? 1 : 0;
+  }
 
-  // each brick's rank and list entries: the bricks before its ballot, then the leaders below it in the ballot
+  // each brick's rank and list entries: the bricks before the tile and before its ballot, then the leaders
+  // below it in the ballot
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll
   for (int q = 0; q < CLASSIFY_PASSES; ++q) {
@@ -604,10 +626,10 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
     const int word = q * WARPS + warp;
     if (j != 0 || b >= n) continue;
     const bool active = c[q] == ACTIVE;
-    const int ra = s_before_a[word] + __popc(s_active[word] & below);
+    const int ra = before_a + s_before_a[word] + __popc(s_active[word] & below);
     rank[b] = active ? ra : -1;
     if (active) active_ids[ra] = b;
-    if (c[q] != NONE) work_ids[s_before_w[word] + __popc(s_work[word] & below)] = b;
+    if (c[q] != NONE) work_ids[before_w + s_before_w[word] + __popc(s_work[word] & below)] = b;
   }
 
   // the block that finishes last zeroes the scratch: every other block has read its last status word
