@@ -42,19 +42,18 @@ from .kernel_resources import parse_ptxas
 
 HOLD_CYCLES = 30_000_000
 L2_FLUSH_BYTES = 128 << 20
-NO_SCAN = ("code:split", ("  int before_a, before_w;\n  counts_before(status, tile, before_a, before_w, s_sum);",
-                          "  int before_a = 0, before_w = 0;\n  __syncthreads();"))
+NO_SCAN = ("code:split", ("    int before_a, before_w;\n    counts_before(status, tile, lane, before_a, before_w);",
+                          "    int before_a = 0, before_w = 0;"))
 VARIANTS = {
     "tree": {},
-    "lanes4": {"CORNER_LANES": 4},
-    "lanes2": {"CORNER_LANES": 2},
     "lanes1": {"CORNER_LANES": 1},
-    "threads512": {"CLASSIFY_THREADS": 512},
-    "lanes4_threads512": {"CORNER_LANES": 4, "CLASSIFY_THREADS": 512},
-    "lanes8_classes_only": dict([NO_SCAN]),
-    "lanes4_classes_only": dict([NO_SCAN], CORNER_LANES=4),
-    "lanes2_classes_only": dict([NO_SCAN], CORNER_LANES=2),
+    "lanes4": {"CORNER_LANES": 4},
+    "lanes8": {"CORNER_LANES": 8},
+    "lanes2_threads512": {"CLASSIFY_THREADS": 512},
+    "lanes1_threads128": {"CORNER_LANES": 1, "CLASSIFY_THREADS": 128},
+    "lanes2_classes_only": dict([NO_SCAN]),
     "lanes1_classes_only": dict([NO_SCAN], CORNER_LANES=1),
+    "lanes4_classes_only": dict([NO_SCAN], CORNER_LANES=4),
     "scan_only": {"code:split": (
         "  const float* R = pose;       // value lane of the rotation\n",
         "  if (CLASSIFY_SPLIT) return (bx + by + bz + j) & 1 ? ACTIVE : NONE;\n"

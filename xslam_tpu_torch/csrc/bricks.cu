@@ -92,21 +92,21 @@ constexpr int MIP_ROWS = 64;        // most rows one depth_mips thread walks
 constexpr int MIP_INFLIGHT = 8;     // loads a depth_mips thread keeps in flight
 constexpr int MIP_MIN_BLOCKS = 6;   // depth_mips blocks an SM holds at least: at most 40 registers a thread
 constexpr int CLASSIFY_THREADS = 256;  // threads of a classify_bricks block
-constexpr int CORNER_LANES = 8;        // lanes that classify one brick, a corner each
+constexpr int CORNER_LANES = 2;        // lanes that classify one brick, a corner each
 constexpr int CORNERS_PER_LANE = 8 / CORNER_LANES;
 constexpr int CELL_LANES = CORNER_LANES < 4 ? CORNER_LANES : 4;  // lanes that read the window's 4 cells
 constexpr int CELLS_PER_LANE = 4 / CELL_LANES;
 constexpr int CLASSIFY_PASSES = 1;     // bricks a classify_bricks thread group takes, one after the other
 constexpr int BRICKS_PER_PASS = CLASSIFY_THREADS / CORNER_LANES;
 constexpr int CLASSIFY_TILE = CLASSIFY_PASSES * BRICKS_PER_PASS;  // bricks of a block: ops/fusion_brick.py
-constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;  // levels a lane tests
+constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;  // levels a lane counts
 constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
 constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
-constexpr int LOOK_BACK_LOADS = 4;  // status words a classify_bricks thread loads at once
+constexpr int LOOK_BACK_LOADS = 8;  // status words a lane of a classify_bricks look-back loads at once
+constexpr unsigned LOOK_BACK_NAP_NS = 64;  // a look-back's nap between reads of a word not yet published
 constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks wait lasts less
 static_assert(8 % CORNER_LANES == 0, "a brick's lanes share its 8 corners");
 static_assert(CLASSIFY_PASSES * (CLASSIFY_THREADS / 32) <= 32, "warp 0 scans a block's ballots, one a lane");
-static_assert(LEVEL_ROUNDS * CORNER_LANES <= 32, "a level mask fits 32 bits");
 constexpr int FUSE_WARPS = 4;       // warps of a fuse_bricks block, one brick each at a time
 constexpr int FUSE_THREADS = 32 * FUSE_WARPS;
 constexpr int FUSE_MIN_BLOCKS = 6;  // fuse_bricks blocks an SM holds at least: at most 80 registers a thread
@@ -415,30 +415,37 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   const float u = 0.5f * (umin + umax), v = 0.5f * (vmin + vmax);
 
   // The level: the smallest at or above searchsorted(sizes, pr) (left side: the count of tiles smaller than
-  // pr) whose aligned 2 x 2 window covers the clipped footprint. Lane j tests levels j, j + CORNER_LANES, ...
-  // and the group's ballots collect both sets as bit masks over the levels; the sizes ascend, so the smaller
-  // tiles are the levels below that count, and the level is the lowest covering bit above them.
+  // pr, counted by the group's lanes together) whose aligned 2 x 2 window covers the clipped footprint. The
+  // group tests CORNER_LANES levels a round upward from there, a level a lane, and stops at the first round
+  // whose ballot has a covering level: its lowest. The loop runs while any group of the warp searches.
   const MipLevels& m = p.m;
   const int cu = min(max(to_index(u - pr), 0), p.W - 1);
   const int cv = min(max(to_index(v - pr), 0), p.H - 1);
   const float ucl = clip(umax, 0.0f, fW - 1.0f), vcl = clip(vmax, 0.0f, fH - 1.0f);
-  const int group_first = ((int)threadIdx.x & 31) & ~(CORNER_LANES - 1);
-  unsigned smaller = 0u, covering = 0u;
+  int base = 0;
 #pragma unroll
   for (int r = 0; r < LEVEL_ROUNDS; ++r) {
     const int k = r * CORNER_LANES + j;
-    bool below = false, cover = false;
-    if (k < m.n) {
+    base += (k < m.n && (float)m.ts[k] < pr) ? 1 : 0;
+  }
+#pragma unroll
+  for (int off = 1; off < CORNER_LANES; off <<= 1) base += __shfl_xor_sync(0xffffffffu, base, off);
+  const int group_first = ((int)threadIdx.x & 31) & ~(CORNER_LANES - 1);
+  int level = m.n;
+  bool searching = base < m.n;
+  for (int k0 = base; __any_sync(0xffffffffu, searching); k0 += CORNER_LANES) {
+    const int k = k0 + j;
+    bool cover = false;
+    if (searching && k < m.n) {
       const int s = m.ts[k];
-      below = (float)s < pr;
       cover = ucl < (float)((divide(cu, m.magic[k]) + 2) * s) && vcl < (float)((divide(cv, m.magic[k]) + 2) * s);
     }
-    smaller |= ((__ballot_sync(0xffffffffu, below) >> group_first) & GROUP_BITS) << (r * CORNER_LANES);
-    covering |= ((__ballot_sync(0xffffffffu, cover) >> group_first) & GROUP_BITS) << (r * CORNER_LANES);
+    const unsigned bits = (__ballot_sync(0xffffffffu, cover) >> group_first) & GROUP_BITS;
+    if (searching && bits != 0u) level = k0 + __ffs((int)bits) - 1;
+    searching = searching && bits == 0u && k0 + CORNER_LANES < m.n;
   }
-  const unsigned candidates = covering & ~smaller;
-  const bool level_ok = candidates != 0u;
-  const int lv = level_ok ? __ffs((int)candidates) - 1 : m.n - 1;
+  const bool level_ok = level < m.n;
+  const int lv = level_ok ? level : m.n - 1;
   const int mh = m.h[lv], mw = m.w[lv];
   const int cu0 = min(divide(cu, m.magic[lv]), mw - 1), cv0 = min(divide(cv, m.magic[lv]), mh - 1);
 
@@ -499,27 +506,31 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// The counts of every brick before tile `tile`, summed by the whole block: thread i takes the status words
-// of tiles i, i + CLASSIFY_THREADS, ... below `tile`, LOOK_BACK_LOADS loads in flight, and waits on any not
-// yet published. Every tile before `tile` belongs to a block that has started (the ticket) and publishes its
-// counts before it waits on anything, so the waits end; one that lasts LOOK_BACK_LIMIT_NS means a fault: the
-// launch traps and its wrapper raises. Integer sums: the same in any order. Every thread gets the sums.
-__device__ __forceinline__ void counts_before(const unsigned long long* status, int tile, int& before_a,
-                                              int& before_w, int* s_sum) {
+// The counts of every brick before tile `tile`, by warp 0 of its block: lane i takes the status words of
+// tiles i, i + 32, ... below `tile`, LOOK_BACK_LOADS loads in flight, and waits on any not yet published
+// (napping between reads, so that the waits leave the issue slots and L2 to the blocks still classifying).
+// Every tile before `tile` belongs to a block that has started (the ticket) and publishes its counts before
+// it waits on anything, so the waits end; one that lasts LOOK_BACK_LIMIT_NS means a fault: the launch traps
+// and its wrapper raises. Integer sums: the same in any order. Every lane gets the sums.
+__device__ __forceinline__ void counts_before(const unsigned long long* status, int tile, int lane, int& before_a,
+                                              int& before_w) {
   int a = 0, w = 0;
-  for (int first = (int)threadIdx.x; first < tile; first += LOOK_BACK_LOADS * CLASSIFY_THREADS) {
+  for (int first = lane; first < tile; first += LOOK_BACK_LOADS * 32) {
     unsigned long long s[LOOK_BACK_LOADS];
 #pragma unroll
     for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
-      const int i = first + k * CLASSIFY_THREADS;
+      const int i = first + 32 * k;
       s[k] = i < tile ? load_status(status + i) : PUBLISHED;
     }
 #pragma unroll
     for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
-      const unsigned long long since = (s[k] & PUBLISHED) ? 0ull : global_ns();
-      while (!(s[k] & PUBLISHED)) {
-        if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
-        s[k] = load_status(status + first + k * CLASSIFY_THREADS);
+      if (!(s[k] & PUBLISHED)) {
+        const unsigned long long since = global_ns();
+        do {
+          __nanosleep(LOOK_BACK_NAP_NS);
+          if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
+          s[k] = load_status(status + first + 32 * k);
+        } while (!(s[k] & PUBLISHED));
       }
       a += (int)((s[k] >> 31) & 0x7fffffffull);
       w += (int)(s[k] & 0x7fffffffull);
@@ -530,19 +541,8 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
     a += __shfl_xor_sync(0xffffffffu, a, off);
     w += __shfl_xor_sync(0xffffffffu, w, off);
   }
-  const int warp = (int)threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_sum[2 * warp] = a;
-    s_sum[2 * warp + 1] = w;
-  }
-  __syncthreads();
-  before_a = 0;
-  before_w = 0;
-#pragma unroll
-  for (int k = 0; k < CLASSIFY_THREADS / 32; ++k) {
-    before_a += s_sum[2 * k];
-    before_w += s_sum[2 * k + 1];
-  }
+  before_a = a;
+  before_w = w;
 }
 
 // One launch: the classes, then the ranks in flat brick order by a single-pass scan over tiles of
@@ -558,7 +558,7 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   constexpr int WARPS = CLASSIFY_THREADS / 32, WORDS = CLASSIFY_PASSES * WARPS;
   __shared__ unsigned s_active[WORDS], s_work[WORDS];  // each (pass, warp)'s ballot of ACTIVE and of work bricks
   __shared__ int s_before_a[WORDS], s_before_w[WORDS];  // the bricks of the tile before each ballot's
-  __shared__ int s_sum[2 * WARPS];
+  __shared__ int s_prefix[2];  // the counts of every brick before the tile
   __shared__ int s_tile, s_last;
   unsigned* counters = reinterpret_cast<unsigned*>(scratch);
   unsigned long long* status = scratch + 1;
@@ -607,15 +607,20 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
       s_before_a[lane] = a - __popc(s_active[lane]);
       s_before_w[lane] = w - __popc(s_work[lane]);
     }
+    int before_a, before_w;
+    counts_before(status, tile, lane, before_a, before_w);
+    if (lane == 31) {
+      s_prefix[0] = before_a;
+      s_prefix[1] = before_w;
+      if (tile == p.tiles - 1) {
+        totals[0] = before_a + a;
+        totals[1] = before_w + w;
+        *overflow = before_a + a > p.cap ? 1 : 0;
+      }
+    }
   }
-  int before_a, before_w;
-  counts_before(status, tile, before_a, before_w, s_sum);  // its barrier also orders s_before_* for every warp
-  if (tile == p.tiles - 1 && threadIdx.x == 0) {
-    const int all_a = before_a + s_before_a[WORDS - 1] + __popc(s_active[WORDS - 1]);
-    totals[0] = all_a;
-    totals[1] = before_w + s_before_w[WORDS - 1] + __popc(s_work[WORDS - 1]);
-    *overflow = all_a > p.cap ? 1 : 0;
-  }
+  __syncthreads();
+  const int before_a = s_prefix[0], before_w = s_prefix[1];
 
   // each brick's rank and list entries: the bricks before the tile and before its ballot, then the leaders
   // below it in the ballot

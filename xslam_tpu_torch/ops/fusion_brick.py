@@ -55,7 +55,7 @@ MIP_LEVELS = (
     80, 92, 106, 128,
 )
 NONE, FAR, ACTIVE, FAR_PARTIAL = 0, 1, 2, 3
-CLASSIFY_TILE = 32  # bricks a tile of csrc/bricks.cu's classifier scan: one status word in its scratch
+CLASSIFY_TILE = 128  # bricks a tile of csrc/bricks.cu's classifier scan: one status word in its scratch
 
 
 class MipLayout(NamedTuple):
