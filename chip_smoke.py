@@ -452,7 +452,8 @@ def phase_bricks(ctx):
         # each kernel from prepared arguments, the plain versions and K2 beside them
         out_table = torch.empty_like(table)
         scratch = fb.classify_bricks(table, pose, intr, eng, cap)
-        words = fb.classify_scratch(dev, classes.rank.numel())
+        b_scratch = fb.classify_scratch(dev, classes.rank.numel())
+        b_tiles = fb.classify_tiles(classes.rank.numel())
         lv, consts = fb._layout_ints(layout), fb.classify_consts(intr, eng)
         active_flags = (classes.cls.reshape(-1) == fb.ACTIVE).to(torch.int32)
 
@@ -460,9 +461,10 @@ def phase_bricks(ctx):
             err_code = getattr(ext, kernel)(*args, stream)
             check(err_code == 0, f"{kernel} launch failed: cudaError {err_code}")
 
-        def run_b():
-            run("classify_bricks", table, pose, scratch.cls, words, scratch.rank, scratch.active_ids,
-                scratch.work_ids, scratch.totals, scratch.overflow, H, W, lv, consts, cap)
+        def run_b():  # each launch with its own epoch, as the wrapper gives them
+            run("classify_bricks", table, pose, scratch.cls, b_scratch.words, *b_scratch.next_launch(b_tiles),
+                scratch.rank, scratch.active_ids, scratch.work_ids, scratch.totals, scratch.overflow, H, W, lv,
+                consts, cap)
 
         ms_a = time_ms(lambda: run("depth_mips", depth_m, out_table, lv), 100)
         ms_b = time_ms(run_b, 100)

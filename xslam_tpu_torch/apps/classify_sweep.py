@@ -42,18 +42,16 @@ from .kernel_resources import parse_ptxas
 
 HOLD_CYCLES = 30_000_000
 L2_FLUSH_BYTES = 128 << 20
-NO_SCAN = ("code:split", ("    int before_a, before_w;\n    counts_before(status, tile, lane, before_a, before_w);",
-                          "    int before_a = 0, before_w = 0;"))
+NO_SCAN = ("code:split", (
+    "    int before_a, before_w;\n    counts_before(status, tile, lane, p.epoch, before_a, before_w);",
+    "    int before_a = 0, before_w = 0;"))
 VARIANTS = {
     "tree": {},
     "lanes1": {"CORNER_LANES": 1},
     "lanes4": {"CORNER_LANES": 4},
-    "lanes8": {"CORNER_LANES": 8},
     "lanes2_threads512": {"CLASSIFY_THREADS": 512},
-    "lanes1_threads128": {"CORNER_LANES": 1, "CLASSIFY_THREADS": 128},
+    "lanes2_threads128": {"CLASSIFY_THREADS": 128},
     "lanes2_classes_only": dict([NO_SCAN]),
-    "lanes1_classes_only": dict([NO_SCAN], CORNER_LANES=1),
-    "lanes4_classes_only": dict([NO_SCAN], CORNER_LANES=4),
     "scan_only": {"code:split": (
         "  const float* R = pose;       // value lane of the rotation\n",
         "  if (CLASSIFY_SPLIT) return (bx + by + bz + j) & 1 ? ACTIVE : NONE;\n"
@@ -77,9 +75,9 @@ TIMED = {
     "  long long t_classes = 0, t_prefix = 0;\n",
     "  if (warp == 0) {\n    // the tile's counts": "  t_classes = gtimer();\n  if (warp == 0) {\n    // the tile's counts",
     "  // each brick's rank and list entries": "  t_prefix = gtimer();\n  // each brick's rank and list entries",
-    "  // the block that finishes last zeroes the scratch": "  if (threadIdx.x == 0) { g_t[8 * blockIdx.x] = t_ticket; "
-    "g_t[8 * blockIdx.x + 1] = t_classes; g_t[8 * blockIdx.x + 2] = t_prefix; g_t[8 * blockIdx.x + 3] = gtimer(); "
-    "g_t[8 * blockIdx.x + 4] = tile; }\n  // the block that finishes last zeroes the scratch",
+    "__popc(s_work[word] & below)] = b;\n  }\n}\n": "__popc(s_work[word] & below)] = b;\n  }\n"
+    "  if (threadIdx.x == 0) { g_t[8 * blockIdx.x] = t_ticket; g_t[8 * blockIdx.x + 1] = t_classes; "
+    "g_t[8 * blockIdx.x + 2] = t_prefix; g_t[8 * blockIdx.x + 3] = gtimer(); g_t[8 * blockIdx.x + 4] = tile; }\n}\n",
 }
 TIMED_TAIL = """
 extern "C" int sweep_times(long long* out, int n) {
@@ -151,8 +149,9 @@ def build(sources: dict, out, nvcc_flags) -> dict:
             dll.xs_classify_bricks.argtypes = ([P] * 9 + [I] * 5
                                                + [ctypes.POINTER(I), I, I, ctypes.POINTER(ctypes.c_float), I, P])
         else:
-            dll.xs_classify_bricks.argtypes = ([P] * 4 + [L] + [P] * 5 + [I] * 5
-                                               + [ctypes.POINTER(I), I, I, ctypes.POINTER(ctypes.c_float), I, P])
+            dll.xs_classify_bricks.argtypes = ([P] * 4 + [L, ctypes.c_uint, ctypes.c_ulonglong] + [P] * 5
+                                               + [I] * 5 + [ctypes.POINTER(I), I, I,
+                                                            ctypes.POINTER(ctypes.c_float), I, P])
         if name == "timed":
             dll.sweep_times.argtypes = [P, I]
         libs[name] = dll
@@ -260,7 +259,7 @@ def main(argv=None) -> int:
     c_arr = (ctypes.c_float * len(consts))(*consts)
     stream = torch.cuda.current_stream(dev).cuda_stream
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    scratch = torch.zeros(1 + n, dtype=torch.int64, device=dev)  # one word a brick: enough for any tile size
+    scratch = fb.ClassifyScratch(dev, 1 + n)  # one word a brick: enough for any tile size
     counts = torch.zeros(2 * n, dtype=torch.int32, device=dev)
 
     def outputs():
@@ -276,15 +275,26 @@ def main(argv=None) -> int:
                     o.active_ids.data_ptr(), o.work_ids.data_ptr(), o.totals.data_ptr(), o.overflow.data_ptr(), *nb,
                     H, W, lv_arr, len(layout.sizes), layout.rows, c_arr, cap, stream)
         else:
-            args = (table.data_ptr(), pose.data_ptr(), o.cls.data_ptr(), scratch.data_ptr(), scratch.numel(),
-                    o.rank.data_ptr(), o.active_ids.data_ptr(), o.work_ids.data_ptr(), o.totals.data_ptr(),
+            tiles = -(-n // tile_of(name))
+            head = (table.data_ptr(), pose.data_ptr(), o.cls.data_ptr(), scratch.words.data_ptr(),
+                    scratch.words.numel())
+            tail = (o.rank.data_ptr(), o.active_ids.data_ptr(), o.work_ids.data_ptr(), o.totals.data_ptr(),
                     o.overflow.data_ptr(), *nb, H, W, lv_arr, len(layout.sizes), layout.rows, c_arr, cap, stream)
 
         def fn():
-            err = dll.xs_classify_bricks(*args)
+            if name.startswith("parent"):
+                err = dll.xs_classify_bricks(*args)
+            else:  # each launch with its own ticket base and epoch, as the wrapper gives them
+                err = dll.xs_classify_bricks(*head, *scratch.next_launch(tiles), *tail)
             if err != 0:
                 raise RuntimeError(f"{name}: cudaError {err}")
         return fn
+
+    def tile_of(name):
+        """Bricks a tile of a variant, from its source's constants."""
+        text = (sources[name] / "bricks.cu").read_text()
+        get = lambda k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+        return get("CLASSIFY_PASSES") * get("CLASSIFY_THREADS") // get("CORNER_LANES")
 
     def equal(a, b):
         n_active, n_work = (int(v) for v in b.totals)
@@ -326,7 +336,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-        tiles = -(-n // fb.CLASSIFY_TILE)
+        tiles = -(-n // tile_of("tree"))
         buf = np.zeros((65536, 8), np.int64)
         dll.sweep_times(buf.ctypes.data, 65536)
         t = buf[:tiles]

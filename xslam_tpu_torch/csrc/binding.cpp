@@ -17,10 +17,10 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
 extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const int* levels, int n_levels, int rows,
                              void* stream);
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
-                                  long long scratch_words, void* rank, void* active_ids, void* work_ids,
-                                  void* totals, void* overflow, int nbx, int nby, int nbz, int H, int W,
-                                  const int* levels, int n_levels, int rows, const float* consts, int cap,
-                                  void* stream);
+                                  long long scratch_words, unsigned ticket_base, unsigned long long epoch,
+                                  void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
+                                  int nbx, int nby, int nbz, int H, int W, const int* levels, int n_levels,
+                                  int rows, const float* consts, int cap, void* stream);
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
@@ -86,17 +86,20 @@ int depth_mips(const torch::Tensor& depth, torch::Tensor table, const std::vecto
                        (int)(lv.size() / 4), table.size(0), as_stream(stream));
 }
 
-// cls: (nbx, nby, nbz); scratch: int64 words, zeroed, one more than the scan's tiles at least; rank,
-// active_ids, work_ids: one int a brick; totals: (2,) int32; overflow: () bool; consts: the classifier's
-// thirteen float32 constants
+// cls: (nbx, nby, nbz); scratch: int64 words, zeroed when made, one more than the scan's tiles at least;
+// ticket_base, epoch: the scratch's tickets taken and launches made before this one (mod 2^32), and this
+// launch's number on it; rank, active_ids, work_ids: one int a brick; totals: (2,) int32; overflow: () bool;
+// consts: the classifier's thirteen float32 constants
 int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor scratch,
-                    torch::Tensor rank, torch::Tensor active_ids, torch::Tensor work_ids, torch::Tensor totals,
-                    torch::Tensor overflow, int64_t H, int64_t W, const std::vector<int64_t>& levels,
-                    const std::vector<double>& consts, int64_t cap, int64_t stream) {
-  if (levels.size() % 4 != 0 || consts.size() != 13) return 1;  // cudaErrorInvalidValue
+                    int64_t ticket_base, int64_t epoch, torch::Tensor rank, torch::Tensor active_ids,
+                    torch::Tensor work_ids, torch::Tensor totals, torch::Tensor overflow, int64_t H, int64_t W,
+                    const std::vector<int64_t>& levels, const std::vector<double>& consts, int64_t cap,
+                    int64_t stream) {
+  if (levels.size() % 4 != 0 || consts.size() != 13 || epoch < 1) return 1;  // cudaErrorInvalidValue
   const std::vector<int> lv(levels.begin(), levels.end());
   const std::vector<float> c(consts.begin(), consts.end());  // float32 values, carried exactly in double
   return xs_classify_bricks(table.data_ptr(), pose.data_ptr(), cls.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                            (unsigned)(ticket_base & 0xffffffffll), (unsigned long long)epoch,
                             rank.data_ptr(), active_ids.data_ptr(), work_ids.data_ptr(), totals.data_ptr(),
                             overflow.data_ptr(), cls.size(0), cls.size(1), cls.size(2), H, W, lv.data(),
                             (int)(lv.size() / 4), table.size(0), c.data(), cap, as_stream(stream));

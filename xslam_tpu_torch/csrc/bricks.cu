@@ -103,7 +103,6 @@ constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;
 constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
 constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
 constexpr int LOOK_BACK_LOADS = 8;  // status words a lane of a classify_bricks look-back loads at once
-constexpr unsigned LOOK_BACK_NAP_NS = 64;  // a look-back's nap between reads of a word not yet published
 constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks wait lasts less
 static_assert(8 % CORNER_LANES == 0, "a brick's lanes share its 8 corners");
 static_assert(CLASSIFY_PASSES * (CLASSIFY_THREADS / 32) <= 32, "warp 0 scans a block's ballots, one a lane");
@@ -279,6 +278,8 @@ struct ClassifyParams {
   float inv_abs_fx, inv_abs_fy;
   float trunc, neg_trunc;
   int cap;
+  unsigned ticket_base;      // tickets taken by the earlier launches on the scratch (mod 2^32)
+  unsigned long long epoch;  // this launch's number on the scratch, from 1: a status word of another is stale
   MipLevels m;
 };
 
@@ -486,11 +487,17 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   return ACTIVE;
 }
 
-// A tile's status word in the single-pass scan: PUBLISHED once written, then the tile's ACTIVE count and its
-// work count, 31 bits each.
-constexpr unsigned long long PUBLISHED = 1ull << 63;
-__device__ __forceinline__ unsigned long long tile_status(int n_active, int n_work) {
-  return PUBLISHED | ((unsigned long long)n_active << 31) | (unsigned long long)n_work;
+// A tile's status word in the single-pass scan: the launch's epoch (42 bits) once written, then the tile's
+// ACTIVE count and its work count, 11 bits each. Words of earlier launches carry their own epochs: no launch
+// has to clear them.
+constexpr int STATUS_COUNT_BITS = 11;
+static_assert(CLASSIFY_TILE < (1 << STATUS_COUNT_BITS), "a tile's counts fit their bits");
+__device__ __forceinline__ unsigned long long tile_status(unsigned long long epoch, int n_active, int n_work) {
+  return (epoch << (2 * STATUS_COUNT_BITS)) | ((unsigned long long)n_active << STATUS_COUNT_BITS) |
+         (unsigned long long)n_work;
+}
+__device__ __forceinline__ bool published(unsigned long long s, unsigned long long epoch) {
+  return (s >> (2 * STATUS_COUNT_BITS)) == epoch;
 }
 __device__ __forceinline__ unsigned long long load_status(const unsigned long long* s) {
   unsigned long long v;
@@ -507,33 +514,36 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // The counts of every brick before tile `tile`, by warp 0 of its block: lane i takes the status words of
-// tiles i, i + 32, ... below `tile`, LOOK_BACK_LOADS loads in flight, and waits on any not yet published
-// (napping between reads, so that the waits leave the issue slots and L2 to the blocks still classifying).
-// Every tile before `tile` belongs to a block that has started (the ticket) and publishes its counts before
-// it waits on anything, so the waits end; one that lasts LOOK_BACK_LIMIT_NS means a fault: the launch traps
-// and its wrapper raises. Integer sums: the same in any order. Every lane gets the sums.
-__device__ __forceinline__ void counts_before(const unsigned long long* status, int tile, int lane, int& before_a,
-                                              int& before_w) {
+// tiles i, i + 32, ... below `tile`, LOOK_BACK_LOADS loads in flight, and reloads those not yet published,
+// all together, until every one is. Every tile before `tile` belongs to a block that has started (the
+// ticket) and publishes its counts before it waits on anything, so the waits end; one that lasts
+// LOOK_BACK_LIMIT_NS means a fault: the launch traps and its wrapper raises. Integer sums: the same in any
+// order. Every lane gets the sums.
+__device__ __forceinline__ void counts_before(const unsigned long long* status, int tile, int lane,
+                                              unsigned long long epoch, int& before_a, int& before_w) {
+  constexpr unsigned long long COUNT_MASK = (1ull << STATUS_COUNT_BITS) - 1ull;
   int a = 0, w = 0;
   for (int first = lane; first < tile; first += LOOK_BACK_LOADS * 32) {
     unsigned long long s[LOOK_BACK_LOADS];
+    unsigned pending = 0u;
 #pragma unroll
-    for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
-      const int i = first + 32 * k;
-      s[k] = i < tile ? load_status(status + i) : PUBLISHED;
-    }
+    for (int k = 0; k < LOOK_BACK_LOADS; ++k)
+      if (first + 32 * k < tile) pending |= 1u << k;
+    const unsigned long long since = global_ns();
+    for (;;) {
 #pragma unroll
-    for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
-      if (!(s[k] & PUBLISHED)) {
-        const unsigned long long since = global_ns();
-        do {
-          __nanosleep(LOOK_BACK_NAP_NS);
-          if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
-          s[k] = load_status(status + first + 32 * k);
-        } while (!(s[k] & PUBLISHED));
+      for (int k = 0; k < LOOK_BACK_LOADS; ++k)
+        if ((pending >> k) & 1u) s[k] = load_status(status + first + 32 * k);
+#pragma unroll
+      for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
+        if (((pending >> k) & 1u) && published(s[k], epoch)) {
+          pending &= ~(1u << k);
+          a += (int)((s[k] >> STATUS_COUNT_BITS) & COUNT_MASK);
+          w += (int)(s[k] & COUNT_MASK);
+        }
       }
-      a += (int)((s[k] >> 31) & 0x7fffffffull);
-      w += (int)(s[k] & 0x7fffffffull);
+      if (pending == 0u) break;
+      if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
     }
   }
 #pragma unroll
@@ -548,8 +558,8 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
 // One launch: the classes, then the ranks in flat brick order by a single-pass scan over tiles of
 // CLASSIFY_TILE bricks. A block takes its tile by an atomic ticket, publishes the tile's counts and sums the
 // counts of the tiles before it (counts_before): no chain from tile to tile. scratch: word 0 holds the ticket
-// and the count of finished blocks (two unsigned ints), words 1.. the tiles' status words; zeroed once per
-// device, and zeroed again by the block that finishes last, ready for the next launch on the stream.
+// counter (an unsigned int that runs on from launch to launch), words 1.. the tiles' status words; zeroed
+// once per device and stream.
 __global__ void __launch_bounds__(CLASSIFY_THREADS)
     classify_bricks_kernel(const float* __restrict__ table, const float* __restrict__ pose, int* __restrict__ cls,
                            unsigned long long* __restrict__ scratch, int* __restrict__ rank,
@@ -559,14 +569,18 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   __shared__ unsigned s_active[WORDS], s_work[WORDS];  // each (pass, warp)'s ballot of ACTIVE and of work bricks
   __shared__ int s_before_a[WORDS], s_before_w[WORDS];  // the bricks of the tile before each ballot's
   __shared__ int s_prefix[2];  // the counts of every brick before the tile
-  __shared__ int s_tile, s_last;
-  unsigned* counters = reinterpret_cast<unsigned*>(scratch);
+  __shared__ int s_tile;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
   unsigned long long* status = scratch + 1;
   const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
   const int j = lane & (CORNER_LANES - 1);
   const int n = p.nbx * p.nby * p.nbz;
 
-  if (threadIdx.x == 0) s_tile = (int)atomicAdd(&counters[0], 1u);
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u) - p.ticket_base;
+    if (t >= (unsigned)p.tiles) __trap();  // the scratch's counter does not follow its launches
+    s_tile = (int)t;
+  }
   __syncthreads();
   const int tile = s_tile;
 
@@ -602,13 +616,13 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
         w += uw;
       }
     }
-    if (lane == 31) store_status(status + tile, tile_status(a, w));
+    if (lane == 31) store_status(status + tile, tile_status(p.epoch, a, w));
     if (lane < WORDS) {
       s_before_a[lane] = a - __popc(s_active[lane]);
       s_before_w[lane] = w - __popc(s_work[lane]);
     }
     int before_a, before_w;
-    counts_before(status, tile, lane, before_a, before_w);
+    counts_before(status, tile, lane, p.epoch, before_a, before_w);
     if (lane == 31) {
       s_prefix[0] = before_a;
       s_prefix[1] = before_w;
@@ -636,17 +650,6 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
     if (active) active_ids[ra] = b;
     if (c[q] != NONE) work_ids[before_w + s_before_w[word] + __popc(s_work[word] & below)] = b;
   }
-
-  // the block that finishes last zeroes the scratch: every other block has read its last status word
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    s_last = atomicAdd(&counters[1], 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!s_last) return;
-  for (int i = (int)threadIdx.x; i < p.tiles; i += CLASSIFY_THREADS) status[i] = 0ull;
-  if (threadIdx.x == 0) scratch[0] = 0ull;
 }
 
 // ---------------------------------------------------------------- B3c
@@ -847,15 +850,16 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 }
 
 // table: depth_mips' (rows, 3); pose: the 24 floats of the dual volume->camera pose (value lanes read);
-// scratch: scratch_words zeroed 8-byte words, one more than the tiles of CLASSIFY_TILE bricks at least, that
-// belong to one stream at a time (the kernel leaves them zeroed); cls, rank, active_ids, work_ids: one int a
-// brick; totals: n_active, n_work; overflow: one byte. consts: brick edge, fx, fy, cx, cy, the four plane
-// constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32.
+// scratch: scratch_words 8-byte words, zeroed when made, one more than the tiles of CLASSIFY_TILE bricks at
+// least, that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their
+// tiles, mod 2^32); epoch: its launches so far, this one included (from 1, below 2^42); cls, rank,
+// active_ids, work_ids: one int a brick; totals: n_active, n_work; overflow: one byte. consts: brick edge,
+// fx, fy, cx, cy, the four plane constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32.
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
-                                  long long scratch_words, void* rank, void* active_ids, void* work_ids,
-                                  void* totals, void* overflow, int nbx, int nby, int nbz, int H, int W,
-                                  const int* levels, int n_levels, int rows, const float* consts, int cap,
-                                  void* stream) {
+                                  long long scratch_words, unsigned ticket_base, unsigned long long epoch,
+                                  void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
+                                  int nbx, int nby, int nbz, int H, int W, const int* levels, int n_levels,
+                                  int rows, const float* consts, int cap, void* stream) {
   ClassifyParams p{};
   if (!read_levels(levels, n_levels, rows, p.m)) return (int)cudaErrorInvalidValue;
   if (H < 1 || W < 1 || H > DIVIDE_LIMIT || W > DIVIDE_LIMIT) return (int)cudaErrorInvalidValue;
@@ -875,6 +879,9 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   p.trunc = consts[11];
   p.neg_trunc = consts[12];
   p.cap = cap;
+  p.ticket_base = ticket_base;
+  p.epoch = epoch;
+  if (epoch < 1 || epoch >= (1ull << (64 - 2 * STATUS_COUNT_BITS))) return (int)cudaErrorInvalidValue;
   const long long n = (long long)nbx * nby * nbz;
   if (nbx < 1 || nby < 1 || nbz < 1 || n >= (1ll << 31) - CLASSIFY_TILE) return (int)cudaErrorInvalidValue;
   p.tiles = (int)((n + CLASSIFY_TILE - 1) / CLASSIFY_TILE);

@@ -329,20 +329,44 @@ def rank_bricks_plain(cls: torch.Tensor, cap: int) -> BrickClasses:
     return BrickClasses(cls, rank, active_ids, work_ids, totals, totals[0] > cap)
 
 
-_classify_scratch: dict = {}  # (device, stream) -> B3b's zeroed ticket and status words
+class ClassifyScratch:
+    """B3b's scratch on one device and stream, since launches on one stream
+    run in order: word 0 the ticket counter, which runs on from launch to
+    launch, then one status word a tile of :data:`CLASSIFY_TILE` bricks,
+    tagged with the launch's epoch. Zeroed once when made; the host counts
+    the tickets taken and the launches made, so no launch clears anything."""
+
+    def __init__(self, device: torch.device, words: int):
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.tickets = 0
+        self.launches = 0
+
+    def next_launch(self, tiles: int) -> Tuple[int, int]:
+        """(ticket base, epoch) of a launch of ``tiles`` blocks, counted as made."""
+        base = self.tickets % 2 ** 32
+        self.tickets += tiles
+        self.launches += 1
+        if self.launches >= 2 ** 42:
+            raise RuntimeError("the classifier's scratch has run out of epochs")
+        return base, self.launches
 
 
-def classify_scratch(device: torch.device, n_bricks: int) -> torch.Tensor:
-    """B3b's scratch on ``device``'s current stream, since launches on one
-    stream run in order: word 0 the ticket and the count of finished blocks,
-    then one status word a tile of :data:`CLASSIFY_TILE` bricks. Zeroed when
-    made (once a device and stream, or when a larger volume needs more
-    tiles); the kernel leaves it zeroed."""
+_classify_scratch: dict = {}  # (device, stream) -> ClassifyScratch
+
+
+def classify_scratch(device: torch.device, n_bricks: int) -> ClassifyScratch:
+    """B3b's :class:`ClassifyScratch` on ``device``'s current stream, made
+    anew where a larger volume needs more tiles."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    words = 1 + -(-n_bricks // CLASSIFY_TILE)
-    if key not in _classify_scratch or _classify_scratch[key].numel() < words:
-        _classify_scratch[key] = torch.zeros(words, dtype=torch.int64, device=device)
+    words = 1 + classify_tiles(n_bricks)
+    if key not in _classify_scratch or _classify_scratch[key].words.numel() < words:
+        _classify_scratch[key] = ClassifyScratch(device, words)
     return _classify_scratch[key]
+
+
+def classify_tiles(n_bricks: int) -> int:
+    """Blocks of a B3b launch: tiles of :data:`CLASSIFY_TILE` bricks."""
+    return -(-n_bricks // CLASSIFY_TILE)
 
 
 def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, cap: int) -> BrickClasses:
@@ -365,8 +389,10 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     rank, active_ids, work_ids = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
     totals = torch.empty(2, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.launch("classify_bricks", dev, table, pose, cls, classify_scratch(dev, n), rank, active_ids, work_ids,
-                   totals, overflow, H, W, _layout_ints(layout), classify_consts(intr, cfg), int(cap))
+    scratch = classify_scratch(dev, n)
+    kernels.launch("classify_bricks", dev, table, pose, cls, scratch.words, *scratch.next_launch(classify_tiles(n)),
+                   rank, active_ids, work_ids, totals, overflow, H, W, _layout_ints(layout),
+                   classify_consts(intr, cfg), int(cap))
     kernels.launch_counts["classify_bricks"] += 1
     return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow)
 
