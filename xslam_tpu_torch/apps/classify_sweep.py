@@ -47,11 +47,15 @@ NO_SCAN = ("code:split", (
     "    int before_a = 0, before_w = 0;"))
 VARIANTS = {
     "tree": {},
-    "lanes1": {"CORNER_LANES": 1},
-    "lanes4": {"CORNER_LANES": 4},
-    "lanes2_threads512": {"CLASSIFY_THREADS": 512},
-    "lanes2_threads128": {"CLASSIFY_THREADS": 128},
+    "stride16": {"STATUS_STRIDE": 16},
+    "nap100": {"LOOK_BACK_NAP": 100},
+    "stride16_nap100": {"STATUS_STRIDE": 16, "LOOK_BACK_NAP": 100},
+    "threads512": {"CLASSIFY_THREADS": 512},
+    "threads512_stride16": {"CLASSIFY_THREADS": 512, "STATUS_STRIDE": 16},
+    "threads512_nap100": {"CLASSIFY_THREADS": 512, "LOOK_BACK_NAP": 100},
+    "threads512_stride16_nap100": {"CLASSIFY_THREADS": 512, "STATUS_STRIDE": 16, "LOOK_BACK_NAP": 100},
     "lanes2_classes_only": dict([NO_SCAN]),
+    "threads512_classes_only": dict([NO_SCAN], CLASSIFY_THREADS=512),
     "scan_only": {"code:split": (
         "  const float* R = pose;       // value lane of the rotation\n",
         "  if (CLASSIFY_SPLIT) return (bx + by + bz + j) & 1 ? ACTIVE : NONE;\n"

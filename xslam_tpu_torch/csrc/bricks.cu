@@ -103,6 +103,8 @@ constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;
 constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
 constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
 constexpr int LOOK_BACK_LOADS = 8;  // status words a lane of a classify_bricks look-back loads at once
+constexpr int STATUS_STRIDE = 1;    // 8-byte words from one tile's status word to the next
+constexpr int LOOK_BACK_NAP = 0;    // ns a look-back naps before it reloads the words not yet published
 constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks wait lasts less
 static_assert(8 % CORNER_LANES == 0, "a brick's lanes share its 8 corners");
 static_assert(CLASSIFY_PASSES * (CLASSIFY_THREADS / 32) <= 32, "warp 0 scans a block's ballots, one a lane");
@@ -533,7 +535,7 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
     for (;;) {
 #pragma unroll
       for (int k = 0; k < LOOK_BACK_LOADS; ++k)
-        if ((pending >> k) & 1u) s[k] = load_status(status + first + 32 * k);
+        if ((pending >> k) & 1u) s[k] = load_status(status + (size_t)(first + 32 * k) * STATUS_STRIDE);
 #pragma unroll
       for (int k = 0; k < LOOK_BACK_LOADS; ++k) {
         if (((pending >> k) & 1u) && published(s[k], epoch)) {
@@ -544,6 +546,7 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
       }
       if (pending == 0u) break;
       if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
+      if (LOOK_BACK_NAP > 0) __nanosleep(LOOK_BACK_NAP);
     }
   }
 #pragma unroll
@@ -616,7 +619,7 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
         w += uw;
       }
     }
-    if (lane == 31) store_status(status + tile, tile_status(p.epoch, a, w));
+    if (lane == 31) store_status(status + (size_t)tile * STATUS_STRIDE, tile_status(p.epoch, a, w));
     if (lane < WORDS) {
       s_before_a[lane] = a - __popc(s_active[lane]);
       s_before_w[lane] = w - __popc(s_work[lane]);
@@ -885,7 +888,7 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   const long long n = (long long)nbx * nby * nbz;
   if (nbx < 1 || nby < 1 || nbz < 1 || n >= (1ll << 31) - CLASSIFY_TILE) return (int)cudaErrorInvalidValue;
   p.tiles = (int)((n + CLASSIFY_TILE - 1) / CLASSIFY_TILE);
-  if (scratch_words < 1 + (long long)p.tiles) return (int)cudaErrorInvalidValue;
+  if (scratch_words < 1 + (long long)p.tiles * STATUS_STRIDE) return (int)cudaErrorInvalidValue;
   classify_bricks_kernel<<<p.tiles, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (int*)cls, (unsigned long long*)scratch, (int*)rank, (int*)active_ids,
       (int*)work_ids, (int*)totals, (unsigned char*)overflow, p);
