@@ -338,9 +338,9 @@ def test_classes_reach_far_and_far_partial():
     assert (tcls != jcls).sum() <= 0.001 * tcls.size
 
 
-CORNER_LANES, CLASSIFY_THREADS = 8, 256  # csrc/bricks.cu: lanes of a brick (a corner each), threads of a block
+CORNER_LANES, CLASSIFY_THREADS = 2, 256  # csrc/bricks.cu: lanes of a brick, threads of a block
 DIVIDE_LIMIT = 1 << 16  # csrc/bricks.cu: the classifier's exact division holds below this
-TILE_COUNTS, TILE_PREFIX = 1 << 62, 2 << 62  # csrc/bricks.cu: the flags of a tile's status word
+STATUS_COUNT_BITS = 11  # csrc/bricks.cu: a status word's counts; the launch's epoch above them
 
 
 def _magic(ts):
@@ -391,28 +391,33 @@ def _group(x, op, width):
 
 
 def _twin_level(pr, cu, cv, ucl, vcl, sizes, lanes=CORNER_LANES):
-    """csrc/bricks.cu's level: lane j of a brick tests levels j, j + lanes,
-    ...; per round, two ballots collect which levels have tiles smaller than
-    ``pr`` and which cover the footprint, as bits over the levels; the level
-    is the lowest covering bit above the smaller ones (the sizes ascend), or
-    ``len(sizes)``. Arrays of bricks in, levels out."""
+    """csrc/bricks.cu's level: each lane of a brick's ``lanes`` counts the
+    levels j, j + lanes, ... whose tile is smaller than ``pr``, and the group
+    adds the counts (searchsorted's level, ``base``); then round r tests
+    levels base + r lanes + j, a level a lane, and the group stops at the
+    first round whose ballot holds a covering level, taking the lowest. A
+    level of ``len(sizes)``: none covers. Arrays of bricks in, levels out."""
     n = len(sizes)
-    smaller = np.zeros(pr.shape, np.int64)
-    covering = np.zeros(pr.shape, np.int64)
-    for r in range(-(-22 // lanes)):
+    base = np.zeros(pr.shape, np.int64)
+    for k in range(n):
+        base += (np.float32(sizes[k]) < pr).astype(np.int64)
+    level = np.full(pr.shape, n)
+    searching = base < n
+    k0 = base.copy()
+    while searching.any():
+        bits = np.zeros(pr.shape, np.int64)
         for j in range(lanes):
-            k = r * lanes + j
-            if k >= n:
-                continue
-            s = sizes[k]
-            below = np.float32(s) < pr
-            cover = (ucl < ((_divide(cu, s) + 2) * s).astype(np.float32)) & (
+            k = k0 + j
+            ok = searching & (k < n)
+            s = np.asarray(sizes)[np.minimum(k, n - 1)]
+            cover = ok & (ucl < ((_divide(cu, s) + 2) * s).astype(np.float32)) & (
                 vcl < ((_divide(cv, s) + 2) * s).astype(np.float32))
-            smaller |= below.astype(np.int64) << k
-            covering |= cover.astype(np.int64) << k
-    candidates = covering & ~smaller
-    lowest = candidates & -candidates
-    return np.where(candidates != 0, np.log2(np.maximum(lowest, 1)).astype(np.int64), n)
+            bits |= cover.astype(np.int64) << j
+        lowest = np.log2(np.maximum(bits & -bits, 1)).astype(np.int64)
+        level = np.where(searching & (bits != 0), k0 + lowest, level)
+        searching = searching & (bits == 0) & (k0 + lanes < n)
+        k0 = k0 + lanes
+    return level
 
 
 def _top_down_level(pr, cu, cv, ucl, vcl, sizes):
@@ -432,11 +437,12 @@ def _twin_classify(table, pose, intr, cfg, corners=tuple(range(8)), lanes=CORNER
     """numpy twin of csrc/bricks.cu::classify_brick on every brick: lane j of
     a brick's ``lanes`` takes corners ``corners[j * 8 // lanes:...]`` (the
     kernel: j * 8 / lanes onward, in order) and reduces them, then the group
-    reduces by xor shuffles; the level by ballots (:func:`_twin_level`); lane
-    j reads the window's cell j & 3 and the group reduces the four cells over
-    lanes j ^ 1, then j ^ 2. The division by |f| is a true one, as the plain
-    version's on the CPU (the kernel multiplies by the reciprocal, as the
-    plain version on the card). Returns the classes (every lane's must
+    reduces by xor shuffles; the level by rounds of ballots
+    (:func:`_twin_level`); lane j of the first min(lanes, 4) reads 4 /
+    min(lanes, 4) of the window's cells in order, and the group reduces them
+    over lanes j ^ 1, then j ^ 2. The division by |f| is a true one, as the
+    plain version's on the CPU (the kernel multiplies by the reciprocal, as
+    the plain version on the card). Returns the classes (every lane's must
     agree) and the footprint (pr, cu, cv, ucl, vcl) and level of each brick."""
     f = np.float32
     H, W = intr.height, intr.width
@@ -453,6 +459,7 @@ def _twin_classify(table, pose, intr, cfg, corners=tuple(range(8)), lanes=CORNER
               (f(0), f(intr.fy), f(intr.cy - 2.5)), (f(0), f(-intr.fy), f((H - 0.5) - intr.cy)))
     per = 8 // lanes
     lane_corners = np.asarray(corners).reshape(lanes, per)
+    ops = (_min_nan, _max_nan, _min_nan, _max_nan, _min_nan, _max_nan) + (_max_nan,) * 4
     acc = None
     for c in range(per):
         k = lane_corners[:, c][None, :]
@@ -463,7 +470,6 @@ def _twin_classify(table, pose, intr, cfg, corners=tuple(range(8)), lanes=CORNER
         zc = _max_nan(cam[2], f(1e-6))
         vals = [(f(intr.fx) * cam[0]) / zc + f(intr.cx), (f(intr.fy) * cam[1]) / zc + f(intr.cy), cam[2]]
         vals += [(a * cam[0] + b_ * cam[1]) + c_ * cam[2] for a, b_, c_ in planes]
-        ops = (_min_nan, _max_nan, _min_nan, _max_nan, _min_nan, _max_nan) + (_max_nan,) * 4
         now = [vals[0], vals[0], vals[1], vals[1], vals[2], vals[2]] + vals[3:]
         acc = now if acc is None else [op(a, x) for op, a, x in zip(ops, acc, now)]
     umin, umax, vmin, vmax, zmin, zmax, *pmax = [_group(a, op, lanes) for op, a in zip(ops, acc)]
@@ -495,13 +501,20 @@ def _twin_classify(table, pose, intr, cfg, corners=tuple(range(8)), lanes=CORNER
     first = np.asarray(layout.offsets)[lv]
     cu0 = np.minimum(_divide(cu, ts), mw - 1)
     cv0 = np.minimum(_divide(cv, ts), mh - 1)
-    cell = np.arange(lanes)[None, :] & 3
-    y = np.minimum(cv0 + (cell >> 1), mh - 1)
-    x = np.minimum(cu0 + (cell & 1), mw - 1)
-    rows = table[first + y * mw + x]
-    dmin = _group(rows[..., 0], _min_nan, 4)
-    dmax = _group(rows[..., 1], _max_nan, 4)
-    all_valid = _group(rows[..., 2], np.multiply, 4) > f(0.5)
+    cell_lanes = min(lanes, 4)
+    per_lane = 4 // cell_lanes
+    dmin = dmax = av = None
+    for c in range(per_lane):
+        cell = (np.arange(lanes)[None, :] & (cell_lanes - 1)) * per_lane + c
+        y = np.minimum(cv0 + (cell >> 1), mh - 1)
+        x = np.minimum(cu0 + (cell & 1), mw - 1)
+        rows = table[first + y * mw + x]
+        dmin = rows[..., 0] if c == 0 else _min_nan(dmin, rows[..., 0])
+        dmax = rows[..., 1] if c == 0 else _max_nan(dmax, rows[..., 1])
+        av = rows[..., 2] if c == 0 else av * rows[..., 2]
+    dmin = _group(dmin, _min_nan, cell_lanes)
+    dmax = _group(dmax, _max_nan, cell_lanes)
+    all_valid = _group(av, np.multiply, cell_lanes) > f(0.5)
 
     def coord_interval(c0, c1, centre, fl):
         a0, a1 = np.abs(c0 - f(centre)), np.abs(c1 - f(centre))
@@ -522,16 +535,16 @@ def _twin_classify(table, pose, intr, cfg, corners=tuple(range(8)), lanes=CORNER
                                                     vcl=vcl[:, 0], level=level[:, 0])
 
 
-@pytest.mark.parametrize("lanes, corners", [(8, tuple(range(8))), (8, (5, 2, 7, 0, 3, 6, 1, 4)),
-                                            (4, (6, 1, 3, 4, 0, 7, 2, 5))],
-                         ids=["8_lanes", "8_lanes_shuffled", "4_lanes_shuffled"])
+@pytest.mark.parametrize("lanes, corners", [(2, tuple(range(8))), (2, (5, 2, 7, 0, 3, 6, 1, 4)),
+                                            (1, (6, 1, 3, 4, 0, 7, 2, 5)), (8, (6, 1, 3, 4, 0, 7, 2, 5))],
+                         ids=["2_lanes", "2_lanes_shuffled", "1_lane_shuffled", "8_lanes_shuffled"])
 @pytest.mark.parametrize("name", CASES)
 def test_lane_split_twin_gives_plain_classes(name, lanes, corners):
     """The twin of the kernel's lane split (corners on lanes, xor-shuffle
-    reductions, ballots for the level, a cell a lane) gives the plain
-    version's classes, whichever corner a lane takes and in whatever order
-    the reductions meet them: min and max round nothing, and no class reads
-    the sign of a zero."""
+    reductions, rounds of ballots for the level, cells on lanes) gives the
+    plain version's classes, whichever corner a lane takes and in whatever
+    order the reductions meet them: min and max round nothing, and no class
+    reads the sign of a zero."""
     _, _, tcfg = _cfgs()
     v2c, depth = _case(name)
     _, _, tr, tt = _poses(v2c)
@@ -544,10 +557,11 @@ def test_lane_split_twin_gives_plain_classes(name, lanes, corners):
 
 
 @pytest.mark.parametrize("source", ("random",) + CASES)
-def test_level_ballot_equals_top_down_scan(source):
-    """The level the ballots give (the lowest covering level above those with
-    smaller tiles) is the top-down scan's, on random footprints of a 480x640
-    frame and on every brick of the three test poses."""
+def test_level_rounds_equal_top_down_scan(source):
+    """The level the rounds of ballots give (upward from searchsorted's, the
+    lowest covering level of the first round that has one) is the top-down
+    scan's, on random footprints of a 480x640 frame and on every brick of the
+    three test poses, with 1, 2 and 8 lanes a brick."""
     if source == "random":
         rng = np.random.default_rng(3)
         n = 200_000
@@ -565,75 +579,74 @@ def test_level_ballot_equals_top_down_scan(source):
         sizes = tbrick.mip_layout(SMALL_INTR.height, SMALL_INTR.width).sizes
         _, fp = _twin_classify(table.numpy(), kernels.fusion_pose(tr, tt).numpy(), TINTR, tcfg)
         pr, cu, cv, ucl, vcl = (np.ascontiguousarray(fp[k]) for k in ("pr", "cu", "cv", "ucl", "vcl"))
-    level = _twin_level(pr, cu, cv, ucl, vcl, sizes)
-    assert np.array_equal(level, _top_down_level(pr, cu, cv, ucl, vcl, sizes))
-    assert (level < len(sizes)).any() and len(np.unique(level)) >= 3
+    want = _top_down_level(pr, cu, cv, ucl, vcl, sizes)
+    for lanes in (1, 2, 8):
+        assert np.array_equal(_twin_level(pr, cu, cv, ucl, vcl, sizes, lanes), want)
+    assert (want < len(sizes)).any() and len(np.unique(want)) >= 3
 
 
-def _status(flag, n_active, n_work):
-    return flag | (n_active << 31) | n_work
-
-
-def _twin_scan(cls_flat, cap, rng, scratch=None, resident=5, passes=1, lanes=CORNER_LANES):
+def _twin_scan(cls_flat, cap, rng, scratch=None, resident=5, threads=CLASSIFY_THREADS, lanes=CORNER_LANES):
     """numpy twin of classify_bricks_kernel's ranks, blocks as coroutines: the
     blocks start in a seeded order, at most ``resident`` at a time, and each
-    takes its tile by the ticket; a step of a random running block at a time.
-    A block ballots its bricks' ACTIVE and work flags (a leader lane a brick,
-    every ``lanes`` lanes), publishes its tile's counts, looks back 32 tiles
-    at a time (waiting while a tile up to the nearest prefix has published
-    nothing), publishes its prefix, writes its ranks and lists; the block
-    that finishes last zeroes the scratch. Returns (rank, active_ids,
+    takes its tile by the ticket (the counter runs on from launch to launch;
+    the host passes the tickets taken so far and the launch's epoch, as
+    ops/fusion_brick.py::ClassifyScratch does); a step of a random running
+    block at a time. A block ballots its bricks' ACTIVE and work flags (a
+    leader lane a brick, every ``lanes`` lanes), publishes its tile's counts
+    under the epoch, sums the counts of every earlier tile (reloading those
+    not yet published under this epoch: a word of an earlier launch is
+    stale), and writes its ranks and lists. Returns (rank, active_ids,
     work_ids, totals, overflow, tile of each block, scratch)."""
     n = cls_flat.size
-    warps = CLASSIFY_THREADS // 32
-    per_pass = CLASSIFY_THREADS // lanes
-    tile_size = passes * per_pass
+    warps = threads // 32
+    tile_size = threads // lanes
     tiles = -(-n // tile_size)
-    scratch = scratch if scratch is not None else dict(ticket=0, done=0, status=[0] * tiles)
-    assert scratch["ticket"] == scratch["done"] == 0 and not any(scratch["status"])
+    if scratch is None:  # zeroed when made
+        scratch = dict(ticket=0, status=[0] * tiles, tickets=0, launches=0)
+    base = scratch["tickets"] % 2 ** 32
+    scratch["tickets"] += tiles
+    scratch["launches"] += 1
+    epoch = scratch["launches"]
     status = scratch["status"]
+    mask = (1 << STATUS_COUNT_BITS) - 1
     rank, active_ids, work_ids = (np.full(n, -7, np.int64) for _ in range(3))  # -7: never written
     out = dict(tiles={})
 
     def block(idx):
-        tile = scratch["ticket"]
+        tile = (scratch["ticket"] - base) % 2 ** 32
         scratch["ticket"] += 1
+        assert tile < tiles
         out["tiles"][idx] = tile
         yield
-        words = []  # (pass, warp) ballots of ACTIVE and of work leaders, in flat order
-        for q in range(passes):
-            for w in range(warps):
-                act = wrk = 0
-                for g in range(32 // lanes):
-                    b = tile * tile_size + q * per_pass + w * (32 // lanes) + g
-                    c = cls_flat[b] if b < n else tbrick.NONE
-                    act |= int(c == tbrick.ACTIVE) << (g * lanes)
-                    wrk |= int(c != tbrick.NONE) << (g * lanes)
-                words.append((act, wrk))
+        words = []  # each warp's ballots of ACTIVE and of work leaders, in flat order
+        for w in range(warps):
+            act = wrk = 0
+            for g in range(32 // lanes):
+                b = tile * tile_size + w * (32 // lanes) + g
+                c = cls_flat[b] if b < n else tbrick.NONE
+                act |= int(c == tbrick.ACTIVE) << (g * lanes)
+                wrk |= int(c != tbrick.NONE) << (g * lanes)
+            words.append((act, wrk))
         pops = np.array([[bin(a).count("1"), bin(w_).count("1")] for a, w_ in words])
         before = np.cumsum(pops, 0) - pops  # within the tile
         tile_a, tile_w = (int(x) for x in pops.sum(0))
+        status[tile] = (epoch << 2 * STATUS_COUNT_BITS) | (tile_a << STATUS_COUNT_BITS) | tile_w
+        yield
         ba = bw = 0
-        if tile > 0:
-            status[tile] = _status(TILE_COUNTS, tile_a, tile_w)
-            yield
-            newest = tile - 1
-            while True:
-                window = [status[i] if i >= 0 else TILE_PREFIX for i in range(newest, newest - 32, -1)]
-                published = sum(int(s >> 62 != 0) << lane for lane, s in enumerate(window))
-                prefixes = sum(int(s >> 62 == 2) << lane for lane, s in enumerate(window))
-                needed = ((prefixes & -prefixes) << 1) - 1 if prefixes else 0xFFFFFFFF
-                if published & needed != needed:
-                    yield  # spin
-                    continue
-                take = [s for lane, s in enumerate(window) if needed >> lane & 1]
-                ba += sum((s >> 31) & 0x7FFFFFFF for s in take)
-                bw += sum(s & 0x7FFFFFFF for s in take)
-                if prefixes:
-                    break
-                newest -= 32
-                yield
-        status[tile] = _status(TILE_PREFIX, ba + tile_a, bw + tile_w)
+        pending = list(range(tile))
+        while True:
+            still = []
+            for i in pending:  # the lanes' loads, all together
+                s = status[i]
+                if s >> 2 * STATUS_COUNT_BITS == epoch:
+                    ba += (s >> STATUS_COUNT_BITS) & mask
+                    bw += s & mask
+                else:
+                    still.append(i)
+            pending = still
+            if not pending:
+                break
+            yield  # reload
         if tile == tiles - 1:
             out["totals"] = (ba + tile_a, bw + tile_w)
             out["overflow"] = ba + tile_a > cap
@@ -641,7 +654,7 @@ def _twin_scan(cls_flat, cap, rng, scratch=None, resident=5, passes=1, lanes=COR
         for wi, (act, wrk) in enumerate(words):
             for g in range(32 // lanes):
                 lane = g * lanes
-                b = tile * tile_size + (wi // warps) * per_pass + (wi % warps) * (32 // lanes) + g
+                b = tile * tile_size + wi * (32 // lanes) + g
                 if b >= n:
                     continue
                 below = (1 << lane) - 1
@@ -651,17 +664,12 @@ def _twin_scan(cls_flat, cap, rng, scratch=None, resident=5, passes=1, lanes=COR
                     active_ids[ra] = b
                 if wrk >> lane & 1:
                     work_ids[bw + int(before[wi, 1]) + bin(wrk & below).count("1")] = b
-        scratch["done"] += 1
-        if scratch["done"] == tiles:  # the last block to finish: ready for the next launch
-            status[:tiles] = [0] * tiles
-            scratch["ticket"] = scratch["done"] = 0
 
     waiting = list(rng.permutation(tiles))  # blockIdx in the order the blocks start
     running = []
     while waiting or running:
         if waiting and (len(running) < resident) and (not running or rng.random() < 0.5):
-            idx = int(waiting.pop(0))
-            running.append(block(idx))
+            running.append(block(int(waiting.pop(0))))
         k = int(rng.integers(len(running)))
         try:
             next(running[k])
@@ -689,26 +697,28 @@ def test_rank_twin_is_flat_order(n):
     assert sorted(tiles.values()) == list(range(len(tiles)))
     if len(tiles) > 2:
         assert any(idx != tile for idx, tile in tiles.items())  # tiles follow the tickets, not blockIdx
-    assert scratch["ticket"] == scratch["done"] == 0 and not any(scratch["status"])
+    assert scratch["ticket"] == len(tiles)
 
 
-@pytest.mark.parametrize("passes, lanes", [(1, 8), (4, 8), (2, 4)])
+@pytest.mark.parametrize("threads, lanes", [(256, 2), (512, 2), (256, 8)])
 @pytest.mark.parametrize("resident", [1, 3, 64])
-def test_scan_twin_back_to_back_on_one_scratch(resident, passes, lanes):
-    """Two launches back to back on one scratch, with different classes (the
-    second overflows its cap, the first does not), each give the plain
-    lists: the first launch leaves its ticket and status words zeroed. With
-    one resident block the tiles run one after another; a look-back never
-    waits on a tile whose block has not started."""
-    rng = np.random.default_rng(resident * 10 + passes)
+def test_scan_twin_back_to_back_on_one_scratch(resident, threads, lanes):
+    """Three launches back to back on one scratch, with different classes
+    (the second overflows its cap, the others do not), each give the plain
+    lists: the status words an earlier launch left carry its epoch and count
+    for nothing, and the ticket counter runs on. With one resident block the
+    tiles run one after another; a block never waits on a tile whose block
+    has not started."""
+    rng = np.random.default_rng(resident * 10 + lanes)
     n = 32 * 8 * 12 + 5  # a cut last tile
     first = rng.choice(4, size=n, p=[0.5, 0.2, 0.2, 0.1]).astype(np.int32)
     second = rng.choice(4, size=n, p=[0.3, 0.1, 0.5, 0.1]).astype(np.int32)
+    third = rng.choice(4, size=n, p=[0.8, 0.1, 0.05, 0.05]).astype(np.int32)
     cap = int((first == tbrick.ACTIVE).sum())
     scratch, flags = None, []
-    for cls in (first, second):
+    for cls in (first, second, third):
         rank, active_ids, work_ids, totals, overflow, _, scratch = _twin_scan(cls, cap, rng, scratch, resident,
-                                                                             passes, lanes)
+                                                                             threads, lanes)
         plain = tbrick.rank_bricks_plain(torch.from_numpy(cls), cap)
         n_active, n_work = plain.totals.tolist()
         assert list(totals) == [n_active, n_work] and overflow == bool(plain.overflow)
@@ -716,7 +726,23 @@ def test_scan_twin_back_to_back_on_one_scratch(resident, passes, lanes):
         assert np.array_equal(active_ids[:n_active], plain.active_ids[:n_active].numpy())
         assert np.array_equal(work_ids[:n_work], plain.work_ids[:n_work].numpy())
         flags.append(overflow)
-    assert flags == [False, True]
+    assert flags == [False, True, False]
+    assert scratch["ticket"] == scratch["tickets"] == 3 * -(-n // (threads // lanes))
+
+
+def test_classify_scratch_counts_tickets_and_epochs():
+    """The wrapper's scratch gives each launch the tickets taken before it
+    (mod 2^32) and its epoch, from 1."""
+    scratch = tbrick.ClassifyScratch(torch.device("cpu"), 1 + 256)
+    assert scratch.words.numel() == 257 and not scratch.words.any()
+    assert scratch.next_launch(256) == (0, 1)
+    assert scratch.next_launch(256) == (256, 2)
+    scratch.tickets = 2 ** 32 - 3
+    assert scratch.next_launch(256) == (2 ** 32 - 3, 3)
+    assert scratch.next_launch(256) == (253, 4)  # the device's counter wraps as an unsigned int
+    assert tbrick.classify_tiles(32768) == 32768 // tbrick.CLASSIFY_TILE
+    assert tbrick.CLASSIFY_TILE == CLASSIFY_THREADS // CORNER_LANES
+
 
 
 # ---------------------------------------------------- B3c: the fused volume
