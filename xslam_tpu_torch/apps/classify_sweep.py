@@ -47,25 +47,44 @@ NO_SCAN = ("code:split", (
     "    int before_a = 0, before_w = 0;"))
 VARIANTS = {
     "tree": {},
-    "stride16": {"STATUS_STRIDE": 16},
-    "nap100": {"LOOK_BACK_NAP": 100},
-    "stride16_nap100": {"STATUS_STRIDE": 16, "LOOK_BACK_NAP": 100},
+    "lanes1": {"CORNER_LANES": 1},
+    "lanes4": {"CORNER_LANES": 4},
+    "lanes8": {"CORNER_LANES": 8},
     "threads512": {"CLASSIFY_THREADS": 512},
-    "threads512_stride16": {"CLASSIFY_THREADS": 512, "STATUS_STRIDE": 16},
-    "threads512_nap100": {"CLASSIFY_THREADS": 512, "LOOK_BACK_NAP": 100},
-    "threads512_stride16_nap100": {"CLASSIFY_THREADS": 512, "STATUS_STRIDE": 16, "LOOK_BACK_NAP": 100},
-    "lanes2_classes_only": dict([NO_SCAN]),
-    "threads512_classes_only": dict([NO_SCAN], CLASSIFY_THREADS=512),
+    "stride1": {"STATUS_STRIDE": 1},
+    "to_corners": {"code:split": (
+        "  const bool frustum_out = plane_max[0] < 0.0f",
+        "  if (CLASSIFY_SPLIT) return (umin + umax + vmin + vmax + zmin + zmax + plane_max[0] + plane_max[1] + "
+        "plane_max[2] + plane_max[3] > 1e30f) ? ACTIVE : NONE;\n  const bool frustum_out = plane_max[0] < 0.0f")},
+    "to_level": {"code:split": (
+        "  const int mh = m.h[lv], mw = m.w[lv];\n",
+        "  if (CLASSIFY_SPLIT) return ((lv + cu + cv) & 1) ? ACTIVE : ((dist_min + dist_max > 1e30f) ? FAR : NONE);\n"
+        "  const int mh = m.h[lv], mw = m.w[lv];\n")},
+    "to_table": {"code:split": (
+        "  const bool all_valid = av > 0.5f;\n",
+        "  const bool all_valid = av > 0.5f;\n  if (CLASSIFY_SPLIT) return (dmin + dmax > 1e30f || all_valid || "
+        "dist_min + dist_max > 1e30f) ? ACTIVE : NONE;\n")},
+    "classes_only": dict([NO_SCAN]),
     "scan_only": {"code:split": (
         "  const float* R = pose;       // value lane of the rotation\n",
         "  if (CLASSIFY_SPLIT) return (bx + by + bz + j) & 1 ? ACTIVE : NONE;\n"
         "  const float* R = pose;       // value lane of the rotation\n")},
 }
 # the two-kernel classifier of an earlier revision: its phases, and its classes without the rank kernel
+NO_RANKS = ("  if (err != 0) return err;\n  rank_bricks_kernel", "  return err;\n  rank_bricks_kernel")
 PARENT_VARIANTS = {
     "parent": {},
-    "parent_classes": {
-        "code:no_ranks": ("  if (err != 0) return err;\n  rank_bricks_kernel", "  return err;\n  rank_bricks_kernel")},
+    "parent_to_corners": {"code:split": VARIANTS["to_corners"]["code:split"], "code:no_ranks": NO_RANKS},
+    "parent_to_level": {"code:split": (
+        "  const bool level_ok = level < m.n;\n",
+        "  if (CLASSIFY_SPLIT) return ((level + cu + cv) & 1) ? ACTIVE : ((dist_min + dist_max > 1e30f) ? FAR : NONE);\n"
+        "  const bool level_ok = level < m.n;\n"), "code:no_ranks": NO_RANKS},
+    "parent_to_table": {"code:split": (
+        "  const bool all_valid = ((c_av[0] * c_av[1]) * c_av[2]) * c_av[3] > 0.5f;\n",
+        "  const bool all_valid = ((c_av[0] * c_av[1]) * c_av[2]) * c_av[3] > 0.5f;\n  if (CLASSIFY_SPLIT) return "
+        "(dmin + dmax > 1e30f || all_valid || dist_min + dist_max > 1e30f) ? ACTIVE : NONE;\n"),
+        "code:no_ranks": NO_RANKS},
+    "parent_classes": {"code:no_ranks": NO_RANKS},
 }
 SPLITS = ("to_corners", "to_level", "to_table", "scan_only", "classes_only")
 
@@ -78,10 +97,10 @@ TIMED = {
     "  const int tile = s_tile;\n": "  const int tile = s_tile;\n  const long long t_ticket = gtimer();\n"
     "  long long t_classes = 0, t_prefix = 0;\n",
     "  if (warp == 0) {\n    // the tile's counts": "  t_classes = gtimer();\n  if (warp == 0) {\n    // the tile's counts",
-    "  // each brick's rank and list entries": "  t_prefix = gtimer();\n  // each brick's rank and list entries",
-    "__popc(s_work[word] & below)] = b;\n  }\n}\n": "__popc(s_work[word] & below)] = b;\n  }\n"
-    "  if (threadIdx.x == 0) { g_t[8 * blockIdx.x] = t_ticket; g_t[8 * blockIdx.x + 1] = t_classes; "
-    "g_t[8 * blockIdx.x + 2] = t_prefix; g_t[8 * blockIdx.x + 3] = gtimer(); g_t[8 * blockIdx.x + 4] = tile; }\n}\n",
+    "  // the brick's rank and list entries": "  t_prefix = gtimer();\n  // the brick's rank and list entries",
+    "  if (!leader || b >= n) return;\n": "  if (threadIdx.x == 0) { g_t[8 * blockIdx.x] = t_ticket; "
+    "g_t[8 * blockIdx.x + 1] = t_classes; g_t[8 * blockIdx.x + 2] = t_prefix; g_t[8 * blockIdx.x + 3] = gtimer(); "
+    "g_t[8 * blockIdx.x + 4] = tile; }\n  if (!leader || b >= n) return;\n",
 }
 TIMED_TAIL = """
 extern "C" int sweep_times(long long* out, int n) {
@@ -298,7 +317,7 @@ def main(argv=None) -> int:
         """Bricks a tile of a variant, from its source's constants."""
         text = (sources[name] / "bricks.cu").read_text()
         get = lambda k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
-        return get("CLASSIFY_PASSES") * get("CLASSIFY_THREADS") // get("CORNER_LANES")
+        return get("CLASSIFY_THREADS") // get("CORNER_LANES")
 
     def equal(a, b):
         n_active, n_work = (int(v) for v in b.totals)

@@ -32,25 +32,31 @@
 //   frustum planes, the exact point-to-box distance interval, the footprint,
 //   the smallest covering mip level at or above the one searchsorted picks,
 //   four table reads, the lambda interval, the class (0 NONE, 1 FAR, 2
-//   ACTIVE, 3 FAR_PARTIAL). That is a long dependent chain and little memory
-//   (the table's 280 KB, 16 B a brick out): one thread a brick left some 8
-//   warps an SM waiting on it. Here a brick has CORNER_LANES lanes, a corner
-//   each: xor shuffles reduce the corners' bounds and the planes' maxima;
-//   the lanes test the levels side by side, ballots give the level (no
-//   integer division: i / ts is a multiply-high by a magic number, exact for
-//   i < 2^16); four lanes read the four cells. Then the ranks, in the same
-//   launch: the lists in flat brick order by a single-pass scan over tiles of
-//   CLASSIFY_TILE bricks, a block a tile taken by an atomic ticket, each tile
-//   publishing its counts, then its prefix, in one 64-bit status word (the
-//   decoupled look-back); warp ballots rank the bricks inside the tile.
-//   Integer sums: the same in any order, so the ranks are flat brick order
-//   however the blocks run: the ACTIVE list, each ACTIVE brick's rank, the
-//   work list (every non-NONE brick), n_active, n_work and overflow =
-//   n_active > cap, on the device. The block that finishes last zeroes the
-//   ticket and status words for the next launch: no fill launch, no host
-//   read. Every operation follows the plain version one rounding at a time
-//   (min and max in any order: they round nothing, and no class reads the
-//   sign of a zero); a division by |f| is a multiply by its reciprocal
+//   ACTIVE, 3 FAR_PARTIAL). The work is a dependent chain of some 600
+//   operations a brick and little memory (the 280 KB table, 16 B a brick
+//   out): the bound is operations, and what holds a one-thread-a-brick grid
+//   (1,024 warps, 8 an SM) is the chain's latency. Here a brick has
+//   CORNER_LANES (2) lanes, four corners each, reduced by xor shuffles
+//   (min.NaN / max.NaN: one instruction, NaN kept as torch keeps it); the
+//   level is scanned upward from searchsorted's, a level a lane a round,
+//   stopping at the first round whose ballot covers; i / ts is a
+//   multiply-high by a magic number (exact for i < 2^16), not an integer
+//   division; the lanes read the window's cells. More lanes repeat the
+//   chain's tail on every lane (8 lanes measured slower than 1). Then the
+//   ranks, in the same launch: a single-pass scan over tiles of
+//   CLASSIFY_TILE bricks, a block a tile taken by an atomic ticket. A tile
+//   publishes its counts in a status word tagged with the launch's epoch,
+//   one word a 128-byte line (the blocks poll them), then warp 0 sums the
+//   counts of every earlier tile, all its loads in flight, reloading those
+//   not yet published together: no chain from tile to tile. Warp ballots
+//   rank the bricks inside the tile. Integer sums: the same in any order, so
+//   the ranks are flat brick order however the blocks run: the ACTIVE list,
+//   each ACTIVE brick's rank, the work list (every non-NONE brick), n_active,
+//   n_work and overflow = n_active > cap, on the device. The wrapper passes
+//   the epoch and the tickets taken before: no launch clears the scratch, no
+//   host read. Every operation follows the plain version one rounding at a
+//   time (min and max in any order: they round nothing, and no class reads
+//   the sign of a zero); a division by |f| is a multiply by its reciprocal
 //   (taken in double), as PyTorch's CUDA operator divides by a host scalar,
 //   so the classes are the plain version's on the card. A float-to-int
 //   convert saturates as ops/sampling.py::to_index does (NaN -> -1, clamped
@@ -96,18 +102,15 @@ constexpr int CORNER_LANES = 2;        // lanes that classify one brick, a corne
 constexpr int CORNERS_PER_LANE = 8 / CORNER_LANES;
 constexpr int CELL_LANES = CORNER_LANES < 4 ? CORNER_LANES : 4;  // lanes that read the window's 4 cells
 constexpr int CELLS_PER_LANE = 4 / CELL_LANES;
-constexpr int CLASSIFY_PASSES = 1;     // bricks a classify_bricks thread group takes, one after the other
-constexpr int BRICKS_PER_PASS = CLASSIFY_THREADS / CORNER_LANES;
-constexpr int CLASSIFY_TILE = CLASSIFY_PASSES * BRICKS_PER_PASS;  // bricks of a block: ops/fusion_brick.py
+constexpr int CLASSIFY_TILE = CLASSIFY_THREADS / CORNER_LANES;  // bricks of a block: ops/fusion_brick.py
 constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;  // levels a lane counts
 constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
 constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
 constexpr int LOOK_BACK_LOADS = 8;  // status words a lane of a classify_bricks look-back loads at once
-constexpr int STATUS_STRIDE = 1;    // 8-byte words from one tile's status word to the next
-constexpr int LOOK_BACK_NAP = 0;    // ns a look-back naps before it reloads the words not yet published
+constexpr int STATUS_STRIDE = 16;   // 8-byte words from one tile's status word to the next: one a 128 B line
 constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks wait lasts less
 static_assert(8 % CORNER_LANES == 0, "a brick's lanes share its 8 corners");
-static_assert(CLASSIFY_PASSES * (CLASSIFY_THREADS / 32) <= 32, "warp 0 scans a block's ballots, one a lane");
+static_assert(CLASSIFY_THREADS / 32 <= 32, "warp 0 scans a block's ballots, one a lane");
 constexpr int FUSE_WARPS = 4;       // warps of a fuse_bricks block, one brick each at a time
 constexpr int FUSE_THREADS = 32 * FUSE_WARPS;
 constexpr int FUSE_MIN_BLOCKS = 6;  // fuse_bricks blocks an SM holds at least: at most 80 registers a thread
@@ -546,7 +549,6 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
       }
       if (pending == 0u) break;
       if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
-      if (LOOK_BACK_NAP > 0) __nanosleep(LOOK_BACK_NAP);
     }
   }
 #pragma unroll
@@ -568,9 +570,9 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
                            unsigned long long* __restrict__ scratch, int* __restrict__ rank,
                            int* __restrict__ active_ids, int* __restrict__ work_ids, int* __restrict__ totals,
                            unsigned char* __restrict__ overflow, const __grid_constant__ ClassifyParams p) {
-  constexpr int WARPS = CLASSIFY_THREADS / 32, WORDS = CLASSIFY_PASSES * WARPS;
-  __shared__ unsigned s_active[WORDS], s_work[WORDS];  // each (pass, warp)'s ballot of ACTIVE and of work bricks
-  __shared__ int s_before_a[WORDS], s_before_w[WORDS];  // the bricks of the tile before each ballot's
+  constexpr int WARPS = CLASSIFY_THREADS / 32;
+  __shared__ unsigned s_active[WARPS], s_work[WARPS];  // each warp's ballot of ACTIVE and of work bricks
+  __shared__ int s_before_a[WARPS], s_before_w[WARPS];  // the bricks of the tile before each warp's
   __shared__ int s_prefix[2];  // the counts of every brick before the tile
   __shared__ int s_tile;
   unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
@@ -587,30 +589,26 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   __syncthreads();
   const int tile = s_tile;
 
-  // brick tile * CLASSIFY_TILE + q * BRICKS_PER_PASS + threadIdx.x / CORNER_LANES in pass q
-  int c[CLASSIFY_PASSES];
-#pragma unroll
-  for (int q = 0; q < CLASSIFY_PASSES; ++q) {
-    const int b = tile * CLASSIFY_TILE + q * BRICKS_PER_PASS + (int)threadIdx.x / CORNER_LANES;
-    const int bb = min(b, n - 1);  // past the volume's end the lanes repeat its last brick, for the ballots
-    const int bz = bb % p.nbz, by = (bb / p.nbz) % p.nby, bx = bb / (p.nby * p.nbz);
-    c[q] = classify_brick(table, pose, p, bx, by, bz, j);
-    if (b >= n) c[q] = NONE;
-    const bool leader = j == 0;
-    const unsigned active = __ballot_sync(0xffffffffu, leader && c[q] == ACTIVE);
-    const unsigned work = __ballot_sync(0xffffffffu, leader && c[q] != NONE);
-    if (lane == 0) {
-      s_active[q * WARPS + warp] = active;
-      s_work[q * WARPS + warp] = work;
-    }
-    if (leader && b < n) cls[b] = c[q];
+  // brick b: the tile's threadIdx.x / CORNER_LANES-th, in flat order
+  const int b = tile * CLASSIFY_TILE + (int)threadIdx.x / CORNER_LANES;
+  const int bb = min(b, n - 1);  // past the volume's end the lanes repeat its last brick, for the ballots
+  const int bz = bb % p.nbz, by = (bb / p.nbz) % p.nby, bx = bb / (p.nby * p.nbz);
+  int c = classify_brick(table, pose, p, bx, by, bz, j);
+  if (b >= n) c = NONE;
+  const bool leader = j == 0;
+  const unsigned active = __ballot_sync(0xffffffffu, leader && c == ACTIVE);
+  const unsigned work = __ballot_sync(0xffffffffu, leader && c != NONE);
+  if (lane == 0) {
+    s_active[warp] = active;
+    s_work[warp] = work;
   }
+  if (leader && b < n) cls[b] = c;
   __syncthreads();
 
   if (warp == 0) {
-    // the tile's counts, published at once, and the bricks of the tile before each ballot's (a scan over the
-    // ballots in order)
-    int a = lane < WORDS ? __popc(s_active[lane]) : 0, w = lane < WORDS ? __popc(s_work[lane]) : 0;
+    // the tile's counts, published at once, and the bricks of the tile before each warp's (a scan over the
+    // warps' ballots in order)
+    int a = lane < WARPS ? __popc(s_active[lane]) : 0, w = lane < WARPS ? __popc(s_work[lane]) : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const int ua = __shfl_up_sync(0xffffffffu, a, off), uw = __shfl_up_sync(0xffffffffu, w, off);
@@ -620,7 +618,7 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
       }
     }
     if (lane == 31) store_status(status + (size_t)tile * STATUS_STRIDE, tile_status(p.epoch, a, w));
-    if (lane < WORDS) {
+    if (lane < WARPS) {
       s_before_a[lane] = a - __popc(s_active[lane]);
       s_before_w[lane] = w - __popc(s_work[lane]);
     }
@@ -637,22 +635,15 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
     }
   }
   __syncthreads();
-  const int before_a = s_prefix[0], before_w = s_prefix[1];
 
-  // each brick's rank and list entries: the bricks before the tile and before its ballot, then the leaders
-  // below it in the ballot
+  // the brick's rank and list entries: the bricks before the tile and before its warp, then the leaders below
+  // it in the warp's ballot
+  if (!leader || b >= n) return;
   const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int q = 0; q < CLASSIFY_PASSES; ++q) {
-    const int b = tile * CLASSIFY_TILE + q * BRICKS_PER_PASS + (int)threadIdx.x / CORNER_LANES;
-    const int word = q * WARPS + warp;
-    if (j != 0 || b >= n) continue;
-    const bool active = c[q] == ACTIVE;
-    const int ra = before_a + s_before_a[word] + __popc(s_active[word] & below);
-    rank[b] = active ? ra : -1;
-    if (active) active_ids[ra] = b;
-    if (c[q] != NONE) work_ids[before_w + s_before_w[word] + __popc(s_work[word] & below)] = b;
-  }
+  const int ra = s_prefix[0] + s_before_a[warp] + __popc(active & below);
+  rank[b] = c == ACTIVE ? ra : -1;
+  if (c == ACTIVE) active_ids[ra] = b;
+  if (c != NONE) work_ids[s_prefix[1] + s_before_w[warp] + __popc(work & below)] = b;
 }
 
 // ---------------------------------------------------------------- B3c

@@ -55,7 +55,8 @@ MIP_LEVELS = (
     80, 92, 106, 128,
 )
 NONE, FAR, ACTIVE, FAR_PARTIAL = 0, 1, 2, 3
-CLASSIFY_TILE = 128  # bricks a tile of csrc/bricks.cu's classifier scan: one status word in its scratch
+CLASSIFY_TILE = 128  # bricks a tile (a block) of csrc/bricks.cu's classifier scan
+CLASSIFY_STATUS_STRIDE = 16  # 8-byte words of the classifier's scratch a tile: its status word, one a 128 B line
 
 
 class MipLayout(NamedTuple):
@@ -332,9 +333,10 @@ def rank_bricks_plain(cls: torch.Tensor, cap: int) -> BrickClasses:
 class ClassifyScratch:
     """B3b's scratch on one device and stream, since launches on one stream
     run in order: word 0 the ticket counter, which runs on from launch to
-    launch, then one status word a tile of :data:`CLASSIFY_TILE` bricks,
-    tagged with the launch's epoch. Zeroed once when made; the host counts
-    the tickets taken and the launches made, so no launch clears anything."""
+    launch, then a status word a tile of :data:`CLASSIFY_TILE` bricks every
+    :data:`CLASSIFY_STATUS_STRIDE` words, tagged with the launch's epoch.
+    Zeroed once when made; the host counts the tickets taken and the
+    launches made, so no launch clears anything."""
 
     def __init__(self, device: torch.device, words: int):
         self.words = torch.zeros(words, dtype=torch.int64, device=device)
@@ -358,7 +360,7 @@ def classify_scratch(device: torch.device, n_bricks: int) -> ClassifyScratch:
     """B3b's :class:`ClassifyScratch` on ``device``'s current stream, made
     anew where a larger volume needs more tiles."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    words = 1 + classify_tiles(n_bricks)
+    words = 1 + classify_tiles(n_bricks) * CLASSIFY_STATUS_STRIDE
     if key not in _classify_scratch or _classify_scratch[key].words.numel() < words:
         _classify_scratch[key] = ClassifyScratch(device, words)
     return _classify_scratch[key]
