@@ -380,8 +380,9 @@ def phase_bricks(ctx):
     K2's with ``==`` and equal NaN masks, bit for bit (the sign of zero
     counted apart); with cap 64, ``"flag"`` equals the plain version and
     ``"dense"`` equals K2. B3b runs twice back to back, the second time on
-    the next pose's table, and both results equal the plain version's: its
-    one launch leaves its ticket and status words zeroed for the next. Each
+    the next pose's table, and both results equal the plain version's: the
+    status words the first launch leaves carry its epoch and count for
+    nothing in the second. Each
     kernel timed from prepared arguments beside K2 on the same frame, warm
     and cold (L2 flushed before each launch, as the frame finds its inputs);
     B3a beside ``torch.amax`` over its 8 px tiles and B3b beside

@@ -86,10 +86,10 @@ int depth_mips(const torch::Tensor& depth, torch::Tensor table, const std::vecto
                        (int)(lv.size() / 4), table.size(0), as_stream(stream));
 }
 
-// cls: (nbx, nby, nbz); scratch: int64 words, zeroed when made, one more than the scan's tiles at least;
-// ticket_base, epoch: the scratch's tickets taken and launches made before this one (mod 2^32), and this
-// launch's number on it; rank, active_ids, work_ids: one int a brick; totals: (2,) int32; overflow: () bool;
-// consts: the classifier's thirteen float32 constants
+// cls: (nbx, nby, nbz); scratch: ops/fusion_brick.py::ClassifyScratch's int64 words; ticket_base, epoch:
+// the tickets its earlier launches took (mod 2^32) and this launch's number on it, from 1; rank,
+// active_ids, work_ids: one int a brick; totals: (2,) int32; overflow: () bool; consts: the classifier's
+// thirteen float32 constants
 int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor scratch,
                     int64_t ticket_base, int64_t epoch, torch::Tensor rank, torch::Tensor active_ids,
                     torch::Tensor work_ids, torch::Tensor totals, torch::Tensor overflow, int64_t H, int64_t W,

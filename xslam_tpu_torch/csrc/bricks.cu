@@ -844,7 +844,7 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 }
 
 // table: depth_mips' (rows, 3); pose: the 24 floats of the dual volume->camera pose (value lanes read);
-// scratch: scratch_words 8-byte words, zeroed when made, one more than the tiles of CLASSIFY_TILE bricks at
+// scratch: scratch_words 8-byte words, zeroed when made, 1 + STATUS_STRIDE a tile of CLASSIFY_TILE bricks at
 // least, that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their
 // tiles, mod 2^32); epoch: its launches so far, this one included (from 1, below 2^42); cls, rank,
 // active_ids, work_ids: one int a brick; totals: n_active, n_work; overflow: one byte. consts: brick edge,
