@@ -463,9 +463,10 @@ def phase_bricks(ctx):
             check(err_code == 0, f"{kernel} launch failed: cudaError {err_code}")
 
         def run_b():  # each launch with its own epoch, as the wrapper gives them
-            run("classify_bricks", table, pose, scratch.cls, b_scratch.words, *b_scratch.next_launch(b_tiles),
+            run("classify_bricks", table, pose, scratch.cls, b_scratch.words, *b_scratch.next_launch(),
                 scratch.rank, scratch.active_ids, scratch.work_ids, scratch.totals, scratch.overflow, H, W, lv,
                 consts, cap)
+            b_scratch.launched(b_tiles)
 
         ms_a = time_ms(lambda: run("depth_mips", depth_m, out_table, lv), 100)
         ms_b = time_ms(run_b, 100)

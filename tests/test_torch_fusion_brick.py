@@ -732,14 +732,19 @@ def test_scan_twin_back_to_back_on_one_scratch(resident, threads, lanes):
 
 def test_classify_scratch_counts_tickets_and_epochs():
     """The wrapper's scratch gives each launch the tickets taken before it
-    (mod 2^32) and its epoch, from 1."""
+    (mod 2^32) and its epoch, from 1, and counts only the launches the card
+    accepted."""
     scratch = tbrick.ClassifyScratch(torch.device("cpu"), 1 + 256)
     assert scratch.words.numel() == 257 and not scratch.words.any()
-    assert scratch.next_launch(256) == (0, 1)
-    assert scratch.next_launch(256) == (256, 2)
+    assert scratch.next_launch() == (0, 1)
+    assert scratch.next_launch() == (0, 1)  # a refused launch took no tickets
+    scratch.launched(256)
+    assert scratch.next_launch() == (256, 2)
+    scratch.launched(256)
     scratch.tickets = 2 ** 32 - 3
-    assert scratch.next_launch(256) == (2 ** 32 - 3, 3)
-    assert scratch.next_launch(256) == (253, 4)  # the device's counter wraps as an unsigned int
+    assert scratch.next_launch() == (2 ** 32 - 3, 3)
+    scratch.launched(256)
+    assert scratch.next_launch() == (253, 4)  # the device's counter wraps as an unsigned int
     assert tbrick.classify_tiles(32768) == 32768 // tbrick.CLASSIFY_TILE
     assert tbrick.CLASSIFY_TILE == CLASSIFY_THREADS // CORNER_LANES
 

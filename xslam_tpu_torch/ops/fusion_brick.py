@@ -343,14 +343,17 @@ class ClassifyScratch:
         self.tickets = 0
         self.launches = 0
 
-    def next_launch(self, tiles: int) -> Tuple[int, int]:
-        """(ticket base, epoch) of a launch of ``tiles`` blocks, counted as made."""
-        base = self.tickets % 2 ** 32
+    def next_launch(self) -> Tuple[int, int]:
+        """(ticket base, epoch) of the next launch on the scratch."""
+        if self.launches + 1 >= 2 ** 42:
+            raise RuntimeError("the classifier's scratch has run out of epochs")
+        return self.tickets % 2 ** 32, self.launches + 1
+
+    def launched(self, tiles: int) -> None:
+        """Count a launch of ``tiles`` blocks that the card accepted; a
+        refused one took no tickets."""
         self.tickets += tiles
         self.launches += 1
-        if self.launches >= 2 ** 42:
-            raise RuntimeError("the classifier's scratch has run out of epochs")
-        return base, self.launches
 
 
 _classify_scratch: dict = {}  # (device, stream) -> ClassifyScratch
@@ -392,9 +395,10 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     totals = torch.empty(2, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     scratch = classify_scratch(dev, n)
-    kernels.launch("classify_bricks", dev, table, pose, cls, scratch.words, *scratch.next_launch(classify_tiles(n)),
-                   rank, active_ids, work_ids, totals, overflow, H, W, _layout_ints(layout),
-                   classify_consts(intr, cfg), int(cap))
+    kernels.launch("classify_bricks", dev, table, pose, cls, scratch.words, *scratch.next_launch(), rank,
+                   active_ids, work_ids, totals, overflow, H, W, _layout_ints(layout), classify_consts(intr, cfg),
+                   int(cap))
+    scratch.launched(classify_tiles(n))
     kernels.launch_counts["classify_bricks"] += 1
     return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow)
 
