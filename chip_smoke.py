@@ -1321,7 +1321,7 @@ def phase_main_path(ctx, tag: str = "main path"):
 
     from xslam_tpu_torch.models.kinfu import XSlamEngine
     from xslam_tpu_torch.ops import kernels
-    from xslam_tpu_torch.profile_step import STAGES, stage_launches
+    from xslam_tpu_torch.profile_step import HOST_LAUNCH_CALLS, STAGES, stage_launches
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
     cfg, n_frames = ctx["config"], N_FRAMES
@@ -1367,6 +1367,10 @@ def phase_main_path(ctx, tag: str = "main path"):
     loop_names = names[icp_at[0]: icp_at[-1] + 1]
     between = [name for name in loop_names if "icp_system_kernel" not in name]
     stages = stage_launches(prof.events(), 1)
+    # the host's launch, copy and fill calls in the profiled frame: each makes one device event, so a count
+    # that differs from the device events' points at the profiler's record, not at the frame
+    host_calls = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS))
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:n_frames]))
@@ -1380,6 +1384,7 @@ def phase_main_path(ctx, tag: str = "main path"):
          volume=list(cfg.tsdf_size), mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)),
          frame_ms=times, ate_m=ate, all_aligned=all(aligned), peak_mem_bytes=peak,
          model_map_valid_fraction=valid_frac, kernels=counts, device_launches_in_profiled_frame=len(names),
+         host_launch_calls_in_profiled_frame=host_calls,
          stage_launches_in_profiled_frame=stages,
          icp_launches_in_profiled_frame=len(icp_at), other_device_work_inside_icp_loop=between[:8],
          **(dict(fusion_mode="brick", cap=cfg.fusion_brick_cap, fusion_overflow=cfg.fusion_overflow,
@@ -1415,8 +1420,8 @@ def phase_main_path(ctx, tag: str = "main path"):
           f"device work between them: {between[:8]}")
     want = FRAME_LAUNCHES[tag]
     check(len(names) == want and stages.get("preprocess") == PREPROCESS_LAUNCHES,
-          f"the profiled frame made {len(names)} device launches ({want} expected), preprocess "
-          f"{stages.get('preprocess')} ({PREPROCESS_LAUNCHES} expected)")
+          f"the profiled frame made {len(names)} device launches ({want} expected; the host made {host_calls} "
+          f"launch, copy and fill calls), preprocess {stages.get('preprocess')} ({PREPROCESS_LAUNCHES} expected)")
     return counts
 
 
