@@ -1363,14 +1363,15 @@ def phase_main_path(ctx, tag: str = "main path"):
                     key=lambda e: e.time_range.start)
     names = [e.name for e in device]
     icp_at = [j for j, name in enumerate(names) if "icp_system_kernel" in name]
-    check(len(icp_at) > 0, "the profiler saw no icp_system launch: it does not trace the card here")
-    loop_names = names[icp_at[0]: icp_at[-1] + 1]
-    between = [name for name in loop_names if "icp_system_kernel" not in name]
-    stages = stage_launches(prof.events(), 1)
     # the host's launch, copy and fill calls in the profiled frame: each makes one device event, so a count
     # that differs from the device events' points at the profiler's record, not at the frame
     host_calls = sum(1 for e in prof.events()
                      if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS))
+    check(len(icp_at) > 0, f"the profiler saw no icp_system launch among {len(names)} device events (the host "
+                           f"made {host_calls} launch, copy and fill calls): it does not trace the card here")
+    loop_names = names[icp_at[0]: icp_at[-1] + 1]
+    between = [name for name in loop_names if "icp_system_kernel" not in name]
+    stages = stage_launches(prof.events(), 1)
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:n_frames]))
