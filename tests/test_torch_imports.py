@@ -52,7 +52,8 @@ def test_module_imports_no_jax(imported, module):
 
 def test_every_port_module_is_probed():
     assert {"xslam_tpu_torch.ops.fusion_brick", "xslam_tpu_torch.ops.kernels", "xslam_tpu_torch.models.kinfu",
-            "xslam_tpu_torch.profile_step", "chip_smoke"} <= set(MODULES)
+            "xslam_tpu_torch.ops.bricks", "xslam_tpu_torch.ops.raycast_bricks", "xslam_tpu_torch.profile_step",
+            "chip_smoke"} <= set(MODULES)
 
 
 def test_profile_step_needs_the_card():

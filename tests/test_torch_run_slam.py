@@ -5,7 +5,10 @@ import os
 import subprocess
 import sys
 
+import pytest
 import yaml
+
+from xslam_tpu_torch.profile_step import BENCH_ARGS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # one PyTorch thread: the suite's other workers hold the cores
@@ -20,13 +23,15 @@ _SMALL = dict(
 )
 
 
-def test_run_slam_cli(tmp_path):
+# as the file says, and in bench.py:78-95's configuration (two pyramid levels at 160x120)
+@pytest.mark.parametrize("options", [[], list(BENCH_ARGS)], ids=["yaml", "bench"])
+def test_run_slam_cli(tmp_path, options):
     cfg = yaml.safe_load(open(os.path.join(REPO, "configs/synthetic.yaml")))
-    cfg.update(_SMALL, output_dir=str(tmp_path / "out") + "/")
+    cfg.update(_SMALL, output_dir=str(tmp_path / "out") + "/", num_levels=2 if options else 3)
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.dump(cfg))
     res = subprocess.run(
-        [sys.executable, "-m", "xslam_tpu_torch.run_slam", str(path), "--device", "cpu"],
+        [sys.executable, "-m", "xslam_tpu_torch.run_slam", str(path), "--device", "cpu", *options],
         capture_output=True, text=True, timeout=300, cwd=REPO, env=_ENV,
     )
     assert res.returncode == 0, res.stderr[-2000:]

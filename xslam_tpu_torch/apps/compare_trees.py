@@ -1,5 +1,5 @@
 """Two revisions of the port on one card, in one call: the smoke run, the
-per-stage profile in both ICP settings, and the kernels' registers.
+per-stage profile in four settings, and the kernels' registers.
 
 Usage, from the repository root (frame times spread between calls and with
 the card's power limit, so two revisions are compared only within one call):
@@ -14,8 +14,9 @@ Each tree is a checkout that holds only committed files; it builds its own
 kernels under its own ``build/torch_kernels/``. The order is parent, change,
 change, parent for ``chip_smoke.py`` (the first run of a tree includes its
 build), then ``xslam_tpu_torch.profile_step`` on ``configs/synthetic.yaml`` as
-the file says, with ``--fixed-assoc --model-map-level 1`` and with bench.py's
-brick fusion on each tree, then ``xslam_tpu_torch.apps.kernel_resources`` on
+the file says, with ``--fixed-assoc --model-map-level 1``, with bench.py's
+brick fusion and in bench.py's whole configuration
+(``profile_step.BENCH_ARGS``) on each tree, then ``xslam_tpu_torch.apps.kernel_resources`` on
 each. Every command's output goes to ``<out>/<tree><n>_<what>.txt`` (and
 ``.err``); the card's name and power limit to ``<out>/card.txt``. Prints one
 JSON line per command (tree, what, exit code, seconds) and, from each smoke
@@ -33,12 +34,15 @@ import sys
 import time
 from pathlib import Path
 
+from ..profile_step import BENCH_ARGS
+
 PROFILE = ["-m", "xslam_tpu_torch.profile_step", "configs/synthetic.yaml"]
 COMMANDS = {
     "smoke": ["chip_smoke.py"],
     "profile_default": PROFILE,
     "profile_fixed": PROFILE + ["--fixed-assoc", "--model-map-level", "1"],
     "profile_brick": PROFILE + ["--fusion-mode", "brick", "--fusion-brick-cap", "2816", "--fusion-overflow", "dense"],
+    "profile_bench": PROFILE + list(BENCH_ARGS),
     "resources": ["-m", "xslam_tpu_torch.apps.kernel_resources"],
 }
 
@@ -93,7 +97,7 @@ def main(argv=None) -> int:
         label = f"{name}{1 + n // 2}"
         rows.append(run(trees[name], label, "smoke", out, args.timeout))
         print(json.dumps({"tree": label, **smoke_summary(out / f"{label}_smoke.txt")}), flush=True)
-    for what in ("profile_default", "profile_fixed", "profile_brick", "resources"):
+    for what in ("profile_default", "profile_fixed", "profile_brick", "profile_bench", "resources"):
         for name in ("parent", "change"):
             rows.append(run(trees[name], name, what, out, args.timeout))
     return 1 if any(r["rc"] != 0 for r in rows) else 0

@@ -33,6 +33,8 @@ BLOCK_THREADS = {
     "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 64,
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
+    "window_march_kernel": 256, "screen_normals_kernel": 256, "event_mask_kernel": 256, "skip_distance_kernel": 256,
+    "march_skip_kernel": 256,
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64

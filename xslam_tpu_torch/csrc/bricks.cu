@@ -61,7 +61,8 @@
 //   so the classes are the plain version's on the card. A float-to-int
 //   convert saturates as ops/sampling.py::to_index does (NaN -> -1, clamped
 //   to +-2^30).
-// B3c xs_fuse_bricks: in place on the dense planes. A warp takes one brick of
+// B3c xs_fuse_bricks: in place on the dense planes, or (its row variant, the
+//   brick layout) on the (NB, 512) brick rows: only brick_column differs. A warp takes one brick of
 //   the work list at a time; the grid is as many warps as the SMs hold at
 //   once, about as many as the work bricks of a frame, so a warp usually
 //   takes one. Each lane fetches one of its warp's items up front (the id,
@@ -650,26 +651,29 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
 // What fuse_bricks does with a brick: nothing (an ACTIVE brick past the cap), the FAR update, the exact one.
 enum : int { SKIP = 0, FAR_UPDATE = 1, EXACT_UPDATE = 2 };
 
-// A brick's (x, y) column c (0..63: x offset c / 8, y offset c % 8) in the dense (X, Y, Z) planes: its 8 z
-// voxels from z0, a multiple of 8, so the run is 32-byte aligned. The one place where a brick and a column
-// become dense addresses.
+// A brick's (x, y) column c (0..63: x offset c / 8, y offset c % 8): its 8 z voxels from z0, a multiple of 8,
+// in the dense (X, Y, Z) planes or, with ROWS, in the brick-major (NB, 512) rows (ops/bricks.py: lane
+// (x & 7) << 6 | (y & 7) << 3 | (z & 7), so the column is the 8 lanes from c * 8). Either way the run is
+// 32-byte aligned. The one place where a brick and a column become addresses.
 struct BrickColumn {
   int x, y, z0;
   size_t idx;  // of the column's first voxel
 };
 
+template <bool ROWS>
 __device__ __forceinline__ BrickColumn brick_column(int b, int c, int nby, int nbz, const xs::FuseParams& p) {
   const int bz = b % nbz, by = (b / nbz) % nby, bx = b / (nby * nbz);
   BrickColumn col;
   col.x = bx * BRICK + (c >> 3);
   col.y = by * BRICK + (c & 7);
   col.z0 = bz * BRICK;
-  col.idx = ((size_t)col.x * p.Y + col.y) * p.Z + col.z0;
+  col.idx = ROWS ? (size_t)b * (BRICK * BRICK * BRICK) + (size_t)c * BRICK : ((size_t)col.x * p.Y + col.y) * p.Z + col.z0;
   return col;
 }
 
 // The updated voxels of a staged brick back to the planes: 8 lanes a column, 32 contiguous bytes, a column's
 // voxels where its bit in `updated` is set.
+template <bool ROWS>
 __device__ __forceinline__ void write_back(float* __restrict__ value, float* __restrict__ grad,
                                            float* __restrict__ weight, int b, int lane, const float* s_v,
                                            const float* s_g, const float* s_w, const unsigned char* updated, int nby,
@@ -678,7 +682,7 @@ __device__ __forceinline__ void write_back(float* __restrict__ value, float* __r
 #pragma unroll 4
   for (int c = lane >> 3; c < BRICK * BRICK; c += 32 / BRICK) {
     if (!(updated[c] >> z & 1)) continue;
-    const size_t at = brick_column(b, c, nby, nbz, p).idx + z;
+    const size_t at = brick_column<ROWS>(b, c, nby, nbz, p).idx + z;
     const int s = c * COLUMN_STRIDE + z;
     value[at] = s_v[s];
     grad[at] = s_g[s];
@@ -698,6 +702,7 @@ __device__ __forceinline__ void update_voxel(float* s_v, float* s_g, float* s_w,
   *s_w = w;
 }
 
+template <bool ROWS>
 __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
     fuse_bricks_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
                        const float* __restrict__ depth, const float* __restrict__ pose, const int* __restrict__ cls,
@@ -736,7 +741,7 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
       float4 run[4][3];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const size_t at = brick_column(bi, (lane + 32 * q) >> 1, nby, nbz, p).idx + 4 * (lane & 1);
+        const size_t at = brick_column<ROWS>(bi, (lane + 32 * q) >> 1, nby, nbz, p).idx + 4 * (lane & 1);
         run[q][0] = *reinterpret_cast<const float4*>(value + at);
         run[q][1] = *reinterpret_cast<const float4*>(grad + at);
         run[q][2] = *reinterpret_cast<const float4*>(weight + at);
@@ -756,7 +761,8 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
       __syncwarp();
       // the lane's columns lane and lane + 32, their sums once, their voxels at each z side by side without
       // branches (both depth loads in flight), updated in shared memory
-      const BrickColumn c0 = brick_column(bi, lane, nby, nbz, p), c1 = brick_column(bi, lane + 32, nby, nbz, p);
+      const BrickColumn c0 = brick_column<ROWS>(bi, lane, nby, nbz, p);
+      const BrickColumn c1 = brick_column<ROWS>(bi, lane + 32, nby, nbz, p);
       const xs::ColumnSums sums0 = xs::column_sums(dual_pose, xs::voxel_centre(c0.x, p.vs), xs::voxel_centre(c0.y, p.vs));
       const xs::ColumnSums sums1 = xs::column_sums(dual_pose, xs::voxel_centre(c1.x, p.vs), xs::voxel_centre(c1.y, p.vs));
       const int s0 = lane * COLUMN_STRIDE, s1 = (lane + 32) * COLUMN_STRIDE;
@@ -781,7 +787,7 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
       s_updated[w][lane] = (unsigned char)up0;
       s_updated[w][lane + 32] = (unsigned char)up1;
       __syncwarp();
-      write_back(value, grad, weight, bi, lane, s_v, s_g, s_w, s_updated[w], nby, nbz, p);
+      write_back<ROWS>(value, grad, weight, bi, lane, s_v, s_g, s_w, s_updated[w], nby, nbz, p);
       __syncwarp();  // the staged brick is read before the next one overwrites it
     }
   }
@@ -886,32 +892,43 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   return (int)cudaGetLastError();
 }
 
-// value, grad, weight: the (X, Y, Z) planes, each extent a multiple of 8; cls, rank, work_ids, totals,
-// overflow: classify_bricks' outputs; dense_on_overflow: 1 to update every brick exactly where overflow is set
+// value, grad, weight: the (X, Y, Z) planes, each extent a multiple of 8, or with rows the (NB, 512) brick rows
+// of such a volume; cls, rank, work_ids, totals, overflow: classify_bricks' outputs; dense_on_overflow: 1 to
+// update every brick exactly where overflow is set
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
-                              float max_w, int cap, int dense_on_overflow, void* stream) {
+                              float max_w, int cap, int dense_on_overflow, int rows, void* stream) {
   if (X % BRICK || Y % BRICK || Z % BRICK) return (int)cudaErrorInvalidValue;
   const uintptr_t planes = reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(grad) |
                            reinterpret_cast<uintptr_t>(weight);
   if (planes % 16) return (int)cudaErrorMisalignedAddress;  // the column runs are loaded 16 bytes at a time
-  static int grid[64] = {};  // per device: as many blocks as its SMs hold at once
+  static int grid[2][64] = {};  // per variant and device: as many blocks as its SMs hold at once
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
-  if (grid[dev] == 0) {
+  const int v = rows ? 1 : 0;
+  if (grid[v][dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fuse_bricks_kernel, FUSE_THREADS, 0);
-    grid[dev] = sms * (per_sm > 0 ? per_sm : 1);
-    if (grid[dev] <= 0) return (int)cudaErrorInvalidValue;
+    if (rows)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fuse_bricks_kernel<true>, FUSE_THREADS, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fuse_bricks_kernel<false>, FUSE_THREADS, 0);
+    grid[v][dev] = sms * (per_sm > 0 ? per_sm : 1);
+    if (grid[v][dev] <= 0) return (int)cudaErrorInvalidValue;
   }
   const xs::FuseParams p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w};
-  fuse_bricks_kernel<<<grid[dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
-      (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
-      (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, cap,
-      dense_on_overflow, p);
+  if (rows)
+    fuse_bricks_kernel<true><<<grid[v][dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
+        (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
+        (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, cap,
+        dense_on_overflow, p);
+  else
+    fuse_bricks_kernel<false><<<grid[v][dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
+        (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
+        (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, cap,
+        dense_on_overflow, p);
   return (int)cudaGetLastError();
 }

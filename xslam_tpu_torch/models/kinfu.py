@@ -1,11 +1,15 @@
-"""The KinectFusion-style differentiable SLAM engine, dense layout.
+"""The KinectFusion-style differentiable SLAM engine.
 
-Port of ``xslam_tpu/models/kinfu.py`` for the dense volume (fixed march,
-``secant2`` refine, TSDF normals, nearest-depth fusion), with dense or brick
-fusion (``fusion_mode``; the coarse brick classifier, ``fusion_overflow``
-``"flag"`` or ``"dense"``), the model maps at any ``model_map_level`` and the
-ICP association computed every iteration or once per level
-(``icp_fixed_assoc``). Each frame runs:
+Port of ``xslam_tpu/models/kinfu.py`` in two configurations. The dense volume
+(fixed march, ``secant2`` refine, TSDF normals), with dense or brick fusion
+(``fusion_mode``; the coarse brick classifier, ``fusion_overflow`` ``"flag"``
+or ``"dense"``). And ``bench.py``'s: the brick-major volume
+(``volume_layout="brick"``, :mod:`xslam_tpu_torch.ops.bricks`) with brick
+fusion, the temporal march with its ``hier2`` refresh, the ``reuse`` refine
+and screen normals (:mod:`xslam_tpu_torch.ops.raycast_bricks`). Both take the
+model maps at any ``model_map_level``, nearest-depth fusion, and the ICP
+association computed every iteration or once per level (``icp_fixed_assoc``).
+Each frame runs:
 
 1. bilateral filter (kernel K1), the depth pyramid (K7, one launch for its
    coarser levels), vertex and normal maps of every level (K8, one launch);
@@ -15,19 +19,25 @@ ICP association computed every iteration or once per level
    K4, with no other device work between the launches;
 3. TSDF fusion when the frame aligned, in place: kernel K2, or with
    ``fusion_mode="brick"`` the mip table (B3a), the bricks' classes (B3b)
-   and the brick pass (B3c), which give K2's volume bit for bit;
+   and the brick pass (B3c), which give K2's volume bit for bit (on the brick
+   layout in its rows, B3c's row variant);
 4. raycast of the model maps (the poses packed once, march kernel K3,
-   refine kernel K5) and their pyramid (K6, one launch for all coarser
-   levels).
+   refine kernel K5; on the brick layout the anchored window march with the
+   refine B4 and the screen normals B4n, or on a refresh frame the skip
+   field B5a, the skip march B5b and B4 twice) and their pyramid (K6, one
+   launch for all coarser levels).
 
 On CPU tensors every wrapper runs its plain PyTorch version instead.
 
 The four stages are profiler ranges (``preprocess``, ``icp``, ``fusion``,
 ``raycast``), which :mod:`xslam_tpu_torch.profile_step` reads.
 
-The frame reads one value back to the host: whether to integrate (the JAX
-engine's ``lax.cond``), so a rejected frame skips the fusion pass instead of
-selecting between two copies of the 201 MB volume.
+The frame reads back to the host once, in one copy: whether to integrate (the
+JAX engine's ``lax.cond``), so a rejected frame skips the fusion pass instead
+of selecting between two copies of the 201 MB volume, and on the temporal
+march whether the anchors cover enough of the image (the reference's other
+``lax.cond``). The anchors depend only on the preprocessed frame and the last
+raycast, so their coverage is computed before ICP.
 """
 
 from __future__ import annotations
@@ -43,20 +53,21 @@ from ..csfd.single import CSFD, lift
 from ..geometry import se3
 from ..geometry.intrinsics import Intrinsics
 from ..io.config import SlamConfig
-from ..ops import fusion, icp, kernels, preprocess, raycast
+from ..ops import bricks, fusion, icp, kernels, preprocess, raycast, raycast_bricks
 
 
 class SlamState(NamedTuple):
     """Engine state. The volume is updated in place by fusion."""
 
-    volume: fusion.VolumeState
+    volume: fusion.VolumeState  # or a bricks.BrickVolume with volume_layout="brick"
     world2camera: CSFD  # (4, 4) dual
     # model-map pyramid from raycasting (dual, world coords)
     vmaps_prev: Tuple[CSFD, ...]
     nmaps_prev: Tuple[CSFD, ...]
     frame_idx: int  # host counter: no device read to test for frame 0
     last_align_ok: torch.Tensor  # bool scalar
-    # anchors of the brick layout's temporal march: carried untouched here
+    # model-resolution hit distances of the last raycast, the temporal march's fallback anchors: 1e9
+    # (finite) where a ray found nothing; carried untouched by the dense layout
     t_prev: torch.Tensor
 
 
@@ -70,21 +81,46 @@ class FrameResult(NamedTuple):
     # brick fusion's ACTIVE bricks this frame (int32; None for dense fusion
     # and for a frame that was not fused)
     fusion_active: Optional[torch.Tensor] = None
+    # the temporal march's share of finite anchors this frame (float32; None off the temporal march): below
+    # raycast_temporal_min_coverage the frame took the hier2 refresh
+    anchor_coverage: Optional[torch.Tensor] = None
 
 
 # the values of each option that select paths this port has; the others raise
 _SLICE = {
-    "volume_layout": ("dense",),
+    "volume_layout": ("dense", "brick"),
     "fusion_mode": ("dense", "brick"),
     "fusion_overflow": fusion.OVERFLOW_MODES,
     "fusion_classify_fine": (False,),
     "fusion_classify_split": (False,),
     "fusion_subcell_cap": (0,),
-    "raycast_march": ("fixed",),
-    "raycast_refine": ("secant2",),
-    "raycast_normals": ("tsdf",),
     "raycast_packed_taps": (False,),
+    "raycast_quad_taps": (False,),
+    "raycast_skip_gran": (8,),
+    "raycast_temporal_phase1": (0,),
 }
+# the raycast of each volume layout (march, refine, normals); the other combinations raise
+_RAYCAST = {"dense": ("fixed", "secant2", "tsdf"), "brick": ("temporal", "reuse", "screen")}
+
+
+def _check_config(config: SlamConfig) -> None:
+    """The JAX engine's checks (ValueError), then the port's slice
+    (NotImplementedError for a combination the port has no path for)."""
+    if config.volume_layout == "brick" and config.fusion_mode != "brick":
+        raise ValueError("volume_layout='brick' requires fusion_mode='brick'")
+    if config.raycast_march == "temporal" and config.volume_layout != "brick":
+        raise ValueError("raycast_march='temporal' requires volume_layout='brick'")
+    if config.raycast_refine == "reuse" and (config.raycast_march != "temporal" or config.raycast_normals != "screen"):
+        raise ValueError("raycast_refine='reuse' requires raycast_march='temporal' and raycast_normals='screen'")
+    for key, allowed in _SLICE.items():
+        if getattr(config, key) not in allowed:
+            raise NotImplementedError(f"{key}={getattr(config, key)!r} is not ported yet (only {allowed!r})")
+    chosen = (config.raycast_march, config.raycast_refine, config.raycast_normals)
+    if chosen != _RAYCAST[config.volume_layout]:
+        raise NotImplementedError(f"the {config.volume_layout} layout's raycast is ported as (march, refine, "
+                                  f"normals) = {_RAYCAST[config.volume_layout]}, not {chosen}")
+    if config.bi_interpolate_threshold > 0:
+        raise NotImplementedError("bilinear depth sampling (biInterpolate_threshold > 0) is not ported yet")
 
 
 def _device(device) -> torch.device:
@@ -100,11 +136,7 @@ class XSlamEngine:
     API of ``KinectFusionReconstruction`` (SetYamlParameters/ProcessFrame)."""
 
     def __init__(self, config: SlamConfig, device=None):
-        for key, allowed in _SLICE.items():
-            if getattr(config, key) not in allowed:
-                raise NotImplementedError(f"{key}={getattr(config, key)!r} is not ported yet (only {allowed!r})")
-        if config.bi_interpolate_threshold > 0:
-            raise NotImplementedError("bilinear depth sampling (biInterpolate_threshold > 0) is not ported yet")
+        _check_config(config)
         self.config = config
         self.device = _device(device)
         self.intr = config.intrinsics
@@ -130,8 +162,9 @@ class XSlamEngine:
 
         levels = self.config.num_levels
         L = self.config.model_map_level
+        brick = self.config.volume_layout == "brick"
         return SlamState(
-            volume=fusion.create_volume(self.vol_cfg, dev),
+            volume=bricks.create(self.vol_cfg, dev) if brick else fusion.create_volume(self.vol_cfg, dev),
             world2camera=lift(torch.eye(4, dtype=torch.float32, device=dev)),
             vmaps_prev=tuple(nan_map(H >> (i + L), W >> (i + L)) for i in range(levels)),
             nmaps_prev=tuple(nan_map(H >> (i + L), W >> (i + L)) for i in range(levels)),
@@ -156,6 +189,13 @@ class XSlamEngine:
 
     def log_pose(self, result: FrameResult):
         self.pose_log.append(result.camera2world.v.cpu().numpy())
+
+    def dense_volume(self, state: SlamState) -> fusion.VolumeState:
+        """The volume in the dense (X, Y, Z) layout whatever the engine's
+        storage layout (new tensors for the brick layout)."""
+        if self.config.volume_layout == "brick":
+            return bricks.to_dense(state.volume, self.vol_cfg.resolution)
+        return state.volume
 
 
 # --------------------------------------------------------------------------
@@ -253,6 +293,14 @@ def process_frame(
         vmaps_curr, nmaps_curr = kernels.vertex_normal_pyramid([intr.level(i) for i in range(levels)], depths)
 
     is_first = state.frame_idx == 0
+    L = config.model_map_level
+    temporal = config.raycast_march == "temporal"
+    if temporal:
+        # anchors: the current depth's surface distance, else the last raycast's hits; their coverage picks
+        # the anchored march or the refresh (read with the alignment flag below)
+        t_anchor = raycast_bricks.anchor_map(vmaps_curr[L], state.t_prev)
+        coverage = raycast_bricks.anchor_coverage(t_anchor)
+        covered = coverage >= config.raycast_temporal_min_coverage
 
     # --- AlignDepthToReconstruction --------------------------------------
     if config.use_gt_pose:
@@ -266,7 +314,6 @@ def process_frame(
         # previous pose and skips integration (ProcessFrame:150-154)
         c2w_prev = se3.inverse(state.world2camera)
         if config.min_inlier_fraction > 0:
-            L = config.model_map_level
             npix = (intr.height >> L) * (intr.width >> L)
             align_ok = align_ok & (inliers >= int(config.min_inlier_fraction * npix))
         if config.max_translation_per_frame > 0:
@@ -286,15 +333,20 @@ def process_frame(
     # --- IntegrateFrame (KinectFusionReconstruction.cpp:237-278) ----------
     c2v = se3.matmul(world2volume, c2w)
     v2c = se3.inverse(c2v)
-    # the frame's one host read: JAX's lax.cond on the same flag
+    # the frame's one host read, one copy: JAX's two lax.conds (integrate; anchored march or refresh)
+    flags = ([] if is_first else [align_ok]) + ([covered] if temporal else [])
+    flags = (torch.stack(flags) if len(flags) > 1 else flags[0].reshape(1)).tolist() if flags else []
+    integrate = is_first or bool(flags[0])
+    refresh = temporal and not flags[-1]
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     n_active = None
-    if is_first or bool(align_ok):
+    if integrate:
         with record_function("fusion"):
             depth_m = fusion.scale_depth(depth_u16)
             r_v2c, t_v2c = se3.rotation(v2c), se3.translation(v2c)
             if config.fusion_mode == "brick":
-                flag, n_active = fusion.integrate_brick(
+                fuse = fusion.integrate_rows if config.volume_layout == "brick" else fusion.integrate_brick
+                flag, n_active = fuse(
                     state.volume, depth_m, r_v2c, t_v2c, intr, vol_cfg, cap=config.fusion_brick_cap,
                     overflow=config.fusion_overflow,
                 )
@@ -307,12 +359,18 @@ def process_frame(
 
     # --- model maps for the next frame's ICP ------------------------------
     with record_function("raycast"):
-        vmap0, nmap0 = raycast.raycast(
-            volume, se3.rotation(c2v), se3.translation(c2v), se3.rotation(volume2world),
-            se3.translation(volume2world),
-            intr.level(config.model_map_level), vol_cfg, normals_mode=config.raycast_normals, march_mode=config.raycast_march,
-            packed_taps=config.raycast_packed_taps,
-        )
+        poses = (se3.rotation(c2v), se3.translation(c2v), se3.rotation(volume2world), se3.translation(volume2world))
+        t_prev = state.t_prev  # the dense path carries the anchors untouched
+        if temporal:
+            vmap0, nmap0, t_prev = raycast_bricks.raycast_bricks(
+                volume, *poses, intr.level(L), vol_cfg, t_anchor, refresh=refresh,
+                temporal_window=config.raycast_temporal_window, hier_window=config.raycast_hier_window,
+            )
+        else:
+            vmap0, nmap0 = raycast.raycast(
+                volume, *poses, intr.level(L), vol_cfg, normals_mode=config.raycast_normals,
+                march_mode=config.raycast_march, packed_taps=config.raycast_packed_taps,
+            )
         vmaps_prev, nmaps_prev = model_map_pyramid(vmap0, nmap0, levels)
 
     new_state = SlamState(
@@ -322,10 +380,11 @@ def process_frame(
         nmaps_prev=nmaps_prev,
         frame_idx=state.frame_idx + config.frame_step,
         last_align_ok=align_ok,
-        t_prev=state.t_prev,
+        t_prev=t_prev,
     )
     return new_state, FrameResult(
         camera2world=c2w, align_ok=align_ok, inlier_count=inliers, fusion_overflow=overflow, fusion_active=n_active,
+        anchor_coverage=coverage if temporal else None,
     )
 
 

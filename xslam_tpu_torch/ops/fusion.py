@@ -12,6 +12,8 @@ that test's plain twin, which the tests hold against the plain update.
 :func:`integrate_brick` fuses the same frame brick by brick
 (:mod:`xslam_tpu_torch.ops.fusion_brick`, kernels B3a-c): the same volume, bit
 for bit, with the depth read only where a brick is ACTIVE.
+:func:`integrate_rows` does so on the brick-major layout
+(:mod:`xslam_tpu_torch.ops.bricks`).
 """
 
 from __future__ import annotations
@@ -115,10 +117,37 @@ def integrate_brick(
     everywhere instead, from the pre-frame volume (on the card the fusion
     kernel reads the flag; no host read), as the JAX engine reruns dense
     fusion."""
-    if overflow not in OVERFLOW_MODES:
-        raise ValueError(f"overflow: expected one of {OVERFLOW_MODES}, got {overflow!r}")
     if tuple(vol.value.shape) != tuple(cfg.resolution):
         raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
+    return _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow)
+
+
+def integrate_rows(
+    bvol,
+    depth_m: torch.Tensor,
+    r_v2c: CSFD,
+    t_v2c: CSFD,
+    intr: Intrinsics,
+    cfg: VolumeConfig,
+    cap: int,
+    overflow: str = "flag",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`integrate_brick` on a brick-major volume
+    (:class:`xslam_tpu_torch.ops.bricks.BrickVolume`, ``(NB, 512)`` rows), IN
+    PLACE: the port of ``xslam_tpu/ops/fusion_brick.py::integrate_rows``.
+    B3a and B3b as there; B3c's row variant. ``overflow="dense"`` fuses an
+    overflowing frame exactly at every voxel, from the pre-frame volume, as
+    the JAX engine's rerun with ``cap`` = every brick does. The rows are the
+    dense fusion's volume in brick order, bit for bit."""
+    nbx, nby, nbz = fusion_brick._check_resolution(cfg.resolution)
+    if tuple(bvol.value.shape) != (nbx * nby * nbz, fusion_brick.BRICK ** 3):
+        raise ValueError(f"brick rows {tuple(bvol.value.shape)} do not hold a {cfg.resolution} volume")
+    return _fuse_by_bricks(bvol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow)
+
+
+def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow):
+    if overflow not in OVERFLOW_MODES:
+        raise ValueError(f"overflow: expected one of {OVERFLOW_MODES}, got {overflow!r}")
     pose = kernels.fusion_pose(r_v2c, t_v2c)
     table = fusion_brick.depth_mips(depth_m)
     classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap)

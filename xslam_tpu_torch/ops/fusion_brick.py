@@ -418,26 +418,34 @@ def classify_consts(intr: Intrinsics, cfg) -> list:
 
 
 # -------------------------------------------------------------- B3c fusion
+def _is_rows(value: torch.Tensor) -> bool:
+    """Whether the planes are brick-major ``(NB, 512)`` rows (else dense ``(X, Y, Z)``)."""
+    return value.dim() == 2
+
+
 def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
                       dense_on_overflow: bool) -> None:
     """Plain version of B3c, IN PLACE: the port of ``_integrate_rows_core``
-    with ``subcell_cap=0`` over :func:`to_bricks` rows. FAR and FAR_PARTIAL
-    bricks take the "beyond" update under the exact per-voxel gate; the
-    ACTIVE bricks of rank < ``cap`` take the exact update
-    (:func:`kernels.voxel_update_plain`); with ``dense_on_overflow`` an
-    overflowing frame is fused densely instead (:func:`kernels.
-    fuse_volume_plain`), from the pre-frame volume."""
+    with ``subcell_cap=0`` over brick rows, the planes' own when they are
+    ``(NB, 512)`` rows (the brick layout), else :func:`to_bricks` of the
+    dense planes. FAR and FAR_PARTIAL bricks take the "beyond" update under
+    the exact per-voxel gate; the ACTIVE bricks of rank < ``cap`` take the
+    exact update (:func:`kernels.voxel_update_plain`); with
+    ``dense_on_overflow`` an overflowing frame takes the exact update at every
+    voxel instead, from the pre-frame volume (the JAX engine's rerun with
+    every brick in the cap)."""
     r_v2c, t_v2c = kernels.unpack_fusion_pose(pose)
-    if dense_on_overflow and bool(classes.overflow):
+    rows = _is_rows(value)
+    res = tuple(cfg.resolution)
+    if dense_on_overflow and bool(classes.overflow) and not rows:
         kernels.fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, cfg.voxel_size, cfg.trunc_dist,
                                   cfg.max_weight)
         return
-    res = tuple(value.shape)
     nbx, nby, nbz = _check_resolution(res)
     vs = cfg.voxel_size
     dev = value.device
     cls = classes.cls.reshape(-1)
-    vb, gb, wb = to_bricks(value), to_bricks(grad), to_bricks(weight)
+    vb, gb, wb = (value, grad, weight) if rows else (to_bricks(value), to_bricks(grad), to_bricks(weight))
     lane = torch.arange(BRICK ** 3, device=dev)
     lx = (lane // (BRICK * BRICK)).to(torch.float32)
     ly = ((lane // BRICK) % BRICK).to(torch.float32)
@@ -449,9 +457,17 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
                 ((by * BRICK).to(torch.float32)[:, None] + ly[None, :] + 0.5) * vs,
                 ((bz * BRICK).to(torch.float32)[:, None] + lz[None, :] + 0.5) * vs)
 
+    every = torch.arange(vb.shape[0], device=dev)
+    if dense_on_overflow and bool(classes.overflow):  # brick rows: the exact update everywhere
+        new = kernels.voxel_update_plain(*coords(every), vb, gb, wb, depth_m, r_v2c, t_v2c, intr, cfg.trunc_dist,
+                                         cfg.max_weight)
+        for plane, updated in zip((value, grad, weight), new):
+            plane.copy_(updated)
+        return
+
     # FAR pass: no depth read; the gate of the exact update, recomputed from the voxel's position
     H, W = depth_m.shape
-    fx_, fy_, fz_ = coords(torch.arange(vb.shape[0], device=dev))
+    fx_, fy_, fz_ = coords(every)
     Rv, tv = r_v2c.v, t_v2c.v
     ccx = Rv[0, 0] * fx_ + Rv[0, 1] * fy_ + Rv[0, 2] * fz_ + tv[0]
     ccy = Rv[1, 0] * fx_ + Rv[1, 1] * fy_ + Rv[1, 2] * fz_ + tv[1]
@@ -474,24 +490,29 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
         gx, gy, gz = coords(ids)
         new = kernels.voxel_update_plain(gx, gy, gz, vb[ids], gb[ids], wb[ids], depth_m, r_v2c, t_v2c, intr,
                                          cfg.trunc_dist, cfg.max_weight)
-        for rows, updated in zip((vb, gb, wb), new):
-            rows[ids] = updated
-    for plane, rows in zip((value, grad, weight), (vb, gb, wb)):
-        plane.copy_(from_bricks(rows, res))
+        for plane_rows, updated in zip((vb, gb, wb), new):
+            plane_rows[ids] = updated
+    for plane, plane_rows in zip((value, grad, weight), (vb, gb, wb)):
+        plane.copy_(plane_rows if rows else from_bricks(plane_rows, res))
 
 
 def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
                 dense_on_overflow: bool) -> None:
-    """B3c: fuse the frame into the dense planes IN PLACE, brick by brick as
-    ``classes`` says (:func:`fuse_bricks_plain`'s contract). On the card one
-    launch; with ``dense_on_overflow`` the kernel reads the overflow flag on
-    the device and, where it is set, updates every brick exactly."""
+    """B3c: fuse the frame into the planes IN PLACE, brick by brick as
+    ``classes`` says (:func:`fuse_bricks_plain`'s contract): dense ``(X, Y,
+    Z)`` planes or brick-major ``(NB, 512)`` rows, the kernel's row variant,
+    which differs only in where a brick's column lies (``b * 512 + c * 8``).
+    On the card one launch; with ``dense_on_overflow`` the kernel reads the
+    overflow flag on the device and, where it is set, updates every brick
+    exactly."""
     if kernels.on_cpu(value, grad, weight, depth_m, pose, classes.cls):
         fuse_bricks_plain(value, grad, weight, depth_m, pose, intr, cfg, classes, cap, dense_on_overflow)
         return
-    _check_resolution(value.shape)
+    nbx, nby, nbz = _check_resolution(cfg.resolution)
+    rows = _is_rows(value)
+    shape = (nbx * nby * nbz, BRICK ** 3) if rows else cfg.resolution
     for t, name in ((value, "value"), (grad, "grad"), (weight, "weight")):
-        kernels.check_tensor(t, name, torch.float32, cfg.resolution)
+        kernels.check_tensor(t, name, torch.float32, shape)
     kernels.check_tensor(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
     kernels.check_tensor(pose, "pose", torch.float32, (kernels.FUSION_POSE_FLOATS,))
     n = classes.rank.numel()
@@ -501,6 +522,6 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     kernels.launch(
         "fuse_bricks", value.device, value, grad, weight, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
         classes.totals, classes.overflow, *kernels.fusion_args(intr, cfg.voxel_size, cfg.trunc_dist, cfg.max_weight),
-        int(cap), bool(dense_on_overflow),
+        int(cap), bool(dense_on_overflow), list(cfg.resolution), rows,
     )
     kernels.launch_counts["fuse_bricks"] += 1

@@ -24,8 +24,12 @@ More sources are built here and wrapped where their plain versions live: K4
 (``csrc/icp.cu``) in :mod:`xslam_tpu_torch.ops.icp`, K5 (``csrc/refine.cu``)
 in :mod:`xslam_tpu_torch.ops.raycast`, K6 (``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, the three brick-fusion kernels B3a-c
-(``csrc/bricks.cu``) in :mod:`xslam_tpu_torch.ops.fusion_brick` and the five
-gather probes
+(``csrc/bricks.cu``) in :mod:`xslam_tpu_torch.ops.fusion_brick`, the brick
+layout's window march B4 (``csrc/window.cu``) and skip march B5b
+(``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.raycast_bricks`, its screen
+normals B4n (``csrc/window.cu``) in :mod:`xslam_tpu_torch.ops.raycast`, its
+skip field B5a (``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.bricks`, and
+the five gather probes
 (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
 
 A wrapper runs the plain version when its tensors lie on the CPU (the tests)
@@ -68,9 +72,9 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "binding.cpp", "bilateral.cu", "fusion.cu", "bricks.cu", "march.cu", "refine.cu", "maps.cu", "icp.cu",
-    "gather_probes.cu",
+    "window.cu", "skip.cu", "gather_probes.cu",
 )
-HEADERS = ("dual.cuh", "rays.cuh", "fusion.cuh")  # included by the sources above
+HEADERS = ("dual.cuh", "rays.cuh", "fusion.cuh", "rows.cuh")  # included by the sources above
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
 
 RAY_MIN_M = 0.2
@@ -85,6 +89,7 @@ launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
+    "window_march": 0, "screen_normals": 0, "skip_field": 0, "march_skip": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
 _ext = None  # the built extension module

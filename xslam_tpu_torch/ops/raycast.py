@@ -10,23 +10,42 @@ are kernel K5 (:func:`raycast_refine`, ``csrc/refine.cu``; plain version
 :func:`refine` then :func:`finalize_maps`). March parameters mirror the reference: step = 0.8 * trunc_dist, range
 [0.2, 5.0] m, secant ``Ts = t - step * Ft/(Ftdt - Ft)``, normals at +-half
 a voxel.
+
+The brick layout's marches and refine (:mod:`xslam_tpu_torch.ops.raycast_bricks`)
+compose the plain ports kept here, each read through a voxel reader:
+:func:`march_skip_plain` (the empty-space-skipping march), :func:`_window_repair`
+and :func:`march_temporal` (the anchored window marches),
+:func:`refine_from_samples` (the ``reuse`` refine) and
+:func:`screen_normals_plain`, whose kernel is B4n (:func:`screen_normals`,
+``csrc/window.cu``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..csfd import vec3
 from ..csfd.single import CSFD, lift
 from ..geometry.intrinsics import Intrinsics
 from . import kernels
 from .fusion import VolumeConfig, VolumeState
-from .kernels import INF_T, RAY_MIN_M
+from .kernels import INF_T, RAY_MAX_M, RAY_MIN_M
+from .bricks import BRICK, JUMP_BASE
+from .preprocess import _shift2d
 from .sampling import gather3d, to_index
 
 MARCH_MODES = ("fixed",)
+
+
+class RaycastHit(NamedTuple):
+    """Per-pixel march outcome before refinement."""
+
+    t_found: torch.Tensor  # (H, W) first-crossing march time, INF_T if none
+    t_dead: torch.Tensor  # (H, W) first death (neg->pos or volume exit) time
 
 
 def trilinear_tsdf_shard(
@@ -227,3 +246,223 @@ def raycast(
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
     t_found, t_dead = kernels.march_fixed(vol.value, pose, intr, cfg.voxel_size, cfg.trunc_dist)
     return raycast_refine(vol, pose, t_found, t_dead, intr, cfg)
+
+
+# ------------------------------------------------- the brick layout's marches
+def _in_volume(g, shape):
+    X, Y, Z = shape
+    return (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
+
+
+def _clamped(g, shape):
+    return torch.stack([g[i].clamp(0, shape[i] - 1) for i in range(3)])
+
+
+def march_skip_plain(ray_start: CSFD, dirs_v: torch.Tensor, cfg: VolumeConfig, packed_read, shape,
+                     jump_unit: int = BRICK, stats: Optional[dict] = None) -> RaycastHit:
+    """Empty-space-skipping march: the port of ``xslam_tpu/ops/raycast.py::
+    march_skip`` over a jump-packed reader ``packed_read`` (g -> biased
+    values: ``JUMP_BASE + dist`` where a cell at distance >= 2 may be jumped,
+    the value elsewhere). Its events are the fixed march's: skipped samples
+    lie in cells without an observed negative voxel, and a positive ``prev``
+    sentinel keeps the event tests exact. An integer step counter keeps
+    every sample on the fixed march's grid ``0.2 + k * step``; a jump from
+    distance ``d`` is ``max(1, floor((d - 1) * steps_per_cell))`` steps. Each
+    ray marches until its own events or the range end (a loop with a break).
+    ``stats``, where given, gets ``"samples"``: the reads that takes, the
+    first one included."""
+    voxel = cfg.voxel_size
+    step = cfg.trunc_dist * 0.8
+    steps_per_cell = jump_unit * voxel / step
+    n_steps = int((RAY_MAX_M - RAY_MIN_M) / step) + 1
+    start_v = ray_start.v[:, None, None]
+    H, W = dirs_v.shape[-2:]
+
+    g0 = to_index(torch.floor((start_v + dirs_v * RAY_MIN_M) / voxel))
+    prev = torch.clamp(packed_read(_clamped(g0, shape)), max=1.0)  # packed cells read as free space
+    t_found = torch.full((H, W), INF_T, dtype=torch.float32, device=dirs_v.device)
+    t_dead = torch.full_like(t_found, INF_T)
+    k = torch.zeros((H, W), dtype=torch.int64, device=dirs_v.device)
+    done = torch.zeros((H, W), dtype=torch.bool, device=dirs_v.device)
+    samples = H * W
+    while not bool(done.all()):
+        samples += int((~done).sum()) if stats is not None else 0
+        kf = k.to(torch.float32)
+        p = start_v + dirs_v * (RAY_MIN_M + (kf + 1.0) * step)
+        g = to_index(torch.floor(p / voxel))
+        inside = _in_volume(g, shape)
+        c = packed_read(g)
+        can_jump = inside & (c >= JUMP_BASE - 0.5) & ~done
+        fine = ~done & ~can_jump
+        death = fine & (~inside | ((prev < 0.0) & (c > 0.0) & inside))
+        crossing = fine & inside & (prev > 0.0) & (c < 0.0)
+        t_curr = RAY_MIN_M + kf * step
+        t_found = torch.where(crossing, t_curr, t_found)
+        t_dead = torch.where(death, t_curr, t_dead)
+        done = done | crossing | death | (k + 1 >= n_steps)
+        n_jump = torch.clamp(to_index(torch.floor((c - JUMP_BASE - 1.0) * steps_per_cell)), min=1)
+        k = torch.where(can_jump, k + n_jump, k + 1)
+        prev = torch.where(can_jump, 1.0, c)
+    if stats is not None:
+        stats["samples"] = samples
+    return RaycastHit(t_found, t_dead)
+
+
+def window_anchor(coarse: RaycastHit, H: int, W: int) -> torch.Tensor:
+    """Each pixel's anchor for :func:`_window_repair` at (H, W): the
+    earliest event (``min(t_found, t_dead)``) of the 2x2 neighbourhood of
+    its coarse pixel ``(y // 2, x // 2)``, ``INF_T`` past the coarse grid."""
+    t_event = torch.minimum(coarse.t_found, coarse.t_dead)
+    pads = F.pad(t_event, (0, 1, 0, 1), value=INF_T)
+    t0_coarse = torch.minimum(torch.minimum(pads[:-1, :-1], pads[1:, :-1]), torch.minimum(pads[:-1, 1:], pads[1:, 1:]))
+    return t0_coarse.repeat_interleave(2, 0).repeat_interleave(2, 1)[:H, :W]
+
+
+def pooled_anchors(t_prev: torch.Tensor, H: int, W: int) -> RaycastHit:
+    """:func:`march_temporal`'s coarse hits from its (H, W) anchor map: the
+    2x2 minimum, non-finite entries counting as ``INF_T`` (no anchor), and no
+    death."""
+    tp = torch.where(torch.isfinite(t_prev), t_prev, INF_T)
+    tp_half = tp[: (H // 2) * 2, : (W // 2) * 2].reshape(H // 2, 2, W // 2, 2).amin(dim=(1, 3))
+    return RaycastHit(tp_half, torch.full_like(tp_half, INF_T))
+
+
+def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, window: int, cfg: VolumeConfig,
+                   read_fn, shape, return_samples: bool = False, stats: Optional[dict] = None):
+    """March each pixel of ``dirs_v`` (3, H, W) only inside a ``window``-step
+    interval anchored at its 2x2 coarse neighbourhood's earliest event
+    (``coarse``: the hit map one level above, 2x subsampled), snapped to the
+    global march grid: the port of ``xslam_tpu/ops/raycast.py::_window_repair``
+    over the voxel reader ``read_fn`` (g -> biased values). With
+    ``return_samples`` also the two samples bracketing each recorded crossing,
+    ``(f0, f1)``; (1, -1) where none. ``stats``, where given, gets
+    ``"samples"``: the reads a march that stops once both events are known
+    (or past 5 m) takes, the first one included."""
+    voxel = cfg.voxel_size
+    step = cfg.trunc_dist * 0.8
+    H, W = dirs_v.shape[-2:]
+    dev = dirs_v.device
+
+    t0_full = window_anchor(coarse, H, W)
+    has_anchor = t0_full < INF_T
+    # the anchor on the global march grid, so window samples are the full march's
+    k0 = torch.floor((torch.where(has_anchor, t0_full, RAY_MIN_M) - RAY_MIN_M) / step) - 1.0
+    t_begin = RAY_MIN_M + torch.clamp(k0, min=0.0) * step
+    start_v = ray_start.v[:, None, None]
+
+    prev = read_fn(_clamped(to_index(torch.floor((start_v + dirs_v * t_begin) / voxel)), shape))
+    t_found = torch.full((H, W), INF_T, dtype=torch.float32, device=dev)
+    t_dead = torch.full_like(t_found, INF_T)
+    f0 = torch.ones((H, W), dtype=torch.float32, device=dev)
+    f1 = -torch.ones((H, W), dtype=torch.float32, device=dev)
+    samples = int(has_anchor.sum()) if stats is not None else 0
+    for k in range(window):
+        # t_begin + float32(k) * step, in float32 as the reference's loop computes it
+        t_curr = t_begin + kernels.f32(np.float32(k) * np.float32(step))
+        g = to_index(torch.floor((start_v + dirs_v * (t_curr + step)) / voxel))
+        # the reference's loop condition is on t_curr (RayCaster.cu:236)
+        live = has_anchor & (t_curr < RAY_MAX_M)
+        if stats is not None:
+            samples += int((live & ~((t_found < INF_T) & (t_dead < INF_T))).sum())
+        in_vol = _in_volume(g, shape)
+        inside = in_vol & live
+        tsdf = read_fn(g)
+        death = live & (~in_vol | (inside & (prev < 0.0) & (tsdf > 0.0)))
+        crossing = inside & (prev > 0.0) & (tsdf < 0.0)
+        record = crossing & (t_curr < t_found)
+        t_found = torch.where(record, t_curr, t_found)
+        f0 = torch.where(record, prev, f0)
+        f1 = torch.where(record, tsdf, f1)
+        t_dead = torch.where(death & (t_curr < t_dead), t_curr, t_dead)
+        prev = tsdf
+    if stats is not None:
+        stats["samples"] = samples
+    hit = RaycastHit(t_found, t_dead)
+    return (hit, f0, f1) if return_samples else hit
+
+
+def march_temporal(t_prev: torch.Tensor, ray_start: CSFD, ray_dir: CSFD, cfg: VolumeConfig, window: int = 12,
+                   read_fn=None, shape=None, return_samples: bool = False, stats: Optional[dict] = None):
+    """Anchored march: :func:`_window_repair` of every pixel around the
+    anchor map ``t_prev`` (H, W), min-pooled 2x2 (non-finite entries count
+    as no anchor), with no coarse march: the port of
+    ``xslam_tpu/ops/raycast.py::march_temporal``. Pixels without a finite
+    anchor in their neighbourhood find no event."""
+    H, W = ray_dir.v.shape[-2:]
+    return _window_repair(ray_start, ray_dir.v, pooled_anchors(t_prev, H, W), window, cfg, read_fn, shape,
+                          return_samples, stats)
+
+
+def refine_from_samples(trilin_at, ray_start: CSFD, ray_dir: CSFD, hit_t, f0, f1, accept, r_v2w: CSFD, t_v2w: CSFD,
+                        cfg: VolumeConfig) -> Tuple[CSFD, CSFD, torch.Tensor, torch.Tensor]:
+    """The ``reuse`` refine: the secant of the march's two bracketing samples,
+    then ONE dual trilinear ``F`` as a Newton polish with the samples' slope
+    ``(f1 - f0) / step``; a pixel whose correction exceeds a step
+    (``|F| > -slope * step``) is rejected. Port of
+    ``xslam_tpu/ops/raycast.py::refine_from_samples``; the derivative
+    ``ts.g = -F.g / slope`` keeps the reference's finite-difference slope.
+    Returns (vmap_w, zero normals, v_ok, all-False n_ok)."""
+    step = cfg.trunc_dist * 0.8
+
+    def point_at(t: CSFD) -> CSFD:
+        return vec3.vec3(
+            vec3.comp(ray_start, 0) + vec3.comp(ray_dir, 0) * t,
+            vec3.comp(ray_start, 1) + vec3.comp(ray_dir, 1) * t,
+            vec3.comp(ray_start, 2) + vec3.comp(ray_dir, 2) * t,
+        )
+
+    ok0 = accept & (f1 < f0)
+    slope = torch.where(ok0, (f1 - f0) / step, -1.0)  # < 0 on crossings
+    t0 = torch.where(accept, hit_t, RAY_MIN_M)
+    ts0 = t0 - f0 / slope
+    Fs = trilin_at(point_at(lift(torch.where(ok0, ts0, RAY_MIN_M))))
+    ok = ok0 & ~torch.isnan(Fs.v) & (torch.abs(Fs.v) <= -slope * step)
+    ts = CSFD(torch.where(ok, ts0 - Fs.v / slope, t0), torch.where(ok, -Fs.g / slope, 0.0))
+
+    vertex = point_at(ts)
+    vertex_w = vec3.matvec(r_v2w, vertex) + CSFD(t_v2w.v[:, None, None], t_v2w.g[:, None, None])
+    vmap = CSFD(
+        torch.where(ok[None], torch.nan_to_num(vertex_w.v), 0.0),
+        torch.where(ok[None], torch.nan_to_num(vertex_w.g), 0.0),
+    )
+    zeros = CSFD(torch.zeros_like(vmap.v), torch.zeros_like(vmap.g))
+    return vmap, zeros, ok, torch.zeros_like(ok)
+
+
+def screen_normals_plain(vmap: CSFD) -> CSFD:
+    """Dual world-space normals from the central differences of the vertex
+    map, ``(v[x+1] - v[x-1]) x (v[y+1] - v[y-1])`` normalized (NaN value,
+    zero derivative where a neighbour or the product fails): the port of
+    ``xslam_tpu/ops/raycast.py::screen_normals`` with ``central=True``. B4n's
+    plain version."""
+
+    def shift(m: CSFD, dy, dx) -> CSFD:
+        return CSFD(_shift2d(m.v, dy, dx, fill=torch.nan), _shift2d(m.g, dy, dx))
+
+    xp, xm = shift(vmap, 0, 1), shift(vmap, 0, -1)
+    yp, ym = shift(vmap, 1, 0), shift(vmap, -1, 0)
+    ok = (~torch.isnan(vmap.v[0]) & ~torch.isnan(xp.v[0]) & ~torch.isnan(xm.v[0])
+          & ~torch.isnan(yp.v[0]) & ~torch.isnan(ym.v[0]))
+    n = vec3.cross(xp - xm, yp - ym)
+    nsq = vec3.squarednorm(n)
+    ok = ok & (nsq.v > 0.0) & ~torch.isnan(nsq.v)
+    out = vec3.normalized(CSFD(torch.where(ok[None], n.v, 1.0), torch.where(ok[None], n.g, 0.0)))
+    return CSFD(torch.where(ok[None], out.v, torch.nan), torch.where(ok[None], out.g, 0.0))
+
+
+def screen_normals(vmap: CSFD) -> CSFD:
+    """Kernel B4n (``csrc/window.cu``): :func:`screen_normals_plain` of the
+    dual (3, H, W) vertex map, a thread a pixel, both lanes, the same
+    operations in the same order (the sources build with ``-fmad=false``), so
+    the bits of its plain version on the card. On CPU tensors the plain
+    version."""
+    if kernels.on_cpu(vmap.v, vmap.g):
+        return screen_normals_plain(vmap)
+    if vmap.v.dim() != 3 or vmap.v.shape[0] != 3:
+        raise ValueError(f"vmap: expected (3, H, W), got {tuple(vmap.v.shape)}")
+    for t, name in ((vmap.v, "vmap.v"), (vmap.g, "vmap.g")):
+        kernels.check_tensor(t, name, torch.float32, vmap.v.shape)
+    out = CSFD(torch.empty_like(vmap.v), torch.empty_like(vmap.g))
+    kernels.launch("screen_normals", vmap.v.device, vmap.v, vmap.g, out.v, out.g)
+    kernels.launch_counts["screen_normals"] += 1
+    return out

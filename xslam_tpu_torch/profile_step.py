@@ -4,7 +4,8 @@ port's SLAM step.
 Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
         [--fixed-assoc] [--model-map-level L] [--fusion-mode brick] [--fusion-brick-cap N]
-        [--fusion-overflow dense]
+        [--fusion-overflow dense] [--volume-layout brick] [--raycast-march temporal] [--raycast-refine reuse]
+        [--raycast-normals screen]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
@@ -16,10 +17,15 @@ leaves out the hand kernels, which are reported apart), the launches per
 frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
 ``--fixed-assoc``, ``--model-map-level``, ``--fusion-mode``,
-``--fusion-brick-cap`` and ``--fusion-overflow`` set ``icp_fixed_assoc``,
-``model_map_level``, ``fusion_mode``, ``fusion_brick_cap`` and
-``fusion_overflow`` over the file's values (bench.py's brick fusion:
-``--fusion-mode brick --fusion-brick-cap 2816 --fusion-overflow dense``).
+``--fusion-brick-cap``, ``--fusion-overflow``, ``--volume-layout``,
+``--raycast-march``, ``--raycast-refine`` and ``--raycast-normals`` set
+``icp_fixed_assoc``, ``model_map_level``, ``fusion_mode``,
+``fusion_brick_cap``, ``fusion_overflow``, ``volume_layout``,
+``raycast_march``, ``raycast_refine`` and ``raycast_normals`` over the
+file's values (bench.py's brick fusion: ``--fusion-mode brick --fusion-brick-cap
+2816 --fusion-overflow dense``; its whole configuration, :data:`BENCH_ARGS`:
+also ``--fixed-assoc --model-map-level 1 --volume-layout brick
+--raycast-march temporal --raycast-refine reuse --raycast-normals screen``).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -42,15 +48,22 @@ from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
-# the hand kernels' device names (csrc/*.cu), reported apart from the stages
+# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a: its two kernels)
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
     "raycast_refine": "refine_kernel", "resize_model_maps": "model_map_pyramid_kernel",
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
-    "fuse_bricks": "fuse_bricks_kernel",
+    "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
+    "screen_normals": "screen_normals_kernel", "skip_field": ("event_mask_kernel", "skip_distance_kernel"), "march_skip": "march_skip_kernel",
 }
+# bench.py:78-95's configuration as command-line options
+BENCH_ARGS = ("--fixed-assoc", "--model-map-level", "1", "--fusion-mode", "brick", "--fusion-brick-cap", "2816",
+              "--fusion-overflow", "dense", "--volume-layout", "brick", "--raycast-march", "temporal",
+              "--raycast-refine", "reuse", "--raycast-normals", "screen")
+OPTIONS = ("model_map_level", "fusion_mode", "fusion_brick_cap", "fusion_overflow", "volume_layout", "raycast_march",
+           "raycast_refine", "raycast_normals")
 
 
 def card() -> str:
@@ -77,11 +90,24 @@ def stage_launches(events, n_frames: int) -> dict:
 def set_options(config, args) -> None:
     """Set on ``config`` the options given on the command line; the others
     keep the file's values."""
-    for key in ("model_map_level", "fusion_mode", "fusion_brick_cap", "fusion_overflow"):
+    for key in OPTIONS:
         if getattr(args, key) is not None:
             setattr(config, key, getattr(args, key))
     if args.fixed_assoc:
         config.icp_fixed_assoc = True
+
+
+def add_options(ap: argparse.ArgumentParser) -> None:
+    """The configuration options a run may set over its file's (:func:`set_options`)."""
+    ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
+    ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
+    ap.add_argument("--fusion-mode", choices=("dense", "brick"), default=None, help="fusion_mode")
+    ap.add_argument("--fusion-brick-cap", type=int, default=None, help="fusion_brick_cap")
+    ap.add_argument("--fusion-overflow", choices=("flag", "dense"), default=None, help="fusion_overflow")
+    ap.add_argument("--volume-layout", choices=("dense", "brick"), default=None, help="volume_layout")
+    ap.add_argument("--raycast-march", choices=("fixed", "temporal"), default=None, help="raycast_march")
+    ap.add_argument("--raycast-refine", choices=("secant2", "reuse"), default=None, help="raycast_refine")
+    ap.add_argument("--raycast-normals", choices=("tsdf", "screen"), default=None, help="raycast_normals")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -90,11 +116,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
-    ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
-    ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
-    ap.add_argument("--fusion-mode", choices=("dense", "brick"), default=None, help="fusion_mode")
-    ap.add_argument("--fusion-brick-cap", type=int, default=None, help="fusion_brick_cap")
-    ap.add_argument("--fusion-overflow", choices=("flag", "dense"), default=None, help="fusion_overflow")
+    add_options(ap)
     return ap
 
 
@@ -136,7 +158,8 @@ def main(argv=None):
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     hand = {
-        k: sum(v[0] for name, v in by_name.items() if pat in name) / f for k, pat in HAND_KERNELS.items()
+        k: sum(v[0] for name, v in by_name.items() if any(p in name for p in ((pat,) if isinstance(pat, str) else pat)))
+        / f for k, pat in HAND_KERNELS.items()
     }
     launches = stage_launches(prof.events(), f)
     stages = {}
@@ -153,6 +176,8 @@ def main(argv=None):
         "fusion_mode": config.fusion_mode,
         **({"fusion_brick_cap": config.fusion_brick_cap, "fusion_overflow": config.fusion_overflow}
            if config.fusion_mode == "brick" else {}),
+        **({"volume_layout": "brick", "raycast_march": config.raycast_march, "raycast_refine": config.raycast_refine,
+            "raycast_normals": config.raycast_normals} if config.volume_layout == "brick" else {}),
         "frames_profiled": f,
         "wall_ms_per_frame": wall_ms / f,
         "device_busy_ms_per_frame": busy_ms / f,

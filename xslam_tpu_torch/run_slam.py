@@ -1,12 +1,16 @@
 """End-to-end SLAM driver of the PyTorch port on the synthetic dataset.
 
-Counterpart of ``apps/run_slam.py`` for the dense reference configuration:
-YAML config in, per-frame estimated/ground-truth pose files
+Counterpart of ``apps/run_slam.py``: YAML config in (the options of
+:mod:`xslam_tpu_torch.profile_step` set over the file's, e.g. bench.py's
+configuration with ``--fixed-assoc --model-map-level 1 --fusion-mode brick
+--fusion-brick-cap 2816 --fusion-overflow dense --volume-layout brick
+--raycast-march temporal --raycast-refine reuse --raycast-normals screen``),
+per-frame estimated/ground-truth pose files
 (``<output_dir>/slam/frame-XXXXXX.pose.txt``, ``<output_dir>/gt/...``), the
 mean frame time and the ATE RMSE printed at the end.
 
 Usage:
-    python -m xslam_tpu_torch.run_slam configs/synthetic.yaml [--frames N] [--device cpu]
+    python -m xslam_tpu_torch.run_slam configs/synthetic.yaml [--frames N] [--device cpu] [options]
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
@@ -23,6 +27,7 @@ import torch
 from .io.config import load_config
 from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
+from .profile_step import add_options, set_options
 from .utils.evaluation import ate_rmse, normalize_to_first
 
 
@@ -36,9 +41,11 @@ def main(argv=None):
     ap.add_argument("config")
     ap.add_argument("--frames", type=int, default=None, help="override end_frame")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    add_options(ap)
     args = ap.parse_args(argv)
 
     config = load_config(args.config)
+    set_options(config, args)
     if args.frames is not None:
         config.end_frame = args.frames
     if config.dataset_format != "synthetic":

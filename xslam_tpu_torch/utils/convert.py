@@ -3,13 +3,16 @@
 SLAM has no weights: the state (volume, pose, model maps) is what both
 engines must share. The exchange format is a dict of numpy arrays:
 
-- ``value``, ``grad``, ``weight``: (X, Y, Z) float32 volume planes;
+- ``value``, ``grad``, ``weight``: (X, Y, Z) float32 volume planes, or for
+  the brick layout (``volume_layout="brick"``) its (NB, 512) float32 brick
+  rows, which cross as they are;
 - ``world2camera_v``, ``world2camera_g``: (4, 4) float32;
 - ``vmaps_v``, ``vmaps_g``, ``nmaps_v``, ``nmaps_g``: lists over pyramid
   levels ``l`` of (3, H >> (l + L), W >> (l + L)) float32 maps, ``L`` the
   configuration's ``model_map_level``;
 - ``frame_idx`` (int), ``last_align_ok`` (bool), ``t_prev``
-  ((H >> L, W >> L) float32).
+  ((H >> L, W >> L) float32: the last raycast's hit distances, 1e9 where a
+  ray found nothing, carried as they are).
 
 A JAX ``SlamState`` is written into this format with ``np.asarray`` on each
 leaf (the JAX engine donates its state to the next step, so convert it
@@ -27,12 +30,15 @@ import torch
 
 from ..csfd.single import CSFD
 from ..models.kinfu import SlamState
+from ..ops.bricks import BrickVolume
 from ..ops.fusion import VolumeState
 from ..ops.icp import Association
 
 
 def state_from_numpy(d: dict, device) -> SlamState:
-    """Build the port's :class:`SlamState` on ``device`` from numpy arrays."""
+    """Build the port's :class:`SlamState` on ``device`` from numpy arrays: a
+    dense volume from (X, Y, Z) planes, a :class:`BrickVolume` from (NB, 512)
+    rows."""
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
@@ -40,8 +46,9 @@ def state_from_numpy(d: dict, device) -> SlamState:
     def maps(key):
         return tuple(CSFD(t(v), t(g)) for v, g in zip(d[f"{key}_v"], d[f"{key}_g"]))
 
+    layout = BrickVolume if np.ndim(d["value"]) == 2 else VolumeState
     return SlamState(
-        volume=VolumeState(value=t(d["value"]), grad=t(d["grad"]), weight=t(d["weight"])),
+        volume=layout(value=t(d["value"]), grad=t(d["grad"]), weight=t(d["weight"])),
         world2camera=CSFD(t(d["world2camera_v"]), t(d["world2camera_g"])),
         vmaps_prev=maps("vmaps"),
         nmaps_prev=maps("nmaps"),
