@@ -212,3 +212,25 @@ def test_frame_turns_alternate_and_summarise():
     assert order.count("parent") == order.count("change") == 3
     out = summary([10.0, 14.0, 11.0, 12.0, 13.0])
     assert out == dict(turns=5, median_ms=12.0, q1_ms=11.0, q3_ms=13.0, min_ms=10.0, max_ms=14.0)
+
+
+def test_profile_step_names_each_hand_kernel_once():
+    """profile_step's hand-kernel times take each device event by its own
+    function name: K3's march_kernel is not B4's window_march_kernel, K2's
+    fuse_kernel not B3c's fuse_bricks_kernel<true>, and B5a's two kernels
+    add up."""
+    from xslam_tpu_torch.profile_step import hand_kernel_ms
+
+    by_name = {
+        "(anonymous namespace)::window_march_kernel(float const*, float const*, float const*)": [0.5, 1],
+        "(anonymous namespace)::march_kernel((anonymous namespace)::Volume, float const*, float*)": [0.25, 1],
+        "void (anonymous namespace)::fuse_bricks_kernel<true>(float*, float*, float*)": [0.125, 1],
+        "(anonymous namespace)::event_mask_kernel(float const*, float const*, unsigned char*, int)": [1.0, 1],
+        "(anonymous namespace)::skip_distance_kernel(unsigned char const*, int*, int, int, int)": [2.0, 1],
+        "void at::native::vectorized_elementwise_kernel<4>(int)": [8.0, 3],
+    }
+    ms = hand_kernel_ms(by_name)
+    assert ms["window_march"] == 0.5 and ms["march_fixed"] == 0.25
+    assert ms["fuse_bricks"] == 0.125 and ms["fuse_volume"] == 0.0
+    assert ms["skip_field"] == 3.0 and ms["march_skip"] == 0.0
+    assert sum(ms.values()) == 3.875

@@ -48,7 +48,9 @@ from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
-# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a: its two kernels)
+# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a: its two kernels); a name
+# matches a device event whose demangled name holds "::<name>" followed by "(" or "<" (so march_kernel is not
+# window_march_kernel)
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
@@ -85,6 +87,17 @@ def stage_launches(events, n_frames: int) -> dict:
             if i >= 0 and e.time_range.start <= ranges[i][1]:
                 out[ranges[i][2]] += 1.0 / n_frames
     return out
+
+
+def hand_kernel_ms(by_name: dict) -> dict:
+    """Device ms of each hand kernel (:data:`HAND_KERNELS`) out of
+    ``{device event name: [ms, calls]}``."""
+    def matches(name: str, kernel: str) -> bool:
+        return f"::{kernel}(" in name or f"::{kernel}<" in name
+
+    return {k: sum(v[0] for name, v in by_name.items()
+                   if any(matches(name, kernel) for kernel in ((pat,) if isinstance(pat, str) else pat)))
+            for k, pat in HAND_KERNELS.items()}
 
 
 def set_options(config, args) -> None:
@@ -157,10 +170,7 @@ def main(argv=None):
         acc[0] += e.time_range.elapsed_us() / 1e3
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    hand = {
-        k: sum(v[0] for name, v in by_name.items() if any(p in name for p in ((pat,) if isinstance(pat, str) else pat)))
-        / f for k, pat in HAND_KERNELS.items()
-    }
+    hand = {k: ms / f for k, ms in hand_kernel_ms(by_name).items()}
     launches = stage_launches(prof.events(), f)
     stages = {}
     for e in prof.key_averages():
