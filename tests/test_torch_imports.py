@@ -53,6 +53,7 @@ def test_module_imports_no_jax(imported, module):
 def test_every_port_module_is_probed():
     assert {"xslam_tpu_torch.ops.fusion_brick", "xslam_tpu_torch.ops.kernels", "xslam_tpu_torch.models.kinfu",
             "xslam_tpu_torch.ops.bricks", "xslam_tpu_torch.ops.raycast_bricks", "xslam_tpu_torch.profile_step",
+            "xslam_tpu_torch.io.options",
             "chip_smoke"} <= set(MODULES)
 
 

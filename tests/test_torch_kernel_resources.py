@@ -186,7 +186,8 @@ def test_profile_step_keeps_the_files_fusion_settings(flags, want):
     """``profile_step`` profiles a file's brick settings as the file states
     them; only the options given on the command line change."""
     from xslam_tpu_torch.io.config import SlamConfig
-    from xslam_tpu_torch.profile_step import parser, set_options
+    from xslam_tpu_torch.io.options import set_options
+    from xslam_tpu_torch.profile_step import parser
 
     config = SlamConfig(fusion_mode="brick", fusion_brick_cap=1234, fusion_overflow="flag")
     set_options(config, parser().parse_args(["configs/synthetic.yaml", *flags]))

@@ -330,8 +330,9 @@ def test_refresh_branch(scene):
     a quarter, windows at half and full), through the wrappers as through
     the plain composition, and JAX's temporal raycast takes its hier2 branch."""
     anchor = torch.full((120, 160), torch.inf)
-    assert float(trb.anchor_coverage(anchor)) == 0.0
-    vm, nm, t_found = _port_maps(scene, 3, anchor, refresh=None)
+    coverage = float(trb.anchor_coverage(anchor))
+    assert coverage == 0.0
+    vm, nm, t_found = _port_maps(scene, 3, anchor, refresh=coverage < 0.5)
     jvm, jnm, jt = _jax_maps(scene, 3, jnp.asarray(anchor.numpy()))
     _map_close(jvm, vm)
     _map_close(jnm, nm, rtol=1e-4)
@@ -443,6 +444,8 @@ def test_use_gt_pose_brick_volume_equals_dense():
     (dict(BENCH, raycast_quad_taps=True), NotImplementedError),
     (dict(BENCH, raycast_temporal_phase1=4), NotImplementedError),
     (dict(BENCH, raycast_skip_gran=4), NotImplementedError),
+    (dict(BENCH, raycast_compact=True), NotImplementedError),
+    (dict(raycast_compact=True), NotImplementedError),
     (dict(BENCH, raycast_normals="tsdf"), ValueError),  # reuse needs screen normals (the JAX engine's check)
     (dict(BENCH, fusion_mode="dense"), ValueError),
     (dict(raycast_march="temporal"), ValueError),

@@ -8,7 +8,7 @@ import sys
 import pytest
 import yaml
 
-from xslam_tpu_torch.profile_step import BENCH_ARGS
+from xslam_tpu_torch.io.options import BENCH_ARGS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # one PyTorch thread: the suite's other workers hold the cores

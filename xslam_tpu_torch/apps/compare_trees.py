@@ -16,7 +16,7 @@ change, parent for ``chip_smoke.py`` (the first run of a tree includes its
 build), then ``xslam_tpu_torch.profile_step`` on ``configs/synthetic.yaml`` as
 the file says, with ``--fixed-assoc --model-map-level 1``, with bench.py's
 brick fusion and in bench.py's whole configuration
-(``profile_step.BENCH_ARGS``) on each tree, then ``xslam_tpu_torch.apps.kernel_resources`` on
+(``io.options.BENCH_ARGS``) on each tree, then ``xslam_tpu_torch.apps.kernel_resources`` on
 each. Every command's output goes to ``<out>/<tree><n>_<what>.txt`` (and
 ``.err``); the card's name and power limit to ``<out>/card.txt``. Prints one
 JSON line per command (tree, what, exit code, seconds) and, from each smoke
@@ -34,7 +34,7 @@ import sys
 import time
 from pathlib import Path
 
-from ..profile_step import BENCH_ARGS
+from ..io.options import BENCH_ARGS
 
 PROFILE = ["-m", "xslam_tpu_torch.profile_step", "configs/synthetic.yaml"]
 COMMANDS = {

@@ -89,6 +89,7 @@
 #include <cstdint>
 
 #include "fusion.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -652,9 +653,9 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
 enum : int { SKIP = 0, FAR_UPDATE = 1, EXACT_UPDATE = 2 };
 
 // A brick's (x, y) column c (0..63: x offset c / 8, y offset c % 8): its 8 z voxels from z0, a multiple of 8,
-// in the dense (X, Y, Z) planes or, with ROWS, in the brick-major (NB, 512) rows (ops/bricks.py: lane
-// (x & 7) << 6 | (y & 7) << 3 | (z & 7), so the column is the 8 lanes from c * 8). Either way the run is
-// 32-byte aligned. The one place where a brick and a column become addresses.
+// in the dense (X, Y, Z) planes or, with ROWS, in the brick-major (NB, 512) rows (rows.cuh's row_index, so the
+// column is 8 consecutive lanes). Either way the run is 32-byte aligned. The one place where a brick and a
+// column become addresses.
 struct BrickColumn {
   int x, y, z0;
   size_t idx;  // of the column's first voxel
@@ -667,7 +668,8 @@ __device__ __forceinline__ BrickColumn brick_column(int b, int c, int nby, int n
   col.x = bx * BRICK + (c >> 3);
   col.y = by * BRICK + (c & 7);
   col.z0 = bz * BRICK;
-  col.idx = ROWS ? (size_t)b * (BRICK * BRICK * BRICK) + (size_t)c * BRICK : ((size_t)col.x * p.Y + col.y) * p.Z + col.z0;
+  col.idx = ROWS ? (size_t)xs::row_index(xs::make_rows(p.X / BRICK, nby, nbz), col.x, col.y, col.z0)
+                 : ((size_t)col.x * p.Y + col.y) * p.Z + col.z0;
   return col;
 }
 

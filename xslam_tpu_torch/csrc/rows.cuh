@@ -1,7 +1,7 @@
-// The brick-major volume (ops/bricks.py) as the raycast kernels read it: a
+// The brick-major volume (ops/bricks.py) as the kernels address it: a
 // plane of (NB, 512) rows, row b = (bx * nby + by) * nbz + bz of the 8^3
-// bricks, lane (x & 7) << 6 | (y & 7) << 3 | (z & 7). Shared by B4
-// (window.cu) and B5 (skip.cu).
+// bricks, lane (x & 7) << 6 | (y & 7) << 3 | (z & 7). Shared by B3c's row
+// variant (bricks.cu), B4 (window.cu) and B5 (skip.cu).
 
 #pragma once
 

@@ -86,7 +86,9 @@ class FrameResult(NamedTuple):
     anchor_coverage: Optional[torch.Tensor] = None
 
 
-# the values of each option that select paths this port has; the others raise
+# the values of each option that select paths this port has; the others raise. Not listed:
+# raycast_pair_taps (the JAX engine's scalar taps give the pair taps' bits) and raycast_temporal_cap_frac
+# (read only with raycast_temporal_phase1 > 0)
 _SLICE = {
     "volume_layout": ("dense", "brick"),
     "fusion_mode": ("dense", "brick"),
@@ -97,6 +99,7 @@ _SLICE = {
     "raycast_packed_taps": (False,),
     "raycast_quad_taps": (False,),
     "raycast_skip_gran": (8,),
+    "raycast_compact": (False,),
     "raycast_temporal_phase1": (0,),
 }
 # the raycast of each volume layout (march, refine, normals); the other combinations raise

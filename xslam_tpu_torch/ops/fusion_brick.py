@@ -511,6 +511,8 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     nbx, nby, nbz = _check_resolution(cfg.resolution)
     rows = _is_rows(value)
     shape = (nbx * nby * nbz, BRICK ** 3) if rows else cfg.resolution
+    if rows and value.numel() >= 1 << 31:
+        raise ValueError("the brick rows are addressed in 32 bits: at most 2^31 voxels")
     for t, name in ((value, "value"), (grad, "grad"), (weight, "weight")):
         kernels.check_tensor(t, name, torch.float32, shape)
     kernels.check_tensor(depth_m, "depth_m", torch.float32, (intr.height, intr.width))

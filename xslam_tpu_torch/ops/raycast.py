@@ -259,7 +259,7 @@ def _clamped(g, shape):
 
 
 def march_skip_plain(ray_start: CSFD, dirs_v: torch.Tensor, cfg: VolumeConfig, packed_read, shape,
-                     jump_unit: int = BRICK, stats: Optional[dict] = None) -> RaycastHit:
+                     stats: Optional[dict] = None) -> RaycastHit:
     """Empty-space-skipping march: the port of ``xslam_tpu/ops/raycast.py::
     march_skip`` over a jump-packed reader ``packed_read`` (g -> biased
     values: ``JUMP_BASE + dist`` where a cell at distance >= 2 may be jumped,
@@ -273,7 +273,7 @@ def march_skip_plain(ray_start: CSFD, dirs_v: torch.Tensor, cfg: VolumeConfig, p
     first one included."""
     voxel = cfg.voxel_size
     step = cfg.trunc_dist * 0.8
-    steps_per_cell = jump_unit * voxel / step
+    steps_per_cell = BRICK * voxel / step
     n_steps = int((RAY_MAX_M - RAY_MIN_M) / step) + 1
     start_v = ray_start.v[:, None, None]
     H, W = dirs_v.shape[-2:]

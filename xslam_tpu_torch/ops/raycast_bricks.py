@@ -292,21 +292,17 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
 
 def raycast_bricks(
     bvol: BrickVolume, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics, cfg: VolumeConfig,
-    t_anchor: torch.Tensor, refresh: Optional[bool] = None, temporal_window: int = 12,
-    temporal_min_coverage: float = 0.5, hier_window: int = 12,
+    t_anchor: torch.Tensor, refresh: bool, temporal_window: int = 12, hier_window: int = 12,
 ) -> Tuple[CSFD, CSFD, torch.Tensor]:
     """The temporal raycast of the model maps at ``intr``'s resolution from a
     brick-major volume, through the kernels: ``(vmap, nmap, t_found)``, dual
     world maps (3, H, W) with NaN sentinels and the march's hit distances
     (the next frame's fallback anchors; 1e9 where none). ``refresh``: take
     the ``hier2`` refresh (B5a, B5b, B4 twice) instead of the anchored march
-    (B4); None decides it here, as the reference does, from the anchors'
-    coverage (one host read). On CPU tensors every kernel runs its plain
+    (B4); the engine decides it from :func:`anchor_coverage`. On CPU tensors every kernel runs its plain
     version, so the result is :func:`raycast_bricks_rays`'s with the rays of
     :func:`kernels.camera_rays`."""
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
-    if refresh is None:
-        refresh = float(anchor_coverage(t_anchor)) < temporal_min_coverage
     if refresh:
         dist = bricks.skip_field(bvol, cfg.resolution)
         coarse = march_skip(bvol, dist, pose, intr, cfg)

@@ -16,16 +16,9 @@ and device time and launches per frame (the engine's profiler ranges
 leaves out the hand kernels, which are reported apart), the launches per
 frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
-``--fixed-assoc``, ``--model-map-level``, ``--fusion-mode``,
-``--fusion-brick-cap``, ``--fusion-overflow``, ``--volume-layout``,
-``--raycast-march``, ``--raycast-refine`` and ``--raycast-normals`` set
-``icp_fixed_assoc``, ``model_map_level``, ``fusion_mode``,
-``fusion_brick_cap``, ``fusion_overflow``, ``volume_layout``,
-``raycast_march``, ``raycast_refine`` and ``raycast_normals`` over the
-file's values (bench.py's brick fusion: ``--fusion-mode brick --fusion-brick-cap
-2816 --fusion-overflow dense``; its whole configuration, :data:`BENCH_ARGS`:
-also ``--fixed-assoc --model-map-level 1 --volume-layout brick
---raycast-march temporal --raycast-refine reuse --raycast-normals screen``).
+the other options (:mod:`xslam_tpu_torch.io.options`) set the configuration
+over the file's values (bench.py's configuration:
+:data:`~xslam_tpu_torch.io.options.BENCH_ARGS`).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -43,6 +36,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .io.config import load_config
+from .io.options import add_options, set_options
 from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
 
@@ -60,12 +54,6 @@ HAND_KERNELS = {
     "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
     "screen_normals": "screen_normals_kernel", "skip_field": ("event_mask_kernel", "skip_distance_kernel"), "march_skip": "march_skip_kernel",
 }
-# bench.py:78-95's configuration as command-line options
-BENCH_ARGS = ("--fixed-assoc", "--model-map-level", "1", "--fusion-mode", "brick", "--fusion-brick-cap", "2816",
-              "--fusion-overflow", "dense", "--volume-layout", "brick", "--raycast-march", "temporal",
-              "--raycast-refine", "reuse", "--raycast-normals", "screen")
-OPTIONS = ("model_map_level", "fusion_mode", "fusion_brick_cap", "fusion_overflow", "volume_layout", "raycast_march",
-           "raycast_refine", "raycast_normals")
 
 
 def card() -> str:
@@ -98,29 +86,6 @@ def hand_kernel_ms(by_name: dict) -> dict:
     return {k: sum(v[0] for name, v in by_name.items()
                    if any(matches(name, kernel) for kernel in ((pat,) if isinstance(pat, str) else pat)))
             for k, pat in HAND_KERNELS.items()}
-
-
-def set_options(config, args) -> None:
-    """Set on ``config`` the options given on the command line; the others
-    keep the file's values."""
-    for key in OPTIONS:
-        if getattr(args, key) is not None:
-            setattr(config, key, getattr(args, key))
-    if args.fixed_assoc:
-        config.icp_fixed_assoc = True
-
-
-def add_options(ap: argparse.ArgumentParser) -> None:
-    """The configuration options a run may set over its file's (:func:`set_options`)."""
-    ap.add_argument("--fixed-assoc", action="store_true", help="icp_fixed_assoc=True")
-    ap.add_argument("--model-map-level", type=int, default=None, help="model_map_level")
-    ap.add_argument("--fusion-mode", choices=("dense", "brick"), default=None, help="fusion_mode")
-    ap.add_argument("--fusion-brick-cap", type=int, default=None, help="fusion_brick_cap")
-    ap.add_argument("--fusion-overflow", choices=("flag", "dense"), default=None, help="fusion_overflow")
-    ap.add_argument("--volume-layout", choices=("dense", "brick"), default=None, help="volume_layout")
-    ap.add_argument("--raycast-march", choices=("fixed", "temporal"), default=None, help="raycast_march")
-    ap.add_argument("--raycast-refine", choices=("secant2", "reuse"), default=None, help="raycast_refine")
-    ap.add_argument("--raycast-normals", choices=("tsdf", "screen"), default=None, help="raycast_normals")
 
 
 def parser() -> argparse.ArgumentParser:

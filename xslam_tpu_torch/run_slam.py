@@ -1,7 +1,7 @@
 """End-to-end SLAM driver of the PyTorch port on the synthetic dataset.
 
 Counterpart of ``apps/run_slam.py``: YAML config in (the options of
-:mod:`xslam_tpu_torch.profile_step` set over the file's, e.g. bench.py's
+:mod:`xslam_tpu_torch.io.options` set over the file's, e.g. bench.py's
 configuration with ``--fixed-assoc --model-map-level 1 --fusion-mode brick
 --fusion-brick-cap 2816 --fusion-overflow dense --volume-layout brick
 --raycast-march temporal --raycast-refine reuse --raycast-normals screen``),
@@ -25,9 +25,9 @@ import numpy as np
 import torch
 
 from .io.config import load_config
+from .io.options import add_options, set_options
 from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
-from .profile_step import add_options, set_options
 from .utils.evaluation import ate_rmse, normalize_to_first
 
 
