@@ -290,3 +290,21 @@ def test_cached_volume2world_gives_the_same_frame():
     assert torch.equal(a.volume.value, b.volume.value)
     for x, y in zip(a.vmaps_prev + a.nmaps_prev, b.vmaps_prev + b.nmaps_prev):
         assert torch.equal(x.v.view(torch.int32), y.v.view(torch.int32))
+
+
+def test_depth_tensor_on_the_engine_device_gives_the_host_arrays_frame():
+    """A uint16 depth tensor already on the engine's device is taken as it is:
+    the same frames fed as numpy arrays and as CPU tensors give the same pose
+    bits; a tensor of another type raises."""
+    cfg = small_config(end_frame=3)
+    ds = small_dataset(3, degrees_per_frame=1.0)
+    engine = TorchEngine(torch_config(cfg), device="cpu")
+    a, b = engine.init_state(), engine.init_state()
+    for i in range(3):
+        depth = np.asarray(ds.get_depth(i), np.uint16)
+        a, ra = engine.process_frame(a, depth)
+        b, rb = engine.process_frame(b, torch.from_numpy(depth.copy()))
+        assert torch.equal(ra.camera2world.v.view(torch.int32), rb.camera2world.v.view(torch.int32))
+        assert torch.equal(ra.camera2world.g.view(torch.int32), rb.camera2world.g.view(torch.int32))
+    with pytest.raises(ValueError, match="uint16"):
+        engine.process_frame(b, torch.from_numpy(depth.astype(np.int32)))

@@ -43,6 +43,23 @@ def test_run_slam_cli(tmp_path, options):
     assert (out / "gt" / "frame-000003.pose.txt").exists()
 
 
+def test_run_slam_reports_brick_cap_overflow(tmp_path):
+    """Brick fusion with ``--fusion-overflow flag`` and a cap below a frame's
+    ACTIVE bricks: the CLI prints the reference's overflow line
+    (apps/run_slam.py) for the frames whose map update was partial."""
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs/synthetic.yaml")))
+    cfg.update(_SMALL, end_frame=2, output_dir=str(tmp_path / "out") + "/")
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.dump(cfg))
+    res = subprocess.run(
+        [sys.executable, "-m", "xslam_tpu_torch.run_slam", str(path), "--device", "cpu", "--fusion-mode", "brick",
+         "--fusion-brick-cap", "8", "--fusion-overflow", "flag"],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=_ENV,
+    )
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "frame 0: fusion brick-cap overflow (map update partial)" in res.stdout, res.stdout[-2000:]
+
+
 def test_run_slam_needs_cuda_by_default(tmp_path):
     """Without ``--device`` the driver runs on the card, and says so where
     there is none instead of falling back to the CPU."""

@@ -142,6 +142,8 @@ class XSlamEngine:
         _check_config(config)
         self.config = config
         self.device = _device(device)
+        # the device a tensor made on self.device reports (cuda:N for "cuda")
+        self._placed = torch.empty(0, device=self.device).device
         self.intr = config.intrinsics
         self.vol_cfg = fusion.VolumeConfig(
             resolution=tuple(config.tsdf_size),
@@ -182,8 +184,18 @@ class XSlamEngine:
         """Track + fuse one frame (``ProcessFrame``,
         KinectFusionReconstruction.cpp:147-159). ``gt_pose`` (c2w) is used
         when the config sets ``use_gt_pose``. The volume of ``state`` is
-        updated in place and shared with the returned state."""
-        depth = torch.as_tensor(np.asarray(depth_u16, np.uint16)).to(self.device)
+        updated in place and shared with the returned state.
+
+        ``depth_u16`` (H, W) in mm: a host array, uploaded here, or a uint16
+        tensor already on the engine's device, taken as it is (no host round
+        trip); a tensor of another type or on another device raises."""
+        if isinstance(depth_u16, torch.Tensor):
+            if depth_u16.dtype != torch.uint16 or depth_u16.device != self._placed:
+                raise ValueError(f"depth: expected a uint16 tensor on {self._placed}, got {depth_u16.dtype} on "
+                                 f"{depth_u16.device}")
+            depth = depth_u16
+        else:
+            depth = torch.as_tensor(np.asarray(depth_u16, np.uint16)).to(self.device)
         gt = np.eye(4, dtype=np.float32) if gt_pose is None else np.asarray(gt_pose, np.float32)
         return process_frame(
             state, depth, gt, config=self.config, intr=self.intr, vol_cfg=self.vol_cfg,

@@ -59,6 +59,8 @@ def main(argv=None):
     engine = XSlamEngine(config, device=args.device)
     state = engine.init_state()
     out_dir = config.output_dir
+    # only brick fusion that flags an overflow can leave a frame's map update partial: dense frames read nothing
+    may_overflow = config.fusion_mode == "brick" and config.fusion_overflow == "flag"
     total_ms, timed = 0.0, 0
     print("start slam!")
     for i, fid in enumerate(frame_ids):
@@ -78,6 +80,8 @@ def main(argv=None):
             save_pose(os.path.join(out_dir, "gt"), fid, gt)
         if not bool(res.align_ok):
             print(f"frame {i}: align failed! (inliers={int(res.inlier_count)})")
+        if may_overflow and bool(res.fusion_overflow):
+            print(f"frame {i}: fusion brick-cap overflow (map update partial)")
 
     if timed:
         device = engine.device
