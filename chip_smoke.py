@@ -34,11 +34,7 @@ Phases, in order:
    raycast kernels on the brick rows of that volume at the bench path's
    shapes (240x320 model maps): B4 (the anchored window march) with its
    ``reuse`` refine on frame 3's depth anchors and without it at the
-   refresh's half level, each of its variants (lanes a ray, steps a lane in
-   a round, threads a block) at both, B4n (screen normals) on B4's map in
-   each of its variants (the direct kernel in two block sizes, staged
-   tiles of 32x8 and 64x8), every variant timed warm and cold in two turns
-   on a line of its own, B5a (the skip
+   refresh's half level, B4n (screen normals) on B4's map, B5a (the skip
    field) on every brick, B5b (the skip march at 60x80) against its plain
    version on every ray and against the plain fixed march as the reference
    holds it, each bit for bit, timed warm and cold; K4 (the ICP system, its tail, the association that
@@ -869,17 +865,6 @@ def _lanes_equal(tag: str, lanes: dict) -> dict:
     return dict(frac_equal=eq, max_ulp=ulp, nan_masks_equal=nans, max_abs_err=err)
 
 
-def _turns(runs: dict, reps: int, cold_reps: int) -> dict:
-    """Warm and cold ms of each of ``runs`` ({key: fn}), timed in two turns,
-    forwards then backwards (a, b, ..., b, a): each key's two readings."""
-    keys = list(runs)
-    out = {k: dict(ms=[], cold_ms=[]) for k in keys}
-    for k in keys + keys[::-1]:
-        out[k]["ms"].append(time_ms(runs[k], reps))
-        out[k]["cold_ms"].append(time_cold_ms(runs[k], cold_reps))
-    return out
-
-
 def phase_window(ctx):
     """B4 and B4n against their plain versions, bit for bit, at the bench
     path's shapes: B4 with the refine, the temporal frame's march (240x320
@@ -887,12 +872,8 @@ def phase_window(ctx):
     ``reuse`` refine through the pair taps; B4 without it, the refresh's half
     level (120x160 rays anchored at the plain skip march's quarter-level
     hits) against ``_window_repair``; B4n on B4's vertex map against
-    ``screen_normals_plain``. First through the wrappers (the shipped
-    variants), then every variant of each (``WINDOW_VARIANTS``,
-    ``NORMALS_VARIANTS``) on outputs filled with a sentinel first, each held to
-    the plain version bit for bit and timed from prepared arguments, warm and
-    cold (L2 flushed before each launch), in two turns (a, b, ..., b, a); one
-    line a variant."""
+    ``screen_normals_plain``. Each timed from prepared arguments, warm and
+    cold (L2 flushed before each launch)."""
     from xslam_tpu_torch.ops import bricks, kernels, raycast
     from xslam_tpu_torch.ops import raycast_bricks as rb
 
@@ -925,12 +906,12 @@ def phase_window(ctx):
     accepted = int(torch.isfinite(vmap.v[0]).sum())
     vv, vg, tf = torch.empty_like(vmap.v), torch.empty_like(vmap.g), torch.empty_like(t_found)
 
-    def run_refine(variant):
-        def run():
-            check(ext.window_march(rows.value, rows.grad, pose, t_anchor, None, vv, vg, tf, None, *nb, H, W, H // 2,
-                                   W // 2, 1, WINDOW, *variant, *consts, stream) == 0, "window_march launch failed")
-        return run
+    def run_refine():
+        check(ext.window_march(rows.value, rows.grad, pose, t_anchor, None, vv, vg, tf, None, *nb, H, W, H // 2,
+                               W // 2, 1, WINDOW, *consts, stream) == 0, "window_march launch failed")
 
+    ms = time_ms(run_refine, 50)
+    cold = time_cold_ms(run_refine, 30)
     plain = time_ms(plain_refine, 3)
     # bytes: the anchors in, t_found and the dual vertex map out, the pose; operations: ~60 to make a ray, ~20
     # a sample (this run's: a ray stops once both events are known), ~250 a refined pixel (the secant, one dual
@@ -953,41 +934,15 @@ def phase_window(ctx):
     ch, cw = coarse.t_found.shape
     mf, md = torch.empty_like(mid.t_found), torch.empty_like(mid.t_dead)
 
-    def run_half(variant):
-        def run():
-            check(ext.window_march(rows.value, rows.grad, pose, coarse.t_found, coarse.t_dead, None, None, mf, md,
-                                   *nb, Hm, Wm, ch, cw, 2, WINDOW, *variant, *consts, stream) == 0,
-                  "window_march launch failed")
-        return run
+    def run_half():
+        check(ext.window_march(rows.value, rows.grad, pose, coarse.t_found, coarse.t_dead, None, None, mf, md, *nb,
+                               Hm, Wm, ch, cw, 2, WINDOW, *consts, stream) == 0, "window_march launch failed")
 
+    half_ms = time_ms(run_half, 50)
+    half_cold = time_cold_ms(run_half, 30)
     half_bound = bound_ms(ch * cw * 8 + Hm * Wm * 8 + 192, Hm * Wm * 60 + mstats["samples"] * 20)
 
-    # every variant of B4, bit for bit at both shapes, then timed in turns
-    b4_eq = {}
-    for variant in rb.WINDOW_VARIANTS:
-        for out in (vv, vg, tf, mf, md):
-            out.fill_(-7.0)
-        run_refine(variant)()
-        run_half(variant)()
-        torch.cuda.synchronize()
-        b4_eq[variant] = (
-            _lanes_equal(f"B4 {variant} (with the refine)", {"vmap.v": (vv, vp.v), "vmap.g": (vg, vp.g),
-                                                             "t_found": (tf, hp.t_found)}),
-            _lanes_equal(f"B4 {variant} (without the refine)", {"t_found": (mf, mp.t_found),
-                                                                "t_dead": (md, mp.t_dead)}))
-    refine_t = _turns({v: run_refine(v) for v in rb.WINDOW_VARIANTS}, 50, 30)
-    half_t = _turns({v: run_half(v) for v in rb.WINDOW_VARIANTS}, 50, 30)
-    for variant in rb.WINDOW_VARIANTS:
-        emit("B4 variant", lanes=variant[0], batch=variant[1], threads=variant[2],
-             shipped=[use for use, v in rb.WINDOW_VARIANT.items() if v == variant],
-             max_abs_err=max(b4_eq[variant][0]["max_abs_err"], b4_eq[variant][1]["max_abs_err"]),
-             ms=refine_t[variant]["ms"], cold_ms=refine_t[variant]["cold_ms"],
-             half_level_ms=half_t[variant]["ms"], half_level_cold_ms=half_t[variant]["cold_ms"])
-    shipped, shipped_half = rb.WINDOW_VARIANT["refine"], rb.WINDOW_VARIANT["march"]
-    ms, cold = refine_t[shipped]["ms"][0], refine_t[shipped]["cold_ms"][0]
-    half_ms, half_cold = half_t[shipped_half]["ms"][0], half_t[shipped_half]["cold_ms"][0]
-
-    # B4n on B4's vertex map, through the wrapper, then every variant
+    # B4n on B4's vertex map
     nmap = raycast.screen_normals(vmap)
     np_ = raycast.screen_normals_plain(vmap)
     torch.cuda.synchronize()
@@ -995,50 +950,30 @@ def phase_window(ctx):
     normals_valid = float(torch.isfinite(nmap.v[0]).float().mean())
     nv, ng = torch.empty_like(nmap.v), torch.empty_like(nmap.g)
 
-    def run_normals(variant):
-        def run():
-            check(ext.screen_normals(vmap.v, vmap.g, nv, ng, *variant, stream) == 0, "screen_normals launch failed")
-        return run
+    def run_normals():
+        check(ext.screen_normals(vmap.v, vmap.g, nv, ng, stream) == 0, "screen_normals launch failed")
 
-    b4n_eq = {}
-    for variant in raycast.NORMALS_VARIANTS:
-        nv.fill_(-7.0)
-        ng.fill_(-7.0)
-        run_normals(variant)()
-        torch.cuda.synchronize()
-        b4n_eq[variant] = _lanes_equal(f"B4n {variant}", {"nmap.v": (nv, np_.v), "nmap.g": (ng, np_.g)})
-    normals_t = _turns({v: run_normals(v) for v in raycast.NORMALS_VARIANTS}, 50, 30)
-    for variant in raycast.NORMALS_VARIANTS:
-        emit("B4n variant", pixels_a_thread=variant[0], threads=variant[1],
-             design="direct" if variant[0] == 0 else f"staged {32 * variant[0]}x8 tile",
-             shipped=variant == raycast.NORMALS_VARIANT, max_abs_err=b4n_eq[variant]["max_abs_err"],
-             ms=normals_t[variant]["ms"], cold_ms=normals_t[variant]["cold_ms"])
-    n_ms = normals_t[raycast.NORMALS_VARIANT]["ms"][0]
-    n_cold = normals_t[raycast.NORMALS_VARIANT]["cold_ms"][0]
+    n_ms = time_ms(run_normals, 50)
+    n_cold = time_cold_ms(run_normals, 30)
     n_plain = time_ms(lambda: raycast.screen_normals_plain(vmap), 3)
     n_bound = bound_ms(H * W * 48, H * W * 150)  # both lanes of the map in and the normals out; ~150 a pixel
 
-    emit("B4 window_march", case="orbit frame 3, depth anchors", shape=[H, W], window=WINDOW,
-         variant=list(shipped), **refine_eq, vertex_valid_fraction=valid, samples=stats["samples"], ms=ms,
-         cold_ms=cold, plain_ms=plain, bound_ms=refine_bound[0], bound_by=refine_bound[1], library_ms=None,
+    emit("B4 window_march", case="orbit frame 3, depth anchors", shape=[H, W], window=WINDOW, **refine_eq,
+         vertex_valid_fraction=valid, samples=stats["samples"], ms=ms, cold_ms=cold, plain_ms=plain,
+         bound_ms=refine_bound[0], bound_by=refine_bound[1], library_ms=None,
          library_note="no single PyTorch call computes it",
-         half_level=dict(shape=[Hm, Wm], coarse_shape=[ch, cw], variant=list(shipped_half),
-                         samples=mstats["samples"], ms=half_ms,
+         half_level=dict(shape=[Hm, Wm], coarse_shape=[ch, cw], samples=mstats["samples"], ms=half_ms,
                          cold_ms=half_cold, bound_ms=half_bound[0], bound_by=half_bound[1], **half_eq))
-    emit("B4n screen_normals", shape=[H, W], variant=list(raycast.NORMALS_VARIANT), **normals_eq,
-         normal_valid_fraction=normals_valid, ms=n_ms, cold_ms=n_cold, plain_ms=n_plain, bound_ms=n_bound[0],
-         bound_by=n_bound[1], library_ms=None, library_note="no single PyTorch call computes it")
+    emit("B4n screen_normals", shape=[H, W], **normals_eq, normal_valid_fraction=normals_valid, ms=n_ms,
+         cold_ms=n_cold, plain_ms=n_plain, bound_ms=n_bound[0], bound_by=n_bound[1], library_ms=None,
+         library_note="no single PyTorch call computes it")
     check(normals_valid > 0.5, f"B4n: normals at only {normals_valid:.3f} of the pixels")
-    max_err = max([refine_eq["max_abs_err"], half_eq["max_abs_err"]] + [e["max_abs_err"] for pair in b4_eq.values()
-                                                                        for e in pair])
     return {
-        "window_march": dict(max_abs_err=max_err, ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=refine_bound[0],
-                             bound_by=refine_bound[1], half_level_ms=half_ms, half_level_cold_ms=half_cold,
-                             half_level_bound_ms=half_bound[0], variant=list(shipped),
-                             half_level_variant=list(shipped_half)),
-        "screen_normals": dict(max_abs_err=max([normals_eq["max_abs_err"]]
-                                               + [e["max_abs_err"] for e in b4n_eq.values()]), ms=n_ms, cold_ms=n_cold, plain_ms=n_plain, bound_ms=n_bound[0], bound_by=n_bound[1],
-                               variant=list(raycast.NORMALS_VARIANT)),
+        "window_march": dict(max_abs_err=refine_eq["max_abs_err"], ms=ms, cold_ms=cold, plain_ms=plain,
+                             bound_ms=refine_bound[0], bound_by=refine_bound[1], half_level_ms=half_ms,
+                             half_level_cold_ms=half_cold, half_level_bound_ms=half_bound[0]),
+        "screen_normals": dict(max_abs_err=normals_eq["max_abs_err"], ms=n_ms, cold_ms=n_cold, plain_ms=n_plain,
+                               bound_ms=n_bound[0], bound_by=n_bound[1]),
     }
 
 

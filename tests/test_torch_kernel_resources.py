@@ -85,19 +85,6 @@ def test_block_threads_covers_every_global_function():
     assert main_path <= set(BLOCK_THREADS), main_path - set(BLOCK_THREADS)
 
 
-
-def test_block_threads_of_templated_kernels():
-    """A kernel whose block size is a template argument reports the size its
-    instantiation names; the others the table's."""
-    from xslam_tpu_torch.apps.kernel_resources import block_threads
-
-    assert block_threads("window_march_kernel<1, 4, 128>") == 128
-    assert block_threads("window_march_kernel<4, 3, 64>") == 64
-    assert block_threads("screen_normals_direct_kernel<64>") == 64
-    assert block_threads("screen_normals_kernel<2>") == 256
-    assert block_threads("march_kernel") == 256
-    assert block_threads("probe_a_kernel") is None
-
 SASS = """\
 \tcode for sm_90a
 \t\tFunction : refine_kernel

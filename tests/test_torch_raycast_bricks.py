@@ -18,13 +18,9 @@ the JAX package over four orbit frames, 160x120 rays).
 - The kernels' index rules, in numpy: B4's anchor (a pixel's 2x2 coarse
   neighbourhood, or the 2x2 pool of an anchor map) equals the plain
   version's padded repeat; B5b's reads of the distance instead of the
-  packed rows give the packed values and jumps bit for bit; B4's lane split
-  (each variant's rounds, shuffles and shuffle-min over lanes) gives the
-  serial loop's events and samples bit for bit (seeded cases and a
-  hypothesis case), and its lanes' tap products, added by step in the
-  leader's order, give ``trilinear_pair_bricks``' sum; B4n's staged tiles
-  and halos give ``screen_normals_plain``'s normals at the edges of odd
-  sizes.
+  packed rows give the packed values and jumps bit for bit; B4's rounds
+  (a round's steps all read before any is tested) give the serial loop's
+  events and samples bit for bit (seeded cases and a hypothesis case).
 - ``raycast_bricks`` through the wrappers equals ``raycast_bricks_rays``
   bit for bit, temporal and refresh; the refresh (all anchors infinite)
   agrees with JAX's temporal raycast on the same volume, and so does the
@@ -37,6 +33,9 @@ the JAX package over four orbit frames, 160x120 rays).
   brick layout's volume is the dense layout's bit for bit; every other
   option value still raises.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +57,6 @@ from xslam_tpu.ops import fusion_brick as jbrick
 from xslam_tpu.ops import raycast as jraycast
 from xslam_tpu.ops import raycast_bricks as jrb
 from xslam_tpu.utils.evaluation import ate_rmse, normalize_to_first
-from xslam_tpu_torch.csfd import vec3
 from xslam_tpu_torch.csfd.single import CSFD as TCSFD
 from xslam_tpu_torch.geometry.intrinsics import Intrinsics
 from xslam_tpu_torch.models.kinfu import XSlamEngine as TorchEngine
@@ -300,6 +298,7 @@ def test_window_anchor_kernel_rule(case):
 
 RAY_MAX = np.float32(5.0)
 NO_STEP = 2 ** 31 - 1
+CSRC = Path(trb.__file__).resolve().parents[1] / "csrc"
 
 
 def _march_times(t_begin, step, n):
@@ -309,8 +308,8 @@ def _march_times(t_begin, step, n):
 
 
 def _serial_window(first, samples, inside, t_curr, window):
-    """csrc/window.cu's march as one thread a ray marches it step by step
-    (variant <1, 1, 256>): ``samples[k]`` is step k's read (0 + 1e-5
+    """B4's march as PR 10's kernel and the plain loop march it, one step at
+    a time: ``samples[k]`` is step k's read (0 + 1e-5
     outside the volume), ``first`` the read at the clamped voxel."""
     t_found = t_dead = np.float32(INF_T)
     f0, f1 = np.float32(1.0), np.float32(-1.0)
@@ -331,62 +330,54 @@ def _serial_window(first, samples, inside, t_curr, window):
     return t_found, t_dead, f0, f1
 
 
-def _lane_window(first, samples, inside, t_curr, window, L, B):
-    """numpy twin of window_march_kernel<L, B>'s march: rounds of L * B
-    steps, lane l reading steps base + l * B + j (all before any test; a dead
-    step, past the window or 5 m, reads nothing), its first step's ``prev``
-    lane l - 1's last sample by the shuffle up, for lane 0 the carried one;
-    each lane's first crossing and death by step, then the butterfly
-    shuffle-min over the lanes (``f0``, ``f1`` from the lane that wins); a
-    round that ends with both events known is the last."""
-    kc, kd = [NO_STEP] * L, [NO_STEP] * L
-    f0, f1 = [np.float32(1.0)] * L, [np.float32(-1.0)] * L
-    carry = first
+def _round_window(first, samples, inside, t_curr, window, batch):
+    """numpy twin of window_march_kernel's march: rounds of ``batch`` steps,
+    every read of a round before any test (a dead step, past the window or
+    5 m, reads nothing), the steps then tested in order, each ray's first
+    crossing and death kept by step; a round that ends with both events known
+    is the last."""
+    kc = kd = NO_STEP
+    f0, f1 = np.float32(1.0), np.float32(-1.0)
+    prev = first
     base = 0
     while base < window and t_curr[base] < RAY_MAX:
-        smp = [[None] * B for _ in range(L)]
-        live = [[False] * B for _ in range(L)]
-        for lane in range(L):
-            for j in range(B):
-                k = base + lane * B + j
-                live[lane][j] = k < window and t_curr[k] < RAY_MAX
-                smp[lane][j] = samples[k] if live[lane][j] and inside[k] else np.float32(1e-5)
-        for lane in range(L):
-            prev = carry if lane == 0 else smp[lane - 1][B - 1]
-            for j in range(B):
-                k = base + lane * B + j
-                tsdf = smp[lane][j]
-                if live[lane][j]:
-                    death = not inside[k] or (prev < 0 and tsdf > 0)
-                    crossing = inside[k] and prev > 0 and tsdf < 0
-                    if crossing and k < kc[lane]:
-                        kc[lane], f0[lane], f1[lane] = k, prev, tsdf
-                    if death and k < kd[lane]:
-                        kd[lane] = k
-                prev = tsdf
-        carry = smp[L - 1][B - 1]
-        o = 1
-        while o < L:  # __shfl_xor_sync rounds: every lane reads its partner's values of the round before
-            okc, okd, of0, of1 = ([v[lane ^ o] for lane in range(L)] for v in (kc, kd, f0, f1))
-            for lane in range(L):
-                if okc[lane] < kc[lane]:
-                    kc[lane], f0[lane], f1[lane] = okc[lane], of0[lane], of1[lane]
-                kd[lane] = min(kd[lane], okd[lane])
-            o <<= 1
-        assert len(set(kc)) == 1 and len(set(kd)) == 1  # every lane holds the ray's events
-        if kc[0] != NO_STEP and kd[0] != NO_STEP:
+        ks = range(base, base + batch)
+        live = [k < window and t_curr[k] < RAY_MAX for k in ks]
+        smp = [samples[k] if ok and inside[k] else np.float32(1e-5) for k, ok in zip(ks, live)]
+        for k, ok, tsdf in zip(ks, live, smp):
+            if ok:
+                death = not inside[k] or (prev < 0 and tsdf > 0)
+                crossing = inside[k] and prev > 0 and tsdf < 0
+                if crossing and kc == NO_STEP:
+                    kc, f0, f1 = k, prev, tsdf
+                if death and kd == NO_STEP:
+                    kd = k
+            prev = tsdf
+        if kc != NO_STEP and kd != NO_STEP:
             break
-        base += L * B
-    t_found = t_curr[kc[0]] if kc[0] != NO_STEP else np.float32(INF_T)
-    t_dead = t_curr[kd[0]] if kd[0] != NO_STEP else np.float32(INF_T)
-    return t_found, t_dead, f0[0], f1[0]
+        base += batch
+    t_found = t_curr[kc] if kc != NO_STEP else np.float32(INF_T)
+    t_dead = t_curr[kd] if kd != NO_STEP else np.float32(INF_T)
+    return t_found, t_dead, f0, f1
+
+
+def _kernel_batch() -> int:
+    """csrc/window.cu's BATCH: the steps a ray reads before it tests them."""
+    m = re.search(r"constexpr int BATCH = (\d+);", (CSRC / "window.cu").read_text())
+    assert m, "window.cu has no BATCH"
+    return int(m.group(1))
+
+
+# round sizes the twin is held to: the kernel's, and others around it so that rounds end before, on and past the
+# window's end and the 5 m cut
+ROUND_SIZES = (1, 2, 3, 4, 5)
 
 
 def _window_case(rng, kind, window):
     """(first, samples, inside, t_curr) of one ray: seeded samples in
     [-1, 1] (biased to positive before a surface), the volume exit and the
     times as ``kind`` asks."""
-    n = window + 16  # the lane twin reads up to a round past the window
+    n = window + 16  # the rounds twin reads up to a round past the window
     t_begin, step = np.float32(rng.uniform(0.2, 3.0)), np.float32(0.072)
     samples = rng.uniform(0.05, 1.0, n).astype(np.float32)
     inside = np.ones(n, bool)
@@ -412,20 +403,21 @@ def _window_case(rng, kind, window):
 
 @pytest.mark.parametrize("window", [12, 8])
 @pytest.mark.parametrize("kind", ["no_event", "crossing_then_death", "exit", "past_5m", "random"])
-def test_window_lane_split_is_the_serial_loop(kind, window):
-    """B4's variants: every (lanes, steps a lane) of ``WINDOW_VARIANTS`` gives
-    the serial loop's t_found, t_dead, f0 and f1, bits and all. A crossing
-    and a death cannot fall on one step (the crossing needs prev > 0 and an
-    inside read, the death prev < 0 or an exit), so the case that has both
-    puts them on neighbouring steps, which share a sample; with 2 or 4 lanes
-    that sample often comes by the shuffle."""
+def test_window_rounds_are_the_serial_loop(kind, window):
+    """B4's rounds: reading ``batch`` steps before testing them, for the
+    kernel's BATCH and the sizes around it, gives the serial loop's t_found,
+    t_dead, f0 and f1, bits and all. A crossing and a death cannot fall on
+    one step (the crossing needs prev > 0 and an inside read, the death prev
+    < 0 or an exit), so the case that has both puts them on neighbouring
+    steps, which share a sample, often across a round's end."""
+    assert _kernel_batch() in ROUND_SIZES
     rng = np.random.default_rng([window, len(kind)])
     for _ in range(200):
         case = _window_case(rng, kind, window)
         want = _serial_window(*case, window)
-        for L, B, _ in trb.WINDOW_VARIANTS:
-            got = _lane_window(*case, window, L, B)
-            assert np.array(got, np.float32).tobytes() == np.array(want, np.float32).tobytes(), (L, B, got, want)
+        for batch in ROUND_SIZES:
+            got = _round_window(*case, window, batch)
+            assert np.array(got, np.float32).tobytes() == np.array(want, np.float32).tobytes(), (batch, got, want)
         if kind == "no_event":
             assert want[:2] == (INF_T, INF_T)
         if kind == "past_5m":
@@ -435,8 +427,8 @@ def test_window_lane_split_is_the_serial_loop(kind, window):
 @settings(max_examples=150, deadline=None)
 @given(signs=st.lists(st.integers(-2, 2), min_size=28, max_size=28), exit_at=st.integers(0, 30),
        window=st.integers(0, 12), t_begin=st.floats(0.25, 5.25, width=32), first=st.integers(-1, 1))
-def test_window_lane_split_hypothesis(signs, exit_at, window, t_begin, first):
-    """The lane split against the serial loop on drawn sign patterns (0 a
+def test_window_rounds_hypothesis(signs, exit_at, window, t_begin, first):
+    """B4's rounds against the serial loop on drawn sign patterns (0 a
     sample of exactly 1e-5: neither side of a crossing's tests), exits and
     start times."""
     samples = np.array(signs, np.float32) * np.float32(0.25) + np.float32(1e-5)
@@ -444,102 +436,9 @@ def test_window_lane_split_hypothesis(signs, exit_at, window, t_begin, first):
     samples = np.where(inside, samples, np.float32(1e-5)).astype(np.float32)
     case = (np.float32(first * 0.5) + np.float32(1e-5), samples, inside, _march_times(t_begin, 0.072, 28))
     want = _serial_window(*case, window)
-    for L, B, _ in trb.WINDOW_VARIANTS:
-        got = _lane_window(*case, window, L, B)
-        assert np.array(got, np.float32).tobytes() == np.array(want, np.float32).tobytes(), (L, B)
-
-
-def test_window_leader_tap_sum_is_trilinears_order():
-    """B4's refine: lane l of the ray's L loads and weights taps l * 8 / L ..
-    (l + 1) * 8 / L - 1, and the leader adds the eight products, each read
-    from lane k // T, slot k % T, in trilinear_pair_bricks' order: its
-    bits, for every lane count, on seeded taps and weights."""
-    rng = np.random.default_rng(11)
-    n = 4096
-
-    def dual(lo, hi):
-        return TCSFD(torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32)),
-                     torch.from_numpy(rng.uniform(-2.0, 2.0, n).astype(np.float32)))
-
-    a0, b0, c0 = dual(0.0, 1.0), dual(0.0, 1.0), dual(0.0, 1.0)
-    one = TCSFD(torch.ones(n), torch.zeros(n))
-    a1, b1, c1 = one - a0, one - b0, one - c0
-    taps = [dual(-1.0, 1.0) for _ in range(8)]
-    want = (taps[0] * (a1 * b1 * c1) + taps[1] * (a1 * b1 * c0) + taps[2] * (a1 * b0 * c1)
-            + taps[3] * (a1 * b0 * c0) + taps[4] * (a0 * b1 * c1) + taps[5] * (a0 * b1 * c0)
-            + taps[6] * (a0 * b0 * c1) + taps[7] * (a0 * b0 * c0))
-    w0, w1 = (a0, b0, c0), (a1, b1, c1)
-    for L in sorted({lanes for lanes, _, _ in trb.WINDOW_VARIANTS}):
-        T = 8 // L
-        mine = [[None] * T for _ in range(L)]
-        for lane in range(L):
-            for i in range(T):
-                k = lane * T + i
-                wx, wy, wz = (w0 if k >> 2 else w1)[0], (w0 if (k >> 1) & 1 else w1)[1], (w0 if k & 1 else w1)[2]
-                mine[lane][i] = taps[k] * ((wx * wy) * wz)
-        res = mine[0][0]
-        for k in range(1, 8):
-            res = res + mine[k // T][k % T]
-        assert torch.equal(res.v.view(torch.int32), want.v.view(torch.int32)), L
-        assert torch.equal(res.g.view(torch.int32), want.g.view(torch.int32)), L
-
-
-def _staged_neighbours(vmap: TCSFD, px: int):
-    """numpy twin of screen_normals_kernel<px>'s staging: each block's tile of
-    32 * px x 8 pixels with a one-pixel halo of the six planes, (NaN, 0) past
-    the map's edge; returns the (centre, x + 1, x - 1, y + 1, y - 1) dual maps
-    that its threads read from the tiles."""
-    v, g = vmap.v.numpy(), vmap.g.numpy()
-    _, H, W = v.shape
-    TW, TH = 32 * px, 8
-    out = [(np.full_like(v, -7.0), np.full_like(g, -7.0)) for _ in range(5)]
-    for y0 in range(0, H, TH):
-        for x0 in range(0, W, TW):
-            tv = np.full((3, TH + 2, TW + 2), np.nan, np.float32)
-            tg = np.zeros((3, TH + 2, TW + 2), np.float32)
-            for r in range(TH + 2):
-                for c in range(TW + 2):
-                    yy, xx = y0 - 1 + r, x0 - 1 + c
-                    if 0 <= yy < H and 0 <= xx < W:
-                        tv[:, r, c], tg[:, r, c] = v[:, yy, xx], g[:, yy, xx]
-            for r in range(1, TH + 1):
-                for c in range(1, TW + 1):
-                    y, x = y0 + r - 1, x0 + c - 1
-                    if y >= H or x >= W:
-                        continue
-                    for (ov, og), (dr, dc) in zip(out, ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))):
-                        ov[:, y, x], og[:, y, x] = tv[:, r + dr, c + dc], tg[:, r + dr, c + dc]
-    return [TCSFD(torch.from_numpy(a), torch.from_numpy(b)) for a, b in out]
-
-
-@pytest.mark.parametrize("shape", [(16, 64), (13, 37), (9, 70), (17, 65)])
-def test_normals_halo_fill_gives_the_plain_normals(shape):
-    """B4n's tiles: the staged tile and halo of each variant give every pixel
-    the neighbours ``screen_normals_plain`` shifts in (NaN value, zero
-    derivative past the edge), so the kernel's arithmetic on them (the plain
-    version's gates, the normalisation only where ok) gives its normals bit
-    for bit, at the image edges and on odd sizes."""
-    H, W = shape
-    rng = np.random.default_rng(H * W)
-    v = np.cumsum(np.ones((3, H, W)), axis=2) * 0.01 + rng.standard_normal((3, H, W)) * 1e-3
-    v[:, rng.random((H, W)) < 0.05] = np.nan
-    v[:, 2, :3] = 0.25  # a flat patch: a zero cross product
-    vmap = TCSFD(torch.from_numpy(v.astype(np.float32)),
-                 torch.from_numpy((1e-3 * rng.standard_normal((3, H, W))).astype(np.float32)))
-    want = traycast.screen_normals_plain(vmap)
-    for px in sorted({p for p, _ in traycast.NORMALS_VARIANTS if p > 0}):
-        ce, xp, xm, yp, ym = _staged_neighbours(vmap, px)
-        ok = (~torch.isnan(ce.v[0]) & ~torch.isnan(xp.v[0]) & ~torch.isnan(xm.v[0]) & ~torch.isnan(yp.v[0])
-              & ~torch.isnan(ym.v[0]))
-        n = vec3.cross(xp - xm, yp - ym)
-        nsq = vec3.dot(n, n)
-        ok = ok & (nsq.v > 0.0) & ~torch.isnan(nsq.v)
-        unit = vec3.normalized(n)
-        got = TCSFD(torch.where(ok[None], unit.v, torch.nan), torch.where(ok[None], unit.g, 0.0))
-        assert torch.equal(got.v.view(torch.int32), want.v.view(torch.int32)), px
-        assert torch.equal(got.g.view(torch.int32), want.g.view(torch.int32)), px
-        # the edge rows and columns have no neighbour on their outer side
-        assert bool(ok.any()) and not bool(ok[0].any() | ok[-1].any() | ok[:, 0].any() | ok[:, -1].any())
+    for batch in ROUND_SIZES:
+        got = _round_window(*case, window, batch)
+        assert np.array(got, np.float32).tobytes() == np.array(want, np.float32).tobytes(), batch
 
 
 def test_skip_reads_of_the_distance_are_the_packed_rows():

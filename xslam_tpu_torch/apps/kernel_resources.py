@@ -33,11 +33,9 @@ BLOCK_THREADS = {
     "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 64,
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
-    "window_march_kernel": 256, "screen_normals_kernel": 256, "event_mask_kernel": 256, "skip_distance_kernel": 256,
-    "march_skip_kernel": 256, "screen_normals_direct_kernel": 256,
+    "window_march_kernel": 128, "screen_normals_kernel": 64, "event_mask_kernel": 256, "skip_distance_kernel": 256,
+    "march_skip_kernel": 256,
 }
-# kernels whose block size is a template argument: its position, read from the instantiation's name
-TEMPLATE_THREADS = {"window_march_kernel": 2, "screen_normals_direct_kernel": 0}
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64
 
@@ -109,15 +107,6 @@ def global_loads(obj: Path) -> dict:
     return parse_sass(proc.stdout) if proc.returncode == 0 else {}
 
 
-def block_threads(name: str):
-    """Threads a block of kernel ``name`` (with its template arguments, as
-    :func:`function_name` gives it); ``None`` where the table has none."""
-    base, _, args = name.partition("<")
-    if base in TEMPLATE_THREADS and args:
-        return int(args.rstrip(">").split(",")[TEMPLATE_THREADS[base]])
-    return BLOCK_THREADS.get(base)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--csrc", default=str(CSRC_DIR), help="directory of the .cu sources")
@@ -143,7 +132,7 @@ def main(argv=None) -> int:
         for name, n in global_loads(out_dir / (src + ".o")).items():
             kernels.setdefault(name, {})["global_load_instructions"] = n
         for name, k in kernels.items():
-            threads = block_threads(name)
+            threads = BLOCK_THREADS.get(name.split("<")[0])
             if threads and k.get("registers"):
                 # registers are granted to a warp in units of 256
                 per_warp = -(-k["registers"] * 32 // 256) * 256

@@ -30,10 +30,10 @@ extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void*
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
-                               int lanes, int batch, int threads, float vs, float inv_vs, float step, float inv_step,
-                               float cx, float cy, float inv_fx, float inv_fy, void* stream);
+                               float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
+                               float inv_fy, void* stream);
 extern "C" int xs_screen_normals(const void* vmap_v, const void* vmap_g, void* nmap_v, void* nmap_g, int H, int W,
-                                 int px, int threads, void* stream);
+                                 void* stream);
 extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, void* dist, int nbx, int nby, int nbz,
                              void* stream);
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
@@ -133,12 +133,10 @@ int fuse_bricks(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
                         trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, as_stream(stream));
 }
 
-// px, threads: the variant, pixels a thread along the row of a staged tile (1, 2) or 0 for the direct kernel,
-// and threads a block
 int screen_normals(const torch::Tensor& vmap_v, const torch::Tensor& vmap_g, torch::Tensor nmap_v,
-                   torch::Tensor nmap_g, int64_t px, int64_t threads, int64_t stream) {
+                   torch::Tensor nmap_g, int64_t stream) {
   return xs_screen_normals(vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(), nmap_g.data_ptr(), vmap_v.size(1),
-                           vmap_v.size(2), px, threads, as_stream(stream));
+                           vmap_v.size(2), as_stream(stream));
 }
 
 // mask: NB bytes of scratch; dist: the (NB,) int32 distances out
@@ -176,19 +174,18 @@ int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, co
 void* data_or_null(const std::optional<torch::Tensor>& t) { return t.has_value() ? t->data_ptr() : nullptr; }
 
 // anchor, anchor_dead: the coarse hits, or anchor_dead None and anchor the map to pool; vmap_v, vmap_g: the
-// refine's (3, H, W) outputs, or None for the march alone (then t_dead is written); lanes, batch, threads: the
-// variant
+// refine's (3, H, W) outputs, or None for the march alone (then t_dead is written)
 int window_march(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
                  const torch::Tensor& anchor, const std::optional<torch::Tensor>& anchor_dead,
                  const std::optional<torch::Tensor>& vmap_v, const std::optional<torch::Tensor>& vmap_g,
                  torch::Tensor t_found, const std::optional<torch::Tensor>& t_dead, int64_t nbx, int64_t nby,
-                 int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride, int64_t window,
-                 int64_t lanes, int64_t batch, int64_t threads, float vs, float inv_vs, float step, float inv_step,
-                 float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
+                 int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride, int64_t window, float vs,
+                 float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx, float inv_fy,
+                 int64_t stream) {
   return xs_window_march(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), anchor.data_ptr(),
                          data_or_null(anchor_dead), data_or_null(vmap_v), data_or_null(vmap_g), t_found.data_ptr(),
-                         data_or_null(t_dead), nbx, nby, nbz, H, W, ch, cw, stride, window, lanes, batch, threads, vs,
-                         inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, as_stream(stream));
+                         data_or_null(t_dead), nbx, nby, nbz, H, W, ch, cw, stride, window, vs, inv_vs, step,
+                         inv_step, cx, cy, inv_fx, inv_fy, as_stream(stream));
 }
 
 // vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs; direct: an int32 counter of the normal samples read

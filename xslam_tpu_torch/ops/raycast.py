@@ -39,11 +39,6 @@ from .preprocess import _shift2d
 from .sampling import gather3d, to_index
 
 MARCH_MODES = ("fixed",)
-# B4n's variants (csrc/window.cu), (pixels a thread, threads a block): the direct kernel (0), a thread a pixel,
-# in blocks of 256 or 64 threads, or a staged tile with 1 or 2 pixels a thread along the row (a block's tile 32 or
-# 64 x 8); NORMALS_VARIANT is the one the wrapper launches, the fastest on the card (PERF.md)
-NORMALS_VARIANTS = ((0, 256), (0, 64), (1, 256), (2, 256))
-NORMALS_VARIANT = (0, 64)
 
 
 class RaycastHit(NamedTuple):
@@ -457,10 +452,10 @@ def screen_normals_plain(vmap: CSFD) -> CSFD:
 
 def screen_normals(vmap: CSFD) -> CSFD:
     """Kernel B4n (``csrc/window.cu``): :func:`screen_normals_plain` of the
-    dual (3, H, W) vertex map in its variant :data:`NORMALS_VARIANT`, both
-    lanes, the same operations in the same order (the sources build with
-    ``-fmad=false``), so the bits of its plain version on the card. On CPU
-    tensors the plain version."""
+    dual (3, H, W) vertex map, a thread a pixel, both lanes, the same
+    operations in the same order (the sources build with ``-fmad=false``), so
+    the bits of its plain version on the card. On CPU tensors the plain
+    version."""
     if kernels.on_cpu(vmap.v, vmap.g):
         return screen_normals_plain(vmap)
     if vmap.v.dim() != 3 or vmap.v.shape[0] != 3:
@@ -468,6 +463,6 @@ def screen_normals(vmap: CSFD) -> CSFD:
     for t, name in ((vmap.v, "vmap.v"), (vmap.g, "vmap.g")):
         kernels.check_tensor(t, name, torch.float32, vmap.v.shape)
     out = CSFD(torch.empty_like(vmap.v), torch.empty_like(vmap.g))
-    kernels.launch("screen_normals", vmap.v.device, vmap.v, vmap.g, out.v, out.g, *NORMALS_VARIANT)
+    kernels.launch("screen_normals", vmap.v.device, vmap.v, vmap.g, out.v, out.g)
     kernels.launch_counts["screen_normals"] += 1
     return out

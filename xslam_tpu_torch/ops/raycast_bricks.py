@@ -50,12 +50,6 @@ from .sampling import to_index
 
 MID_WINDOW = 12  # the refresh's half-resolution window (xslam_tpu/ops/raycast_bricks.py::hier2_hit)
 SKIP_STRIDE = 4  # the refresh's skip march takes every 4th ray of the model maps in each axis
-# B4's variants (csrc/window.cu), (lanes a ray, steps a lane in a round, threads a block): one read a step in
-# blocks of 256 (the serial loop), one thread a ray reading 4 steps at a time, and 2 or 4 lanes a ray splitting the
-# 12-step window; all give the same bits. WINDOW_VARIANT is the one the wrapper launches with the refine (the
-# bench frame's march) and without it (the refresh's half level): the fastest of each on the card (PERF.md)
-WINDOW_VARIANTS = ((1, 1, 256), (1, 4, 256), (1, 4, 128), (2, 6, 256), (4, 3, 64))
-WINDOW_VARIANT = {"refine": (1, 4, 128), "march": (4, 3, 64)}
 
 
 def _value_reader(plane: torch.Tensor, res):
@@ -206,9 +200,7 @@ def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: V
     with ``refine`` (``stride`` 1) instead ``(vmap, t_found)``: the ``reuse``
     refine of the bracketing samples through the pair taps, the dual world
     vertex map (3, H, W) with NaN value and zero derivative where rejected,
-    and the march's ``t_found``. On the card the variant
-    ``WINDOW_VARIANT["refine"]`` or ``["march"]``; on CPU tensors its plain
-    version."""
+    and the march's ``t_found``. On CPU tensors its plain version."""
     res = cfg.resolution
     H, W = _strided(intr.height, stride), _strided(intr.width, stride)
     if refine and stride != 1:
@@ -255,8 +247,8 @@ def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: V
     step = cfg.trunc_dist * 0.8
     kernels.launch(
         "window_march", dev, bvol.value, bvol.grad, pose, anchor, anchor_dead, *outs, nbx, nby, nbz, H, W, ch, cw,
-        stride, int(window), *WINDOW_VARIANT["refine" if refine else "march"], f32(cfg.voxel_size),
-        kernels.reciprocal_f32(cfg.voxel_size), f32(step), kernels.reciprocal_f32(step), *kernels.camera_args(intr),
+        stride, int(window), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
+        kernels.reciprocal_f32(step), *kernels.camera_args(intr),
     )
     kernels.launch_counts["window_march"] += 1
     if refine:

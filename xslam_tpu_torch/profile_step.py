@@ -5,7 +5,7 @@ Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
         [--fixed-assoc] [--model-map-level L] [--fusion-mode brick] [--fusion-brick-cap N]
         [--fusion-overflow dense] [--volume-layout brick] [--raycast-march temporal] [--raycast-refine reuse]
-        [--raycast-normals screen] [--window-variant L B NT] [--normals-variant P NT]
+        [--raycast-normals screen]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
@@ -18,11 +18,7 @@ frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
 the other options (:mod:`xslam_tpu_torch.io.options`) set the configuration
 over the file's values (bench.py's configuration:
-:data:`~xslam_tpu_torch.io.options.BENCH_ARGS`). ``--window-variant`` and
-``--normals-variant`` launch another variant of B4 with the refine (of
-``ops.raycast_bricks.WINDOW_VARIANTS``) or B4n (of
-``ops.raycast.NORMALS_VARIANTS``) than the one the wrappers ship, to time it
-in the frame.
+:data:`~xslam_tpu_torch.io.options.BENCH_ARGS`).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -43,7 +39,6 @@ from .io.config import load_config
 from .io.options import add_options, set_options
 from .io.synthetic import SyntheticDataset
 from .models.kinfu import XSlamEngine
-from .ops import raycast, raycast_bricks
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
@@ -57,8 +52,7 @@ HAND_KERNELS = {
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
     "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
-    "screen_normals": ("screen_normals_kernel", "screen_normals_direct_kernel"),
-    "skip_field": ("event_mask_kernel", "skip_distance_kernel"), "march_skip": "march_skip_kernel",
+    "screen_normals": "screen_normals_kernel", "skip_field": ("event_mask_kernel", "skip_distance_kernel"), "march_skip": "march_skip_kernel",
 }
 
 
@@ -100,10 +94,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
-    ap.add_argument("--window-variant", type=int, nargs=3, default=None, metavar=("LANES", "BATCH", "THREADS"),
-                    help="B4's variant with the refine: lanes a ray, steps a lane in a round, threads a block")
-    ap.add_argument("--normals-variant", type=int, nargs=2, default=None, metavar=("PIXELS", "THREADS"),
-                    help="B4n's variant: pixels a thread of a staged tile (0: the direct kernel), threads a block")
     add_options(ap)
     return ap
 
@@ -117,14 +107,6 @@ def main(argv=None):
     n = args.warm + args.frames
     config.end_frame = n
     set_options(config, args)
-    if args.window_variant is not None:
-        if tuple(args.window_variant) not in raycast_bricks.WINDOW_VARIANTS:
-            raise ValueError(f"--window-variant: one of {raycast_bricks.WINDOW_VARIANTS}")
-        raycast_bricks.WINDOW_VARIANT = dict(raycast_bricks.WINDOW_VARIANT, refine=tuple(args.window_variant))
-    if args.normals_variant is not None:
-        if tuple(args.normals_variant) not in raycast.NORMALS_VARIANTS:
-            raise ValueError(f"--normals-variant: one of {raycast.NORMALS_VARIANTS}")
-        raycast.NORMALS_VARIANT = tuple(args.normals_variant)
     ds = SyntheticDataset(n_frames=n, intr=config.intrinsics)
     depths = [ds.get_depth(i) for i in range(n)]
     engine = XSlamEngine(config)
@@ -170,8 +152,7 @@ def main(argv=None):
         **({"fusion_brick_cap": config.fusion_brick_cap, "fusion_overflow": config.fusion_overflow}
            if config.fusion_mode == "brick" else {}),
         **({"volume_layout": "brick", "raycast_march": config.raycast_march, "raycast_refine": config.raycast_refine,
-            "raycast_normals": config.raycast_normals, "window_variant": raycast_bricks.WINDOW_VARIANT,
-            "normals_variant": raycast.NORMALS_VARIANT} if config.volume_layout == "brick" else {}),
+            "raycast_normals": config.raycast_normals} if config.volume_layout == "brick" else {}),
         "frames_profiled": f,
         "wall_ms_per_frame": wall_ms / f,
         "device_busy_ms_per_frame": busy_ms / f,
