@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -110,11 +111,13 @@ DEVICE_DEPTH_FRAME = 3  # the bench run's second run feeds this frame's depth as
 # launches of a frame (the host's launch, copy and fill calls, each one device event; profile_step.py's count):
 # as configs/synthetic.yaml says, with the cached association at half-resolution model maps (each level's
 # first ICP launch writes it: no launch of its own), with brick fusion (B3a, B3b and B3c where K2 was, one
-# launch each), and in bench.py's configuration (the brick layout, the temporal march: B4 and B4n where K3
-# and K5 were, the anchors and their coverage, one copy for both flags; on a refresh frame B5a, B5b and B4
-# once more); 3 of them in `preprocess` (K1, K7 once for both coarser levels, K8 once for all levels)
+# launch each), and in bench.py's configuration (the brick layout, the temporal march: B4 where K3 and K5
+# were, the anchors and their coverage, one copy for both flags; the screen normals B4n computed in K6's
+# launch, so no launch of their own: 675, where B4n's own launch made it 676 before; on a refresh frame B5a,
+# B5b and B4 once more); 3 of them in `preprocess` (K1, K7 once for both coarser levels, K8 once for all levels)
 FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main path, brick fusion": 660,
-                  "main path, bench": 676, "main path, bench refresh": 680}
+                  "main path, bench": 675, "main path, bench refresh": 679}
+PROBE_E_STEPS = 64  # probe E's dependent steps a ray (phase_probes): B5b's latency floor takes its time a step
 PREPROCESS_LAUNCHES = 3
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 
@@ -141,7 +144,7 @@ KERNELS = {
     "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
     "icp_associate": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:72", "main path, fixed association"),
     "window_march": ("xslam_tpu_torch/csrc/window.cu", "xslam_tpu/ops/raycast.py:579,787,1018", "main path, bench"),
-    "screen_normals": ("xslam_tpu_torch/csrc/window.cu", "xslam_tpu/ops/raycast.py:1087", "main path, bench"),
+    "model_map_normals": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/raycast.py:1087", "main path, bench"),
     "skip_field": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/bricks.py:139,151", "main path, bench refresh"),
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
@@ -194,8 +197,11 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def frac_equal(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of equal entries (NaN equal to NaN), counted exactly: a float32
+    mean on the card multiplies by a rounded reciprocal (0.99999994 for 13,983
+    equal entries)."""
     same = (a == b) | (torch.isnan(a) & torch.isnan(b))
-    return float(same.float().mean())
+    return int(same.sum()) / same.numel()
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
@@ -220,6 +226,14 @@ def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def same_nans(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+
+
+def csrc_constant(source: str, name: str) -> int:
+    """A ``constexpr int`` of a kernel source under ``xslam_tpu_torch/csrc``."""
+    with open(os.path.join(ROOT, "xslam_tpu_torch", "csrc", source)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    check(m is not None, f"{source} has no constexpr int {name}")
+    return int(m.group(1))
 
 
 def emit(tag: str, **fields):
@@ -866,14 +880,13 @@ def _lanes_equal(tag: str, lanes: dict) -> dict:
 
 
 def phase_window(ctx):
-    """B4 and B4n against their plain versions, bit for bit, at the bench
+    """B4 against its plain versions, bit for bit, at the bench
     path's shapes: B4 with the refine, the temporal frame's march (240x320
     rays anchored at frame 3's depth) against ``march_temporal`` and the
     ``reuse`` refine through the pair taps; B4 without it, the refresh's half
     level (120x160 rays anchored at the plain skip march's quarter-level
-    hits) against ``_window_repair``; B4n on B4's vertex map against
-    ``screen_normals_plain``. Each timed from prepared arguments, warm and
-    cold (L2 flushed before each launch)."""
+    hits) against ``_window_repair``. Each timed from prepared arguments,
+    warm and cold (L2 flushed before each launch)."""
     from xslam_tpu_torch.ops import bricks, kernels, raycast
     from xslam_tpu_torch.ops import raycast_bricks as rb
 
@@ -942,21 +955,7 @@ def phase_window(ctx):
     half_cold = time_cold_ms(run_half, 30)
     half_bound = bound_ms(ch * cw * 8 + Hm * Wm * 8 + 192, Hm * Wm * 60 + mstats["samples"] * 20)
 
-    # B4n on B4's vertex map
-    nmap = raycast.screen_normals(vmap)
-    np_ = raycast.screen_normals_plain(vmap)
-    torch.cuda.synchronize()
-    normals_eq = _lanes_equal("B4n", {"nmap.v": (nmap.v, np_.v), "nmap.g": (nmap.g, np_.g)})
-    normals_valid = float(torch.isfinite(nmap.v[0]).float().mean())
-    nv, ng = torch.empty_like(nmap.v), torch.empty_like(nmap.g)
-
-    def run_normals():
-        check(ext.screen_normals(vmap.v, vmap.g, nv, ng, stream) == 0, "screen_normals launch failed")
-
-    n_ms = time_ms(run_normals, 50)
-    n_cold = time_cold_ms(run_normals, 30)
-    n_plain = time_ms(lambda: raycast.screen_normals_plain(vmap), 3)
-    n_bound = bound_ms(H * W * 48, H * W * 150)  # both lanes of the map in and the normals out; ~150 a pixel
+    ctx["bench_vmap"] = vmap  # B4n's input in the normals phase
 
     emit("B4 window_march", case="orbit frame 3, depth anchors", shape=[H, W], window=WINDOW, **refine_eq,
          vertex_valid_fraction=valid, samples=stats["samples"], ms=ms, cold_ms=cold, plain_ms=plain,
@@ -964,17 +963,89 @@ def phase_window(ctx):
          library_note="no single PyTorch call computes it",
          half_level=dict(shape=[Hm, Wm], coarse_shape=[ch, cw], samples=mstats["samples"], ms=half_ms,
                          cold_ms=half_cold, bound_ms=half_bound[0], bound_by=half_bound[1], **half_eq))
-    emit("B4n screen_normals", shape=[H, W], **normals_eq, normal_valid_fraction=normals_valid, ms=n_ms,
-         cold_ms=n_cold, plain_ms=n_plain, bound_ms=n_bound[0], bound_by=n_bound[1], library_ms=None,
-         library_note="no single PyTorch call computes it")
-    check(normals_valid > 0.5, f"B4n: normals at only {normals_valid:.3f} of the pixels")
     return {
         "window_march": dict(max_abs_err=refine_eq["max_abs_err"], ms=ms, cold_ms=cold, plain_ms=plain,
                              bound_ms=refine_bound[0], bound_by=refine_bound[1], half_level_ms=half_ms,
                              half_level_cold_ms=half_cold, half_level_bound_ms=half_bound[0]),
-        "screen_normals": dict(max_abs_err=normals_eq["max_abs_err"], ms=n_ms, cold_ms=n_cold, plain_ms=n_plain,
-                               bound_ms=n_bound[0], bound_by=n_bound[1]),
     }
+
+
+def phase_normals(ctx):
+    """B4n in K6's launch (``model_map_pyramid`` with no normals given)
+    against its plain chain, ``screen_normals_plain`` then
+    ``resize_model_maps`` level after level, bit for bit at every level: on
+    B4's 240x320 vertex map of the bench frame with the pyramid's levels and
+    with one level (no coarser level, the normals still due), and on a
+    239x319 crop of it (an odd last row and column, which no level-1 pixel
+    owns). Timed from prepared arguments, warm and cold, beside K6 alone on
+    the same map with the plain normals given."""
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.models.kinfu import model_map_pyramid, resize_model_maps
+    from xslam_tpu_torch.ops import kernels, raycast
+
+    dev, levels = ctx["device"], ctx["config"].num_levels
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vmap = ctx.pop("bench_vmap")
+    crop = CSFD(vmap.v[:, :239, :319].contiguous(), vmap.g[:, :239, :319].contiguous())
+    worst = 0.0
+    for case, vm, n_levels in (("bench frame", vmap, levels), ("bench frame, one level", vmap, 1),
+                               ("crop 239x319", crop, levels)):
+        vmaps, nmaps = model_map_pyramid(vm, None, n_levels)
+        plain_v, plain_n = [vm], [raycast.screen_normals_plain(vm)]
+        for _ in range(1, n_levels):
+            v, n = resize_model_maps(plain_v[-1], plain_n[-1])
+            plain_v.append(v)
+            plain_n.append(n)
+        torch.cuda.synchronize()
+        check(len(vmaps) == len(nmaps) == n_levels and vmaps[0] is vm, f"B4n in K6 ({case}): {len(vmaps)} levels")
+        for level in range(n_levels):
+            pairs = [(nmaps[level].v, plain_n[level].v), (nmaps[level].g, plain_n[level].g)]
+            if level:
+                pairs += [(vmaps[level].v, plain_v[level].v), (vmaps[level].g, plain_v[level].g)]
+            nans, eq, ulp, err = _compare("B4n in K6's launch", pairs, case=case, level=level,
+                                          shape=list(nmaps[level].v.shape[1:]),
+                                          normal_valid_fraction=float(torch.isfinite(nmaps[level].v[0]).float().mean()))
+            check(nans and ulp == 0 and eq == 1.0,
+                  f"B4n in K6 is not bit-equal to its plain chain ({case}, level {level}): equal {eq}, ulp {ulp}")
+            worst = max(worst, err)
+    valid = float(torch.isfinite(nmaps[0].v[0]).float().mean())
+    check(valid > 0.5, f"B4n: normals at only {valid:.3f} of the pixels")
+
+    # the launch from prepared arguments, warm and cold, beside K6 alone on the plain normals
+    H, W = vmap.v.shape[-2:]
+    shapes = [(H >> level, W >> level) for level in range(1, levels)]
+    offsets, size = kernels.map_pyramid_layout(shapes, 4)
+    offsets = [o for level in offsets for o in level]
+    out, out6 = (torch.empty(size, dtype=torch.float32, device=dev) for _ in range(2))
+    nv, ng = torch.empty_like(vmap.v), torch.empty_like(vmap.g)
+    n0 = raycast.screen_normals_plain(vmap)
+
+    def run_fused():
+        check(ext.model_map_normals(vmap.v, vmap.g, nv, ng, out, offsets, levels, stream) == 0,
+              "model_map_normals launch failed")
+
+    def run_k6():
+        check(ext.model_map_pyramid(vmap.v, vmap.g, n0.v, n0.g, out6, offsets, levels, stream) == 0,
+              "model_map_pyramid launch failed")
+
+    def plain_chain():
+        v, n = vmap, raycast.screen_normals_plain(vmap)
+        for _ in range(1, levels):
+            v, n = resize_model_maps(v, n)
+
+    ms, k6_ms = time_ms(run_fused, 100), time_ms(run_k6, 100)
+    cold, k6_cold = time_cold_ms(run_fused, 30), time_cold_ms(run_k6, 30)
+    plain = time_ms(plain_chain, 3)
+    out_px = sum(h * w for h, w in shapes)
+    # the vertex map in and its normals out (both lanes, 48 B a pixel), the coarser levels' four maps out; ~150
+    # operations a normal, ~120 an output pixel
+    bms, by = bound_ms(H * W * 48 + out_px * 48, H * W * 150 + out_px * 120)
+    emit("B4n in K6's launch", shape=[H, W], levels=levels, ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
+         bound_by=by, library_ms=None, library_note="no single PyTorch call computes it", k6_alone_ms=k6_ms,
+         k6_alone_cold_ms=k6_cold, normal_valid_fraction=valid)
+    return {"model_map_normals": dict(max_abs_err=worst, ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
+                                      bound_by=by, k6_alone_ms=k6_ms, k6_alone_cold_ms=k6_cold)}
 
 
 def phase_skip(ctx):
@@ -989,6 +1060,7 @@ def phase_skip(ctx):
     volume through empty space dies where its jump lands past the face: those
     rays' other event differs from the fixed march's, and is counted. Each timed from prepared arguments, warm and cold."""
     from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.geometry.intrinsics import Intrinsics
     from xslam_tpu_torch.ops import bricks, kernels, raycast
     from xslam_tpu_torch.ops import raycast_bricks as rb
     from xslam_tpu_torch.ops.kernels import INF_T, RAY_MIN_M
@@ -1018,15 +1090,27 @@ def phase_skip(ctx):
     f_bound = bound_ms(2 * rows.value.numel() * 4 + n * 4, rows.value.numel() * 3 + n * 11 ** 3)
 
     q = rb.SKIP_STRIDE
-    ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
-    dirs = CSFD(ray_dir.v[:, ::q, ::q], ray_dir.g[:, ::q, ::q])
-    hit = rb.march_skip(rows, dist, pose, intr, eng)
-    stats = {}
+    lanes = csrc_constant("skip.cu", "LANES")
     packed_read = rb._value_reader(bricks.pack_rows(rows.value, dist_plain), res)
-    plain = raycast.march_skip_plain(ray_start, dirs.v, eng, packed_read, res, stats=stats)
+
+    def plain_skip(case_intr, stats=None):
+        ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], case_intr)
+        dirs = CSFD(ray_dir.v[:, ::q, ::q], ray_dir.g[:, ::q, ::q])
+        return raycast.march_skip_plain(ray_start, dirs.v, eng, packed_read, res, stats=stats), ray_start, dirs
+
+    hit = rb.march_skip(rows, dist, pose, intr, eng)
+    stats = {"lanes": lanes}
+    plain, ray_start, dirs = plain_skip(intr, stats)
     ff, fd = kernels.march_fixed_plain(ctx["volume"].value, ray_start, dirs, eng.voxel_size, eng.trunc_dist)
+    # one odd, few-ray shape: 7 x 9 rays, a 25 x 33 window about the image's centre (fewer rays than a block)
+    few = Intrinsics(intr.fx, intr.fy, 16.0, 12.0, 33, 25)
+    few_hit, (few_plain, _, _) = rb.march_skip(rows, dist, pose, few, eng), plain_skip(few)
     torch.cuda.synchronize()
     skip_eq = _lanes_equal("B5b", {"t_found": (hit.t_found, plain.t_found), "t_dead": (hit.t_dead, plain.t_dead)})
+    few_eq = _lanes_equal("B5b (7x9 rays)", {"t_found": (few_hit.t_found, few_plain.t_found),
+                                             "t_dead": (few_hit.t_dead, few_plain.t_dead)})
+    check(tuple(few_hit.t_found.shape) == (7, 9), f"B5b's few rays: {tuple(few_hit.t_found.shape)}")
+    ray_samples, ray_rounds = stats["ray_samples"], stats["ray_rounds"]
     found_equal_fixed = bool(torch.equal(hit.t_found, ff))
     accept_k = hit.t_found < torch.clamp(hit.t_dead, max=INF_T)
     accept_f = ff < torch.clamp(fd, max=INF_T)
@@ -1053,7 +1137,8 @@ def phase_skip(ctx):
              step, f32(bricks.BRICK * eng.voxel_size / (eng.trunc_dist * 0.8)), *kernels.camera_args(intr))
 
     def run_march():
-        check(ext.march_skip(rows.value, dist, pose, tf, td, *margs, stream) == 0, "march_skip launch failed")
+        check(ext.march_skip(rows.value, dist, pose, tf, td, *margs, rb.SKIP_VARIANT, stream) == 0,
+              "march_skip launch failed")
 
     m_ms = time_ms(run_march, 50)
     m_cold = time_cold_ms(run_march, 30)
@@ -1063,7 +1148,10 @@ def phase_skip(ctx):
     emit("B5a skip_field", bricks=n, distance_equal_on_every_brick=dist_equal, distance_histogram=histogram,
          ms=f_ms, cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
          library_note="no single PyTorch call computes it")
-    emit("B5b march_skip", shape=[Hq, Wq], **skip_eq, accepted_rays_equal_to_fixed_march=accept_equal_fixed,
+    emit("B5b march_skip", shape=[Hq, Wq], **skip_eq, odd_shape=dict(shape=[7, 9], **few_eq), lanes=lanes,
+         longest_ray_samples=int(ray_samples.max()), mean_ray_samples=float(ray_samples.double().mean()),
+         longest_ray_rounds=int(ray_rounds.max()), mean_ray_rounds=float(ray_rounds.double().mean()),
+         accepted_rays_equal_to_fixed_march=accept_equal_fixed,
          t_found_equal_to_fixed_march_on_accepted_rays=found_equal_accepted,
          t_found_equal_to_fixed_march_everywhere=found_equal_fixed,
          rays_with_an_event_differing_from_fixed_march=int(differ.sum()),
@@ -1082,8 +1170,9 @@ def phase_skip(ctx):
     return {
         "skip_field": dict(max_abs_err=0.0, ms=f_ms, cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0],
                            bound_by=f_bound[1]),
-        "march_skip": dict(max_abs_err=skip_eq["max_abs_err"], ms=m_ms, cold_ms=m_cold, plain_ms=m_plain,
-                           bound_ms=m_bound[0], bound_by=m_bound[1]),
+        "march_skip": dict(max_abs_err=max(skip_eq["max_abs_err"], few_eq["max_abs_err"]), ms=m_ms, cold_ms=m_cold,
+                           plain_ms=m_plain, bound_ms=m_bound[0], bound_by=m_bound[1],
+                           longest_ray_rounds=int(ray_rounds.max())),
     }
 
 
@@ -1574,9 +1663,10 @@ def phase_probes(ctx):
                     lambda: ext.probe_c(tc, oc, stream), 17 * 4, 16 * 3, None),
         "probe_d": (lambda: pg.probe_d(td), lambda: pg.probe_d_plain(td),
                     lambda: ext.probe_d(td, od, stream), 1024 * 4 * 9, 1024 * 8 * 3, None),
-        # 64 steps: each ray reads one 4-byte element per step, then its start and result
-        "probe_e": (lambda: pg.probe_e(te, ie, 64), lambda: pg.probe_e_plain(te, ie, 64),
-                    lambda: ext.probe_e(te, ie, oe, 64, stream), n_e * (64 * 4 + 8), n_e * 64 * 5, None),
+        # PROBE_E_STEPS steps: each ray reads one 4-byte element per step, then its start and result
+        "probe_e": (lambda: pg.probe_e(te, ie, PROBE_E_STEPS), lambda: pg.probe_e_plain(te, ie, PROBE_E_STEPS),
+                    lambda: ext.probe_e(te, ie, oe, PROBE_E_STEPS, stream), n_e * (PROBE_E_STEPS * 4 + 8),
+                    n_e * PROBE_E_STEPS * 5, None),
     }
     rows = {}
     for name, (wrapper, plain_fn, prepared, n_bytes, n_ops, library) in probes.items():
@@ -1776,15 +1866,16 @@ def phase_main_path(ctx, tag: str = "main path"):
     # K4 runs once per ICP iteration of every frame; the association is
     # written by each level's first K4 launch and never launched on its own;
     # K6 makes every coarser level of the model maps in one launch a frame;
-    # the dense layout raycasts with K3 and K5, the brick layout with B4 and
-    # B4n, and on a refresh frame B5a, B5b and B4 once more
+    # the dense layout raycasts with K3 and K5, the brick layout with B4 (and
+    # on a refresh frame B5a, B5b and B4 once more), its screen normals B4n
+    # in K6's launch (model_map_normals in place of resize_model_maps)
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
-    want = {k: n_frames for k in ("bilateral_filter", "resize_model_maps", "depth_pyramid", "vertex_normal_maps")}
+    want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps")}
     want.update(icp_system=iterations * n_frames, icp_associate=0, fuse_volume=0 if brick else integrated)
     want.update({k: integrated if brick else 0 for k in ("depth_mips", "classify_bricks", "fuse_bricks")})
     want.update({k: 0 if bench else n_frames for k in ("march_fixed", "raycast_refine")})
     want.update(window_march=(2 if refresh else 1) * n_frames if bench else 0,
-                screen_normals=n_frames if bench else 0)
+                model_map_normals=n_frames if bench else 0, resize_model_maps=0 if bench else n_frames)
     want.update({k: n_frames if refresh else 0 for k in ("skip_field", "march_skip")})
     check(all(counts[k] == n for k, n in want.items()), f"launch counts {counts}, expected {want}")
     if brick:
@@ -1897,7 +1988,7 @@ def main() -> int:
     results, failed = {}, []
     for name, phase in (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
                         ("bricks", phase_bricks), ("march_fixed", phase_march), ("raycast_refine", phase_refine),
-                        ("window", phase_window), ("skip", phase_skip),
+                        ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
                         ("maps", phase_maps), ("icp_system", phase_icp), ("probes", phase_probes),
                         ("main path", phase_main_path),
                         ("main path, fixed association", phase_main_path_fixed_assoc),
@@ -1923,7 +2014,11 @@ def main() -> int:
     results.update(results.pop("maps"))
     results.update(results.pop("bricks"))
     results.update(results.pop("window"))
+    results.update(results.pop("normals"))
     results.update(results.pop("skip"))
+    # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
+    skip = results["march_skip"]
+    skip["latency_floor_ms"] = skip["longest_ray_rounds"] * results["probe_e"]["ms"] / PROBE_E_STEPS
     counts = {path: results[path] for path in ("main path", "main path, fixed association", "main path, brick fusion",
                                                "main path, bench", "main path, bench refresh")}
     counts["probe path"] = ctx["probe_counts"]

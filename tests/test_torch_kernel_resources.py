@@ -218,8 +218,8 @@ def test_frame_turns_alternate_and_summarise():
 def test_profile_step_names_each_hand_kernel_once():
     """profile_step's hand-kernel times take each device event by its own
     function name: K3's march_kernel is not B4's window_march_kernel, K2's
-    fuse_kernel not B3c's fuse_bricks_kernel<true>, and B5a's two kernels
-    add up."""
+    fuse_kernel not B3c's fuse_bricks_kernel<true>, K6's instantiation with
+    the screen normals not its own, and B5a's two kernels add up."""
     from xslam_tpu_torch.profile_step import hand_kernel_ms
 
     by_name = {
@@ -228,10 +228,15 @@ def test_profile_step_names_each_hand_kernel_once():
         "void (anonymous namespace)::fuse_bricks_kernel<true>(float*, float*, float*)": [0.125, 1],
         "(anonymous namespace)::event_mask_kernel(float const*, float const*, unsigned char*, int)": [1.0, 1],
         "(anonymous namespace)::skip_distance_kernel(unsigned char const*, int*, int, int, int)": [2.0, 1],
+        "void (anonymous namespace)::model_map_pyramid_kernel<true, false>((anonymous namespace)::ModelPyramid)":
+            [16.0, 1],
+        "void (anonymous namespace)::model_map_pyramid_kernel<false, true>((anonymous namespace)::ModelPyramid)":
+            [32.0, 1],
         "void at::native::vectorized_elementwise_kernel<4>(int)": [8.0, 3],
     }
     ms = hand_kernel_ms(by_name)
     assert ms["window_march"] == 0.5 and ms["march_fixed"] == 0.25
     assert ms["fuse_bricks"] == 0.125 and ms["fuse_volume"] == 0.0
     assert ms["skip_field"] == 3.0 and ms["march_skip"] == 0.0
-    assert sum(ms.values()) == 3.875
+    assert ms["resize_model_maps"] == 16.0 and ms["model_map_normals"] == 32.0  # K6 alone; K6 with B4n
+    assert sum(ms.values()) == 51.875

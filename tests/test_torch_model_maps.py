@@ -16,7 +16,17 @@ model_map_pyramid``, ``csrc/maps.cu``), on the CPU.
     first lane gathers the quad by shuffles and writes the level-2 pixel.
     Every output pixel of both levels is written exactly once, a level-2
     pixel only from a quad whose four members exist, and the quad's members
-    reach the first lane in the order of the 2x2 mean (k = 2 dy + dx).
+    reach the first lane in the order of the 2x2 mean (k = 2 dy + dx). With
+    the normals computed in the launch (the brick layout's B4n), a thread a
+    2x2 block of the source: every source pixel's normal is written exactly
+    once, an odd last row or column and a single level too.
+(d) The path that computes level 0's normals (``model_map_pyramid`` with no
+    normals given) on CPU tensors: JAX's ``screen_normals`` followed by the
+    JAX resize, at even and odd source sizes and 1 and 3 levels; NaN masks
+    equal, values within 1e-5, derivative lanes within 1e-4 of their
+    largest entry (both sides normalise float32 cross products in their own
+    operation order); and ``screen_normals_plain`` then
+    ``resize_model_maps`` bit for bit.
 """
 
 import re
@@ -29,9 +39,11 @@ import torch
 from xslam_tpu.csfd.single import CSFD as JCSFD
 from xslam_tpu.models.kinfu import _resize_nmap_dual as j_resize_nmap_dual
 from xslam_tpu.ops import preprocess as jpre
+from xslam_tpu.ops import raycast as jraycast
 from xslam_tpu_torch.csfd.single import CSFD as TCSFD
 from xslam_tpu_torch.models.kinfu import model_map_pyramid, resize_model_maps
 from xslam_tpu_torch.ops import kernels
+from xslam_tpu_torch.ops.raycast import screen_normals_plain
 
 
 def _seeded_maps(H, W, seed=0):
@@ -141,19 +153,23 @@ def _kernel_constant(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
-def _quad_twin(H, W, block):
-    """The kernel's index arithmetic for every thread of its grid."""
+def _quad_twin(H, W, block, normals=False):
+    """The kernel's index arithmetic for every thread of its grid (with
+    ``normals``, the grid of the launch that computes level 0's normals)."""
     H1, W1 = H // 2, W // 2
-    quads_w, quads_h = (W1 + 1) // 2, (H1 + 1) // 2
+    GH, GW = ((H + 1) // 2, (W + 1) // 2) if normals else (H1, W1)
+    quads_w, quads_h = (GW + 1) // 2, (GH + 1) // 2
     blocks = -(-4 * quads_h * quads_w // block)
     t = np.arange(blocks * block)
     quad, k = t >> 2, t & 3
     qy, qx = quad // quads_w, quad % quads_w
     y1, x1 = 2 * qy + (k >> 1), 2 * qx + (k & 1)
-    live = (qy < quads_h) & (y1 < H1) & (x1 < W1)
+    in_grid = (qy < quads_h) & (y1 < GH) & (x1 < GW)
+    live = in_grid & (y1 < H1) & (x1 < W1)
     lane = (t % block) & 31
     writes2 = (k == 0) & (qy < H1 // 2) & (qx < W1 // 2)
-    return dict(t=t, k=k, qy=qy, qx=qx, y1=y1, x1=x1, live=live, lane=lane, first=lane & ~3, writes2=writes2)
+    return dict(t=t, k=k, qy=qy, qx=qx, y1=y1, x1=x1, in_grid=in_grid, live=live, lane=lane, first=lane & ~3,
+                writes2=writes2)
 
 
 @pytest.mark.parametrize("shape", [(480, 640), (240, 320), (118, 158), (7, 9), (3, 5), (2, 2), (4, 4), (5, 2)])
@@ -178,3 +194,80 @@ def test_quad_mapping_twin_covers_every_pixel_once(shape):
         assert (member // 32 == writers // 32).all()
         assert (tw["y1"][member] == 2 * tw["qy"][writers] + (j >> 1)).all()
         assert (tw["x1"][member] == 2 * tw["qx"][writers] + (j & 1)).all()
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (7, 9), (3, 5), (1, 1), (2, 3), (5, 2), (118, 158)])
+def test_normals_grid_twin_covers_every_source_pixel_once(shape):
+    """The launch that computes level 0's normals: a thread a 2x2 block of
+    the source (the level-1 pixel's where there is one), so an odd last row
+    or column, which no level-1 pixel owns, and a map with no coarser level
+    get their normals too; the level-1 and level-2 pixels are the plain
+    grid's."""
+    H, W = shape
+    block = _kernel_constant("PYRAMID_BLOCK")
+    tw = _quad_twin(H, W, block, normals=True)
+    g = tw["in_grid"]
+    count = np.zeros((H, W), int)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = 2 * tw["y1"][g] + dy, 2 * tw["x1"][g] + dx
+            on = (y < H) & (x < W)
+            np.add.at(count, (y[on], x[on]), 1)
+    assert (count == 1).all()
+    H1, W1, H2, W2 = H // 2, W // 2, H // 4, W // 4
+    live = tw["live"]
+    assert np.array_equal(np.sort(tw["y1"][live] * max(W1, 1) + tw["x1"][live]), np.arange(H1 * W1))
+    w2 = tw["writes2"]
+    assert np.array_equal(np.sort(tw["qy"][w2] * max(W2, 1) + tw["qx"][w2]), np.arange(H2 * W2))
+    for j in range(4):  # a level-2 writer's members are live lanes of its warp
+        member = tw["t"][w2] + j
+        assert live[member].all() and (member // 32 == tw["t"][w2] // 32).all()
+
+
+def _surface_vmap(H, W, seed):
+    """A dual world vertex map of a rough surface seen from the front, with
+    NaN holes (derivative 0) as the raycast leaves them."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    vv = np.stack([x * 0.01, y * 0.01, 1.0 + 0.05 * np.sin(x / 7.0) * np.cos(y / 5.0)])
+    vv = vv + 2e-4 * rng.standard_normal((3, H, W))
+    vg = 1e-3 * rng.standard_normal((3, H, W))
+    holes = rng.random((H, W)) < 0.04
+    holes[H // 3: H // 3 + 4, W // 4: W // 4 + 6] = True
+    vv[:, holes] = np.nan
+    vg[:, holes] = 0.0
+    return vv.astype(np.float32), vg.astype(np.float32)
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("shape", [(60, 80), (59, 79)])
+def test_pyramid_with_screen_normals_against_jax(shape, levels):
+    vv, vg = _surface_vmap(*shape, seed=levels)
+    tv = TCSFD(torch.from_numpy(vv), torch.from_numpy(vg))
+    before = dict(kernels.launch_counts)
+    vmaps, nmaps = model_map_pyramid(tv, None, levels)
+    assert kernels.launch_counts == before  # CPU tensors launch nothing
+    assert len(vmaps) == len(nmaps) == levels and vmaps[0] is tv
+    # the plain chain, bit for bit
+    n0 = screen_normals_plain(tv)
+    plain_v, plain_n = [tv], [n0]
+    for _ in range(1, levels):
+        v, n = resize_model_maps(plain_v[-1], plain_n[-1])
+        plain_v.append(v)
+        plain_n.append(n)
+    for got, want in zip(vmaps + nmaps, plain_v + plain_n):
+        assert torch.equal(got.v.view(torch.int32), want.v.view(torch.int32))
+        assert torch.equal(got.g.view(torch.int32), want.g.view(torch.int32))
+    # JAX's screen normals and resize
+    jv = JCSFD(jnp.asarray(vv), jnp.asarray(vg))
+    jn = jraycast.screen_normals(jv)
+    for level in range(levels):
+        if level:
+            jv = JCSFD(jpre.resize_vmap(jv.v), jpre.resize_vmap(jv.g))
+            jn = j_resize_nmap_dual(jn)
+        for t, j in ((vmaps[level], jv), (nmaps[level], jn)):
+            _lane_close(t.v, j.v, 1e-5)
+            _lane_close(t.g, j.g, 1e-4 * max(1.0, float(np.nanmax(np.abs(np.asarray(j.g))))))
+        valid = float((~torch.isnan(nmaps[level].v[0])).float().mean())
+        assert (0.5 if level == 0 else 0.1) < valid < 1.0  # normals where the surface is whole, NaN at holes
+    assert torch.isnan(nmaps[0].v[:, 0, :]).all() and torch.isnan(nmaps[0].v[:, :, -1]).all()  # the edges

@@ -59,6 +59,7 @@ from xslam_tpu.ops import raycast_bricks as jrb
 from xslam_tpu.utils.evaluation import ate_rmse, normalize_to_first
 from xslam_tpu_torch.csfd.single import CSFD as TCSFD
 from xslam_tpu_torch.geometry.intrinsics import Intrinsics
+from xslam_tpu_torch.models import kinfu as tkinfu
 from xslam_tpu_torch.models.kinfu import XSlamEngine as TorchEngine
 from xslam_tpu_torch.ops import bricks as tbricks
 from xslam_tpu_torch.ops import fusion as tfusion
@@ -456,11 +457,252 @@ def test_skip_reads_of_the_distance_are_the_packed_rows():
             assert jump == max(1, int(np.floor((d - 1) * float(spc) + 1e-6)))
 
 
+JUMP = np.float32(tbricks.JUMP_BASE)
+STEP = np.float32(0.072)  # the bench volume's step, 0.8 of a 9 cm truncation
+
+
+def _skip_time(k, step=STEP):
+    """t_curr of step k as the kernel and the plain loop take it: 0.2 + float32(k) * step."""
+    return np.float32(np.float32(0.2) + np.float32(k) * np.float32(step))
+
+
+def _skip_jump(c, spc):
+    """The steps a jump from sample c takes: max(1, floor(((c - 1000) - 1) * steps_per_cell)), in float32."""
+    return max(1, int(np.floor(np.float32(np.float32(np.float32(c) - JUMP) - np.float32(1.0)) * np.float32(spc))))
+
+
+def _serial_skip(first, c, inside, n_steps, spc, step=STEP):
+    """B5b's serial loop (csrc/skip.cu, ops/raycast.py::march_skip_plain) over
+    a ray's per-step samples ``c`` (packed, + 1e-5) and inside flags:
+    ``(t_found, t_dead, visited steps)``."""
+    t_found = t_dead = np.float32(INF_T)
+    prev, k, visited = first, 0, []
+    while True:
+        visited.append(k)
+        can_jump = inside[k] and c[k] >= JUMP - np.float32(0.5)
+        death = not can_jump and (not inside[k] or (prev < 0 and c[k] > 0))
+        crossing = not can_jump and inside[k] and prev > 0 and c[k] < 0
+        if crossing:
+            t_found = _skip_time(k, step)
+        if death:
+            t_dead = _skip_time(k, step)
+        if crossing or death or k + 1 >= n_steps:
+            return t_found, t_dead, visited
+        if can_jump:
+            k, prev = k + _skip_jump(c[k], spc), np.float32(1.0)
+        else:
+            k, prev = k + 1, c[k]
+
+
+def _lanes_skip(first, c, inside, n_steps, spc, lanes, step=STEP):
+    """numpy twin of march_skip_lanes_kernel: rounds of ``lanes`` steps from
+    k0, every sample of a round read first; then from position cur (0 at a
+    round's start, prev carried) the lanes up to the first jumping lane J at
+    or after cur are tested at once (prev of each the left lane's sample),
+    the first that ends the ray (crossing, death, the n_steps stop) taken;
+    else the replay goes on at J's landing (prev 1.0) inside the round, or
+    the next round starts there or, with no jumping lane, at k0 + lanes (prev
+    the last lane's sample). ``(t_found, t_dead, rounds)``."""
+    prev, k0, rounds = first, 0, 0
+    j = np.arange(lanes)
+    while True:
+        rounds += 1
+        ks = k0 + j
+        cc, ins = c[ks], inside[ks]
+        can_jump = ins & (cc >= JUMP - np.float32(0.5))
+        jump = np.array([_skip_jump(x, spc) if cj else 1 for x, cj in zip(cc, can_jump)])
+        left = np.concatenate([cc[:1], cc[:-1]])
+        stop = ks + 1 >= n_steps
+        cur = 0
+        while True:
+            pv = np.where(j == cur, prev, left)
+            death = ~can_jump & (~ins | ((pv < 0) & (cc > 0)))
+            crossing = ~can_jump & ins & (pv > 0) & (cc < 0)
+            after = np.flatnonzero(can_jump & (j >= cur))
+            J = int(after[0]) if after.size else lanes
+            ends = np.flatnonzero((j >= cur) & (j <= J) & (crossing | death | stop))
+            if ends.size:
+                e = int(ends[0])
+                t = _skip_time(k0 + e, step)
+                return (t if crossing[e] else np.float32(INF_T)), (t if death[e] else np.float32(INF_T)), rounds
+            if J == lanes:
+                prev, nxt = cc[-1], lanes
+                break
+            nxt, prev = J + int(jump[J]), np.float32(1.0)
+            if nxt >= lanes:
+                break
+            cur = nxt
+        k0 += nxt
+
+
+def _rounds_of(visited, lanes):
+    """The rounds a loop that visits ``visited`` takes when a round starts at a
+    visited step and covers the visited steps below its start + lanes."""
+    rounds, start = 1, visited[0]
+    for k in visited[1:]:
+        if k >= start + lanes:
+            rounds, start = rounds + 1, k
+    return rounds
+
+
+def _landings(visited, lanes):
+    """Of the loop's jumps, how many land inside the round they start in and
+    how many past it (the rounds of :func:`_rounds_of`)."""
+    inside = past = 0
+    start = visited[0]
+    for a, b in zip(visited, visited[1:]):
+        if b >= start + lanes:
+            past += b - a > 1
+            start = b
+        else:
+            inside += b - a > 1
+    return inside, past
+
+
+def _kernel_lanes() -> int:
+    """csrc/skip.cu's LANES: the lanes a ray of the skip march."""
+    m = re.search(r"constexpr int LANES = (\d+);", (CSRC / "skip.cu").read_text())
+    assert m, "skip.cu has no LANES"
+    return int(m.group(1))
+
+
+# lanes a ray the twin is held to: the designs measured (4, 8, 32), the one shipped, and 1, 2 and 16
+SKIP_LANES = (1, 2, 4, 8, 16, 32)
+SKIP_SPC = (0.5, 10.0 / 3.0, 10.0)  # steps a cell: short jumps; the bench's and the tests' 3.33; long ones
+
+
+def _skip_case(rng, kind, n_steps):
+    """(first, samples, inside) of one ray: runs of free space packed as
+    1000 + d (jumps), positive samples, and surfaces as ``kind`` asks."""
+    n = n_steps + 4 * 50 + 64  # room for the last jump and a round past it
+    samples = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    packed = rng.random(n) < {"jumps": 0.7, "jump_then_crossing": 0.5}.get(kind, 0.3)
+    samples[packed] = JUMP + rng.integers(2, 6, int(packed.sum())).astype(np.float32)
+    inside = np.ones(n, bool)
+    first = np.float32(rng.uniform(0.05, 1.0))
+    if kind == "jump_then_crossing":  # every sample after a packed one is a surface's negative side
+        after = np.flatnonzero(packed[:-1]) + 1
+        samples[after[~packed[after]]] = -rng.uniform(0.05, 1.0)
+    elif kind == "exit":  # leaving the volume through free space or samples
+        inside[int(rng.integers(0, n_steps + 8)):] = False
+    elif kind == "no_event":
+        samples = np.where(packed, samples, np.abs(samples))
+    elif kind == "random":
+        samples = np.where(packed, samples, rng.uniform(-1.0, 1.0, n)).astype(np.float32)
+        inside = rng.random(n) > 0.05
+        first = np.float32(rng.uniform(-1.0, 1.0))
+    samples = np.where(inside, samples, np.float32(0.0)) + np.float32(1e-5)
+    return first, samples.astype(np.float32), inside
+
+
+@pytest.mark.parametrize("spc", SKIP_SPC)
+@pytest.mark.parametrize("kind", ["jumps", "jump_then_crossing", "exit", "no_event", "random"])
+def test_skip_rounds_are_the_serial_loop(kind, spc):
+    """B5b's rounds, for the lanes measured and shipped and others: the same
+    t_found and t_dead as the serial skip loop, bits and all, and as many
+    rounds as the loop's visited steps make. The cases cover jumps that land
+    inside a round and past it, crossings on the step right after a jump
+    (prev 1.0), deaths on leaving the volume and the n_steps stop."""
+    assert _kernel_lanes() in SKIP_LANES
+    rng = np.random.default_rng([len(kind), int(spc * 3)])
+    n_steps = 67  # the bench's: int(4.8 / 0.072) + 1
+    seen = dict(stopped=0, landed_inside=0, landed_past=0, crossing_after_jump=0, exit_death=0)
+    for _ in range(150):
+        first, c, inside = _skip_case(rng, kind, n_steps)
+        t_found, t_dead, visited = _serial_skip(first, c, inside, n_steps, spc)
+        want = np.array([t_found, t_dead], np.float32).tobytes()
+        for lanes in SKIP_LANES:
+            got = _lanes_skip(first, c, inside, n_steps, spc, lanes)
+            assert np.array(got[:2], np.float32).tobytes() == want, (lanes, got, t_found, t_dead)
+            assert got[2] == _rounds_of(visited, lanes)
+        landed = _landings(visited, 32)
+        seen["landed_inside"] += landed[0]
+        seen["landed_past"] += landed[1]
+        seen["stopped"] += bool(t_found >= INF_T and t_dead >= INF_T)
+        seen["crossing_after_jump"] += bool(t_found < INF_T and len(visited) > 1 and visited[-1] - visited[-2] > 1)
+        seen["exit_death"] += bool(t_dead < INF_T and not inside[visited[-1]])
+    if kind in ("jumps", "no_event"):
+        assert seen["landed_inside"] > 0 and seen["landed_past"] > 0, seen
+    if kind == "no_event":
+        assert seen["stopped"] == 150  # every ray ran to the n_steps stop, or past it by a jump
+    if kind == "jump_then_crossing":
+        assert seen["crossing_after_jump"] > 0, seen
+    if kind == "exit":
+        assert seen["exit_death"] > 0, seen
+
+
+@settings(max_examples=150, deadline=None)
+@given(codes=st.lists(st.integers(-2, 6), min_size=80, max_size=80), exit_at=st.integers(0, 80),
+       n_steps=st.integers(1, 40), first=st.integers(-1, 1), spc=st.sampled_from(SKIP_SPC))
+def test_skip_rounds_hypothesis(codes, exit_at, n_steps, first, spc):
+    """B5b's rounds against the serial loop on drawn samples: codes 3..6 a
+    packed brick at distance code - 1 (a jump), -2..2 a sample of code / 4
+    (0: exactly 1e-5, neither side of a test), with exits and stops."""
+    code = np.array(codes)
+    samples = np.where(code >= 3, JUMP + (code - 1).astype(np.float32), code.astype(np.float32) * np.float32(0.25))
+    inside = np.arange(80) < exit_at
+    samples = (np.where(inside, samples, np.float32(0.0)) + np.float32(1e-5)).astype(np.float32)
+    c = np.concatenate([samples, np.full(200, np.float32(1e-5))])
+    ins = np.concatenate([inside, np.zeros(200, bool)])
+    f = np.float32(first * 0.5) + np.float32(1e-5)
+    t_found, t_dead, visited = _serial_skip(f, c, ins, n_steps, spc)
+    for lanes in SKIP_LANES:
+        got = _lanes_skip(f, c, ins, n_steps, spc, lanes)
+        assert np.array(got[:2], np.float32).tobytes() == np.array([t_found, t_dead], np.float32).tobytes(), lanes
+        assert got[2] == _rounds_of(visited, lanes)
+
+
+def test_skip_rounds_on_the_refresh_volume(scene):
+    """The twin over the test volume's refresh rays (a quarter of 160x120,
+    frame 3), their samples read through ``bricks.pack_rows`` as the plain
+    march reads them: every lane count gives ``march_skip_plain``'s events
+    bit for bit, and the plain march's per-ray rounds (``stats``) are the
+    twin's."""
+    tcfg, res = scene["tcfg"], scene["tcfg"].resolution
+    f = scene["frames"][3]
+    dirs = f["tdir"].v[:, ::trb.SKIP_STRIDE, ::trb.SKIP_STRIDE]
+    read = trb._value_reader(tbricks.pack_rows(scene["tvol"].value, tbricks.brick_distance_rows(scene["tvol"], res)),
+                             res)
+    step = tcfg.trunc_dist * 0.8
+    spc = tbricks.BRICK * tcfg.voxel_size / step
+    n_steps = kernels.march_steps(tcfg.trunc_dist)
+    start = f["tstart"].v[:, None, None]
+    H, W = dirs.shape[-2:]
+    # every step's sample as march_skip_plain computes it, and the first (clamped, capped at 1)
+    g0 = traycast.to_index(torch.floor((start + dirs * kernels.RAY_MIN_M) / tcfg.voxel_size))
+    first = torch.clamp(read(traycast._clamped(g0, res)), max=1.0).numpy()
+    c, inside = [], []
+    for k in range(n_steps + 4 * 50 + 64):
+        kf = torch.full((H, W), float(k), dtype=torch.float32)
+        g = traycast.to_index(torch.floor((start + dirs * (kernels.RAY_MIN_M + (kf + 1.0) * step)) / tcfg.voxel_size))
+        c.append(read(g).numpy())
+        inside.append(traycast._in_volume(g, res).numpy())
+    c, inside = np.stack(c, -1), np.stack(inside, -1)
+    for lanes in (1, 4, 8, 32):
+        stats = {"lanes": lanes}
+        plain = traycast.march_skip_plain(f["tstart"], dirs, tcfg, read, res, stats=stats)
+        want_found, want_dead = plain.t_found.numpy(), plain.t_dead.numpy()
+        rounds = stats["ray_rounds"].numpy()
+        for y in range(H):
+            for x in range(W):
+                got = _lanes_skip(first[y, x], c[y, x], inside[y, x], n_steps, spc, lanes, step)
+                assert np.array(got[:2], np.float32).tobytes() == np.array(
+                    [want_found[y, x], want_dead[y, x]], np.float32).tobytes(), (lanes, y, x)
+                assert got[2] == rounds[y, x], (lanes, y, x)
+        if lanes == 1:
+            assert bool((stats["ray_rounds"] + 1 == stats["ray_samples"]).all())  # a round a visited step
+            assert int(stats["ray_samples"].sum()) == stats["samples"]
+    assert float((plain.t_found < INF_T).float().mean()) > 0.5
+
+
 def _port_maps(scene, frame, anchor, refresh):
-    """The port's maps through the wrappers, held to the plain composition on
-    the port's own rays (kernels.camera_rays), bit for bit."""
+    """The port's maps through the wrappers (the normals through the
+    pyramid's path that computes them, as the engine takes them), held to
+    the plain composition on the port's own rays (kernels.camera_rays), bit
+    for bit."""
     tcfg, f = scene["tcfg"], scene["frames"][frame]
-    wrapped = trb.raycast_bricks(scene["tvol"], *f["targs"], TINTR, tcfg, anchor, refresh=refresh)
+    vmap, t_found = trb.raycast_bricks(scene["tvol"], *f["targs"], TINTR, tcfg, anchor, refresh=refresh)
+    wrapped = (vmap, tkinfu.model_map_pyramid(vmap, None, 1)[1][0], t_found)
     ray_dir, ray_start = kernels.camera_rays(f["targs"][0], f["targs"][1], TINTR)
     plain = trb.raycast_bricks_rays(scene["tvol"], ray_start, ray_dir, f["targs"][2], f["targs"][3], tcfg,
                                     t_anchor=anchor, return_hit=True)
@@ -504,7 +746,7 @@ def test_temporal_branch(scene, temporal):
 
 def test_wrappers_launch_nothing_on_cpu(scene):
     _port_maps(scene, 2, torch.full((120, 160), torch.inf), refresh=True)
-    assert all(kernels.launch_counts[k] == 0 for k in ("window_march", "screen_normals", "skip_field", "march_skip"))
+    assert all(kernels.launch_counts[k] == 0 for k in ("window_march", "model_map_normals", "skip_field", "march_skip"))
 
 
 # ------------------------------------------------------------- the engines

@@ -32,14 +32,12 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
                                float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
                                float inv_fy, void* stream);
-extern "C" int xs_screen_normals(const void* vmap_v, const void* vmap_g, void* nmap_v, void* nmap_g, int H, int W,
-                                 void* stream);
 extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, void* dist, int nbx, int nby, int nbz,
                              void* stream);
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             void* stream);
+                             int variant, void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, void* stream);
@@ -53,6 +51,8 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* stream);
 extern "C" int xs_model_map_pyramid(const void* const* in, void* out, const long long* offsets, int levels, int H,
                                     int W, void* stream);
+extern "C" int xs_model_map_normals(const void* vmap_v, const void* vmap_g, void* nmap_v, void* nmap_g, void* out,
+                                    const long long* offsets, int levels, int H, int W, void* stream);
 extern "C" int xs_depth_pyramid(const void* src, void* l1, void* l2, int H, int W, int levels, void* stream);
 extern "C" int xs_vertex_normal_maps(const void* const* depths, const int* H, const int* W, void* out,
                                      const long long* offsets, const float* cams, int levels, void* stream);
@@ -133,12 +133,6 @@ int fuse_bricks(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
                         trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, as_stream(stream));
 }
 
-int screen_normals(const torch::Tensor& vmap_v, const torch::Tensor& vmap_g, torch::Tensor nmap_v,
-                   torch::Tensor nmap_g, int64_t stream) {
-  return xs_screen_normals(vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(), nmap_g.data_ptr(), vmap_v.size(1),
-                           vmap_v.size(2), as_stream(stream));
-}
-
 // mask: NB bytes of scratch; dist: the (NB,) int32 distances out
 int skip_field(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, torch::Tensor dist,
                int64_t nbx, int64_t nby, int64_t nbz, int64_t stream) {
@@ -149,10 +143,10 @@ int skip_field(const torch::Tensor& value, const torch::Tensor& weight, torch::T
 int march_skip(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose, torch::Tensor t_found,
                torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride, int64_t n_steps, float vs,
                float inv_vs, float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-               int64_t stream) {
+               int64_t variant, int64_t stream) {
   return xs_march_skip(value.data_ptr(), dist.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), nbx,
                        nby, nbz, t_found.size(0), t_found.size(1), stride, n_steps, vs, inv_vs, step, steps_per_cell,
-                       cx, cy, inv_fx, inv_fy, as_stream(stream));
+                       cx, cy, inv_fx, inv_fy, variant, as_stream(stream));
 }
 
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
@@ -212,6 +206,16 @@ int model_map_pyramid(const torch::Tensor& vv, const torch::Tensor& vg, const to
   const std::vector<long long> offs(offsets.begin(), offsets.end());
   return xs_model_map_pyramid(in, out.data_ptr(), offs.data(), (int)levels, vv.size(1), vv.size(2),
                               as_stream(stream));
+}
+
+// level 0's vertex map in (v.v, v.g, each (3, H, W)), its screen normals out (n.v, n.g); out, offsets: the
+// coarser levels' maps as above
+int model_map_normals(const torch::Tensor& vv, const torch::Tensor& vg, torch::Tensor nv, torch::Tensor ng,
+                      torch::Tensor out, const std::vector<int64_t>& offsets, int64_t levels, int64_t stream) {
+  if ((int64_t)offsets.size() != 4 * (levels - 1)) return 1;  // cudaErrorInvalidValue
+  const std::vector<long long> offs(offsets.begin(), offsets.end());
+  return xs_model_map_normals(vv.data_ptr(), vg.data_ptr(), nv.data_ptr(), ng.data_ptr(), out.data_ptr(), offs.data(),
+                              (int)levels, vv.size(1), vv.size(2), as_stream(stream));
 }
 
 // l1, l2: the (H / 2, W / 2) and (H / 4, W / 4) outputs (l2 unused with 2 levels)
@@ -297,13 +301,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("classify_bricks", &classify_bricks);
   m.def("fuse_bricks", &fuse_bricks);
   m.def("window_march", &window_march);
-  m.def("screen_normals", &screen_normals);
   m.def("skip_field", &skip_field);
   m.def("march_skip", &march_skip);
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("raycast_refine", &raycast_refine);
   m.def("model_map_pyramid", &model_map_pyramid);
+  m.def("model_map_normals", &model_map_normals);
   m.def("depth_pyramid", &depth_pyramid);
   m.def("vertex_normal_maps", &vertex_normal_maps);
   m.def("icp_system", &icp_system);

@@ -1,5 +1,6 @@
 // The camera ray of a pixel, computed in the kernel, and the pixel a thread
-// of a 256-thread block owns. Shared by K3 (march.cu) and K5 (refine.cu).
+// of a block owns. Shared by K3 (march.cu), K5 (refine.cu), B4 (window.cu) and
+// B5b (skip.cu).
 //
 // camera_ray follows xslam_tpu_torch/ops/kernels.py::camera_rays operation
 // by operation: ((u - cx) / fx, (v - cy) / fy, 1) through the dual
@@ -48,6 +49,27 @@ __device__ __forceinline__ void block_pixel(int tid, int& x, int& y) {
   const int warp = tid >> 5, lane = tid & 31;
   x = blockIdx.x * BLOCK_W + (warp & 3) * 8 + (lane & 7);
   y = blockIdx.y * BLOCK_H + (warp >> 2) * 4 + (lane >> 3);
+}
+
+// The same for a block of NT threads: a tile of PixelTile<NT>::W x H pixels, its NT / 32 warps at most 4 along a
+// row, each an 8 x 4 pixel tile (NT = 256 is block_pixel's)
+template <int NT>
+struct PixelTile {
+  static constexpr int WARPS_X = NT / 32 < 4 ? NT / 32 : 4, WARPS_Y = NT / 32 / WARPS_X;
+  static constexpr int W = 8 * WARPS_X, H = 4 * WARPS_Y;
+};
+
+template <int NT>
+__device__ __forceinline__ void tile_pixel(int tid, int& x, int& y) {
+  using Tile = PixelTile<NT>;
+  const int warp = tid >> 5, lane = tid & 31;
+  x = blockIdx.x * Tile::W + (warp % Tile::WARPS_X) * 8 + (lane & 7);
+  y = blockIdx.y * Tile::H + (warp / Tile::WARPS_X) * 4 + (lane >> 3);
+}
+
+template <int NT>
+dim3 tile_grid(int H, int W) {
+  return dim3((W + PixelTile<NT>::W - 1) / PixelTile<NT>::W, (H + PixelTile<NT>::H - 1) / PixelTile<NT>::H);
 }
 
 }  // namespace xs

@@ -52,6 +52,7 @@ constexpr float INF_T = 1e9f;
 constexpr float TAP_BIAS = 1e-5f;
 constexpr float JUMP_BASE = 1000.0f;  // ops/bricks.py::JUMP_BASE
 constexpr int DIST_CAP = 5;           // ops/bricks.py::DIST_CAP
+constexpr int LANES = 8;              // the march's lanes a ray
 constexpr int MASK_WARPS = 8;         // bricks of an event_mask block, a warp each
 constexpr int TX = 8, TY = 8, TZ = 4;  // bricks of a skip_distance block, a thread each
 constexpr int HX = TX + 2 * DIST_CAP, HY = TY + 2 * DIST_CAP, HZ = TZ + 2 * DIST_CAP;
@@ -122,7 +123,43 @@ __device__ __forceinline__ float packed_sample(const float* __restrict__ value, 
   return (d >= 2 ? JUMP_BASE + (float)d : __ldg(value + at)) + TAP_BIAS;
 }
 
-__global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
+// the sample of step k (at 0.2 + (k + 1) step) and whether its voxel lies inside the volume
+__device__ __forceinline__ float step_sample(const float* __restrict__ value, const int* __restrict__ dist,
+                                             const SkipParams& p, const float s[3], const float d[3], int k,
+                                             bool& inside) {
+  int g[3];
+  xs::sample_voxel(s, d, RAY_MIN + ((float)k + 1.0f) * p.step, p.inv_vs, g);
+  inside = xs::in_volume(p.r, g);
+  return packed_sample(value, dist, p, g, inside);
+}
+
+// the steps a jump from sample c takes: max(1, floor((dist - 1) * steps_per_cell))
+__device__ __forceinline__ int jump_steps(float c, const SkipParams& p) {
+  return max(1, xs::to_index(floorf(((c - JUMP_BASE) - 1.0f) * p.steps_per_cell)));
+}
+
+// the value lane of the ray of pixel (x, y) of the march
+__device__ __forceinline__ void ray_direction(const float* c2v, int x, int y, const SkipParams& p, float d[3]) {
+  Dual dir[3];
+  xs::camera_ray(c2v, (float)(x * p.stride), (float)(y * p.stride), p.cam, dir);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) d[i] = dir[i].v;
+}
+
+// the first sample: its voxel clamped into the volume, capped at 1.0 (packed cells read as free space)
+__device__ __forceinline__ float first_sample(const float* __restrict__ value, const int* __restrict__ dist,
+                                              const SkipParams& p, const float s[3], const float d[3]) {
+  int g[3];
+  xs::sample_voxel(s, d, RAY_MIN, p.inv_vs, g);
+  g[0] = min(max(g[0], 0), p.r.X - 1);
+  g[1] = min(max(g[1], 0), p.r.Y - 1);
+  g[2] = min(max(g[2], 0), p.r.Z - 1);
+  return fminf(packed_sample(value, dist, p, g, true), 1.0f);
+}
+
+// A thread a ray, a block an NT-thread pixel tile: the serial loop.
+template <int NT>
+__global__ void __launch_bounds__(NT)
     march_skip_kernel(const float* __restrict__ value, const int* __restrict__ dist, const float* __restrict__ pose,
                       float* __restrict__ t_found_out, float* __restrict__ t_dead_out, const SkipParams p) {
   __shared__ float c2v[24];
@@ -130,34 +167,25 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
   __syncthreads();
   int x, y;
-  xs::block_pixel(tid, x, y);
+  xs::tile_pixel<NT>(tid, x, y);
   if (x >= p.W || y >= p.H) return;
-  Dual dir[3];
-  xs::camera_ray(c2v, (float)(x * p.stride), (float)(y * p.stride), p.cam, dir);
+  float d[3];
+  ray_direction(c2v, x, y, p, d);
   const float s[3] = {c2v[18], c2v[19], c2v[20]};
-  const float d[3] = {dir[0].v, dir[1].v, dir[2].v};
-
-  int g[3];
-  xs::sample_voxel(s, d, RAY_MIN, p.inv_vs, g);
-  g[0] = min(max(g[0], 0), p.r.X - 1);
-  g[1] = min(max(g[1], 0), p.r.Y - 1);
-  g[2] = min(max(g[2], 0), p.r.Z - 1);
-  float prev = fminf(packed_sample(value, dist, p, g, true), 1.0f);  // packed cells read as free space
+  float prev = first_sample(value, dist, p, s, d);
   float t_found = INF_T, t_dead = INF_T;
   for (int k = 0;;) {
-    const float kf = (float)k;
-    xs::sample_voxel(s, d, RAY_MIN + (kf + 1.0f) * p.step, p.inv_vs, g);
-    const bool inside = xs::in_volume(p.r, g);
-    const float c = packed_sample(value, dist, p, g, inside);
+    bool inside;
+    const float c = step_sample(value, dist, p, s, d, k, inside);
     const bool can_jump = inside && c >= JUMP_BASE - 0.5f;
     const bool death = !can_jump && (!inside || (prev < 0.0f && c > 0.0f));
     const bool crossing = !can_jump && inside && prev > 0.0f && c < 0.0f;
-    const float t_curr = RAY_MIN + kf * p.step;
+    const float t_curr = RAY_MIN + (float)k * p.step;
     if (crossing) t_found = t_curr;
     if (death) t_dead = t_curr;
     if (crossing || death || k + 1 >= p.n_steps) break;
     if (can_jump) {
-      k += max(1, xs::to_index(floorf(((c - JUMP_BASE) - 1.0f) * p.steps_per_cell)));
+      k += jump_steps(c, p);
       prev = 1.0f;
     } else {
       k += 1;
@@ -166,6 +194,107 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   }
   t_found_out[y * p.W + x] = t_found;
   t_dead_out[y * p.W + x] = t_dead;
+}
+
+// how the L lanes of a ray get its direction: each computes it; lane 0 computes it and shuffles it to the
+// others; or the block's first warp computes its rays', a lane a ray, into shared memory
+enum Setup { EVERY_LANE = 0, LANE_ZERO = 1, FIRST_WARP = 2 };
+
+// L lanes a ray (consecutive lanes of a warp), NT / L rays a block, the rays in image order. A round: lane j
+// reads step k0 + j's sample (the distance, then the value where the distance is below 2), every read before
+// any test; then the serial rule is replayed over the round from position `cur` (0 at a round's start) with the
+// carried `prev`: the lanes from cur to the first jumping lane J at or after it are the steps the serial loop
+// visits next in order (prev of a later one is its left neighbour's sample), so each tests its own step at once,
+// and the first that ends the ray (a crossing, a death, the n_steps stop) is taken by a ballot; else the loop
+// goes on at J's landing (prev 1.0): inside the round, the replay goes on from there; past it, the next round
+// starts at that step; with no jumping lane it starts at k0 + L with prev the last lane's sample.
+template <int L, int SETUP, int NT>
+__global__ void __launch_bounds__(NT)
+    march_skip_lanes_kernel(const float* __restrict__ value, const int* __restrict__ dist,
+                            const float* __restrict__ pose, float* __restrict__ t_found_out,
+                            float* __restrict__ t_dead_out, const SkipParams p) {
+  constexpr int RAYS = NT / L;
+  static_assert(L >= 2 && L <= 32 && (L & (L - 1)) == 0 && NT % 32 == 0 && (SETUP != FIRST_WARP || RAYS <= 32),
+                "lanes a ray: a power of two up to a warp");
+  __shared__ float c2v[24];
+  __shared__ float dirs[SETUP == FIRST_WARP ? RAYS : 1][3];
+  const int tid = threadIdx.x, j = tid & (L - 1), slot = tid / L;
+  if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
+  __syncthreads();
+  const int n_rays = p.H * p.W, ray = blockIdx.x * RAYS + slot;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (SETUP == FIRST_WARP) {
+    const int r = blockIdx.x * RAYS + tid;
+    if (tid < RAYS && r < n_rays) {
+      float dr[3];
+      ray_direction(c2v, r % p.W, r / p.W, p, dr);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) dirs[tid][i] = dr[i];
+    }
+    __syncthreads();
+  }
+  if (ray >= n_rays) return;  // the ray's L lanes leave together
+  constexpr unsigned LANE_BITS = 0xffffffffu >> (32 - L);
+  const unsigned shift = (tid & 31) & ~(L - 1), group = LANE_BITS << shift;  // the ray's lanes in the warp
+  const int x = ray % p.W, y = ray / p.W;
+  if (SETUP == FIRST_WARP) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) d[i] = dirs[slot][i];
+  } else if (SETUP == LANE_ZERO) {
+    if (j == 0) ray_direction(c2v, x, y, p, d);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) d[i] = __shfl_sync(group, d[i], 0, L);
+  } else {
+    ray_direction(c2v, x, y, p, d);
+  }
+  const float s[3] = {c2v[18], c2v[19], c2v[20]};
+  float prev = first_sample(value, dist, p, s, d);
+  float t_found = INF_T, t_dead = INF_T;
+  for (int k0 = 0;;) {
+    const int k = k0 + j;
+    bool inside;
+    const float c = step_sample(value, dist, p, s, d, k, inside);
+    const bool can_jump = inside && c >= JUMP_BASE - 0.5f;
+    const int jump = can_jump ? jump_steps(c, p) : 1;
+    const float left = __shfl_up_sync(group, c, 1, L);  // lane j - 1's sample
+    const bool stop = k + 1 >= p.n_steps;
+    const unsigned jumpers = (__ballot_sync(group, can_jump) >> shift) & LANE_BITS;
+    int cur = 0, next = L, event = 0;  // event: 1 a crossing, 2 a death, 3 the stop, at step k0 + next
+    for (;;) {
+      const float pv = j == cur ? prev : left;
+      const bool death = !can_jump && (!inside || (pv < 0.0f && c > 0.0f));
+      const bool crossing = !can_jump && inside && pv > 0.0f && c < 0.0f;
+      const unsigned after = jumpers & (LANE_BITS << cur);  // cur < L
+      const int J = after ? __ffs(after) - 1 : L;
+      const bool visited = j >= cur && j <= J;
+      const unsigned ends = (__ballot_sync(group, visited && (crossing || death || stop)) >> shift) & LANE_BITS;
+      if (ends) {
+        next = __ffs(ends) - 1;
+        event = __shfl_sync(group, crossing ? 1 : (death ? 2 : 3), next, L);
+        break;
+      }
+      if (J == L) {
+        prev = __shfl_sync(group, c, L - 1, L);
+        next = L;
+        break;
+      }
+      next = J + __shfl_sync(group, jump, J, L);
+      prev = 1.0f;
+      if (next >= L) break;
+      cur = next;
+    }
+    if (event != 0) {
+      const float t_curr = RAY_MIN + (float)(k0 + next) * p.step;
+      if (event == 1) t_found = t_curr;
+      if (event == 2) t_dead = t_curr;
+      break;
+    }
+    k0 += next;
+  }
+  if (j == 0) {
+    t_found_out[y * p.W + x] = t_found;
+    t_dead_out[y * p.W + x] = t_dead;
+  }
 }
 
 }  // namespace
@@ -187,18 +316,55 @@ extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, 
   return (int)cudaGetLastError();
 }
 
+template <int NT>
+void launch_serial(const float* value, const int* dist, const float* pose, float* t_found, float* t_dead,
+                   const SkipParams& p, cudaStream_t s) {
+  march_skip_kernel<NT><<<xs::tile_grid<NT>(p.H, p.W), NT, 0, s>>>(value, dist, pose, t_found, t_dead, p);
+}
+
+template <int L, int SETUP, int NT>
+void launch_lanes(const float* value, const int* dist, const float* pose, float* t_found, float* t_dead,
+                  const SkipParams& p, cudaStream_t s) {
+  constexpr int RAYS = NT / L;
+  const int blocks = (p.H * p.W + RAYS - 1) / RAYS;
+  march_skip_lanes_kernel<L, SETUP, NT><<<blocks, NT, 0, s>>>(value, dist, pose, t_found, t_dead, p);
+}
+
 // value: the (NB, 512) value rows; dist: skip_field's (NB,) distances; pose: the 48 packed floats; t_found,
-// t_dead: (H, W), the march's every stride-th pixel of the camera
+// t_dead: (H, W), the march's every stride-th pixel of the camera; variant: the design measured (0: a thread a
+// ray in blocks of 256; 1, 2: of 32, 64; 3-11: 4, 8, 32 lanes a ray, each with the three ways of its set-up;
+// 12, 13: 16 lanes, every lane or the first warp; 14, 15: 32 lanes, the first warp, blocks of 64 and 256)
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             void* stream) {
+                             int variant, void* stream) {
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
   if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
   const SkipParams p{xs::make_rows(nbx, nby, nbz), H, W, stride, n_steps, vs, inv_vs, step, steps_per_cell,
                      xs::Camera{cx, cy, inv_fx, inv_fy}};
-  const dim3 grid((W + xs::BLOCK_W - 1) / xs::BLOCK_W, (H + xs::BLOCK_H - 1) / xs::BLOCK_H);
-  march_skip_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)dist, (const float*)pose, (float*)t_found, (float*)t_dead, p);
+  const float* v = (const float*)value;
+  const int* dk = (const int*)dist;
+  const float* ps = (const float*)pose;
+  float *tf = (float*)t_found, *td = (float*)t_dead;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case 0: launch_serial<256>(v, dk, ps, tf, td, p, s); break;
+    case 1: launch_serial<32>(v, dk, ps, tf, td, p, s); break;
+    case 2: launch_serial<64>(v, dk, ps, tf, td, p, s); break;
+    case 3: launch_lanes<4, EVERY_LANE, 64>(v, dk, ps, tf, td, p, s); break;
+    case 4: launch_lanes<4, LANE_ZERO, 64>(v, dk, ps, tf, td, p, s); break;
+    case 5: launch_lanes<4, FIRST_WARP, 64>(v, dk, ps, tf, td, p, s); break;
+    case 6: launch_lanes<8, EVERY_LANE, 128>(v, dk, ps, tf, td, p, s); break;
+    case 7: launch_lanes<8, LANE_ZERO, 128>(v, dk, ps, tf, td, p, s); break;
+    case 8: launch_lanes<8, FIRST_WARP, 128>(v, dk, ps, tf, td, p, s); break;
+    case 9: launch_lanes<32, EVERY_LANE, 128>(v, dk, ps, tf, td, p, s); break;
+    case 10: launch_lanes<32, LANE_ZERO, 128>(v, dk, ps, tf, td, p, s); break;
+    case 11: launch_lanes<32, FIRST_WARP, 128>(v, dk, ps, tf, td, p, s); break;
+    case 12: launch_lanes<16, EVERY_LANE, 128>(v, dk, ps, tf, td, p, s); break;
+    case 13: launch_lanes<16, FIRST_WARP, 128>(v, dk, ps, tf, td, p, s); break;
+    case 14: launch_lanes<32, FIRST_WARP, 64>(v, dk, ps, tf, td, p, s); break;
+    case 15: launch_lanes<32, FIRST_WARP, 256>(v, dk, ps, tf, td, p, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

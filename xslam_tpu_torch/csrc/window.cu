@@ -1,5 +1,6 @@
 // B4: the anchored window march over the brick rows, with the `reuse` refine
-// fused after it; B4n: the screen normals of its vertex map.
+// fused after it. (B4n, the screen normals of its vertex map, is computed in
+// K6's launch: maps.cu.)
 //
 // B4 replaces the XLA code of xslam_tpu/ops/raycast.py::_window_repair
 // (return_samples) and ::march_temporal's 2x2 min-pool, and of
@@ -46,17 +47,6 @@
 // than 300 of 256. Nothing is staged: the reads are few. (PERF.md records
 // the other designs measured on the card: one read a step, 2 or 4 lanes a
 // ray sharing the window, other block sizes.)
-//
-// B4n replaces the XLA code of xslam_tpu/ops/raycast.py::screen_normals
-// (central=True). Per pixel: the dual cross product of the central
-// differences (x + 1 minus x - 1, y + 1 minus y - 1; NaN value and zero
-// derivative past the edge), its squared norm > 0 and not NaN, both lanes
-// normalised; NaN value and zero derivative where a neighbour's first
-// component or the product fails. Bound: bytes, the map in and the normals
-// out (48 B a pixel), below a launch's own cost at 240 x 320. A thread a
-// pixel of an 8 x 4 warp tile, its 30 loads hitting L1 (each element is read
-// by 5 threads), in blocks of NORMALS_THREADS (staging the tile and its halo
-// in shared memory measured slower: PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -74,7 +64,7 @@ constexpr float RAY_MIN = 0.2f;
 constexpr float RAY_MAX = 5.0f;
 constexpr float INF_T = 1e9f;
 constexpr float TAP_BIAS = 1e-5f;  // readTsdf's bias (RayCaster.cu:77)
-constexpr int WINDOW_THREADS = 128, NORMALS_THREADS = 64;  // a block's threads
+constexpr int WINDOW_THREADS = 128;  // a block's threads
 constexpr int BATCH = 4;                                   // steps a ray reads before it tests them
 constexpr int NO_STEP = 0x7fffffff;
 
@@ -163,27 +153,6 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
-// a block of NT threads covers a tile of PixelTile<NT>::W x H pixels: its NT / 32 warps, at most 4 along a row,
-// each an 8 x 4 pixel tile (for NT = 256 rays.cuh's block_pixel)
-template <int NT>
-struct PixelTile {
-  static constexpr int WARPS_X = NT / 32 < 4 ? NT / 32 : 4, WARPS_Y = NT / 32 / WARPS_X;
-  static constexpr int W = 8 * WARPS_X, H = 4 * WARPS_Y;
-};
-
-template <int NT>
-__device__ __forceinline__ void tile_pixel(int tid, int& x, int& y) {
-  using Tile = PixelTile<NT>;
-  const int warp = tid >> 5, lane = tid & 31;
-  x = blockIdx.x * Tile::W + (warp % Tile::WARPS_X) * 8 + (lane & 7);
-  y = blockIdx.y * Tile::H + (warp / Tile::WARPS_X) * 4 + (lane >> 3);
-}
-
-template <int NT>
-dim3 tile_grid(int H, int W) {
-  return dim3((W + PixelTile<NT>::W - 1) / PixelTile<NT>::W, (H + PixelTile<NT>::H - 1) / PixelTile<NT>::H);
-}
-
 __global__ void __launch_bounds__(WINDOW_THREADS)
     window_march_kernel(const float* __restrict__ value, const float* __restrict__ grad,
                         const float* __restrict__ pose, const float* __restrict__ anchor,
@@ -194,7 +163,7 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
   if (tid < xs::POSE_FLOATS) sp[tid] = pose[tid];
   __syncthreads();
   int x, y;
-  tile_pixel<WINDOW_THREADS>(tid, x, y);
+  xs::tile_pixel<WINDOW_THREADS>(tid, x, y);
   if (x >= p.W || y >= p.H) return;
   const int pix = y * p.W + x;
   const float* c2v = sp + xs::POSE_C2V;
@@ -299,52 +268,6 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
   store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
 }
 
-// the dual (3,) entry of the map at (yy, xx): (NaN, 0) past the edge (ops/preprocess.py::_shift2d's fills)
-__device__ __forceinline__ void map_at(const float* __restrict__ vv, const float* __restrict__ vg, int H, int W,
-                                       int yy, int xx, Dual m[3]) {
-  const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    m[i] = in ? Dual{__ldg(vv + (i * H + yy) * W + xx), __ldg(vg + (i * H + yy) * W + xx)} : Dual{xs::quiet_nan(), 0.0f};
-}
-
-__global__ void __launch_bounds__(NORMALS_THREADS)
-    screen_normals_kernel(const float* __restrict__ vv, const float* __restrict__ vg, float* __restrict__ nv,
-                          float* __restrict__ ng, int H, int W) {
-  int x, y;
-  tile_pixel<NORMALS_THREADS>(threadIdx.x, x, y);
-  if (x >= W || y >= H) return;
-  Dual c[3], xp[3], xm[3], yp[3], ym[3];
-  map_at(vv, vg, H, W, y, x, c);
-  map_at(vv, vg, H, W, y, x + 1, xp);
-  map_at(vv, vg, H, W, y, x - 1, xm);
-  map_at(vv, vg, H, W, y + 1, x, yp);
-  map_at(vv, vg, H, W, y - 1, x, ym);
-  bool ok = !isnan(c[0].v) && !isnan(xp[0].v) && !isnan(xm[0].v) && !isnan(yp[0].v) && !isnan(ym[0].v);
-  Dual n[3], unit[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
-  if (ok) {
-    Dual a[3], b[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      a[i] = xp[i] - xm[i];
-      b[i] = yp[i] - ym[i];
-    }
-    // csfd/vec3.py::cross
-    n[0] = a[1] * b[2] - a[2] * b[1];
-    n[1] = a[2] * b[0] - a[0] * b[2];
-    n[2] = a[0] * b[1] - a[1] * b[0];
-    const Dual nsq = xs::dot3(n, n);
-    ok = nsq.v > 0.0f && !isnan(nsq.v);
-    if (ok) xs::normalized3(n, unit);
-  }
-  const int HW = H * W, pix = y * W + x;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    nv[i * HW + pix] = ok ? unit[i].v : xs::quiet_nan();
-    ng[i * HW + pix] = ok ? unit[i].g : 0.0f;
-  }
-}
-
 }  // namespace
 
 // value, grad: the (NB, 512) brick rows; pose: the 48 packed floats; anchor, anchor_dead: the coarse (ch, cw)
@@ -362,17 +285,8 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
   if (2 * ch < H || 2 * cw < W) return (int)cudaErrorInvalidValue;
   const WindowParams p{xs::make_rows(nbx, nby, nbz), H, W, ch, cw, stride, window, vs, inv_vs, step, inv_step,
                        xs::Camera{cx, cy, inv_fx, inv_fy}};
-  window_march_kernel<<<tile_grid<WINDOW_THREADS>(H, W), WINDOW_THREADS, 0, (cudaStream_t)stream>>>(
+  window_march_kernel<<<xs::tile_grid<WINDOW_THREADS>(H, W), WINDOW_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)value, (const float*)grad, (const float*)pose, (const float*)anchor, (const float*)anchor_dead,
       (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
-  return (int)cudaGetLastError();
-}
-
-// vmap_v, vmap_g: the dual (3, H, W) vertex map; nmap_v, nmap_g: the normals out, the same shape
-extern "C" int xs_screen_normals(const void* vmap_v, const void* vmap_g, void* nmap_v, void* nmap_g, int H, int W,
-                                 void* stream) {
-  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  screen_normals_kernel<<<tile_grid<NORMALS_THREADS>(H, W), NORMALS_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)vmap_v, (const float*)vmap_g, (float*)nmap_v, (float*)nmap_g, H, W);
   return (int)cudaGetLastError();
 }

@@ -23,9 +23,10 @@ Each frame runs:
    layout in its rows, B3c's row variant);
 4. raycast of the model maps (the poses packed once, march kernel K3,
    refine kernel K5; on the brick layout the anchored window march with the
-   refine B4 and the screen normals B4n, or on a refresh frame the skip
-   field B5a, the skip march B5b and B4 twice) and their pyramid (K6, one
-   launch for all coarser levels).
+   refine B4, or on a refresh frame the skip field B5a, the skip march B5b
+   and B4 twice) and their pyramid (K6, one launch for all coarser levels;
+   on the brick layout the same launch computes level 0's screen normals,
+   B4n).
 
 On CPU tensors every wrapper runs its plain PyTorch version instead.
 
@@ -377,10 +378,11 @@ def process_frame(
         poses = (se3.rotation(c2v), se3.translation(c2v), se3.rotation(volume2world), se3.translation(volume2world))
         t_prev = state.t_prev  # the dense path carries the anchors untouched
         if temporal:
-            vmap0, nmap0, t_prev = raycast_bricks.raycast_bricks(
+            vmap0, t_prev = raycast_bricks.raycast_bricks(
                 volume, *poses, intr.level(L), vol_cfg, t_anchor, refresh=refresh,
                 temporal_window=config.raycast_temporal_window, hier_window=config.raycast_hier_window,
             )
+            nmap0 = None  # the screen normals: computed by the pyramid's launch
         else:
             vmap0, nmap0 = raycast.raycast(
                 volume, *poses, intr.level(L), vol_cfg, normals_mode=config.raycast_normals,
@@ -403,20 +405,26 @@ def process_frame(
     )
 
 
-def model_map_pyramid(vmap0: CSFD, nmap0: CSFD, levels: int) -> Tuple[Tuple[CSFD, ...], Tuple[CSFD, ...]]:
+def model_map_pyramid(vmap0: CSFD, nmap0: Optional[CSFD], levels: int) -> Tuple[Tuple[CSFD, ...], Tuple[CSFD, ...]]:
     """Kernel K6 (``csrc/maps.cu``): the model-map pyramid of ``levels``
     levels over level 0's dual (3, H, W) maps ``vmap0``, ``nmap0``, each
     coarser level the 2x2 mean of the one before: ``(vmaps, nmaps)``, one
-    dual map a level, level 0 the maps given. On CPU tensors its plain
-    version, :func:`resize_model_maps` level after level. On the card, ONE
-    launch for every coarser level, at most ``kernels.MAX_MAP_LEVELS`` levels
-    in all; their maps are views of one buffer (``kernels.map_pyramid_views``
-    with four maps a level: v.v, v.g, n.v, n.g), and level 0 stays the
-    tensors given."""
-    maps = (vmap0.v, vmap0.g, nmap0.v, nmap0.g)
+    dual map a level, level 0 the maps given. With ``nmap0`` None, level 0's
+    normals are the screen normals of ``vmap0`` (B4n,
+    :func:`raycast.screen_normals_plain`), as the brick layout's raycast
+    leaves them. On CPU tensors its plain version: those normals, then
+    :func:`resize_model_maps` level after level. On the card, ONE launch for
+    every coarser level (and, with ``nmap0`` None, level 0's normals, fed
+    from registers into the means), at most ``kernels.MAX_MAP_LEVELS``
+    levels in all; the coarser levels' maps are views of one buffer
+    (``kernels.map_pyramid_views`` with four maps a level: v.v, v.g, n.v,
+    n.g), and level 0's given maps stay the tensors given."""
     if levels < 1:
         raise ValueError(f"levels: expected at least 1, got {levels}")
+    maps = (vmap0.v, vmap0.g) + (() if nmap0 is None else (nmap0.v, nmap0.g))
     if kernels.on_cpu(*maps):
+        if nmap0 is None:
+            nmap0 = raycast.screen_normals_plain(vmap0)
         vmaps, nmaps = [vmap0], [nmap0]
         for _ in range(1, levels):
             vmap, nmap = resize_model_maps(vmaps[-1], nmaps[-1])
@@ -429,16 +437,23 @@ def model_map_pyramid(vmap0: CSFD, nmap0: CSFD, levels: int) -> Tuple[Tuple[CSFD
         raise ValueError(f"vmap: expected (3, H, W), got {tuple(vmap0.v.shape)}")
     for t, name in zip(maps, ("vmap.v", "vmap.g", "nmap.v", "nmap.g")):
         kernels.check_tensor(t, name, torch.float32, vmap0.v.shape)
-    if levels == 1:
+    if levels == 1 and nmap0 is not None:
         return (vmap0,), (nmap0,)
     H, W = vmap0.v.shape[-2:]
     shapes = [(H >> level, W >> level) for level in range(1, levels)]
-    if min(min(shape) for shape in shapes) < 1:
+    if shapes and min(min(shape) for shape in shapes) < 1:
         raise ValueError(f"maps of {H}x{W} have no level {levels - 1}")
     offsets, size = kernels.map_pyramid_layout(shapes, 4)
-    buffer = torch.empty(size, dtype=torch.float32, device=vmap0.v.device)
-    kernels.launch("model_map_pyramid", vmap0.v.device, *maps, buffer, [o for level in offsets for o in level], levels)
-    kernels.launch_counts["resize_model_maps"] += 1
+    dev = vmap0.v.device
+    buffer = torch.empty(size, dtype=torch.float32, device=dev)
+    offsets = [o for level in offsets for o in level]
+    if nmap0 is None:
+        nmap0 = CSFD(torch.empty_like(vmap0.v), torch.empty_like(vmap0.g))
+        kernels.launch("model_map_normals", dev, vmap0.v, vmap0.g, nmap0.v, nmap0.g, buffer, offsets, levels)
+        kernels.launch_counts["model_map_normals"] += 1
+    else:
+        kernels.launch("model_map_pyramid", dev, *maps, buffer, offsets, levels)
+        kernels.launch_counts["resize_model_maps"] += 1
     vv, vg, nv, ng = kernels.map_pyramid_views(buffer, shapes, 4)
     return (vmap0,) + tuple(map(CSFD, vv, vg)), (nmap0,) + tuple(map(CSFD, nv, ng))
 

@@ -27,8 +27,9 @@ in :mod:`xslam_tpu_torch.ops.raycast`, K6 (``csrc/maps.cu``) in
 (``csrc/bricks.cu``) in :mod:`xslam_tpu_torch.ops.fusion_brick`, the brick
 layout's window march B4 (``csrc/window.cu``) and skip march B5b
 (``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.raycast_bricks`, its screen
-normals B4n (``csrc/window.cu``) in :mod:`xslam_tpu_torch.ops.raycast`, its
-skip field B5a (``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.bricks`, and
+normals B4n (computed in K6's launch, ``csrc/maps.cu``) in
+:mod:`xslam_tpu_torch.models.kinfu`, its skip field B5a (``csrc/skip.cu``)
+in :mod:`xslam_tpu_torch.ops.bricks`, and
 the five gather probes
 (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
 
@@ -89,7 +90,7 @@ launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
-    "window_march": 0, "screen_normals": 0, "skip_field": 0, "march_skip": 0,
+    "model_map_normals": 0, "window_march": 0, "skip_field": 0, "march_skip": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
 _ext = None  # the built extension module

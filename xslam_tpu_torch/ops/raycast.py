@@ -16,8 +16,8 @@ compose the plain ports kept here, each read through a voxel reader:
 :func:`march_skip_plain` (the empty-space-skipping march), :func:`_window_repair`
 and :func:`march_temporal` (the anchored window marches),
 :func:`refine_from_samples` (the ``reuse`` refine) and
-:func:`screen_normals_plain`, whose kernel is B4n (:func:`screen_normals`,
-``csrc/window.cu``).
+:func:`screen_normals_plain`, B4n's plain version (the kernel computes the
+normals in K6's launch: :func:`xslam_tpu_torch.models.kinfu.model_map_pyramid`).
 """
 
 from __future__ import annotations
@@ -270,7 +270,10 @@ def march_skip_plain(ray_start: CSFD, dirs_v: torch.Tensor, cfg: VolumeConfig, p
     distance ``d`` is ``max(1, floor((d - 1) * steps_per_cell))`` steps. Each
     ray marches until its own events or the range end (a loop with a break).
     ``stats``, where given, gets ``"samples"``: the reads that takes, the
-    first one included."""
+    first one included; ``"ray_samples"``: each ray's; and ``"ray_rounds"``:
+    the rounds of ``stats["lanes"]`` (default 1) steps each ray's loop takes
+    where every round starts at a step the loop visits and covers the
+    visited steps below its start + lanes (B5b's rounds, ``csrc/skip.cu``)."""
     voxel = cfg.voxel_size
     step = cfg.trunc_dist * 0.8
     steps_per_cell = BRICK * voxel / step
@@ -284,9 +287,16 @@ def march_skip_plain(ray_start: CSFD, dirs_v: torch.Tensor, cfg: VolumeConfig, p
     t_dead = torch.full_like(t_found, INF_T)
     k = torch.zeros((H, W), dtype=torch.int64, device=dirs_v.device)
     done = torch.zeros((H, W), dtype=torch.bool, device=dirs_v.device)
-    samples = H * W
+    ray_samples = torch.ones((H, W), dtype=torch.int64, device=dirs_v.device)
+    ray_rounds = torch.ones_like(ray_samples)
+    round_start = torch.zeros_like(ray_samples)
+    lanes = stats.get("lanes", 1) if stats is not None else 1
     while not bool(done.all()):
-        samples += int((~done).sum()) if stats is not None else 0
+        if stats is not None:
+            ray_samples += ~done
+            new_round = ~done & (k >= round_start + lanes)
+            ray_rounds += new_round
+            round_start = torch.where(new_round, k, round_start)
         kf = k.to(torch.float32)
         p = start_v + dirs_v * (RAY_MIN_M + (kf + 1.0) * step)
         g = to_index(torch.floor(p / voxel))
@@ -304,7 +314,7 @@ def march_skip_plain(ray_start: CSFD, dirs_v: torch.Tensor, cfg: VolumeConfig, p
         k = torch.where(can_jump, k + n_jump, k + 1)
         prev = torch.where(can_jump, 1.0, c)
     if stats is not None:
-        stats["samples"] = samples
+        stats.update(samples=int(ray_samples.sum()), ray_samples=ray_samples, ray_rounds=ray_rounds)
     return RaycastHit(t_found, t_dead)
 
 
@@ -448,21 +458,3 @@ def screen_normals_plain(vmap: CSFD) -> CSFD:
     ok = ok & (nsq.v > 0.0) & ~torch.isnan(nsq.v)
     out = vec3.normalized(CSFD(torch.where(ok[None], n.v, 1.0), torch.where(ok[None], n.g, 0.0)))
     return CSFD(torch.where(ok[None], out.v, torch.nan), torch.where(ok[None], out.g, 0.0))
-
-
-def screen_normals(vmap: CSFD) -> CSFD:
-    """Kernel B4n (``csrc/window.cu``): :func:`screen_normals_plain` of the
-    dual (3, H, W) vertex map, a thread a pixel, both lanes, the same
-    operations in the same order (the sources build with ``-fmad=false``), so
-    the bits of its plain version on the card. On CPU tensors the plain
-    version."""
-    if kernels.on_cpu(vmap.v, vmap.g):
-        return screen_normals_plain(vmap)
-    if vmap.v.dim() != 3 or vmap.v.shape[0] != 3:
-        raise ValueError(f"vmap: expected (3, H, W), got {tuple(vmap.v.shape)}")
-    for t, name in ((vmap.v, "vmap.v"), (vmap.g, "vmap.g")):
-        kernels.check_tensor(t, name, torch.float32, vmap.v.shape)
-    out = CSFD(torch.empty_like(vmap.v), torch.empty_like(vmap.g))
-    kernels.launch("screen_normals", vmap.v.device, vmap.v, vmap.g, out.v, out.g)
-    kernels.launch_counts["screen_normals"] += 1
-    return out

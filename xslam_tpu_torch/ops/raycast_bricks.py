@@ -10,20 +10,25 @@ compaction and the packed or quad taps. March parameters are the reference's (st
 
 :func:`raycast_bricks_rays` is the plain composition over explicit rays, as
 the JAX function takes them. :func:`raycast_bricks`, the engine's entry,
-composes four kernels, each a wrapper here or in :mod:`.bricks` and
-:mod:`.raycast` that runs its plain version on CPU tensors:
+composes three kernels, each a wrapper here or in :mod:`.bricks` that runs
+its plain version on CPU tensors:
 
 - B4 :func:`window_march` (``csrc/window.cu``): the anchored window march,
   with the ``reuse`` refine fused after it (the world vertex map) or without
   it (the hits, for the refresh's half level);
-- B4n :func:`xslam_tpu_torch.ops.raycast.screen_normals` (``csrc/window.cu``);
 - B5a :func:`xslam_tpu_torch.ops.bricks.skip_field` (``csrc/skip.cu``);
 - B5b :func:`march_skip` (``csrc/skip.cu``): the skip march at a quarter of
   the model maps' resolution.
 
-A frame takes the temporal branch (B4 with the refine, B4n) when at least
+The screen normals (B4n, plain version
+:func:`xslam_tpu_torch.ops.raycast.screen_normals_plain`) are left to the
+model-map pyramid, whose launch computes them
+(:func:`xslam_tpu_torch.models.kinfu.model_map_pyramid` with no normals
+given).
+
+A frame takes the temporal branch (B4 with the refine) when at least
 ``min_coverage`` of its anchors are finite, else the refresh (B5a, B5b, B4
-without and with the refine, B4n). The engine's anchors fall back to the last
+without and with the refine). The engine's anchors fall back to the last
 raycast's ``t_found``, which is 1e9 (finite) where a ray found nothing, so
 after frame 0 the coverage reads 1.0 and the refresh cannot run; it is kept
 and computed as the reference computes it.
@@ -44,12 +49,13 @@ from .fusion import VolumeConfig
 from .kernels import INF_T
 from .raycast import (
     RaycastHit, _window_repair, finalize_maps, march_skip_plain, march_temporal, refine_from_samples,
-    screen_normals, screen_normals_plain,
+    screen_normals_plain,
 )
 from .sampling import to_index
 
 MID_WINDOW = 12  # the refresh's half-resolution window (xslam_tpu/ops/raycast_bricks.py::hier2_hit)
 SKIP_STRIDE = 4  # the refresh's skip march takes every 4th ray of the model maps in each axis
+SKIP_VARIANT = 0  # B5b's design (csrc/skip.cu::xs_march_skip), chosen while the designs are measured
 
 
 def _value_reader(plane: torch.Tensor, res):
@@ -284,7 +290,7 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
     kernels.launch(
         "march_skip", pose.device, bvol.value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride,
         kernels.march_steps(cfg.trunc_dist), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
-        f32(steps_per_cell), *kernels.camera_args(intr),
+        f32(steps_per_cell), *kernels.camera_args(intr), SKIP_VARIANT,
     )
     kernels.launch_counts["march_skip"] += 1
     return RaycastHit(t_found, t_dead)
@@ -293,22 +299,22 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
 def raycast_bricks(
     bvol: BrickVolume, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics, cfg: VolumeConfig,
     t_anchor: torch.Tensor, refresh: bool, temporal_window: int = 12, hier_window: int = 12,
-) -> Tuple[CSFD, CSFD, torch.Tensor]:
-    """The temporal raycast of the model maps at ``intr``'s resolution from a
-    brick-major volume, through the kernels: ``(vmap, nmap, t_found)``, dual
-    world maps (3, H, W) with NaN sentinels and the march's hit distances
-    (the next frame's fallback anchors; 1e9 where none). ``refresh``: take
-    the ``hier2`` refresh (B5a, B5b, B4 twice) instead of the anchored march
-    (B4); the engine decides it from :func:`anchor_coverage`. On CPU tensors every kernel runs its plain
-    version, so the result is :func:`raycast_bricks_rays`'s with the rays of
+) -> Tuple[CSFD, torch.Tensor]:
+    """The temporal raycast of the model vertex map at ``intr``'s resolution
+    from a brick-major volume, through the kernels: ``(vmap, t_found)``, the
+    dual world vertex map (3, H, W) with NaN sentinels and the march's hit
+    distances (the next frame's fallback anchors; 1e9 where none); its
+    screen normals are left to
+    :func:`xslam_tpu_torch.models.kinfu.model_map_pyramid`. ``refresh``:
+    take the ``hier2`` refresh (B5a, B5b, B4 twice) instead of the anchored
+    march (B4); the engine decides it from :func:`anchor_coverage`. On CPU
+    tensors every kernel runs its plain version, so the result is
+    :func:`raycast_bricks_rays`'s with the rays of
     :func:`kernels.camera_rays`."""
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
     if refresh:
         dist = bricks.skip_field(bvol, cfg.resolution)
         coarse = march_skip(bvol, dist, pose, intr, cfg)
         mid = window_march(bvol, pose, intr, cfg, coarse.t_found, MID_WINDOW, anchor_dead=coarse.t_dead, stride=2)
-        vmap, t_found = window_march(bvol, pose, intr, cfg, mid.t_found, hier_window, anchor_dead=mid.t_dead,
-                                     refine=True)
-    else:
-        vmap, t_found = window_march(bvol, pose, intr, cfg, t_anchor, temporal_window, refine=True)
-    return vmap, screen_normals(vmap), t_found
+        return window_march(bvol, pose, intr, cfg, mid.t_found, hier_window, anchor_dead=mid.t_dead, refine=True)
+    return window_march(bvol, pose, intr, cfg, t_anchor, temporal_window, refine=True)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import json
+import re
 import subprocess
 import time
 
@@ -42,17 +43,19 @@ from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
-# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a: its two kernels); a name
-# matches a device event whose demangled name holds "::<name>" followed by "(" or "<" (so march_kernel is not
-# window_march_kernel)
+# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a: its two kernels): each a
+# pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
+# window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
-    "raycast_refine": "refine_kernel", "resize_model_maps": "model_map_pyramid_kernel",
+    "raycast_refine": "refine_kernel", "resize_model_maps": r"model_map_pyramid_kernel<\w+, false>",
+    "model_map_normals": r"model_map_pyramid_kernel<\w+, true>",
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
     "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
-    "screen_normals": "screen_normals_kernel", "skip_field": ("event_mask_kernel", "skip_distance_kernel"), "march_skip": "march_skip_kernel",
+    "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
+    "march_skip": ("march_skip_kernel", "march_skip_lanes_kernel"),
 }
 
 
@@ -81,7 +84,7 @@ def hand_kernel_ms(by_name: dict) -> dict:
     """Device ms of each hand kernel (:data:`HAND_KERNELS`) out of
     ``{device event name: [ms, calls]}``."""
     def matches(name: str, kernel: str) -> bool:
-        return f"::{kernel}(" in name or f"::{kernel}<" in name
+        return re.search(f"::{kernel}[(<]", name) is not None
 
     return {k: sum(v[0] for name, v in by_name.items()
                    if any(matches(name, kernel) for kernel in ((pat,) if isinstance(pat, str) else pat)))
