@@ -34,10 +34,13 @@ Phases, in order:
    raycast kernels on the brick rows of that volume at the bench path's
    shapes (240x320 model maps): B4 (the anchored window march) with its
    ``reuse`` refine on frame 3's depth anchors and without it at the
-   refresh's half level, B4n (screen normals) on B4's map, B5a (the skip
-   field) on every brick, B5b (the skip march at 60x80) against its plain
-   version on every ray and against the plain fixed march as the reference
-   holds it, each bit for bit, timed warm and cold; K4 (the ICP system, its tail, the association that
+   refresh's half level, B4n (screen normals, computed in K6's launch) on
+   B4's map with the pyramid's levels and with one, and on a 239x319 crop,
+   B5a (the skip field) on every brick, B5b (the skip march, a warp a ray) at
+   60x80 and on 7x9 rays against its plain version on every ray and at 60x80
+   against the plain fixed march as the reference holds it, each bit for
+   bit, timed warm and cold (B5b also with its rays' samples and rounds, and
+   its latency floor from probe E's time a step); K4 (the ICP system, its tail, the association that
    a level's first launch writes, and the association kernel it is held
    against) on model maps raycast from that volume and the next frame's
    depth pyramid, at the three level shapes of both main-path
@@ -1137,8 +1140,7 @@ def phase_skip(ctx):
              step, f32(bricks.BRICK * eng.voxel_size / (eng.trunc_dist * 0.8)), *kernels.camera_args(intr))
 
     def run_march():
-        check(ext.march_skip(rows.value, dist, pose, tf, td, *margs, rb.SKIP_VARIANT, stream) == 0,
-              "march_skip launch failed")
+        check(ext.march_skip(rows.value, dist, pose, tf, td, *margs, stream) == 0, "march_skip launch failed")
 
     m_ms = time_ms(run_march, 50)
     m_cold = time_cold_ms(run_march, 30)

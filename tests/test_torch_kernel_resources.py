@@ -240,3 +240,32 @@ def test_profile_step_names_each_hand_kernel_once():
     assert ms["skip_field"] == 3.0 and ms["march_skip"] == 0.0
     assert ms["resize_model_maps"] == 16.0 and ms["model_map_normals"] == 32.0  # K6 alone; K6 with B4n
     assert sum(ms.values()) == 51.875
+
+
+def test_compare_trees_profiles_the_forced_refresh(monkeypatch):
+    """``apps/compare_trees``' refresh profile runs ``profile_step`` in
+    bench.py's configuration with ``raycast_temporal_min_coverage`` 2 (every
+    frame takes the refresh), set over the options so that a tree whose
+    ``profile_step`` has no option for it runs it too."""
+    import sys
+
+    from xslam_tpu_torch import profile_step
+    from xslam_tpu_torch.apps.compare_trees import COMMANDS, REFRESH
+    from xslam_tpu_torch.io.config import load_config
+    from xslam_tpu_torch.io.options import BENCH_ARGS
+
+    assert COMMANDS["profile_refresh"] == ["-c", REFRESH, "configs/synthetic.yaml", *BENCH_ARGS]
+    seen = {}
+
+    def main(argv):  # profile_step.main up to the configuration it profiles
+        config = load_config(argv[0])
+        profile_step.set_options(config, profile_step.parser().parse_args(argv))
+        seen["config"] = config
+
+    monkeypatch.setattr(profile_step, "main", main)
+    monkeypatch.setattr(profile_step, "set_options", profile_step.set_options)  # the command replaces it
+    monkeypatch.setattr(sys, "argv", ["-c", *COMMANDS["profile_refresh"][2:]])
+    exec(REFRESH, {})
+    config = seen["config"]
+    assert config.raycast_temporal_min_coverage == 2.0
+    assert (config.volume_layout, config.raycast_march, config.model_map_level) == ("brick", "temporal", 1)

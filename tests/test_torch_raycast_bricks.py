@@ -495,7 +495,7 @@ def _serial_skip(first, c, inside, n_steps, spc, step=STEP):
 
 
 def _lanes_skip(first, c, inside, n_steps, spc, lanes, step=STEP):
-    """numpy twin of march_skip_lanes_kernel: rounds of ``lanes`` steps from
+    """numpy twin of march_skip_kernel: rounds of ``lanes`` steps from
     k0, every sample of a round read first; then from position cur (0 at a
     round's start, prev carried) the lanes up to the first jumping lane J at
     or after cur are tested at once (prev of each the left lane's sample),

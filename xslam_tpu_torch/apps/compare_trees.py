@@ -15,10 +15,11 @@ kernels under its own ``build/torch_kernels/``. The order is parent, change,
 change, parent for ``chip_smoke.py`` (the first run of a tree includes its
 build), then ``xslam_tpu_torch.profile_step`` on ``configs/synthetic.yaml`` as
 the file says, with ``--fixed-assoc --model-map-level 1``, with bench.py's
-brick fusion and in bench.py's whole configuration
-(``io.options.BENCH_ARGS``) on each tree, then ``xslam_tpu_torch.apps.kernel_resources`` on
-each. Every command's output goes to ``<out>/<tree><n>_<what>.txt`` (and
-``.err``); the card's name and power limit to ``<out>/card.txt``. Prints one
+brick fusion, in bench.py's whole configuration
+(``io.options.BENCH_ARGS``) and in it with every frame taking the refresh on
+each tree, then ``xslam_tpu_torch.apps.kernel_resources`` on each. Every
+command's output goes to ``<out>/<tree><n>_<what>.txt`` (and ``.err``); the
+card's name and power limit to ``<out>/card.txt``. Prints one
 JSON line per command (tree, what, exit code, seconds) and, from each smoke
 run, the kernel times and the main-path lines. Exits 1 if a command failed;
 a tree that predates an option fails that command, and the rest still run.
@@ -37,12 +38,19 @@ from pathlib import Path
 from ..io.options import BENCH_ARGS
 
 PROFILE = ["-m", "xslam_tpu_torch.profile_step", "configs/synthetic.yaml"]
+# profile_step in bench.py's configuration with every frame taking the hier2 refresh
+# (raycast_temporal_min_coverage=2, set over the options), written so that it runs on trees whose profile_step
+# has no option for it
+REFRESH = ("import sys; from xslam_tpu_torch import profile_step as p; o = p.set_options; "
+           "p.set_options = lambda c, a: (o(c, a), setattr(c, 'raycast_temporal_min_coverage', 2.0)); "
+           "p.main(sys.argv[1:])")
 COMMANDS = {
     "smoke": ["chip_smoke.py"],
     "profile_default": PROFILE,
     "profile_fixed": PROFILE + ["--fixed-assoc", "--model-map-level", "1"],
     "profile_brick": PROFILE + ["--fusion-mode", "brick", "--fusion-brick-cap", "2816", "--fusion-overflow", "dense"],
     "profile_bench": PROFILE + list(BENCH_ARGS),
+    "profile_refresh": ["-c", REFRESH, "configs/synthetic.yaml", *BENCH_ARGS],
     "resources": ["-m", "xslam_tpu_torch.apps.kernel_resources"],
 }
 
@@ -97,7 +105,7 @@ def main(argv=None) -> int:
         label = f"{name}{1 + n // 2}"
         rows.append(run(trees[name], label, "smoke", out, args.timeout))
         print(json.dumps({"tree": label, **smoke_summary(out / f"{label}_smoke.txt")}), flush=True)
-    for what in ("profile_default", "profile_fixed", "profile_brick", "profile_bench", "resources"):
+    for what in ("profile_default", "profile_fixed", "profile_brick", "profile_bench", "profile_refresh", "resources"):
         for name in ("parent", "change"):
             rows.append(run(trees[name], name, what, out, args.timeout))
     return 1 if any(r["rc"] != 0 for r in rows) else 0

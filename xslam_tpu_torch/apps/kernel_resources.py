@@ -34,7 +34,7 @@ BLOCK_THREADS = {
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
     "window_march_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
-    "march_skip_kernel": 256, "march_skip_lanes_kernel": 128,
+    "march_skip_kernel": 128,
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64

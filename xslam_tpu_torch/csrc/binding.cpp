@@ -37,7 +37,7 @@ extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, 
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             int variant, void* stream);
+                             void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, void* stream);
@@ -143,10 +143,10 @@ int skip_field(const torch::Tensor& value, const torch::Tensor& weight, torch::T
 int march_skip(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose, torch::Tensor t_found,
                torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride, int64_t n_steps, float vs,
                float inv_vs, float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-               int64_t variant, int64_t stream) {
+               int64_t stream) {
   return xs_march_skip(value.data_ptr(), dist.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), nbx,
                        nby, nbz, t_found.size(0), t_found.size(1), stride, n_steps, vs, inv_vs, step, steps_per_cell,
-                       cx, cy, inv_fx, inv_fy, variant, as_stream(stream));
+                       cx, cy, inv_fx, inv_fy, as_stream(stream));
 }
 
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,

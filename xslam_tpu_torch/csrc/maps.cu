@@ -27,6 +27,21 @@
 //   and a second launch waiting on the first's stores) is cut: a thread
 //   issues all its loads before any arithmetic, 24 eight-byte loads of its
 //   row pairs where the rows have an even width (48 four-byte loads else).
+// K6 with NORMALS, xs_model_map_normals: B4n, the brick layout's screen
+//   normals of level 0, in the same launch. Replaces the XLA code of
+//   xslam_tpu/ops/raycast.py::screen_normals (central=True) as well; plain
+//   version ops/raycast.py::screen_normals_plain. A thread owns its 2 x 2
+//   block of level-0 pixels: it loads their 4 x 4 neighbourhood of the
+//   vertex map (corners left out, 12 dual entries, (NaN, 0) past the edge),
+//   computes the four normals by B4n's rule (the normalised dual cross
+//   product of the central differences; (NaN, 0) where a neighbour's first
+//   component or the squared norm fails), writes them as level 0's normal
+//   map and takes them from registers into the 2 x 2 means, the numbers a
+//   second launch would read, so the bits are the plain chain's. The grid
+//   covers the source's 2 x 2 blocks, so an odd last row or column (no
+//   level-1 pixel owns it) and a pyramid of one level get their normals. B4n
+//   alone was bound by a launch's own length (0.0041 ms, 27% of its bound):
+//   inside K6's launch it costs no launch and reads the map once.
 // K7 xs_depth_pyramid: levels 1 and 2 of the depth pyramid in one launch.
 //   Replaces xslam_tpu/ops/preprocess.py::pyr_down applied twice; reference
 //   pyrDownKernel, Map.cu:202-230. Each level: the source rounded half to
@@ -151,7 +166,7 @@ __device__ __forceinline__ bool screen_normal(float centre, const Dual xp[3], co
 template <bool PAIRS, bool NORMALS>
 __global__ void __launch_bounds__(PYRAMID_BLOCK) model_map_pyramid_kernel(const ModelPyramid p) {
   const int H1 = p.H / 2, W1 = p.W / 2;
-  // the 2 x 2 source blocks a thread a block: those of level 1, or with NORMALS all of the source's
+  // a thread a 2 x 2 block of the source: level 1's blocks, or with NORMALS every block of the source
   const int GH = NORMALS ? (p.H + 1) / 2 : H1, GW = NORMALS ? (p.W + 1) / 2 : W1;
   const int quads_w = (GW + 1) / 2, quads_h = (GH + 1) / 2;
   const int t = blockIdx.x * PYRAMID_BLOCK + threadIdx.x;
@@ -163,6 +178,7 @@ __global__ void __launch_bounds__(PYRAMID_BLOCK) model_map_pyramid_kernel(const 
   const bool live = in_grid && y1 < H1 && x1 < W1 && p.levels >= 2;
 
   float o[4][3] = {};  // a lane past the level's border shuffles zeros that no lane writes
+  float q[4][3][4];
   if (NORMALS && in_grid) {
     // the 4 x 4 neighbourhood of the thread's 2 x 2 block, corners left out: w[r][c] is source pixel
     // (2 y1 - 1 + r, 2 x1 - 1 + c); every load issued before any arithmetic
@@ -171,15 +187,16 @@ __global__ void __launch_bounds__(PYRAMID_BLOCK) model_map_pyramid_kernel(const 
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if ((r == 1 || r == 2) || (c == 1 || c == 2)) map_at(p.in[0], p.in[1], p.H, p.W, 2 * y1 - 1 + r, 2 * x1 - 1 + c, w[r][c]);
-    float q[4][3][4];
+        if ((r == 1 || r == 2) || (c == 1 || c == 2))
+          map_at(p.in[0], p.in[1], p.H, p.W, 2 * y1 - 1 + r, 2 * x1 - 1 + c, w[r][c]);
     const int HW = p.H * p.W;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int dy = m >> 1, dx = m & 1, y = 2 * y1 + dy, x = 2 * x1 + dx;
       const Dual(&ctr)[3] = w[1 + dy][1 + dx];
       Dual unit[3];
-      const bool ok = screen_normal(ctr[0].v, w[1 + dy][2 + dx], w[1 + dy][dx], w[2 + dy][1 + dx], w[dy][1 + dx], unit);
+      const bool ok =
+          screen_normal(ctr[0].v, w[1 + dy][2 + dx], w[1 + dy][dx], w[2 + dy][1 + dx], w[dy][1 + dx], unit);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         q[0][c][m] = ctr[c].v;
@@ -195,16 +212,7 @@ __global__ void __launch_bounds__(PYRAMID_BLOCK) model_map_pyramid_kernel(const 
         }
       }
     }
-    if (live) {
-      resize_quad(q, o);
-      const int H1W1 = H1 * W1, o1 = y1 * W1 + x1;
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) p.out[0][m][c * H1W1 + o1] = o[m][c];
-    }
   } else if (!NORMALS && live) {
-    float q[4][3][4];
     const int HW = p.H * p.W, at = (2 * y1) * p.W + 2 * x1;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -226,6 +234,8 @@ __global__ void __launch_bounds__(PYRAMID_BLOCK) model_map_pyramid_kernel(const 
         }
       }
     }
+  }
+  if (live) {
     resize_quad(q, o);
     const int H1W1 = H1 * W1, o1 = y1 * W1 + x1;
 #pragma unroll
@@ -237,7 +247,6 @@ __global__ void __launch_bounds__(PYRAMID_BLOCK) model_map_pyramid_kernel(const 
 
   // level 2: the quad's first lane takes its members' level-1 numbers
   const int first = (threadIdx.x & 31) & ~3;
-  float q[4][3][4];
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll

@@ -17,20 +17,27 @@
 //   planes once (134 MB at 256^3).
 // B5b xs_march_skip replaces the XLA code of xslam_tpu/ops/raycast.py::
 //   march_skip over ops/bricks.py::skip_rows (reference RayCaster.cu:
-//   226-247 with its early-out). A thread a ray, every `stride`-th pixel of
-//   the model maps, the ray made in the kernel (rays.cuh): from 0.2 m, the
-//   sample of step k at 0.2 + (k + 1) step reads, where its voxel's brick lies
-//   at distance >= 2, the packed rows' JUMP_BASE + dist (+ 1e-5, which leaves
-//   it an exact integer: the float32 step at 1000 is 6.1e-5) and jumps
-//   max(1, floor((dist - 1) * steps_per_cell)) steps with a positive sentinel
-//   as the previous sample; elsewhere the voxel's value + 1e-5 and the fixed
-//   march's tests. It stops at its events or the range's end. It reads B5a's
-//   distance instead of a 64 MB packed copy of the value rows, so the
+//   226-247 with its early-out). Every `stride`-th pixel of the model maps,
+//   the ray made in the kernel (rays.cuh): from 0.2 m, the sample of step k
+//   at 0.2 + (k + 1) step reads, where its voxel's brick lies at distance
+//   >= 2, the packed rows' JUMP_BASE + dist (+ 1e-5, which leaves it an
+//   exact integer: the float32 step at 1000 is 6.1e-5) and jumps max(1,
+//   floor((dist - 1) * steps_per_cell)) steps with a positive sentinel as
+//   the previous sample; elsewhere the voxel's value + 1e-5 and the fixed
+//   march's tests. It stops at its events or the range's end. It reads
+//   B5a's distance instead of a 64 MB packed copy of the value rows, so the
 //   distance is read once a sample and the value only in the bricks near a
 //   surface; the numbers it compares are the packed rows' bit for bit.
 //   Plain version: ops/raycast.py::march_skip_plain over ops/bricks.py::
-//   pack_rows. Bound: the latency of each ray's chain of dependent loads
-//   (the next sample's place depends on this one's distance); 60 x 80 rays.
+//   pack_rows. Bound: not bytes or operations (60 x 80 rays) but each ray's
+//   chain of dependent loads: the next sample's place depends on this one's
+//   distance. A warp a ray (LANES lanes) cuts the chain: its lanes read the
+//   next LANES steps' samples at once and replay the serial rule over them
+//   by ballots and shuffles (march_skip_kernel), so the orbit's longest ray
+//   takes 3 rounds for its 61 samples; 1,200 blocks of 4 rays spread over
+//   the 132 SMs where a thread a ray made 24 blocks. (PERF.md records the
+//   designs measured: a thread a ray in blocks of 256, 64, 32; 4, 8, 16 lanes
+//   a ray; the ray set up by every lane or by lane 0.)
 //
 // Divisions by a host number are multiplies by the reciprocal taken in
 // double, as PyTorch's CUDA operator computes them (built with -fmad=false),
@@ -52,7 +59,8 @@ constexpr float INF_T = 1e9f;
 constexpr float TAP_BIAS = 1e-5f;
 constexpr float JUMP_BASE = 1000.0f;  // ops/bricks.py::JUMP_BASE
 constexpr int DIST_CAP = 5;           // ops/bricks.py::DIST_CAP
-constexpr int LANES = 8;              // the march's lanes a ray
+constexpr int LANES = 32;             // B5b: lanes a ray
+constexpr int MARCH_THREADS = 128;    // B5b: a block's threads, 4 rays
 constexpr int MASK_WARPS = 8;         // bricks of an event_mask block, a warp each
 constexpr int TX = 8, TY = 8, TZ = 4;  // bricks of a skip_distance block, a thread each
 constexpr int HX = TX + 2 * DIST_CAP, HY = TY + 2 * DIST_CAP, HZ = TZ + 2 * DIST_CAP;
@@ -157,97 +165,35 @@ __device__ __forceinline__ float first_sample(const float* __restrict__ value, c
   return fminf(packed_sample(value, dist, p, g, true), 1.0f);
 }
 
-// A thread a ray, a block an NT-thread pixel tile: the serial loop.
-template <int NT>
-__global__ void __launch_bounds__(NT)
+// LANES lanes a ray (a warp), MARCH_THREADS / LANES rays a block, the rays in image order; the block's first warp
+// makes its rays' directions, a lane a ray, into shared memory. A round: lane j reads step k0 + j's sample (the
+// distance, then the value where the distance is below 2), every read before any test; then the serial rule is
+// replayed over the round from position `cur` (0 at a round's start) with the carried `prev`: the lanes from cur
+// to the first jumping lane J at or after it are the steps the serial loop visits next in order (prev of a later
+// one is its left neighbour's sample), so each tests its own step at once, and the first that ends the ray (a
+// crossing, a death, the n_steps stop) is taken by a ballot; else the loop goes on at J's landing (prev 1.0):
+// inside the round, the replay goes on from there; past it, the next round starts at that step; with no jumping
+// lane it starts at k0 + LANES with prev the last lane's sample. Each step's test reads the numbers the serial
+// loop's reads, so the events are its bits.
+__global__ void __launch_bounds__(MARCH_THREADS)
     march_skip_kernel(const float* __restrict__ value, const int* __restrict__ dist, const float* __restrict__ pose,
                       float* __restrict__ t_found_out, float* __restrict__ t_dead_out, const SkipParams p) {
+  constexpr int RAYS = MARCH_THREADS / LANES;
+  constexpr unsigned LANE_BITS = 0xffffffffu >> (32 - LANES);
+  static_assert(LANES >= 2 && LANES <= 32 && (LANES & (LANES - 1)) == 0 && RAYS <= 32 && MARCH_THREADS % 32 == 0,
+                "lanes a ray: a power of two up to a warp; the first warp sets up the block's rays");
   __shared__ float c2v[24];
-  const int tid = threadIdx.x;
+  __shared__ float dirs[RAYS][3];
+  const int tid = threadIdx.x, j = tid & (LANES - 1), slot = tid / LANES;
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
   __syncthreads();
-  int x, y;
-  xs::tile_pixel<NT>(tid, x, y);
-  if (x >= p.W || y >= p.H) return;
-  float d[3];
-  ray_direction(c2v, x, y, p, d);
-  const float s[3] = {c2v[18], c2v[19], c2v[20]};
-  float prev = first_sample(value, dist, p, s, d);
-  float t_found = INF_T, t_dead = INF_T;
-  for (int k = 0;;) {
-    bool inside;
-    const float c = step_sample(value, dist, p, s, d, k, inside);
-    const bool can_jump = inside && c >= JUMP_BASE - 0.5f;
-    const bool death = !can_jump && (!inside || (prev < 0.0f && c > 0.0f));
-    const bool crossing = !can_jump && inside && prev > 0.0f && c < 0.0f;
-    const float t_curr = RAY_MIN + (float)k * p.step;
-    if (crossing) t_found = t_curr;
-    if (death) t_dead = t_curr;
-    if (crossing || death || k + 1 >= p.n_steps) break;
-    if (can_jump) {
-      k += jump_steps(c, p);
-      prev = 1.0f;
-    } else {
-      k += 1;
-      prev = c;
-    }
-  }
-  t_found_out[y * p.W + x] = t_found;
-  t_dead_out[y * p.W + x] = t_dead;
-}
-
-// how the L lanes of a ray get its direction: each computes it; lane 0 computes it and shuffles it to the
-// others; or the block's first warp computes its rays', a lane a ray, into shared memory
-enum Setup { EVERY_LANE = 0, LANE_ZERO = 1, FIRST_WARP = 2 };
-
-// L lanes a ray (consecutive lanes of a warp), NT / L rays a block, the rays in image order. A round: lane j
-// reads step k0 + j's sample (the distance, then the value where the distance is below 2), every read before
-// any test; then the serial rule is replayed over the round from position `cur` (0 at a round's start) with the
-// carried `prev`: the lanes from cur to the first jumping lane J at or after it are the steps the serial loop
-// visits next in order (prev of a later one is its left neighbour's sample), so each tests its own step at once,
-// and the first that ends the ray (a crossing, a death, the n_steps stop) is taken by a ballot; else the loop
-// goes on at J's landing (prev 1.0): inside the round, the replay goes on from there; past it, the next round
-// starts at that step; with no jumping lane it starts at k0 + L with prev the last lane's sample.
-template <int L, int SETUP, int NT>
-__global__ void __launch_bounds__(NT)
-    march_skip_lanes_kernel(const float* __restrict__ value, const int* __restrict__ dist,
-                            const float* __restrict__ pose, float* __restrict__ t_found_out,
-                            float* __restrict__ t_dead_out, const SkipParams p) {
-  constexpr int RAYS = NT / L;
-  static_assert(L >= 2 && L <= 32 && (L & (L - 1)) == 0 && NT % 32 == 0 && (SETUP != FIRST_WARP || RAYS <= 32),
-                "lanes a ray: a power of two up to a warp");
-  __shared__ float c2v[24];
-  __shared__ float dirs[SETUP == FIRST_WARP ? RAYS : 1][3];
-  const int tid = threadIdx.x, j = tid & (L - 1), slot = tid / L;
-  if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
+  const int n_rays = p.H * p.W, first = blockIdx.x * RAYS, ray = first + slot;
+  if (tid < RAYS && first + tid < n_rays) ray_direction(c2v, (first + tid) % p.W, (first + tid) / p.W, p, dirs[tid]);
   __syncthreads();
-  const int n_rays = p.H * p.W, ray = blockIdx.x * RAYS + slot;
-  float d[3] = {0.0f, 0.0f, 0.0f};
-  if (SETUP == FIRST_WARP) {
-    const int r = blockIdx.x * RAYS + tid;
-    if (tid < RAYS && r < n_rays) {
-      float dr[3];
-      ray_direction(c2v, r % p.W, r / p.W, p, dr);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) dirs[tid][i] = dr[i];
-    }
-    __syncthreads();
-  }
-  if (ray >= n_rays) return;  // the ray's L lanes leave together
-  constexpr unsigned LANE_BITS = 0xffffffffu >> (32 - L);
-  const unsigned shift = (tid & 31) & ~(L - 1), group = LANE_BITS << shift;  // the ray's lanes in the warp
-  const int x = ray % p.W, y = ray / p.W;
-  if (SETUP == FIRST_WARP) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) d[i] = dirs[slot][i];
-  } else if (SETUP == LANE_ZERO) {
-    if (j == 0) ray_direction(c2v, x, y, p, d);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) d[i] = __shfl_sync(group, d[i], 0, L);
-  } else {
-    ray_direction(c2v, x, y, p, d);
-  }
+  if (ray >= n_rays) return;  // the ray's lanes leave together
+  const unsigned shift = (tid & 31) & ~(LANES - 1), group = LANE_BITS << shift;  // the ray's lanes in the warp
   const float s[3] = {c2v[18], c2v[19], c2v[20]};
+  const float d[3] = {dirs[slot][0], dirs[slot][1], dirs[slot][2]};
   float prev = first_sample(value, dist, p, s, d);
   float t_found = INF_T, t_dead = INF_T;
   for (int k0 = 0;;) {
@@ -256,31 +202,30 @@ __global__ void __launch_bounds__(NT)
     const float c = step_sample(value, dist, p, s, d, k, inside);
     const bool can_jump = inside && c >= JUMP_BASE - 0.5f;
     const int jump = can_jump ? jump_steps(c, p) : 1;
-    const float left = __shfl_up_sync(group, c, 1, L);  // lane j - 1's sample
+    const float left = __shfl_up_sync(group, c, 1, LANES);  // lane j - 1's sample
     const bool stop = k + 1 >= p.n_steps;
     const unsigned jumpers = (__ballot_sync(group, can_jump) >> shift) & LANE_BITS;
-    int cur = 0, next = L, event = 0;  // event: 1 a crossing, 2 a death, 3 the stop, at step k0 + next
+    int cur = 0, next = LANES, event = 0;  // event: 1 a crossing, 2 a death, 3 the stop, at step k0 + next
     for (;;) {
       const float pv = j == cur ? prev : left;
       const bool death = !can_jump && (!inside || (pv < 0.0f && c > 0.0f));
       const bool crossing = !can_jump && inside && pv > 0.0f && c < 0.0f;
-      const unsigned after = jumpers & (LANE_BITS << cur);  // cur < L
-      const int J = after ? __ffs(after) - 1 : L;
+      const unsigned after = jumpers & (LANE_BITS << cur);  // cur < LANES
+      const int J = after ? __ffs(after) - 1 : LANES;
       const bool visited = j >= cur && j <= J;
       const unsigned ends = (__ballot_sync(group, visited && (crossing || death || stop)) >> shift) & LANE_BITS;
       if (ends) {
         next = __ffs(ends) - 1;
-        event = __shfl_sync(group, crossing ? 1 : (death ? 2 : 3), next, L);
+        event = __shfl_sync(group, crossing ? 1 : (death ? 2 : 3), next, LANES);
         break;
       }
-      if (J == L) {
-        prev = __shfl_sync(group, c, L - 1, L);
-        next = L;
+      if (J == LANES) {
+        prev = __shfl_sync(group, c, LANES - 1, LANES);
         break;
       }
-      next = J + __shfl_sync(group, jump, J, L);
+      next = J + __shfl_sync(group, jump, J, LANES);
       prev = 1.0f;
-      if (next >= L) break;
+      if (next >= LANES) break;
       cur = next;
     }
     if (event != 0) {
@@ -292,8 +237,8 @@ __global__ void __launch_bounds__(NT)
     k0 += next;
   }
   if (j == 0) {
-    t_found_out[y * p.W + x] = t_found;
-    t_dead_out[y * p.W + x] = t_dead;
+    t_found_out[ray] = t_found;
+    t_dead_out[ray] = t_dead;
   }
 }
 
@@ -316,55 +261,18 @@ extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, 
   return (int)cudaGetLastError();
 }
 
-template <int NT>
-void launch_serial(const float* value, const int* dist, const float* pose, float* t_found, float* t_dead,
-                   const SkipParams& p, cudaStream_t s) {
-  march_skip_kernel<NT><<<xs::tile_grid<NT>(p.H, p.W), NT, 0, s>>>(value, dist, pose, t_found, t_dead, p);
-}
-
-template <int L, int SETUP, int NT>
-void launch_lanes(const float* value, const int* dist, const float* pose, float* t_found, float* t_dead,
-                  const SkipParams& p, cudaStream_t s) {
-  constexpr int RAYS = NT / L;
-  const int blocks = (p.H * p.W + RAYS - 1) / RAYS;
-  march_skip_lanes_kernel<L, SETUP, NT><<<blocks, NT, 0, s>>>(value, dist, pose, t_found, t_dead, p);
-}
-
 // value: the (NB, 512) value rows; dist: skip_field's (NB,) distances; pose: the 48 packed floats; t_found,
-// t_dead: (H, W), the march's every stride-th pixel of the camera; variant: the design measured (0: a thread a
-// ray in blocks of 256; 1, 2: of 32, 64; 3-11: 4, 8, 32 lanes a ray, each with the three ways of its set-up;
-// 12, 13: 16 lanes, every lane or the first warp; 14, 15: 32 lanes, the first warp, blocks of 64 and 256)
+// t_dead: (H, W), the march's every stride-th pixel of the camera
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             int variant, void* stream) {
+                             void* stream) {
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
   if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
   const SkipParams p{xs::make_rows(nbx, nby, nbz), H, W, stride, n_steps, vs, inv_vs, step, steps_per_cell,
                      xs::Camera{cx, cy, inv_fx, inv_fy}};
-  const float* v = (const float*)value;
-  const int* dk = (const int*)dist;
-  const float* ps = (const float*)pose;
-  float *tf = (float*)t_found, *td = (float*)t_dead;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case 0: launch_serial<256>(v, dk, ps, tf, td, p, s); break;
-    case 1: launch_serial<32>(v, dk, ps, tf, td, p, s); break;
-    case 2: launch_serial<64>(v, dk, ps, tf, td, p, s); break;
-    case 3: launch_lanes<4, EVERY_LANE, 64>(v, dk, ps, tf, td, p, s); break;
-    case 4: launch_lanes<4, LANE_ZERO, 64>(v, dk, ps, tf, td, p, s); break;
-    case 5: launch_lanes<4, FIRST_WARP, 64>(v, dk, ps, tf, td, p, s); break;
-    case 6: launch_lanes<8, EVERY_LANE, 128>(v, dk, ps, tf, td, p, s); break;
-    case 7: launch_lanes<8, LANE_ZERO, 128>(v, dk, ps, tf, td, p, s); break;
-    case 8: launch_lanes<8, FIRST_WARP, 128>(v, dk, ps, tf, td, p, s); break;
-    case 9: launch_lanes<32, EVERY_LANE, 128>(v, dk, ps, tf, td, p, s); break;
-    case 10: launch_lanes<32, LANE_ZERO, 128>(v, dk, ps, tf, td, p, s); break;
-    case 11: launch_lanes<32, FIRST_WARP, 128>(v, dk, ps, tf, td, p, s); break;
-    case 12: launch_lanes<16, EVERY_LANE, 128>(v, dk, ps, tf, td, p, s); break;
-    case 13: launch_lanes<16, FIRST_WARP, 128>(v, dk, ps, tf, td, p, s); break;
-    case 14: launch_lanes<32, FIRST_WARP, 64>(v, dk, ps, tf, td, p, s); break;
-    case 15: launch_lanes<32, FIRST_WARP, 256>(v, dk, ps, tf, td, p, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  constexpr int RAYS = MARCH_THREADS / LANES;
+  march_skip_kernel<<<(H * W + RAYS - 1) / RAYS, MARCH_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)value, (const int*)dist, (const float*)pose, (float*)t_found, (float*)t_dead, p);
   return (int)cudaGetLastError();
 }

@@ -55,7 +55,6 @@ from .sampling import to_index
 
 MID_WINDOW = 12  # the refresh's half-resolution window (xslam_tpu/ops/raycast_bricks.py::hier2_hit)
 SKIP_STRIDE = 4  # the refresh's skip march takes every 4th ray of the model maps in each axis
-SKIP_VARIANT = 0  # B5b's design (csrc/skip.cu::xs_march_skip), chosen while the designs are measured
 
 
 def _value_reader(plane: torch.Tensor, res):
@@ -290,7 +289,7 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
     kernels.launch(
         "march_skip", pose.device, bvol.value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride,
         kernels.march_steps(cfg.trunc_dist), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
-        f32(steps_per_cell), *kernels.camera_args(intr), SKIP_VARIANT,
+        f32(steps_per_cell), *kernels.camera_args(intr),
     )
     kernels.launch_counts["march_skip"] += 1
     return RaycastHit(t_found, t_dead)

@@ -55,7 +55,7 @@ HAND_KERNELS = {
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
     "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
     "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
-    "march_skip": ("march_skip_kernel", "march_skip_lanes_kernel"),
+    "march_skip": "march_skip_kernel",
 }
 
 
