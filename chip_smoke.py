@@ -40,7 +40,11 @@ Phases, in order:
    60x80 and on 7x9 rays against its plain version on every ray and at 60x80
    against the plain fixed march as the reference holds it, each bit for
    bit, timed warm and cold (B5b also with its rays' samples and rounds, and
-   its latency floor from probe E's time a step); K4 (the ICP system, its tail, the association that
+   its latency floor from probe E's time a step); B13 (point extraction:
+   count, points, normals and the zero rows past the count) on that volume
+   and on the dense twin of its brick rows, at run_slam's capacity of
+   1,000,000 and at half the count, bit for bit, timed warm and cold; K4
+   (the ICP system, its tail, the association that
    a level's first launch writes, and the association kernel it is held
    against) on model maps raycast from that volume and the next frame's
    depth pyramid, at the three level shapes of both main-path
@@ -68,7 +72,18 @@ Phases, in order:
    only where its device events are as many as the host's launch calls;
    where they differ,
    up to two more frames are profiled, and the run fails if none gives a
-   consistent record.
+   consistent record;
+6. the realistic paths, through the CLI's entry point ``run_slam.main`` on
+   data the port's generator renders into a temporary directory (its own PNG
+   writer; the loaders read them with its own PNG reader): 30 frames of
+   configs/ICL_realistic.yaml's dataset (cut from 301) with ``--mesh
+   tetra``: every pose file, ATE < 0.02 m, B13 launched once (``draw_pcd``),
+   ``pcd.ply`` read back with B13's count, B13 on the final volume equal to
+   the plain extraction, ``mesh.ply`` with triangles (the mesher timed again
+   with its peak memory), and a checkpoint after 15 frames loaded into a new
+   engine and run to the end giving the run's poses bit for bit; then 10
+   frames of configs/7scenes_realistic.yaml's (``SevenScenesDataset``),
+   ATE < 0.02 m.
 
 The launch counts are set to 0 just before each path is driven and read just
 after it.
@@ -123,6 +138,12 @@ FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main p
 PROBE_E_STEPS = 64  # probe E's dependent steps a ray (phase_probes): B5b's latency floor takes its time a step
 PREPROCESS_LAUNCHES = 3
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
+POINT_CAPACITY = 1_000_000  # run_slam's draw_pcd capacity
+# the realistic paths: configs/ICL_realistic.yaml's dataset cut from 301 frames to 30 (ATE < 0.02 m, a checkpoint
+# after 15 frames resumed to the end), configs/7scenes_realistic.yaml's to 10, both rendered by the port's generator
+N_FRAMES_ICL = 30
+CHECKPOINT_AT = 15
+N_FRAMES_7SCENES = 10
 
 # kernel: (source, the TPU/XLA code it replaces, the path whose launches are reported); the association
 # kernel runs on no path: each level's first icp_system launch writes the association, and the kernel is the
@@ -131,7 +152,8 @@ FOLDED = {"icp_associate": "icp_system"}
 # the device kernels that one launch count of a wrapper stands for, listed where the wrapper's work is more
 # than a kernel's name says: B3b's classes and ranks are one kernel
 DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel",),
-                  "skip_field": ("event_mask_kernel", "skip_distance_kernel")}
+                  "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
+                  "extract_points": ("extract_count_kernel", "extract_points_kernel", "extract_normals_kernel")}
 KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
     "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
@@ -150,6 +172,7 @@ KERNELS = {
     "model_map_normals": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/raycast.py:1087", "main path, bench"),
     "skip_field": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/bricks.py:139,151", "main path, bench refresh"),
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
+    "extract_points": ("xslam_tpu_torch/csrc/extract.cu", "xslam_tpu/ops/extract.py:59", "main path, ICL realistic"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
     "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
     "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
@@ -1951,6 +1974,226 @@ def phase_main_path_bench_refresh(ctx):
     return phase_main_path(ctx, "main path, bench refresh")
 
 
+# ----------------------------------------------------------------------------
+def _extract_bytes_ops(n_voxels: int, capacity: int, count: int):
+    """B13's least work: both planes read once (8 B a voxel), the two buffers
+    written once (24 B a row) and the count; ~10 operations an edge test
+    (three a voxel) and ~300 a point's normal (six trilinears)."""
+    return n_voxels * 8 + capacity * 24 + 4, n_voxels * 3 * 10 + count * 300
+
+
+def _same_cloud(a, b) -> bool:
+    return (int(a.count) == int(b.count) and bool(torch.equal(a.points, b.points))
+            and bool(torch.equal(a.normals, b.normals)))
+
+
+def phase_extract(ctx):
+    """B13 against its plain version, bit for bit (count, points, normals,
+    the zero rows past the count): on the smoke's fused 256^3 volume and on
+    the dense twin of its brick rows (the layout's ``to_dense``, as
+    ``engine.dense_volume`` makes it) and on a 201x203x205 crop of it (a
+    ragged last tile; rows shorter than a round of B13's threads), at
+    run_slam's capacity and at half the count (the overflow rows). Timed from
+    prepared arguments, warm and cold."""
+    from xslam_tpu_torch.ops import bricks, kernels
+    from xslam_tpu_torch.ops.extract import extract_points, extract_points_plain, extract_scratch_ints
+    from xslam_tpu_torch.ops.fusion import VolumeState
+
+    eng, dev = ctx["engine_cfg"], ctx["device"]
+    vol = ctx["volume"]
+    twin = bricks.to_dense(bricks.from_dense(*vol), eng.resolution)
+    crop = VolumeState(*(x[:201, :203, :205].contiguous() for x in vol))
+    worst = 0.0
+    for case, v in (("fused volume", vol), ("brick rows' dense twin", twin), ("crop 201x203x205", crop)):
+        full = extract_points(v, eng, POINT_CAPACITY)
+        n = int(full.count)
+        for capacity in (POINT_CAPACITY, n // 2):
+            k = full if capacity == POINT_CAPACITY else extract_points(v, eng, capacity)
+            p = extract_points_plain(v, eng, capacity)
+            torch.cuda.synchronize()
+            equal = _same_cloud(k, p)
+            err = max(max_abs(k.points, p.points), max_abs(k.normals, p.normals))
+            worst = max(worst, err)
+            zero_tail = not bool(k.points[int(k.count):].any()) and not bool(k.normals[int(k.count):].any())
+            unit = float((torch.linalg.norm(k.normals[:int(k.count)], dim=1) - 1).abs().lt(1e-3).float().mean())
+            emit("B13 extract_points", case=case, capacity=capacity, count=int(k.count), bit_equal=equal,
+                 max_abs_err=err, zero_rows_past_count=zero_tail, unit_normal_fraction=unit)
+            check(equal and zero_tail, f"B13 is not bit-equal to its plain version ({case}, capacity {capacity})")
+            check(int(k.count) == min(n, capacity) and n > 1_000, f"B13 ({case}): count {int(k.count)} of {n}")
+        check(_same_cloud(extract_points(v, eng, POINT_CAPACITY), full), f"B13 ({case}): a second launch differs")
+    # the launch from prepared arguments, warm and cold, on the fused volume at run_slam's capacity
+    X, Y, Z = vol.value.shape
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    points = torch.empty((POINT_CAPACITY, 3), dtype=torch.float32, device=dev)
+    normals, count = torch.empty_like(points), torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(extract_scratch_ints(X * Y * Z), dtype=torch.int32, device=dev)
+    args = (vol.value, vol.weight, scratch, points, normals, count, kernels.f32(eng.voxel_size),
+            kernels.reciprocal_f32(eng.voxel_size), kernels.f32(0.5 * eng.voxel_size), stream)
+
+    def launch():
+        check(ext.extract_points(*args) == 0, "extract_points launch failed")
+
+    ms, cold = time_ms(launch, 50), time_cold_ms(launch, 20)
+    plain = time_ms(lambda: extract_points_plain(VolumeState(*vol), eng, POINT_CAPACITY), 3)
+    n = int(count)
+    bms, by = bound_ms(*_extract_bytes_ops(X * Y * Z, POINT_CAPACITY, n))
+    # each of the launch's three kernels, by the profiler's device record over 20 launches
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            launch()
+        torch.cuda.synchronize()
+    split = {name: sum(e.device_time_total for e in prof.key_averages() if name in e.key) / 20 / 1e3
+             for name in DEVICE_KERNELS["extract_points"]}
+    emit("B13 extract_points timing", shape=[X, Y, Z], capacity=POINT_CAPACITY, count=n, ms=ms, cold_ms=cold,
+         plain_ms=plain, bound_ms=bms, bound_by=by, bound_counts="planes once, buffers once, the edge tests and "
+         "the normals' trilinears", kernel_ms=split, library_ms=None,
+         library_note="no single PyTorch call computes it")
+    return {"extract_points": dict(max_abs_err=worst, ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
+                                   bound_by=by, kernel_ms=split, count=n, capacity=POINT_CAPACITY)}
+
+
+def _realistic_run(tmp: str, config: str, fmt: str, n_frames: int, extra=()):
+    """Render ``n_frames`` of the realistic dataset with the port's generator,
+    then run ``run_slam.main`` on a copy of ``config`` that reads it, with the
+    launch counts set to 0 just before: the run, its stdout, its counts."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from xslam_tpu_torch import run_slam
+    from xslam_tpu_torch.apps import make_realistic_dataset
+    from xslam_tpu_torch.ops import kernels
+
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_realistic_dataset.main([data, str(n_frames), "--format", fmt])
+    render_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, config)) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(dataset_dir=data, output_dir=out + "/", end_frame=n_frames)
+    path = os.path.join(tmp, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        run = run_slam.main([path, *extra])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    text = stdout.getvalue()
+    slam = sorted(os.listdir(os.path.join(out, "slam")))
+    gt = sorted(os.listdir(os.path.join(out, "gt")))
+    info = dict(config=config, frames=n_frames, render_s=render_s, run_s=run_s, ate_m=run.ate,
+                mean_frame_ms=float(text.split("mean frame time = ")[1].split(" ms")[0]),
+                align_failed=text.count("align failed"), peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                pose_files=[len(slam), len(gt)], kernels=counts)
+    check(slam == gt == [f"frame-{i:06d}.pose.txt" for i in range(n_frames)],
+          f"{config}: pose files {len(slam)} / {len(gt)} for {n_frames} frames")
+    check(run.ate < 0.02, f"{config}: ATE {run.ate} m >= 0.02 m")
+    return run, text, counts, out, info
+
+
+def phase_main_path_icl(ctx):
+    """``run_slam.main`` on configs/ICL_realistic.yaml's configuration over 30
+    frames the port's generator renders (PNGs through the port's own codec
+    and ``ICLDataset``), with ``--mesh tetra``: every pose file, ATE < 0.02 m,
+    B13 launched exactly once for ``draw_pcd``, ``pcd.ply`` read back with
+    B13's count, the plain extraction of the final volume equal to B13's,
+    ``mesh.ply`` with triangles (the mesher timed again with its peak
+    memory), and a checkpoint after 15 frames, loaded and run to the end,
+    giving the run's poses bit for bit."""
+    import tempfile
+
+    from xslam_tpu_torch.io.dataset import ICLDataset
+    from xslam_tpu_torch.io.ply import read_ply
+    from xslam_tpu_torch.models.kinfu import XSlamEngine
+    from xslam_tpu_torch.ops.extract import extract_mesh, extract_points, extract_points_plain
+    from xslam_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run, text, counts, out, info = _realistic_run(tmp, "configs/ICL_realistic.yaml", "icl", N_FRAMES_ICL,
+                                                      ("--mesh", "tetra"))
+        engine, state = run.engine, run.state
+        n = int(text.split("exported ")[1].split(" points")[0])
+        k = int(text.split(" tetra triangles")[0].split("exported ")[-1])
+        mesh_s = float(text.split(" tetra triangles (")[1].split(" s)")[0])
+        points, normals = read_ply(os.path.join(out, "pcd.ply"))
+        with open(os.path.join(out, "mesh.ply")) as f:
+            mesh_head = f.read(400)
+        check(counts["extract_points"] == 1, f"the ICL run launched B13 {counts['extract_points']} times")
+        check(len(points) == n > 5_000 and f"element face {k}\n" in mesh_head and k > 0,
+              f"pcd.ply holds {len(points)} points for B13's {n}; mesh.ply's head {mesh_head[:200]!r} for {k}")
+        iterations = sum(engine.config.icp_iterations[: engine.config.num_levels])
+        for name, want in (("bilateral_filter", N_FRAMES_ICL), ("icp_system", iterations * N_FRAMES_ICL),
+                           ("model_map_normals", N_FRAMES_ICL), ("window_march", N_FRAMES_ICL),
+                           ("fuse_bricks", 1)):
+            check(counts[name] >= want, f"the ICL run launched {name} {counts[name]} times ({want} at least)")
+
+        # the final volume: B13 (a comparison launch, not counted) against the plain extraction
+        dense = engine.dense_volume(state)
+        kernel, plain = extract_points(dense, engine.vol_cfg, POINT_CAPACITY), extract_points_plain(
+            dense, engine.vol_cfg, POINT_CAPACITY)
+        same = _same_cloud(kernel, plain) and int(kernel.count) == n
+        check(same, f"B13 on the run's final volume differs from the plain extraction (count {int(kernel.count)})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        mesh = extract_mesh(dense, engine.vol_cfg, capacity=2_000_000)
+        again = int(mesh.count)
+        mesh_again_s = time.perf_counter() - t0
+        mesh_peak = torch.cuda.max_memory_allocated() - base
+        check(again == k, f"the tetra mesh of the final volume has {again} triangles, run_slam wrote {k}")
+        del mesh, kernel, plain
+
+        # a checkpoint after CHECKPOINT_AT frames, loaded into a new engine and run to the end
+        ds = ICLDataset(os.path.join(tmp, "data"), 0, N_FRAMES_ICL)
+        first = XSlamEngine(engine.config, device=ctx["device"])
+        s = first.init_state()
+        for i in range(CHECKPOINT_AT):
+            s, r = first.process_frame(s, ds.get_depth(i))
+            first.log_pose(r)
+        path = os.path.join(tmp, "checkpoint.npz")
+        checkpoint.save_state(path, s, first.pose_log)
+        resumed = XSlamEngine(engine.config, device=ctx["device"])
+        s, resumed.pose_log = checkpoint.load_state(path, device=ctx["device"])
+        for i in range(CHECKPOINT_AT, N_FRAMES_ICL):
+            s, r = resumed.process_frame(s, ds.get_depth(i))
+            resumed.log_pose(r)
+        resume_same = len(resumed.pose_log) == N_FRAMES_ICL and all(
+            a.tobytes() == b.tobytes() for a, b in zip(resumed.pose_log, engine.pose_log))
+    emit("main path, ICL realistic", **info, points=n, unit_normal_fraction=float(
+        (np.abs(np.linalg.norm(normals, axis=1) - 1) < 1e-3).mean()), b13_equals_plain_on_final_volume=same,
+         mesh_triangles=k, mesh_s_in_run=mesh_s, mesh_s=mesh_again_s, mesh_peak_mem_bytes=mesh_peak,
+         checkpoint_after_frames=CHECKPOINT_AT, resumed_poses_bit_equal=resume_same)
+    check(resume_same, f"the run resumed from a checkpoint after {CHECKPOINT_AT} frames differs from the "
+                       "uninterrupted run's poses")
+    return counts
+
+
+def phase_main_path_7scenes(ctx):
+    """``run_slam.main`` on configs/7scenes_realistic.yaml's configuration over
+    10 frames the port's generator renders (``SevenScenesDataset`` through
+    its info file): every pose file and ATE < 0.02 m."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, counts, _, info = _realistic_run(tmp, "configs/7scenes_realistic.yaml", "7scenes", N_FRAMES_7SCENES)
+    emit("main path, 7-Scenes realistic", **info)
+    check(counts["bilateral_filter"] == N_FRAMES_7SCENES and counts["extract_points"] == 0,
+          f"the 7-Scenes run's launches: {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1991,12 +2234,15 @@ def main() -> int:
     for name, phase in (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
                         ("bricks", phase_bricks), ("march_fixed", phase_march), ("raycast_refine", phase_refine),
                         ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
+                        ("extract", phase_extract),
                         ("maps", phase_maps), ("icp_system", phase_icp), ("probes", phase_probes),
                         ("main path", phase_main_path),
                         ("main path, fixed association", phase_main_path_fixed_assoc),
                         ("main path, brick fusion", phase_main_path_brick),
                         ("main path, bench", phase_main_path_bench),
-                        ("main path, bench refresh", phase_main_path_bench_refresh)):
+                        ("main path, bench refresh", phase_main_path_bench_refresh),
+                        ("main path, ICL realistic", phase_main_path_icl),
+                        ("main path, 7-Scenes realistic", phase_main_path_7scenes)):
         if name == "probes":
             ctx.pop("volume", None)  # a main path's peak memory counts its own volume only
             ctx.pop("bench_inputs", None)
@@ -2018,11 +2264,13 @@ def main() -> int:
     results.update(results.pop("window"))
     results.update(results.pop("normals"))
     results.update(results.pop("skip"))
+    results.update(results.pop("extract"))
     # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
     skip = results["march_skip"]
     skip["latency_floor_ms"] = skip["longest_ray_rounds"] * results["probe_e"]["ms"] / PROBE_E_STEPS
     counts = {path: results[path] for path in ("main path", "main path, fixed association", "main path, brick fusion",
-                                               "main path, bench", "main path, bench refresh")}
+                                               "main path, bench", "main path, bench refresh",
+                                               "main path, ICL realistic")}
     counts["probe path"] = ctx["probe_counts"]
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],

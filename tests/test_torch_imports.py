@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``xslam_tpu_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package (each module is imported in
+``chip_smoke.py``, imports JAX, the JAX package or PIL, which the machine
+with the card lacks (each module is imported in
 a fresh interpreter, one after the other, and the modules it pulled in are
 listed); and its measuring entry points need the card rather than fall back
 to the CPU."""
@@ -22,7 +23,7 @@ MODULES = sorted(
     + [m.name for m in pkgutil.walk_packages(xslam_tpu_torch.__path__, "xslam_tpu_torch.")]
     + ["chip_smoke"]
 )
-FORBIDDEN = ("jax", "jaxlib", "xslam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "xslam_tpu", "PIL")
 
 _PROBE = """
 import importlib, json, sys
@@ -53,8 +54,9 @@ def test_module_imports_no_jax(imported, module):
 def test_every_port_module_is_probed():
     assert {"xslam_tpu_torch.ops.fusion_brick", "xslam_tpu_torch.ops.kernels", "xslam_tpu_torch.models.kinfu",
             "xslam_tpu_torch.ops.bricks", "xslam_tpu_torch.ops.raycast_bricks", "xslam_tpu_torch.profile_step",
-            "xslam_tpu_torch.io.options",
-            "chip_smoke"} <= set(MODULES)
+            "xslam_tpu_torch.io.options", "xslam_tpu_torch.io.png", "xslam_tpu_torch.io.dataset",
+            "xslam_tpu_torch.io.ply", "xslam_tpu_torch.ops.extract", "xslam_tpu_torch.utils.checkpoint",
+            "xslam_tpu_torch.apps.make_realistic_dataset", "chip_smoke"} <= set(MODULES)
 
 
 def test_profile_step_needs_the_card():

@@ -1,6 +1,6 @@
 // Python binding of the kernels' C entry points (bilateral.cu, fusion.cu,
 // bricks.cu, march.cu, refine.cu, maps.cu, icp.cu, window.cu, skip.cu,
-// gather_probes.cu), built with them by
+// extract.cu, gather_probes.cu), built with them by
 // torch.utils.cpp_extension.load. The only
 // source that includes PyTorch's headers. The wrappers in ops/kernels.py
 // check device, type, shape and contiguity; each function here launches on
@@ -63,6 +63,9 @@ extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* r
                              float dist_thres, float angle_thres, void* stream);
 extern "C" int xs_icp_associate(const void* vcurr, const void* pose, void* assoc, int Hc, int Wc, int Hp,
                                 int Wp, float fx, float fy, float cx, float cy, void* stream);
+extern "C" int xs_extract_points(const void* value, const void* weight, void* scratch, long long scratch_ints,
+                                 void* points, void* normals, void* count, int X, int Y, int Z, int capacity,
+                                 float vs, float inv_vs, float half, void* stream);
 extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_b(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_c(const void* table, void* out, void* stream);
@@ -269,6 +272,15 @@ int icp_associate(const torch::Tensor& vcurr, const torch::Tensor& pose, torch::
                           Wp, fx, fy, cx, cy, as_stream(stream));
 }
 
+// scratch: int32 (the tiles' and chunks' counts); points, normals: (capacity, 3) float32; count: () int32
+int extract_points(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor scratch,
+                   torch::Tensor points, torch::Tensor normals, torch::Tensor count, float vs, float inv_vs,
+                   float half, int64_t stream) {
+  return xs_extract_points(value.data_ptr(), weight.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                           points.data_ptr(), normals.data_ptr(), count.data_ptr(), value.size(0), value.size(1),
+                           value.size(2), points.size(0), vs, inv_vs, half, as_stream(stream));
+}
+
 int probe_a(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {
   return xs_probe_a(table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.numel(), as_stream(stream));
 }
@@ -312,6 +324,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("vertex_normal_maps", &vertex_normal_maps);
   m.def("icp_system", &icp_system);
   m.def("icp_associate", &icp_associate);
+  m.def("extract_points", &extract_points);
   m.def("probe_a", &probe_a);
   m.def("probe_b", &probe_b);
   m.def("probe_c", &probe_c);

@@ -29,7 +29,8 @@ layout's window march B4 (``csrc/window.cu``) and skip march B5b
 (``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.raycast_bricks`, its screen
 normals B4n (computed in K6's launch, ``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, its skip field B5a (``csrc/skip.cu``)
-in :mod:`xslam_tpu_torch.ops.bricks`, and
+in :mod:`xslam_tpu_torch.ops.bricks`, the point extraction B13
+(``csrc/extract.cu``) in :mod:`xslam_tpu_torch.ops.extract`, and
 the five gather probes
 (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
 
@@ -73,7 +74,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "binding.cpp", "bilateral.cu", "fusion.cu", "bricks.cu", "march.cu", "refine.cu", "maps.cu", "icp.cu",
-    "window.cu", "skip.cu", "gather_probes.cu",
+    "window.cu", "skip.cu", "extract.cu", "gather_probes.cu",
 )
 HEADERS = ("dual.cuh", "rays.cuh", "fusion.cuh", "rows.cuh")  # included by the sources above
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
@@ -90,7 +91,7 @@ launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
-    "model_map_normals": 0, "window_march": 0, "skip_field": 0, "march_skip": 0,
+    "model_map_normals": 0, "window_march": 0, "skip_field": 0, "march_skip": 0, "extract_points": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
 _ext = None  # the built extension module

@@ -1,18 +1,23 @@
-"""End-to-end SLAM driver of the PyTorch port on the synthetic dataset.
+"""End-to-end SLAM driver of the PyTorch port.
 
 Counterpart of ``apps/run_slam.py``: YAML config in (the options of
 :mod:`xslam_tpu_torch.io.options` set over the file's, e.g. bench.py's
 configuration with ``--fixed-assoc --model-map-level 1 --fusion-mode brick
 --fusion-brick-cap 2816 --fusion-overflow dense --volume-layout brick
 --raycast-march temporal --raycast-refine reuse --raycast-normals screen``),
-per-frame estimated/ground-truth pose files
-(``<output_dir>/slam/frame-XXXXXX.pose.txt``, ``<output_dir>/gt/...``), the
-mean frame time and the ATE RMSE printed at the end.
+the frames of any ``dataset_format`` (``synthetic``, ``ICL``, ``7scenes``:
+:func:`xslam_tpu_torch.io.dataset.make_dataset`), per-frame estimated and
+ground-truth pose files (``<output_dir>/slam/frame-XXXXXX.pose.txt``,
+``<output_dir>/gt/...``), the point cloud ``<output_dir>/pcd.ply`` where the
+config sets ``draw_pcd`` (kernel B13 on the card), the mesh
+``<output_dir>/mesh.ply`` with ``--mesh {tetra,mc}``, the mean frame time
+and the ATE RMSE printed at the end.
 
 Usage:
-    python -m xslam_tpu_torch.run_slam configs/synthetic.yaml [--frames N] [--device cpu] [options]
+    python -m xslam_tpu_torch.run_slam configs/ICL_realistic.yaml [--frames N] [--mesh tetra] [--device cpu] [options]
 
-Runs on the CUDA card unless ``--device`` names another device.
+Runs on the CUDA card unless ``--device`` names another device. The
+recovery wrapper (``reloc_after_failures > 0``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -20,20 +25,37 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .io.config import load_config
+from .io.dataset import make_dataset
 from .io.options import add_options, set_options
-from .io.synthetic import SyntheticDataset
-from .models.kinfu import XSlamEngine
+from .io.ply import export_ply, export_ply_mesh
+from .models.kinfu import SlamState, XSlamEngine
+from .ops.extract import extract_mesh, extract_mesh_mc, extract_points
 from .utils.evaluation import ate_rmse, normalize_to_first
+
+POINT_CAPACITY = 1_000_000
+MESH_CAPACITY = 2_000_000
+
+
+class Run(NamedTuple):
+    """What a run leaves: its ATE, the engine (its pose log) and the final state."""
+
+    ate: float
+    engine: XSlamEngine
+    state: SlamState
 
 
 def save_pose(output_dir: str, frame_id: int, pose: np.ndarray):
+    """A pose file as the JAX package's native writer makes it
+    (``runtime/src/xslam_native.cpp::xs_write_pose``): the pose cast to
+    float32, each row ``%.7f`` four times."""
     os.makedirs(output_dir, exist_ok=True)
-    np.savetxt(os.path.join(output_dir, f"frame-{frame_id:06d}.pose.txt"), pose, fmt="%.7f")
+    np.savetxt(os.path.join(output_dir, f"frame-{frame_id:06d}.pose.txt"), np.asarray(pose, np.float32), fmt="%.7f")
 
 
 def main(argv=None):
@@ -41,6 +63,9 @@ def main(argv=None):
     ap.add_argument("config")
     ap.add_argument("--frames", type=int, default=None, help="override end_frame")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--mesh", choices=("tetra", "mc"), default=None,
+                    help="export the final isosurface mesh (<output_dir>/mesh.ply): 'tetra' = marching "
+                    "tetrahedra, 'mc' = full 256-case marching cubes (ops/extract.py)")
     add_options(ap)
     args = ap.parse_args(argv)
 
@@ -48,9 +73,11 @@ def main(argv=None):
     set_options(config, args)
     if args.frames is not None:
         config.end_frame = args.frames
-    if config.dataset_format != "synthetic":
-        raise NotImplementedError(f"dataset_format {config.dataset_format!r} is not ported yet")
-    dataset = SyntheticDataset(n_frames=config.end_frame - config.start_frame + 1, intr=config.intrinsics)
+    if config.reloc_after_failures > 0:
+        raise NotImplementedError(
+            f"reloc_after_failures={config.reloc_after_failures}: the recovery wrapper (RecoveringEngine) "
+            "is not ported yet")
+    dataset = make_dataset(config)
     step = max(1, config.frame_step)
     frame_ids = list(range(config.start_frame, min(len(dataset) + config.start_frame, config.end_frame), step))
     print(f"frame num: {len(frame_ids)}")
@@ -64,7 +91,7 @@ def main(argv=None):
     total_ms, timed = 0.0, 0
     print("start slam!")
     for i, fid in enumerate(frame_ids):
-        depth = dataset.get_depth(fid)
+        depth = dataset.get_depth(fid)  # read and decoded outside the timed window
         gt_pose = dataset.get_pose(fid) if config.use_gt_pose else None
         t0 = time.perf_counter()
         state, res = engine.process_frame(state, depth, gt_pose=gt_pose)
@@ -83,6 +110,23 @@ def main(argv=None):
         if may_overflow and bool(res.fusion_overflow):
             print(f"frame {i}: fusion brick-cap overflow (map update partial)")
 
+    if config.draw_pcd:
+        pc = extract_points(engine.dense_volume(state), engine.vol_cfg, capacity=POINT_CAPACITY)
+        n = int(pc.count)
+        os.makedirs(out_dir, exist_ok=True)
+        export_ply(os.path.join(out_dir, "pcd.ply"), pc.points[:n].cpu().numpy(), pc.normals[:n].cpu().numpy())
+        print(f"exported {n} points")
+
+    if args.mesh:
+        mesher = extract_mesh_mc if args.mesh == "mc" else extract_mesh
+        t0 = time.perf_counter()
+        mesh = mesher(engine.dense_volume(state), engine.vol_cfg, capacity=MESH_CAPACITY)
+        k = int(mesh.count)  # reads the count back: the mesh is done
+        seconds = time.perf_counter() - t0
+        os.makedirs(out_dir, exist_ok=True)
+        export_ply_mesh(os.path.join(out_dir, "mesh.ply"), mesh.vertices[:k].cpu().numpy())
+        print(f"exported {k} {args.mesh} triangles ({seconds:.3f} s)")
+
     if timed:
         device = engine.device
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -90,7 +134,7 @@ def main(argv=None):
     gt_poses = [dataset.get_pose(fid) for fid in frame_ids]
     ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(gt_poses))
     print(f"ATE RMSE = {ate:.5f} m")
-    return ate
+    return Run(ate, engine, state)
 
 
 if __name__ == "__main__":

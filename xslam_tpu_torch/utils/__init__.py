@@ -1,1 +1,1 @@
-"""Trajectory evaluation and state conversion."""
+"""Trajectory evaluation, state conversion and checkpoints."""

@@ -1,4 +1,4 @@
-"""Trajectory evaluation: ATE RMSE.
+"""Trajectory evaluation: ATE and RPE RMSE.
 
 The reference dumps per-frame estimated and ground-truth poses (both
 normalized to frame 0, ``Experiments/test_xkinect_fusion/main.cpp:63-75``)
@@ -38,3 +38,14 @@ def ate_rmse(est: Sequence[np.ndarray], gt: Sequence[np.ndarray], align=False) -
     err = est_t - gt_t
     return float(np.sqrt(np.mean(np.sum(err * err, axis=1))))
 
+
+
+def rpe_rmse(est: Sequence[np.ndarray], gt: Sequence[np.ndarray], delta: int = 1) -> float:
+    """Relative pose error (translational RMSE over ``delta``-frame steps)."""
+    errs = []
+    for i in range(len(est) - delta):
+        de = np.linalg.inv(est[i]) @ est[i + delta]
+        dg = np.linalg.inv(gt[i]) @ gt[i + delta]
+        rel = np.linalg.inv(dg) @ de
+        errs.append(np.sum(rel[:3, 3] ** 2))
+    return float(np.sqrt(np.mean(errs)))
