@@ -56,3 +56,67 @@ def test_no_icp_event_is_a_garbled_record():
     rec, seen = chip_smoke.consistent_record(lost, lambda: _record(660))
     assert len(seen) == 2
     chip_smoke.check_frame_record(rec, seen, ITERATIONS, 660)
+
+
+def test_kernel_table_names_every_counted_wrapper():
+    """Every wrapper's launch count has a row in the smoke's kernel table and
+    every row a count; every row's path is one the smoke counts."""
+    from xslam_tpu_torch.ops import kernels
+
+    assert set(chip_smoke.KERNELS) == set(kernels.launch_counts)
+    paths = {path for _, _, path in chip_smoke.KERNELS.values()}
+    assert "relocalize path" in paths and paths <= {
+        "main path", "main path, fixed association", "main path, brick fusion", "main path, bench",
+        "main path, bench refresh", "main path, ICL realistic", "relocalize path", "probe path"}
+    assert chip_smoke.KERNELS["tsdf_loss"][:2] == ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:65")
+
+
+def test_b12_bound_counts():
+    """B12's least work: the value plane, the depth, the poses and the sums
+    once; the chain's operations at each voxel that passes gt's test, for
+    every pair (REDUCE) or the value lane alone (VALUE)."""
+    n_bytes, ops = chip_smoke._loss_bytes_ops(256 ** 3, 1000, 480 * 640, 21, "reduce")
+    assert n_bytes == 256 ** 3 * 4 + 480 * 640 * 4 + 21 * 48 * 4 + 29 * 4
+    assert ops == 1000 * 21 * chip_smoke.TSDF_LOSS_PAIR_OPS
+    assert chip_smoke._loss_bytes_ops(8, 5, 4, 1, "value")[1] == 5 * chip_smoke.TSDF_LOSS_VALUE_OPS
+    # the relocalize path launches B12 twice an iteration, once for the start's count, once at the end
+    assert chip_smoke.RELOC_HOLDOUTS * (2 * chip_smoke.RELOC_ITERS + 2) == 78
+
+
+class _Event:
+    def __init__(self, name, device_type, start, end=None):
+        from types import SimpleNamespace
+
+        self.name, self.device_type = name, device_type
+        self.time_range = SimpleNamespace(start=start, end=start if end is None else end)
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+@pytest.mark.parametrize("spins_kept", [256, 200, 0])
+def test_frame_record_leaves_the_lead_spins_out(spins_kept):
+    """The spin kernels that open a profiled frame's window are left out of
+    the record, whichever of them the profiler kept, and their launch calls
+    are taken off the host's count: the frame's record is the frame's."""
+    from torch.autograd import DeviceType
+
+    lead = chip_smoke.PROFILE_LEAD
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [_Event("cudaLaunchKernel", cpu, t) for t in range(lead)]
+    events += [_Event("at::cuda::(anonymous namespace)::spin_kernel(long)", cuda, t) for t in range(spins_kept)]
+    frame = ["bilateral_kernel", "depth_pyramid_kernel"] + ["icp_system_kernel"] * ITERATIONS + ["fuse_kernel"]
+    events += [_Event("preprocess", cpu, 1000, 1010)]
+    events += [_Event("cudaLaunchKernel", cpu, 1001 + j) for j in range(len(frame))]
+    events += [_Event(name, cuda, 2000 + j) for j, name in enumerate(frame)]
+    rec = chip_smoke._frame_record(_Prof(events))
+    assert rec["names"] == frame and rec["host_calls"] == len(frame)
+    assert rec["icp_at"] == list(range(2, 2 + ITERATIONS))
+    lost_one = [e for e in events if not (e.device_type == cuda and e.name == "bilateral_kernel")]
+    rec = chip_smoke._frame_record(_Prof(lost_one))
+    assert len(rec["names"]) == rec["host_calls"] - 1  # a lost frame event still shows

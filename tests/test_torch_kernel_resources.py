@@ -111,7 +111,7 @@ def test_torch_rounding_on_the_cpu():
     card is the double reciprocal rounded once."""
     import numpy as np
 
-    from xslam_tpu_torch.apps.torch_rounding import DIVISORS, measure, not_followed
+    from xslam_tpu_torch.apps.torch_rounding import DIVISORS, NUMERATORS, measure, not_followed
     from xslam_tpu_torch.ops.kernels import reciprocal_f32
 
     out = measure("cpu")
@@ -121,6 +121,9 @@ def test_torch_rounding_on_the_cpu():
         assert reciprocal_f32(c) == float(np.float32(1.0 / c))
     assert max(out["mean_2x2"].values()) == 1.0
     assert max(out["sum_3"].values()) == 1.0
+    for c in NUMERATORS:  # Tensor.__rtruediv__ is reciprocal(x) * c on every device
+        assert out[f"rdiv_{c}"]["reciprocal_times_c"] == 1.0
+    assert out["reciprocal"]["true_division"] == 1.0
     # the CPU divides truly, so the card's variant is reported as not followed here; a report in
     # which every followed variant reads 1.0 passes
     assert any(line.startswith("div_") for line in not_followed(out))

@@ -12,11 +12,15 @@ Prints one JSON object with fractions of equal results over seeded inputs:
 - ``mean_2x2``: ``torch.mean`` over the 2x2 blocks of ``reshape(3, h, 2, w,
   2)``, as the model-map pyramid takes it, against the four ways to add four
   numbers;
-- ``sum_3``: ``torch.sum`` over a leading axis of 3 against the three orders.
+- ``sum_3``: ``torch.sum`` over a leading axis of 3 against the three orders;
+- ``rdiv_<c>``: ``c / x`` for a Python number ``c`` against
+  ``torch.reciprocal(x) * c`` (what ``Tensor.__rtruediv__`` computes) and the
+  true float32 division; ``reciprocal``: ``torch.reciprocal(x)`` against the
+  true division ``1 / x``.
 
 On a CUDA device the kernels of ``csrc/`` follow the variants in
 :data:`FOLLOWED` (``ops/kernels.py::reciprocal_f32``, ``csrc/maps.cu``,
-``csrc/dual.cuh``), which read 1.0 on torch 2.11; on the CPU the division is
+``csrc/dual.cuh``, ``csrc/tsdf_loss.cu``), which read 1.0 on torch 2.11; on the CPU the division is
 the true one. :func:`not_followed` lists those that no longer read 1.0: after
 an upgrade of PyTorch that changes one of them, K3, K5, K6 and K8 leave their
 plain versions by an ulp with no change of their own, and ``chip_smoke.py``
@@ -32,8 +36,10 @@ import numpy as np
 import torch
 
 DIVISORS = (1000.0, 481.2, 0.03, -480.0, 240.6, 0.12)
+NUMERATORS = (1.0, 0.5, -0.25)  # c / x as csfd/double.py takes it (dc.sqrt's derivatives, DCSFD division)
 # what the kernels repeat on a CUDA device: report key (or its prefix) -> variant
-FOLLOWED = {"div_": "reciprocal_in_double", "mean_2x2": "(q00+q10)+(q01+q11)", "sum_3": "(0+1)+2"}
+FOLLOWED = {"div_": "reciprocal_in_double", "mean_2x2": "(q00+q10)+(q01+q11)", "sum_3": "(0+1)+2",
+            "rdiv_": "reciprocal_times_c", "reciprocal": "true_division"}
 
 
 def measure(device) -> dict:
@@ -69,6 +75,12 @@ def measure(device) -> dict:
         "0+(1+2)": frac(total, sq[0] + (sq[1] + sq[2])),
         "(0+2)+1": frac(total, (sq[0] + sq[2]) + sq[1]),
     }
+    for c in NUMERATORS:
+        out[f"rdiv_{c}"] = {
+            "reciprocal_times_c": frac(c / x, torch.reciprocal(x) * c),
+            "true_division": frac(c / x, torch.full_like(x, c) / x),
+        }
+    out["reciprocal"] = {"true_division": frac(torch.reciprocal(x), torch.ones_like(x) / x)}
     return {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "torch": torch.__version__, **out}
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .single import CSFD, lift, sqrt
+from .single import CSFD, lift, sqrt, where
 
 
 def vec3(x: CSFD, y: CSFD, z: CSFD) -> CSFD:
@@ -65,3 +65,8 @@ def matvec(m: CSFD, v: CSFD) -> CSFD:
 
     rows = [vrow(i) for i in range(3)]
     return CSFD(torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows]))
+
+
+def where3(pred, a: CSFD, b: CSFD) -> CSFD:
+    """Elementwise select with ``pred`` broadcast over the leading 3-axis."""
+    return where(pred[None], a, b)

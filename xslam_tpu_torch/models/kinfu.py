@@ -127,11 +127,11 @@ def _check_config(config: SlamConfig) -> None:
         raise NotImplementedError("bilinear depth sampling (biInterpolate_threshold > 0) is not ported yet")
 
 
-def _device(device) -> torch.device:
+def _device(device, owner: str = "XSlamEngine") -> torch.device:
     """``None`` means the card; CUDA must exist then — no fallback to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("XSlamEngine: CUDA is not available (pass device='cpu' to run on the CPU)")
+        raise RuntimeError(f"{owner}: CUDA is not available (pass device='cpu' to run on the CPU)")
     return dev
 
 
