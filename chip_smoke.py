@@ -62,7 +62,9 @@ Phases, in order:
    evaluation one B12 launch): every loss history descends, B12 launches
    ``2 * iters + 2`` times a call, and holdout 0 with 4 iterations through
    B12 and through its plain version on the card makes the same accept
-   decisions and ``xi`` within 1e-5; then the odometry path:
+   decisions and ``xi`` within 1e-5; B12 timed on that map, and one
+   ``relocalize`` call profiled (wall time against device time); then the
+   odometry path:
    ``OdometryEngine`` (K1, K7, K8, K4) over 10 frames of the orbit, every
    frame aligned, ATE < 0.1 m;
 5. the probe path: ``xslam_tpu_torch.apps.probe_gather.run`` on the card;
@@ -137,8 +139,8 @@ N_FRAMES_BENCH = 10
 N_FRAMES_REFRESH = 4
 PROFILE_RETAKES = 2  # frames profiled again where the profiler's record of one disagrees with the host's calls
 # spin kernels launched at the start of a profiled frame's window, before the frame (_profiled): the profiler
-# drops the first device events of a window, more the longer the process has run (PR 15: 8 after 90 s, 18 after
-# 210 s); the spins take that loss and are left out of the frame's record
+# drops the first device events of a window, more the longer the process has run (on an H100: 8 after 90 s, 18
+# after 210 s); the spins take that loss and are left out of the frame's record
 PROFILE_LEAD = 256
 LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's device kernel
 BRICK_CAP = 2816  # bench.py's fusion_brick_cap
@@ -167,13 +169,21 @@ POINT_CAPACITY = 1_000_000  # run_slam's draw_pcd capacity
 N_FRAMES_ICL = 30
 CHECKPOINT_AT = 15
 N_FRAMES_7SCENES = 10
-# B12: the offset of the tsdf_loss phase's pose from frame 3's true pose (xi), and the operations of one seed
-# pair's chain at a voxel that passes gt's test (29 hyper-dual products of 14 operations, 3 hyper-dual divisions
-# of 15, 2 square roots of 12, the sums and compares, counted from csrc/tsdf_loss.cu::voxel_loss) and of the
-# value lane alone
+# B12: the offset of the tsdf_loss phase's pose from frame 3's true pose (xi), and the float32 operations that
+# its function needs at a voxel that passes gt's test, counted from csrc/tsdf_loss.cu::voxel_loss with every
+# term of a lifted constant's zero lanes dropped (compares, floors, rounds and converts included, the integer
+# address arithmetic left out): the value lane 89 (camera point 18, 1 / z 2, image point 6, the cell and the
+# nearest tap 10, the taps' tests 4, the bilinear weights and sum 19, the range 2, the ray's lambda 10, the two
+# distances 8, the error 5, the front test, the select, the loss and its sums 5); one first-derivative lane 81
+# and one second-derivative lane 143 (camera point 18 / 18, 1 / z 2 / 6, image point 8 / 16, bilinear sum
+# 22 / 38, lambda 10 / 21, distances 16 / 35, error, loss and sum 5 / 9); the two square roots' derivative
+# coefficients 10. The function needs the value lane once, the six first-derivative lanes once and one
+# second-derivative lane a pair (1 + 6 + 21 lanes; the kernel runs 4 lanes a pair, 84)
 TSDF_LOSS_OFFSET = (0.02, -0.01, 0.015, 0.01, -0.01, 0.005)
-TSDF_LOSS_PAIR_OPS = 600
-TSDF_LOSS_VALUE_OPS = 77
+TSDF_LOSS_VALUE_OPS = 89
+TSDF_LOSS_E1_OPS = 81
+TSDF_LOSS_E12_OPS = 143
+TSDF_LOSS_SQRT_OPS = 10
 # the relocalize path: apps/relocalize_demo.py's defaults (12 map frames, 3 holdouts, 12 Newton iterations);
 # holdout 0 again with 4 iterations through B12 and through its plain version; the odometry path's frames
 RELOC_FRAMES = 12
@@ -1704,10 +1714,13 @@ def _bits_on(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> bool:
 
 def _loss_bytes_ops(n_voxels: int, band: int, depth_pixels: int, pairs: int, mode: str):
     """B12's least work: the value plane read once (4 B a voxel), the depth
-    once, the poses and sums; the operations of the chain at each voxel that
-    passes gt's test (TSDF_LOSS_PAIR_OPS a pair; TSDF_LOSS_VALUE_OPS for the
-    value lane alone)."""
-    ops = band * (pairs * TSDF_LOSS_PAIR_OPS if mode == "reduce" else TSDF_LOSS_VALUE_OPS)
+    once, the poses and sums; the operations of the function at each voxel
+    that passes gt's test: the value lane, and in REDUCE the square roots'
+    coefficients, one first-derivative lane a direction (``min(pairs, 6)``)
+    and one second-derivative lane a pair."""
+    ops = band * TSDF_LOSS_VALUE_OPS
+    if mode == "reduce":
+        ops += band * (TSDF_LOSS_SQRT_OPS + min(pairs, 6) * TSDF_LOSS_E1_OPS + pairs * TSDF_LOSS_E12_OPS)
     return n_voxels * 4 + depth_pixels * 4 + pairs * 48 * 4 + 29 * 4, ops
 
 
@@ -1734,7 +1747,7 @@ def phase_tsdf_loss(ctx):
     poses = seeded_poses(torch.as_tensor(xi, device=dev))
     full = ctx["volume"].value
     table = None
-    # (case, volume, the fewest masked voxels the case must give: 89,509 and 5,183 in PR 15's run)
+    # (case, volume, the fewest masked voxels the case must give: 89,509 and 5,183 on an H100)
     for case, value, least in (("fused volume", full, 50_000),
                                ("crop 201x203x205", full[:201, :203, :205].contiguous(), 2_000)):
         band = int(((value != 0) & (value.abs() <= 0.95)).sum())
@@ -1747,7 +1760,8 @@ def phase_tsdf_loss(ctx):
             lanes = [_bits_on(a, b, p_mask) for a, b in zip(k_loss, p_loss)]
             field[pair] = dict(masks_equal=masks, lanes_bit_equal=lanes, masked=int(p_mask.sum()),
                                max_ulp=max(max_ulp(a[p_mask], b[p_mask]) for a, b in zip(k_loss, p_loss)))
-            check(masks and all(lanes), f"B12 FIELD ({case}, pair {pair}) differs from the plain version: {field[pair]}")
+            check(masks and all(lanes),
+                  f"B12 FIELD ({case}, pair {pair}) differs from the plain version: {field[pair]}")
         sums, count = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng)
         again, count2 = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng)
         v_sums, v_count = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, mode="value")
@@ -1778,8 +1792,10 @@ def phase_tsdf_loss(ctx):
             emit("B12 tsdf_loss timing", shape=[X, Y, Z], band_voxels=band, pairs=21, ms=ms, cold_ms=cold,
                  plain_ms=plain, bound_ms=bms, bound_by=by, value_ms=v_ms, value_cold_ms=v_cold,
                  value_plain_ms=v_plain, value_bound_ms=v_bms, value_bound_by=v_by,
-                 bound_counts=f"value plane once; {TSDF_LOSS_PAIR_OPS} operations a pair at each voxel that "
-                 f"passes gt's test ({TSDF_LOSS_VALUE_OPS} for the value lane)", library_ms=None,
+                 bound_counts=f"value plane once; at each voxel that passes gt's test {TSDF_LOSS_VALUE_OPS} "
+                 f"operations for the value lane, {TSDF_LOSS_E1_OPS} a first-derivative lane (6), "
+                 f"{TSDF_LOSS_E12_OPS} a second-derivative lane (21), {TSDF_LOSS_SQRT_OPS} for the square roots' "
+                 "coefficients", library_ms=None,
                  library_note="no single PyTorch call computes it")
             table = dict(max_abs_err=err, sums_max_ulp=ulp, ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
                          bound_by=by, value_ms=v_ms, value_cold_ms=v_cold, value_plain_ms=v_plain,
@@ -1797,16 +1813,19 @@ def phase_relocalize_path(ctx):
     both on the card from the same inputs: the same accept decisions and
     ``xi`` within 1e-5. The translation errors are printed, not held to a
     number: the basin at 3 cm voxels and 0.10 m of perturbation has no
-    measured bound."""
+    measured bound. Last, B12's REDUCE and VALUE timed on the path's own
+    map and holdout 0's depth at its start, and one ``relocalize`` call of
+    holdout 0 under the profiler: its wall time beside the device's busy
+    time and B12's share of it, all 26 B12 launches seen."""
     import contextlib
     import io
 
     from xslam_tpu_torch.apps import relocalize_demo
     from xslam_tpu_torch.io.config import load_config
     from xslam_tpu_torch.io.dataset import make_dataset
-    from xslam_tpu_torch.models.relocalize import newton
+    from xslam_tpu_torch.models.relocalize import newton, relocalize, seeded_poses
     from xslam_tpu_torch.ops import kernels
-    from xslam_tpu_torch.ops.tsdf_loss import tsdf_loss_hessian_plain
+    from xslam_tpu_torch.ops.tsdf_loss import tsdf_loss_hessian_plain, tsdf_loss_pairs
 
     path = os.path.join(ROOT, "configs", "synthetic.yaml")
     stdout = io.StringIO()
@@ -1850,7 +1869,60 @@ def phase_relocalize_path(ctx):
           f"the relocalize path launched B12 {counts['tsdf_loss']} times ({want}), K2 {counts['fuse_volume']}")
     check(same_accepts and xi_gap <= 1e-5, f"B12's and the plain version's relocalize differ: accepts "
                                            f"{k_acc.tolist()} / {p_acc.tolist()}, xi by {xi_gap}")
+
+    # B12 on the path's own map and holdout 0's depth at its start, then one relocalize call under the profiler
+    value, intr = vol.value, config.intrinsics
+    xi_start = torch.as_tensor(xi0, device=ctx["device"])
+    poses = seeded_poses(xi_start)
+    band = int(((value != 0) & (value.abs() <= 0.95)).sum())
+    reduce = lambda: tsdf_loss_pairs(value, dm, poses, intr, vol_cfg)  # noqa: E731
+    only_value = lambda: tsdf_loss_pairs(value, dm, poses, intr, vol_cfg, mode="value")  # noqa: E731
+    ms, cold = time_ms(reduce, 20), time_cold_ms(reduce, 10)
+    v_ms, v_cold = time_ms(only_value, 50), time_cold_ms(only_value, 20)
+    bms, by = bound_ms(*_loss_bytes_ops(value.numel(), band, dm.numel(), 21, "reduce"))
+    call = lambda: relocalize(value, dm, xi_start, intr, vol_cfg, iters=RELOC_ITERS)  # noqa: E731
+    call()
+    rec = _profiled_call(call)
+    want_b12 = 2 * RELOC_ITERS + 2
+    ctx["tsdf_loss_path"] = dict(path_ms=ms, path_cold_ms=cold, path_value_ms=v_ms, path_value_cold_ms=v_cold,
+                                 path_band_voxels=band, path_bound_ms=bms, path_bound_by=by,
+                                 relocalize_call_wall_ms=rec["wall_ms"],
+                                 relocalize_call_device_busy_ms=rec["device_busy_ms"],
+                                 relocalize_call_b12_device_ms=rec["kernel_ms"])
+    emit("relocalize path, B12 and one call", band_voxels=band, ms=ms, cold_ms=cold, value_ms=v_ms,
+         value_cold_ms=v_cold, bound_ms=bms, bound_by=by, call_iters=RELOC_ITERS, **rec)
+    check(rec["kernel_events"] == want_b12, f"the profiled relocalize call shows {rec['kernel_events']} B12 "
+                                            f"launches ({want_b12})")
     return counts
+
+
+def _profiled_call(fn, kernel: str = "tsdf_loss_kernel") -> dict:
+    """``fn()`` under the profiler, after ``PROFILE_LEAD`` spin kernels as in
+    :func:`_profiled`: the wall time from the spins' end to the end of
+    ``fn``'s device work, the device's busy time (its events' durations, the
+    spins' left out) and idle share, its events, the host's launch, copy and
+    fill calls, and the events and device time of ``kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from xslam_tpu_torch.profile_step import HOST_LAUNCH_CALLS
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.name]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    mine = [e for e in device if kernel in e.name]
+    host_calls = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS)) - PROFILE_LEAD
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+                device_events=len(device), host_calls=host_calls, kernel_events=len(mine),
+                kernel_ms=sum(e.time_range.elapsed_us() for e in mine) / 1e3)
 
 
 def phase_odometry_path(ctx):
@@ -1985,7 +2057,7 @@ def _frame_record(prof, lead: int = PROFILE_LEAD) -> dict:
 def _profiled(engine, state, depth):
     """One frame under the profiler, after ``PROFILE_LEAD`` spin kernels at
     the start of the window: the profiler drops the first device events of a
-    window, the more the longer the process has run (PR 15: the frame's
+    window, the more the longer the process has run (on an H100 the frame's
     first upload and K1 were lost on every retake once the run had gone on
     for a few minutes; not a pause, a CPU op or a synchronize at the window's
     start, only device launches took the loss). :func:`_frame_record`
@@ -2502,6 +2574,7 @@ def main() -> int:
         return 1
     results.pop("rounding")
     results["icp_associate"] = ctx["icp_associate"]
+    results["tsdf_loss"].update(ctx["tsdf_loss_path"])
     results.update(results.pop("probes"))
     results.update(results.pop("maps"))
     results.update(results.pop("bricks"))

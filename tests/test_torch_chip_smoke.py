@@ -73,11 +73,17 @@ def test_kernel_table_names_every_counted_wrapper():
 
 def test_b12_bound_counts():
     """B12's least work: the value plane, the depth, the poses and the sums
-    once; the chain's operations at each voxel that passes gt's test, for
-    every pair (REDUCE) or the value lane alone (VALUE)."""
-    n_bytes, ops = chip_smoke._loss_bytes_ops(256 ** 3, 1000, 480 * 640, 21, "reduce")
+    once; the function's operations at each voxel that passes gt's test: the
+    value lane, six first-derivative lanes and a second-derivative lane a pair
+    (1 + 6 + 21 lanes, not the kernel's 84) in REDUCE, the value lane alone in
+    VALUE. At 109,794 such voxels in the 256^3 volume the bytes bound both."""
+    c = chip_smoke
+    n_bytes, ops = c._loss_bytes_ops(256 ** 3, 1000, 480 * 640, 21, "reduce")
     assert n_bytes == 256 ** 3 * 4 + 480 * 640 * 4 + 21 * 48 * 4 + 29 * 4
-    assert ops == 1000 * 21 * chip_smoke.TSDF_LOSS_PAIR_OPS
+    assert ops == 1000 * (c.TSDF_LOSS_VALUE_OPS + c.TSDF_LOSS_SQRT_OPS + 6 * c.TSDF_LOSS_E1_OPS
+                          + 21 * c.TSDF_LOSS_E12_OPS) == 3_588_000
+    assert c._loss_bytes_ops(256 ** 3, 1000, 480 * 640, 1, "reduce")[1] == 1000 * (89 + 10 + 81 + 143)
+    assert c.bound_ms(*c._loss_bytes_ops(256 ** 3, 109_794, 480 * 640, 21, "reduce"))[1] == "bytes"
     assert chip_smoke._loss_bytes_ops(8, 5, 4, 1, "value")[1] == 5 * chip_smoke.TSDF_LOSS_VALUE_OPS
     # the relocalize path launches B12 twice an iteration, once for the start's count, once at the end
     assert chip_smoke.RELOC_HOLDOUTS * (2 * chip_smoke.RELOC_ITERS + 2) == 78

@@ -59,7 +59,7 @@ def test_every_port_module_is_probed():
             "xslam_tpu_torch.apps.make_realistic_dataset", "xslam_tpu_torch.csfd.double",
             "xslam_tpu_torch.csfd.rawcomplex", "xslam_tpu_torch.ops.tsdf_loss", "xslam_tpu_torch.models.relocalize",
             "xslam_tpu_torch.models.odometry", "xslam_tpu_torch.apps.relocalize_demo",
-            "xslam_tpu_torch.apps.csfd_bench", "xslam_tpu_torch.apps.profile_window", "chip_smoke"} <= set(MODULES)
+            "xslam_tpu_torch.apps.csfd_bench", "chip_smoke"} <= set(MODULES)
 
 
 def test_profile_step_needs_the_card():
@@ -70,11 +70,3 @@ def test_profile_step_needs_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_step.main([str(ROOT / "configs" / "synthetic.yaml")])
 
-
-def test_profile_window_needs_the_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: profile_window measures it")
-    from xslam_tpu_torch.apps import profile_window
-
-    with pytest.raises(RuntimeError, match="CUDA"):
-        profile_window.main(["--waits", "0"])

@@ -30,11 +30,12 @@
 //     (zeros and false where gt fails its test).
 //
 // What bounds it on the H100: the value plane is read once (4 B a voxel,
-// 67 MB at 256^3, 0.020 ms at 3.35 TB/s); a voxel in the band then runs one
-// pair's chain per pair, some 600 float32 operations (voxel_loss: 29
-// hyper-dual products of 14 operations, 3 hyper-dual divisions of 15, 2
-// square roots of 12, the sums and compares; 7 IEEE divisions in all), so
-// with 21 pairs the operations bound it.
+// 67 MB at 256^3, 0.020 ms at 3.35 TB/s). The function needs some 3,600
+// float32 operations at a voxel in the band (the value lane once, six
+// first-derivative lanes and one second-derivative lane a pair: 1 + 6 + 21
+// lanes, counted in chip_smoke.py), 0.006 ms at 67 TFLOP/s for the ~110,000
+// such voxels of three fused frames, so the bytes bound it. This kernel runs
+// all four lanes of every pair (84 lanes, 7 IEEE divisions a pair).
 // What the design does about it: the simple design first. A thread a voxel;
 // gt's test (pose-independent) comes first, so most of a zero-initialised
 // volume costs one coalesced load; the P poses sit in shared memory; each
