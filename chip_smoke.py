@@ -138,7 +138,7 @@ N_FRAMES_BRICK = 10
 N_FRAMES_BENCH = 10
 N_FRAMES_REFRESH = 4
 PROFILE_RETAKES = 2  # frames profiled again where the profiler's record of one disagrees with the host's calls
-# spin kernels launched at the start of a profiled frame's window, before the frame (_profiled): the profiler
+# spin kernels launched at the start of a profiled frame's window, before the frame (_lead_profile): the profiler
 # drops the first device events of a window, more the longer the process has run (on an H100: 8 after 90 s, 18
 # after 210 s); the spins take that loss and are left out of the frame's record
 PROFILE_LEAD = 256
@@ -1897,24 +1897,15 @@ def phase_relocalize_path(ctx):
 
 
 def _profiled_call(fn, kernel: str = "tsdf_loss_kernel") -> dict:
-    """``fn()`` under the profiler, after ``PROFILE_LEAD`` spin kernels as in
-    :func:`_profiled`: the wall time from the spins' end to the end of
-    ``fn``'s device work, the device's busy time (its events' durations, the
-    spins' left out) and idle share, its events, the host's launch, copy and
-    fill calls, and the events and device time of ``kernel``."""
+    """``fn()`` under :func:`_lead_profile`: the wall time, the device's busy
+    time (its events' durations, the spins' left out) and idle share, its
+    events, the host's launch, copy and fill calls, and the events and device
+    time of ``kernel``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from xslam_tpu_torch.profile_step import HOST_LAUNCH_CALLS
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, prof, wall_ms = _lead_profile(fn)
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.name]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     mine = [e for e in device if kernel in e.name]
@@ -2054,23 +2045,36 @@ def _frame_record(prof, lead: int = PROFILE_LEAD) -> dict:
                 host_calls=host_calls, stages=stage_launches(prof.events(), 1))
 
 
-def _profiled(engine, state, depth):
-    """One frame under the profiler, after ``PROFILE_LEAD`` spin kernels at
+def _lead_profile(fn):
+    """``fn()`` under the profiler, after ``PROFILE_LEAD`` spin kernels at
     the start of the window: the profiler drops the first device events of a
     window, the more the longer the process has run (on an H100 the frame's
     first upload and K1 were lost on every retake once the run had gone on
     for a few minutes; not a pause, a CPU op or a synchronize at the window's
-    start, only device launches took the loss). :func:`_frame_record`
-    leaves the spins out."""
+    start, only device launches took the loss). ``(fn's result, the
+    profile, the wall ms from the spins' end to the end of fn's device
+    work)``; the readers leave the spins out."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_LEAD):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
-        state, res = engine.process_frame(state, depth)
-        engine.log_pose(res)  # as profile_step.py profiles a frame
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, prof, wall_ms
+
+
+def _profiled(engine, state, depth):
+    """One frame under :func:`_lead_profile`; :func:`_frame_record` reads it."""
+    def frame():
+        out = engine.process_frame(state, depth)
+        engine.log_pose(out[1])  # as profile_step.py profiles a frame
+        return out
+
+    (state, res), prof, _ = _lead_profile(frame)
     return state, res, prof
 
 
