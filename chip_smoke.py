@@ -103,7 +103,25 @@ Phases, in order:
    with its peak memory), and a checkpoint after 15 frames loaded into a new
    engine and run to the end giving the run's poses bit for bit; then 10
    frames of configs/7scenes_realistic.yaml's (``SevenScenesDataset``),
-   ATE < 0.02 m.
+   ATE < 0.02 m;
+8. the backend configs, through ``run_slam.main`` with ``--frames`` on data
+   the port's generator renders first (three processes side by side, all
+   waited for before the first run; ``BACKEND_RUNS``), each under a
+   :class:`BackendProbe` that times and counts ``relocalize``,
+   ``_depth_icp``, ``pose_graph_cg``, ``build_ba_problem`` and
+   ``schur_ba_cg`` and profiles one ``schur_ba_cg`` call (its launches):
+   configs/ICL_blackout.yaml over 60 frames with frames 30-39 blank (they
+   fail to align, a relocalization after them re-enters its frame and every
+   later frame aligns, B12 launches
+   ``2 * reloc_iters + 2`` times a ``relocalize`` call, whether the
+   re-entered frame launched B5a and B5b is printed, ATE and refined ATE
+   < 0.05 m); configs/ICL_loop_backend.yaml on a revisit cut (a verified
+   loop, finite BA residuals, a second ``refine_trajectory()`` bit-equal to
+   the CLI's, ``pose_graph_cg`` and ``schur_ba_cg`` again with no host read
+   under ``torch.cuda.set_sync_debug_mode("error")`` and bit-equal);
+   configs/ICL_realistic_backend.yaml over 30 frames (no align failure, at
+   least 2 keyframes). Each prints the refined line and writes a refined
+   pose file a frame.
 
 The launch counts are set to 0 just before each path is driven and read just
 after it.
@@ -169,6 +187,17 @@ POINT_CAPACITY = 1_000_000  # run_slam's draw_pcd capacity
 N_FRAMES_ICL = 30
 CHECKPOINT_AT = 15
 N_FRAMES_7SCENES = 10
+# the backend configs, each cut by --frames from a dataset the port's generator renders (its noise and options as
+# BASELINE.md:642, :665 rendered them): configs/ICL_blackout.yaml over 60 frames with frames 30-39 blank,
+# configs/ICL_loop_backend.yaml on the shortest revisit cut that verified a loop, configs/ICL_realistic_backend.yaml
+# over 30 frames
+BLACKOUT = (30, 40)
+N_FRAMES_LOOP = 98
+BACKEND_RUNS = {"blackout": ("configs/ICL_blackout.yaml", 60, ["0.0015", "--blackout", str(BLACKOUT[0]),
+                                                                 str(BLACKOUT[1])]),
+                "loop": ("configs/ICL_loop_backend.yaml", N_FRAMES_LOOP, ["0.004", "--revisit"]),
+                "realistic": ("configs/ICL_realistic_backend.yaml", 30, ["0.0015"])}
+RENDER_TIMEOUT_S = 400
 # B12: the offset of the tsdf_loss phase's pose from frame 3's true pose (xi), and the float32 operations that
 # its function needs at a voxel that passes gt's test, counted from csrc/tsdf_loss.cu::voxel_loss with every
 # term of a lifted constant's zero lanes dropped (compares, floors, rounds and converts included, the integer
@@ -2512,6 +2541,320 @@ def phase_main_path_7scenes(ctx):
     return counts
 
 
+# ---------------------------------------------------------------- the backend configs
+class BackendProbe:
+    """Times and counts the backend's calls during a run: the names that
+    ``models/recovery.py`` calls (``relocalize``, ``_depth_icp``,
+    ``pose_graph_cg``, ``build_ba_problem``, ``schur_ba_cg``) and
+    ``RecoveringEngine._recover`` and ``refine_trajectory`` are wrapped on
+    entry and restored on exit. Device work is synchronized at each end, so
+    each time is the call's own. The wrappers change no result."""
+
+    NAMES = ("relocalize", "_depth_icp", "pose_graph_cg", "build_ba_problem", "schur_ba_cg")
+
+    def __enter__(self):
+        from xslam_tpu_torch.models import recovery
+        from xslam_tpu_torch.ops import kernels
+
+        self.module, self.counts = recovery, kernels.launch_counts
+        self.calls = {name: [] for name in self.NAMES}  # (seconds, what the call tells)
+        self.recovers, self.refined, self.last = [], [], {}
+        self.saved = {name: getattr(recovery, name) for name in self.NAMES}
+        self.saved_methods = {name: getattr(recovery.RecoveringEngine, name)
+                              for name in ("_recover", "refine_trajectory")}
+        for name in self.NAMES:
+            setattr(recovery, name, self._timed(name, self.saved[name]))
+        recovery.RecoveringEngine._recover = lambda engine, *args: self._recover(engine, *args)
+        recovery.RecoveringEngine.refine_trajectory = lambda engine, *args, **kw: self._refine(engine, *args, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+        for name, fn in self.saved_methods.items():
+            setattr(self.module.RecoveringEngine, name, fn)
+        return False
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            b12 = self.counts["tsdf_loss"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            info = {}
+            if name == "relocalize":
+                info = dict(b12=self.counts["tsdf_loss"] - b12, iters=kwargs["iters"])
+            elif name == "build_ba_problem":
+                info = dict(stride=kwargs.get("stride"), N=0 if out[0] is None else int(out[0].frame_idx.shape[0]),
+                            L=0 if out[1] is None else int(out[1].shape[0]))
+            elif name == "schur_ba_cg":
+                info = dict(N=int(args[2].frame_idx.shape[0]), L=int(args[1].shape[0]))
+            self.calls[name].append((seconds, info))
+            self.last[name] = (fn, args, kwargs, out)
+            return out
+
+        return call
+
+    def _recover(self, engine, state, depth, failed):
+        before = {k: self.counts[k] for k in ("skip_field", "march_skip")}
+        out = self.saved_methods["_recover"](engine, state, depth, failed)
+        event, result = engine.recovery_events[-1], out[1]
+        self.recovers.append(dict(
+            frame=event.frame_index, accepted=event.accepted, reentered=result is not failed,
+            skip_field=self.counts["skip_field"] - before["skip_field"],
+            march_skip=self.counts["march_skip"] - before["march_skip"],
+            anchor_coverage=None if result.anchor_coverage is None or result is failed
+            else float(result.anchor_coverage)))
+        return out
+
+    def _refine(self, engine, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.saved_methods["refine_trajectory"](engine, *args, **kwargs)
+        self.refined.append((time.perf_counter() - t0, out))
+        return out
+
+    def seconds(self, name) -> float:
+        return float(sum(s for s, _ in self.calls[name]))
+
+
+def parse_backend_stdout(text: str) -> dict:
+    """What ``run_slam.main`` printed on a backend config: the frames that
+    failed to align, the mean frame ms, the ATE and the refined ATE with
+    its keyframes and loop closures (None where a line is missing), and
+    whether the refinement failed."""
+    def number(after, upto=" "):
+        return float(text.split(after)[1].split(upto)[0]) if after in text else None
+
+    refined = re.search(r"refined ATE RMSE = (\S+) m \((\d+) keyframes, (\d+) loop closures\)", text)
+    return dict(align_failed=[int(m) for m in re.findall(r"^frame (\d+): align failed!", text, re.M)],
+                mean_frame_ms=number("mean frame time = "), ate_m=number("ATE RMSE = "),
+                refined_ate_m=float(refined.group(1)) if refined else None,
+                keyframes=int(refined.group(2)) if refined else None,
+                loops=int(refined.group(3)) if refined else None,
+                refinement_failed="backend refinement FAILED" in text)
+
+
+def _backend_data(ctx) -> str:
+    """The three backend phases' datasets, rendered once by the port's
+    generator in three processes side by side (the phases wait for all
+    three, so no render runs beside a timed run): the directory that holds
+    them. Every process is waited for, or killed."""
+    if "backend_data" not in ctx:
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_backend_")
+        t0 = time.perf_counter()
+        procs = {tag: subprocess.Popen([sys.executable, "-m", "xslam_tpu_torch.apps.make_realistic_dataset",
+                                        os.path.join(tmp, tag), str(n), *args], cwd=ROOT,
+                                       stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                 for tag, (_, n, args) in BACKEND_RUNS.items()}
+        try:
+            for tag, proc in procs.items():
+                _, err = proc.communicate(timeout=RENDER_TIMEOUT_S)
+                check(proc.returncode == 0, f"rendering the {tag} data failed: {err[-2000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        ctx["backend_data"] = tmp
+        emit("backend data", render_s=time.perf_counter() - t0,
+             frames={tag: n for tag, (_, n, _) in BACKEND_RUNS.items()})
+    return ctx["backend_data"]
+
+
+def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
+    """``run_slam.main`` on a copy of ``BACKEND_RUNS[tag]``'s config that
+    reads ``<data_root>/<tag>`` and writes ``<data_root>/<tag>_out``, with
+    ``--frames n_frames``, under a :class:`BackendProbe`, the launch counts
+    set to 0 just before: ``(run, the parsed stdout, the probe, info)``,
+    info holding what the phase prints."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from xslam_tpu_torch import run_slam
+    from xslam_tpu_torch.ops import kernels
+
+    config = BACKEND_RUNS[tag][0]
+    with open(os.path.join(ROOT, config)) as f:
+        cfg = yaml.safe_load(f)
+    out = os.path.join(data_root, f"{tag}_out")
+    cfg.update(dataset_dir=os.path.join(data_root, tag), output_dir=out + "/")
+    path = os.path.join(data_root, f"{tag}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BackendProbe() as probe, contextlib.redirect_stdout(stdout):
+        run = run_slam.main([path, "--frames", str(n_frames)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    parsed = parse_backend_stdout(stdout.getvalue())
+    refine_s = probe.refined[0][0] if probe.refined else None
+    reloc = probe.calls["relocalize"]
+    info = dict(config=config, frames=n_frames, card=device_card, run_s=run_s, **parsed,
+                relocalize_calls=len(reloc), relocalize_s=probe.seconds("relocalize"),
+                relocalize_b12_launches=[c["b12"] for _, c in reloc],
+                depth_icp_calls=len(probe.calls["_depth_icp"]), depth_icp_s=probe.seconds("_depth_icp"),
+                recoveries=probe.recovers, recovery_events=[e._asdict() for e in run.engine.recovery_events],
+                refine_trajectory_s=refine_s, pose_graph_cg_s=probe.seconds("pose_graph_cg"),
+                build_ba_problem_s=probe.seconds("build_ba_problem"), schur_ba_cg_s=probe.seconds("schur_ba_cg"),
+                schur_ba_cg_share_of_run=probe.seconds("schur_ba_cg") / run_s,
+                build_ba_problem_calls=[c for _, c in probe.calls["build_ba_problem"]],
+                schur_ba_cg_rounds=[dict(seconds=s, **c) for s, c in probe.calls["schur_ba_cg"]],
+                kernels={k: v for k, v in kernels.launch_counts.items() if v})
+    if "schur_ba_cg" in probe.last:
+        fn, args, kwargs, _ = probe.last["schur_ba_cg"]
+        fn(*args, **kwargs)
+        rec = _profiled_call(lambda: fn(*args, **kwargs))
+        info["schur_ba_cg_profiled"] = {k: rec[k] for k in ("wall_ms", "device_busy_ms", "device_events",
+                                                           "host_calls")}
+    return run, parsed, probe, info
+
+
+def _check_backend_common(tag: str, run, parsed: dict, probe, n_frames: int, data_root: str):
+    """What every backend phase holds: the ATE and the refined line printed,
+    no refinement failure, a refined pose file a frame, each relocalize call
+    ``2 * reloc_iters + 2`` B12 launches."""
+    check(parsed["ate_m"] is not None and parsed["refined_ate_m"] is not None and not parsed["refinement_failed"],
+          f"{tag}: ATE {parsed['ate_m']}, refined ATE {parsed['refined_ate_m']}, failed "
+          f"{parsed['refinement_failed']}")
+    refined_dir = os.path.join(data_root, f"{tag}_out", "slam_refined")
+    files = sorted(os.listdir(refined_dir)) if os.path.isdir(refined_dir) else []
+    check(files == [f"frame-{i:06d}.pose.txt" for i in range(n_frames)],
+          f"{tag}: {len(files)} refined pose files for {n_frames} frames")
+    want = 2 * run.engine.config.reloc_iters + 2
+    bad = [c["b12"] for _, c in probe.calls["relocalize"] if c["b12"] != want]
+    check(not bad, f"{tag}: relocalize calls launched B12 {bad} times ({want} a call)")
+
+
+def phase_backend_blackout(ctx):
+    """configs/ICL_blackout.yaml over 60 frames rendered with ``--blackout 30
+    40``: the 10 blank frames fail to align; after them a relocalization
+    passes its gate and its frame re-enters the tracked step at the
+    relocalized pose, and every later frame aligns; B12 launches ``2 *
+    reloc_iters + 2`` times a relocalize call; the ATE and the refined ATE
+    below 0.05 m; a refined pose file a frame. Whether the re-entered frame
+    aligned (its event's ``accepted``) and whether it launched B5a and B5b
+    (the ``hier2`` refresh) is recorded, not checked."""
+    t0 = time.perf_counter()
+    root = _backend_data(ctx)
+    n = BACKEND_RUNS["blackout"][1]
+    run, parsed, probe, info = backend_run("blackout", root, n, ctx["card"])
+    events = run.engine.recovery_events
+    # the relocalizations after the blackout whose candidate passed the gate, so that their frame re-entered the
+    # tracked step at the relocalized pose; `accepted` is whether that re-entry aligned (against the model maps
+    # rendered at the frozen pose: the JAX package's frame 160 fails it too, BASELINE.md:665-672)
+    reentered = [r for r in probe.recovers if r["reentered"]]
+    after = [r["frame"] for r in reentered if r["frame"] >= BLACKOUT[1]]
+    tracked_after = after and all(f not in parsed["align_failed"] for f in range(after[0] + 1, n))
+    info.update(reentered_after_blackout=after, accepted_after_blackout=[
+        e.frame_index for e in events if e.accepted and e.frame_index >= BLACKOUT[1]],
+                tracked_after_reentry=bool(tracked_after), reentered_frames=reentered,
+                reentry_launched_b5=any(r["skip_field"] and r["march_skip"] for r in reentered),
+                tsdf_loss_launches=info["kernels"].get("tsdf_loss", 0), phase_s=time.perf_counter() - t0)
+    emit("backend, blackout", **info)
+    ctx["backend_b12"] = dict(backend_blackout_relocalize_calls=info["relocalize_calls"],
+                              backend_blackout_launches=info["tsdf_loss_launches"])
+    _check_backend_common("blackout", run, parsed, probe, n, root)
+    check(set(range(*BLACKOUT)) <= set(parsed["align_failed"]),
+          f"blackout: frames {list(range(*BLACKOUT))} should fail to align, failed {parsed['align_failed']}")
+    check(tracked_after, f"blackout: no relocalization after frame {BLACKOUT[1]} re-entered its frame with every "
+                         f"later frame aligned: events {events}, failed frames {parsed['align_failed']}")
+    check(info["tsdf_loss_launches"] == sum(info["relocalize_b12_launches"]),
+          f"blackout: B12 launched {info['tsdf_loss_launches']} times, its relocalize calls "
+          f"{info['relocalize_b12_launches']}")
+    check(parsed["ate_m"] < 0.05 and parsed["refined_ate_m"] < 0.05,
+          f"blackout: ATE {parsed['ate_m']} m, refined {parsed['refined_ate_m']} m (0.05 m)")
+    return info
+
+
+def phase_backend_loop(ctx):
+    """configs/ICL_loop_backend.yaml on a ``--revisit`` cut (noise 0.004):
+    at least one verified loop edge, the refined line, finite BA residuals;
+    ``refine_trajectory()`` again on the run's engine gives the CLI's
+    refined poses bit for bit; ``pose_graph_cg`` and ``schur_ba_cg`` again
+    on their last inputs under ``torch.cuda.set_sync_debug_mode("error")``
+    (no host read) give their first results bit for bit."""
+    t0 = time.perf_counter()
+    root = _backend_data(ctx)
+    n = BACKEND_RUNS["loop"][1]
+    run, parsed, probe, info = backend_run("loop", root, n, ctx["card"])
+    engine = run.engine
+    residuals = getattr(engine, "last_ba_residuals", None)
+    first = probe.refined[0][1] if probe.refined else None
+    again = engine.refine_trajectory()
+    same = first is not None and again.tobytes() == first.tobytes()
+    quiet, equal = None, {}
+    if "pose_graph_cg" in probe.last and "schur_ba_cg" in probe.last:
+        torch.cuda.synchronize()
+        outs = {}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for name in ("pose_graph_cg", "schur_ba_cg"):
+                fn, args, kwargs, _ = probe.last[name]
+                outs[name] = fn(*args, **kwargs)
+            quiet = True
+        except RuntimeError as e:
+            quiet = f"{type(e).__name__}: {e}"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        equal = {name: all(torch.equal(a, b) for a, b in zip(out, probe.last[name][3])) for name, out in outs.items()}
+    info.update(loop_edges=[(i, j) for i, j, _ in engine.loop_edges],
+                ba_residuals=None if residuals is None else residuals.tolist(),
+                refine_again_bit_equal=same, no_sync_under_debug_mode=quiet, rerun_bit_equal=equal,
+                phase_s=time.perf_counter() - t0)
+    emit("backend, loop", **info)
+    _check_backend_common("loop", run, parsed, probe, n, root)
+    check(engine.loop_edges, f"loop: no loop edge over the {n}-frame revisit cut")
+    check(residuals is not None and np.isfinite(residuals).all(), f"loop: BA residuals {residuals}")
+    check(same, "loop: a second refine_trajectory() differs from the CLI's refined poses")
+    check(quiet is True, f"loop: pose_graph_cg / schur_ba_cg read the host under sync debug mode: {quiet}")
+    check(equal and all(equal.values()), f"loop: the backend's solvers gave other bits on their inputs: {equal}")
+    return info
+
+
+def phase_backend_realistic(ctx):
+    """configs/ICL_realistic_backend.yaml over 30 frames: no align failure, at
+    least 2 keyframes, the refined line."""
+    t0 = time.perf_counter()
+    root = _backend_data(ctx)
+    n = BACKEND_RUNS["realistic"][1]
+    run, parsed, probe, info = backend_run("realistic", root, n, ctx["card"])
+    info.update(phase_s=time.perf_counter() - t0)
+    emit("backend, realistic", **info)
+    _check_backend_common("realistic", run, parsed, probe, n, root)
+    check(not parsed["align_failed"], f"realistic: frames failed to align: {parsed['align_failed']}")
+    check(len(run.engine.keyframes) >= 2, f"realistic: {len(run.engine.keyframes)} keyframes")
+    return info
+
+
+# the phases in their order: (name, function)
+PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
+          ("bricks", phase_bricks), ("march_fixed", phase_march), ("raycast_refine", phase_refine),
+          ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip), ("extract", phase_extract),
+          ("maps", phase_maps), ("icp_system", phase_icp), ("tsdf_loss", phase_tsdf_loss),
+          ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
+          ("probes", phase_probes),
+          ("main path", phase_main_path),
+          ("main path, fixed association", phase_main_path_fixed_assoc),
+          ("main path, brick fusion", phase_main_path_brick),
+          ("main path, bench", phase_main_path_bench),
+          ("main path, bench refresh", phase_main_path_bench_refresh),
+          ("main path, ICL realistic", phase_main_path_icl),
+          ("main path, 7-Scenes realistic", phase_main_path_7scenes),
+          ("backend, blackout", phase_backend_blackout),
+          ("backend, loop", phase_backend_loop),
+          ("backend, realistic", phase_backend_realistic))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2541,6 +2884,7 @@ def main() -> int:
     n_depths = N_FRAMES + PROFILE_RETAKES  # a main path's frames and the frames a retaken profile takes
     ds = SyntheticDataset(n_frames=n_depths, intr=config.intrinsics)
     ctx = {
+        "card": card,
         "device": torch.device("cuda"),
         "config": config,
         "engine_cfg": XSlamEngine(config).vol_cfg,
@@ -2549,20 +2893,7 @@ def main() -> int:
     }
 
     results, failed = {}, []
-    for name, phase in (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
-                        ("bricks", phase_bricks), ("march_fixed", phase_march), ("raycast_refine", phase_refine),
-                        ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
-                        ("extract", phase_extract),
-                        ("maps", phase_maps), ("icp_system", phase_icp), ("tsdf_loss", phase_tsdf_loss),
-                        ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
-                        ("probes", phase_probes),
-                        ("main path", phase_main_path),
-                        ("main path, fixed association", phase_main_path_fixed_assoc),
-                        ("main path, brick fusion", phase_main_path_brick),
-                        ("main path, bench", phase_main_path_bench),
-                        ("main path, bench refresh", phase_main_path_bench_refresh),
-                        ("main path, ICL realistic", phase_main_path_icl),
-                        ("main path, 7-Scenes realistic", phase_main_path_7scenes)):
+    for name, phase in PHASES:
         if name == "probes":
             ctx.pop("volume", None)  # a main path's peak memory counts its own volume only
             ctx.pop("bench_inputs", None)
@@ -2572,6 +2903,10 @@ def main() -> int:
             traceback.print_exc()
             failed.append(name)
         torch.cuda.synchronize()
+    if "backend_data" in ctx:
+        import shutil
+
+        shutil.rmtree(ctx["backend_data"], ignore_errors=True)
 
     if failed:
         print(f"chip_smoke: FAILED phases: {failed}", file=sys.stderr)
@@ -2579,6 +2914,7 @@ def main() -> int:
     results.pop("rounding")
     results["icp_associate"] = ctx["icp_associate"]
     results["tsdf_loss"].update(ctx["tsdf_loss_path"])
+    results["tsdf_loss"].update(ctx["backend_b12"])  # the blackout phase's relocalize calls and B12 launches
     results.update(results.pop("probes"))
     results.update(results.pop("maps"))
     results.update(results.pop("bricks"))

@@ -3,7 +3,11 @@
 of the host's launch calls is retaken on the next frame, at most twice, and
 the checks on the record it keeps stay as strict: a frame whose own launch
 count is wrong, or with other device work between its ICP launches, fails
-without a retake."""
+without a retake. Then the smoke's other host-side pieces: the kernel table,
+B12's bound, the phases' order, the backend runs' settings and the parser of
+``run_slam``'s backend output."""
+
+import os
 
 import pytest
 
@@ -126,3 +130,42 @@ def test_frame_record_leaves_the_lead_spins_out(spins_kept):
     lost_one = [e for e in events if not (e.device_type == cuda and e.name == "bilateral_kernel")]
     rec = chip_smoke._frame_record(_Prof(lost_one))
     assert len(rec["names"]) == rec["host_calls"] - 1  # a lost frame event still shows
+
+
+def test_backend_phases_come_last():
+    """The three backend phases follow the realistic paths, after every earlier
+    phase in its order; each runs a shipped backend config on data the port's
+    generator renders, cut by ``--frames`` only."""
+    names = [name for name, _ in chip_smoke.PHASES]
+    assert names[-4:] == ["main path, 7-Scenes realistic", "backend, blackout", "backend, loop", "backend, realistic"]
+    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 26
+    runs = chip_smoke.BACKEND_RUNS
+    assert {tag: config for tag, (config, _, _) in runs.items()} == {
+        "blackout": "configs/ICL_blackout.yaml", "loop": "configs/ICL_loop_backend.yaml",
+        "realistic": "configs/ICL_realistic_backend.yaml"}
+    assert runs["blackout"][2] == ["0.0015", "--blackout", "30", "40"] and runs["blackout"][1] > chip_smoke.BLACKOUT[1]
+    assert runs["loop"][2] == ["0.004", "--revisit"] and runs["loop"][1] <= 120
+    for config, _, _ in runs.values():
+        assert os.path.exists(os.path.join(chip_smoke.ROOT, config))
+
+
+def test_kernel_table_rows_unchanged():
+    """The backend adds no kernel: the table keeps its 23 rows and paths."""
+    assert list(chip_smoke.KERNELS) == [
+        "bilateral_filter", "fuse_volume", "march_fixed", "raycast_refine", "resize_model_maps", "depth_pyramid",
+        "depth_mips", "classify_bricks", "fuse_bricks", "vertex_normal_maps", "icp_system", "icp_associate",
+        "window_march", "model_map_normals", "skip_field", "march_skip", "extract_points", "tsdf_loss",
+        "probe_a", "probe_b", "probe_c", "probe_d", "probe_e"]
+    assert chip_smoke.KERNELS["tsdf_loss"][2] == "relocalize path"
+
+
+def test_parse_backend_stdout():
+    """What the backend phases read from ``run_slam.main``'s output."""
+    text = ("frame num: 60\nstart slam!\nframe 30: align failed! (inliers=0)\nframe 31: align failed! (inliers=0)\n"
+            "mean frame time = 14.250 ms (NVIDIA H100 80GB HBM3)\nATE RMSE = 0.01234 m\n"
+            "refined ATE RMSE = 0.01100 m (12 keyframes, 1 loop closures)\n")
+    got = chip_smoke.parse_backend_stdout(text)
+    assert got == dict(align_failed=[30, 31], mean_frame_ms=14.25, ate_m=0.01234, refined_ate_m=0.011, keyframes=12,
+                       loops=1, refinement_failed=False)
+    failed = chip_smoke.parse_backend_stdout("ATE RMSE = 0.02000 m\nbackend refinement FAILED (ValueError): x\n")
+    assert failed["refinement_failed"] and failed["refined_ate_m"] is None and failed["ate_m"] == 0.02

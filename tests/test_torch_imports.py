@@ -59,7 +59,8 @@ def test_every_port_module_is_probed():
             "xslam_tpu_torch.apps.make_realistic_dataset", "xslam_tpu_torch.csfd.double",
             "xslam_tpu_torch.csfd.rawcomplex", "xslam_tpu_torch.ops.tsdf_loss", "xslam_tpu_torch.models.relocalize",
             "xslam_tpu_torch.models.odometry", "xslam_tpu_torch.apps.relocalize_demo",
-            "xslam_tpu_torch.apps.csfd_bench", "chip_smoke"} <= set(MODULES)
+            "xslam_tpu_torch.apps.csfd_bench", "xslam_tpu_torch.models.ba",
+            "xslam_tpu_torch.models.recovery", "chip_smoke"} <= set(MODULES)
 
 
 def test_profile_step_needs_the_card():

@@ -1,8 +1,8 @@
 """The port's CLI driver (``python -m xslam_tpu_torch.run_slam``) on the CPU:
 a tiny synthetic workload in a subprocess as a user runs it; then, in this
 process, the on-disk datasets (ICL and 7-Scenes trees the test writes at
-160x120), the point cloud and mesh exports, the recovery option that is not
-ported, and the pose files' digits."""
+160x120), the point cloud and mesh exports, the recovery option (the
+recovering engine and the refined trajectory), and the pose files' digits."""
 
 import os
 import subprocess
@@ -82,8 +82,9 @@ def test_run_slam_needs_cuda_by_default(tmp_path):
 
 
 # ---------------------------------------------------------------- on-disk datasets, extraction, repairs
-def _run_main(argv):
-    """``run_slam.main`` in this process (one PyTorch thread), its stdout."""
+def _main(argv):
+    """``run_slam.main`` in this process (one PyTorch thread): its stdout and
+    its run."""
     import contextlib
     import io
 
@@ -94,10 +95,15 @@ def _run_main(argv):
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            run_slam.main(argv)
+            run = run_slam.main(argv)
     finally:
         torch.set_num_threads(threads)
-    return out.getvalue()
+    return out.getvalue(), run
+
+
+def _run_main(argv):
+    """``run_slam.main`` in this process (one PyTorch thread), its stdout."""
+    return _main(argv)[0]
 
 
 @pytest.fixture(scope="module")
@@ -139,16 +145,26 @@ def test_gt_pose_files_carry_float32_digits(synthetic_run):
 
 
 def test_recovery_option_raises(tmp_path):
-    """``reloc_after_failures > 0`` asks for the recovery wrapper, which is not
-    ported: the CLI says so instead of running plain odometry."""
-    from xslam_tpu_torch import run_slam
+    """``reloc_after_failures > 0`` once raised (the recovery wrapper was not
+    ported); it now wraps the engine in ``RecoveringEngine``, as
+    apps/run_slam.py:85-93 does: the wrapper logs the poses, and after the ATE
+    line ``refine_trajectory()`` writes <output_dir>/slam_refined/ and prints
+    the refined line (every frame a keyframe here, so the backend runs)."""
+    from xslam_tpu_torch.models.recovery import RecoveringEngine
 
     cfg = yaml.safe_load(open(os.path.join(REPO, "configs/synthetic.yaml")))
-    cfg.update(_SMALL, reloc_after_failures=3, output_dir=str(tmp_path / "out") + "/")
+    cfg.update(_SMALL, reloc_after_failures=3, keyframe_dist=0.0, keyframe_angle_deg=0.0, loop_detect=True,
+               output_dir=str(tmp_path / "out") + "/")
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.dump(cfg))
-    with pytest.raises(NotImplementedError, match="reloc_after_failures=3"):
-        run_slam.main([str(path), "--device", "cpu"])
+    stdout, run = _main([str(path), "--device", "cpu"])
+    assert isinstance(run.engine, RecoveringEngine) and len(run.engine.pose_log) == 4
+    assert len(run.engine.keyframes) >= 2 and "backend refinement FAILED" not in stdout
+    line = stdout.split("refined ATE RMSE = ")[1].splitlines()[0]
+    assert float(line.split(" m")[0]) == pytest.approx(run.refined_ate, abs=5e-6) and run.refined_ate < 0.05
+    assert line.endswith(f"({len(run.engine.keyframes)} keyframes, {len(run.engine.loop_edges)} loop closures)")
+    assert sorted(p.name for p in (tmp_path / "out" / "slam_refined").iterdir()) == \
+        [f"frame-{i:06d}.pose.txt" for i in range(4)]
 
 
 def _write_tree(root, fmt, intr, n):

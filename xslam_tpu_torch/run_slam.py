@@ -13,11 +13,23 @@ config sets ``draw_pcd`` (kernel B13 on the card), the mesh
 ``<output_dir>/mesh.ply`` with ``--mesh {tetra,mc}``, the mean frame time
 and the ATE RMSE printed at the end.
 
+With ``reloc_after_failures > 0`` (the backend configs
+``ICL_realistic_backend.yaml``, ``ICL_blackout.yaml``,
+``ICL_loop_backend.yaml``) the engine is wrapped in
+:class:`~xslam_tpu_torch.models.recovery.RecoveringEngine`: relocalization
+after that many consecutive align failures, keyframes and, with
+``loop_detect``, verified loop closures. After the ATE line, with at least
+two keyframes, ``refine_trajectory()`` (pose graph, then depth-anchored
+Schur-CG bundle adjustment) gives the refined trajectory: its pose files in
+``<output_dir>/slam_refined/`` where ``log_slam_pose`` is set, and the line
+``refined ATE RMSE = ... m (K keyframes, L loop closures)``. A backend
+failure prints ``backend refinement FAILED (...)`` and leaves the odometry's
+result standing, as in ``apps/run_slam.py``.
+
 Usage:
     python -m xslam_tpu_torch.run_slam configs/ICL_realistic.yaml [--frames N] [--mesh tetra] [--device cpu] [options]
 
-Runs on the CUDA card unless ``--device`` names another device. The
-recovery wrapper (``reloc_after_failures > 0``) is not ported and raises.
+Runs on the CUDA card unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +47,7 @@ from .io.dataset import make_dataset
 from .io.options import add_options, set_options
 from .io.ply import export_ply, export_ply_mesh
 from .models.kinfu import SlamState, XSlamEngine
+from .models.recovery import RecoveringEngine
 from .ops.extract import extract_mesh, extract_mesh_mc, extract_points
 from .utils.evaluation import ate_rmse, normalize_to_first
 
@@ -43,11 +56,14 @@ MESH_CAPACITY = 2_000_000
 
 
 class Run(NamedTuple):
-    """What a run leaves: its ATE, the engine (its pose log) and the final state."""
+    """What a run leaves: its ATE, the engine (its pose log; a
+    ``RecoveringEngine`` with ``reloc_after_failures > 0``), the final state
+    and the refined trajectory's ATE (None without a backend refinement)."""
 
     ate: float
     engine: XSlamEngine
     state: SlamState
+    refined_ate: Optional[float] = None
 
 
 def save_pose(output_dir: str, frame_id: int, pose: np.ndarray):
@@ -73,10 +89,6 @@ def main(argv=None):
     set_options(config, args)
     if args.frames is not None:
         config.end_frame = args.frames
-    if config.reloc_after_failures > 0:
-        raise NotImplementedError(
-            f"reloc_after_failures={config.reloc_after_failures}: the recovery wrapper (RecoveringEngine) "
-            "is not ported yet")
     dataset = make_dataset(config)
     step = max(1, config.frame_step)
     frame_ids = list(range(config.start_frame, min(len(dataset) + config.start_frame, config.end_frame), step))
@@ -84,6 +96,11 @@ def main(argv=None):
 
     print("initialize engine......")
     engine = XSlamEngine(config, device=args.device)
+    # relocalize-on-tracking-loss, keyframes and loop detection (apps/run_slam.py:85-93); the wrapper logs
+    # the poses itself
+    engine_logs_poses = config.reloc_after_failures > 0
+    if engine_logs_poses:
+        engine = RecoveringEngine(config, engine=engine)
     state = engine.init_state()
     out_dir = config.output_dir
     # only brick fusion that flags an overflow can leave a frame's map update partial: dense frames read nothing
@@ -95,7 +112,8 @@ def main(argv=None):
         gt_pose = dataset.get_pose(fid) if config.use_gt_pose else None
         t0 = time.perf_counter()
         state, res = engine.process_frame(state, depth, gt_pose=gt_pose)
-        engine.log_pose(res)  # reads the pose back: the frame's work is done
+        if not engine_logs_poses:
+            engine.log_pose(res)  # reads the pose back: the frame's work is done
         dt = (time.perf_counter() - t0) * 1e3
         if i > 0:  # the first frame pays one-time set-up
             total_ms += dt
@@ -134,7 +152,23 @@ def main(argv=None):
     gt_poses = [dataset.get_pose(fid) for fid in frame_ids]
     ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(gt_poses))
     print(f"ATE RMSE = {ate:.5f} m")
-    return Run(ate, engine, state)
+
+    # backend refinement: pose graph (+ recorded loop closures) + depth-anchored Schur-CG BA over the keyframe
+    # log, propagated to the whole trajectory and exported beside the odometry (apps/run_slam.py:210-230)
+    refined_ate = None
+    if engine_logs_poses and len(engine.keyframes) >= 2:
+        try:
+            refined = engine.refine_trajectory()
+        except Exception as e:  # noqa: BLE001 — the odometry's result above stands
+            print(f"backend refinement FAILED ({type(e).__name__}): {e}")
+            return Run(ate, engine, state)
+        if config.log_slam_pose:
+            for i, fid in enumerate(frame_ids[: len(refined)]):
+                save_pose(os.path.join(out_dir, "slam_refined"), fid, refined[i])
+        refined_ate = ate_rmse(normalize_to_first(list(refined)), normalize_to_first(gt_poses))
+        print(f"refined ATE RMSE = {refined_ate:.5f} m ({len(engine.keyframes)} keyframes, "
+              f"{len(engine.loop_edges)} loop closures)")
+    return Run(ate, engine, state, refined_ate)
 
 
 if __name__ == "__main__":

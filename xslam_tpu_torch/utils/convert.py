@@ -29,6 +29,12 @@ float32), ``vmaps`` and ``nmaps`` (lists over levels of real (3, H >> l,
 W >> l) float32 camera-space maps) and ``frame_idx`` (int); a relocalization
 result as a dict of ``xi`` ((6,) float32), ``loss_history`` ((iters + 1,)
 float32) and ``count`` (int).
+
+The backend's results cross as dicts of arrays: a ``BAProblem``, a
+``BAResult`` and a ``PoseGraphResult`` (their fields), and a
+``RecoveringEngine``'s host record (keyframes, events, loop edges, pose
+log and its motion model: :func:`recovery_record_to_numpy`), so a JAX
+run's backend state can be refined in both packages.
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ import torch
 
 from ..csfd.double import DCSFD
 from ..csfd.single import CSFD
+from ..models.ba import BAProblem, BAResult, PoseGraphResult
 from ..models.kinfu import SlamState
 from ..models.odometry import OdometryState
+from ..models.recovery import Keyframe, RecoveringEngine, RecoveryEvent
 from ..models.relocalize import RelocResult
 from ..ops.bricks import BrickVolume
 from ..ops.fusion import VolumeState
@@ -104,7 +112,6 @@ def association_from_numpy(nprev_v, nprev_g, vprev_v, vprev_g, in_img, device) -
     )
 
 
-
 def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
 
@@ -149,3 +156,90 @@ def reloc_result_from_numpy(d: dict, device) -> RelocResult:
 
 def reloc_result_to_numpy(result: RelocResult) -> dict:
     return {"xi": _n(result.xi), "loss_history": _n(result.loss_history), "count": int(result.count)}
+
+
+# ---------------------------------------------------------------- the backend
+def _host(x) -> np.ndarray:
+    """A tensor's or a JAX array's values as a numpy array of their own."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+def ba_problem_to_numpy(problem) -> dict:
+    """A ``BAProblem`` (of either package: its fields read with ``np.asarray``
+    after a move to the host) as a dict of arrays: ``frame_idx``,
+    ``anchor_idx`` ((N,) int32), ``meas_cam`` ((N, 3) float32) and, where
+    present, ``meas_normal`` ((N, 3)) and ``obs_weight`` ((N,))."""
+    out = {}
+    for key in BAProblem._fields:
+        value = getattr(problem, key)
+        if value is not None:
+            out[key] = _host(value)
+    return out
+
+
+def ba_problem_from_numpy(d: dict, device) -> BAProblem:
+    def get(key, dtype):
+        return None if d.get(key) is None else torch.as_tensor(np.ascontiguousarray(d[key], dtype), device=device)
+
+    return BAProblem(frame_idx=get("frame_idx", np.int32), anchor_idx=get("anchor_idx", np.int32),
+                     meas_cam=get("meas_cam", np.float32), meas_normal=get("meas_normal", np.float32),
+                     obs_weight=get("obs_weight", np.float32))
+
+
+def ba_result_to_numpy(result) -> dict:
+    """A ``BAResult`` as ``poses`` (K, 6), ``anchors`` (L, 3) and
+    ``residual_history`` (iters,) arrays."""
+    return {key: _host(getattr(result, key)) for key in BAResult._fields}
+
+
+def ba_result_from_numpy(d: dict, device) -> BAResult:
+    return BAResult(*(_t(d[key], device) for key in BAResult._fields))
+
+
+def pose_graph_result_to_numpy(result) -> dict:
+    """A ``PoseGraphResult`` as ``poses`` (K, 6) and ``residual_history``."""
+    return {key: _host(getattr(result, key)) for key in PoseGraphResult._fields}
+
+
+def pose_graph_result_from_numpy(d: dict, device) -> PoseGraphResult:
+    return PoseGraphResult(*(_t(d[key], device) for key in PoseGraphResult._fields))
+
+
+def recovery_record_to_numpy(engine) -> dict:
+    """A ``RecoveringEngine``'s host record (of either package: its fields
+    are host data in both) as a dict: ``pose_log`` (list of (4, 4)),
+    ``keyframes`` (list of ``(frame_index, camera2world, depth_u16 or
+    None)``), ``recovery_events`` (list of the events' five fields),
+    ``loop_edges`` (list of ``(i, j, T)``), ``last_good`` (``None`` or
+    ``(frame_index, c2w)``), ``vel`` (``None`` or (4, 4)), ``fail_streak``,
+    ``frame_index`` (int) and ``pending_loop`` (bool). Copies."""
+    copy = lambda x: None if x is None else np.array(x)  # noqa: E731
+    last = engine._last_good
+    return {
+        "pose_log": [np.array(p) for p in engine.pose_log],
+        "keyframes": [(int(k.frame_index), np.array(k.camera2world), copy(k.depth_u16)) for k in engine.keyframes],
+        "recovery_events": [(int(e.frame_index), bool(e.accepted), float(e.mean_loss_before),
+                             float(e.mean_loss_after), float(e.pose_jump_m)) for e in engine.recovery_events],
+        "loop_edges": [(int(i), int(j), np.array(T)) for i, j, T in engine.loop_edges],
+        "last_good": None if last is None else (int(last[0]), np.array(last[1])),
+        "vel": copy(engine._vel),
+        "fail_streak": int(engine._fail_streak),
+        "frame_index": int(engine._frame_index),
+        "pending_loop": bool(engine._pending_loop),
+    }
+
+
+def recovery_record_from_numpy(engine: RecoveringEngine, d: dict) -> RecoveringEngine:
+    """Set the port's ``RecoveringEngine``'s host record from the dict of
+    :func:`recovery_record_to_numpy`; returns the engine."""
+    engine.pose_log = [np.array(p) for p in d["pose_log"]]
+    engine.keyframes = [Keyframe(i, np.array(c2w), None if depth is None else np.array(depth))
+                        for i, c2w, depth in d["keyframes"]]
+    engine.recovery_events = [RecoveryEvent(*e) for e in d["recovery_events"]]
+    engine.loop_edges = [(i, j, np.array(T)) for i, j, T in d["loop_edges"]]
+    engine._last_good = None if d["last_good"] is None else (d["last_good"][0], np.array(d["last_good"][1]))
+    engine._vel = None if d["vel"] is None else np.array(d["vel"])
+    engine._fail_streak = d["fail_streak"]
+    engine._frame_index = d["frame_index"]
+    engine._pending_loop = d["pending_loop"]
+    return engine
