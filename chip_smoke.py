@@ -189,8 +189,8 @@ CHECKPOINT_AT = 15
 N_FRAMES_7SCENES = 10
 # the backend configs, each cut by --frames from a dataset the port's generator renders (its noise and options as
 # BASELINE.md:642, :665 rendered them): configs/ICL_blackout.yaml over 60 frames with frames 30-39 blank,
-# configs/ICL_loop_backend.yaml on the shortest revisit cut that verified a loop, configs/ICL_realistic_backend.yaml
-# over 30 frames
+# configs/ICL_loop_backend.yaml on the shortest revisit cut that verified a loop on the H100 (98 frames; the cuts of
+# 86-97 frames verify none), configs/ICL_realistic_backend.yaml over 30 frames
 BLACKOUT = (30, 40)
 N_FRAMES_LOOP = 98
 BACKEND_RUNS = {"blackout": ("configs/ICL_blackout.yaml", 60, ["0.0015", "--blackout", str(BLACKOUT[0]),

@@ -112,6 +112,7 @@ def association_from_numpy(nprev_v, nprev_g, vprev_v, vprev_g, in_img, device) -
     )
 
 
+
 def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
 
