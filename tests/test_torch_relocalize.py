@@ -184,21 +184,24 @@ def test_relocalize_matches_jax(scene, jax_lgh):
     assert np.all(np.diff(out.loss_history.numpy()) < 1e-5)
 
 
-def _twin_sum(terms: np.ndarray, blocks: int) -> float:
-    """csrc/tsdf_loss.cu's order of one sum: thread t of block b adds voxels
-    b * 128 + t, then + blocks * 128, ... in double; the block adds its 128
-    threads in order; the last block adds blocks g, g + 4, ... for each of
-    four groups, then the groups in order; one rounding to float32."""
-    per = ttl.LOSS_BLOCK * blocks
-    padded = np.zeros(-(-terms.size // per) * per)
+def _twin_sum(terms: np.ndarray) -> float:
+    """csrc/tsdf_loss.cu's order of one sum over the band's terms (in band
+    order): position c of block b adds entries b * LOSS_VOXELS + c, then
+    + LOSS_BLOCKS * LOSS_VOXELS, ... in double; the block adds its
+    LOSS_VOXELS columns in order; the last block adds blocks g, g + 4, ...
+    for each of four groups, then the groups in order; one rounding to
+    float32."""
+    blocks, voxels = ttl.LOSS_BLOCKS, ttl.LOSS_VOXELS
+    per = voxels * blocks
+    padded = np.zeros(max(1, -(-terms.size // per)) * per)
     padded[:terms.size] = terms
-    steps = padded.reshape(-1, blocks, ttl.LOSS_BLOCK)
-    thread = np.zeros((blocks, ttl.LOSS_BLOCK))
-    for k in range(steps.shape[0]):  # each thread's voxels in order
-        thread += steps[k]
+    steps = padded.reshape(-1, blocks, voxels)
+    column = np.zeros((blocks, voxels))
+    for k in range(steps.shape[0]):  # each position's band entries in order
+        column += steps[k]
     block = np.zeros(blocks)
-    for t in range(ttl.LOSS_BLOCK):  # the threads in order
-        block += thread[:, t]
+    for c in range(voxels):  # the columns in order
+        block += column[:, c]
     groups = [0.0] * ttl.LOSS_GROUPS
     for b in range(blocks):
         groups[b % ttl.LOSS_GROUPS] += block[b]
@@ -209,28 +212,32 @@ def _twin_sum(terms: np.ndarray, blocks: int) -> float:
 
 
 def test_block_order_depends_on_the_shape_alone(scene):
-    """B12's grid, and with it the order of every sum, is a function of the
-    volume's size: the numpy twin of that order gives the plain version's
-    float64 sum within a float32 ulp, on the fixture's terms and on the same
-    terms shuffled, and the grid ignores the data."""
+    """B12's grid is fixed, so the order of every sum is a function of the
+    band's length alone (the voxels that pass gt's test, in flat order): the
+    numpy twin of that order gives the float64 sum within a float32 ulp, on
+    the fixture's terms in band order, on the same terms shuffled and on a
+    band longer than the grid's positions (each position adds 40 terms), and
+    the plain version's sum of the fixture's terms."""
     s = scene
     poses = trel.seeded_poses(torch.from_numpy(_xi_near(s)))
     loss, mask = ttl.tsdf_loss_field(s["value"], s["depth"], poses, INTR, s["cfg"], pair=0)
-    terms = torch.where(mask, loss.e12, 0.0).numpy().astype(np.float64).ravel()
-    n = terms.size
-    assert ttl.loss_blocks(n) == min(ttl.LOSS_MAX_BLOCKS, -(-n // ttl.LOSS_BLOCK)) == 528
-    assert ttl.loss_blocks(201 * 203 * 205) == 528 and ttl.loss_blocks(1000) == 8 and ttl.loss_blocks(1) == 1
+    band = ttl.make_band(s["value"])
+    flat = band.index[: int(band.count)].long()
+    terms = torch.where(mask, loss.e12, 0.0).reshape(-1)[flat].numpy().astype(np.float64)
+    assert 3000 < terms.size < ttl.LOSS_BLOCKS * ttl.LOSS_VOXELS  # the fixture's band: one entry a position at most
     sums, _ = ttl.tsdf_loss_hessian_plain(s["value"], s["depth"], poses[:1], INTR, s["cfg"])
-    for t in (terms, np.random.default_rng(0).permutation(terms)):
-        twin = _twin_sum(t, ttl.loss_blocks(n))
-        assert abs(np.float32(twin) - sums[2].numpy()) <= np.spacing(np.abs(sums[2].numpy())), (twin, sums[2])
+    for t in (terms, np.random.default_rng(0).permutation(terms), np.tile(terms, 40)):
+        twin = _twin_sum(t)
+        want = np.float32(np.sum(t))
+        assert abs(np.float32(twin) - want) <= np.spacing(np.abs(want)), (twin, want)
+    assert abs(np.float32(_twin_sum(terms)) - sums[2].numpy()) <= np.spacing(np.abs(sums[2].numpy()))
     # and the JAX package's Hessian entry of the same pair, 1e-4 relative (the module's tolerance for H)
     xi = jnp.asarray(_xi_near(s))
     v2c = jse3.inverse(jse3.exp(jdc.DCSFD(xi, jnp.asarray(jrel._D1[0]), jnp.asarray(jrel._D2[0]), jnp.zeros(6)),
                                 mod=jdc))
     j = jax_tsdf_loss_hessian(s["j_value"], s["j_depth"], jse3.rotation(v2c), jse3.translation(v2c), SMALL_INTR,
                               s["j_cfg"])
-    np.testing.assert_allclose(twin, float(j.hessian), rtol=1e-4)
+    np.testing.assert_allclose(_twin_sum(terms), float(j.hessian), rtol=1e-4)
 
 
 def test_pose_packing(scene):

@@ -66,11 +66,16 @@ extern "C" int xs_icp_associate(const void* vcurr, const void* pose, void* assoc
 extern "C" int xs_extract_points(const void* value, const void* weight, void* scratch, long long scratch_ints,
                                  void* points, void* normals, void* count, int X, int Y, int Z, int capacity,
                                  float vs, float inv_vs, float half, void* stream);
+extern "C" int xs_tsdf_band(const void* value, long long n, void* scratch, long long scratch_ints, void* band,
+                            void* band_count, void* stream);
 extern "C" int xs_tsdf_loss(const void* value, const void* depth, const void* poses, int P, int mode,
-                            int field_pair, void* partials, void* ticket, int blocks, void* sums, void* count,
-                            void* field, void* field_mask, int X, int Y, int Z, int H, int W, int x_offset,
+                            const void* band, const void* band_count, void* partials, long long partials_doubles,
+                            void* ticket, void* sums, void* count, int X, int Y, int Z, int H, int W, int x_offset,
                             float vs, float fx, float fy, float cx, float cy, float trunc, float inv_trunc,
                             void* stream);
+extern "C" int xs_tsdf_field(const void* value, const void* depth, const void* poses, int P, int field_pair,
+                             void* field, void* field_mask, int X, int Y, int Z, int H, int W, int x_offset, float vs,
+                             float fx, float fy, float cx, float cy, float trunc, float inv_trunc, void* stream);
 extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_b(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_c(const void* table, void* out, void* stream);
@@ -286,19 +291,33 @@ int extract_points(const torch::Tensor& value, const torch::Tensor& weight, torc
                            value.size(2), points.size(0), vs, inv_vs, half, as_stream(stream));
 }
 
-// poses: (P, 48) float32; mode 0 REDUCE, 1 VALUE, 2 FIELD; partials, ticket, sums, count: REDUCE and VALUE's
-// outputs and scratch, None in FIELD; field ((4, X, Y, Z) float32), field_mask ((X, Y, Z) bool): FIELD's
+// band: (X * Y * Z,) int32, band_count: () int32, listed by B12's band pass; scratch: int32 (the tiles' and
+// segments' counts)
+int tsdf_band(const torch::Tensor& value, torch::Tensor scratch, torch::Tensor band, torch::Tensor band_count,
+              int64_t stream) {
+  return xs_tsdf_band(value.data_ptr(), value.numel(), scratch.data_ptr(), scratch.numel(), band.data_ptr(),
+                      band_count.data_ptr(), as_stream(stream));
+}
+
+// poses: (P, 48) float32; mode 0 REDUCE, 1 VALUE over the band; partials, ticket: the scratch; sums, count: out
 int tsdf_loss(const torch::Tensor& value, const torch::Tensor& depth, const torch::Tensor& poses, int64_t mode,
-              int64_t field_pair, const std::optional<torch::Tensor>& partials,
-              const std::optional<torch::Tensor>& ticket, int64_t blocks, const std::optional<torch::Tensor>& sums,
-              const std::optional<torch::Tensor>& count, const std::optional<torch::Tensor>& field,
-              const std::optional<torch::Tensor>& field_mask, int64_t x_offset, float vs, float fx, float fy,
-              float cx, float cy, float trunc, float inv_trunc, int64_t stream) {
-  return xs_tsdf_loss(value.data_ptr(), depth.data_ptr(), poses.data_ptr(), poses.size(0), mode, field_pair,
-                      data_or_null(partials), data_or_null(ticket), blocks, data_or_null(sums), data_or_null(count),
-                      data_or_null(field), data_or_null(field_mask), value.size(0), value.size(1), value.size(2),
-                      depth.size(0), depth.size(1), x_offset, vs, fx, fy, cx, cy, trunc, inv_trunc,
-                      as_stream(stream));
+              const torch::Tensor& band, const torch::Tensor& band_count, torch::Tensor partials,
+              torch::Tensor ticket, torch::Tensor sums, torch::Tensor count, int64_t x_offset, float vs, float fx,
+              float fy, float cx, float cy, float trunc, float inv_trunc, int64_t stream) {
+  return xs_tsdf_loss(value.data_ptr(), depth.data_ptr(), poses.data_ptr(), poses.size(0), mode, band.data_ptr(),
+                      band_count.data_ptr(), partials.data_ptr(), partials.numel(), ticket.data_ptr(),
+                      sums.data_ptr(), count.data_ptr(), value.size(0), value.size(1), value.size(2), depth.size(0),
+                      depth.size(1), x_offset, vs, fx, fy, cx, cy, trunc, inv_trunc, as_stream(stream));
+}
+
+// FIELD: field ((4, X, Y, Z) float32) and field_mask ((X, Y, Z) bool) of pair field_pair
+int tsdf_field(const torch::Tensor& value, const torch::Tensor& depth, const torch::Tensor& poses,
+               int64_t field_pair, torch::Tensor field, torch::Tensor field_mask, int64_t x_offset, float vs,
+               float fx, float fy, float cx, float cy, float trunc, float inv_trunc, int64_t stream) {
+  return xs_tsdf_field(value.data_ptr(), depth.data_ptr(), poses.data_ptr(), poses.size(0), field_pair,
+                       field.data_ptr(), field_mask.data_ptr(), value.size(0), value.size(1), value.size(2),
+                       depth.size(0), depth.size(1), x_offset, vs, fx, fy, cx, cy, trunc, inv_trunc,
+                       as_stream(stream));
 }
 
 int probe_a(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {
@@ -345,7 +364,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("icp_system", &icp_system);
   m.def("icp_associate", &icp_associate);
   m.def("extract_points", &extract_points);
+  m.def("tsdf_band", &tsdf_band);
   m.def("tsdf_loss", &tsdf_loss);
+  m.def("tsdf_field", &tsdf_field);
   m.def("probe_a", &probe_a);
   m.def("probe_b", &probe_b);
   m.def("probe_c", &probe_c);

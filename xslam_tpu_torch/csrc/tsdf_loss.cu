@@ -9,100 +9,282 @@
 //   R (3x3, row-major) and t (3) of the v lane, then of e1, e2 and e12
 //   (ops/tsdf_loss.py::pack_pose, made by plain PyTorch from se3.exp ->
 //   inverse). Each voxel with gt != 0 and |gt| <= 0.95 projects its centre
-//   ((float)i + 0.5f + x_offset) * vs under every pose, samples the depth
+//   ((float)i + 0.5f + x_offset) * vs under the pose, samples the depth
 //   bilinearly (all four taps non-zero, else the nearest tap, rintf), and
 //   compares the ray distance with gt * trunc; the mask and the loss
 //   error * error are those of the JAX code, operation for operation, in
 //   the hyper-dual arithmetic of csfd/double.py (every constant is a lifted
-//   {c, 0, 0, 0} that goes through the whole product, its zero lanes
+//   {c, 0, ...} that goes through the whole product, its zero lanes
 //   included; 1 / x and sqrtf are IEEE-rounded; `c / x` is PyTorch's
 //   reciprocal(x) * c; built with -fmad=false), so a voxel's lanes are the
 //   plain version's bits (ops/tsdf_loss.py::_field_plain).
 //
-//   Three modes of one body (a template argument):
-//   - REDUCE: P <= 21 pairs; sums[0] = pair 0's masked sum of loss.v,
-//     sums[1 .. G] = pairs 0 .. G-1's sums of loss.e1 (G = min(P, 6)),
-//     sums[1 + G + p] = pair p's sum of loss.e12; count = pair 0's mask;
-//   - VALUE: the v lane alone, in float arithmetic (the same operations as
-//     the v lane of REDUCE: no hyper-dual operation lets e1, e2 or e12 reach
-//     the value), of pair 0: sums[0] and count;
-//   - FIELD: pair `field_pair`'s four loss lanes and its mask per voxel
-//     (zeros and false where gt fails its test).
+//   Shared lanes. A pair's e1 and e2 lanes obey the same formulas, and
+//   neither reads e12; the v lane reads neither. So a voxel's value lane,
+//   its square roots and reciprocals and one first-derivative lane a seed
+//   direction are computed once (Lanes::v, Lanes::f), and each pair (j, k)
+//   adds only its second-derivative lane (Lanes::s), from f[j] and f[k] in
+//   the operation order of the four-lane product (for a product
+//   ((a.e12 * b.v + a.e1 * b.e2) + a.e2 * b.e1) + a.v * b.e12 with
+//   e1 = f[j], e2 = f[k]). Two pose layouts (Layout<P>): the 21 seed pairs of
+//   models/relocalize.py::seeded_poses (direction d's lanes are pair d's e1
+//   lanes; pair (j, k)'s v lanes and its e1 and e2 lanes must be those of
+//   pair 0 and of pairs j and k bit for bit, which the launch checks: where
+//   they are not, it writes NaN sums and a count of -1), and a single pose
+//   (its e1 and e2 lanes are two directions). ops/tsdf_loss.py::
+//   _shared_lanes_plain is this arithmetic in plain PyTorch.
 //
-// What bounds it on the H100: the value plane is read once (4 B a voxel,
-// 67 MB at 256^3, 0.020 ms at 3.35 TB/s). The function needs some 3,600
-// float32 operations at a voxel in the band (the value lane once, six
-// first-derivative lanes and one second-derivative lane a pair: 1 + 6 + 21
-// lanes, counted in chip_smoke.py), 0.006 ms at 67 TFLOP/s for the ~110,000
-// such voxels of three fused frames, so the bytes bound it. This kernel runs
-// all four lanes of every pair (84 lanes, 7 IEEE divisions a pair).
-// What the design does about it: the simple design first. A thread a voxel;
-// gt's test (pose-independent) comes first, so most of a zero-initialised
-// volume costs one coalesced load; the P poses sit in shared memory; each
-// thread adds its masked terms in DOUBLE to its own column of a shared
-// accumulator (one rounding per addition, exact for the product of two
-// float32). The block adds its threads' columns in thread order and writes
-// its partials; the block that takes the last ticket (one integer atomic)
-// adds the blocks' partials in four groups of blocks (group g: blocks g,
-// g + 4, ...), then the groups in order, and rounds once to float32. The
-// grid depends on the volume's size alone (ops/tsdf_loss.py::loss_blocks), so
-// the order of every sum does: two launches give the same bits, and the sums
-// lie within an ulp of the plain version's float64 sums. Sharing the v lane
-// and the six e1 lanes across the pairs (1 + 6 + 21 lanes for 84) is later
-// work (ROADMAP).
+//   The band. gt's test does not depend on the pose, so xs_tsdf_band lists
+//   the voxels that pass it once (flat int32 indices in C order and their
+//   count, on the device; two kernels, no atomic cursor: each warp counts
+//   its segment of BAND_SEGMENT voxels by ballots and keeps them, then each
+//   tile sums the counts of the tiles before its own and each warp with band
+//   voxels writes them at its offset, ranked by its ballots). A relocalize call
+//   lists its band once and hands it to each of its launches.
+//
+//   Modes:
+//   - REDUCE over the band: sums[0] = the masked sum of loss.v,
+//     sums[1 .. G] = the sums of the G first-derivative lanes that are
+//     gradient entries (6 with the seed pairs, pose 0's e1 with one pose), then a pair's
+//     sum of loss.e12 each; count = the mask's;
+//   - VALUE over the band: the v lane alone, in float arithmetic (the v lane
+//     of REDUCE: no operation lets a derivative lane reach it), of pose 0:
+//     sums[0] and count;
+//   - FIELD (xs_tsdf_field), over the whole volume: pair `field_pair`'s four
+//     loss lanes (v, f[j], f[k], s) and its mask per voxel (zeros and false
+//     where gt fails its test).
+//
+// What bounds it on the H100. Listing the band reads the value plane once
+// (4 B a voxel, 67 MB at 256^3, 0.020 ms at 3.35 TB/s). A REDUCE launch over
+// a band needs some 3,600 float32 operations at each band voxel (the value
+// lane once, six first-derivative lanes and one second-derivative lane a
+// pair: 1 + 6 + 21 lanes, counted in chip_smoke.py): 0.006 ms at 67 TFLOP/s
+// for the ~110,000 band voxels of three fused frames, so operations bound it.
+// What the design does about it: the band, so that a launch touches band
+// voxels alone (a thread's voxels are band entries, not volume voxels, and
+// no warp runs a chain with most lanes masked off), and the shared lanes.
+// LOSS_SLOTS warps take one band voxel each lane: each recomputes the shared
+// lanes and owns MAX_PAIRS / LOSS_SLOTS pairs' second-derivative lanes, so
+// a thread's jet stays small enough to live in registers (PERF.md records the
+// slot counts measured). A voxel's v lane and mask come first in float
+// arithmetic; its jets only where the mask holds. Each sum is owned by one
+// slot: each of its threads adds its masked terms in DOUBLE to its own
+// column of a shared accumulator (one rounding per addition, exact for the
+// product of two float32), in band order (block b's position c takes
+// entries b * LOSS_VOXELS + c, then + LOSS_BLOCKS * LOSS_VOXELS, ...). The
+// block adds its columns in order and writes its partials; the block that
+// takes the last ticket (one integer atomic) adds the blocks' partials in
+// four groups of blocks (group g: blocks g, g + 4, ...), then the groups in
+// order, and rounds once to float32. The grid is fixed, so the order of
+// every sum depends on the band's length alone: two launches give the same
+// bits, and the sums lie within an ulp of the plain version's float64 sums.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
 
 #include "dual.cuh"
 
 namespace {
 
-constexpr int BLOCK = 128;
 constexpr int MAX_PAIRS = 21;
 constexpr int POSE_FLOATS = 48;
-constexpr int MAX_SUMS = 1 + 6 + MAX_PAIRS;  // loss, six gradient entries, one Hessian entry a pair
-constexpr int GROUPS = 4;                    // groups of blocks the last block adds side by side
-constexpr int MODE_REDUCE = 0, MODE_VALUE = 1, MODE_FIELD = 2;
+constexpr int DIRECTIONS = 6;
+constexpr int MAX_SUMS = 1 + DIRECTIONS + MAX_PAIRS;  // loss, six gradient entries, one Hessian entry a pair
+constexpr int GROUPS = 4;                               // groups of blocks the last block adds side by side
+constexpr int MODE_REDUCE = 0, MODE_VALUE = 1;
 
-struct HD {
-  float v, e1, e2, e12;
+constexpr int LOSS_SLOTS = 3;     // warps a band voxel (ops/tsdf_loss.py::LOSS_SLOTS)
+constexpr int LOSS_VOXELS = 64;   // band voxels a block holds at once, a lane each (ops/tsdf_loss.py::LOSS_VOXELS)
+constexpr int LOSS_BLOCKS = 528;  // the grid of a REDUCE or VALUE launch (ops/tsdf_loss.py::LOSS_BLOCKS)
+constexpr int LOSS_THREADS = LOSS_SLOTS * LOSS_VOXELS;
+constexpr int FIELD_THREADS = 128;
+constexpr int FIELD_MAX_BLOCKS = 528;
+constexpr int BAND_THREADS = 256;
+constexpr int BAND_WARPS = BAND_THREADS / 32;
+constexpr int BAND_SEGMENT = 2048;  // voxels a warp counts and lists (ops/tsdf_loss.py::BAND_SEGMENT)
+constexpr int BAND_TILE = BAND_WARPS * BAND_SEGMENT;
+constexpr int BAND_UNROLL = 8;  // loads of a warp in flight
+static_assert(LOSS_SLOTS >= 1 && LOSS_SLOTS <= MAX_PAIRS, "every slot owns a pair");
+static_assert(LOSS_VOXELS % 32 == 0, "a warp holds 32 band voxels");
+static_assert(LOSS_THREADS > MAX_SUMS, "a block's thread q adds sum q's columns");
+static_assert(BAND_SEGMENT % (32 * BAND_UNROLL) == 0 && BAND_UNROLL <= 32, "a segment is whole rounds of loads");
+
+// ------------------------------------------------------------- layouts
+// The seed pairs of models/relocalize.py::_seed_pairs: pair d = (d, d) for d < 6, then (j, k), j < k, row by row.
+__host__ __device__ constexpr int seed_j(int p) {
+  if (p < DIRECTIONS) return p;
+  int r = p - DIRECTIONS, j = 0, n = DIRECTIONS - 1;
+  while (r >= n) {
+    r -= n;
+    ++j;
+    --n;
+  }
+  return j;
+}
+__host__ __device__ constexpr int seed_k(int p) {
+  if (p < DIRECTIONS) return p;
+  int r = p - DIRECTIONS, j = 0, n = DIRECTIONS - 1;
+  while (r >= n) {
+    r -= n;
+    ++j;
+    --n;
+  }
+  return j + 1 + r;
+}
+
+// Where a layout's lanes lie in the packed poses, which pairs a slot owns, and the gradient entries it sums.
+template <int P>
+struct Layout;
+template <>
+struct Layout<MAX_PAIRS> {  // the seed pairs: direction d's lanes are pose d's e1 lanes; pair p's e12 lanes its own
+  static constexpr int D = DIRECTIONS, PAIRS = MAX_PAIRS, GRADS = DIRECTIONS, POSES = MAX_PAIRS;
+  static constexpr int PER_SLOT = (MAX_PAIRS + LOSS_SLOTS - 1) / LOSS_SLOTS;  // the last slot takes the rest
+  __host__ __device__ static constexpr int j(int p) { return seed_j(p); }
+  __host__ __device__ static constexpr int k(int p) { return seed_k(p); }
+  __host__ __device__ static constexpr int f_at(int d) { return d * POSE_FLOATS + 12; }
+  __host__ __device__ static constexpr int s_at(int p) { return p * POSE_FLOATS + 36; }
+  __host__ __device__ static constexpr int first(int slot) { return slot * PER_SLOT; }
+  __host__ __device__ static constexpr int count(int slot) {
+    return slot * PER_SLOT + PER_SLOT <= MAX_PAIRS ? PER_SLOT : MAX_PAIRS - slot * PER_SLOT;
+  }
+  __host__ __device__ static constexpr int slot_of(int p) { return p / PER_SLOT; }
+};
+template <>
+struct Layout<1> {  // one pose: its e1 lanes are direction 0, its e2 lanes direction 1; slot 0 owns the pair
+  static constexpr int D = 2, PAIRS = 1, GRADS = 1, POSES = 1;
+  __host__ __device__ static constexpr int j(int) { return 0; }
+  __host__ __device__ static constexpr int k(int) { return 1; }
+  __host__ __device__ static constexpr int f_at(int d) { return 12 + 12 * d; }
+  __host__ __device__ static constexpr int s_at(int) { return 36; }
+  __host__ __device__ static constexpr int first(int) { return 0; }
+  __host__ __device__ static constexpr int count(int slot) { return slot == 0 ? 1 : 0; }
+  __host__ __device__ static constexpr int slot_of(int) { return 0; }
 };
 
-__device__ __forceinline__ HD operator+(HD a, HD b) { return {a.v + b.v, a.e1 + b.e1, a.e2 + b.e2, a.e12 + b.e12}; }
-__device__ __forceinline__ HD operator-(HD a, HD b) { return {a.v - b.v, a.e1 - b.e1, a.e2 - b.e2, a.e12 - b.e12}; }
-__device__ __forceinline__ HD operator*(HD a, HD b) {
-  return {a.v * b.v, a.e1 * b.v + a.v * b.e1, a.e2 * b.v + a.v * b.e2,
-          ((a.e12 * b.v + a.e1 * b.e2) + a.e2 * b.e1) + a.v * b.e12};
+// ------------------------------------------------------------- shared lanes
+// fn(integral_constant<int, q>) for q = 0 .. N - 1: a pair's directions are constants of q, so that every index
+// into a jet is one and the jet stays in registers
+template <class Fn, int... Q>
+__device__ __forceinline__ void for_each_pair(Fn&& fn, std::integer_sequence<int, Q...>) {
+  (fn(std::integral_constant<int, Q>()), ...);
 }
-// DCSFD.__truediv__: q = 1 / o.v first
-__device__ __forceinline__ HD div(HD a, HD o) {
+template <int N, class Fn>
+__device__ __forceinline__ void for_pairs(Fn&& fn) {
+  for_each_pair(fn, std::make_integer_sequence<int, N>());
+}
+
+// A hyper-dual number of layout L with pairs F .. F + N - 1: the v lane, one first-derivative lane a direction,
+// one second-derivative lane a pair. Every index is a constant once the loops unroll, so a jet is registers.
+template <class L, int F, int N>
+struct Lanes {  // L: Layout<P>
+  float v;
+  float f[L::D];
+  float s[N];
+};
+
+template <class L, int F, int N>
+__device__ __forceinline__ Lanes<L, F, N> operator+(const Lanes<L, F, N>& a, const Lanes<L, F, N>& b) {
+  Lanes<L, F, N> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int d = 0; d < L::D; ++d) r.f[d] = a.f[d] + b.f[d];
+#pragma unroll
+  for (int q = 0; q < N; ++q) r.s[q] = a.s[q] + b.s[q];
+  return r;
+}
+template <class L, int F, int N>
+__device__ __forceinline__ Lanes<L, F, N> operator-(const Lanes<L, F, N>& a, const Lanes<L, F, N>& b) {
+  Lanes<L, F, N> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int d = 0; d < L::D; ++d) r.f[d] = a.f[d] - b.f[d];
+#pragma unroll
+  for (int q = 0; q < N; ++q) r.s[q] = a.s[q] - b.s[q];
+  return r;
+}
+// DCSFD.__mul__: e12 = ((a.e12 * b.v + a.e1 * b.e2) + a.e2 * b.e1) + a.v * b.e12
+template <class L, int F, int N>
+__device__ __forceinline__ Lanes<L, F, N> operator*(const Lanes<L, F, N>& a, const Lanes<L, F, N>& b) {
+  Lanes<L, F, N> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int d = 0; d < L::D; ++d) r.f[d] = a.f[d] * b.v + a.v * b.f[d];
+  for_pairs<N>([&](auto q) {
+    constexpr int Q = decltype(q)::value, j = L::j(F + Q), k = L::k(F + Q);
+    r.s[Q] = ((a.s[Q] * b.v + a.f[j] * b.f[k]) + a.f[k] * b.f[j]) + a.v * b.s[Q];
+  });
+  return r;
+}
+// DCSFD.__truediv__: q = 1 / o.v first; the quotient's own e1 and e2 lanes enter its e12
+template <class L, int F, int N>
+__device__ __forceinline__ Lanes<L, F, N> div(const Lanes<L, F, N>& a, const Lanes<L, F, N>& o) {
+  Lanes<L, F, N> r;
   const float q = 1.0f / o.v;
-  const float v = a.v * q;
-  const float e1 = (a.e1 - v * o.e1) * q;
-  const float e2 = (a.e2 - v * o.e2) * q;
-  return {v, e1, e2, (((a.e12 - e1 * o.e2) - e2 * o.e1) - v * o.e12) * q};
+  r.v = a.v * q;
+#pragma unroll
+  for (int d = 0; d < L::D; ++d) r.f[d] = (a.f[d] - r.v * o.f[d]) * q;
+  for_pairs<N>([&](auto p) {
+    constexpr int P = decltype(p)::value, j = L::j(F + P), k = L::k(F + P);
+    r.s[P] = (((a.s[P] - r.f[j] * o.f[k]) - r.f[k] * o.f[j]) - r.v * o.s[P]) * q;
+  });
+  return r;
 }
 __device__ __forceinline__ float div(float a, float o) { return a * (1.0f / o); }
 // dc.sqrt through _unary: d1 = 0.5 / fv, d2 = -0.25 / (fv * v), each PyTorch's reciprocal(x) * c
-__device__ __forceinline__ HD hsqrt(HD x) {
+template <class L, int F, int N>
+__device__ __forceinline__ Lanes<L, F, N> hsqrt(const Lanes<L, F, N>& x) {
+  Lanes<L, F, N> r;
   const float fv = sqrtf(x.v);
   const float d1 = (1.0f / fv) * 0.5f;
   const float d2 = (1.0f / (fv * x.v)) * -0.25f;
-  return {fv, d1 * x.e1, d1 * x.e2, d1 * x.e12 + (d2 * x.e1) * x.e2};
+  r.v = fv;
+#pragma unroll
+  for (int d = 0; d < L::D; ++d) r.f[d] = d1 * x.f[d];
+  for_pairs<N>([&](auto q) {
+    constexpr int Q = decltype(q)::value, j = L::j(F + Q), k = L::k(F + Q);
+    r.s[Q] = d1 * x.s[Q] + (d2 * x.f[j]) * x.f[k];
+  });
+  return r;
 }
 __device__ __forceinline__ float hsqrt(float x) { return sqrtf(x); }
 
-template <class T> __device__ __forceinline__ T lift(float c);
-template <> __device__ __forceinline__ HD lift<HD>(float c) { return {c, 0.0f, 0.0f, 0.0f}; }
-template <> __device__ __forceinline__ float lift<float>(float c) { return c; }
-__device__ __forceinline__ float val(HD x) { return x.v; }
+// a lifted constant and a pose entry of each number type
+template <class T>
+struct Num;
+template <>
+struct Num<float> {
+  __device__ __forceinline__ static float lift(float c) { return c; }
+  __device__ __forceinline__ static float pose(const float* p, int e) { return p[e]; }
+};
+template <class L, int F, int N>
+struct Num<Lanes<L, F, N>> {
+  __device__ __forceinline__ static Lanes<L, F, N> lift(float c) {
+    Lanes<L, F, N> r;
+    r.v = c;
+#pragma unroll
+    for (int d = 0; d < L::D; ++d) r.f[d] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < N; ++q) r.s[q] = 0.0f;
+    return r;
+  }
+  // entry e of R (0..8) and t (9..11): pose 0's v lane, the directions' lanes, the pairs' e12 lanes
+  __device__ __forceinline__ static Lanes<L, F, N> pose(const float* p, int e) {
+    Lanes<L, F, N> r;
+    r.v = p[e];
+#pragma unroll
+    for (int d = 0; d < L::D; ++d) r.f[d] = p[L::f_at(d) + e];
+#pragma unroll
+    for (int q = 0; q < N; ++q) r.s[q] = p[L::s_at(F + q) + e];
+    return r;
+  }
+};
 __device__ __forceinline__ float val(float x) { return x; }
-
-template <class T> __device__ __forceinline__ T pose_lane(const float* p, int k);
-template <> __device__ __forceinline__ HD pose_lane<HD>(const float* p, int k) {
-  return {p[k], p[12 + k], p[24 + k], p[36 + k]};
+template <class L, int F, int N>
+__device__ __forceinline__ float val(const Lanes<L, F, N>& x) {
+  return x.v;
 }
-template <> __device__ __forceinline__ float pose_lane<float>(const float* p, int k) { return p[k]; }
 
 struct Geom {
   int X, Y, Z, H, W, x_offset;
@@ -113,21 +295,27 @@ __device__ __forceinline__ float tap(const float* depth, int y, int x, int H, in
   return (y >= 0 && y < H && x >= 0 && x < W) ? __ldg(&depth[(size_t)y * W + x]) : 0.0f;
 }
 
-// One pair's chain at one voxel (tsdf_loss.py:83-118): the loss and the mask.
+__device__ __forceinline__ bool in_band(float gt) { return gt != 0.0f && fabsf(gt) <= 0.95f; }
+
+// The chain at one voxel (tsdf_loss.py:83-118): the loss and the mask. The ray's length is taken right after
+// the camera point (the same operations; the camera point is dead sooner).
 template <class T>
-__device__ __forceinline__ T voxel_loss(const float* pose, float gt, float gx, float gy, float gz,
-                                        const float* depth, const Geom& g, bool& mask) {
-  const T lx = lift<T>(gx), ly = lift<T>(gy), lz = lift<T>(gz);
+__device__ __forceinline__ T voxel_loss(const float* pose, float gt, int idx, const float* depth, const Geom& g,
+                                        bool& mask) {
+  using O = Num<T>;
+  const int z = idx % g.Z, y = (idx / g.Z) % g.Y, x = idx / (g.Y * g.Z);
+  const T lx = O::lift((((float)x + 0.5f) + (float)g.x_offset) * g.vs);
+  const T ly = O::lift(((float)y + 0.5f) * g.vs), lz = O::lift(((float)z + 0.5f) * g.vs);
   T cam[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
-    cam[i] = ((pose_lane<T>(pose, 3 * i) * lx + pose_lane<T>(pose, 3 * i + 1) * ly) +
-              pose_lane<T>(pose, 3 * i + 2) * lz) + pose_lane<T>(pose, 9 + i);
-  const T vcx = cam[0], vcy = cam[1], vcz = cam[2];
-  const T inv_z = div(lift<T>(1.0f), vcz);
+    cam[i] = ((O::pose(pose, 3 * i) * lx + O::pose(pose, 3 * i + 1) * ly) + O::pose(pose, 3 * i + 2) * lz) +
+             O::pose(pose, 9 + i);
+  const T ray = hsqrt((cam[0] * cam[0] + cam[1] * cam[1]) + cam[2] * cam[2]);
+  const T inv_z = div(O::lift(1.0f), cam[2]);
   const bool front = val(inv_z) >= 0.0f;
-  const T image_x = (vcx * inv_z) * lift<T>(g.fx) + lift<T>(g.cx);
-  const T image_y = (vcy * inv_z) * lift<T>(g.fy) + lift<T>(g.cy);
+  const T image_x = (cam[0] * inv_z) * O::lift(g.fx) + O::lift(g.cx);
+  const T image_y = (cam[1] * inv_z) * O::lift(g.fy) + O::lift(g.cy);
 
   // _bilinear_depth_dcsfd (tsdf_loss.py:36-62)
   const int cx = xs::to_index(floorf(val(image_x) - 0.5f));
@@ -139,97 +327,135 @@ __device__ __forceinline__ T voxel_loss(const float* pose, float gt, float gx, f
   const float d11 = tap(depth, cy + 1, cx + 1, g.H, g.W);
   const float d_near = tap(depth, xs::to_index(rintf(val(image_y))), xs::to_index(rintf(val(image_x))), g.H, g.W);
   const bool all_valid = d00 != 0.0f && d01 != 0.0f && d10 != 0.0f && d11 != 0.0f;
-  const T a = image_x - lift<T>((float)cx + 0.5f);
-  const T b = image_y - lift<T>((float)cy + 0.5f);
-  const T one = lift<T>(1.0f);
-  const T interp = (((lift<T>(d00) * (one - a)) * (one - b) + (lift<T>(d10) * a) * (one - b)) +
-                    (lift<T>(d01) * (one - a)) * b) + (lift<T>(d11) * a) * b;
-  const T dp = all_valid ? interp : lift<T>(d_near);
+  const T xl = div(image_x - O::lift(g.cx), O::lift(g.fx));
+  const T yl = div(image_y - O::lift(g.cy), O::lift(g.fy));
+  const T a = image_x - O::lift((float)cx + 0.5f);
+  const T b = image_y - O::lift((float)cy + 0.5f);
+  const T one = O::lift(1.0f);
+  const T interp = (((O::lift(d00) * (one - a)) * (one - b) + (O::lift(d10) * a) * (one - b)) +
+                    (O::lift(d01) * (one - a)) * b) + (O::lift(d11) * a) * b;
+  const T dp = all_valid ? interp : O::lift(d_near);
   const bool range_ok = val(dp) >= 0.2f && val(dp) <= 5.0f;
 
-  const T xl = div(image_x - lift<T>(g.cx), lift<T>(g.fx));
-  const T yl = div(image_y - lift<T>(g.cy), lift<T>(g.fy));
-  const T lam2 = (xl * xl + yl * yl) + lift<T>(1.0f);
-  const T distance = dp * hsqrt(lam2) - hsqrt((vcx * vcx + vcy * vcy) + vcz * vcz);
-  const T error = (distance - lift<T>(gt * g.trunc)) * lift<T>(g.inv_trunc);
+  const T lam2 = (xl * xl + yl * yl) + O::lift(1.0f);
+  const T distance = dp * hsqrt(lam2) - ray;
+  const T error = (distance - O::lift(gt * g.trunc)) * O::lift(g.inv_trunc);
   const bool err_ok = fabsf(val(error)) <= 1.0f;
   mask = front && in_bounds && range_ok && err_ok;
   return error * error;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(BLOCK)
-tsdf_loss_kernel(const float* __restrict__ value, const float* __restrict__ depth, const float* __restrict__ poses,
-                 int P, int field_pair, Geom g, double* partials, unsigned int* ticket, float* __restrict__ sums,
-                 int* __restrict__ count_out, float* __restrict__ field, unsigned char* __restrict__ field_mask) {
-  __shared__ float pose_s[MAX_PAIRS * POSE_FLOATS];
-  __shared__ double acc[MAX_SUMS + 1][BLOCK];  // a column a thread; the last row counts the voxels
-  __shared__ double group_sums[GROUPS][32];
-  __shared__ bool is_last;
-  const int tid = threadIdx.x;
-  const int G = P < 6 ? P : 6;
-  const int nq = MODE == MODE_REDUCE ? 1 + G + P : 1;  // sums a launch writes
+// slot S's jets at a band voxel where the mask holds, added to its sums' columns: the gradient entries (slot 0)
+// and its pairs' second derivatives
+template <class L, int S>
+__device__ __forceinline__ void add_slot(const float* pose, float gt, int idx, const float* depth, const Geom& g,
+                                         double (*acc)[LOSS_VOXELS], int c) {
+  constexpr int F = L::first(S), N = L::count(S);
+  if constexpr (N > 0) {
+    bool mask;
+    const Lanes<L, F, N> loss = voxel_loss<Lanes<L, F, N>>(pose, gt, idx, depth, g, mask);
+    if constexpr (S == 0) {
+#pragma unroll
+      for (int d = 0; d < L::GRADS; ++d) acc[1 + d][c] += (double)loss.f[d];
+    }
+#pragma unroll
+    for (int q = 0; q < N; ++q) acc[1 + L::GRADS + F + q][c] += (double)loss.s[q];
+  }
+}
+template <class L, int S = 0>
+__device__ __forceinline__ void add_lanes(int slot, const float* pose, float gt, int idx, const float* depth,
+                                          const Geom& g, double (*acc)[LOSS_VOXELS], int c) {
+  if constexpr (S < LOSS_SLOTS) {
+    if (slot == S)
+      add_slot<L, S>(pose, gt, idx, depth, g, acc, c);
+    else
+      add_lanes<L, S + 1>(slot, pose, gt, idx, depth, g, acc, c);
+  }
+}
 
-  const int n_pose = (MODE == MODE_REDUCE ? P : 1) * POSE_FLOATS;
-  const float* pose_src = poses + (MODE == MODE_FIELD ? field_pair * POSE_FLOATS : 0);
-  for (int k = tid; k < n_pose; k += BLOCK) pose_s[k] = pose_src[k];
-  if (MODE != MODE_FIELD)
-    for (int q = 0; q <= MAX_SUMS; ++q) acc[q][tid] = 0.0;
-  __syncthreads();
-
-  const long long n = (long long)g.X * g.Y * g.Z;
-  const long long stride = (long long)gridDim.x * BLOCK;
-  for (long long idx = (long long)blockIdx.x * BLOCK + tid; idx < n; idx += stride) {
-    const float gt = __ldg(&value[idx]);
-    const bool gt_ok = gt != 0.0f && fabsf(gt) <= 0.95f;
-    if constexpr (MODE == MODE_FIELD) {
-      HD loss = {0.0f, 0.0f, 0.0f, 0.0f};
-      bool mask = false;
-      if (gt_ok) {
-        const int z = (int)(idx % g.Z), y = (int)((idx / g.Z) % g.Y), x = (int)(idx / ((long long)g.Y * g.Z));
-        const float gx = (((float)x + 0.5f) + (float)g.x_offset) * g.vs;
-        loss = voxel_loss<HD>(pose_s, gt, gx, ((float)y + 0.5f) * g.vs, ((float)z + 0.5f) * g.vs, depth, g, mask);
-      }
-      field[idx] = loss.v;
-      field[n + idx] = loss.e1;
-      field[2 * n + idx] = loss.e2;
-      field[3 * n + idx] = loss.e12;
-      field_mask[idx] = mask ? 1 : 0;
-    } else {
-      if (!gt_ok) continue;
-      const int z = (int)(idx % g.Z), y = (int)((idx / g.Z) % g.Y), x = (int)(idx / ((long long)g.Y * g.Z));
-      const float gx = (((float)x + 0.5f) + (float)g.x_offset) * g.vs;
-      const float gy = ((float)y + 0.5f) * g.vs, gz = ((float)z + 0.5f) * g.vs;
-      if constexpr (MODE == MODE_VALUE) {
-        bool mask;
-        const float loss = voxel_loss<float>(pose_s, gt, gx, gy, gz, depth, g, mask);
-        if (mask) {
-          acc[0][tid] += (double)loss;
-          acc[MAX_SUMS][tid] += 1.0;
+// pair `pair`'s four loss lanes at a voxel that passes gt's test: its slot's jets (one slot for the whole grid)
+template <class L, int S = 0>
+__device__ __forceinline__ void field_lanes(int pair, const float* pose, float gt, int idx, const float* depth,
+                                            const Geom& g, float out[4], bool& mask) {
+  if constexpr (S < LOSS_SLOTS) {
+    constexpr int F = L::first(S), N = L::count(S);
+    if constexpr (N > 0) {
+      if (L::slot_of(pair) == S) {
+        const Lanes<L, F, N> loss = voxel_loss<Lanes<L, F, N>>(pose, gt, idx, depth, g, mask);
+        const int q = pair - F, j = L::j(pair), k = L::k(pair);
+        out[0] = loss.v;
+#pragma unroll
+        for (int d = 0; d < L::D; ++d) {
+          if (d == j) out[1] = loss.f[d];
+          if (d == k) out[2] = loss.f[d];
         }
-      } else {
-        for (int p = 0; p < P; ++p) {
-          bool mask;
-          const HD loss = voxel_loss<HD>(pose_s + p * POSE_FLOATS, gt, gx, gy, gz, depth, g, mask);
-          if (!mask) continue;
-          if (p == 0) {
-            acc[0][tid] += (double)loss.v;
-            acc[MAX_SUMS][tid] += 1.0;
-          }
-          if (p < G) acc[1 + p][tid] += (double)loss.e1;
-          acc[1 + G + p][tid] += (double)loss.e12;
-        }
+#pragma unroll
+        for (int p = 0; p < N; ++p)
+          if (p == q) out[3] = loss.s[p];
+        return;
       }
     }
+    field_lanes<L, S + 1>(pair, pose, gt, idx, depth, g, out, mask);
   }
-  if constexpr (MODE == MODE_FIELD) return;
+}
 
-  // the block: thread q adds sum q's columns in thread order (q = nq: the count)
+// The precondition of the shared lanes in layout L: pair p's v lanes are pose 0's and its e1 and e2 lanes are
+// directions j(p) and k(p), bit for bit. One block's threads test it together.
+template <class L>
+__device__ __forceinline__ bool lanes_shared(const float* pose_s) {
+  bool bad = false;
+  if constexpr (L::POSES > 1) {
+    for (int e = threadIdx.x; e < L::POSES * 36; e += blockDim.x) {
+      const int p = e / 36, lane = (e % 36) / 12, m = e % 12;
+      const int own = p * POSE_FLOATS + 12 * lane + m;
+      const int shared = lane == 0 ? m : L::f_at(lane == 1 ? L::j(p) : L::k(p)) + m;
+      bad |= __float_as_uint(pose_s[own]) != __float_as_uint(pose_s[shared]);
+    }
+  }
+  return !__syncthreads_or(bad);
+}
+
+template <int MODE, int P>
+__global__ void __launch_bounds__(LOSS_THREADS)
+    tsdf_loss_kernel(const float* __restrict__ value, const float* __restrict__ depth, const float* __restrict__ poses,
+                     const int* __restrict__ band, const int* __restrict__ band_count, Geom g, double* partials,
+                     unsigned int* ticket, float* __restrict__ sums, int* __restrict__ count_out) {
+  using L = Layout<P>;
+  __shared__ float pose_s[MAX_PAIRS * POSE_FLOATS];
+  __shared__ double acc[MAX_SUMS + 1][LOSS_VOXELS];  // a column a band voxel position; the last row counts
+  __shared__ double group_sums[GROUPS][32];
+  __shared__ bool is_last;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int slot = warp % LOSS_SLOTS, c = (warp / LOSS_SLOTS) * 32 + (tid & 31);
+  constexpr int nq = MODE == MODE_REDUCE ? 1 + L::GRADS + L::PAIRS : 1;  // sums a launch writes
+
+  const int n_pose = (MODE == MODE_REDUCE ? L::POSES : 1) * POSE_FLOATS;
+  for (int k = tid; k < n_pose; k += LOSS_THREADS) pose_s[k] = poses[k];
+  for (int k = tid; k < (MAX_SUMS + 1) * LOSS_VOXELS; k += LOSS_THREADS) (&acc[0][0])[k] = 0.0;
+  __syncthreads();
+
+  const int n = __ldg(band_count);
+  if (MODE == MODE_REDUCE || slot == 0) {
+    for (int i = blockIdx.x * LOSS_VOXELS + c; i < n; i += LOSS_BLOCKS * LOSS_VOXELS) {
+      const int idx = __ldg(&band[i]);
+      const float gt = __ldg(&value[idx]);
+      bool mask;
+      const float loss = voxel_loss<float>(pose_s, gt, idx, depth, g, mask);
+      if (!mask) continue;
+      if (slot == 0) {
+        acc[0][c] += (double)loss;
+        acc[MAX_SUMS][c] += 1.0;
+      }
+      if constexpr (MODE == MODE_REDUCE) add_lanes<L>(slot, pose_s, gt, idx, depth, g, acc, c);
+    }
+  }
+
+  // the block: thread q adds sum q's columns in order (q = nq: the count)
   __syncthreads();
   if (tid <= nq) {
     const int row = tid == nq ? MAX_SUMS : tid;
     double x = 0.0;
-    for (int t = 0; t < BLOCK; ++t) x += acc[row][t];
+    for (int t = 0; t < LOSS_VOXELS; ++t) x += acc[row][t];
     __stcg(&partials[(size_t)blockIdx.x * (nq + 1) + tid], x);
     __threadfence();
   }
@@ -238,10 +464,11 @@ tsdf_loss_kernel(const float* __restrict__ value, const float* __restrict__ dept
   __syncthreads();
   if (!is_last) return;
   __threadfence();
+  const bool shared_ok = MODE != MODE_REDUCE || lanes_shared<L>(pose_s);
 
   // the last block: thread (group, q) adds blocks group, group + 4, ... in order, then the groups in order
-  {
-    const int q = tid & 31, group = tid >> 5;
+  for (int e = tid; e < GROUPS * 32; e += LOSS_THREADS) {
+    const int q = e & 31, group = e >> 5;
     double x = 0.0;
     if (q <= nq)
       for (int b = group; b < (int)gridDim.x; b += GROUPS) x += __ldcg(&partials[(size_t)b * (nq + 1) + q]);
@@ -252,44 +479,201 @@ tsdf_loss_kernel(const float* __restrict__ value, const float* __restrict__ dept
     double x = group_sums[0][tid];
     for (int grp = 1; grp < GROUPS; ++grp) x += group_sums[grp][tid];
     if (tid < nq)
-      sums[tid] = (float)x;
+      sums[tid] = shared_ok ? (float)x : __int_as_float(0x7fc00000);
     else
-      *count_out = (int)x;  // exact: far below 2^53
+      *count_out = shared_ok ? (int)x : -1;  // exact: far below 2^53
   }
   if (tid == 0) *ticket = 0u;  // ready for the next launch on this stream
 }
 
+template <int P>
+__global__ void __launch_bounds__(FIELD_THREADS)
+    tsdf_field_kernel(const float* __restrict__ value, const float* __restrict__ depth,
+                      const float* __restrict__ poses, int field_pair, Geom g, float* __restrict__ field,
+                      unsigned char* __restrict__ field_mask) {
+  using L = Layout<P>;
+  __shared__ float pose_s[MAX_PAIRS * POSE_FLOATS];
+  for (int k = threadIdx.x; k < L::POSES * POSE_FLOATS; k += FIELD_THREADS) pose_s[k] = poses[k];
+  __syncthreads();
+  const int n = g.X * g.Y * g.Z;
+  for (int idx = blockIdx.x * FIELD_THREADS + threadIdx.x; idx < n; idx += gridDim.x * FIELD_THREADS) {
+    const float gt = __ldg(&value[idx]);
+    float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    bool mask = false;
+    if (in_band(gt)) field_lanes<L>(field_pair, pose_s, gt, idx, depth, g, out, mask);
+#pragma unroll
+    for (int lane = 0; lane < 4; ++lane) field[(size_t)lane * n + idx] = out[lane];
+    field_mask[idx] = mask ? 1 : 0;
+  }
+}
+
+// ------------------------------------------------------------- the band
+// Each warp takes a segment of BAND_SEGMENT voxels in flat order, 32 a round; a round's ballot of gt's test is a
+// bit a voxel. The count kernel reads the plane once and keeps the ballots (n / 32 words) and the counts of each
+// warp's segment and each tile; the list kernel reads only the ballots of segments that hold band voxels.
+constexpr int BAND_ROUNDS = BAND_SEGMENT / 32;
+
+__global__ void __launch_bounds__(BAND_THREADS)
+    tsdf_band_count_kernel(const float* __restrict__ value, long long n, int* __restrict__ tile_counts,
+                           int* __restrict__ warp_counts, unsigned* __restrict__ ballots) {
+  __shared__ int s_counts[BAND_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long segment = (long long)blockIdx.x * BAND_WARPS + warp;
+  const long long base = segment * BAND_SEGMENT + lane;
+  int count = 0;
+  for (int r = 0; r < BAND_ROUNDS; r += BAND_UNROLL) {
+    float gt[BAND_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BAND_UNROLL; ++u) {
+      const long long at = base + 32 * (r + u);
+      gt[u] = at < n ? __ldg(&value[at]) : 0.0f;
+    }
+    unsigned mine = 0u;  // lane u keeps round r + u's ballot
+#pragma unroll
+    for (int u = 0; u < BAND_UNROLL; ++u) {
+      const unsigned ballot = __ballot_sync(0xffffffffu, in_band(gt[u]));
+      count += __popc(ballot);
+      if (lane == u) mine = ballot;
+    }
+    if (lane < BAND_UNROLL) ballots[segment * BAND_ROUNDS + r + lane] = mine;
+  }
+  if (lane == 0) {
+    warp_counts[segment] = count;
+    s_counts[warp] = count;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < BAND_WARPS; ++w) total += s_counts[w];
+    tile_counts[blockIdx.x] = total;
+  }
+}
+
+// Each tile sums the counts of the tiles before it; each warp with band voxels lists them at its offset, in
+// flat order: its rounds in order, 32 at a time (a lane a round's ballot, their counts scanned), a round's
+// voxels ranked by the ballot's lower bits. The last tile writes the count.
+__global__ void __launch_bounds__(BAND_THREADS)
+    tsdf_band_list_kernel(const int* __restrict__ tile_counts, const int* __restrict__ warp_counts,
+                          const unsigned* __restrict__ ballots, int* __restrict__ band, int* __restrict__ band_count) {
+  __shared__ int s_before[BAND_WARPS];
+  __shared__ int s_offset[BAND_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tile = blockIdx.x;
+  int before = 0;
+  for (int t = threadIdx.x; t < tile; t += BAND_THREADS) before += __ldg(&tile_counts[t]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) before += __shfl_xor_sync(0xffffffffu, before, off);
+  if (lane == 0) s_before[warp] = before;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int at = 0;
+    for (int w = 0; w < BAND_WARPS; ++w) at += s_before[w];
+    for (int w = 0; w < BAND_WARPS; ++w) {
+      s_offset[w] = at;
+      at += __ldg(&warp_counts[(size_t)tile * BAND_WARPS + w]);
+    }
+    if (tile == (int)gridDim.x - 1) *band_count = at;
+  }
+  __syncthreads();
+  const long long segment = (long long)tile * BAND_WARPS + warp;
+  if (__ldg(&warp_counts[segment]) == 0) return;
+  const unsigned below = (1u << lane) - 1u;
+  int at = s_offset[warp];
+  for (int r0 = 0; r0 < BAND_ROUNDS; r0 += 32) {
+    const unsigned mine = r0 + lane < BAND_ROUNDS ? __ldg(&ballots[segment * BAND_ROUNDS + r0 + lane]) : 0u;
+    int first = __popc(mine);  // the voxels of the rounds before lane's, by an inclusive scan less its own
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, first, off);
+      if (lane >= off) first += up;
+    }
+    const int total = __shfl_sync(0xffffffffu, first, 31);
+    first -= __popc(mine);
+    for (int r = 0; r < 32 && r0 + r < BAND_ROUNDS; ++r) {
+      const unsigned ballot = __shfl_sync(0xffffffffu, mine, r);
+      const int start = __shfl_sync(0xffffffffu, first, r);
+      if ((ballot >> lane) & 1u)
+        band[at + start + __popc(ballot & below)] = (int)(segment * BAND_SEGMENT + 32 * (r0 + r) + lane);
+    }
+    at += total;
+  }
+}
+
 }  // namespace
 
-// mode: 0 REDUCE (1 <= P <= 21), 1 VALUE (pair 0), 2 FIELD (pair field_pair). partials: room for
-// blocks * (nq + 1) doubles, nq = 1 + min(P, 6) + P in REDUCE and 1 in VALUE; ticket: one zeroed unsigned
-// int that the kernel leaves zeroed; sums: nq floats; count: one int. field: (4, X, Y, Z) floats and
-// field_mask (X, Y, Z) bytes, FIELD only. The scratch belongs to one stream at a time.
+// The band of an (n)-voxel value plane: band (n int32) gets the flat indices that pass gt's test in C order,
+// band_count (one int32) their number. scratch: at least tiles * (1 + BAND_WARPS) + tiles * BAND_WARPS *
+// BAND_ROUNDS int32, tiles = ceil(n / BAND_TILE); it belongs to one stream at a time.
+extern "C" int xs_tsdf_band(const void* value, long long n, void* scratch, long long scratch_ints, void* band,
+                            void* band_count, void* stream) {
+  if (n < 1 || n >= (1ll << 31) || value == nullptr || band == nullptr || band_count == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + BAND_TILE - 1) / BAND_TILE;
+  if (scratch == nullptr || scratch_ints < tiles * (1 + BAND_WARPS + BAND_WARPS * BAND_ROUNDS))
+    return (int)cudaErrorInvalidValue;
+  int* tile_counts = (int*)scratch;
+  int* warp_counts = tile_counts + tiles;
+  unsigned* ballots = (unsigned*)(warp_counts + tiles * BAND_WARPS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  tsdf_band_count_kernel<<<(unsigned)tiles, BAND_THREADS, 0, s>>>((const float*)value, n, tile_counts, warp_counts,
+                                                                  ballots);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tsdf_band_list_kernel<<<(unsigned)tiles, BAND_THREADS, 0, s>>>(tile_counts, warp_counts, ballots, (int*)band,
+                                                                 (int*)band_count);
+  return (int)cudaGetLastError();
+}
+
+// mode: 0 REDUCE (P = 21, the seed pairs, or P = 1), 1 VALUE (pose 0) over the band listed by xs_tsdf_band for
+// this value plane. partials: room for LOSS_BLOCKS * (nq + 1) doubles, nq = 1 + G + P in REDUCE (G = 6 with
+// P = 21, 1 with P = 1) and 1 in VALUE; ticket: one zeroed unsigned int that the kernel leaves zeroed; sums: nq
+// floats; count: one int. The scratch belongs to one stream at a time.
 extern "C" int xs_tsdf_loss(const void* value, const void* depth, const void* poses, int P, int mode,
-                            int field_pair, void* partials, void* ticket, int blocks, void* sums, void* count,
-                            void* field, void* field_mask, int X, int Y, int Z, int H, int W, int x_offset,
+                            const void* band, const void* band_count, void* partials, long long partials_doubles,
+                            void* ticket, void* sums, void* count, int X, int Y, int Z, int H, int W, int x_offset,
                             float vs, float fx, float fy, float cx, float cy, float trunc, float inv_trunc,
                             void* stream) {
-  if (P < 1 || P > MAX_PAIRS || blocks < 1 || X < 1 || Y < 1 || Z < 1 || H < 1 || W < 1)
+  if (X < 1 || Y < 1 || Z < 1 || H < 1 || W < 1 || band == nullptr || band_count == nullptr ||
+      partials == nullptr || ticket == nullptr || sums == nullptr || count == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (mode == MODE_FIELD ? (field == nullptr || field_mask == nullptr || field_pair < 0 || field_pair >= P)
-                         : (partials == nullptr || ticket == nullptr || sums == nullptr || count == nullptr))
+  if (mode == MODE_REDUCE ? (P != 1 && P != MAX_PAIRS) : (mode != MODE_VALUE || P < 1))
     return (int)cudaErrorInvalidValue;
+  const int nq = mode == MODE_VALUE ? 1 : (P == 1 ? 3 : MAX_SUMS);
+  if (partials_doubles < (long long)LOSS_BLOCKS * (nq + 1)) return (int)cudaErrorInvalidValue;
   const Geom g{X, Y, Z, H, W, x_offset, vs, fx, fy, cx, cy, trunc, inv_trunc};
   const cudaStream_t s = (cudaStream_t)stream;
-#define XS_TSDF_LOSS_LAUNCH(M)                                                                                   \
-  tsdf_loss_kernel<M><<<blocks, BLOCK, 0, s>>>((const float*)value, (const float*)depth, (const float*)poses, P, \
-                                              field_pair, g, (double*)partials, (unsigned int*)ticket,         \
-                                              (float*)sums, (int*)count, (float*)field,                          \
-                                              (unsigned char*)field_mask)
-  if (mode == MODE_REDUCE)
-    XS_TSDF_LOSS_LAUNCH(MODE_REDUCE);
-  else if (mode == MODE_VALUE)
-    XS_TSDF_LOSS_LAUNCH(MODE_VALUE);
-  else if (mode == MODE_FIELD)
-    XS_TSDF_LOSS_LAUNCH(MODE_FIELD);
+#define XS_TSDF_LOSS_LAUNCH(M, L)                                                                                \
+  tsdf_loss_kernel<M, L><<<LOSS_BLOCKS, LOSS_THREADS, 0, s>>>(                                                   \
+      (const float*)value, (const float*)depth, (const float*)poses, (const int*)band, (const int*)band_count, g, \
+      (double*)partials, (unsigned int*)ticket, (float*)sums, (int*)count)
+  if (mode == MODE_VALUE)
+    XS_TSDF_LOSS_LAUNCH(MODE_VALUE, 1);
+  else if (P == MAX_PAIRS)
+    XS_TSDF_LOSS_LAUNCH(MODE_REDUCE, MAX_PAIRS);
   else
-    return (int)cudaErrorInvalidValue;
+    XS_TSDF_LOSS_LAUNCH(MODE_REDUCE, 1);
 #undef XS_TSDF_LOSS_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// FIELD: pair field_pair's (4, X, Y, Z) float32 lanes in field and its (X, Y, Z) mask bytes in field_mask, over
+// the whole volume; P = 21 (the seed pairs) or P = 1.
+extern "C" int xs_tsdf_field(const void* value, const void* depth, const void* poses, int P, int field_pair,
+                             void* field, void* field_mask, int X, int Y, int Z, int H, int W, int x_offset, float vs,
+                             float fx, float fy, float cx, float cy, float trunc, float inv_trunc, void* stream) {
+  if (X < 1 || Y < 1 || Z < 1 || H < 1 || W < 1 || (P != 1 && P != MAX_PAIRS) || field_pair < 0 ||
+      field_pair >= P || field == nullptr || field_mask == nullptr || (long long)X * Y * Z >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const Geom g{X, Y, Z, H, W, x_offset, vs, fx, fy, cx, cy, trunc, inv_trunc};
+  const long long n = (long long)X * Y * Z;
+  const int blocks = (int)(n / FIELD_THREADS + 1 < FIELD_MAX_BLOCKS ? n / FIELD_THREADS + 1 : FIELD_MAX_BLOCKS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (P == MAX_PAIRS)
+    tsdf_field_kernel<MAX_PAIRS><<<blocks, FIELD_THREADS, 0, s>>>((const float*)value, (const float*)depth,
+                                                              (const float*)poses, field_pair, g, (float*)field,
+                                                              (unsigned char*)field_mask);
+  else
+    tsdf_field_kernel<1><<<blocks, FIELD_THREADS, 0, s>>>((const float*)value, (const float*)depth,
+                                                            (const float*)poses, field_pair, g, (float*)field,
+                                                            (unsigned char*)field_mask);
   return (int)cudaGetLastError();
 }

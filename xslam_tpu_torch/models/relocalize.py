@@ -10,13 +10,14 @@ complex ``se3Exp`` of ``KinectFusionReconstruction.h:176-219``). The full
 the ``e12`` lane carries ``e_j^T H e_k``; 6 diagonal and 15 cross pairs.
 
 The 21 pairs' poses are made by plain PyTorch, batched over a trailing pair
-axis (``se3.exp`` -> ``inverse``), and evaluated over the volume in ONE
-launch of kernel B12 (``ops/tsdf_loss.py``; its plain version on CPU
-tensors). A trial step needs only the loss and the count: it is B12's
-value-only launch on the same packed poses, whose v lanes are the 21-pair
-launch's bit for bit. A ``relocalize`` call launches B12 ``2 * iters + 2``
-times: the count at the start, a 21-pair and a value-only launch an
-iteration, and the loss at the returned pose.
+axis (``se3.exp`` -> ``inverse``), and evaluated over the map's band (the
+voxels that pass ``gt``'s test, listed once a call by B12's band pass,
+``ops/tsdf_loss.py::make_band``) in ONE launch of kernel B12 (its plain
+version on CPU tensors). A trial step needs only the loss and the count: it
+is B12's value-only launch on the same packed poses, whose v lanes are the
+21-pair launch's bit for bit. A ``relocalize`` call launches the band pass
+once and B12 ``2 * iters + 2`` times: the count at the start, a 21-pair and
+a value-only launch an iteration, and the loss at the returned pose.
 
 Nothing in :func:`relocalize` reads a value back to the host: the Newton loop
 (JAX's ``lax.scan``) is a Python loop whose pose, damping and accept flags
@@ -36,7 +37,7 @@ from ..csfd.double import DCSFD
 from ..geometry import se3
 from ..geometry.intrinsics import Intrinsics
 from ..ops.fusion import VolumeConfig
-from ..ops.tsdf_loss import pack_pose, tsdf_loss_pairs
+from ..ops.tsdf_loss import make_band, pack_pose, tsdf_loss_pairs
 
 
 class RelocResult(NamedTuple):
@@ -107,10 +108,10 @@ def loss_grad_hessian(
     return sums[0], sums[1:7], _hessian(sums[7:28]), count
 
 
-def _value_count(gt_value, depth_m, xi, intr, cfg, pairs=tsdf_loss_pairs):
+def _value_count(gt_value, depth_m, xi, intr, cfg, pairs=tsdf_loss_pairs, band=None):
     """The loss and count of :func:`loss_grad_hessian` at ``xi``, bit for
     bit, from B12's value-only launch on the same packed poses."""
-    sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg, mode="value")
+    sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg, mode="value", band=band)
     return sums[0], count
 
 
@@ -135,26 +136,31 @@ def relocalize(
 
 
 def newton(gt_value, depth_m, xi0, intr: Intrinsics, cfg: VolumeConfig, iters: int = 10, damping: float = 1e-4,
-           pairs=tsdf_loss_pairs):
+           pairs=tsdf_loss_pairs, band=None):
     """:func:`relocalize`'s loop with what it decided: ``(result, accepts,
     (means, means_new))``, each a device tensor of one entry an iteration.
     ``pairs`` evaluates the packed poses: B12's wrapper, or on the card its
     plain version (``tsdf_loss_hessian_plain``) to hold the two loops to one
-    another."""
+    another. ``band``: the voxels of ``gt_value`` that pass gt's test
+    (``make_band``, listed here once where None; ``band_plain`` for the plain
+    loop), passed to every evaluation of the call: ``gt_value`` does not
+    change inside it."""
     dev = gt_value.device
+    if band is None:
+        band = make_band(gt_value)
     xi = torch.as_tensor(xi0, dtype=torch.float32, device=dev)
-    _, count0 = _value_count(gt_value, depth_m, xi, intr, cfg, pairs)
+    _, count0 = _value_count(gt_value, depth_m, xi, intr, cfg, pairs, band)
     floor = (count0.to(torch.float32) * 0.7).to(torch.int32)  # astype: truncated toward zero
     lam = torch.tensor(damping, dtype=torch.float32, device=dev)
     eye = torch.eye(6, dtype=torch.float32, device=dev)
     means, means_new, accepts = [], [], []
     for _ in range(iters):
-        sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg)
+        sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg, band=band)
         g, H = sums[1:7], _hessian(sums[7:28])
         mean = sums[0] / torch.clamp(count, min=1)
         delta = -torch.linalg.solve_ex(H + lam * eye, g)[0]
         xi_new = xi + delta
-        loss_new, count_new = _value_count(gt_value, depth_m, xi_new, intr, cfg, pairs)
+        loss_new, count_new = _value_count(gt_value, depth_m, xi_new, intr, cfg, pairs, band)
         mean_new = loss_new / torch.clamp(count_new, min=1)
         # accept on mean-loss descent with a coverage guard: the raw summed loss rewards shrinking the
         # valid-voxel set, so a step may not sacrifice coverage
@@ -170,7 +176,7 @@ def newton(gt_value, depth_m, xi0, intr: Intrinsics, cfg: VolumeConfig, iters: i
     v2c = se3.inverse_real(se3.exp_real(xi))
     z = torch.zeros((3, 3), dtype=torch.float32, device=dev)
     poses = pack_pose(DCSFD(v2c[:3, :3], z, z, z), DCSFD(v2c[:3, 3], z[0], z[0], z[0]))
-    loss_final, count_final = pairs(gt_value, depth_m, poses, intr, cfg, mode="value")
+    loss_final, count_final = pairs(gt_value, depth_m, poses, intr, cfg, mode="value", band=band)
     mean_final = loss_final[0] / torch.clamp(count_final, min=1)
     result = RelocResult(xi=xi, loss_history=torch.stack(means + [mean_final]), count=count_final)
     stack = (lambda xs: torch.stack(xs)) if iters else (lambda xs: torch.zeros(0, device=dev))

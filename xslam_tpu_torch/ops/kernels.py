@@ -31,7 +31,7 @@ normals B4n (computed in K6's launch, ``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, its skip field B5a (``csrc/skip.cu``)
 in :mod:`xslam_tpu_torch.ops.bricks`, the point extraction B13
 (``csrc/extract.cu``) in :mod:`xslam_tpu_torch.ops.extract`, the
-relocalization loss B12 (``csrc/tsdf_loss.cu``) in
+relocalization loss B12 and its band pass (``csrc/tsdf_loss.cu``) in
 :mod:`xslam_tpu_torch.ops.tsdf_loss`, and
 the five gather probes
 (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
@@ -94,7 +94,7 @@ launch_counts = {
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
     "model_map_normals": 0, "window_march": 0, "skip_field": 0, "march_skip": 0, "extract_points": 0,
-    "tsdf_loss": 0,
+    "tsdf_loss": 0, "tsdf_band": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
 _ext = None  # the built extension module
