@@ -50,20 +50,24 @@ Phases, in order:
    against) on model maps raycast from that volume and the next frame's
    depth pyramid, at the three level shapes of both main-path
    configurations; B12 (the relocalization loss with its gradient and
-   Hessian, 21 seed pairs a launch) on that volume and frame 3's depth at a
-   pose near frame 3's true one, and on a 201x203x205 crop: FIELD bit-equal
-   to the plain version on the mask for a diagonal and a cross pair, the 28
-   sums within a float32 ulp and the count equal, VALUE's loss and count
-   equal to REDUCE's, a second launch bit-identical, timed warm and cold;
-   and the five gather probes;
+   Hessian, 21 seed pairs a launch, over the band its band pass lists: the
+   voxels that pass gt's test) on that volume and frame 3's depth at a pose
+   near frame 3's true one, and on a 201x203x205 crop: the band equal to its
+   plain version, FIELD bit-equal to the plain version on the mask for pairs
+   0, 5, 10 and 20, the 28 sums within a float32 ulp and the count equal,
+   VALUE's loss and count equal to REDUCE's, a second launch bit-identical,
+   one pose within an ulp, poses whose lanes are not shared refused; the
+   band pass, REDUCE and VALUE timed warm and cold; and the five gather
+   probes;
 4. the relocalize path: ``apps/relocalize_demo.main`` at its defaults
    (12 oracle-pose frames fused into the 256^3 volume, 3 held-out frames
    relocalized from perturbed poses, 12 Newton iterations, each
    evaluation one B12 launch): every loss history descends, B12 launches
-   ``2 * iters + 2`` times a call, and holdout 0 with 4 iterations through
-   B12 and through its plain version on the card makes the same accept
-   decisions and ``xi`` within 1e-5; B12 timed on that map, and one
-   ``relocalize`` call profiled (wall time against device time); then the
+   ``2 * iters + 2`` times a call and its band pass once, and holdout 0
+   with 4 iterations through B12 and through its plain version on the card
+   makes the same accept decisions and ``xi`` within 1e-5; B12 and the band
+   pass timed on that map, and one ``relocalize`` call profiled (wall time
+   against device time); then the
    odometry path:
    ``OdometryEngine`` (K1, K7, K8, K4) over 10 frames of the orbit, every
    frame aligned, ATE < 0.1 m;
@@ -113,7 +117,8 @@ Phases, in order:
    configs/ICL_blackout.yaml over 60 frames with frames 30-39 blank (they
    fail to align, a relocalization after them re-enters its frame and every
    later frame aligns, B12 launches
-   ``2 * reloc_iters + 2`` times a ``relocalize`` call, whether the
+   ``2 * reloc_iters + 2`` times a ``relocalize`` call and its band pass
+   once, whether the
    re-entered frame launched B5a and B5b is printed, ATE and refined ATE
    < 0.05 m); configs/ICL_loop_backend.yaml on a revisit cut (a verified
    loop, finite BA residuals, a second ``refine_trajectory()`` bit-equal to
@@ -207,12 +212,15 @@ RENDER_TIMEOUT_S = 400
 # and one second-derivative lane 143 (camera point 18 / 18, 1 / z 2 / 6, image point 8 / 16, bilinear sum
 # 22 / 38, lambda 10 / 21, distances 16 / 35, error, loss and sum 5 / 9); the two square roots' derivative
 # coefficients 10. The function needs the value lane once, the six first-derivative lanes once and one
-# second-derivative lane a pair (1 + 6 + 21 lanes; the kernel runs 4 lanes a pair, 84)
+# second-derivative lane a pair (1 + 6 + 21 lanes, the lanes the kernel runs); gt's test 3 a voxel (two compares
+# and an absolute value)
 TSDF_LOSS_OFFSET = (0.02, -0.01, 0.015, 0.01, -0.01, 0.005)
 TSDF_LOSS_VALUE_OPS = 89
 TSDF_LOSS_E1_OPS = 81
 TSDF_LOSS_E12_OPS = 143
 TSDF_LOSS_SQRT_OPS = 10
+TSDF_BAND_OPS = 3
+TSDF_LOSS_FIELD_PAIRS = (0, 5, 10, 20)  # (e0, e0), (e5, e5), (e1, e3), (e4, e5)
 # the relocalize path: apps/relocalize_demo.py's defaults (12 map frames, 3 holdouts, 12 Newton iterations);
 # holdout 0 again with 4 iterations through B12 and through its plain version; the odometry path's frames
 RELOC_FRAMES = 12
@@ -229,7 +237,8 @@ FOLDED = {"icp_associate": "icp_system"}
 # than a kernel's name says: B3b's classes and ranks are one kernel
 DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel",),
                   "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
-                  "extract_points": ("extract_count_kernel", "extract_points_kernel", "extract_normals_kernel")}
+                  "extract_points": ("extract_count_kernel", "extract_points_kernel", "extract_normals_kernel"),
+                  "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel")}
 KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
     "fuse_volume": ("xslam_tpu_torch/csrc/fusion.cu", "xslam_tpu/ops/fusion.py:108", "main path"),
@@ -250,6 +259,7 @@ KERNELS = {
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
     "extract_points": ("xslam_tpu_torch/csrc/extract.cu", "xslam_tpu/ops/extract.py:59", "main path, ICL realistic"),
     "tsdf_loss": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:65", "relocalize path"),
+    "tsdf_band": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:99", "relocalize path"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
     "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
     "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
@@ -1741,28 +1751,48 @@ def _bits_on(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> bool:
     return bool(torch.equal(a.contiguous().view(torch.int32)[mask], b.contiguous().view(torch.int32)[mask]))
 
 
-def _loss_bytes_ops(n_voxels: int, band: int, depth_pixels: int, pairs: int, mode: str):
-    """B12's least work: the value plane read once (4 B a voxel), the depth
-    once, the poses and sums; the operations of the function at each voxel
-    that passes gt's test: the value lane, and in REDUCE the square roots'
-    coefficients, one first-derivative lane a direction (``min(pairs, 6)``)
-    and one second-derivative lane a pair."""
+def _loss_bytes_ops(band: int, depth_pixels: int, pairs: int, mode: str):
+    """B12's least work over a band of ``band`` voxels: the band's indices
+    and values (8 B a voxel), the depth, the poses and sums once; the
+    operations of the function at each band voxel: the value lane, and in
+    REDUCE the square roots' coefficients, one first-derivative lane a
+    direction (``min(pairs, 6)``) and one second-derivative lane a pair."""
     ops = band * TSDF_LOSS_VALUE_OPS
     if mode == "reduce":
         ops += band * (TSDF_LOSS_SQRT_OPS + min(pairs, 6) * TSDF_LOSS_E1_OPS + pairs * TSDF_LOSS_E12_OPS)
-    return n_voxels * 4 + depth_pixels * 4 + pairs * 48 * 4 + 29 * 4, ops
+    return band * 8 + depth_pixels * 4 + pairs * 48 * 4 + 29 * 4, ops
+
+
+def _band_bytes_ops(n_voxels: int, band: int):
+    """The band pass's least work: the value plane read once, the band's
+    indices and its count written once; gt's test at every voxel."""
+    return n_voxels * 4 + band * 4 + 4, n_voxels * TSDF_BAND_OPS
+
+
+def _call_bound_ms(n_voxels: int, band: int, depth_pixels: int, iters: int):
+    """The least device time of a ``relocalize`` call's B12 work, launch by
+    launch: the band pass once, then ``iters`` REDUCE and ``iters + 2`` VALUE
+    launches over the band."""
+    return (bound_ms(*_band_bytes_ops(n_voxels, band))[0]
+            + iters * bound_ms(*_loss_bytes_ops(band, depth_pixels, 21, "reduce"))[0]
+            + (iters + 2) * bound_ms(*_loss_bytes_ops(band, depth_pixels, 1, "value"))[0])
 
 
 def phase_tsdf_loss(ctx):
-    """B12 against its plain version on the card, on the smoke's fused 256^3
-    volume and frame 3's depth, at ``log_real`` of frame 3's true pose plus
-    (0.02, -0.01, 0.015, 0.01, -0.01, 0.005), the 21 seed pairs of
-    ``models/relocalize.py``: FIELD bit-equal to ``_field_plain`` on the mask
-    for a diagonal and a cross pair, the masks equal; REDUCE's count equal and
-    its 28 sums within a float32 ulp of the plain version's float64 sums;
-    VALUE's loss and count REDUCE's bits; a second launch bit-identical; the
-    same on a 201x203x205 crop (a ragged last block). REDUCE and VALUE timed
-    warm and cold beside their bound and the plain version."""
+    """B12 and its band pass against their plain versions on the card, on the
+    smoke's fused 256^3 volume and frame 3's depth, at ``log_real`` of frame
+    3's true pose plus (0.02, -0.01, 0.015, 0.01, -0.01, 0.005), the 21 seed
+    pairs of ``models/relocalize.py``, and on a 201x203x205 crop (a ragged
+    last tile): the band equal to ``band_plain``; FIELD bit-equal to
+    ``_field_plain`` on the mask for pairs 0, 5, 10 and 20, the masks equal;
+    REDUCE over the band, its count equal and its 28 sums within a float32
+    ulp of the plain version's float64 sums, a second launch and a launch
+    that lists its own band bit-identical; VALUE's loss and count REDUCE's
+    bits; one pose (a cross pair's, as ``tsdf_loss_hessian`` takes it)
+    within an ulp of the plain version; poses whose lanes are not shared
+    (an e1 entry of a cross pair moved by an ulp) give NaN sums and a count of
+    -1. The band pass, REDUCE and VALUE timed warm and cold beside their
+    bounds and the plain versions."""
     from xslam_tpu_torch.geometry import se3
     from xslam_tpu_torch.models.relocalize import seeded_poses
     from xslam_tpu_torch.ops import fusion
@@ -1774,14 +1804,20 @@ def phase_tsdf_loss(ctx):
     c2v = np.asarray(cfg.world2volume, np.float32) @ (np.linalg.inv(ctx["gt"][0]) @ ctx["gt"][3])
     xi = se3.log_real(c2v) + np.array(TSDF_LOSS_OFFSET, np.float32)
     poses = seeded_poses(torch.as_tensor(xi, device=dev))
+    unshared = poses.clone()
+    unshared[10, 12] = torch.nextafter(unshared[10, 12], torch.tensor(float("inf"), device=dev))
     full = ctx["volume"].value
     table = None
     # (case, volume, the fewest masked voxels the case must give: 89,509 and 5,183 on an H100)
     for case, value, least in (("fused volume", full, 50_000),
                                ("crop 201x203x205", full[:201, :203, :205].contiguous(), 2_000)):
-        band = int(((value != 0) & (value.abs() <= 0.95)).sum())
+        band = tl.make_band(value)
+        plain_band = tl.band_plain(value)
+        torch.cuda.synchronize()
+        n_band = int(plain_band.count)
+        band_equal = int(band.count) == n_band and bool(torch.equal(band.index[:n_band], plain_band.index[:n_band]))
         field = {}
-        for pair in (0, 10):  # (e0, e0) and (e1, e3)
+        for pair in TSDF_LOSS_FIELD_PAIRS:
             k_loss, k_mask = tl.tsdf_loss_field(value, depth_m, poses, intr, eng, pair=pair)
             p_loss, p_mask = tl._field_plain(value, depth_m, poses[pair], intr, eng)
             torch.cuda.synchronize()
@@ -1791,44 +1827,73 @@ def phase_tsdf_loss(ctx):
                                max_ulp=max(max_ulp(a[p_mask], b[p_mask]) for a, b in zip(k_loss, p_loss)))
             check(masks and all(lanes),
                   f"B12 FIELD ({case}, pair {pair}) differs from the plain version: {field[pair]}")
-        sums, count = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng)
-        again, count2 = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng)
-        v_sums, v_count = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, mode="value")
+        sums, count = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, band=band)
+        again, count2 = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, band=band)
+        own, count3 = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng)  # lists its own band
+        v_sums, v_count = tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, mode="value", band=band)
         p_sums, p_count = tl.tsdf_loss_hessian_plain(value, depth_m, poses, intr, eng)
+        one, one_count = tl.tsdf_loss_pairs(value, depth_m, poses[12:13].contiguous(), intr, eng, band=band)
+        p_one, p_one_count = tl.tsdf_loss_hessian_plain(value, depth_m, poses[12:13].contiguous(), intr, eng)
+        bad, bad_count = tl.tsdf_loss_pairs(value, depth_m, unshared, intr, eng, band=band)
         torch.cuda.synchronize()
         ulp = max_ulp(sums, p_sums)
-        repeat = bool(torch.equal(sums, again)) and int(count) == int(count2)
+        one_ulp = max_ulp(one, p_one)
+        repeat = bool(torch.equal(sums, again)) and bool(torch.equal(sums, own)) and \
+            int(count) == int(count2) == int(count3)
         value_same = _bits_on(v_sums[:1], sums[:1], torch.ones(1, dtype=torch.bool, device=dev)) and \
             int(v_count) == int(count)
+        refused = bool(torch.isnan(bad).all()) and int(bad_count) == -1
         err = max_abs(sums, p_sums)
-        emit("B12 tsdf_loss", case=case, shape=list(value.shape), band_voxels=band, count=int(count),
-             plain_count=int(p_count), sums_max_ulp=ulp, sums_max_abs_err=err, loss=float(sums[0]),
-             value_loss_count_equal=value_same, second_launch_bit_equal=repeat, field=field)
+        emit("B12 tsdf_loss", case=case, shape=list(value.shape), band_voxels=n_band, band_equal=band_equal,
+             count=int(count), plain_count=int(p_count), sums_max_ulp=ulp, sums_max_abs_err=err, loss=float(sums[0]),
+             value_loss_count_equal=value_same, second_launch_bit_equal=repeat, one_pose_max_ulp=one_ulp,
+             one_pose_count_equal=int(one_count) == int(p_one_count), unshared_lanes_refused=refused, field=field)
+        check(band_equal, f"B12's band ({case}): {int(band.count)} voxels, plain {n_band}, or another order")
         check(int(count) == int(p_count) > least, f"B12 ({case}): count {int(count)}, plain {int(p_count)}")
-        check(ulp <= 1, f"B12 ({case}): sums {ulp} float32 steps from the plain version's")
-        check(value_same and repeat, f"B12 ({case}): VALUE equal {value_same}, second launch equal {repeat}")
+        check(ulp <= 1 and one_ulp <= 1 and int(one_count) == int(p_one_count),
+              f"B12 ({case}): sums {ulp} float32 steps from the plain version's, one pose's {one_ulp}")
+        check(value_same and repeat, f"B12 ({case}): VALUE equal {value_same}, launches again equal {repeat}")
+        check(refused, f"B12 ({case}): poses whose lanes are not shared gave {bad.tolist()}, {int(bad_count)}")
         if table is None:
             X, Y, Z = value.shape
             H, W = depth_m.shape
-            reduce = lambda: tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng)  # noqa: E731
-            only_value = lambda: tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, mode="value")  # noqa: E731
+            reduce = lambda: tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, band=band)  # noqa: E731
+            only_value = lambda: tl.tsdf_loss_pairs(value, depth_m, poses, intr, eng, mode="value",  # noqa: E731
+                                                     band=band)
+            listing = lambda: tl.make_band(value)  # noqa: E731
+            flags = (value != 0) & (value.abs() <= 0.95)
             ms, cold = time_ms(reduce, 20), time_cold_ms(reduce, 10)
             v_ms, v_cold = time_ms(only_value, 50), time_cold_ms(only_value, 20)
+            b_ms, b_cold = time_ms(listing, 50), time_cold_ms(listing, 20)
+            b_library = time_ms(lambda: torch.nonzero(flags.reshape(-1)), 20)
             plain = time_ms(lambda: tl.tsdf_loss_hessian_plain(value, depth_m, poses, intr, eng), 1)
             v_plain = time_ms(lambda: tl.tsdf_loss_hessian_plain(value, depth_m, poses, intr, eng, mode="value"), 2)
-            bms, by = bound_ms(*_loss_bytes_ops(X * Y * Z, band, H * W, 21, "reduce"))
-            v_bms, v_by = bound_ms(*_loss_bytes_ops(X * Y * Z, band, H * W, 1, "value"))
-            emit("B12 tsdf_loss timing", shape=[X, Y, Z], band_voxels=band, pairs=21, ms=ms, cold_ms=cold,
+            b_plain = time_ms(lambda: tl.band_plain(value), 5)
+            bms, by = bound_ms(*_loss_bytes_ops(n_band, H * W, 21, "reduce"))
+            v_bms, v_by = bound_ms(*_loss_bytes_ops(n_band, H * W, 1, "value"))
+            b_bms, b_by = bound_ms(*_band_bytes_ops(X * Y * Z, n_band))
+            call_bms = _call_bound_ms(X * Y * Z, n_band, H * W, RELOC_ITERS)
+            emit("B12 tsdf_loss timing", shape=[X, Y, Z], band_voxels=n_band, pairs=21, ms=ms, cold_ms=cold,
                  plain_ms=plain, bound_ms=bms, bound_by=by, value_ms=v_ms, value_cold_ms=v_cold,
-                 value_plain_ms=v_plain, value_bound_ms=v_bms, value_bound_by=v_by,
-                 bound_counts=f"value plane once; at each voxel that passes gt's test {TSDF_LOSS_VALUE_OPS} "
-                 f"operations for the value lane, {TSDF_LOSS_E1_OPS} a first-derivative lane (6), "
-                 f"{TSDF_LOSS_E12_OPS} a second-derivative lane (21), {TSDF_LOSS_SQRT_OPS} for the square roots' "
-                 "coefficients", library_ms=None,
-                 library_note="no single PyTorch call computes it")
-            table = dict(max_abs_err=err, sums_max_ulp=ulp, ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
-                         bound_by=by, value_ms=v_ms, value_cold_ms=v_cold, value_plain_ms=v_plain,
-                         value_bound_ms=v_bms, band_voxels=band)
+                 value_plain_ms=v_plain, value_bound_ms=v_bms, value_bound_by=v_by, band_ms=b_ms, band_cold_ms=b_cold,
+                 band_plain_ms=b_plain, band_bound_ms=b_bms, band_bound_by=b_by, band_library_ms=b_library,
+                 call_bound_ms=call_bms,
+                 bound_counts=f"over the band: its indices and values (8 B a voxel), the depth, the poses once; at "
+                 f"each band voxel {TSDF_LOSS_VALUE_OPS} operations for the value lane, {TSDF_LOSS_E1_OPS} a "
+                 f"first-derivative lane (6), {TSDF_LOSS_E12_OPS} a second-derivative lane (21), "
+                 f"{TSDF_LOSS_SQRT_OPS} for the square roots' coefficients; the band pass: the value plane once, "
+                 f"the band written once, {TSDF_BAND_OPS} operations a voxel; a call: the band pass, "
+                 f"{RELOC_ITERS} REDUCE and {RELOC_ITERS + 2} VALUE launches",
+                 library_ms=None, library_note="no single PyTorch call computes the loss; the band's library_ms is "
+                 "torch.nonzero of gt's test computed beforehand (a yardstick)")
+            table = {"tsdf_loss": dict(max_abs_err=err, sums_max_ulp=ulp, ms=ms, cold_ms=cold, plain_ms=plain,
+                                       bound_ms=bms, bound_by=by, value_ms=v_ms, value_cold_ms=v_cold,
+                                       value_plain_ms=v_plain, value_bound_ms=v_bms, band_voxels=n_band,
+                                       call_bound_ms=call_bms),
+                     "tsdf_band": dict(max_abs_err=0.0 if band_equal else None, ms=b_ms, cold_ms=b_cold,
+                                       plain_ms=b_plain, bound_ms=b_bms, bound_by=b_by, library_ms=b_library,
+                                       library_note="torch.nonzero of gt's test computed beforehand (a yardstick)",
+                                       band_voxels=n_band)}
     return table
 
 
@@ -1837,15 +1902,16 @@ def phase_relocalize_path(ctx):
     its defaults: 12 oracle-pose frames fused at 640x480 into the 256^3
     volume (K2), 3 held-out frames relocalized from perturbed poses, 12
     Newton iterations each. Each loss history must descend (JAX's own test
-    condition) and B12 must launch ``2 * iters + 2`` times a call. Then
-    holdout 0 with 4 iterations through B12 and through its plain version,
-    both on the card from the same inputs: the same accept decisions and
-    ``xi`` within 1e-5. The translation errors are printed, not held to a
+    condition), B12 must launch ``2 * iters + 2`` times a call and its band
+    pass once. Then holdout 0 with 4 iterations through B12 and through its
+    plain version (over ``band_plain``), both on the card from the same
+    inputs: the same accept decisions and ``xi`` within 1e-5. The translation errors are printed, not held to a
     number: the basin at 3 cm voxels and 0.10 m of perturbation has no
-    measured bound. Last, B12's REDUCE and VALUE timed on the path's own
-    map and holdout 0's depth at its start, and one ``relocalize`` call of
-    holdout 0 under the profiler: its wall time beside the device's busy
-    time and B12's share of it, all 26 B12 launches seen."""
+    measured bound. Last, B12's band pass, REDUCE and VALUE timed on the
+    path's own map and holdout 0's depth at its start, and one
+    ``relocalize`` call of holdout 0 under the profiler: its wall time beside
+    the device's busy time and B12's share of it, all 26 B12 launches and
+    the band pass's two kernels seen."""
     import contextlib
     import io
 
@@ -1854,7 +1920,7 @@ def phase_relocalize_path(ctx):
     from xslam_tpu_torch.io.dataset import make_dataset
     from xslam_tpu_torch.models.relocalize import newton, relocalize, seeded_poses
     from xslam_tpu_torch.ops import kernels
-    from xslam_tpu_torch.ops.tsdf_loss import tsdf_loss_hessian_plain, tsdf_loss_pairs
+    from xslam_tpu_torch.ops.tsdf_loss import band_plain, make_band, tsdf_loss_hessian_plain, tsdf_loss_pairs
 
     path = os.path.join(ROOT, "configs", "synthetic.yaml")
     stdout = io.StringIO()
@@ -1881,21 +1947,24 @@ def phase_relocalize_path(ctx):
     _, xi0 = relocalize_demo.holdout_start(config, ds, RELOC_FRAMES, np.random.default_rng(0), 0.10)
     k_out, k_acc, _ = newton(vol.value, dm, xi0, config.intrinsics, vol_cfg, iters=RELOC_CHECK_ITERS)
     p_out, p_acc, _ = newton(vol.value, dm, xi0, config.intrinsics, vol_cfg, iters=RELOC_CHECK_ITERS,
-                             pairs=tsdf_loss_hessian_plain)
+                             pairs=tsdf_loss_hessian_plain, band=band_plain(vol.value))
     xi_gap = float((k_out.xi - p_out.xi).abs().max())
     same_accepts = bool(torch.equal(k_acc, p_acc))
     emit("relocalize path", frames=RELOC_FRAMES, holdouts=len(holdouts), iters=RELOC_ITERS, run_s=run_s,
          relocalize_s=[h.seconds for h in holdouts], init_err_m=[h.init_err for h in holdouts],
          err_m=[h.err for h in holdouts], loss_history=[hist.tolist() for hist in histories],
          inliers=[int(h.result.count) for h in holdouts], tsdf_loss_launches=counts["tsdf_loss"],
-         tsdf_loss_launches_expected=want, fuse_volume_launches=counts["fuse_volume"],
+         tsdf_loss_launches_expected=want, tsdf_band_launches=counts["tsdf_band"],
+         fuse_volume_launches=counts["fuse_volume"],
          b12_vs_plain=dict(iters=RELOC_CHECK_ITERS, xi_max_abs_diff=xi_gap, accepts_equal=same_accepts,
                            accepts=k_acc.tolist(), plain_accepts=p_acc.tolist(),
                            loss_history=k_out.loss_history.tolist(), plain_loss_history=p_out.loss_history.tolist()))
     check(len(lines) == len(holdouts) == RELOC_HOLDOUTS, f"the demo printed {lines}")
     check(all(np.all(np.diff(hist) < 1e-5) for hist in histories), f"a loss history rises: {histories}")
-    check(counts["tsdf_loss"] == want and counts["fuse_volume"] == RELOC_FRAMES,
-          f"the relocalize path launched B12 {counts['tsdf_loss']} times ({want}), K2 {counts['fuse_volume']}")
+    check(counts["tsdf_loss"] == want and counts["tsdf_band"] == len(holdouts) and
+          counts["fuse_volume"] == RELOC_FRAMES,
+          f"the relocalize path launched B12 {counts['tsdf_loss']} times ({want}), its band pass "
+          f"{counts['tsdf_band']} ({len(holdouts)}), K2 {counts['fuse_volume']}")
     check(same_accepts and xi_gap <= 1e-5, f"B12's and the plain version's relocalize differ: accepts "
                                            f"{k_acc.tolist()} / {p_acc.tolist()}, xi by {xi_gap}")
 
@@ -1903,25 +1972,35 @@ def phase_relocalize_path(ctx):
     value, intr = vol.value, config.intrinsics
     xi_start = torch.as_tensor(xi0, device=ctx["device"])
     poses = seeded_poses(xi_start)
-    band = int(((value != 0) & (value.abs() <= 0.95)).sum())
-    reduce = lambda: tsdf_loss_pairs(value, dm, poses, intr, vol_cfg)  # noqa: E731
-    only_value = lambda: tsdf_loss_pairs(value, dm, poses, intr, vol_cfg, mode="value")  # noqa: E731
+    band = make_band(value)
+    n_band = int(band.count)
+    reduce = lambda: tsdf_loss_pairs(value, dm, poses, intr, vol_cfg, band=band)  # noqa: E731
+    only_value = lambda: tsdf_loss_pairs(value, dm, poses, intr, vol_cfg, mode="value", band=band)  # noqa: E731
+    listing = lambda: make_band(value)  # noqa: E731
     ms, cold = time_ms(reduce, 20), time_cold_ms(reduce, 10)
     v_ms, v_cold = time_ms(only_value, 50), time_cold_ms(only_value, 20)
-    bms, by = bound_ms(*_loss_bytes_ops(value.numel(), band, dm.numel(), 21, "reduce"))
+    b_ms, b_cold = time_ms(listing, 50), time_cold_ms(listing, 20)
+    bms, by = bound_ms(*_loss_bytes_ops(n_band, dm.numel(), 21, "reduce"))
+    call_bms = _call_bound_ms(value.numel(), n_band, dm.numel(), RELOC_ITERS)
     call = lambda: relocalize(value, dm, xi_start, intr, vol_cfg, iters=RELOC_ITERS)  # noqa: E731
     call()
     rec = _profiled_call(call)
     want_b12 = 2 * RELOC_ITERS + 2
     ctx["tsdf_loss_path"] = dict(path_ms=ms, path_cold_ms=cold, path_value_ms=v_ms, path_value_cold_ms=v_cold,
-                                 path_band_voxels=band, path_bound_ms=bms, path_bound_by=by,
-                                 relocalize_call_wall_ms=rec["wall_ms"],
+                                 path_band_voxels=n_band, path_bound_ms=bms, path_bound_by=by,
+                                 path_call_bound_ms=call_bms, relocalize_call_wall_ms=rec["wall_ms"],
                                  relocalize_call_device_busy_ms=rec["device_busy_ms"],
-                                 relocalize_call_b12_device_ms=rec["kernel_ms"])
-    emit("relocalize path, B12 and one call", band_voxels=band, ms=ms, cold_ms=cold, value_ms=v_ms,
-         value_cold_ms=v_cold, bound_ms=bms, bound_by=by, call_iters=RELOC_ITERS, **rec)
-    check(rec["kernel_events"] == want_b12, f"the profiled relocalize call shows {rec['kernel_events']} B12 "
-                                            f"launches ({want_b12})")
+                                 relocalize_call_b12_device_ms=rec["kernel_ms"],
+                                 relocalize_call_band_device_ms=rec["band_ms"])
+    ctx["tsdf_band_path"] = dict(path_ms=b_ms, path_cold_ms=b_cold, path_band_voxels=n_band,
+                                 relocalize_call_device_ms=rec["band_ms"])
+    emit("relocalize path, B12 and one call", band_voxels=n_band, ms=ms, cold_ms=cold, value_ms=v_ms,
+         value_cold_ms=v_cold, band_pass_ms=b_ms, band_pass_cold_ms=b_cold, bound_ms=bms, bound_by=by,
+         call_bound_ms=call_bms,
+         call_iters=RELOC_ITERS, b12_and_band_device_ms=rec["kernel_ms"] + rec["band_ms"], **rec)
+    check(rec["kernel_events"] == want_b12 and rec["band_events"] == len(DEVICE_KERNELS["tsdf_band"]),
+          f"the profiled relocalize call shows {rec['kernel_events']} B12 launches ({want_b12}) and "
+          f"{rec['band_events']} band pass kernels ({len(DEVICE_KERNELS['tsdf_band'])})")
     return counts
 
 
@@ -1929,7 +2008,7 @@ def _profiled_call(fn, kernel: str = "tsdf_loss_kernel") -> dict:
     """``fn()`` under :func:`_lead_profile`: the wall time, the device's busy
     time (its events' durations, the spins' left out) and idle share, its
     events, the host's launch, copy and fill calls, and the events and device
-    time of ``kernel``."""
+    time of ``kernel`` and of B12's band pass."""
     from torch.autograd import DeviceType
 
     from xslam_tpu_torch.profile_step import HOST_LAUNCH_CALLS
@@ -1938,11 +2017,13 @@ def _profiled_call(fn, kernel: str = "tsdf_loss_kernel") -> dict:
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.name]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     mine = [e for e in device if kernel in e.name]
+    band = [e for e in device if any(k in e.name for k in DEVICE_KERNELS["tsdf_band"])]
     host_calls = sum(1 for e in prof.events()
                      if e.device_type == DeviceType.CPU and e.name.startswith(HOST_LAUNCH_CALLS)) - PROFILE_LEAD
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
                 device_events=len(device), host_calls=host_calls, kernel_events=len(mine),
-                kernel_ms=sum(e.time_range.elapsed_us() for e in mine) / 1e3)
+                kernel_ms=sum(e.time_range.elapsed_us() for e in mine) / 1e3, band_events=len(band),
+                band_ms=sum(e.time_range.elapsed_us() for e in band) / 1e3)
 
 
 def phase_odometry_path(ctx):
@@ -2577,7 +2658,7 @@ class BackendProbe:
 
     def _timed(self, name, fn):
         def call(*args, **kwargs):
-            b12 = self.counts["tsdf_loss"]
+            b12, band = self.counts["tsdf_loss"], self.counts["tsdf_band"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -2585,7 +2666,8 @@ class BackendProbe:
             seconds = time.perf_counter() - t0
             info = {}
             if name == "relocalize":
-                info = dict(b12=self.counts["tsdf_loss"] - b12, iters=kwargs["iters"])
+                info = dict(b12=self.counts["tsdf_loss"] - b12, band=self.counts["tsdf_band"] - band,
+                            iters=kwargs["iters"])
             elif name == "build_ba_problem":
                 info = dict(stride=kwargs.get("stride"), N=0 if out[0] is None else int(out[0].frame_idx.shape[0]),
                             L=0 if out[1] is None else int(out[1].shape[0]))
@@ -2701,6 +2783,7 @@ def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
     info = dict(config=config, frames=n_frames, card=device_card, run_s=run_s, **parsed,
                 relocalize_calls=len(reloc), relocalize_s=probe.seconds("relocalize"),
                 relocalize_b12_launches=[c["b12"] for _, c in reloc],
+                relocalize_band_launches=[c["band"] for _, c in reloc],
                 depth_icp_calls=len(probe.calls["_depth_icp"]), depth_icp_s=probe.seconds("_depth_icp"),
                 recoveries=probe.recovers, recovery_events=[e._asdict() for e in run.engine.recovery_events],
                 refine_trajectory_s=refine_s, pose_graph_cg_s=probe.seconds("pose_graph_cg"),
@@ -2721,7 +2804,7 @@ def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
 def _check_backend_common(tag: str, run, parsed: dict, probe, n_frames: int, data_root: str):
     """What every backend phase holds: the ATE and the refined line printed,
     no refinement failure, a refined pose file a frame, each relocalize call
-    ``2 * reloc_iters + 2`` B12 launches."""
+    ``2 * reloc_iters + 2`` B12 launches and one of its band pass."""
     check(parsed["ate_m"] is not None and parsed["refined_ate_m"] is not None and not parsed["refinement_failed"],
           f"{tag}: ATE {parsed['ate_m']}, refined ATE {parsed['refined_ate_m']}, failed "
           f"{parsed['refinement_failed']}")
@@ -2730,8 +2813,8 @@ def _check_backend_common(tag: str, run, parsed: dict, probe, n_frames: int, dat
     check(files == [f"frame-{i:06d}.pose.txt" for i in range(n_frames)],
           f"{tag}: {len(files)} refined pose files for {n_frames} frames")
     want = 2 * run.engine.config.reloc_iters + 2
-    bad = [c["b12"] for _, c in probe.calls["relocalize"] if c["b12"] != want]
-    check(not bad, f"{tag}: relocalize calls launched B12 {bad} times ({want} a call)")
+    bad = [(c["b12"], c["band"]) for _, c in probe.calls["relocalize"] if (c["b12"], c["band"]) != (want, 1)]
+    check(not bad, f"{tag}: relocalize calls launched B12 and its band pass {bad} times ({want} and 1 a call)")
 
 
 def phase_backend_blackout(ctx):
@@ -2758,18 +2841,22 @@ def phase_backend_blackout(ctx):
         e.frame_index for e in events if e.accepted and e.frame_index >= BLACKOUT[1]],
                 tracked_after_reentry=bool(tracked_after), reentered_frames=reentered,
                 reentry_launched_b5=any(r["skip_field"] and r["march_skip"] for r in reentered),
-                tsdf_loss_launches=info["kernels"].get("tsdf_loss", 0), phase_s=time.perf_counter() - t0)
+                tsdf_loss_launches=info["kernels"].get("tsdf_loss", 0),
+                tsdf_band_launches=info["kernels"].get("tsdf_band", 0), phase_s=time.perf_counter() - t0)
     emit("backend, blackout", **info)
     ctx["backend_b12"] = dict(backend_blackout_relocalize_calls=info["relocalize_calls"],
                               backend_blackout_launches=info["tsdf_loss_launches"])
+    ctx["backend_band"] = dict(backend_blackout_relocalize_calls=info["relocalize_calls"],
+                               backend_blackout_launches=info["tsdf_band_launches"])
     _check_backend_common("blackout", run, parsed, probe, n, root)
     check(set(range(*BLACKOUT)) <= set(parsed["align_failed"]),
           f"blackout: frames {list(range(*BLACKOUT))} should fail to align, failed {parsed['align_failed']}")
     check(tracked_after, f"blackout: no relocalization after frame {BLACKOUT[1]} re-entered its frame with every "
                          f"later frame aligned: events {events}, failed frames {parsed['align_failed']}")
-    check(info["tsdf_loss_launches"] == sum(info["relocalize_b12_launches"]),
+    check(info["tsdf_loss_launches"] == sum(info["relocalize_b12_launches"]) and
+          info["tsdf_band_launches"] == info["relocalize_calls"],
           f"blackout: B12 launched {info['tsdf_loss_launches']} times, its relocalize calls "
-          f"{info['relocalize_b12_launches']}")
+          f"{info['relocalize_b12_launches']}; its band pass {info['tsdf_band_launches']} times")
     check(parsed["ate_m"] < 0.05 and parsed["refined_ate_m"] < 0.05,
           f"blackout: ATE {parsed['ate_m']} m, refined {parsed['refined_ate_m']} m (0.05 m)")
     return info
@@ -2913,8 +3000,11 @@ def main() -> int:
         return 1
     results.pop("rounding")
     results["icp_associate"] = ctx["icp_associate"]
+    results.update(results.pop("tsdf_loss"))  # B12 and its band pass
     results["tsdf_loss"].update(ctx["tsdf_loss_path"])
     results["tsdf_loss"].update(ctx["backend_b12"])  # the blackout phase's relocalize calls and B12 launches
+    results["tsdf_band"].update(ctx["tsdf_band_path"])
+    results["tsdf_band"].update(ctx["backend_band"])
     results.update(results.pop("probes"))
     results.update(results.pop("maps"))
     results.update(results.pop("bricks"))

@@ -4,7 +4,7 @@ of the host's launch calls is retaken on the next frame, at most twice, and
 the checks on the record it keeps stay as strict: a frame whose own launch
 count is wrong, or with other device work between its ICP launches, fails
 without a retake. Then the smoke's other host-side pieces: the kernel table,
-B12's bound, the phases' order, the backend runs' settings and the parser of
+B12's and its band pass's bounds, the phases' order, the backend runs' settings and the parser of
 ``run_slam``'s backend output."""
 
 import os
@@ -76,19 +76,26 @@ def test_kernel_table_names_every_counted_wrapper():
 
 
 def test_b12_bound_counts():
-    """B12's least work: the value plane, the depth, the poses and the sums
-    once; the function's operations at each voxel that passes gt's test: the
-    value lane, six first-derivative lanes and a second-derivative lane a pair
-    (1 + 6 + 21 lanes, not the kernel's 84) in REDUCE, the value lane alone in
-    VALUE. At 109,794 such voxels in the 256^3 volume the bytes bound both."""
+    """B12's least work over a band: the band's indices and values, the
+    depth, the poses and the sums once; the function's operations at each
+    band voxel: the value lane, six first-derivative lanes and a
+    second-derivative lane a pair (1 + 6 + 21 lanes) in REDUCE, the value
+    lane alone in VALUE. At the smoke's 109,794 band voxels operations bound
+    REDUCE (0.0059 ms) and bytes VALUE; the band pass reads the plane once
+    (bytes, 0.0201 ms at 256^3); a call at 12 iterations about 0.10 ms."""
     c = chip_smoke
-    n_bytes, ops = c._loss_bytes_ops(256 ** 3, 1000, 480 * 640, 21, "reduce")
-    assert n_bytes == 256 ** 3 * 4 + 480 * 640 * 4 + 21 * 48 * 4 + 29 * 4
+    n_bytes, ops = c._loss_bytes_ops(1000, 480 * 640, 21, "reduce")
+    assert n_bytes == 1000 * 8 + 480 * 640 * 4 + 21 * 48 * 4 + 29 * 4
     assert ops == 1000 * (c.TSDF_LOSS_VALUE_OPS + c.TSDF_LOSS_SQRT_OPS + 6 * c.TSDF_LOSS_E1_OPS
                           + 21 * c.TSDF_LOSS_E12_OPS) == 3_588_000
-    assert c._loss_bytes_ops(256 ** 3, 1000, 480 * 640, 1, "reduce")[1] == 1000 * (89 + 10 + 81 + 143)
-    assert c.bound_ms(*c._loss_bytes_ops(256 ** 3, 109_794, 480 * 640, 21, "reduce"))[1] == "bytes"
-    assert chip_smoke._loss_bytes_ops(8, 5, 4, 1, "value")[1] == 5 * chip_smoke.TSDF_LOSS_VALUE_OPS
+    assert c._loss_bytes_ops(1000, 480 * 640, 1, "reduce")[1] == 1000 * (89 + 10 + 81 + 143)
+    assert c._loss_bytes_ops(5, 4, 1, "value")[1] == 5 * c.TSDF_LOSS_VALUE_OPS
+    reduce_ms, by = c.bound_ms(*c._loss_bytes_ops(109_794, 480 * 640, 21, "reduce"))
+    assert by == "operations" and reduce_ms == pytest.approx(3588 * 109_794 / 67e9)
+    assert c.bound_ms(*c._loss_bytes_ops(109_794, 480 * 640, 1, "value"))[1] == "bytes"
+    band_ms, by = c.bound_ms(*c._band_bytes_ops(256 ** 3, 109_794))
+    assert by == "bytes" and band_ms == pytest.approx((256 ** 3 + 109_795) * 4 / 3.35e9)
+    assert 0.09 < c._call_bound_ms(256 ** 3, 109_794, 480 * 640, 12) < 0.11
     # the relocalize path launches B12 twice an iteration, once for the start's count, once at the end
     assert chip_smoke.RELOC_HOLDOUTS * (2 * chip_smoke.RELOC_ITERS + 2) == 78
 
@@ -150,13 +157,15 @@ def test_backend_phases_come_last():
 
 
 def test_kernel_table_rows_unchanged():
-    """The backend adds no kernel: the table keeps its 23 rows and paths."""
+    """The table keeps its rows and paths; B12's band pass has its own row
+    (24 in all), on the relocalize path, two device kernels a launch."""
     assert list(chip_smoke.KERNELS) == [
         "bilateral_filter", "fuse_volume", "march_fixed", "raycast_refine", "resize_model_maps", "depth_pyramid",
         "depth_mips", "classify_bricks", "fuse_bricks", "vertex_normal_maps", "icp_system", "icp_associate",
-        "window_march", "model_map_normals", "skip_field", "march_skip", "extract_points", "tsdf_loss",
+        "window_march", "model_map_normals", "skip_field", "march_skip", "extract_points", "tsdf_loss", "tsdf_band",
         "probe_a", "probe_b", "probe_c", "probe_d", "probe_e"]
-    assert chip_smoke.KERNELS["tsdf_loss"][2] == "relocalize path"
+    assert chip_smoke.KERNELS["tsdf_loss"][2] == chip_smoke.KERNELS["tsdf_band"][2] == "relocalize path"
+    assert chip_smoke.DEVICE_KERNELS["tsdf_band"] == ("tsdf_band_count_kernel", "tsdf_band_list_kernel")
 
 
 def test_parse_backend_stdout():

@@ -186,12 +186,12 @@ def test_relocalize_matches_jax(scene, jax_lgh):
 
 def _twin_sum(terms: np.ndarray) -> float:
     """csrc/tsdf_loss.cu's order of one sum over the band's terms (in band
-    order): position c of block b adds entries b * LOSS_VOXELS + c, then
-    + LOSS_BLOCKS * LOSS_VOXELS, ... in double; the block adds its
-    LOSS_VOXELS columns in order; the last block adds blocks g, g + 4, ...
+    order): thread t of block b adds entries b * LOSS_THREADS + t, then
+    + LOSS_BLOCKS * LOSS_THREADS, ... in double; the block adds its
+    LOSS_THREADS columns in order; the last block adds blocks g, g + 4, ...
     for each of four groups, then the groups in order; one rounding to
     float32."""
-    blocks, voxels = ttl.LOSS_BLOCKS, ttl.LOSS_VOXELS
+    blocks, voxels = ttl.LOSS_BLOCKS, ttl.LOSS_THREADS
     per = voxels * blocks
     padded = np.zeros(max(1, -(-terms.size // per)) * per)
     padded[:terms.size] = terms
@@ -216,7 +216,7 @@ def test_block_order_depends_on_the_shape_alone(scene):
     band's length alone (the voxels that pass gt's test, in flat order): the
     numpy twin of that order gives the float64 sum within a float32 ulp, on
     the fixture's terms in band order, on the same terms shuffled and on a
-    band longer than the grid's positions (each position adds 40 terms), and
+    band longer than the grid's threads (each thread adds 40 terms), and
     the plain version's sum of the fixture's terms."""
     s = scene
     poses = trel.seeded_poses(torch.from_numpy(_xi_near(s)))
@@ -224,7 +224,7 @@ def test_block_order_depends_on_the_shape_alone(scene):
     band = ttl.make_band(s["value"])
     flat = band.index[: int(band.count)].long()
     terms = torch.where(mask, loss.e12, 0.0).reshape(-1)[flat].numpy().astype(np.float64)
-    assert 3000 < terms.size < ttl.LOSS_BLOCKS * ttl.LOSS_VOXELS  # the fixture's band: one entry a position at most
+    assert 3000 < terms.size < ttl.LOSS_BLOCKS * ttl.LOSS_THREADS  # the fixture's band: one entry a thread at most
     sums, _ = ttl.tsdf_loss_hessian_plain(s["value"], s["depth"], poses[:1], INTR, s["cfg"])
     for t in (terms, np.random.default_rng(0).permutation(terms), np.tile(terms, 40)):
         twin = _twin_sum(t)

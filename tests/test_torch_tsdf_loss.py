@@ -198,3 +198,29 @@ def test_newton_over_a_band_is_newton_over_the_volume(scene, jax_lgh):
     assert all(torch.equal(a, b) for a, b in zip(band_means, vol_means))
     steps = _jax_newton(jax_lgh, xi0, iters)
     assert [bool(a) for a in band_acc] == [a for a, _, _ in steps]
+
+
+def test_constants_follow_the_kernel_source():
+    """The wrapper's and the twins' constants are the kernel's: its block and
+    grid (the sums' order), the band pass's segment and warps, the most
+    pairs and the pose's floats; the resource report's block sizes are the
+    kernels' own."""
+    import re
+
+    from xslam_tpu_torch.apps.kernel_resources import BLOCK_THREADS
+    from xslam_tpu_torch.ops.kernels import CSRC_DIR
+
+    text = (CSRC_DIR / "tsdf_loss.cu").read_text()
+    cu = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert (cu["LOSS_THREADS"], cu["LOSS_BLOCKS"], cu["GROUPS"]) == (ttl.LOSS_THREADS, ttl.LOSS_BLOCKS,
+                                                                     ttl.LOSS_GROUPS)
+    assert (cu["BAND_SEGMENT"], cu["BAND_THREADS"] // 32) == (ttl.BAND_SEGMENT, ttl.BAND_WARPS)
+    assert (cu["MAX_PAIRS"], cu["POSE_FLOATS"]) == (ttl.MAX_PAIRS, ttl.POSE_FLOATS)
+    assert BLOCK_THREADS["tsdf_loss_kernel"] == cu["LOSS_THREADS"]
+    assert BLOCK_THREADS["tsdf_field_kernel"] == cu["FIELD_THREADS"]
+    assert BLOCK_THREADS["tsdf_band_count_kernel"] == BLOCK_THREADS["tsdf_band_list_kernel"] == cu["BAND_THREADS"]
+    # the seed pairs are the JAX package's, in its order
+    from xslam_tpu.models import relocalize as jrel
+
+    assert np.array_equal(trel._D1, jrel._D1) and np.array_equal(trel._D2, jrel._D2)
+    assert trel._D1.dtype == jrel._D1.dtype == np.float32

@@ -35,7 +35,7 @@ BLOCK_THREADS = {
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
     "window_march_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
     "march_skip_kernel": 128, "extract_count_kernel": 256, "extract_points_kernel": 256,
-    "extract_normals_kernel": 256, "tsdf_loss_kernel": 192, "tsdf_field_kernel": 128,
+    "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,
     "tsdf_band_count_kernel": 256, "tsdf_band_list_kernel": 256,
 }
 SM_REGISTERS = 65_536

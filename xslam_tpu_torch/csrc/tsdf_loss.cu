@@ -62,16 +62,18 @@
 // for the ~110,000 band voxels of three fused frames, so operations bound it.
 // What the design does about it: the band, so that a launch touches band
 // voxels alone (a thread's voxels are band entries, not volume voxels, and
-// no warp runs a chain with most lanes masked off), and the shared lanes.
-// LOSS_SLOTS warps take one band voxel each lane: each recomputes the shared
-// lanes and owns MAX_PAIRS / LOSS_SLOTS pairs' second-derivative lanes, so
-// a thread's jet stays small enough to live in registers (PERF.md records the
-// slot counts measured). A voxel's v lane and mask come first in float
-// arithmetic; its jets only where the mask holds. Each sum is owned by one
-// slot: each of its threads adds its masked terms in DOUBLE to its own
-// column of a shared accumulator (one rounding per addition, exact for the
-// product of two float32), in band order (block b's position c takes
-// entries b * LOSS_VOXELS + c, then + LOSS_BLOCKS * LOSS_VOXELS, ...). The
+// no warp runs a chain with most lanes masked off), and the shared lanes. A
+// thread takes a band voxel and holds its 28-lane jet (1 + 6 + 21 floats) in
+// registers: every index into a jet is a constant (the pair loops run over
+// compile-time indices), so nothing goes to local memory; 255 registers, no
+// spills, two blocks of LOSS_THREADS an SM, and LOSS_BLOCKS is that one wave.
+// Splitting a voxel's pairs over 2, 3 or 7 warps (each recomputing the
+// shared lanes with a smaller jet) and other grids were slower (PERF.md).
+// A voxel's v lane and mask come first in float arithmetic; its jets only
+// where the mask holds. Each thread adds its masked terms in DOUBLE to its
+// own column of a shared accumulator (one rounding per addition, exact for
+// the product of two float32), in band order (thread t of block b takes
+// entries b * LOSS_THREADS + t, then + LOSS_BLOCKS * LOSS_THREADS, ...). The
 // block adds its columns in order and writes its partials; the block that
 // takes the last ticket (one integer atomic) adds the blocks' partials in
 // four groups of blocks (group g: blocks g, g + 4, ...), then the groups in
@@ -95,20 +97,16 @@ constexpr int MAX_SUMS = 1 + DIRECTIONS + MAX_PAIRS;  // loss, six gradient entr
 constexpr int GROUPS = 4;                               // groups of blocks the last block adds side by side
 constexpr int MODE_REDUCE = 0, MODE_VALUE = 1;
 
-constexpr int LOSS_SLOTS = 3;     // warps a band voxel (ops/tsdf_loss.py::LOSS_SLOTS)
-constexpr int LOSS_VOXELS = 64;   // band voxels a block holds at once, a lane each (ops/tsdf_loss.py::LOSS_VOXELS)
-constexpr int LOSS_BLOCKS = 528;  // the grid of a REDUCE or VALUE launch (ops/tsdf_loss.py::LOSS_BLOCKS)
-constexpr int LOSS_THREADS = LOSS_SLOTS * LOSS_VOXELS;
+constexpr int LOSS_THREADS = 128;  // a band voxel a thread (ops/tsdf_loss.py::LOSS_THREADS)
+constexpr int LOSS_BLOCKS = 264;   // the grid of a REDUCE or VALUE launch: two blocks an SM (ops/tsdf_loss.py)
 constexpr int FIELD_THREADS = 128;
 constexpr int FIELD_MAX_BLOCKS = 528;
 constexpr int BAND_THREADS = 256;
 constexpr int BAND_WARPS = BAND_THREADS / 32;
-constexpr int BAND_SEGMENT = 2048;  // voxels a warp counts and lists (ops/tsdf_loss.py::BAND_SEGMENT)
+constexpr int BAND_SEGMENT = 1024;  // voxels a warp counts and lists (ops/tsdf_loss.py::BAND_SEGMENT)
 constexpr int BAND_TILE = BAND_WARPS * BAND_SEGMENT;
-constexpr int BAND_UNROLL = 8;  // loads of a warp in flight
-static_assert(LOSS_SLOTS >= 1 && LOSS_SLOTS <= MAX_PAIRS, "every slot owns a pair");
-static_assert(LOSS_VOXELS % 32 == 0, "a warp holds 32 band voxels");
-static_assert(LOSS_THREADS > MAX_SUMS, "a block's thread q adds sum q's columns");
+constexpr int BAND_UNROLL = 16;  // loads of a warp in flight
+static_assert(LOSS_THREADS > MAX_SUMS && LOSS_THREADS >= GROUPS * 32, "a thread a sum, in the block and the groups");
 static_assert(BAND_SEGMENT % (32 * BAND_UNROLL) == 0 && BAND_UNROLL <= 32, "a segment is whole rounds of loads");
 
 // ------------------------------------------------------------- layouts
@@ -134,33 +132,24 @@ __host__ __device__ constexpr int seed_k(int p) {
   return j + 1 + r;
 }
 
-// Where a layout's lanes lie in the packed poses, which pairs a slot owns, and the gradient entries it sums.
+// Where a layout's lanes lie in the packed poses, and the gradient entries it sums.
 template <int P>
 struct Layout;
 template <>
 struct Layout<MAX_PAIRS> {  // the seed pairs: direction d's lanes are pose d's e1 lanes; pair p's e12 lanes its own
   static constexpr int D = DIRECTIONS, PAIRS = MAX_PAIRS, GRADS = DIRECTIONS, POSES = MAX_PAIRS;
-  static constexpr int PER_SLOT = (MAX_PAIRS + LOSS_SLOTS - 1) / LOSS_SLOTS;  // the last slot takes the rest
   __host__ __device__ static constexpr int j(int p) { return seed_j(p); }
   __host__ __device__ static constexpr int k(int p) { return seed_k(p); }
   __host__ __device__ static constexpr int f_at(int d) { return d * POSE_FLOATS + 12; }
   __host__ __device__ static constexpr int s_at(int p) { return p * POSE_FLOATS + 36; }
-  __host__ __device__ static constexpr int first(int slot) { return slot * PER_SLOT; }
-  __host__ __device__ static constexpr int count(int slot) {
-    return slot * PER_SLOT + PER_SLOT <= MAX_PAIRS ? PER_SLOT : MAX_PAIRS - slot * PER_SLOT;
-  }
-  __host__ __device__ static constexpr int slot_of(int p) { return p / PER_SLOT; }
 };
 template <>
-struct Layout<1> {  // one pose: its e1 lanes are direction 0, its e2 lanes direction 1; slot 0 owns the pair
+struct Layout<1> {  // one pose: its e1 lanes are direction 0, its e2 lanes direction 1
   static constexpr int D = 2, PAIRS = 1, GRADS = 1, POSES = 1;
   __host__ __device__ static constexpr int j(int) { return 0; }
   __host__ __device__ static constexpr int k(int) { return 1; }
   __host__ __device__ static constexpr int f_at(int d) { return 12 + 12 * d; }
   __host__ __device__ static constexpr int s_at(int) { return 36; }
-  __host__ __device__ static constexpr int first(int) { return 0; }
-  __host__ __device__ static constexpr int count(int slot) { return slot == 0 ? 1 : 0; }
-  __host__ __device__ static constexpr int slot_of(int) { return 0; }
 };
 
 // ------------------------------------------------------------- shared lanes
@@ -175,75 +164,75 @@ __device__ __forceinline__ void for_pairs(Fn&& fn) {
   for_each_pair(fn, std::make_integer_sequence<int, N>());
 }
 
-// A hyper-dual number of layout L with pairs F .. F + N - 1: the v lane, one first-derivative lane a direction,
-// one second-derivative lane a pair. Every index is a constant once the loops unroll, so a jet is registers.
-template <class L, int F, int N>
-struct Lanes {  // L: Layout<P>
+// A hyper-dual number of layout L (Layout<P>): the v lane, one first-derivative lane a direction, one
+// second-derivative lane a pair. Every index is a constant once the loops unroll, so a jet is registers.
+template <class L>
+struct Lanes {
   float v;
   float f[L::D];
-  float s[N];
+  float s[L::PAIRS];
 };
 
-template <class L, int F, int N>
-__device__ __forceinline__ Lanes<L, F, N> operator+(const Lanes<L, F, N>& a, const Lanes<L, F, N>& b) {
-  Lanes<L, F, N> r;
+template <class L>
+__device__ __forceinline__ Lanes<L> operator+(const Lanes<L>& a, const Lanes<L>& b) {
+  Lanes<L> r;
   r.v = a.v + b.v;
 #pragma unroll
   for (int d = 0; d < L::D; ++d) r.f[d] = a.f[d] + b.f[d];
 #pragma unroll
-  for (int q = 0; q < N; ++q) r.s[q] = a.s[q] + b.s[q];
+  for (int q = 0; q < L::PAIRS; ++q) r.s[q] = a.s[q] + b.s[q];
   return r;
 }
-template <class L, int F, int N>
-__device__ __forceinline__ Lanes<L, F, N> operator-(const Lanes<L, F, N>& a, const Lanes<L, F, N>& b) {
-  Lanes<L, F, N> r;
+template <class L>
+__device__ __forceinline__ Lanes<L> operator-(const Lanes<L>& a, const Lanes<L>& b) {
+  Lanes<L> r;
   r.v = a.v - b.v;
 #pragma unroll
   for (int d = 0; d < L::D; ++d) r.f[d] = a.f[d] - b.f[d];
 #pragma unroll
-  for (int q = 0; q < N; ++q) r.s[q] = a.s[q] - b.s[q];
+  for (int q = 0; q < L::PAIRS; ++q) r.s[q] = a.s[q] - b.s[q];
   return r;
 }
 // DCSFD.__mul__: e12 = ((a.e12 * b.v + a.e1 * b.e2) + a.e2 * b.e1) + a.v * b.e12
-template <class L, int F, int N>
-__device__ __forceinline__ Lanes<L, F, N> operator*(const Lanes<L, F, N>& a, const Lanes<L, F, N>& b) {
-  Lanes<L, F, N> r;
+template <class L>
+__device__ __forceinline__ Lanes<L> operator*(const Lanes<L>& a, const Lanes<L>& b) {
+  Lanes<L> r;
   r.v = a.v * b.v;
 #pragma unroll
   for (int d = 0; d < L::D; ++d) r.f[d] = a.f[d] * b.v + a.v * b.f[d];
-  for_pairs<N>([&](auto q) {
-    constexpr int Q = decltype(q)::value, j = L::j(F + Q), k = L::k(F + Q);
+  for_pairs<L::PAIRS>([&](auto q) {
+    constexpr int Q = decltype(q)::value, j = L::j(Q), k = L::k(Q);
     r.s[Q] = ((a.s[Q] * b.v + a.f[j] * b.f[k]) + a.f[k] * b.f[j]) + a.v * b.s[Q];
   });
   return r;
 }
 // DCSFD.__truediv__: q = 1 / o.v first; the quotient's own e1 and e2 lanes enter its e12
-template <class L, int F, int N>
-__device__ __forceinline__ Lanes<L, F, N> div(const Lanes<L, F, N>& a, const Lanes<L, F, N>& o) {
-  Lanes<L, F, N> r;
+template <class L>
+__device__ __forceinline__ Lanes<L> div(const Lanes<L>& a, const Lanes<L>& o) {
+  Lanes<L> r;
   const float q = 1.0f / o.v;
   r.v = a.v * q;
 #pragma unroll
   for (int d = 0; d < L::D; ++d) r.f[d] = (a.f[d] - r.v * o.f[d]) * q;
-  for_pairs<N>([&](auto p) {
-    constexpr int P = decltype(p)::value, j = L::j(F + P), k = L::k(F + P);
-    r.s[P] = (((a.s[P] - r.f[j] * o.f[k]) - r.f[k] * o.f[j]) - r.v * o.s[P]) * q;
+  for_pairs<L::PAIRS>([&](auto p) {
+    constexpr int Q = decltype(p)::value, j = L::j(Q), k = L::k(Q);
+    r.s[Q] = (((a.s[Q] - r.f[j] * o.f[k]) - r.f[k] * o.f[j]) - r.v * o.s[Q]) * q;
   });
   return r;
 }
 __device__ __forceinline__ float div(float a, float o) { return a * (1.0f / o); }
 // dc.sqrt through _unary: d1 = 0.5 / fv, d2 = -0.25 / (fv * v), each PyTorch's reciprocal(x) * c
-template <class L, int F, int N>
-__device__ __forceinline__ Lanes<L, F, N> hsqrt(const Lanes<L, F, N>& x) {
-  Lanes<L, F, N> r;
+template <class L>
+__device__ __forceinline__ Lanes<L> hsqrt(const Lanes<L>& x) {
+  Lanes<L> r;
   const float fv = sqrtf(x.v);
   const float d1 = (1.0f / fv) * 0.5f;
   const float d2 = (1.0f / (fv * x.v)) * -0.25f;
   r.v = fv;
 #pragma unroll
   for (int d = 0; d < L::D; ++d) r.f[d] = d1 * x.f[d];
-  for_pairs<N>([&](auto q) {
-    constexpr int Q = decltype(q)::value, j = L::j(F + Q), k = L::k(F + Q);
+  for_pairs<L::PAIRS>([&](auto q) {
+    constexpr int Q = decltype(q)::value, j = L::j(Q), k = L::k(Q);
     r.s[Q] = d1 * x.s[Q] + (d2 * x.f[j]) * x.f[k];
   });
   return r;
@@ -258,31 +247,31 @@ struct Num<float> {
   __device__ __forceinline__ static float lift(float c) { return c; }
   __device__ __forceinline__ static float pose(const float* p, int e) { return p[e]; }
 };
-template <class L, int F, int N>
-struct Num<Lanes<L, F, N>> {
-  __device__ __forceinline__ static Lanes<L, F, N> lift(float c) {
-    Lanes<L, F, N> r;
+template <class L>
+struct Num<Lanes<L>> {
+  __device__ __forceinline__ static Lanes<L> lift(float c) {
+    Lanes<L> r;
     r.v = c;
 #pragma unroll
     for (int d = 0; d < L::D; ++d) r.f[d] = 0.0f;
 #pragma unroll
-    for (int q = 0; q < N; ++q) r.s[q] = 0.0f;
+    for (int q = 0; q < L::PAIRS; ++q) r.s[q] = 0.0f;
     return r;
   }
   // entry e of R (0..8) and t (9..11): pose 0's v lane, the directions' lanes, the pairs' e12 lanes
-  __device__ __forceinline__ static Lanes<L, F, N> pose(const float* p, int e) {
-    Lanes<L, F, N> r;
+  __device__ __forceinline__ static Lanes<L> pose(const float* p, int e) {
+    Lanes<L> r;
     r.v = p[e];
 #pragma unroll
     for (int d = 0; d < L::D; ++d) r.f[d] = p[L::f_at(d) + e];
 #pragma unroll
-    for (int q = 0; q < N; ++q) r.s[q] = p[L::s_at(F + q) + e];
+    for (int q = 0; q < L::PAIRS; ++q) r.s[q] = p[L::s_at(q) + e];
     return r;
   }
 };
 __device__ __forceinline__ float val(float x) { return x; }
-template <class L, int F, int N>
-__device__ __forceinline__ float val(const Lanes<L, F, N>& x) {
+template <class L>
+__device__ __forceinline__ float val(const Lanes<L>& x) {
   return x.v;
 }
 
@@ -345,58 +334,34 @@ __device__ __forceinline__ T voxel_loss(const float* pose, float gt, int idx, co
   return error * error;
 }
 
-// slot S's jets at a band voxel where the mask holds, added to its sums' columns: the gradient entries (slot 0)
-// and its pairs' second derivatives
-template <class L, int S>
-__device__ __forceinline__ void add_slot(const float* pose, float gt, int idx, const float* depth, const Geom& g,
-                                         double (*acc)[LOSS_VOXELS], int c) {
-  constexpr int F = L::first(S), N = L::count(S);
-  if constexpr (N > 0) {
-    bool mask;
-    const Lanes<L, F, N> loss = voxel_loss<Lanes<L, F, N>>(pose, gt, idx, depth, g, mask);
-    if constexpr (S == 0) {
+// the jets at a band voxel where the mask holds, added to the columns of the gradient entries and the pairs'
+// second derivatives
+template <class L>
+__device__ __forceinline__ void add_lanes(const float* pose, float gt, int idx, const float* depth, const Geom& g,
+                                          double (*acc)[LOSS_THREADS], int c) {
+  bool mask;
+  const Lanes<L> loss = voxel_loss<Lanes<L>>(pose, gt, idx, depth, g, mask);
 #pragma unroll
-      for (int d = 0; d < L::GRADS; ++d) acc[1 + d][c] += (double)loss.f[d];
-    }
+  for (int d = 0; d < L::GRADS; ++d) acc[1 + d][c] += (double)loss.f[d];
 #pragma unroll
-    for (int q = 0; q < N; ++q) acc[1 + L::GRADS + F + q][c] += (double)loss.s[q];
-  }
-}
-template <class L, int S = 0>
-__device__ __forceinline__ void add_lanes(int slot, const float* pose, float gt, int idx, const float* depth,
-                                          const Geom& g, double (*acc)[LOSS_VOXELS], int c) {
-  if constexpr (S < LOSS_SLOTS) {
-    if (slot == S)
-      add_slot<L, S>(pose, gt, idx, depth, g, acc, c);
-    else
-      add_lanes<L, S + 1>(slot, pose, gt, idx, depth, g, acc, c);
-  }
+  for (int q = 0; q < L::PAIRS; ++q) acc[1 + L::GRADS + q][c] += (double)loss.s[q];
 }
 
-// pair `pair`'s four loss lanes at a voxel that passes gt's test: its slot's jets (one slot for the whole grid)
-template <class L, int S = 0>
+// pair `pair`'s four loss lanes at a voxel that passes gt's test
+template <class L>
 __device__ __forceinline__ void field_lanes(int pair, const float* pose, float gt, int idx, const float* depth,
                                             const Geom& g, float out[4], bool& mask) {
-  if constexpr (S < LOSS_SLOTS) {
-    constexpr int F = L::first(S), N = L::count(S);
-    if constexpr (N > 0) {
-      if (L::slot_of(pair) == S) {
-        const Lanes<L, F, N> loss = voxel_loss<Lanes<L, F, N>>(pose, gt, idx, depth, g, mask);
-        const int q = pair - F, j = L::j(pair), k = L::k(pair);
-        out[0] = loss.v;
+  const Lanes<L> loss = voxel_loss<Lanes<L>>(pose, gt, idx, depth, g, mask);
+  const int j = L::j(pair), k = L::k(pair);
+  out[0] = loss.v;
 #pragma unroll
-        for (int d = 0; d < L::D; ++d) {
-          if (d == j) out[1] = loss.f[d];
-          if (d == k) out[2] = loss.f[d];
-        }
-#pragma unroll
-        for (int p = 0; p < N; ++p)
-          if (p == q) out[3] = loss.s[p];
-        return;
-      }
-    }
-    field_lanes<L, S + 1>(pair, pose, gt, idx, depth, g, out, mask);
+  for (int d = 0; d < L::D; ++d) {
+    if (d == j) out[1] = loss.f[d];
+    if (d == k) out[2] = loss.f[d];
   }
+#pragma unroll
+  for (int q = 0; q < L::PAIRS; ++q)
+    if (q == pair) out[3] = loss.s[q];
 }
 
 // The precondition of the shared lanes in layout L: pair p's v lanes are pose 0's and its e1 and e2 lanes are
@@ -422,32 +387,27 @@ __global__ void __launch_bounds__(LOSS_THREADS)
                      unsigned int* ticket, float* __restrict__ sums, int* __restrict__ count_out) {
   using L = Layout<P>;
   __shared__ float pose_s[MAX_PAIRS * POSE_FLOATS];
-  __shared__ double acc[MAX_SUMS + 1][LOSS_VOXELS];  // a column a band voxel position; the last row counts
+  __shared__ double acc[MAX_SUMS + 1][LOSS_THREADS];  // a column a thread; the last row counts the voxels
   __shared__ double group_sums[GROUPS][32];
   __shared__ bool is_last;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int slot = warp % LOSS_SLOTS, c = (warp / LOSS_SLOTS) * 32 + (tid & 31);
+  const int tid = threadIdx.x;
   constexpr int nq = MODE == MODE_REDUCE ? 1 + L::GRADS + L::PAIRS : 1;  // sums a launch writes
 
   const int n_pose = (MODE == MODE_REDUCE ? L::POSES : 1) * POSE_FLOATS;
   for (int k = tid; k < n_pose; k += LOSS_THREADS) pose_s[k] = poses[k];
-  for (int k = tid; k < (MAX_SUMS + 1) * LOSS_VOXELS; k += LOSS_THREADS) (&acc[0][0])[k] = 0.0;
+  for (int q = 0; q <= MAX_SUMS; ++q) acc[q][tid] = 0.0;
   __syncthreads();
 
   const int n = __ldg(band_count);
-  if (MODE == MODE_REDUCE || slot == 0) {
-    for (int i = blockIdx.x * LOSS_VOXELS + c; i < n; i += LOSS_BLOCKS * LOSS_VOXELS) {
-      const int idx = __ldg(&band[i]);
-      const float gt = __ldg(&value[idx]);
-      bool mask;
-      const float loss = voxel_loss<float>(pose_s, gt, idx, depth, g, mask);
-      if (!mask) continue;
-      if (slot == 0) {
-        acc[0][c] += (double)loss;
-        acc[MAX_SUMS][c] += 1.0;
-      }
-      if constexpr (MODE == MODE_REDUCE) add_lanes<L>(slot, pose_s, gt, idx, depth, g, acc, c);
-    }
+  for (int i = blockIdx.x * LOSS_THREADS + tid; i < n; i += LOSS_BLOCKS * LOSS_THREADS) {
+    const int idx = __ldg(&band[i]);
+    const float gt = __ldg(&value[idx]);
+    bool mask;
+    const float loss = voxel_loss<float>(pose_s, gt, idx, depth, g, mask);
+    if (!mask) continue;
+    acc[0][tid] += (double)loss;
+    acc[MAX_SUMS][tid] += 1.0;
+    if constexpr (MODE == MODE_REDUCE) add_lanes<L>(pose_s, gt, idx, depth, g, acc, tid);
   }
 
   // the block: thread q adds sum q's columns in order (q = nq: the count)
@@ -455,7 +415,7 @@ __global__ void __launch_bounds__(LOSS_THREADS)
   if (tid <= nq) {
     const int row = tid == nq ? MAX_SUMS : tid;
     double x = 0.0;
-    for (int t = 0; t < LOSS_VOXELS; ++t) x += acc[row][t];
+    for (int t = 0; t < LOSS_THREADS; ++t) x += acc[row][t];
     __stcg(&partials[(size_t)blockIdx.x * (nq + 1) + tid], x);
     __threadfence();
   }
@@ -467,8 +427,8 @@ __global__ void __launch_bounds__(LOSS_THREADS)
   const bool shared_ok = MODE != MODE_REDUCE || lanes_shared<L>(pose_s);
 
   // the last block: thread (group, q) adds blocks group, group + 4, ... in order, then the groups in order
-  for (int e = tid; e < GROUPS * 32; e += LOSS_THREADS) {
-    const int q = e & 31, group = e >> 5;
+  if (tid < GROUPS * 32) {
+    const int q = tid & 31, group = tid >> 5;
     double x = 0.0;
     if (q <= nq)
       for (int b = group; b < (int)gridDim.x; b += GROUPS) x += __ldcg(&partials[(size_t)b * (nq + 1) + q]);

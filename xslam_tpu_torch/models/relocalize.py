@@ -27,7 +27,7 @@ accept.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,7 +37,7 @@ from ..csfd.double import DCSFD
 from ..geometry import se3
 from ..geometry.intrinsics import Intrinsics
 from ..ops.fusion import VolumeConfig
-from ..ops.tsdf_loss import make_band, pack_pose, tsdf_loss_pairs
+from ..ops.tsdf_loss import SEED_J, SEED_K, make_band, pack_pose, tsdf_loss_pairs
 
 
 class RelocResult(NamedTuple):
@@ -46,21 +46,8 @@ class RelocResult(NamedTuple):
     count: torch.Tensor
 
 
-def _seed_pairs() -> Tuple[np.ndarray, np.ndarray]:
-    """(21, 6) direction pairs: 6 diagonal then 15 upper-triangle cross."""
-    d1, d2 = [], []
-    eye = np.eye(6, dtype=np.float32)
-    for k in range(6):
-        d1.append(eye[k])
-        d2.append(eye[k])
-    for j in range(6):
-        for k in range(j + 1, 6):
-            d1.append(eye[j])
-            d2.append(eye[k])
-    return np.stack(d1), np.stack(d2)
-
-
-_D1, _D2 = _seed_pairs()
+# (21, 6) direction pairs: 6 diagonal then 15 upper-triangle cross (ops/tsdf_loss.py::SEED_J, SEED_K)
+_D1, _D2 = np.eye(6, dtype=np.float32)[SEED_J], np.eye(6, dtype=np.float32)[SEED_K]
 _H_INDEX = np.zeros((6, 6), np.int64)  # which pair's e12 sum each entry of H is (:78-86)
 _H_INDEX[np.arange(6), np.arange(6)] = np.arange(6)
 _H_INDEX[np.triu_indices(6, 1)] = np.arange(6, 21)

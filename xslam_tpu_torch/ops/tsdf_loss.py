@@ -49,16 +49,15 @@ from . import kernels
 from .fusion import VolumeConfig
 from .sampling import gather2d, to_index
 
-# csrc/tsdf_loss.cu: warps a band voxel, band voxels a block holds at once, blocks of a REDUCE or VALUE launch,
-# groups of blocks the last block adds side by side, most seed pairs, floats of a packed pose, voxels a warp of
-# the band pass counts and lists, warps of its blocks
-LOSS_SLOTS = 3
-LOSS_VOXELS = 64
-LOSS_BLOCKS = 528
+# csrc/tsdf_loss.cu: threads (band voxels) a block, blocks of a REDUCE or VALUE launch, groups of blocks the last
+# block adds side by side, most seed pairs, floats of a packed pose, voxels a warp of the band pass counts and
+# lists, warps of its blocks
+LOSS_THREADS = 128
+LOSS_BLOCKS = 264
 LOSS_GROUPS = 4
 MAX_PAIRS = 21
 POSE_FLOATS = 48
-BAND_SEGMENT = 2048
+BAND_SEGMENT = 1024
 BAND_WARPS = 8
 BAND_TILE = BAND_WARPS * BAND_SEGMENT
 MODES = {"reduce": 0, "value": 1}
@@ -247,14 +246,9 @@ class _Lanes:
         o = _shared.lift(o)
         return _Lanes(self.v + o.v, self.f + o.f, self.s + o.s, self._pairs(o))
 
-    __radd__ = __add__
-
     def __sub__(self, o):
         o = _shared.lift(o)
         return _Lanes(self.v - o.v, self.f - o.f, self.s - o.s, self._pairs(o))
-
-    def __rsub__(self, o):
-        return _shared.lift(o).__sub__(self)
 
     def __mul__(self, o):
         o = _shared.lift(o)
@@ -262,8 +256,6 @@ class _Lanes:
         e1, e2 = _pick(self.f, jk, 0), _pick(self.f, jk, 1)
         s = self.s * o.v + e1 * _pick(o.f, jk, 1) + e2 * _pick(o.f, jk, 0) + self.v * o.s
         return _Lanes(self.v * o.v, self.f * o.v + self.v * o.f, s, jk)
-
-    __rmul__ = __mul__
 
     def __truediv__(self, o):
         o = _shared.lift(o)

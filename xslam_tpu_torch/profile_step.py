@@ -43,7 +43,8 @@ from .models.kinfu import XSlamEngine
 
 STAGES = ("preprocess", "icp", "fusion", "raycast")
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  # the CUDA runtime's calls
-# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a: its two kernels): each a
+# the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a, B12's band pass: two kernels;
+# B12 and its band pass run in a frame only where the recovering engine relocalizes): each a
 # pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
 # window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation
 HAND_KERNELS = {
@@ -56,6 +57,7 @@ HAND_KERNELS = {
     "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
     "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
     "march_skip": "march_skip_kernel",
+    "tsdf_loss": "tsdf_loss_kernel", "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel"),
 }
 
 
