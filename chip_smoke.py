@@ -258,6 +258,7 @@ KERNELS = {
     "skip_field": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/bricks.py:139,151", "main path, bench refresh"),
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
     "extract_points": ("xslam_tpu_torch/csrc/extract.cu", "xslam_tpu/ops/extract.py:59", "main path, ICL realistic"),
+    # B12's count stands for tsdf_loss_kernel (REDUCE, VALUE) and tsdf_field_kernel (FIELD, on no path)
     "tsdf_loss": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:65", "relocalize path"),
     "tsdf_band": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:99", "relocalize path"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
@@ -1791,7 +1792,7 @@ def phase_tsdf_loss(ctx):
     bits; one pose (a cross pair's, as ``tsdf_loss_hessian`` takes it)
     within an ulp of the plain version; poses whose lanes are not shared
     (an e1 entry of a cross pair moved by an ulp) give NaN sums and a count of
-    -1. The band pass, REDUCE and VALUE timed warm and cold beside their
+    -1, and in FIELD NaN lanes and a false mask. The band pass, REDUCE and VALUE timed warm and cold beside their
     bounds and the plain versions."""
     from xslam_tpu_torch.geometry import se3
     from xslam_tpu_torch.models.relocalize import seeded_poses
@@ -1835,6 +1836,7 @@ def phase_tsdf_loss(ctx):
         one, one_count = tl.tsdf_loss_pairs(value, depth_m, poses[12:13].contiguous(), intr, eng, band=band)
         p_one, p_one_count = tl.tsdf_loss_hessian_plain(value, depth_m, poses[12:13].contiguous(), intr, eng)
         bad, bad_count = tl.tsdf_loss_pairs(value, depth_m, unshared, intr, eng, band=band)
+        bad_field, bad_mask = tl.tsdf_loss_field(value, depth_m, unshared, intr, eng, pair=10)
         torch.cuda.synchronize()
         ulp = max_ulp(sums, p_sums)
         one_ulp = max_ulp(one, p_one)
@@ -1843,17 +1845,21 @@ def phase_tsdf_loss(ctx):
         value_same = _bits_on(v_sums[:1], sums[:1], torch.ones(1, dtype=torch.bool, device=dev)) and \
             int(v_count) == int(count)
         refused = bool(torch.isnan(bad).all()) and int(bad_count) == -1
+        field_refused = all(bool(torch.isnan(lane).all()) for lane in bad_field) and not bool(bad_mask.any())
         err = max_abs(sums, p_sums)
         emit("B12 tsdf_loss", case=case, shape=list(value.shape), band_voxels=n_band, band_equal=band_equal,
              count=int(count), plain_count=int(p_count), sums_max_ulp=ulp, sums_max_abs_err=err, loss=float(sums[0]),
              value_loss_count_equal=value_same, second_launch_bit_equal=repeat, one_pose_max_ulp=one_ulp,
-             one_pose_count_equal=int(one_count) == int(p_one_count), unshared_lanes_refused=refused, field=field)
+             one_pose_count_equal=int(one_count) == int(p_one_count), unshared_lanes_refused=refused,
+             unshared_field_refused=field_refused, field=field)
         check(band_equal, f"B12's band ({case}): {int(band.count)} voxels, plain {n_band}, or another order")
         check(int(count) == int(p_count) > least, f"B12 ({case}): count {int(count)}, plain {int(p_count)}")
         check(ulp <= 1 and one_ulp <= 1 and int(one_count) == int(p_one_count),
               f"B12 ({case}): sums {ulp} float32 steps from the plain version's, one pose's {one_ulp}")
         check(value_same and repeat, f"B12 ({case}): VALUE equal {value_same}, launches again equal {repeat}")
         check(refused, f"B12 ({case}): poses whose lanes are not shared gave {bad.tolist()}, {int(bad_count)}")
+        check(field_refused, f"B12 FIELD ({case}): poses whose lanes are not shared gave lanes that are not all NaN "
+                             f"or a mask that is not all false")
         if table is None:
             X, Y, Z = value.shape
             H, W = depth_m.shape
@@ -1904,7 +1910,7 @@ def phase_relocalize_path(ctx):
     Newton iterations each. Each loss history must descend (JAX's own test
     condition), B12 must launch ``2 * iters + 2`` times a call and its band
     pass once. Then holdout 0 with 4 iterations through B12 and through its
-    plain version (over ``band_plain``), both on the card from the same
+    plain version (which lists its own voxels), both on the card from the same
     inputs: the same accept decisions and ``xi`` within 1e-5. The translation errors are printed, not held to a
     number: the basin at 3 cm voxels and 0.10 m of perturbation has no
     measured bound. Last, B12's band pass, REDUCE and VALUE timed on the
@@ -1920,7 +1926,7 @@ def phase_relocalize_path(ctx):
     from xslam_tpu_torch.io.dataset import make_dataset
     from xslam_tpu_torch.models.relocalize import newton, relocalize, seeded_poses
     from xslam_tpu_torch.ops import kernels
-    from xslam_tpu_torch.ops.tsdf_loss import band_plain, make_band, tsdf_loss_hessian_plain, tsdf_loss_pairs
+    from xslam_tpu_torch.ops.tsdf_loss import make_band, tsdf_loss_hessian_plain, tsdf_loss_pairs
 
     path = os.path.join(ROOT, "configs", "synthetic.yaml")
     stdout = io.StringIO()
@@ -1947,7 +1953,7 @@ def phase_relocalize_path(ctx):
     _, xi0 = relocalize_demo.holdout_start(config, ds, RELOC_FRAMES, np.random.default_rng(0), 0.10)
     k_out, k_acc, _ = newton(vol.value, dm, xi0, config.intrinsics, vol_cfg, iters=RELOC_CHECK_ITERS)
     p_out, p_acc, _ = newton(vol.value, dm, xi0, config.intrinsics, vol_cfg, iters=RELOC_CHECK_ITERS,
-                             pairs=tsdf_loss_hessian_plain, band=band_plain(vol.value))
+                             pairs=tsdf_loss_hessian_plain)
     xi_gap = float((k_out.xi - p_out.xi).abs().max())
     same_accepts = bool(torch.equal(k_acc, p_acc))
     emit("relocalize path", frames=RELOC_FRAMES, holdouts=len(holdouts), iters=RELOC_ITERS, run_s=run_s,

@@ -12,8 +12,10 @@ volume at 0.12 m fused from 5 oracle-pose frames, frame 0's depth):
 - the shared-lane arithmetic (``_shared_lanes_plain``) against
   ``_field_plain``'s four lanes, bit for bit on the mask, for every seed pair
   and for one pose;
-- ``newton`` over a band against ``newton`` over the volume: the same
-  accepts and ``xi`` bit for bit, and the JAX package's accepts.
+- ``newton`` over its band against ``newton`` through the plain version,
+  which lists its own voxels: the same accepts and ``xi`` bit for bit, and
+  the JAX package's accepts;
+- a band that is not of the value plane refused on the CPU as on the card.
 """
 
 import numpy as np
@@ -158,14 +160,15 @@ def test_shared_lanes_of_one_pose(scene):
 
 def test_shared_lane_sums_are_the_plain_sums(scene, shared):
     """The 28 sums of the shared lanes over the band, in float64 and rounded
-    once, equal the plain version's (which runs each pair's four lanes over
-    the volume's slabs), and with its band the plain version gives the same."""
+    once, equal the plain version's (which lists the voxels that pass gt's
+    test itself and runs each pair's four lanes over them), and the wrapper
+    given the band gives the same on the CPU."""
     s = scene
     poses, band, loss, mask = shared
     msum = lambda a: torch.where(mask, a, 0.0).to(torch.float64).sum(-1)  # noqa: E731
     mine = torch.cat([msum(loss.v)[None], msum(loss.f), msum(loss.s)]).to(torch.float32)
     plain, count = ttl.tsdf_loss_hessian_plain(s["value"], s["depth"], poses, INTR, s["cfg"])
-    banded, b_count = ttl.tsdf_loss_hessian_plain(s["value"], s["depth"], poses, INTR, s["cfg"], band=band)
+    banded, b_count = ttl.tsdf_loss_pairs(s["value"], s["depth"], poses, INTR, s["cfg"], band=band)
     assert int(count) == int(b_count) == int(mask.sum())
     assert torch.equal(plain, mine) and torch.equal(banded, plain)
     value, v_count = ttl.tsdf_loss_pairs(s["value"], s["depth"], poses, INTR, s["cfg"], mode="value", band=band)
@@ -173,9 +176,10 @@ def test_shared_lane_sums_are_the_plain_sums(scene, shared):
 
 
 def test_newton_over_a_band_is_newton_over_the_volume(scene, jax_lgh):
-    """``newton`` makes its band once and passes it to every evaluation; with
-    the plain version walking the volume instead (a ``pairs`` that drops the
-    band) it takes the same accepts to the same ``xi``, bit for bit, and the
+    """``newton`` makes its band once and passes it to every evaluation of
+    B12's wrapper; through the plain version (``pairs``, which lists its own
+    voxels from the volume and takes no band, as the card's comparison runs
+    it) it takes the same accepts to the same ``xi``, bit for bit, and the
     JAX package's accepts (``tests/test_torch_relocalize.py`` holds the
     loop's numbers to JAX's)."""
     s = scene
@@ -184,20 +188,30 @@ def test_newton_over_a_band_is_newton_over_the_volume(scene, jax_lgh):
     xi0 = (xi_true + np.concatenate([0.04 * rng.normal(size=3), 0.01 * rng.normal(size=3)])).astype(np.float32)
     iters = 4
 
-    def volume_walk(*args, band=None, **kwargs):
-        return ttl.tsdf_loss_hessian_plain(*args, **kwargs)
-
     band_out, band_acc, band_means = trel.newton(s["value"], s["depth"], xi0, INTR, s["cfg"], iters=iters)
     vol_out, vol_acc, vol_means = trel.newton(s["value"], s["depth"], xi0, INTR, s["cfg"], iters=iters,
-                                              pairs=volume_walk)
-    given = trel.newton(s["value"], s["depth"], xi0, INTR, s["cfg"], iters=iters,
-                        band=ttl.band_plain(s["value"]))[0]
+                                              pairs=ttl.tsdf_loss_hessian_plain)
     assert torch.equal(band_acc, vol_acc) and band_acc.any()
-    assert torch.equal(band_out.xi, vol_out.xi) and torch.equal(given.xi, band_out.xi)
+    assert torch.equal(band_out.xi, vol_out.xi)
     assert torch.equal(band_out.loss_history, vol_out.loss_history) and int(band_out.count) == int(vol_out.count)
     assert all(torch.equal(a, b) for a, b in zip(band_means, vol_means))
     steps = _jax_newton(jax_lgh, xi0, iters)
     assert [bool(a) for a in band_acc] == [a for a, _, _ in steps]
+
+
+@pytest.mark.parametrize("bad", ["length", "dtype", "count"])
+def test_a_band_of_another_plane_is_refused(scene, shared, bad):
+    """``tsdf_loss_pairs`` holds a given band to ``make_band``'s layout for
+    this value plane (its length the volume's voxels, int32 indices, a 0-d
+    count) on CPU tensors as on CUDA ones, though the plain version lists its
+    own band."""
+    s = scene
+    poses, band, _, _ = shared
+    index, count = band
+    wrong = {"length": ttl.Band(index[:-1], count), "dtype": ttl.Band(index.long(), count),
+             "count": ttl.Band(index, count[None])}[bad]
+    with pytest.raises(ValueError, match="make_band of this value plane"):
+        ttl.tsdf_loss_pairs(s["value"], s["depth"], poses, INTR, s["cfg"], band=wrong)
 
 
 def test_constants_follow_the_kernel_source():

@@ -29,8 +29,9 @@
 //   e1 = f[j], e2 = f[k]). Two pose layouts (Layout<P>): the 21 seed pairs of
 //   models/relocalize.py::seeded_poses (direction d's lanes are pair d's e1
 //   lanes; pair (j, k)'s v lanes and its e1 and e2 lanes must be those of
-//   pair 0 and of pairs j and k bit for bit, which the launch checks: where
-//   they are not, it writes NaN sums and a count of -1), and a single pose
+//   pair 0 and of pairs j and k bit for bit, which every launch checks: where
+//   they are not, REDUCE writes NaN sums and a count of -1 and FIELD NaN lanes
+//   and a false mask everywhere), and a single pose
 //   (its e1 and e2 lanes are two directions). ops/tsdf_loss.py::
 //   _shared_lanes_plain is this arithmetic in plain PyTorch.
 //
@@ -52,7 +53,8 @@
 //     sums[0] and count;
 //   - FIELD (xs_tsdf_field), over the whole volume: pair `field_pair`'s four
 //     loss lanes (v, f[j], f[k], s) and its mask per voxel (zeros and false
-//     where gt fails its test).
+//     where gt fails its test; NaN and false everywhere where the lanes are
+//     not shared).
 //
 // What bounds it on the H100. Listing the band reads the value plane once
 // (4 B a voxel, 67 MB at 256^3, 0.020 ms at 3.35 TB/s). A REDUCE launch over
@@ -455,12 +457,14 @@ __global__ void __launch_bounds__(FIELD_THREADS)
   __shared__ float pose_s[MAX_PAIRS * POSE_FLOATS];
   for (int k = threadIdx.x; k < L::POSES * POSE_FLOATS; k += FIELD_THREADS) pose_s[k] = poses[k];
   __syncthreads();
+  const bool shared_ok = lanes_shared<L>(pose_s);
+  const float fill = shared_ok ? 0.0f : __int_as_float(0x7fc00000);
   const int n = g.X * g.Y * g.Z;
   for (int idx = blockIdx.x * FIELD_THREADS + threadIdx.x; idx < n; idx += gridDim.x * FIELD_THREADS) {
     const float gt = __ldg(&value[idx]);
-    float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float out[4] = {fill, fill, fill, fill};
     bool mask = false;
-    if (in_band(gt)) field_lanes<L>(field_pair, pose_s, gt, idx, depth, g, out, mask);
+    if (shared_ok && in_band(gt)) field_lanes<L>(field_pair, pose_s, gt, idx, depth, g, out, mask);
 #pragma unroll
     for (int lane = 0; lane < 4; ++lane) field[(size_t)lane * n + idx] = out[lane];
     field_mask[idx] = mask ? 1 : 0;
@@ -616,7 +620,7 @@ extern "C" int xs_tsdf_loss(const void* value, const void* depth, const void* po
 }
 
 // FIELD: pair field_pair's (4, X, Y, Z) float32 lanes in field and its (X, Y, Z) mask bytes in field_mask, over
-// the whole volume; P = 21 (the seed pairs) or P = 1.
+// the whole volume; P = 21 (the seed pairs, whose lanes must be shared: else NaN lanes and a false mask) or P = 1.
 extern "C" int xs_tsdf_field(const void* value, const void* depth, const void* poses, int P, int field_pair,
                              void* field, void* field_mask, int X, int Y, int Z, int H, int W, int x_offset, float vs,
                              float fx, float fy, float cx, float cy, float trunc, float inv_trunc, void* stream) {

@@ -27,6 +27,7 @@ accept.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -95,10 +96,10 @@ def loss_grad_hessian(
     return sums[0], sums[1:7], _hessian(sums[7:28]), count
 
 
-def _value_count(gt_value, depth_m, xi, intr, cfg, pairs=tsdf_loss_pairs, band=None):
+def _value_count(gt_value, depth_m, xi, intr, cfg, pairs=tsdf_loss_pairs):
     """The loss and count of :func:`loss_grad_hessian` at ``xi``, bit for
     bit, from B12's value-only launch on the same packed poses."""
-    sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg, mode="value", band=band)
+    sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg, mode="value")
     return sums[0], count
 
 
@@ -123,31 +124,31 @@ def relocalize(
 
 
 def newton(gt_value, depth_m, xi0, intr: Intrinsics, cfg: VolumeConfig, iters: int = 10, damping: float = 1e-4,
-           pairs=tsdf_loss_pairs, band=None):
+           pairs=None):
     """:func:`relocalize`'s loop with what it decided: ``(result, accepts,
     (means, means_new))``, each a device tensor of one entry an iteration.
-    ``pairs`` evaluates the packed poses: B12's wrapper, or on the card its
-    plain version (``tsdf_loss_hessian_plain``) to hold the two loops to one
-    another. ``band``: the voxels of ``gt_value`` that pass gt's test
-    (``make_band``, listed here once where None; ``band_plain`` for the plain
-    loop), passed to every evaluation of the call: ``gt_value`` does not
-    change inside it."""
+    ``pairs(gt_value, depth_m, poses, intr, cfg, mode=...)`` evaluates the
+    packed poses. Where None it is B12's wrapper over the band of
+    ``gt_value`` (``make_band``, listed here once and passed to every
+    evaluation of the call: ``gt_value`` does not change inside it). On the
+    card, B12's plain version (``tsdf_loss_hessian_plain``, which lists its
+    own voxels) holds the two loops to one another."""
     dev = gt_value.device
-    if band is None:
-        band = make_band(gt_value)
+    if pairs is None:
+        pairs = partial(tsdf_loss_pairs, band=make_band(gt_value))
     xi = torch.as_tensor(xi0, dtype=torch.float32, device=dev)
-    _, count0 = _value_count(gt_value, depth_m, xi, intr, cfg, pairs, band)
+    _, count0 = _value_count(gt_value, depth_m, xi, intr, cfg, pairs)
     floor = (count0.to(torch.float32) * 0.7).to(torch.int32)  # astype: truncated toward zero
     lam = torch.tensor(damping, dtype=torch.float32, device=dev)
     eye = torch.eye(6, dtype=torch.float32, device=dev)
     means, means_new, accepts = [], [], []
     for _ in range(iters):
-        sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg, band=band)
+        sums, count = pairs(gt_value, depth_m, seeded_poses(xi), intr, cfg)
         g, H = sums[1:7], _hessian(sums[7:28])
         mean = sums[0] / torch.clamp(count, min=1)
         delta = -torch.linalg.solve_ex(H + lam * eye, g)[0]
         xi_new = xi + delta
-        loss_new, count_new = _value_count(gt_value, depth_m, xi_new, intr, cfg, pairs, band)
+        loss_new, count_new = _value_count(gt_value, depth_m, xi_new, intr, cfg, pairs)
         mean_new = loss_new / torch.clamp(count_new, min=1)
         # accept on mean-loss descent with a coverage guard: the raw summed loss rewards shrinking the
         # valid-voxel set, so a step may not sacrifice coverage
@@ -163,7 +164,7 @@ def newton(gt_value, depth_m, xi0, intr: Intrinsics, cfg: VolumeConfig, iters: i
     v2c = se3.inverse_real(se3.exp_real(xi))
     z = torch.zeros((3, 3), dtype=torch.float32, device=dev)
     poses = pack_pose(DCSFD(v2c[:3, :3], z, z, z), DCSFD(v2c[:3, 3], z[0], z[0], z[0]))
-    loss_final, count_final = pairs(gt_value, depth_m, poses, intr, cfg, mode="value", band=band)
+    loss_final, count_final = pairs(gt_value, depth_m, poses, intr, cfg, mode="value")
     mean_final = loss_final[0] / torch.clamp(count_final, min=1)
     result = RelocResult(xi=xi, loss_history=torch.stack(means + [mean_final]), count=count_final)
     stack = (lambda xs: torch.stack(xs)) if iters else (lambda xs: torch.zeros(0, device=dev))

@@ -25,10 +25,11 @@ the band once and passes it to every call; the wrappers make their own
 otherwise. The kernel computes a voxel's value lane and its six
 first-derivative lanes once and each seed pair's second-derivative lane
 from them (:func:`_shared_lanes_plain` is that arithmetic in plain
-PyTorch). The plain versions take X-slabs of the volume or chunks of the
-band, gather the voxels that pass ``gt``'s test, loop over the pairs, so
-that they fit on the card at 256^3, and sum each masked float32 term in
-float64 with one rounding to float32 at the end; the kernel adds the same
+PyTorch). The plain versions list the voxels that pass ``gt``'s test
+themselves (:func:`band_plain`'s order; never a band they are given), take
+them in chunks and loop over the pairs, so that they fit on the card at
+256^3, and sum each masked float32 term in float64 with one rounding to
+float32 at the end; the kernel adds the same
 terms in double in an order fixed by the band's length (its grid is fixed,
 :data:`LOSS_BLOCKS`), so the sums agree within a float32 ulp and the count
 exactly.
@@ -61,7 +62,7 @@ BAND_SEGMENT = 1024
 BAND_WARPS = 8
 BAND_TILE = BAND_WARPS * BAND_SEGMENT
 MODES = {"reduce": 0, "value": 1}
-SLAB_VOXELS = 1 << 21  # the plain version's X-slab or band chunk: at most this many voxels at a time
+CHUNK_VOXELS = 1 << 21  # the plain version's chunk of the band: at most this many voxels at a time
 
 
 def _seed_pairs():
@@ -162,12 +163,11 @@ def _centres(flat, shape, cfg: VolumeConfig, x_offset: int = 0):
     return gx, gy, gz
 
 
-def _compact(gt_value, cfg: VolumeConfig, x_offset: int = 0):
-    """The voxels of ``gt_value`` that pass ``gt``'s test (pose-independent;
-    the reference skips the others first): their flat indices, values and
-    centres."""
-    flat = torch.nonzero(_in_band(gt_value).reshape(-1)).reshape(-1)
-    return flat, gt_value.reshape(-1)[flat], _centres(flat, gt_value.shape, cfg, x_offset)
+def _band_flat(gt_value):
+    """The flat indices (int64, C order) of the voxels of ``gt_value`` that
+    pass ``gt``'s test (pose-independent; the reference skips the others
+    first)."""
+    return torch.nonzero(_in_band(gt_value).reshape(-1)).reshape(-1)
 
 
 def _loss_chain(num, gt, centres, R, t, depth_m, intr: Intrinsics, cfg: VolumeConfig):
@@ -214,8 +214,9 @@ def _field_plain(gt_value, depth_m, pose_row, intr: Intrinsics, cfg: VolumeConfi
     """One packed pose's per-voxel loss (a DCSFD of (X, Y, Z) lanes) and mask
     (``return_field``), as B12's FIELD mode writes them: zero lanes and a
     false mask where ``gt`` fails its test."""
-    flat, gt, centres = _compact(gt_value, cfg, x_offset)
-    loss, mask = _voxel_loss(gt, centres, depth_m, pose_row, intr, cfg)
+    flat = _band_flat(gt_value)
+    loss, mask = _voxel_loss(gt_value.reshape(-1)[flat], _centres(flat, gt_value.shape, cfg, x_offset), depth_m,
+                             pose_row, intr, cfg)
 
     def scatter(x, fill):
         out = torch.full((gt_value.numel(),), fill, dtype=x.dtype, device=x.device)
@@ -331,31 +332,24 @@ def _shared_lanes_plain(gt_value, depth_m, poses, intr: Intrinsics, cfg: VolumeC
     return loss, mask
 
 
-def _chunks(gt_value, cfg: VolumeConfig, x_offset: int, band):
-    """The voxels that pass gt's test, at most :data:`SLAB_VOXELS` at a time:
-    ``(gt, centres)`` of each X-slab of the volume, or of each chunk of the
-    band where one is given."""
-    if band is None:
-        X, Y, Z = gt_value.shape
-        step = max(1, SLAB_VOXELS // max(1, Y * Z))
-        for x0 in range(0, X, step):
-            yield _compact(gt_value[x0:x0 + step], cfg, x_offset + x0)[1:]
-        return
-    flat = band.index[: int(band.count)].long()
-    for i in range(0, flat.numel(), SLAB_VOXELS):
-        part = flat[i:i + SLAB_VOXELS]
+def _chunks(gt_value, cfg: VolumeConfig, x_offset: int):
+    """The voxels that pass gt's test, listed here in flat order, at most
+    :data:`CHUNK_VOXELS` at a time: ``(gt, centres)`` of each chunk."""
+    flat = _band_flat(gt_value)
+    for i in range(0, flat.numel(), CHUNK_VOXELS):
+        part = flat[i:i + CHUNK_VOXELS]
         yield gt_value.reshape(-1)[part], _centres(part, gt_value.shape, cfg, x_offset)
 
 
 def tsdf_loss_hessian_plain(gt_value, depth_m, poses, intr: Intrinsics, cfg: VolumeConfig, x_offset: int = 0,
-                            mode: str = "reduce", band: Band = None):
+                            mode: str = "reduce"):
     """B12's plain version for ``poses`` (P, 48) (:func:`pack_pose`):
     ``(sums, count)``, the sums laid out as the kernel writes them
     (:func:`n_sums`): in ``"reduce"`` mode pair 0's masked sum of ``loss.v``,
     the first ``min(P, 6)`` pairs' sums of ``loss.e1``, every pair's sum of
-    ``loss.e12``; in ``"value"`` mode pair 0's loss sum alone. Slab after
-    slab (or chunk after chunk of ``band``), the voxels that pass gt's test,
-    pair after pair, each with its own four lanes; each float32 term is added
+    ``loss.e12``; in ``"value"`` mode pair 0's loss sum alone. Chunk after
+    chunk of the voxels that pass gt's test (listed here, never taken from
+    :func:`make_band`), pair after pair, each with its own four lanes; each float32 term is added
     in float64 and each sum rounded once to float32; the count is pair 0's."""
     if mode not in MODES:
         raise ValueError(f"mode: expected 'reduce' or 'value', got {mode!r}")
@@ -363,7 +357,7 @@ def tsdf_loss_hessian_plain(gt_value, depth_m, poses, intr: Intrinsics, cfg: Vol
     G = min(P, 6)
     sums = torch.zeros(n_sums(P, mode), dtype=torch.float64, device=gt_value.device)
     count = torch.zeros((), dtype=torch.int64, device=gt_value.device)
-    for gt, centres in _chunks(gt_value, cfg, x_offset, band):
+    for gt, centres in _chunks(gt_value, cfg, x_offset):
         for p in range(P):
             loss, mask = _voxel_loss(gt, centres, depth_m, poses[p], intr, cfg)
 
@@ -382,7 +376,7 @@ def tsdf_loss_hessian_plain(gt_value, depth_m, poses, intr: Intrinsics, cfg: Vol
 
 def band_plain(gt_value) -> Band:
     """:func:`make_band`'s plain version: ``torch.nonzero`` of gt's test."""
-    flat = torch.nonzero(_in_band(gt_value).reshape(-1)).reshape(-1)
+    flat = _band_flat(gt_value)
     index = torch.zeros(gt_value.numel(), dtype=torch.int32, device=gt_value.device)
     index[: flat.numel()] = flat.to(torch.int32)
     return Band(index, torch.tensor(flat.numel(), dtype=torch.int32, device=gt_value.device))
@@ -483,18 +477,19 @@ def tsdf_loss_pairs(gt_value, depth_m, poses, intr: Intrinsics, cfg: VolumeConfi
     (P, 48; in ``"reduce"`` mode on the card the 21 seed pairs of
     ``models/relocalize.py::seeded_poses`` or one pose): one launch of kernel
     B12 over ``band`` (:func:`make_band` of ``gt_value``; listed here where
-    None) on CUDA tensors, the plain version on CPU tensors. ``"value"`` mode
-    evaluates the v lane of pose 0 alone."""
+    None) on CUDA tensors, the plain version on CPU tensors (which lists the
+    same band itself). ``"value"`` mode evaluates the v lane of pose 0
+    alone."""
+    if band is not None and (band.index.shape != (gt_value.numel(),) or band.index.dtype != torch.int32 or
+                             band.index.device != gt_value.device or band.count.shape != ()):
+        raise ValueError("band: expected make_band of this value plane")
     if kernels.on_cpu(gt_value, depth_m, poses):
-        return tsdf_loss_hessian_plain(gt_value, depth_m, poses, intr, cfg, x_offset, mode, band)
+        return tsdf_loss_hessian_plain(gt_value, depth_m, poses, intr, cfg, x_offset, mode)
     if mode not in MODES:
         raise ValueError(f"mode: expected 'reduce' or 'value', got {mode!r}")
     _check(gt_value, depth_m, poses, shared=mode == "reduce")
     if band is None:
         band = _own_band(gt_value)
-    elif band.index.shape != (gt_value.numel(),) or band.index.dtype != torch.int32 or \
-            band.index.device != gt_value.device or band.count.shape != ():
-        raise ValueError("band: expected make_band of this value plane")
     dev = gt_value.device
     scratch = _loss_scratch(dev)
     sums = torch.empty(n_sums(poses.shape[0], mode), dtype=torch.float32, device=dev)
@@ -509,8 +504,11 @@ def tsdf_loss_field(gt_value, depth_m, poses, intr: Intrinsics, cfg: VolumeConfi
                     pair: int = 0):
     """Pair ``pair``'s per-voxel loss (a DCSFD of (X, Y, Z) lanes) and mask:
     B12's FIELD mode on CUDA tensors (the shared lanes; the 21 seed pairs or
-    one pose; zero lanes where ``gt`` fails its test), :func:`_field_plain`
-    on CPU tensors."""
+    one pose; zero lanes where ``gt`` fails its test; NaN lanes and a false
+    mask everywhere where the 21 poses' lanes are not shared, as REDUCE
+    refuses them), :func:`_field_plain` on CPU tensors. Its launch counts
+    under ``"tsdf_loss"``: B12's count stands for its two device kernels,
+    ``tsdf_loss_kernel`` and ``tsdf_field_kernel`` (FIELD runs on no path)."""
     if kernels.on_cpu(gt_value, depth_m, poses):
         return _field_plain(gt_value, depth_m, poses[pair], intr, cfg, x_offset)
     _check(gt_value, depth_m, poses, shared=True)
