@@ -31,7 +31,14 @@ Phases, in order:
    B3b (classes and lists) and B3c (the brick pass) each against its plain
    version, B3c's volume also against K2's bit for bit at K2's three poses
    and with cap 64 in both overflow modes, and B3c's row variant (the brick
-   layout) against K2 on the dense twin, bit for bit; the brick layout's
+   layout) against K2 on the dense twin, bit for bit; B11, the bilinear
+   branch (threshold 0.1), in K2 and in B3c's dense planes and rows against
+   the plain versions, bit for bit, at the orbit frame and the volume
+   corner, timed beside the nearest branch; K3 at strides 2 and 4 (bit-equal
+   to the stride-1 march subsampled and to its earlier design); the dense
+   layout's B14a (distance), B14b (skip march, strides 1 and 2) and B14c
+   (window repair, strides 2 and 1) on the 256^3 volume along the 480x640
+   rays, bit for bit; the brick layout's
    raycast kernels on the brick rows of that volume at the bench path's
    shapes (240x320 model maps): B4 (the anchored window march) with its
    ``reuse`` refine on frame 3's depth anchors and without it at the
@@ -96,7 +103,13 @@ Phases, in order:
    profiler's record of a frame is trusted only where its device events are
    as many as the host's launch calls; where they differ, up to two more
    frames are profiled, and the run fails if none gives a consistent
-   record;
+   record; then the dense layout's settings over configs/synthetic.yaml:
+   hier2 with screen normals and bilinear fusion (threshold 0.1) over 10
+   frames, skip, hier and hier_skip over 4 frames each, bench.py's
+   configuration with bilinear fusion over 4 frames (the same checks, each
+   frame's launches held: 660, 660, 659, 661, 675); then process_frames
+   over 6 frames in chunks of 3 and ``run_slam.main --scan 3`` against the
+   frame loop, bit for bit;
 7. the realistic paths, through the CLI's entry point ``run_slam.main`` on
    data the port's generator renders into a temporary directory (its own PNG
    writer; the loaders read them with its own PNG reader): 30 frames of
@@ -181,8 +194,23 @@ DEVICE_DEPTH_FRAME = 3  # the bench run's second run feeds this frame's depth as
 # were, the anchors and their coverage, one copy for both flags; the screen normals B4n computed in K6's
 # launch, so no launch of their own: 675, where B4n's own launch made it 676 before; on a refresh frame B5a,
 # B5b and B4 once more); 3 of them in `preprocess` (K1, K7 once for both coarser levels, K8 once for all levels)
+# The dense layout's marches (B14): skip is B14a (two device kernels, as B5a) and B14b where K3 was (two more),
+# hier K3 at stride 2 and B14c (one more), hier_skip B14a, B14b at stride 2 and B14c (three more), hier2 K3 at
+# stride 4 and B14c twice (two more); the screen normals ride in K6's launch and the bilinear branch in K2's or
+# B3c's (none more)
 FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main path, brick fusion": 660,
-                  "main path, bench": 675, "main path, bench refresh": 679}
+                  "main path, bench": 675, "main path, bench refresh": 679, "main path, hier2": 660,
+                  "main path, skip": 660, "main path, hier": 659, "main path, hier_skip": 661,
+                  "main path, bench bilinear": 675}
+# the dense layout's settings (configs/synthetic.yaml with these options): the path's own, hier2 with screen normals
+# and bilinear fusion over N_FRAMES; skip, hier and hier_skip (TSDF normals) and bench.py's configuration with
+# bilinear fusion over N_FRAMES_MARCH each; process_frames over N_FRAMES_SCAN frames in chunks of SCAN_CHUNK
+BILINEAR_THRESHOLD = 0.1
+HIER2_OPTIONS = dict(raycast_march="hier2", raycast_normals="screen", bi_interpolate_threshold=BILINEAR_THRESHOLD)
+DENSE_MARCHES = {"main path, skip": "skip", "main path, hier": "hier", "main path, hier_skip": "hier_skip"}
+N_FRAMES_MARCH = 4
+N_FRAMES_SCAN = 6
+SCAN_CHUNK = 3
 PROBE_E_STEPS = 64  # probe E's dependent steps a ray (phase_probes): B5b's latency floor takes its time a step
 PREPROCESS_LAUNCHES = 3
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
@@ -237,6 +265,7 @@ FOLDED = {"icp_associate": "icp_system"}
 # than a kernel's name says: B3b's classes and ranks are one kernel
 DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel",),
                   "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
+                  "skip_field_dense": ("event_mask_kernel", "skip_distance_kernel"),
                   "extract_points": ("extract_count_kernel", "extract_points_kernel", "extract_normals_kernel"),
                   "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel")}
 KERNELS = {
@@ -254,6 +283,16 @@ KERNELS = {
     "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
     "icp_associate": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:72", "main path, fixed association"),
     "window_march": ("xslam_tpu_torch/csrc/window.cu", "xslam_tpu/ops/raycast.py:579,787,1018", "main path, bench"),
+    "fuse_volume_bilinear": ("xslam_tpu_torch/csrc/fusion.cu, fusion.cuh",
+                             "xslam_tpu/ops/fusion.py:108,152-153 + xslam_tpu/ops/sampling.py:39", "main path, hier2"),
+    "fuse_bricks_bilinear": ("xslam_tpu_torch/csrc/bricks.cu, fusion.cuh", "xslam_tpu/ops/fusion_brick.py:636,726-729",
+                             "main path, bench bilinear"),
+    "march_fixed_strided": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136,546-550,570-573",
+                            "main path, hier2"),
+    "skip_field_dense": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:207,240", "main path, skip"),
+    "march_skip_dense": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, skip"),
+    "window_march_dense": ("xslam_tpu_torch/csrc/window.cu", "xslam_tpu/ops/raycast.py:787,518,555",
+                           "main path, hier2"),
     "model_map_normals": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/raycast.py:1087", "main path, bench"),
     "skip_field": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/bricks.py:139,151", "main path, bench refresh"),
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
@@ -647,19 +686,19 @@ def phase_bricks(ctx):
         cold_a = time_cold_ms(lambda: run("depth_mips", depth_m, out_table, lv), 50)
         cold_b = time_cold_ms(run_b, 50)
         ms_c = time_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
-                                   classes.totals, classes.overflow, *fargs, cap, True, res, False), 20)
+                                   classes.totals, classes.overflow, *fargs, cap, True, res, False, 0.0), 20)
         ms_rows = time_ms(lambda: run("fuse_bricks", *rows_b, depth_m, pose, classes.cls, classes.rank,
-                                      classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res, True),
-                          20)
+                                      classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res, True,
+                                      0.0), 20)
         ms_k2 = time_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
                                                     eng.max_weight), 20)
         # as the frame finds them: the planes out of L2 (B3c's work bricks, ~19 MB at the orbit, fit in it)
         cold_c = time_cold_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank,
                                           classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res,
-                                          False), 20)
+                                          False, 0.0), 20)
         cold_rows = time_cold_ms(lambda: run("fuse_bricks", *rows_b, depth_m, pose, classes.cls, classes.rank,
                                              classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res,
-                                             True), 20)
+                                             True, 0.0), 20)
         cold_k2 = time_cold_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
                                                            eng.max_weight), 20)
         # a yardstick for B3a, not a library call for it: one of its 22 levels and one of its three statistics
@@ -726,6 +765,235 @@ def phase_bricks(ctx):
     return rows
 
 
+def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+# the operations B11 adds to an updated voxel, counted from csrc/fusion.cuh::bilinear_depth and sample_at<true>:
+# the spread 7, the tests 5, the dual weights 6, the complements 4, the four weight products 16, the four corner
+# products 16, the three sums 6, the SDF's depth-derivative term 2
+BILINEAR_OPS = 62
+
+
+def phase_bilinear(ctx):
+    """B11, the bilinear branch of fusion (``bi_threshold`` 0.1), in K2 and in
+    B3c (dense planes and brick rows) against the plain versions, bit for bit
+    on value, grad and weight, on the volume of three fused frames at the
+    orbit's frame 3 (its rendered depth) and at the volume-corner pose (a
+    seeded depth with 10% holes, so that blocks with a zero corner fall back
+    to the nearest depth); B3c's classes taken with a cap of every brick.
+    The branch must change the derivative lane against the nearest branch's.
+    Each timed warm and cold beside the nearest branch on the same frame
+    (K2 and B3c with the nearest depth: their rows' ranges must hold). The
+    voxels where B3c parts from K2 under bilinear sampling (the classes'
+    proofs allow the nearest sample's half pixel) are counted."""
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.ops import bricks, fusion, kernels
+    from xslam_tpu_torch.ops import fusion_brick as fb
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    intr, vol, thr = cfg.intrinsics, ctx["volume"], BILINEAR_THRESHOLD
+    cap = int(np.prod(eng.resolution)) // fb.BRICK ** 3
+    rows = {}
+    for name, v2c, depth_u16 in ctx["fusion_cases"][:2]:
+        r, t = se3.rotation(v2c), se3.translation(v2c)
+        depth_m = fusion.scale_depth(torch.as_tensor(depth_u16, device=dev))
+        args = (depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+        pose = kernels.fusion_pose(r, t)
+        classes = fb.classify_bricks(fb.depth_mips(depth_m), pose, intr, eng, cap)
+        k2, plain, near = ([x.clone() for x in vol] for _ in range(3))
+        kernels.fuse_volume(*k2, *args, thr)
+        kernels.fuse_volume_plain(*plain, *args, thr)
+        kernels.fuse_volume(*near, *args)
+        brick, brick_plain = ([x.clone() for x in vol] for _ in range(2))
+        fb.fuse_bricks(*brick, depth_m, pose, intr, eng, classes, cap, True, thr)
+        fb.fuse_bricks_plain(*brick_plain, depth_m, pose, intr, eng, classes, cap, True, thr)
+        rows_b = bricks.from_dense(*vol)
+        fb.fuse_bricks(*rows_b, depth_m, pose, intr, eng, classes, cap, True, thr)
+        torch.cuda.synchronize()
+        k2_bits = [_bits(a, b) for a, b in zip(k2, plain)]
+        brick_bits = [_bits(a, b) for a, b in zip(brick, brick_plain)]
+        rows_bits = [_bits(a, fb.to_bricks(b)) for a, b in zip(rows_b, brick_plain)]
+        updated = int((k2[2] != vol.weight).sum())
+        changed = int(((k2[1] != near[1]) & (k2[2] != vol.weight)).sum())
+        parted = int(((brick[2] != k2[2]) | (brick[0] != k2[0])).sum())
+        n_active, n_work = (int(x) for x in classes.totals)
+
+        def k2_bilinear():
+            kernels.fuse_volume(*k2, *args, thr)
+
+        def k2_nearest():
+            kernels.fuse_volume(*near, *args)
+
+        def b3c(planes, bilinear):
+            return lambda: fb.fuse_bricks(*planes, depth_m, pose, intr, eng, classes, cap, True, thr if bilinear else 0.0)
+
+        ms = dict(k2=time_ms(k2_bilinear, 20), k2_nearest=time_ms(k2_nearest, 20),
+                  b3c=time_ms(b3c(brick, True), 20), b3c_nearest=time_ms(b3c(brick, False), 20),
+                  b3c_rows=time_ms(b3c(rows_b, True), 20))
+        cold = dict(k2=time_cold_ms(k2_bilinear, 20), k2_nearest=time_cold_ms(k2_nearest, 20),
+                    b3c=time_cold_ms(b3c(brick, True), 20), b3c_nearest=time_cold_ms(b3c(brick, False), 20),
+                    b3c_rows=time_cold_ms(b3c(rows_b, True), 20))
+        plain_ms = dict(k2=time_ms(lambda: kernels.fuse_volume_plain(*plain, *args, thr), 2),
+                        b3c=time_ms(lambda: fb.fuse_bricks_plain(*brick_plain, depth_m, pose, intr, eng, classes,
+                                                                 cap, True, thr), 2))
+        # bounds: as K2's and B3c's rows count them, with B11's operations at each updated voxel and its four
+        # depth reads there (L2-resident: the image is counted once)
+        n_bytes = depth_m.numel() * 4 + 24 * 4 + updated * 24
+        b_k2 = bound_ms(n_bytes, vol.value.numel() * 69 + updated * (60 + BILINEAR_OPS))
+        b_b3c = bound_ms(n_bytes, n_work * 512 * 69 + n_active * 512 * (60 + BILINEAR_OPS))
+        emit("B11 bilinear fusion", case=name, threshold=thr, voxels_updated=updated,
+             voxels_whose_grad_the_branch_changed=changed, k2_bit_equal_to_plain=k2_bits,
+             b3c_bit_equal_to_plain=brick_bits, b3c_rows_bit_equal_to_plain=rows_bits,
+             voxels_where_b3c_parts_from_k2=parted, n_active=n_active, n_work=n_work, ms=ms, cold_ms=cold,
+             plain_ms=plain_ms, bound_ms=dict(k2=b_k2[0], b3c=b_b3c[0]), bound_by=dict(k2=b_k2[1], b3c=b_b3c[1]),
+             library_ms=None, library_note="no single PyTorch call computes it")
+        check(all(k2_bits) and all(brick_bits) and all(rows_bits),
+              f"B11 at {name}: K2 {k2_bits}, B3c {brick_bits}, B3c rows {rows_bits} bit-equal to plain")
+        # the orbit's rendered depth is smooth, so the interpolant is taken; the corner's seeded depth jumps
+        # by metres between neighbours, so its blocks fall back to the nearest depth
+        check(updated > 100_000 and (changed > 1000 or name != "orbit frame 3"),
+              f"B11 at {name}: {updated} voxels updated, {changed} with a grad the bilinear branch changed")
+        if not rows:
+            rows = {
+                "fuse_volume_bilinear": dict(max_abs_err=0.0, ms=ms["k2"], cold_ms=cold["k2"], plain_ms=plain_ms["k2"],
+                                             bound_ms=b_k2[0], bound_by=b_k2[1], nearest_ms=ms["k2_nearest"],
+                                             nearest_cold_ms=cold["k2_nearest"]),
+                "fuse_bricks_bilinear": dict(max_abs_err=0.0, ms=ms["b3c"], cold_ms=cold["b3c"],
+                                             rows_ms=ms["b3c_rows"], rows_cold_ms=cold["b3c_rows"],
+                                             plain_ms=plain_ms["b3c"], bound_ms=b_b3c[0], bound_by=b_b3c[1],
+                                             nearest_ms=ms["b3c_nearest"], nearest_cold_ms=cold["b3c_nearest"]),
+            }
+        del k2, plain, near, brick, brick_plain, rows_b
+    return rows
+
+
+def phase_dense_marches(ctx):
+    """The dense layout's B14 kernels against their plain versions on the
+    256^3 volume of three fused frames along the 480x640 camera rays at the
+    orbit's frame 3 (seeded derivative lane): B14a's distance equal to
+    ``brick_distance_field`` on every brick; B14b at stride 1 (``skip``) and
+    2 (``hier_skip``'s coarse pass) equal to ``march_skip_plain`` over
+    ``skip_volume``'s packing on every ray, both events, and with the plain
+    fixed march's accepted rays and ``t_found`` on them; B14c at stride 2
+    (``hier2``'s middle repair, window 12, anchored at K3's stride-4 hits) and
+    1 (its last repair, the configuration's ``raycast_hier_window``, anchored
+    at that), both events bit for bit. Each timed warm and cold."""
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.ops import bricks, kernels, raycast
+    from xslam_tpu_torch.ops.kernels import INF_T
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    vol, intr, res = ctx["volume"], cfg.intrinsics, tuple(eng.resolution)
+    pose, parts = _ray_pose(ctx, 1)
+    ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nb = bricks.brick_grid(res)
+    n = nb[0] * nb[1] * nb[2]
+    f32, step = kernels.f32, eng.trunc_dist * 0.8
+    cam = kernels.camera_args(intr)
+    lanes = csrc_constant("skip.cu", "LANES")
+
+    # B14a
+    dist = raycast.skip_field_dense(vol, res)
+    dist_plain = raycast.brick_distance_field(vol.value, vol.weight).reshape(-1)
+    torch.cuda.synchronize()
+    dist_equal = bool(torch.equal(dist, dist_plain))
+    mask, dk = torch.empty(n, dtype=torch.uint8, device=dev), torch.empty_like(dist)
+
+    def run_field():
+        check(ext.skip_field_dense(vol.value, vol.weight, mask, dk, *nb, stream) == 0, "skip_field_dense failed")
+
+    f_ms, f_cold = time_ms(run_field, 50), time_cold_ms(run_field, 30)
+    f_plain = time_ms(lambda: raycast.brick_distance_field(vol.value, vol.weight), 3)
+    f_bound = bound_ms(2 * vol.value.numel() * 4 + n * 4, vol.value.numel() * 3 + n * 11 ** 3)
+    emit("B14a skip_field_dense", bricks=n, distance_equal_on_every_brick=dist_equal,
+         distance_histogram=torch.bincount(dist_plain, minlength=bricks.DIST_CAP + 1).tolist(), ms=f_ms,
+         cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
+         library_note="no single PyTorch call computes it")
+    check(dist_equal, "B14a's distances differ from brick_distance_field")
+
+    # B14b at strides 1 and 2
+    packed_read = raycast._dense_reader(raycast.pack_dense(vol.value, dist_plain))
+    skip_rows = {}
+    for s in (1, 2):
+        hit = raycast.march_skip_dense(vol, dist, pose, intr, eng, stride=s)
+        dirs = ray_dir.v[:, ::s, ::s]
+        stats = {"lanes": lanes}
+        plain = raycast.march_skip_plain(ray_start, dirs, eng, packed_read, res, stats=stats)
+        ff, fd = kernels.march_fixed_plain(vol.value, ray_start, CSFD(dirs, dirs), eng.voxel_size,
+                                           eng.trunc_dist)
+        torch.cuda.synchronize()
+        eq = _lanes_equal(f"B14b (stride {s})", {"t_found": (hit.t_found, plain.t_found),
+                                                 "t_dead": (hit.t_dead, plain.t_dead)})
+        acc_k = hit.t_found < torch.clamp(hit.t_dead, max=INF_T)
+        acc_f = ff < torch.clamp(fd, max=INF_T)
+        accept_equal = bool(torch.equal(acc_k, acc_f))
+        found_equal = accept_equal and bool(torch.equal(hit.t_found[acc_k], ff[acc_f]))
+        Hs, Ws = hit.t_found.shape
+        tf, td = torch.empty_like(hit.t_found), torch.empty_like(hit.t_dead)
+        margs = (*nb, s, kernels.march_steps(eng.trunc_dist), f32(eng.voxel_size),
+                 kernels.reciprocal_f32(eng.voxel_size), f32(step), f32(bricks.BRICK * eng.voxel_size / step), *cam)
+
+        def run_march(margs=margs, tf=tf, td=td):
+            check(ext.march_skip_dense(vol.value, dist, pose, tf, td, *margs, stream) == 0, "march_skip_dense failed")
+
+        m_ms, m_cold = time_ms(run_march, 50), time_cold_ms(run_march, 30)
+        m_plain = time_ms(lambda: raycast.march_skip_plain(ray_start, dirs, eng, packed_read, res), 3)
+        m_bound = bound_ms(Hs * Ws * 8 + 192, Hs * Ws * 60 + stats["samples"] * 25)
+        emit("B14b march_skip_dense", stride=s, shape=[Hs, Ws], **eq, lanes=lanes,
+             accepted_rays_equal_to_fixed_march=accept_equal, t_found_equal_to_fixed_march_on_accepted_rays=found_equal,
+             hit_fraction=float(acc_k.float().mean()), samples=stats["samples"],
+             longest_ray_rounds=int(stats["ray_rounds"].max()), mean_ray_samples=float(stats["ray_samples"].double().mean()),
+             ms=m_ms, cold_ms=m_cold, plain_ms=m_plain, bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
+             library_note="no single PyTorch call computes it")
+        check(accept_equal and found_equal, f"B14b (stride {s}) against the plain fixed march: accepted rays "
+                                            f"{accept_equal}, t_found on them {found_equal}")
+        skip_rows[s] = dict(max_abs_err=eq["max_abs_err"], ms=m_ms, cold_ms=m_cold, plain_ms=m_plain,
+                            bound_ms=m_bound[0], bound_by=m_bound[1])
+
+    # B14c: hier2's middle repair (stride 2, window 12) on K3's stride-4 hits, then its last (stride 1)
+    coarse = raycast.RaycastHit(*kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist, stride=4))
+    window_rows = {}
+    for s, window in ((2, raycast.HIER2_MID_WINDOW), (1, cfg.raycast_hier_window)):
+        hit = raycast.window_march_dense(vol, pose, intr, eng, coarse, window, stride=s)
+        stats = {}
+        plain = raycast._window_repair(ray_start, ray_dir.v[:, ::s, ::s], coarse, window, eng,
+                                       raycast._dense_reader(vol.value), res, stats=stats)
+        torch.cuda.synchronize()
+        eq = _lanes_equal(f"B14c (stride {s})", {"t_found": (hit.t_found, plain.t_found),
+                                                 "t_dead": (hit.t_dead, plain.t_dead)})
+        Hs, Ws = hit.t_found.shape
+        ch, cw = coarse.t_found.shape
+        tf, td = torch.empty_like(hit.t_found), torch.empty_like(hit.t_dead)
+        wargs = (*nb, Hs, Ws, ch, cw, s, window, f32(eng.voxel_size), kernels.reciprocal_f32(eng.voxel_size), f32(step),
+                 kernels.reciprocal_f32(step), *cam)
+
+        def run_window(c=coarse, wargs=wargs, tf=tf, td=td):
+            check(ext.window_march_dense(vol.value, vol.grad, pose, c.t_found, c.t_dead, None, None, tf, td, *wargs,
+                                         stream) == 0, "window_march_dense failed")
+
+        w_ms, w_cold = time_ms(run_window, 50), time_cold_ms(run_window, 30)
+        w_plain = time_ms(lambda: raycast._window_repair(ray_start, ray_dir.v[:, ::s, ::s], coarse, window, eng,
+                                                         raycast._dense_reader(vol.value), res), 3)
+        # bytes: the coarse hits in, both times out, the pose; operations: ~60 to make a ray, ~20 a sample
+        w_bound = bound_ms(ch * cw * 8 + Hs * Ws * 8 + 192, Hs * Ws * 60 + stats["samples"] * 20)
+        emit("B14c window_march_dense", stride=s, window=window, shape=[Hs, Ws], coarse_shape=[ch, cw], **eq,
+             hit_fraction=float((hit.t_found < torch.clamp(hit.t_dead, max=INF_T)).float().mean()),
+             samples=stats["samples"], ms=w_ms, cold_ms=w_cold, plain_ms=w_plain, bound_ms=w_bound[0],
+             bound_by=w_bound[1], library_ms=None, library_note="no single PyTorch call computes it")
+        window_rows[s] = dict(max_abs_err=eq["max_abs_err"], ms=w_ms, cold_ms=w_cold, plain_ms=w_plain,
+                              bound_ms=w_bound[0], bound_by=w_bound[1], window=window)
+        coarse = hit
+    return {
+        "skip_field_dense": dict(max_abs_err=0.0, ms=f_ms, cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0],
+                                 bound_by=f_bound[1]),
+        "march_skip_dense": dict(skip_rows[1], stride=1, stride_2=skip_rows[2]),
+        "window_march_dense": dict(window_rows[1], stride=1, stride_2=window_rows[2]),
+    }
+
+
 def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
     """What this run's march must read: the distinct voxels its rays sample
     up to the step where both events are known, plus rays in and times out."""
@@ -776,6 +1044,7 @@ def _ray_pose(ctx, seed: int, c2v_np=None):
 
 
 def phase_march(ctx):
+    from xslam_tpu_torch.csfd.single import CSFD
     from xslam_tpu_torch.ops import kernels
     from xslam_tpu_torch.ops.kernels import INF_T
 
@@ -832,7 +1101,41 @@ def phase_march(ctx):
     check(hits > 0.5, f"K3 found surfaces on only {hits:.3f} of the rays")
     check(chain_equal and odd_equal,
           f"K3 is not bit-equal to its earlier design: {chain_equal}, NaN and inf rays {odd_equal}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+    # K3 at the hierarchical marches' strides (hier's 2, hier2's 4): the rays of every s-th pixel, so the
+    # stride-1 march's events at those pixels and the earlier design's on the strided rays, bit for bit
+    strided = {}
+    for s in (2, 4):
+        def run_s(s=s):
+            return kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist, stride=s)
+
+        sf, sd = run_s()
+        dirs_s = ray_dir.v[:, ::s, ::s].contiguous()
+        pf_s, pd_s = kernels.march_fixed_plain(vol.value, ray_start, CSFD(dirs_s, dirs_s), eng.voxel_size,
+                                               eng.trunc_dist)
+        cf_s, cd_s = torch.empty_like(sf), torch.empty_like(sd)
+        check(ext.march_fixed_chain(vol.value, start, dirs_s, cf_s, cd_s, n_steps, vs, step, stream) == 0,
+              "march_fixed_chain launch failed")
+        torch.cuda.synchronize()
+        sub_equal = bool(torch.equal(sf, tf[::s, ::s])) and bool(torch.equal(sd, td[::s, ::s]))
+        chain_s = bool(torch.equal(sf, cf_s)) and bool(torch.equal(sd, cd_s))
+        eq_s = min(frac_equal(sf, pf_s), frac_equal(sd, pd_s))
+        err_s = max_abs(sf, pf_s, (sf < INF_T) & (pf_s < INF_T))
+        ms_s, cold_s = time_ms(run_s, 50), time_cold_ms(run_s, 30)
+        plain_s = time_ms(lambda: kernels.march_fixed_plain(vol.value, ray_start, CSFD(dirs_s, dirs_s),
+                                                            eng.voxel_size, eng.trunc_dist), 3)
+        nb_s, no_s, samples_s = _march_bytes_ops(vol.value, ray_start.v, dirs_s, sf, sd, eng)
+        b_s = bound_ms(nb_s, no_s)
+        emit("K3 march_fixed strided", stride=s, shape=list(sf.shape), bit_equal_to_stride_1_subsampled=sub_equal,
+             bit_equal_to_earlier_design=chain_s, frac_equal_to_plain=eq_s, max_abs_err_t_found=err_s,
+             samples=samples_s, ms=ms_s, cold_ms=cold_s, plain_ms=plain_s, bound_ms=b_s[0], bound_by=b_s[1],
+             library_ms=None, library_note="no single PyTorch call computes it")
+        check(sub_equal and chain_s and eq_s >= 0.999,
+              f"K3 at stride {s}: stride 1 subsampled {sub_equal}, earlier design {chain_s}, plain {eq_s}")
+        strided[s] = dict(max_abs_err=err_s, ms=ms_s, cold_ms=cold_s, plain_ms=plain_s, bound_ms=b_s[0],
+                          bound_by=b_s[1])
+    return {"march_fixed": dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by),
+            "march_fixed_strided": dict(strided[2], stride=2, stride_4=strided[4])}
 
 
 def _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng):
@@ -2249,9 +2552,20 @@ def phase_main_path(ctx, tag: str = "main path"):
         n_frames = N_FRAMES_REFRESH
         cfg = dataclasses.replace(cfg, **BENCH_OPTIONS, raycast_temporal_min_coverage=REFRESH_COVERAGE,
                                   end_frame=n_frames)
+    elif tag == "main path, hier2":
+        cfg = dataclasses.replace(cfg, **HIER2_OPTIONS, end_frame=n_frames)
+    elif tag in DENSE_MARCHES:
+        n_frames = N_FRAMES_MARCH
+        cfg = dataclasses.replace(cfg, raycast_march=DENSE_MARCHES[tag], end_frame=n_frames)
+    elif tag == "main path, bench bilinear":
+        n_frames = N_FRAMES_MARCH
+        cfg = dataclasses.replace(cfg, **BENCH_OPTIONS, bi_interpolate_threshold=BILINEAR_THRESHOLD,
+                                  end_frame=n_frames)
     brick = cfg.fusion_mode == "brick"
     bench = cfg.volume_layout == "brick"
     refresh = bench and cfg.raycast_temporal_min_coverage > 1.0
+    bilinear = cfg.bi_interpolate_threshold > 0
+    march = cfg.raycast_march
     L = cfg.model_map_level
     engine = XSlamEngine(cfg, device=ctx["device"])
     state = engine.init_state()
@@ -2302,7 +2616,8 @@ def phase_main_path(ctx, tag: str = "main path"):
 
     steady = np.asarray(times[WARM_FRAMES:])
     emit(tag, config="configs/synthetic.yaml", icp_fixed_assoc=cfg.icp_fixed_assoc, model_map_level=L,
-         frames=n_frames, depth=[cfg.depth_height, cfg.depth_width],
+         raycast_march=march, raycast_normals=cfg.raycast_normals, raycast_hier_window=cfg.raycast_hier_window,
+         bi_interpolate_threshold=cfg.bi_interpolate_threshold, frames=n_frames, depth=[cfg.depth_height, cfg.depth_width],
          volume=list(cfg.tsdf_size), mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)),
          frame_ms=times, ate_m=ate, all_aligned=all(aligned), peak_mem_bytes=peak,
          model_map_valid_fraction=valid_frac, kernels=counts, device_launches_in_profiled_frame=len(names),
@@ -2311,8 +2626,8 @@ def phase_main_path(ctx, tag: str = "main path"):
          icp_launches_in_profiled_frame=len(icp_at), other_device_work_inside_icp_loop=between[:8],
          **(dict(fusion_mode="brick", cap=cfg.fusion_brick_cap, fusion_overflow=cfg.fusion_overflow,
                  active_bricks=active, max_active_bricks=max(active)) if brick else {}),
-         **(dict(volume_layout="brick", raycast_march=cfg.raycast_march, raycast_refine=cfg.raycast_refine,
-                 raycast_normals=cfg.raycast_normals, temporal_min_coverage=cfg.raycast_temporal_min_coverage,
+         **(dict(volume_layout="brick", raycast_refine=cfg.raycast_refine,
+                 temporal_min_coverage=cfg.raycast_temporal_min_coverage,
                  anchor_coverage=coverage, refresh_frames=sum(c < cfg.raycast_temporal_min_coverage for c in coverage),
                  second_run_ate_m=second_ate) if bench else {}),
          **(dict(device_depth_frame=depth_at, device_depth_pose_equal=device_depth_same) if depth_at is not None
@@ -2325,16 +2640,28 @@ def phase_main_path(ctx, tag: str = "main path"):
     # K4 runs once per ICP iteration of every frame; the association is
     # written by each level's first K4 launch and never launched on its own;
     # K6 makes every coarser level of the model maps in one launch a frame;
-    # the dense layout raycasts with K3 and K5, the brick layout with B4 (and
-    # on a refresh frame B5a, B5b and B4 once more), its screen normals B4n
-    # in K6's launch (model_map_normals in place of resize_model_maps)
+    # fusion is K2 or B3a-c, in their bilinear branch (B11) with a threshold;
+    # the dense layout raycasts with its march (K3; skip: B14a, B14b; hier:
+    # K3 at stride 2, B14c; hier_skip: B14a, B14b at stride 2, B14c; hier2:
+    # K3 at stride 4, B14c twice) and K5, the brick layout with B4 (and on a
+    # refresh frame B5a, B5b and B4 once more); screen normals are B4n in K6's
+    # launch (model_map_normals in place of resize_model_maps)
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
+    dense_fused = 0 if brick else integrated
+    brick_fused = integrated if brick else 0
     want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps")}
-    want.update(icp_system=iterations * n_frames, icp_associate=0, fuse_volume=0 if brick else integrated)
-    want.update({k: integrated if brick else 0 for k in ("depth_mips", "classify_bricks", "fuse_bricks")})
-    want.update({k: 0 if bench else n_frames for k in ("march_fixed", "raycast_refine")})
+    want.update(icp_system=iterations * n_frames, icp_associate=0, fuse_volume=0 if bilinear else dense_fused,
+                fuse_volume_bilinear=dense_fused if bilinear else 0, fuse_bricks=0 if bilinear else brick_fused,
+                fuse_bricks_bilinear=brick_fused if bilinear else 0)
+    want.update({k: brick_fused for k in ("depth_mips", "classify_bricks")})
+    dense = 0 if bench else n_frames
+    want.update(march_fixed=dense if march == "fixed" else 0, raycast_refine=dense,
+                march_fixed_strided=dense if march in ("hier", "hier2") else 0,
+                window_march_dense=dense * {"hier": 1, "hier_skip": 1, "hier2": 2}.get(march, 0))
+    want.update({k: dense if march in ("skip", "hier_skip") else 0 for k in ("skip_field_dense", "march_skip_dense")})
+    screen = cfg.raycast_normals == "screen"
     want.update(window_march=(2 if refresh else 1) * n_frames if bench else 0,
-                model_map_normals=n_frames if bench else 0, resize_model_maps=0 if bench else n_frames)
+                model_map_normals=n_frames if screen else 0, resize_model_maps=0 if screen else n_frames)
     want.update({k: n_frames if refresh else 0 for k in ("skip_field", "march_skip")})
     check(all(counts[k] == n for k, n in want.items()), f"launch counts {counts}, expected {want}")
     if brick:
@@ -2406,6 +2733,90 @@ def phase_main_path_bench(ctx):
 
 def phase_main_path_bench_refresh(ctx):
     return phase_main_path(ctx, "main path, bench refresh")
+
+
+def phase_main_path_hier2(ctx):
+    return phase_main_path(ctx, "main path, hier2")
+
+
+def phase_main_path_skip(ctx):
+    return phase_main_path(ctx, "main path, skip")
+
+
+def phase_main_path_hier(ctx):
+    return phase_main_path(ctx, "main path, hier")
+
+
+def phase_main_path_hier_skip(ctx):
+    return phase_main_path(ctx, "main path, hier_skip")
+
+
+def phase_main_path_bench_bilinear(ctx):
+    return phase_main_path(ctx, "main path, bench bilinear")
+
+
+def phase_process_frames(ctx):
+    """``process_frames`` and ``run_slam --scan`` on the card, in the path's
+    own setting (hier2, screen normals, bilinear fusion): ``N_FRAMES_SCAN``
+    frames in chunks of ``SCAN_CHUNK`` give the single calls' poses, flags,
+    volume and model maps bit for bit, with the same launches; then
+    ``run_slam.main`` over the same frames (rendered by the synthetic
+    dataset) with ``--scan`` writes the per-frame loop's pose files byte for
+    byte."""
+    import dataclasses
+    import tempfile
+
+    import yaml
+
+    from xslam_tpu_torch.io.options import HIER2_ARGS
+    from xslam_tpu_torch.models.kinfu import XSlamEngine
+    from xslam_tpu_torch.ops import kernels
+    from xslam_tpu_torch.run_slam import main as run_slam_main
+    from xslam_tpu_torch.utils.convert import frame_result_to_numpy
+
+    cfg = dataclasses.replace(ctx["config"], **HIER2_OPTIONS, end_frame=N_FRAMES_SCAN)
+    depths = ctx["depths"][:N_FRAMES_SCAN]
+    kernels.reset_launch_counts()
+    single = XSlamEngine(cfg, device=ctx["device"])
+    state, results = single.init_state(), []
+    for d in depths:
+        state, res = single.process_frame(state, d)
+        results.append(frame_result_to_numpy(res))
+    torch.cuda.synchronize()
+    loop_counts = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    chunked = XSlamEngine(cfg, device=ctx["device"])
+    cstate, stacked = chunked.init_state(), []
+    for at in range(0, N_FRAMES_SCAN, SCAN_CHUNK):
+        cstate, res = chunked.process_frames(cstate, np.stack(depths[at:at + SCAN_CHUNK]))
+        stacked.append(frame_result_to_numpy(res))
+    torch.cuda.synchronize()
+    chunk_counts = dict(kernels.launch_counts)
+    results_equal = all(np.array_equal(np.concatenate([c[k] for c in stacked]), np.stack([r[k] for r in results]))
+                        for k in results[0])
+    state_equal = all(_bits(a, b) for a, b in zip(cstate.volume, state.volume)) and all(
+        _bits(a.v, b.v) and _bits(a.g, b.g)
+        for a, b in zip(cstate.vmaps_prev + cstate.nmaps_prev, state.vmaps_prev + state.nmaps_prev))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = yaml.safe_load(open(os.path.join(ROOT, "configs", "synthetic.yaml")))
+        files = {}
+        for name, extra in (("loop", []), ("scan", ["--scan", str(SCAN_CHUNK)])):
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(dict(base, output_dir=os.path.join(tmp, name) + "/", draw_pcd=False), f)
+            run_slam_main([path, "--frames", str(N_FRAMES_SCAN), *HIER2_ARGS, *extra])
+            slam = os.path.join(tmp, name, "slam")
+            files[name] = {fn: open(os.path.join(slam, fn), "rb").read() for fn in sorted(os.listdir(slam))}
+    scan_equal = files["loop"] == files["scan"] and len(files["loop"]) == N_FRAMES_SCAN
+    emit("process_frames", config="configs/synthetic.yaml", options=HIER2_OPTIONS, frames=N_FRAMES_SCAN,
+         chunk=SCAN_CHUNK, results_bit_equal=results_equal, state_bit_equal=state_equal,
+         launches_equal=loop_counts == chunk_counts, kernels=chunk_counts, run_slam_scan_pose_files_equal=scan_equal)
+    check(results_equal and state_equal and loop_counts == chunk_counts,
+          f"process_frames against the frame loop: results {results_equal}, state {state_equal}, launches "
+          f"{loop_counts} / {chunk_counts}")
+    check(scan_equal, f"run_slam --scan {SCAN_CHUNK} wrote other pose files than the per-frame loop")
+    return chunk_counts
 
 
 # ----------------------------------------------------------------------------
@@ -2931,8 +3342,9 @@ def phase_backend_realistic(ctx):
 
 # the phases in their order: (name, function)
 PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
-          ("bricks", phase_bricks), ("march_fixed", phase_march), ("raycast_refine", phase_refine),
-          ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip), ("extract", phase_extract),
+          ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("march_fixed", phase_march),
+          ("raycast_refine", phase_refine), ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
+          ("dense marches", phase_dense_marches), ("extract", phase_extract),
           ("maps", phase_maps), ("icp_system", phase_icp), ("tsdf_loss", phase_tsdf_loss),
           ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
           ("probes", phase_probes),
@@ -2941,6 +3353,12 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("main path, brick fusion", phase_main_path_brick),
           ("main path, bench", phase_main_path_bench),
           ("main path, bench refresh", phase_main_path_bench_refresh),
+          ("main path, hier2", phase_main_path_hier2),
+          ("main path, skip", phase_main_path_skip),
+          ("main path, hier", phase_main_path_hier),
+          ("main path, hier_skip", phase_main_path_hier_skip),
+          ("main path, bench bilinear", phase_main_path_bench_bilinear),
+          ("process_frames", phase_process_frames),
           ("main path, ICL realistic", phase_main_path_icl),
           ("main path, 7-Scenes realistic", phase_main_path_7scenes),
           ("backend, blackout", phase_backend_blackout),
@@ -3018,12 +3436,17 @@ def main() -> int:
     results.update(results.pop("normals"))
     results.update(results.pop("skip"))
     results.update(results.pop("extract"))
+    results.update(results.pop("bilinear"))
+    results.update(results.pop("march_fixed"))
+    results.update(results.pop("dense marches"))
     # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
     skip = results["march_skip"]
     skip["latency_floor_ms"] = skip["longest_ray_rounds"] * results["probe_e"]["ms"] / PROBE_E_STEPS
     counts = {path: results[path] for path in ("main path", "main path, fixed association", "main path, brick fusion",
-                                               "main path, bench", "main path, bench refresh",
-                                               "main path, ICL realistic", "relocalize path", "odometry path")}
+                                               "main path, bench", "main path, bench refresh", "main path, hier2",
+                                               "main path, skip", "main path, hier", "main path, hier_skip",
+                                               "main path, bench bilinear", "main path, ICL realistic",
+                                               "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],

@@ -79,11 +79,23 @@ def test_fusion_value_grad_match(fused, plane):
     np.testing.assert_allclose(t[same], j[same], atol=1e-5)
 
 
-def test_fusion_bilinear_branch_not_ported():
-    _, _, tcfg = _vol_cfgs()
+def test_fusion_bilinear_branch_runs_in_place():
+    """The bilinear branch (``bi_threshold > 0``), once refused here, fuses
+    in place on CPU tensors and launches nothing: the same volume object
+    comes back, updated; tests/test_torch_bilinear_fusion.py holds it to
+    JAX's."""
+    cfg, _, tcfg = _vol_cfgs()
+    ds = small_dataset(1)
+    w2v = np.asarray(cfg.world2volume, np.float32)
+    v2c = np.linalg.inv(w2v @ ds.get_pose(0)).astype(np.float32)
+    r = to_torch(JCSFD(jnp.asarray(v2c[:3, :3]), jnp.zeros((3, 3), jnp.float32)))
+    t = to_torch(JCSFD(jnp.asarray(v2c[:3, 3]), jnp.zeros(3, jnp.float32)))
     vol = tfusion.create_volume(tcfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        tfusion.integrate(vol, torch.zeros((120, 160)), None, None, Intrinsics(*SMALL_INTR), tcfg, bi_threshold=0.1)
+    before = kernels.launch_counts["fuse_volume_bilinear"]
+    out = tfusion.integrate(vol, tfusion.scale_depth(torch.from_numpy(ds.get_depth(0))), r, t,
+                            Intrinsics(*SMALL_INTR), tcfg, bi_threshold=0.1)
+    assert out is vol and int((vol.weight > 0).sum()) > 1000
+    assert kernels.launch_counts["fuse_volume_bilinear"] == before
 
 
 def test_fusion_launches_nothing_on_cpu(fused):

@@ -220,17 +220,25 @@ def test_frame_turns_alternate_and_summarise():
 
 def test_profile_step_names_each_hand_kernel_once():
     """profile_step's hand-kernel times take each device event by its own
-    function name: K3's march_kernel is not B4's window_march_kernel, K2's
-    fuse_kernel not B3c's fuse_bricks_kernel<true>, K6's instantiation with
-    the screen normals not its own, and B5a's two kernels add up."""
+    function name: K3's march_kernel is not B4's window_march_kernel<false>,
+    K2's fuse_kernel<false> not B3c's fuse_bricks_kernel<true, false>, K6's
+    instantiation with the screen normals not its own, B5a's two kernels add
+    up, and the bilinear (B11) and dense-layout (B14) instantiations are
+    their own rows (the kernels are templates since they gained them)."""
     from xslam_tpu_torch.profile_step import hand_kernel_ms
 
     by_name = {
-        "(anonymous namespace)::window_march_kernel(float const*, float const*, float const*)": [0.5, 1],
+        "void (anonymous namespace)::window_march_kernel<false>(float const*, float const*, float const*)": [0.5, 1],
         "(anonymous namespace)::march_kernel((anonymous namespace)::Volume, float const*, float*)": [0.25, 1],
-        "void (anonymous namespace)::fuse_bricks_kernel<true>(float*, float*, float*)": [0.125, 1],
-        "(anonymous namespace)::event_mask_kernel(float const*, float const*, unsigned char*, int)": [1.0, 1],
-        "(anonymous namespace)::skip_distance_kernel(unsigned char const*, int*, int, int, int)": [2.0, 1],
+        "void (anonymous namespace)::fuse_bricks_kernel<true, false>(float*, float*, float*)": [0.125, 1],
+        "void (anonymous namespace)::event_mask_kernel<false>(float const*, float const*, unsigned char*)": [1.0, 1],
+        "void (anonymous namespace)::skip_distance_kernel<false>(unsigned char const*, int*, int, int, int)": [2.0, 1],
+        "void (anonymous namespace)::fuse_kernel<true>(float*, float*, float*)": [64.0, 1],
+        "void (anonymous namespace)::fuse_bricks_kernel<true, true>(float*, float*, float*)": [128.0, 1],
+        "void (anonymous namespace)::event_mask_kernel<true>(float const*, float const*, unsigned char*)": [256.0, 1],
+        "void (anonymous namespace)::skip_distance_kernel<true>(unsigned char const*, int*, int, int, int)": [512.0, 1],
+        "void (anonymous namespace)::march_skip_kernel<true>(float const*, int const*)": [1024.0, 1],
+        "void (anonymous namespace)::window_march_kernel<true>(float const*, float const*, float const*)": [2048.0, 1],
         "void (anonymous namespace)::model_map_pyramid_kernel<true, false>((anonymous namespace)::ModelPyramid)":
             [16.0, 1],
         "void (anonymous namespace)::model_map_pyramid_kernel<false, true>((anonymous namespace)::ModelPyramid)":
@@ -242,7 +250,10 @@ def test_profile_step_names_each_hand_kernel_once():
     assert ms["fuse_bricks"] == 0.125 and ms["fuse_volume"] == 0.0
     assert ms["skip_field"] == 3.0 and ms["march_skip"] == 0.0
     assert ms["resize_model_maps"] == 16.0 and ms["model_map_normals"] == 32.0  # K6 alone; K6 with B4n
-    assert sum(ms.values()) == 51.875
+    assert ms["fuse_volume_bilinear"] == 64.0 and ms["fuse_bricks_bilinear"] == 128.0  # B11
+    assert ms["skip_field_dense"] == 768.0 and ms["march_skip_dense"] == 1024.0  # B14a, B14b
+    assert ms["window_march_dense"] == 2048.0  # B14c
+    assert sum(ms.values()) == 51.875 + 64.0 + 128.0 + 768.0 + 1024.0 + 2048.0
 
 
 def test_compare_trees_profiles_the_forced_refresh(monkeypatch):

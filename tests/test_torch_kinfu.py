@@ -144,9 +144,10 @@ def test_default_device_needs_cuda():
         dict(fusion_mode="brick", fusion_classify_fine=True),
         dict(fusion_mode="brick", fusion_classify_split=True),
         dict(fusion_mode="brick", fusion_subcell_cap=64),
-        dict(raycast_march="skip"),
-        dict(raycast_normals="screen"),
-        dict(bi_interpolate_threshold=0.1),
+        dict(raycast_packed_taps=True),  # the dense layout's packed taps (ROADMAP A7)
+        dict(raycast_compact=True),  # the compacted skip march (A7)
+        # the brick layout's non-temporal marches (the next slice)
+        dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2"),
     ],
 )
 def test_options_outside_the_slice_raise(option):

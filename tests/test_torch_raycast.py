@@ -132,9 +132,11 @@ def test_model_maps(rendered, which):
 
 
 def test_other_march_modes_not_ported(rendered):
+    """The compacted skip march (``compact=True``, ROADMAP A7) raises; the
+    plain ``skip`` march is ported (tests/test_torch_dense_marches.py)."""
     tstate = rendered[1]
     with pytest.raises(NotImplementedError):
-        tray.raycast(tstate.volume, *([None] * 4), None, None, march_mode="skip")
+        tray.raycast(tstate.volume, *([None] * 4), None, None, march_mode="skip", compact=True)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -843,7 +843,10 @@ def test_use_gt_pose_brick_volume_equals_dense():
     (dict(BENCH, raycast_normals="tsdf"), ValueError),  # reuse needs screen normals (the JAX engine's check)
     (dict(BENCH, fusion_mode="dense"), ValueError),
     (dict(raycast_march="temporal"), ValueError),
-    (dict(raycast_normals="screen"), NotImplementedError),
+    # the brick layout's non-temporal marches with the secant2 refine (the next slice); the dense layout's
+    # screen normals, which this case once held, are ported
+    (dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2",
+          raycast_normals="screen"), NotImplementedError),
 ])
 def test_other_options_raise(option, error):
     with pytest.raises(error):

@@ -14,7 +14,7 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               int X, int Y, int Z, int H, int W,
                               float vs, float fx, float fy, float cx, float cy,
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
-                              void* stream);
+                              float bi_threshold, void* stream);
 extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const int* levels, int n_levels, int rows,
                              void* stream);
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
@@ -26,20 +26,21 @@ extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void*
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
-                              float max_w, int cap, int dense_on_overflow, int rows, void* stream);
+                              float max_w, int cap, int dense_on_overflow, int rows, float bi_threshold,
+                              void* stream);
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
                                float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
-                               float inv_fy, void* stream);
+                               float inv_fy, int dense, void* stream);
 extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, void* dist, int nbx, int nby, int nbz,
-                             void* stream);
+                             int dense, void* stream);
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             void* stream);
+                             int dense, void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
-                              int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
+                              int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, void* stream);
 extern "C" int xs_march_fixed_chain(const void* value, const void* start, const void* dirs, void* t_found,
                                     void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
@@ -99,10 +100,10 @@ int bilateral_filter(const torch::Tensor& depth, const torch::Tensor& weights, t
 
 int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
                 const torch::Tensor& pose, float vs, float fx, float fy, float cx, float cy, float inv_fx,
-                float inv_fy, float trunc, float inv_trunc, float max_w, int64_t stream) {
+                float inv_fy, float trunc, float inv_trunc, float max_w, float bi_threshold, int64_t stream) {
   return xs_fuse_volume(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
                         value.size(0), value.size(1), value.size(2), depth.size(0), depth.size(1),
-                        vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, as_stream(stream));
+                        vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold, as_stream(stream));
 }
 
 // levels: 4 ints a mip level (tile size, tiles down, tiles across, first row of the table)
@@ -138,36 +139,66 @@ int fuse_bricks(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
                 const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow, float vs,
                 float fx, float fy, float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                 float max_w, int64_t cap, bool dense_on_overflow, const std::vector<int64_t>& res, bool rows,
-                int64_t stream) {
+                float bi_threshold, int64_t stream) {
   if (res.size() != 3) return 1;  // cudaErrorInvalidValue
   return xs_fuse_bricks(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
                         cls.data_ptr(), rank.data_ptr(), work_ids.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
                         res[0], res[1], res[2], depth.size(0), depth.size(1), vs, fx, fy, cx, cy, inv_fx, inv_fy,
-                        trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, as_stream(stream));
+                        trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, bi_threshold,
+                        as_stream(stream));
 }
 
 // mask: NB bytes of scratch; dist: the (NB,) int32 distances out
-int skip_field(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, torch::Tensor dist,
-               int64_t nbx, int64_t nby, int64_t nbz, int64_t stream) {
-  return xs_skip_field(value.data_ptr(), weight.data_ptr(), mask.data_ptr(), dist.data_ptr(), nbx, nby, nbz,
+int skip_field_on(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, torch::Tensor dist,
+                  int64_t nbx, int64_t nby, int64_t nbz, int dense, int64_t stream) {
+  return xs_skip_field(value.data_ptr(), weight.data_ptr(), mask.data_ptr(), dist.data_ptr(), nbx, nby, nbz, dense,
                        as_stream(stream));
 }
 
+// the brick rows (B5a) or the dense planes of the same grid (B14a)
+int skip_field(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, torch::Tensor dist,
+               int64_t nbx, int64_t nby, int64_t nbz, int64_t stream) {
+  return skip_field_on(value, weight, mask, dist, nbx, nby, nbz, 0, stream);
+}
+
+int skip_field_dense(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, torch::Tensor dist,
+                     int64_t nbx, int64_t nby, int64_t nbz, int64_t stream) {
+  return skip_field_on(value, weight, mask, dist, nbx, nby, nbz, 1, stream);
+}
+
+int march_skip_on(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
+                  torch::Tensor t_found, torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride,
+                  int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell, float cx, float cy,
+                  float inv_fx, float inv_fy, int dense, int64_t stream) {
+  return xs_march_skip(value.data_ptr(), dist.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), nbx,
+                       nby, nbz, t_found.size(0), t_found.size(1), stride, n_steps, vs, inv_vs, step, steps_per_cell,
+                       cx, cy, inv_fx, inv_fy, dense, as_stream(stream));
+}
+
+// the brick rows (B5b) or the dense value plane (B14b)
 int march_skip(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose, torch::Tensor t_found,
                torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride, int64_t n_steps, float vs,
                float inv_vs, float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
                int64_t stream) {
-  return xs_march_skip(value.data_ptr(), dist.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), nbx,
-                       nby, nbz, t_found.size(0), t_found.size(1), stride, n_steps, vs, inv_vs, step, steps_per_cell,
-                       cx, cy, inv_fx, inv_fy, as_stream(stream));
+  return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, 0, stream);
 }
 
+int march_skip_dense(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
+                     torch::Tensor t_found, torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz,
+                     int64_t stride, int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell,
+                     float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
+  return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, 1, stream);
+}
+
+// t_found, t_dead: (H, W), the camera's every stride-th pixel in each axis
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
-                int64_t n_steps, float vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                int64_t stride, int64_t n_steps, float vs, float step, float cx, float cy, float inv_fx, float inv_fy,
                 int64_t stream) {
   return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
-                        value.size(1), value.size(2), t_found.size(0), t_found.size(1), n_steps, vs, step, cx, cy,
-                        inv_fx, inv_fy, as_stream(stream));
+                        value.size(1), value.size(2), t_found.size(0), t_found.size(1), stride, n_steps, vs, step, cx,
+                        cy, inv_fx, inv_fy, as_stream(stream));
 }
 
 int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
@@ -180,8 +211,21 @@ int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, co
 
 void* data_or_null(const std::optional<torch::Tensor>& t) { return t.has_value() ? t->data_ptr() : nullptr; }
 
+int window_march_on(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
+                    const torch::Tensor& anchor, const std::optional<torch::Tensor>& anchor_dead,
+                    const std::optional<torch::Tensor>& vmap_v, const std::optional<torch::Tensor>& vmap_g,
+                    torch::Tensor t_found, const std::optional<torch::Tensor>& t_dead, int64_t nbx, int64_t nby,
+                    int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride, int64_t window,
+                    float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
+                    float inv_fy, int dense, int64_t stream) {
+  return xs_window_march(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), anchor.data_ptr(),
+                         data_or_null(anchor_dead), data_or_null(vmap_v), data_or_null(vmap_g), t_found.data_ptr(),
+                         data_or_null(t_dead), nbx, nby, nbz, H, W, ch, cw, stride, window, vs, inv_vs, step,
+                         inv_step, cx, cy, inv_fx, inv_fy, dense, as_stream(stream));
+}
+
 // anchor, anchor_dead: the coarse hits, or anchor_dead None and anchor the map to pool; vmap_v, vmap_g: the
-// refine's (3, H, W) outputs, or None for the march alone (then t_dead is written)
+// refine's (3, H, W) outputs, or None for the march alone (then t_dead is written); the brick rows (B4)
 int window_march(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
                  const torch::Tensor& anchor, const std::optional<torch::Tensor>& anchor_dead,
                  const std::optional<torch::Tensor>& vmap_v, const std::optional<torch::Tensor>& vmap_g,
@@ -189,10 +233,20 @@ int window_march(const torch::Tensor& value, const torch::Tensor& grad, const to
                  int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride, int64_t window, float vs,
                  float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx, float inv_fy,
                  int64_t stream) {
-  return xs_window_march(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), anchor.data_ptr(),
-                         data_or_null(anchor_dead), data_or_null(vmap_v), data_or_null(vmap_g), t_found.data_ptr(),
-                         data_or_null(t_dead), nbx, nby, nbz, H, W, ch, cw, stride, window, vs, inv_vs, step,
-                         inv_step, cx, cy, inv_fx, inv_fy, as_stream(stream));
+  return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
+                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 0, stream);
+}
+
+// the same over the dense (X, Y, Z) planes (B14c)
+int window_march_dense(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
+                       const torch::Tensor& anchor, const std::optional<torch::Tensor>& anchor_dead,
+                       const std::optional<torch::Tensor>& vmap_v, const std::optional<torch::Tensor>& vmap_g,
+                       torch::Tensor t_found, const std::optional<torch::Tensor>& t_dead, int64_t nbx, int64_t nby,
+                       int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride, int64_t window,
+                       float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
+                       float inv_fy, int64_t stream) {
+  return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
+                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 1, stream);
 }
 
 // vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs; direct: an int32 counter of the normal samples read
@@ -352,8 +406,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("classify_bricks", &classify_bricks);
   m.def("fuse_bricks", &fuse_bricks);
   m.def("window_march", &window_march);
+  m.def("window_march_dense", &window_march_dense);
   m.def("skip_field", &skip_field);
+  m.def("skip_field_dense", &skip_field_dense);
   m.def("march_skip", &march_skip);
+  m.def("march_skip_dense", &march_skip_dense);
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("raycast_refine", &raycast_refine);

@@ -75,7 +75,10 @@
 //   side by side, storing the updated ones alone. FAR and FAR_PARTIAL: K2's
 //   gate, then the update the exact one saturates to, (v w + 1) / (w + 1)
 //   and (g w + 0) / (w + 1), with no depth read. ACTIVE with rank < cap:
-//   K2's exact update. An ACTIVE brick past the cap stays unfused (the "flag"
+//   K2's exact update (with bi_threshold > 0 its bilinear branch, B11:
+//   fuse_bricks_kernel<ROWS, true>, as xslam_tpu/ops/fusion_brick.py:726-729
+//   passes bi_threshold to _voxel_update; the classes and the FAR pass are
+//   the nearest branch's, as there). An ACTIVE brick past the cap stays unfused (the "flag"
 //   overflow). With dense_on_overflow the kernel reads the flag and, where it
 //   is set, updates every brick of the volume exactly: K2's result from the
 //   pre-frame volume, with no host read. The per-voxel arithmetic is
@@ -704,7 +707,7 @@ __device__ __forceinline__ void update_voxel(float* s_v, float* s_g, float* s_w,
   *s_w = w;
 }
 
-template <bool ROWS>
+template <bool ROWS, bool BILINEAR>
 __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
     fuse_bricks_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
                        const float* __restrict__ depth, const float* __restrict__ pose, const int* __restrict__ cls,
@@ -775,11 +778,17 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
         const xs::VoxelView o0 = xs::voxel_view(dual_pose, p, sums0, gz), o1 = xs::voxel_view(dual_pose, p, sums1, gz);
         float t0v = xs::BEYOND_V, t0g = xs::BEYOND_G, t1v = xs::BEYOND_V, t1g = xs::BEYOND_G;
         bool ok0 = o0.gated, ok1 = o1.gated;
-        if (exact) {
+        if (exact && BILINEAR) {  // B11: the dual depth of fusion.cuh::bilinear_depth
+          float d0v = 0.0f, d0g = 0.0f, d1v = 0.0f, d1g = 0.0f;
+          if (ok0) xs::bilinear_depth(depth, p, o0, d0v, d0g);
+          if (ok1) xs::bilinear_depth(depth, p, o1, d1v, d1g);
+          ok0 = xs::sample_at<true>(d0v, d0g, p, o0, t0v, t0g) && ok0;
+          ok1 = xs::sample_at<true>(d1v, d1g, p, o1, t1v, t1g) && ok1;
+        } else if (exact) {
           const float d0 = ok0 ? __ldg(depth + xs::depth_index(o0, p)) : 0.0f;
           const float d1 = ok1 ? __ldg(depth + xs::depth_index(o1, p)) : 0.0f;
-          ok0 = xs::sample_at(d0, p, o0, t0v, t0g) && ok0;
-          ok1 = xs::sample_at(d1, p, o1, t1v, t1g) && ok1;
+          ok0 = xs::sample_at<false>(d0, 0.0f, p, o0, t0v, t0g) && ok0;
+          ok1 = xs::sample_at<false>(d1, 0.0f, p, o1, t1v, t1g) && ok1;
         }
         update_voxel(s_v + s0 + z, s_g + s0 + z, s_w + s0 + z, ok0, t0v, t0g, p.max_w);
         update_voxel(s_v + s1 + z, s_g + s1 + z, s_w + s1 + z, ok1, t1v, t1g, p.max_w);
@@ -896,41 +905,59 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
 
 // value, grad, weight: the (X, Y, Z) planes, each extent a multiple of 8, or with rows the (NB, 512) brick rows
 // of such a volume; cls, rank, work_ids, totals, overflow: classify_bricks' outputs; dense_on_overflow: 1 to
-// update every brick exactly where overflow is set
+// update every brick exactly where overflow is set; bi_threshold > 0: the exact update samples the depth
+// bilinearly (B11)
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
-                              float max_w, int cap, int dense_on_overflow, int rows, void* stream) {
+                              float max_w, int cap, int dense_on_overflow, int rows, float bi_threshold,
+                              void* stream) {
   if (X % BRICK || Y % BRICK || Z % BRICK) return (int)cudaErrorInvalidValue;
   const uintptr_t planes = reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(grad) |
                            reinterpret_cast<uintptr_t>(weight);
   if (planes % 16) return (int)cudaErrorMisalignedAddress;  // the column runs are loaded 16 bytes at a time
-  static int grid[2][64] = {};  // per variant and device: as many blocks as its SMs hold at once
+  static int grid[4][64] = {};  // per variant and device: as many blocks as its SMs hold at once
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
-  const int v = rows ? 1 : 0;
+  const bool bilinear = bi_threshold > 0.0f;
+  const int v = (rows ? 1 : 0) + (bilinear ? 2 : 0);
+  const void* kernel = rows ? (bilinear ? (const void*)fuse_bricks_kernel<true, true>
+                                        : (const void*)fuse_bricks_kernel<true, false>)
+                            : (bilinear ? (const void*)fuse_bricks_kernel<false, true>
+                                        : (const void*)fuse_bricks_kernel<false, false>);
   if (grid[v][dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rows)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fuse_bricks_kernel<true>, FUSE_THREADS, 0);
-    else
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fuse_bricks_kernel<false>, FUSE_THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FUSE_THREADS, 0);
     grid[v][dev] = sms * (per_sm > 0 ? per_sm : 1);
     if (grid[v][dev] <= 0) return (int)cudaErrorInvalidValue;
   }
-  const xs::FuseParams p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w};
-  if (rows)
-    fuse_bricks_kernel<true><<<grid[v][dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
-        (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, cap,
-        dense_on_overflow, p);
+  const xs::FuseParams p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold};
+  float* pv = (float*)value;
+  float* pg = (float*)grad;
+  float* pw = (float*)weight;
+  const float* pd = (const float*)depth;
+  const float* pp = (const float*)pose;
+  const int* pc = (const int*)cls;
+  const int* pr = (const int*)rank;
+  const int* pi = (const int*)work_ids;
+  const int* pt = (const int*)totals;
+  const unsigned char* po = (const unsigned char*)overflow;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n = grid[v][dev];
+  if (rows && bilinear)
+    fuse_bricks_kernel<true, true><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
+                                                              dense_on_overflow, p);
+  else if (rows)
+    fuse_bricks_kernel<true, false><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
+                                                               dense_on_overflow, p);
+  else if (bilinear)
+    fuse_bricks_kernel<false, true><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
+                                                               dense_on_overflow, p);
   else
-    fuse_bricks_kernel<false><<<grid[v][dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
-        (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, cap,
-        dense_on_overflow, p);
+    fuse_bricks_kernel<false, false><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
+                                                                dense_on_overflow, p);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // K2: dual TSDF fusion of one depth frame, in place.
 //
 // Replaces the XLA code of xslam_tpu/ops/fusion.py::_voxel_update, nearest-
-// depth branch (bi_threshold <= 0), called from fusion.integrate; reference
+// depth branch (bi_threshold <= 0) and, as fuse_kernel<true>, its bilinear
+// branch (B11, fusion.cuh::bilinear_depth), called from fusion.integrate; reference
 // TsdfFusion.cu:85-171. Per voxel: dual camera coordinates from the dual
 // volume->camera pose; the in-front test and the pixel gate floor(img - 0.5)
 // in (1, W-1) x (1, H-1); the nearest depth at round(img) (rintf: half to
@@ -83,6 +84,7 @@ __device__ __forceinline__ bool tile_outside(const float* __restrict__ pose, con
   return all_outside;
 }
 
+template <bool BILINEAR>
 __global__ void __launch_bounds__(LANES_Z * TILE_Y)
 fuse_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
             const float* __restrict__ depth, const float* __restrict__ pose, Params p) {
@@ -101,7 +103,7 @@ fuse_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restri
     for (int z = z0 + threadIdx.x; z < z_end; z += LANES_Z) {
       const xs::VoxelView o = xs::voxel_view(dual_pose, p, sums, xs::voxel_centre(z, p.vs));
       if (!o.gated) continue;
-      xs::fuse_gated_voxel(value, grad, weight, depth, p, o, ((size_t)x * p.Y + y) * p.Z + z);
+      xs::fuse_gated_voxel<BILINEAR>(value, grad, weight, depth, p, o, ((size_t)x * p.Y + y) * p.Z + z);
     }
   }
 }
@@ -112,12 +114,17 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               int X, int Y, int Z, int H, int W,
                               float vs, float fx, float fy, float cx, float cy,
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
-                              void* stream) {
-  const Params p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w};
+                              float bi_threshold, void* stream) {
+  const Params p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold};
   const dim3 block(LANES_Z, TILE_Y);
   const dim3 grid((Z + TILE_Z - 1) / TILE_Z, (Y + TILE_Y - 1) / TILE_Y, (X + TILE_X - 1) / TILE_X);
   if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
-  fuse_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((float*)value, (float*)grad, (float*)weight,
-                                                        (const float*)depth, (const float*)pose, p);
+  // the bilinear branch where bi_threshold > 0 (xslam_tpu/ops/fusion.py:145), the nearest one elsewhere
+  if (bi_threshold > 0.0f)
+    fuse_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>((float*)value, (float*)grad, (float*)weight,
+                                                                (const float*)depth, (const float*)pose, p);
+  else
+    fuse_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>((float*)value, (float*)grad, (float*)weight,
+                                                                 (const float*)depth, (const float*)pose, p);
   return (int)cudaGetLastError();
 }

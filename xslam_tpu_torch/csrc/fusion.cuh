@@ -2,8 +2,8 @@
 // dense pass) and B3c (bricks.cu, the brick pass), so that a voxel's gate
 // and update have the same bits in both.
 //
-// Port of xslam_tpu/ops/fusion.py::_voxel_update, nearest-depth branch
-// (reference TsdfFusion.cu:85-171): dual camera coordinates of the voxel,
+// Port of xslam_tpu/ops/fusion.py::_voxel_update (reference
+// TsdfFusion.cu:85-171), both branches: dual camera coordinates of the voxel,
 // summed ((a + b) + c) + t; the in-front test and the pixel gate
 // floor(img - 0.5) in (1, W-1) x (1, H-1); the nearest depth at round(img)
 // (rintf: half to even, as jnp.round); the dual SDF dp * sqrt(lambda^2) -
@@ -12,6 +12,17 @@
 // order, one rounding at a time (the sources build with -fmad=false); terms
 // that the reference multiplies by a lifted constant's zero derivative are
 // dropped, which changes no finite result.
+//
+// B11, the bilinear branch (bi_threshold > 0; xslam_tpu/ops/sampling.py::
+// bilinear_depth_sample): the 2x2 corner block at floor(img - 0.5), which the
+// unchanged pixel gate keeps inside the image; where the block's spread is
+// below the threshold and no corner is 0, the interpolant in DUAL image
+// coordinates (the weights carry the derivative lane, so the SDF gets a term
+// through the depth sample), else the nearest depth with a zero derivative.
+// A template flag (BILINEAR) selects it at compile time: the nearest
+// branch's code is unchanged. It reads four more depths a voxel (L2-resident:
+// the image is 1.2 MB) and does some 40 more operations; the kernels stay
+// bound as before (K2 by operations, B3c by bytes).
 
 #pragma once
 
@@ -19,11 +30,14 @@
 
 #include <cstddef>
 
+#include "dual.cuh"
+
 namespace xs {
 
 struct FuseParams {
   int X, Y, Z, H, W;
   float vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w;
+  float bi_threshold;  // float32(bi_threshold), read by the bilinear branch only
 };
 
 // The 24 pose floats of the dual volume->camera pose: R.v (row-major 3x3),
@@ -110,11 +124,46 @@ __device__ __forceinline__ int depth_index(const VoxelView& o, const FuseParams&
   return __float2int_rn(o.iyv) * p.W + __float2int_rn(o.ixv);
 }
 
-// The TSDF sample of a gated voxel from its nearest depth dv: the dual SDF
-// and the truncation gate. Computed whatever dv is; false where dv is not
-// positive or the voxel lies beyond the band behind the surface: the voxel
-// is then left as it is.
-__device__ __forceinline__ bool sample_at(float dv, const FuseParams& p, const VoxelView& o, float& tsv, float& tsg) {
+// B11: the dual depth (dv, dg) of a gated voxel with bilinear sampling, as
+// bilinear_depth_sample computes it: the corners (cy, cx), (cy, cx + 1) = d10,
+// (cy + 1, cx) = d01 and (cy + 1, cx + 1); the spread max - min of the four;
+// where it is below the threshold and every corner is nonzero, the dual
+// weights a = img_x - (cx + 0.5), b likewise, and the four dual products
+// summed left to right (d00 (1-a)(1-b) + d10 a(1-b) + d01 (1-a) b + d11 a b,
+// each corner lifted to a constant dual); else the nearest depth and 0.
+__device__ __forceinline__ void bilinear_depth(const float* __restrict__ depth, const FuseParams& p,
+                                               const VoxelView& o, float& dv, float& dg) {
+  const float cxf = floorf(o.ixv - 0.5f), cyf = floorf(o.iyv - 0.5f);
+  const int at = (int)cyf * p.W + (int)cxf;  // the gate keeps the block inside the image
+  const float d00 = __ldg(depth + at), d10 = __ldg(depth + at + 1);
+  const float d01 = __ldg(depth + at + p.W), d11 = __ldg(depth + at + p.W + 1);
+  const float d_near = __ldg(depth + depth_index(o, p));
+  const float spread = fmaxf(fmaxf(d00, d01), fmaxf(d10, d11)) - fminf(fminf(d00, d01), fminf(d10, d11));
+  const bool use = spread < p.bi_threshold && d00 != 0.0f && d01 != 0.0f && d10 != 0.0f && d11 != 0.0f;
+  if (!use) {
+    dv = d_near;
+    dg = 0.0f;
+    return;
+  }
+  const Dual a = {o.ixv - (cxf + 0.5f), o.ixg - 0.0f}, b = {o.iyv - (cyf + 0.5f), o.iyg - 0.0f};
+  const Dual oma = lift(1.0f) - a, omb = lift(1.0f) - b;
+  Dual s = (oma * omb) * lift(d00);
+  s = s + (a * omb) * lift(d10);
+  s = s + (oma * b) * lift(d01);
+  s = s + (a * b) * lift(d11);
+  dv = s.v;
+  dg = s.g;
+}
+
+// The TSDF sample of a gated voxel from its depth (dv, dg): the dual SDF and
+// the truncation gate. The nearest branch's depth has no derivative lane
+// (BILINEAR false: dg is not read); the bilinear branch's product dp * sqrt(
+// lambda^2) takes it, dg * slv + dv * slg. Computed whatever dv is; false
+// where dv is not positive or the voxel lies beyond the band behind the
+// surface: the voxel is then left as it is.
+template <bool BILINEAR>
+__device__ __forceinline__ bool sample_at(float dv, float dg, const FuseParams& p, const VoxelView& o, float& tsv,
+                                          float& tsg) {
   // lambda^2 = xl^2 + yl^2 + 1 with xl = (img_x - cx) / fx
   const float xlv = (o.ixv - p.cx) * p.inv_fx, xlg = o.ixg * p.inv_fx;
   const float ylv = (o.iyv - p.cy) * p.inv_fy, ylg = o.iyg * p.inv_fy;
@@ -131,22 +180,27 @@ __device__ __forceinline__ bool sample_at(float dv, const FuseParams& p, const V
   const float sng = (0.5f * ng) / snv;
 
   const float sdfv = dv * slv - snv;
-  const float sdfg = dv * slg - sng;
+  const float sdfg = BILINEAR ? (dg * slv + dv * slg) - sng : dv * slg - sng;
   const bool beyond = sdfv > p.trunc;  // constant 1 + 0i past +trunc
   tsv = beyond ? BEYOND_V : sdfv * p.inv_trunc;
   tsg = beyond ? BEYOND_G : sdfg * p.inv_trunc;
   return dv > 0.0f && sdfv >= -p.trunc;
 }
 
-// The exact update of a gated voxel in the planes: its nearest depth, its
-// sample, then the running average. Writes nothing where the depth is 0 or
-// sample_at says so.
+// The exact update of a gated voxel in the planes: its depth (the nearest,
+// or with BILINEAR B11's dual sample), its sample, then the running average.
+// Writes nothing where the depth is 0 or sample_at says so.
+template <bool BILINEAR>
 __device__ __forceinline__ void fuse_gated_voxel(float* __restrict__ value, float* __restrict__ grad,
                                                  float* __restrict__ weight, const float* __restrict__ depth,
                                                  const FuseParams& p, const VoxelView& o, size_t idx) {
-  const float dv = depth[depth_index(o, p)];
+  float dv, dg = 0.0f;
+  if (BILINEAR)
+    bilinear_depth(depth, p, o, dv, dg);
+  else
+    dv = depth[depth_index(o, p)];
   float tsv, tsg;
-  if (!(dv > 0.0f) || !sample_at(dv, p, o, tsv, tsg)) return;
+  if (!(dv > 0.0f) || !sample_at<BILINEAR>(dv, dg, p, o, tsv, tsg)) return;
   float v = value[idx], g = grad[idx], w = weight[idx];
   average(v, g, w, tsv, tsg, p.max_w);
   value[idx] = v;

@@ -7,7 +7,12 @@
 // the value plane + 1e-5 (the reference's read bias, kept) and records the
 // march time t_curr of the step's START sample for the first +->- crossing
 // (t_found) and the first death (t_dead: a volume exit, or a -->+ step). 1e9
-// where no event.
+// where no event. With `stride` s > 1 (ops/raycast.py's hierarchical marches)
+// it marches the rays of every s-th pixel of the camera in each axis, the
+// JAX package's ray_dir[:, ::s, ::s] (xslam_tpu/ops/raycast.py:546-550,
+// :570-573): the output is (ceil(H / s), ceil(W / s)) and output pixel (x, y)
+// is the ray of camera pixel (s x, s y), made as at stride 1, so it has the
+// full march's bits there.
 //
 // Bound on the H100: instruction throughput. The bytes are few (the distinct
 // voxels the rays touch, 96 bytes of pose in and 8 bytes out per ray) and the
@@ -117,7 +122,7 @@ __device__ __forceinline__ float first_sample(const Volume& vol, const float s[3
 
 __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
     march_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
-                 float* __restrict__ t_dead_out, int H, int W, int n_steps, float step, xs::Camera cam) {
+                 float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step, xs::Camera cam) {
   __shared__ float c2v[24];
   const int tid = threadIdx.x;
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
@@ -127,7 +132,7 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   if (x >= W || y >= H) return;
 
   xs::Dual dir[3];
-  xs::camera_ray(c2v, (float)x, (float)y, cam, dir);
+  xs::camera_ray(c2v, (float)(x * stride), (float)(y * stride), cam, dir);
   const float s[3] = {c2v[18], c2v[19], c2v[20]};
   const float d[3] = {dir[0].v, dir[1].v, dir[2].v};
   float t_found = INF_T, t_dead = INF_T;
@@ -211,15 +216,16 @@ __global__ void march_chain_kernel(const float* __restrict__ value, const float*
 
 }  // namespace
 
+// H, W: the output's size, the camera's every stride-th pixel in each axis
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
-                              int Z, int H, int W, int n_steps, float vs, float step, float cx, float cy,
+                              int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, void* stream) {
-  if ((long long)X * Y * Z >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if ((long long)X * Y * Z >= (1ll << 31) || stride < 1) return (int)cudaErrorInvalidValue;
   const Volume vol{(const float*)value, X, Y, Z, vs};
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
   const dim3 grid((W + xs::BLOCK_W - 1) / xs::BLOCK_W, (H + xs::BLOCK_H - 1) / xs::BLOCK_H);
   march_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
-      vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, n_steps, step, cam);
+      vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam);
   return (int)cudaGetLastError();
 }
 

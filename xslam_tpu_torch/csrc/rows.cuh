@@ -1,7 +1,9 @@
 // The brick-major volume (ops/bricks.py) as the kernels address it: a
 // plane of (NB, 512) rows, row b = (bx * nby + by) * nbz + bz of the 8^3
 // bricks, lane (x & 7) << 6 | (y & 7) << 3 | (z & 7). Shared by B3c's row
-// variant (bricks.cu), B4 (window.cu) and B5 (skip.cu).
+// variant (bricks.cu), B4 (window.cu) and B5 (skip.cu). Their dense
+// variants (B14: window.cu, skip.cu with DENSE) address the (X, Y, Z) planes
+// of the same grid instead, voxel (x * Y + y) * Z + z (voxel_index<true>).
 
 #pragma once
 
@@ -25,6 +27,18 @@ __host__ __device__ inline Rows make_rows(int nbx, int nby, int nbz) {
 __device__ __forceinline__ unsigned row_index(const Rows& r, int x, int y, int z) {
   const unsigned b = ((unsigned)(x >> 3) * (unsigned)r.nby + (unsigned)(y >> 3)) * (unsigned)r.nbz + (unsigned)(z >> 3);
   return b * (unsigned)BRICK_LANES + ((unsigned)(x & 7) << 6 | (unsigned)(y & 7) << 3 | (unsigned)(z & 7));
+}
+
+// a voxel inside the volume: its element in the (X, Y, Z) planes (DENSE) or in the brick rows
+template <bool DENSE>
+__device__ __forceinline__ unsigned voxel_index(const Rows& r, int x, int y, int z) {
+  if (DENSE) return ((unsigned)x * (unsigned)r.Y + (unsigned)y) * (unsigned)r.Z + (unsigned)z;
+  return row_index(r, x, y, z);
+}
+
+// the brick of a voxel inside the volume, (bx * nby + by) * nbz + bz, whatever the layout
+__device__ __forceinline__ unsigned brick_of(const Rows& r, int x, int y, int z) {
+  return ((unsigned)(x >> 3) * (unsigned)r.nby + (unsigned)(y >> 3)) * (unsigned)r.nbz + (unsigned)(z >> 3);
 }
 
 __device__ __forceinline__ bool in_volume(const Rows& r, const int g[3]) {

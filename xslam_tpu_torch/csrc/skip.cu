@@ -39,6 +39,21 @@
 //   designs measured: a thread a ray in blocks of 256, 64, 32; 4, 8, 16 lanes
 //   a ray; the ray set up by every lane or by lane 0.)
 //
+// B14a and B14b, their dense variants (DENSE: the volume's (X, Y, Z) planes,
+// voxel (x * Y + y) * Z + z; rows.cuh::voxel_index<true>), replace the XLA
+// code of xslam_tpu/ops/raycast.py::brick_distance_field + skip_volume and
+// of ::march_skip over the dense volume (the `skip` march, and `hier_skip`'s
+// coarse pass at stride 2, ::march_hier with weight). B14a's mask: a warp a
+// brick as above, lane pairs reading a z run of 8 voxels 16 bytes each; the
+// distance kernel is the same. The output is the same (NB,) int32 distance,
+// in the same brick order: plain version ops/raycast.py::brick_distance_field
+// (ops/bricks.py::distance_grid of the dense event mask). B14b reads the
+// value plane at the voxel and the distance at its brick; a cell at distance
+// >= 2 reads JUMP_BASE + dist + 1e-5, as skip_volume's packed copy + 1e-5
+// does, which it does not write (67 MB at 256^3). Plain version: ops/
+// raycast.py::march_skip_plain over skip_volume. Bound: as B5a (both planes
+// once) and B5b (each ray's chain of dependent loads).
+//
 // Divisions by a host number are multiplies by the reciprocal taken in
 // double, as PyTorch's CUDA operator computes them (built with -fmad=false),
 // so the events are the plain version's bits on the card.
@@ -65,18 +80,28 @@ constexpr int MASK_WARPS = 8;         // bricks of an event_mask block, a warp e
 constexpr int TX = 8, TY = 8, TZ = 4;  // bricks of a skip_distance block, a thread each
 constexpr int HX = TX + 2 * DIST_CAP, HY = TY + 2 * DIST_CAP, HZ = TZ + 2 * DIST_CAP;
 
+// float4 i (0..127) of brick b: in the rows 16 contiguous bytes of its row; in the dense planes (DENSE) half
+// i & 1 of the z run of column i >> 1 (x offset (i >> 1) >> 3, y offset (i >> 1) & 7)
+template <bool DENSE>
+__device__ __forceinline__ size_t brick_float4(const xs::Rows& r, int b, int i) {
+  if (!DENSE) return (size_t)b * xs::BRICK_LANES + 4 * i;
+  const int bz = b % r.nbz, by = (b / r.nbz) % r.nby, bx = b / (r.nby * r.nbz), c = i >> 1;
+  return ((size_t)(bx * xs::BRICK_EDGE + (c >> 3)) * r.Y + by * xs::BRICK_EDGE + (c & 7)) * r.Z +
+         bz * xs::BRICK_EDGE + 4 * (i & 1);
+}
+
+template <bool DENSE>
 __global__ void __launch_bounds__(32 * MASK_WARPS)
     event_mask_kernel(const float* __restrict__ value, const float* __restrict__ weight,
-                      unsigned char* __restrict__ mask, int n) {
+                      unsigned char* __restrict__ mask, const xs::Rows r, int n) {
   const int b = blockIdx.x * MASK_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (b >= n) return;
-  const float4* v4 = reinterpret_cast<const float4*>(value + (size_t)b * xs::BRICK_LANES);
-  const float4* w4 = reinterpret_cast<const float4*>(weight + (size_t)b * xs::BRICK_LANES);
   float4 v[4], w[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    v[q] = __ldg(v4 + lane + 32 * q);
-    w[q] = __ldg(w4 + lane + 32 * q);
+    const size_t at = brick_float4<DENSE>(r, b, lane + 32 * q);
+    v[q] = __ldg(reinterpret_cast<const float4*>(value + at));
+    w[q] = __ldg(reinterpret_cast<const float4*>(weight + at));
   }
   bool any = false;
 #pragma unroll
@@ -89,6 +114,9 @@ __global__ void __launch_bounds__(32 * MASK_WARPS)
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
+// the same code for both layouts (the mask is in brick order either way); DENSE only names the instantiation, so a
+// profile tells B14a's launches from B5a's
+template <bool DENSE>
 __global__ void __launch_bounds__(TX* TY* TZ)
     skip_distance_kernel(const unsigned char* __restrict__ mask, int* __restrict__ dist, int nbx, int nby, int nbz) {
   __shared__ unsigned char s[HX * HY * HZ];
@@ -121,24 +149,26 @@ struct SkipParams {
   xs::Camera cam;
 };
 
-// the packed rows' sample at voxel g: JUMP_BASE + dist in a brick at distance >= 2, the value elsewhere; 0
-// outside the volume; + 1e-5
+// the packed rows' (or with DENSE the packed planes') sample at voxel g: JUMP_BASE + dist in a brick at
+// distance >= 2, the value elsewhere; 0 outside the volume; + 1e-5
+template <bool DENSE>
 __device__ __forceinline__ float packed_sample(const float* __restrict__ value, const int* __restrict__ dist,
                                                const SkipParams& p, const int g[3], bool inside) {
   if (!inside) return 0.0f + TAP_BIAS;
-  const unsigned at = xs::row_index(p.r, g[0], g[1], g[2]);
-  const int d = __ldg(dist + (at >> 9));
+  const unsigned at = xs::voxel_index<DENSE>(p.r, g[0], g[1], g[2]);
+  const int d = __ldg(dist + (DENSE ? xs::brick_of(p.r, g[0], g[1], g[2]) : at >> 9));
   return (d >= 2 ? JUMP_BASE + (float)d : __ldg(value + at)) + TAP_BIAS;
 }
 
 // the sample of step k (at 0.2 + (k + 1) step) and whether its voxel lies inside the volume
+template <bool DENSE>
 __device__ __forceinline__ float step_sample(const float* __restrict__ value, const int* __restrict__ dist,
                                              const SkipParams& p, const float s[3], const float d[3], int k,
                                              bool& inside) {
   int g[3];
   xs::sample_voxel(s, d, RAY_MIN + ((float)k + 1.0f) * p.step, p.inv_vs, g);
   inside = xs::in_volume(p.r, g);
-  return packed_sample(value, dist, p, g, inside);
+  return packed_sample<DENSE>(value, dist, p, g, inside);
 }
 
 // the steps a jump from sample c takes: max(1, floor((dist - 1) * steps_per_cell))
@@ -155,6 +185,7 @@ __device__ __forceinline__ void ray_direction(const float* c2v, int x, int y, co
 }
 
 // the first sample: its voxel clamped into the volume, capped at 1.0 (packed cells read as free space)
+template <bool DENSE>
 __device__ __forceinline__ float first_sample(const float* __restrict__ value, const int* __restrict__ dist,
                                               const SkipParams& p, const float s[3], const float d[3]) {
   int g[3];
@@ -162,7 +193,7 @@ __device__ __forceinline__ float first_sample(const float* __restrict__ value, c
   g[0] = min(max(g[0], 0), p.r.X - 1);
   g[1] = min(max(g[1], 0), p.r.Y - 1);
   g[2] = min(max(g[2], 0), p.r.Z - 1);
-  return fminf(packed_sample(value, dist, p, g, true), 1.0f);
+  return fminf(packed_sample<DENSE>(value, dist, p, g, true), 1.0f);
 }
 
 // LANES lanes a ray (a warp), MARCH_THREADS / LANES rays a block, the rays in image order; the block's first warp
@@ -175,6 +206,7 @@ __device__ __forceinline__ float first_sample(const float* __restrict__ value, c
 // inside the round, the replay goes on from there; past it, the next round starts at that step; with no jumping
 // lane it starts at k0 + LANES with prev the last lane's sample. Each step's test reads the numbers the serial
 // loop's reads, so the events are its bits.
+template <bool DENSE>
 __global__ void __launch_bounds__(MARCH_THREADS)
     march_skip_kernel(const float* __restrict__ value, const int* __restrict__ dist, const float* __restrict__ pose,
                       float* __restrict__ t_found_out, float* __restrict__ t_dead_out, const SkipParams p) {
@@ -194,12 +226,12 @@ __global__ void __launch_bounds__(MARCH_THREADS)
   const unsigned shift = (tid & 31) & ~(LANES - 1), group = LANE_BITS << shift;  // the ray's lanes in the warp
   const float s[3] = {c2v[18], c2v[19], c2v[20]};
   const float d[3] = {dirs[slot][0], dirs[slot][1], dirs[slot][2]};
-  float prev = first_sample(value, dist, p, s, d);
+  float prev = first_sample<DENSE>(value, dist, p, s, d);
   float t_found = INF_T, t_dead = INF_T;
   for (int k0 = 0;;) {
     const int k = k0 + j;
     bool inside;
-    const float c = step_sample(value, dist, p, s, d, k, inside);
+    const float c = step_sample<DENSE>(value, dist, p, s, d, k, inside);
     const bool can_jump = inside && c >= JUMP_BASE - 0.5f;
     const int jump = can_jump ? jump_steps(c, p) : 1;
     const float left = __shfl_up_sync(group, c, 1, LANES);  // lane j - 1's sample
@@ -244,35 +276,51 @@ __global__ void __launch_bounds__(MARCH_THREADS)
 
 }  // namespace
 
-// value, weight: the (NB, 512) brick rows, 16-byte aligned; mask: NB bytes of scratch; dist: NB int32 out
+// value, weight: the (NB, 512) brick rows or, with dense, the (X, Y, Z) planes of the same grid, 16-byte aligned;
+// mask: NB bytes of scratch; dist: NB int32 out
 extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, void* dist, int nbx, int nby, int nbz,
-                             void* stream) {
+                             int dense, void* stream) {
   const long long n = (long long)nbx * nby * nbz;
   if (nbx < 1 || nby < 1 || nbz < 1 || n * xs::BRICK_LANES >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(weight)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
-  event_mask_kernel<<<(unsigned)((n + MASK_WARPS - 1) / MASK_WARPS), 32 * MASK_WARPS, 0, s>>>(
-      (const float*)value, (const float*)weight, (unsigned char*)mask, (int)n);
+  const xs::Rows r = xs::make_rows(nbx, nby, nbz);
+  const unsigned blocks = (unsigned)((n + MASK_WARPS - 1) / MASK_WARPS);
+  if (dense)
+    event_mask_kernel<true><<<blocks, 32 * MASK_WARPS, 0, s>>>((const float*)value, (const float*)weight,
+                                                               (unsigned char*)mask, r, (int)n);
+  else
+    event_mask_kernel<false><<<blocks, 32 * MASK_WARPS, 0, s>>>((const float*)value, (const float*)weight,
+                                                                (unsigned char*)mask, r, (int)n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nbx + TX - 1) / TX, (nby + TY - 1) / TY, (nbz + TZ - 1) / TZ);
-  skip_distance_kernel<<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
+  if (dense)
+    skip_distance_kernel<true><<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
+  else
+    skip_distance_kernel<false><<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
   return (int)cudaGetLastError();
 }
 
-// value: the (NB, 512) value rows; dist: skip_field's (NB,) distances; pose: the 48 packed floats; t_found,
-// t_dead: (H, W), the march's every stride-th pixel of the camera
+// value: the (NB, 512) value rows or, with dense, the (X, Y, Z) value plane; dist: skip_field's (NB,) distances;
+// pose: the 48 packed floats; t_found, t_dead: (H, W), the march's every stride-th pixel of the camera
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             void* stream) {
+                             int dense, void* stream) {
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
   if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || n_steps < 1) return (int)cudaErrorInvalidValue;
   const SkipParams p{xs::make_rows(nbx, nby, nbz), H, W, stride, n_steps, vs, inv_vs, step, steps_per_cell,
                      xs::Camera{cx, cy, inv_fx, inv_fy}};
   constexpr int RAYS = MARCH_THREADS / LANES;
-  march_skip_kernel<<<(H * W + RAYS - 1) / RAYS, MARCH_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)dist, (const float*)pose, (float*)t_found, (float*)t_dead, p);
+  const unsigned blocks = (unsigned)((H * W + RAYS - 1) / RAYS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dense)
+    march_skip_kernel<true><<<blocks, MARCH_THREADS, 0, s>>>((const float*)value, (const int*)dist,
+                                                             (const float*)pose, (float*)t_found, (float*)t_dead, p);
+  else
+    march_skip_kernel<false><<<blocks, MARCH_THREADS, 0, s>>>((const float*)value, (const int*)dist,
+                                                              (const float*)pose, (float*)t_found, (float*)t_dead, p);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,14 @@
 // the world, NaN value and zero derivative where rejected; and t_found.
 // Without it: t_found and t_dead (the refresh's half level).
 //
+// B14c, its dense variant (window_march_kernel<true>: the (X, Y, Z) value
+// plane, rows.cuh::voxel_index<true>), replaces the XLA code of
+// xslam_tpu/ops/raycast.py::_window_repair over the dense volume, as
+// ::march_hier (:518, with and without weight) and ::march_hier2 (:555) call
+// it: anchors from the coarse hits (anchor_dead given), strides 1 and 2, no
+// refine (the dense layout refines with K5). Plain version: ops/raycast.py::
+// _window_repair with the dense reader. Bound: as B4's half level.
+//
 // Every operation follows the plain version one rounding at a time (built
 // with -fmad=false): a division by a host number (p / voxel, (t - 0.2) /
 // step, (f1 - f0) / step) is a multiply by its reciprocal taken in double, as
@@ -93,9 +101,10 @@ __device__ __forceinline__ float coarse_event(const float* __restrict__ anchor, 
   return m;
 }
 
+template <bool DENSE>
 __device__ __forceinline__ float read_voxel(const float* __restrict__ value, const xs::Rows& r, const int g[3],
                                             bool inside) {
-  return (inside ? __ldg(value + xs::row_index(r, g[0], g[1], g[2])) : 0.0f) + TAP_BIAS;
+  return (inside ? __ldg(value + xs::voxel_index<DENSE>(r, g[0], g[1], g[2])) : 0.0f) + TAP_BIAS;
 }
 
 // ops/raycast.py::trilinear_tsdf_shard's cell at one point (K5's rule): the base shifted down below the voxel
@@ -122,14 +131,15 @@ __device__ __forceinline__ Cell cell_at(const WindowParams& p, const Dual pt[3])
   return c;
 }
 
-// the dual trilinear at a cell inside the volume: eight taps (value + 1e-5, grad) of the brick rows, weighted
-// and added in the plain version's order, the first not added to 0
+// the dual trilinear at a cell inside the volume: eight taps (value + 1e-5, grad) of the brick rows (or the
+// dense planes), weighted and added in the plain version's order, the first not added to 0
+template <bool DENSE>
 __device__ __forceinline__ Dual trilinear(const float* __restrict__ value, const float* __restrict__ grad,
                                           const WindowParams& p, const Cell& c) {
   Dual tap[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const unsigned at = xs::row_index(p.r, c.b[0] + (k >> 2), c.b[1] + ((k >> 1) & 1), c.b[2] + (k & 1));
+    const unsigned at = xs::voxel_index<DENSE>(p.r, c.b[0] + (k >> 2), c.b[1] + ((k >> 1) & 1), c.b[2] + (k & 1));
     tap[k] = {__ldg(value + at) + TAP_BIAS, __ldg(grad + at)};
   }
   Dual res = tap[0] * ((c.w1[0] * c.w1[1]) * c.w1[2]);
@@ -153,6 +163,7 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
+template <bool DENSE>
 __global__ void __launch_bounds__(WINDOW_THREADS)
     window_march_kernel(const float* __restrict__ value, const float* __restrict__ grad,
                         const float* __restrict__ pose, const float* __restrict__ anchor,
@@ -191,7 +202,7 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
     g[0] = min(max(g[0], 0), p.r.X - 1);
     g[1] = min(max(g[1], 0), p.r.Y - 1);
     g[2] = min(max(g[2], 0), p.r.Z - 1);
-    float prev = read_voxel(value, p.r, g, true);
+    float prev = read_voxel<DENSE>(value, p.r, g, true);
     // the reference's loop condition is on t_curr (RayCaster.cu:236): past 5 m no step is live again
     for (int base = 0; base < p.window && t_begin + (float)base * p.step < RAY_MAX; base += BATCH) {
       float smp[BATCH];
@@ -203,7 +214,7 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
         xs::sample_voxel(s, d, t_curr + p.step, p.inv_vs, g);
         live[j] = k < p.window && t_curr < RAY_MAX;
         inside[j] = xs::in_volume(p.r, g);
-        smp[j] = read_voxel(value, p.r, g, live[j] && inside[j]);
+        smp[j] = read_voxel<DENSE>(value, p.r, g, live[j] && inside[j]);
       }
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) {
@@ -251,7 +262,7 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
     pt[i] = start[i] + dir[i] * lift(ts0);
   }
   const Cell c = cell_at(p, pt);
-  const Dual F = c.ok ? trilinear(value, grad, p, c) : Dual{xs::quiet_nan(), 0.0f};
+  const Dual F = c.ok ? trilinear<DENSE>(value, grad, p, c) : Dual{xs::quiet_nan(), 0.0f};
   const bool ok = !isnan(F.v) && fabsf(F.v) <= -slope * p.step;
   if (!ok) {
     store3(vmap_v, vmap_g, HW, pix, false, none);
@@ -270,14 +281,15 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
 
 }  // namespace
 
-// value, grad: the (NB, 512) brick rows; pose: the 48 packed floats; anchor, anchor_dead: the coarse (ch, cw)
-// hits, or anchor_dead null and anchor the (H, W) map to pool (ch = H / 2, cw = W / 2); vmap_v, vmap_g: the
-// (3, H, W) refine outputs, or null for none (then t_dead is written); t_found, t_dead: (H, W)
+// value, grad: the (NB, 512) brick rows or, with dense, the (X, Y, Z) planes of the same grid; pose: the 48
+// packed floats; anchor, anchor_dead: the coarse (ch, cw) hits, or anchor_dead null and anchor the (H, W) map to
+// pool (ch = H / 2, cw = W / 2); vmap_v, vmap_g: the (3, H, W) refine outputs, or null for none (then t_dead is
+// written); t_found, t_dead: (H, W)
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
                                float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
-                               float inv_fy, void* stream) {
+                               float inv_fy, int dense, void* stream) {
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
   if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || window < 0) return (int)cudaErrorInvalidValue;
   if ((vmap_v == nullptr) != (vmap_g == nullptr) || (vmap_v == nullptr && t_dead == nullptr))
@@ -285,8 +297,15 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
   if (2 * ch < H || 2 * cw < W) return (int)cudaErrorInvalidValue;
   const WindowParams p{xs::make_rows(nbx, nby, nbz), H, W, ch, cw, stride, window, vs, inv_vs, step, inv_step,
                        xs::Camera{cx, cy, inv_fx, inv_fy}};
-  window_march_kernel<<<xs::tile_grid<WINDOW_THREADS>(H, W), WINDOW_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)value, (const float*)grad, (const float*)pose, (const float*)anchor, (const float*)anchor_dead,
-      (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
+  const dim3 grid = xs::tile_grid<WINDOW_THREADS>(H, W);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dense)
+    window_march_kernel<true><<<grid, WINDOW_THREADS, 0, s>>>(
+        (const float*)value, (const float*)grad, (const float*)pose, (const float*)anchor, (const float*)anchor_dead,
+        (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
+  else
+    window_march_kernel<false><<<grid, WINDOW_THREADS, 0, s>>>(
+        (const float*)value, (const float*)grad, (const float*)pose, (const float*)anchor, (const float*)anchor_dead,
+        (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
   return (int)cudaGetLastError();
 }

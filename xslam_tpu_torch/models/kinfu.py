@@ -1,15 +1,18 @@
 """The KinectFusion-style differentiable SLAM engine.
 
 Port of ``xslam_tpu/models/kinfu.py`` in two configurations. The dense volume
-(fixed march, ``secant2`` refine, TSDF normals), with dense or brick fusion
-(``fusion_mode``; the coarse brick classifier, ``fusion_overflow`` ``"flag"``
-or ``"dense"``). And ``bench.py``'s: the brick-major volume
-(``volume_layout="brick"``, :mod:`xslam_tpu_torch.ops.bricks`) with brick
-fusion, the temporal march with its ``hier2`` refresh, the ``reuse`` refine
-and screen normals (:mod:`xslam_tpu_torch.ops.raycast_bricks`). Both take the
-model maps at any ``model_map_level``, nearest-depth fusion, and the ICP
-association computed every iteration or once per level (``icp_fixed_assoc``).
-Each frame runs:
+(every march of ``raycast.MARCH_MODES``: ``fixed``, ``skip``, ``hier``,
+``hier_skip``, ``hier2``; the ``secant2`` refine; TSDF or screen normals),
+with dense or brick fusion (``fusion_mode``; the coarse brick classifier,
+``fusion_overflow`` ``"flag"`` or ``"dense"``). And ``bench.py``'s: the
+brick-major volume (``volume_layout="brick"``, :mod:`xslam_tpu_torch.ops.bricks`)
+with brick fusion, the temporal march with its ``hier2`` refresh, the ``reuse``
+refine and screen normals (:mod:`xslam_tpu_torch.ops.raycast_bricks`). Both
+take the model maps at any ``model_map_level``, nearest or bilinear depth
+sampling in fusion (``bi_interpolate_threshold``), and the ICP association
+computed every iteration or once per level (``icp_fixed_assoc``).
+:meth:`XSlamEngine.process_frames` runs a stack of frames, a loop of
+:meth:`XSlamEngine.process_frame`. Each frame runs:
 
 1. bilateral filter (kernel K1), the depth pyramid (K7, one launch for its
    coarser levels), vertex and normal maps of every level (K8, one launch);
@@ -19,14 +22,15 @@ Each frame runs:
    K4, with no other device work between the launches;
 3. TSDF fusion when the frame aligned, in place: kernel K2, or with
    ``fusion_mode="brick"`` the mip table (B3a), the bricks' classes (B3b)
-   and the brick pass (B3c), which give K2's volume bit for bit (on the brick
-   layout in its rows, B3c's row variant);
-4. raycast of the model maps (the poses packed once, march kernel K3,
+   and the brick pass (B3c), which give K2's volume bit for bit with the
+   nearest depth (on the brick layout in its rows, B3c's row variant); with
+   ``bi_interpolate_threshold > 0`` K2 and B3c take the bilinear branch, B11;
+4. raycast of the model maps (the poses packed once; the march: K3, or the
+   dense layout's B14 kernels, :func:`xslam_tpu_torch.ops.raycast.raycast`;
    refine kernel K5; on the brick layout the anchored window march with the
    refine B4, or on a refresh frame the skip field B5a, the skip march B5b
    and B4 twice) and their pyramid (K6, one launch for all coarser levels;
-   on the brick layout the same launch computes level 0's screen normals,
-   B4n).
+   with screen normals the same launch computes level 0's normals, B4n).
 
 On CPU tensors every wrapper runs its plain PyTorch version instead.
 
@@ -103,8 +107,9 @@ _SLICE = {
     "raycast_compact": (False,),
     "raycast_temporal_phase1": (0,),
 }
-# the raycast of each volume layout (march, refine, normals); the other combinations raise
-_RAYCAST = {"dense": ("fixed", "secant2", "tsdf"), "brick": ("temporal", "reuse", "screen")}
+# the raycasts of each volume layout: (marches, refines, normals); the other combinations raise
+_RAYCAST = {"dense": (raycast.MARCH_MODES, ("secant2",), ("tsdf", "screen")),
+            "brick": (("temporal",), ("reuse",), ("screen",))}
 
 
 def _check_config(config: SlamConfig) -> None:
@@ -119,12 +124,13 @@ def _check_config(config: SlamConfig) -> None:
     for key, allowed in _SLICE.items():
         if getattr(config, key) not in allowed:
             raise NotImplementedError(f"{key}={getattr(config, key)!r} is not ported yet (only {allowed!r})")
+    if config.volume_layout == "dense" and config.raycast_march not in raycast.MARCH_MODES:
+        raise ValueError(f"unknown raycast march_mode {config.raycast_march!r}; expected one of "
+                         f"{raycast.MARCH_MODES}")  # the JAX raycast's own check
     chosen = (config.raycast_march, config.raycast_refine, config.raycast_normals)
-    if chosen != _RAYCAST[config.volume_layout]:
-        raise NotImplementedError(f"the {config.volume_layout} layout's raycast is ported as (march, refine, "
+    if not all(c in allowed for c, allowed in zip(chosen, _RAYCAST[config.volume_layout])):
+        raise NotImplementedError(f"the {config.volume_layout} layout's raycast is ported as (marches, refines, "
                                   f"normals) = {_RAYCAST[config.volume_layout]}, not {chosen}")
-    if config.bi_interpolate_threshold > 0:
-        raise NotImplementedError("bilinear depth sampling (biInterpolate_threshold > 0) is not ported yet")
 
 
 def _device(device, owner: str = "XSlamEngine") -> torch.device:
@@ -203,6 +209,26 @@ class XSlamEngine:
             world2volume=self.world2volume, volume2world=self.volume2world,
         )
 
+    def process_frames(self, state: SlamState, depths_u16, gt_poses: Optional[np.ndarray] = None,
+                       unroll: bool = False) -> Tuple[SlamState, FrameResult]:
+        """Track and fuse a (K, H, W) stack of frames (``xslam_tpu/models/
+        kinfu.py::process_frames``): the per-frame step over the stack with
+        the state carried, here a loop of :meth:`process_frame`, so its
+        results are K calls' bit for bit. ``depths_u16`` as
+        :meth:`process_frame` takes a frame: a host array, or a uint16 tensor
+        on the engine's device; ``gt_poses`` (K, 4, 4) c2w where the config
+        sets ``use_gt_pose``. ``unroll`` is the JAX signature's (its
+        ``lax.scan`` unrolled) and changes nothing here: PyTorch runs eagerly,
+        so the loop is the same either way. Returns the final state and a
+        :class:`FrameResult` with a leading K axis (:func:`stack_results`).
+        The volume of ``state`` is updated in place."""
+        del unroll
+        results = []
+        for k in range(len(depths_u16)):
+            state, res = self.process_frame(state, depths_u16[k], None if gt_poses is None else gt_poses[k])
+            results.append(res)
+        return state, stack_results(results)
+
     def log_pose(self, result: FrameResult):
         self.pose_log.append(result.camera2world.v.cpu().numpy())
 
@@ -212,6 +238,31 @@ class XSlamEngine:
         if self.config.volume_layout == "brick":
             return bricks.to_dense(state.volume, self.vol_cfg.resolution)
         return state.volume
+
+
+def stack_results(results) -> FrameResult:
+    """K frames' :class:`FrameResult` as one with a leading K axis: the pose
+    (K, 4, 4) dual, the flags and counts (K,). ``fusion_active``: None where
+    no frame has one (dense fusion), else (K,) int32 with -1 at the frames
+    that were not fused; ``anchor_coverage``: None off the temporal march,
+    else (K,)."""
+    def stacked(name):
+        return torch.stack([getattr(r, name) for r in results])
+
+    active = [r.fusion_active for r in results]
+    if all(a is None for a in active):
+        fusion_active = None
+    else:
+        dev = results[0].align_ok.device
+        fusion_active = torch.stack([torch.full((), -1, dtype=torch.int32, device=dev) if a is None
+                                     else a.to(torch.int32) for a in active])
+    return FrameResult(
+        camera2world=CSFD(torch.stack([r.camera2world.v for r in results]),
+                          torch.stack([r.camera2world.g for r in results])),
+        align_ok=stacked("align_ok"), inlier_count=stacked("inlier_count"), fusion_overflow=stacked("fusion_overflow"),
+        fusion_active=fusion_active,
+        anchor_coverage=None if results[0].anchor_coverage is None else stacked("anchor_coverage"),
+    )
 
 
 # --------------------------------------------------------------------------
@@ -364,7 +415,7 @@ def process_frame(
                 fuse = fusion.integrate_rows if config.volume_layout == "brick" else fusion.integrate_brick
                 flag, n_active = fuse(
                     state.volume, depth_m, r_v2c, t_v2c, intr, vol_cfg, cap=config.fusion_brick_cap,
-                    overflow=config.fusion_overflow,
+                    overflow=config.fusion_overflow, bi_threshold=config.bi_interpolate_threshold,
                 )
                 if config.fusion_overflow == "flag":
                     overflow = flag
@@ -384,9 +435,11 @@ def process_frame(
             )
             nmap0 = None  # the screen normals: computed by the pyramid's launch
         else:
+            # with screen normals nmap0 is None: the pyramid's launch computes them (B4n)
             vmap0, nmap0 = raycast.raycast(
                 volume, *poses, intr.level(L), vol_cfg, normals_mode=config.raycast_normals,
-                march_mode=config.raycast_march, packed_taps=config.raycast_packed_taps,
+                march_mode=config.raycast_march, hier_window=config.raycast_hier_window,
+                packed_taps=config.raycast_packed_taps, compact=config.raycast_compact,
             )
         vmaps_prev, nmaps_prev = model_map_pyramid(vmap0, nmap0, levels)
 
@@ -418,7 +471,8 @@ def model_map_pyramid(vmap0: CSFD, nmap0: Optional[CSFD], levels: int) -> Tuple[
     from registers into the means), at most ``kernels.MAX_MAP_LEVELS``
     levels in all; the coarser levels' maps are views of one buffer
     (``kernels.map_pyramid_views`` with four maps a level: v.v, v.g, n.v,
-    n.g), and level 0's given maps stay the tensors given."""
+    n.g), and level 0's given maps stay the tensors given. Both layouts' screen normals
+    (``raycast_normals="screen"``) come this way."""
     if levels < 1:
         raise ValueError(f"levels: expected at least 1, got {levels}")
     maps = (vmap0.v, vmap0.g) + (() if nmap0 is None else (nmap0.v, nmap0.g))

@@ -5,7 +5,11 @@ Port of ``xslam_tpu/ops/fusion.py`` (reference ``TsdfFusion.cu``,
 tsdf), grad (Im tsdf) and weight. The per-voxel update is kernel K2
 (:func:`xslam_tpu_torch.ops.kernels.fuse_volume`), which rewrites the
 volume in place; its plain version is
-:func:`xslam_tpu_torch.ops.kernels.fuse_volume_plain`. The kernel skips the
+:func:`xslam_tpu_torch.ops.kernels.fuse_volume_plain`. ``bi_threshold > 0``
+takes the reference's bilinear depth sample
+(:func:`xslam_tpu_torch.ops.sampling.bilinear_depth_sample`; B11 in K2 and
+in the brick pass), whose dual weights give the volume's derivative lane a
+term through the depth. The kernel skips the
 tiles of the volume that the camera cannot see; :func:`tile_keep_mask` is
 that test's plain twin, which the tests hold against the plain update.
 
@@ -79,15 +83,13 @@ def integrate(
     (``tsdfFusionKernal``, TsdfFusion.cu:85-171) and return it.
 
     ``r_v2c``/``t_v2c`` are the dual volume->camera rotation ((3,3)) and
-    translation ((3,)). Only the nearest-depth branch is ported
-    (``bi_threshold <= 0``, the canonical configuration)."""
-    if bi_threshold > 0.0:
-        raise NotImplementedError("bilinear depth sampling (bi_threshold > 0) is not ported yet")
+    translation ((3,)). ``bi_threshold <= 0`` (the canonical configuration)
+    samples the nearest depth, above 0 the bilinear one."""
     if tuple(vol.value.shape) != tuple(cfg.resolution):
         raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
     kernels.fuse_volume(
         vol.value, vol.grad, vol.weight, depth_m, r_v2c, t_v2c, intr,
-        cfg.voxel_size, cfg.trunc_dist, cfg.max_weight,
+        cfg.voxel_size, cfg.trunc_dist, cfg.max_weight, bi_threshold,
     )
     return vol
 
@@ -104,10 +106,12 @@ def integrate_brick(
     cfg: VolumeConfig,
     cap: int,
     overflow: str = "flag",
+    bi_threshold: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse one scaled depth frame into the volume IN PLACE, brick by brick
     (port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick`` with the
-    coarse classifier; nearest-depth branch): the mip table (B3a), the
+    coarse classifier; ``bi_threshold`` as :func:`integrate`'s, read by the
+    exact update of the ACTIVE bricks alone, as there): the mip table (B3a), the
     bricks' classes and lists (B3b), the fusion pass (B3c). Returns
     ``(overflowed, n_active)``, device tensors: whether the frame had more
     than ``cap`` ACTIVE bricks, and how many it had.
@@ -119,7 +123,7 @@ def integrate_brick(
     fusion."""
     if tuple(vol.value.shape) != tuple(cfg.resolution):
         raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
-    return _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow)
+    return _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold)
 
 
 def integrate_rows(
@@ -131,6 +135,7 @@ def integrate_rows(
     cfg: VolumeConfig,
     cap: int,
     overflow: str = "flag",
+    bi_threshold: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`integrate_brick` on a brick-major volume
     (:class:`xslam_tpu_torch.ops.bricks.BrickVolume`, ``(NB, 512)`` rows), IN
@@ -142,16 +147,16 @@ def integrate_rows(
     nbx, nby, nbz = fusion_brick._check_resolution(cfg.resolution)
     if tuple(bvol.value.shape) != (nbx * nby * nbz, fusion_brick.BRICK ** 3):
         raise ValueError(f"brick rows {tuple(bvol.value.shape)} do not hold a {cfg.resolution} volume")
-    return _fuse_by_bricks(bvol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow)
+    return _fuse_by_bricks(bvol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold)
 
 
-def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow):
+def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold):
     if overflow not in OVERFLOW_MODES:
         raise ValueError(f"overflow: expected one of {OVERFLOW_MODES}, got {overflow!r}")
     pose = kernels.fusion_pose(r_v2c, t_v2c)
     table = fusion_brick.depth_mips(depth_m)
     classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap)
-    fusion_brick.fuse_bricks(*vol, depth_m, pose, intr, cfg, classes, cap, overflow == "dense")
+    fusion_brick.fuse_bricks(*vol, depth_m, pose, intr, cfg, classes, cap, overflow == "dense", bi_threshold)
     return classes.overflow, classes.totals[0]
 
 

@@ -29,7 +29,14 @@ kernel on CUDA tensors, never falling back:
   counts and the overflow flag, all on the device, in one launch;
 - B3c :func:`fuse_bricks` (plain :func:`fuse_bricks_plain`, the port of
   ``_integrate_rows_core`` with ``subcell_cap=0`` over ``to_bricks`` rows):
-  the FAR pass and the exact update of the ACTIVE bricks, in place.
+  the FAR pass and the exact update of the ACTIVE bricks, in place; with
+  ``bi_threshold > 0`` the exact update samples the depth bilinearly (B11,
+  count ``fuse_bricks_bilinear``), as ``_integrate_rows_core`` passes its
+  ``bi_threshold`` to ``_voxel_update``. The classes and the FAR pass are the
+  nearest branch's there as here: the classifier's proofs allow the nearest
+  sample's half pixel, not the bilinear block's, so under bilinear sampling
+  the result may part from :func:`xslam_tpu_torch.ops.fusion.integrate`'s
+  where the JAX package's parts.
 
 On the card the classifier follows PyTorch's CUDA division by a host number
 (a multiply by the reciprocal taken in double) and so equals its plain
@@ -424,7 +431,7 @@ def _is_rows(value: torch.Tensor) -> bool:
 
 
 def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
-                      dense_on_overflow: bool) -> None:
+                      dense_on_overflow: bool, bi_threshold: float = 0.0) -> None:
     """Plain version of B3c, IN PLACE: the port of ``_integrate_rows_core``
     with ``subcell_cap=0`` over brick rows, the planes' own when they are
     ``(NB, 512)`` rows (the brick layout), else :func:`to_bricks` of the
@@ -433,13 +440,13 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
     exact update (:func:`kernels.voxel_update_plain`); with
     ``dense_on_overflow`` an overflowing frame takes the exact update at every
     voxel instead, from the pre-frame volume (the JAX engine's rerun with
-    every brick in the cap)."""
+    every brick in the cap). ``bi_threshold`` as the exact update's."""
     r_v2c, t_v2c = kernels.unpack_fusion_pose(pose)
     rows = _is_rows(value)
     res = tuple(cfg.resolution)
     if dense_on_overflow and bool(classes.overflow) and not rows:
         kernels.fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, cfg.voxel_size, cfg.trunc_dist,
-                                  cfg.max_weight)
+                                  cfg.max_weight, bi_threshold)
         return
     nbx, nby, nbz = _check_resolution(res)
     vs = cfg.voxel_size
@@ -460,7 +467,7 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
     every = torch.arange(vb.shape[0], device=dev)
     if dense_on_overflow and bool(classes.overflow):  # brick rows: the exact update everywhere
         new = kernels.voxel_update_plain(*coords(every), vb, gb, wb, depth_m, r_v2c, t_v2c, intr, cfg.trunc_dist,
-                                         cfg.max_weight)
+                                         cfg.max_weight, bi_threshold)
         for plane, updated in zip((value, grad, weight), new):
             plane.copy_(updated)
         return
@@ -489,7 +496,7 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
     if ids.numel():
         gx, gy, gz = coords(ids)
         new = kernels.voxel_update_plain(gx, gy, gz, vb[ids], gb[ids], wb[ids], depth_m, r_v2c, t_v2c, intr,
-                                         cfg.trunc_dist, cfg.max_weight)
+                                         cfg.trunc_dist, cfg.max_weight, bi_threshold)
         for plane_rows, updated in zip((vb, gb, wb), new):
             plane_rows[ids] = updated
     for plane, plane_rows in zip((value, grad, weight), (vb, gb, wb)):
@@ -497,7 +504,7 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
 
 
 def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
-                dense_on_overflow: bool) -> None:
+                dense_on_overflow: bool, bi_threshold: float = 0.0) -> None:
     """B3c: fuse the frame into the planes IN PLACE, brick by brick as
     ``classes`` says (:func:`fuse_bricks_plain`'s contract): dense ``(X, Y,
     Z)`` planes or brick-major ``(NB, 512)`` rows, the kernel's row variant,
@@ -506,7 +513,8 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     overflow flag on the device and, where it is set, updates every brick
     exactly."""
     if kernels.on_cpu(value, grad, weight, depth_m, pose, classes.cls):
-        fuse_bricks_plain(value, grad, weight, depth_m, pose, intr, cfg, classes, cap, dense_on_overflow)
+        fuse_bricks_plain(value, grad, weight, depth_m, pose, intr, cfg, classes, cap, dense_on_overflow,
+                          bi_threshold)
         return
     nbx, nby, nbz = _check_resolution(cfg.resolution)
     rows = _is_rows(value)
@@ -524,6 +532,6 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     kernels.launch(
         "fuse_bricks", value.device, value, grad, weight, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
         classes.totals, classes.overflow, *kernels.fusion_args(intr, cfg.voxel_size, cfg.trunc_dist, cfg.max_weight),
-        int(cap), bool(dense_on_overflow), list(cfg.resolution), rows,
+        int(cap), bool(dense_on_overflow), list(cfg.resolution), rows, kernels.bilinear_arg(bi_threshold),
     )
-    kernels.launch_counts["fuse_bricks"] += 1
+    kernels.launch_counts["fuse_bricks_bilinear" if bi_threshold > 0 else "fuse_bricks"] += 1

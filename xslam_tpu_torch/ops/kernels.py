@@ -8,11 +8,15 @@ launches every kernel of the package and holds the wrappers of five:
   ``xslam_tpu/ops/pallas_kernels.py::bilateral_filter_pallas``; its plain
   version is :func:`xslam_tpu_torch.ops.preprocess.bilateral_filter`.
 - K2 :func:`fuse_volume` (``csrc/fusion.cu``) replaces the XLA code of
-  ``xslam_tpu/ops/fusion.py::_voxel_update`` (nearest-depth branch); plain
-  version :func:`fuse_volume_plain`.
+  ``xslam_tpu/ops/fusion.py::_voxel_update``: the nearest-depth branch and,
+  with ``bi_threshold > 0``, the bilinear one (B11,
+  ``csrc/fusion.cuh::bilinear_depth``; count ``fuse_volume_bilinear``);
+  plain version :func:`fuse_volume_plain`.
 - K3 :func:`march_fixed` (``csrc/march.cu``) replaces the XLA code of
-  ``xslam_tpu/ops/raycast.py::_camera_rays`` and ``::march``; plain version
-  :func:`camera_rays` then :func:`march_fixed_plain`.
+  ``xslam_tpu/ops/raycast.py::_camera_rays`` and ``::march``, also along the
+  rays of every ``stride``-th pixel (the hierarchical marches' coarse
+  passes; count ``march_fixed_strided``); plain version :func:`camera_rays`
+  then :func:`march_fixed_plain`.
 - K7 :func:`depth_pyramid` and K8 :func:`vertex_normal_pyramid`
   (``csrc/maps.cu``) replace the XLA code of
   ``xslam_tpu/ops/preprocess.py::pyr_down`` applied level after level and of
@@ -70,7 +74,7 @@ from ..csfd import vec3
 from ..csfd.single import CSFD, lift, sqrt
 from ..geometry.intrinsics import Intrinsics
 from . import preprocess
-from .sampling import gather2d, gather3d, to_index
+from .sampling import bilinear_depth_sample, gather2d, gather3d, to_index
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -90,10 +94,12 @@ BILATERAL_TABLE_FLOATS = 27 * 448  # K1's weight table (csrc/bilateral.cu)
 MAX_MAP_LEVELS = 3  # K6's and K8's levels in one launch (csrc/maps.cu); the ICP runs at most 3
 
 launch_counts = {
-    "bilateral_filter": 0, "fuse_volume": 0, "march_fixed": 0, "icp_system": 0, "icp_associate": 0,
+    "bilateral_filter": 0, "fuse_volume": 0, "fuse_volume_bilinear": 0, "march_fixed": 0,
+    "march_fixed_strided": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
-    "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0,
+    "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0, "fuse_bricks_bilinear": 0,
     "model_map_normals": 0, "window_march": 0, "skip_field": 0, "march_skip": 0, "extract_points": 0,
+    "skip_field_dense": 0, "march_skip_dense": 0, "window_march_dense": 0,
     "tsdf_loss": 0, "tsdf_band": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
 }
@@ -294,16 +300,20 @@ def fuse_volume(
     voxel_size: float,
     trunc_dist: float,
     max_weight: float,
+    bi_threshold: float = 0.0,
 ) -> None:
     """Fuse one scaled depth frame (metres) into the dual TSDF volume, IN
     PLACE: ``value``, ``grad`` and ``weight`` ((X, Y, Z) float32) are
     overwritten at every voxel the frame updates.
 
     ``r_v2c``/``t_v2c``: dual volume->camera rotation (3, 3) and translation
-    (3,). Nearest-depth branch of the reference (``bi_threshold <= 0``)."""
+    (3,). ``bi_threshold <= 0``: the reference's nearest-depth branch; above
+    0, its bilinear branch (:func:`~xslam_tpu_torch.ops.sampling.
+    bilinear_depth_sample`; on the card ``fuse_kernel<true>``, B11)."""
     pose = fusion_pose(r_v2c, t_v2c)
     if on_cpu(value, grad, weight, depth_m, pose):
-        fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight)
+        fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight,
+                          bi_threshold)
         return
     X, Y, Z = value.shape
     for t, n in ((value, "value"), (grad, "grad"), (weight, "weight")):
@@ -311,8 +321,8 @@ def fuse_volume(
     check_tensor(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
     check_tensor(pose, "pose", torch.float32, (FUSION_POSE_FLOATS,))
     launch("fuse_volume", value.device, value, grad, weight, depth_m, pose,
-           *fusion_args(intr, voxel_size, trunc_dist, max_weight))
-    launch_counts["fuse_volume"] += 1
+           *fusion_args(intr, voxel_size, trunc_dist, max_weight), bilinear_arg(bi_threshold))
+    launch_counts["fuse_volume_bilinear" if bi_threshold > 0 else "fuse_volume"] += 1
 
 
 def fusion_pose(r_v2c: CSFD, t_v2c: CSFD) -> torch.Tensor:
@@ -337,25 +347,36 @@ def fusion_args(intr: Intrinsics, voxel_size: float, trunc_dist: float, max_weig
             f32(trunc_dist), f32(1.0 / trunc_dist), f32(max_weight))
 
 
-def fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight):
+def bilinear_arg(bi_threshold: float) -> float:
+    """The threshold as the fusion kernels take it: ``float32(bi_threshold)``
+    where it selects the bilinear branch (``> 0``), else 0 (the nearest
+    branch)."""
+    return f32(bi_threshold) if bi_threshold > 0 else 0.0
+
+
+def fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight,
+                      bi_threshold: float = 0.0):
     """Plain version of K2: the port of ``xslam_tpu/ops/fusion.py::integrate``
-    with ``_voxel_update``'s nearest-depth branch (TsdfFusion.cu:85-171),
-    written back in place like the kernel."""
+    (``_voxel_update``, TsdfFusion.cu:85-171), written back in place like the
+    kernel."""
     X, Y, Z = value.shape
     dev = value.device
     gx = ((torch.arange(X, dtype=torch.float32, device=dev) + 0.5)[:, None, None] * voxel_size)
     gy = ((torch.arange(Y, dtype=torch.float32, device=dev) + 0.5)[None, :, None] * voxel_size)
     gz = ((torch.arange(Z, dtype=torch.float32, device=dev) + 0.5)[None, None, :] * voxel_size)
-    new = voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight)
+    new = voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight,
+                             bi_threshold)
     for plane, updated in zip((value, grad, weight), new):
         plane.copy_(updated)
 
 
-def voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight):
-    """The port of ``xslam_tpu/ops/fusion.py::_voxel_update``, nearest-depth
-    branch: voxel metric coordinates (any broadcastable shapes) and the
-    matching planes in, the updated ``(value, grad, weight)`` out (new
-    tensors). K2's and the brick pass's per-voxel arithmetic."""
+def voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight,
+                       bi_threshold: float = 0.0):
+    """The port of ``xslam_tpu/ops/fusion.py::_voxel_update``: voxel metric
+    coordinates (any broadcastable shapes) and the matching planes in, the
+    updated ``(value, grad, weight)`` out (new tensors). K2's and the brick
+    pass's per-voxel arithmetic; ``bi_threshold > 0`` takes the bilinear
+    branch (:func:`~xslam_tpu_torch.ops.sampling.bilinear_depth_sample`)."""
 
     def R(i, j):
         return CSFD(r_v2c.v[i, j], r_v2c.g[i, j])
@@ -375,14 +396,17 @@ def voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, i
     image_x = vcx * intr.fx * inv_z + intr.cx
     image_y = vcy * intr.fy * inv_z + intr.cy
 
-    # pixel gate at floor(img - 0.5), nearest fetch at round(img): the
-    # reference's pair, kept (TsdfFusion.cu:120-143)
-    H, W = depth_m.shape
-    cxf = torch.floor(image_x.v - 0.5)
-    cyf = torch.floor(image_y.v - 0.5)
-    in_bounds = (cxf > 1) & (cyf > 1) & (cxf < W - 1) & (cyf < H - 1)
-    d_near = gather2d(depth_m, to_index(torch.round(image_y.v)), to_index(torch.round(image_x.v)))
-    dp = CSFD(d_near, torch.zeros_like(d_near))
+    if bi_threshold > 0.0:
+        dp, in_bounds = bilinear_depth_sample(depth_m, image_x, image_y, bi_threshold)
+    else:
+        # pixel gate at floor(img - 0.5), nearest fetch at round(img): the
+        # reference's pair, kept (TsdfFusion.cu:120-143)
+        H, W = depth_m.shape
+        cxf = torch.floor(image_x.v - 0.5)
+        cyf = torch.floor(image_y.v - 0.5)
+        in_bounds = (cxf > 1) & (cyf > 1) & (cxf < W - 1) & (cyf < H - 1)
+        d_near = gather2d(depth_m, to_index(torch.round(image_y.v)), to_index(torch.round(image_x.v)))
+        dp = CSFD(d_near, torch.zeros_like(d_near))
 
     # back-project the sampled pixel ray point and take the norm difference
     # (TsdfFusion.cu:144-149)
@@ -444,31 +468,43 @@ def camera_rays(r_c2v: CSFD, t_c2v: CSFD, intr: Intrinsics) -> Tuple[CSFD, CSFD]
     return CSFD(dir_v, ray_dir.g), t_c2v
 
 
-def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel_size: float, trunc_dist: float):
+def strided(n: int, stride: int) -> int:
+    """The pixels of every ``stride``-th one of ``n``: ``len(range(0, n, stride))``."""
+    return (n + stride - 1) // stride
+
+
+def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel_size: float, trunc_dist: float,
+                stride: int = 1):
     """Lockstep fixed-trip ray march over the value plane (RayCaster.cu:226-247)
     along the camera rays of ``intr`` at the packed pose (:func:`pack_ray_pose`;
-    its camera->volume half is read, value lanes only).
+    its camera->volume half is read, value lanes only); with ``stride`` > 1
+    along the rays of every ``stride``-th pixel in each axis, the JAX
+    package's ``ray_dir[:, ::stride, ::stride]``.
 
-    Returns ``(t_found, t_dead)``, each (H, W) float32: the march time of the
-    first +->- crossing and of the first death (volume exit or -->+ step),
-    ``INF_T`` where none."""
+    Returns ``(t_found, t_dead)``, each (ceil(H / stride), ceil(W / stride))
+    float32: the march time of the first +->- crossing and of the first death
+    (volume exit or -->+ step), ``INF_T`` where none."""
+    if stride < 1:
+        raise ValueError(f"stride: expected at least 1, got {stride}")
     if on_cpu(value, pose):
         r_c2v, t_c2v = unpack_ray_pose(pose)[:2]
         ray_dir, ray_start = camera_rays(r_c2v, t_c2v, intr)
-        return march_fixed_plain(value, ray_start, ray_dir, voxel_size, trunc_dist)
+        dirs = CSFD(ray_dir.v[:, ::stride, ::stride], ray_dir.g[:, ::stride, ::stride])
+        return march_fixed_plain(value, ray_start, dirs, voxel_size, trunc_dist)
     if value.dim() != 3:
         raise ValueError(f"value: expected (X, Y, Z), got {tuple(value.shape)}")
     check_tensor(value, "value", torch.float32)
     if value.numel() >= 1 << 31:
         raise ValueError(f"value: K3 indexes the volume with 32 bits, got {value.numel()} voxels")
     check_tensor(pose, "pose", torch.float32, (RAY_POSE_FLOATS,))
-    t_found = torch.empty((intr.height, intr.width), dtype=torch.float32, device=value.device)
+    t_found = torch.empty((strided(intr.height, stride), strided(intr.width, stride)), dtype=torch.float32,
+                          device=value.device)
     t_dead = torch.empty_like(t_found)
     launch(
-        "march_fixed", value.device, value, pose, t_found, t_dead, march_steps(trunc_dist), f32(voxel_size),
+        "march_fixed", value.device, value, pose, t_found, t_dead, stride, march_steps(trunc_dist), f32(voxel_size),
         f32(trunc_dist * 0.8), *camera_args(intr),
     )
-    launch_counts["march_fixed"] += 1
+    launch_counts["march_fixed" if stride == 1 else "march_fixed_strided"] += 1
     return t_found, t_dead
 
 

@@ -1,15 +1,27 @@
 """TSDF raycasting: render the model vertex/normal maps from a camera pose.
 
-Port of the dense fixed-march path of ``xslam_tpu/ops/raycast.py``
-(reference ``RayCaster.cu``): the camera rays and the march are kernel K3
-(:func:`xslam_tpu_torch.ops.kernels.march_fixed`, plain version
-:func:`~xslam_tpu_torch.ops.kernels.camera_rays` then
-:func:`~xslam_tpu_torch.ops.kernels.march_fixed_plain`); the dual secant
-refinement, the TSDF central-difference normals and the maps' NaN sentinels
-are kernel K5 (:func:`raycast_refine`, ``csrc/refine.cu``; plain version
-:func:`refine` then :func:`finalize_maps`). March parameters mirror the reference: step = 0.8 * trunc_dist, range
-[0.2, 5.0] m, secant ``Ts = t - step * Ft/(Ftdt - Ft)``, normals at +-half
-a voxel.
+Port of the dense volume's raycast of ``xslam_tpu/ops/raycast.py``
+(reference ``RayCaster.cu``), every march of its ``MARCH_MODES``, the
+``secant2`` refine with TSDF or screen normals. The camera rays and the
+fixed march are kernel K3 (:func:`xslam_tpu_torch.ops.kernels.march_fixed`,
+plain version :func:`~xslam_tpu_torch.ops.kernels.camera_rays` then
+:func:`~xslam_tpu_torch.ops.kernels.march_fixed_plain`; with a stride, the
+hierarchical marches' coarse passes); the dual secant refinement, the TSDF
+central-difference normals and the maps' NaN sentinels are kernel K5
+(:func:`raycast_refine`, ``csrc/refine.cu``; plain version :func:`refine`
+then :func:`finalize_maps`). The dense layout's empty-space skipping and
+window repair are the B14 kernels, the brick layout's B5a, B5b and B4 with
+dense addressing: B14a :func:`skip_field_dense` (plain
+:func:`brick_distance_field`), B14b :func:`march_skip_dense` (plain
+:func:`march_skip_plain` over :func:`skip_volume`), B14c
+:func:`window_march_dense` (plain :func:`_window_repair` over the dense
+reader); :func:`march_hier` and :func:`march_hier2` compose them with K3.
+Screen normals (``normals_mode="screen"``) are left to the model-map
+pyramid, whose launch computes them (B4n,
+:func:`xslam_tpu_torch.models.kinfu.model_map_pyramid` with no normals
+given), as on the brick layout. March parameters mirror the reference: step
+= 0.8 * trunc_dist, range [0.2, 5.0] m, secant ``Ts = t - step *
+Ft/(Ftdt - Ft)``, normals at +-half a voxel.
 
 The brick layout's marches and refine (:mod:`xslam_tpu_torch.ops.raycast_bricks`)
 compose the plain ports kept here, each read through a voxel reader:
@@ -31,14 +43,17 @@ import torch.nn.functional as F
 from ..csfd import vec3
 from ..csfd.single import CSFD, lift
 from ..geometry.intrinsics import Intrinsics
-from . import kernels
+from . import bricks, kernels
 from .fusion import VolumeConfig, VolumeState
 from .kernels import INF_T, RAY_MAX_M, RAY_MIN_M
 from .bricks import BRICK, JUMP_BASE
 from .preprocess import _shift2d
 from .sampling import gather3d, to_index
 
-MARCH_MODES = ("fixed",)
+MARCH_MODES = ("fixed", "skip", "hier", "hier_skip", "hier2")
+# the hier2 march's half-resolution repair window, dense and brick layout (xslam_tpu/ops/raycast.py:561,
+# xslam_tpu/ops/raycast_bricks.py::hier2_hit)
+HIER2_MID_WINDOW = 12
 
 
 class RaycastHit(NamedTuple):
@@ -232,20 +247,199 @@ def raycast(
     cfg: VolumeConfig,
     normals_mode: str = "tsdf",
     march_mode: str = "fixed",
+    hier_window: int = 12,
     packed_taps: bool = False,
-) -> Tuple[CSFD, CSFD]:
-    """Single-volume raycast: the poses packed once, the fixed march (K3),
-    the secant refine with normals and NaN sentinels (K5).
-
-    Only the reference semantics are ported: ``march_mode="fixed"``,
-    ``normals_mode="tsdf"``, scalar trilinear taps."""
+    compact: bool = False,
+) -> Tuple[CSFD, Optional[CSFD]]:
+    """Single-volume raycast, the port of ``xslam_tpu/ops/raycast.py::raycast``:
+    the poses packed once, the march of ``march_mode`` (``fixed``: K3;
+    ``skip``: B14a, B14b; ``hier``: K3 at stride 2, then B14c; ``hier_skip``:
+    B14a, B14b at stride 2, then B14c; ``hier2``: K3 at stride 4, B14c at
+    stride 2 with a 12-step window, B14c at stride 1), then the secant refine
+    with the NaN sentinels (K5). ``hier_window`` is the last repair's window.
+    Returns ``(vmap, nmap)``; with ``normals_mode="screen"`` ``(vmap, None)``:
+    the vertex map is the TSDF-normal refine's (JAX's ``refine`` returns the
+    same vertices and no normals), and the screen normals are the model-map
+    pyramid's (B4n in K6's launch). The packed taps and the compacted skip
+    march (ROADMAP A7) raise."""
     if march_mode not in MARCH_MODES:
-        raise NotImplementedError(f"raycast march_mode {march_mode!r} is not ported yet")
-    if normals_mode != "tsdf" or packed_taps:
-        raise NotImplementedError("only TSDF normals with scalar taps are ported")
+        raise ValueError(f"unknown raycast march_mode {march_mode!r}; expected one of {MARCH_MODES}")
+    if normals_mode not in ("tsdf", "screen"):
+        raise ValueError(f"unknown raycast normals_mode {normals_mode!r}")
+    if packed_taps or compact:
+        raise NotImplementedError("the packed taps and the compacted skip march are not ported yet")
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
-    t_found, t_dead = kernels.march_fixed(vol.value, pose, intr, cfg.voxel_size, cfg.trunc_dist)
-    return raycast_refine(vol, pose, t_found, t_dead, intr, cfg)
+    if march_mode == "skip":
+        hit = march_skip_dense(vol, skip_field_dense(vol, cfg.resolution), pose, intr, cfg)
+    elif march_mode in ("hier", "hier_skip"):
+        hit = march_hier(vol, pose, intr, cfg, hier_window, skip=march_mode == "hier_skip")
+    elif march_mode == "hier2":
+        hit = march_hier2(vol, pose, intr, cfg, hier_window)
+    else:
+        hit = RaycastHit(*kernels.march_fixed(vol.value, pose, intr, cfg.voxel_size, cfg.trunc_dist))
+    vmap, nmap = raycast_refine(vol, pose, hit.t_found, hit.t_dead, intr, cfg)
+    return (vmap, None) if normals_mode == "screen" else (vmap, nmap)
+
+
+# ------------------------------------------------------ the dense layout's B14
+def _dense_reader(plane: torch.Tensor):
+    def read(g):
+        return gather3d(plane, g[0], g[1], g[2]) + 1e-5
+
+    return read
+
+
+def dense_event_mask(value: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(nbx, nby, nbz) bool: the 8^3 bricks of the dense planes that hold an
+    observed negative voxel (``value < 0``, ``weight > 0``)."""
+    X, Y, Z = value.shape
+    nbx, nby, nbz = bricks.brick_grid((X, Y, Z))
+    neg = (value < 0.0) & (weight > 0.0)
+    return neg.reshape(nbx, BRICK, nby, BRICK, nbz, BRICK).any(dim=5).any(dim=3).any(dim=1)
+
+
+def brick_distance_field(value: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(nbx, nby, nbz) int32: each brick's L-inf distance, capped at
+    ``DIST_CAP``, to the once-dilated mask of event bricks, wrapping across
+    the volume's faces as ``jnp.roll`` does: the port of
+    ``xslam_tpu/ops/raycast.py::brick_distance_field``
+    (:func:`xslam_tpu_torch.ops.bricks.distance_grid` of
+    :func:`dense_event_mask`). B14a's plain version."""
+    return bricks.distance_grid(dense_event_mask(value, weight))
+
+
+def pack_dense(value: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """The jump-packed copy of the value plane given the brick distance
+    ``dist`` ((NB,) or (nbx, nby, nbz)): ``JUMP_BASE + dist`` in every voxel
+    of a brick at distance >= 2, the value elsewhere."""
+    X, Y, Z = value.shape
+    d = dist.reshape(bricks.brick_grid((X, Y, Z))).to(torch.float32)
+    d = d.repeat_interleave(BRICK, 0).repeat_interleave(BRICK, 1).repeat_interleave(BRICK, 2)
+    return torch.where(d >= 2.0, JUMP_BASE + d, value)
+
+
+def skip_volume(value: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The port of ``xslam_tpu/ops/raycast.py::skip_volume``: the value plane
+    with its bricks at distance >= 2 holding ``JUMP_BASE + dist``."""
+    return pack_dense(value, brick_distance_field(value, weight))
+
+
+def skip_field_dense(vol: VolumeState, res) -> torch.Tensor:
+    """Kernel B14a (``csrc/skip.cu``, ``event_mask_kernel<true>`` and the
+    distance kernel): :func:`brick_distance_field` of the dense planes as
+    (NB,) int32 in brick order ``(bx * nby + by) * nbz + bz``, the same
+    distance that :func:`xslam_tpu_torch.ops.bricks.skip_field` gives on the
+    brick rows. On CPU tensors its plain version."""
+    if kernels.on_cpu(vol.value, vol.weight):
+        return brick_distance_field(vol.value, vol.weight).reshape(-1)
+    nbx, nby, nbz = bricks.brick_grid(res)
+    n = nbx * nby * nbz
+    for t, name in ((vol.value, "value"), (vol.weight, "weight")):
+        kernels.check_tensor(t, name, torch.float32, tuple(res))
+    mask = torch.empty(n, dtype=torch.uint8, device=vol.value.device)
+    dist = torch.empty(n, dtype=torch.int32, device=vol.value.device)
+    kernels.launch("skip_field_dense", vol.value.device, vol.value, vol.weight, mask, dist, nbx, nby, nbz)
+    kernels.launch_counts["skip_field_dense"] += 1
+    return dist
+
+
+def _strided_rays(pose: torch.Tensor, intr: Intrinsics, stride: int):
+    r_c2v, t_c2v = kernels.unpack_ray_pose(pose)[:2]
+    ray_dir, ray_start = kernels.camera_rays(r_c2v, t_c2v, intr)
+    return ray_start, ray_dir.v[:, ::stride, ::stride]
+
+
+def march_skip_dense(vol: VolumeState, dist: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig,
+                     stride: int = 1) -> RaycastHit:
+    """Kernel B14b (``csrc/skip.cu``, ``march_skip_kernel<true>``): the
+    dense volume's skip march (``xslam_tpu/ops/raycast.py::march_skip``)
+    along the rays of every ``stride``-th pixel of ``intr`` at the packed
+    pose, over the value plane and B14a's distance: a cell at distance >= 2
+    reads as ``JUMP_BASE + dist``, as :func:`skip_volume` packs it, without
+    the packed copy. On CPU tensors its plain version, :func:`march_skip_plain`
+    over :func:`pack_dense`. The events are the fixed march's on these rays."""
+    res = tuple(cfg.resolution)
+    if kernels.on_cpu(vol.value, dist, pose):
+        ray_start, dirs = _strided_rays(pose, intr, stride)
+        return march_skip_plain(ray_start, dirs, cfg, _dense_reader(pack_dense(vol.value, dist)), res)
+    nbx, nby, nbz = bricks.brick_grid(res)
+    kernels.check_tensor(vol.value, "value", torch.float32, res)
+    kernels.check_tensor(dist, "dist", torch.int32, (nbx * nby * nbz,))
+    kernels.check_tensor(pose, "pose", torch.float32, (kernels.RAY_POSE_FLOATS,))
+    H, W = kernels.strided(intr.height, stride), kernels.strided(intr.width, stride)
+    t_found = torch.empty((H, W), dtype=torch.float32, device=pose.device)
+    t_dead = torch.empty_like(t_found)
+    step = cfg.trunc_dist * 0.8
+    f32 = kernels.f32
+    kernels.launch(
+        "march_skip_dense", pose.device, vol.value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride,
+        kernels.march_steps(cfg.trunc_dist), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
+        f32(BRICK * cfg.voxel_size / step), *kernels.camera_args(intr),
+    )
+    kernels.launch_counts["march_skip_dense"] += 1
+    return RaycastHit(t_found, t_dead)
+
+
+def window_march_dense(vol: VolumeState, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig,
+                       coarse: RaycastHit, window: int, stride: int = 1) -> RaycastHit:
+    """Kernel B14c (``csrc/window.cu``, ``window_march_kernel<true>``
+    without the refine): the dense volume's window repair
+    (``xslam_tpu/ops/raycast.py::_window_repair``) along the rays of every
+    ``stride``-th pixel of ``intr``, each marched ``window`` steps around the
+    earliest event of its 2x2 neighbourhood in ``coarse``, the hits one level
+    up (2x subsampled; ``INF_T`` past their grid). On CPU tensors its plain
+    version, :func:`_window_repair` over the value plane."""
+    res = tuple(cfg.resolution)
+    if kernels.on_cpu(vol.value, pose, coarse.t_found, coarse.t_dead):
+        ray_start, dirs = _strided_rays(pose, intr, stride)
+        return _window_repair(ray_start, dirs, coarse, window, cfg, _dense_reader(vol.value), res)
+    nbx, nby, nbz = bricks.brick_grid(res)
+    for t, name in ((vol.value, "value"), (vol.grad, "grad")):
+        kernels.check_tensor(t, name, torch.float32, res)
+    kernels.check_tensor(pose, "pose", torch.float32, (kernels.RAY_POSE_FLOATS,))
+    H, W = kernels.strided(intr.height, stride), kernels.strided(intr.width, stride)
+    ch, cw = coarse.t_found.shape
+    if 2 * ch < H or 2 * cw < W:
+        raise ValueError(f"coarse hits of {ch}x{cw} do not cover {H}x{W}")
+    for t, name in ((coarse.t_found, "coarse.t_found"), (coarse.t_dead, "coarse.t_dead")):
+        kernels.check_tensor(t, name, torch.float32, (ch, cw))
+    t_found = torch.empty((H, W), dtype=torch.float32, device=pose.device)
+    t_dead = torch.empty_like(t_found)
+    step = cfg.trunc_dist * 0.8
+    f32 = kernels.f32
+    kernels.launch(
+        "window_march_dense", pose.device, vol.value, vol.grad, pose, coarse.t_found, coarse.t_dead, None, None,
+        t_found, t_dead, nbx, nby, nbz, H, W, ch, cw, stride, int(window), f32(cfg.voxel_size),
+        kernels.reciprocal_f32(cfg.voxel_size), f32(step), kernels.reciprocal_f32(step), *kernels.camera_args(intr),
+    )
+    kernels.launch_counts["window_march_dense"] += 1
+    return RaycastHit(t_found, t_dead)
+
+
+def march_hier(vol: VolumeState, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig, window: int = 12,
+               skip: bool = False) -> RaycastHit:
+    """The hierarchical march (``xslam_tpu/ops/raycast.py::march_hier``): the
+    rays of every 2nd pixel marched at full length (K3 at stride 2, or with
+    ``skip`` the skip march, B14a and B14b at stride 2: the JAX function with
+    ``weight``, the same anchors), then every pixel repaired in a
+    ``window``-step interval about its 2x2 coarse neighbourhood's earliest
+    event (B14c)."""
+    if skip:
+        coarse = march_skip_dense(vol, skip_field_dense(vol, cfg.resolution), pose, intr, cfg, stride=2)
+    else:
+        coarse = RaycastHit(*kernels.march_fixed(vol.value, pose, intr, cfg.voxel_size, cfg.trunc_dist, stride=2))
+    return window_march_dense(vol, pose, intr, cfg, coarse, window)
+
+
+def march_hier2(vol: VolumeState, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig, window: int = 8,
+                window_mid: int = HIER2_MID_WINDOW) -> RaycastHit:
+    """The two-level hierarchical march (``xslam_tpu/ops/raycast.py::
+    march_hier2``): K3 at stride 4 (a quarter of the resolution), B14c at
+    stride 2 with a ``window_mid``-step window, then B14c at full resolution
+    with a ``window``-step one."""
+    coarse = RaycastHit(*kernels.march_fixed(vol.value, pose, intr, cfg.voxel_size, cfg.trunc_dist, stride=4))
+    mid = window_march_dense(vol, pose, intr, cfg, coarse, window_mid, stride=2)
+    return window_march_dense(vol, pose, intr, cfg, mid, window)
 
 
 # ------------------------------------------------- the brick layout's marches

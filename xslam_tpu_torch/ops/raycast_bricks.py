@@ -48,12 +48,11 @@ from .bricks import BrickVolume
 from .fusion import VolumeConfig
 from .kernels import INF_T
 from .raycast import (
-    RaycastHit, _window_repair, finalize_maps, march_skip_plain, march_temporal, refine_from_samples,
+    HIER2_MID_WINDOW, RaycastHit, _window_repair, finalize_maps, march_skip_plain, march_temporal, refine_from_samples,
     screen_normals_plain,
 )
 from .sampling import to_index
 
-MID_WINDOW = 12  # the refresh's half-resolution window (xslam_tpu/ops/raycast_bricks.py::hier2_hit)
 SKIP_STRIDE = 4  # the refresh's skip march takes every 4th ray of the model maps in each axis
 
 
@@ -159,7 +158,7 @@ def raycast_bricks_rays(
         packed_read = _value_reader(bricks.skip_rows(bvol, res), res)
         q = SKIP_STRIDE
         coarse = march_skip_plain(ray_start, ray_dir.v[:, ::q, ::q], cfg, packed_read, res)
-        mid = _window_repair(ray_start, ray_dir.v[:, ::2, ::2], coarse, MID_WINDOW, cfg, value_read, res)
+        mid = _window_repair(ray_start, ray_dir.v[:, ::2, ::2], coarse, HIER2_MID_WINDOW, cfg, value_read, res)
         out = _window_repair(ray_start, ray_dir.v, mid, hier_window, cfg, value_read, res, return_samples=True)
     vmap, hit = _reuse_maps(bvol, ray_start, ray_dir, out, r_v2w, t_v2w, cfg)
     nmap = screen_normals_plain(vmap)
@@ -188,10 +187,6 @@ def _rays(pose: torch.Tensor, intr: Intrinsics):
     return ray_start, ray_dir, r_v2w, t_v2w
 
 
-def _strided(n: int, stride: int) -> int:
-    return (n + stride - 1) // stride
-
-
 def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig, anchor: torch.Tensor,
                  window: int, anchor_dead: Optional[torch.Tensor] = None, stride: int = 1, refine: bool = False):
     """Kernel B4 (``csrc/window.cu``): the anchored window march over the
@@ -207,7 +202,7 @@ def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: V
     vertex map (3, H, W) with NaN value and zero derivative where rejected,
     and the march's ``t_found``. On CPU tensors its plain version."""
     res = cfg.resolution
-    H, W = _strided(intr.height, stride), _strided(intr.width, stride)
+    H, W = kernels.strided(intr.height, stride), kernels.strided(intr.width, stride)
     if refine and stride != 1:
         raise ValueError("the refine runs at the full resolution (stride 1)")
     anchors = (anchor,) if anchor_dead is None else (anchor, anchor_dead)
@@ -280,7 +275,7 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
     kernels.check_tensor(bvol.value, "value", torch.float32, (n, bricks.BRICK ** 3))
     kernels.check_tensor(dist, "dist", torch.int32, (n,))
     kernels.check_tensor(pose, "pose", torch.float32, (kernels.RAY_POSE_FLOATS,))
-    H, W = _strided(intr.height, stride), _strided(intr.width, stride)
+    H, W = kernels.strided(intr.height, stride), kernels.strided(intr.width, stride)
     t_found = torch.empty((H, W), dtype=torch.float32, device=pose.device)
     t_dead = torch.empty_like(t_found)
     step = cfg.trunc_dist * 0.8
@@ -314,6 +309,7 @@ def raycast_bricks(
     if refresh:
         dist = bricks.skip_field(bvol, cfg.resolution)
         coarse = march_skip(bvol, dist, pose, intr, cfg)
-        mid = window_march(bvol, pose, intr, cfg, coarse.t_found, MID_WINDOW, anchor_dead=coarse.t_dead, stride=2)
+        mid = window_march(bvol, pose, intr, cfg, coarse.t_found, HIER2_MID_WINDOW, anchor_dead=coarse.t_dead,
+                           stride=2)
         return window_march(bvol, pose, intr, cfg, mid.t_found, hier_window, anchor_dead=mid.t_dead, refine=True)
     return window_march(bvol, pose, intr, cfg, t_anchor, temporal_window, refine=True)

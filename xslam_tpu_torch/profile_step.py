@@ -5,7 +5,7 @@ Usage:
     python -m xslam_tpu_torch.profile_step configs/synthetic.yaml [--warm 3] [--frames 5] [--trace PATH]
         [--fixed-assoc] [--model-map-level L] [--fusion-mode brick] [--fusion-brick-cap N]
         [--fusion-overflow dense] [--volume-layout brick] [--raycast-march temporal] [--raycast-refine reuse]
-        [--raycast-normals screen]
+        [--raycast-normals screen] [--bi-interpolate-threshold T]
 
 Runs ``--warm`` frames, then profiles ``--frames`` more of the synthetic
 orbit on the CUDA card, and prints one JSON object: the card's name and
@@ -18,7 +18,13 @@ frame, and the kernels
 that take the most device time. ``--trace`` also writes the Chrome trace;
 the other options (:mod:`xslam_tpu_torch.io.options`) set the configuration
 over the file's values (bench.py's configuration:
-:data:`~xslam_tpu_torch.io.options.BENCH_ARGS`).
+:data:`~xslam_tpu_torch.io.options.BENCH_ARGS`; the dense ``hier2`` march with
+screen normals and bilinear fusion: :data:`~xslam_tpu_torch.io.options.HIER2_ARGS`).
+The hand kernels' variants are reported apart where their device names
+differ: K2's and B3c's bilinear branch (``fuse_volume_bilinear``,
+``fuse_bricks_bilinear``), the dense layout's B14a-c (``skip_field_dense``,
+``march_skip_dense``, ``window_march_dense``); K3 at a stride is the same
+device kernel as at stride 1 (``march_fixed``).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -46,17 +52,21 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 # the hand kernels' device names (csrc/*.cu), reported apart from the stages (B5a, B12's band pass: two kernels;
 # B12 and its band pass run in a frame only where the recovering engine relocalizes): each a
 # pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
-# window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation
+# window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation, the
+# bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14 the brick layout's kernels' <true>
 HAND_KERNELS = {
-    "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel", "march_fixed": "march_kernel",
+    "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel<false>",
+    "fuse_volume_bilinear": "fuse_kernel<true>", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
     "raycast_refine": "refine_kernel", "resize_model_maps": r"model_map_pyramid_kernel<\w+, false>",
     "model_map_normals": r"model_map_pyramid_kernel<\w+, true>",
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
-    "fuse_bricks": "fuse_bricks_kernel", "window_march": "window_march_kernel",
-    "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
-    "march_skip": "march_skip_kernel",
+    "fuse_bricks": r"fuse_bricks_kernel<\w+, false>", "fuse_bricks_bilinear": r"fuse_bricks_kernel<\w+, true>",
+    "window_march": "window_march_kernel<false>", "window_march_dense": "window_march_kernel<true>",
+    "skip_field": ("event_mask_kernel<false>", "skip_distance_kernel<false>"),
+    "skip_field_dense": ("event_mask_kernel<true>", "skip_distance_kernel<true>"),
+    "march_skip": "march_skip_kernel<false>", "march_skip_dense": "march_skip_kernel<true>",
     "tsdf_loss": "tsdf_loss_kernel", "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel"),
 }
 
@@ -156,8 +166,12 @@ def main(argv=None):
         "fusion_mode": config.fusion_mode,
         **({"fusion_brick_cap": config.fusion_brick_cap, "fusion_overflow": config.fusion_overflow}
            if config.fusion_mode == "brick" else {}),
-        **({"volume_layout": "brick", "raycast_march": config.raycast_march, "raycast_refine": config.raycast_refine,
-            "raycast_normals": config.raycast_normals} if config.volume_layout == "brick" else {}),
+        "volume_layout": config.volume_layout,
+        "raycast_march": config.raycast_march,
+        "raycast_refine": config.raycast_refine,
+        "raycast_normals": config.raycast_normals,
+        "raycast_hier_window": config.raycast_hier_window,
+        "bi_interpolate_threshold": config.bi_interpolate_threshold,
         "frames_profiled": f,
         "wall_ms_per_frame": wall_ms / f,
         "device_busy_ms_per_frame": busy_ms / f,

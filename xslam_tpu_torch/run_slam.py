@@ -13,6 +13,12 @@ config sets ``draw_pcd`` (kernel B13 on the card), the mesh
 ``<output_dir>/mesh.ply`` with ``--mesh {tetra,mc}``, the mean frame time
 and the ATE RMSE printed at the end.
 
+``--scan K`` feeds the frames in chunks of K to
+:meth:`~xslam_tpu_torch.models.kinfu.XSlamEngine.process_frames` (the first
+chunk left out of the mean frame time); it writes the per-frame loop's pose
+files bit for bit. With ``reloc_after_failures > 0`` it prints the JAX CLI's
+note and runs the per-frame loop.
+
 With ``reloc_after_failures > 0`` (the backend configs
 ``ICL_realistic_backend.yaml``, ``ICL_blackout.yaml``,
 ``ICL_loop_backend.yaml``) the engine is wrapped in
@@ -27,7 +33,8 @@ failure prints ``backend refinement FAILED (...)`` and leaves the odometry's
 result standing, as in ``apps/run_slam.py``.
 
 Usage:
-    python -m xslam_tpu_torch.run_slam configs/ICL_realistic.yaml [--frames N] [--mesh tetra] [--device cpu] [options]
+    python -m xslam_tpu_torch.run_slam configs/ICL_realistic.yaml [--frames N] [--mesh tetra] [--scan K] [--device cpu]
+        [options]
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
@@ -82,6 +89,9 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=("tetra", "mc"), default=None,
                     help="export the final isosurface mesh (<output_dir>/mesh.ply): 'tetra' = marching "
                     "tetrahedra, 'mc' = full 256-case marching cubes (ops/extract.py)")
+    ap.add_argument("--scan", type=int, default=0, metavar="K",
+                    help="process the frames in chunks of K through process_frames (the per-frame loop's results; "
+                    "with reloc_after_failures > 0 a note, then the per-frame loop)")
     add_options(ap)
     args = ap.parse_args(argv)
 
@@ -101,32 +111,55 @@ def main(argv=None):
     engine_logs_poses = config.reloc_after_failures > 0
     if engine_logs_poses:
         engine = RecoveringEngine(config, engine=engine)
+        if args.scan > 1:
+            print("note: --scan is incompatible with recovery (per-frame host inspection); using the per-frame loop")
     state = engine.init_state()
     out_dir = config.output_dir
     # only brick fusion that flags an overflow can leave a frame's map update partial: dense frames read nothing
     may_overflow = config.fusion_mode == "brick" and config.fusion_overflow == "flag"
     total_ms, timed = 0.0, 0
     print("start slam!")
-    for i, fid in enumerate(frame_ids):
-        depth = dataset.get_depth(fid)  # read and decoded outside the timed window
-        gt_pose = dataset.get_pose(fid) if config.use_gt_pose else None
-        t0 = time.perf_counter()
-        state, res = engine.process_frame(state, depth, gt_pose=gt_pose)
-        if not engine_logs_poses:
-            engine.log_pose(res)  # reads the pose back: the frame's work is done
-        dt = (time.perf_counter() - t0) * 1e3
-        if i > 0:  # the first frame pays one-time set-up
-            total_ms += dt
-            timed += 1
+
+    def log_frame(i, fid, align_ok, inliers, overflow):
         if config.log_slam_pose:
             save_pose(os.path.join(out_dir, "slam"), fid, engine.pose_log[-1])
         if config.log_gt_pose:
             gt = np.linalg.inv(dataset.get_pose(frame_ids[0])) @ dataset.get_pose(fid)
             save_pose(os.path.join(out_dir, "gt"), fid, gt)
-        if not bool(res.align_ok):
-            print(f"frame {i}: align failed! (inliers={int(res.inlier_count)})")
-        if may_overflow and bool(res.fusion_overflow):
+        if not bool(align_ok):
+            print(f"frame {i}: align failed! (inliers={int(inliers)})")
+        if may_overflow and bool(overflow):
             print(f"frame {i}: fusion brick-cap overflow (map update partial)")
+
+    if args.scan > 1 and not engine_logs_poses:
+        # chunks of K frames through process_frames (apps/run_slam.py:121-146)
+        for pos in range(0, len(frame_ids), args.scan):
+            ids = frame_ids[pos:pos + args.scan]
+            depths = np.stack([dataset.get_depth(f) for f in ids])  # read and decoded outside the timed window
+            gts = np.stack([dataset.get_pose(f) for f in ids]).astype(np.float32) if config.use_gt_pose else None
+            t0 = time.perf_counter()
+            state, res = engine.process_frames(state, depths, gt_poses=gts)
+            poses = res.camera2world.v.cpu().numpy()  # reads the poses back: the chunk's work is done
+            dt = (time.perf_counter() - t0) * 1e3
+            if pos > 0:  # the first chunk pays one-time set-up
+                total_ms += dt
+                timed += len(ids)
+            for j, fid in enumerate(ids):
+                engine.pose_log.append(poses[j])
+                log_frame(pos + j, fid, res.align_ok[j], res.inlier_count[j], res.fusion_overflow[j])
+    else:
+        for i, fid in enumerate(frame_ids):
+            depth = dataset.get_depth(fid)  # read and decoded outside the timed window
+            gt_pose = dataset.get_pose(fid) if config.use_gt_pose else None
+            t0 = time.perf_counter()
+            state, res = engine.process_frame(state, depth, gt_pose=gt_pose)
+            if not engine_logs_poses:
+                engine.log_pose(res)  # reads the pose back: the frame's work is done
+            dt = (time.perf_counter() - t0) * 1e3
+            if i > 0:  # the first frame pays one-time set-up
+                total_ms += dt
+                timed += 1
+            log_frame(i, fid, res.align_ok, res.inlier_count, res.fusion_overflow)
 
     if config.draw_pcd:
         pc = extract_points(engine.dense_volume(state), engine.vol_cfg, capacity=POINT_CAPACITY)

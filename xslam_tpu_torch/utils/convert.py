@@ -30,6 +30,13 @@ W >> l) float32 camera-space maps) and ``frame_idx`` (int); a relocalization
 result as a dict of ``xi`` ((6,) float32), ``loss_history`` ((iters + 1,)
 float32) and ``count`` (int).
 
+A frame's result crosses as a dict (:func:`frame_result_to_numpy`, for
+either package's ``FrameResult``): ``camera2world_v``, ``camera2world_g``
+((4, 4) float32), ``align_ok``, ``inlier_count``, ``fusion_overflow``, and
+where the port's result has them ``fusion_active`` and ``anchor_coverage``;
+a result of ``process_frames`` keeps its leading K axis on every entry
+((K, 4, 4), (K,)), so a stack of K frames compares with K single frames.
+
 The backend's results cross as dicts of arrays: a ``BAProblem``, a
 ``BAResult`` and a ``PoseGraphResult`` (their fields), and a
 ``RecoveringEngine``'s host record (keyframes, events, loop edges, pose
@@ -163,6 +170,23 @@ def reloc_result_to_numpy(result: RelocResult) -> dict:
 def _host(x) -> np.ndarray:
     """A tensor's or a JAX array's values as a numpy array of their own."""
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+def frame_result_to_numpy(result) -> dict:
+    """A ``FrameResult`` of either package, one frame's or ``process_frames``'
+    (leading K axis), as a dict of numpy arrays; the port's optional fields
+    where they are not None."""
+    out = {
+        "camera2world_v": _host(result.camera2world.v),
+        "camera2world_g": _host(result.camera2world.g),
+        "align_ok": _host(result.align_ok),
+        "inlier_count": _host(result.inlier_count),
+        "fusion_overflow": _host(result.fusion_overflow),
+    }
+    for name in ("fusion_active", "anchor_coverage"):
+        if getattr(result, name, None) is not None:
+            out[name] = _host(getattr(result, name))
+    return out
 
 
 def ba_problem_to_numpy(problem) -> dict:
