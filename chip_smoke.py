@@ -48,7 +48,12 @@ Phases, in order:
    60x80 and on 7x9 rays against its plain version on every ray and at 60x80
    against the plain fixed march as the reference holds it, each bit for
    bit, timed warm and cold (B5b also with its rays' samples and rounds, and
-   its latency floor from probe E's time a step); B13 (point extraction:
+   its latency floor from probe E's time a step); K5r (K5 over the brick
+   rows) from the fixed march's hits at 240x320 and 480x640 against its
+   plain version and against K5 on the dense twin, bit for bit, timed
+   beside K5; B16 (the first-event window march) against
+   ``march_temporal_compact`` with and without the ``reuse`` refine, bit for
+   bit, timed beside B4 on the same anchors; B13 (point extraction:
    count, points, normals and the zero rows past the count) on that volume
    and on the dense twin of its brick rows, at run_slam's capacity of
    1,000,000 and at half the count, bit for bit, timed warm and cold; K4
@@ -107,7 +112,14 @@ Phases, in order:
    hier2 with screen normals and bilinear fusion (threshold 0.1) over 10
    frames, skip, hier and hier_skip over 4 frames each, bench.py's
    configuration with bilinear fusion over 4 frames (the same checks, each
-   frame's launches held: 660, 660, 659, 661, 675); then process_frames
+   frame's launches held: 660, 660, 659, 661, 675); then the brick layout's
+   other raycasts over 4 frames each (``BRICK_RAYCASTS``): bench.py's
+   configuration with the ``secant2`` refine (K5r) and the ``skip``,
+   ``hier_skip``, ``hier2_skip`` marches with screen normals, ``hier_skip``
+   with TSDF normals and the temporal march, then bench.py's own with
+   ``raycast_temporal_phase1=4`` (B16; whether its poses are the bench run's
+   first four bit for bit is printed), each run twice for the same ATE
+   digits (launches 662, 663, 664, 663, 676, 675); then process_frames
    over 6 frames in chunks of 3 and ``run_slam.main --scan 3`` against the
    frame loop, bit for bit;
 7. the realistic paths, through the CLI's entry point ``run_slam.main`` on
@@ -144,9 +156,10 @@ Phases, in order:
 The launch counts are set to 0 just before each path is driven and read just
 after it.
 
-The second-to-last line is the kernel table as one JSON object; the last
-line is ``{"ok": true, "device": {...}}``, printed only when every phase
-passed. Any failed phase exits 1 without it.
+Before the card's line and the kernel table, the run's wall seconds
+(``"phase": "wall"``). The second-to-last line is the kernel table as one
+JSON object; the last line is ``{"ok": true, "device": {...}}``, printed
+only when every phase passed. Any failed phase exits 1 without it.
 """
 
 from __future__ import annotations
@@ -201,7 +214,14 @@ DEVICE_DEPTH_FRAME = 3  # the bench run's second run feeds this frame's depth as
 FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main path, brick fusion": 660,
                   "main path, bench": 675, "main path, bench refresh": 679, "main path, hier2": 660,
                   "main path, skip": 660, "main path, hier": 659, "main path, hier_skip": 661,
-                  "main path, bench bilinear": 675}
+                  "main path, bench bilinear": 675,
+                  # the brick layout's other raycasts: no anchors, coverage or second flag off the temporal march
+                  # (16 launches fewer, all outside the stages), B5a (two device kernels), B5b, B4 once
+                  # (hier_skip) or twice (hier2_skip) and K5r where bench.py's frame has B4 (raycast 10, 11, 12
+                  # launches for bench's 7); the temporal march with secant2 B4 and K5r; B16 where B4 was
+                  "main path, brick skip": 662, "main path, brick hier_skip": 663,
+                  "main path, brick hier2_skip": 664, "main path, brick hier_skip tsdf": 663,
+                  "main path, brick temporal secant2": 676, "main path, bench phase1": 675}
 # the dense layout's settings (configs/synthetic.yaml with these options): the path's own, hier2 with screen normals
 # and bilinear fusion over N_FRAMES; skip, hier and hier_skip (TSDF normals) and bench.py's configuration with
 # bilinear fusion over N_FRAMES_MARCH each; process_frames over N_FRAMES_SCAN frames in chunks of SCAN_CHUNK
@@ -209,6 +229,18 @@ BILINEAR_THRESHOLD = 0.1
 HIER2_OPTIONS = dict(raycast_march="hier2", raycast_normals="screen", bi_interpolate_threshold=BILINEAR_THRESHOLD)
 DENSE_MARCHES = {"main path, skip": "skip", "main path, hier": "hier", "main path, hier_skip": "hier_skip"}
 N_FRAMES_MARCH = 4
+# the brick layout's other raycasts (bench.py's configuration with the march, refine and normals changed; the
+# secant2 refine is K5r): skip, hier_skip and hier2_skip with screen normals, hier_skip with TSDF normals, the
+# temporal march with secant2, and bench.py's configuration with the first-event march (B16); N_FRAMES_MARCH each
+SECANT_OPTIONS = dict(BENCH_OPTIONS, raycast_refine="secant2")
+BRICK_RAYCASTS = {
+    "main path, brick skip": dict(SECANT_OPTIONS, raycast_march="skip"),
+    "main path, brick hier_skip": dict(SECANT_OPTIONS, raycast_march="hier_skip"),
+    "main path, brick hier2_skip": dict(SECANT_OPTIONS, raycast_march="hier2_skip"),
+    "main path, brick hier_skip tsdf": dict(SECANT_OPTIONS, raycast_march="hier_skip", raycast_normals="tsdf"),
+    "main path, brick temporal secant2": dict(SECANT_OPTIONS),
+    "main path, bench phase1": dict(BENCH_OPTIONS, raycast_temporal_phase1=4),
+}
 N_FRAMES_SCAN = 6
 SCAN_CHUNK = 3
 PROBE_E_STEPS = 64  # probe E's dependent steps a ray (phase_probes): B5b's latency floor takes its time a step
@@ -283,6 +315,11 @@ KERNELS = {
     "icp_system": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:107", "main path"),
     "icp_associate": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/ops/icp.py:72", "main path, fixed association"),
     "window_march": ("xslam_tpu_torch/csrc/window.cu", "xslam_tpu/ops/raycast.py:579,787,1018", "main path, bench"),
+    "window_march_first_event": ("xslam_tpu_torch/csrc/window.cu", "xslam_tpu/ops/raycast.py:621,1018",
+                                 "main path, bench phase1"),
+    "raycast_refine_bricks": ("xslam_tpu_torch/csrc/refine.cu, rows.cuh",
+                              "xslam_tpu/ops/raycast.py:901,1132 + xslam_tpu/ops/raycast_bricks.py:196",
+                              "main path, brick skip"),
     "fuse_volume_bilinear": ("xslam_tpu_torch/csrc/fusion.cu, fusion.cuh",
                              "xslam_tpu/ops/fusion.py:108,152-153 + xslam_tpu/ops/sampling.py:39", "main path, hier2"),
     "fuse_bricks_bilinear": ("xslam_tpu_torch/csrc/bricks.cu, fusion.cuh", "xslam_tpu/ops/fusion_brick.py:636,726-729",
@@ -1465,6 +1502,179 @@ def phase_normals(ctx):
                                       bound_by=by, k6_alone_ms=k6_ms, k6_alone_cold_ms=k6_cold)}
 
 
+def phase_brick_refine(ctx):
+    """K5r (K5 over the brick rows) against its plain version, ``refine``
+    through the pair taps then ``finalize_maps``, and against K5 on the dense
+    twin of the same rows, bit for bit (every lane, NaN masks equal): on the
+    bench orbit's brick volume at frame 3 along the 480x640 and 240x320 rays
+    (``model_map_level`` 0 and 1), from the fixed march's hits (K3 on the
+    dense twin: the skip march's events). Timed from prepared arguments, warm
+    and cold, beside K5 on the same hits; bound as K5's (``_refine_bytes_ops``)."""
+    from xslam_tpu_torch.ops import bricks, kernels, raycast
+    from xslam_tpu_torch.ops import raycast_bricks as rb
+    from xslam_tpu_torch.ops.kernels import INF_T
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    rows, pose, parts = _bench_inputs(ctx)[:3]
+    vol = ctx["volume"]
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nb = bricks.brick_grid(eng.resolution)
+    f32 = kernels.f32
+    consts = (f32(eng.voxel_size), kernels.reciprocal_f32(eng.voxel_size), f32(eng.voxel_size * 0.5),
+              f32(eng.trunc_dist * 0.8))
+    direct = torch.zeros(1, dtype=torch.int32, device=dev)
+    table = None
+    for L in (1, 0):
+        intr = cfg.intrinsics.level(L)
+        t_found, t_dead = kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist)
+        ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
+        accept = t_found < torch.clamp(t_dead, max=INF_T)
+
+        def plain_fn():
+            return rb._secant_maps(rows, ray_start, ray_dir, raycast.RaycastHit(t_found, t_dead), parts[2], parts[3],
+                                   eng)
+
+        direct.zero_()
+        out = rb.raycast_refine_bricks(rows, pose, t_found, t_dead, intr, eng, direct=direct)
+        ref = plain_fn()
+        k5 = raycast.raycast_refine(vol, pose, t_found, t_dead, intr, eng)
+        torch.cuda.synchronize()
+        lanes = {"vmap.v": (out[0].v, ref[0].v), "vmap.g": (out[0].g, ref[0].g),
+                 "nmap.v": (out[1].v, ref[1].v), "nmap.g": (out[1].g, ref[1].g)}
+        plain_eq = _lanes_equal("K5r (against its plain version)", lanes)
+        dense_eq = _lanes_equal("K5r (against K5 on the dense twin)", {
+            "vmap.v": (out[0].v, k5[0].v), "vmap.g": (out[0].g, k5[0].g),
+            "nmap.v": (out[1].v, k5[1].v), "nmap.g": (out[1].g, k5[1].g)})
+        valid = float((~torch.isnan(out[1].v[0])).float().mean())
+        check(valid > 0.5, f"K5r: normals on only {valid:.3f} of the pixels (level {L})")
+        H, W = intr.height, intr.width
+        o = [torch.empty((3, H, W), dtype=torch.float32, device=dev) for _ in range(4)]
+        o5 = [torch.empty((3, H, W), dtype=torch.float32, device=dev) for _ in range(4)]
+
+        def run_k5r():
+            check(ext.raycast_refine_bricks(rows.value, rows.grad, pose, t_found, t_dead, *o, None, *nb, *consts,
+                                            *kernels.camera_args(intr), stream) == 0,
+                  "raycast_refine_bricks launch failed")
+
+        def run_k5():
+            check(ext.raycast_refine(vol.value, vol.grad, pose, t_found, t_dead, *o5, None, *consts,
+                                     *kernels.camera_args(intr), stream) == 0, "raycast_refine launch failed")
+
+        ms, k5_ms = time_ms(run_k5r, 50), time_ms(run_k5, 50)
+        cold, k5_cold = time_cold_ms(run_k5r, 30), time_cold_ms(run_k5, 30)
+        plain = time_ms(plain_fn, 3)
+        n_bytes, n_ops, distinct = _refine_bytes_ops(vol, ray_start, ray_dir, t_found, accept, eng)
+        bms, by = bound_ms(n_bytes, n_ops)
+        emit("K5r raycast_refine_bricks", case="bench orbit frame 3, fixed-march hits", model_map_level=L,
+             shape=[H, W], plain=plain_eq, k5_on_dense_twin=dense_eq, accepted_fraction=float(accept.float().mean()),
+             normal_valid_fraction=valid, direct_samples=int(direct.item()), distinct_voxels=distinct, ms=ms,
+             cold_ms=cold, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+             library_note="no single PyTorch call computes it", k5_ms=k5_ms, k5_cold_ms=k5_cold)
+        row = dict(max_abs_err=plain_eq["max_abs_err"], ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, k5_ms=k5_ms, k5_cold_ms=k5_cold)
+        if L == 1:
+            table = row  # the shape of the brick layout's model maps (bench.py: model_map_level 1)
+        else:
+            table["level_0"] = row
+    return {"raycast_refine_bricks": table}
+
+
+def phase_first_event(ctx):
+    """B16 (the first-event window march) against ``march_temporal_compact``,
+    bit for bit, at the bench path's shapes (240x320 rays anchored at frame
+    3's depth): without the refine (both events of every ray) and with the
+    ``reuse`` refine (the vertex map's lanes, which the crossing's two samples
+    f0 and f1 make, and ``t_found``); every ray records at most one event.
+    Timed from prepared arguments, warm and cold, beside B4 on the same
+    anchors."""
+    from xslam_tpu_torch.ops import bricks, kernels, raycast
+    from xslam_tpu_torch.ops import raycast_bricks as rb
+    from xslam_tpu_torch.ops.kernels import INF_T
+
+    eng, dev = ctx["engine_cfg"], ctx["device"]
+    res = eng.resolution
+    rows, pose, parts, intr, t_anchor = _bench_inputs(ctx)
+    ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
+    read = rb._value_reader(rows.value, res)
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nb = bricks.brick_grid(res)
+    H, W = intr.height, intr.width
+    f32, step = kernels.f32, eng.trunc_dist * 0.8
+    consts = (f32(eng.voxel_size), kernels.reciprocal_f32(eng.voxel_size), f32(step), kernels.reciprocal_f32(step),
+              *kernels.camera_args(intr))
+
+    hit = rb.window_march(rows, pose, intr, eng, t_anchor, WINDOW, first_event=True)
+    stats = {}
+    plain_hit = raycast.march_temporal_compact(t_anchor, ray_start, ray_dir, eng, WINDOW, read_fn=read, shape=res,
+                                               stats=stats)
+    vmap, t_found = rb.window_march(rows, pose, intr, eng, t_anchor, WINDOW, refine=True, first_event=True)
+
+    def plain_refine():
+        out = raycast.march_temporal_compact(t_anchor, ray_start, ray_dir, eng, WINDOW, read_fn=read, shape=res,
+                                             return_samples=True)
+        return rb._reuse_maps(rows, ray_start, ray_dir, out, parts[2], parts[3], eng)
+
+    vp, hp = plain_refine()
+    # the crossing's two samples, which the kernel keeps in registers and feeds to the refine (so they reach its
+    # vertex map): the plain version's, on the crossing rays
+    _, f0, f1 = raycast.march_temporal_compact(t_anchor, ray_start, ray_dir, eng, WINDOW, read_fn=read, shape=res,
+                                               return_samples=True)
+    crossed = plain_hit.t_found < INF_T
+    f0_f1 = dict(crossings=int(crossed.sum()), f0_positive=bool((f0[crossed] > 0).all()),
+                 f1_negative=bool((f1[crossed] < 0).all()), refined_from_them=int(torch.isfinite(vp.v[0]).sum()))
+    torch.cuda.synchronize()
+    march_eq = _lanes_equal("B16 (without the refine)", {"t_found": (hit.t_found, plain_hit.t_found),
+                                                         "t_dead": (hit.t_dead, plain_hit.t_dead)})
+    refine_eq = _lanes_equal("B16 (with the refine)", {"vmap.v": (vmap.v, vp.v), "vmap.g": (vmap.g, vp.g),
+                                                       "t_found": (t_found, hp.t_found)})
+    found, dead = hit.t_found < INF_T, hit.t_dead < INF_T
+    check(not bool((found & dead).any()), "B16 recorded two events on a ray")
+    check(f0_f1["f0_positive"] and f0_f1["f1_negative"], f"B16's plain version: crossing samples {f0_f1}")
+    valid = float(torch.isfinite(vmap.v[0]).float().mean())
+    check(valid > 0.5, f"B16: vertices at only {valid:.3f} of the pixels")
+    tf, td = torch.empty_like(hit.t_found), torch.empty_like(hit.t_dead)
+    vv, vg, tr = torch.empty_like(vmap.v), torch.empty_like(vmap.g), torch.empty_like(t_found)
+
+    def launcher(name, refine):
+        fn = getattr(ext, name)
+        outs = (vv, vg, tr, None) if refine else (None, None, tf, td)
+
+        def run():
+            check(fn(rows.value, rows.grad, pose, t_anchor, None, *outs, *nb, H, W, H // 2, W // 2, 1, WINDOW, *consts,
+                     stream) == 0, f"{name} launch failed")
+        return run
+
+    timings = {}
+    for name in ("window_march_first_event", "window_march"):
+        for refine in (False, True):
+            run = launcher(name, refine)
+            timings[(name, refine)] = (time_ms(run, 50), time_cold_ms(run, 30))
+    plain = time_ms(plain_refine, 3)
+    accepted = int(torch.isfinite(vmap.v[0]).sum())
+    # as B4's: the anchors in, t_found and the dual vertex map out, the pose; ~60 operations to make a ray, ~20 a
+    # sample (this run's: a ray stops at its first event), ~250 a refined pixel
+    bms, by = bound_ms(H * W * (4 + 4 + 24) + 192, H * W * 60 + stats["samples"] * 20 + accepted * 250)
+    ms, cold = timings[("window_march_first_event", True)]
+    emit("B16 window_march_first_event", case="orbit frame 3, depth anchors", shape=[H, W], window=WINDOW,
+         march=march_eq, refine=refine_eq, rays_found=int(found.sum()), rays_dead=int(dead.sum()),
+         rays_without_event=int((~found & ~dead).sum()), f0_f1=f0_f1, samples=stats["samples"],
+         vertex_valid_fraction=valid,
+         ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+         library_note="no single PyTorch call computes it",
+         march_alone_ms=timings[("window_march_first_event", False)][0],
+         march_alone_cold_ms=timings[("window_march_first_event", False)][1],
+         b4_same_anchors=dict(refine_ms=timings[("window_march", True)][0],
+                              refine_cold_ms=timings[("window_march", True)][1],
+                              march_alone_ms=timings[("window_march", False)][0],
+                              march_alone_cold_ms=timings[("window_march", False)][1]))
+    return {"window_march_first_event": dict(max_abs_err=max(march_eq["max_abs_err"], refine_eq["max_abs_err"]),
+                                             ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                             march_alone_ms=timings[("window_march_first_event", False)][0],
+                                             b4_same_anchors_ms=timings[("window_march", True)][0])}
+
+
 def phase_skip(ctx):
     """B5a and B5b against their plain versions at the bench path's shapes:
     B5a's distance equal to ``brick_distance_rows`` on every brick; B5b (the
@@ -2561,9 +2771,13 @@ def phase_main_path(ctx, tag: str = "main path"):
         n_frames = N_FRAMES_MARCH
         cfg = dataclasses.replace(cfg, **BENCH_OPTIONS, bi_interpolate_threshold=BILINEAR_THRESHOLD,
                                   end_frame=n_frames)
+    elif tag in BRICK_RAYCASTS:
+        n_frames = N_FRAMES_MARCH
+        cfg = dataclasses.replace(cfg, **BRICK_RAYCASTS[tag], end_frame=n_frames)
     brick = cfg.fusion_mode == "brick"
     bench = cfg.volume_layout == "brick"
-    refresh = bench and cfg.raycast_temporal_min_coverage > 1.0
+    temporal = cfg.raycast_march == "temporal"
+    refresh = temporal and cfg.raycast_temporal_min_coverage > 1.0
     bilinear = cfg.bi_interpolate_threshold > 0
     march = cfg.raycast_march
     L = cfg.model_map_level
@@ -2613,6 +2827,13 @@ def phase_main_path(ctx, tag: str = "main path"):
     second_ate, second_poses = _engine_run(cfg, ctx, n_frames, depth_at) if bench else (None, None)
     device_depth_same = None if depth_at is None else (
         second_poses[depth_at].tobytes() == np.asarray(engine.pose_log[depth_at]).tobytes())
+    # B16 gives accepted rays B4's events and samples: whether the first-event march's poses are bench.py's
+    # run's first frames bit for bit (printed, not held: a rejected ray's t_found, a later frame's fallback
+    # anchor, may differ)
+    ctx.setdefault("pose_logs", {})[tag] = [np.asarray(p) for p in engine.pose_log]
+    bench_poses = ctx["pose_logs"].get("main path, bench")
+    same_as_bench = None if tag != "main path, bench phase1" or bench_poses is None else all(
+        a.tobytes() == b.tobytes() for a, b in zip(ctx["pose_logs"][tag], bench_poses[:n_frames]))
 
     steady = np.asarray(times[WARM_FRAMES:])
     emit(tag, config="configs/synthetic.yaml", icp_fixed_assoc=cfg.icp_fixed_assoc, model_map_level=L,
@@ -2627,11 +2848,12 @@ def phase_main_path(ctx, tag: str = "main path"):
          **(dict(fusion_mode="brick", cap=cfg.fusion_brick_cap, fusion_overflow=cfg.fusion_overflow,
                  active_bricks=active, max_active_bricks=max(active)) if brick else {}),
          **(dict(volume_layout="brick", raycast_refine=cfg.raycast_refine,
-                 temporal_min_coverage=cfg.raycast_temporal_min_coverage,
-                 anchor_coverage=coverage, refresh_frames=sum(c < cfg.raycast_temporal_min_coverage for c in coverage),
-                 second_run_ate_m=second_ate) if bench else {}),
+                 raycast_temporal_phase1=cfg.raycast_temporal_phase1, second_run_ate_m=second_ate) if bench else {}),
+         **(dict(temporal_min_coverage=cfg.raycast_temporal_min_coverage, anchor_coverage=coverage,
+                 refresh_frames=sum(c < cfg.raycast_temporal_min_coverage for c in coverage)) if temporal else {}),
          **(dict(device_depth_frame=depth_at, device_depth_pose_equal=device_depth_same) if depth_at is not None
-            else {}))
+            else {}),
+         **(dict(poses_equal_to_bench_run=same_as_bench) if same_as_bench is not None else {}))
     check(all(aligned), f"frames failed to align: {aligned}")
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
     check(tuple(vmap.v.shape) == (3, cfg.depth_height >> L, cfg.depth_width >> L) and finite and valid_frac > 0.5,
@@ -2643,9 +2865,11 @@ def phase_main_path(ctx, tag: str = "main path"):
     # fusion is K2 or B3a-c, in their bilinear branch (B11) with a threshold;
     # the dense layout raycasts with its march (K3; skip: B14a, B14b; hier:
     # K3 at stride 2, B14c; hier_skip: B14a, B14b at stride 2, B14c; hier2:
-    # K3 at stride 4, B14c twice) and K5, the brick layout with B4 (and on a
-    # refresh frame B5a, B5b and B4 once more); screen normals are B4n in K6's
-    # launch (model_map_normals in place of resize_model_maps)
+    # K3 at stride 4, B14c twice) and K5, the brick layout with B4 (B16 with
+    # the first-event march; on a refresh frame B5a, B5b and B4 twice; skip
+    # B5a, B5b; hier_skip B5a, B5b, B4; hier2_skip B5a, B5b, B4 twice) and,
+    # with the secant2 refine, K5r; screen normals are B4n in K6's launch
+    # (model_map_normals in place of resize_model_maps)
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
     dense_fused = 0 if brick else integrated
     brick_fused = integrated if brick else 0
@@ -2660,9 +2884,15 @@ def phase_main_path(ctx, tag: str = "main path"):
                 window_march_dense=dense * {"hier": 1, "hier_skip": 1, "hier2": 2}.get(march, 0))
     want.update({k: dense if march in ("skip", "hier_skip") else 0 for k in ("skip_field_dense", "march_skip_dense")})
     screen = cfg.raycast_normals == "screen"
-    want.update(window_march=(2 if refresh else 1) * n_frames if bench else 0,
+    brick_march = {"fixed": "skip", "hier": "hier_skip", "hier2": "hier2_skip"}.get(march, march) if bench else None
+    first_event = temporal and cfg.raycast_temporal_phase1 > 0 and not refresh
+    windows = {"hier_skip": 1, "hier2_skip": 2, "temporal": 0 if first_event else 1}.get(brick_march, 0)
+    windows = 2 if refresh else windows
+    skips = refresh or brick_march in ("skip", "hier_skip", "hier2_skip")
+    want.update(window_march=windows * n_frames, window_march_first_event=n_frames if first_event else 0,
+                raycast_refine_bricks=n_frames if bench and cfg.raycast_refine == "secant2" else 0,
                 model_map_normals=n_frames if screen else 0, resize_model_maps=0 if screen else n_frames)
-    want.update({k: n_frames if refresh else 0 for k in ("skip_field", "march_skip")})
+    want.update({k: n_frames if skips else 0 for k in ("skip_field", "march_skip")})
     check(all(counts[k] == n for k, n in want.items()), f"launch counts {counts}, expected {want}")
     if brick:
         # the ACTIVE list never overflowed; with the dense layout the volume is dense fusion's bit for bit, so
@@ -2673,7 +2903,7 @@ def phase_main_path(ctx, tag: str = "main path"):
         check(second_ate == ate, f"two runs of {tag} gave the ATEs {ate!r} and {second_ate!r} m")
         check(depth_at is None or device_depth_same,
               f"{tag}: frame {depth_at}'s pose from a depth on the card differs from the host depth's")
-        check(all(c >= cfg.raycast_temporal_min_coverage for c in coverage) != refresh,
+        check(not temporal or all(c >= cfg.raycast_temporal_min_coverage for c in coverage) != refresh,
               f"{tag}: anchor coverage {coverage} against {cfg.raycast_temporal_min_coverage}")
     elif brick:
         check(ate == ctx["ate"], f"brick fusion's ATE {ate!r} m differs from dense fusion's {ctx['ate']!r} m")
@@ -3344,6 +3574,7 @@ def phase_backend_realistic(ctx):
 PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
           ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("march_fixed", phase_march),
           ("raycast_refine", phase_refine), ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
+          ("brick refine", phase_brick_refine), ("first-event window", phase_first_event),
           ("dense marches", phase_dense_marches), ("extract", phase_extract),
           ("maps", phase_maps), ("icp_system", phase_icp), ("tsdf_loss", phase_tsdf_loss),
           ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
@@ -3358,6 +3589,7 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("main path, hier", phase_main_path_hier),
           ("main path, hier_skip", phase_main_path_hier_skip),
           ("main path, bench bilinear", phase_main_path_bench_bilinear),
+          *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in BRICK_RAYCASTS),
           ("process_frames", phase_process_frames),
           ("main path, ICL realistic", phase_main_path_icl),
           ("main path, 7-Scenes realistic", phase_main_path_7scenes),
@@ -3367,6 +3599,7 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3435,6 +3668,8 @@ def main() -> int:
     results.update(results.pop("window"))
     results.update(results.pop("normals"))
     results.update(results.pop("skip"))
+    results.update(results.pop("brick refine"))
+    results.update(results.pop("first-event window"))
     results.update(results.pop("extract"))
     results.update(results.pop("bilinear"))
     results.update(results.pop("march_fixed"))
@@ -3445,7 +3680,7 @@ def main() -> int:
     counts = {path: results[path] for path in ("main path", "main path, fixed association", "main path, brick fusion",
                                                "main path, bench", "main path, bench refresh", "main path, hier2",
                                                "main path, skip", "main path, hier", "main path, hier_skip",
-                                               "main path, bench bilinear", "main path, ICL realistic",
+                                               "main path, bench bilinear", *BRICK_RAYCASTS, "main path, ICL realistic",
                                                "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]
     table = [
@@ -3459,6 +3694,7 @@ def main() -> int:
     if never:
         print(f"chip_smoke: kernels never launched on their path: {never}", file=sys.stderr)
         return 1
+    emit("wall", seconds=time.perf_counter() - t_start)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,7 +72,10 @@ def test_kernel_table_names_every_counted_wrapper():
     assert "relocalize path" in paths and paths <= {
         "main path", "main path, fixed association", "main path, brick fusion", "main path, bench",
         "main path, bench refresh", "main path, hier2", "main path, skip", "main path, hier", "main path, hier_skip",
-        "main path, bench bilinear", "main path, ICL realistic", "relocalize path", "probe path"}
+        "main path, bench bilinear", "main path, ICL realistic", "relocalize path", "probe path",
+        *chip_smoke.BRICK_RAYCASTS}
+    assert chip_smoke.KERNELS["raycast_refine_bricks"][2] == "main path, brick skip"  # K5r
+    assert chip_smoke.KERNELS["window_march_first_event"][2] == "main path, bench phase1"  # B16
     assert set(chip_smoke.FRAME_LAUNCHES) <= {name for name, _ in chip_smoke.PHASES}
     assert chip_smoke.KERNELS["tsdf_loss"][:2] == ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:65")
 
@@ -147,7 +150,11 @@ def test_backend_phases_come_last():
     generator renders, cut by ``--frames`` only."""
     names = [name for name, _ in chip_smoke.PHASES]
     assert names[-4:] == ["main path, 7-Scenes realistic", "backend, blackout", "backend, loop", "backend, realistic"]
-    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 34
+    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 42
+    # the brick layout's other raycasts: K5r's and B16's phases after B5's, their main paths after bench bilinear
+    assert names[names.index("skip") + 1: names.index("skip") + 3] == ["brick refine", "first-event window"]
+    at = names.index("main path, bench bilinear") + 1
+    assert names[at: at + 6] == list(chip_smoke.BRICK_RAYCASTS)
     runs = chip_smoke.BACKEND_RUNS
     assert {tag: config for tag, (config, _, _) in runs.items()} == {
         "blackout": "configs/ICL_blackout.yaml", "loop": "configs/ICL_loop_backend.yaml",
@@ -161,13 +168,13 @@ def test_backend_phases_come_last():
 def test_kernel_table_rows_unchanged():
     """The table keeps its rows and paths; B12's band pass has its own row,
     on the relocalize path, two device kernels a launch; the bilinear branch
-    (B11 in K2 and B3c), K3's strides and the dense layout's B14a-c have
-    rows of their own (30 in all), each on the main path setting that runs
-    it."""
+    (B11 in K2 and B3c), K3's strides, the dense layout's B14a-c, and the
+    brick layout's K5r and B16 have rows of their own (32 in all), each on the
+    main path setting that runs it."""
     assert list(chip_smoke.KERNELS) == [
         "bilateral_filter", "fuse_volume", "march_fixed", "raycast_refine", "resize_model_maps", "depth_pyramid",
         "depth_mips", "classify_bricks", "fuse_bricks", "vertex_normal_maps", "icp_system", "icp_associate",
-        "window_march", "fuse_volume_bilinear", "fuse_bricks_bilinear", "march_fixed_strided", "skip_field_dense",
+        "window_march", "window_march_first_event", "raycast_refine_bricks", "fuse_volume_bilinear", "fuse_bricks_bilinear", "march_fixed_strided", "skip_field_dense",
         "march_skip_dense", "window_march_dense", "model_map_normals", "skip_field", "march_skip", "extract_points",
         "tsdf_loss", "tsdf_band", "probe_a", "probe_b", "probe_c", "probe_d", "probe_e"]
     assert {k: chip_smoke.KERNELS[k][2] for k in ("fuse_volume_bilinear", "march_fixed_strided", "window_march_dense",

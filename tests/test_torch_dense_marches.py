@@ -178,10 +178,15 @@ def test_raycast_modes_match_jax(scene, jax_raycasts, mode, normals):
     _maps_close(jn, nmap)
 
 
-@pytest.mark.parametrize("option", [dict(packed_taps=True), dict(compact=True), dict(march_mode="hier2_skip")],
+@pytest.mark.parametrize("option", [dict(packed_taps=True, march_mode="temporal"),
+                                    dict(compact=True, normals_mode="none"), dict(march_mode="hier2_skip")],
                          ids=["packed_taps", "compact", "hier2_skip"])
 def test_raycast_options_outside_the_port_raise(scene, option):
-    with pytest.raises((NotImplementedError, ValueError)):
+    """What the dense layout's raycast refuses with ValueError: the brick
+    layout's marches (as JAX's ``raycast`` does) and an unknown normals mode
+    (the port's own check), whatever the packed taps and the compaction
+    (which run: tests/test_torch_raycast_options.py)."""
+    with pytest.raises(ValueError):
         tray.raycast(scene["tvol"], *scene["tp"], scene["tintr"], scene["tvc"], **option)
 
 

@@ -220,15 +220,17 @@ def test_frame_turns_alternate_and_summarise():
 
 def test_profile_step_names_each_hand_kernel_once():
     """profile_step's hand-kernel times take each device event by its own
-    function name: K3's march_kernel is not B4's window_march_kernel<false>,
+    function name: K3's march_kernel is not B4's window_march_kernel<false, false>,
     K2's fuse_kernel<false> not B3c's fuse_bricks_kernel<true, false>, K6's
     instantiation with the screen normals not its own, B5a's two kernels add
-    up, and the bilinear (B11) and dense-layout (B14) instantiations are
-    their own rows (the kernels are templates since they gained them)."""
+    up, and the bilinear (B11), dense-layout (B14), brick-row refine (K5r)
+    and first-event (B16) instantiations are their own rows (the kernels are
+    templates since they gained them)."""
     from xslam_tpu_torch.profile_step import hand_kernel_ms
 
     by_name = {
-        "void (anonymous namespace)::window_march_kernel<false>(float const*, float const*, float const*)": [0.5, 1],
+        "void (anonymous namespace)::window_march_kernel<false, false>(float const*, float const*, float const*)":
+            [0.5, 1],
         "(anonymous namespace)::march_kernel((anonymous namespace)::Volume, float const*, float*)": [0.25, 1],
         "void (anonymous namespace)::fuse_bricks_kernel<true, false>(float*, float*, float*)": [0.125, 1],
         "void (anonymous namespace)::event_mask_kernel<false>(float const*, float const*, unsigned char*)": [1.0, 1],
@@ -238,7 +240,12 @@ def test_profile_step_names_each_hand_kernel_once():
         "void (anonymous namespace)::event_mask_kernel<true>(float const*, float const*, unsigned char*)": [256.0, 1],
         "void (anonymous namespace)::skip_distance_kernel<true>(unsigned char const*, int*, int, int, int)": [512.0, 1],
         "void (anonymous namespace)::march_skip_kernel<true>(float const*, int const*)": [1024.0, 1],
-        "void (anonymous namespace)::window_march_kernel<true>(float const*, float const*, float const*)": [2048.0, 1],
+        "void (anonymous namespace)::window_march_kernel<true, false>(float const*, float const*, float const*)":
+            [2048.0, 1],
+        "void (anonymous namespace)::window_march_kernel<false, true>(float const*, float const*, float const*)":
+            [4096.0, 1],
+        "void (anonymous namespace)::refine_kernel<false>((anonymous namespace)::Volume, float const*)": [8192.0, 1],
+        "void (anonymous namespace)::refine_kernel<true>((anonymous namespace)::Volume, float const*)": [16384.0, 1],
         "void (anonymous namespace)::model_map_pyramid_kernel<true, false>((anonymous namespace)::ModelPyramid)":
             [16.0, 1],
         "void (anonymous namespace)::model_map_pyramid_kernel<false, true>((anonymous namespace)::ModelPyramid)":
@@ -253,7 +260,27 @@ def test_profile_step_names_each_hand_kernel_once():
     assert ms["fuse_volume_bilinear"] == 64.0 and ms["fuse_bricks_bilinear"] == 128.0  # B11
     assert ms["skip_field_dense"] == 768.0 and ms["march_skip_dense"] == 1024.0  # B14a, B14b
     assert ms["window_march_dense"] == 2048.0  # B14c
-    assert sum(ms.values()) == 51.875 + 64.0 + 128.0 + 768.0 + 1024.0 + 2048.0
+    assert ms["window_march_first_event"] == 4096.0  # B16
+    assert ms["raycast_refine"] == 8192.0 and ms["raycast_refine_bricks"] == 16384.0  # K5, K5r
+    assert sum(ms.values()) == 51.875 + 64.0 + 128.0 + 768.0 + 1024.0 + 2048.0 + 4096.0 + 8192.0 + 16384.0
+
+
+@pytest.mark.parametrize("function, wrappers", [
+    ("refine_kernel<false>", ["raycast_refine"]),  # K5
+    ("refine_kernel<true>", ["raycast_refine_bricks"]),  # K5r, the brick rows
+    ("window_march_kernel<false, false>", ["window_march"]),  # B4
+    ("window_march_kernel<true, false>", ["window_march_dense"]),  # B14c
+    ("window_march_kernel<false, true>", ["window_march_first_event"]),  # B16
+    ("march_kernel", ["march_fixed"]),  # K3 at every stride
+    ("skip_distance_kernel<true>", ["skip_field_dense"]),
+])
+def test_kernel_resources_names_each_instantiations_wrappers(function, wrappers):
+    """The resource report lists each instantiation of a kernel apart, with
+    the wrappers whose launches run it: K5r and B16 are instantiations of K5's
+    and B4's kernels."""
+    from xslam_tpu_torch.apps.kernel_resources import wrappers_of
+
+    assert wrappers_of(function) == wrappers
 
 
 def test_compare_trees_profiles_the_forced_refresh(monkeypatch):

@@ -140,14 +140,15 @@ def test_default_device_needs_cuda():
 @pytest.mark.parametrize(
     "option",
     [
-        dict(volume_layout="brick", fusion_mode="brick"),
+        # B15's options, the ones left to port, on each layout and beside the raycast options that now run
+        dict(volume_layout="brick", fusion_mode="brick", fusion_subcell_cap=64),
         dict(fusion_mode="brick", fusion_classify_fine=True),
         dict(fusion_mode="brick", fusion_classify_split=True),
         dict(fusion_mode="brick", fusion_subcell_cap=64),
-        dict(raycast_packed_taps=True),  # the dense layout's packed taps (ROADMAP A7)
-        dict(raycast_compact=True),  # the compacted skip march (A7)
-        # the brick layout's non-temporal marches (the next slice)
-        dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2"),
+        dict(raycast_packed_taps=True, fusion_mode="brick", fusion_classify_fine=True),
+        dict(raycast_compact=True, fusion_mode="brick", fusion_classify_split=True),
+        dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2",
+             fusion_classify_fine=True),
     ],
 )
 def test_options_outside_the_slice_raise(option):

@@ -132,11 +132,15 @@ def test_model_maps(rendered, which):
 
 
 def test_other_march_modes_not_ported(rendered):
-    """The compacted skip march (``compact=True``, ROADMAP A7) raises; the
-    plain ``skip`` march is ported (tests/test_torch_dense_marches.py)."""
+    """The dense layout has no brick-only march: ``hier2_skip`` and
+    ``temporal`` raise ValueError, as JAX's ``raycast`` does. Every march of
+    ``MARCH_MODES`` is ported (tests/test_torch_dense_marches.py), and so is
+    the compacted skip march (``compact=True``: the skip march's events,
+    tests/test_torch_raycast_options.py)."""
     tstate = rendered[1]
-    with pytest.raises(NotImplementedError):
-        tray.raycast(tstate.volume, *([None] * 4), None, None, march_mode="skip", compact=True)
+    for mode in ("hier2_skip", "temporal"):
+        with pytest.raises(ValueError):
+            tray.raycast(tstate.volume, *([None] * 4), None, None, march_mode=mode, compact=True)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -30,8 +30,10 @@ the JAX package over four orbit frames, 160x120 rays).
   (finite) where a ray found nothing, so the anchor coverage reads 1.0.
 - bench.py's configuration through both engines: the first tracked frame
   within 5e-4, a 6-frame run in the same ATE class; with ``use_gt_pose`` the
-  brick layout's volume is the dense layout's bit for bit; every other
-  option value still raises.
+  brick layout's volume is the dense layout's bit for bit; B15's fusion
+  options still raise, beside each raycast option, and the JAX engine's
+  checks raise ValueError (the other raycasts: test_torch_brick_raycasts.py,
+  test_torch_temporal_compact.py, test_torch_raycast_options.py).
 """
 
 import re
@@ -701,11 +703,12 @@ def _port_maps(scene, frame, anchor, refresh):
     the plain composition on the port's own rays (kernels.camera_rays), bit
     for bit."""
     tcfg, f = scene["tcfg"], scene["frames"][frame]
-    vmap, t_found = trb.raycast_bricks(scene["tvol"], *f["targs"], TINTR, tcfg, anchor, refresh=refresh)
+    vmap, nmap, t_found = trb.raycast_bricks(scene["tvol"], *f["targs"], TINTR, tcfg, anchor, refresh=refresh)
+    assert nmap is None  # the screen normals: the pyramid's launch
     wrapped = (vmap, tkinfu.model_map_pyramid(vmap, None, 1)[1][0], t_found)
     ray_dir, ray_start = kernels.camera_rays(f["targs"][0], f["targs"][1], TINTR)
     plain = trb.raycast_bricks_rays(scene["tvol"], ray_start, ray_dir, f["targs"][2], f["targs"][3], tcfg,
-                                    t_anchor=anchor, return_hit=True)
+                                    march_mode="temporal", refine_mode="reuse", t_anchor=anchor, return_hit=True)
     for a, b in zip((wrapped[0].v, wrapped[0].g, wrapped[1].v, wrapped[1].g, wrapped[2]),
                     (plain[0].v, plain[0].g, plain[1].v, plain[1].g, plain[2])):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -831,22 +834,24 @@ def test_use_gt_pose_brick_volume_equals_dense():
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+# the brick layout's raycasts all run now (tests/test_torch_brick_raycasts.py, test_torch_temporal_compact.py,
+# test_torch_raycast_options.py); what still raises NotImplementedError is B15's fusion options, here with each
+# raycast they can meet
+SECANT = dict(BENCH, raycast_refine="secant2")
 @pytest.mark.parametrize("option, error", [
-    (dict(volume_layout="brick", fusion_mode="brick"), NotImplementedError),  # the brick layout's fixed (skip) march
-    (dict(BENCH, raycast_refine="secant2"), NotImplementedError),
-    (dict(BENCH, raycast_march="hier2", raycast_refine="secant2"), NotImplementedError),
-    (dict(BENCH, raycast_quad_taps=True), NotImplementedError),
-    (dict(BENCH, raycast_temporal_phase1=4), NotImplementedError),
-    (dict(BENCH, raycast_skip_gran=4), NotImplementedError),
-    (dict(BENCH, raycast_compact=True), NotImplementedError),
-    (dict(raycast_compact=True), NotImplementedError),
+    (dict(volume_layout="brick", fusion_mode="brick", fusion_classify_fine=True), NotImplementedError),
+    (dict(SECANT, fusion_classify_split=True), NotImplementedError),
+    (dict(SECANT, raycast_march="hier2", fusion_subcell_cap=64), NotImplementedError),
+    (dict(BENCH, raycast_quad_taps=True, fusion_classify_fine=True), NotImplementedError),
+    (dict(BENCH, raycast_temporal_phase1=4, fusion_classify_split=True), NotImplementedError),
+    (dict(BENCH, raycast_skip_gran=4, fusion_subcell_cap=64), NotImplementedError),
+    (dict(BENCH, raycast_compact=True, fusion_classify_fine=True), NotImplementedError),
+    (dict(raycast_compact=True, fusion_mode="brick", fusion_subcell_cap=32), NotImplementedError),
     (dict(BENCH, raycast_normals="tsdf"), ValueError),  # reuse needs screen normals (the JAX engine's check)
     (dict(BENCH, fusion_mode="dense"), ValueError),
     (dict(raycast_march="temporal"), ValueError),
-    # the brick layout's non-temporal marches with the secant2 refine (the next slice); the dense layout's
-    # screen normals, which this case once held, are ported
     (dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2",
-          raycast_normals="screen"), NotImplementedError),
+          raycast_normals="screen", fusion_classify_split=True), NotImplementedError),
 ])
 def test_other_options_raise(option, error):
     with pytest.raises(error):

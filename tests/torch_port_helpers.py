@@ -74,3 +74,43 @@ def seed_jax_state(state, g: np.ndarray):
 
 def frac_equal(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.mean((a == b) | (np.isnan(a) & np.isnan(b))))
+
+
+def paired_engine_runs(options: dict, n_frames: int) -> dict:
+    """The JAX engine and the port's (on the CPU) over the first ``n_frames``
+    frames of the small orbit (1 degree a frame) with the tests' small config
+    and ``options``: each engine's poses, ``align_ok`` flags, ``t_prev`` after
+    every frame, and model maps (level 0) after frame 0, as numpy arrays;
+    with the ground truth, normalised to the first pose."""
+    from tests.helpers import small_config, small_dataset
+    from xslam_tpu.models.kinfu import XSlamEngine as JaxEngine
+    from xslam_tpu.utils.evaluation import normalize_to_first
+    from xslam_tpu_torch.models.kinfu import XSlamEngine as TorchEngine
+
+    cfg = small_config(end_frame=n_frames, **options)
+    ds = small_dataset(n_frames, degrees_per_frame=1.0)
+    depths = [ds.get_depth(i) for i in range(n_frames)]
+    out = {"gt": normalize_to_first([ds.get_pose(i) for i in range(n_frames)])}
+    jeng = JaxEngine(cfg)
+    state = jeng.init_state()
+    run = dict(poses=[], ok=[], t_prev=[])
+    for i in range(n_frames):
+        state, res = jeng.process_frame(state, depths[i])
+        run["poses"].append(np.array(res.camera2world.v))
+        run["ok"].append(bool(res.align_ok))
+        run["t_prev"].append(np.array(state.t_prev))
+        if i == 0:
+            run["maps"] = tuple(JCSFD(np.array(m.v), np.array(m.g)) for m in (state.vmaps_prev[0], state.nmaps_prev[0]))
+    out["jax"] = run
+    teng = TorchEngine(torch_config(cfg), device="cpu")
+    state = teng.init_state()
+    run = dict(poses=[], ok=[], t_prev=[])
+    for i in range(n_frames):
+        state, res = teng.process_frame(state, depths[i])
+        run["poses"].append(res.camera2world.v.numpy().copy())
+        run["ok"].append(bool(res.align_ok))
+        run["t_prev"].append(state.t_prev.numpy().copy())
+        if i == 0:
+            run["maps"] = tuple(TCSFD(m.v.clone(), m.g.clone()) for m in (state.vmaps_prev[0], state.nmaps_prev[0]))
+    out["port"] = run
+    return out

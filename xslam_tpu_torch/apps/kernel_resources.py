@@ -12,8 +12,12 @@ frame and spill bytes, as ``ptxas`` reports them, the global loads (``LDG``)
 in its machine code as ``cuobjdump -sass`` lists them (instructions in the
 code, not loads executed: a branch's loads count whether it runs or not),
 and, for the block size given here, how many blocks and warps an SM of
-65,536 registers holds by registers alone. Needs ``nvcc``; loads nothing
-onto a card.
+65,536 registers holds by registers alone. Each instantiation is listed
+apart (``refine_kernel<false>`` K5, ``refine_kernel<true>`` K5r over the
+brick rows; ``window_march_kernel<false, false>`` B4, ``<true, false>``
+B14c, ``<false, true>`` B16), with the wrappers whose launches run it
+(``wrappers``: the launch counts' names, as ``profile_step.HAND_KERNELS``
+maps them). Needs ``nvcc``; loads nothing onto a card.
 """
 
 from __future__ import annotations
@@ -40,6 +44,16 @@ BLOCK_THREADS = {
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64
+
+
+def wrappers_of(function: str) -> list:
+    """The wrappers (launch counts) whose launches run the kernel
+    ``function`` (its name with its template arguments, as
+    :func:`function_name` gives it)."""
+    from ..profile_step import HAND_KERNELS
+
+    return [w for w, pat in HAND_KERNELS.items()
+            if any(re.fullmatch(p, function) for p in ((pat,) if isinstance(pat, str) else pat))]
 
 
 def function_name(demangled: str):
@@ -134,6 +148,7 @@ def main(argv=None) -> int:
         for name, n in global_loads(out_dir / (src + ".o")).items():
             kernels.setdefault(name, {})["global_load_instructions"] = n
         for name, k in kernels.items():
+            k["wrappers"] = wrappers_of(name)
             threads = BLOCK_THREADS.get(name.split("<")[0])
             if threads and k.get("registers"):
                 # registers are granted to a warp in units of 256

@@ -32,7 +32,7 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
                                float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
-                               float inv_fy, int dense, void* stream);
+                               float inv_fy, int dense, int first_event, void* stream);
 extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, void* dist, int nbx, int nby, int nbz,
                              int dense, void* stream);
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
@@ -50,6 +50,11 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
                                  void* stream);
+extern "C" int xs_raycast_refine_rows(const void* value, const void* grad, const void* pose, const void* t_found,
+                                      const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
+                                      void* direct, int nbx, int nby, int nbz, int H, int W, float vs,
+                                      float inv_vs, float half_vs, float step, float cx, float cy, float inv_fx,
+                                      float inv_fy, void* stream);
 extern "C" int xs_model_map_pyramid(const void* const* in, void* out, const long long* offsets, int levels, int H,
                                     int W, void* stream);
 extern "C" int xs_model_map_normals(const void* vmap_v, const void* vmap_g, void* nmap_v, void* nmap_g, void* out,
@@ -217,11 +222,11 @@ int window_march_on(const torch::Tensor& value, const torch::Tensor& grad, const
                     torch::Tensor t_found, const std::optional<torch::Tensor>& t_dead, int64_t nbx, int64_t nby,
                     int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride, int64_t window,
                     float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
-                    float inv_fy, int dense, int64_t stream) {
+                    float inv_fy, int dense, int first_event, int64_t stream) {
   return xs_window_march(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), anchor.data_ptr(),
                          data_or_null(anchor_dead), data_or_null(vmap_v), data_or_null(vmap_g), t_found.data_ptr(),
                          data_or_null(t_dead), nbx, nby, nbz, H, W, ch, cw, stride, window, vs, inv_vs, step,
-                         inv_step, cx, cy, inv_fx, inv_fy, dense, as_stream(stream));
+                         inv_step, cx, cy, inv_fx, inv_fy, dense, first_event, as_stream(stream));
 }
 
 // anchor, anchor_dead: the coarse hits, or anchor_dead None and anchor the map to pool; vmap_v, vmap_g: the
@@ -234,7 +239,19 @@ int window_march(const torch::Tensor& value, const torch::Tensor& grad, const to
                  float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx, float inv_fy,
                  int64_t stream) {
   return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
-                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 0, stream);
+                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 0, 0, stream);
+}
+
+// the same, each ray stopping at its first event (B16); anchor_dead must be None
+int window_march_first_event(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
+                             const torch::Tensor& anchor, const std::optional<torch::Tensor>& anchor_dead,
+                             const std::optional<torch::Tensor>& vmap_v, const std::optional<torch::Tensor>& vmap_g,
+                             torch::Tensor t_found, const std::optional<torch::Tensor>& t_dead, int64_t nbx,
+                             int64_t nby, int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride,
+                             int64_t window, float vs, float inv_vs, float step, float inv_step, float cx, float cy,
+                             float inv_fx, float inv_fy, int64_t stream) {
+  return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
+                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 0, 1, stream);
 }
 
 // the same over the dense (X, Y, Z) planes (B14c)
@@ -246,7 +263,7 @@ int window_march_dense(const torch::Tensor& value, const torch::Tensor& grad, co
                        float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
                        float inv_fy, int64_t stream) {
   return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
-                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 1, stream);
+                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 1, 0, stream);
 }
 
 // vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs; direct: an int32 counter of the normal samples read
@@ -261,6 +278,20 @@ int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const 
                            nmap_g.data_ptr(), data_or_null(direct), value.size(0), value.size(1), value.size(2),
                            t_found.size(0), t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
                            as_stream(stream));
+}
+
+// the same over the brick rows (K5r): value, grad (nbx * nby * nbz, 512)
+int raycast_refine_bricks(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
+                          const torch::Tensor& t_found, const torch::Tensor& t_dead, torch::Tensor vmap_v,
+                          torch::Tensor vmap_g, torch::Tensor nmap_v, torch::Tensor nmap_g,
+                          const std::optional<torch::Tensor>& direct, int64_t nbx, int64_t nby, int64_t nbz, float vs,
+                          float inv_vs, float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                          int64_t stream) {
+  return xs_raycast_refine_rows(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), t_found.data_ptr(),
+                                t_dead.data_ptr(), vmap_v.data_ptr(), vmap_g.data_ptr(), nmap_v.data_ptr(),
+                                nmap_g.data_ptr(), data_or_null(direct), nbx, nby, nbz, t_found.size(0),
+                                t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
+                                as_stream(stream));
 }
 
 // level 0's maps in (v.v, v.g, n.v, n.g, each (3, H, W)); out: the buffer of the coarser levels' maps;
@@ -406,6 +437,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("classify_bricks", &classify_bricks);
   m.def("fuse_bricks", &fuse_bricks);
   m.def("window_march", &window_march);
+  m.def("window_march_first_event", &window_march_first_event);
   m.def("window_march_dense", &window_march_dense);
   m.def("skip_field", &skip_field);
   m.def("skip_field_dense", &skip_field_dense);
@@ -414,6 +446,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("raycast_refine", &raycast_refine);
+  m.def("raycast_refine_bricks", &raycast_refine_bricks);
   m.def("model_map_pyramid", &model_map_pyramid);
   m.def("model_map_normals", &model_map_normals);
   m.def("depth_pyramid", &depth_pyramid);

@@ -59,10 +59,23 @@
 // 10%. It takes 96 registers a thread (20 warps an SM): capping them to 80
 // or fewer for more warps spills, and issuing the normal stage's 40 loads
 // together takes 126; neither was faster.
+//
+// K5r, its variant over the brick rows (refine_kernel<true>: the (NB, 512)
+// rows of ops/bricks.py, each voxel addressed by rows.cuh::row_index),
+// replaces the XLA code of xslam_tpu/ops/raycast.py::refine with trilin_fn =
+// xslam_tpu/ops/raycast_bricks.py::trilinear_pair_bricks (the brick layout's
+// `secant2` refine) and ::finalize_maps. Plain version: refine through
+// xslam_tpu_torch/ops/raycast_bricks.py::trilinear_pair_bricks, then
+// finalize_maps. The pair taps are the dense taps' bits on the volume's dense
+// twin and every cell is the same, so K5r gives K5's bits on that twin: only
+// the voxels' addresses differ. A brick row's neighbours along an axis are
+// not a fixed stride apart, so each tap's address is its own row_index
+// instead of a corner offset from its cell's base.
 
 #include <cuda_runtime.h>
 
 #include "rays.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -79,6 +92,7 @@ struct Volume {
   float vs;         // float32 voxel size
   float inv_vs;     // float32 of (1 / voxel size in double)
   float half_vs;    // float32 of (voxel size * 0.5)
+  xs::Rows r;       // the brick grid (K5r's rows; unused by the dense planes)
 };
 
 // ops/raycast.py::trilinear_tsdf_shard's cell at one point: the base (shifted
@@ -121,6 +135,12 @@ __device__ __forceinline__ unsigned corner(const Volume& vol, int k) {
          (unsigned)(k & 1);
 }
 
+// the element of voxel (x, y, z), inside the volume, in the dense planes or (ROWS) the brick rows
+template <bool ROWS>
+__device__ __forceinline__ unsigned voxel_at(const Volume& vol, int x, int y, int z) {
+  return ROWS ? xs::row_index(vol.r, x, y, z) : offset_of(vol, x, y, z);
+}
+
 __device__ __forceinline__ Dual tap_at(const Volume& vol, unsigned off) {
   return {__ldg(vol.value + off) + 1e-5f, __ldg(vol.grad + off)};
 }
@@ -139,8 +159,17 @@ __device__ __forceinline__ Dual combine(const Cell& c, const Dual tap[8]) {
   return c.ok ? res : Dual{xs::quiet_nan(), 0.0f};
 }
 
-// the loads of one cell's eight taps (from voxel 0 where out of bounds: read, then discarded by combine)
+// the loads of one cell's eight taps (from the cell at voxel 0 where out of bounds: read, then discarded by
+// combine)
+template <bool ROWS>
 __device__ __forceinline__ void load_taps(const Volume& vol, const Cell& c, Dual tap[8]) {
+  if (ROWS) {
+    const int bx = c.ok ? c.b[0] : 0, by = c.ok ? c.b[1] : 0, bz = c.ok ? c.b[2] : 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      tap[k] = tap_at(vol, voxel_at<true>(vol, bx + (k >> 2), by + ((k >> 1) & 1), bz + (k & 1)));
+    return;
+  }
   const unsigned base = c.ok ? offset_of(vol, c.b[0], c.b[1], c.b[2]) : 0u;
 #pragma unroll
   for (int k = 0; k < 8; ++k) tap[k] = tap_at(vol, base + corner(vol, k));
@@ -155,7 +184,7 @@ __device__ __forceinline__ constexpr int corner_index(int e, int j) {
 
 // the difference of the trilinears at vertex + half and vertex - half along
 // axis A, from the vertex's block `ctr` (base cv) and the face across axis A
-template <int A>
+template <int A, bool ROWS>
 __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual vertex[3], const int gv[3],
                                                 const Cell& vc, const Dual ctr[8], unsigned* direct) {
   constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
@@ -170,7 +199,11 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
   Dual line[3][4];  // the voxels at g - 1, g, g + 1 on axis A; j across it
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const Dual face = tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
+    int q[3] = {fb[0], fb[1], fb[2]};
+    q[O1] += j >> 1;
+    q[O2] += j & 1;
+    const Dual face = tap_at(vol, ROWS ? voxel_at<true>(vol, q[0], q[1], q[2])
+                                       : fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
     const Dual& lo = ctr[corner_index<A>(0, j)];
     const Dual& hi = ctr[corner_index<A>(1, j)];
     line[0][j] = upper ? face : lo;
@@ -196,7 +229,7 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
         tap[k] = line[e + 1 - s][j];
       }
     } else {
-      load_taps(vol, c, tap);
+      load_taps<ROWS>(vol, c, tap);
       if (direct != nullptr) atomicAdd(direct, 1u);
     }
     res[s] = combine(c, tap);
@@ -226,6 +259,7 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
+template <bool ROWS>
 __global__ void __launch_bounds__(BLOCK_THREADS)
     refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
                   const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
@@ -263,8 +297,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   point_at(start, dir, t + lift(step), p1);
   const Cell c0 = cell_at(vol, p0), c1 = cell_at(vol, p1);
   Dual tap0[8], tap1[8];
-  load_taps(vol, c0, tap0);
-  load_taps(vol, c1, tap1);
+  load_taps<ROWS>(vol, c0, tap0);
+  load_taps<ROWS>(vol, c1, tap1);
   const Dual ft = combine(c0, tap0);
   const Dual ftdt = combine(c1, tap1);
   const bool ok = !isnan(ft.v) && !isnan(ftdt.v) && ft.v >= 0.0f && ftdt.v <= 0.0f && ftdt.v != ft.v;
@@ -296,11 +330,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     // the vertex's own cell: base g - 1 + h on each axis; inside the margin all 20 voxels lie in the volume
     const Cell cv = cell_at(vol, vertex);
     Dual ctr[8];
-    load_taps(vol, cv, ctr);
+    load_taps<ROWS>(vol, cv, ctr);
     Dual n[3];
-    n[0] = axis_difference<0>(vol, vertex, gv, cv, ctr, direct);
-    n[1] = axis_difference<1>(vol, vertex, gv, cv, ctr, direct);
-    n[2] = axis_difference<2>(vol, vertex, gv, cv, ctr, direct);
+    n[0] = axis_difference<0, ROWS>(vol, vertex, gv, cv, ctr, direct);
+    n[1] = axis_difference<1, ROWS>(vol, vertex, gv, cv, ctr, direct);
+    n[2] = axis_difference<2, ROWS>(vol, vertex, gv, cv, ctr, direct);
     const Dual nsq = xs::dot3(n, n);
     n_ok = nsq.v > 0.0f && !isnan(nsq.v);
     if (n_ok) {
@@ -312,6 +346,17 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   store3(nmap_v, nmap_g, HW, pix, n_ok, n_w);
 }
 
+template <bool ROWS>
+int launch_refine(const Volume& vol, const void* pose, const void* t_found, const void* t_dead, void* vmap_v,
+                  void* vmap_g, void* nmap_v, void* nmap_g, void* direct, int H, int W, float step,
+                  const xs::Camera& cam, void* stream) {
+  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
+  refine_kernel<ROWS><<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+      vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
+      (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // direct: a counter of the normal samples read outside the shared block, or null
@@ -320,11 +365,21 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
                                  void* stream) {
-  const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs};
-  const xs::Camera cam{cx, cy, inv_fx, inv_fy};
-  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
-  refine_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-      vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
-      (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
-  return (int)cudaGetLastError();
+  const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs, xs::Rows{}};
+  return launch_refine<false>(vol, pose, t_found, t_dead, vmap_v, vmap_g, nmap_v, nmap_g, direct, H, W, step,
+                              xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
+}
+
+// K5r: value, grad the (nbx * nby * nbz, 512) brick rows
+extern "C" int xs_raycast_refine_rows(const void* value, const void* grad, const void* pose, const void* t_found,
+                                      const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
+                                      void* direct, int nbx, int nby, int nbz, int H, int W, float vs,
+                                      float inv_vs, float half_vs, float step, float cx, float cy, float inv_fx,
+                                      float inv_fy, void* stream) {
+  const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
+  if (voxels >= (1ll << 31) || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const xs::Rows r = xs::make_rows(nbx, nby, nbz);
+  const Volume vol{(const float*)value, (const float*)grad, r.X, r.Y, r.Z, vs, inv_vs, half_vs, r};
+  return launch_refine<true>(vol, pose, t_found, t_dead, vmap_v, vmap_g, nmap_v, nmap_g, direct, H, W, step,
+                             xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
 }

@@ -35,6 +35,17 @@
 // refine (the dense layout refines with K5). Plain version: ops/raycast.py::
 // _window_repair with the dense reader. Bound: as B4's half level.
 //
+// B16, the first-event variant (window_march_kernel<false, true>: the brick
+// rows, an anchor map), replaces the XLA code of
+// xslam_tpu/ops/raycast.py::march_temporal_compact (raycast_temporal_phase1 >
+// 0): the same anchors and samples, each ray stopping at its first event (a
+// crossing, taken with its two samples, or a death), at the window's end or
+// past 5 m. The JAX function's phases and survivor buffer schedule the TPU's
+// lockstep and change no ray's events; here a thread marches its ray alone.
+// A round's reads are B4's; its tests stop at the first event. With the
+// `reuse` refine (f0, f1 at the crossing) or without it (t_found, t_dead for
+// K5r). Plain version: xslam_tpu_torch/ops/raycast.py::march_temporal_compact.
+//
 // Every operation follows the plain version one rounding at a time (built
 // with -fmad=false): a division by a host number (p / voxel, (t - 0.2) /
 // step, (f1 - f0) / step) is a multiply by its reciprocal taken in double, as
@@ -163,7 +174,7 @@ __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restr
   }
 }
 
-template <bool DENSE>
+template <bool DENSE, bool FIRST>
 __global__ void __launch_bounds__(WINDOW_THREADS)
     window_march_kernel(const float* __restrict__ value, const float* __restrict__ grad,
                         const float* __restrict__ pose, const float* __restrict__ anchor,
@@ -203,6 +214,7 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
     g[1] = min(max(g[1], 0), p.r.Y - 1);
     g[2] = min(max(g[2], 0), p.r.Z - 1);
     float prev = read_voxel<DENSE>(value, p.r, g, true);
+    bool stop = false;  // FIRST: the ray's first event is known
     // the reference's loop condition is on t_curr (RayCaster.cu:236): past 5 m no step is live again
     for (int base = 0; base < p.window && t_begin + (float)base * p.step < RAY_MAX; base += BATCH) {
       float smp[BATCH];
@@ -229,10 +241,14 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
             f1 = tsdf;
           }
           if (death && kd == NO_STEP) kd = k;
+          if (FIRST && (crossing || death)) {
+            stop = true;
+            break;
+          }
         }
         prev = tsdf;
       }
-      if (kc != NO_STEP && kd != NO_STEP) break;  // no later step changes either
+      if (stop || (kc != NO_STEP && kd != NO_STEP)) break;  // no later step changes either
     }
   }
   // the step's t_curr, as the serial loop recorded it
@@ -284,28 +300,36 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
 // value, grad: the (NB, 512) brick rows or, with dense, the (X, Y, Z) planes of the same grid; pose: the 48
 // packed floats; anchor, anchor_dead: the coarse (ch, cw) hits, or anchor_dead null and anchor the (H, W) map to
 // pool (ch = H / 2, cw = W / 2); vmap_v, vmap_g: the (3, H, W) refine outputs, or null for none (then t_dead is
-// written); t_found, t_dead: (H, W)
+// written); t_found, t_dead: (H, W); dense: the (X, Y, Z) planes (B14c); first_event: B16 (rows, an anchor map)
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
                                float vs, float inv_vs, float step, float inv_step, float cx, float cy, float inv_fx,
-                               float inv_fy, int dense, void* stream) {
+                               float inv_fy, int dense, int first_event, void* stream) {
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
   if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || window < 0) return (int)cudaErrorInvalidValue;
   if ((vmap_v == nullptr) != (vmap_g == nullptr) || (vmap_v == nullptr && t_dead == nullptr))
     return (int)cudaErrorInvalidValue;
   if (2 * ch < H || 2 * cw < W) return (int)cudaErrorInvalidValue;
+  // B16 takes an anchor map on the brick rows
+  if (first_event && (dense || anchor_dead != nullptr)) return (int)cudaErrorInvalidValue;
   const WindowParams p{xs::make_rows(nbx, nby, nbz), H, W, ch, cw, stride, window, vs, inv_vs, step, inv_step,
                        xs::Camera{cx, cy, inv_fx, inv_fy}};
   const dim3 grid = xs::tile_grid<WINDOW_THREADS>(H, W);
   const cudaStream_t s = (cudaStream_t)stream;
+  const float* v = (const float*)value;
+  const float* gr = (const float*)grad;
+  const float* po = (const float*)pose;
+  const float* an = (const float*)anchor;
+  const float* ad = (const float*)anchor_dead;
   if (dense)
-    window_march_kernel<true><<<grid, WINDOW_THREADS, 0, s>>>(
-        (const float*)value, (const float*)grad, (const float*)pose, (const float*)anchor, (const float*)anchor_dead,
-        (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
+    window_march_kernel<true, false><<<grid, WINDOW_THREADS, 0, s>>>(
+        v, gr, po, an, ad, (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
+  else if (first_event)
+    window_march_kernel<false, true><<<grid, WINDOW_THREADS, 0, s>>>(
+        v, gr, po, an, ad, (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
   else
-    window_march_kernel<false><<<grid, WINDOW_THREADS, 0, s>>>(
-        (const float*)value, (const float*)grad, (const float*)pose, (const float*)anchor, (const float*)anchor_dead,
-        (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
+    window_march_kernel<false, false><<<grid, WINDOW_THREADS, 0, s>>>(
+        v, gr, po, an, ad, (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,7 @@ BENCH_ARGS = ("--fixed-assoc", "--model-map-level", "1", "--fusion-mode", "brick
 HIER2_ARGS = ("--raycast-march", "hier2", "--raycast-normals", "screen", "--bi-interpolate-threshold", "0.1")
 OPTIONS = ("model_map_level", "fusion_mode", "fusion_brick_cap", "fusion_overflow", "volume_layout", "raycast_march",
            "raycast_refine", "raycast_normals", "bi_interpolate_threshold")
-MARCHES = ("fixed", "skip", "hier", "hier_skip", "hier2", "temporal")
+MARCHES = ("fixed", "skip", "hier", "hier_skip", "hier2", "hier2_skip", "temporal")  # hier2_skip: brick layout only
 
 
 def set_options(config, args) -> None:

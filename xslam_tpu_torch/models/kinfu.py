@@ -4,10 +4,15 @@ Port of ``xslam_tpu/models/kinfu.py`` in two configurations. The dense volume
 (every march of ``raycast.MARCH_MODES``: ``fixed``, ``skip``, ``hier``,
 ``hier_skip``, ``hier2``; the ``secant2`` refine; TSDF or screen normals),
 with dense or brick fusion (``fusion_mode``; the coarse brick classifier,
-``fusion_overflow`` ``"flag"`` or ``"dense"``). And ``bench.py``'s: the
-brick-major volume (``volume_layout="brick"``, :mod:`xslam_tpu_torch.ops.bricks`)
-with brick fusion, the temporal march with its ``hier2`` refresh, the ``reuse``
-refine and screen normals (:mod:`xslam_tpu_torch.ops.raycast_bricks`). Both
+``fusion_overflow`` ``"flag"`` or ``"dense"``). And the brick-major volume
+(``volume_layout="brick"``, :mod:`xslam_tpu_torch.ops.bricks`) with brick
+fusion and every raycast of the JAX engine's brick layout
+(:mod:`xslam_tpu_torch.ops.raycast_bricks`): the marches as
+:data:`BRICK_MARCHES` maps them (``skip``, ``hier_skip``, ``hier2_skip``, and
+``temporal`` with its ``hier2`` refresh and, with
+``raycast_temporal_phase1 > 0``, its first-event march), the ``secant2`` or
+(temporal) ``reuse`` refine, TSDF or screen normals; ``bench.py``'s is the
+temporal march with ``reuse`` and screen normals. Both
 take the model maps at any ``model_map_level``, nearest or bilinear depth
 sampling in fusion (``bi_interpolate_threshold``), and the ICP association
 computed every iteration or once per level (``icp_fixed_assoc``).
@@ -28,8 +33,10 @@ computed every iteration or once per level (``icp_fixed_assoc``).
 4. raycast of the model maps (the poses packed once; the march: K3, or the
    dense layout's B14 kernels, :func:`xslam_tpu_torch.ops.raycast.raycast`;
    refine kernel K5; on the brick layout the anchored window march with the
-   refine B4, or on a refresh frame the skip field B5a, the skip march B5b
-   and B4 twice) and their pyramid (K6, one launch for all coarser levels;
+   refine B4 (B16 with ``raycast_temporal_phase1 > 0``), or on a refresh
+   frame the skip field B5a, the skip march B5b and B4 twice; the other
+   brick marches B5a, B5b and B4, then the ``secant2`` refine K5r) and their
+   pyramid (K6, one launch for all coarser levels;
    with screen normals the same launch computes level 0's normals, B4n).
 
 On CPU tensors every wrapper runs its plain PyTorch version instead.
@@ -91,9 +98,11 @@ class FrameResult(NamedTuple):
     anchor_coverage: Optional[torch.Tensor] = None
 
 
-# the values of each option that select paths this port has; the others raise. Not listed:
-# raycast_pair_taps (the JAX engine's scalar taps give the pair taps' bits) and raycast_temporal_cap_frac
-# (read only with raycast_temporal_phase1 > 0)
+# the values of each option that select paths this port has; the others raise. Not listed, as they change no
+# result: raycast_pair_taps, raycast_packed_taps and raycast_quad_taps (the port's taps give their bits:
+# ops/raycast_bricks.py::raycast_bricks_rays, ops/raycast.py::raycast), raycast_skip_gran (4 or 8: the same
+# events), raycast_compact (the same events) and raycast_temporal_cap_frac (read with raycast_temporal_phase1 > 0,
+# a schedule of the JAX march that changes no event)
 _SLICE = {
     "volume_layout": ("dense", "brick"),
     "fusion_mode": ("dense", "brick"),
@@ -101,15 +110,14 @@ _SLICE = {
     "fusion_classify_fine": (False,),
     "fusion_classify_split": (False,),
     "fusion_subcell_cap": (0,),
-    "raycast_packed_taps": (False,),
-    "raycast_quad_taps": (False,),
-    "raycast_skip_gran": (8,),
-    "raycast_compact": (False,),
-    "raycast_temporal_phase1": (0,),
 }
-# the raycasts of each volume layout: (marches, refines, normals); the other combinations raise
+# the brick layout's marches as the JAX engine maps them (xslam_tpu/models/kinfu.py:470-476): fixed and skip are
+# event-identical, the hier modes take the skip-anchored hierarchical marches
+BRICK_MARCHES = {"fixed": "skip", "skip": "skip", "hier": "hier_skip", "hier_skip": "hier_skip",
+                 "hier2": "hier2_skip", "hier2_skip": "hier2_skip", "temporal": "temporal"}
+# the raycasts of each volume layout: (marches, refines, normals); the JAX engine accepts these
 _RAYCAST = {"dense": (raycast.MARCH_MODES, ("secant2",), ("tsdf", "screen")),
-            "brick": (("temporal",), ("reuse",), ("screen",))}
+            "brick": (tuple(BRICK_MARCHES), raycast_bricks.REFINE_MODES, ("tsdf", "screen"))}
 
 
 def _check_config(config: SlamConfig) -> None:
@@ -124,9 +132,11 @@ def _check_config(config: SlamConfig) -> None:
     for key, allowed in _SLICE.items():
         if getattr(config, key) not in allowed:
             raise NotImplementedError(f"{key}={getattr(config, key)!r} is not ported yet (only {allowed!r})")
-    if config.volume_layout == "dense" and config.raycast_march not in raycast.MARCH_MODES:
+    if config.raycast_march not in _RAYCAST[config.volume_layout][0]:
         raise ValueError(f"unknown raycast march_mode {config.raycast_march!r}; expected one of "
-                         f"{raycast.MARCH_MODES}")  # the JAX raycast's own check
+                         f"{_RAYCAST[config.volume_layout][0]}")  # the JAX raycasts' own checks
+    if config.volume_layout == "brick" and config.raycast_skip_gran not in (4, 8):
+        raise ValueError(f"skip_gran must be 4 or 8, got {config.raycast_skip_gran}")
     chosen = (config.raycast_march, config.raycast_refine, config.raycast_normals)
     if not all(c in allowed for c, allowed in zip(chosen, _RAYCAST[config.volume_layout])):
         raise NotImplementedError(f"the {config.volume_layout} layout's raycast is ported as (marches, refines, "
@@ -361,6 +371,7 @@ def process_frame(
 
     is_first = state.frame_idx == 0
     L = config.model_map_level
+    brick = config.volume_layout == "brick"
     temporal = config.raycast_march == "temporal"
     if temporal:
         # anchors: the current depth's surface distance, else the last raycast's hits; their coverage picks
@@ -428,12 +439,14 @@ def process_frame(
     with record_function("raycast"):
         poses = (se3.rotation(c2v), se3.translation(c2v), se3.rotation(volume2world), se3.translation(volume2world))
         t_prev = state.t_prev  # the dense path carries the anchors untouched
-        if temporal:
-            vmap0, t_prev = raycast_bricks.raycast_bricks(
-                volume, *poses, intr.level(L), vol_cfg, t_anchor, refresh=refresh,
-                temporal_window=config.raycast_temporal_window, hier_window=config.raycast_hier_window,
+        if brick:
+            # every brick march stores its hits as the next frame's fallback anchors, as the JAX engine does
+            vmap0, nmap0, t_prev = raycast_bricks.raycast_bricks(
+                volume, *poses, intr.level(L), vol_cfg, t_anchor if temporal else None, refresh=refresh,
+                normals_mode=config.raycast_normals, march_mode=BRICK_MARCHES[config.raycast_march],
+                refine_mode=config.raycast_refine, temporal_window=config.raycast_temporal_window,
+                hier_window=config.raycast_hier_window, temporal_phase1=config.raycast_temporal_phase1,
             )
-            nmap0 = None  # the screen normals: computed by the pyramid's launch
         else:
             # with screen normals nmap0 is None: the pyramid's launch computes them (B4n)
             vmap0, nmap0 = raycast.raycast(

@@ -29,7 +29,8 @@ More sources are built here and wrapped where their plain versions live: K4
 in :mod:`xslam_tpu_torch.ops.raycast`, K6 (``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, the three brick-fusion kernels B3a-c
 (``csrc/bricks.cu``) in :mod:`xslam_tpu_torch.ops.fusion_brick`, the brick
-layout's window march B4 (``csrc/window.cu``) and skip march B5b
+layout's window march B4 and its first-event variant B16 (``csrc/window.cu``),
+its ``secant2`` refine K5r (``csrc/refine.cu``) and its skip march B5b
 (``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.raycast_bricks`, its screen
 normals B4n (computed in K6's launch, ``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, its skip field B5a (``csrc/skip.cu``)
@@ -98,7 +99,8 @@ launch_counts = {
     "march_fixed_strided": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0, "fuse_bricks_bilinear": 0,
-    "model_map_normals": 0, "window_march": 0, "skip_field": 0, "march_skip": 0, "extract_points": 0,
+    "model_map_normals": 0, "window_march": 0, "window_march_first_event": 0, "raycast_refine_bricks": 0,
+    "skip_field": 0, "march_skip": 0, "extract_points": 0,
     "skip_field_dense": 0, "march_skip_dense": 0, "window_march_dense": 0,
     "tsdf_loss": 0, "tsdf_band": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,

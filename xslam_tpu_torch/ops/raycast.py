@@ -108,7 +108,7 @@ def trilinear_tsdf_shard(
 
 
 def refine(
-    vol: VolumeState,
+    vol: Optional[VolumeState],
     ray_start: CSFD,
     ray_dir: CSFD,
     hit_t: torch.Tensor,
@@ -116,14 +116,21 @@ def refine(
     r_v2w: CSFD,
     t_v2w: CSFD,
     cfg: VolumeConfig,
+    trilin_fn=None,
+    shape=None,
 ) -> Tuple[CSFD, CSFD, torch.Tensor, torch.Tensor]:
     """Dual secant refinement + TSDF central-difference normals at ``hit_t``
     for pixels where ``accept`` (the reference's ``secant2`` refine with
     ``normals_mode="tsdf"``). Returns (vmap_w, nmap_w, v_ok, n_ok) with zeros
-    outside the masks."""
+    outside the masks. ``trilin_fn`` (dual point -> dual TSDF) and ``shape``
+    (the volume's (X, Y, Z), the normals' margin) read another layout, as
+    the JAX signature's ``trilin_fn`` and its shape-only volume do (the brick
+    rows: :func:`xslam_tpu_torch.ops.raycast_bricks.trilinear_pair_bricks`,
+    then ``vol`` may be None); by default :func:`trilinear_tsdf_shard` of
+    ``vol``."""
     voxel = cfg.voxel_size
     step = cfg.trunc_dist * 0.8
-    X, Y, Z = vol.value.shape
+    X, Y, Z = vol.value.shape if shape is None else shape
 
     def point_at(t: CSFD) -> CSFD:
         return vec3.vec3(
@@ -133,6 +140,8 @@ def refine(
         )
 
     def trilin_at(p: CSFD) -> CSFD:
+        if trilin_fn is not None:
+            return trilin_fn(p)
         return trilinear_tsdf_shard(
             vol.value, vol.grad, vec3.comp(p, 0), vec3.comp(p, 1), vec3.comp(p, 2), voxel
         )
@@ -260,14 +269,21 @@ def raycast(
     Returns ``(vmap, nmap)``; with ``normals_mode="screen"`` ``(vmap, None)``:
     the vertex map is the TSDF-normal refine's (JAX's ``refine`` returns the
     same vertices and no normals), and the screen normals are the model-map
-    pyramid's (B4n in K6's launch). The packed taps and the compacted skip
-    march (ROADMAP A7) raise."""
+    pyramid's (B4n in K6's launch).
+
+    ``packed_taps`` and ``compact`` are the JAX signature's and choose the
+    same kernels: JAX's packed taps (``pack_vg_yz``) only change how the
+    refine gathers its taps, bit for bit the scalar taps'
+    (``tests/test_packed_gathers.py::test_refine_packed_taps_equal``), and
+    its compacted skip march (``march_skip_compact``) only
+    changes how the lockstep march is scheduled, with the skip march's
+    events (``tests/test_bricks.py::test_march_skip_compact_bit_identical``);
+    B14b marches each ray alone."""
     if march_mode not in MARCH_MODES:
         raise ValueError(f"unknown raycast march_mode {march_mode!r}; expected one of {MARCH_MODES}")
     if normals_mode not in ("tsdf", "screen"):
         raise ValueError(f"unknown raycast normals_mode {normals_mode!r}")
-    if packed_taps or compact:
-        raise NotImplementedError("the packed taps and the compacted skip march are not ported yet")
+    del packed_taps, compact
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
     if march_mode == "skip":
         hit = march_skip_dense(vol, skip_field_dense(vol, cfg.resolution), pose, intr, cfg)
@@ -532,7 +548,8 @@ def pooled_anchors(t_prev: torch.Tensor, H: int, W: int) -> RaycastHit:
 
 
 def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, window: int, cfg: VolumeConfig,
-                   read_fn, shape, return_samples: bool = False, stats: Optional[dict] = None):
+                   read_fn, shape, return_samples: bool = False, stats: Optional[dict] = None,
+                   first_event: bool = False):
     """March each pixel of ``dirs_v`` (3, H, W) only inside a ``window``-step
     interval anchored at its 2x2 coarse neighbourhood's earliest event
     (``coarse``: the hit map one level above, 2x subsampled), snapped to the
@@ -541,7 +558,10 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
     ``return_samples`` also the two samples bracketing each recorded crossing,
     ``(f0, f1)``; (1, -1) where none. ``stats``, where given, gets
     ``"samples"``: the reads a march that stops once both events are known
-    (or past 5 m) takes, the first one included."""
+    (or past 5 m) takes, the first one included. ``first_event``: a ray
+    stops at its first event, a crossing or a death, so it records one of
+    the two (:func:`march_temporal_compact`'s rule; ``stats`` then counts the
+    reads up to that event)."""
     voxel = cfg.voxel_size
     step = cfg.trunc_dist * 0.8
     H, W = dirs_v.shape[-2:]
@@ -560,12 +580,13 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
     f0 = torch.ones((H, W), dtype=torch.float32, device=dev)
     f1 = -torch.ones((H, W), dtype=torch.float32, device=dev)
     samples = int(has_anchor.sum()) if stats is not None else 0
+    done = torch.zeros_like(has_anchor)
     for k in range(window):
         # t_begin + float32(k) * step, in float32 as the reference's loop computes it
         t_curr = t_begin + kernels.f32(np.float32(k) * np.float32(step))
         g = to_index(torch.floor((start_v + dirs_v * (t_curr + step)) / voxel))
         # the reference's loop condition is on t_curr (RayCaster.cu:236)
-        live = has_anchor & (t_curr < RAY_MAX_M)
+        live = has_anchor & (t_curr < RAY_MAX_M) & ~done
         if stats is not None:
             samples += int((live & ~((t_found < INF_T) & (t_dead < INF_T))).sum())
         in_vol = _in_volume(g, shape)
@@ -579,6 +600,8 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
         f1 = torch.where(record, tsdf, f1)
         t_dead = torch.where(death & (t_curr < t_dead), t_curr, t_dead)
         prev = tsdf
+        if first_event:
+            done = done | crossing | death
     if stats is not None:
         stats["samples"] = samples
     hit = RaycastHit(t_found, t_dead)
@@ -595,6 +618,28 @@ def march_temporal(t_prev: torch.Tensor, ray_start: CSFD, ray_dir: CSFD, cfg: Vo
     H, W = ray_dir.v.shape[-2:]
     return _window_repair(ray_start, ray_dir.v, pooled_anchors(t_prev, H, W), window, cfg, read_fn, shape,
                           return_samples, stats)
+
+
+def march_temporal_compact(t_prev: torch.Tensor, ray_start: CSFD, ray_dir: CSFD, cfg: VolumeConfig, window: int = 12,
+                           phase1: int = 4, cap_frac: float = 0.16, read_fn=None, shape=None,
+                           return_samples: bool = False, stats: Optional[dict] = None):
+    """The port of ``xslam_tpu/ops/raycast.py::march_temporal_compact``, the
+    anchored march with ``raycast_temporal_phase1 > 0``: :func:`march_temporal`'s
+    anchors and samples, each ray stopping at its first event (a crossing or
+    a death; at ``k + 1 >= window``; at ``t_curr >= 5 m``), so it returns
+    that event: the crossing with its two samples (``return_samples``), or
+    the death. The JAX function marches ``phase1`` steps with every ray, then
+    the survivors in a buffer of ``cap_frac`` of the rays, then an exact
+    sweep of what the buffer missed: a schedule for the TPU's lockstep, which
+    its docstring shows changes no ray's events (each ray's state is its
+    own). Here each ray walks alone, so ``phase1`` and ``cap_frac`` change
+    nothing. Accepted rays get :func:`march_temporal`'s events; a rejected
+    ray may not (its later crossing after a death is not recorded). B16's
+    plain version."""
+    del phase1, cap_frac
+    H, W = ray_dir.v.shape[-2:]
+    return _window_repair(ray_start, ray_dir.v, pooled_anchors(t_prev, H, W), window, cfg, read_fn, shape,
+                          return_samples, stats, first_event=True)
 
 
 def refine_from_samples(trilin_at, ray_start: CSFD, ray_dir: CSFD, hit_t, f0, f1, accept, r_v2w: CSFD, t_v2w: CSFD,

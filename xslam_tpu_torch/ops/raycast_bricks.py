@@ -1,24 +1,30 @@
-"""Raycasting straight from the brick-major volume: the temporal march with
-the ``reuse`` refine and screen normals, and its ``hier2`` skip refresh.
+"""Raycasting straight from the brick-major volume: every march of the JAX
+package's brick layout, with the ``secant2`` or ``reuse`` refine and TSDF or
+screen normals.
 
-Port of ``xslam_tpu/ops/raycast_bricks.py`` for ``march_mode="temporal"``
-(with its ``hier2_hit`` refresh, the ``hier2_skip`` march), pair
-taps (``trilinear_pair_bricks``, bit-identical to the scalar taps) and
-``refine_mode="reuse"``; the engine raises for the other march modes,
-compaction and the packed or quad taps. March parameters are the reference's (step 0.8 trunc over
-[0.2, 5.0] m, reads of the nearest voxel + 1e-5).
+Port of ``xslam_tpu/ops/raycast_bricks.py``: the marches ``skip``,
+``hier_skip``, ``hier2_skip`` and ``temporal`` (with its ``hier2_skip``
+refresh, and with ``temporal_phase1 > 0`` its first-event march), pair taps
+(``trilinear_pair_bricks``, bit-identical to the scalar taps; the JAX
+package's quad and packed taps and its 4-voxel skip cells and compacted
+march give the same results, :func:`raycast_bricks_rays`), the ``secant2``
+refine (``refine`` through the pair taps) and the ``reuse`` refine. March
+parameters are the reference's (step 0.8 trunc over [0.2, 5.0] m, reads of
+the nearest voxel + 1e-5).
 
 :func:`raycast_bricks_rays` is the plain composition over explicit rays, as
 the JAX function takes them. :func:`raycast_bricks`, the engine's entry,
-composes three kernels, each a wrapper here or in :mod:`.bricks` that runs
-its plain version on CPU tensors:
+composes the kernels, each a wrapper here or in :mod:`.bricks` that runs its
+plain version on CPU tensors:
 
 - B4 :func:`window_march` (``csrc/window.cu``): the anchored window march,
   with the ``reuse`` refine fused after it (the world vertex map) or without
-  it (the hits, for the refresh's half level);
+  it (the hits); B16, its first-event variant (``first_event``);
 - B5a :func:`xslam_tpu_torch.ops.bricks.skip_field` (``csrc/skip.cu``);
-- B5b :func:`march_skip` (``csrc/skip.cu``): the skip march at a quarter of
-  the model maps' resolution.
+- B5b :func:`march_skip` (``csrc/skip.cu``): the skip march at full, half or
+  a quarter of the model maps' resolution;
+- K5r :func:`raycast_refine_bricks` (``csrc/refine.cu``): the ``secant2``
+  refine with TSDF normals over the brick rows.
 
 The screen normals (B4n, plain version
 :func:`xslam_tpu_torch.ops.raycast.screen_normals_plain`) are left to the
@@ -26,12 +32,12 @@ model-map pyramid, whose launch computes them
 (:func:`xslam_tpu_torch.models.kinfu.model_map_pyramid` with no normals
 given).
 
-A frame takes the temporal branch (B4 with the refine) when at least
+On the temporal march a frame takes the anchored march when at least
 ``min_coverage`` of its anchors are finite, else the refresh (B5a, B5b, B4
-without and with the refine). The engine's anchors fall back to the last
-raycast's ``t_found``, which is 1e9 (finite) where a ray found nothing, so
-after frame 0 the coverage reads 1.0 and the refresh cannot run; it is kept
-and computed as the reference computes it.
+twice). The engine's anchors fall back to the last raycast's ``t_found``,
+which is 1e9 (finite) where a ray found nothing, so after frame 0 the
+coverage reads 1.0 and the refresh cannot run; it is kept and computed as
+the reference computes it.
 """
 
 from __future__ import annotations
@@ -48,8 +54,8 @@ from .bricks import BrickVolume
 from .fusion import VolumeConfig
 from .kernels import INF_T
 from .raycast import (
-    HIER2_MID_WINDOW, RaycastHit, _window_repair, finalize_maps, march_skip_plain, march_temporal, refine_from_samples,
-    screen_normals_plain,
+    HIER2_MID_WINDOW, RaycastHit, _window_repair, finalize_maps, march_skip_plain, march_temporal,
+    march_temporal_compact, refine, refine_from_samples, screen_normals_plain,
 )
 from .sampling import to_index
 
@@ -134,34 +140,114 @@ def _reuse_maps(bvol, ray_start, ray_dir, out, r_v2w, t_v2w, cfg) -> Tuple[CSFD,
 
 
 # ---------------------------------------------------------------- plain path
+BRICK_MARCH_MODES = ("skip", "hier_skip", "hier2_skip", "temporal")
+REFINE_MODES = ("secant2", "reuse")
+
+
+def _check_modes(march_mode: str, refine_mode: str, normals_mode: str) -> bool:
+    """The JAX function's checks; whether the ``reuse`` refine runs (only
+    with the temporal march: elsewhere JAX refines with ``secant2``)."""
+    if march_mode not in BRICK_MARCH_MODES:
+        raise ValueError(f"unknown brick march_mode {march_mode!r}; expected one of {BRICK_MARCH_MODES}")
+    if refine_mode not in REFINE_MODES:
+        raise ValueError(f"unknown refine_mode {refine_mode!r}")
+    if normals_mode not in ("tsdf", "screen"):
+        raise ValueError(f"unknown raycast normals_mode {normals_mode!r}")
+    reuse = refine_mode == "reuse" and march_mode == "temporal"
+    if reuse and normals_mode != "screen":
+        raise ValueError("refine_mode='reuse' computes no TSDF normals — use raycast_normals='screen'")
+    return reuse
+
+
+def _secant_maps(bvol, ray_start, ray_dir, hit: RaycastHit, r_v2w, t_v2w, cfg) -> Tuple[CSFD, CSFD]:
+    """The ``secant2`` refine of a march's hits through the pair taps, with
+    TSDF normals and the NaN sentinels (K5r's plain version)."""
+    accept = hit.t_found < torch.clamp(hit.t_dead, max=INF_T)
+    return finalize_maps(*refine(None, ray_start, ray_dir, hit.t_found, accept, r_v2w, t_v2w, cfg,
+                                 trilin_fn=_pair_trilinear(bvol, cfg), shape=tuple(cfg.resolution)))
+
+
 def raycast_bricks_rays(
     bvol: BrickVolume, ray_start: CSFD, ray_dir: CSFD, r_v2w: CSFD, t_v2w: CSFD, cfg: VolumeConfig,
-    t_anchor: torch.Tensor, temporal_window: int = 12, temporal_min_coverage: float = 0.5, hier_window: int = 12,
-    return_hit: bool = False,
+    normals_mode: str = "screen", march_mode: str = "skip", hier_window: int = 12, packed_taps: bool = True,
+    skip_gran: int = 8, compact: bool = False, pair_taps: bool = False, quad_taps: bool = False,
+    t_anchor: Optional[torch.Tensor] = None, temporal_window: int = 12, temporal_min_coverage: float = 0.5,
+    return_hit: bool = False, refine_mode: str = "secant2", temporal_phase1: int = 0,
+    temporal_cap_frac: float = 0.16,
 ):
-    """March + refine + screen normals for an explicit ray bundle (dual
-    ``ray_dir`` (3, H, W), ``ray_start`` (3,)), in plain PyTorch: the port of
-    ``xslam_tpu/ops/raycast_bricks.py::raycast_bricks_rays`` with
-    ``march_mode="temporal"``, pair taps, ``refine_mode="reuse"`` and screen
-    normals. It marches around ``t_anchor`` when the finite share of its
-    entries reaches ``temporal_min_coverage`` (a host read here), else takes
-    the ``hier2_hit`` refresh: the skip march at a quarter of the
-    resolution, a 12-step repair at half, a ``hier_window``-step repair at
-    full. Returns ``(vmap, nmap)`` and, with ``return_hit``, the march's
+    """March + refine + normals for an explicit ray bundle (dual ``ray_dir``
+    (3, H, W), ``ray_start`` (3,)), in plain PyTorch: the port of
+    ``xslam_tpu/ops/raycast_bricks.py::raycast_bricks_rays`` with its
+    signature and defaults (the sharded path's ``packed`` and
+    ``apply_screen`` aside).
+
+    ``march_mode``: ``skip``, the skip march at full resolution (the fixed
+    march's events); ``hier_skip``, the skip march at half resolution, then a
+    ``hier_window``-step repair at full; ``hier2_skip``, the skip march at a
+    quarter, a 12-step repair at half, a ``hier_window``-step repair at full;
+    ``temporal``, the window march around ``t_anchor`` when the finite share
+    of its entries reaches ``temporal_min_coverage`` (a host read here), else
+    ``hier2_skip``; with ``temporal_phase1 > 0`` the anchored march stops each
+    ray at its first event (:func:`march_temporal_compact`). ``refine_mode``:
+    ``secant2`` (:func:`refine` through the pair taps) or, with the temporal
+    march only, ``reuse`` (:func:`refine_from_samples`; elsewhere ``secant2``,
+    as JAX falls back). ``normals_mode``: ``tsdf``, the refine's, or
+    ``screen``, :func:`screen_normals_plain` of the vertex map.
+
+    The taps are always the pair taps and the skip field always 8-voxel
+    cells: the options that choose others give the same results in the JAX
+    package, which its tests show: the quad taps (``quad_taps``,
+    ``tests/test_bricks.py::test_raycast_bricks_quad_taps_bit_identical``) and
+    the packed taps (``packed_taps``, ``::test_raycast_bricks_packed_taps_bit_identical``;
+    with TSDF normals within 1e-6, ``::test_raycast_bricks_equals_dense_raycast``)
+    bit for bit the pair and scalar taps; the 4-voxel skip cells
+    (``skip_gran=4``, ``::test_skip_gran4_events_identical``) and the compacted
+    skip march (``compact``, ``::test_march_skip_compact_bit_identical``) the
+    8-voxel skip march's events. ``temporal_cap_frac`` changes no event
+    (``tests/test_march_skip.py::test_march_temporal_compact_event_identical``).
+    Returns ``(vmap, nmap)`` and, with ``return_hit``, the march's
     ``t_found``."""
+    del packed_taps, pair_taps, quad_taps, compact
+    if skip_gran not in (4, 8):
+        raise ValueError(f"skip_gran must be 4 or 8, got {skip_gran}")
+    reuse = _check_modes(march_mode, refine_mode, normals_mode)
     res = cfg.resolution
     value_read = _value_reader(bvol.value, res)
-    if float(anchor_coverage(t_anchor)) >= temporal_min_coverage:
-        out = march_temporal(t_anchor, ray_start, ray_dir, cfg, window=temporal_window, read_fn=value_read,
-                             shape=res, return_samples=True)
-    else:
+
+    def skip_hit(stride):
         packed_read = _value_reader(bricks.skip_rows(bvol, res), res)
-        q = SKIP_STRIDE
-        coarse = march_skip_plain(ray_start, ray_dir.v[:, ::q, ::q], cfg, packed_read, res)
-        mid = _window_repair(ray_start, ray_dir.v[:, ::2, ::2], coarse, HIER2_MID_WINDOW, cfg, value_read, res)
-        out = _window_repair(ray_start, ray_dir.v, mid, hier_window, cfg, value_read, res, return_samples=True)
-    vmap, hit = _reuse_maps(bvol, ray_start, ray_dir, out, r_v2w, t_v2w, cfg)
-    nmap = screen_normals_plain(vmap)
+        return march_skip_plain(ray_start, ray_dir.v[:, ::stride, ::stride], cfg, packed_read, res)
+
+    def hier2_hit():
+        mid = _window_repair(ray_start, ray_dir.v[:, ::2, ::2], skip_hit(SKIP_STRIDE), HIER2_MID_WINDOW, cfg,
+                             value_read, res)
+        return _window_repair(ray_start, ray_dir.v, mid, hier_window, cfg, value_read, res, return_samples=reuse)
+
+    if march_mode == "skip":
+        out = skip_hit(1)
+    elif march_mode == "hier_skip":
+        out = _window_repair(ray_start, ray_dir.v, skip_hit(2), hier_window, cfg, value_read, res)
+    elif march_mode == "hier2_skip":
+        out = hier2_hit()
+    else:
+        if t_anchor is None:
+            raise ValueError("march_mode='temporal' requires t_anchor")
+        if float(anchor_coverage(t_anchor)) < temporal_min_coverage:
+            out = hier2_hit()
+        elif temporal_phase1 > 0:
+            out = march_temporal_compact(t_anchor, ray_start, ray_dir, cfg, temporal_window, temporal_phase1,
+                                         temporal_cap_frac, value_read, res, return_samples=reuse)
+        else:
+            out = march_temporal(t_anchor, ray_start, ray_dir, cfg, window=temporal_window, read_fn=value_read,
+                                 shape=res, return_samples=reuse)
+    if reuse:
+        vmap, hit = _reuse_maps(bvol, ray_start, ray_dir, out, r_v2w, t_v2w, cfg)
+        nmap = None
+    else:
+        hit = out
+        vmap, nmap = _secant_maps(bvol, ray_start, ray_dir, hit, r_v2w, t_v2w, cfg)
+    if normals_mode == "screen":
+        nmap = screen_normals_plain(vmap)
     return (vmap, nmap, hit.t_found) if return_hit else (vmap, nmap)
 
 
@@ -188,7 +274,8 @@ def _rays(pose: torch.Tensor, intr: Intrinsics):
 
 
 def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig, anchor: torch.Tensor,
-                 window: int, anchor_dead: Optional[torch.Tensor] = None, stride: int = 1, refine: bool = False):
+                 window: int, anchor_dead: Optional[torch.Tensor] = None, stride: int = 1, refine: bool = False,
+                 first_event: bool = False):
     """Kernel B4 (``csrc/window.cu``): the anchored window march over the
     brick rows along the rays of every ``stride``-th pixel of ``intr``
     (in each axis) at the packed pose (:func:`kernels.pack_ray_pose`).
@@ -200,17 +287,27 @@ def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: V
     with ``refine`` (``stride`` 1) instead ``(vmap, t_found)``: the ``reuse``
     refine of the bracketing samples through the pair taps, the dual world
     vertex map (3, H, W) with NaN value and zero derivative where rejected,
-    and the march's ``t_found``. On CPU tensors its plain version."""
+    and the march's ``t_found``. On CPU tensors its plain version.
+
+    ``first_event`` (an anchor map only) selects kernel B16, the same
+    kernel's first-event variant: each ray stops at its first crossing or
+    death, the rule of ``raycast_temporal_phase1 > 0``; plain version
+    :func:`march_temporal_compact`."""
     res = cfg.resolution
     H, W = kernels.strided(intr.height, stride), kernels.strided(intr.width, stride)
     if refine and stride != 1:
         raise ValueError("the refine runs at the full resolution (stride 1)")
+    if first_event and anchor_dead is not None:
+        raise ValueError("the first-event march takes an anchor map, not coarse hits")
     anchors = (anchor,) if anchor_dead is None else (anchor, anchor_dead)
     if kernels.on_cpu(bvol.value, bvol.grad, pose, *anchors):
         ray_start, ray_dir, r_v2w, t_v2w = _rays(pose, intr)
         dirs = CSFD(ray_dir.v[:, ::stride, ::stride], ray_dir.g[:, ::stride, ::stride])
         read = _value_reader(bvol.value, res)
-        if anchor_dead is None:
+        if first_event:
+            out = march_temporal_compact(anchor, ray_start, dirs, cfg, window=window, read_fn=read, shape=res,
+                                         return_samples=refine)
+        elif anchor_dead is None:
             out = march_temporal(anchor, ray_start, dirs, cfg, window=window, read_fn=read, shape=res,
                                  return_samples=refine)
         else:
@@ -245,15 +342,54 @@ def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: V
         outs = (None, None, t_found, torch.empty((H, W), dtype=torch.float32, device=dev))
     f32 = kernels.f32
     step = cfg.trunc_dist * 0.8
+    name = "window_march_first_event" if first_event else "window_march"
     kernels.launch(
-        "window_march", dev, bvol.value, bvol.grad, pose, anchor, anchor_dead, *outs, nbx, nby, nbz, H, W, ch, cw,
+        name, dev, bvol.value, bvol.grad, pose, anchor, anchor_dead, *outs, nbx, nby, nbz, H, W, ch, cw,
         stride, int(window), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
         kernels.reciprocal_f32(step), *kernels.camera_args(intr),
     )
-    kernels.launch_counts["window_march"] += 1
+    kernels.launch_counts[name] += 1
     if refine:
         return CSFD(outs[0], outs[1]), t_found
     return RaycastHit(t_found, outs[3])
+
+
+def raycast_refine_bricks(bvol: BrickVolume, pose: torch.Tensor, t_found: torch.Tensor, t_dead: torch.Tensor,
+                          intr: Intrinsics, cfg: VolumeConfig, direct: Optional[torch.Tensor] = None
+                          ) -> Tuple[CSFD, CSFD]:
+    """Kernel K5r (``csrc/refine.cu``, ``refine_kernel<true>``): K5, the
+    ``secant2`` refine with TSDF normals and the maps' NaN sentinels
+    (:func:`xslam_tpu_torch.ops.raycast.raycast_refine`), over the brick
+    rows: ``(vmap, nmap)``, dual, world coordinates, (3, H, W), from the
+    march's ``t_found``/``t_dead`` at the packed pose. The bits of K5 on the
+    volume's dense twin. On CPU tensors its plain version: the rays,
+    :func:`refine` through :func:`trilinear_pair_bricks`,
+    :func:`finalize_maps`. ``direct`` as K5's."""
+    res = tuple(cfg.resolution)
+    if kernels.on_cpu(bvol.value, bvol.grad, pose, t_found, t_dead, *(() if direct is None else (direct,))):
+        ray_start, ray_dir, r_v2w, t_v2w = _rays(pose, intr)
+        return _secant_maps(bvol, ray_start, ray_dir, RaycastHit(t_found, t_dead), r_v2w, t_v2w, cfg)
+    nbx, nby, nbz = bricks.brick_grid(res)
+    n = nbx * nby * nbz
+    H, W = intr.height, intr.width
+    for t, name in ((bvol.value, "value"), (bvol.grad, "grad")):
+        kernels.check_tensor(t, name, torch.float32, (n, bricks.BRICK ** 3))
+    kernels.check_tensor(pose, "pose", torch.float32, (kernels.RAY_POSE_FLOATS,))
+    for t, name in ((t_found, "t_found"), (t_dead, "t_dead")):
+        kernels.check_tensor(t, name, torch.float32, (H, W))
+    if bvol.value.numel() >= 1 << 31:
+        raise ValueError(f"value: K5r indexes the volume with 32 bits, got {bvol.value.numel()} voxels")
+    if direct is not None:
+        kernels.check_tensor(direct, "direct", torch.int32, (1,))
+    out = [torch.empty((3, H, W), dtype=torch.float32, device=pose.device) for _ in range(4)]
+    f32 = kernels.f32
+    kernels.launch(
+        "raycast_refine_bricks", pose.device, bvol.value, bvol.grad, pose, t_found, t_dead, *out, direct,
+        nbx, nby, nbz, f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(cfg.voxel_size * 0.5),
+        f32(cfg.trunc_dist * 0.8), *kernels.camera_args(intr),
+    )
+    kernels.launch_counts["raycast_refine_bricks"] += 1
+    return CSFD(out[0], out[1]), CSFD(out[2], out[3])
 
 
 def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig,
@@ -292,24 +428,54 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
 
 def raycast_bricks(
     bvol: BrickVolume, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics, cfg: VolumeConfig,
-    t_anchor: torch.Tensor, refresh: bool, temporal_window: int = 12, hier_window: int = 12,
-) -> Tuple[CSFD, torch.Tensor]:
-    """The temporal raycast of the model vertex map at ``intr``'s resolution
-    from a brick-major volume, through the kernels: ``(vmap, t_found)``, the
-    dual world vertex map (3, H, W) with NaN sentinels and the march's hit
-    distances (the next frame's fallback anchors; 1e9 where none); its
-    screen normals are left to
-    :func:`xslam_tpu_torch.models.kinfu.model_map_pyramid`. ``refresh``:
-    take the ``hier2`` refresh (B5a, B5b, B4 twice) instead of the anchored
-    march (B4); the engine decides it from :func:`anchor_coverage`. On CPU
-    tensors every kernel runs its plain version, so the result is
-    :func:`raycast_bricks_rays`'s with the rays of
-    :func:`kernels.camera_rays`."""
+    t_anchor: Optional[torch.Tensor] = None, refresh: bool = False, normals_mode: str = "screen",
+    march_mode: str = "temporal", refine_mode: str = "reuse", temporal_window: int = 12, hier_window: int = 12,
+    temporal_phase1: int = 0,
+) -> Tuple[CSFD, Optional[CSFD], torch.Tensor]:
+    """The brick layout's raycast of the model maps at ``intr``'s resolution,
+    through the kernels: ``(vmap, nmap, t_found)``, the dual world maps
+    (3, H, W) with NaN sentinels and the march's hit distances (the next
+    frame's fallback anchors; 1e9 where none). ``nmap`` is None with screen
+    normals: :func:`xslam_tpu_torch.models.kinfu.model_map_pyramid`'s launch
+    computes them (B4n).
+
+    The marches (the modes of :func:`raycast_bricks_rays`): ``skip`` B5a,
+    B5b; ``hier_skip`` B5a, B5b at stride 2, B4 without its refine;
+    ``hier2_skip`` B5a, B5b at stride 4, B4 at stride 2, B4; ``temporal`` B4
+    around ``t_anchor`` (with ``temporal_phase1 > 0`` its first-event variant
+    B16), or with ``refresh`` (the engine decides it from
+    :func:`anchor_coverage`) ``hier2_skip``. The refine: ``reuse`` (temporal
+    only) fused into the march's last launch, else K5r
+    (:func:`raycast_refine_bricks`), which computes the TSDF normals, dropped
+    with screen normals (as K5 on the dense layout). On CPU tensors every
+    kernel runs its plain version, so the result is
+    :func:`raycast_bricks_rays`'s with the rays of :func:`kernels.camera_rays`."""
+    reuse = _check_modes(march_mode, refine_mode, normals_mode)
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
-    if refresh:
-        dist = bricks.skip_field(bvol, cfg.resolution)
+    res = cfg.resolution
+
+    def hier2(last_refine):
+        dist = bricks.skip_field(bvol, res)
         coarse = march_skip(bvol, dist, pose, intr, cfg)
         mid = window_march(bvol, pose, intr, cfg, coarse.t_found, HIER2_MID_WINDOW, anchor_dead=coarse.t_dead,
                            stride=2)
-        return window_march(bvol, pose, intr, cfg, mid.t_found, hier_window, anchor_dead=mid.t_dead, refine=True)
-    return window_march(bvol, pose, intr, cfg, t_anchor, temporal_window, refine=True)
+        return window_march(bvol, pose, intr, cfg, mid.t_found, hier_window, anchor_dead=mid.t_dead,
+                            refine=last_refine)
+
+    if march_mode == "skip":
+        out = march_skip(bvol, bricks.skip_field(bvol, res), pose, intr, cfg, stride=1)
+    elif march_mode == "hier_skip":
+        coarse = march_skip(bvol, bricks.skip_field(bvol, res), pose, intr, cfg, stride=2)
+        out = window_march(bvol, pose, intr, cfg, coarse.t_found, hier_window, anchor_dead=coarse.t_dead)
+    elif march_mode == "hier2_skip" or refresh:
+        out = hier2(reuse)
+    else:
+        if t_anchor is None:
+            raise ValueError("march_mode='temporal' requires t_anchor")
+        out = window_march(bvol, pose, intr, cfg, t_anchor, temporal_window, refine=reuse,
+                           first_event=temporal_phase1 > 0)
+    if reuse:
+        vmap, t_found = out
+        return vmap, None, t_found
+    vmap, nmap = raycast_refine_bricks(bvol, pose, out.t_found, out.t_dead, intr, cfg)
+    return vmap, (None if normals_mode == "screen" else nmap), out.t_found

@@ -23,8 +23,9 @@ screen normals and bilinear fusion: :data:`~xslam_tpu_torch.io.options.HIER2_ARG
 The hand kernels' variants are reported apart where their device names
 differ: K2's and B3c's bilinear branch (``fuse_volume_bilinear``,
 ``fuse_bricks_bilinear``), the dense layout's B14a-c (``skip_field_dense``,
-``march_skip_dense``, ``window_march_dense``); K3 at a stride is the same
-device kernel as at stride 1 (``march_fixed``).
+``march_skip_dense``, ``window_march_dense``), the brick layout's K5r
+(``raycast_refine_bricks``) and B16 (``window_march_first_event``); K3 at a
+stride is the same device kernel as at stride 1 (``march_fixed``).
 The profiler's own host cost inflates the wall time: take frame times from
 ``chip_smoke.py`` or ``run_slam``.
 """
@@ -54,16 +55,19 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 # pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
 # window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation, the
 # bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14 the brick layout's kernels' <true>
+# (B14c: <true, false>), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's <false, true>
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel<false>",
     "fuse_volume_bilinear": "fuse_kernel<true>", "march_fixed": "march_kernel",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
-    "raycast_refine": "refine_kernel", "resize_model_maps": r"model_map_pyramid_kernel<\w+, false>",
+    "raycast_refine": "refine_kernel<false>", "raycast_refine_bricks": "refine_kernel<true>",
+    "resize_model_maps": r"model_map_pyramid_kernel<\w+, false>",
     "model_map_normals": r"model_map_pyramid_kernel<\w+, true>",
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
     "fuse_bricks": r"fuse_bricks_kernel<\w+, false>", "fuse_bricks_bilinear": r"fuse_bricks_kernel<\w+, true>",
-    "window_march": "window_march_kernel<false>", "window_march_dense": "window_march_kernel<true>",
+    "window_march": "window_march_kernel<false, false>", "window_march_dense": "window_march_kernel<true, false>",
+    "window_march_first_event": "window_march_kernel<false, true>",
     "skip_field": ("event_mask_kernel<false>", "skip_distance_kernel<false>"),
     "skip_field_dense": ("event_mask_kernel<true>", "skip_distance_kernel<true>"),
     "march_skip": "march_skip_kernel<false>", "march_skip_dense": "march_skip_kernel<true>",
