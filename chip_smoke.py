@@ -34,7 +34,14 @@ Phases, in order:
    layout) against K2 on the dense twin, bit for bit; B11, the bilinear
    branch (threshold 0.1), in K2 and in B3c's dense planes and rows against
    the plain versions, bit for bit, at the orbit frame and the volume
-   corner, timed beside the nearest branch; K3 at strides 2 and 4 (bit-equal
+   corner, timed beside the nearest branch; B15 (the opt-in classifiers and
+   subcell fusion): B15s, B15f, B15c and B3c's MIXED and subcell variants
+   against their plain versions at K2's three poses and on a 640x480 depth
+   step (its column the one where the plain split classifier makes the most
+   MIXED bricks; MIXED must fire), every variant's volume K2's bit for bit
+   on the planes and the rows, the bilinear branch against plain, a starved
+   subcell capacity of 4 ("flag" as plain, "dense" as K2), timed beside B3b
+   and B3c; K3 at strides 2 and 4 (bit-equal
    to the stride-1 march subsampled and to its earlier design); the dense
    layout's B14a (distance), B14b (skip march, strides 1 and 2) and B14c
    (window repair, strides 2 and 1) on the 256^3 volume along the 480x640
@@ -119,7 +126,12 @@ Phases, in order:
    with TSDF normals and the temporal march, then bench.py's own with
    ``raycast_temporal_phase1=4`` (B16; whether its poses are the bench run's
    first four bit for bit is printed), each run twice for the same ATE
-   digits (launches 662, 663, 664, 663, 676, 675); then process_frames
+   digits (launches 662, 663, 664, 663, 676, 675); then B15's settings over
+   4 frames each (``B15_RUNS``): bench.py's configuration with the split
+   classifier, the fine one and the subcell stage (lists of 2816), and the
+   dense layout's brick fusion with the fine classifier, each run twice for
+   the same ATE digits, its poses the reference run's first four bit for bit
+   (launches 675, 675, 676, 660); then process_frames
    over 6 frames in chunks of 3 and ``run_slam.main --scan 3`` against the
    frame loop, bit for bit;
 7. the realistic paths, through the CLI's entry point ``run_slam.main`` on
@@ -221,7 +233,11 @@ FRAME_LAUNCHES = {"main path": 658, "main path, fixed association": 658, "main p
                   # launches for bench's 7); the temporal march with secant2 B4 and K5r; B16 where B4 was
                   "main path, brick skip": 662, "main path, brick hier_skip": 663,
                   "main path, brick hier2_skip": 664, "main path, brick hier_skip tsdf": 663,
-                  "main path, brick temporal secant2": 676, "main path, bench phase1": 675}
+                  "main path, brick temporal secant2": 676, "main path, bench phase1": 675,
+                  # B15: the split (B15s) or fine (B15f) classifier where B3b was, and B3c's MIXED variant where
+                  # B3c was; the subcell stage adds B15c's launch (and B3c's subcell variant where B3c was)
+                  "main path, bench split": 675, "main path, bench fine": 675, "main path, bench subcell": 676,
+                  "main path, brick fine": 660}
 # the dense layout's settings (configs/synthetic.yaml with these options): the path's own, hier2 with screen normals
 # and bilinear fusion over N_FRAMES; skip, hier and hier_skip (TSDF normals) and bench.py's configuration with
 # bilinear fusion over N_FRAMES_MARCH each; process_frames over N_FRAMES_SCAN frames in chunks of SCAN_CHUNK
@@ -240,6 +256,17 @@ BRICK_RAYCASTS = {
     "main path, brick hier_skip tsdf": dict(SECANT_OPTIONS, raycast_march="hier_skip", raycast_normals="tsdf"),
     "main path, brick temporal secant2": dict(SECANT_OPTIONS),
     "main path, bench phase1": dict(BENCH_OPTIONS, raycast_temporal_phase1=4),
+}
+# B15's options on the main path (N_FRAMES_MARCH each, twice for the same ATE digits): bench.py's configuration with
+# the split classifier, the fine one, the subcell stage with lists of the cap (which cannot overflow), and the dense
+# layout with bench.py's brick fusion and the fine classifier. Each volume is K2's bit for bit, so the bench
+# settings' poses are the bench run's first frames bit for bit, and the dense layout's run has the first run's ATE
+B15_RUNS = {
+    "main path, bench split": dict(BENCH_OPTIONS, fusion_classify_split=True),
+    "main path, bench fine": dict(BENCH_OPTIONS, fusion_classify_fine=True),
+    "main path, bench subcell": dict(BENCH_OPTIONS, fusion_subcell_cap=BRICK_CAP),
+    "main path, brick fine": dict(fusion_mode="brick", fusion_brick_cap=BRICK_CAP, fusion_overflow="dense",
+                                  fusion_classify_fine=True),
 }
 N_FRAMES_SCAN = 6
 SCAN_CHUNK = 3
@@ -337,6 +364,16 @@ KERNELS = {
     # B12's count stands for tsdf_loss_kernel (REDUCE, VALUE) and tsdf_field_kernel (FIELD, on no path)
     "tsdf_loss": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:65", "relocalize path"),
     "tsdf_band": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:99", "relocalize path"),
+    "classify_bricks_split": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:172,219,404-463",
+                              "main path, bench split"),
+    "classify_bricks_fine": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:489",
+                             "main path, bench fine"),
+    "classify_subcells": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:730-791",
+                          "main path, bench subcell"),
+    "fuse_bricks_mixed": ("xslam_tpu_torch/csrc/bricks.cu, fusion.cuh", "xslam_tpu/ops/fusion_brick.py:636,682-688",
+                          "main path, bench split"),
+    "fuse_bricks_subcell": ("xslam_tpu_torch/csrc/bricks.cu, fusion.cuh", "xslam_tpu/ops/fusion_brick.py:636,758-821",
+                            "main path, bench subcell"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
     "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
     "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
@@ -606,10 +643,12 @@ def phase_fusion(ctx):
 
 
 def _bricks_equal(a, b) -> bool:
-    """Two BrickClasses hold the same classes, ranks, counts, flag and lists
-    (each list up to its count: the kernel leaves the rest unwritten)."""
+    """Two BrickClasses hold the same classes, ranks, counts, flag, lists
+    (each list up to its count: the kernel leaves the rest unwritten) and
+    windows (the split classifier's)."""
     n_active, n_work = (int(x) for x in b.totals)
-    return (bool(torch.equal(a.cls, b.cls)) and bool(torch.equal(a.rank, b.rank))
+    return ((a.aux is None) == (b.aux is None) and (a.aux is None or bool(torch.equal(a.aux, b.aux)))
+            and bool(torch.equal(a.cls, b.cls)) and bool(torch.equal(a.rank, b.rank))
             and bool(torch.equal(a.totals, b.totals)) and bool(a.overflow) == bool(b.overflow)
             and bool(torch.equal(a.active_ids[:n_active], b.active_ids[:n_active]))
             and bool(torch.equal(a.work_ids[:n_work], b.work_ids[:n_work])))
@@ -903,6 +942,281 @@ def phase_bilinear(ctx):
             }
         del k2, plain, near, brick, brick_plain, rows_b
     return rows
+
+
+# the operations B15 adds to B3b's ~600 a box: the split classifier's per-cell tests (the rect and its clips 13, two
+# lambda intervals 24, the far and none tests 8, a cell; four cells) and its word; the fine classifier's 8 boxes a
+# brick; the subcell classifier's 8 boxes a candidate; the MIXED variant's window test at a gated voxel (two rounds,
+# the cells and the bit)
+CLASSIFY_BOX_OPS = 600
+SPLIT_CELL_OPS = 45
+MIXED_VOXEL_OPS = 12
+STARVED_SUBCELL_CAP = 4
+
+
+def _step_depth(column: int, H: int, W: int) -> np.ndarray:
+    """A near strip (1.0 m) left of ``column``, far (4.2 m) right of it: a
+    depth step that a window's cell edge can meet, as the JAX package's
+    MIXED test draws it."""
+    depth = np.full((H, W), 4200, np.uint16)
+    depth[:, :column] = 1000
+    return depth
+
+
+def phase_b15(ctx):
+    """B15 on the card: the split classifier (B15s), the fine classifier
+    (B15f), the subcell classifier and lists (B15c) and B3c's MIXED and
+    subcell variants against their plain versions, on the volume of three
+    fused frames at K2's three poses and on a 640x480 frame with a depth step
+    seen from the volume's centre along +z, its column the one (of every
+    eighth) where the plain split classifier makes the most MIXED bricks
+    (MIXED must fire there). Each classifier's classes, ranks, lists, counts
+    and flags (and B15s's windows) equal the plain version's on every brick,
+    subcell and list entry; the subcell stage runs on the first cap
+    candidates of the coarse classes (cap 2816 where the frame's ACTIVE
+    bricks fit it, else every brick) with a list capacity of the cap. B3c's
+    variants (split: MIXED; subcell; split and subcell; fine: B3c itself)
+    equal the plain version on the dense planes and K2's volume bit for bit
+    on the dense planes and the rows; at the orbit frame also with the
+    bilinear branch (threshold 0.1) against the plain version. A starved
+    subcell capacity of 4 at the orbit frame: "flag" equals the plain
+    version and leaves voxels unfused, "dense" equals K2. Each kernel is
+    timed warm and cold beside B3b and B3c on the same frame, from prepared
+    arguments; bounds by operations for the classifiers, by bytes for the
+    brick pass."""
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.ops import bricks, fusion, kernels
+    from xslam_tpu_torch.ops import fusion_brick as fb
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    intr, vol = cfg.intrinsics, ctx["volume"]
+    H, W = intr.height, intr.width
+    rng = np.random.default_rng(20)
+    n_bricks = int(np.prod(eng.resolution)) // fb.BRICK ** 3
+    # the step frame: the camera at the volume's centre looking along +z, the column picked by the plain classifier
+    c2v = np.asarray(cfg.world2volume, np.float32)
+    step_v2c = se3.inverse(_seeded_c2v(ctx, c2v, rng))
+    step_pose = kernels.fusion_pose(se3.rotation(step_v2c), se3.translation(step_v2c))
+    mixed_at = {}
+    for column in range(8, W - 7, 8):
+        table = fb.depth_mips_plain(fusion.scale_depth(torch.as_tensor(_step_depth(column, H, W), device=dev)))
+        mixed_at[column] = int((fb.classify_bricks_full_plain(table, step_pose, intr, eng, split=True).cls
+                                == fb.MIXED).sum())
+    column = max(mixed_at, key=lambda c: (mixed_at[c], -c))
+    check(mixed_at[column] > 0, f"MIXED fires at no column of the step frame: {mixed_at}")
+    cases = list(ctx["fusion_cases"]) + [("depth step", step_v2c, _step_depth(column, H, W))]
+
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    layout = fb.mip_layout(H, W)
+    lv, consts, sub_consts = fb._layout_ints(layout), fb.classify_consts(intr, eng), fb.subcell_consts(eng)
+    fargs = kernels.fusion_args(intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+    res = list(eng.resolution)
+    rows_out = {}
+
+    def run(kernel, *args):
+        err_code = getattr(ext, kernel)(*args, stream)
+        check(err_code == 0, f"{kernel} launch failed: cudaError {err_code}")
+
+    def copy(classes):
+        return classes._replace(overflow=classes.overflow.clone())
+
+    for name, v2c, depth_u16 in cases:
+        r, t = se3.rotation(v2c), se3.translation(v2c)
+        depth_m = fusion.scale_depth(torch.as_tensor(depth_u16, device=dev))
+        pose = kernels.fusion_pose(r, t)
+        table = fb.depth_mips(depth_m)
+        coarse = fb.classify_bricks(table, pose, intr, eng, n_bricks)
+        n_active = int(coarse.totals[0])
+        cap = BRICK_CAP if n_active <= BRICK_CAP else n_bricks
+        # B15s, B15f against their plain versions (the classes, ranks, lists, counts, flag and windows)
+        split = fb.classify_bricks(table, pose, intr, eng, cap, split=True)
+        full = fb.classify_bricks_full_plain(table, pose, intr, eng, split=True)
+        split_plain = fb.rank_bricks_plain(full.cls, cap)._replace(aux=fb.pack_aux(full).reshape(-1))
+        fine = fb.classify_bricks(table, pose, intr, eng, cap, fine=True)
+        fine_plain = fb.rank_bricks_plain(fb.classify_bricks_fine_plain(table, pose, intr, eng), cap)
+        split_equal, fine_equal = _bricks_equal(split, split_plain), _bricks_equal(fine, fine_plain)
+        # B15c on the coarse classes at cap, lists of the cap; also on the split and the fine classes
+        coarse = fb.classify_bricks(table, pose, intr, eng, cap)
+        subcell_equal = []
+        for classes in (coarse, split, fine):
+            k_classes, p_classes = copy(classes), copy(classes)
+            sub = fb.classify_subcells(table, pose, intr, eng, k_classes, cap, cap)
+            sub_plain = fb.classify_subcells_plain(table, pose, intr, eng, p_classes, cap, cap)
+            subcell_equal.append(all(bool(torch.equal(a, b)) for a, b in zip(sub, sub_plain))
+                                 and bool(k_classes.overflow) == bool(p_classes.overflow))
+        sub = fb.classify_subcells(table, pose, intr, eng, copy(coarse), cap, cap)
+        split_sub = fb.classify_subcells(table, pose, intr, eng, copy(split), cap, cap)
+        fine_sub = fb.classify_subcells(table, pose, intr, eng, copy(fine), cap, cap)
+
+        # B3c's variants: (classes, subcells) on the dense planes against plain and K2, and on the rows against K2
+        k2 = [x.clone() for x in vol]
+        kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+        k2_rows = bricks.from_dense(*k2)
+        variants = {"split": (split, None), "subcell": (coarse, sub), "split_subcell": (split, split_sub),
+                    "fine": (fine, None), "fine_subcell": (fine, fine_sub)}
+        equal = {}
+        for key, (classes, subcells) in variants.items():
+            kern, plain = [x.clone() for x in vol], [x.clone() for x in vol]
+            fb.fuse_bricks(*kern, depth_m, pose, intr, eng, classes, cap, True, 0.0, subcells, cap)
+            fb.fuse_bricks_plain(*plain, depth_m, pose, intr, eng, classes, cap, True, 0.0, subcells, cap)
+            rows_b = bricks.from_dense(*vol)
+            fb.fuse_bricks(*rows_b, depth_m, pose, intr, eng, classes, cap, True, 0.0, subcells, cap)
+            torch.cuda.synchronize()
+            equal[key] = dict(plain=all(_bits(a, b) for a, b in zip(kern, plain)),
+                              k2=all(_bits(a, b) for a, b in zip(kern, k2)),
+                              rows_k2=all(_bits(a, b) for a, b in zip(rows_b, k2_rows)))
+            del kern, plain, rows_b
+        # the bilinear branch at the orbit frame: against the plain version
+        bilinear_equal = None
+        if name == "orbit frame 3":
+            bilinear_equal = {}
+            for key in ("split", "subcell"):
+                classes, subcells = variants[key]
+                kern, plain = [x.clone() for x in vol], [x.clone() for x in vol]
+                fb.fuse_bricks(*kern, depth_m, pose, intr, eng, classes, cap, True, BILINEAR_THRESHOLD, subcells, cap)
+                fb.fuse_bricks_plain(*plain, depth_m, pose, intr, eng, classes, cap, True, BILINEAR_THRESHOLD, subcells,
+                                     cap)
+                rows_b, rows_p = bricks.from_dense(*vol), bricks.from_dense(*vol)
+                fb.fuse_bricks(*rows_b, depth_m, pose, intr, eng, classes, cap, True, BILINEAR_THRESHOLD, subcells,
+                               cap)
+                fb.fuse_bricks_plain(*rows_p, depth_m, pose, intr, eng, classes, cap, True, BILINEAR_THRESHOLD,
+                                     subcells, cap)
+                torch.cuda.synchronize()
+                bilinear_equal[key] = all(_bits(a, b) for a, b in zip(kern, plain)) and all(
+                    _bits(a, b) for a, b in zip(rows_b, rows_p))
+                del kern, plain, rows_b, rows_p
+        # a starved subcell capacity at the orbit frame: "flag" as the plain version, leaving voxels unfused;
+        # "dense" K2's volume
+        starved = None
+        if name == "orbit frame 3":
+            k_classes, p_classes, d_classes = copy(coarse), copy(coarse), copy(coarse)
+            k_sub = fb.classify_subcells(table, pose, intr, eng, k_classes, cap, STARVED_SUBCELL_CAP)
+            p_sub = fb.classify_subcells_plain(table, pose, intr, eng, p_classes, cap, STARVED_SUBCELL_CAP)
+            d_sub = fb.classify_subcells(table, pose, intr, eng, d_classes, cap, STARVED_SUBCELL_CAP)
+            flag_k, flag_p, dense_k = ([x.clone() for x in vol] for _ in range(3))
+            fb.fuse_bricks(*flag_k, depth_m, pose, intr, eng, k_classes, cap, False, 0.0, k_sub, STARVED_SUBCELL_CAP)
+            fb.fuse_bricks_plain(*flag_p, depth_m, pose, intr, eng, p_classes, cap, False, 0.0, p_sub,
+                                 STARVED_SUBCELL_CAP)
+            fb.fuse_bricks(*dense_k, depth_m, pose, intr, eng, d_classes, cap, True, 0.0, d_sub, STARVED_SUBCELL_CAP)
+            torch.cuda.synchronize()
+            starved = dict(overflow=bool(k_classes.overflow), lists_overflow=bool(k_sub.overflow),
+                           lists_equal=all(bool(torch.equal(a, b)) for a, b in zip(k_sub, p_sub)),
+                           flag_equal_to_plain=all(_bits(a, b) for a, b in zip(flag_k, flag_p)),
+                           voxels_left_unfused=int(((k2[2] != vol.weight) & (flag_k[2] == vol.weight)).sum()),
+                           dense_bit_equal_to_k2=all(_bits(a, b) for a, b in zip(dense_k, k2)))
+            del flag_k, flag_p, dense_k
+
+        # the kernels timed from prepared arguments, B3b and B3c beside them, at the orbit frame (the main path's
+        # shapes)
+        ms = cold = plain_ms = None
+        if name == "orbit frame 3":
+            n = n_bricks
+            scratch = fb.classify_scratch(dev, n)
+            tiles = fb.classify_tiles(n)
+            out = fb.classify_bricks(table, pose, intr, eng, cap, split=True)
+
+            def classify(kernel, *extra, tail=()):
+                def go():
+                    run(kernel, table, pose, out.cls, scratch.words, *scratch.next_launch(), out.rank,
+                        out.active_ids, out.work_ids, out.totals, out.overflow, *extra, H, W, lv, consts, *tail, cap)
+                    scratch.launched(tiles)
+                return go
+
+            sub_out = fb.classify_subcells(table, pose, intr, eng, copy(coarse), cap, cap)
+            sub_scratch = fb.ClassifyScratch(table.device, 1)
+            sub_flag = coarse.overflow.clone()
+
+            def subcells():
+                run("classify_subcells", table, pose, coarse.active_ids, coarse.totals, sub_flag, sub_scratch.words,
+                    sub_scratch.next_launch()[0], sub_out.cls, sub_out.rank, sub_out.counts, sub_out.overflow,
+                    *(s // fb.BRICK for s in res), H, W, lv, consts, sub_consts, cap, cap)
+                sub_scratch.launched(fb.subcell_blocks(cap))
+
+            planes = [x.clone() for x in vol]
+
+            def fuse(kernel, classes, *extra):
+                return lambda: run(kernel, *planes, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
+                                   classes.totals, classes.overflow, *extra, *fargs, cap, True, res, False, 0.0)
+
+            timed = {
+                "classify_bricks": classify("classify_bricks"),
+                "classify_bricks_split": classify("classify_bricks_split", out.aux),
+                "classify_bricks_fine": classify("classify_bricks_fine", tail=(sub_consts[1],)),
+                "classify_subcells": subcells,
+                "fuse_bricks": fuse("fuse_bricks", coarse),
+                "fuse_bricks_mixed": fuse("fuse_bricks_mixed", split, split.aux),
+                "fuse_bricks_subcell": fuse("fuse_bricks_subcell", coarse,
+                                            torch.empty(0, dtype=torch.int32, device=dev), sub.cls, sub.rank, cap),
+            }
+            ms = {k: time_ms(fn, 50 if k.startswith("classify") else 20) for k, fn in timed.items()}
+            cold = {k: time_cold_ms(fn, 20) for k, fn in timed.items()}
+            plain_ms = {
+                "classify_bricks_split": time_ms(
+                    lambda: fb.classify_bricks_full_plain(table, pose, intr, eng, split=True), 2),
+                "classify_bricks_fine": time_ms(lambda: fb.classify_bricks_fine_plain(table, pose, intr, eng), 2),
+                "classify_subcells": time_ms(
+                    lambda: fb.classify_subcells_plain(table, pose, intr, eng, copy(coarse), cap, cap), 2),
+                "fuse_bricks_mixed": time_ms(
+                    lambda: fb.fuse_bricks_plain(*planes, depth_m, pose, intr, eng, split, cap, True), 2),
+                "fuse_bricks_subcell": time_ms(
+                    lambda: fb.fuse_bricks_plain(*planes, depth_m, pose, intr, eng, coarse, cap, True, 0.0, sub, cap),
+                    2),
+            }
+            del planes
+        # bounds: the classifiers by operations (B3b's ~600 a box; B15s four cells' tests more a brick; B15f 8
+        # boxes a brick; B15c 8 boxes a candidate row), their bytes the table, the pose, the classes, ranks and
+        # lists out (B15s its windows, B15c the (rows, 8) classes and ranks); the brick pass by bytes, the depth
+        # image and 24 B a voxel it updates, 69 operations a work brick's voxel to its gate, 60 more an exact
+        # update (B15s's MIXED voxels its window test instead; B15c's the listed subcells' 64 voxels)
+        n = n_bricks
+        table_b = table.numel() * 4 + pose.numel() * 4
+        n_split = [int(x) for x in split.totals]
+        n_fine = [int(x) for x in fine.totals]
+        n_rows = min(n_active, cap)
+        updated = int((k2[2] != vol.weight).sum())
+        n_mixed = int((split.cls == fb.MIXED).sum())
+        listed = int(sub.counts.sum())
+        bounds = {
+            "classify_bricks_split": bound_ms(table_b + n * 12 + sum(n_split) * 4 + 9,
+                                              n * (CLASSIFY_BOX_OPS + 4 * SPLIT_CELL_OPS)),
+            "classify_bricks_fine": bound_ms(table_b + n * 8 + sum(n_fine) * 4 + 9, n * 8 * CLASSIFY_BOX_OPS),
+            "classify_subcells": bound_ms(table_b + n_rows * 4 + cap * 64 + 41, n_rows * 8 * CLASSIFY_BOX_OPS),
+            "fuse_bricks_mixed": bound_ms(depth_m.numel() * 4 + updated * 24,
+                                          n_split[1] * 512 * 69 + n_split[0] * 512 * 60 + n_mixed * 512 * MIXED_VOXEL_OPS),
+            "fuse_bricks_subcell": bound_ms(depth_m.numel() * 4 + updated * 24,
+                                            int(coarse.totals[1]) * 512 * 69 + listed * 64 * 60),
+        }
+        counts = torch.bincount(split.cls.reshape(-1), minlength=5).tolist()
+        emit("B15 classifiers and subcell fusion", case=name, step_column=column if name == "depth step" else None,
+             classes_split=dict(zip(("none", "far", "active", "far_partial", "mixed"), counts)),
+             n_active=dict(coarse=n_active, split=n_split[0], fine=n_fine[0]), cap=cap,
+             subcells_listed=listed, subcell_counts=sub.counts.tolist(), split_equal_to_plain=split_equal,
+             fine_equal_to_plain=fine_equal, subcells_equal_to_plain=subcell_equal, fuse_variants=equal,
+             bilinear_equal_to_plain=bilinear_equal, starved_subcell_cap=starved, voxels_updated=updated, ms=ms,
+             cold_ms=cold, plain_ms=plain_ms, bound_ms={k: b[0] for k, b in bounds.items()},
+             bound_by={k: b[1] for k, b in bounds.items()}, library_ms=None,
+             library_note="no single PyTorch call computes any of them")
+        check(split_equal and fine_equal and all(subcell_equal),
+              f"B15 classifiers at {name}: split {split_equal}, fine {fine_equal}, subcells {subcell_equal}")
+        check(all(all(v.values()) for v in equal.values()), f"B3c's B15 variants at {name}: {equal}")
+        check(bilinear_equal is None or all(bilinear_equal.values()), f"B15 bilinear at {name}: {bilinear_equal}")
+        check(starved is None or (starved["overflow"] and starved["lists_overflow"] and starved["lists_equal"]
+                                  and starved["flag_equal_to_plain"] and starved["voxels_left_unfused"] > 0
+                                  and starved["dense_bit_equal_to_k2"]), f"starved subcell cap at {name}: {starved}")
+        check(name != "depth step" or n_mixed > 0, f"MIXED does not fire at the depth step's column {column}")
+        # the split classifier only adds proofs to B3b's; the fine one may list more (a brick whose subcells mix
+        # NONE with far ones stays ACTIVE, where B3b may prove it FAR_PARTIAL: the depth step)
+        check(n_split[0] <= n_active, f"{name}: ACTIVE bricks coarse {n_active}, split {n_split[0]}")
+        if ms is not None:
+            for k in plain_ms:
+                rows_out[k] = dict(max_abs_err=0.0, ms=ms[k], cold_ms=cold[k], plain_ms=plain_ms[k],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1], classify_bricks_ms=ms["classify_bricks"],
+                                   classify_bricks_cold_ms=cold["classify_bricks"], fuse_bricks_ms=ms["fuse_bricks"],
+                                   fuse_bricks_cold_ms=cold["fuse_bricks"])
+        del k2, k2_rows
+    return rows_out
 
 
 def phase_dense_marches(ctx):
@@ -2774,6 +3088,9 @@ def phase_main_path(ctx, tag: str = "main path"):
     elif tag in BRICK_RAYCASTS:
         n_frames = N_FRAMES_MARCH
         cfg = dataclasses.replace(cfg, **BRICK_RAYCASTS[tag], end_frame=n_frames)
+    elif tag in B15_RUNS:
+        n_frames = N_FRAMES_MARCH
+        cfg = dataclasses.replace(cfg, **B15_RUNS[tag], end_frame=n_frames)
     brick = cfg.fusion_mode == "brick"
     bench = cfg.volume_layout == "brick"
     temporal = cfg.raycast_march == "temporal"
@@ -2824,7 +3141,8 @@ def phase_main_path(ctx, tag: str = "main path"):
     between = icp_interlopers(names, icp_at)
     # the bench run's second run takes one frame's depth already on the card: the same pose, bit for bit
     depth_at = DEVICE_DEPTH_FRAME if tag == "main path, bench" else None
-    second_ate, second_poses = _engine_run(cfg, ctx, n_frames, depth_at) if bench else (None, None)
+    twice = bench or tag in B15_RUNS
+    second_ate, second_poses = _engine_run(cfg, ctx, n_frames, depth_at) if twice else (None, None)
     device_depth_same = None if depth_at is None else (
         second_poses[depth_at].tobytes() == np.asarray(engine.pose_log[depth_at]).tobytes())
     # B16 gives accepted rays B4's events and samples: whether the first-event march's poses are bench.py's
@@ -2834,6 +3152,19 @@ def phase_main_path(ctx, tag: str = "main path"):
     bench_poses = ctx["pose_logs"].get("main path, bench")
     same_as_bench = None if tag != "main path, bench phase1" or bench_poses is None else all(
         a.tobytes() == b.tobytes() for a, b in zip(ctx["pose_logs"][tag], bench_poses[:n_frames]))
+    # B15's settings: every volume is K2's bit for bit, so the poses are the reference run's first frames bit for
+    # bit (bench.py's run on the brick layout, the first main path on the dense one), and the largest ACTIVE count
+    # beside the reference run's over the same frames (None where it fuses densely)
+    b15 = None
+    if tag in B15_RUNS:
+        ref = "main path, bench" if bench else "main path"
+        ref_poses = ctx["pose_logs"].get(ref) or []
+        b15 = dict(reference_run=ref, poses_equal_to_reference=len(ref_poses) >= n_frames and all(
+            a.tobytes() == b.tobytes() for a, b in zip(ctx["pose_logs"][tag], ref_poses[:n_frames])),
+            reference_max_active_bricks=max(ctx.get("active_bricks", {}).get(ref, [None])[:n_frames],
+                                            key=lambda a: -1 if a is None else a))
+    if brick:
+        ctx.setdefault("active_bricks", {})[tag] = active
 
     steady = np.asarray(times[WARM_FRAMES:])
     emit(tag, config="configs/synthetic.yaml", icp_fixed_assoc=cfg.icp_fixed_assoc, model_map_level=L,
@@ -2853,7 +3184,10 @@ def phase_main_path(ctx, tag: str = "main path"):
                  refresh_frames=sum(c < cfg.raycast_temporal_min_coverage for c in coverage)) if temporal else {}),
          **(dict(device_depth_frame=depth_at, device_depth_pose_equal=device_depth_same) if depth_at is not None
             else {}),
-         **(dict(poses_equal_to_bench_run=same_as_bench) if same_as_bench is not None else {}))
+         **(dict(poses_equal_to_bench_run=same_as_bench) if same_as_bench is not None else {}),
+         **(dict(b15=b15, fusion_classify_split=cfg.fusion_classify_split,
+                 fusion_classify_fine=cfg.fusion_classify_fine, fusion_subcell_cap=cfg.fusion_subcell_cap,
+                 **({} if bench else dict(second_run_ate_m=second_ate))) if b15 is not None else {}))
     check(all(aligned), f"frames failed to align: {aligned}")
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
     check(tuple(vmap.v.shape) == (3, cfg.depth_height >> L, cfg.depth_width >> L) and finite and valid_frac > 0.5,
@@ -2875,9 +3209,19 @@ def phase_main_path(ctx, tag: str = "main path"):
     brick_fused = integrated if brick else 0
     want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps")}
     want.update(icp_system=iterations * n_frames, icp_associate=0, fuse_volume=0 if bilinear else dense_fused,
-                fuse_volume_bilinear=dense_fused if bilinear else 0, fuse_bricks=0 if bilinear else brick_fused,
-                fuse_bricks_bilinear=brick_fused if bilinear else 0)
-    want.update({k: brick_fused for k in ("depth_mips", "classify_bricks")})
+                fuse_volume_bilinear=dense_fused if bilinear else 0)
+    # B15: the classifier B3b, B15s (split) or B15f (fine, which wins), B15c with the subcell stage, and B3c's
+    # variant: subcell, MIXED (split), or B3c itself (its bilinear branch with a threshold)
+    fine = cfg.fusion_classify_fine
+    split = cfg.fusion_classify_split and not fine
+    subcell = cfg.fusion_subcell_cap > 0
+    classifier = "classify_bricks_fine" if fine else ("classify_bricks_split" if split else "classify_bricks")
+    fuse = ("fuse_bricks_subcell" if subcell else "fuse_bricks_mixed" if split
+            else "fuse_bricks_bilinear" if bilinear else "fuse_bricks")
+    want.update({k: brick_fused if k in (classifier, fuse) else 0
+                 for k in ("classify_bricks", "classify_bricks_split", "classify_bricks_fine", "fuse_bricks",
+                           "fuse_bricks_bilinear", "fuse_bricks_mixed", "fuse_bricks_subcell")})
+    want.update(depth_mips=brick_fused, classify_subcells=brick_fused if subcell else 0)
     dense = 0 if bench else n_frames
     want.update(march_fixed=dense if march == "fixed" else 0, raycast_refine=dense,
                 march_fixed_strided=dense if march in ("hier", "hier2") else 0,
@@ -2899,13 +3243,17 @@ def phase_main_path(ctx, tag: str = "main path"):
         # the run is the first main path's to every digit
         check(all(a is not None and a <= cfg.fusion_brick_cap for a in active),
               f"brick fusion overflowed its cap {cfg.fusion_brick_cap}: ACTIVE bricks {active}")
+    if b15 is not None:
+        check(second_ate == ate and b15["poses_equal_to_reference"],
+              f"{tag}: ATEs {ate!r} and {second_ate!r} m in two runs; poses equal to {b15['reference_run']}'s "
+              f"{b15['poses_equal_to_reference']}")
     if bench:
         check(second_ate == ate, f"two runs of {tag} gave the ATEs {ate!r} and {second_ate!r} m")
         check(depth_at is None or device_depth_same,
               f"{tag}: frame {depth_at}'s pose from a depth on the card differs from the host depth's")
         check(not temporal or all(c >= cfg.raycast_temporal_min_coverage for c in coverage) != refresh,
               f"{tag}: anchor coverage {coverage} against {cfg.raycast_temporal_min_coverage}")
-    elif brick:
+    elif brick and b15 is None:
         check(ate == ctx["ate"], f"brick fusion's ATE {ate!r} m differs from dense fusion's {ctx['ate']!r} m")
     elif tag == "main path":
         ctx["ate"] = ate
@@ -3572,7 +3920,7 @@ def phase_backend_realistic(ctx):
 
 # the phases in their order: (name, function)
 PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
-          ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("march_fixed", phase_march),
+          ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("B15", phase_b15), ("march_fixed", phase_march),
           ("raycast_refine", phase_refine), ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
           ("brick refine", phase_brick_refine), ("first-event window", phase_first_event),
           ("dense marches", phase_dense_marches), ("extract", phase_extract),
@@ -3590,6 +3938,7 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("main path, hier_skip", phase_main_path_hier_skip),
           ("main path, bench bilinear", phase_main_path_bench_bilinear),
           *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in BRICK_RAYCASTS),
+          *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in B15_RUNS),
           ("process_frames", phase_process_frames),
           ("main path, ICL realistic", phase_main_path_icl),
           ("main path, 7-Scenes realistic", phase_main_path_7scenes),
@@ -3672,6 +4021,7 @@ def main() -> int:
     results.update(results.pop("first-event window"))
     results.update(results.pop("extract"))
     results.update(results.pop("bilinear"))
+    results.update(results.pop("B15"))
     results.update(results.pop("march_fixed"))
     results.update(results.pop("dense marches"))
     # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
@@ -3680,7 +4030,8 @@ def main() -> int:
     counts = {path: results[path] for path in ("main path", "main path, fixed association", "main path, brick fusion",
                                                "main path, bench", "main path, bench refresh", "main path, hier2",
                                                "main path, skip", "main path, hier", "main path, hier_skip",
-                                               "main path, bench bilinear", *BRICK_RAYCASTS, "main path, ICL realistic",
+                                               "main path, bench bilinear", *BRICK_RAYCASTS, *B15_RUNS,
+                                               "main path, ICL realistic",
                                                "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]
     table = [

@@ -273,11 +273,19 @@ def test_profile_step_names_each_hand_kernel_once():
     ("window_march_kernel<false, true>", ["window_march_first_event"]),  # B16
     ("march_kernel", ["march_fixed"]),  # K3 at every stride
     ("skip_distance_kernel<true>", ["skip_field_dense"]),
+    ("classify_bricks_kernel", ["classify_bricks"]),  # B3b
+    ("classify_bricks_split_kernel", ["classify_bricks_split"]),  # B15s
+    ("classify_bricks_fine_kernel", ["classify_bricks_fine"]),  # B15f
+    ("classify_subcells_kernel", ["classify_subcells"]),  # B15c
+    ("fuse_bricks_kernel<true, false>", ["fuse_bricks"]),  # B3c on the rows
+    ("fuse_bricks_mixed_kernel<true, true>", ["fuse_bricks_mixed"]),  # B3c's MIXED variant, bilinear, rows
+    ("fuse_bricks_subcell_kernel<false, false>", ["fuse_bricks_subcell"]),  # B3c's subcell variant
 ])
 def test_kernel_resources_names_each_instantiations_wrappers(function, wrappers):
     """The resource report lists each instantiation of a kernel apart, with
     the wrappers whose launches run it: K5r and B16 are instantiations of K5's
-    and B4's kernels."""
+    and B4's kernels; B15's classifiers and B3c's variants are kernels of their
+    own, each with one wrapper."""
     from xslam_tpu_torch.apps.kernel_resources import wrappers_of
 
     assert wrappers_of(function) == wrappers

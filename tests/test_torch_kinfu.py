@@ -137,23 +137,21 @@ def test_default_device_needs_cuda():
         TorchEngine(torch_config(small_config()))
 
 
-@pytest.mark.parametrize(
-    "option",
-    [
-        # B15's options, the ones left to port, on each layout and beside the raycast options that now run
-        dict(volume_layout="brick", fusion_mode="brick", fusion_subcell_cap=64),
-        dict(fusion_mode="brick", fusion_classify_fine=True),
-        dict(fusion_mode="brick", fusion_classify_split=True),
-        dict(fusion_mode="brick", fusion_subcell_cap=64),
-        dict(raycast_packed_taps=True, fusion_mode="brick", fusion_classify_fine=True),
-        dict(raycast_compact=True, fusion_mode="brick", fusion_classify_split=True),
-        dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2",
-             fusion_classify_fine=True),
-    ],
-)
-def test_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError):
-        TorchEngine(torch_config(small_config(**option)), device="cpu")
+@pytest.mark.parametrize("case", ["schur_ba", "schur_ba_cg", "brick_layout_dense_fusion"])
+def test_options_outside_the_slice_raise(case):
+    """What the port has no path for raises: the observation-sharded BA
+    (``axis_name``, not ported); and the JAX engine's own checks raise as
+    there (the brick layout needs brick fusion). B15's fusion options, which
+    raised here, now run: tests/test_torch_fusion_classifier_runs.py."""
+    from xslam_tpu_torch.models import ba as tba
+
+    if case == "brick_layout_dense_fusion":
+        with pytest.raises(ValueError, match="fusion_mode='brick'"):
+            TorchEngine(torch_config(small_config(volume_layout="brick", fusion_mode="dense")), device="cpu")
+        return
+    prob = tba.BAProblem(torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3))
+    with pytest.raises(NotImplementedError, match="axis_name"):
+        getattr(tba, case)(torch.zeros(1, 6), torch.zeros(1, 3), prob, axis_name="space")
 
 
 def _port_run(n, **options):

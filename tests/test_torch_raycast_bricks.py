@@ -835,23 +835,12 @@ def test_use_gt_pose_brick_volume_equals_dense():
 
 
 # the brick layout's raycasts all run now (tests/test_torch_brick_raycasts.py, test_torch_temporal_compact.py,
-# test_torch_raycast_options.py); what still raises NotImplementedError is B15's fusion options, here with each
-# raycast they can meet
-SECANT = dict(BENCH, raycast_refine="secant2")
+# test_torch_raycast_options.py), and so do B15's fusion options with each raycast they can meet
+# (tests/test_torch_fusion_classifier_runs.py); what raises is the JAX engine's own checks
 @pytest.mark.parametrize("option, error", [
-    (dict(volume_layout="brick", fusion_mode="brick", fusion_classify_fine=True), NotImplementedError),
-    (dict(SECANT, fusion_classify_split=True), NotImplementedError),
-    (dict(SECANT, raycast_march="hier2", fusion_subcell_cap=64), NotImplementedError),
-    (dict(BENCH, raycast_quad_taps=True, fusion_classify_fine=True), NotImplementedError),
-    (dict(BENCH, raycast_temporal_phase1=4, fusion_classify_split=True), NotImplementedError),
-    (dict(BENCH, raycast_skip_gran=4, fusion_subcell_cap=64), NotImplementedError),
-    (dict(BENCH, raycast_compact=True, fusion_classify_fine=True), NotImplementedError),
-    (dict(raycast_compact=True, fusion_mode="brick", fusion_subcell_cap=32), NotImplementedError),
     (dict(BENCH, raycast_normals="tsdf"), ValueError),  # reuse needs screen normals (the JAX engine's check)
     (dict(BENCH, fusion_mode="dense"), ValueError),
     (dict(raycast_march="temporal"), ValueError),
-    (dict(volume_layout="brick", fusion_mode="brick", raycast_march="hier_skip", raycast_refine="secant2",
-          raycast_normals="screen", fusion_classify_split=True), NotImplementedError),
 ])
 def test_other_options_raise(option, error):
     with pytest.raises(error):

@@ -37,6 +37,8 @@ BLOCK_THREADS = {
     "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 64,
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
+    "classify_bricks_split_kernel": 256, "classify_bricks_fine_kernel": 256, "classify_subcells_kernel": 256,
+    "fuse_bricks_mixed_kernel": 128, "fuse_bricks_subcell_kernel": 128,
     "window_march_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
     "march_skip_kernel": 128, "extract_count_kernel": 256, "extract_points_kernel": 256,
     "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,

@@ -21,13 +21,19 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
                                   long long scratch_words, unsigned ticket_base, unsigned long long epoch,
                                   void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
                                   int nbx, int nby, int nbz, int H, int W, const int* levels, int n_levels,
-                                  int rows, const float* consts, int cap, void* stream);
+                                  int rows, const float* consts, int cap, int mode, void* aux, float sub_edge,
+                                  void* stream);
+extern "C" int xs_classify_subcells(const void* table, const void* pose, const void* active_ids, const void* totals,
+                                    void* overflow, void* ticket, unsigned ticket_base, void* scls, void* srank,
+                                    void* counts, void* sub_overflow, int nbx, int nby, int nbz, int H, int W,
+                                    const int* levels, int n_levels, int rows, const float* consts, float vs,
+                                    float sub_edge, int cap, int subcell_cap, void* stream);
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                               float max_w, int cap, int dense_on_overflow, int rows, float bi_threshold,
-                              void* stream);
+                              const void* aux, const void* scls, const void* srank, int subcell_cap, void* stream);
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
@@ -122,12 +128,12 @@ int depth_mips(const torch::Tensor& depth, torch::Tensor table, const std::vecto
 // cls: (nbx, nby, nbz); scratch: ops/fusion_brick.py::ClassifyScratch's int64 words; ticket_base, epoch:
 // the tickets its earlier launches took (mod 2^32) and this launch's number on it, from 1; rank,
 // active_ids, work_ids: one int a brick; totals: (2,) int32; overflow: () bool; consts: the classifier's
-// thirteen float32 constants
-int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor scratch,
-                    int64_t ticket_base, int64_t epoch, torch::Tensor rank, torch::Tensor active_ids,
-                    torch::Tensor work_ids, torch::Tensor totals, torch::Tensor overflow, int64_t H, int64_t W,
-                    const std::vector<int64_t>& levels, const std::vector<double>& consts, int64_t cap,
-                    int64_t stream) {
+// thirteen float32 constants; mode: 0 B3b, 1 B15s (aux: one int a brick), 2 B15f (sub_edge: the subcell edge)
+int classify_on(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor scratch,
+                int64_t ticket_base, int64_t epoch, torch::Tensor rank, torch::Tensor active_ids,
+                torch::Tensor work_ids, torch::Tensor totals, torch::Tensor overflow, void* aux, int64_t H, int64_t W,
+                const std::vector<int64_t>& levels, const std::vector<double>& consts, float sub_edge, int64_t cap,
+                int mode, int64_t stream) {
   if (levels.size() % 4 != 0 || consts.size() != 13 || epoch < 1) return 1;  // cudaErrorInvalidValue
   const std::vector<int> lv(levels.begin(), levels.end());
   const std::vector<float> c(consts.begin(), consts.end());  // float32 values, carried exactly in double
@@ -135,7 +141,74 @@ int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch
                             (unsigned)(ticket_base & 0xffffffffll), (unsigned long long)epoch,
                             rank.data_ptr(), active_ids.data_ptr(), work_ids.data_ptr(), totals.data_ptr(),
                             overflow.data_ptr(), cls.size(0), cls.size(1), cls.size(2), H, W, lv.data(),
-                            (int)(lv.size() / 4), table.size(0), c.data(), cap, as_stream(stream));
+                            (int)(lv.size() / 4), table.size(0), c.data(), cap, mode, aux, sub_edge,
+                            as_stream(stream));
+}
+
+int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor scratch,
+                    int64_t ticket_base, int64_t epoch, torch::Tensor rank, torch::Tensor active_ids,
+                    torch::Tensor work_ids, torch::Tensor totals, torch::Tensor overflow, int64_t H, int64_t W,
+                    const std::vector<int64_t>& levels, const std::vector<double>& consts, int64_t cap,
+                    int64_t stream) {
+  return classify_on(table, pose, cls, scratch, ticket_base, epoch, rank, active_ids, work_ids, totals, overflow,
+                     nullptr, H, W, levels, consts, 0.0f, cap, 0, stream);
+}
+
+// B15s: aux, one int a brick, takes the windows
+int classify_bricks_split(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls,
+                          torch::Tensor scratch, int64_t ticket_base, int64_t epoch, torch::Tensor rank,
+                          torch::Tensor active_ids, torch::Tensor work_ids, torch::Tensor totals,
+                          torch::Tensor overflow, torch::Tensor aux, int64_t H, int64_t W,
+                          const std::vector<int64_t>& levels, const std::vector<double>& consts, int64_t cap,
+                          int64_t stream) {
+  if (aux.numel() != cls.numel()) return 1;  // cudaErrorInvalidValue
+  return classify_on(table, pose, cls, scratch, ticket_base, epoch, rank, active_ids, work_ids, totals, overflow,
+                     aux.data_ptr(), H, W, levels, consts, 0.0f, cap, 1, stream);
+}
+
+// B15f: sub_edge, the subcell edge (4 voxels) as float32
+int classify_bricks_fine(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls,
+                         torch::Tensor scratch, int64_t ticket_base, int64_t epoch, torch::Tensor rank,
+                         torch::Tensor active_ids, torch::Tensor work_ids, torch::Tensor totals,
+                         torch::Tensor overflow, int64_t H, int64_t W, const std::vector<int64_t>& levels,
+                         const std::vector<double>& consts, double sub_edge, int64_t cap, int64_t stream) {
+  return classify_on(table, pose, cls, scratch, ticket_base, epoch, rank, active_ids, work_ids, totals, overflow,
+                     nullptr, H, W, levels, consts, (float)sub_edge, cap, 2, stream);
+}
+
+// B15c. overflow: classify_bricks' flag, ORed with the lists'; scratch: a ClassifyScratch whose word 0 is the
+// ticket counter; scls, srank: (cap, 8) int32; counts: (8,) int32; sub_overflow: () bool; sub_consts: the voxel
+// size and the subcell edge as float32
+int classify_subcells(const torch::Tensor& table, const torch::Tensor& pose, const torch::Tensor& active_ids,
+                      const torch::Tensor& totals, torch::Tensor overflow, torch::Tensor scratch, int64_t ticket_base,
+                      torch::Tensor scls, torch::Tensor srank, torch::Tensor counts, torch::Tensor sub_overflow,
+                      int64_t nbx, int64_t nby, int64_t nbz, int64_t H, int64_t W, const std::vector<int64_t>& levels,
+                      const std::vector<double>& consts, const std::vector<double>& sub_consts, int64_t cap,
+                      int64_t subcell_cap, int64_t stream) {
+  if (levels.size() % 4 != 0 || consts.size() != 13 || sub_consts.size() != 2) return 1;  // cudaErrorInvalidValue
+  if (scls.numel() != 8 * cap || srank.numel() != 8 * cap || counts.numel() != 8) return 1;
+  const std::vector<int> lv(levels.begin(), levels.end());
+  const std::vector<float> c(consts.begin(), consts.end());
+  return xs_classify_subcells(table.data_ptr(), pose.data_ptr(), active_ids.data_ptr(), totals.data_ptr(),
+                              overflow.data_ptr(), scratch.data_ptr(), (unsigned)(ticket_base & 0xffffffffll),
+                              scls.data_ptr(), srank.data_ptr(), counts.data_ptr(), sub_overflow.data_ptr(), nbx, nby,
+                              nbz, H, W, lv.data(), (int)(lv.size() / 4), table.size(0), c.data(),
+                              (float)sub_consts[0], (float)sub_consts[1], cap, subcell_cap, as_stream(stream));
+}
+
+int fuse_bricks_on(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
+                   const torch::Tensor& pose, const torch::Tensor& cls, const torch::Tensor& rank,
+                   const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow,
+                   const void* aux, const void* scls, const void* srank, int64_t subcell_cap, float vs, float fx,
+                   float fy, float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
+                   float max_w, int64_t cap, bool dense_on_overflow, const std::vector<int64_t>& res, bool rows,
+                   float bi_threshold, int64_t stream) {
+  if (res.size() != 3) return 1;  // cudaErrorInvalidValue
+  return xs_fuse_bricks(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
+                        cls.data_ptr(), rank.data_ptr(), work_ids.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
+                        res[0], res[1], res[2], depth.size(0), depth.size(1), vs, fx, fy, cx, cy, inv_fx, inv_fy,
+                        trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, bi_threshold, aux,
+                        scls, srank, subcell_cap, as_stream(stream));
 }
 
 // res: the volume's (X, Y, Z); rows: the planes are its (NB, 512) brick rows, not (X, Y, Z) planes
@@ -145,12 +218,38 @@ int fuse_bricks(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, c
                 float fx, float fy, float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                 float max_w, int64_t cap, bool dense_on_overflow, const std::vector<int64_t>& res, bool rows,
                 float bi_threshold, int64_t stream) {
-  if (res.size() != 3) return 1;  // cudaErrorInvalidValue
-  return xs_fuse_bricks(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
-                        cls.data_ptr(), rank.data_ptr(), work_ids.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
-                        res[0], res[1], res[2], depth.size(0), depth.size(1), vs, fx, fy, cx, cy, inv_fx, inv_fy,
-                        trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, bi_threshold,
-                        as_stream(stream));
+  return fuse_bricks_on(value, grad, weight, depth, pose, cls, rank, work_ids, totals, overflow, nullptr, nullptr,
+                        nullptr, 0, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, cap,
+                        dense_on_overflow, res, rows, bi_threshold, stream);
+}
+
+// B3c's MIXED variant: aux, B15s's windows
+int fuse_bricks_mixed(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
+                      const torch::Tensor& pose, const torch::Tensor& cls, const torch::Tensor& rank,
+                      const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow,
+                      const torch::Tensor& aux, float vs, float fx, float fy, float cx, float cy, float inv_fx,
+                      float inv_fy, float trunc, float inv_trunc, float max_w, int64_t cap, bool dense_on_overflow,
+                      const std::vector<int64_t>& res, bool rows, float bi_threshold, int64_t stream) {
+  if (aux.numel() != cls.numel()) return 1;  // cudaErrorInvalidValue
+  return fuse_bricks_on(value, grad, weight, depth, pose, cls, rank, work_ids, totals, overflow, aux.data_ptr(),
+                        nullptr, nullptr, 0, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, cap,
+                        dense_on_overflow, res, rows, bi_threshold, stream);
+}
+
+// B3c's subcell variant: scls, srank, B15c's (cap, 8) classes and ranks; aux, B15s's windows, or empty
+int fuse_bricks_subcell(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
+                        const torch::Tensor& pose, const torch::Tensor& cls, const torch::Tensor& rank,
+                        const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow,
+                        const torch::Tensor& aux, const torch::Tensor& scls, const torch::Tensor& srank,
+                        int64_t subcell_cap, float vs, float fx, float fy, float cx, float cy, float inv_fx,
+                        float inv_fy, float trunc, float inv_trunc, float max_w, int64_t cap, bool dense_on_overflow,
+                        const std::vector<int64_t>& res, bool rows, float bi_threshold, int64_t stream) {
+  if ((aux.numel() != 0 && aux.numel() != cls.numel()) || scls.numel() != 8 * cap || srank.numel() != 8 * cap)
+    return 1;  // cudaErrorInvalidValue
+  return fuse_bricks_on(value, grad, weight, depth, pose, cls, rank, work_ids, totals, overflow,
+                        aux.numel() ? aux.data_ptr() : nullptr, scls.data_ptr(), srank.data_ptr(), subcell_cap, vs,
+                        fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, cap, dense_on_overflow, res, rows,
+                        bi_threshold, stream);
 }
 
 // mask: NB bytes of scratch; dist: the (NB,) int32 distances out
@@ -435,7 +534,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fuse_volume", &fuse_volume);
   m.def("depth_mips", &depth_mips);
   m.def("classify_bricks", &classify_bricks);
+  m.def("classify_bricks_split", &classify_bricks_split);
+  m.def("classify_bricks_fine", &classify_bricks_fine);
+  m.def("classify_subcells", &classify_subcells);
   m.def("fuse_bricks", &fuse_bricks);
+  m.def("fuse_bricks_mixed", &fuse_bricks_mixed);
+  m.def("fuse_bricks_subcell", &fuse_bricks_subcell);
   m.def("window_march", &window_march);
   m.def("window_march_first_event", &window_march_first_event);
   m.def("window_march_dense", &window_march_dense);

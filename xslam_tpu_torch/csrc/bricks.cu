@@ -1,10 +1,9 @@
-// B3: brick fusion on the dense (X, Y, Z) volume, in three kernels.
+// B3: brick fusion on the dense (X, Y, Z) volume, in three kernels, and B15,
+// its opt-in classifiers and subcell stage.
 //
-// Replaces the XLA code of xslam_tpu/ops/fusion_brick.py::integrate_brick
-// with the coarse classifier (classify_fine and classify_split off) and no
-// subcell stage: _depth_mips (:60), _classify_boxes with split=False (:219)
-// with _footprint_bounds (:86), and _integrate_rows_core with
-// subcell_cap=0 (:636). The TPU needed bricks to cut depth gathers, which
+// Replaces the XLA code of xslam_tpu/ops/fusion_brick.py::integrate_brick:
+// _depth_mips (:60), _classify_boxes (:219) with _footprint_bounds (:86),
+// classify_bricks_fine (:489), and _integrate_rows_core (:636). The TPU needed bricks to cut depth gathers, which
 // it issues one scalar at a time; here they cut the voxels whose depth is
 // read. The result is dense fusion's, bit for bit: the classes are
 // conservative, a FAR voxel gets the update the exact one saturates to, and
@@ -85,6 +84,22 @@
 //   fusion.cuh's, so the bits are K2's. Bound: bytes, 24 B a voxel it updates
 //   (three planes read and written), plus the depth image; 69 operations a
 //   visited voxel to its gate.
+// B15, each a variant of B3b or B3c that keeps their one-launch shape and flat-order ranks (the default path's
+//   kernels, bits and launches are unchanged):
+// B15s classify_bricks_split_kernel: B3b with split=True (_classify_boxes:404-463): each lane also tests its two
+//   window cells one by one (the cell's depth bounds with a lambda interval over its rect met with the footprint)
+//   and the group ORs the four cells' far / none bits by shuffles; a brick whose cells are each far or none is
+//   MIXED (4), listed as work, and its window goes out as one word (ops/fusion_brick.py::pack_aux: the far
+//   cells, the cell edge, the window's first cell). About 780 operations a brick.
+// B15f classify_bricks_fine_kernel: B3b on the 4^3 subcells: a brick's group classifies its 8 subcells one after
+//   another (boxes i * 4 vs, the fine grid's own rounding) and folds them (all NONE, all FAR, all far-ish, else
+//   ACTIVE) before the ballots: 8x B3b's chain, the same lanes, ranks and lists.
+// B15c classify_subcells_kernel: the subcell stage's classes and lists, a launch between B3b and B3c (below).
+// B3c's variants fuse_bricks_mixed_kernel (a MIXED brick: the FAR update where the voxel's nearest pixel, rintf
+//   of K2's projection, lies in a far cell of its window, tested only where the gate holds) and
+//   fuse_bricks_subcell_kernel (an ACTIVE brick of rank < cap: each voxel as its subcell says, the FAR update,
+//   the exact one within the list's capacity, or none; MIXED bricks too where the split windows are given). The
+//   per-voxel arithmetic is fusion.cuh's, so a frame with no overflow is K2's volume bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -98,6 +113,7 @@ namespace {
 
 constexpr int BRICK = 8;
 constexpr int MAX_MIP_LEVELS = 22;  // ops/fusion_brick.py::MIP_LEVELS
+constexpr int MIP_LEVEL_MIN = 8;    // the smallest tile: a window's first cell is below 512 on images up to 4096 px
 constexpr int MIP_THREADS = 256;    // threads of a depth_mips block
 constexpr int MIP_ROWS = 64;        // most rows one depth_mips thread walks
 constexpr int MIP_INFLIGHT = 8;     // loads a depth_mips thread keeps in flight
@@ -121,7 +137,13 @@ constexpr int FUSE_THREADS = 32 * FUSE_WARPS;
 constexpr int FUSE_MIN_BLOCKS = 6;  // fuse_bricks blocks an SM holds at least: at most 80 registers a thread
 constexpr int COLUMN_STRIDE = BRICK + 1;  // floats between a staged brick's z columns
 constexpr int INDEX_LIMIT = 1 << 30;  // ops/sampling.py::_INDEX_LIMIT
-enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3 };
+enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3, MIXED = 4 };
+// the classifier's variants: B3b's coarse classes, B15s's split classes with MIXED and the windows, B15f's classes
+// of the 4^3 subcells folded by brick
+enum : int { COARSE = 0, SPLIT = 1, FINE = 2 };
+constexpr int SUBCELL_THREADS = 256;  // threads of a classify_subcells block
+constexpr int SUBCELL_ROWS = SUBCELL_THREADS / (8 * CORNER_LANES);  // candidate rows a block: ops/fusion_brick.py
+static_assert(SUBCELL_THREADS % (8 * CORNER_LANES) == 0, "a block takes whole candidate rows");
 
 // the table's levels: tile size, tiles down, tiles across, first row; and depth_mips' blocks of each level
 struct MipLevels {
@@ -288,6 +310,8 @@ struct ClassifyParams {
   float inv_abs_fx, inv_abs_fy;
   float trunc, neg_trunc;
   int cap;
+  float vs, sub_edge;  // voxel size and subcell edge (4 voxels), as float32: the 4^3 grid's and the subcells' boxes
+  int subcell_cap;     // the subcell lists' capacity (classify_subcells)
   unsigned ticket_base;      // tickets taken by the earlier launches on the scratch (mod 2^32)
   unsigned long long epoch;  // this launch's number on the scratch, from 1: a status word of another is stale
   MipLevels m;
@@ -347,13 +371,17 @@ __device__ __forceinline__ void axis_interval(float b0, float bm, float o, float
   hi = max_nan(fabsf(b0 - o), fabsf(b0 + bm - o));
 }
 
-// Brick (bx, by, bz)'s class, computed by the CORNER_LANES lanes of its group, j the lane's place in it (all
-// 32 lanes of the warp call this together: it ballots); every lane of the group returns the class.
-__device__ __forceinline__ int classify_brick(const float* __restrict__ table, const float* __restrict__ pose,
-                                              const ClassifyParams& p, int bx, int by, int bz, int j) {
+// The class of the box of edge bm at (bx0, by0, bz0) (a brick, a subcell of the 4^3 grid, a candidate's
+// subcell), computed by the CORNER_LANES lanes of its group, j the lane's place in it (all 32 lanes of the warp call
+// this together: it ballots); every lane of the group returns the class. With SPLIT (B15s) the window's four cells
+// are also tested one by one and the class may be MIXED; *aux is then the window's word (ops/fusion_brick.py::
+// pack_aux): the far cells (15 for FAR and FAR_PARTIAL), the cell edge, the window's first cell across and down.
+template <bool SPLIT>
+__device__ __forceinline__ int classify_box(const float* __restrict__ table, const float* __restrict__ pose,
+                                            const ClassifyParams& p, float bx0, float by0, float bz0, float bm, int j,
+                                            unsigned* aux) {
   const float* R = pose;       // value lane of the rotation
   const float* t = pose + 18;  // value lane of the translation
-  const float bx0 = (float)bx * p.bm, by0 = (float)by * p.bm, bz0 = (float)bz * p.bm;
   const float fW = (float)p.W, fH = (float)p.H;
 
   // the lane's corners: projections, camera z and the four gate planes' values; then over the group
@@ -361,9 +389,9 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
 #pragma unroll
   for (int c = 0; c < CORNERS_PER_LANE; ++c) {
     const int k = j * CORNERS_PER_LANE + c;
-    const float px = bx0 + ((k & 4) ? p.bm : 0.0f);
-    const float py = by0 + ((k & 2) ? p.bm : 0.0f);
-    const float pz = bz0 + ((k & 1) ? p.bm : 0.0f);
+    const float px = bx0 + ((k & 4) ? bm : 0.0f);
+    const float py = by0 + ((k & 2) ? bm : 0.0f);
+    const float pz = bz0 + ((k & 1) ? bm : 0.0f);
     const float cx_ = ((R[0] * px + R[1] * py) + R[2] * pz) + t[0];
     const float cy_ = ((R[3] * px + R[4] * py) + R[5] * pz) + t[1];
     const float cz_ = ((R[6] * px + R[7] * py) + R[8] * pz) + t[2];
@@ -408,9 +436,9 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   const float oy = -((R[1] * t[0] + R[4] * t[1]) + R[7] * t[2]);
   const float oz = -((R[2] * t[0] + R[5] * t[1]) + R[8] * t[2]);
   float dxl, dxh, dyl, dyh, dzl, dzh;
-  axis_interval(bx0, p.bm, ox, dxl, dxh);
-  axis_interval(by0, p.bm, oy, dyl, dyh);
-  axis_interval(bz0, p.bm, oz, dzl, dzh);
+  axis_interval(bx0, bm, ox, dxl, dxh);
+  axis_interval(by0, bm, oy, dyl, dyh);
+  axis_interval(bz0, bm, oz, dzl, dzh);
   const float dist_min = max_nan(sqrtf((dxl * dxl + dyl * dyl) + dzl * dzl), 1e-3f);
   const float dist_max = sqrtf((dxh * dxh + dyh * dyh) + dzh * dzh);
 
@@ -464,12 +492,16 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   // reduced over lanes j ^ 1, j ^ 2: with 2 lanes or more the plain version's order, min(min(c0, c1),
   // min(c2, c3)) (min and max are exact in any order); the valid flags are 0 or 1, so their product is exact
   float dmin = 0, dmax = 0, av = 0;
+  float cell_mn[CELLS_PER_LANE], cell_mx[CELLS_PER_LANE], cell_ok[CELLS_PER_LANE];  // SPLIT's per-cell tests
 #pragma unroll
   for (int c = 0; c < CELLS_PER_LANE; ++c) {
     const int cell = (j & (CELL_LANES - 1)) * CELLS_PER_LANE + c;
     const int y = min(cv0 + (cell >> 1), mh - 1), x = min(cu0 + (cell & 1), mw - 1);
     const float* row = table + 3 * (size_t)(m.offset[lv] + y * mw + x);
     const float mn = __ldg(row), mx = __ldg(row + 1), ok = __ldg(row + 2);
+    cell_mn[c] = mn;
+    cell_mx[c] = mx;
+    cell_ok[c] = ok;
     dmin = c == 0 ? mn : min_nan(dmin, mn);
     dmax = c == 0 ? mx : max_nan(dmax, mx);
     av = c == 0 ? ok : av * ok;
@@ -490,11 +522,61 @@ __device__ __forceinline__ int classify_brick(const float* __restrict__ table, c
   const float lam_max = sqrtf((xl_hi * xl_hi + yl_hi * yl_hi) + 1.0f);
 
   const bool proj_ok = z_safe && level_ok;
-  const bool none_by_band = proj_ok && (dmax * lam_max - dist_min < p.neg_trunc);
-  const bool provably_far = proj_ok && all_valid && (dmin * lam_min - dist_max > p.trunc);
-  if (fully_behind || fully_outside || frustum_out || none_by_band) return NONE;
-  if (provably_far) return fully_inside ? FAR : FAR_PARTIAL;
-  return ACTIVE;
+  bool none_by_band = proj_ok && (dmax * lam_max - dist_min < p.neg_trunc);
+  bool provably_far = proj_ok && all_valid && (dmin * lam_min - dist_max > p.trunc);
+  bool mixed = false;
+  unsigned far_bits = 0u;
+  const int ts = m.ts[lv];
+  if (SPLIT) {
+    // each of the lane's cells: its own depth bounds with a lambda interval over its rect (widened by the half
+    // pixel of the nearest sample's rounding) met with the footprint bbox; a cell outside the bbox proves
+    // something only where it holds no valid depth at all. Then the four cells' bits over the group.
+    const float ts_f = (float)ts;
+    const float ub_lo = clip(umin, 0.0f, fW - 0.5f), ub_hi = clip(umax, 0.0f, fW - 0.5f);
+    const float vb_lo = clip(vmin, 0.0f, fH - 0.5f), vb_hi = clip(vmax, 0.0f, fH - 0.5f);
+    const float inf = __int_as_float(0x7f800000);
+    unsigned none_bits = 0u;
+#pragma unroll
+    for (int c = 0; c < CELLS_PER_LANE; ++c) {
+      const int cell = (j & (CELL_LANES - 1)) * CELLS_PER_LANE + c;
+      const float x0 = (float)((cu0 + (cell & 1)) * ts) - 0.5f;
+      const float y0 = (float)((cv0 + (cell >> 1)) * ts) - 0.5f;
+      const float ux0 = max_nan(clip(x0, 0.0f, fW - 0.5f), ub_lo);
+      const float ux1 = min_nan(clip(x0 + ts_f, 0.0f, fW - 0.5f), ub_hi);
+      const float uy0 = max_nan(clip(y0, 0.0f, fH - 0.5f), vb_lo);
+      const float uy1 = min_nan(clip(y0 + ts_f, 0.0f, fH - 0.5f), vb_hi);
+      float xi_lo, xi_hi, yi_lo, yi_hi;
+      coord_interval(ux0, max_nan(ux1, ux0), p.cx, p.inv_abs_fx, xi_lo, xi_hi);
+      coord_interval(uy0, max_nan(uy1, uy0), p.cy, p.inv_abs_fy, yi_lo, yi_hi);
+      const float lam_lo = sqrtf((xi_lo * xi_lo + yi_lo * yi_lo) + 1.0f);
+      const float lam_hi = sqrtf((xi_hi * xi_hi + yi_hi * yi_hi) + 1.0f);
+      const bool empty = ux1 < ux0 || uy1 < uy0;
+      const bool far_i = cell_ok[c] > 0.5f && (cell_mn[c] == inf || (!empty && cell_mn[c] * lam_lo - dist_max > p.trunc));
+      const bool none_i = cell_mx[c] == -inf || (!empty && cell_mx[c] * lam_hi - dist_min < p.neg_trunc);
+      far_bits |= (unsigned)far_i << cell;
+      none_bits |= (unsigned)none_i << cell;
+    }
+#pragma unroll
+    for (int off = 1; off < CELL_LANES; off <<= 1) {
+      far_bits |= __shfl_xor_sync(0xffffffffu, far_bits, off);
+      none_bits |= __shfl_xor_sync(0xffffffffu, none_bits, off);
+    }
+    mixed = proj_ok && (far_bits | none_bits) == 15u;
+    none_by_band = none_by_band || (proj_ok && none_bits == 15u);
+    provably_far = provably_far || (proj_ok && far_bits == 15u);
+    mixed = mixed && !none_by_band && !provably_far;
+  }
+  int cls = ACTIVE;
+  if (fully_behind || fully_outside || frustum_out || none_by_band)
+    cls = NONE;
+  else if (provably_far)
+    cls = fully_inside ? FAR : FAR_PARTIAL;
+  else if (mixed)
+    cls = MIXED;
+  if (SPLIT)
+    *aux = (cls == FAR || cls == FAR_PARTIAL ? 15u : far_bits) | ((unsigned)ts << 4) | ((unsigned)cu0 << 12) |
+           ((unsigned)cv0 << 21);
+  return cls;
 }
 
 // A tile's status word in the single-pass scan: the launch's epoch (42 bits) once written, then the tile's
@@ -569,12 +651,16 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
 // CLASSIFY_TILE bricks. A block takes its tile by an atomic ticket, publishes the tile's counts and sums the
 // counts of the tiles before it (counts_before): no chain from tile to tile. scratch: word 0 holds the ticket
 // counter (an unsigned int that runs on from launch to launch), words 1.. the tiles' status words; zeroed
-// once per device and stream.
-__global__ void __launch_bounds__(CLASSIFY_THREADS)
-    classify_bricks_kernel(const float* __restrict__ table, const float* __restrict__ pose, int* __restrict__ cls,
-                           unsigned long long* __restrict__ scratch, int* __restrict__ rank,
-                           int* __restrict__ active_ids, int* __restrict__ work_ids, int* __restrict__ totals,
-                           unsigned char* __restrict__ overflow, const __grid_constant__ ClassifyParams p) {
+// once per device and stream. MODE: COARSE (B3b), SPLIT (B15s: MIXED listed as work, the windows into aux) or
+// FINE (B15f: a brick's group classifies its 8 subcells of the 4^3 grid one after another, boxes i * sub_edge,
+// and folds them: NONE if all are, FAR if all are, FAR_PARTIAL if all are FAR or FAR_PARTIAL, else ACTIVE).
+template <int MODE>
+__device__ __forceinline__ void classify_and_rank(const float* __restrict__ table, const float* __restrict__ pose,
+                                                  int* __restrict__ cls, unsigned long long* __restrict__ scratch,
+                                                  int* __restrict__ rank, int* __restrict__ active_ids,
+                                                  int* __restrict__ work_ids, int* __restrict__ totals,
+                                                  unsigned char* __restrict__ overflow, int* __restrict__ aux,
+                                                  const ClassifyParams& p) {
   constexpr int WARPS = CLASSIFY_THREADS / 32;
   __shared__ unsigned s_active[WARPS], s_work[WARPS];  // each warp's ballot of ACTIVE and of work bricks
   __shared__ int s_before_a[WARPS], s_before_w[WARPS];  // the bricks of the tile before each warp's
@@ -598,7 +684,24 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   const int b = tile * CLASSIFY_TILE + (int)threadIdx.x / CORNER_LANES;
   const int bb = min(b, n - 1);  // past the volume's end the lanes repeat its last brick, for the ballots
   const int bz = bb % p.nbz, by = (bb / p.nbz) % p.nby, bx = bb / (p.nby * p.nbz);
-  int c = classify_brick(table, pose, p, bx, by, bz, j);
+  unsigned word = 0u;
+  int c;
+  if (MODE == FINE) {
+    bool all_none = true, all_far = true, all_farish = true;
+#pragma unroll 1
+    for (int k = 0; k < 8; ++k) {
+      const float ox = (float)(2 * bx + (k >> 2)) * p.sub_edge, oy = (float)(2 * by + ((k >> 1) & 1)) * p.sub_edge;
+      const float oz = (float)(2 * bz + (k & 1)) * p.sub_edge;
+      const int sc = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, &word);
+      all_none = all_none && sc == NONE;
+      all_far = all_far && sc == FAR;
+      all_farish = all_farish && (sc == FAR || sc == FAR_PARTIAL);
+    }
+    c = all_none ? NONE : (all_far ? FAR : (all_farish ? FAR_PARTIAL : ACTIVE));
+  } else {
+    c = classify_box<MODE == SPLIT>(table, pose, p, (float)bx * p.bm, (float)by * p.bm, (float)bz * p.bm, p.bm, j,
+                                    &word);
+  }
   if (b >= n) c = NONE;
   const bool leader = j == 0;
   const unsigned active = __ballot_sync(0xffffffffu, leader && c == ACTIVE);
@@ -607,7 +710,10 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
     s_active[warp] = active;
     s_work[warp] = work;
   }
-  if (leader && b < n) cls[b] = c;
+  if (leader && b < n) {
+    cls[b] = c;
+    if (MODE == SPLIT) aux[b] = (int)word;
+  }
   __syncthreads();
 
   if (warp == 0) {
@@ -649,6 +755,135 @@ __global__ void __launch_bounds__(CLASSIFY_THREADS)
   rank[b] = c == ACTIVE ? ra : -1;
   if (c == ACTIVE) active_ids[ra] = b;
   if (c != NONE) work_ids[s_prefix[1] + s_before_w[warp] + __popc(work & below)] = b;
+}
+
+#define CLASSIFY_ARGS                                                                                           \
+  const float *__restrict__ table, const float *__restrict__ pose, int *__restrict__ cls,                       \
+      unsigned long long *__restrict__ scratch, int *__restrict__ rank, int *__restrict__ active_ids,           \
+      int *__restrict__ work_ids, int *__restrict__ totals, unsigned char *__restrict__ overflow,               \
+      int *__restrict__ aux, const __grid_constant__ ClassifyParams p
+
+__global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_kernel(CLASSIFY_ARGS) {
+  classify_and_rank<COARSE>(table, pose, cls, scratch, rank, active_ids, work_ids, totals, overflow, aux, p);
+}
+__global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_split_kernel(CLASSIFY_ARGS) {
+  classify_and_rank<SPLIT>(table, pose, cls, scratch, rank, active_ids, work_ids, totals, overflow, aux, p);
+}
+__global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_fine_kernel(CLASSIFY_ARGS) {
+  classify_and_rank<FINE>(table, pose, cls, scratch, rank, active_ids, work_ids, totals, overflow, aux, p);
+}
+#undef CLASSIFY_ARGS
+
+// Candidate row r's 8 subcell classes from L2 (other blocks wrote them), or NONE at r >= end.
+__device__ __forceinline__ void subcell_row(const int* scls, int r, int end, int (&c)[8]) {
+  int4 a = make_int4(NONE, NONE, NONE, NONE), b = a;
+  if (r < end) {
+    a = __ldcg(reinterpret_cast<const int4*>(scls + (size_t)r * 8));
+    b = __ldcg(reinterpret_cast<const int4*>(scls + (size_t)r * 8) + 1);
+  }
+  c[0] = a.x, c[1] = a.y, c[2] = a.z, c[3] = a.w, c[4] = b.x, c[5] = b.y, c[6] = b.z, c[7] = b.w;
+}
+
+// B15c: the subcell stage's classes and lists in one launch. Group g of CORNER_LANES lanes classifies subcell
+// g % 8 of candidate row blockIdx.x * SUBCELL_ROWS + g / 8 (classify_box: the box ((8 b + 4 s) * vs, edge
+// sub_edge), b the brick of that rank in active_ids, for the rows below min(totals[0], cap) read on the device;
+// NONE past them). Each block then fences its writes and takes a ticket; the last block to take one (the
+// wrapper passes the tickets taken before) rereads every row from L2 and ranks each id's ACTIVE subcells in row
+// order: warp w takes the w-th run of rows, a lane a row, and counts each id's ACTIVE subcells by ballots; the
+// warps' counts are summed in order, and a second walk ranks the rows by the ballots. The ids' counts out, and
+// where one exceeds subcell_cap the flag of the lists and B3b's flag (ORed: the fusion pass and the caller read
+// both). No atomics but the ticket; integer sums. Bound: operations, ~600 a subcell (B3b's chain).
+__global__ void __launch_bounds__(SUBCELL_THREADS)
+    classify_subcells_kernel(const float* __restrict__ table, const float* __restrict__ pose,
+                             const int* __restrict__ active_ids, const int* __restrict__ totals,
+                             unsigned char* __restrict__ overflow, unsigned* __restrict__ ticket,
+                             int* __restrict__ scls, int* __restrict__ srank, int* __restrict__ counts,
+                             unsigned char* __restrict__ sub_overflow, const __grid_constant__ ClassifyParams p) {
+  constexpr int WARPS = SUBCELL_THREADS / 32;
+  __shared__ int s_warp[WARPS][8];
+  __shared__ bool s_last;
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int j = lane & (CORNER_LANES - 1), g = (int)threadIdx.x / CORNER_LANES;
+  const int row = (int)blockIdx.x * SUBCELL_ROWS + g / 8, s = g % 8;
+  const int n_rows = min(totals[0], p.cap);
+  const bool valid = row < n_rows;
+  int c = NONE;
+  if (__any_sync(0xffffffffu, valid)) {
+    const int n = p.nbx * p.nby * p.nbz;
+    const int b = valid ? min(max(active_ids[row], 0), n - 1) : 0;
+    const int bz = b % p.nbz, by = (b / p.nbz) % p.nby, bx = b / (p.nby * p.nbz);
+    const float ox = (float)(BRICK * bx + 4 * (s >> 2)) * p.vs, oy = (float)(BRICK * by + 4 * ((s >> 1) & 1)) * p.vs;
+    const float oz = (float)(BRICK * bz + 4 * (s & 1)) * p.vs;
+    unsigned unused;
+    c = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, &unused);
+  }
+  if (j == 0 && row < p.cap) scls[row * 8 + s] = valid ? c : NONE;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u) - p.ticket_base;
+    if (t >= gridDim.x) __trap();  // the counter does not follow its launches
+    s_last = t == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // the last block: each id's ACTIVE subcells ranked in row order. Warp w takes the w-th run of rows, 32 rows a
+  // round, a lane a row (its 8 classes in two 16-byte loads, coalesced); a ballot an id counts the round's ACTIVE
+  // subcells, then the warps' counts are summed in order and a second walk ranks each row by the ballots
+  const int seg = (p.cap + WARPS - 1) / WARPS;
+  const int w0 = warp * seg, w1 = min(w0 + seg, p.cap);
+  const unsigned below = (1u << lane) - 1u;
+  int cnt[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cnt[k] = 0;
+  for (int r0 = w0; r0 < w1; r0 += 32) {
+    int cl[8];
+    subcell_row(scls, r0 + lane, w1, cl);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cnt[k] += __popc(__ballot_sync(0xffffffffu, cl[k] == ACTIVE));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s_warp[warp][k] = cnt[k];
+  }
+  __syncthreads();
+  int run[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    int before = 0, total = 0;
+    for (int w = 0; w < WARPS; ++w) {
+      before += w < warp ? s_warp[w][k] : 0;
+      total += s_warp[w][k];
+    }
+    run[k] = before;
+    cnt[k] = total;
+    if (threadIdx.x == 0) counts[k] = total;
+  }
+  for (int r0 = w0; r0 < w1; r0 += 32) {
+    const int r = r0 + lane;
+    int cl[8], out[8];
+    subcell_row(scls, r, w1, cl);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned bits = __ballot_sync(0xffffffffu, cl[k] == ACTIVE);
+      out[k] = cl[k] == ACTIVE ? run[k] + __popc(bits & below) : -1;
+      run[k] += __popc(bits);
+    }
+    if (r < w1) {
+      int4* dst = reinterpret_cast<int4*>(srank + (size_t)r * 8);
+      dst[0] = make_int4(out[0], out[1], out[2], out[3]);
+      dst[1] = make_int4(out[4], out[5], out[6], out[7]);
+    }
+  }
+  if (threadIdx.x == 0) {
+    bool over = false;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) over = over || cnt[k] > p.subcell_cap;
+    *sub_overflow = over ? 1 : 0;
+    if (over) *overflow = 1;
+  }
 }
 
 // ---------------------------------------------------------------- B3c
@@ -707,13 +942,40 @@ __device__ __forceinline__ void update_voxel(float* s_v, float* s_g, float* s_w,
   *s_w = w;
 }
 
-template <bool ROWS, bool BILINEAR>
-__global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
-    fuse_bricks_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restrict__ weight,
-                       const float* __restrict__ depth, const float* __restrict__ pose, const int* __restrict__ cls,
-                       const int* __restrict__ rank, const int* __restrict__ work_ids,
-                       const int* __restrict__ totals, const unsigned char* __restrict__ overflow, int cap,
-                       int dense_on_overflow, const xs::FuseParams p) {
+// B3c's variants: the MIXED class's per-voxel far test (B15s's windows in aux), the subcell stage's per-subcell
+// updates (B15c's classes and list ranks).
+enum : int { PLAIN_CLASSES = 0, MIXED_WINDOWS = 1, SUBCELLS = 2 };
+// What a voxel takes: nothing, the FAR update, the exact one.
+enum : int { KIND_NONE = 0, KIND_FAR = 1, KIND_EXACT = 2 };
+// More of what fuse_bricks does with a brick: a MIXED brick's window test, an ACTIVE brick's subcells.
+enum : int { MIXED_UPDATE = 3, SUBCELL_UPDATE = 4 };
+
+// A gated voxel of a MIXED brick whose window is `word` (pack_aux): FAR where its nearest pixel round(img) lies in
+// a far cell, the cell clip((pixel - origin) / edge, 0, 1) down and across; else nothing.
+__device__ __forceinline__ int mixed_kind(const xs::VoxelView& o, unsigned word) {
+  const int ts = (int)((word >> 4) & 255u);
+  const int dx = __float2int_rn(o.ixv) - (int)((word >> 12) & 511u) * ts;
+  const int dy = __float2int_rn(o.iyv) - (int)((word >> 21) & 511u) * ts;
+  const int cell = (dy >= ts ? 2 : 0) + (dx >= ts ? 1 : 0);
+  return (word >> cell) & 1u ? KIND_FAR : KIND_NONE;
+}
+
+// A subcell's update from its class and its rank in its id's list (B15c): FAR and FAR_PARTIAL the FAR update, an
+// ACTIVE one listed below subcell_cap the exact one, else none.
+__device__ __forceinline__ int subcell_kind(int c, int r, int subcell_cap) {
+  return (c == FAR || c == FAR_PARTIAL) ? KIND_FAR : (c == ACTIVE && r < subcell_cap ? KIND_EXACT : KIND_NONE);
+}
+
+template <bool ROWS, bool BILINEAR, int EXTRA>
+__device__ __forceinline__ void fuse_bricks_body(float* __restrict__ value, float* __restrict__ grad,
+                                                 float* __restrict__ weight, const float* __restrict__ depth,
+                                                 const float* __restrict__ pose, const int* __restrict__ cls,
+                                                 const int* __restrict__ rank, const int* __restrict__ work_ids,
+                                                 const int* __restrict__ totals,
+                                                 const unsigned char* __restrict__ overflow,
+                                                 const int* __restrict__ aux, const int* __restrict__ scls,
+                                                 const int* __restrict__ srank, int subcell_cap, int cap,
+                                                 int dense_on_overflow, const xs::FuseParams& p) {
   // the warp's brick, staged: three planes of 64 columns, COLUMN_STRIDE floats apart (no bank conflicts), and
   // a bit a voxel that says it was updated
   __shared__ float s_planes[FUSE_WARPS][3][BRICK * BRICK * COLUMN_STRIDE];
@@ -735,12 +997,22 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
     if (first >= items) return;
     const int b = dense ? item : min(max(listed, 0), n_bricks - 1);
     int mode = dense ? EXACT_UPDATE : SKIP;
+    int arg = 0;  // a MIXED brick's window word, a subcell brick's row
     if (!dense && item < items) {
       const int c = cls[b], rk = rank[b];
       mode = (c == FAR || c == FAR_PARTIAL) ? FAR_UPDATE : (c == ACTIVE && rk < cap ? EXACT_UPDATE : SKIP);
+      if (EXTRA != PLAIN_CLASSES && aux != nullptr && c == MIXED) {
+        mode = MIXED_UPDATE;
+        arg = aux[b];
+      }
+      if (EXTRA == SUBCELLS && mode == EXACT_UPDATE) {
+        mode = SUBCELL_UPDATE;
+        arg = rk;
+      }
     }
     for (int i = 0; i < 32 && first + i * n_warps < items; ++i) {
       const int bi = __shfl_sync(0xffffffffu, b, i), mi = __shfl_sync(0xffffffffu, mode, i);
+      const int ai = EXTRA != PLAIN_CLASSES ? __shfl_sync(0xffffffffu, arg, i) : 0;
       if (mi == SKIP) continue;  // past the cap: left unfused this frame, and flagged
       // stage the brick's planes: lane pairs load a column's two 16-byte halves, all twelve loads in flight
       float4 run[4][3];
@@ -771,29 +1043,69 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
       const xs::ColumnSums sums0 = xs::column_sums(dual_pose, xs::voxel_centre(c0.x, p.vs), xs::voxel_centre(c0.y, p.vs));
       const xs::ColumnSums sums1 = xs::column_sums(dual_pose, xs::voxel_centre(c1.x, p.vs), xs::voxel_centre(c1.y, p.vs));
       const int s0 = lane * COLUMN_STRIDE, s1 = (lane + 32) * COLUMN_STRIDE;
-      const bool exact = mi == EXACT_UPDATE;
       unsigned up0 = 0, up1 = 0;
-      for (int z = 0; z < BRICK; ++z) {
-        const float gz = xs::voxel_centre(c0.z0 + z, p.vs);
-        const xs::VoxelView o0 = xs::voxel_view(dual_pose, p, sums0, gz), o1 = xs::voxel_view(dual_pose, p, sums1, gz);
-        float t0v = xs::BEYOND_V, t0g = xs::BEYOND_G, t1v = xs::BEYOND_V, t1g = xs::BEYOND_G;
-        bool ok0 = o0.gated, ok1 = o1.gated;
-        if (exact && BILINEAR) {  // B11: the dual depth of fusion.cuh::bilinear_depth
-          float d0v = 0.0f, d0g = 0.0f, d1v = 0.0f, d1g = 0.0f;
-          if (ok0) xs::bilinear_depth(depth, p, o0, d0v, d0g);
-          if (ok1) xs::bilinear_depth(depth, p, o1, d1v, d1g);
-          ok0 = xs::sample_at<true>(d0v, d0g, p, o0, t0v, t0g) && ok0;
-          ok1 = xs::sample_at<true>(d1v, d1g, p, o1, t1v, t1g) && ok1;
-        } else if (exact) {
-          const float d0 = ok0 ? __ldg(depth + xs::depth_index(o0, p)) : 0.0f;
-          const float d1 = ok1 ? __ldg(depth + xs::depth_index(o1, p)) : 0.0f;
-          ok0 = xs::sample_at<false>(d0, 0.0f, p, o0, t0v, t0g) && ok0;
-          ok1 = xs::sample_at<false>(d1, 0.0f, p, o1, t1v, t1g) && ok1;
+      if (EXTRA == PLAIN_CLASSES) {
+        const bool exact = mi == EXACT_UPDATE;
+        for (int z = 0; z < BRICK; ++z) {
+          const float gz = xs::voxel_centre(c0.z0 + z, p.vs);
+          const xs::VoxelView o0 = xs::voxel_view(dual_pose, p, sums0, gz), o1 = xs::voxel_view(dual_pose, p, sums1, gz);
+          float t0v = xs::BEYOND_V, t0g = xs::BEYOND_G, t1v = xs::BEYOND_V, t1g = xs::BEYOND_G;
+          bool ok0 = o0.gated, ok1 = o1.gated;
+          if (exact && BILINEAR) {  // B11: the dual depth of fusion.cuh::bilinear_depth
+            float d0v = 0.0f, d0g = 0.0f, d1v = 0.0f, d1g = 0.0f;
+            if (ok0) xs::bilinear_depth(depth, p, o0, d0v, d0g);
+            if (ok1) xs::bilinear_depth(depth, p, o1, d1v, d1g);
+            ok0 = xs::sample_at<true>(d0v, d0g, p, o0, t0v, t0g) && ok0;
+            ok1 = xs::sample_at<true>(d1v, d1g, p, o1, t1v, t1g) && ok1;
+          } else if (exact) {
+            const float d0 = ok0 ? __ldg(depth + xs::depth_index(o0, p)) : 0.0f;
+            const float d1 = ok1 ? __ldg(depth + xs::depth_index(o1, p)) : 0.0f;
+            ok0 = xs::sample_at<false>(d0, 0.0f, p, o0, t0v, t0g) && ok0;
+            ok1 = xs::sample_at<false>(d1, 0.0f, p, o1, t1v, t1g) && ok1;
+          }
+          update_voxel(s_v + s0 + z, s_g + s0 + z, s_w + s0 + z, ok0, t0v, t0g, p.max_w);
+          update_voxel(s_v + s1 + z, s_g + s1 + z, s_w + s1 + z, ok1, t1v, t1g, p.max_w);
+          up0 |= (unsigned)ok0 << z;
+          up1 |= (unsigned)ok1 << z;
         }
-        update_voxel(s_v + s0 + z, s_g + s0 + z, s_w + s0 + z, ok0, t0v, t0g, p.max_w);
-        update_voxel(s_v + s1 + z, s_g + s1 + z, s_w + s1 + z, ok1, t1v, t1g, p.max_w);
-        up0 |= (unsigned)ok0 << z;
-        up1 |= (unsigned)ok1 << z;
+      } else {
+        // each voxel's update: the brick's own, a MIXED brick's window test, or its subcell's (column lane has
+        // x offset lane >> 3 < 4, column lane + 32 one of 4 or more; the y offset lane & 7 picks the subcells'
+        // second bit, z >> 2 their third)
+        const int uniform = mi == FAR_UPDATE ? KIND_FAR : (mi == EXACT_UPDATE ? KIND_EXACT : KIND_NONE);
+        int k0lo = uniform, k0hi = uniform, k1lo = uniform, k1hi = uniform;  // column, z below 4 or not
+        if (EXTRA == SUBCELLS && mi == SUBCELL_UPDATE) {
+          const int at = ai * 8 + ((lane & 7) >> 2) * 2;
+          k0lo = subcell_kind(__ldg(scls + at), __ldg(srank + at), subcell_cap);
+          k0hi = subcell_kind(__ldg(scls + at + 1), __ldg(srank + at + 1), subcell_cap);
+          k1lo = subcell_kind(__ldg(scls + at + 4), __ldg(srank + at + 4), subcell_cap);
+          k1hi = subcell_kind(__ldg(scls + at + 5), __ldg(srank + at + 5), subcell_cap);
+        }
+        for (int z = 0; z < BRICK; ++z) {
+          const float gz = xs::voxel_centre(c0.z0 + z, p.vs);
+          const xs::VoxelView o0 = xs::voxel_view(dual_pose, p, sums0, gz), o1 = xs::voxel_view(dual_pose, p, sums1, gz);
+          const int k0 = mi == MIXED_UPDATE ? mixed_kind(o0, (unsigned)ai) : (z < 4 ? k0lo : k0hi);
+          const int k1 = mi == MIXED_UPDATE ? mixed_kind(o1, (unsigned)ai) : (z < 4 ? k1lo : k1hi);
+          const bool e0 = k0 == KIND_EXACT, e1 = k1 == KIND_EXACT;
+          float t0v = xs::BEYOND_V, t0g = xs::BEYOND_G, t1v = xs::BEYOND_V, t1g = xs::BEYOND_G;
+          bool ok0 = o0.gated && k0 != KIND_NONE, ok1 = o1.gated && k1 != KIND_NONE;
+          if (BILINEAR) {
+            float d0v = 0.0f, d0g = 0.0f, d1v = 0.0f, d1g = 0.0f;
+            if (ok0 && e0) xs::bilinear_depth(depth, p, o0, d0v, d0g);
+            if (ok1 && e1) xs::bilinear_depth(depth, p, o1, d1v, d1g);
+            if (e0) ok0 = xs::sample_at<true>(d0v, d0g, p, o0, t0v, t0g) && ok0;
+            if (e1) ok1 = xs::sample_at<true>(d1v, d1g, p, o1, t1v, t1g) && ok1;
+          } else {
+            const float d0 = ok0 && e0 ? __ldg(depth + xs::depth_index(o0, p)) : 0.0f;
+            const float d1 = ok1 && e1 ? __ldg(depth + xs::depth_index(o1, p)) : 0.0f;
+            if (e0) ok0 = xs::sample_at<false>(d0, 0.0f, p, o0, t0v, t0g) && ok0;
+            if (e1) ok1 = xs::sample_at<false>(d1, 0.0f, p, o1, t1v, t1g) && ok1;
+          }
+          update_voxel(s_v + s0 + z, s_g + s0 + z, s_w + s0 + z, ok0, t0v, t0g, p.max_w);
+          update_voxel(s_v + s1 + z, s_g + s1 + z, s_w + s1 + z, ok1, t1v, t1g, p.max_w);
+          up0 |= (unsigned)ok0 << z;
+          up1 |= (unsigned)ok1 << z;
+        }
       }
       s_updated[w][lane] = (unsigned char)up0;
       s_updated[w][lane + 32] = (unsigned char)up1;
@@ -802,6 +1114,42 @@ __global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS)
       __syncwarp();  // the staged brick is read before the next one overwrites it
     }
   }
+}
+
+#define FUSE_ARGS                                                                                               \
+  float *__restrict__ value, float *__restrict__ grad, float *__restrict__ weight,                              \
+      const float *__restrict__ depth, const float *__restrict__ pose, const int *__restrict__ cls,             \
+      const int *__restrict__ rank, const int *__restrict__ work_ids, const int *__restrict__ totals,           \
+      const unsigned char *__restrict__ overflow, const int *__restrict__ aux, const int *__restrict__ scls,    \
+      const int *__restrict__ srank, int subcell_cap, int cap, int dense_on_overflow, const xs::FuseParams p
+#define FUSE_CALL(EXTRA)                                                                                        \
+  fuse_bricks_body<ROWS, BILINEAR, EXTRA>(value, grad, weight, depth, pose, cls, rank, work_ids, totals,       \
+                                          overflow, aux, scls, srank, subcell_cap, cap, dense_on_overflow, p)
+
+template <bool ROWS, bool BILINEAR>
+__global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS) fuse_bricks_kernel(FUSE_ARGS) {
+  FUSE_CALL(PLAIN_CLASSES);
+}
+template <bool ROWS, bool BILINEAR>
+__global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS) fuse_bricks_mixed_kernel(FUSE_ARGS) {
+  FUSE_CALL(MIXED_WINDOWS);
+}
+template <bool ROWS, bool BILINEAR>
+__global__ void __launch_bounds__(FUSE_THREADS, FUSE_MIN_BLOCKS) fuse_bricks_subcell_kernel(FUSE_ARGS) {
+  FUSE_CALL(SUBCELLS);
+}
+#undef FUSE_CALL
+#undef FUSE_ARGS
+
+using FuseKernel = void (*)(float*, float*, float*, const float*, const float*, const int*, const int*, const int*,
+                            const int*, const unsigned char*, const int*, const int*, const int*, int, int, int,
+                            const xs::FuseParams);
+
+template <bool ROWS, bool BILINEAR>
+FuseKernel fuse_kernel_of(int extra) {
+  return extra == SUBCELLS ? fuse_bricks_subcell_kernel<ROWS, BILINEAR>
+                           : (extra == MIXED_WINDOWS ? fuse_bricks_mixed_kernel<ROWS, BILINEAR>
+                                                     : fuse_bricks_kernel<ROWS, BILINEAR>);
 }
 
 bool read_levels(const int* levels, int n_levels, int rows, MipLevels& m) {
@@ -848,6 +1196,32 @@ int mip_blocks(const MipLevels& m) {
   return n;
 }
 
+// The classifier's launch parameters from the wrapper's arguments (classify_bricks and classify_subcells);
+// false where they are refused.
+bool classify_params(int nbx, int nby, int nbz, int H, int W, const int* levels, int n_levels, int rows,
+                     const float* consts, int cap, ClassifyParams& p) {
+  if (!read_levels(levels, n_levels, rows, p.m)) return false;
+  if (H < 1 || W < 1 || H > DIVIDE_LIMIT || W > DIVIDE_LIMIT) return false;
+  p.nbx = nbx;
+  p.nby = nby;
+  p.nbz = nbz;
+  p.H = H;
+  p.W = W;
+  p.bm = consts[0];
+  p.fx = consts[1];
+  p.fy = consts[2];
+  p.cx = consts[3];
+  p.cy = consts[4];
+  for (int i = 0; i < 4; ++i) p.plane_c[i] = consts[5 + i];
+  p.inv_abs_fx = consts[9];
+  p.inv_abs_fy = consts[10];
+  p.trunc = consts[11];
+  p.neg_trunc = consts[12];
+  p.cap = cap;
+  const long long n = (long long)nbx * nby * nbz;
+  return nbx >= 1 && nby >= 1 && nbz >= 1 && n < (1ll << 31) - CLASSIFY_TILE;
+}
+
 }  // namespace
 
 // depth: (H, W) metres; table: (rows, 3); levels: 4 ints a level (tile size, tiles down, tiles across, first row)
@@ -865,99 +1239,91 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 // least, that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their
 // tiles, mod 2^32); epoch: its launches so far, this one included (from 1, below 2^42); cls, rank,
 // active_ids, work_ids: one int a brick; totals: n_active, n_work; overflow: one byte. consts: brick edge,
-// fx, fy, cx, cy, the four plane constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32.
+// fx, fy, cx, cy, the four plane constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32. mode: COARSE
+// (B3b), SPLIT (B15s; aux: one int a brick, the windows) or FINE (B15f; sub_edge: the subcell edge, float32)
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
                                   long long scratch_words, unsigned ticket_base, unsigned long long epoch,
                                   void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
                                   int nbx, int nby, int nbz, int H, int W, const int* levels, int n_levels,
-                                  int rows, const float* consts, int cap, void* stream) {
+                                  int rows, const float* consts, int cap, int mode, void* aux, float sub_edge,
+                                  void* stream) {
   ClassifyParams p{};
-  if (!read_levels(levels, n_levels, rows, p.m)) return (int)cudaErrorInvalidValue;
-  if (H < 1 || W < 1 || H > DIVIDE_LIMIT || W > DIVIDE_LIMIT) return (int)cudaErrorInvalidValue;
-  p.nbx = nbx;
-  p.nby = nby;
-  p.nbz = nbz;
-  p.H = H;
-  p.W = W;
-  p.bm = consts[0];
-  p.fx = consts[1];
-  p.fy = consts[2];
-  p.cx = consts[3];
-  p.cy = consts[4];
-  for (int i = 0; i < 4; ++i) p.plane_c[i] = consts[5 + i];
-  p.inv_abs_fx = consts[9];
-  p.inv_abs_fy = consts[10];
-  p.trunc = consts[11];
-  p.neg_trunc = consts[12];
-  p.cap = cap;
+  if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
+  if (mode < COARSE || mode > FINE || (mode == SPLIT && aux == nullptr)) return (int)cudaErrorInvalidValue;
+  if (mode == SPLIT && (H > 512 * MIP_LEVEL_MIN || W > 512 * MIP_LEVEL_MIN)) return (int)cudaErrorInvalidValue;
+  p.sub_edge = sub_edge;
   p.ticket_base = ticket_base;
   p.epoch = epoch;
   if (epoch < 1 || epoch >= (1ull << (64 - 2 * STATUS_COUNT_BITS))) return (int)cudaErrorInvalidValue;
   const long long n = (long long)nbx * nby * nbz;
-  if (nbx < 1 || nby < 1 || nbz < 1 || n >= (1ll << 31) - CLASSIFY_TILE) return (int)cudaErrorInvalidValue;
   p.tiles = (int)((n + CLASSIFY_TILE - 1) / CLASSIFY_TILE);
   if (scratch_words < 1 + (long long)p.tiles * STATUS_STRIDE) return (int)cudaErrorInvalidValue;
-  classify_bricks_kernel<<<p.tiles, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
+  const auto kernel = mode == FINE ? classify_bricks_fine_kernel
+                                   : (mode == SPLIT ? classify_bricks_split_kernel : classify_bricks_kernel);
+  kernel<<<p.tiles, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (int*)cls, (unsigned long long*)scratch, (int*)rank, (int*)active_ids,
-      (int*)work_ids, (int*)totals, (unsigned char*)overflow, p);
+      (int*)work_ids, (int*)totals, (unsigned char*)overflow, (int*)aux, p);
+  return (int)cudaGetLastError();
+}
+
+// B15c. active_ids, totals, overflow: classify_bricks' (overflow ORed with the lists' own); ticket: an unsigned
+// int counter that belongs to one stream, zeroed when made, ticket_base the tickets its earlier launches took;
+// scls, srank: (cap, 8) ints; counts: 8 ints; sub_overflow: one byte; consts as classify_bricks'; vs, sub_edge:
+// the voxel size and the subcell edge, float32
+extern "C" int xs_classify_subcells(const void* table, const void* pose, const void* active_ids, const void* totals,
+                                    void* overflow, void* ticket, unsigned ticket_base, void* scls, void* srank,
+                                    void* counts, void* sub_overflow, int nbx, int nby, int nbz, int H, int W,
+                                    const int* levels, int n_levels, int rows, const float* consts, float vs,
+                                    float sub_edge, int cap, int subcell_cap, void* stream) {
+  ClassifyParams p{};
+  if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
+  if (cap < 1 || subcell_cap < 1 || cap > (1 << 27)) return (int)cudaErrorInvalidValue;
+  p.vs = vs;
+  p.sub_edge = sub_edge;
+  p.subcell_cap = subcell_cap;
+  p.ticket_base = ticket_base;
+  classify_subcells_kernel<<<(cap + SUBCELL_ROWS - 1) / SUBCELL_ROWS, SUBCELL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)table, (const float*)pose, (const int*)active_ids, (const int*)totals, (unsigned char*)overflow,
+      (unsigned*)ticket, (int*)scls, (int*)srank, (int*)counts, (unsigned char*)sub_overflow, p);
   return (int)cudaGetLastError();
 }
 
 // value, grad, weight: the (X, Y, Z) planes, each extent a multiple of 8, or with rows the (NB, 512) brick rows
 // of such a volume; cls, rank, work_ids, totals, overflow: classify_bricks' outputs; dense_on_overflow: 1 to
 // update every brick exactly where overflow is set; bi_threshold > 0: the exact update samples the depth
-// bilinearly (B11)
+// bilinearly (B11). aux: the split classifier's windows (B15s) or null; scls, srank: classify_subcells' (cap,
+// 8) classes and ranks or null (both or neither). The variant: subcells if given, else MIXED if aux is, else B3c.
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                               float max_w, int cap, int dense_on_overflow, int rows, float bi_threshold,
-                              void* stream) {
+                              const void* aux, const void* scls, const void* srank, int subcell_cap, void* stream) {
   if (X % BRICK || Y % BRICK || Z % BRICK) return (int)cudaErrorInvalidValue;
+  if ((scls == nullptr) != (srank == nullptr) || (scls != nullptr && subcell_cap < 1)) return (int)cudaErrorInvalidValue;
   const uintptr_t planes = reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(grad) |
                            reinterpret_cast<uintptr_t>(weight);
   if (planes % 16) return (int)cudaErrorMisalignedAddress;  // the column runs are loaded 16 bytes at a time
-  static int grid[4][64] = {};  // per variant and device: as many blocks as its SMs hold at once
+  static int grid[12][64] = {};  // per variant and device: as many blocks as its SMs hold at once
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
   const bool bilinear = bi_threshold > 0.0f;
-  const int v = (rows ? 1 : 0) + (bilinear ? 2 : 0);
-  const void* kernel = rows ? (bilinear ? (const void*)fuse_bricks_kernel<true, true>
-                                        : (const void*)fuse_bricks_kernel<true, false>)
-                            : (bilinear ? (const void*)fuse_bricks_kernel<false, true>
-                                        : (const void*)fuse_bricks_kernel<false, false>);
+  const int extra = scls != nullptr ? SUBCELLS : (aux != nullptr ? MIXED_WINDOWS : PLAIN_CLASSES);
+  const int v = (rows ? 1 : 0) + (bilinear ? 2 : 0) + 4 * extra;
+  const FuseKernel kernel = rows ? (bilinear ? fuse_kernel_of<true, true>(extra) : fuse_kernel_of<true, false>(extra))
+                                 : (bilinear ? fuse_kernel_of<false, true>(extra) : fuse_kernel_of<false, false>(extra));
   if (grid[v][dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FUSE_THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kernel, FUSE_THREADS, 0);
     grid[v][dev] = sms * (per_sm > 0 ? per_sm : 1);
     if (grid[v][dev] <= 0) return (int)cudaErrorInvalidValue;
   }
   const xs::FuseParams p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold};
-  float* pv = (float*)value;
-  float* pg = (float*)grad;
-  float* pw = (float*)weight;
-  const float* pd = (const float*)depth;
-  const float* pp = (const float*)pose;
-  const int* pc = (const int*)cls;
-  const int* pr = (const int*)rank;
-  const int* pi = (const int*)work_ids;
-  const int* pt = (const int*)totals;
-  const unsigned char* po = (const unsigned char*)overflow;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int n = grid[v][dev];
-  if (rows && bilinear)
-    fuse_bricks_kernel<true, true><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
-                                                              dense_on_overflow, p);
-  else if (rows)
-    fuse_bricks_kernel<true, false><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
-                                                               dense_on_overflow, p);
-  else if (bilinear)
-    fuse_bricks_kernel<false, true><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
-                                                               dense_on_overflow, p);
-  else
-    fuse_bricks_kernel<false, false><<<n, FUSE_THREADS, 0, s>>>(pv, pg, pw, pd, pp, pc, pr, pi, pt, po, cap,
-                                                                dense_on_overflow, p);
+  kernel<<<grid[v][dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
+      (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
+      (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, (const int*)aux,
+      (const int*)scls, (const int*)srank, subcell_cap, cap, dense_on_overflow, p);
   return (int)cudaGetLastError();
 }

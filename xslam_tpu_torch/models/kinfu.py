@@ -3,8 +3,10 @@
 Port of ``xslam_tpu/models/kinfu.py`` in two configurations. The dense volume
 (every march of ``raycast.MARCH_MODES``: ``fixed``, ``skip``, ``hier``,
 ``hier_skip``, ``hier2``; the ``secant2`` refine; TSDF or screen normals),
-with dense or brick fusion (``fusion_mode``; the coarse brick classifier,
-``fusion_overflow`` ``"flag"`` or ``"dense"``). And the brick-major volume
+with dense or brick fusion (``fusion_mode``; ``fusion_overflow`` ``"flag"``
+or ``"dense"``; the coarse brick classifier, or the opt-in
+``fusion_classify_split``, ``fusion_classify_fine`` and
+``fusion_subcell_cap > 0``, alone or combined: B15). And the brick-major volume
 (``volume_layout="brick"``, :mod:`xslam_tpu_torch.ops.bricks`) with brick
 fusion and every raycast of the JAX engine's brick layout
 (:mod:`xslam_tpu_torch.ops.raycast_bricks`): the marches as
@@ -26,8 +28,10 @@ computed every iteration or once per level (``icp_fixed_assoc``).
    (normal equations, 6x6 dual solve, pose update) is one launch of kernel
    K4, with no other device work between the launches;
 3. TSDF fusion when the frame aligned, in place: kernel K2, or with
-   ``fusion_mode="brick"`` the mip table (B3a), the bricks' classes (B3b)
-   and the brick pass (B3c), which give K2's volume bit for bit with the
+   ``fusion_mode="brick"`` the mip table (B3a), the bricks' classes (B3b; the
+   split classifier B15s, the fine one B15f), with ``fusion_subcell_cap > 0``
+   the subcells' classes and lists (B15c), and the brick pass (B3c, or its
+   MIXED or subcell variant), which give K2's volume bit for bit with the
    nearest depth (on the brick layout in its rows, B3c's row variant); with
    ``bi_interpolate_threshold > 0`` K2 and B3c take the bilinear branch, B11;
 4. raycast of the model maps (the poses packed once; the march: K3, or the
@@ -87,8 +91,9 @@ class FrameResult(NamedTuple):
     camera2world: CSFD  # (4, 4) dual pose estimate of this frame
     align_ok: torch.Tensor
     inlier_count: torch.Tensor
-    # brick fusion's ACTIVE list overflowed this frame (always False for dense
-    # fusion and for fusion_overflow="dense", which fuses such a frame exactly)
+    # brick fusion's ACTIVE list (or with fusion_subcell_cap > 0 a subcell list)
+    # overflowed this frame (always False for dense fusion and for
+    # fusion_overflow="dense", which fuses such a frame exactly)
     fusion_overflow: torch.Tensor
     # brick fusion's ACTIVE bricks this frame (int32; None for dense fusion
     # and for a frame that was not fused)
@@ -98,8 +103,9 @@ class FrameResult(NamedTuple):
     anchor_coverage: Optional[torch.Tensor] = None
 
 
-# the values of each option that select paths this port has; the others raise. Not listed, as they change no
-# result: raycast_pair_taps, raycast_packed_taps and raycast_quad_taps (the port's taps give their bits:
+# the values of each option that select paths this port has; the others raise. Not listed: the fusion classifiers
+# and the subcell stage (fusion_classify_fine, fusion_classify_split, fusion_subcell_cap), ported whole; and, as
+# they change no result, raycast_pair_taps, raycast_packed_taps and raycast_quad_taps (the port's taps give their bits:
 # ops/raycast_bricks.py::raycast_bricks_rays, ops/raycast.py::raycast), raycast_skip_gran (4 or 8: the same
 # events), raycast_compact (the same events) and raycast_temporal_cap_frac (read with raycast_temporal_phase1 > 0,
 # a schedule of the JAX march that changes no event)
@@ -107,9 +113,6 @@ _SLICE = {
     "volume_layout": ("dense", "brick"),
     "fusion_mode": ("dense", "brick"),
     "fusion_overflow": fusion.OVERFLOW_MODES,
-    "fusion_classify_fine": (False,),
-    "fusion_classify_split": (False,),
-    "fusion_subcell_cap": (0,),
 }
 # the brick layout's marches as the JAX engine maps them (xslam_tpu/models/kinfu.py:470-476): fixed and skip are
 # event-identical, the hier modes take the skip-anchored hierarchical marches
@@ -427,6 +430,8 @@ def process_frame(
                 flag, n_active = fuse(
                     state.volume, depth_m, r_v2c, t_v2c, intr, vol_cfg, cap=config.fusion_brick_cap,
                     overflow=config.fusion_overflow, bi_threshold=config.bi_interpolate_threshold,
+                    classify_fine=config.fusion_classify_fine, classify_split=config.fusion_classify_split,
+                    subcell_cap=config.fusion_subcell_cap,
                 )
                 if config.fusion_overflow == "flag":
                     overflow = flag

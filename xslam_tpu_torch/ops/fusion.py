@@ -14,8 +14,9 @@ tiles of the volume that the camera cannot see; :func:`tile_keep_mask` is
 that test's plain twin, which the tests hold against the plain update.
 
 :func:`integrate_brick` fuses the same frame brick by brick
-(:mod:`xslam_tpu_torch.ops.fusion_brick`, kernels B3a-c): the same volume, bit
-for bit, with the depth read only where a brick is ACTIVE.
+(:mod:`xslam_tpu_torch.ops.fusion_brick`, kernels B3a-c, and B15's opt-in
+classifiers and subcell stage): the same volume, bit for bit, with the depth
+read only where a brick (or a subcell) is ACTIVE.
 :func:`integrate_rows` does so on the brick-major layout
 (:mod:`xslam_tpu_torch.ops.bricks`).
 """
@@ -107,23 +108,32 @@ def integrate_brick(
     cap: int,
     overflow: str = "flag",
     bi_threshold: float = 0.0,
+    classify_fine: bool = False,
+    classify_split: bool = False,
+    subcell_cap: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse one scaled depth frame into the volume IN PLACE, brick by brick
-    (port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick`` with the
-    coarse classifier; ``bi_threshold`` as :func:`integrate`'s, read by the
-    exact update of the ACTIVE bricks alone, as there): the mip table (B3a), the
-    bricks' classes and lists (B3b), the fusion pass (B3c). Returns
-    ``(overflowed, n_active)``, device tensors: whether the frame had more
-    than ``cap`` ACTIVE bricks, and how many it had.
+    (port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick``;
+    ``bi_threshold`` as :func:`integrate`'s, read by the exact update of the
+    ACTIVE bricks alone, as there): the mip table (B3a), the bricks' classes
+    and lists (B3b; ``classify_split`` B15s, the MIXED class; ``classify_fine``
+    B15f, by 4^3 subcells, which wins over ``classify_split``), with
+    ``subcell_cap > 0`` the subcells of the first ``cap`` ACTIVE bricks
+    (B15c), the fusion pass (B3c). Returns ``(overflowed, n_active)``,
+    device tensors: whether the frame had more than ``cap`` ACTIVE bricks or
+    a subcell list more than ``subcell_cap`` ACTIVE subcells, and how many
+    ACTIVE bricks it had.
 
     ``overflow="flag"``: the ACTIVE bricks past the first ``cap`` in flat
-    order stay unfused this frame. ``"dense"``: such a frame is fused exactly
+    order, and the ACTIVE subcells past a list's ``subcell_cap``, stay
+    unfused this frame. ``"dense"``: such a frame is fused exactly
     everywhere instead, from the pre-frame volume (on the card the fusion
     kernel reads the flag; no host read), as the JAX engine reruns dense
     fusion."""
     if tuple(vol.value.shape) != tuple(cfg.resolution):
         raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
-    return _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold)
+    return _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine,
+                           classify_split, subcell_cap)
 
 
 def integrate_rows(
@@ -136,27 +146,39 @@ def integrate_rows(
     cap: int,
     overflow: str = "flag",
     bi_threshold: float = 0.0,
+    classify_fine: bool = False,
+    classify_split: bool = False,
+    subcell_cap: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`integrate_brick` on a brick-major volume
     (:class:`xslam_tpu_torch.ops.bricks.BrickVolume`, ``(NB, 512)`` rows), IN
     PLACE: the port of ``xslam_tpu/ops/fusion_brick.py::integrate_rows``.
-    B3a and B3b as there; B3c's row variant. ``overflow="dense"`` fuses an
-    overflowing frame exactly at every voxel, from the pre-frame volume, as
-    the JAX engine's rerun with ``cap`` = every brick does. The rows are the
-    dense fusion's volume in brick order, bit for bit."""
+    B3a, B3b (or B15s, B15f) and B15c as there; B3c's row variant.
+    ``overflow="dense"`` fuses an overflowing frame exactly at every voxel,
+    from the pre-frame volume, as the JAX engine's rerun with ``cap`` =
+    every brick (and no subcell stage) does. The rows are the dense fusion's
+    volume in brick order, bit for bit."""
     nbx, nby, nbz = fusion_brick._check_resolution(cfg.resolution)
     if tuple(bvol.value.shape) != (nbx * nby * nbz, fusion_brick.BRICK ** 3):
         raise ValueError(f"brick rows {tuple(bvol.value.shape)} do not hold a {cfg.resolution} volume")
-    return _fuse_by_bricks(bvol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold)
+    return _fuse_by_bricks(bvol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine,
+                           classify_split, subcell_cap)
 
 
-def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold):
+def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine, classify_split,
+                    subcell_cap):
     if overflow not in OVERFLOW_MODES:
         raise ValueError(f"overflow: expected one of {OVERFLOW_MODES}, got {overflow!r}")
+    if subcell_cap < 0:
+        raise ValueError(f"subcell_cap must be >= 0, got {subcell_cap}")
     pose = kernels.fusion_pose(r_v2c, t_v2c)
     table = fusion_brick.depth_mips(depth_m)
-    classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap)
-    fusion_brick.fuse_bricks(*vol, depth_m, pose, intr, cfg, classes, cap, overflow == "dense", bi_threshold)
+    classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap, split=classify_split, fine=classify_fine)
+    subcells = None
+    if subcell_cap > 0:  # ORs its lists' overflow into the flag
+        subcells = fusion_brick.classify_subcells(table, pose, intr, cfg, classes, cap, subcell_cap)
+    fusion_brick.fuse_bricks(*vol, depth_m, pose, intr, cfg, classes, cap, overflow == "dense", bi_threshold, subcells,
+                             subcell_cap)
     return classes.overflow, classes.totals[0]
 
 

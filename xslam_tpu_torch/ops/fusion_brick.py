@@ -1,20 +1,18 @@
 """Brick fusion on the dense volume: conservative culling of the voxels whose
 depth is read.
 
-Port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick`` with the coarse
-classifier (``classify_fine`` and ``classify_split`` off) and no subcell
-stage. The volume's 8^3 bricks are classified against the frame with
-interval arithmetic over min/max depth mips: NONE (provably no voxel
-updates), FAR and FAR_PARTIAL (every voxel that passes its pixel gate
-provably takes the saturated "beyond" sample, so the update needs no depth
-read), ACTIVE (the exact per-voxel update). Every test errs toward ACTIVE,
-so the volume equals dense fusion's bit for bit. ``cap`` bounds the ACTIVE
-bricks that are fused; past it the frame overflows: with ``"flag"`` the
-bricks of rank ``>= cap`` (flat brick order) stay unfused and the flag is
-raised, with ``"dense"`` the frame is fused exactly everywhere instead, from
-the pre-frame volume.
+Port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick``. The volume's
+8^3 bricks are classified against the frame with interval arithmetic over
+min/max depth mips: NONE (provably no voxel updates), FAR and FAR_PARTIAL
+(every voxel that passes its pixel gate provably takes the saturated
+"beyond" sample, so the update needs no depth read), ACTIVE (the exact
+per-voxel update). Every test errs toward ACTIVE, so the volume equals dense
+fusion's bit for bit. ``cap`` bounds the ACTIVE bricks that are fused; past
+it the frame overflows: with ``"flag"`` the bricks of rank ``>= cap`` (flat
+brick order) stay unfused and the flag is raised, with ``"dense"`` the frame
+is fused exactly everywhere instead, from the pre-frame volume.
 
-Three kernels (``csrc/bricks.cu``), each wrapped here beside its plain
+The kernels (``csrc/bricks.cu``), each wrapped here beside its plain
 version; a wrapper runs the plain version on CPU tensors and launches its
 kernel on CUDA tensors, never falling back:
 
@@ -26,27 +24,41 @@ kernel on CUDA tensors, never falling back:
   :func:`rank_bricks_plain`, the ports of ``_classify_boxes`` with
   ``split=False`` and of the compaction in ``_integrate_rows_core``): the
   classes, the ACTIVE list and the work list in flat brick order, the
-  counts and the overflow flag, all on the device, in one launch;
+  counts and the overflow flag, all on the device, in one launch. Its opt-in
+  variants, the same one launch: B15s (``split=True``, plain
+  :func:`classify_bricks_full_plain` with ``split``) adds the per-cell
+  tests of the footprint's 2x2 window and the MIXED class, whose far cells
+  and window (:func:`pack_aux`) the fusion pass reads; B15f (``fine=True``,
+  plain :func:`classify_bricks_fine_plain`) folds the classes of each
+  brick's 4^3 subcells (``classify_bricks_fine``) and wins over ``split``;
+- B15c :func:`classify_subcells` (plain :func:`classify_subcells_plain`,
+  the subcell stage of ``_integrate_rows_core`` with ``subcell_cap > 0``):
+  the classes of the 8 subcells of the first ``cap`` ACTIVE bricks and each
+  subcell id's list in rank order, its overflow ORed into the brick flag;
 - B3c :func:`fuse_bricks` (plain :func:`fuse_bricks_plain`, the port of
-  ``_integrate_rows_core`` with ``subcell_cap=0`` over ``to_bricks`` rows):
-  the FAR pass and the exact update of the ACTIVE bricks, in place; with
-  ``bi_threshold > 0`` the exact update samples the depth bilinearly (B11,
-  count ``fuse_bricks_bilinear``), as ``_integrate_rows_core`` passes its
+  ``_integrate_rows_core`` over ``to_bricks`` rows): the FAR pass and the
+  exact update of the ACTIVE bricks, in place; with ``bi_threshold > 0`` the
+  exact update samples the depth bilinearly (B11, count
+  ``fuse_bricks_bilinear``), as ``_integrate_rows_core`` passes its
   ``bi_threshold`` to ``_voxel_update``. The classes and the FAR pass are the
   nearest branch's there as here: the classifier's proofs allow the nearest
   sample's half pixel, not the bilinear block's, so under bilinear sampling
   the result may part from :func:`xslam_tpu_torch.ops.fusion.integrate`'s
-  where the JAX package's parts.
+  where the JAX package's parts. Its variants (counts ``fuse_bricks_mixed``,
+  ``fuse_bricks_subcell``): a MIXED brick's voxels take the far update where
+  their nearest pixel lies in a far cell of its window; an ACTIVE brick's
+  voxels the update of their subcell (far, exact within the list's
+  capacity, or none).
 
-On the card the classifier follows PyTorch's CUDA division by a host number
-(a multiply by the reciprocal taken in double) and so equals its plain
-version there; on the CPU that version divides truly, as the JAX package
-does.
+On the card the classifiers follow PyTorch's CUDA division by a host number
+(a multiply by the reciprocal taken in double) and so equal their plain
+versions there; on the CPU those divide truly, as the JAX package does
+(eagerly: under ``jax.jit`` XLA may move a bound by an ulp).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,9 +73,12 @@ MIP_LEVELS = (
     8, 9, 10, 11, 12, 14, 16, 18, 20, 23, 26, 30, 34, 39, 45, 52, 60, 69,
     80, 92, 106, 128,
 )
-NONE, FAR, ACTIVE, FAR_PARTIAL = 0, 1, 2, 3
+NONE, FAR, ACTIVE, FAR_PARTIAL, MIXED = 0, 1, 2, 3, 4
+SUBCELL = 4  # voxels along a subcell's edge: a brick holds 2^3 of them
+AUX_IMAGE_LIMIT = 4096  # pixels a side of the images whose window fits pack_aux's word
 CLASSIFY_TILE = 128  # bricks a tile (a block) of csrc/bricks.cu's classifier scan
 CLASSIFY_STATUS_STRIDE = 16  # 8-byte words of the classifier's scratch a tile: its status word, one a 128 B line
+SUBCELL_ROWS = 16  # candidate rows a block of csrc/bricks.cu's subcell classifier takes (8 subcells, 2 lanes each)
 
 
 class MipLayout(NamedTuple):
@@ -75,15 +90,38 @@ class MipLayout(NamedTuple):
     rows: int
 
 
+class BrickAux(NamedTuple):
+    """The classes of ``_classify_boxes`` with the window a MIXED box's
+    voxels are tested against (``xslam_tpu/ops/fusion_brick.py::BrickAux``)."""
+
+    cls: torch.Tensor  # int32: NONE, FAR, ACTIVE, FAR_PARTIAL, MIXED (the split classifier's)
+    farbits: torch.Tensor  # int32: the window's provably far cells, cell (dy, dx) at bit 2 dy + dx
+    win_u0: torch.Tensor  # int32: the window's origin in pixels
+    win_v0: torch.Tensor
+    win_ts: torch.Tensor  # int32: its cell edge in pixels
+
+
 class BrickClasses(NamedTuple):
     """What the classifier leaves on the device for the fusion pass."""
 
-    cls: torch.Tensor  # (nbx, nby, nbz) int32: NONE, FAR, ACTIVE, FAR_PARTIAL
+    cls: torch.Tensor  # (nbx, nby, nbz) int32: NONE, FAR, ACTIVE, FAR_PARTIAL, MIXED
     rank: torch.Tensor  # (NB,) int32: an ACTIVE brick's place in flat order, -1 elsewhere
     active_ids: torch.Tensor  # (NB,) int32: the ACTIVE bricks in flat order (the first n_active)
     work_ids: torch.Tensor  # (NB,) int32: the non-NONE bricks in flat order (the first n_work)
     totals: torch.Tensor  # (2,) int32: n_active, n_work
-    overflow: torch.Tensor  # () bool: n_active > cap
+    overflow: torch.Tensor  # () bool: n_active > cap; the subcell stage ORs its own into it
+    aux: Optional[torch.Tensor] = None  # (NB,) int32: the split classifier's pack_aux words, else None
+
+
+class Subcells(NamedTuple):
+    """The subcell stage's classes and lists (B15c) for the first ``cap``
+    ACTIVE bricks, row r for the brick of rank r; subcell s of a brick at
+    voxel offset 4 (s >> 2, (s >> 1) & 1, s & 1)."""
+
+    cls: torch.Tensor  # (cap, 8) int32: NONE, FAR, ACTIVE, FAR_PARTIAL; NONE on rows past n_active
+    rank: torch.Tensor  # (cap, 8) int32: an ACTIVE subcell's place in its id's list (row order), -1 elsewhere
+    counts: torch.Tensor  # (8,) int32: the ACTIVE subcells of each id
+    overflow: torch.Tensor  # () bool: a list holds more than subcell_cap
 
 
 def mip_sizes(H: int, W: int):
@@ -168,22 +206,22 @@ def depth_mips(depth_m: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ B3b classifier
-def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg) -> torch.Tensor:
-    """Plain version of B3b's classes: the port of ``_classify_boxes`` with
-    ``split=False`` on the brick grid (``classify_bricks_full``), reading the
-    mip table of :func:`depth_mips_plain`. ``pose``: :func:`kernels.
-    fusion_pose` of the volume->camera pose (value lanes read). Returns the
-    ``(nbx, nby, nbz)`` int32 classes."""
+def classify_boxes_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, bx0, by0, bz0, bm: float,
+                         split: bool = False) -> BrickAux:
+    """The port of ``_classify_boxes``: the classes of axis-aligned boxes of
+    edge ``bm`` metres at the origins ``bx0``, ``by0``, ``bz0`` (float32
+    tensors of any broadcastable shapes: the brick grid, the 4^3-subcell grid,
+    a candidate's subcells), against the frame whose mip table is ``table``
+    (:func:`depth_mips_plain`) at the volume->camera ``pose``
+    (:func:`kernels.fusion_pose`, value lanes read). ``split`` adds the
+    per-cell far / none tests of the footprint's 2x2 window and the MIXED
+    class. Returns the classes with the window that ``fuse_bricks`` reads
+    for a MIXED box: its far cells, origin and cell edge."""
     H, W = intr.height, intr.width
     layout = mip_layout(H, W)
-    nb = _check_resolution(cfg.resolution)
     dev = table.device
     r_v2c, t_v2c = kernels.unpack_fusion_pose(pose)
     R, t = r_v2c.v, t_v2c.v
-    bm = BRICK * cfg.voxel_size
-    bx0 = torch.arange(nb[0], dtype=torch.float32, device=dev)[:, None, None] * bm
-    by0 = torch.arange(nb[1], dtype=torch.float32, device=dev)[None, :, None] * bm
-    bz0 = torch.arange(nb[2], dtype=torch.float32, device=dev)[None, None, :] * bm
 
     # the eight corners: image-space bbox, camera z, and the maxima of the four gate planes (a voxel updates
     # only where z > 0 and 2.5 <= img < size - 0.5; for z > 0 each bound is a half-space in camera coordinates)
@@ -214,7 +252,7 @@ def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrins
     for z in zs[1:]:
         zmin, zmax = torch.minimum(zmin, z), torch.maximum(zmax, z)
 
-    # the camera's exact distance interval to the solid brick (camera origin in volume coordinates: -R^T t)
+    # the camera's exact distance interval to the solid box (camera origin in volume coordinates: -R^T t)
     ox = -(R[0, 0] * t[0] + R[1, 0] * t[1] + R[2, 0] * t[2])
     oy = -(R[0, 1] * t[0] + R[1, 1] * t[1] + R[2, 1] * t[2])
     oz = -(R[0, 2] * t[0] + R[1, 2] * t[1] + R[2, 2] * t[2])
@@ -264,7 +302,7 @@ def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrins
         level = torch.where(cover & (base_level <= li), li, level)
     level_ok = level < n
     level = torch.clamp(level, 0, n - 1)
-    dmin, dmax, all_valid = _footprint_bounds(table, layout, level, cu, cv)
+    dmin, dmax, all_valid, cells, cu0, cv0, ts_sel = _footprint_bounds(table, layout, level, cu, cv)
 
     # lambda = |pixel ray direction| over the footprint bbox clipped to the image
     def coord_interval(c0, c1, centre, f):
@@ -283,18 +321,118 @@ def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrins
     # NONE: entirely beyond the band behind the surface; FAR: every voxel's sample valid and provably past +trunc
     none_by_band = proj_ok & (dmax * lam_max - dist_min < -cfg.trunc_dist)
     provably_far = proj_ok & all_valid & (dmin * lam_min - dist_max > cfg.trunc_dist)
+    farbits = torch.zeros(none_by_band.shape, dtype=torch.int32, device=dev)
+    mixed = torch.zeros_like(none_by_band)
+    if split:
+        # each window cell's own depth bounds with a lambda interval over the cell's rect (widened by the half
+        # pixel a voxel's nearest sample rounds by) met with the footprint bbox: the pixels a voxel can sample
+        # inside the cell lie in both
+        ts_f = ts_sel.to(torch.float32)
+        ub_lo, ub_hi = torch.clamp(umin, 0.0, W - 0.5), torch.clamp(umax, 0.0, W - 0.5)
+        vb_lo, vb_hi = torch.clamp(vmin, 0.0, H - 0.5), torch.clamp(vmax, 0.0, H - 0.5)
+        far_cells, none_cells = [], []
+        for ci, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            x0 = ((cu0 + dx) * ts_sel).to(torch.float32) - 0.5
+            y0 = ((cv0 + dy) * ts_sel).to(torch.float32) - 0.5
+            ux0 = torch.maximum(torch.clamp(x0, 0.0, W - 0.5), ub_lo)
+            ux1 = torch.minimum(torch.clamp(x0 + ts_f, 0.0, W - 0.5), ub_hi)
+            uy0 = torch.maximum(torch.clamp(y0, 0.0, H - 0.5), vb_lo)
+            uy1 = torch.minimum(torch.clamp(y0 + ts_f, 0.0, H - 0.5), vb_hi)
+            xi_lo, xi_hi = coord_interval(ux0, torch.maximum(ux1, ux0), intr.cx, intr.fx)
+            yi_lo, yi_hi = coord_interval(uy0, torch.maximum(uy1, uy0), intr.cy, intr.fy)
+            lam_lo = torch.sqrt(xi_lo * xi_lo + yi_lo * yi_lo + 1.0)
+            lam_hi = torch.sqrt(xi_hi * xi_hi + yi_hi * yi_hi + 1.0)
+            mn_i, mx_i, av_i = cells[ci][..., 0], cells[ci][..., 1], cells[ci][..., 2] > 0.5
+            # a cell outside the bbox has no pixel a voxel samples: it proves something only where it holds no
+            # valid depth at all (min +inf, max -inf)
+            empty = (ux1 < ux0) | (uy1 < uy0)
+            far_cells.append(av_i & (torch.isposinf(mn_i) | (~empty & (mn_i * lam_lo - dist_max > cfg.trunc_dist))))
+            none_cells.append(torch.isneginf(mx_i) | (~empty & (mx_i * lam_hi - dist_min < -cfg.trunc_dist)))
+        far4 = proj_ok & far_cells[0] & far_cells[1] & far_cells[2] & far_cells[3]
+        none4 = proj_ok & none_cells[0] & none_cells[1] & none_cells[2] & none_cells[3]
+        mixed = proj_ok
+        for f_i, n_i in zip(far_cells, none_cells):
+            mixed = mixed & (f_i | n_i)
+        for bit, f_i in enumerate(far_cells):
+            farbits = farbits + (f_i.to(torch.int32) << bit)
+        none_by_band = none_by_band | none4
+        provably_far = provably_far | far4
+        mixed = mixed & ~none_by_band & ~provably_far
     far = provably_far & fully_inside
     far_partial = provably_far & ~fully_inside
     none = fully_behind | fully_outside | frustum_out | none_by_band
     cls = torch.where(none, NONE, ACTIVE)
     cls = torch.where(far & ~none, FAR, cls)
     cls = torch.where(far_partial & ~none, FAR_PARTIAL, cls)
+    cls = torch.where(mixed & ~none, MIXED, cls)
+    # FAR and FAR_PARTIAL take the far update under every cell
+    farbits = torch.where((cls == FAR) | (cls == FAR_PARTIAL), 15, farbits)
+    i32 = torch.int32
+    return BrickAux(cls.to(i32), farbits.to(i32), (cu0 * ts_sel).to(i32), (cv0 * ts_sel).to(i32), ts_sel.to(i32))
+
+
+def classify_bricks_full_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, split: bool = False,
+                               cell: int = BRICK) -> BrickAux:
+    """The port of ``classify_bricks_full``: :func:`classify_boxes_plain` on
+    the grid of ``cell``-voxel boxes (the bricks, or with ``cell=4`` their
+    4^3 subcells), origins ``i * (cell * voxel_size)``. Each field is a
+    ``(X / cell, Y / cell, Z / cell)`` int32 tensor."""
+    _check_resolution(cfg.resolution)
+    nb = tuple(s // cell for s in cfg.resolution)
+    bm = cell * cfg.voxel_size
+    dev = table.device
+    bx0 = torch.arange(nb[0], dtype=torch.float32, device=dev)[:, None, None] * bm
+    by0 = torch.arange(nb[1], dtype=torch.float32, device=dev)[None, :, None] * bm
+    bz0 = torch.arange(nb[2], dtype=torch.float32, device=dev)[None, None, :] * bm
+    return classify_boxes_plain(table, pose, intr, cfg, bx0, by0, bz0, bm, split)
+
+
+def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg) -> torch.Tensor:
+    """Plain version of B3b's classes: the port of ``_classify_boxes`` with
+    ``split=False`` on the brick grid (``classify_bricks_full``), reading the
+    mip table of :func:`depth_mips_plain`. ``pose``: :func:`kernels.
+    fusion_pose` of the volume->camera pose (value lanes read). Returns the
+    ``(nbx, nby, nbz)`` int32 classes."""
+    return classify_bricks_full_plain(table, pose, intr, cfg).cls
+
+
+def classify_bricks_fine_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg) -> torch.Tensor:
+    """Plain version of B15f: the port of ``classify_bricks_fine``. The
+    4^3-subcell grid's classes folded by brick: NONE where its 8 subcells
+    are NONE, FAR where all are FAR, FAR_PARTIAL where all are FAR or
+    FAR_PARTIAL, else ACTIVE. Returns the ``(nbx, nby, nbz)`` int32 classes."""
+    nbx, nby, nbz = _check_resolution(cfg.resolution)
+    sub = classify_bricks_full_plain(table, pose, intr, cfg, cell=SUBCELL).cls
+    s = sub.reshape(nbx, 2, nby, 2, nbz, 2).permute(0, 2, 4, 1, 3, 5).reshape(nbx, nby, nbz, 8)
+    all_none = (s == NONE).all(-1)
+    all_far = (s == FAR).all(-1)
+    all_farish = ((s == FAR) | (s == FAR_PARTIAL)).all(-1)
+    cls = torch.where(all_none, NONE, torch.where(all_far, FAR, torch.where(all_farish, FAR_PARTIAL, ACTIVE)))
     return cls.to(torch.int32)
+
+
+def pack_aux(aux: BrickAux) -> torch.Tensor:
+    """The split classifier's window of each box as the one int32 word B15s
+    writes and B3c reads: far cells (bits 0-3, cell (dy, dx) at bit 2 dy +
+    dx), the cell edge (bits 4-11), the window's first cell across (bits
+    12-20) and down (bits 21-29): images of at most :data:`AUX_IMAGE_LIMIT`
+    pixels a side."""
+    ts = aux.win_ts
+    return aux.farbits | (ts << 4) | ((aux.win_u0 // ts) << 12) | ((aux.win_v0 // ts) << 21)
+
+
+def unpack_aux(word: torch.Tensor) -> BrickAux:
+    """The ``(farbits, win_u0, win_v0, win_ts)`` of :func:`pack_aux`'s words
+    (``cls`` left None)."""
+    ts = (word >> 4) & 255
+    return BrickAux(None, word & 15, ((word >> 12) & 511) * ts, ((word >> 21) & 511) * ts, ts)
 
 
 def _footprint_bounds(table, layout: MipLayout, level, cu, cv):
     """(min, max, all valid) over the 2x2 cells of the selected level's
-    window at the cell of (cu, cv): four row reads of the table."""
+    window at the cell of (cu, cv): four row reads of the table; then the
+    four cells' rows (cell (dy, dx) at 2 dy + dx), the window's first cell
+    across and down, and its cell edge."""
     dev = table.device
     ts = torch.tensor(layout.sizes, device=dev)[level]
     mh = torch.tensor([h for h, _ in layout.shapes], device=dev)[level]
@@ -312,7 +450,7 @@ def _footprint_bounds(table, layout: MipLayout, level, cu, cv):
     mn = torch.minimum(torch.minimum(c[0][..., 0], c[1][..., 0]), torch.minimum(c[2][..., 0], c[3][..., 0]))
     mx = torch.maximum(torch.maximum(c[0][..., 1], c[1][..., 1]), torch.maximum(c[2][..., 1], c[3][..., 1]))
     av = (c[0][..., 2] * c[1][..., 2] * c[2][..., 2] * c[3][..., 2]) > 0.5
-    return mn, mx, av
+    return mn, mx, av, c, cu0, cv0, ts
 
 
 def rank_bricks_plain(cls: torch.Tensor, cap: int) -> BrickClasses:
@@ -335,6 +473,83 @@ def rank_bricks_plain(cls: torch.Tensor, cap: int) -> BrickClasses:
     totals = torch.stack([active.sum(), work.sum()]).to(torch.int32)
     rank = torch.where(active, pos, -1).to(torch.int32)
     return BrickClasses(cls, rank, active_ids, work_ids, totals, totals[0] > cap)
+
+
+def classify_subcells_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, classes: BrickClasses,
+                            cap: int, subcell_cap: int) -> Subcells:
+    """Plain version of B15c: the subcell stage of ``_integrate_rows_core``
+    up to its lists. The 8 subcells of each of the first ``min(n_active,
+    cap)`` ACTIVE bricks are classified by :func:`classify_boxes_plain` (box
+    origins ``(8 b + 4 s) * voxel_size``, edge ``4 * voxel_size``: the JAX
+    stage's roundings), and each subcell id's ACTIVE subcells are listed in
+    the bricks' rank order; a list longer than ``subcell_cap`` overflows.
+    ORs that overflow into ``classes.overflow`` IN PLACE, as the kernel does
+    on the card, so the fusion pass and the caller read both."""
+    _, nby, nbz = _check_resolution(cfg.resolution)
+    dev = table.device
+    n_valid = min(int(classes.totals[0]), cap)
+    ids = classes.active_ids[:n_valid].to(torch.int64)
+    s = torch.arange(8, device=dev)
+    corner = [((s >> 2) * SUBCELL).to(torch.float32), (((s >> 1) & 1) * SUBCELL).to(torch.float32),
+              ((s & 1) * SUBCELL).to(torch.float32)]
+    brick = [ids // (nby * nbz), (ids // nbz) % nby, ids % nbz]
+    box = [((b * BRICK).to(torch.float32)[:, None] + c[None, :]) * cfg.voxel_size for b, c in zip(brick, corner)]
+    cls = torch.zeros((cap, 8), dtype=torch.int32, device=dev)
+    if n_valid:
+        cls[:n_valid] = classify_boxes_plain(table, pose, intr, cfg, *box, SUBCELL * cfg.voxel_size).cls
+    active = cls == ACTIVE
+    rank = torch.where(active, torch.cumsum(active.to(torch.int32), 0) - 1, -1).to(torch.int32)
+    counts = active.sum(0).to(torch.int32)
+    overflow = (counts > subcell_cap).any()
+    classes.overflow.logical_or_(overflow)
+    return Subcells(cls, rank, counts, overflow)
+
+
+def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
+                      subcell_cap: int) -> Subcells:
+    """B15c: the subcell stage's classes and lists (:func:`classify_subcells_plain`'s
+    contract), its overflow ORed into ``classes.overflow`` in place. On the
+    card one launch after B3b's: a subcell two lanes, the rows read from
+    ``classes`` on the device (no host read), then the last block to finish
+    lists each id's ACTIVE subcells in row order by a scan."""
+    if cap < 1 or subcell_cap < 1:
+        raise ValueError(f"the subcell stage needs cap and subcell_cap >= 1, got {cap}, {subcell_cap}")
+    if kernels.on_cpu(table, pose, classes.cls):
+        return classify_subcells_plain(table, pose, intr, cfg, classes, cap, subcell_cap)
+    nb = _check_resolution(cfg.resolution)
+    H, W = intr.height, intr.width
+    layout = mip_layout(H, W)
+    kernels.check_tensor(table, "table", torch.float32, (layout.rows, 3))
+    kernels.check_tensor(pose, "pose", torch.float32, (kernels.FUSION_POSE_FLOATS,))
+    n = nb[0] * nb[1] * nb[2]
+    kernels.check_tensor(classes.active_ids, "active_ids", torch.int32, (n,))
+    dev = table.device
+    cls, rank = (torch.empty((cap, 8), dtype=torch.int32, device=dev) for _ in range(2))
+    counts = torch.empty(8, dtype=torch.int32, device=dev)
+    sub_overflow = torch.empty((), dtype=torch.bool, device=dev)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _subcell_scratch:  # zeroed once per device and stream
+        _subcell_scratch[key] = ClassifyScratch(dev, 1)
+    scratch = _subcell_scratch[key]
+    kernels.launch("classify_subcells", dev, table, pose, classes.active_ids, classes.totals, classes.overflow,
+                   scratch.words, scratch.next_launch()[0], cls, rank, counts, sub_overflow, *nb, H, W,
+                   _layout_ints(layout), classify_consts(intr, cfg), subcell_consts(cfg), int(cap), int(subcell_cap))
+    scratch.launched(subcell_blocks(cap))
+    kernels.launch_counts["classify_subcells"] += 1
+    return Subcells(cls, rank, counts, sub_overflow)
+
+
+def subcell_blocks(cap: int) -> int:
+    """Blocks of a B15c launch: :data:`SUBCELL_ROWS` candidate rows each."""
+    return -(-cap // SUBCELL_ROWS)
+
+
+def subcell_consts(cfg) -> list:
+    """The subcell boxes' float32 constants, as PyTorch rounds the plain
+    version's host numbers: the voxel size (the subcell stage's origins are
+    ``(8 b + 4 s) * voxel_size``) and the subcell edge ``4 * voxel_size``
+    (also the 4^3 grid's step, ``i * (4 * voxel_size)``)."""
+    return [kernels.f32(cfg.voxel_size), kernels.f32(SUBCELL * cfg.voxel_size)]
 
 
 class ClassifyScratch:
@@ -364,6 +579,7 @@ class ClassifyScratch:
 
 
 _classify_scratch: dict = {}  # (device, stream) -> ClassifyScratch
+_subcell_scratch: dict = {}  # (device, stream) -> B15c's ClassifyScratch: its ticket counter alone
 
 
 def classify_scratch(device: torch.device, n_bricks: int) -> ClassifyScratch:
@@ -381,17 +597,30 @@ def classify_tiles(n_bricks: int) -> int:
     return -(-n_bricks // CLASSIFY_TILE)
 
 
-def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, cap: int) -> BrickClasses:
+def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, cap: int, split: bool = False,
+                    fine: bool = False) -> BrickClasses:
     """B3b: the bricks' classes against the frame whose mip table is ``table``
     at the volume->camera ``pose`` (:func:`kernels.fusion_pose`), with the
     ACTIVE and work lists in flat brick order, the counts and the overflow
     flag (:func:`classify_bricks_plain` then :func:`rank_bricks_plain`). On
     the card one launch (the classes, then the ranks by a single-pass scan),
-    no host read; entries of a list past its count are left unwritten."""
-    if kernels.on_cpu(table, pose):
-        return rank_bricks_plain(classify_bricks_plain(table, pose, intr, cfg), cap)
-    nb = _check_resolution(cfg.resolution)
+    no host read; entries of a list past its count are left unwritten.
+
+    ``split`` (B15s, :func:`classify_bricks_full_plain` with ``split``)
+    adds the MIXED class, listed as work, and the windows (``aux``,
+    :func:`pack_aux`); ``fine`` (B15f, :func:`classify_bricks_fine_plain`)
+    classifies each brick by its 4^3 subcells and wins over ``split``, as
+    in the JAX engine. Each is the same one launch with other classes."""
+    split = split and not fine
     H, W = intr.height, intr.width
+    if split and max(H, W) > AUX_IMAGE_LIMIT:
+        raise ValueError(f"the split classifier takes images of at most {AUX_IMAGE_LIMIT} pixels a side")
+    if kernels.on_cpu(table, pose):
+        if fine:
+            return rank_bricks_plain(classify_bricks_fine_plain(table, pose, intr, cfg), cap)
+        full = classify_bricks_full_plain(table, pose, intr, cfg, split=split)
+        return rank_bricks_plain(full.cls, cap)._replace(aux=pack_aux(full).reshape(-1) if split else None)
+    nb = _check_resolution(cfg.resolution)
     layout = mip_layout(H, W)
     kernels.check_tensor(table, "table", torch.float32, (layout.rows, 3))
     kernels.check_tensor(pose, "pose", torch.float32, (kernels.FUSION_POSE_FLOATS,))
@@ -402,12 +631,21 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     totals = torch.empty(2, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     scratch = classify_scratch(dev, n)
-    kernels.launch("classify_bricks", dev, table, pose, cls, scratch.words, *scratch.next_launch(), rank,
-                   active_ids, work_ids, totals, overflow, H, W, _layout_ints(layout), classify_consts(intr, cfg),
-                   int(cap))
+    args = (table, pose, cls, scratch.words, *scratch.next_launch(), rank, active_ids, work_ids, totals, overflow)
+    consts = (H, W, _layout_ints(layout), classify_consts(intr, cfg))
+    aux = None
+    if fine:
+        kernel = "classify_bricks_fine"
+        kernels.launch(kernel, dev, *args, *consts, subcell_consts(cfg)[1], int(cap))
+    elif split:
+        kernel, aux = "classify_bricks_split", torch.empty(n, dtype=torch.int32, device=dev)
+        kernels.launch(kernel, dev, *args, aux, *consts, int(cap))
+    else:
+        kernel = "classify_bricks"
+        kernels.launch(kernel, dev, *args, *consts, int(cap))
     scratch.launched(classify_tiles(n))
-    kernels.launch_counts["classify_bricks"] += 1
-    return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow)
+    kernels.launch_counts[kernel] += 1
+    return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow, aux)
 
 
 def classify_consts(intr: Intrinsics, cfg) -> list:
@@ -431,16 +669,24 @@ def _is_rows(value: torch.Tensor) -> bool:
 
 
 def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
-                      dense_on_overflow: bool, bi_threshold: float = 0.0) -> None:
+                      dense_on_overflow: bool, bi_threshold: float = 0.0, subcells: Optional[Subcells] = None,
+                      subcell_cap: int = 0) -> None:
     """Plain version of B3c, IN PLACE: the port of ``_integrate_rows_core``
-    with ``subcell_cap=0`` over brick rows, the planes' own when they are
-    ``(NB, 512)`` rows (the brick layout), else :func:`to_bricks` of the
-    dense planes. FAR and FAR_PARTIAL bricks take the "beyond" update under
-    the exact per-voxel gate; the ACTIVE bricks of rank < ``cap`` take the
-    exact update (:func:`kernels.voxel_update_plain`); with
-    ``dense_on_overflow`` an overflowing frame takes the exact update at every
-    voxel instead, from the pre-frame volume (the JAX engine's rerun with
-    every brick in the cap). ``bi_threshold`` as the exact update's."""
+    over brick rows, the planes' own when they are ``(NB, 512)`` rows (the
+    brick layout), else :func:`to_bricks` of the dense planes. FAR and
+    FAR_PARTIAL bricks take the "beyond" update under the exact per-voxel
+    gate; with the split classifier's ``classes.aux`` every far-ish brick
+    also tests the cell of the window its voxel's nearest pixel lies in, and
+    a MIXED brick's voxels take that update where the cell is far. The ACTIVE
+    bricks of rank < ``cap`` take the exact update
+    (:func:`kernels.voxel_update_plain`), or with ``subcells``
+    (:func:`classify_subcells_plain`) their subcells' own: the "beyond"
+    update in a FAR or FAR_PARTIAL subcell, the exact one in an ACTIVE
+    subcell of list rank < ``subcell_cap``, none elsewhere. With
+    ``dense_on_overflow`` a frame whose flag is set (the brick or the
+    subcell lists' overflow) takes the exact update at every voxel instead,
+    from the pre-frame volume (the JAX engine's rerun). ``bi_threshold`` as
+    the exact update's."""
     r_v2c, t_v2c = kernels.unpack_fusion_pose(pose)
     rows = _is_rows(value)
     res = tuple(cfg.resolution)
@@ -480,16 +726,28 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
     ccy = Rv[1, 0] * fx_ + Rv[1, 1] * fy_ + Rv[1, 2] * fz_ + tv[1]
     ccz = Rv[2, 0] * fx_ + Rv[2, 1] * fy_ + Rv[2, 2] * fz_ + tv[2]
     inv_z = 1.0 / ccz
-    iu = torch.floor(ccx * intr.fx * inv_z + intr.cx - 0.5)
-    iv = torch.floor(ccy * intr.fy * inv_z + intr.cy - 0.5)
-    far_rows = ((cls == FAR) | (cls == FAR_PARTIAL))[:, None]
-    far_mask = far_rows & (inv_z >= 0) & (iu > 1) & (iu < W - 1) & (iv > 1) & (iv < H - 1)
+    img_u = ccx * intr.fx * inv_z + intr.cx
+    img_v = ccy * intr.fy * inv_z + intr.cy
+    iu = torch.floor(img_u - 0.5)
+    iv = torch.floor(img_v - 0.5)
+    gate = (inv_z >= 0) & (iu > 1) & (iu < W - 1) & (iv > 1) & (iv < H - 1)
+    far_rows = (cls == FAR) | (cls == FAR_PARTIAL)
+    far_mask = gate & far_rows[:, None]
+    if classes.aux is not None:
+        # MIXED: far where the voxel's nearest pixel, round(img), lies in a far cell of the window
+        aux = unpack_aux(classes.aux.reshape(-1))
+        far_mask = gate & (far_rows | (cls == MIXED))[:, None]
+
+        def cell(img, origin):
+            p = torch.where(gate, torch.round(img), 0.0).to(torch.int64)
+            return torch.clamp(torch.div(p - origin[:, None], aux.win_ts[:, None], rounding_mode="floor"), 0, 1)
+
+        bit = (aux.farbits[:, None] >> (cell(img_v, aux.win_v0) * 2 + cell(img_u, aux.win_u0))) & 1
+        far_mask = far_mask & (bit > 0)
     # the exact update's running average with the sample 1 + 0i, in its arithmetic
     far = (CSFD(vb, gb) * wb + 1.0) / (wb + 1.0)
     w_far = torch.clamp(wb + 1.0, max=float(cfg.max_weight))
-    vb = torch.where(far_mask, far.v, vb)
-    gb = torch.where(far_mask, far.g, gb)
-    wb = torch.where(far_mask, w_far, wb)
+    updated = [torch.where(far_mask, far.v, vb), torch.where(far_mask, far.g, gb), torch.where(far_mask, w_far, wb)]
 
     # ACTIVE pass: the first cap ACTIVE bricks in flat order, gathered, updated exactly, scattered back
     ids = torch.nonzero((cls == ACTIVE) & (classes.rank < cap)).reshape(-1)
@@ -497,24 +755,40 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
         gx, gy, gz = coords(ids)
         new = kernels.voxel_update_plain(gx, gy, gz, vb[ids], gb[ids], wb[ids], depth_m, r_v2c, t_v2c, intr,
                                          cfg.trunc_dist, cfg.max_weight, bi_threshold)
-        for plane_rows, updated in zip((vb, gb, wb), new):
-            plane_rows[ids] = updated
-    for plane, plane_rows in zip((value, grad, weight), (vb, gb, wb)):
+        if subcells is not None:
+            # each voxel as its subcell says: subcell s = 4 (x >> 2) + 2 (y >> 2) + (z >> 2) in the brick
+            sub = (((lane // (BRICK * BRICK)) >> 2) * 4 + (((lane // BRICK) % BRICK) >> 2) * 2 + ((lane % BRICK) >> 2))
+            row = classes.rank[ids].to(torch.int64)
+            scls = subcells.cls[row][:, sub]
+            exact = (scls == ACTIVE) & (subcells.rank[row][:, sub] < subcell_cap)
+            far_v = ((scls == FAR) | (scls == FAR_PARTIAL)) & gate[ids]
+            old = (vb[ids], gb[ids], wb[ids])
+            near = (far.v[ids], far.g[ids], w_far[ids])
+            new = [torch.where(exact, n, torch.where(far_v, f, o)) for n, f, o in zip(new, near, old)]
+        for plane_rows, update in zip(updated, new):
+            plane_rows[ids] = update
+    for plane, plane_rows in zip((value, grad, weight), updated):
         plane.copy_(plane_rows if rows else from_bricks(plane_rows, res))
 
 
 def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
-                dense_on_overflow: bool, bi_threshold: float = 0.0) -> None:
+                dense_on_overflow: bool, bi_threshold: float = 0.0, subcells: Optional[Subcells] = None,
+                subcell_cap: int = 0) -> None:
     """B3c: fuse the frame into the planes IN PLACE, brick by brick as
-    ``classes`` says (:func:`fuse_bricks_plain`'s contract): dense ``(X, Y,
-    Z)`` planes or brick-major ``(NB, 512)`` rows, the kernel's row variant,
-    which differs only in where a brick's column lies (``b * 512 + c * 8``).
-    On the card one launch; with ``dense_on_overflow`` the kernel reads the
-    overflow flag on the device and, where it is set, updates every brick
-    exactly."""
+    ``classes`` (and ``subcells``) say (:func:`fuse_bricks_plain`'s
+    contract): dense ``(X, Y, Z)`` planes or brick-major ``(NB, 512)`` rows,
+    the kernel's row variant, which differs only in where a brick's column
+    lies (``b * 512 + c * 8``). On the card one launch; with
+    ``dense_on_overflow`` the kernel reads the overflow flag on the device
+    and, where it is set, updates every brick exactly. With the split
+    classifier's windows (``classes.aux``) the launch is B3c's MIXED variant,
+    with ``subcells`` its subcell variant (counted as ``fuse_bricks_mixed``
+    and ``fuse_bricks_subcell``, in either branch of the depth sample)."""
+    if subcells is not None and subcell_cap < 1:
+        raise ValueError(f"subcells need subcell_cap >= 1, got {subcell_cap}")
     if kernels.on_cpu(value, grad, weight, depth_m, pose, classes.cls):
         fuse_bricks_plain(value, grad, weight, depth_m, pose, intr, cfg, classes, cap, dense_on_overflow,
-                          bi_threshold)
+                          bi_threshold, subcells, subcell_cap)
         return
     nbx, nby, nbz = _check_resolution(cfg.resolution)
     rows = _is_rows(value)
@@ -529,9 +803,22 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     kernels.check_tensor(classes.cls, "cls", torch.int32, tuple(s // BRICK for s in cfg.resolution))
     for t, name in ((classes.rank, "rank"), (classes.work_ids, "work_ids")):
         kernels.check_tensor(t, name, torch.int32, (n,))
-    kernels.launch(
-        "fuse_bricks", value.device, value, grad, weight, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
-        classes.totals, classes.overflow, *kernels.fusion_args(intr, cfg.voxel_size, cfg.trunc_dist, cfg.max_weight),
-        int(cap), bool(dense_on_overflow), list(cfg.resolution), rows, kernels.bilinear_arg(bi_threshold),
-    )
-    kernels.launch_counts["fuse_bricks_bilinear" if bi_threshold > 0 else "fuse_bricks"] += 1
+    args = (value, grad, weight, depth_m, pose, classes.cls, classes.rank, classes.work_ids, classes.totals,
+            classes.overflow)
+    tail = (*kernels.fusion_args(intr, cfg.voxel_size, cfg.trunc_dist, cfg.max_weight), int(cap),
+            bool(dense_on_overflow), list(cfg.resolution), rows, kernels.bilinear_arg(bi_threshold))
+    if classes.aux is not None:
+        kernels.check_tensor(classes.aux, "aux", torch.int32, (n,))
+    if subcells is not None:
+        for t, name in ((subcells.cls, "subcell cls"), (subcells.rank, "subcell rank")):
+            kernels.check_tensor(t, name, torch.int32, (cap, 8))
+        aux = classes.aux if classes.aux is not None else torch.empty(0, dtype=torch.int32, device=value.device)
+        kernel = "fuse_bricks_subcell"
+        kernels.launch(kernel, value.device, *args, aux, subcells.cls, subcells.rank, int(subcell_cap), *tail)
+    elif classes.aux is not None:
+        kernel = "fuse_bricks_mixed"
+        kernels.launch(kernel, value.device, *args, classes.aux, *tail)
+    else:
+        kernel = "fuse_bricks_bilinear" if bi_threshold > 0 else "fuse_bricks"
+        kernels.launch("fuse_bricks", value.device, *args, *tail)
+    kernels.launch_counts[kernel] += 1

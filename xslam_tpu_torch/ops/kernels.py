@@ -99,6 +99,8 @@ launch_counts = {
     "march_fixed_strided": 0, "icp_system": 0, "icp_associate": 0,
     "raycast_refine": 0, "resize_model_maps": 0, "depth_pyramid": 0, "vertex_normal_maps": 0,
     "depth_mips": 0, "classify_bricks": 0, "fuse_bricks": 0, "fuse_bricks_bilinear": 0,
+    "classify_bricks_split": 0, "classify_bricks_fine": 0, "classify_subcells": 0, "fuse_bricks_mixed": 0,
+    "fuse_bricks_subcell": 0,
     "model_map_normals": 0, "window_march": 0, "window_march_first_event": 0, "raycast_refine_bricks": 0,
     "skip_field": 0, "march_skip": 0, "extract_points": 0,
     "skip_field_dense": 0, "march_skip_dense": 0, "window_march_dense": 0,

@@ -66,6 +66,9 @@ HAND_KERNELS = {
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
     "depth_mips": "depth_mips_kernel", "classify_bricks": "classify_bricks_kernel",
     "fuse_bricks": r"fuse_bricks_kernel<\w+, false>", "fuse_bricks_bilinear": r"fuse_bricks_kernel<\w+, true>",
+    "classify_bricks_split": "classify_bricks_split_kernel", "classify_bricks_fine": "classify_bricks_fine_kernel",
+    "classify_subcells": "classify_subcells_kernel", "fuse_bricks_mixed": r"fuse_bricks_mixed_kernel<\w+, \w+>",
+    "fuse_bricks_subcell": r"fuse_bricks_subcell_kernel<\w+, \w+>",
     "window_march": "window_march_kernel<false, false>", "window_march_dense": "window_march_kernel<true, false>",
     "window_march_first_event": "window_march_kernel<false, true>",
     "skip_field": ("event_mask_kernel<false>", "skip_distance_kernel<false>"),
