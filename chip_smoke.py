@@ -374,6 +374,20 @@ KERNELS = {
                           "main path, bench split"),
     "fuse_bricks_subcell": ("xslam_tpu_torch/csrc/bricks.cu, fusion.cuh", "xslam_tpu/ops/fusion_brick.py:636,758-821",
                             "main path, bench subcell"),
+    # B19: the sharded engine's slab hooks, at world size 1 over NCCL (the slab is the volume, offset 0)
+    "fuse_volume_slab": ("xslam_tpu_torch/csrc/fusion.cu, fusion.cuh", "xslam_tpu/ops/fusion.py:99-100",
+                         "main path, sharded"),
+    "classify_bricks_slab": ("xslam_tpu_torch/csrc/bricks.cu", "xslam_tpu/ops/fusion_brick.py:209-210",
+                             "main path, sharded fast"),
+    "fuse_bricks_slab": ("xslam_tpu_torch/csrc/bricks.cu, fusion.cuh", "xslam_tpu/ops/fusion_brick.py:669,721",
+                         "main path, sharded fast"),
+    "march_fixed_shard": ("xslam_tpu_torch/csrc/march.cu", "xslam_tpu/ops/raycast.py:136-200",
+                          "main path, sharded"),
+    "raycast_refine_shard": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:901-932",
+                             "main path, sharded"),
+    "raycast_finalize": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:1132", "main path, sharded"),
+    "icp_tail": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/parallel/sharded.py:163-222 + xslam_tpu/ops/icp.py:294",
+                 "main path, sharded"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
     "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
     "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
@@ -762,19 +776,19 @@ def phase_bricks(ctx):
         cold_a = time_cold_ms(lambda: run("depth_mips", depth_m, out_table, lv), 50)
         cold_b = time_cold_ms(run_b, 50)
         ms_c = time_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
-                                   classes.totals, classes.overflow, *fargs, cap, True, res, False, 0.0), 20)
+                                   classes.totals, classes.overflow, *fargs, cap, True, res, False, 0.0, 0), 20)
         ms_rows = time_ms(lambda: run("fuse_bricks", *rows_b, depth_m, pose, classes.cls, classes.rank,
                                       classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res, True,
-                                      0.0), 20)
+                                      0.0, 0), 20)
         ms_k2 = time_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
                                                     eng.max_weight), 20)
         # as the frame finds them: the planes out of L2 (B3c's work bricks, ~19 MB at the orbit, fit in it)
         cold_c = time_cold_ms(lambda: run("fuse_bricks", *brick, depth_m, pose, classes.cls, classes.rank,
                                           classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res,
-                                          False, 0.0), 20)
+                                          False, 0.0, 0), 20)
         cold_rows = time_cold_ms(lambda: run("fuse_bricks", *rows_b, depth_m, pose, classes.cls, classes.rank,
                                              classes.work_ids, classes.totals, classes.overflow, *fargs, cap, True, res,
-                                             True, 0.0), 20)
+                                             True, 0.0, 0), 20)
         cold_k2 = time_cold_ms(lambda: kernels.fuse_volume(*k2, depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist,
                                                            eng.max_weight), 20)
         # a yardstick for B3a, not a library call for it: one of its 22 levels and one of its three statistics
@@ -1033,7 +1047,7 @@ def phase_b15(ctx):
         # B15s, B15f against their plain versions (the classes, ranks, lists, counts, flag and windows)
         split = fb.classify_bricks(table, pose, intr, eng, cap, split=True)
         full = fb.classify_bricks_full_plain(table, pose, intr, eng, split=True)
-        split_plain = fb.rank_bricks_plain(full.cls, cap)._replace(aux=fb.pack_aux(full).reshape(-1))
+        split_plain = fb.rank_bricks_plain(full.cls, cap)._replace(aux=fb.pack_aux(full).reshape(-1, fb.AUX_INTS))
         fine = fb.classify_bricks(table, pose, intr, eng, cap, fine=True)
         fine_plain = fb.rank_bricks_plain(fb.classify_bricks_fine_plain(table, pose, intr, eng), cap)
         split_equal, fine_equal = _bricks_equal(split, split_plain), _bricks_equal(fine, fine_plain)
@@ -1131,14 +1145,14 @@ def phase_b15(ctx):
             def subcells():
                 run("classify_subcells", table, pose, coarse.active_ids, coarse.totals, sub_flag, sub_scratch.words,
                     sub_scratch.next_launch()[0], sub_out.cls, sub_out.rank, sub_out.counts, sub_out.overflow,
-                    *(s // fb.BRICK for s in res), H, W, lv, consts, sub_consts, cap, cap)
+                    *(s // fb.BRICK for s in res), H, W, lv, consts, sub_consts, cap, cap, 0)
                 sub_scratch.launched(fb.subcell_blocks(cap))
 
             planes = [x.clone() for x in vol]
 
             def fuse(kernel, classes, *extra):
                 return lambda: run(kernel, *planes, depth_m, pose, classes.cls, classes.rank, classes.work_ids,
-                                   classes.totals, classes.overflow, *extra, *fargs, cap, True, res, False, 0.0)
+                                   classes.totals, classes.overflow, *extra, *fargs, cap, True, res, False, 0.0, 0)
 
             timed = {
                 "classify_bricks": classify("classify_bricks"),
@@ -1345,9 +1359,10 @@ def phase_dense_marches(ctx):
     }
 
 
-def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
+def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng, rows=None):
     """What this run's march must read: the distinct voxels its rays sample
-    up to the step where both events are known, plus rays in and times out."""
+    up to the step where both events are known, plus rays in and times out;
+    with ``rows`` (a slab's [first, stop) x rows) only the voxels it holds."""
     from xslam_tpu_torch.ops.kernels import INF_T, RAY_MIN_M, march_steps
 
     X, Y, Z = vol_value.shape
@@ -1367,6 +1382,8 @@ def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng):
     g[:, 0] = torch.stack([g[0, 0].clamp(0, X - 1), g[1, 0].clamp(0, Y - 1), g[2, 0].clamp(0, Z - 1)])
     live = (ks[:, None] <= k_stop[None].float())
     inside = (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
+    if rows is not None:
+        inside = inside & (g[0] >= rows[0]) & (g[0] < rows[1])
     idx = (g[0] * Y + g[1]) * Z + g[2]
     distinct = int(torch.unique(idx[live & inside]).numel())
     samples = int(live.sum())
@@ -2322,7 +2339,7 @@ class _K4Launch:
     def __call__(self, tail: bool = False, blocks=None, maps=None, assoc_out=None):
         err_code = self.ext.icp_system(
             *(maps or self.maps), assoc_out, self.pose, self.partials, self.ticket, blocks or self.blocks, self.out,
-            self.count, *(self.tail if tail else (None, None, None)), 0.0, True, *self.consts, self.stream)
+            self.count, *(self.tail if tail else (None, None, None)), 0.0, True, *self.consts, None, self.stream)
         check(err_code == 0, f"icp_system launch failed: cudaError {err_code}")
 
 
@@ -3918,13 +3935,463 @@ def phase_backend_realistic(ctx):
     return info
 
 
+# ------------------------------------------------------------------------- B19 and the sharded engine
+SLAB_RANKS = 2  # the B19 phase's split of the volume's X into slabs, as two ranks hold it
+
+
+def _slab_rows(plane: torch.Tensor, k: int, h: int = 0) -> torch.Tensor:
+    """Rows [k * local - h, (k + 1) * local + h) of an (X, Y, Z) plane for
+    slab k of SLAB_RANKS, wrapping at the volume's ends as the ranks' ring
+    does: a slab with its halo."""
+    X = plane.shape[0]
+    local = X // SLAB_RANKS
+    rows = torch.arange(k * local - h, (k + 1) * local + h, device=plane.device) % X
+    return plane.index_select(0, rows).contiguous()
+
+
+def _bits_all(a, b) -> bool:
+    return all(bool(torch.equal(x.view(torch.int32), y.view(torch.int32))) for x, y in zip(a, b))
+
+
+def phase_b19(ctx):
+    """B19, the sharded engine's slab hooks, each against its plain version
+    on the card at the main path's shapes (the fused 256^3 volume, the
+    orbit's frame 3, 480x640 rays): at its defaults (the whole volume: the
+    same bits as without the hook), then on both slabs of a 2-rank split
+    (128 rows; for the raycast a halo of ``halo_width`` rows, wrapping as
+    the ring does). B19a: K2 with the slab's ``x_offset``, B3b and B3c (and
+    the split, fine and subcell variants) bit for bit, B3c's slab volume
+    K2's whole-volume rows bit for bit. B19b, B19c: K3 with the slab's
+    ``ShardSpec`` on >= 99.9% of the rays (phase_march's criterion: the
+    plain floor divides by a multiply) and K5's shard mode bit for bit; the
+    two slabs' K3 minima
+    and K5 planes, summed and finalized (K5's finalize against
+    ``finalize_maps``) in one process, against the whole volume's K3 and K5:
+    the differing pixels are counted, the maps must be equal (value and NaN
+    masks; the bits of a -0 that the sum makes +0 are counted). B19d: K4's
+    tail launched over the totals that the whole image's system launch
+    writes, against the fused launch bit for bit, and over two column
+    blocks' summed totals against ``icp_step_plain`` on its own system
+    (``_check_tail``'s tolerances). Each hook timed beside its plain
+    version, with its bound."""
+    import dataclasses
+
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.ops import fusion, icp, kernels, raycast
+    from xslam_tpu_torch.ops import fusion_brick as fb
+    from xslam_tpu_torch.ops.kernels import INF_T
+    from xslam_tpu_torch.parallel.mesh import init_space_group
+    from xslam_tpu_torch.parallel.sharded import halo_width, sharded_icp_system
+
+    cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
+    vol, intr = ctx["volume"], cfg.intrinsics
+    X, Y, Z = eng.resolution
+    local = X // SLAB_RANKS
+    lcfg = dataclasses.replace(eng, resolution=(local, Y, Z))
+    out = {}
+
+    # ---- B19a: fusion at the orbit's frame 3
+    _, v2c, depth_u16 = ctx["fusion_cases"][0]
+    r, t = se3.rotation(v2c), se3.translation(v2c)
+    depth_m = fusion.scale_depth(torch.as_tensor(depth_u16, device=dev))
+    fargs = (depth_m, r, t, intr, eng.voxel_size, eng.trunc_dist, eng.max_weight)
+    whole = [x.clone() for x in vol]
+    at_zero = [x.clone() for x in vol]
+    kernels.fuse_volume(*whole, *fargs)
+    kernels.fuse_volume(*at_zero, *fargs, 0.0, 0)
+    defaults = dict(k2_x_offset_0=_bits_all(whole, at_zero))
+    del at_zero
+    table, pose = fb.depth_mips(depth_m), kernels.fusion_pose(r, t)
+    n_slab = local * Y * Z // fb.BRICK ** 3
+    k2_rows, brick_rows, slab_rows = [], [], []
+    for k in range(SLAB_RANKS):
+        off = k * local
+        slab = [_slab_rows(x, k) for x in vol]
+        ks, ps = [x.clone() for x in slab], [x.clone() for x in slab]
+        kernels.fuse_volume(*ks, *fargs, 0.0, off)
+        kernels.fuse_volume_plain(*ps, *fargs, 0.0, off)
+        k2_rows.append(dict(slab=k, bit_equal_to_plain=_bits_all(ks, ps), updated=int((ps[2] != slab[2]).sum()),
+                            bits_apart_from_whole_k2=sum(int((a.view(torch.int32) != w[off:off + local].view(
+                                torch.int32)).sum()) for a, w in zip(ks, whole))))
+        variants = {}
+        for variant in ("coarse", "split", "fine", "subcell"):
+            split, fine = variant == "split", variant == "fine"
+            classes = fb.classify_bricks(table, pose, intr, lcfg, n_slab, split=split, fine=fine, x_offset=off)
+            if fine:
+                plain = fb.rank_bricks_plain(fb.classify_bricks_fine_plain(table, pose, intr, lcfg, off), n_slab)
+            else:
+                full = fb.classify_bricks_full_plain(table, pose, intr, lcfg, split=split, x_offset=off)
+                plain = fb.rank_bricks_plain(full.cls, n_slab)._replace(
+                    aux=fb.pack_aux(full).reshape(-1, fb.AUX_INTS) if split else None)
+            subs = psubs = None
+            sub_equal = True
+            if variant == "subcell":
+                subs = fb.classify_subcells(table, pose, intr, lcfg, classes, n_slab, n_slab, off)
+                psubs = fb.classify_subcells_plain(table, pose, intr, lcfg, plain, n_slab, n_slab, off)
+                sub_equal = all(bool(torch.equal(a, b)) for a, b in zip(subs, psubs))
+            kb, pb = [x.clone() for x in slab], [x.clone() for x in slab]
+            extra = (0.0, subs, n_slab if subs is not None else 0)
+            fb.fuse_bricks(*kb, depth_m, pose, intr, lcfg, classes, n_slab, False, *extra, x_offset=off)
+            fb.fuse_bricks_plain(*pb, depth_m, pose, intr, lcfg, plain, n_slab, False, 0.0, psubs,
+                                 n_slab if psubs is not None else 0, off)
+            torch.cuda.synchronize()
+            variants[variant] = dict(classes_equal=_bricks_equal(classes, plain), subcells_equal=sub_equal,
+                                     volume_equal_to_plain=_bits_all(kb, pb),
+                                     volume_equal_to_whole_k2=_bits_all(kb, [w[off:off + local] for w in whole]),
+                                     n_active=int(classes.totals[0]))
+            if variant == "coarse":
+                n_active, n_work = (int(x) for x in classes.totals)
+                updated = int((pb[2] != slab[2]).sum())
+                brick_rows.append(dict(slab=k, classes=classes, n_active=n_active, n_work=n_work, updated=updated))
+        slab_rows.append(variants)
+        emit("B19a slab fusion", slab=k, x_offset=off, k2=k2_rows[-1], bricks=variants)
+        check(k2_rows[-1]["bit_equal_to_plain"], f"B19a: K2 on slab {k} differs from its plain version")
+        check(all(all(v.values()) for v in variants.values()),
+              f"B19a: the brick kernels on slab {k} differ from their plain versions or from K2's rows: {variants}")
+    # times on slab 1 (an offset that moves every voxel)
+    off = local
+    slab = [_slab_rows(x, 1) for x in vol]
+    ks = [x.clone() for x in slab]
+    k2_ms = time_ms(lambda: kernels.fuse_volume(*ks, *fargs, 0.0, off), 20)
+    k2_plain = time_ms(lambda: kernels.fuse_volume_plain(*ks, *fargs, 0.0, off), 2)
+    upd = k2_rows[1]["updated"]
+    k2_bound = bound_ms(depth_m.numel() * 4 + 24 * 4 + upd * 24, ks[0].numel() * 69 + upd * 60)
+    out["fuse_volume_slab"] = dict(max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound[0],
+                                   bound_by=k2_bound[1], x_offset=off)
+    b = brick_rows[1]
+    cls_ms = time_ms(lambda: fb.classify_bricks(table, pose, intr, lcfg, n_slab, x_offset=off), 50)
+    cls_plain = time_ms(lambda: fb.rank_bricks_plain(fb.classify_bricks_plain(table, pose, intr, lcfg, off),
+                                                     n_slab), 3)
+    cls_bound = bound_ms(table.numel() * 4 + pose.numel() * 4 + n_slab * 8 + (b["n_active"] + b["n_work"]) * 4 + 9,
+                         n_slab * 600)
+    out["classify_bricks_slab"] = dict(max_abs_err=0.0, ms=cls_ms, plain_ms=cls_plain, bound_ms=cls_bound[0],
+                                       bound_by=cls_bound[1], x_offset=off)
+    fb_ms = time_ms(lambda: fb.fuse_bricks(*ks, depth_m, pose, intr, lcfg, b["classes"], n_slab, False, x_offset=off),
+                    20)
+    fb_plain = time_ms(lambda: fb.fuse_bricks_plain(*ks, depth_m, pose, intr, lcfg, b["classes"], n_slab, False,
+                                                    0.0, None, 0, off), 2)
+    fb_bound = bound_ms(depth_m.numel() * 4 + b["updated"] * 24, b["n_work"] * 512 * 69 + b["n_active"] * 512 * 60)
+    out["fuse_bricks_slab"] = dict(max_abs_err=0.0, ms=fb_ms, plain_ms=fb_plain, bound_ms=fb_bound[0],
+                                   bound_by=fb_bound[1], x_offset=off)
+    del whole, ks, slab
+
+    # ---- B19b, B19c: the raycast over the slabs at the orbit's frame 3 (480x640)
+    rpose, parts = _ray_pose(ctx, 3)
+    ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], intr)
+    w_found, w_dead = kernels.march_fixed(vol.value, rpose, intr, eng.voxel_size, eng.trunc_dist)
+    w_maps = raycast.raycast_refine(vol, rpose, w_found, w_dead, intr, eng)
+    d_found, d_dead = kernels.march_fixed(vol.value, rpose, intr, eng.voxel_size, eng.trunc_dist,
+                                          spec=raycast.ShardSpec())
+    defaults.update(k3_default_spec=bool(torch.equal(d_found, w_found)) and bool(torch.equal(d_dead, w_dead)))
+    h = halo_width(eng, local)
+    slabs = []
+    for k in range(SLAB_RANKS):
+        spec = raycast.ShardSpec(x_base=k * local - h, x_total=X, core_start=k * local, core_end=(k + 1) * local)
+        ext = fusion.VolumeState(_slab_rows(vol.value, k, h), _slab_rows(vol.grad, k, h), None)
+        tf, td = kernels.march_fixed(ext.value, rpose, intr, eng.voxel_size, eng.trunc_dist, spec=spec)
+        pf, pd = kernels.march_fixed_plain(ext.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist, spec)
+        # K3 against plain as phase_march holds it: the plain version's floor(p / voxel) is PyTorch's multiply by
+        # the reciprocal, K3's the true division's, so a sample on a floor boundary may pick the neighbour
+        slabs.append(dict(spec=spec, ext=ext, tf=tf, td=td, k3_frac_equal=min(frac_equal(tf, pf), frac_equal(td, pd))))
+    found_min = torch.minimum(slabs[0]["tf"], slabs[1]["tf"])
+    dead_min = torch.minimum(slabs[0]["td"], slabs[1]["td"])
+    accept = w_found < torch.clamp(w_dead, max=INF_T)
+    summed = None
+    for k, s in enumerate(slabs):
+        s["maps"] = raycast.raycast_refine_shard(s["ext"], rpose, s["tf"], found_min, dead_min, intr, eng, s["spec"])
+        plain = raycast.raycast_refine_shard_plain(s["ext"], rpose, s["tf"], found_min, dead_min, intr, eng,
+                                                   s["spec"])
+        s["k5_equal"] = _bits_all((s["maps"],), (plain,))
+        summed = s["maps"].clone() if summed is None else summed + s["maps"]
+    fin_plain = raycast.finalize_maps(CSFD(summed[0:3], summed[3:6]), CSFD(summed[6:9], summed[9:12]),
+                                      summed[12] > 0, summed[13] > 0)
+    fin_in = summed.clone()
+    vmap, nmap = raycast.raycast_finalize(fin_in)
+    torch.cuda.synchronize()
+    fin_equal = _bits_all((vmap.v, vmap.g, nmap.v, nmap.g), (fin_plain[0].v, fin_plain[0].g, fin_plain[1].v,
+                                                              fin_plain[1].g))
+    lanes = ((vmap.v, w_maps[0].v), (vmap.g, w_maps[0].g), (nmap.v, w_maps[1].v), (nmap.g, w_maps[1].g))
+    maps_equal = all(bool(torch.equal(torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0))) and same_nans(a, b)
+                     for a, b in lanes)
+    maps_bits_apart = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in lanes)
+    combined = dict(t_found_pixels_apart=int((found_min != w_found).sum()),
+                    t_dead_pixels_apart=int((dead_min != w_dead).sum()),
+                    t_found_apart_where_accepted=int((found_min != w_found)[accept].sum()),
+                    accept_apart=int(((found_min < torch.clamp(dead_min, max=INF_T)) != accept).sum()),
+                    maps_equal_to_whole=maps_equal, map_entries_bits_apart=maps_bits_apart,
+                    finalize_bit_equal_to_plain=fin_equal)
+    emit("B19bc slab raycast", halo=h, defaults=defaults,
+         slabs=[dict(slab=k, k3_frac_equal_to_plain=s["k3_frac_equal"], k5_bit_equal_to_plain=s["k5_equal"],
+                     owned_pixels=int((s["maps"][12] > 0).sum())) for k, s in enumerate(slabs)], combined=combined)
+    check(all(defaults.values()), f"B19: a hook at its defaults changed the bits: {defaults}")
+    check(all(s["k3_frac_equal"] >= 0.999 and s["k5_equal"] for s in slabs),
+          "B19b/c: K3 or K5 on a slab differs from its plain version")
+    check(fin_equal and maps_equal and combined["t_found_apart_where_accepted"] == 0 and combined["accept_apart"] == 0,
+          f"B19b/c: the slabs' combined raycast is not the whole volume's: {combined}")
+    s = slabs[1]
+    spec, ext = s["spec"], s["ext"]
+    ms3 = time_ms(lambda: kernels.march_fixed(ext.value, rpose, intr, eng.voxel_size, eng.trunc_dist, spec=spec), 50)
+    plain3 = time_ms(lambda: kernels.march_fixed_plain(ext.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist,
+                                                       spec), 3)
+    n_bytes, n_ops, _ = _march_bytes_ops(vol.value, ray_start.v, ray_dir.v, s["tf"], s["td"], eng,
+                                         rows=(spec.x_base, spec.x_base + ext.value.shape[0]))
+    b3 = bound_ms(n_bytes, n_ops)
+    out["march_fixed_shard"] = dict(max_abs_err=0.0, ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
+                                    slab=1, halo=h)
+    ms5 = time_ms(lambda: raycast.raycast_refine_shard(ext, rpose, s["tf"], found_min, dead_min, intr, eng, spec), 50)
+    plain5 = time_ms(lambda: raycast.raycast_refine_shard_plain(ext, rpose, s["tf"], found_min, dead_min, intr, eng,
+                                                                spec), 3)
+    owner = s["maps"][12] > 0
+    n_bytes, n_ops, _ = _refine_bytes_ops(vol, ray_start, ray_dir, found_min, owner, eng)
+    n_pix = owner.numel()
+    b5 = bound_ms(n_bytes + n_pix * (4 + 56 - 48), n_ops)  # a third time in, 14 planes out a pixel
+    out["raycast_refine_shard"] = dict(max_abs_err=0.0, ms=ms5, plain_ms=plain5, bound_ms=b5[0], bound_by=b5[1],
+                                       slab=1)
+    msf = time_ms(lambda: raycast.raycast_finalize(fin_in), 100)
+    # its 32 MB of planes fit the 50 MB L2, so a warm launch reads them from L2: below the bound by device memory
+    coldf = time_cold_ms(lambda: raycast.raycast_finalize(fin_in), 50)
+    plainf = time_ms(lambda: raycast.finalize_maps(CSFD(summed[0:3], summed[3:6]),
+                                                   CSFD(summed[6:9], summed[9:12]), summed[12] > 0,
+                                                   summed[13] > 0), 20)
+    bf = bound_ms(n_pix * (14 + 12) * 4, n_pix * 12)
+    out["raycast_finalize"] = dict(max_abs_err=0.0, ms=msf, cold_ms=coldf, plain_ms=plainf, bound_ms=bf[0],
+                                   bound_by=bf[1])
+
+    # ---- B19d: K4's tail alone, at the main path's level 0 (480x640)
+    vprev, nprev, vcurr, ncurr, ipose = _icp_inputs(ctx, 0)
+    lintr = intr.level(0)
+    rows = icp.pack_model_rows(vprev[0], nprev[0])
+    packed = icp.pack_pose(ipose["r_curr"], ipose["t_curr"], ipose["r_prev_inv"], ipose["t_prev"])
+    args = (rows, vprev[0].v.shape[-2:], lintr, cfg.dist_thres, cfg.angle_thres_sine, cfg.icp_damping)
+    fused = icp.IcpLoop(packed)
+    fused.iterate(vcurr[0], ncurr[0], *args)
+    fused = fused.result()
+    split = icp.IcpLoop(packed, reduce=lambda totals: None)  # one rank: the totals are the sum
+    split.iterate(vcurr[0], ncurr[0], *args)
+    split = split.result()
+    # the sharded system at world size 1 (NCCL's all_reduce of the totals) against K4's system-only launch
+    if "space_group" not in ctx:
+        ctx["space_group"] = init_space_group()  # NCCL on this card, a group of one
+    sysargs = (ipose["r_curr"], ipose["t_curr"], vcurr[0], ncurr[0], ipose["r_prev_inv"], ipose["t_prev"], lintr,
+               vprev[0], nprev[0], cfg.dist_thres, cfg.angle_thres_sine)
+    summed = sharded_icp_system(*sysargs, ctx["space_group"])
+    alone = icp.build_system(*sysargs)
+    torch.cuda.synchronize()
+    system_equal = all(_bits_all((a.v, a.g), (b.v, b.g)) for a, b in ((summed.A, alone.A), (summed.b, alone.b))) \
+        and int(summed.inlier_count) == int(alone.inlier_count)
+    tail_equal = _same_step(fused, split) and bool(torch.equal(fused.system.inlier_count, split.system.inlier_count))
+    # two column blocks' totals summed, then the tail, against icp_step_plain on the tail's own system
+    sc = icp._icp_scratch(dev)
+    W = vcurr[0].shape[-1]
+    block_totals = []
+    for k in range(SLAB_RANKS):
+        cols = slice(k * W // SLAB_RANKS, (k + 1) * W // SLAB_RANKS)
+        vb, nb = vcurr[0][:, :, cols].contiguous(), ncurr[0][:, :, cols].contiguous()
+        tot = torch.empty(icp.ICP_SUMS, dtype=torch.float64, device=dev)
+        icp._launch_system(sc, vb, nb, rows, vprev[0].v.shape[-2:], None, packed, sc.out, sc.inliers, lintr,
+                           cfg.dist_thres, cfg.angle_thres_sine, totals_out=tot)
+        block_totals.append(tot)
+    total = block_totals[0] + block_totals[1]
+    tail_out = [torch.empty(84, dtype=torch.float32, device=dev), torch.empty((), dtype=torch.int32, device=dev),
+                torch.empty(icp.POSE_FLOATS, dtype=torch.float32, device=dev),
+                torch.empty(12, dtype=torch.float32, device=dev), torch.zeros(2, dtype=torch.int32, device=dev)]
+    icp.icp_tail(total, packed, *tail_out, cfg.icp_damping, True)
+    torch.cuda.synchronize()
+    system = icp._system_of(tail_out[0], tail_out[1])
+    r_new, t_new = icp.unpack_pose(tail_out[2])
+    step = icp.IcpStep(system=system, r_curr=r_new, t_curr=t_new, x=CSFD(tail_out[3][:6], tail_out[3][6:]),
+                       ok=tail_out[4][0] != 0)
+    ref = icp.icp_step_plain(system, ipose["r_curr"], ipose["t_curr"], cfg.icp_damping)
+    tail_row = _check_tail(step, ref, "B19d, two column blocks")
+    inliers_equal = int(system.inlier_count) == int(fused.system.inlier_count)
+    msd = time_ms(lambda: icp.icp_tail(total, packed, *tail_out, cfg.icp_damping, True), 200)
+    plaind = time_ms(lambda: icp.icp_step_plain(system, ipose["r_curr"], ipose["t_curr"], cfg.icp_damping), 5)
+    # the totals in (55 doubles), the system (84 floats and the count), the pose, x and flags out; some 1,500
+    # operations (the damping, the 6x6 LU, four triangular solves, the Euler increment and two 3x3 products)
+    bd = bound_ms(icp.ICP_SUMS * 8 + icp.POSE_FLOATS * 4 + (84 + 1 + icp.POSE_FLOATS + 12 + 2) * 4, 1500)
+    out["icp_tail"] = dict(max_abs_err=tail_row["tail_pose_abs_err"], ms=msd, plain_ms=plaind, bound_ms=bd[0],
+                           bound_by=bd[1])
+    emit("B19d icp tail", shape=list(vcurr[0].shape[1:]), bit_equal_to_fused_tail=tail_equal,
+         sharded_system_bit_equal_to_k4_system=system_equal,
+         two_blocks=dict(inliers_equal_to_whole=inliers_equal, **tail_row))
+    check(tail_equal, "B19d: K4's tail launch over the totals is not the fused launch's bit for bit")
+    check(system_equal, "B19d: the sharded system at one rank is not K4's system bit for bit")
+    check(inliers_equal, "B19d: two column blocks' inliers do not add up to the whole image's")
+    for key, row in out.items():
+        emit(f"B19 {key}", library_ms=None, library_note="no single PyTorch call computes it", **row)
+    return out
+
+
+def _sharded_run(ctx, cfg, n_frames: int, group):
+    """The sharded engine at world size 1 over ``n_frames`` of the orbit, the
+    launch counts set to 0 just before and read just after; the last frame
+    runs under the profiler. Returns (engine, state, results, frame ms,
+    counts, profile)."""
+    from xslam_tpu_torch.ops import kernels
+    from xslam_tpu_torch.parallel.engine import ShardedXSlamEngine
+
+    engine = ShardedXSlamEngine(cfg, group=group)
+    state = engine.init_state()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    results, times, prof = [], [], None
+    for i in range(n_frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == n_frames - 1:
+            (state, res), prof, _ = _lead_profile(lambda: engine.process_frame(state, ctx["depths"][i]))
+        else:
+            state, res = engine.process_frame(state, ctx["depths"][i])
+        engine.log_pose(res)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        results.append(res)
+    return engine, state, results, times[:-1], dict(kernels.launch_counts), prof
+
+
+def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
+    """The sharded engine (``ShardedXSlamEngine``) at world size 1 over NCCL,
+    configs/synthetic.yaml (640x480, 256^3) over 10 frames, with the
+    engine's own options or (``"main path, sharded fast"``) the JAX
+    package's fast ones (brick fusion with cap 2816, screen normals, the
+    cached association): the poses (both lanes), the volume and the model
+    maps equal ``XSlamEngine``'s run of the same configuration bit for bit,
+    every kernel of the path launched as often as its frames and ICP
+    iterations say (K4 and its tail once an iteration; K3 and K5 in their
+    slab modes and K5's finalize once a frame; K2, or B3b and B3c, with
+    the slab's offset); the mean and median frame ms, the profiled frame's
+    launches and the device time of its NCCL kernels are printed."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+
+    from xslam_tpu_torch.models.kinfu import XSlamEngine
+    from xslam_tpu_torch.parallel.mesh import init_space_group
+    from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
+
+    fast = tag.endswith("fast")
+    cfg = ctx["config"]
+    if fast:
+        cfg = dataclasses.replace(cfg, fusion_mode="brick", fusion_brick_cap=BRICK_CAP, raycast_normals="screen",
+                                  icp_fixed_assoc=True)
+    n_frames = N_FRAMES
+    if "space_group" not in ctx:
+        ctx["space_group"] = init_space_group()  # NCCL on this card, a group of one
+    group = ctx["space_group"]
+    single = XSlamEngine(cfg, device=ctx["device"])
+    sstate, sres = single.init_state(), []
+    for i in range(n_frames):
+        sstate, res = single.process_frame(sstate, ctx["depths"][i])
+        sres.append(res)
+    engine, state, results, times, counts, prof = _sharded_run(ctx, cfg, n_frames, group)
+    poses_equal = all(_bits_all((a.camera2world.v, a.camera2world.g), (b.camera2world.v, b.camera2world.g))
+                      for a, b in zip(sres, results))
+    volume_equal = _bits_all(sstate.volume, engine.dense_volume(state))
+    maps_equal = all(_bits_all((a.v, a.g), (b.v, b.g)) for a, b in zip(sstate.vmaps_prev + sstate.nmaps_prev,
+                                                                       state.vmaps_prev + state.nmaps_prev))
+    gt = normalize_to_first(ctx["gt"][:n_frames])
+    ate = ate_rmse(normalize_to_first(engine.pose_log), gt)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.name]
+    nccl = [e for e in device if "nccl" in e.name.lower()]
+    rec = _frame_record(prof)
+    steady = np.asarray(times[WARM_FRAMES:])
+    iterations = sum(cfg.icp_iterations[: cfg.num_levels])
+    brick = cfg.fusion_mode == "brick"
+    want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps", "march_fixed_shard",
+                                  "raycast_refine_shard", "raycast_finalize")}
+    want.update(icp_system=iterations * n_frames, icp_tail=iterations * n_frames, icp_associate=0,
+                fuse_volume=0, fuse_volume_slab=0 if brick else n_frames, march_fixed=0, raycast_refine=0,
+                depth_mips=n_frames if brick else 0, classify_bricks_slab=n_frames if brick else 0,
+                fuse_bricks_slab=n_frames if brick else 0, classify_bricks=0, fuse_bricks=0,
+                model_map_normals=n_frames if fast else 0, resize_model_maps=0 if fast else n_frames)
+    emit(tag, config="configs/synthetic.yaml", world_size=group.world_size, backend=group.backend, frames=n_frames,
+         depth=[cfg.depth_height, cfg.depth_width], volume=list(cfg.tsdf_size), fusion_mode=cfg.fusion_mode,
+         raycast_normals=cfg.raycast_normals, icp_fixed_assoc=cfg.icp_fixed_assoc, ate_m=ate,
+         single_engine_ate_m=ate_rmse(normalize_to_first([r.camera2world.v.cpu().numpy() for r in sres]), gt),
+         mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)), frame_ms=times,
+         poses_bit_equal=poses_equal, volume_bit_equal=volume_equal, model_maps_bit_equal=maps_equal,
+         all_aligned=all(bool(r.align_ok) for r in results), kernels=counts,
+         launches_per_frame=sum(counts.values()) / n_frames,
+         device_events_in_profiled_frame=len(rec["names"]), host_launch_calls_in_profiled_frame=rec["host_calls"],
+         stage_launches_in_profiled_frame=rec["stages"], nccl_kernels_in_profiled_frame=len(nccl),
+         nccl_device_ms_in_profiled_frame=sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+         nccl_kernel_names=sorted({e.name for e in nccl})[:6])
+    check(poses_equal and volume_equal and maps_equal,
+          f"{tag}: not XSlamEngine's bits: poses {poses_equal}, volume {volume_equal}, maps {maps_equal}")
+    check(all(bool(r.align_ok) for r in results) and ate < 0.02, f"{tag}: alignment or ATE {ate} m")
+    check(all(counts[k] == n for k, n in want.items()), f"{tag}: launch counts {counts}, expected {want}")
+    return counts
+
+
+def phase_levels(ctx):
+    """C3, four pyramid levels on the card: K7, K8 and K6 (and K6 with the
+    screen normals, B4n) at 4 levels give the 3-level launches' first three
+    levels bit for bit and their plain versions' fourth (``pyr_down``,
+    ``create_vmap`` + ``create_nmap``, ``resize_model_maps``); then
+    ``XSlamEngine`` at ``num_levels=4`` (icp_iterations 5, 4, 3, 2) over 4
+    frames, each launch made twice a frame."""
+    import dataclasses
+
+    from xslam_tpu_torch.models.kinfu import XSlamEngine, model_map_pyramid, resize_model_maps
+    from xslam_tpu_torch.ops import kernels, preprocess
+    from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
+
+    cfg, dev = ctx["config"], ctx["device"]
+    intr = cfg.intrinsics
+    from xslam_tpu_torch.ops import raycast
+
+    depth = kernels.bilateral_filter(torch.as_tensor(np.asarray(ctx["depths"][4], np.uint16), device=dev))
+    d3, d4 = kernels.depth_pyramid(depth, 3), kernels.depth_pyramid(depth, 4)
+    v3, n3 = kernels.vertex_normal_pyramid([intr.level(i) for i in range(3)], d3)
+    v4, n4 = kernels.vertex_normal_pyramid([intr.level(i) for i in range(4)], d4)
+    _, parts = _ray_pose(ctx, 3)
+    vmap0, nmap0 = raycast.raycast(ctx["volume"], *parts, intr, ctx["engine_cfg"])
+    m3, m4 = model_map_pyramid(vmap0, nmap0, 3), model_map_pyramid(vmap0, nmap0, 4)
+    s3, s4 = model_map_pyramid(vmap0, None, 3), model_map_pyramid(vmap0, None, 4)
+    plain_d = preprocess.pyr_down(d4[2])
+    plain_v = preprocess.create_vmap(intr.level(3), d4[3])
+    plain_m = resize_model_maps(m4[0][2], m4[1][2])
+    torch.cuda.synchronize()
+    first3 = dict(depth=_bits_all(d3, d4[:3]), vertex=_bits_all(v3, v4[:3]), normal=_bits_all(n3, n4[:3]),
+                  model_maps=all(_bits_all((a.v, a.g), (b.v, b.g)) for a, b in zip(m3[0] + m3[1], m4[0][:3] + m4[1][:3])),
+                  screen_model_maps=all(_bits_all((a.v, a.g), (b.v, b.g))
+                                        for a, b in zip(s3[0] + s3[1], s4[0][:3] + s4[1][:3])))
+    fourth = dict(depth=_bits_all((d4[3],), (plain_d,)), vertex=_bits_all((v4[3],), (plain_v,)),
+                  normal=_bits_all((n4[3],), (preprocess.create_nmap(plain_v),)),
+                  model_maps=_bits_all((m4[0][3].v, m4[0][3].g, m4[1][3].v, m4[1][3].g),
+                                       (plain_m[0].v, plain_m[0].g, plain_m[1].v, plain_m[1].g)))
+    n_frames = 4
+    cfg4 = dataclasses.replace(cfg, num_levels=4, icp_iterations=(5, 4, 3, 2), end_frame=n_frames)
+    engine = XSlamEngine(cfg4, device=dev)
+    state = engine.init_state()
+    kernels.reset_launch_counts()
+    aligned = []
+    for i in range(n_frames):
+        state, res = engine.process_frame(state, ctx["depths"][i])
+        engine.log_pose(res)
+        aligned.append(bool(res.align_ok))
+    counts = dict(kernels.launch_counts)
+    ate = ate_rmse(normalize_to_first(engine.pose_log), normalize_to_first(ctx["gt"][:n_frames]))
+    finite = all(bool(torch.isfinite(m.v[:, ~torch.isnan(m.v[0])]).all()) for m in state.vmaps_prev)
+    emit("C3 four levels", first_three_levels_bit_equal=first3, fourth_level_bit_equal_to_plain=fourth,
+         engine=dict(frames=n_frames, num_levels=4, icp_iterations=list(cfg4.icp_iterations), aligned=aligned,
+                     ate_m=ate, model_maps_finite=finite, kernels={k: v for k, v in counts.items() if v}))
+    check(all(first3.values()) and all(fourth.values()), f"C3: first three levels {first3}, fourth {fourth}")
+    check(finite and all(counts[k] == 2 * n_frames for k in ("depth_pyramid", "vertex_normal_maps",
+                                                            "resize_model_maps")),
+          f"C3: the 4-level engine's maps finite {finite}, launches {counts}")
+    return counts
+
+
 # the phases in their order: (name, function)
 PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
           ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("B15", phase_b15), ("march_fixed", phase_march),
           ("raycast_refine", phase_refine), ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
           ("brick refine", phase_brick_refine), ("first-event window", phase_first_event),
           ("dense marches", phase_dense_marches), ("extract", phase_extract),
-          ("maps", phase_maps), ("icp_system", phase_icp), ("tsdf_loss", phase_tsdf_loss),
+          ("maps", phase_maps), ("icp_system", phase_icp), ("B19", phase_b19), ("four levels", phase_levels),
+          ("tsdf_loss", phase_tsdf_loss),
           ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
           ("probes", phase_probes),
           ("main path", phase_main_path),
@@ -3939,6 +4406,8 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("main path, bench bilinear", phase_main_path_bench_bilinear),
           *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in BRICK_RAYCASTS),
           *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in B15_RUNS),
+          ("main path, sharded", phase_main_path_sharded),
+          ("main path, sharded fast", lambda ctx: phase_main_path_sharded(ctx, "main path, sharded fast")),
           ("process_frames", phase_process_frames),
           ("main path, ICL realistic", phase_main_path_icl),
           ("main path, 7-Scenes realistic", phase_main_path_7scenes),
@@ -3996,6 +4465,8 @@ def main() -> int:
             traceback.print_exc()
             failed.append(name)
         torch.cuda.synchronize()
+    if torch.distributed.is_initialized():  # the sharded runs' group of one
+        torch.distributed.destroy_process_group()
     if "backend_data" in ctx:
         import shutil
 
@@ -4024,6 +4495,7 @@ def main() -> int:
     results.update(results.pop("B15"))
     results.update(results.pop("march_fixed"))
     results.update(results.pop("dense marches"))
+    results.update(results.pop("B19"))
     # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
     skip = results["march_skip"]
     skip["latency_floor_ms"] = skip["longest_ray_rounds"] * results["probe_e"]["ms"] / PROBE_E_STEPS
@@ -4031,6 +4503,7 @@ def main() -> int:
                                                "main path, bench", "main path, bench refresh", "main path, hier2",
                                                "main path, skip", "main path, hier", "main path, hier_skip",
                                                "main path, bench bilinear", *BRICK_RAYCASTS, *B15_RUNS,
+                                               "main path, sharded", "main path, sharded fast",
                                                "main path, ICL realistic",
                                                "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]

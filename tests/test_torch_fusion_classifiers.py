@@ -80,6 +80,19 @@ def _step_case():
     return np.linalg.inv(w2v).astype(np.float32), depth
 
 
+# C4: the small camera moved 4040 px right in a 4200 px wide image, near (1.0 m) left of WIDE_STEP and far (4.2 m)
+# right of it; at this column the split classifier makes MIXED bricks whose windows start past column 4096
+WIDE = (120.3, -120.0, 79.5 + 4040, 59.5, 4200, 120)
+WIDE_STEP = 4170
+
+
+def _wide_case():
+    depth = np.full((WIDE[5], WIDE[4]), 4200, np.uint16)
+    depth[:, :WIDE_STEP] = 1000
+    w2v = np.asarray(small_config().world2volume, np.float32)
+    return np.linalg.inv(w2v).astype(np.float32), depth
+
+
 def _any_case(name):
     if name == "step":
         return _step_case()
@@ -143,9 +156,46 @@ def test_classify_bricks_applies_the_precedence_and_lists_mixed_as_work():
     mixed = torch.nonzero(split.cls.reshape(-1) == tbrick.MIXED).reshape(-1).to(torch.int32)
     assert len(mixed) > 0 and bool(torch.isin(mixed, split.work_ids[:n_work]).all())
     assert bool((split.rank[mixed.long()] == -1).all())
+    # the windows are carried whole (pack_aux's three ints): an image of any size is classified
     big = Intrinsics(100.0, 100.0, 2500.0, 50.0, 5000, 100)
-    with pytest.raises(ValueError, match="pixels a side"):
-        tbrick.classify_bricks(table, pose, big, tcfg, 4096, split=True)
+    big_table = tbrick.depth_mips(torch.full((100, 5000), 2.0))
+    wide = tbrick.classify_bricks(big_table, pose, big, tcfg, 4096, split=True)
+    assert wide.aux.shape == (wide.cls.numel(), tbrick.AUX_INTS)
+
+
+def test_split_classifier_on_an_image_wider_than_4096():
+    """C4: the split classifier and B3c's MIXED variant on a 4200 px wide
+    image, where a window's origin lies past column 4096: the classes and
+    windows equal JAX's ``classify_bricks_full(split=True)`` (run eagerly)
+    exactly, ``classify_bricks`` takes the image and carries every window
+    whole (``pack_aux``'s three ints, as the JAX package's four int32
+    arrays), and the MIXED fusion pass gives dense fusion's volume bit for
+    bit."""
+    from xslam_tpu.geometry.intrinsics import Intrinsics as JIntrinsics
+
+    _, jcfg, tcfg = _cfgs()
+    v2c, depth = _wide_case()
+    r, t, tr, tt = _poses(v2c)
+    intr, jintr = Intrinsics(*WIDE), JIntrinsics(*WIDE)
+    dm = tfusion.scale_depth(torch.from_numpy(depth))
+    table, pose = tbrick.depth_mips(dm), kernels.fusion_pose(tr, tt)
+    jsplit = jbrick.classify_bricks_full(jfusion.scale_depth(jnp.asarray(depth)), r.v, t.v, jintr, jcfg,
+                                         jcfg.resolution, split=True)
+    tsplit = tbrick.classify_bricks_full_plain(table, pose, intr, tcfg, split=True)
+    for field in jbrick.BrickAux._fields:
+        np.testing.assert_array_equal(getattr(tsplit, field).numpy(), np.asarray(getattr(jsplit, field)), field)
+    mixed = tsplit.cls == tbrick.MIXED
+    assert int(mixed.sum()) > 0 and int(tsplit.win_u0[mixed].min()) > 4096
+    classes = tbrick.classify_bricks(table, pose, intr, tcfg, 4096, split=True)
+    unpacked = tbrick.unpack_aux(classes.aux)
+    for field in ("farbits", "win_u0", "win_v0", "win_ts"):
+        assert torch.equal(getattr(unpacked, field), getattr(tsplit, field).reshape(-1)), field
+    vol = tfusion.create_volume(tcfg, "cpu")
+    dense = [x.clone() for x in vol]
+    tbrick.fuse_bricks_plain(*vol, dm, pose, intr, tcfg, classes, 4096, False)
+    kernels.fuse_volume_plain(*dense, dm, tr, tt, intr, tcfg.voxel_size, tcfg.trunc_dist, tcfg.max_weight)
+    assert all(torch.equal(a, b) for a, b in zip(vol, dense))
+    assert int((dense[2] > 0).sum()) > 0
 
 
 # ------------------------------------------------------------- B15c subcells

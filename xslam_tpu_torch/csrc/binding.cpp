@@ -14,7 +14,7 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               int X, int Y, int Z, int H, int W,
                               float vs, float fx, float fy, float cx, float cy,
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
-                              float bi_threshold, void* stream);
+                              float bi_threshold, float x_off_m, void* stream);
 extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const int* levels, int n_levels, int rows,
                              void* stream);
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
@@ -27,13 +27,14 @@ extern "C" int xs_classify_subcells(const void* table, const void* pose, const v
                                     void* overflow, void* ticket, unsigned ticket_base, void* scls, void* srank,
                                     void* counts, void* sub_overflow, int nbx, int nby, int nbz, int H, int W,
                                     const int* levels, int n_levels, int rows, const float* consts, float vs,
-                                    float sub_edge, int cap, int subcell_cap, void* stream);
+                                    float sub_edge, int cap, int subcell_cap, int x_offset, void* stream);
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                               float max_w, int cap, int dense_on_overflow, int rows, float bi_threshold,
-                              const void* aux, const void* scls, const void* srank, int subcell_cap, void* stream);
+                              const void* aux, const void* scls, const void* srank, int subcell_cap, int x_offset,
+                              void* stream);
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
@@ -47,7 +48,8 @@ extern "C" int xs_march_skip(const void* value, const void* dist, const void* po
                              int dense, void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
-                              float inv_fx, float inv_fy, void* stream);
+                              float inv_fx, float inv_fy, int shard, int x_base, int x_total, int core_start,
+                              int core_end, void* stream);
 extern "C" int xs_march_fixed_chain(const void* value, const void* start, const void* dirs, void* t_found,
                                     void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
                                     float step, void* stream);
@@ -56,6 +58,12 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
                                  void* stream);
+extern "C" int xs_raycast_refine_shard(const void* value, const void* grad, const void* pose, const void* t_found,
+                                       const void* t_found_min, const void* t_dead_min, void* maps, int X, int Y,
+                                       int Z, int x_base, int x_total, int H, int W, float vs, float inv_vs,
+                                       float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                                       void* stream);
+extern "C" int xs_raycast_finalize(void* maps, int H, int W, void* stream);
 extern "C" int xs_raycast_refine_rows(const void* value, const void* grad, const void* pose, const void* t_found,
                                       const void* t_dead, void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g,
                                       void* direct, int nbx, int nby, int nbz, int H, int W, float vs,
@@ -72,7 +80,9 @@ extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* r
                              void* assoc_out, const void* pose, void* partials, void* ticket, int blocks, void* out,
                              void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
                              int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy,
-                             float dist_thres, float angle_thres, void* stream);
+                             float dist_thres, float angle_thres, void* totals_out, void* stream);
+extern "C" int xs_icp_tail(const void* totals, const void* pose, void* out, void* inliers, void* pose_out,
+                           void* x_out, void* flags, float damping, int first, void* stream);
 extern "C" int xs_icp_associate(const void* vcurr, const void* pose, void* assoc, int Hc, int Wc, int Hp,
                                 int Wp, float fx, float fy, float cx, float cy, void* stream);
 extern "C" int xs_extract_points(const void* value, const void* weight, void* scratch, long long scratch_ints,
@@ -109,12 +119,15 @@ int bilateral_filter(const torch::Tensor& depth, const torch::Tensor& weights, t
                              as_stream(stream));
 }
 
+// x_off_m: a slab's x origin shift in metres (B19a), 0 for the whole volume
 int fuse_volume(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
                 const torch::Tensor& pose, float vs, float fx, float fy, float cx, float cy, float inv_fx,
-                float inv_fy, float trunc, float inv_trunc, float max_w, float bi_threshold, int64_t stream) {
+                float inv_fy, float trunc, float inv_trunc, float max_w, float bi_threshold, float x_off_m,
+                int64_t stream) {
   return xs_fuse_volume(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
                         value.size(0), value.size(1), value.size(2), depth.size(0), depth.size(1),
-                        vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold, as_stream(stream));
+                        vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold, x_off_m,
+                        as_stream(stream));
 }
 
 // levels: 4 ints a mip level (tile size, tiles down, tiles across, first row of the table)
@@ -128,13 +141,14 @@ int depth_mips(const torch::Tensor& depth, torch::Tensor table, const std::vecto
 // cls: (nbx, nby, nbz); scratch: ops/fusion_brick.py::ClassifyScratch's int64 words; ticket_base, epoch:
 // the tickets its earlier launches took (mod 2^32) and this launch's number on it, from 1; rank,
 // active_ids, work_ids: one int a brick; totals: (2,) int32; overflow: () bool; consts: the classifier's
-// thirteen float32 constants; mode: 0 B3b, 1 B15s (aux: one int a brick), 2 B15f (sub_edge: the subcell edge)
+// fourteen float32 constants (the last a slab's x origin shift, B19a); mode: 0 B3b, 1 B15s (aux: three ints a
+// brick), 2 B15f (sub_edge: the subcell edge)
 int classify_on(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls, torch::Tensor scratch,
                 int64_t ticket_base, int64_t epoch, torch::Tensor rank, torch::Tensor active_ids,
                 torch::Tensor work_ids, torch::Tensor totals, torch::Tensor overflow, void* aux, int64_t H, int64_t W,
                 const std::vector<int64_t>& levels, const std::vector<double>& consts, float sub_edge, int64_t cap,
                 int mode, int64_t stream) {
-  if (levels.size() % 4 != 0 || consts.size() != 13 || epoch < 1) return 1;  // cudaErrorInvalidValue
+  if (levels.size() % 4 != 0 || consts.size() != 14 || epoch < 1) return 1;  // cudaErrorInvalidValue
   const std::vector<int> lv(levels.begin(), levels.end());
   const std::vector<float> c(consts.begin(), consts.end());  // float32 values, carried exactly in double
   return xs_classify_bricks(table.data_ptr(), pose.data_ptr(), cls.data_ptr(), scratch.data_ptr(), scratch.numel(),
@@ -154,14 +168,14 @@ int classify_bricks(const torch::Tensor& table, const torch::Tensor& pose, torch
                      nullptr, H, W, levels, consts, 0.0f, cap, 0, stream);
 }
 
-// B15s: aux, one int a brick, takes the windows
+// B15s: aux, three ints a brick, takes the windows
 int classify_bricks_split(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls,
                           torch::Tensor scratch, int64_t ticket_base, int64_t epoch, torch::Tensor rank,
                           torch::Tensor active_ids, torch::Tensor work_ids, torch::Tensor totals,
                           torch::Tensor overflow, torch::Tensor aux, int64_t H, int64_t W,
                           const std::vector<int64_t>& levels, const std::vector<double>& consts, int64_t cap,
                           int64_t stream) {
-  if (aux.numel() != cls.numel()) return 1;  // cudaErrorInvalidValue
+  if (aux.numel() != 3 * cls.numel()) return 1;  // cudaErrorInvalidValue
   return classify_on(table, pose, cls, scratch, ticket_base, epoch, rank, active_ids, work_ids, totals, overflow,
                      aux.data_ptr(), H, W, levels, consts, 0.0f, cap, 1, stream);
 }
@@ -178,14 +192,14 @@ int classify_bricks_fine(const torch::Tensor& table, const torch::Tensor& pose, 
 
 // B15c. overflow: classify_bricks' flag, ORed with the lists'; scratch: a ClassifyScratch whose word 0 is the
 // ticket counter; scls, srank: (cap, 8) int32; counts: (8,) int32; sub_overflow: () bool; sub_consts: the voxel
-// size and the subcell edge as float32
+// size and the subcell edge as float32; x_offset: a slab's first x (B19a), 0 for the whole volume
 int classify_subcells(const torch::Tensor& table, const torch::Tensor& pose, const torch::Tensor& active_ids,
                       const torch::Tensor& totals, torch::Tensor overflow, torch::Tensor scratch, int64_t ticket_base,
                       torch::Tensor scls, torch::Tensor srank, torch::Tensor counts, torch::Tensor sub_overflow,
                       int64_t nbx, int64_t nby, int64_t nbz, int64_t H, int64_t W, const std::vector<int64_t>& levels,
                       const std::vector<double>& consts, const std::vector<double>& sub_consts, int64_t cap,
-                      int64_t subcell_cap, int64_t stream) {
-  if (levels.size() % 4 != 0 || consts.size() != 13 || sub_consts.size() != 2) return 1;  // cudaErrorInvalidValue
+                      int64_t subcell_cap, int64_t x_offset, int64_t stream) {
+  if (levels.size() % 4 != 0 || consts.size() != 14 || sub_consts.size() != 2) return 1;  // cudaErrorInvalidValue
   if (scls.numel() != 8 * cap || srank.numel() != 8 * cap || counts.numel() != 8) return 1;
   const std::vector<int> lv(levels.begin(), levels.end());
   const std::vector<float> c(consts.begin(), consts.end());
@@ -193,7 +207,8 @@ int classify_subcells(const torch::Tensor& table, const torch::Tensor& pose, con
                               overflow.data_ptr(), scratch.data_ptr(), (unsigned)(ticket_base & 0xffffffffll),
                               scls.data_ptr(), srank.data_ptr(), counts.data_ptr(), sub_overflow.data_ptr(), nbx, nby,
                               nbz, H, W, lv.data(), (int)(lv.size() / 4), table.size(0), c.data(),
-                              (float)sub_consts[0], (float)sub_consts[1], cap, subcell_cap, as_stream(stream));
+                              (float)sub_consts[0], (float)sub_consts[1], cap, subcell_cap, (int)x_offset,
+                              as_stream(stream));
 }
 
 int fuse_bricks_on(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
@@ -202,25 +217,26 @@ int fuse_bricks_on(torch::Tensor value, torch::Tensor grad, torch::Tensor weight
                    const void* aux, const void* scls, const void* srank, int64_t subcell_cap, float vs, float fx,
                    float fy, float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                    float max_w, int64_t cap, bool dense_on_overflow, const std::vector<int64_t>& res, bool rows,
-                   float bi_threshold, int64_t stream) {
+                   float bi_threshold, int64_t x_offset, int64_t stream) {
   if (res.size() != 3) return 1;  // cudaErrorInvalidValue
   return xs_fuse_bricks(value.data_ptr(), grad.data_ptr(), weight.data_ptr(), depth.data_ptr(), pose.data_ptr(),
                         cls.data_ptr(), rank.data_ptr(), work_ids.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
                         res[0], res[1], res[2], depth.size(0), depth.size(1), vs, fx, fy, cx, cy, inv_fx, inv_fy,
                         trunc, inv_trunc, max_w, cap, dense_on_overflow ? 1 : 0, rows ? 1 : 0, bi_threshold, aux,
-                        scls, srank, subcell_cap, as_stream(stream));
+                        scls, srank, subcell_cap, (int)x_offset, as_stream(stream));
 }
 
-// res: the volume's (X, Y, Z); rows: the planes are its (NB, 512) brick rows, not (X, Y, Z) planes
+// res: the volume's (X, Y, Z); rows: the planes are its (NB, 512) brick rows, not (X, Y, Z) planes; x_offset: a
+// slab's first x (B19a), 0 for the whole volume (each variant below takes it last)
 int fuse_bricks(torch::Tensor value, torch::Tensor grad, torch::Tensor weight, const torch::Tensor& depth,
                 const torch::Tensor& pose, const torch::Tensor& cls, const torch::Tensor& rank,
                 const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow, float vs,
                 float fx, float fy, float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                 float max_w, int64_t cap, bool dense_on_overflow, const std::vector<int64_t>& res, bool rows,
-                float bi_threshold, int64_t stream) {
+                float bi_threshold, int64_t x_offset, int64_t stream) {
   return fuse_bricks_on(value, grad, weight, depth, pose, cls, rank, work_ids, totals, overflow, nullptr, nullptr,
                         nullptr, 0, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, cap,
-                        dense_on_overflow, res, rows, bi_threshold, stream);
+                        dense_on_overflow, res, rows, bi_threshold, x_offset, stream);
 }
 
 // B3c's MIXED variant: aux, B15s's windows
@@ -229,11 +245,12 @@ int fuse_bricks_mixed(torch::Tensor value, torch::Tensor grad, torch::Tensor wei
                       const torch::Tensor& work_ids, const torch::Tensor& totals, const torch::Tensor& overflow,
                       const torch::Tensor& aux, float vs, float fx, float fy, float cx, float cy, float inv_fx,
                       float inv_fy, float trunc, float inv_trunc, float max_w, int64_t cap, bool dense_on_overflow,
-                      const std::vector<int64_t>& res, bool rows, float bi_threshold, int64_t stream) {
-  if (aux.numel() != cls.numel()) return 1;  // cudaErrorInvalidValue
+                      const std::vector<int64_t>& res, bool rows, float bi_threshold, int64_t x_offset,
+                      int64_t stream) {
+  if (aux.numel() != 3 * cls.numel()) return 1;  // cudaErrorInvalidValue
   return fuse_bricks_on(value, grad, weight, depth, pose, cls, rank, work_ids, totals, overflow, aux.data_ptr(),
                         nullptr, nullptr, 0, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, cap,
-                        dense_on_overflow, res, rows, bi_threshold, stream);
+                        dense_on_overflow, res, rows, bi_threshold, x_offset, stream);
 }
 
 // B3c's subcell variant: scls, srank, B15c's (cap, 8) classes and ranks; aux, B15s's windows, or empty
@@ -243,13 +260,14 @@ int fuse_bricks_subcell(torch::Tensor value, torch::Tensor grad, torch::Tensor w
                         const torch::Tensor& aux, const torch::Tensor& scls, const torch::Tensor& srank,
                         int64_t subcell_cap, float vs, float fx, float fy, float cx, float cy, float inv_fx,
                         float inv_fy, float trunc, float inv_trunc, float max_w, int64_t cap, bool dense_on_overflow,
-                        const std::vector<int64_t>& res, bool rows, float bi_threshold, int64_t stream) {
-  if ((aux.numel() != 0 && aux.numel() != cls.numel()) || scls.numel() != 8 * cap || srank.numel() != 8 * cap)
+                        const std::vector<int64_t>& res, bool rows, float bi_threshold, int64_t x_offset,
+                        int64_t stream) {
+  if ((aux.numel() != 0 && aux.numel() != 3 * cls.numel()) || scls.numel() != 8 * cap || srank.numel() != 8 * cap)
     return 1;  // cudaErrorInvalidValue
   return fuse_bricks_on(value, grad, weight, depth, pose, cls, rank, work_ids, totals, overflow,
                         aux.numel() ? aux.data_ptr() : nullptr, scls.data_ptr(), srank.data_ptr(), subcell_cap, vs,
                         fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, cap, dense_on_overflow, res, rows,
-                        bi_threshold, stream);
+                        bi_threshold, x_offset, stream);
 }
 
 // mask: NB bytes of scratch; dist: the (NB,) int32 distances out
@@ -296,13 +314,17 @@ int march_skip_dense(const torch::Tensor& value, const torch::Tensor& dist, cons
                        steps_per_cell, cx, cy, inv_fx, inv_fy, 1, stream);
 }
 
-// t_found, t_dead: (H, W), the camera's every stride-th pixel in each axis
+// t_found, t_dead: (H, W), the camera's every stride-th pixel in each axis; slab: empty for the whole volume, or
+// (x_base, x_total, core_start, core_end) of a slab with its halo (B19b)
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
                 int64_t stride, int64_t n_steps, float vs, float step, float cx, float cy, float inv_fx, float inv_fy,
-                int64_t stream) {
+                const std::vector<int64_t>& slab, int64_t stream) {
+  if (!slab.empty() && slab.size() != 4) return 1;  // cudaErrorInvalidValue
+  const bool shard = !slab.empty();
   return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
                         value.size(1), value.size(2), t_found.size(0), t_found.size(1), stride, n_steps, vs, step, cx,
-                        cy, inv_fx, inv_fy, as_stream(stream));
+                        cy, inv_fx, inv_fy, shard ? 1 : 0, shard ? (int)slab[0] : 0, shard ? (int)slab[1] : 0,
+                        shard ? (int)slab[2] : 0, shard ? (int)slab[3] : 0, as_stream(stream));
 }
 
 int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
@@ -379,6 +401,25 @@ int raycast_refine(const torch::Tensor& value, const torch::Tensor& grad, const 
                            as_stream(stream));
 }
 
+// B19c, K5's shard mode: value, grad a slab's planes with its halo, local x 0 at global x_base of x_total rows;
+// t_found the slab's hits, t_found_min and t_dead_min the ranks' minima; maps: (14, H, W) (vmap.v, vmap.g,
+// nmap.v, nmap.g, the v and n masks)
+int raycast_refine_shard(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
+                         const torch::Tensor& t_found, const torch::Tensor& t_found_min, const torch::Tensor& t_dead_min,
+                         torch::Tensor maps, int64_t x_base, int64_t x_total, float vs, float inv_vs, float half_vs,
+                         float step, float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
+  return xs_raycast_refine_shard(value.data_ptr(), grad.data_ptr(), pose.data_ptr(), t_found.data_ptr(),
+                                 t_found_min.data_ptr(), t_dead_min.data_ptr(), maps.data_ptr(), value.size(0),
+                                 value.size(1), value.size(2), (int)x_base, (int)x_total, t_found.size(0),
+                                 t_found.size(1), vs, inv_vs, half_vs, step, cx, cy, inv_fx, inv_fy,
+                                 as_stream(stream));
+}
+
+// B19c, K5's finalize: maps (14, H, W) as raycast_refine_shard writes them, summed over the ranks, in place
+int raycast_finalize(torch::Tensor maps, int64_t stream) {
+  return xs_raycast_finalize(maps.data_ptr(), maps.size(1), maps.size(2), as_stream(stream));
+}
+
 // the same over the brick rows (K5r): value, grad (nbx * nby * nbz, 512)
 int raycast_refine_bricks(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
                           const torch::Tensor& t_found, const torch::Tensor& t_dead, torch::Tensor vmap_v,
@@ -444,20 +485,30 @@ int vertex_normal_maps(const std::vector<torch::Tensor>& depths, torch::Tensor o
 
 // assoc: the cached int32 index map, or None to project in the kernel; assoc_out: where a projecting launch
 // writes the index map it makes, or None.
-// pose_out, x_out, flags: the tail's outputs, or None to stop after A and b.
+// pose_out, x_out, flags: the tail's outputs, or None to stop after A and b; totals_out: 55 doubles (the sums
+// before any rounding, B19d), or None.
 int icp_system(const torch::Tensor& vcurr, const torch::Tensor& ncurr, const torch::Tensor& rows,
                const std::optional<torch::Tensor>& assoc, const std::optional<torch::Tensor>& assoc_out,
                const torch::Tensor& pose, torch::Tensor partials,
                torch::Tensor ticket, int64_t blocks, torch::Tensor out, torch::Tensor inliers,
                const std::optional<torch::Tensor>& pose_out, const std::optional<torch::Tensor>& x_out,
                const std::optional<torch::Tensor>& flags, float damping, bool first, int64_t Hp, int64_t Wp,
-               float fx, float fy, float cx, float cy, float dist_thres, float angle_thres, int64_t stream) {
+               float fx, float fy, float cx, float cy, float dist_thres, float angle_thres,
+               const std::optional<torch::Tensor>& totals_out, int64_t stream) {
   return xs_icp_system(vcurr.data_ptr(), ncurr.data_ptr(), rows.data_ptr(), data_or_null(assoc),
                        data_or_null(assoc_out), pose.data_ptr(),
                        partials.data_ptr(), ticket.data_ptr(), blocks, out.data_ptr(), inliers.data_ptr(),
                        data_or_null(pose_out), data_or_null(x_out), data_or_null(flags), damping, first ? 1 : 0,
                        vcurr.size(1), vcurr.size(2), Hp, Wp, fx, fy, cx, cy, dist_thres, angle_thres,
-                       as_stream(stream));
+                       data_or_null(totals_out), as_stream(stream));
+}
+
+// B19d: the tail alone over totals (55 doubles, summed over the ranks); out, inliers: the system as float32
+int icp_tail(const torch::Tensor& totals, const torch::Tensor& pose, torch::Tensor out, torch::Tensor inliers,
+             torch::Tensor pose_out, torch::Tensor x_out, torch::Tensor flags, float damping, bool first,
+             int64_t stream) {
+  return xs_icp_tail(totals.data_ptr(), pose.data_ptr(), out.data_ptr(), inliers.data_ptr(), pose_out.data_ptr(),
+                     x_out.data_ptr(), flags.data_ptr(), damping, first ? 1 : 0, as_stream(stream));
 }
 
 int icp_associate(const torch::Tensor& vcurr, const torch::Tensor& pose, torch::Tensor assoc, int64_t Hp,
@@ -551,12 +602,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("raycast_refine", &raycast_refine);
   m.def("raycast_refine_bricks", &raycast_refine_bricks);
+  m.def("raycast_refine_shard", &raycast_refine_shard);
+  m.def("raycast_finalize", &raycast_finalize);
   m.def("model_map_pyramid", &model_map_pyramid);
   m.def("model_map_normals", &model_map_normals);
   m.def("depth_pyramid", &depth_pyramid);
   m.def("vertex_normal_maps", &vertex_normal_maps);
   m.def("icp_system", &icp_system);
   m.def("icp_associate", &icp_associate);
+  m.def("icp_tail", &icp_tail);
   m.def("extract_points", &extract_points);
   m.def("tsdf_band", &tsdf_band);
   m.def("tsdf_loss", &tsdf_loss);

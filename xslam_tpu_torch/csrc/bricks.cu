@@ -89,12 +89,16 @@
 // B15s classify_bricks_split_kernel: B3b with split=True (_classify_boxes:404-463): each lane also tests its two
 //   window cells one by one (the cell's depth bounds with a lambda interval over its rect met with the footprint)
 //   and the group ORs the four cells' far / none bits by shuffles; a brick whose cells are each far or none is
-//   MIXED (4), listed as work, and its window goes out as one word (ops/fusion_brick.py::pack_aux: the far
-//   cells, the cell edge, the window's first cell). About 780 operations a brick.
+//   MIXED (4), listed as work, and its window goes out as three ints (ops/fusion_brick.py::pack_aux: the far
+//   cells with the cell edge, the window's origin across and down in pixels, so that no image size is refused
+//   as the JAX package's four int32 arrays refuse none). About 780 operations a brick.
 // B15f classify_bricks_fine_kernel: B3b on the 4^3 subcells: a brick's group classifies its 8 subcells one after
 //   another (boxes i * 4 vs, the fine grid's own rounding) and folds them (all NONE, all FAR, all far-ish, else
 //   ACTIVE) before the ballots: 8x B3b's chain, the same lanes, ranks and lists.
 // B15c classify_subcells_kernel: the subcell stage's classes and lists, a launch between B3b and B3c (below).
+// B19a, a slab of the sharded engine (parallel/sharded.py) whose local x 0 is global x x_offset: the classifiers'
+//   boxes and B3c's voxels take their global positions, each in the JAX package's own rounding (ClassifyParams,
+//   fusion.cuh::FuseParams); at 0 every bit and launch is the whole volume's.
 // B3c's variants fuse_bricks_mixed_kernel (a MIXED brick: the FAR update where the voxel's nearest pixel, rintf
 //   of K2's projection, lies in a far cell of its window, tested only where the gate holds) and
 //   fuse_bricks_subcell_kernel (an ACTIVE brick of rank < cap: each voxel as its subcell says, the FAR update,
@@ -113,7 +117,8 @@ namespace {
 
 constexpr int BRICK = 8;
 constexpr int MAX_MIP_LEVELS = 22;  // ops/fusion_brick.py::MIP_LEVELS
-constexpr int MIP_LEVEL_MIN = 8;    // the smallest tile: a window's first cell is below 512 on images up to 4096 px
+constexpr int MIP_LEVEL_MIN = 8;    // the smallest tile
+constexpr int AUX_INTS = 3;         // a window's ints (ops/fusion_brick.py::AUX_INTS): far cells | edge << 4, u0, v0
 constexpr int MIP_THREADS = 256;    // threads of a depth_mips block
 constexpr int MIP_ROWS = 64;        // most rows one depth_mips thread walks
 constexpr int MIP_INFLIGHT = 8;     // loads a depth_mips thread keeps in flight
@@ -312,6 +317,11 @@ struct ClassifyParams {
   int cap;
   float vs, sub_edge;  // voxel size and subcell edge (4 voxels), as float32: the 4^3 grid's and the subcells' boxes
   int subcell_cap;     // the subcell lists' capacity (classify_subcells)
+  // B19a, a slab whose local x 0 is global x x_offset: the boxes' x origin moved by x_off_m = float32(x_offset) * vs
+  // rounded once (the bricks and the 4^3 grid, xslam_tpu/ops/fusion_brick.py:209-210), or at (8 b + 4 s +
+  // x_offset) vs (a candidate's subcells, :743); 0 for the whole volume
+  float x_off_m;
+  int x_offset;
   unsigned ticket_base;      // tickets taken by the earlier launches on the scratch (mod 2^32)
   unsigned long long epoch;  // this launch's number on the scratch, from 1: a status word of another is stale
   MipLevels m;
@@ -374,12 +384,13 @@ __device__ __forceinline__ void axis_interval(float b0, float bm, float o, float
 // The class of the box of edge bm at (bx0, by0, bz0) (a brick, a subcell of the 4^3 grid, a candidate's
 // subcell), computed by the CORNER_LANES lanes of its group, j the lane's place in it (all 32 lanes of the warp call
 // this together: it ballots); every lane of the group returns the class. With SPLIT (B15s) the window's four cells
-// are also tested one by one and the class may be MIXED; *aux is then the window's word (ops/fusion_brick.py::
-// pack_aux): the far cells (15 for FAR and FAR_PARTIAL), the cell edge, the window's first cell across and down.
+// are also tested one by one and the class may be MIXED; aux[0..2] are then the window's ints
+// (ops/fusion_brick.py::pack_aux): the far cells (15 for FAR and FAR_PARTIAL) with the cell edge, the window's
+// origin across and down in pixels.
 template <bool SPLIT>
 __device__ __forceinline__ int classify_box(const float* __restrict__ table, const float* __restrict__ pose,
                                             const ClassifyParams& p, float bx0, float by0, float bz0, float bm, int j,
-                                            unsigned* aux) {
+                                            int* aux) {
   const float* R = pose;       // value lane of the rotation
   const float* t = pose + 18;  // value lane of the translation
   const float fW = (float)p.W, fH = (float)p.H;
@@ -573,9 +584,11 @@ __device__ __forceinline__ int classify_box(const float* __restrict__ table, con
     cls = fully_inside ? FAR : FAR_PARTIAL;
   else if (mixed)
     cls = MIXED;
-  if (SPLIT)
-    *aux = (cls == FAR || cls == FAR_PARTIAL ? 15u : far_bits) | ((unsigned)ts << 4) | ((unsigned)cu0 << 12) |
-           ((unsigned)cv0 << 21);
+  if (SPLIT) {
+    aux[0] = (int)((cls == FAR || cls == FAR_PARTIAL ? 15u : far_bits) | ((unsigned)ts << 4));
+    aux[1] = cu0 * ts;
+    aux[2] = cv0 * ts;
+  }
   return cls;
 }
 
@@ -684,23 +697,23 @@ __device__ __forceinline__ void classify_and_rank(const float* __restrict__ tabl
   const int b = tile * CLASSIFY_TILE + (int)threadIdx.x / CORNER_LANES;
   const int bb = min(b, n - 1);  // past the volume's end the lanes repeat its last brick, for the ballots
   const int bz = bb % p.nbz, by = (bb / p.nbz) % p.nby, bx = bb / (p.nby * p.nbz);
-  unsigned word = 0u;
+  int win[AUX_INTS] = {0, 0, 0};
   int c;
   if (MODE == FINE) {
     bool all_none = true, all_far = true, all_farish = true;
 #pragma unroll 1
     for (int k = 0; k < 8; ++k) {
-      const float ox = (float)(2 * bx + (k >> 2)) * p.sub_edge, oy = (float)(2 * by + ((k >> 1) & 1)) * p.sub_edge;
-      const float oz = (float)(2 * bz + (k & 1)) * p.sub_edge;
-      const int sc = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, &word);
+      const float ox = (float)(2 * bx + (k >> 2)) * p.sub_edge + p.x_off_m;
+      const float oy = (float)(2 * by + ((k >> 1) & 1)) * p.sub_edge, oz = (float)(2 * bz + (k & 1)) * p.sub_edge;
+      const int sc = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, win);
       all_none = all_none && sc == NONE;
       all_far = all_far && sc == FAR;
       all_farish = all_farish && (sc == FAR || sc == FAR_PARTIAL);
     }
     c = all_none ? NONE : (all_far ? FAR : (all_farish ? FAR_PARTIAL : ACTIVE));
   } else {
-    c = classify_box<MODE == SPLIT>(table, pose, p, (float)bx * p.bm, (float)by * p.bm, (float)bz * p.bm, p.bm, j,
-                                    &word);
+    c = classify_box<MODE == SPLIT>(table, pose, p, (float)bx * p.bm + p.x_off_m, (float)by * p.bm,
+                                    (float)bz * p.bm, p.bm, j, win);
   }
   if (b >= n) c = NONE;
   const bool leader = j == 0;
@@ -712,7 +725,10 @@ __device__ __forceinline__ void classify_and_rank(const float* __restrict__ tabl
   }
   if (leader && b < n) {
     cls[b] = c;
-    if (MODE == SPLIT) aux[b] = (int)word;
+    if (MODE == SPLIT) {
+#pragma unroll
+      for (int k = 0; k < AUX_INTS; ++k) aux[(size_t)b * AUX_INTS + k] = win[k];
+    }
   }
   __syncthreads();
 
@@ -812,10 +828,10 @@ __global__ void __launch_bounds__(SUBCELL_THREADS)
     const int n = p.nbx * p.nby * p.nbz;
     const int b = valid ? min(max(active_ids[row], 0), n - 1) : 0;
     const int bz = b % p.nbz, by = (b / p.nbz) % p.nby, bx = b / (p.nby * p.nbz);
-    const float ox = (float)(BRICK * bx + 4 * (s >> 2)) * p.vs, oy = (float)(BRICK * by + 4 * ((s >> 1) & 1)) * p.vs;
-    const float oz = (float)(BRICK * bz + 4 * (s & 1)) * p.vs;
-    unsigned unused;
-    c = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, &unused);
+    const float ox = (float)(BRICK * bx + 4 * (s >> 2) + p.x_offset) * p.vs;
+    const float oy = (float)(BRICK * by + 4 * ((s >> 1) & 1)) * p.vs, oz = (float)(BRICK * bz + 4 * (s & 1)) * p.vs;
+    int unused[AUX_INTS];
+    c = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, unused);
   }
   if (j == 0 && row < p.cap) scls[row * 8 + s] = valid ? c : NONE;
   __threadfence();
@@ -950,12 +966,13 @@ enum : int { KIND_NONE = 0, KIND_FAR = 1, KIND_EXACT = 2 };
 // More of what fuse_bricks does with a brick: a MIXED brick's window test, an ACTIVE brick's subcells.
 enum : int { MIXED_UPDATE = 3, SUBCELL_UPDATE = 4 };
 
-// A gated voxel of a MIXED brick whose window is `word` (pack_aux): FAR where its nearest pixel round(img) lies in
-// a far cell, the cell clip((pixel - origin) / edge, 0, 1) down and across; else nothing.
-__device__ __forceinline__ int mixed_kind(const xs::VoxelView& o, unsigned word) {
+// A gated voxel of a MIXED brick whose window is `word` (far cells | edge << 4), origin (u0, v0) (pack_aux): FAR
+// where its nearest pixel round(img) lies in a far cell, the cell clip((pixel - origin) / edge, 0, 1) down and
+// across; else nothing.
+__device__ __forceinline__ int mixed_kind(const xs::VoxelView& o, unsigned word, int u0, int v0) {
   const int ts = (int)((word >> 4) & 255u);
-  const int dx = __float2int_rn(o.ixv) - (int)((word >> 12) & 511u) * ts;
-  const int dy = __float2int_rn(o.iyv) - (int)((word >> 21) & 511u) * ts;
+  const int dx = __float2int_rn(o.ixv) - u0;
+  const int dy = __float2int_rn(o.iyv) - v0;
   const int cell = (dy >= ts ? 2 : 0) + (dx >= ts ? 1 : 0);
   return (word >> cell) & 1u ? KIND_FAR : KIND_NONE;
 }
@@ -997,14 +1014,11 @@ __device__ __forceinline__ void fuse_bricks_body(float* __restrict__ value, floa
     if (first >= items) return;
     const int b = dense ? item : min(max(listed, 0), n_bricks - 1);
     int mode = dense ? EXACT_UPDATE : SKIP;
-    int arg = 0;  // a MIXED brick's window word, a subcell brick's row
+    int arg = 0;  // a subcell brick's row
     if (!dense && item < items) {
       const int c = cls[b], rk = rank[b];
       mode = (c == FAR || c == FAR_PARTIAL) ? FAR_UPDATE : (c == ACTIVE && rk < cap ? EXACT_UPDATE : SKIP);
-      if (EXTRA != PLAIN_CLASSES && aux != nullptr && c == MIXED) {
-        mode = MIXED_UPDATE;
-        arg = aux[b];
-      }
+      if (EXTRA != PLAIN_CLASSES && aux != nullptr && c == MIXED) mode = MIXED_UPDATE;
       if (EXTRA == SUBCELLS && mode == EXACT_UPDATE) {
         mode = SUBCELL_UPDATE;
         arg = rk;
@@ -1040,8 +1054,10 @@ __device__ __forceinline__ void fuse_bricks_body(float* __restrict__ value, floa
       // branches (both depth loads in flight), updated in shared memory
       const BrickColumn c0 = brick_column<ROWS>(bi, lane, nby, nbz, p);
       const BrickColumn c1 = brick_column<ROWS>(bi, lane + 32, nby, nbz, p);
-      const xs::ColumnSums sums0 = xs::column_sums(dual_pose, xs::voxel_centre(c0.x, p.vs), xs::voxel_centre(c0.y, p.vs));
-      const xs::ColumnSums sums1 = xs::column_sums(dual_pose, xs::voxel_centre(c1.x, p.vs), xs::voxel_centre(c1.y, p.vs));
+      const xs::ColumnSums sums0 =
+          xs::column_sums(dual_pose, xs::voxel_centre(c0.x + p.x_offset, p.vs), xs::voxel_centre(c0.y, p.vs));
+      const xs::ColumnSums sums1 =
+          xs::column_sums(dual_pose, xs::voxel_centre(c1.x + p.x_offset, p.vs), xs::voxel_centre(c1.y, p.vs));
       const int s0 = lane * COLUMN_STRIDE, s1 = (lane + 32) * COLUMN_STRIDE;
       unsigned up0 = 0, up1 = 0;
       if (EXTRA == PLAIN_CLASSES) {
@@ -1074,6 +1090,13 @@ __device__ __forceinline__ void fuse_bricks_body(float* __restrict__ value, floa
         // second bit, z >> 2 their third)
         const int uniform = mi == FAR_UPDATE ? KIND_FAR : (mi == EXACT_UPDATE ? KIND_EXACT : KIND_NONE);
         int k0lo = uniform, k0hi = uniform, k1lo = uniform, k1hi = uniform;  // column, z below 4 or not
+        unsigned word = 0u;  // a MIXED brick's window: read once a brick (the warp reads the same ints)
+        int u0 = 0, v0 = 0;
+        if (mi == MIXED_UPDATE) {
+          word = (unsigned)__ldg(aux + (size_t)bi * AUX_INTS);
+          u0 = __ldg(aux + (size_t)bi * AUX_INTS + 1);
+          v0 = __ldg(aux + (size_t)bi * AUX_INTS + 2);
+        }
         if (EXTRA == SUBCELLS && mi == SUBCELL_UPDATE) {
           const int at = ai * 8 + ((lane & 7) >> 2) * 2;
           k0lo = subcell_kind(__ldg(scls + at), __ldg(srank + at), subcell_cap);
@@ -1084,8 +1107,8 @@ __device__ __forceinline__ void fuse_bricks_body(float* __restrict__ value, floa
         for (int z = 0; z < BRICK; ++z) {
           const float gz = xs::voxel_centre(c0.z0 + z, p.vs);
           const xs::VoxelView o0 = xs::voxel_view(dual_pose, p, sums0, gz), o1 = xs::voxel_view(dual_pose, p, sums1, gz);
-          const int k0 = mi == MIXED_UPDATE ? mixed_kind(o0, (unsigned)ai) : (z < 4 ? k0lo : k0hi);
-          const int k1 = mi == MIXED_UPDATE ? mixed_kind(o1, (unsigned)ai) : (z < 4 ? k1lo : k1hi);
+          const int k0 = mi == MIXED_UPDATE ? mixed_kind(o0, word, u0, v0) : (z < 4 ? k0lo : k0hi);
+          const int k1 = mi == MIXED_UPDATE ? mixed_kind(o1, word, u0, v0) : (z < 4 ? k1lo : k1hi);
           const bool e0 = k0 == KIND_EXACT, e1 = k1 == KIND_EXACT;
           float t0v = xs::BEYOND_V, t0g = xs::BEYOND_G, t1v = xs::BEYOND_V, t1g = xs::BEYOND_G;
           bool ok0 = o0.gated && k0 != KIND_NONE, ok1 = o1.gated && k1 != KIND_NONE;
@@ -1217,6 +1240,7 @@ bool classify_params(int nbx, int nby, int nbz, int H, int W, const int* levels,
   p.inv_abs_fy = consts[10];
   p.trunc = consts[11];
   p.neg_trunc = consts[12];
+  p.x_off_m = consts[13];
   p.cap = cap;
   const long long n = (long long)nbx * nby * nbz;
   return nbx >= 1 && nby >= 1 && nbz >= 1 && n < (1ll << 31) - CLASSIFY_TILE;
@@ -1239,8 +1263,9 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 // least, that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their
 // tiles, mod 2^32); epoch: its launches so far, this one included (from 1, below 2^42); cls, rank,
 // active_ids, work_ids: one int a brick; totals: n_active, n_work; overflow: one byte. consts: brick edge,
-// fx, fy, cx, cy, the four plane constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, each a float32. mode: COARSE
-// (B3b), SPLIT (B15s; aux: one int a brick, the windows) or FINE (B15f; sub_edge: the subcell edge, float32)
+// fx, fy, cx, cy, the four plane constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, the slab's x origin shift (B19a;
+// 0 for the whole volume), each a float32. mode: COARSE (B3b), SPLIT (B15s; aux: AUX_INTS ints a brick, the
+// windows) or FINE (B15f; sub_edge: the subcell edge, float32)
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
                                   long long scratch_words, unsigned ticket_base, unsigned long long epoch,
                                   void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
@@ -1250,7 +1275,6 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   ClassifyParams p{};
   if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
   if (mode < COARSE || mode > FINE || (mode == SPLIT && aux == nullptr)) return (int)cudaErrorInvalidValue;
-  if (mode == SPLIT && (H > 512 * MIP_LEVEL_MIN || W > 512 * MIP_LEVEL_MIN)) return (int)cudaErrorInvalidValue;
   p.sub_edge = sub_edge;
   p.ticket_base = ticket_base;
   p.epoch = epoch;
@@ -1269,18 +1293,19 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
 // B15c. active_ids, totals, overflow: classify_bricks' (overflow ORed with the lists' own); ticket: an unsigned
 // int counter that belongs to one stream, zeroed when made, ticket_base the tickets its earlier launches took;
 // scls, srank: (cap, 8) ints; counts: 8 ints; sub_overflow: one byte; consts as classify_bricks'; vs, sub_edge:
-// the voxel size and the subcell edge, float32
+// the voxel size and the subcell edge, float32; x_offset: the slab's first x (B19a; 0 for the whole volume)
 extern "C" int xs_classify_subcells(const void* table, const void* pose, const void* active_ids, const void* totals,
                                     void* overflow, void* ticket, unsigned ticket_base, void* scls, void* srank,
                                     void* counts, void* sub_overflow, int nbx, int nby, int nbz, int H, int W,
                                     const int* levels, int n_levels, int rows, const float* consts, float vs,
-                                    float sub_edge, int cap, int subcell_cap, void* stream) {
+                                    float sub_edge, int cap, int subcell_cap, int x_offset, void* stream) {
   ClassifyParams p{};
   if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
   if (cap < 1 || subcell_cap < 1 || cap > (1 << 27)) return (int)cudaErrorInvalidValue;
   p.vs = vs;
   p.sub_edge = sub_edge;
   p.subcell_cap = subcell_cap;
+  p.x_offset = x_offset;
   p.ticket_base = ticket_base;
   classify_subcells_kernel<<<(cap + SUBCELL_ROWS - 1) / SUBCELL_ROWS, SUBCELL_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (const int*)active_ids, (const int*)totals, (unsigned char*)overflow,
@@ -1293,12 +1318,14 @@ extern "C" int xs_classify_subcells(const void* table, const void* pose, const v
 // update every brick exactly where overflow is set; bi_threshold > 0: the exact update samples the depth
 // bilinearly (B11). aux: the split classifier's windows (B15s) or null; scls, srank: classify_subcells' (cap,
 // 8) classes and ranks or null (both or neither). The variant: subcells if given, else MIXED if aux is, else B3c.
+// x_offset: the slab's first x (B19a; 0 for the whole volume).
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
                               float cx, float cy, float inv_fx, float inv_fy, float trunc, float inv_trunc,
                               float max_w, int cap, int dense_on_overflow, int rows, float bi_threshold,
-                              const void* aux, const void* scls, const void* srank, int subcell_cap, void* stream) {
+                              const void* aux, const void* scls, const void* srank, int subcell_cap, int x_offset,
+                              void* stream) {
   if (X % BRICK || Y % BRICK || Z % BRICK) return (int)cudaErrorInvalidValue;
   if ((scls == nullptr) != (srank == nullptr) || (scls != nullptr && subcell_cap < 1)) return (int)cudaErrorInvalidValue;
   const uintptr_t planes = reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(grad) |
@@ -1320,7 +1347,8 @@ extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void*
     grid[v][dev] = sms * (per_sm > 0 ? per_sm : 1);
     if (grid[v][dev] <= 0) return (int)cudaErrorInvalidValue;
   }
-  const xs::FuseParams p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold};
+  const xs::FuseParams p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold,
+                         x_offset, 0.0f};
   kernel<<<grid[v][dev], FUSE_THREADS, 0, (cudaStream_t)stream>>>(
       (float*)value, (float*)grad, (float*)weight, (const float*)depth, (const float*)pose, (const int*)cls,
       (const int*)rank, (const int*)work_ids, (const int*)totals, (const unsigned char*)overflow, (const int*)aux,

@@ -38,6 +38,10 @@
 //   code is fusion.cuh's, which the brick pass (bricks.cu) shares. The 24
 //   pose floats come from a small device tensor (no host read), and the
 //   depth image stays in L2.
+//
+// B19a, a slab of the sharded engine (parallel/sharded.py): x_off_m moves every voxel's x, the tile test's
+// corners too, as xslam_tpu/ops/fusion.py::integrate(x_offset=) does (fusion.cuh::FuseParams); at 0 every bit
+// is the whole volume's.
 
 #include <cuda_runtime.h>
 
@@ -63,7 +67,7 @@ __device__ __forceinline__ bool tile_outside(const float* __restrict__ pose, con
   const int x = (lane & 1) ? min(x0 + TILE_X, p.X) - 1 : x0;
   const int y = (lane & 2) ? min(y0 + TILE_Y, p.Y) - 1 : y0;
   const int z = (lane & 4) ? min(z0 + TILE_Z, p.Z) - 1 : z0;
-  const float gx = ((float)x + 0.5f) * p.vs, gy = ((float)y + 0.5f) * p.vs, gz = ((float)z + 0.5f) * p.vs;
+  const float gx = ((float)x + 0.5f) * p.vs + p.x_off_m, gy = ((float)y + 0.5f) * p.vs, gz = ((float)z + 0.5f) * p.vs;
   float c[3];
   for (int i = 0; i < 3; ++i) c[i] = ((pose[3 * i] * gx + pose[3 * i + 1] * gy) + pose[3 * i + 2] * gz) + pose[18 + i];
   float cmax = fmaxf(fmaxf(fabsf(c[0]), fabsf(c[1])), fabsf(c[2]));
@@ -99,7 +103,7 @@ fuse_kernel(float* __restrict__ value, float* __restrict__ grad, float* __restri
   const float gy = xs::voxel_centre(y, p.vs);
 
   for (int x = x0; x < x_end; ++x) {
-    const xs::ColumnSums sums = xs::column_sums(dual_pose, xs::voxel_centre(x, p.vs), gy);
+    const xs::ColumnSums sums = xs::column_sums(dual_pose, xs::voxel_centre(x, p.vs) + p.x_off_m, gy);
     for (int z = z0 + threadIdx.x; z < z_end; z += LANES_Z) {
       const xs::VoxelView o = xs::voxel_view(dual_pose, p, sums, xs::voxel_centre(z, p.vs));
       if (!o.gated) continue;
@@ -114,8 +118,8 @@ extern "C" int xs_fuse_volume(void* value, void* grad, void* weight, const void*
                               int X, int Y, int Z, int H, int W,
                               float vs, float fx, float fy, float cx, float cy,
                               float inv_fx, float inv_fy, float trunc, float inv_trunc, float max_w,
-                              float bi_threshold, void* stream) {
-  const Params p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold};
+                              float bi_threshold, float x_off_m, void* stream) {
+  const Params p{X, Y, Z, H, W, vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w, bi_threshold, 0, x_off_m};
   const dim3 block(LANES_Z, TILE_Y);
   const dim3 grid((Z + TILE_Z - 1) / TILE_Z, (Y + TILE_Y - 1) / TILE_Y, (X + TILE_X - 1) / TILE_X);
   if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;

@@ -38,6 +38,12 @@ struct FuseParams {
   int X, Y, Z, H, W;
   float vs, fx, fy, cx, cy, inv_fx, inv_fy, trunc, inv_trunc, max_w;
   float bi_threshold;  // float32(bi_threshold), read by the bilinear branch only
+  // B19a, a slab of an X-sharded volume whose local x 0 is global x x_offset (0: the whole volume). The two
+  // passes place a voxel as the JAX package's do, which differ: K2 at ((x + 0.5) vs) + x_off_m, x_off_m =
+  // float32(x_offset) * vs rounded once (xslam_tpu/ops/fusion.py:99-100); the brick pass at
+  // ((x + x_offset) + 0.5) vs (xslam_tpu/ops/fusion_brick.py:669, :721)
+  int x_offset;
+  float x_off_m;
 };
 
 // The 24 pose floats of the dual volume->camera pose: R.v (row-major 3x3),

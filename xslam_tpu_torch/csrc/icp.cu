@@ -31,6 +31,11 @@
 //   is valid only where the pixel is in the image. So with icp_fixed_assoc
 //   the first launch of a level, which starts from the pose the association
 //   is made at, makes the cache, and the level's later launches read it.
+// - xs_icp_tail (B19d): the tail alone, one block, over totals given in device memory: the sharded engine's
+//   iteration (parallel/sharded.py, xslam_tpu/parallel/sharded.py:163-222) launches xs_icp_system on its block
+//   of the current maps' columns with totals_out (the 55 double totals, before any rounding), sums them over
+//   the ranks (all_reduce), then this. The tail rounds each total to float32 where it reads it, as the fused
+//   one does, so on one rank the pose, x and flags are the fused launch's bit for bit.
 // - xs_icp_associate: the projection alone, written as the same index map
 //   (also at pixels without a normal). The engine no longer launches it: it
 //   is the reference the folded index is held against (chip_smoke.py).
@@ -410,11 +415,26 @@ __device__ void icp_tail(const double* totals, const float* __restrict__ pose, c
   t.flags[1] = (t.first ? 1 : t.flags[1]) & (step_ok ? 1 : 0);
 }
 
+// out: A.v (6x6), A.g (6x6), b.v (6), b.g (6) as float32, and the inlier count, from the NQ totals
+__device__ __forceinline__ void write_system(const double* totals, float* __restrict__ out, int* __restrict__ inliers,
+                                             int t) {
+  if (t < 72) {
+    const int lane_g = t / 36, e = t % 36;
+    out[t] = (float)totals[lane_g * NPAIR + tri(min(e / 6, e % 6), max(e / 6, e % 6))];
+  } else if (t < 84) {
+    const int lane_g = (t - 72) / 6, i = (t - 72) % 6;
+    out[t] = (float)totals[lane_g * NPAIR + 21 + i];
+  } else if (t == 84) {
+    *inliers = (int)totals[NQ - 1];
+  }
+}
+
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 icp_system_kernel(const float* __restrict__ vcurr, const float* __restrict__ ncurr,
                   const float4* __restrict__ rows, const int* __restrict__ assoc, int* __restrict__ assoc_out,
                   const float* __restrict__ pose, double* partials, unsigned int* ticket,
-                  float* __restrict__ out, int* __restrict__ inliers, Tail tail, Geom g) {
+                  float* __restrict__ out, int* __restrict__ inliers, double* __restrict__ totals_out, Tail tail,
+                  Geom g) {
   __shared__ double pixel_rows[WARPS][32 * ROW_STRIDE];
   __shared__ double warp_sums[WARPS][NQ];
   __shared__ double group_sums[GROUPS][64];
@@ -496,19 +516,24 @@ icp_system_kernel(const float* __restrict__ vcurr, const float* __restrict__ ncu
   }
   __syncthreads();
 
-  // out: A.v (6x6), A.g (6x6), b.v (6), b.g (6)
-  if (threadIdx.x < 72) {
-    const int lane_g = threadIdx.x / 36, e = threadIdx.x % 36;
-    out[threadIdx.x] = (float)totals[lane_g * NPAIR + tri(min(e / 6, e % 6), max(e / 6, e % 6))];
-  } else if (threadIdx.x < 84) {
-    const int lane_g = (threadIdx.x - 72) / 6, i = (threadIdx.x - 72) % 6;
-    out[threadIdx.x] = (float)totals[lane_g * NPAIR + 21 + i];
-  } else if (threadIdx.x == 84) {
-    *inliers = (int)totals[NQ - 1];
+  write_system(totals, out, inliers, threadIdx.x);
+  if (threadIdx.x == 84) {
     *ticket = 0u;  // ready for the next launch on this stream
   } else if (threadIdx.x == BLOCK - 1 && tail.pose_out != nullptr) {
     icp_tail(totals, pose, tail);
   }
+  if (totals_out != nullptr && threadIdx.x < NQ) totals_out[threadIdx.x] = totals[threadIdx.x];
+}
+
+// B19d: the system and the tail over totals summed elsewhere (one block)
+__global__ void __launch_bounds__(128) icp_tail_kernel(const double* __restrict__ summed,
+                                                       const float* __restrict__ pose, float* __restrict__ out,
+                                                       int* __restrict__ inliers, Tail tail) {
+  __shared__ double totals[NQ];
+  if (threadIdx.x < NQ) totals[threadIdx.x] = summed[threadIdx.x];
+  __syncthreads();
+  write_system(totals, out, inliers, threadIdx.x);
+  if (threadIdx.x == 127) icp_tail(totals, pose, tail);
 }
 
 Geom make_geom(int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy, float dist_thres,
@@ -522,12 +547,13 @@ Geom make_geom(int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, flo
 // partials: room for blocks * 55 doubles; ticket: one zeroed unsigned int
 // that the kernel leaves zeroed. pose_out (which must not be pose), x_out and
 // flags are given together or not at all. assoc_out, an int32 (Hc, Wc) map,
-// only where assoc is not given. All scratch belongs to one stream at a time.
+// only where assoc is not given. totals_out: 55 doubles (the 54 sums, the inlier count) or null. All scratch
+// belongs to one stream at a time.
 extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* rows, const void* assoc,
                              void* assoc_out, const void* pose, void* partials, void* ticket, int blocks, void* out,
                              void* inliers, void* pose_out, void* x_out, void* flags, float damping, int first,
                              int Hc, int Wc, int Hp, int Wp, float fx, float fy, float cx, float cy,
-                             float dist_thres, float angle_thres, void* stream) {
+                             float dist_thres, float angle_thres, void* totals_out, void* stream) {
   const Geom g = make_geom(Hc, Wc, Hp, Wp, fx, fy, cx, cy, dist_thres, angle_thres);
   if (blocks < 1 || pose_out == pose || (assoc != nullptr && assoc_out != nullptr)) return (int)cudaErrorInvalidValue;
   if ((pose_out == nullptr) != (x_out == nullptr) || (pose_out == nullptr) != (flags == nullptr))
@@ -535,7 +561,19 @@ extern "C" int xs_icp_system(const void* vcurr, const void* ncurr, const void* r
   const Tail tail{(float*)pose_out, (float*)x_out, (int*)flags, damping, first};
   icp_system_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
       (const float*)vcurr, (const float*)ncurr, (const float4*)rows, (const int*)assoc, (int*)assoc_out,
-      (const float*)pose, (double*)partials, (unsigned int*)ticket, (float*)out, (int*)inliers, tail, g);
+      (const float*)pose, (double*)partials, (unsigned int*)ticket, (float*)out, (int*)inliers, (double*)totals_out,
+      tail, g);
+  return (int)cudaGetLastError();
+}
+
+// B19d: totals, 55 doubles in xs_icp_system's totals_out layout (summed over the ranks); pose, pose_out, x_out,
+// flags, damping and first as xs_icp_system's tail takes them; out and inliers the summed system as float32
+extern "C" int xs_icp_tail(const void* totals, const void* pose, void* out, void* inliers, void* pose_out,
+                           void* x_out, void* flags, float damping, int first, void* stream) {
+  if (pose_out == nullptr || pose_out == pose || x_out == nullptr || flags == nullptr) return (int)cudaErrorInvalidValue;
+  const Tail tail{(float*)pose_out, (float*)x_out, (int*)flags, damping, first};
+  icp_tail_kernel<<<1, 128, 0, (cudaStream_t)stream>>>((const double*)totals, (const float*)pose, (float*)out,
+                                                       (int*)inliers, tail);
   return (int)cudaGetLastError();
 }
 

@@ -52,6 +52,14 @@
 // with -fmad=false), and the voxel chosen at a floor boundary is the one the
 // true division p / voxel chooses, as in the reference.
 //
+// B19b, the march over a slab of the sharded engine (parallel/sharded.py; xslam_tpu/ops/raycast.py::march with
+// a ShardSpec): march_shard_kernel reads the value plane of a slab with its halo, whose local x 0 is global
+// x x_base; a sample at global voxel g reads local row g - x_base (0 + 1e-5 outside the slab, as gather3d
+// fills), is inside where g lies in the x_total-row volume, and records a crossing or a -->+ death only where
+// g lies in the slab's core rows [core_start, core_end); an exit from the volume is every slab's death. The
+// ranks' events then meet in a min (xslam_tpu/parallel/sharded.py:132-133). march_kernel, the whole
+// volume, is the code above unchanged (one body, march_body<SHARD>, for both).
+//
 // xs_march_fixed_chain is the earlier design (one thread a ray over a flat
 // pixel index, direction planes read from memory, three divisions and
 // to_index a sample, one load in flight), kept as a test-only entry: the
@@ -72,6 +80,11 @@ struct Volume {
   const float* value;
   int X, Y, Z;
   float vs;
+};
+
+// B19b: a slab's place in the whole volume (xslam_tpu/ops/raycast.py::ShardSpec, resolved)
+struct Slab {
+  int x_base, x_total, core_start, core_end;
 };
 
 // nearest voxel of `start + dir * t`, and whether it lies in the volume, with
@@ -109,20 +122,45 @@ __device__ __forceinline__ bool sample_voxel_fast(const Volume& vol, float inv_v
   return (unsigned)gx < (unsigned)vol.X && (unsigned)gy < (unsigned)vol.Y && (unsigned)gz < (unsigned)vol.Z;
 }
 
-// the value at the first sample (0.2 m), clamped into the volume
-__device__ __forceinline__ float first_sample(const Volume& vol, const float s[3], const float d[3]) {
+// the value at the first sample (0.2 m), clamped into the volume (with SHARD into the whole volume, then read
+// from the slab: 0 + 1e-5 outside it)
+template <bool SHARD>
+__device__ __forceinline__ float first_sample(const Volume& vol, const Slab& slab, const float s[3],
+                                              const float d[3]) {
   int gx = xs::to_index(floorf((s[0] + d[0] * RAY_MIN) / vol.vs));
   int gy = xs::to_index(floorf((s[1] + d[1] * RAY_MIN) / vol.vs));
   int gz = xs::to_index(floorf((s[2] + d[2] * RAY_MIN) / vol.vs));
-  gx = min(max(gx, 0), vol.X - 1);
+  gx = min(max(gx, 0), (SHARD ? slab.x_total : vol.X) - 1);
   gy = min(max(gy, 0), vol.Y - 1);
   gz = min(max(gz, 0), vol.Z - 1);
+  if (SHARD) {
+    gx -= slab.x_base;
+    if ((unsigned)gx >= (unsigned)vol.X) return 0.0f + 1e-5f;
+  }
   return __ldg(vol.value + ((long long)gx * vol.Y + gy) * vol.Z + gz) + 1e-5f;
 }
 
-__global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
-    march_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
-                 float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step, xs::Camera cam) {
+// B19b: a sample's voxel g on a slab: `inside` the whole volume, `own` (in the core rows), and the value read
+// from local row g - x_base (0 outside the slab) + 1e-5
+__device__ __forceinline__ float slab_sample(const Volume& vol, const Slab& slab, float inv_vs, const float s[3],
+                                             const float d[3], float t, bool& inside, bool& own) {
+  const int gx = floor_div(s[0] + d[0] * t, vol.vs, inv_vs);
+  const int gy = floor_div(s[1] + d[1] * t, vol.vs, inv_vs);
+  const int gz = floor_div(s[2] + d[2] * t, vol.vs, inv_vs);
+  const bool in_yz = (unsigned)gy < (unsigned)vol.Y && (unsigned)gz < (unsigned)vol.Z;
+  inside = (unsigned)gx < (unsigned)slab.x_total && in_yz;
+  own = gx >= slab.core_start && gx < slab.core_end;
+  const int lx = gx - slab.x_base;
+  const bool readable = (unsigned)lx < (unsigned)vol.X && in_yz;
+  const unsigned offset = ((unsigned)lx * (unsigned)vol.Y + (unsigned)gy) * (unsigned)vol.Z + (unsigned)gz;
+  return (readable ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
+}
+
+template <bool SHARD>
+__device__ __forceinline__ void march_body(const Volume& vol, const float* __restrict__ pose,
+                                           float* __restrict__ t_found_out, float* __restrict__ t_dead_out, int H,
+                                           int W, int stride, int n_steps, float step, const xs::Camera& cam,
+                                           const Slab& slab) {
   __shared__ float c2v[24];
   const int tid = threadIdx.x;
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
@@ -146,7 +184,7 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   }
 
   const float inv_vs = 1.0f / vol.vs;
-  float prev = first_sample(vol, s, d);
+  float prev = first_sample<SHARD>(vol, slab, s, d);
   // the step number as a float (exact; no conversion in the loop), and the
   // march time of the sample before the next one: step k's t_curr is step
   // k - 1's t_next, the same expression
@@ -154,16 +192,21 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   bool done = false;
   for (int k0 = 0; k0 < n_steps && !done; k0 += U) {
     float tsdf[U], t_at[U + 1];
-    bool inside[U];
+    bool inside[U], own[U];
     t_at[0] = t_last;
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       kf = kf + 1.0f;
       const float t_next = RAY_MIN + kf * step;
       t_at[j + 1] = t_next;
-      unsigned offset;
-      inside[j] = sample_voxel_fast(vol, inv_vs, s, d, t_next, offset);
-      tsdf[j] = (inside[j] ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
+      if (SHARD) {
+        tsdf[j] = slab_sample(vol, slab, inv_vs, s, d, t_next, inside[j], own[j]);
+      } else {
+        unsigned offset;
+        inside[j] = sample_voxel_fast(vol, inv_vs, s, d, t_next, offset);
+        own[j] = true;
+        tsdf[j] = (inside[j] ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
+      }
     }
     t_last = t_at[U];
 #pragma unroll
@@ -172,8 +215,8 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
       const bool maybe = !inside[j] || (__float_as_int(prev) ^ __float_as_int(tsdf[j])) < 0;
       if (maybe && !done && k0 + j < n_steps) {
         const float t_curr = t_at[j];
-        const bool death = !inside[j] || (prev < 0.0f && tsdf[j] > 0.0f);
-        const bool crossing = inside[j] && prev > 0.0f && tsdf[j] < 0.0f;
+        const bool death = !inside[j] || (own[j] && prev < 0.0f && tsdf[j] > 0.0f);
+        const bool crossing = own[j] && inside[j] && prev > 0.0f && tsdf[j] < 0.0f;
         if (crossing && t_curr < t_found) t_found = t_curr;
         if (death && t_curr < t_dead) t_dead = t_curr;
         done = t_found < INF_T && t_dead < INF_T;
@@ -183,6 +226,20 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   }
   t_found_out[y * W + x] = t_found;
   t_dead_out[y * W + x] = t_dead;
+}
+
+__global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
+    march_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
+                 float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step, xs::Camera cam) {
+  march_body<false>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, Slab{});
+}
+
+// B19b: the march over a slab (see the header)
+__global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
+    march_shard_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
+                       float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step,
+                       xs::Camera cam, Slab slab) {
+  march_body<true>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, slab);
 }
 
 // the earlier design: see the header
@@ -195,7 +252,7 @@ __global__ void march_chain_kernel(const float* __restrict__ value, const float*
   const Volume vol{value, X, Y, Z, vs};
   const float s[3] = {start[0], start[1], start[2]};
   const float d[3] = {dirs[pix], dirs[HW + pix], dirs[2 * HW + pix]};
-  float prev = first_sample(vol, s, d);
+  float prev = first_sample<false>(vol, Slab{}, s, d);
   float t_found = INF_T, t_dead = INF_T;
   for (int k = 0; k < n_steps; ++k) {
     long long offset;
@@ -216,16 +273,25 @@ __global__ void march_chain_kernel(const float* __restrict__ value, const float*
 
 }  // namespace
 
-// H, W: the output's size, the camera's every stride-th pixel in each axis
+// H, W: the output's size, the camera's every stride-th pixel in each axis. shard: 0 for the whole (X, Y, Z)
+// volume, 1 for a slab of it (B19b: x_base, x_total, core_start, core_end as xslam_tpu/ops/raycast.py::ShardSpec
+// resolves them; X the slab's rows with its halo)
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
-                              float inv_fx, float inv_fy, void* stream) {
+                              float inv_fx, float inv_fy, int shard, int x_base, int x_total, int core_start,
+                              int core_end, void* stream) {
   if ((long long)X * Y * Z >= (1ll << 31) || stride < 1) return (int)cudaErrorInvalidValue;
+  if (shard && (x_total < 1 || (long long)x_total * Y * Z >= (1ll << 31))) return (int)cudaErrorInvalidValue;
   const Volume vol{(const float*)value, X, Y, Z, vs};
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
+  const Slab slab{x_base, x_total, core_start, core_end};
   const dim3 grid((W + xs::BLOCK_W - 1) / xs::BLOCK_W, (H + xs::BLOCK_H - 1) / xs::BLOCK_H);
-  march_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
-      vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam);
+  if (shard)
+    march_shard_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
+        vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam, slab);
+  else
+    march_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
+        vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam);
   return (int)cudaGetLastError();
 }
 

@@ -72,6 +72,18 @@
 // not a fixed stride apart, so each tap's address is its own row_index
 // instead of a corner offset from its cell's base.
 
+// B19c, K5's shard mode (refine_shard_kernel, refine_body<SLAB>), the refine of one slab of the sharded engine
+// (parallel/sharded.py), following xslam_tpu/ops/raycast.py::refine with a ShardSpec as
+// xslam_tpu/parallel/sharded.py:129-139 calls it: the value and grad planes of a slab with its halo, whose local
+// x 0 is global x x_base; every tap at global voxel x reads local row x - x_base (0 + 1e-5 and 0 outside the slab,
+// as gather3d fills), and the cells' bounds tests and the normal's margin take the x_total-row volume. It reads
+// the ranks' minimum t_found and t_dead and its own t_found: a pixel is refined where the minimum is accepted
+// (t_min < min(t_dead_min, 1e9)) and this rank owns it (its t_found is the minimum), at t_min. It writes
+// nan_to_num'ed numbers where the vertex (the normal) is valid and zeros elsewhere, with the two masks as 1 or 0:
+// planes the ranks sum, as the JAX stage psums them. Then refine_finalize_kernel, K5's finalize
+// (xslam_tpu/ops/raycast.py::finalize_maps), puts the NaN sentinels into the sums where no rank's mask was set.
+// On one rank the maps are K5's bit for bit: the same taps' values reach the same arithmetic.
+
 #include <cuda_runtime.h>
 
 #include "rays.cuh"
@@ -83,6 +95,7 @@ using xs::Dual;
 using xs::lift;
 
 constexpr float INF_T = 1e9f;
+enum : int { L_DENSE = 0, L_ROWS = 1, L_SLAB = 2 };  // the volume's layout: (X, Y, Z) planes, brick rows, a slab's
 constexpr int BLOCK_W = 8, BLOCK_H = 8, BLOCK_THREADS = BLOCK_W * BLOCK_H;  // two warps of 8 x 4 pixels
 
 struct Volume {
@@ -93,6 +106,7 @@ struct Volume {
   float inv_vs;     // float32 of (1 / voxel size in double)
   float half_vs;    // float32 of (voxel size * 0.5)
   xs::Rows r;       // the brick grid (K5r's rows; unused by the dense planes)
+  int x_base, x_total;  // SLAB: the global x of local row 0 and the whole volume's rows (X: the slab's own)
 };
 
 // ops/raycast.py::trilinear_tsdf_shard's cell at one point: the base (shifted
@@ -114,9 +128,16 @@ __device__ __forceinline__ void axis_cell(const Volume& vol, Dual p, int n, Cell
   c.w1[i] = lift(1.0f) - c.w0[i];
 }
 
+// the extents the cells are tested against: the whole volume's (a slab's x_total)
+template <int LAYOUT>
+__device__ __forceinline__ int extent_x(const Volume& vol) {
+  return LAYOUT == L_SLAB ? vol.x_total : vol.X;
+}
+
+template <int LAYOUT>
 __device__ __forceinline__ Cell cell_at(const Volume& vol, const Dual p[3]) {
   Cell c;
-  const int size[3] = {vol.X, vol.Y, vol.Z};
+  const int size[3] = {extent_x<LAYOUT>(vol), vol.Y, vol.Z};
   c.ok = true;
 #pragma unroll
   for (int i = 0; i < 3; ++i) axis_cell(vol, p[i], size[i], c, i);
@@ -135,14 +156,18 @@ __device__ __forceinline__ unsigned corner(const Volume& vol, int k) {
          (unsigned)(k & 1);
 }
 
-// the element of voxel (x, y, z), inside the volume, in the dense planes or (ROWS) the brick rows
-template <bool ROWS>
-__device__ __forceinline__ unsigned voxel_at(const Volume& vol, int x, int y, int z) {
-  return ROWS ? xs::row_index(vol.r, x, y, z) : offset_of(vol, x, y, z);
-}
-
 __device__ __forceinline__ Dual tap_at(const Volume& vol, unsigned off) {
   return {__ldg(vol.value + off) + 1e-5f, __ldg(vol.grad + off)};
+}
+
+// the tap of voxel (x, y, z), y and z inside the volume: in the brick rows, or in a slab (global x; 0 outside
+// the slab) (the dense planes address a cell's taps from its base instead)
+template <int LAYOUT>
+__device__ __forceinline__ Dual tap_xyz(const Volume& vol, int x, int y, int z) {
+  if (LAYOUT == L_ROWS) return tap_at(vol, xs::row_index(vol.r, x, y, z));
+  const int lx = x - vol.x_base;
+  if ((unsigned)lx >= (unsigned)vol.X) return {0.0f + 1e-5f, 0.0f};
+  return tap_at(vol, offset_of(vol, lx, y, z));
 }
 
 // the eight taps weighted and added in the plain version's order; (NaN, 0)
@@ -159,15 +184,14 @@ __device__ __forceinline__ Dual combine(const Cell& c, const Dual tap[8]) {
   return c.ok ? res : Dual{xs::quiet_nan(), 0.0f};
 }
 
-// the loads of one cell's eight taps (from the cell at voxel 0 where out of bounds: read, then discarded by
-// combine)
-template <bool ROWS>
+// the loads of one cell's eight taps (from the cell at voxel 0, a slab's local 0, where out of bounds: read,
+// then discarded by combine)
+template <int LAYOUT>
 __device__ __forceinline__ void load_taps(const Volume& vol, const Cell& c, Dual tap[8]) {
-  if (ROWS) {
-    const int bx = c.ok ? c.b[0] : 0, by = c.ok ? c.b[1] : 0, bz = c.ok ? c.b[2] : 0;
+  if (LAYOUT != L_DENSE) {
+    const int bx = c.ok ? c.b[0] : (LAYOUT == L_SLAB ? vol.x_base : 0), by = c.ok ? c.b[1] : 0, bz = c.ok ? c.b[2] : 0;
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      tap[k] = tap_at(vol, voxel_at<true>(vol, bx + (k >> 2), by + ((k >> 1) & 1), bz + (k & 1)));
+    for (int k = 0; k < 8; ++k) tap[k] = tap_xyz<LAYOUT>(vol, bx + (k >> 2), by + ((k >> 1) & 1), bz + (k & 1));
     return;
   }
   const unsigned base = c.ok ? offset_of(vol, c.b[0], c.b[1], c.b[2]) : 0u;
@@ -184,7 +208,7 @@ __device__ __forceinline__ constexpr int corner_index(int e, int j) {
 
 // the difference of the trilinears at vertex + half and vertex - half along
 // axis A, from the vertex's block `ctr` (base cv) and the face across axis A
-template <int A, bool ROWS>
+template <int A, int LAYOUT>
 __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual vertex[3], const int gv[3],
                                                 const Cell& vc, const Dual ctr[8], unsigned* direct) {
   constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
@@ -202,8 +226,8 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
     int q[3] = {fb[0], fb[1], fb[2]};
     q[O1] += j >> 1;
     q[O2] += j & 1;
-    const Dual face = tap_at(vol, ROWS ? voxel_at<true>(vol, q[0], q[1], q[2])
-                                       : fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
+    const Dual face = LAYOUT != L_DENSE ? tap_xyz<LAYOUT>(vol, q[0], q[1], q[2])
+                                      : tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
     const Dual& lo = ctr[corner_index<A>(0, j)];
     const Dual& hi = ctr[corner_index<A>(1, j)];
     line[0][j] = upper ? face : lo;
@@ -217,7 +241,7 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
     // the sample's cell: on the other two axes its coordinates are the vertex's, so is its cell there (the
     // same operations on the same numbers); on axis A its own
     Cell c = vc;
-    const int size[3] = {vol.X, vol.Y, vol.Z};
+    const int size[3] = {extent_x<LAYOUT>(vol), vol.Y, vol.Z};
     axis_cell(vol, vertex[A] + lift(s == 0 ? vol.half_vs : -vol.half_vs), size[A], c, A);
     const bool staged = c.ok && c.b[A] == gv[A] - s;
     Dual tap[8];
@@ -229,7 +253,7 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
         tap[k] = line[e + 1 - s][j];
       }
     } else {
-      load_taps<ROWS>(vol, c, tap);
+      load_taps<LAYOUT>(vol, c, tap);
       if (direct != nullptr) atomicAdd(direct, 1u);
     }
     res[s] = combine(c, tap);
@@ -249,22 +273,27 @@ __device__ __forceinline__ void point_at(const Dual start[3], const Dual dir[3],
   for (int i = 0; i < 3; ++i) p[i] = start[i] + dir[i] * t;
 }
 
-// one (3,) map entry: nan_to_num'ed numbers where ok, else (NaN, 0)
+// one (3,) map entry: nan_to_num'ed numbers where ok, else (NaN, 0), or with SLAB (0, 0) and ok's mask
+template <int LAYOUT>
 __device__ __forceinline__ void store3(float* __restrict__ out_v, float* __restrict__ out_g, int HW, int pix,
-                                       bool ok, const Dual m[3]) {
+                                       bool ok, const Dual m[3], float* __restrict__ mask) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    out_v[i * HW + pix] = ok ? xs::nan_to_num(m[i].v) : xs::quiet_nan();
+    out_v[i * HW + pix] = ok ? xs::nan_to_num(m[i].v) : (LAYOUT == L_SLAB ? 0.0f : xs::quiet_nan());
     out_g[i * HW + pix] = ok ? xs::nan_to_num(m[i].g) : 0.0f;
   }
+  if (LAYOUT == L_SLAB) mask[pix] = ok ? 1.0f : 0.0f;
 }
 
-template <bool ROWS>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
-                  const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
-                  float* __restrict__ nmap_v, float* __restrict__ nmap_g, int H, int W, float step, xs::Camera cam,
-                  unsigned* direct) {
+// t_found: this volume's (with SLAB this slab's) march hits; t_dead: its deaths (with SLAB the ranks' minimum);
+// t_min: with SLAB the ranks' minimum t_found, else unused; ok_out: with SLAB the two masks' planes (v, n)
+template <int LAYOUT>
+__device__ __forceinline__ void refine_body(const Volume& vol, const float* __restrict__ pose,
+                                            const float* __restrict__ t_found, const float* __restrict__ t_dead,
+                                            const float* __restrict__ t_min, float* __restrict__ vmap_v,
+                                            float* __restrict__ vmap_g, float* __restrict__ nmap_v,
+                                            float* __restrict__ nmap_g, float* __restrict__ ok_out, int H, int W,
+                                            float step, const xs::Camera& cam, unsigned* direct) {
   static_assert(BLOCK_THREADS >= xs::POSE_FLOATS, "a block loads the pose, one float a thread");
   __shared__ float sp[xs::POSE_FLOATS];
   const int tid = threadIdx.x;
@@ -275,12 +304,15 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   if (x >= W || y >= H) return;
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
+  float* const v_mask = ok_out;
+  float* const n_mask = LAYOUT == L_SLAB ? ok_out + HW : nullptr;
 
-  const float hit_t = t_found[pix];
-  const bool accept = hit_t < fminf(t_dead[pix], INF_T);
+  // with SLAB: the ranks' first crossing, accepted as the whole volume's would be, and owned by this rank
+  const float hit_t = LAYOUT == L_SLAB ? t_min[pix] : t_found[pix];
+  const bool accept = hit_t < fminf(t_dead[pix], INF_T) && (LAYOUT != L_SLAB || t_found[pix] == hit_t);
   if (!accept) {
-    store3(vmap_v, vmap_g, HW, pix, false, none);
-    store3(nmap_v, nmap_g, HW, pix, false, none);
+    store3<LAYOUT>(vmap_v, vmap_g, HW, pix, false, none, v_mask);
+    store3<LAYOUT>(nmap_v, nmap_g, HW, pix, false, none, n_mask);
     return;
   }
 
@@ -295,16 +327,16 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   const Dual t = lift(hit_t);
   point_at(start, dir, t, p0);
   point_at(start, dir, t + lift(step), p1);
-  const Cell c0 = cell_at(vol, p0), c1 = cell_at(vol, p1);
+  const Cell c0 = cell_at<LAYOUT>(vol, p0), c1 = cell_at<LAYOUT>(vol, p1);
   Dual tap0[8], tap1[8];
-  load_taps<ROWS>(vol, c0, tap0);
-  load_taps<ROWS>(vol, c1, tap1);
+  load_taps<LAYOUT>(vol, c0, tap0);
+  load_taps<LAYOUT>(vol, c1, tap1);
   const Dual ft = combine(c0, tap0);
   const Dual ftdt = combine(c1, tap1);
   const bool ok = !isnan(ft.v) && !isnan(ftdt.v) && ft.v >= 0.0f && ftdt.v <= 0.0f && ftdt.v != ft.v;
   if (!ok) {
-    store3(vmap_v, vmap_g, HW, pix, false, none);
-    store3(nmap_v, nmap_g, HW, pix, false, none);
+    store3<LAYOUT>(vmap_v, vmap_g, HW, pix, false, none, v_mask);
+    store3<LAYOUT>(nmap_v, nmap_g, HW, pix, false, none, n_mask);
     return;
   }
   const Dual ts = t - (ft / (ftdt - ft)) * lift(step);
@@ -314,10 +346,10 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   xs::matvec3(v2w, vertex, vertex_w);
 #pragma unroll
   for (int i = 0; i < 3; ++i) vertex_w[i] = vertex_w[i] + Dual{v2w[18 + i], v2w[21 + i]};
-  store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
+  store3<LAYOUT>(vmap_v, vmap_g, HW, pix, true, vertex_w, v_mask);
 
   // central-difference normal, inside the reference's margin (RayCaster.cu:270-271)
-  const int size[3] = {vol.X, vol.Y, vol.Z};
+  const int size[3] = {extent_x<LAYOUT>(vol), vol.Y, vol.Z};
   int gv[3];
   bool n_ok = true;
 #pragma unroll
@@ -328,13 +360,13 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   Dual n_w[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
   if (n_ok) {
     // the vertex's own cell: base g - 1 + h on each axis; inside the margin all 20 voxels lie in the volume
-    const Cell cv = cell_at(vol, vertex);
+    const Cell cv = cell_at<LAYOUT>(vol, vertex);
     Dual ctr[8];
-    load_taps<ROWS>(vol, cv, ctr);
+    load_taps<LAYOUT>(vol, cv, ctr);
     Dual n[3];
-    n[0] = axis_difference<0, ROWS>(vol, vertex, gv, cv, ctr, direct);
-    n[1] = axis_difference<1, ROWS>(vol, vertex, gv, cv, ctr, direct);
-    n[2] = axis_difference<2, ROWS>(vol, vertex, gv, cv, ctr, direct);
+    n[0] = axis_difference<0, LAYOUT>(vol, vertex, gv, cv, ctr, direct);
+    n[1] = axis_difference<1, LAYOUT>(vol, vertex, gv, cv, ctr, direct);
+    n[2] = axis_difference<2, LAYOUT>(vol, vertex, gv, cv, ctr, direct);
     const Dual nsq = xs::dot3(n, n);
     n_ok = nsq.v > 0.0f && !isnan(nsq.v);
     if (n_ok) {
@@ -343,18 +375,65 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
       xs::matvec3(v2w, unit, n_w);
     }
   }
-  store3(nmap_v, nmap_g, HW, pix, n_ok, n_w);
+  store3<LAYOUT>(nmap_v, nmap_g, HW, pix, n_ok, n_w, n_mask);
 }
 
+// K5 over the dense planes (ROWS false) or K5r over the brick rows
 template <bool ROWS>
-int launch_refine(const Volume& vol, const void* pose, const void* t_found, const void* t_dead, void* vmap_v,
-                  void* vmap_g, void* nmap_v, void* nmap_g, void* direct, int H, int W, float step,
-                  const xs::Camera& cam, void* stream) {
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
+                  const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
+                  float* __restrict__ nmap_v, float* __restrict__ nmap_g, int H, int W, float step, xs::Camera cam,
+                  unsigned* direct) {
+  refine_body<ROWS ? L_ROWS : L_DENSE>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr,
+                                       H, W, step, cam, direct);
+}
+
+// B19c: K5's shard mode over a slab's planes
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    refine_shard_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
+                        const float* __restrict__ t_dead_min, const float* __restrict__ t_found_min,
+                        float* __restrict__ vmap_v, float* __restrict__ vmap_g, float* __restrict__ nmap_v,
+                        float* __restrict__ nmap_g, float* __restrict__ ok_out, int H, int W, float step,
+                        xs::Camera cam) {
+  refine_body<L_SLAB>(vol, pose, t_found, t_dead_min, t_found_min, vmap_v, vmap_g, nmap_v, nmap_g, ok_out, H, W,
+                      step, cam, nullptr);
+}
+
+template <int LAYOUT>
+int launch_refine(const Volume& vol, const void* pose, const void* t_found, const void* t_dead, const void* t_min,
+                  void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, void* ok_out, void* direct, int H, int W,
+                  float step, const xs::Camera& cam, void* stream) {
   const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
-  refine_kernel<ROWS><<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-      vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
-      (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
+  if (LAYOUT == L_SLAB)
+    refine_shard_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+        vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (const float*)t_min, (float*)vmap_v,
+        (float*)vmap_g, (float*)nmap_v, (float*)nmap_g, (float*)ok_out, H, W, step, cam);
+  else
+    refine_kernel<LAYOUT == L_ROWS><<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+        vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
+        (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
   return (int)cudaGetLastError();
+}
+
+// K5's finalize over the ranks' summed planes (xslam_tpu/ops/raycast.py::finalize_maps), in place: `maps` holds
+// vmap.v, vmap.g, nmap.v, nmap.g (3 planes each), then the v and n masks' sums; a map's value lane becomes NaN and
+// its derivative 0 where its mask sums to 0. Bound by bytes: 14 floats a pixel read, 12 written.
+__global__ void refine_finalize_kernel(float* __restrict__ maps, int HW) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= HW) return;
+  const bool v_ok = maps[12 * HW + pix] > 0.0f, n_ok = maps[13 * HW + pix] > 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float* vv = maps + i * HW + pix;
+    float* vg = maps + (3 + i) * HW + pix;
+    float* nv = maps + (6 + i) * HW + pix;
+    float* ng = maps + (9 + i) * HW + pix;
+    *vv = v_ok ? *vv : xs::quiet_nan();
+    *vg = v_ok ? *vg : 0.0f;
+    *nv = n_ok ? *nv : xs::quiet_nan();
+    *ng = n_ok ? *ng : 0.0f;
+  }
 }
 
 }  // namespace
@@ -365,9 +444,33 @@ extern "C" int xs_raycast_refine(const void* value, const void* grad, const void
                                  void* direct, int X, int Y, int Z, int H, int W, float vs, float inv_vs,
                                  float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
                                  void* stream) {
-  const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs, xs::Rows{}};
-  return launch_refine<false>(vol, pose, t_found, t_dead, vmap_v, vmap_g, nmap_v, nmap_g, direct, H, W, step,
-                              xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
+  const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs, xs::Rows{}, 0, X};
+  return launch_refine<L_DENSE>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, direct,
+                              H, W, step, xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
+}
+
+// B19c, the shard mode: value, grad the (X, Y, Z) planes of a slab with its halo, local x 0 at global x_base of a
+// volume of x_total rows; t_found this slab's hits, t_found_min and t_dead_min the ranks' minima; maps: 14 planes
+// of (H, W) floats (vmap.v, vmap.g, nmap.v, nmap.g, then the v and n masks), written whole
+extern "C" int xs_raycast_refine_shard(const void* value, const void* grad, const void* pose, const void* t_found,
+                                       const void* t_found_min, const void* t_dead_min, void* maps, int X, int Y,
+                                       int Z, int x_base, int x_total, int H, int W, float vs, float inv_vs,
+                                       float half_vs, float step, float cx, float cy, float inv_fx, float inv_fy,
+                                       void* stream) {
+  if ((long long)X * Y * Z >= (1ll << 31) || x_total < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const Volume vol{(const float*)value, (const float*)grad, X, Y, Z, vs, inv_vs, half_vs, xs::Rows{}, x_base, x_total};
+  float* m = (float*)maps;
+  const size_t HW = (size_t)H * W;
+  return launch_refine<L_SLAB>(vol, pose, t_found, t_dead_min, t_found_min, m, m + 3 * HW, m + 6 * HW, m + 9 * HW,
+                             m + 12 * HW, nullptr, H, W, step, xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
+}
+
+// B19c, K5's finalize: maps as xs_raycast_refine_shard writes them, summed over the ranks, finalized in place
+extern "C" int xs_raycast_finalize(void* maps, int H, int W, void* stream) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int HW = H * W, block = 256;
+  refine_finalize_kernel<<<(HW + block - 1) / block, block, 0, (cudaStream_t)stream>>>((float*)maps, HW);
+  return (int)cudaGetLastError();
 }
 
 // K5r: value, grad the (nbx * nby * nbz, 512) brick rows
@@ -379,7 +482,7 @@ extern "C" int xs_raycast_refine_rows(const void* value, const void* grad, const
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
   if (voxels >= (1ll << 31) || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const xs::Rows r = xs::make_rows(nbx, nby, nbz);
-  const Volume vol{(const float*)value, (const float*)grad, r.X, r.Y, r.Z, vs, inv_vs, half_vs, r};
-  return launch_refine<true>(vol, pose, t_found, t_dead, vmap_v, vmap_g, nmap_v, nmap_g, direct, H, W, step,
-                             xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
+  const Volume vol{(const float*)value, (const float*)grad, r.X, r.Y, r.Z, vs, inv_vs, half_vs, r, 0, r.X};
+  return launch_refine<L_ROWS>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, direct,
+                             H, W, step, xs::Camera{cx, cy, inv_fx, inv_fy}, stream);
 }

@@ -486,8 +486,10 @@ def model_map_pyramid(vmap0: CSFD, nmap0: Optional[CSFD], levels: int) -> Tuple[
     leaves them. On CPU tensors its plain version: those normals, then
     :func:`resize_model_maps` level after level. On the card, ONE launch for
     every coarser level (and, with ``nmap0`` None, level 0's normals, fed
-    from registers into the means), at most ``kernels.MAX_MAP_LEVELS``
-    levels in all; the coarser levels' maps are views of one buffer
+    from registers into the means), up to ``kernels.MAX_MAP_LEVELS`` levels;
+    past them K6 is launched again from the last level made, two more levels
+    a launch (each level the mean of the one before, so the first three keep
+    their bits); the coarser levels' maps of a launch are views of one buffer
     (``kernels.map_pyramid_views`` with four maps a level: v.v, v.g, n.v,
     n.g), and level 0's given maps stay the tensors given. Both layouts' screen normals
     (``raycast_normals="screen"``) come this way."""
@@ -504,7 +506,10 @@ def model_map_pyramid(vmap0: CSFD, nmap0: Optional[CSFD], levels: int) -> Tuple[
             nmaps.append(nmap)
         return tuple(vmaps), tuple(nmaps)
     if levels > kernels.MAX_MAP_LEVELS:
-        raise ValueError(f"K6 takes at most {kernels.MAX_MAP_LEVELS} levels, got {levels}")
+        top = kernels.MAX_MAP_LEVELS
+        vmaps, nmaps = model_map_pyramid(vmap0, nmap0, top)
+        more_v, more_n = model_map_pyramid(vmaps[-1], nmaps[-1], levels - top + 1)
+        return vmaps + more_v[1:], nmaps + more_n[1:]
     if vmap0.v.dim() != 3 or vmap0.v.shape[0] != 3:
         raise ValueError(f"vmap: expected (3, H, W), got {tuple(vmap0.v.shape)}")
     for t, name in zip(maps, ("vmap.v", "vmap.g", "nmap.v", "nmap.g")):

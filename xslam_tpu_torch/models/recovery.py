@@ -164,6 +164,8 @@ class RecoveringEngine:
     """
 
     def __init__(self, config: SlamConfig, engine=None, device=None):
+        if getattr(engine, "sharded", False):
+            raise NotImplementedError("recovery over the sharded engine is not ported yet (A11c)")
         self.config = config
         self.engine = engine if engine is not None else XSlamEngine(config, device=device)
         self.device = self.engine.device

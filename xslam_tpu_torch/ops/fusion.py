@@ -79,18 +79,23 @@ def integrate(
     intr: Intrinsics,
     cfg: VolumeConfig,
     bi_threshold: float = 0.0,
+    x_offset=None,
 ) -> VolumeState:
     """Fuse one scaled depth frame into the volume IN PLACE
     (``tsdfFusionKernal``, TsdfFusion.cu:85-171) and return it.
 
     ``r_v2c``/``t_v2c`` are the dual volume->camera rotation ((3,3)) and
     translation ((3,)). ``bi_threshold <= 0`` (the canonical configuration)
-    samples the nearest depth, above 0 the bilinear one."""
+    samples the nearest depth, above 0 the bilinear one. ``x_offset`` (an
+    int, B19a): ``vol`` is a slab whose local x 0 is global x ``x_offset``
+    (``cfg.resolution`` its own extent), fused at the whole volume's voxel
+    positions as ``xslam_tpu/ops/fusion.py::integrate(x_offset=)`` places
+    them."""
     if tuple(vol.value.shape) != tuple(cfg.resolution):
         raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
     kernels.fuse_volume(
         vol.value, vol.grad, vol.weight, depth_m, r_v2c, t_v2c, intr,
-        cfg.voxel_size, cfg.trunc_dist, cfg.max_weight, bi_threshold,
+        cfg.voxel_size, cfg.trunc_dist, cfg.max_weight, bi_threshold, x_offset,
     )
     return vol
 
@@ -111,6 +116,7 @@ def integrate_brick(
     classify_fine: bool = False,
     classify_split: bool = False,
     subcell_cap: int = 0,
+    x_offset=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse one scaled depth frame into the volume IN PLACE, brick by brick
     (port of ``xslam_tpu/ops/fusion_brick.py::integrate_brick``;
@@ -129,11 +135,15 @@ def integrate_brick(
     unfused this frame. ``"dense"``: such a frame is fused exactly
     everywhere instead, from the pre-frame volume (on the card the fusion
     kernel reads the flag; no host read), as the JAX engine reruns dense
-    fusion."""
+    fusion.
+
+    ``x_offset`` (an int, B19a): ``vol`` is a slab whose local x 0 is global
+    x ``x_offset`` (``cfg.resolution`` its own extent), as
+    ``xslam_tpu/ops/fusion_brick.py::integrate_brick(x_offset=)`` takes it."""
     if tuple(vol.value.shape) != tuple(cfg.resolution):
         raise ValueError(f"volume shape {tuple(vol.value.shape)} != config {cfg.resolution}")
     return _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine,
-                           classify_split, subcell_cap)
+                           classify_split, subcell_cap, x_offset)
 
 
 def integrate_rows(
@@ -166,23 +176,25 @@ def integrate_rows(
 
 
 def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine, classify_split,
-                    subcell_cap):
+                    subcell_cap, x_offset=None):
     if overflow not in OVERFLOW_MODES:
         raise ValueError(f"overflow: expected one of {OVERFLOW_MODES}, got {overflow!r}")
     if subcell_cap < 0:
         raise ValueError(f"subcell_cap must be >= 0, got {subcell_cap}")
     pose = kernels.fusion_pose(r_v2c, t_v2c)
     table = fusion_brick.depth_mips(depth_m)
-    classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap, split=classify_split, fine=classify_fine)
+    classes = fusion_brick.classify_bricks(table, pose, intr, cfg, cap, split=classify_split, fine=classify_fine,
+                                           x_offset=x_offset)
     subcells = None
     if subcell_cap > 0:  # ORs its lists' overflow into the flag
-        subcells = fusion_brick.classify_subcells(table, pose, intr, cfg, classes, cap, subcell_cap)
+        subcells = fusion_brick.classify_subcells(table, pose, intr, cfg, classes, cap, subcell_cap, x_offset or 0)
     fusion_brick.fuse_bricks(*vol, depth_m, pose, intr, cfg, classes, cap, overflow == "dense", bi_threshold, subcells,
-                             subcell_cap)
+                             subcell_cap, x_offset)
     return classes.overflow, classes.totals[0]
 
 
-def tile_keep_mask(r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics, resolution, voxel_size: float) -> torch.Tensor:
+def tile_keep_mask(r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics, resolution, voxel_size: float,
+                   x_offset: int = 0) -> torch.Tensor:
     """Plain twin of K2's tile test: a bool ``(ceil(X/4), ceil(Y/8),
     ceil(Z/64))`` tensor, False where the kernel's block returns before it
     looks at a voxel.
@@ -196,7 +208,8 @@ def tile_keep_mask(r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics, resolution, voxel
     corner voxels is below zero at all of them. The tile is dropped where
     one of the five functions is below zero at every corner by a margin of
     ``FUSE_CULL_MARGIN`` times the operands' size, which covers the float32
-    rounding of both this test and the voxels' own arithmetic."""
+    rounding of both this test and the voxels' own arithmetic. ``x_offset``:
+    a slab's first x, its corners moved as the kernel moves them (B19a)."""
     X, Y, Z = resolution
     dev = r_v2c.v.device
     R, t = r_v2c.v.to(torch.float32), t_v2c.v.to(torch.float32)
@@ -206,7 +219,7 @@ def tile_keep_mask(r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics, resolution, voxel
         last = torch.clamp(first + tile, max=n) - 1
         return (torch.stack([first, last], dim=-1).to(torch.float32) + 0.5) * voxel_size  # (tiles, 2)
 
-    gx = corners(X, FUSE_TILE[0])[:, None, None, :, None, None]
+    gx = (corners(X, FUSE_TILE[0]) + kernels.slab_shift_m(x_offset, voxel_size))[:, None, None, :, None, None]
     gy = corners(Y, FUSE_TILE[1])[None, :, None, None, :, None]
     gz = corners(Z, FUSE_TILE[2])[None, None, :, None, None, :]
     c = [((R[i, 0] * gx + R[i, 1] * gy) + R[i, 2] * gz) + t[i] for i in range(3)]  # (tx, ty, tz, 2, 2, 2)

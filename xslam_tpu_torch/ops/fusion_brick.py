@@ -50,6 +50,12 @@ kernel on CUDA tensors, never falling back:
   voxels the update of their subcell (far, exact within the list's
   capacity, or none).
 
+Every classifier and B3c take ``x_offset`` (B19a): the planes are a slab of
+a larger volume whose local x 0 is global x ``x_offset`` (the sharded
+engine's, :mod:`xslam_tpu_torch.parallel.sharded`), the boxes and voxels at
+their global positions in the JAX package's own roundings; B3b and B3c are
+then counted as ``classify_bricks_slab`` and ``fuse_bricks_slab``.
+
 On the card the classifiers follow PyTorch's CUDA division by a host number
 (a multiply by the reciprocal taken in double) and so equal their plain
 versions there; on the CPU those divide truly, as the JAX package does
@@ -75,7 +81,7 @@ MIP_LEVELS = (
 )
 NONE, FAR, ACTIVE, FAR_PARTIAL, MIXED = 0, 1, 2, 3, 4
 SUBCELL = 4  # voxels along a subcell's edge: a brick holds 2^3 of them
-AUX_IMAGE_LIMIT = 4096  # pixels a side of the images whose window fits pack_aux's word
+AUX_INTS = 3  # a window's ints in pack_aux: far cells | cell edge << 4, the origin across and down in pixels
 CLASSIFY_TILE = 128  # bricks a tile (a block) of csrc/bricks.cu's classifier scan
 CLASSIFY_STATUS_STRIDE = 16  # 8-byte words of the classifier's scratch a tile: its status word, one a 128 B line
 SUBCELL_ROWS = 16  # candidate rows a block of csrc/bricks.cu's subcell classifier takes (8 subcells, 2 lanes each)
@@ -372,37 +378,42 @@ def classify_boxes_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsi
 
 
 def classify_bricks_full_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, split: bool = False,
-                               cell: int = BRICK) -> BrickAux:
+                               cell: int = BRICK, x_offset: int = 0) -> BrickAux:
     """The port of ``classify_bricks_full``: :func:`classify_boxes_plain` on
     the grid of ``cell``-voxel boxes (the bricks, or with ``cell=4`` their
-    4^3 subcells), origins ``i * (cell * voxel_size)``. Each field is a
+    4^3 subcells), origins ``i * (cell * voxel_size)``, x moved by a slab's
+    :func:`kernels.slab_shift_m` (``x_offset``, B19a). Each field is a
     ``(X / cell, Y / cell, Z / cell)`` int32 tensor."""
     _check_resolution(cfg.resolution)
     nb = tuple(s // cell for s in cfg.resolution)
     bm = cell * cfg.voxel_size
     dev = table.device
     bx0 = torch.arange(nb[0], dtype=torch.float32, device=dev)[:, None, None] * bm
+    if x_offset:
+        bx0 = bx0 + kernels.slab_shift_m(x_offset, cfg.voxel_size)
     by0 = torch.arange(nb[1], dtype=torch.float32, device=dev)[None, :, None] * bm
     bz0 = torch.arange(nb[2], dtype=torch.float32, device=dev)[None, None, :] * bm
     return classify_boxes_plain(table, pose, intr, cfg, bx0, by0, bz0, bm, split)
 
 
-def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg) -> torch.Tensor:
+def classify_bricks_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg,
+                          x_offset: int = 0) -> torch.Tensor:
     """Plain version of B3b's classes: the port of ``_classify_boxes`` with
     ``split=False`` on the brick grid (``classify_bricks_full``), reading the
     mip table of :func:`depth_mips_plain`. ``pose``: :func:`kernels.
     fusion_pose` of the volume->camera pose (value lanes read). Returns the
-    ``(nbx, nby, nbz)`` int32 classes."""
-    return classify_bricks_full_plain(table, pose, intr, cfg).cls
+    ``(nbx, nby, nbz)`` int32 classes (``x_offset``: a slab's, B19a)."""
+    return classify_bricks_full_plain(table, pose, intr, cfg, x_offset=x_offset).cls
 
 
-def classify_bricks_fine_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg) -> torch.Tensor:
+def classify_bricks_fine_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg,
+                               x_offset: int = 0) -> torch.Tensor:
     """Plain version of B15f: the port of ``classify_bricks_fine``. The
     4^3-subcell grid's classes folded by brick: NONE where its 8 subcells
     are NONE, FAR where all are FAR, FAR_PARTIAL where all are FAR or
     FAR_PARTIAL, else ACTIVE. Returns the ``(nbx, nby, nbz)`` int32 classes."""
     nbx, nby, nbz = _check_resolution(cfg.resolution)
-    sub = classify_bricks_full_plain(table, pose, intr, cfg, cell=SUBCELL).cls
+    sub = classify_bricks_full_plain(table, pose, intr, cfg, cell=SUBCELL, x_offset=x_offset).cls
     s = sub.reshape(nbx, 2, nby, 2, nbz, 2).permute(0, 2, 4, 1, 3, 5).reshape(nbx, nby, nbz, 8)
     all_none = (s == NONE).all(-1)
     all_far = (s == FAR).all(-1)
@@ -412,20 +423,19 @@ def classify_bricks_fine_plain(table: torch.Tensor, pose: torch.Tensor, intr: In
 
 
 def pack_aux(aux: BrickAux) -> torch.Tensor:
-    """The split classifier's window of each box as the one int32 word B15s
-    writes and B3c reads: far cells (bits 0-3, cell (dy, dx) at bit 2 dy +
-    dx), the cell edge (bits 4-11), the window's first cell across (bits
-    12-20) and down (bits 21-29): images of at most :data:`AUX_IMAGE_LIMIT`
-    pixels a side."""
-    ts = aux.win_ts
-    return aux.farbits | (ts << 4) | ((aux.win_u0 // ts) << 12) | ((aux.win_v0 // ts) << 21)
+    """The split classifier's window of each box as the :data:`AUX_INTS`
+    int32 B15s writes and B3c reads (a last axis of 3): the far cells (bits
+    0-3, cell (dy, dx) at bit 2 dy + dx) with the cell edge (bits 4-11), the
+    window's origin across and down in pixels, whole, as the JAX package's
+    ``BrickAux`` keeps it: any image size."""
+    return torch.stack([aux.farbits | (aux.win_ts << 4), aux.win_u0, aux.win_v0], dim=-1)
 
 
-def unpack_aux(word: torch.Tensor) -> BrickAux:
-    """The ``(farbits, win_u0, win_v0, win_ts)`` of :func:`pack_aux`'s words
+def unpack_aux(words: torch.Tensor) -> BrickAux:
+    """The ``(farbits, win_u0, win_v0, win_ts)`` of :func:`pack_aux`'s ints
     (``cls`` left None)."""
-    ts = (word >> 4) & 255
-    return BrickAux(None, word & 15, ((word >> 12) & 511) * ts, ((word >> 21) & 511) * ts, ts)
+    word = words[..., 0]
+    return BrickAux(None, word & 15, words[..., 1], words[..., 2], (word >> 4) & 255)
 
 
 def _footprint_bounds(table, layout: MipLayout, level, cu, cv):
@@ -476,7 +486,7 @@ def rank_bricks_plain(cls: torch.Tensor, cap: int) -> BrickClasses:
 
 
 def classify_subcells_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, classes: BrickClasses,
-                            cap: int, subcell_cap: int) -> Subcells:
+                            cap: int, subcell_cap: int, x_offset: int = 0) -> Subcells:
     """Plain version of B15c: the subcell stage of ``_integrate_rows_core``
     up to its lists. The 8 subcells of each of the first ``min(n_active,
     cap)`` ACTIVE bricks are classified by :func:`classify_boxes_plain` (box
@@ -484,7 +494,8 @@ def classify_subcells_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intri
     stage's roundings), and each subcell id's ACTIVE subcells are listed in
     the bricks' rank order; a list longer than ``subcell_cap`` overflows.
     ORs that overflow into ``classes.overflow`` IN PLACE, as the kernel does
-    on the card, so the fusion pass and the caller read both."""
+    on the card, so the fusion pass and the caller read both. ``x_offset``: a
+    slab's first x (B19a; the boxes at ``(8 b + 4 s + x_offset) * voxel_size``)."""
     _, nby, nbz = _check_resolution(cfg.resolution)
     dev = table.device
     n_valid = min(int(classes.totals[0]), cap)
@@ -493,6 +504,7 @@ def classify_subcells_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intri
     corner = [((s >> 2) * SUBCELL).to(torch.float32), (((s >> 1) & 1) * SUBCELL).to(torch.float32),
               ((s & 1) * SUBCELL).to(torch.float32)]
     brick = [ids // (nby * nbz), (ids // nbz) % nby, ids % nbz]
+    corner[0] = corner[0] + x_offset
     box = [((b * BRICK).to(torch.float32)[:, None] + c[None, :]) * cfg.voxel_size for b, c in zip(brick, corner)]
     cls = torch.zeros((cap, 8), dtype=torch.int32, device=dev)
     if n_valid:
@@ -506,7 +518,7 @@ def classify_subcells_plain(table: torch.Tensor, pose: torch.Tensor, intr: Intri
 
 
 def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
-                      subcell_cap: int) -> Subcells:
+                      subcell_cap: int, x_offset: int = 0) -> Subcells:
     """B15c: the subcell stage's classes and lists (:func:`classify_subcells_plain`'s
     contract), its overflow ORed into ``classes.overflow`` in place. On the
     card one launch after B3b's: a subcell two lanes, the rows read from
@@ -515,7 +527,7 @@ def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics,
     if cap < 1 or subcell_cap < 1:
         raise ValueError(f"the subcell stage needs cap and subcell_cap >= 1, got {cap}, {subcell_cap}")
     if kernels.on_cpu(table, pose, classes.cls):
-        return classify_subcells_plain(table, pose, intr, cfg, classes, cap, subcell_cap)
+        return classify_subcells_plain(table, pose, intr, cfg, classes, cap, subcell_cap, x_offset)
     nb = _check_resolution(cfg.resolution)
     H, W = intr.height, intr.width
     layout = mip_layout(H, W)
@@ -533,7 +545,8 @@ def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics,
     scratch = _subcell_scratch[key]
     kernels.launch("classify_subcells", dev, table, pose, classes.active_ids, classes.totals, classes.overflow,
                    scratch.words, scratch.next_launch()[0], cls, rank, counts, sub_overflow, *nb, H, W,
-                   _layout_ints(layout), classify_consts(intr, cfg), subcell_consts(cfg), int(cap), int(subcell_cap))
+                   _layout_ints(layout), classify_consts(intr, cfg, x_offset), subcell_consts(cfg), int(cap),
+                   int(subcell_cap), int(x_offset))
     scratch.launched(subcell_blocks(cap))
     kernels.launch_counts["classify_subcells"] += 1
     return Subcells(cls, rank, counts, sub_overflow)
@@ -598,7 +611,7 @@ def classify_tiles(n_bricks: int) -> int:
 
 
 def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, cap: int, split: bool = False,
-                    fine: bool = False) -> BrickClasses:
+                    fine: bool = False, x_offset=None) -> BrickClasses:
     """B3b: the bricks' classes against the frame whose mip table is ``table``
     at the volume->camera ``pose`` (:func:`kernels.fusion_pose`), with the
     ACTIVE and work lists in flat brick order, the counts and the overflow
@@ -610,16 +623,19 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     adds the MIXED class, listed as work, and the windows (``aux``,
     :func:`pack_aux`); ``fine`` (B15f, :func:`classify_bricks_fine_plain`)
     classifies each brick by its 4^3 subcells and wins over ``split``, as
-    in the JAX engine. Each is the same one launch with other classes."""
+    in the JAX engine. Each is the same one launch with other classes.
+
+    ``x_offset`` (an int, B19a): the classes of a slab whose local x 0 is
+    global x ``x_offset`` (B3b counted as ``classify_bricks_slab``); None:
+    the whole volume."""
     split = split and not fine
     H, W = intr.height, intr.width
-    if split and max(H, W) > AUX_IMAGE_LIMIT:
-        raise ValueError(f"the split classifier takes images of at most {AUX_IMAGE_LIMIT} pixels a side")
+    off = x_offset or 0
     if kernels.on_cpu(table, pose):
         if fine:
-            return rank_bricks_plain(classify_bricks_fine_plain(table, pose, intr, cfg), cap)
-        full = classify_bricks_full_plain(table, pose, intr, cfg, split=split)
-        return rank_bricks_plain(full.cls, cap)._replace(aux=pack_aux(full).reshape(-1) if split else None)
+            return rank_bricks_plain(classify_bricks_fine_plain(table, pose, intr, cfg, off), cap)
+        full = classify_bricks_full_plain(table, pose, intr, cfg, split=split, x_offset=off)
+        return rank_bricks_plain(full.cls, cap)._replace(aux=pack_aux(full).reshape(-1, AUX_INTS) if split else None)
     nb = _check_resolution(cfg.resolution)
     layout = mip_layout(H, W)
     kernels.check_tensor(table, "table", torch.float32, (layout.rows, 3))
@@ -632,33 +648,34 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     scratch = classify_scratch(dev, n)
     args = (table, pose, cls, scratch.words, *scratch.next_launch(), rank, active_ids, work_ids, totals, overflow)
-    consts = (H, W, _layout_ints(layout), classify_consts(intr, cfg))
+    consts = (H, W, _layout_ints(layout), classify_consts(intr, cfg, off))
     aux = None
     if fine:
         kernel = "classify_bricks_fine"
         kernels.launch(kernel, dev, *args, *consts, subcell_consts(cfg)[1], int(cap))
     elif split:
-        kernel, aux = "classify_bricks_split", torch.empty(n, dtype=torch.int32, device=dev)
+        kernel, aux = "classify_bricks_split", torch.empty((n, AUX_INTS), dtype=torch.int32, device=dev)
         kernels.launch(kernel, dev, *args, aux, *consts, int(cap))
     else:
-        kernel = "classify_bricks"
-        kernels.launch(kernel, dev, *args, *consts, int(cap))
+        kernel = "classify_bricks" if x_offset is None else "classify_bricks_slab"
+        kernels.launch("classify_bricks", dev, *args, *consts, int(cap))
     scratch.launched(classify_tiles(n))
     kernels.launch_counts[kernel] += 1
     return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow, aux)
 
 
-def classify_consts(intr: Intrinsics, cfg) -> list:
+def classify_consts(intr: Intrinsics, cfg, x_offset: int = 0) -> list:
     """The classifier kernel's float32 constants, rounded as PyTorch rounds the
     plain version's host numbers: brick edge, fx, fy, cx, cy, the four gate
     planes' constant terms, 1/|fx| and 1/|fy| (the reciprocal in double, as
-    the card divides by a host number), trunc, -trunc."""
+    the card divides by a host number), trunc, -trunc, and a slab's x origin
+    shift (:func:`kernels.slab_shift_m`, B19a)."""
     f32, W, H = kernels.f32, intr.width, intr.height
     return [
         f32(BRICK * cfg.voxel_size), f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy),
         f32(intr.cx - 2.5), f32((W - 0.5) - intr.cx), f32(intr.cy - 2.5), f32((H - 0.5) - intr.cy),
         kernels.reciprocal_f32(abs(intr.fx)), kernels.reciprocal_f32(abs(intr.fy)),
-        f32(cfg.trunc_dist), f32(-cfg.trunc_dist),
+        f32(cfg.trunc_dist), f32(-cfg.trunc_dist), kernels.slab_shift_m(x_offset, cfg.voxel_size),
     ]
 
 
@@ -670,7 +687,7 @@ def _is_rows(value: torch.Tensor) -> bool:
 
 def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
                       dense_on_overflow: bool, bi_threshold: float = 0.0, subcells: Optional[Subcells] = None,
-                      subcell_cap: int = 0) -> None:
+                      subcell_cap: int = 0, x_offset: int = 0) -> None:
     """Plain version of B3c, IN PLACE: the port of ``_integrate_rows_core``
     over brick rows, the planes' own when they are ``(NB, 512)`` rows (the
     brick layout), else :func:`to_bricks` of the dense planes. FAR and
@@ -686,11 +703,13 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
     ``dense_on_overflow`` a frame whose flag is set (the brick or the
     subcell lists' overflow) takes the exact update at every voxel instead,
     from the pre-frame volume (the JAX engine's rerun). ``bi_threshold`` as
-    the exact update's."""
+    the exact update's. ``x_offset``: a slab's first x (B19a), each voxel at
+    ``((x + x_offset) + 0.5) * voxel_size`` (``_integrate_rows_core``'s
+    rounding, also for the dense rerun)."""
     r_v2c, t_v2c = kernels.unpack_fusion_pose(pose)
     rows = _is_rows(value)
     res = tuple(cfg.resolution)
-    if dense_on_overflow and bool(classes.overflow) and not rows:
+    if dense_on_overflow and bool(classes.overflow) and not rows and not x_offset:
         kernels.fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, cfg.voxel_size, cfg.trunc_dist,
                                   cfg.max_weight, bi_threshold)
         return
@@ -706,12 +725,12 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
 
     def coords(ids):
         bx, by, bz = ids // (nby * nbz), (ids // nbz) % nby, ids % nbz
-        return (((bx * BRICK).to(torch.float32)[:, None] + lx[None, :] + 0.5) * vs,
+        return (((bx * BRICK).to(torch.float32)[:, None] + lx[None, :] + 0.5 + x_offset) * vs,
                 ((by * BRICK).to(torch.float32)[:, None] + ly[None, :] + 0.5) * vs,
                 ((bz * BRICK).to(torch.float32)[:, None] + lz[None, :] + 0.5) * vs)
 
     every = torch.arange(vb.shape[0], device=dev)
-    if dense_on_overflow and bool(classes.overflow):  # brick rows: the exact update everywhere
+    if dense_on_overflow and bool(classes.overflow):  # brick rows or a slab: the exact update everywhere
         new = kernels.voxel_update_plain(*coords(every), vb, gb, wb, depth_m, r_v2c, t_v2c, intr, cfg.trunc_dist,
                                          cfg.max_weight, bi_threshold)
         for plane, updated in zip((value, grad, weight), new):
@@ -735,7 +754,7 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
     far_mask = gate & far_rows[:, None]
     if classes.aux is not None:
         # MIXED: far where the voxel's nearest pixel, round(img), lies in a far cell of the window
-        aux = unpack_aux(classes.aux.reshape(-1))
+        aux = unpack_aux(classes.aux.reshape(-1, AUX_INTS))
         far_mask = gate & (far_rows | (cls == MIXED))[:, None]
 
         def cell(img, origin):
@@ -773,7 +792,7 @@ def fuse_bricks_plain(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg,
 
 def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, classes: BrickClasses, cap: int,
                 dense_on_overflow: bool, bi_threshold: float = 0.0, subcells: Optional[Subcells] = None,
-                subcell_cap: int = 0) -> None:
+                subcell_cap: int = 0, x_offset=None) -> None:
     """B3c: fuse the frame into the planes IN PLACE, brick by brick as
     ``classes`` (and ``subcells``) say (:func:`fuse_bricks_plain`'s
     contract): dense ``(X, Y, Z)`` planes or brick-major ``(NB, 512)`` rows,
@@ -783,12 +802,16 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     and, where it is set, updates every brick exactly. With the split
     classifier's windows (``classes.aux``) the launch is B3c's MIXED variant,
     with ``subcells`` its subcell variant (counted as ``fuse_bricks_mixed``
-    and ``fuse_bricks_subcell``, in either branch of the depth sample)."""
+    and ``fuse_bricks_subcell``, in either branch of the depth sample).
+    ``x_offset`` (an int, B19a): the planes are a slab whose local x 0 is
+    global x ``x_offset`` (B3c counted as ``fuse_bricks_slab``); None: the
+    whole volume."""
     if subcells is not None and subcell_cap < 1:
         raise ValueError(f"subcells need subcell_cap >= 1, got {subcell_cap}")
+    off = x_offset or 0
     if kernels.on_cpu(value, grad, weight, depth_m, pose, classes.cls):
         fuse_bricks_plain(value, grad, weight, depth_m, pose, intr, cfg, classes, cap, dense_on_overflow,
-                          bi_threshold, subcells, subcell_cap)
+                          bi_threshold, subcells, subcell_cap, off)
         return
     nbx, nby, nbz = _check_resolution(cfg.resolution)
     rows = _is_rows(value)
@@ -806,9 +829,9 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
     args = (value, grad, weight, depth_m, pose, classes.cls, classes.rank, classes.work_ids, classes.totals,
             classes.overflow)
     tail = (*kernels.fusion_args(intr, cfg.voxel_size, cfg.trunc_dist, cfg.max_weight), int(cap),
-            bool(dense_on_overflow), list(cfg.resolution), rows, kernels.bilinear_arg(bi_threshold))
+            bool(dense_on_overflow), list(cfg.resolution), rows, kernels.bilinear_arg(bi_threshold), int(off))
     if classes.aux is not None:
-        kernels.check_tensor(classes.aux, "aux", torch.int32, (n,))
+        kernels.check_tensor(classes.aux, "aux", torch.int32, (n, AUX_INTS))
     if subcells is not None:
         for t, name in ((subcells.cls, "subcell cls"), (subcells.rank, "subcell rank")):
             kernels.check_tensor(t, name, torch.int32, (cap, 8))
@@ -820,5 +843,6 @@ def fuse_bricks(value, grad, weight, depth_m, pose, intr: Intrinsics, cfg, class
         kernels.launch(kernel, value.device, *args, classes.aux, *tail)
     else:
         kernel = "fuse_bricks_bilinear" if bi_threshold > 0 else "fuse_bricks"
+        kernel = kernel if x_offset is None else "fuse_bricks_slab"
         kernels.launch("fuse_bricks", value.device, *args, *tail)
     kernels.launch_counts[kernel] += 1

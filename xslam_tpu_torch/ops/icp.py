@@ -32,6 +32,13 @@ the association is made at and projects every pixel anyway, writes the map
 (``IcpLoop.iterate(..., assoc_out=)``; −1 also where the current normal is
 NaN, a pixel no iteration adds), and the level's later launches read it.
 
+The sharded engine's iteration (B19d, :mod:`xslam_tpu_torch.parallel.sharded`)
+is ``IcpLoop(pose, reduce=)``: each rank launches ``icp_system`` on its block
+of the current maps' columns with the 55 double totals as output, the ranks
+sum them (``reduce``, an ``all_reduce``), and :func:`icp_tail` (K4's tail as
+a launch of its own) solves the summed system and moves the pose: on one
+rank the fused launch's bits.
+
 Nothing here reads a value back to the host, so the ICP loop queues on the
 device without a sync; the per-step ``ok`` flags stay device booleans.
 """
@@ -231,6 +238,7 @@ class _Scratch:
         self.inliers = torch.empty((), dtype=torch.int32, device=device)
         self.x = torch.empty(12, **f32)
         self.flags = torch.zeros(2, dtype=torch.int32, device=device)
+        self.totals = torch.empty(ICP_SUMS, dtype=torch.float64, device=device)  # a sharded iteration's sums
 
 
 _scratch: dict = {}  # (device, stream) -> _Scratch
@@ -244,11 +252,13 @@ def _icp_scratch(device: torch.device) -> _Scratch:
 
 
 def _launch_system(scratch, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, pose, out, inliers, intr,
-                   dist_thres, angle_thres, tail=None, damping=0.0, first=False, assoc_out=None) -> None:
+                   dist_thres, angle_thres, tail=None, damping=0.0, first=False, assoc_out=None,
+                   totals_out=None) -> None:
     """Check the tensors and launch ``icp_system`` once. ``tail`` is ``None``
     or ``(pose_out, x_out, flags)``; ``assoc_out``, where ``assoc`` is
-    ``None``, the int32 (H, W) map the launch writes its association into.
-    Nothing here runs on the device but the kernel."""
+    ``None``, the int32 (H, W) map the launch writes its association into;
+    ``totals_out``, where given, the 55 float64 the launch writes its sums
+    into (B19d). Nothing here runs on the device but the kernel."""
     _check_maps(vmap_curr, (vmap_curr, nmap_curr), ("vmap_curr", "nmap_curr"))
     if nmap_curr.shape != vmap_curr.shape:
         raise ValueError("the current maps must share one shape")
@@ -270,9 +280,32 @@ def _launch_system(scratch, vmap_curr, nmap_curr, model_rows, prev_shape, assoc,
         scratch.ticket, icp_blocks(vmap_curr[0].numel()), out, inliers, *(tail or (None, None, None)),
         kernels.f32(damping), bool(first), H, W,
         kernels.f32(intr.fx), kernels.f32(intr.fy), kernels.f32(intr.cx), kernels.f32(intr.cy),
-        kernels.f32(dist_thres), kernels.f32(angle_thres),
+        kernels.f32(dist_thres), kernels.f32(angle_thres), totals_out,
     )
     kernels.launch_counts["icp_system"] += 1
+
+
+def icp_tail(totals: torch.Tensor, pose: torch.Tensor, out: torch.Tensor, inliers: torch.Tensor,
+             pose_out: torch.Tensor, x_out: torch.Tensor, flags: torch.Tensor, damping: float, first: bool) -> None:
+    """B19d, K4's tail as a launch of its own (``csrc/icp.cu::xs_icp_tail``):
+    the system of ``totals`` (the 55 float64 sums of ``icp_system``, summed
+    over the ranks) into ``out`` and ``inliers`` as float32 and int32, then
+    the damping, the 6x6 dual solve and the pose update from ``pose`` into
+    ``pose_out``, ``x_out`` and ``flags``, as the fused launch's tail does:
+    each total rounded to float32 where it is read. CUDA tensors only (the
+    CPU's sharded iteration runs :func:`icp_step_plain` on the summed
+    system)."""
+    kernels.check_tensor(totals, "totals", torch.float64, (ICP_SUMS,))
+    for t, name in ((pose, "pose"), (pose_out, "pose_out")):
+        kernels.check_tensor(t, name, torch.float32, (POSE_FLOATS,))
+    kernels.check_tensor(out, "out", torch.float32, (84,))
+    kernels.check_tensor(x_out, "x_out", torch.float32, (12,))
+    kernels.check_tensor(flags, "flags", torch.int32, (2,))
+    if kernels.on_cpu(totals, pose, out, pose_out, x_out, flags):
+        raise ValueError("icp_tail launches K4's tail: its tensors must lie on a CUDA device")
+    kernels.launch("icp_tail", totals.device, totals, pose, out, inliers, pose_out, x_out, flags,
+                   kernels.f32(damping), bool(first))
+    kernels.launch_counts["icp_tail"] += 1
 
 
 def build_system(
@@ -318,6 +351,22 @@ def _check_model_maps(vmap_g_prev: CSFD, nmap_g_prev: CSFD) -> None:
         raise ValueError("the previous model's maps must share one shape")
 
 
+def system_of_totals(totals: torch.Tensor) -> IcpSystem:
+    """The system of ``icp_system``'s 55 double totals (B19d: the ranks'
+    sums), each rounded once to float32 as K4 rounds them: the 21 pairs of
+    A's upper triangle, then b's 6, for the value lane, then the same for
+    the derivative lane, then the inlier count."""
+    i, j = torch.triu_indices(6, 6, device=totals.device)
+    lanes = []
+    for lane in (totals[:27], totals[27:54]):
+        A = torch.zeros((6, 6), dtype=torch.float64, device=totals.device)
+        A[i, j] = lane[:21]
+        A[j, i] = lane[:21]
+        lanes.append((A.to(torch.float32), lane[21:27].to(torch.float32)))
+    return IcpSystem(A=CSFD(lanes[0][0], lanes[1][0]), b=CSFD(lanes[0][1], lanes[1][1]),
+                     inlier_count=totals[54].to(torch.int32))
+
+
 def _system_of(out: torch.Tensor, inliers: torch.Tensor) -> IcpSystem:
     A = CSFD(out[0:36].view(6, 6), out[36:72].view(6, 6))
     b = CSFD(out[72:78], out[78:84])
@@ -332,9 +381,13 @@ class IcpLoop:
     the index map its later launches read. Nothing else runs on the device
     between them, and nothing is read back. :meth:`result` copies the
     outcome out of the scratch, which the next loop on this device and
-    stream reuses."""
+    stream reuses.
 
-    def __init__(self, pose: torch.Tensor):
+    With ``reduce`` (B19d, the sharded engine) an iteration is instead an
+    ``icp_system`` launch that writes its 55 double totals, ``reduce(totals)``
+    (which sums them over the ranks in place), and :func:`icp_tail`."""
+
+    def __init__(self, pose: torch.Tensor, reduce=None):
         """``pose``: the 36 floats of :func:`pack_pose` on a CUDA device."""
         if pose.device.type != "cuda":
             raise ValueError("IcpLoop drives the kernel: its pose must lie on a CUDA device")
@@ -342,6 +395,7 @@ class IcpLoop:
         self._scratch.pose[0].copy_(pose)
         self._cur = 0
         self._first = True
+        self._reduce = reduce
 
     def iterate(self, vmap_curr, nmap_curr, model_rows, prev_shape, intr: Intrinsics, dist_thres: float,
                 angle_thres: float, damping: float = 0.0, assoc=None, assoc_out=None) -> None:
@@ -351,11 +405,20 @@ class IcpLoop:
         makes at the pose it starts from: :func:`associate_index`'s map
         wherever the current normal is a number, −1 elsewhere."""
         s = self._scratch
-        _launch_system(
-            s, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, s.pose[self._cur], s.out, s.inliers, intr,
-            dist_thres, angle_thres, tail=(s.pose[1 - self._cur], s.x, s.flags), damping=damping,
-            first=self._first, assoc_out=assoc_out,
-        )
+        pose_in, pose_out = s.pose[self._cur], s.pose[1 - self._cur]
+        if self._reduce is None:
+            _launch_system(
+                s, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, pose_in, s.out, s.inliers, intr,
+                dist_thres, angle_thres, tail=(pose_out, s.x, s.flags), damping=damping, first=self._first,
+                assoc_out=assoc_out,
+            )
+        else:
+            _launch_system(
+                s, vmap_curr, nmap_curr, model_rows, prev_shape, assoc, pose_in, s.out, s.inliers, intr,
+                dist_thres, angle_thres, assoc_out=assoc_out, totals_out=s.totals,
+            )
+            self._reduce(s.totals)
+            icp_tail(s.totals, pose_in, s.out, s.inliers, pose_out, s.x, s.flags, damping, self._first)
         self._cur = 1 - self._cur
         self._first = False
 

@@ -11,12 +11,14 @@ launches every kernel of the package and holds the wrappers of five:
   ``xslam_tpu/ops/fusion.py::_voxel_update``: the nearest-depth branch and,
   with ``bi_threshold > 0``, the bilinear one (B11,
   ``csrc/fusion.cuh::bilinear_depth``; count ``fuse_volume_bilinear``);
-  plain version :func:`fuse_volume_plain`.
+  plain version :func:`fuse_volume_plain`; with ``x_offset`` a slab of the
+  sharded engine (B19a, count ``fuse_volume_slab``).
 - K3 :func:`march_fixed` (``csrc/march.cu``) replaces the XLA code of
   ``xslam_tpu/ops/raycast.py::_camera_rays`` and ``::march``, also along the
   rays of every ``stride``-th pixel (the hierarchical marches' coarse
-  passes; count ``march_fixed_strided``); plain version :func:`camera_rays`
-  then :func:`march_fixed_plain`.
+  passes; count ``march_fixed_strided``), and with a ``spec`` over a slab of
+  the sharded engine (B19b, count ``march_fixed_shard``); plain version
+  :func:`camera_rays` then :func:`march_fixed_plain`.
 - K7 :func:`depth_pyramid` and K8 :func:`vertex_normal_pyramid`
   (``csrc/maps.cu``) replace the XLA code of
   ``xslam_tpu/ops/preprocess.py::pyr_down`` applied level after level and of
@@ -92,7 +94,7 @@ INF_T = 1e9
 RAY_POSE_FLOATS = 48
 FUSION_POSE_FLOATS = 24
 BILATERAL_TABLE_FLOATS = 27 * 448  # K1's weight table (csrc/bilateral.cu)
-MAX_MAP_LEVELS = 3  # K6's and K8's levels in one launch (csrc/maps.cu); the ICP runs at most 3
+MAX_MAP_LEVELS = 3  # K6's, K7's and K8's levels in one launch (csrc/maps.cu); more levels take more launches
 
 launch_counts = {
     "bilateral_filter": 0, "fuse_volume": 0, "fuse_volume_bilinear": 0, "march_fixed": 0,
@@ -106,6 +108,10 @@ launch_counts = {
     "skip_field_dense": 0, "march_skip_dense": 0, "window_march_dense": 0,
     "tsdf_loss": 0, "tsdf_band": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,
+    # B19, the sharded engine's slab hooks (xslam_tpu_torch/parallel/sharded.py): K2, B3b and B3c with a slab's
+    # x offset, K3 over a slab, K5's shard mode and its finalize, K4's tail over the ranks' summed system
+    "fuse_volume_slab": 0, "classify_bricks_slab": 0, "fuse_bricks_slab": 0, "march_fixed_shard": 0,
+    "raycast_refine_shard": 0, "raycast_finalize": 0, "icp_tail": 0,
 }
 _ext = None  # the built extension module
 _bilateral_weights: dict = {}  # device -> K1's weight table, made at the first launch there
@@ -210,8 +216,10 @@ def depth_pyramid(depth: torch.Tensor, levels: int) -> list:
     """The depth pyramid of ``levels`` levels (f32 mm): ``[depth, half, quarter,
     ...]``, each the next coarser level of the one before. On CPU tensors its
     plain version, :func:`~xslam_tpu_torch.ops.preprocess.pyr_down` level
-    after level. On the card, levels 1 and 2 in ONE launch of K7 (at most
-    :data:`MAX_MAP_LEVELS` levels)."""
+    after level. On the card, levels 1 and 2 in ONE launch of K7; past
+    :data:`MAX_MAP_LEVELS` levels K7 is launched again on the last level
+    made, two more levels a launch (each level is ``pyr_down`` of the one
+    before, so the first three keep their bits)."""
     if levels < 1:
         raise ValueError(f"levels: expected at least 1, got {levels}")
     if depth.dim() != 2:
@@ -221,18 +229,19 @@ def depth_pyramid(depth: torch.Tensor, levels: int) -> list:
         for _ in range(1, levels):
             out.append(preprocess.pyr_down(out[-1]))
         return out
-    if levels > MAX_MAP_LEVELS:
-        raise ValueError(f"K7 takes at most {MAX_MAP_LEVELS} levels, got {levels}")
     check_tensor(depth, "depth", torch.float32)
-    if levels == 1:
-        return [depth]
     H, W = depth.shape
     if min(H, W) >> (levels - 1) < 1:
         raise ValueError(f"a {H}x{W} depth has no level {levels - 1}")
-    out = [depth] + [torch.empty((H >> level, W >> level), dtype=torch.float32, device=depth.device)
-                     for level in range(1, levels)]
-    launch("depth_pyramid", depth.device, depth, out[1], out[2] if levels > 2 else None, levels)
-    launch_counts["depth_pyramid"] += 1
+    out = [depth]
+    while len(out) < levels:  # a launch makes up to MAX_MAP_LEVELS - 1 levels below its source
+        n = min(MAX_MAP_LEVELS, levels - len(out) + 1)
+        h, w = out[-1].shape
+        made = [torch.empty((h >> level, w >> level), dtype=torch.float32, device=depth.device)
+                for level in range(1, n)]
+        launch("depth_pyramid", depth.device, out[-1], made[0], made[1] if n > 2 else None, n)
+        launch_counts["depth_pyramid"] += 1
+        out += made
     return out
 
 
@@ -271,8 +280,10 @@ def vertex_normal_pyramid(intr_levels, depths):
     tuples of one map a level. Same contract as
     :func:`~xslam_tpu_torch.ops.preprocess.create_vmap` followed by
     :func:`~xslam_tpu_torch.ops.preprocess.create_nmap` on each level (its
-    plain version). On the card, one launch of K8 for all levels; the maps are
-    views of one buffer (:func:`map_pyramid_views`)."""
+    plain version). On the card, one launch of K8 for up to
+    :data:`MAX_MAP_LEVELS` levels (one more for each further group of up to
+    that many); the maps are views of one buffer a launch
+    (:func:`map_pyramid_views`)."""
     intr_levels, depths = list(intr_levels), list(depths)
     if len(intr_levels) != len(depths) or not depths:
         raise ValueError(f"expected one depth a level, got {len(depths)} for {len(intr_levels)} levels")
@@ -280,7 +291,11 @@ def vertex_normal_pyramid(intr_levels, depths):
         vmaps = tuple(preprocess.create_vmap(intr, d) for intr, d in zip(intr_levels, depths))
         return vmaps, tuple(preprocess.create_nmap(v) for v in vmaps)
     if len(depths) > MAX_MAP_LEVELS:
-        raise ValueError(f"K8 takes at most {MAX_MAP_LEVELS} levels, got {len(depths)}")
+        vmaps, nmaps = (), ()
+        for at in range(0, len(depths), MAX_MAP_LEVELS):
+            v, n = vertex_normal_pyramid(intr_levels[at:at + MAX_MAP_LEVELS], depths[at:at + MAX_MAP_LEVELS])
+            vmaps, nmaps = vmaps + v, nmaps + n
+        return vmaps, nmaps
     shapes = [(intr.height, intr.width) for intr in intr_levels]
     for level, (d, shape) in enumerate(zip(depths, shapes)):
         check_tensor(d, f"depths[{level}]", torch.float32, shape)
@@ -305,10 +320,15 @@ def fuse_volume(
     trunc_dist: float,
     max_weight: float,
     bi_threshold: float = 0.0,
+    x_offset=None,
 ) -> None:
     """Fuse one scaled depth frame (metres) into the dual TSDF volume, IN
     PLACE: ``value``, ``grad`` and ``weight`` ((X, Y, Z) float32) are
-    overwritten at every voxel the frame updates.
+    overwritten at every voxel the frame updates. ``x_offset`` (an int, B19a):
+    the planes are a slab of a larger volume whose local x 0 is global x
+    ``x_offset``, each voxel's x moved by :func:`slab_shift_m` as
+    ``xslam_tpu/ops/fusion.py::integrate(x_offset=)`` moves it (counted as
+    ``fuse_volume_slab``); None: the whole volume.
 
     ``r_v2c``/``t_v2c``: dual volume->camera rotation (3, 3) and translation
     (3,). ``bi_threshold <= 0``: the reference's nearest-depth branch; above
@@ -317,7 +337,7 @@ def fuse_volume(
     pose = fusion_pose(r_v2c, t_v2c)
     if on_cpu(value, grad, weight, depth_m, pose):
         fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight,
-                          bi_threshold)
+                          bi_threshold, x_offset or 0)
         return
     X, Y, Z = value.shape
     for t, n in ((value, "value"), (grad, "grad"), (weight, "weight")):
@@ -325,8 +345,17 @@ def fuse_volume(
     check_tensor(depth_m, "depth_m", torch.float32, (intr.height, intr.width))
     check_tensor(pose, "pose", torch.float32, (FUSION_POSE_FLOATS,))
     launch("fuse_volume", value.device, value, grad, weight, depth_m, pose,
-           *fusion_args(intr, voxel_size, trunc_dist, max_weight), bilinear_arg(bi_threshold))
-    launch_counts["fuse_volume_bilinear" if bi_threshold > 0 else "fuse_volume"] += 1
+           *fusion_args(intr, voxel_size, trunc_dist, max_weight), bilinear_arg(bi_threshold),
+           slab_shift_m(x_offset or 0, voxel_size))
+    key = "fuse_volume_bilinear" if bi_threshold > 0 else "fuse_volume"
+    launch_counts["fuse_volume_slab" if x_offset is not None else key] += 1
+
+
+def slab_shift_m(x_offset: int, voxel_size: float) -> float:
+    """A slab's x origin in metres as the JAX package's sharded stages compute
+    it from their traced int32 offset: ``float32(x_offset) * float32(voxel_size)``
+    rounded once in float32 (B19a; 0 for the whole volume)."""
+    return f32(np.float32(x_offset) * np.float32(voxel_size))
 
 
 def fusion_pose(r_v2c: CSFD, t_v2c: CSFD) -> torch.Tensor:
@@ -359,13 +388,15 @@ def bilinear_arg(bi_threshold: float) -> float:
 
 
 def fuse_volume_plain(value, grad, weight, depth_m, r_v2c, t_v2c, intr, voxel_size, trunc_dist, max_weight,
-                      bi_threshold: float = 0.0):
+                      bi_threshold: float = 0.0, x_offset: int = 0):
     """Plain version of K2: the port of ``xslam_tpu/ops/fusion.py::integrate``
     (``_voxel_update``, TsdfFusion.cu:85-171), written back in place like the
-    kernel."""
+    kernel; ``x_offset`` a slab's first x (:func:`fuse_volume`)."""
     X, Y, Z = value.shape
     dev = value.device
     gx = ((torch.arange(X, dtype=torch.float32, device=dev) + 0.5)[:, None, None] * voxel_size)
+    if x_offset:
+        gx = gx + slab_shift_m(x_offset, voxel_size)
     gy = ((torch.arange(Y, dtype=torch.float32, device=dev) + 0.5)[None, :, None] * voxel_size)
     gz = ((torch.arange(Z, dtype=torch.float32, device=dev) + 0.5)[None, None, :] * voxel_size)
     new = voxel_update_plain(gx, gy, gz, value, grad, weight, depth_m, r_v2c, t_v2c, intr, trunc_dist, max_weight,
@@ -477,8 +508,19 @@ def strided(n: int, stride: int) -> int:
     return (n + stride - 1) // stride
 
 
+def resolve_spec(spec, local_x: int) -> Tuple[int, int, int, int]:
+    """``(x_base, x_total, core_start, core_end)`` of a slab's placement
+    (:class:`xslam_tpu_torch.ops.raycast.ShardSpec`, or None for the whole
+    volume) for a slab of ``local_x`` rows: ``xslam_tpu/ops/raycast.py::_resolve``."""
+    if spec is None:
+        return 0, local_x, 0, local_x
+    x_total = spec.x_total if spec.x_total is not None else local_x
+    core_end = spec.core_end if spec.core_end is not None else x_total
+    return int(spec.x_base), int(x_total), int(spec.core_start), int(core_end)
+
+
 def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel_size: float, trunc_dist: float,
-                stride: int = 1):
+                stride: int = 1, spec=None):
     """Lockstep fixed-trip ray march over the value plane (RayCaster.cu:226-247)
     along the camera rays of ``intr`` at the packed pose (:func:`pack_ray_pose`;
     its camera->volume half is read, value lanes only); with ``stride`` > 1
@@ -487,14 +529,21 @@ def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel
 
     Returns ``(t_found, t_dead)``, each (ceil(H / stride), ceil(W / stride))
     float32: the march time of the first +->- crossing and of the first death
-    (volume exit or -->+ step), ``INF_T`` where none."""
+    (volume exit or -->+ step), ``INF_T`` where none.
+
+    ``spec`` (B19b; a :class:`xslam_tpu_torch.ops.raycast.ShardSpec`, at
+    stride 1): ``value`` is a slab of the volume with its halo, placed as the
+    spec says; the events are ``xslam_tpu/ops/raycast.py::march(spec=)``'s
+    (:func:`march_fixed_plain`). Counted as ``march_fixed_shard``."""
     if stride < 1:
         raise ValueError(f"stride: expected at least 1, got {stride}")
+    if spec is not None and stride != 1:
+        raise ValueError("a slab's march runs at stride 1")
     if on_cpu(value, pose):
         r_c2v, t_c2v = unpack_ray_pose(pose)[:2]
         ray_dir, ray_start = camera_rays(r_c2v, t_c2v, intr)
         dirs = CSFD(ray_dir.v[:, ::stride, ::stride], ray_dir.g[:, ::stride, ::stride])
-        return march_fixed_plain(value, ray_start, dirs, voxel_size, trunc_dist)
+        return march_fixed_plain(value, ray_start, dirs, voxel_size, trunc_dist, spec)
     if value.dim() != 3:
         raise ValueError(f"value: expected (X, Y, Z), got {tuple(value.shape)}")
     check_tensor(value, "value", torch.float32)
@@ -504,18 +553,27 @@ def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel
     t_found = torch.empty((strided(intr.height, stride), strided(intr.width, stride)), dtype=torch.float32,
                           device=value.device)
     t_dead = torch.empty_like(t_found)
+    slab = [] if spec is None else list(resolve_spec(spec, value.shape[0]))
+    if spec is not None and slab[1] * value.shape[1] * value.shape[2] >= 1 << 31:
+        raise ValueError("value: K3 indexes the whole volume with 32 bits")
     launch(
         "march_fixed", value.device, value, pose, t_found, t_dead, stride, march_steps(trunc_dist), f32(voxel_size),
-        f32(trunc_dist * 0.8), *camera_args(intr),
+        f32(trunc_dist * 0.8), *camera_args(intr), slab,
     )
-    launch_counts["march_fixed" if stride == 1 else "march_fixed_strided"] += 1
+    launch_counts["march_fixed_shard" if spec is not None else
+                  "march_fixed" if stride == 1 else "march_fixed_strided"] += 1
     return t_found, t_dead
 
 
-def march_fixed_plain(value, ray_start: CSFD, ray_dir: CSFD, voxel_size: float, trunc_dist: float):
-    """Plain version of K3: the port of ``xslam_tpu/ops/raycast.py::march``
-    (single volume, no shard). Each step reads the nearest voxel + 1e-5."""
-    X, Y, Z = value.shape
+def march_fixed_plain(value, ray_start: CSFD, ray_dir: CSFD, voxel_size: float, trunc_dist: float, spec=None):
+    """Plain version of K3: the port of ``xslam_tpu/ops/raycast.py::march``.
+    Each step reads the nearest voxel + 1e-5. With ``spec`` (B19b) ``value``
+    is a slab: a sample at global voxel g reads local row ``g - x_base`` (0 +
+    1e-5 outside the slab), lies inside where g lies in the ``x_total``-row
+    volume, and records a crossing or a -->+ death only in the core rows; an
+    exit from the volume is a death on every slab."""
+    Xl, Y, Z = value.shape
+    x_base, X, core0, core1 = resolve_spec(spec, Xl)
     step = trunc_dist * 0.8
     start_v = ray_start.v[:, None, None]
     dirs_v = ray_dir.v
@@ -525,7 +583,7 @@ def march_fixed_plain(value, ray_start: CSFD, ray_dir: CSFD, voxel_size: float, 
         return to_index(torch.floor(p / voxel_size))
 
     def read(g):
-        return gather3d(value, g[0], g[1], g[2]) + 1e-5
+        return gather3d(value, g[0] - x_base, g[1], g[2]) + 1e-5
 
     def inside(g):
         return (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
@@ -541,9 +599,10 @@ def march_fixed_plain(value, ray_start: CSFD, ray_dir: CSFD, voxel_size: float, 
         t_curr = f32(np.float32(RAY_MIN_M) + np.float32(k) * np.float32(step))
         g = voxel_of(start_v + dirs_v * t_next)
         ins = inside(g)
+        own = (g[0] >= core0) & (g[0] < core1)
         tsdf = read(g)
-        death = (~ins) | (ins & (prev < 0.0) & (tsdf > 0.0))
-        crossing = ins & (prev > 0.0) & (tsdf < 0.0)
+        death = (~ins) | (own & ins & (prev < 0.0) & (tsdf > 0.0))
+        crossing = own & ins & (prev > 0.0) & (tsdf < 0.0)
         t_found = torch.where(crossing & (t_curr < t_found), t_curr, t_found)
         t_dead = torch.where(death & (t_curr < t_dead), t_curr, t_dead)
         prev = tsdf

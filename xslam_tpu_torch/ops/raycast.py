@@ -30,10 +30,18 @@ and :func:`march_temporal` (the anchored window marches),
 :func:`refine_from_samples` (the ``reuse`` refine) and
 :func:`screen_normals_plain`, B4n's plain version (the kernel computes the
 normals in K6's launch: :func:`xslam_tpu_torch.models.kinfu.model_map_pyramid`).
+
+The sharded engine's raycast over X-slabs (B19b, B19c;
+:mod:`xslam_tpu_torch.parallel.sharded`) places a slab with a
+:class:`ShardSpec`: K3 ``kernels.march_fixed(spec=)``, then K5's shard mode
+:func:`raycast_refine_shard` (plain :func:`refine` with ``spec``), whose
+ranks' sums :func:`raycast_finalize` (K5's finalize; plain
+:func:`finalize_maps`) turns into the model maps.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -56,6 +64,30 @@ MARCH_MODES = ("fixed", "skip", "hier", "hier_skip", "hier2")
 HIER2_MID_WINDOW = 12
 
 
+@dataclass(frozen=True)
+class ShardSpec:
+    """Global placement of a local X-slab (``xslam_tpu/ops/raycast.py::
+    ShardSpec``): rows ``[x_base, x_base + local_x)`` of a volume with
+    ``x_total`` rows; the slab owns the core rows ``[core_start, core_end)``
+    (global indices)."""
+
+    x_base: int = 0
+    x_total: Optional[int] = None  # None: the local extent is the whole volume
+    core_start: int = 0
+    core_end: Optional[int] = None
+
+
+def _resolve(spec: ShardSpec, local_shape) -> Tuple[int, int, int, int]:
+    """``(x_base, x_total, core_start, core_end)`` of ``spec`` for a slab of
+    ``local_shape``."""
+    return kernels.resolve_spec(spec, local_shape[0])
+
+
+# the maps of K5's shard mode, one (H, W) plane each: vmap.v (3), vmap.g (3), nmap.v (3), nmap.g (3), then the v and
+# n masks (1 or 0): the planes the ranks sum
+SHARD_PLANES = 14
+
+
 class RaycastHit(NamedTuple):
     """Per-pixel march outcome before refinement."""
 
@@ -64,15 +96,19 @@ class RaycastHit(NamedTuple):
 
 
 def trilinear_tsdf_shard(
-    value: torch.Tensor, grad: torch.Tensor, px: CSFD, py: CSFD, pz: CSFD, voxel_size: float
+    value: torch.Tensor, grad: torch.Tensor, px: CSFD, py: CSFD, pz: CSFD, voxel_size: float,
+    spec: ShardSpec = ShardSpec(),
 ) -> CSFD:
-    """Dual trilinear TSDF interpolation at metric points of a whole volume
-    (the reference's single-shard case). Out-of-bounds -> NaN value.
+    """Dual trilinear TSDF interpolation at metric points (global
+    coordinates) of the volume, read from a local slab placed by ``spec``
+    (the whole volume by default). Out-of-(global)-bounds -> NaN value; a
+    tap outside the slab reads 0 (B19b).
 
     Cell selection shifts the base cell when the point is below the voxel
     centre (RayCaster.cu:117-122); taps carry ``readTsdf``'s +1e-5 bias
     (RayCaster.cu:77)."""
-    X, Y, Z = value.shape
+    _, Y, Z = value.shape
+    x_base, X, _, _ = _resolve(spec, value.shape)
     inv_vs = 1.0 / voxel_size
 
     gx = to_index(torch.floor(px.v * inv_vs))
@@ -90,8 +126,10 @@ def trilinear_tsdf_shard(
     one = lift(1.0)
     a1, b1, c1 = one - a0, one - b0, one - c0
 
+    lx = gx - x_base
+
     def tap(dx, dy, dz) -> CSFD:
-        ix, iy, iz = gx + dx, gy + dy, gz + dz
+        ix, iy, iz = lx + dx, gy + dy, gz + dz
         return CSFD(gather3d(value, ix, iy, iz) + 1e-5, gather3d(grad, ix, iy, iz))
 
     res = (
@@ -118,6 +156,7 @@ def refine(
     cfg: VolumeConfig,
     trilin_fn=None,
     shape=None,
+    spec: ShardSpec = ShardSpec(),
 ) -> Tuple[CSFD, CSFD, torch.Tensor, torch.Tensor]:
     """Dual secant refinement + TSDF central-difference normals at ``hit_t``
     for pixels where ``accept`` (the reference's ``secant2`` refine with
@@ -127,10 +166,14 @@ def refine(
     the JAX signature's ``trilin_fn`` and its shape-only volume do (the brick
     rows: :func:`xslam_tpu_torch.ops.raycast_bricks.trilinear_pair_bricks`,
     then ``vol`` may be None); by default :func:`trilinear_tsdf_shard` of
-    ``vol``."""
+    ``vol``, a slab placed by ``spec`` (B19c: the taps read its local rows,
+    the bounds and the normals' margin take the ``x_total``-row volume;
+    ``xslam_tpu/ops/raycast.py::refine(spec=)``)."""
     voxel = cfg.voxel_size
     step = cfg.trunc_dist * 0.8
     X, Y, Z = vol.value.shape if shape is None else shape
+    if shape is None:
+        X = _resolve(spec, vol.value.shape)[1]
 
     def point_at(t: CSFD) -> CSFD:
         return vec3.vec3(
@@ -143,7 +186,7 @@ def refine(
         if trilin_fn is not None:
             return trilin_fn(p)
         return trilinear_tsdf_shard(
-            vol.value, vol.grad, vec3.comp(p, 0), vec3.comp(p, 1), vec3.comp(p, 2), voxel
+            vol.value, vol.grad, vec3.comp(p, 0), vec3.comp(p, 1), vec3.comp(p, 2), voxel, spec
         )
 
     t_dual = lift(torch.where(accept, hit_t, RAY_MIN_M))
@@ -244,6 +287,70 @@ def raycast_refine(
     )
     kernels.launch_counts["raycast_refine"] += 1
     return CSFD(out[0], out[1]), CSFD(out[2], out[3])
+
+
+def raycast_refine_shard(vol: VolumeState, pose: torch.Tensor, t_found: torch.Tensor, t_found_min: torch.Tensor,
+                         t_dead_min: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig, spec: ShardSpec) -> torch.Tensor:
+    """K5's shard mode (B19c, ``csrc/refine.cu``): the refine of a slab
+    with its halo (``vol``, placed by ``spec``) from its own march hits
+    ``t_found`` and the ranks' minima ``t_found_min``, ``t_dead_min``, as
+    ``xslam_tpu/parallel/sharded.py:129-139`` calls ``refine``: a pixel is
+    refined at ``t_found_min`` where that is accepted (below ``t_dead_min``
+    and 1e9) and this slab owns it (``t_found == t_found_min``). Returns the
+    (:data:`SHARD_PLANES`, H, W) float32 planes the ranks sum: the maps with
+    zeros where not valid, then the two masks (1 or 0). On CPU tensors its
+    plain version, :func:`raycast_refine_shard_plain`."""
+    H, W = intr.height, intr.width
+    if kernels.on_cpu(vol.value, vol.grad, pose, t_found, t_found_min, t_dead_min):
+        return raycast_refine_shard_plain(vol, pose, t_found, t_found_min, t_dead_min, intr, cfg, spec)
+    Xl, Y, Z = vol.value.shape
+    x_base, x_total, _, _ = _resolve(spec, vol.value.shape)
+    for t, name in ((vol.value, "value"), (vol.grad, "grad")):
+        kernels.check_tensor(t, name, torch.float32, (Xl, Y, Z))
+    kernels.check_tensor(pose, "pose", torch.float32, (kernels.RAY_POSE_FLOATS,))
+    for t, name in ((t_found, "t_found"), (t_found_min, "t_found_min"), (t_dead_min, "t_dead_min")):
+        kernels.check_tensor(t, name, torch.float32, (H, W))
+    if vol.value.numel() >= 1 << 31:
+        raise ValueError(f"value: K5 indexes the slab with 32 bits, got {vol.value.numel()} voxels")
+    maps = torch.empty((SHARD_PLANES, H, W), dtype=torch.float32, device=pose.device)
+    f32 = kernels.f32
+    kernels.launch(
+        "raycast_refine_shard", pose.device, vol.value, vol.grad, pose, t_found, t_found_min, t_dead_min, maps,
+        x_base, x_total, f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(cfg.voxel_size * 0.5),
+        f32(cfg.trunc_dist * 0.8), *kernels.camera_args(intr),
+    )
+    kernels.launch_counts["raycast_refine_shard"] += 1
+    return maps
+
+
+def raycast_refine_shard_plain(vol: VolumeState, pose: torch.Tensor, t_found: torch.Tensor,
+                               t_found_min: torch.Tensor, t_dead_min: torch.Tensor, intr: Intrinsics,
+                               cfg: VolumeConfig, spec: ShardSpec) -> torch.Tensor:
+    """Plain version of K5's shard mode, on any device: the rays, the owner
+    (the minimum accepted and this slab's ``t_found`` equal to it),
+    :func:`refine` with ``spec``, the planes stacked."""
+    r_c2v, t_c2v, r_v2w, t_v2w = kernels.unpack_ray_pose(pose)
+    ray_dir, ray_start = kernels.camera_rays(r_c2v, t_c2v, intr)
+    accept = (t_found_min < INF_T) & (t_found_min < t_dead_min)
+    owner = accept & (t_found == t_found_min)
+    vmap, nmap, v_ok, n_ok = refine(vol, ray_start, ray_dir, t_found_min, owner, r_v2w, t_v2w, cfg, spec=spec)
+    return torch.cat([vmap.v, vmap.g, nmap.v, nmap.g, v_ok[None].to(torch.float32), n_ok[None].to(torch.float32)])
+
+
+def raycast_finalize(maps: torch.Tensor) -> Tuple[CSFD, CSFD]:
+    """K5's finalize (B19c): the model maps ``(vmap, nmap)``, (3, H, W)
+    dual each, from the ranks' sum of :func:`raycast_refine_shard`'s planes:
+    NaN value and zero derivative where a mask sums to 0. On the card one
+    launch, in place: the maps are views of ``maps``. On CPU tensors its
+    plain version, :func:`finalize_maps`."""
+    if maps.dim() != 3 or maps.shape[0] != SHARD_PLANES:
+        raise ValueError(f"maps: expected ({SHARD_PLANES}, H, W), got {tuple(maps.shape)}")
+    if kernels.on_cpu(maps):
+        return finalize_maps(CSFD(maps[0:3], maps[3:6]), CSFD(maps[6:9], maps[9:12]), maps[12] > 0, maps[13] > 0)
+    kernels.check_tensor(maps, "maps", torch.float32)
+    kernels.launch("raycast_finalize", maps.device, maps)
+    kernels.launch_counts["raycast_finalize"] += 1
+    return CSFD(maps[0:3], maps[3:6]), CSFD(maps[6:9], maps[9:12])
 
 
 def raycast(

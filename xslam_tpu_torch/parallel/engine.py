@@ -1,0 +1,215 @@
+"""The sharded SLAM engine: the port of ``xslam_tpu/parallel/engine.py`` on
+the dense volume layout.
+
+:class:`ShardedXSlamEngine` runs the frame of
+:class:`~xslam_tpu_torch.models.kinfu.XSlamEngine` over the ranks of a
+:class:`~xslam_tpu_torch.parallel.mesh.SpaceGroup`: each rank holds one
+X-slab of the volume; the depth, the poses and the model maps are
+replicated. The preprocess runs on every rank (K1, K7, K8), the ICP over
+column blocks with the systems summed, fusion into each slab, the raycast
+over the slabs with a halo exchange, and the model-map pyramid on every rank
+(K6, with the screen normals B4n): :mod:`xslam_tpu_torch.parallel.sharded`.
+On one rank it gives :class:`XSlamEngine`'s poses, volume and maps bit for
+bit. The frame reads back to the host once, as the single engine's does:
+whether to integrate.
+
+Three behaviours follow the JAX engine, whatever they part from the single
+engine in:
+
+- on the dense layout the raycast is always the fixed march with the
+  ``secant2`` refine, whatever ``raycast_march`` says
+  (``xslam_tpu/parallel/engine.py:378``, ``sharded.py:125``);
+- with ``fusion_mode="brick"`` a slab's cap is ``max(256, fusion_brick_cap //
+  n)`` for n ranks (``engine.py:322``);
+- brick fusion never reruns densely on overflow: ``fusion_overflow`` is not
+  read, and the summed flag is reported (``engine.py:315-325``).
+
+The brick volume layout is the next slice (A11b) and raises
+``NotImplementedError``; so does a recovering engine over this one (A11c,
+:class:`xslam_tpu_torch.models.recovery.RecoveringEngine`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.profiler import record_function
+
+from ..csfd.single import CSFD, lift
+from ..geometry import se3
+from ..io.config import SlamConfig
+from ..models.kinfu import FrameResult, SlamState, _check_config, model_map_pyramid, stack_results
+from ..ops import fusion, kernels
+from .mesh import SpaceGroup, init_space_group
+from .sharded import sharded_integrate, sharded_pose_estimate, sharded_raycast
+
+MIN_SLAB_CAP = 256  # a slab's least brick cap (xslam_tpu/parallel/engine.py:322)
+
+
+class ShardedXSlamEngine:
+    """The host side of the sharded step, with :class:`XSlamEngine`'s
+    methods. ``group``: the ranks (:func:`init_space_group` of ``device`` when
+    None: NCCL on the card, gloo with ``device="cpu"``)."""
+
+    sharded = True  # read by RecoveringEngine, which does not wrap this engine yet (A11c)
+
+    def __init__(self, config: SlamConfig, group: Optional[SpaceGroup] = None, device=None):
+        _check_config(config)
+        if config.volume_layout == "brick":
+            raise NotImplementedError("the sharded engine's brick volume layout is not ported yet (A11b)")
+        self.config = config
+        self.group = init_space_group(device) if group is None else group
+        self.device = self.group.device
+        self.intr = config.intrinsics
+        n = self.group.world_size
+        assert config.tsdf_size[0] % n == 0, "volume X must divide the mesh"
+        self.vol_cfg = fusion.VolumeConfig(
+            resolution=tuple(config.tsdf_size), voxel_size=config.voxel_size, trunc_dist=config.trunc_dist,
+            max_weight=config.max_integration_weight,
+        )
+        X, Y, Z = self.vol_cfg.resolution
+        self.local_cfg = dataclasses.replace(self.vol_cfg, resolution=(X // n, Y, Z))
+        self.slab = self.group.slab(X)
+        self.brick_cap = max(MIN_SLAB_CAP, config.fusion_brick_cap // n)
+        self.world2volume = lift(torch.as_tensor(np.asarray(config.world2volume, np.float32), device=self.device))
+        self.volume2world = se3.inverse(self.world2volume)
+        self._placed = torch.empty(0, device=self.device).device
+        self.pose_log: List[np.ndarray] = []
+
+    def init_state(self) -> SlamState:
+        """The state with this rank's slab of a zero volume; the maps and the
+        pose replicated."""
+        H, W = self.intr.height, self.intr.width
+        dev = self.device
+
+        def nan_map(h, w):
+            return CSFD(torch.full((3, h, w), torch.nan, dtype=torch.float32, device=dev),
+                        torch.zeros((3, h, w), dtype=torch.float32, device=dev))
+
+        levels, L = self.config.num_levels, self.config.model_map_level
+        return SlamState(
+            volume=fusion.create_volume(self.local_cfg, dev),
+            world2camera=lift(torch.eye(4, dtype=torch.float32, device=dev)),
+            vmaps_prev=tuple(nan_map(H >> (i + L), W >> (i + L)) for i in range(levels)),
+            nmaps_prev=tuple(nan_map(H >> (i + L), W >> (i + L)) for i in range(levels)),
+            frame_idx=0,
+            last_align_ok=torch.ones((), dtype=torch.bool, device=dev),
+            t_prev=torch.full((H >> L, W >> L), torch.inf, dtype=torch.float32, device=dev),
+        )
+
+    def process_frame(self, state: SlamState, depth_u16, gt_pose: Optional[np.ndarray] = None
+                      ) -> Tuple[SlamState, FrameResult]:
+        """Track and fuse one frame on every rank, as
+        :meth:`XSlamEngine.process_frame` takes it (a host array, or a uint16
+        tensor on this rank's device); this rank's slab is updated in place."""
+        if isinstance(depth_u16, torch.Tensor):
+            if depth_u16.dtype != torch.uint16 or depth_u16.device != self._placed:
+                raise ValueError(f"depth: expected a uint16 tensor on {self._placed}, got {depth_u16.dtype} on "
+                                 f"{depth_u16.device}")
+            depth = depth_u16
+        else:
+            depth = torch.as_tensor(np.asarray(depth_u16, np.uint16)).to(self.device)
+        gt = np.eye(4, dtype=np.float32) if gt_pose is None else np.asarray(gt_pose, np.float32)
+        return process_frame_sharded(state, depth, gt, engine=self)
+
+    def process_frames(self, state: SlamState, depths_u16, gt_poses: Optional[np.ndarray] = None
+                       ) -> Tuple[SlamState, FrameResult]:
+        """A (K, H, W) stack of frames, a loop of :meth:`process_frame`
+        (``xslam_tpu/parallel/engine.py::process_frames``' ``lax.scan``):
+        the final state and a :class:`FrameResult` with a leading K axis."""
+        results = []
+        for k in range(len(depths_u16)):
+            state, res = self.process_frame(state, depths_u16[k], None if gt_poses is None else gt_poses[k])
+            results.append(res)
+        return state, stack_results(results)
+
+    def dense_volume(self, state: SlamState) -> fusion.VolumeState:
+        """The whole (X, Y, Z) volume on every rank: the ranks' slabs gathered
+        (one ``all_gather`` a plane; new tensors)."""
+        n = self.group.world_size
+        if n == 1:
+            return state.volume
+        planes = []
+        for plane in state.volume:
+            parts = [torch.empty_like(plane) for _ in range(n)]
+            dist.all_gather(parts, plane.contiguous(), group=self.group.group)
+            planes.append(torch.cat(parts))
+        return fusion.VolumeState(*planes)
+
+    def log_pose(self, result: FrameResult):
+        self.pose_log.append(result.camera2world.v.cpu().numpy())
+
+
+def process_frame_sharded(state: SlamState, depth_u16: torch.Tensor, gt_pose_c2w: np.ndarray, *,
+                          engine: ShardedXSlamEngine) -> Tuple[SlamState, FrameResult]:
+    """One frame of the sharded engine (``xslam_tpu/parallel/engine.py::
+    _process_frame_sharded``, dense layout) on this rank: the stages of
+    :func:`xslam_tpu_torch.models.kinfu.process_frame` with the ICP, the
+    fusion and the raycast of :mod:`.sharded`. The profiler ranges are the
+    single engine's."""
+    config, intr, group = engine.config, engine.intr, engine.group
+    levels = config.num_levels
+    dev = depth_u16.device
+
+    with record_function("preprocess"):
+        depths = kernels.depth_pyramid(kernels.bilateral_filter(depth_u16), levels)
+        vmaps_curr, nmaps_curr = kernels.vertex_normal_pyramid([intr.level(i) for i in range(levels)], depths)
+
+    is_first = state.frame_idx == 0
+    L = config.model_map_level
+    if config.use_gt_pose:
+        c2w = lift(torch.as_tensor(gt_pose_c2w, device=dev))
+        align_ok = torch.ones((), dtype=torch.bool, device=dev)
+        inliers = torch.zeros((), dtype=torch.int64, device=dev)
+    else:
+        with record_function("icp"):
+            c2w_est, align_ok, inliers = sharded_pose_estimate(state, vmaps_curr, nmaps_curr, config, intr, group)
+        c2w_prev = se3.inverse(state.world2camera)
+        if config.min_inlier_fraction > 0:
+            # the association-support gate on the count summed over the ranks, against the whole model map
+            npix = (intr.height >> L) * (intr.width >> L)
+            align_ok = align_ok & (inliers >= int(config.min_inlier_fraction * npix))
+        if config.max_translation_per_frame > 0:
+            delta = torch.linalg.norm(c2w_est.v[:3, 3] - c2w_prev.v[:3, 3])
+            align_ok = align_ok & (delta <= config.max_translation_per_frame)
+        if is_first:
+            c2w = c2w_prev
+            align_ok = torch.ones_like(align_ok)
+        else:
+            c2w = CSFD(torch.where(align_ok, c2w_est.v, c2w_prev.v), torch.where(align_ok, c2w_est.g, c2w_prev.g))
+
+    w2c = se3.inverse(c2w)
+    c2v = se3.matmul(engine.world2volume, c2w)
+    v2c = se3.inverse(c2v)
+    # the frame's one host read: whether to integrate (every rank reads the same summed flag)
+    integrate = is_first or bool(align_ok)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    n_active = None
+    if integrate:
+        with record_function("fusion"):
+            overflow, n_active = sharded_integrate(
+                state.volume, fusion.scale_depth(depth_u16), se3.rotation(v2c), se3.translation(v2c), intr,
+                engine.local_cfg, config.bi_interpolate_threshold, group, fusion_mode=config.fusion_mode,
+                brick_cap=engine.brick_cap, classify_fine=config.fusion_classify_fine,
+                classify_split=config.fusion_classify_split, subcell_cap=config.fusion_subcell_cap,
+            )
+
+    with record_function("raycast"):
+        # the fixed march and the secant2 refine, whatever raycast_march says (the JAX engine's dense branch)
+        vmap0, nmap0 = sharded_raycast(
+            state.volume, se3.rotation(c2v), se3.translation(c2v), se3.rotation(engine.volume2world),
+            se3.translation(engine.volume2world), intr.level(L), engine.vol_cfg, group,
+            normals_mode=config.raycast_normals,
+        )
+        vmaps_prev, nmaps_prev = model_map_pyramid(vmap0, nmap0, levels)
+
+    new_state = SlamState(
+        volume=state.volume, world2camera=w2c, vmaps_prev=vmaps_prev, nmaps_prev=nmaps_prev,
+        frame_idx=state.frame_idx + config.frame_step, last_align_ok=align_ok, t_prev=state.t_prev,
+    )
+    return new_state, FrameResult(camera2world=c2w, align_ok=align_ok, inlier_count=inliers, fusion_overflow=overflow,
+                                  fusion_active=n_active)

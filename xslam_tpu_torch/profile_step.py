@@ -75,6 +75,9 @@ HAND_KERNELS = {
     "skip_field_dense": ("event_mask_kernel<true>", "skip_distance_kernel<true>"),
     "march_skip": "march_skip_kernel<false>", "march_skip_dense": "march_skip_kernel<true>",
     "tsdf_loss": "tsdf_loss_kernel", "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel"),
+    # B19, the sharded engine's own launches (its slab fusion runs K2's and the brick kernels above)
+    "march_fixed_shard": "march_shard_kernel", "raycast_refine_shard": "refine_shard_kernel",
+    "raycast_finalize": "refine_finalize_kernel", "icp_tail": "icp_tail_kernel",
 }
 
 

@@ -19,6 +19,12 @@ chunk left out of the mean frame time); it writes the per-frame loop's pose
 files bit for bit. With ``reloc_after_failures > 0`` it prints the JAX CLI's
 note and runs the per-frame loop.
 
+``--sharded`` runs :class:`~xslam_tpu_torch.parallel.engine.ShardedXSlamEngine`
+(``apps/run_slam.py:44,77-79``): as a single process a group of one rank
+(NCCL on the card, gloo with ``--device cpu``), under ``torchrun`` one rank a
+process. It takes the dense volume layout (the brick layout raises
+``NotImplementedError``: A11b) and no recovery (A11c).
+
 With ``reloc_after_failures > 0`` (the backend configs
 ``ICL_realistic_backend.yaml``, ``ICL_blackout.yaml``,
 ``ICL_loop_backend.yaml``) the engine is wrapped in
@@ -34,7 +40,7 @@ result standing, as in ``apps/run_slam.py``.
 
 Usage:
     python -m xslam_tpu_torch.run_slam configs/ICL_realistic.yaml [--frames N] [--mesh tetra] [--scan K] [--device cpu]
-        [options]
+        [--sharded] [options]
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
@@ -86,6 +92,7 @@ def main(argv=None):
     ap.add_argument("config")
     ap.add_argument("--frames", type=int, default=None, help="override end_frame")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--sharded", action="store_true", help="use the sharded engine (X-slabs over torch.distributed)")
     ap.add_argument("--mesh", choices=("tetra", "mc"), default=None,
                     help="export the final isosurface mesh (<output_dir>/mesh.ply): 'tetra' = marching "
                     "tetrahedra, 'mc' = full 256-case marching cubes (ops/extract.py)")
@@ -105,7 +112,12 @@ def main(argv=None):
     print(f"frame num: {len(frame_ids)}")
 
     print("initialize engine......")
-    engine = XSlamEngine(config, device=args.device)
+    if args.sharded:
+        from .parallel.engine import ShardedXSlamEngine
+
+        engine = ShardedXSlamEngine(config, device=args.device)
+    else:
+        engine = XSlamEngine(config, device=args.device)
     # relocalize-on-tracking-loss, keyframes and loop detection (apps/run_slam.py:85-93); the wrapper logs
     # the poses itself
     engine_logs_poses = config.reloc_after_failures > 0
@@ -206,3 +218,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():  # --sharded: end the ranks' group before the process exits
+        torch.distributed.destroy_process_group()
