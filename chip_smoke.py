@@ -3981,8 +3981,7 @@ def phase_b19(ctx):
     from xslam_tpu_torch.ops import fusion, icp, kernels, raycast
     from xslam_tpu_torch.ops import fusion_brick as fb
     from xslam_tpu_torch.ops.kernels import INF_T
-    from xslam_tpu_torch.parallel.mesh import init_space_group
-    from xslam_tpu_torch.parallel.sharded import halo_width, sharded_icp_system
+    from xslam_tpu_torch.parallel.sharded import halo_width
 
     cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
     vol, intr = ctx["volume"], cfg.intrinsics
@@ -4149,14 +4148,16 @@ def phase_b19(ctx):
     out["raycast_refine_shard"] = dict(max_abs_err=0.0, ms=ms5, plain_ms=plain5, bound_ms=b5[0], bound_by=b5[1],
                                        slab=1)
     msf = time_ms(lambda: raycast.raycast_finalize(fin_in), 100)
-    # its 32 MB of planes fit the 50 MB L2, so a warm launch reads them from L2: below the bound by device memory
+    # what it touches fits the 50 MB L2, so a warm launch reads it from L2: below the bound by device memory
     coldf = time_cold_ms(lambda: raycast.raycast_finalize(fin_in), 50)
     plainf = time_ms(lambda: raycast.finalize_maps(CSFD(summed[0:3], summed[3:6]),
                                                    CSFD(summed[6:9], summed[9:12]), summed[12] > 0,
                                                    summed[13] > 0), 20)
-    bf = bound_ms(n_pix * (14 + 12) * 4, n_pix * 12)
+    # the two masks read a pixel, the 6 floats of each map whose mask sums to 0 written; two tests a pixel
+    masked_out = int((summed[12] <= 0).sum()) + int((summed[13] <= 0).sum())
+    bf = bound_ms(n_pix * 2 * 4 + masked_out * 6 * 4, n_pix * 2)
     out["raycast_finalize"] = dict(max_abs_err=0.0, ms=msf, cold_ms=coldf, plain_ms=plainf, bound_ms=bf[0],
-                                   bound_by=bf[1])
+                                   bound_by=bf[1], masked_out_maps=masked_out)
 
     # ---- B19d: K4's tail alone, at the main path's level 0 (480x640)
     vprev, nprev, vcurr, ncurr, ipose = _icp_inputs(ctx, 0)
@@ -4170,16 +4171,6 @@ def phase_b19(ctx):
     split = icp.IcpLoop(packed, reduce=lambda totals: None)  # one rank: the totals are the sum
     split.iterate(vcurr[0], ncurr[0], *args)
     split = split.result()
-    # the sharded system at world size 1 (NCCL's all_reduce of the totals) against K4's system-only launch
-    if "space_group" not in ctx:
-        ctx["space_group"] = init_space_group()  # NCCL on this card, a group of one
-    sysargs = (ipose["r_curr"], ipose["t_curr"], vcurr[0], ncurr[0], ipose["r_prev_inv"], ipose["t_prev"], lintr,
-               vprev[0], nprev[0], cfg.dist_thres, cfg.angle_thres_sine)
-    summed = sharded_icp_system(*sysargs, ctx["space_group"])
-    alone = icp.build_system(*sysargs)
-    torch.cuda.synchronize()
-    system_equal = all(_bits_all((a.v, a.g), (b.v, b.g)) for a, b in ((summed.A, alone.A), (summed.b, alone.b))) \
-        and int(summed.inlier_count) == int(alone.inlier_count)
     tail_equal = _same_step(fused, split) and bool(torch.equal(fused.system.inlier_count, split.system.inlier_count))
     # two column blocks' totals summed, then the tail, against icp_step_plain on the tail's own system
     sc = icp._icp_scratch(dev)
@@ -4213,10 +4204,8 @@ def phase_b19(ctx):
     out["icp_tail"] = dict(max_abs_err=tail_row["tail_pose_abs_err"], ms=msd, plain_ms=plaind, bound_ms=bd[0],
                            bound_by=bd[1])
     emit("B19d icp tail", shape=list(vcurr[0].shape[1:]), bit_equal_to_fused_tail=tail_equal,
-         sharded_system_bit_equal_to_k4_system=system_equal,
          two_blocks=dict(inliers_equal_to_whole=inliers_equal, **tail_row))
     check(tail_equal, "B19d: K4's tail launch over the totals is not the fused launch's bit for bit")
-    check(system_equal, "B19d: the sharded system at one rank is not K4's system bit for bit")
     check(inliers_equal, "B19d: two column blocks' inliers do not add up to the whole image's")
     for key, row in out.items():
         emit(f"B19 {key}", library_ms=None, library_note="no single PyTorch call computes it", **row)
@@ -4250,6 +4239,26 @@ def _sharded_run(ctx, cfg, n_frames: int, group):
     return engine, state, results, times[:-1], dict(kernels.launch_counts), prof
 
 
+def _host_ms(prof) -> dict:
+    """The host ms of a profiled frame's stage ranges and of its
+    collectives (the profiler's ``nccl:`` and ``c10d::`` ranges, each name
+    apart: they nest), with the collectives' counts."""
+    from torch.autograd import DeviceType
+
+    from xslam_tpu_torch.profile_step import STAGES
+
+    stages, comms = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in STAGES:
+            stages[e.name] = stages.get(e.name, 0.0) + e.cpu_time_total / 1e3
+        elif e.name.startswith(("nccl:", "c10d::")):
+            n, ms = comms.get(e.name, (0, 0.0))
+            comms[e.name] = (n + 1, ms + e.cpu_time_total / 1e3)
+    return dict(stages=stages, collectives={k: dict(calls=n, ms=ms) for k, (n, ms) in comms.items()})
+
+
 def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     """The sharded engine (``ShardedXSlamEngine``) at world size 1 over NCCL,
     configs/synthetic.yaml (640x480, 256^3) over 10 frames, with the
@@ -4260,8 +4269,10 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     every kernel of the path launched as often as its frames and ICP
     iterations say (K4 and its tail once an iteration; K3 and K5 in their
     slab modes and K5's finalize once a frame; K2, or B3b and B3c, with
-    the slab's offset); the mean and median frame ms, the profiled frame's
-    launches and the device time of its NCCL kernels are printed."""
+    the slab's offset); the mean and median frame ms of both engines on the
+    same frames, the profiled frame's launches, the device time of its NCCL
+    kernels, and both engines' host ms in their stages and the sharded
+    one's in its collectives are printed."""
     import dataclasses
 
     from torch.autograd import DeviceType
@@ -4279,10 +4290,20 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     if "space_group" not in ctx:
         ctx["space_group"] = init_space_group()  # NCCL on this card, a group of one
     group = ctx["space_group"]
+    # the single engine on the same frames, timed as _sharded_run times the sharded one (its last frame left out
+    # as the sharded run's profiled one is)
     single = XSlamEngine(cfg, device=ctx["device"])
-    sstate, sres = single.init_state(), []
+    sstate, sres, stimes = single.init_state(), [], []
     for i in range(n_frames):
-        sstate, res = single.process_frame(sstate, ctx["depths"][i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == n_frames - 1:
+            (sstate, res), sprof, _ = _lead_profile(lambda: single.process_frame(sstate, ctx["depths"][i]))
+        else:
+            sstate, res = single.process_frame(sstate, ctx["depths"][i])
+        single.log_pose(res)
+        torch.cuda.synchronize()
+        stimes.append((time.perf_counter() - t0) * 1e3)
         sres.append(res)
     engine, state, results, times, counts, prof = _sharded_run(ctx, cfg, n_frames, group)
     poses_equal = all(_bits_all((a.camera2world.v, a.camera2world.g), (b.camera2world.v, b.camera2world.g))
@@ -4296,6 +4317,7 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     nccl = [e for e in device if "nccl" in e.name.lower()]
     rec = _frame_record(prof)
     steady = np.asarray(times[WARM_FRAMES:])
+    single_steady = np.asarray(stimes[:-1][WARM_FRAMES:])
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
     brick = cfg.fusion_mode == "brick"
     want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps", "march_fixed_shard",
@@ -4310,9 +4332,12 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
          raycast_normals=cfg.raycast_normals, icp_fixed_assoc=cfg.icp_fixed_assoc, ate_m=ate,
          single_engine_ate_m=ate_rmse(normalize_to_first([r.camera2world.v.cpu().numpy() for r in sres]), gt),
          mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)), frame_ms=times,
+         single_engine_mean_frame_ms=float(single_steady.mean()),
+         single_engine_p50_frame_ms=float(np.median(single_steady)), single_engine_frame_ms=stimes[:-1],
          poses_bit_equal=poses_equal, volume_bit_equal=volume_equal, model_maps_bit_equal=maps_equal,
          all_aligned=all(bool(r.align_ok) for r in results), kernels=counts,
-         launches_per_frame=sum(counts.values()) / n_frames,
+         hand_kernel_launches_per_frame=sum(counts.values()) / n_frames,
+         host_ms_in_profiled_frame=_host_ms(prof), single_engine_host_ms_in_profiled_frame=_host_ms(sprof),
          device_events_in_profiled_frame=len(rec["names"]), host_launch_calls_in_profiled_frame=rec["host_calls"],
          stage_launches_in_profiled_frame=rec["stages"], nccl_kernels_in_profiled_frame=len(nccl),
          nccl_device_ms_in_profiled_frame=sum(e.time_range.elapsed_us() for e in nccl) / 1e3,

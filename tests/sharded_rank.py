@@ -1,9 +1,9 @@
-"""One rank of the sharded engine over frames given in files: the process
-that ``tests/test_torch_sharded.py`` starts once a rank (it imports only
-torch and the port, so a rank does not load JAX through a test module).
+"""One rank of the port's sharded engine over frames given in files: the
+process that ``tests/test_torch_sharded.py`` starts once a rank. It imports
+only torch and the port, so a rank does not load JAX through a test module.
 
-Usage:
-    python -m xslam_tpu_torch.parallel.worker CONFIG.pkl DEPTHS.npy OUT_PREFIX --rank R --world-size N
+Usage (from the repo's root, with it on ``PYTHONPATH``):
+    python tests/sharded_rank.py CONFIG.pkl DEPTHS.npy OUT_PREFIX --rank R --world-size N
         --init-method file:///... [--device cpu]
 
 ``CONFIG.pkl``: a pickled :class:`xslam_tpu_torch.io.config.SlamConfig`;
@@ -21,8 +21,8 @@ import pickle
 import numpy as np
 import torch
 
-from .engine import ShardedXSlamEngine
-from .mesh import destroy_space_group, init_space_group
+from xslam_tpu_torch.parallel.engine import ShardedXSlamEngine
+from xslam_tpu_torch.parallel.mesh import destroy_space_group, init_space_group
 
 
 def run(config, depths: np.ndarray, rank: int, world_size: int, init_method: str, device=None) -> dict:

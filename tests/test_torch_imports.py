@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``xslam_tpu_torch``, and not
-``chip_smoke.py``, imports JAX, the JAX package or PIL, which the machine
+"""The port stands alone: no module of ``xslam_tpu_torch``, not
+``chip_smoke.py`` and not the sharded engine's rank process that the tests
+spawn (``tests/sharded_rank.py``) imports JAX, the JAX package or PIL, which the machine
 with the card lacks (each module is imported in
 a fresh interpreter, one after the other, and the modules it pulled in are
 listed); and its measuring entry points need the card rather than fall back
@@ -21,7 +22,7 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(
     ["xslam_tpu_torch"]
     + [m.name for m in pkgutil.walk_packages(xslam_tpu_torch.__path__, "xslam_tpu_torch.")]
-    + ["chip_smoke"]
+    + ["chip_smoke", "tests.sharded_rank"]
 )
 FORBIDDEN = ("jax", "jaxlib", "xslam_tpu", "PIL")
 
@@ -61,8 +62,8 @@ def test_every_port_module_is_probed():
             "xslam_tpu_torch.models.odometry", "xslam_tpu_torch.apps.relocalize_demo",
             "xslam_tpu_torch.apps.csfd_bench", "xslam_tpu_torch.models.ba",
             "xslam_tpu_torch.models.recovery", "xslam_tpu_torch.parallel", "xslam_tpu_torch.parallel.mesh",
-            "xslam_tpu_torch.parallel.sharded", "xslam_tpu_torch.parallel.engine", "xslam_tpu_torch.parallel.worker",
-            "xslam_tpu_torch.apps.run_distributed", "chip_smoke"} <= set(MODULES)
+            "xslam_tpu_torch.parallel.sharded", "xslam_tpu_torch.parallel.engine",
+            "xslam_tpu_torch.apps.run_distributed", "chip_smoke", "tests.sharded_rank"} <= set(MODULES)
 
 
 def test_profile_step_needs_the_card():

@@ -3,8 +3,8 @@ layout) against the JAX package's ``ShardedXSlamEngine`` and against the
 port's own single engine, on the CPU at the tests' scale (160x120, 64^3).
 
 - Two gloo ranks, each a process of its own
-  (``python -m xslam_tpu_torch.parallel.worker``, a rendezvous file under the
-  test's temporary directory), over the 5 frames of
+  (``tests/sharded_rank.py``, a rendezvous file under the test's temporary
+  directory), over the 5 frames of
   ``tests/test_sharded.py``'s sweep, held to JAX's ``ShardedXSlamEngine(...,
   n_devices=2)`` and to the port's ``XSlamEngine(device="cpu")`` with
   ``tests/test_sharded.py``'s bounds: poses within 1e-3, ATE below 0.06 m,
@@ -94,7 +94,7 @@ def runs(tmp_path_factory):
         pickle.dump(torch_config(cfg), f)
     np.save(tmp / "depths.npy", np.stack(depths))
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen([sys.executable, "-m", "xslam_tpu_torch.parallel.worker", str(tmp / "config.pkl"),
+    procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "sharded_rank.py"), str(tmp / "config.pkl"),
                                str(tmp / "depths.npy"), str(tmp / "out"), "--rank", str(r), "--world-size", "2",
                                "--init-method", f"file://{tmp / 'rendezvous'}", "--device", "cpu"],
                               cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -240,14 +240,29 @@ def test_brick_overflow_is_reported_not_rerun(one_rank):
     sharded_integrate(fusion.VolumeState(*dense), *args)
     assert bool(flag) and int(n_active) > 4
     assert not torch.equal(vol[2], dense[2])  # bricks past the cap stay unfused: no dense rerun
-    flagged = torch_config(small_config(end_frame=3, fusion_mode="brick", fusion_brick_cap=1024,
-                                        fusion_overflow="flag"))
-    _, a = _run(ShardedXSlamEngine(flagged, group=one_rank), depths)
-    rerun = torch_config(small_config(end_frame=3, fusion_mode="brick", fusion_brick_cap=1024,
-                                      fusion_overflow="dense"))
-    _, b = _run(ShardedXSlamEngine(rerun, group=one_rank), depths)
-    assert all(_bits(x.camera2world.v, y.camera2world.v) and bool(x.fusion_overflow) == bool(y.fusion_overflow)
-               for x, y in zip(a, b))
+
+    # the engine: a 128^3 volume at half the voxel (the same room) has some 440 ACTIVE bricks a frame, past the
+    # slab's floor of 256 that fusion_brick_cap=100 gives at one rank
+    def big(cap, overflow):
+        return torch_config(small_config(end_frame=2, fusion_mode="brick", fusion_brick_cap=cap,
+                                         fusion_overflow=overflow, tsdf_size=(128, 128, 128), voxel_size=0.06))
+
+    runs = {}
+    for overflow in ("flag", "dense"):
+        sharded = ShardedXSlamEngine(big(100, overflow), group=one_rank)
+        assert sharded.brick_cap == 256
+        st, res = _run(sharded, depths[:2])
+        runs[overflow] = (sharded.dense_volume(st), res)
+    for res in runs["flag"][1] + runs["dense"][1]:
+        assert bool(res.fusion_overflow) and int(res.fusion_active) > 256
+    for x, y in zip(runs["flag"][1], runs["dense"][1]):
+        assert _bits(x.camera2world.v, y.camera2world.v) and _bits(x.camera2world.g, y.camera2world.g)
+    assert all(_bits(a, b) for a, b in zip(*(runs[k][0] for k in ("flag", "dense"))))
+    # asked to rerun, the sharded engine gives the single engine's flagged run at the slab's cap, not its rerun
+    flagged, _ = _run(XSlamEngine(big(256, "flag"), device="cpu"), depths[:2])
+    rerun, _ = _run(XSlamEngine(big(256, "dense"), device="cpu"), depths[:2])
+    assert all(_bits(a, b) for a, b in zip(runs["dense"][0], flagged.volume))
+    assert not torch.equal(runs["dense"][0].weight, rerun.volume.weight)
 
 
 def test_config_surface_parity_single_vs_sharded():

@@ -418,21 +418,26 @@ int launch_refine(const Volume& vol, const void* pose, const void* t_found, cons
 
 // K5's finalize over the ranks' summed planes (xslam_tpu/ops/raycast.py::finalize_maps), in place: `maps` holds
 // vmap.v, vmap.g, nmap.v, nmap.g (3 planes each), then the v and n masks' sums; a map's value lane becomes NaN and
-// its derivative 0 where its mask sums to 0. Bound by bytes: 14 floats a pixel read, 12 written.
+// its derivative 0 where its mask sums to 0. Where a mask is set the summed planes already hold the owner's values,
+// so a pixel reads only its two masks and writes only the 6 floats of a map whose mask is 0. Bound by bytes: 8 B a
+// pixel read, 24 B a masked-out map written.
 __global__ void refine_finalize_kernel(float* __restrict__ maps, int HW) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= HW) return;
   const bool v_ok = maps[12 * HW + pix] > 0.0f, n_ok = maps[13 * HW + pix] > 0.0f;
+  if (!v_ok) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float* vv = maps + i * HW + pix;
-    float* vg = maps + (3 + i) * HW + pix;
-    float* nv = maps + (6 + i) * HW + pix;
-    float* ng = maps + (9 + i) * HW + pix;
-    *vv = v_ok ? *vv : xs::quiet_nan();
-    *vg = v_ok ? *vg : 0.0f;
-    *nv = n_ok ? *nv : xs::quiet_nan();
-    *ng = n_ok ? *ng : 0.0f;
+    for (int i = 0; i < 3; ++i) {
+      maps[i * HW + pix] = xs::quiet_nan();
+      maps[(3 + i) * HW + pix] = 0.0f;
+    }
+  }
+  if (!n_ok) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      maps[(6 + i) * HW + pix] = xs::quiet_nan();
+      maps[(9 + i) * HW + pix] = 0.0f;
+    }
   }
 }
 

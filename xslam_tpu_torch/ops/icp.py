@@ -351,22 +351,6 @@ def _check_model_maps(vmap_g_prev: CSFD, nmap_g_prev: CSFD) -> None:
         raise ValueError("the previous model's maps must share one shape")
 
 
-def system_of_totals(totals: torch.Tensor) -> IcpSystem:
-    """The system of ``icp_system``'s 55 double totals (B19d: the ranks'
-    sums), each rounded once to float32 as K4 rounds them: the 21 pairs of
-    A's upper triangle, then b's 6, for the value lane, then the same for
-    the derivative lane, then the inlier count."""
-    i, j = torch.triu_indices(6, 6, device=totals.device)
-    lanes = []
-    for lane in (totals[:27], totals[27:54]):
-        A = torch.zeros((6, 6), dtype=torch.float64, device=totals.device)
-        A[i, j] = lane[:21]
-        A[j, i] = lane[:21]
-        lanes.append((A.to(torch.float32), lane[21:27].to(torch.float32)))
-    return IcpSystem(A=CSFD(lanes[0][0], lanes[1][0]), b=CSFD(lanes[0][1], lanes[1][1]),
-                     inlier_count=totals[54].to(torch.int32))
-
-
 def _system_of(out: torch.Tensor, inliers: torch.Tensor) -> IcpSystem:
     A = CSFD(out[0:36].view(6, 6), out[36:72].view(6, 6))
     b = CSFD(out[72:78], out[78:84])

@@ -101,8 +101,9 @@ def sharded_integrate(vol: VolumeState, depth_m: torch.Tensor, r_v2c: CSFD, t_v2
 def sharded_raycast(vol: VolumeState, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics,
                     cfg: VolumeConfig, group: SpaceGroup, normals_mode: str = "tsdf") -> Tuple[CSFD, Optional[CSFD]]:
     """The model maps from the ranks' slabs (``xslam_tpu/parallel/sharded.py::
-    sharded_raycast``): the halo exchange, the fixed march over the slab (K3
-    with a :class:`~xslam_tpu_torch.ops.raycast.ShardSpec`), the minima of
+    sharded_raycast``): the halo exchange (none on one rank), the fixed
+    march over the slab (K3 with a
+    :class:`~xslam_tpu_torch.ops.raycast.ShardSpec`), the minima of
     ``t_found`` and ``t_dead`` (one ``all_reduce``), the owning rank's secant
     refine with TSDF normals (K5's shard mode), the sum of the maps and the
     masks (one ``all_reduce``) and the NaN sentinels (K5's finalize).
@@ -112,8 +113,12 @@ def sharded_raycast(vol: VolumeState, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v
     the single engine's does."""
     X = cfg.resolution[0]
     x0, x1 = group.slab(X)
-    h = halo_width(cfg, x1 - x0)
-    value_ext, grad_ext = exchange_halo([vol.value, vol.grad], h, group)
+    if group.world_size == 1:
+        # the ring's rows would wrap to global rows -h..-1 and X..X+h-1, outside x_total: no sample reads them
+        h, value_ext, grad_ext = 0, vol.value, vol.grad
+    else:
+        h = halo_width(cfg, x1 - x0)
+        value_ext, grad_ext = exchange_halo([vol.value, vol.grad], h, group)
     spec = raycast.ShardSpec(x_base=x0 - h, x_total=X, core_start=x0, core_end=x1)
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
     t_found, t_dead = kernels.march_fixed(value_ext, pose, intr, cfg.voxel_size, cfg.trunc_dist, spec=spec)
@@ -154,23 +159,16 @@ def sharded_icp_system(r_curr: CSFD, t_curr: CSFD, vmap_curr: torch.Tensor, nmap
                        r_prev_inv: CSFD, t_prev: CSFD, intr: Intrinsics, vmap_g_prev: CSFD, nmap_g_prev: CSFD,
                        dist_thres: float, angle_thres: float, group: SpaceGroup, assoc=None) -> icp.IcpSystem:
     """The ICP system summed over the ranks (``xslam_tpu/parallel/sharded.py::
-    sharded_icp_system``): each rank's system of its column block of the
-    current maps (``assoc``, where given, the block's cached index map)
-    against the whole model maps, summed. On the card K4 writes the block's
-    55 double totals, one ``all_reduce`` sums them and they are rounded to
-    float32 once (as K4's tail reads them); on the CPU the blocks' float32
-    systems are summed."""
+    sharded_icp_system``), on CPU tensors: each rank's float32 system of its
+    column block of the current maps (``assoc``, where given, the block's
+    cached index map) against the whole model maps, summed as the JAX stage
+    psums it. On the card the engine's loop sums K4's double totals instead
+    (:class:`icp.IcpLoop` with ``reduce``)."""
     vb, nb = column_block(vmap_curr, group), column_block(nmap_curr, group)
-    if kernels.on_cpu(vb, nb, r_curr.v, vmap_g_prev.v):
-        return _summed_system(icp.build_system_plain(r_curr, t_curr, vb, nb, r_prev_inv, t_prev, intr, vmap_g_prev,
-                                                     nmap_g_prev, dist_thres, angle_thres, assoc=assoc), group)
-    totals = torch.empty(icp.ICP_SUMS, dtype=torch.float64, device=vb.device)
-    scratch = icp._icp_scratch(vb.device)
-    icp._launch_system(scratch, vb, nb, icp.pack_model_rows(vmap_g_prev, nmap_g_prev), vmap_g_prev.v.shape[-2:], assoc,
-                       icp.pack_pose(r_curr, t_curr, r_prev_inv, t_prev), scratch.out, scratch.inliers, intr,
-                       dist_thres, angle_thres, totals_out=totals)
-    dist.all_reduce(totals, group=group.group)
-    return icp.system_of_totals(totals)
+    if not kernels.on_cpu(vb, nb, r_curr.v, vmap_g_prev.v):
+        raise ValueError("sharded_icp_system takes CPU tensors: on the card the system is IcpLoop(reduce=)'s")
+    return _summed_system(icp.build_system_plain(r_curr, t_curr, vb, nb, r_prev_inv, t_prev, intr, vmap_g_prev,
+                                                 nmap_g_prev, dist_thres, angle_thres, assoc=assoc), group)
 
 
 def sharded_pose_estimate(state, vmaps_curr, nmaps_curr, config, intr: Intrinsics, group: SpaceGroup):
