@@ -165,6 +165,25 @@ Phases, in order:
    least 2 keyframes). Each prints the refined line and writes a refined
    pose file a frame.
 
+Also, after the B19 slab hooks: "B19 columns", the
+sharded brick raycast's slab masks (B19e: ``event_mask`` over 2 and 4 slabs
+of the 256^3 rows, ``skip_distance`` over their gathered mask, against
+``skip_field`` and the plain versions, bit for bit) and column blocks (B19f:
+every block of a 2- and a 4-way split of the 240x320 model maps, B5b at
+strides 1, 2 and 4, B4 with the anchors with and without the ``reuse``
+refine, B4's repairs at strides 2 and 1, B16 and K5r against their plain
+versions on the block's rays bit for bit, B5b and K5r also against the whole
+image's launch at the block's columns; the anchored marches' and repairs'
+pixels differing from the whole image's at block edges printed; a block's
+launches timed against the whole image's); then among the main paths the
+sharded engine at world size 1 over NCCL in :data:`SHARDED_RUNS` (its dense
+layout, the fast options, bench.py's configuration over 10 frames and its
+forced refresh over 4, each ``XSlamEngine``'s poses, volume or rows, maps,
+``t_prev`` and ATE digits bit for bit), and bench.py's configuration over two
+ranks on this one card (two processes over gloo's CUDA collectives: every
+frame aligned, the poses the single engine's within the column-blocked
+marches' bounds, B19e's launches counted, the per-rank refresh at the stage).
+
 The launch counts are set to 0 just before each path is driven and read just
 after it.
 
@@ -388,6 +407,12 @@ KERNELS = {
     "raycast_finalize": ("xslam_tpu_torch/csrc/refine.cu", "xslam_tpu/ops/raycast.py:1132", "main path, sharded"),
     "icp_tail": ("xslam_tpu_torch/csrc/icp.cu", "xslam_tpu/parallel/sharded.py:163-222 + xslam_tpu/ops/icp.py:294",
                  "main path, sharded"),
+    # B19e: B5a's two kernels apart, over a rank's slab of rows and over the gathered mask (two ranks on the card)
+    "event_mask": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/parallel/sharded.py:314-316 + xslam_tpu/ops/bricks.py:129",
+                   "main path, sharded bench refresh, 2 ranks"),
+    "skip_distance": ("xslam_tpu_torch/csrc/skip.cu",
+                      "xslam_tpu/parallel/sharded.py:317 + xslam_tpu/ops/bricks.py:141,156",
+                      "main path, sharded bench refresh, 2 ranks"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
     "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
     "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
@@ -1272,7 +1297,8 @@ def phase_dense_marches(ctx):
 
     f_ms, f_cold = time_ms(run_field, 50), time_cold_ms(run_field, 30)
     f_plain = time_ms(lambda: raycast.brick_distance_field(vol.value, vol.weight), 3)
-    f_bound = bound_ms(2 * vol.value.numel() * 4 + n * 4, vol.value.numel() * 3 + n * 11 ** 3)
+    f_bound = bound_ms(2 * vol.value.numel() * 4 + n * 4,
+                       vol.value.numel() * 3 + n * 3 * (2 * bricks.DIST_CAP + 1))
     emit("B14a skip_field_dense", bricks=n, distance_equal_on_every_brick=dist_equal,
          distance_histogram=torch.bincount(dist_plain, minlength=bricks.DIST_CAP + 1).tolist(), ms=f_ms,
          cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
@@ -2044,8 +2070,10 @@ def phase_skip(ctx):
     f_ms = time_ms(run_field, 50)
     f_cold = time_cold_ms(run_field, 30)
     f_plain = time_ms(lambda: bricks.brick_distance_rows(rows, res), 3)
-    # the value and weight rows once, a distance out a brick; ~3 operations a voxel, ~1 a cube cell a brick
-    f_bound = bound_ms(2 * rows.value.numel() * 4 + n * 4, rows.value.numel() * 3 + n * 11 ** 3)
+    # the value and weight rows once, a distance out a brick; ~3 operations a voxel, three separable 1-D min
+    # passes of 2 * DIST_CAP + 1 taps a brick
+    f_bound = bound_ms(2 * rows.value.numel() * 4 + n * 4,
+                       rows.value.numel() * 3 + n * 3 * (2 * bricks.DIST_CAP + 1))
 
     q = rb.SKIP_STRIDE
     lanes = csrc_constant("skip.cu", "LANES")
@@ -4212,6 +4240,233 @@ def phase_b19(ctx):
     return out
 
 
+# the column blocks of the brick raycast (B19f) and the slab masks (B19e): the rank counts of the split, B5b's
+# strides, and the launches timed a block against the whole image's
+COLUMN_RANKS = (2, 4)
+COLUMN_STRIDES = (1, 2, 4)
+
+
+def _differing(a: torch.Tensor, b: torch.Tensor, col0: int = 0) -> dict:
+    """Pixels where two maps differ (NaN equal to NaN), and their columns
+    (offset by ``col0``, at most 24 listed)."""
+    d = (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+    while d.dim() > 2:
+        d = d.any(dim=0)
+    cols = (torch.nonzero(d.any(dim=0)).flatten() + col0).tolist()
+    return dict(pixels=int(d.sum()), columns=cols[:24], n_columns=len(cols))
+
+
+def phase_b19_columns(ctx):
+    """B19e and B19f, the sharded engine's brick raycast over column blocks,
+    at the bench path's shapes: the orbit's frame-3 brick rows (256^3), the
+    240x320 model maps' rays at the packed pose, frame 3's depth anchors.
+
+    B19e: for 2 and 4 slabs of rows, each slab's event mask (B5a's mask
+    kernel alone) equal to ``event_brick_mask`` of its rows, the masks
+    concatenated equal to the whole rows' mask, and ``skip_distance`` of them
+    equal to ``skip_field``'s and ``brick_distance_rows``' distance, bit for
+    bit; each timed warm and cold beside ``skip_field``.
+
+    B19f: for n = 2 and 4 blocks of ``320 / n`` columns (intrinsics from
+    ``column_intrinsics``), every block's launches against their plain
+    versions on the block's rays (``camera_rays`` at the block's
+    intrinsics), bit for bit: B5b at strides 1, 2 and 4 (``march_skip_plain``
+    over ``pack_rows``), B4 with the block of the anchors without and with
+    the ``reuse`` refine (``march_temporal``, ``_reuse_maps``), B4's repairs
+    from coarse hits at strides 2 and 1 (the refresh's chain from B5b's
+    quarter-level hits, ``_window_repair``), B16 (``march_temporal_compact``)
+    and K5r from the block's B5b hits (``_secant_maps``). B5b at every stride
+    that divides the block's first column, and K5r on the whole image's hits,
+    also equal the whole image's launch at the block's columns bit for bit
+    (the block's rays are the image's); the anchored marches and the repairs
+    differ at block edges (their coarse neighbourhood is clipped), and the
+    pixels and columns where they differ are printed. Each kernel is timed a
+    block against the whole image, warm and cold."""
+    from xslam_tpu_torch.csfd.single import CSFD
+    from xslam_tpu_torch.ops import bricks, kernels, raycast
+    from xslam_tpu_torch.ops import raycast_bricks as rb
+
+    eng, dev = ctx["engine_cfg"], ctx["device"]
+    res = eng.resolution
+    rows, pose, parts, intr, t_anchor = _bench_inputs(ctx)
+    nbx, nby, nbz = bricks.brick_grid(res)
+    n_bricks = nbx * nby * nbz
+    read = rb._value_reader(rows.value, res)
+    dist = bricks.skip_field(rows, res)
+    dist_plain = bricks.brick_distance_rows(rows, res)
+    mask_plain = bricks.event_brick_mask(rows).to(torch.uint8)
+    packed_read = rb._value_reader(bricks.pack_rows(rows.value, dist_plain), res)
+    out = {}
+
+    # B19e: the slabs' masks and the distance over their concatenation
+    b19e = {}
+    for n in COLUMN_RANKS:
+        nb = n_bricks // n
+        local = (res[0] // n, res[1], res[2])
+        slabs = [bricks.BrickVolume(*(p[k * nb:(k + 1) * nb] for p in rows)) for k in range(n)]
+        masks = [bricks.event_mask(slab, local) for slab in slabs]
+        mask = torch.cat(masks)
+        d = bricks.skip_distance(mask, res)
+        torch.cuda.synchronize()
+        each = all(bool(torch.equal(m, bricks.event_brick_mask(slab).to(torch.uint8))) for m, slab in zip(masks, slabs))
+        b19e[n] = dict(slab_masks_equal_to_plain=each, mask_equal_to_whole=bool(torch.equal(mask, mask_plain)),
+                       distance_equal_to_skip_field=bool(torch.equal(d, dist)),
+                       distance_equal_to_plain=bool(torch.equal(d, dist_plain)), event_bricks=int(mask.sum()))
+        check(all(b19e[n].values()), f"B19e over {n} slabs: {b19e[n]}")
+    slab = bricks.BrickVolume(*(p[: n_bricks // 2] for p in rows))
+    local = (res[0] // 2, res[1], res[2])
+    run_mask = lambda: bricks.event_mask(slab, local)  # noqa: E731
+    run_dist = lambda: bricks.skip_distance(mask_plain, res)  # noqa: E731
+    run_field = lambda: bricks.skip_field(rows, res)  # noqa: E731
+    t = {name: (time_ms(fn, 50), time_cold_ms(fn, 30)) for name, fn in
+         (("event_mask", run_mask), ("skip_distance", run_dist), ("skip_field", run_field))}
+    mask_plain_ms = time_ms(lambda: bricks.event_brick_mask(slab).to(torch.uint8), 3)
+    dist_plain_ms = time_ms(lambda: bricks.distance_from_event_mask(mask_plain.bool(), res), 3)
+    # the slab's value and weight rows once, a byte out a brick, ~3 operations a voxel; the mask in, a distance
+    # out a brick, and the capped L-inf distance as three separable 1-D min passes of 2 * DIST_CAP + 1 taps a brick
+    mask_bound = bound_ms(2 * slab.value.numel() * 4 + n_bricks // 2, slab.value.numel() * 3)
+    dist_bound = bound_ms(n_bricks * 5, n_bricks * 3 * (2 * bricks.DIST_CAP + 1))
+    emit("B19e slab masks", slabs=b19e, slab_bricks=n_bricks // 2,
+         event_mask=dict(ms=t["event_mask"][0], cold_ms=t["event_mask"][1], plain_ms=mask_plain_ms,
+                         bound_ms=mask_bound[0], bound_by=mask_bound[1]),
+         skip_distance=dict(ms=t["skip_distance"][0], cold_ms=t["skip_distance"][1], plain_ms=dist_plain_ms,
+                            bound_ms=dist_bound[0], bound_by=dist_bound[1]),
+         skip_field_whole=dict(ms=t["skip_field"][0], cold_ms=t["skip_field"][1]), library_ms=None,
+         library_note="no single PyTorch call computes it")
+    out["event_mask"] = dict(max_abs_err=0.0, ms=t["event_mask"][0], cold_ms=t["event_mask"][1],
+                             plain_ms=mask_plain_ms, bound_ms=mask_bound[0], bound_by=mask_bound[1])
+    out["skip_distance"] = dict(max_abs_err=0.0, ms=t["skip_distance"][0], cold_ms=t["skip_distance"][1],
+                                plain_ms=dist_plain_ms, bound_ms=dist_bound[0], bound_by=dist_bound[1])
+
+    # B19f: the whole image's launches, then every block's
+    H, W = intr.height, intr.width
+    whole_skip = {s: rb.march_skip(rows, dist, pose, intr, eng, stride=s) for s in COLUMN_STRIDES}
+    whole_hits = rb.window_march(rows, pose, intr, eng, t_anchor, WINDOW)
+    whole_vmap, whole_tf = rb.window_march(rows, pose, intr, eng, t_anchor, WINDOW, refine=True)
+    whole_mid = rb.window_march(rows, pose, intr, eng, whole_skip[4].t_found, raycast.HIER2_MID_WINDOW,
+                                anchor_dead=whole_skip[4].t_dead, stride=2)
+    whole_fine = rb.window_march(rows, pose, intr, eng, whole_mid.t_found, WINDOW, anchor_dead=whole_mid.t_dead)
+    whole_b16 = rb.window_march(rows, pose, intr, eng, t_anchor, WINDOW, first_event=True)
+    whole_k5r = rb.raycast_refine_bricks(rows, pose, whole_skip[1].t_found, whole_skip[1].t_dead, intr, eng)
+    blocks, edges = {}, {}
+    for n in COLUMN_RANKS:
+        w = W // n
+        for k in range(n):
+            col0 = k * w
+            cols = slice(col0, col0 + w)
+            bi = rb.column_intrinsics(intr, col0, w)
+            ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], bi)
+            anchor = t_anchor[:, cols].contiguous()
+            lanes, whole_eq, differ = {}, {}, {}
+            for s in COLUMN_STRIDES:
+                hit = rb.march_skip(rows, dist, pose, bi, eng, stride=s)
+                plain = raycast.march_skip_plain(ray_start, ray_dir.v[:, ::s, ::s], eng, packed_read, res)
+                lanes[f"B5b/{s} t_found"] = (hit.t_found, plain.t_found)
+                lanes[f"B5b/{s} t_dead"] = (hit.t_dead, plain.t_dead)
+                if col0 % s == 0:
+                    c = slice(col0 // s, col0 // s + kernels.strided(w, s))
+                    whole_eq[f"B5b/{s}"] = _bits_all((hit.t_found, hit.t_dead),
+                                                     (whole_skip[s].t_found[:, c].contiguous(),
+                                                      whole_skip[s].t_dead[:, c].contiguous()))
+                if s == 1:
+                    hit1 = hit
+                if s == 4:
+                    coarse = hit
+            hits = rb.window_march(rows, pose, bi, eng, anchor, WINDOW)
+            plain = raycast.march_temporal(anchor, ray_start, ray_dir, eng, WINDOW, read, res)
+            lanes.update({"B4 t_found": (hits.t_found, plain.t_found), "B4 t_dead": (hits.t_dead, plain.t_dead)})
+            vmap, tf = rb.window_march(rows, pose, bi, eng, anchor, WINDOW, refine=True)
+            samples = raycast.march_temporal(anchor, ray_start, ray_dir, eng, WINDOW, read, res, True)
+            vp, hp = rb._reuse_maps(rows, ray_start, ray_dir, samples, parts[2], parts[3], eng)
+            lanes.update({"B4+reuse vmap.v": (vmap.v, vp.v), "B4+reuse vmap.g": (vmap.g, vp.g),
+                          "B4+reuse t_found": (tf, hp.t_found)})
+            mid = rb.window_march(rows, pose, bi, eng, coarse.t_found, raycast.HIER2_MID_WINDOW,
+                                  anchor_dead=coarse.t_dead, stride=2)
+            mid_p = raycast._window_repair(ray_start, ray_dir.v[:, ::2, ::2], coarse, raycast.HIER2_MID_WINDOW, eng,
+                                           read, res)
+            fine = rb.window_march(rows, pose, bi, eng, mid.t_found, WINDOW, anchor_dead=mid.t_dead)
+            fine_p = raycast._window_repair(ray_start, ray_dir.v, mid, WINDOW, eng, read, res)
+            lanes.update({"B4 repair/2 t_found": (mid.t_found, mid_p.t_found),
+                          "B4 repair/2 t_dead": (mid.t_dead, mid_p.t_dead),
+                          "B4 repair/1 t_found": (fine.t_found, fine_p.t_found),
+                          "B4 repair/1 t_dead": (fine.t_dead, fine_p.t_dead)})
+            b16 = rb.window_march(rows, pose, bi, eng, anchor, WINDOW, first_event=True)
+            b16_p = raycast.march_temporal_compact(anchor, ray_start, ray_dir, eng, WINDOW, read_fn=read, shape=res)
+            lanes.update({"B16 t_found": (b16.t_found, b16_p.t_found), "B16 t_dead": (b16.t_dead, b16_p.t_dead)})
+            k5r = rb.raycast_refine_bricks(rows, pose, hit1.t_found, hit1.t_dead, bi, eng)
+            k5r_p = rb._secant_maps(rows, ray_start, ray_dir, hit1, parts[2], parts[3], eng)
+            for m, (a, b) in enumerate(zip(k5r, k5r_p)):
+                name = ("vmap", "nmap")[m]
+                lanes.update({f"K5r {name}.v": (a.v, b.v), f"K5r {name}.g": (a.g, b.g)})
+            k5r_whole_hits = rb.raycast_refine_bricks(rows, pose, whole_skip[1].t_found[:, cols].contiguous(),
+                                                      whole_skip[1].t_dead[:, cols].contiguous(), bi, eng)
+            whole_eq["K5r"] = _bits_all([x for m in k5r_whole_hits for x in (m.v, m.g)],
+                                        [x[..., cols] for m in whole_k5r for x in (m.v, m.g)])
+            differ["B4"] = _differing(torch.stack([hits.t_found, hits.t_dead]),
+                                      torch.stack([whole_hits.t_found[:, cols], whole_hits.t_dead[:, cols]]), col0)
+            differ["B4+reuse"] = _differing(vmap.v, whole_vmap.v[..., cols], col0)
+            differ["B4 repair/2"] = _differing(torch.stack([mid.t_found, mid.t_dead]),
+                                               torch.stack([whole_mid.t_found[:, col0 // 2:(col0 + w) // 2],
+                                                            whole_mid.t_dead[:, col0 // 2:(col0 + w) // 2]]), col0 // 2)
+            differ["B4 repair/1"] = _differing(torch.stack([fine.t_found, fine.t_dead]),
+                                               torch.stack([whole_fine.t_found[:, cols], whole_fine.t_dead[:, cols]]),
+                                               col0)
+            differ["B16"] = _differing(torch.stack([b16.t_found, b16.t_dead]),
+                                       torch.stack([whole_b16.t_found[:, cols], whole_b16.t_dead[:, cols]]), col0)
+            torch.cuda.synchronize()
+            eq = _lanes_equal(f"B19f block {k} of {n}", lanes)
+            check(all(whole_eq.values()), f"B19f block {k} of {n}: not the whole image's at its columns: {whole_eq}")
+            blocks[f"{k}/{n}"] = dict(col0=col0, width=w, cx=bi.cx, max_abs_err=eq["max_abs_err"],
+                                      bit_equal_to_plain=True, bit_equal_to_whole_image=whole_eq)
+            edges[f"{k}/{n}"] = differ
+
+    # timings: a block's launch (the first block of each split) against the whole image's, warm and cold
+    def launches(bi, anchor, coarse, mid, hit1):
+        return {
+            "march_skip/1": lambda: rb.march_skip(rows, dist, pose, bi, eng, stride=1),
+            "march_skip/4": lambda: rb.march_skip(rows, dist, pose, bi, eng, stride=4),
+            "window_march+reuse": lambda: rb.window_march(rows, pose, bi, eng, anchor, WINDOW, refine=True),
+            "window_march repair/2": lambda: rb.window_march(rows, pose, bi, eng, coarse.t_found,
+                                                             raycast.HIER2_MID_WINDOW, anchor_dead=coarse.t_dead,
+                                                             stride=2),
+            "window_march repair/1": lambda: rb.window_march(rows, pose, bi, eng, mid.t_found, WINDOW,
+                                                             anchor_dead=mid.t_dead),
+            "window_march_first_event": lambda: rb.window_march(rows, pose, bi, eng, anchor, WINDOW,
+                                                                first_event=True),
+            "raycast_refine_bricks": lambda: rb.raycast_refine_bricks(rows, pose, hit1.t_found, hit1.t_dead, bi,
+                                                                      eng),
+        }
+
+    def sliced(hit, c):
+        return raycast.RaycastHit(hit.t_found[:, c].contiguous(), hit.t_dead[:, c].contiguous())
+
+    timing = {"whole": {name: (time_ms(fn, 50), time_cold_ms(fn, 30)) for name, fn in
+                        launches(intr, t_anchor, whole_skip[4], whole_mid, whole_skip[1]).items()}}
+    for n in COLUMN_RANKS:
+        w = W // n
+        bi = rb.column_intrinsics(intr, 0, w)
+        args = (bi, t_anchor[:, :w].contiguous(), sliced(whole_skip[4], slice(0, w // 4)),
+                sliced(whole_mid, slice(0, w // 2)), sliced(whole_skip[1], slice(0, w)))
+        timing[f"block 0 of {n}"] = {name: (time_ms(fn, 50), time_cold_ms(fn, 30))
+                                     for name, fn in launches(*args).items()}
+    # the plain composition of a block (B4 with the reuse refine, the bench frame's raycast) against the whole's
+    plain_ms = {}
+    for n in (1,) + COLUMN_RANKS:
+        w = W // n
+        bi = rb.column_intrinsics(intr, 0, w)
+        ray_dir, ray_start = kernels.camera_rays(parts[0], parts[1], bi)
+        anchor = t_anchor[:, :w].contiguous()
+        plain_ms[f"block 0 of {n}"] = time_ms(lambda: rb._reuse_maps(
+            rows, ray_start, ray_dir, raycast.march_temporal(anchor, ray_start, ray_dir, eng, WINDOW, read, res, True),
+            parts[2], parts[3], eng), 3)
+    emit("B19f column blocks", shape=[H, W], splits=list(COLUMN_RANKS), strides=list(COLUMN_STRIDES), blocks=blocks,
+         differing_from_whole_image=edges,
+         timing={where: {k: dict(ms=v[0], cold_ms=v[1]) for k, v in rows_.items()} for where, rows_ in timing.items()},
+         plain_b4_reuse_ms=plain_ms, library_ms=None, library_note="no single PyTorch call computes it")
+    ctx["b19f"] = dict(timing=timing, plain_ms=plain_ms)
+    return out
+
+
 def _sharded_run(ctx, cfg, n_frames: int, group):
     """The sharded engine at world size 1 over ``n_frames`` of the orbit, the
     launch counts set to 0 just before and read just after; the last frame
@@ -4259,34 +4514,46 @@ def _host_ms(prof) -> dict:
     return dict(stages=stages, collectives={k: dict(calls=n, ms=ms) for k, (n, ms) in comms.items()})
 
 
+# the sharded engine's runs at world size 1 over NCCL, each beside XSlamEngine on the same frames: its own options
+# (the dense layout), the JAX package's fast ones, bench.py:78-95's configuration (the brick layout) and its forced
+# refresh; (options, frames)
+SHARDED_RUNS = {
+    "main path, sharded": ({}, N_FRAMES),
+    "main path, sharded fast": (dict(fusion_mode="brick", fusion_brick_cap=BRICK_CAP, raycast_normals="screen",
+                                     icp_fixed_assoc=True), N_FRAMES),
+    "main path, sharded bench": (BENCH_OPTIONS, N_FRAMES_BENCH),
+    "main path, sharded bench refresh": (dict(BENCH_OPTIONS, raycast_temporal_min_coverage=REFRESH_COVERAGE),
+                                         N_FRAMES_REFRESH),
+}
+
+
 def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     """The sharded engine (``ShardedXSlamEngine``) at world size 1 over NCCL,
-    configs/synthetic.yaml (640x480, 256^3) over 10 frames, with the
-    engine's own options or (``"main path, sharded fast"``) the JAX
-    package's fast ones (brick fusion with cap 2816, screen normals, the
-    cached association): the poses (both lanes), the volume and the model
-    maps equal ``XSlamEngine``'s run of the same configuration bit for bit,
+    configs/synthetic.yaml (640x480, 256^3) with a setting of
+    :data:`SHARDED_RUNS`: the poses (both lanes), the volume (on the brick
+    layout its rows), the model maps and ``t_prev`` equal ``XSlamEngine``'s
+    run of the same configuration bit for bit, and so do the ATE digits;
     every kernel of the path launched as often as its frames and ICP
-    iterations say (K4 and its tail once an iteration; K3 and K5 in their
-    slab modes and K5's finalize once a frame; K2, or B3b and B3c, with
-    the slab's offset); the mean and median frame ms of both engines on the
-    same frames, the profiled frame's launches, the device time of its NCCL
-    kernels, and both engines' host ms in their stages and the sharded
-    one's in its collectives are printed."""
+    iterations say (K4 and its tail once an iteration; on the dense layout K3
+    and K5 in their slab modes and K5's finalize once a frame, K2 or B3b and
+    B3c with the slab's offset; on the brick layout B3a, B3b and B3c with the
+    slab's offset, B4 once a frame, or on a refresh frame B5a, B5b and B4
+    twice, and B4n in K6's launch: at one rank no gather and no column
+    block, so no B19e launch); the mean and median frame ms of both engines
+    on the same frames and their launches a frame, the profiled frame's
+    launches, the device time of its NCCL kernels, and both engines' host ms
+    in their stages and the sharded one's in its collectives are printed."""
     import dataclasses
 
     from torch.autograd import DeviceType
 
     from xslam_tpu_torch.models.kinfu import XSlamEngine
+    from xslam_tpu_torch.ops import kernels
     from xslam_tpu_torch.parallel.mesh import init_space_group
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
-    fast = tag.endswith("fast")
-    cfg = ctx["config"]
-    if fast:
-        cfg = dataclasses.replace(cfg, fusion_mode="brick", fusion_brick_cap=BRICK_CAP, raycast_normals="screen",
-                                  icp_fixed_assoc=True)
-    n_frames = N_FRAMES
+    options, n_frames = SHARDED_RUNS[tag]
+    cfg = dataclasses.replace(ctx["config"], **options)
     if "space_group" not in ctx:
         ctx["space_group"] = init_space_group()  # NCCL on this card, a group of one
     group = ctx["space_group"]
@@ -4294,6 +4561,8 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     # as the sharded run's profiled one is)
     single = XSlamEngine(cfg, device=ctx["device"])
     sstate, sres, stimes = single.init_state(), [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     for i in range(n_frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4305,14 +4574,20 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
         torch.cuda.synchronize()
         stimes.append((time.perf_counter() - t0) * 1e3)
         sres.append(res)
+    single_counts = dict(kernels.launch_counts)
     engine, state, results, times, counts, prof = _sharded_run(ctx, cfg, n_frames, group)
     poses_equal = all(_bits_all((a.camera2world.v, a.camera2world.g), (b.camera2world.v, b.camera2world.g))
                       for a, b in zip(sres, results))
-    volume_equal = _bits_all(sstate.volume, engine.dense_volume(state))
+    brick_layout = cfg.volume_layout == "brick"
+    volume_equal = _bits_all(sstate.volume, state.volume if brick_layout else engine.dense_volume(state))
     maps_equal = all(_bits_all((a.v, a.g), (b.v, b.g)) for a, b in zip(sstate.vmaps_prev + sstate.nmaps_prev,
                                                                        state.vmaps_prev + state.nmaps_prev))
+    t_prev_equal = _bits_all((sstate.t_prev,), (state.t_prev,))
+    coverage_equal = all((a.anchor_coverage is None and b.anchor_coverage is None)
+                         or _bits_all((a.anchor_coverage,), (b.anchor_coverage,)) for a, b in zip(sres, results))
     gt = normalize_to_first(ctx["gt"][:n_frames])
     ate = ate_rmse(normalize_to_first(engine.pose_log), gt)
+    single_ate = ate_rmse(normalize_to_first(single.pose_log), gt)
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.name]
     nccl = [e for e in device if "nccl" in e.name.lower()]
     rec = _frame_record(prof)
@@ -4320,33 +4595,138 @@ def phase_main_path_sharded(ctx, tag: str = "main path, sharded"):
     single_steady = np.asarray(stimes[:-1][WARM_FRAMES:])
     iterations = sum(cfg.icp_iterations[: cfg.num_levels])
     brick = cfg.fusion_mode == "brick"
-    want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps", "march_fixed_shard",
-                                  "raycast_refine_shard", "raycast_finalize")}
+    screen = cfg.raycast_normals == "screen"
+    refresh = cfg.raycast_temporal_min_coverage > 1.0
+    want = {k: n_frames for k in ("bilateral_filter", "depth_pyramid", "vertex_normal_maps")}
     want.update(icp_system=iterations * n_frames, icp_tail=iterations * n_frames, icp_associate=0,
                 fuse_volume=0, fuse_volume_slab=0 if brick else n_frames, march_fixed=0, raycast_refine=0,
                 depth_mips=n_frames if brick else 0, classify_bricks_slab=n_frames if brick else 0,
                 fuse_bricks_slab=n_frames if brick else 0, classify_bricks=0, fuse_bricks=0,
-                model_map_normals=n_frames if fast else 0, resize_model_maps=0 if fast else n_frames)
-    emit(tag, config="configs/synthetic.yaml", world_size=group.world_size, backend=group.backend, frames=n_frames,
-         depth=[cfg.depth_height, cfg.depth_width], volume=list(cfg.tsdf_size), fusion_mode=cfg.fusion_mode,
-         raycast_normals=cfg.raycast_normals, icp_fixed_assoc=cfg.icp_fixed_assoc, ate_m=ate,
-         single_engine_ate_m=ate_rmse(normalize_to_first([r.camera2world.v.cpu().numpy() for r in sres]), gt),
+                model_map_normals=n_frames if screen else 0, resize_model_maps=0 if screen else n_frames,
+                march_fixed_shard=0 if brick_layout else n_frames, raycast_refine_shard=0 if brick_layout else n_frames,
+                raycast_finalize=0 if brick_layout else n_frames, event_mask=0, skip_distance=0,
+                window_march=(2 if refresh else 1) * n_frames if brick_layout else 0,
+                skip_field=n_frames if refresh else 0, march_skip=n_frames if refresh else 0)
+    emit(tag, config="configs/synthetic.yaml", options=options, world_size=group.world_size, backend=group.backend,
+         frames=n_frames, depth=[cfg.depth_height, cfg.depth_width], volume=list(cfg.tsdf_size),
+         volume_layout=cfg.volume_layout, fusion_mode=cfg.fusion_mode, raycast_march=cfg.raycast_march,
+         raycast_normals=cfg.raycast_normals, icp_fixed_assoc=cfg.icp_fixed_assoc, ate_m=ate, ate_mm=ate * 1e3,
+         single_engine_ate_m=single_ate, ate_digits_equal=ate == single_ate,
+         anchor_coverage=[None if r.anchor_coverage is None else float(r.anchor_coverage) for r in results],
          mean_frame_ms=float(steady.mean()), p50_frame_ms=float(np.median(steady)), frame_ms=times,
          single_engine_mean_frame_ms=float(single_steady.mean()),
          single_engine_p50_frame_ms=float(np.median(single_steady)), single_engine_frame_ms=stimes[:-1],
          poses_bit_equal=poses_equal, volume_bit_equal=volume_equal, model_maps_bit_equal=maps_equal,
+         t_prev_bit_equal=t_prev_equal, anchor_coverage_bit_equal=coverage_equal,
          all_aligned=all(bool(r.align_ok) for r in results), kernels=counts,
          hand_kernel_launches_per_frame=sum(counts.values()) / n_frames,
+         single_engine_hand_kernel_launches_per_frame=sum(single_counts.values()) / n_frames,
          host_ms_in_profiled_frame=_host_ms(prof), single_engine_host_ms_in_profiled_frame=_host_ms(sprof),
          device_events_in_profiled_frame=len(rec["names"]), host_launch_calls_in_profiled_frame=rec["host_calls"],
          stage_launches_in_profiled_frame=rec["stages"], nccl_kernels_in_profiled_frame=len(nccl),
          nccl_device_ms_in_profiled_frame=sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
          nccl_kernel_names=sorted({e.name for e in nccl})[:6])
-    check(poses_equal and volume_equal and maps_equal,
-          f"{tag}: not XSlamEngine's bits: poses {poses_equal}, volume {volume_equal}, maps {maps_equal}")
+    check(poses_equal and volume_equal and maps_equal and t_prev_equal and coverage_equal,
+          f"{tag}: not XSlamEngine's bits: poses {poses_equal}, volume {volume_equal}, maps {maps_equal}, t_prev "
+          f"{t_prev_equal}, anchor coverage {coverage_equal}")
+    check(ate == single_ate, f"{tag}: ATE {ate!r} m, the single engine's {single_ate!r} m")
     check(all(bool(r.align_ok) for r in results) and ate < 0.02, f"{tag}: alignment or ATE {ate} m")
     check(all(counts[k] == n for k, n in want.items()), f"{tag}: launch counts {counts}, expected {want}")
+    if tag == "main path, sharded bench refresh":
+        ctx["sharded_refresh_poses"] = [r.camera2world.v.cpu().numpy() for r in sres]
+    if tag == "main path, sharded bench":
+        ctx["sharded_bench_poses"] = [r.camera2world.v.cpu().numpy() for r in sres]
     return counts
+
+
+# the brick layout over two ranks on this one card: two processes of tests/sharded_rank.py over gloo's CUDA
+# collectives (NCCL refuses two ranks a card), bench.py's configuration over N_FRAMES_BENCH frames, its forced
+# refresh over N_FRAMES_REFRESH, then the per-rank refresh at the stage
+TWO_RANKS = 2
+RANK_TIMEOUT_S = 300
+
+
+def phase_main_path_sharded_two_ranks(ctx):
+    """``ShardedXSlamEngine`` over two ranks on the brick layout, each rank a
+    process (``tests/sharded_rank.py --backend gloo``) on this one card: the
+    slabs' rows, the gathered rows and masks (B19e), each rank's block of
+    160 of the 240x320 model maps' columns (B19f) and the blocks assembled,
+    in bench.py's configuration over 10 frames of the orbit and its forced
+    refresh over 4, then the stage with anchors finite only in rank 1's
+    block. Every frame aligns with no overflow on both ranks, both ranks
+    hold the same poses, maps and anchors, and the poses are the single
+    engine's (the "main path, sharded bench" runs) within
+    ``tests/test_sharded.py``'s bounds for the column-blocked marches (1e-3
+    on frames 0-1, 2e-2 after) with an ATE under 0.02 m; each rank launches
+    the path's kernels as its frames say (B19e's mask every frame, its
+    distance on each refresh frame, B5b once and B4 twice a refresh frame);
+    at the stage rank 0 refreshes and rank 1 takes the anchored march. The
+    ranks' frame ms are printed: gloo carries the gathers through the host,
+    so they say nothing of NVLink."""
+    import dataclasses
+    import pickle
+    import tempfile
+
+    from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
+
+    jobs = [("bench", BENCH_OPTIONS, N_FRAMES_BENCH, "sharded_bench_poses"),
+            ("refresh", dict(BENCH_OPTIONS, raycast_temporal_min_coverage=REFRESH_COVERAGE), N_FRAMES_REFRESH,
+             "sharded_refresh_poses")]
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = [{"name": name, "config": dataclasses.replace(ctx["config"], **opts), "frames": n}
+                for name, opts, n, _ in jobs] + [{"name": "stage", "stage": "refresh"}]
+        with open(os.path.join(tmp, "jobs.pkl"), "wb") as f:
+            pickle.dump(spec, f)
+        np.save(os.path.join(tmp, "depths.npy"), np.stack(ctx["depths"][:N_FRAMES_BENCH]))
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "sharded_rank.py"),
+                                   os.path.join(tmp, "jobs.pkl"), os.path.join(tmp, "depths.npy"),
+                                   os.path.join(tmp, "out"), "--rank", str(r), "--world-size", str(TWO_RANKS),
+                                   "--init-method", "file://" + os.path.join(tmp, "rendezvous"), "--backend", "gloo"],
+                                  cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(TWO_RANKS)]
+        try:
+            logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in procs), f"two ranks: exit codes {[p.returncode for p in procs]}, "
+                                                     f"rank 0's output's end: {logs[0][-2000:]}")
+        ranks = [dict(np.load(os.path.join(tmp, f"out.{r}.npz"))) for r in range(TWO_RANKS)]
+    result, counts = {}, {}
+    for name, opts, n, single_key in jobs:
+        r0, r1 = ({k.split(".", 1)[1]: v for k, v in r.items() if k.startswith(name + ".")} for r in ranks)
+        same = all(np.array_equal(r0[k], r1[k], equal_nan=True) for k in ("pose_v", "pose_g", "align_ok", "overflow",
+                                                                          "active", "vmap", "nmap", "t_prev"))
+        single = ctx[single_key]
+        err = [float(np.abs(a - b).max()) for a, b in zip(r0["pose_v"], single)]
+        within = all(e <= (1e-3 if i <= 1 else 2e-2) for i, e in enumerate(err))
+        ate = ate_rmse(normalize_to_first(list(r0["pose_v"])), normalize_to_first(ctx["gt"][:n]))
+        launches = [{k.split(".", 1)[1]: int(v) for k, v in r.items() if k.startswith("launches.")} for r in (r0, r1)]
+        refresh = n if opts.get("raycast_temporal_min_coverage", 0.5) > 1.0 else 0
+        want = dict(event_mask=n, skip_distance=refresh, march_skip=refresh, skip_field=0,
+                    window_march=n + refresh, model_map_normals=n, classify_bricks_slab=n, fuse_bricks_slab=n)
+        finite = float(np.isfinite(r0["t_prev"]).mean())
+        result[name] = dict(frames=n, ranks_equal=same, pose_err_to_single_engine=err, ate_m=ate,
+                            all_aligned=bool(r0["align_ok"].all()), overflow=bool(r0["overflow"].any()),
+                            local_active=[r0["local_active"].tolist(), r1["local_active"].tolist()],
+                            t_prev_finite=finite, frame_ms=[r0["frame_ms"].tolist(), r1["frame_ms"].tolist()],
+                            kernels=[{k: v for k, v in c.items() if v} for c in launches])
+        check(same and within and ate < 0.02 and r0["align_ok"].all() and not r0["overflow"].any() and finite > 0.5,
+              f"two ranks, {name}: {result[name]}")
+        check(all(c[k] == v for c in launches for k, v in want.items()),
+              f"two ranks, {name}: launches {launches}, expected {want}")
+        counts[name] = launches[0]
+    refresh = [ranks[r]["stage.refresh"].tolist() for r in range(TWO_RANKS)]
+    emit("main path, sharded bench, 2 ranks", config="configs/synthetic.yaml", backend="gloo on one card",
+         world_size=TWO_RANKS, block_columns=320 // TWO_RANKS, runs=result, stage_refresh_per_rank=refresh,
+         seconds=seconds)
+    check(refresh == [[True], [False]], f"two ranks: the stage's refresh per rank {refresh}, expected rank 0 only")
+    return counts["refresh"]
 
 
 def phase_levels(ctx):
@@ -4415,7 +4795,8 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("raycast_refine", phase_refine), ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
           ("brick refine", phase_brick_refine), ("first-event window", phase_first_event),
           ("dense marches", phase_dense_marches), ("extract", phase_extract),
-          ("maps", phase_maps), ("icp_system", phase_icp), ("B19", phase_b19), ("four levels", phase_levels),
+          ("maps", phase_maps), ("icp_system", phase_icp), ("B19", phase_b19), ("B19 columns", phase_b19_columns),
+          ("four levels", phase_levels),
           ("tsdf_loss", phase_tsdf_loss),
           ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
           ("probes", phase_probes),
@@ -4431,8 +4812,8 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("main path, bench bilinear", phase_main_path_bench_bilinear),
           *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in BRICK_RAYCASTS),
           *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in B15_RUNS),
-          ("main path, sharded", phase_main_path_sharded),
-          ("main path, sharded fast", lambda ctx: phase_main_path_sharded(ctx, "main path, sharded fast")),
+          *((tag, lambda ctx, tag=tag: phase_main_path_sharded(ctx, tag)) for tag in SHARDED_RUNS),
+          ("main path, sharded bench refresh, 2 ranks", phase_main_path_sharded_two_ranks),
           ("process_frames", phase_process_frames),
           ("main path, ICL realistic", phase_main_path_icl),
           ("main path, 7-Scenes realistic", phase_main_path_7scenes),
@@ -4521,6 +4902,7 @@ def main() -> int:
     results.update(results.pop("march_fixed"))
     results.update(results.pop("dense marches"))
     results.update(results.pop("B19"))
+    results.update(results.pop("B19 columns"))
     # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
     skip = results["march_skip"]
     skip["latency_floor_ms"] = skip["longest_ray_rounds"] * results["probe_e"]["ms"] / PROBE_E_STEPS
@@ -4528,7 +4910,7 @@ def main() -> int:
                                                "main path, bench", "main path, bench refresh", "main path, hier2",
                                                "main path, skip", "main path, hier", "main path, hier_skip",
                                                "main path, bench bilinear", *BRICK_RAYCASTS, *B15_RUNS,
-                                               "main path, sharded", "main path, sharded fast",
+                                               *SHARDED_RUNS, "main path, sharded bench refresh, 2 ranks",
                                                "main path, ICL realistic",
                                                "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]

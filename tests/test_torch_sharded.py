@@ -22,12 +22,11 @@ port's own single engine, on the CPU at the tests' scale (160x120, 64^3).
   fusion_brick_cap // n)``; brick fusion never reruns densely, so its
   overflow flag is reported whatever ``fusion_overflow`` says.
 - Every ``config.<knob>`` the single engine reads, the sharded engine reads
-  (``tests/test_sharded.py::test_config_surface_parity_single_vs_sharded``),
-  but for the knobs only the brick layout's stages read, named in
-  :data:`A11B_KNOBS` (the brick layout is the next slice, A11b).
-- The brick layout and a recovering engine over the sharded one raise
-  ``NotImplementedError`` naming their slices; ``run_slam --sharded`` runs
-  the dense config on the CPU.
+  (``tests/test_sharded.py::test_config_surface_parity_single_vs_sharded``).
+- The brick layout builds (its runs: ``tests/test_torch_sharded_bricks.py``);
+  a recovering engine over the sharded one raises ``NotImplementedError``
+  naming its slice (A11c); ``run_slam --sharded`` runs the dense and the
+  brick config on the CPU with the single engine's ATE.
 """
 
 import os
@@ -47,6 +46,7 @@ from tests.torch_port_helpers import torch_config
 from xslam_tpu.parallel.engine import ShardedXSlamEngine as JaxShardedEngine
 from xslam_tpu.utils.evaluation import ate_rmse, normalize_to_first
 from xslam_tpu_torch import run_slam
+from xslam_tpu_torch.io.options import BENCH_ARGS
 from xslam_tpu_torch.models.kinfu import XSlamEngine
 from xslam_tpu_torch.models.recovery import RecoveringEngine
 from xslam_tpu_torch.parallel.engine import ShardedXSlamEngine
@@ -55,11 +55,6 @@ from xslam_tpu_torch.parallel.sharded import sharded_integrate
 
 N_FRAMES = 5
 REPO = pathlib.Path(__file__).resolve().parents[1]
-# the knobs that only the brick layout's sharded stages read (xslam_tpu/parallel/engine.py's brick branch:
-# sharded_integrate_rows, sharded_raycast_bricks) and that the dense layout's single engine reads for the marches
-# the sharded dense raycast does not take; A11b ports them, and empties this list
-A11B_KNOBS = {"raycast_march", "raycast_hier_window", "raycast_packed_taps", "raycast_compact", "raycast_refine",
-              "raycast_skip_gran", "raycast_temporal_window", "raycast_temporal_min_coverage", "fusion_overflow"}
 
 
 def _depths(n):
@@ -277,15 +272,17 @@ def test_config_surface_parity_single_vs_sharded():
     fields = set(vars(SlamConfig()).keys()) | {"trunc_dist", "angle_thres_sine", "intrinsics", "world2volume"}
     single = knobs(kinfu) & fields
     sharded_knobs = knobs(engine, sharded) & fields
-    assert A11B_KNOBS <= single
-    assert single - A11B_KNOBS == sharded_knobs, (
-        f"single-only={sorted(single - A11B_KNOBS - sharded_knobs)}, sharded-only={sorted(sharded_knobs - single)}")
+    assert single == sharded_knobs, (
+        f"single-only={sorted(single - sharded_knobs)}, sharded-only={sorted(sharded_knobs - single)}")
 
 
 def test_brick_layout_and_recovery_are_the_next_slices(one_rank):
+    """The brick layout builds (A11b); a recovering engine over the sharded
+    one is the next slice (A11c)."""
     brick = torch_config(small_config(volume_layout="brick", fusion_mode="brick"))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        ShardedXSlamEngine(brick, group=one_rank)
+    engine = ShardedXSlamEngine(brick, group=one_rank)
+    state = engine.init_state()
+    assert engine.brick and tuple(state.volume.value.shape) == (8 * 8 * 8, 512)
     cfg = torch_config(small_config())
     with pytest.raises(NotImplementedError, match="A11c"):
         RecoveringEngine(cfg, engine=ShardedXSlamEngine(cfg, group=one_rank))
@@ -305,11 +302,14 @@ def test_run_slam_sharded_on_the_cpu(tmp_path):
     single = run_slam.main([str(path), "--device", "cpu"])
     assert isinstance(sharded.engine, ShardedXSlamEngine)
     assert sharded.ate == single.ate and sharded.ate < 0.06
+    # the brick yaml in bench.py's configuration (num_levels 2 with the half-resolution model maps at 160x120)
     brick = tmp_path / "brick.yaml"
-    cfg.update(volume_layout="brick", fusion_mode="brick")
+    cfg.update(volume_layout="brick", fusion_mode="brick", num_levels=2)
     brick.write_text(yaml.safe_dump(cfg))
     try:
-        with pytest.raises(NotImplementedError, match="A11b"):
-            run_slam.main([str(brick), "--device", "cpu", "--sharded"])
+        sharded = run_slam.main([str(brick), "--device", "cpu", "--sharded", *BENCH_ARGS])
     finally:
         destroy_space_group()
+    single = run_slam.main([str(brick), "--device", "cpu", *BENCH_ARGS])
+    assert isinstance(sharded.engine, ShardedXSlamEngine) and sharded.engine.brick
+    assert sharded.ate == single.ate and sharded.ate < 0.06

@@ -8,6 +8,10 @@ over the ranks (:class:`xslam_tpu_torch.parallel.engine.ShardedXSlamEngine`):
     torchrun --nproc_per_node N -m xslam_tpu_torch.apps.run_distributed configs/synthetic.yaml
     torchrun --nproc_per_node 2 -m xslam_tpu_torch.apps.run_distributed configs/x.yaml --device cpu   # gloo
 
+Either volume layout: a brick config (``volume_layout: brick``) gathers the
+rows for the raycast, and each rank marches a block of the model maps'
+columns (:mod:`xslam_tpu_torch.parallel.sharded`).
+
 On the card each rank takes ``cuda:LOCAL_RANK`` over NCCL (one card a rank);
 ``--device cpu`` takes gloo on the CPU. Without torchrun's variables it is a
 group of one. Every rank reads the frames; rank 0 prints the ranks and the

@@ -42,6 +42,8 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
                                float inv_fy, int dense, int first_event, void* stream);
 extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, void* dist, int nbx, int nby, int nbz,
                              int dense, void* stream);
+extern "C" int xs_event_mask(const void* value, const void* weight, void* mask, int n, void* stream);
+extern "C" int xs_skip_distance(const void* mask, void* dist, int nbx, int nby, int nbz, void* stream);
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
@@ -286,6 +288,16 @@ int skip_field(const torch::Tensor& value, const torch::Tensor& weight, torch::T
 int skip_field_dense(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, torch::Tensor dist,
                      int64_t nbx, int64_t nby, int64_t nbz, int64_t stream) {
   return skip_field_on(value, weight, mask, dist, nbx, nby, nbz, 1, stream);
+}
+
+// B19e: a slab's event mask (mask: its (NB_local,) bytes out), and the distances over the gathered (NB,) mask
+int event_mask(const torch::Tensor& value, const torch::Tensor& weight, torch::Tensor mask, int64_t stream) {
+  return xs_event_mask(value.data_ptr(), weight.data_ptr(), mask.data_ptr(), mask.numel(), as_stream(stream));
+}
+
+int skip_distance(const torch::Tensor& mask, torch::Tensor dist, int64_t nbx, int64_t nby, int64_t nbz,
+                  int64_t stream) {
+  return xs_skip_distance(mask.data_ptr(), dist.data_ptr(), nbx, nby, nbz, as_stream(stream));
 }
 
 int march_skip_on(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
@@ -596,6 +608,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("window_march_dense", &window_march_dense);
   m.def("skip_field", &skip_field);
   m.def("skip_field_dense", &skip_field_dense);
+  m.def("event_mask", &event_mask);
+  m.def("skip_distance", &skip_distance);
   m.def("march_skip", &march_skip);
   m.def("march_skip_dense", &march_skip_dense);
   m.def("march_fixed", &march_fixed);

@@ -15,6 +15,12 @@
 //   DIST_CAP halo, wrapped, and every brick of the 11^3 cube about it read).
 //   Plain version: ops/bricks.py::brick_distance_rows. Bound: bytes, the two
 //   planes once (134 MB at 256^3).
+// B19e xs_event_mask and xs_skip_distance are B5a's two kernels launched
+//   apart, for the sharded engine's brick layout: the mask of a rank's slab
+//   of rows (plain version: ops/bricks.py::event_brick_mask), then, after the
+//   ranks gather the slabs' masks, the distances over the whole grid (plain
+//   version: ops/bricks.py::distance_from_event_mask). The slabs are whole
+//   bx planes of bricks, so the gathered mask is the whole volume's.
 // B5b xs_march_skip replaces the XLA code of xslam_tpu/ops/raycast.py::
 //   march_skip over ops/bricks.py::skip_rows (reference RayCaster.cu:
 //   226-247 with its early-out). Every `stride`-th pixel of the model maps,
@@ -274,6 +280,32 @@ __global__ void __launch_bounds__(MARCH_THREADS)
   }
 }
 
+cudaError_t launch_event_mask(const void* value, const void* weight, void* mask, const xs::Rows& r, long long n,
+                              int dense, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n + MASK_WARPS - 1) / MASK_WARPS);
+  if (dense)
+    event_mask_kernel<true><<<blocks, 32 * MASK_WARPS, 0, s>>>((const float*)value, (const float*)weight,
+                                                               (unsigned char*)mask, r, (int)n);
+  else
+    event_mask_kernel<false><<<blocks, 32 * MASK_WARPS, 0, s>>>((const float*)value, (const float*)weight,
+                                                                (unsigned char*)mask, r, (int)n);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_skip_distance(const void* mask, void* dist, int nbx, int nby, int nbz, int dense,
+                                 cudaStream_t s) {
+  const dim3 grid((nbx + TX - 1) / TX, (nby + TY - 1) / TY, (nbz + TZ - 1) / TZ);
+  if (dense)
+    skip_distance_kernel<true><<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
+  else
+    skip_distance_kernel<false><<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
+  return cudaGetLastError();
+}
+
+bool misaligned(const void* a, const void* b) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 != 0;
+}
+
 }  // namespace
 
 // value, weight: the (NB, 512) brick rows or, with dense, the (X, Y, Z) planes of the same grid, 16-byte aligned;
@@ -282,25 +314,26 @@ extern "C" int xs_skip_field(const void* value, const void* weight, void* mask, 
                              int dense, void* stream) {
   const long long n = (long long)nbx * nby * nbz;
   if (nbx < 1 || nby < 1 || nbz < 1 || n * xs::BRICK_LANES >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(weight)) % 16)
-    return (int)cudaErrorMisalignedAddress;
+  if (misaligned(value, weight)) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
-  const xs::Rows r = xs::make_rows(nbx, nby, nbz);
-  const unsigned blocks = (unsigned)((n + MASK_WARPS - 1) / MASK_WARPS);
-  if (dense)
-    event_mask_kernel<true><<<blocks, 32 * MASK_WARPS, 0, s>>>((const float*)value, (const float*)weight,
-                                                               (unsigned char*)mask, r, (int)n);
-  else
-    event_mask_kernel<false><<<blocks, 32 * MASK_WARPS, 0, s>>>((const float*)value, (const float*)weight,
-                                                                (unsigned char*)mask, r, (int)n);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_event_mask(value, weight, mask, xs::make_rows(nbx, nby, nbz), n, dense, s);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nbx + TX - 1) / TX, (nby + TY - 1) / TY, (nbz + TZ - 1) / TZ);
-  if (dense)
-    skip_distance_kernel<true><<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
-  else
-    skip_distance_kernel<false><<<grid, TX * TY * TZ, 0, s>>>((const unsigned char*)mask, (int*)dist, nbx, nby, nbz);
-  return (int)cudaGetLastError();
+  return (int)launch_skip_distance(mask, dist, nbx, nby, nbz, dense, s);
+}
+
+// B19e, B5a's two kernels apart for the sharded engine (xslam_tpu/parallel/sharded.py:313-318): the event mask of
+// a slab's n brick rows (value, weight: (n, 512), 16-byte aligned; mask: n bytes out), which the ranks gather ...
+extern "C" int xs_event_mask(const void* value, const void* weight, void* mask, int n, void* stream) {
+  if (n < 1 || (long long)n * xs::BRICK_LANES >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (misaligned(value, weight)) return (int)cudaErrorMisalignedAddress;
+  return (int)launch_event_mask(value, weight, mask, xs::make_rows(n, 1, 1), n, 0, (cudaStream_t)stream);
+}
+
+// ... and the distances over the gathered mask of the whole (nbx, nby, nbz) grid, wrapped at its faces (mask: NB
+// bytes; dist: NB int32 out): together B5a's distances bit for bit
+extern "C" int xs_skip_distance(const void* mask, void* dist, int nbx, int nby, int nbz, void* stream) {
+  if (nbx < 1 || nby < 1 || nbz < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_skip_distance(mask, dist, nbx, nby, nbz, 0, (cudaStream_t)stream);
 }
 
 // value: the (NB, 512) value rows or, with dense, the (X, Y, Z) value plane; dist: skip_field's (NB,) distances;

@@ -12,7 +12,9 @@ brick's L-inf distance, capped at :data:`DIST_CAP`, to the once-dilated mask
 of bricks that hold an observed negative voxel. Its plain version is
 :func:`brick_distance_rows`. :func:`skip_rows` packs the distance into the
 value rows for the plain skip march; the kernel of that march (B5b) reads the
-value rows and the distance instead.
+value rows and the distance instead. The sharded engine launches B5a's two
+kernels apart (B19e): :func:`event_mask` over a rank's slab of rows, then,
+over the masks the ranks gather, :func:`skip_distance`.
 """
 
 from __future__ import annotations
@@ -144,4 +146,46 @@ def skip_field(bvol: BrickVolume, res) -> torch.Tensor:
     dist = torch.empty(n, dtype=torch.int32, device=bvol.value.device)
     kernels.launch("skip_field", bvol.value.device, bvol.value, bvol.weight, mask, dist, nbx, nby, nbz)
     kernels.launch_counts["skip_field"] += 1
+    return dist
+
+
+def event_mask(bvol: BrickVolume, local_res) -> torch.Tensor:
+    """Kernel B19e's first half (``csrc/skip.cu``, B5a's mask kernel alone):
+    the (NB_local,) uint8 event mask of a slab's brick rows, ``local_res``
+    its own extent (``xslam_tpu/parallel/sharded.py:314-316``,
+    ``event_brick_mask`` over a rank's rows). The sharded engine gathers the
+    slabs' masks into the whole volume's, since a slab is whole bx planes of
+    bricks. On CPU tensors its plain version, :func:`event_brick_mask`."""
+    nbx, nby, nbz = brick_grid(local_res)
+    n = nbx * nby * nbz
+    if kernels.on_cpu(bvol.value, bvol.weight):
+        if tuple(bvol.value.shape) != (n, BRICK ** 3):
+            raise ValueError(f"value: expected shape {(n, BRICK ** 3)}, got {tuple(bvol.value.shape)}")
+        return event_brick_mask(bvol).to(torch.uint8)
+    for t, name in ((bvol.value, "value"), (bvol.weight, "weight")):
+        kernels.check_tensor(t, name, torch.float32, (n, BRICK ** 3))
+    mask = torch.empty(n, dtype=torch.uint8, device=bvol.value.device)
+    kernels.launch("event_mask", bvol.value.device, bvol.value, bvol.weight, mask)
+    kernels.launch_counts["event_mask"] += 1
+    return mask
+
+
+def skip_distance(mask: torch.Tensor, res) -> torch.Tensor:
+    """Kernel B19e's second half (``csrc/skip.cu``, B5a's distance kernel
+    alone): the (NB,) int32 capped distance of each brick to the once-dilated
+    event mask ``mask`` ((NB,) uint8, the whole grid's, gathered from the
+    slabs), wrapped across the volume's faces
+    (``xslam_tpu/parallel/sharded.py:317``). With :func:`event_mask` over the
+    whole rows, :func:`skip_field`'s distances. On CPU tensors its plain
+    version, :func:`distance_from_event_mask`."""
+    nbx, nby, nbz = brick_grid(res)
+    n = nbx * nby * nbz
+    if kernels.on_cpu(mask):
+        if tuple(mask.shape) != (n,):
+            raise ValueError(f"mask: expected shape {(n,)}, got {tuple(mask.shape)}")
+        return distance_from_event_mask(mask.to(torch.bool), res)
+    kernels.check_tensor(mask, "mask", torch.uint8, (n,))
+    dist = torch.empty(n, dtype=torch.int32, device=mask.device)
+    kernels.launch("skip_distance", mask.device, mask, dist, nbx, nby, nbz)
+    kernels.launch_counts["skip_distance"] += 1
     return dist

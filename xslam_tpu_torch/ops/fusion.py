@@ -159,6 +159,7 @@ def integrate_rows(
     classify_fine: bool = False,
     classify_split: bool = False,
     subcell_cap: int = 0,
+    x_offset=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`integrate_brick` on a brick-major volume
     (:class:`xslam_tpu_torch.ops.bricks.BrickVolume`, ``(NB, 512)`` rows), IN
@@ -167,12 +168,17 @@ def integrate_rows(
     ``overflow="dense"`` fuses an overflowing frame exactly at every voxel,
     from the pre-frame volume, as the JAX engine's rerun with ``cap`` =
     every brick (and no subcell stage) does. The rows are the dense fusion's
-    volume in brick order, bit for bit."""
+    volume in brick order, bit for bit.
+
+    ``x_offset`` (an int): ``bvol`` is the rows of an X-slab whose local x 0
+    is global x ``x_offset`` (``cfg.resolution`` its own extent, whole bx
+    planes of bricks), as ``xslam_tpu/ops/fusion_brick.py::integrate_rows(
+    x_offset=)`` takes it for the sharded engine's brick layout."""
     nbx, nby, nbz = fusion_brick._check_resolution(cfg.resolution)
     if tuple(bvol.value.shape) != (nbx * nby * nbz, fusion_brick.BRICK ** 3):
         raise ValueError(f"brick rows {tuple(bvol.value.shape)} do not hold a {cfg.resolution} volume")
     return _fuse_by_bricks(bvol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine,
-                           classify_split, subcell_cap)
+                           classify_split, subcell_cap, x_offset)
 
 
 def _fuse_by_bricks(vol, depth_m, r_v2c, t_v2c, intr, cfg, cap, overflow, bi_threshold, classify_fine, classify_split,

@@ -36,7 +36,8 @@ its ``secant2`` refine K5r (``csrc/refine.cu``) and its skip march B5b
 (``csrc/skip.cu``) in :mod:`xslam_tpu_torch.ops.raycast_bricks`, its screen
 normals B4n (computed in K6's launch, ``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, its skip field B5a (``csrc/skip.cu``)
-in :mod:`xslam_tpu_torch.ops.bricks`, the point extraction B13
+and B5a's two kernels apart for the sharded engine (B19e) in
+:mod:`xslam_tpu_torch.ops.bricks`, the point extraction B13
 (``csrc/extract.cu``) in :mod:`xslam_tpu_torch.ops.extract`, the
 relocalization loss B12 and its band pass (``csrc/tsdf_loss.cu``) in
 :mod:`xslam_tpu_torch.ops.tsdf_loss`, and
@@ -112,6 +113,8 @@ launch_counts = {
     # x offset, K3 over a slab, K5's shard mode and its finalize, K4's tail over the ranks' summed system
     "fuse_volume_slab": 0, "classify_bricks_slab": 0, "fuse_bricks_slab": 0, "march_fixed_shard": 0,
     "raycast_refine_shard": 0, "raycast_finalize": 0, "icp_tail": 0,
+    # B19e, B5a's two kernels apart over a slab's rows and the gathered mask (the sharded engine's brick layout)
+    "event_mask": 0, "skip_distance": 0,
 }
 _ext = None  # the built extension module
 _bilateral_weights: dict = {}  # device -> K1's weight table, made at the first launch there

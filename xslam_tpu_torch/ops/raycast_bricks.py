@@ -32,6 +32,11 @@ model-map pyramid, whose launch computes them
 (:func:`xslam_tpu_torch.models.kinfu.model_map_pyramid` with no normals
 given).
 
+The sharded engine's brick layout (B19f) runs :func:`raycast_bricks` over a
+block of the model maps' columns, at :func:`column_intrinsics` (the kernels
+make the block's rays, the whole image's at its columns, with no argument of
+their own), with the skip distance of the gathered rows given (``dist``).
+
 On the temporal march a frame takes the anchored march when at least
 ``min_coverage`` of its anchors are finite, else the refresh (B5a, B5b, B4
 twice). The engine's anchors fall back to the last raycast's ``t_found``,
@@ -169,8 +174,8 @@ def _secant_maps(bvol, ray_start, ray_dir, hit: RaycastHit, r_v2w, t_v2w, cfg) -
 
 def raycast_bricks_rays(
     bvol: BrickVolume, ray_start: CSFD, ray_dir: CSFD, r_v2w: CSFD, t_v2w: CSFD, cfg: VolumeConfig,
-    normals_mode: str = "screen", march_mode: str = "skip", hier_window: int = 12, packed_taps: bool = True,
-    skip_gran: int = 8, compact: bool = False, pair_taps: bool = False, quad_taps: bool = False,
+    normals_mode: str = "screen", march_mode: str = "skip", hier_window: int = 12,
+    packed: Optional[torch.Tensor] = None, apply_screen: bool = True, packed_taps: bool = True, skip_gran: int = 8, compact: bool = False, pair_taps: bool = False, quad_taps: bool = False,
     t_anchor: Optional[torch.Tensor] = None, temporal_window: int = 12, temporal_min_coverage: float = 0.5,
     return_hit: bool = False, refine_mode: str = "secant2", temporal_phase1: int = 0,
     temporal_cap_frac: float = 0.16,
@@ -178,8 +183,13 @@ def raycast_bricks_rays(
     """March + refine + normals for an explicit ray bundle (dual ``ray_dir``
     (3, H, W), ``ray_start`` (3,)), in plain PyTorch: the port of
     ``xslam_tpu/ops/raycast_bricks.py::raycast_bricks_rays`` with its
-    signature and defaults (the sharded path's ``packed`` and
-    ``apply_screen`` aside).
+    signature and defaults. ``ray_dir`` may be any block of a camera's rays.
+    ``packed``: jump-packed value rows given from outside
+    (:func:`bricks.pack_rows` of the value rows and a distance the sharded
+    engine gathers), for the skip marches; None packs this volume's own, which
+    reads its weight. ``apply_screen=False`` leaves the screen normals to the
+    caller (``nmap`` None; the sharded engine takes them from the assembled
+    vertex map, whose block-edge pixels need their neighbours).
 
     ``march_mode``: ``skip``, the skip march at full resolution (the fixed
     march's events); ``hier_skip``, the skip march at half resolution, then a
@@ -215,7 +225,7 @@ def raycast_bricks_rays(
     value_read = _value_reader(bvol.value, res)
 
     def skip_hit(stride):
-        packed_read = _value_reader(bricks.skip_rows(bvol, res), res)
+        packed_read = _value_reader(bricks.skip_rows(bvol, res) if packed is None else packed, res)
         return march_skip_plain(ray_start, ray_dir.v[:, ::stride, ::stride], cfg, packed_read, res)
 
     def hier2_hit():
@@ -247,8 +257,26 @@ def raycast_bricks_rays(
         hit = out
         vmap, nmap = _secant_maps(bvol, ray_start, ray_dir, hit, r_v2w, t_v2w, cfg)
     if normals_mode == "screen":
-        nmap = screen_normals_plain(vmap)
+        nmap = screen_normals_plain(vmap) if apply_screen else None
     return (vmap, nmap, hit.t_found) if return_hit else (vmap, nmap)
+
+
+def column_intrinsics(intr: Intrinsics, col0: int, width: int) -> Intrinsics:
+    """The intrinsics of the block of ``width`` image columns from column
+    ``col0``: ``cx`` the float32 the kernels take (:func:`kernels.camera_args`)
+    less ``col0``, exact in float32 (else ``ValueError``). A kernel makes a
+    pixel's ray from ``u - cx`` (``csrc/rays.cuh``); at the block's integer
+    column ``u`` that is the real difference of the whole image's ``u + col0
+    - cx``, rounded once, so a block's rays are the whole image's at its
+    columns: the sharded engine's blocks (``xslam_tpu/parallel/sharded.py:
+    328-331``, a column slice of the image's rays) take no kernel argument of
+    their own."""
+    if col0 < 0 or width < 1 or col0 + width > intr.width:
+        raise ValueError(f"columns [{col0}, {col0 + width}) are not a block of an image {intr.width} wide")
+    cx = kernels.f32(intr.cx) - col0
+    if kernels.f32(cx) != cx:
+        raise ValueError(f"cx {intr.cx} less column {col0} is not a float32: the block's rays would round otherwise")
+    return intr._replace(cx=cx, width=width)
 
 
 def anchor_map(vmap_curr: torch.Tensor, t_prev: torch.Tensor) -> torch.Tensor:
@@ -430,7 +458,7 @@ def raycast_bricks(
     bvol: BrickVolume, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics, cfg: VolumeConfig,
     t_anchor: Optional[torch.Tensor] = None, refresh: bool = False, normals_mode: str = "screen",
     march_mode: str = "temporal", refine_mode: str = "reuse", temporal_window: int = 12, hier_window: int = 12,
-    temporal_phase1: int = 0,
+    temporal_phase1: int = 0, dist: Optional[torch.Tensor] = None,
 ) -> Tuple[CSFD, Optional[CSFD], torch.Tensor]:
     """The brick layout's raycast of the model maps at ``intr``'s resolution,
     through the kernels: ``(vmap, nmap, t_found)``, the dual world maps
@@ -449,23 +477,31 @@ def raycast_bricks(
     (:func:`raycast_refine_bricks`), which computes the TSDF normals, dropped
     with screen normals (as K5 on the dense layout). On CPU tensors every
     kernel runs its plain version, so the result is
-    :func:`raycast_bricks_rays`'s with the rays of :func:`kernels.camera_rays`."""
+    :func:`raycast_bricks_rays`'s with the rays of :func:`kernels.camera_rays`.
+
+    ``dist``: the skip marches' (NB,) int32 brick distance given from outside
+    (the sharded engine's, B19e over the gathered masks), so that neither B5a
+    nor the weight rows are read (``bvol.weight`` may be None); None: B5a's
+    where a skip march runs. ``intr`` may be a block of the model maps'
+    columns (:func:`column_intrinsics`)."""
     reuse = _check_modes(march_mode, refine_mode, normals_mode)
     pose = kernels.pack_ray_pose(r_c2v, t_c2v, r_v2w, t_v2w)
     res = cfg.resolution
 
+    def skip_dist():
+        return bricks.skip_field(bvol, res) if dist is None else dist
+
     def hier2(last_refine):
-        dist = bricks.skip_field(bvol, res)
-        coarse = march_skip(bvol, dist, pose, intr, cfg)
+        coarse = march_skip(bvol, skip_dist(), pose, intr, cfg)
         mid = window_march(bvol, pose, intr, cfg, coarse.t_found, HIER2_MID_WINDOW, anchor_dead=coarse.t_dead,
                            stride=2)
         return window_march(bvol, pose, intr, cfg, mid.t_found, hier_window, anchor_dead=mid.t_dead,
                             refine=last_refine)
 
     if march_mode == "skip":
-        out = march_skip(bvol, bricks.skip_field(bvol, res), pose, intr, cfg, stride=1)
+        out = march_skip(bvol, skip_dist(), pose, intr, cfg, stride=1)
     elif march_mode == "hier_skip":
-        coarse = march_skip(bvol, bricks.skip_field(bvol, res), pose, intr, cfg, stride=2)
+        coarse = march_skip(bvol, skip_dist(), pose, intr, cfg, stride=2)
         out = window_march(bvol, pose, intr, cfg, coarse.t_found, hier_window, anchor_dead=coarse.t_dead)
     elif march_mode == "hier2_skip" or refresh:
         out = hier2(reuse)

@@ -6,7 +6,9 @@ a :class:`SpaceGroup` is a ``torch.distributed`` process group whose rank r
 holds the slab ``[r * local_x, (r + 1) * local_x)`` of the volume's X, on one
 device: ``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo where the caller
 asks for it. A failed NCCL set-up raises; nothing falls back to gloo or to the
-CPU.
+CPU. A default group the caller initialised is taken with its backend, so
+several ranks on one card, which NCCL refuses, run where the caller starts
+gloo there.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class SpaceGroup:
 
     @property
     def backend(self) -> str:
-        return "nccl" if self.device.type == "cuda" else "gloo"
+        return dist.get_backend(self.group)
 
 
 def init_space_group(device=None, init_method: Optional[str] = None, rank: Optional[int] = None,
@@ -86,8 +88,6 @@ def _group_of(cpu: bool, local_rank: int) -> SpaceGroup:
     backend = dist.get_backend()
     if cpu and backend != "gloo":
         raise ValueError(f"the process group runs {backend}: the CPU takes gloo")
-    if not cpu and backend != "nccl":
-        raise ValueError(f"the process group runs {backend}: the card takes NCCL")
     device = torch.device("cpu") if cpu else torch.device("cuda", local_rank % torch.cuda.device_count())
     return SpaceGroup(dist.group.WORLD, dist.get_rank(), dist.get_world_size(), device)
 

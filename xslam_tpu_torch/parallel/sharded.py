@@ -1,4 +1,4 @@
-"""The sharded engine's stages over X-slabs: the port of the dense half of
+"""The sharded engine's stages over X-slabs: the port of
 ``xslam_tpu/parallel/sharded.py``.
 
 - TSDF volume: rank r holds X-slab r. Fusion is local to the slab: each rank
@@ -20,6 +20,27 @@
 
 The halo covers the march step (0.8 trunc) and the refine's taps: 3 voxels
 more than a step (``xslam_tpu/parallel/sharded.py:39``).
+
+The brick layout (``volume_layout="brick"``, the JAX package's "gather"
+strategy, ``sharded.py:211-364``) shards the rows for fusion and the image
+columns for the raycast:
+
+- fusion: rank r holds the brick rows of X-slab r, a contiguous block of the
+  bx-major rows, and fuses them at the slab's ``x_offset`` (B3a-c, B15 with
+  B19a's offset; :func:`sharded_integrate_rows`);
+- raycast: the ranks gather the value and grad rows and the slabs' event
+  masks (B19e's first half; :func:`gather_rows`, into buffers kept across
+  frames, :class:`GatheredRows`), each rank takes the skip distances over
+  the gathered mask (B19e's second half) where a skip march runs, marches
+  and refines its own block of ``W / n`` image columns (B4, B16, B5b, K5r
+  with :func:`xslam_tpu_torch.ops.raycast_bricks.column_intrinsics`, B19f),
+  deciding the temporal march's refresh from its own block's anchors, and
+  one ``all_gather`` assembles the blocks' maps and hit distances on every
+  rank (:func:`sharded_raycast_bricks`). The screen normals come from the
+  assembled vertex map, in the model-map pyramid's launch (B4n).
+
+At one rank the brick stages are the single engine's calls: no gather, no
+block, one B5a launch where a skip march runs.
 """
 
 from __future__ import annotations
@@ -33,7 +54,8 @@ import torch.distributed as dist
 from ..csfd.single import CSFD
 from ..geometry import se3
 from ..geometry.intrinsics import Intrinsics
-from ..ops import fusion, icp, kernels, raycast
+from ..ops import bricks, fusion, icp, kernels, raycast, raycast_bricks
+from ..ops.bricks import BrickVolume
 from ..ops.fusion import VolumeConfig, VolumeState
 from .mesh import SpaceGroup
 
@@ -93,9 +115,142 @@ def sharded_integrate(vol: VolumeState, depth_m: torch.Tensor, r_v2c: CSFD, t_v2
         vol, depth_m, r_v2c, t_v2c, intr, local_cfg, cap=brick_cap, overflow="flag", bi_threshold=bi_threshold,
         classify_fine=classify_fine, classify_split=classify_split, subcell_cap=subcell_cap, x_offset=x0,
     )
+    return _summed(flag, n_active, group)
+
+
+def _summed(flag: torch.Tensor, n_active: torch.Tensor, group: SpaceGroup) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ranks' overflow flags and ACTIVE counts summed in one ``all_reduce``:
+    ``(any rank overflowed, the ACTIVE bricks of all ranks)``."""
     both = torch.stack([flag.to(torch.int32), n_active.to(torch.int32)])
     dist.all_reduce(both, group=group.group)
     return both[0] > 0, both[1]
+
+
+def sharded_integrate_rows(bvol: BrickVolume, depth_m: torch.Tensor, r_v2c: CSFD, t_v2c: CSFD, intr: Intrinsics,
+                           local_cfg: VolumeConfig, bi_threshold: float, group: SpaceGroup, brick_cap: int,
+                           overflow: str = "flag", classify_fine: bool = False, classify_split: bool = False,
+                           subcell_cap: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brick fusion of the frame into this rank's slab of brick rows IN PLACE
+    (``xslam_tpu/parallel/sharded.py::sharded_integrate_rows`` and the brick
+    branch of ``engine.py``'s fusion): :func:`fusion.integrate_rows` at the
+    slab's ``x_offset`` with ``brick_cap`` ACTIVE bricks a slab.
+    ``local_cfg``: the slab's volume config.
+
+    ``overflow="flag"``: a slab past its cap leaves its ACTIVE bricks past the
+    cap unfused, and the flags summed over the ranks are reported on every
+    rank. ``"dense"``: a slab past its cap fuses the frame exactly (B3c reads
+    its own flag on the device), and no overflow is reported. The JAX engine
+    reruns every slab with the cap of all its bricks and no subcell stage
+    where any slab overflowed; a slab whose list fits gets its first pass's
+    bits from that rerun (the same ACTIVE bricks, and subcell fusion gives
+    brick fusion's bits), so each rank acting on its own flag gives the same
+    volume with no collective between the classes and the fusion pass.
+    Returns ``(overflowed, n_active)``: device tensors, the ACTIVE bricks
+    summed over the ranks."""
+    flag, n_active = fusion.integrate_rows(
+        bvol, depth_m, r_v2c, t_v2c, intr, local_cfg, cap=brick_cap, overflow=overflow, bi_threshold=bi_threshold,
+        classify_fine=classify_fine, classify_split=classify_split, subcell_cap=subcell_cap,
+        x_offset=group.rank * local_cfg.resolution[0],
+    )
+    flag, n_active = _summed(flag, n_active, group)
+    return (flag if overflow == "flag" else torch.zeros_like(flag)), n_active
+
+
+def gather_rows(planes: Sequence[torch.Tensor], group: SpaceGroup,
+                out: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """Each rank's slab of each plane (its (NB_local, ...) rows) gathered in
+    rank order into the whole volume's (NB, ...) on every rank
+    (``jax.lax.all_gather(..., tiled=True)``, ``xslam_tpu/parallel/
+    sharded.py:308-316``): one ``all_gather`` a plane, into ``out``'s tensors
+    where given. On one rank the planes themselves."""
+    n = group.world_size
+    if n == 1:
+        return list(planes)
+    if out is None:
+        out = [p.new_empty((n * p.shape[0],) + tuple(p.shape[1:])) for p in planes]
+    for o, p in zip(out, planes):
+        dist.all_gather_into_tensor(o, p.contiguous(), group=group.group)
+    return list(out)
+
+
+class GatheredRows:
+    """The whole volume's value and grad rows and event mask, gathered from
+    the ranks' slabs into buffers made at the first gather and kept across
+    frames (about 134 MB of rows at 256^3)."""
+
+    def __init__(self):
+        self._out: Optional[List[torch.Tensor]] = None
+
+    def __call__(self, planes: Sequence[torch.Tensor], group: SpaceGroup) -> List[torch.Tensor]:
+        self._out = gather_rows(planes, group, self._out)
+        return self._out
+
+
+def sharded_raycast_bricks(vol: BrickVolume, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics,
+                           cfg: VolumeConfig, group: SpaceGroup, march_mode: str = "skip",
+                           refine_mode: str = "secant2", normals_mode: str = "screen", hier_window: int = 12,
+                           t_anchor: Optional[torch.Tensor] = None, temporal_window: int = 12,
+                           temporal_min_coverage: float = 0.5, refresh: Optional[bool] = None,
+                           temporal_phase1: int = 0, skip_gran: int = 8, packed_taps: bool = True,
+                           compact: bool = False, gathered: Optional[GatheredRows] = None
+                           ) -> Tuple[CSFD, Optional[CSFD], torch.Tensor]:
+    """The model maps from the ranks' slabs of brick rows
+    (``xslam_tpu/parallel/sharded.py::sharded_raycast_bricks``): the value and
+    grad rows and the slabs' event masks gathered (B19e's mask over this
+    rank's slab; ``gathered`` keeps the buffers), this rank's block of ``W /
+    n`` columns of the model maps (``intr``) marched and refined through
+    :func:`raycast_bricks.raycast_bricks` at
+    :func:`raycast_bricks.column_intrinsics`, with the skip distances over the
+    gathered mask (B19e's second half) where a skip march runs, and the
+    blocks' maps and hit distances assembled on every rank (one
+    ``all_gather``). ``cfg``: the whole volume's config. The marches and
+    refines are :func:`raycast_bricks.raycast_bricks`'s.
+
+    The temporal march takes the block of the whole ``t_anchor`` map, and
+    takes the ``hier2`` refresh where ``refresh`` says, or (None) where the
+    block's share of finite anchors is below ``temporal_min_coverage`` (a
+    host read): each rank decides for its own block, outside every
+    collective. ``skip_gran`` 4 or 8 give the same events and the port keeps
+    the 8-voxel cells; ``packed_taps`` and ``compact`` change no result
+    (:func:`raycast_bricks.raycast_bricks_rays`).
+
+    Returns ``(vmap, nmap, t_found)`` on every rank: the dual world maps
+    (3, H, W) with NaN sentinels (``nmap`` None with screen normals, which
+    the model-map pyramid's launch takes from the assembled vertex map, B4n)
+    and the march's hit distances. At one rank the single engine's call,
+    with no gather and no block."""
+    del packed_taps, compact
+    if skip_gran not in (4, 8):
+        raise ValueError(f"skip_gran must be 4 or 8, got {skip_gran}")
+    temporal = march_mode == "temporal"
+    if temporal and t_anchor is None:
+        raise ValueError("march_mode='temporal' requires t_anchor")
+    n, res = group.world_size, tuple(cfg.resolution)
+    anchor = column_block(t_anchor, group) if temporal else None
+    if temporal and refresh is None:
+        refresh = float(raycast_bricks.anchor_coverage(anchor)) < temporal_min_coverage
+    modes = dict(refresh=bool(refresh), normals_mode=normals_mode, march_mode=march_mode, refine_mode=refine_mode,
+                 temporal_window=temporal_window, hier_window=hier_window, temporal_phase1=temporal_phase1)
+    if n == 1:
+        return raycast_bricks.raycast_bricks(vol, r_c2v, t_c2v, r_v2w, t_v2w, intr, cfg, anchor, **modes)
+    X, Y, Z = res
+    mask = bricks.event_mask(vol, (X // n, Y, Z))
+    value, grad, mask = (gathered or GatheredRows())([vol.value, vol.grad, mask], group)
+    dist_field = bricks.skip_distance(mask, res) if not temporal or refresh else None
+    w = intr.width // n
+    vmap, nmap, t_found = raycast_bricks.raycast_bricks(
+        BrickVolume(value, grad, None), r_c2v, t_c2v, r_v2w, t_v2w,
+        raycast_bricks.column_intrinsics(intr, group.rank * w, w), cfg, anchor, dist=dist_field, **modes,
+    )
+    planes = [vmap.v, vmap.g] + ([] if nmap is None else [nmap.v, nmap.g]) + [t_found[None]]
+    block = torch.cat(planes)  # (k, H, w)
+    k, H = block.shape[:2]
+    blocks = block.new_empty((n * k, H, w))  # the blocks one after another, as every backend gathers them
+    dist.all_gather_into_tensor(blocks, block, group=group.group)
+    whole = blocks.view(n, k, H, w).permute(1, 2, 0, 3).reshape(k, H, n * w)
+    vmap = CSFD(whole[0:3], whole[3:6])
+    nmap = None if nmap is None else CSFD(whole[6:9], whole[9:12])
+    return vmap, nmap, whole[-1]
 
 
 def sharded_raycast(vol: VolumeState, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v2w: CSFD, intr: Intrinsics,
@@ -132,9 +287,9 @@ def sharded_raycast(vol: VolumeState, r_c2v: CSFD, t_c2v: CSFD, r_v2w: CSFD, t_v
 
 
 def column_block(m: torch.Tensor, group: SpaceGroup) -> torch.Tensor:
-    """This rank's block of the last axis of ``m`` (the current maps' image
-    columns, every pyramid width a multiple of the world size): the map
-    itself on one rank, else a contiguous copy of the block."""
+    """This rank's block of the last axis of ``m`` (the maps' image columns,
+    every pyramid width a multiple of the world size): the map itself on one
+    rank, else a contiguous copy of the block."""
     n = group.world_size
     if n == 1:
         return m

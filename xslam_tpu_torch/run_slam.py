@@ -22,8 +22,9 @@ note and runs the per-frame loop.
 ``--sharded`` runs :class:`~xslam_tpu_torch.parallel.engine.ShardedXSlamEngine`
 (``apps/run_slam.py:44,77-79``): as a single process a group of one rank
 (NCCL on the card, gloo with ``--device cpu``), under ``torchrun`` one rank a
-process. It takes the dense volume layout (the brick layout raises
-``NotImplementedError``: A11b) and no recovery (A11c).
+process. It takes both volume layouts (bench.py's configuration too, the
+brick layout with the options above) and no recovery
+(``reloc_after_failures > 0`` raises ``NotImplementedError``).
 
 With ``reloc_after_failures > 0`` (the backend configs
 ``ICL_realistic_backend.yaml``, ``ICL_blackout.yaml``,
