@@ -184,6 +184,23 @@ ranks on this one card (two processes over gloo's CUDA collectives: every
 frame aligned, the poses the single engine's within the column-blocked
 marches' bounds, B19e's launches counted, the per-rank refresh at the stage).
 
+The sharded backend and B18: after B12's kernel phase, "schur_cg" holds B18's
+two passes (the Schur-complement CG's ``S x``) against their plain versions on
+a seeded problem of the loop backend's shape (184,320 observations, 41
+keyframes, 12,253 anchors, R = 4): each output within ``SCHUR_MAX_ULP`` (the ulp
+histograms printed), ``S x`` also against the matvec before B18 (within
+``B18_BEFORE_TOL`` of its scale), a second call's bits equal, each pass warm, cold, plain,
+bound and ``torch.segment_reduce`` over its rows (a yardstick), one ``S x``'s
+launches before B18 and through it, and ``schur_ba_cg`` through B18 against the
+plain passes; after the two ranks' main path, "sharded BA" runs
+``schur_ba(group=)`` and ``schur_ba_cg(group=)`` at one NCCL rank (the single
+forms' bits) and over two gloo ranks on this card (within 1e-4); last,
+"backend, sharded blackout" runs the blackout cut through ``run_slam
+--sharded`` at one NCCL rank: the single run's ATE, recovery events,
+keyframes and refined ATE to every digit. Every backend run's
+``schur_ba_cg`` calls launch each B18 pass once a CG step (checked); B18's
+rows in the kernel table count the single blackout run's launches.
+
 The launch counts are set to 0 just before each path is driven and read just
 after it.
 
@@ -413,6 +430,10 @@ KERNELS = {
     "skip_distance": ("xslam_tpu_torch/csrc/skip.cu",
                       "xslam_tpu/parallel/sharded.py:317 + xslam_tpu/ops/bricks.py:141,156",
                       "main path, sharded bench refresh, 2 ranks"),
+    # B18: the two passes of S x in schur_ba_cg, launched by the blackout run's refinement
+    "schur_cg_anchors": ("xslam_tpu_torch/csrc/schur_cg.cu", "xslam_tpu/models/ba.py:602-605", "backend, blackout"),
+    "schur_cg_keyframes": ("xslam_tpu_torch/csrc/schur_cg.cu", "xslam_tpu/models/ba.py:606-608",
+                           "backend, blackout"),
     "probe_a": (PROBES_SRC, "apps/probe_pallas_gather.py:56", "probe path"),
     "probe_b": (PROBES_SRC, "apps/probe_pallas_gather.py:77", "probe path"),
     "probe_c": (PROBES_SRC, "apps/probe_pallas_gather.py:98", "probe path"),
@@ -2862,7 +2883,11 @@ def phase_relocalize_path(ctx):
     call_bms = _call_bound_ms(value.numel(), n_band, dm.numel(), RELOC_ITERS)
     call = lambda: relocalize(value, dm, xi_start, intr, vol_cfg, iters=RELOC_ITERS)  # noqa: E731
     call()
-    rec = _profiled_call(call)
+    rec, takes = _profiled_call(call), 1
+    # a trace that holds fewer device events than the host made launch calls lost some of them (the profiler's
+    # buffer): it is taken again, at most twice, and the checks below read the last take
+    while rec["device_events"] < rec["host_calls"] and takes < 3:
+        rec, takes = _profiled_call(call), takes + 1
     want_b12 = 2 * RELOC_ITERS + 2
     ctx["tsdf_loss_path"] = dict(path_ms=ms, path_cold_ms=cold, path_value_ms=v_ms, path_value_cold_ms=v_cold,
                                  path_band_voxels=n_band, path_bound_ms=bms, path_bound_by=by,
@@ -2875,7 +2900,8 @@ def phase_relocalize_path(ctx):
     emit("relocalize path, B12 and one call", band_voxels=n_band, ms=ms, cold_ms=cold, value_ms=v_ms,
          value_cold_ms=v_cold, band_pass_ms=b_ms, band_pass_cold_ms=b_cold, bound_ms=bms, bound_by=by,
          call_bound_ms=call_bms,
-         call_iters=RELOC_ITERS, b12_and_band_device_ms=rec["kernel_ms"] + rec["band_ms"], **rec)
+         call_iters=RELOC_ITERS, b12_and_band_device_ms=rec["kernel_ms"] + rec["band_ms"], profile_takes=takes,
+         **rec)
     check(rec["kernel_events"] == want_b12 and rec["band_events"] == len(DEVICE_KERNELS["tsdf_band"]),
           f"the profiled relocalize call shows {rec['kernel_events']} B12 launches ({want_b12}) and "
           f"{rec['band_events']} band pass kernels ({len(DEVICE_KERNELS['tsdf_band'])})")
@@ -3699,6 +3725,7 @@ class BackendProbe:
     def _timed(self, name, fn):
         def call(*args, **kwargs):
             b12, band = self.counts["tsdf_loss"], self.counts["tsdf_band"]
+            b18 = self.counts["schur_cg_anchors"], self.counts["schur_cg_keyframes"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -3712,7 +3739,10 @@ class BackendProbe:
                 info = dict(stride=kwargs.get("stride"), N=0 if out[0] is None else int(out[0].frame_idx.shape[0]),
                             L=0 if out[1] is None else int(out[1].shape[0]))
             elif name == "schur_ba_cg":
-                info = dict(N=int(args[2].frame_idx.shape[0]), L=int(args[1].shape[0]))
+                info = dict(N=int(args[2].frame_idx.shape[0]), L=int(args[1].shape[0]),
+                            b18=[self.counts["schur_cg_anchors"] - b18[0],
+                                 self.counts["schur_cg_keyframes"] - b18[1]],
+                            cg_steps=kwargs["iters"] * kwargs["cg_iters"])
             self.calls[name].append((seconds, info))
             self.last[name] = (fn, args, kwargs, out)
             return out
@@ -3787,10 +3817,11 @@ def _backend_data(ctx) -> str:
     return ctx["backend_data"]
 
 
-def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
+def backend_run(tag: str, data_root: str, n_frames: int, device_card: str, extra=(), out_tag=None):
     """``run_slam.main`` on a copy of ``BACKEND_RUNS[tag]``'s config that
-    reads ``<data_root>/<tag>`` and writes ``<data_root>/<tag>_out``, with
-    ``--frames n_frames``, under a :class:`BackendProbe`, the launch counts
+    reads ``<data_root>/<tag>`` and writes ``<data_root>/<out_tag>_out``
+    (``out_tag`` defaults to ``tag``), with ``--frames n_frames`` and the
+    ``extra`` arguments, under a :class:`BackendProbe`, the launch counts
     set to 0 just before: ``(run, the parsed stdout, the probe, info)``,
     info holding what the phase prints."""
     import contextlib
@@ -3804,9 +3835,10 @@ def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
     config = BACKEND_RUNS[tag][0]
     with open(os.path.join(ROOT, config)) as f:
         cfg = yaml.safe_load(f)
-    out = os.path.join(data_root, f"{tag}_out")
+    out_tag = out_tag or tag
+    out = os.path.join(data_root, f"{out_tag}_out")
     cfg.update(dataset_dir=os.path.join(data_root, tag), output_dir=out + "/")
-    path = os.path.join(data_root, f"{tag}.yaml")
+    path = os.path.join(data_root, f"{out_tag}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     stdout = io.StringIO()
@@ -3814,13 +3846,13 @@ def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     with BackendProbe() as probe, contextlib.redirect_stdout(stdout):
-        run = run_slam.main([path, "--frames", str(n_frames)])
+        run = run_slam.main([path, "--frames", str(n_frames), *extra])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     parsed = parse_backend_stdout(stdout.getvalue())
     refine_s = probe.refined[0][0] if probe.refined else None
     reloc = probe.calls["relocalize"]
-    info = dict(config=config, frames=n_frames, card=device_card, run_s=run_s, **parsed,
+    info = dict(config=config, frames=n_frames, options=list(extra), card=device_card, run_s=run_s, **parsed,
                 relocalize_calls=len(reloc), relocalize_s=probe.seconds("relocalize"),
                 relocalize_b12_launches=[c["b12"] for _, c in reloc],
                 relocalize_band_launches=[c["band"] for _, c in reloc],
@@ -3841,25 +3873,31 @@ def backend_run(tag: str, data_root: str, n_frames: int, device_card: str):
     return run, parsed, probe, info
 
 
-def _check_backend_common(tag: str, run, parsed: dict, probe, n_frames: int, data_root: str):
+def _check_backend_common(tag: str, run, parsed: dict, probe, n_frames: int, data_root: str, out_tag=None):
     """What every backend phase holds: the ATE and the refined line printed,
     no refinement failure, a refined pose file a frame, each relocalize call
-    ``2 * reloc_iters + 2`` B12 launches and one of its band pass."""
+    ``2 * reloc_iters + 2`` B12 launches and one of its band pass, and the
+    refinement's ``schur_ba_cg`` calls (at least one) each B18 pass once a CG
+    step (``iters * cg_iters`` launches a pass)."""
     check(parsed["ate_m"] is not None and parsed["refined_ate_m"] is not None and not parsed["refinement_failed"],
           f"{tag}: ATE {parsed['ate_m']}, refined ATE {parsed['refined_ate_m']}, failed "
           f"{parsed['refinement_failed']}")
-    refined_dir = os.path.join(data_root, f"{tag}_out", "slam_refined")
+    refined_dir = os.path.join(data_root, f"{out_tag or tag}_out", "slam_refined")
     files = sorted(os.listdir(refined_dir)) if os.path.isdir(refined_dir) else []
     check(files == [f"frame-{i:06d}.pose.txt" for i in range(n_frames)],
           f"{tag}: {len(files)} refined pose files for {n_frames} frames")
     want = 2 * run.engine.config.reloc_iters + 2
     bad = [(c["b12"], c["band"]) for _, c in probe.calls["relocalize"] if (c["b12"], c["band"]) != (want, 1)]
     check(not bad, f"{tag}: relocalize calls launched B12 and its band pass {bad} times ({want} and 1 a call)")
+    cg = [c for _, c in probe.calls["schur_ba_cg"]]
+    check(cg and all(c["b18"] == [c["cg_steps"]] * 2 for c in cg),
+          f"{tag}: schur_ba_cg calls launched B18's passes {[(c['b18'], c['cg_steps']) for c in cg]} times "
+          f"(once a CG step each)")
 
 
 def phase_backend_blackout(ctx):
-    """configs/ICL_blackout.yaml over 60 frames rendered with ``--blackout 30
-    40``: the 10 blank frames fail to align; after them a relocalization
+    """configs/ICL_blackout.yaml over 60 frames rendered with ``--blackout
+    30 40``: the 10 blank frames fail to align; after them a relocalization
     passes its gate and its frame re-enters the tracked step at the
     relocalized pose, and every later frame aligns; B12 launches ``2 *
     reloc_iters + 2`` times a relocalize call; the ATE and the refined ATE
@@ -3870,6 +3908,8 @@ def phase_backend_blackout(ctx):
     root = _backend_data(ctx)
     n = BACKEND_RUNS["blackout"][1]
     run, parsed, probe, info = backend_run("blackout", root, n, ctx["card"])
+    ctx["backend_blackout_run"] = (run.ate, run.refined_ate, list(run.engine.recovery_events),
+                                   [k.frame_index for k in run.engine.keyframes], info)
     events = run.engine.recovery_events
     # the relocalizations after the blackout whose candidate passed the gate, so that their frame re-entered the
     # tracked step at the relocalized pose; `accepted` is whether that re-entry aligned (against the model maps
@@ -4789,6 +4829,307 @@ def phase_levels(ctx):
     return counts
 
 
+# ------------------------------------------------------------------------- B18 and the sharded backend
+# B18 at the loop backend's shapes (ROADMAP §B, PR 16's 300-frame ICL_loop_backend run on the H100): the
+# observations bucketed to a multiple of 4096, 41 keyframes, 12,253 anchors, R = 4 residual rows (normals)
+SCHUR_N, SCHUR_K, SCHUR_L, SCHUR_R = 45 * 4096, 41, 12_253, 4
+SCHUR_SEED = 23
+SCHUR_MAX_ULP = 1  # B18 against its plain passes: both sum in float64 and round once, in different orders
+SCHUR_DAMPING = 1e-4  # schur_ba_cg's default
+# the sharded BA phase's problem: tests/test_torch_ba.py::test_schur_ba_cg_large_scale's 60 keyframes x 6,000
+# anchors, each seen by 4 keyframes (24,000 observations)
+BA_SCALE = dict(K=60, L=6000, seed=7)
+BA_ITERS = 4
+BA_SHARDED_TOL = 1e-4  # tests/test_ba.py:165-167, :306-310: the sums' order changes over two ranks
+B18_SOLVER_TOL = 1e-5  # schur_ba_cg with B18 against the plain passes on the card, poses
+# B18's S x against the matvec before it (PR 16 to PR 22, the products summed by torch.sum in an order of its own):
+# within this share of the outputs' largest magnitude (tests/test_torch_sharded_backend.py's PLAIN_PASS_TOL)
+B18_BEFORE_TOL = 2e-6
+
+
+def _schur_ops(R: int) -> dict:
+    """float32 operations an observation of each pass (a product and a sum a
+    term, the float64 adds of the outputs' lanes): pass L ``u = Jc x``
+    (11 R), ``Jl^T u`` (3 (2R - 1)), 3 adds; pass K ``u`` (11 R), ``w =
+    Hll_inv v`` (15), ``z = Jl w`` (5 R), ``Jc^T u`` and ``Jc^T z`` (12 (2R -
+    1)), 12 adds."""
+    return {"schur_cg_anchors": 11 * R + 3 * (2 * R - 1) + 3,
+            "schur_cg_keyframes": 11 * R + 15 + 5 * R + 12 * (2 * R - 1) + 12}
+
+
+def _schur_bytes(name: str, N: int, R: int, K: int, L: int) -> int:
+    """Bytes a pass's function must move: Jc and Jl once, each observation's
+    keyframe and anchor index (4 B each), x, and its sums written once; pass
+    K also reads ``Hll_inv`` and ``v``. The kernel's sorted order and
+    segment tables are its own design's, not counted."""
+    keys, width = (L, 3) if name == "schur_cg_anchors" else (K, 12)
+    extra = 0 if name == "schur_cg_anchors" else L * (36 + 12)
+    return N * R * 9 * 4 + N * 8 + K * 24 + keys * width * 4 + extra
+
+
+def _ulp_hist(a: torch.Tensor, b: torch.Tensor) -> dict:
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (ordered(a) - ordered(b)).abs().reshape(-1)
+    return {"0": int((d == 0).sum()), "1": int((d == 1).sum()), "2+": int((d >= 2).sum())}
+
+
+def _ba_scale_problem(dev):
+    """The sharded BA phase's seeded problem on ``dev``: (BAProblem, start
+    poses, start anchors, numpy spec for ``tests/sharded_rank.py``'s "ba"
+    job)."""
+    from xslam_tpu_torch.geometry import se3
+    from xslam_tpu_torch.models import ba
+
+    rng = np.random.default_rng(BA_SCALE["seed"])
+    K, L = BA_SCALE["K"], BA_SCALE["L"]
+    gt = np.stack([np.array([2.0 * np.cos(0.05 * k), 0.02 * k, 2.0 * np.sin(0.05 * k), 0.0, 0.05 * k, 0.0],
+                            np.float32) for k in range(K)])
+    gt_T = np.stack([se3.exp_real(torch.as_tensor(x)).numpy() for x in gt])
+    anchors = rng.uniform(-1.5, 1.5, size=(L, 3)).astype(np.float32)
+    anchors[:, 2] += 4.0
+    fi = rng.integers(0, K, size=(L, 4)).reshape(-1)
+    ai = np.repeat(np.arange(L), 4)
+    w2c = np.linalg.inv(gt_T)
+    meas = np.einsum("nij,nj->ni", w2c[fi, :3, :3], anchors[ai]) + w2c[fi, :3, 3]
+    poses = gt + np.concatenate([0.03 * rng.normal(size=(K, 3)), 0.01 * rng.normal(size=(K, 3))],
+                                axis=1).astype(np.float32)
+    poses[0] = gt[0]
+    start = anchors + 0.03 * rng.normal(size=(L, 3)).astype(np.float32)
+    spec = dict(frame_idx=fi.astype(np.int32), anchor_idx=ai.astype(np.int32), meas_cam=meas.astype(np.float32),
+                poses=poses.astype(np.float32), anchors=start.astype(np.float32), iters=BA_ITERS)
+    prob = ba.BAProblem(*(torch.as_tensor(spec[k], device=dev) for k in ("frame_idx", "anchor_idx", "meas_cam")))
+    return prob, torch.as_tensor(spec["poses"], device=dev), torch.as_tensor(spec["anchors"], device=dev), spec
+
+
+def _matvec_before(plan, Jc, Jl, Hll_inv, x, gauge):
+    """``schur_ba_cg``'s ``S x`` before B18 (PR 16 to PR 22): the passes as
+    PyTorch ops, the products summed by ``torch.sum``."""
+    from xslam_tpu_torch.models import ba
+
+    x = x * gauge
+    u = ba._j(Jc, x[plan.ks])
+    w = ba._block_solve(Hll_inv, plan.seg_l(ba._jT(Jl, u)))
+    z = ba._j(Jl, w[plan.ls])
+    hz = plan.seg_k(torch.cat([ba._jT(Jc, u), ba._jT(Jc, z)], 1))
+    return (hz[:, :6] - hz[:, 6:] + SCHUR_DAMPING * x) * gauge
+
+
+def _matvec_b18(plan, Jc, Jl, Hll_inv, x, gauge):
+    """``schur_ba_cg``'s ``S x`` (the single form) through B18."""
+    from xslam_tpu_torch.models import ba
+
+    x = x * gauge
+    v = ba.schur_cg_anchors(plan, Jc, Jl, x)
+    hz = ba.schur_cg_keyframes(plan, Jc, Jl, Hll_inv, v, x)
+    return (hz[:, :6] - hz[:, 6:] + SCHUR_DAMPING * x) * gauge
+
+
+def phase_schur_cg(ctx):
+    """B18 against its plain passes on a seeded problem of the loop backend's
+    shape (184,320 observations sorted by keyframe as ``build_ba_problem``
+    makes them, 41 keyframes, 12,253 anchors, R = 4): each output within
+    ``SCHUR_MAX_ULP`` of the plain version's (the ulp histogram printed), S x
+    within that of both outputs and within ``B18_BEFORE_TOL`` of the outputs'
+    scale of the matvec before B18 (its histogram printed too), a second
+    call's bits equal; each pass timed
+    warm and cold beside its plain version and ``torch.segment_reduce`` over
+    the pass's rows in its order (one pass's sum alone: a yardstick); the
+    launches of one CG step's ``S x`` before B18 and through it; and
+    ``schur_ba_cg`` on the sharded BA phase's problem through B18 and through
+    the plain passes (poses within 1e-5)."""
+    from xslam_tpu_torch.models import ba
+    from xslam_tpu_torch.ops import kernels
+
+    dev = ctx["device"]
+    N, K, L, R = SCHUR_N, SCHUR_K, SCHUR_L, SCHUR_R
+    rng = np.random.default_rng(SCHUR_SEED)
+    ks = np.sort(rng.integers(0, K, N)).astype(np.int32)
+    ls = rng.integers(0, L, N).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(SCHUR_SEED)
+    Jc = torch.randn((N, R, 6), generator=gen, device=dev)
+    Jl = torch.randn((N, R, 3), generator=gen, device=dev)
+    A = torch.randn((L, 3, 3), generator=gen, device=dev)
+    Hll_inv = torch.linalg.inv_ex(A @ A.transpose(1, 2) + torch.eye(3, device=dev))[0].contiguous()
+    gauge = ba._gauge(K, dev)
+    x = torch.randn((K, 6), generator=gen, device=dev) * gauge
+    prob = ba.BAProblem(torch.as_tensor(ks, device=dev), torch.as_tensor(ls, device=dev),
+                        torch.zeros((N, 3), device=dev))
+    plan = ba.SchurCgPlan(prob, K, L)
+    v = ba.schur_cg_anchors(plan, Jc, Jl, x)
+    v_plain = ba._anchors_plain(plan, Jc, Jl, x)
+    hz = ba.schur_cg_keyframes(plan, Jc, Jl, Hll_inv, v_plain, x)
+    hz_plain = ba._keyframes_plain(plan, Jc, Jl, Hll_inv, v_plain, x)
+    torch.cuda.synchronize()
+    again = (torch.equal(ba.schur_cg_anchors(plan, Jc, Jl, x), v)
+             and torch.equal(ba.schur_cg_keyframes(plan, Jc, Jl, Hll_inv, v_plain, x), hz))
+    sx, sx_plain = hz[:, :6] - hz[:, 6:], hz_plain[:, :6] - hz_plain[:, 6:]
+    # the plain passes add each observation's products in B18's order; the matvec before them is held too
+    sx_b18, sx_before = _matvec_b18(plan, Jc, Jl, Hll_inv, x, gauge), _matvec_before(plan, Jc, Jl, Hll_inv, x, gauge)
+    vs_before = dict(ulp_histogram=_ulp_hist(sx_b18, sx_before), max_ulp=max_ulp(sx_b18, sx_before),
+                     max_abs=max_abs(sx_b18, sx_before), frac_equal=frac_equal(sx_b18, sx_before),
+                     share_of_scale=max_abs(sx_b18, sx_before) / float(sx_before.abs().max()))
+    outs = {"schur_cg_anchors": (v, v_plain), "schur_cg_keyframes": (hz, hz_plain)}
+    hists = {k: _ulp_hist(a, b) for k, (a, b) in outs.items()}
+    worst = {k: max_ulp(a, b) for k, (a, b) in outs.items()}
+    # each pass timed beside its plain version and its yardstick; then the matvec through B18 and the one before it
+    calls = {"schur_cg_anchors": (lambda: ba.schur_cg_anchors(plan, Jc, Jl, x),
+                                  lambda: ba._anchors_plain(plan, Jc, Jl, x)),
+             "schur_cg_keyframes": (lambda: ba.schur_cg_keyframes(plan, Jc, Jl, Hll_inv, v_plain, x),
+                                    lambda: ba._keyframes_plain(plan, Jc, Jl, Hll_inv, v_plain, x))}
+    rows = {"schur_cg_anchors": (plan.seg_l, torch.randn((N, 3), generator=gen, device=dev)),
+            "schur_cg_keyframes": (plan.seg_k, torch.randn((N, 12), generator=gen, device=dev))}
+    ops = _schur_ops(R)
+    result = {}
+    for name, (kernel_call, plain_call) in calls.items():
+        seg, contrib = rows[name]
+        sorted_rows = contrib[seg.order].contiguous()
+        lengths = (seg.end - seg.start).to(torch.int64)
+        library = time_ms(lambda: torch.segment_reduce(sorted_rows, "sum", lengths=lengths, axis=0), 20)
+        ms, cold = time_ms(kernel_call, 50), time_cold_ms(kernel_call, 20)
+        plain = time_ms(plain_call, 5)
+        n_bytes = _schur_bytes(name, N, R, K, L)
+        bms, by = bound_ms(n_bytes, N * ops[name])
+        a, b = outs[name]
+        result[name] = dict(shape=dict(N=N, K=K, L=L, R=R), max_abs_err=max_abs(a, b), max_ulp=worst[name],
+                            ulp_histogram=hists[name], frac_equal=frac_equal(a, b), ms=ms, cold_ms=cold,
+                            plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
+                            bound_ops=N * ops[name], library_ms=library,
+                            library_note="torch.segment_reduce of the pass's rows in its order: one pass's sum "
+                                         "alone, a yardstick")
+    matvec_ms = time_ms(lambda: _matvec_b18(plan, Jc, Jl, Hll_inv, x, gauge), 20)
+    before_ms = time_ms(lambda: _matvec_before(plan, Jc, Jl, Hll_inv, x, gauge), 5)
+    before = _profiled_call(lambda: _matvec_before(plan, Jc, Jl, Hll_inv, x, gauge), kernel="schur_cg_kernel")
+    after = _profiled_call(lambda: _matvec_b18(plan, Jc, Jl, Hll_inv, x, gauge), kernel="schur_cg_kernel")
+    # schur_ba_cg through B18 and through the plain passes on the sharded BA phase's problem
+    prob_s, poses, anchors, _ = _ba_scale_problem(dev)
+    kernels.reset_launch_counts()
+    with_b18 = ba.schur_ba_cg(poses, anchors, prob_s, iters=BA_ITERS)
+    b18_launches = {k: kernels.launch_counts[k] for k in ("schur_cg_anchors", "schur_cg_keyframes")}
+    passes = (ba.schur_cg_anchors, ba.schur_cg_keyframes)
+    ba.schur_cg_anchors, ba.schur_cg_keyframes = ba._anchors_plain, ba._keyframes_plain
+    try:
+        plain_run = ba.schur_ba_cg(poses, anchors, prob_s, iters=BA_ITERS)
+    finally:
+        ba.schur_cg_anchors, ba.schur_cg_keyframes = passes
+    solver_err = max_abs(with_b18.poses, plain_run.poses)
+    emit("B18 schur_cg", card=ctx["card"], **{k: {kk: vv for kk, vv in r.items() if kk != "library_note"}
+                                              for k, r in result.items()},
+         sx_max_ulp=max_ulp(sx, sx_plain), sx_max_abs=max_abs(sx, sx_plain), second_call_bit_equal=again,
+         sx_vs_matvec_before=vs_before,
+         matvec_ms=matvec_ms, matvec_before_ms=before_ms,
+         matvec_launches_before=before["device_events"], matvec_host_calls_before=before["host_calls"],
+         matvec_launches_after=after["device_events"], matvec_host_calls_after=after["host_calls"],
+         matvec_b18_device_ms=after["kernel_ms"], matvec_b18_events=after["kernel_events"],
+         solver=dict(K=BA_SCALE["K"], L=BA_SCALE["L"], N=int(prob_s.frame_idx.shape[0]), iters=BA_ITERS,
+                     b18_launches=b18_launches, poses_max_abs_vs_plain_passes=solver_err,
+                     residual_last=float(with_b18.residual_history[-1]),
+                     residual_last_plain=float(plain_run.residual_history[-1])))
+    check(again, "B18: a second call gave other bits")
+    check(all(w <= SCHUR_MAX_ULP for w in worst.values()), f"B18 against its plain passes: {worst} ulp, "
+                                                            f"histograms {hists}")
+    check(after["kernel_events"] == 2, f"B18: {after['kernel_events']} kernel events in one S x, expected 2")
+    check(vs_before["share_of_scale"] <= B18_BEFORE_TOL, f"B18's S x against the matvec before it: {vs_before}")
+    check(solver_err <= B18_SOLVER_TOL and b18_launches["schur_cg_anchors"] == BA_ITERS * 40,
+          f"B18 in schur_ba_cg: poses {solver_err} from the plain passes', launches {b18_launches}")
+    return result
+
+
+def phase_sharded_ba(ctx):
+    """The observation-sharded BA on the card: ``schur_ba(group=)`` and
+    ``schur_ba_cg(group=)`` at one NCCL rank equal the single forms bit for
+    bit on a seeded 60-keyframe, 6,000-anchor problem; over two ranks on this
+    card (``tests/sharded_rank.py --backend gloo``, a ``"ba"`` job, each rank
+    its half of the observations) both ranks hold the same bits, within 1e-4
+    of the single forms."""
+    import pickle
+    import tempfile
+
+    from xslam_tpu_torch.models import ba
+    from xslam_tpu_torch.ops import kernels
+    from xslam_tpu_torch.parallel.mesh import init_space_group
+
+    dev = ctx["device"]
+    if "space_group" not in ctx:
+        ctx["space_group"] = init_space_group()
+    group = ctx["space_group"]
+    prob, poses, anchors, spec = _ba_scale_problem(dev)
+    block = ba.observation_block(prob, group)
+    single, one_rank, equal = {}, {}, {}
+    for name, fn in (("dense", ba.schur_ba), ("cg", ba.schur_ba_cg)):
+        single[name] = fn(poses, anchors, prob, iters=BA_ITERS)
+        kernels.reset_launch_counts()
+        one_rank[name] = fn(poses, anchors, block, iters=BA_ITERS, group=group)
+        equal[name] = all(torch.equal(a, b) for a, b in zip(one_rank[name], single[name]))
+    b18 = {k: kernels.launch_counts[k] for k in ("schur_cg_anchors", "schur_cg_keyframes")}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "jobs.pkl"), "wb") as f:
+            pickle.dump([{"name": "ba", "ba": spec}], f)
+        np.save(os.path.join(tmp, "depths.npy"), np.zeros((1, 2, 2), np.uint16))
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "sharded_rank.py"),
+                                   os.path.join(tmp, "jobs.pkl"), os.path.join(tmp, "depths.npy"),
+                                   os.path.join(tmp, "out"), "--rank", str(r), "--world-size", str(TWO_RANKS),
+                                   "--init-method", "file://" + os.path.join(tmp, "rendezvous"), "--backend", "gloo"],
+                                  cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(TWO_RANKS)]
+        try:
+            logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in procs), f"sharded BA, two ranks: exit codes "
+                                                     f"{[p.returncode for p in procs]}: {logs[0][-2000:]}")
+        ranks = [dict(np.load(os.path.join(tmp, f"out.{r}.npz"))) for r in range(TWO_RANKS)]
+    two = {}
+    for name in ("dense", "cg"):
+        same = all(np.array_equal(ranks[0][f"ba.{name}_{k}"], ranks[1][f"ba.{name}_{k}"])
+                   for k in ("poses", "anchors", "hist"))
+        err = max(float(np.abs(ranks[0][f"ba.{name}_poses"] - single[name].poses.cpu().numpy()).max()),
+                  float(np.abs(ranks[0][f"ba.{name}_anchors"] - single[name].anchors.cpu().numpy()).max()))
+        two[name] = dict(ranks_equal=same, max_abs_to_single=err, residual_last=float(ranks[0][f"ba.{name}_hist"][-1]))
+    emit("sharded BA", card=ctx["card"], K=BA_SCALE["K"], L=BA_SCALE["L"], N=int(prob.frame_idx.shape[0]),
+         iters=BA_ITERS, one_rank=dict(backend=group.backend, world_size=group.world_size, bit_equal=equal,
+                                       b18_launches_cg=b18),
+         two_ranks=dict(backend="gloo on one card", rows_per_rank=int(ranks[0]["ba.rows"]), seconds=seconds, **two),
+         residual_last={k: float(r.residual_history[-1]) for k, r in single.items()})
+    check(all(equal.values()), f"sharded BA at one rank: not the single forms' bits {equal}")
+    check(all(t["ranks_equal"] and t["max_abs_to_single"] <= BA_SHARDED_TOL for t in two.values()),
+          f"sharded BA over two ranks: {two}")
+    return {"one_rank_bit_equal": equal, "two_ranks": two}
+
+
+def phase_backend_sharded_blackout(ctx):
+    """The blackout run of "backend, blackout" (the same 60 frames of
+    configs/ICL_blackout.yaml's rendered data) through ``run_slam --sharded``
+    at one NCCL rank: ``RecoveringEngine`` over ``ShardedXSlamEngine``, then
+    the refinement (B18 in ``schur_ba_cg``). Its ATE, recovery events,
+    keyframes and refined ATE are the single engine's, to every digit."""
+    t0 = time.perf_counter()
+    root = _backend_data(ctx)
+    n = BACKEND_RUNS["blackout"][1]
+    run, parsed, probe, info = backend_run("blackout", root, n, ctx["card"], extra=("--sharded",),
+                                           out_tag="blackout_sharded")
+    ate, refined, events, keyframes, single_info = ctx["backend_blackout_run"]
+    same = dict(ate=run.ate == ate, refined_ate=run.refined_ate == refined,
+                recovery_events=list(run.engine.recovery_events) == events,
+                keyframes=[k.frame_index for k in run.engine.keyframes] == keyframes)
+    info.update(engine=type(run.engine.engine).__name__, ate_full=run.ate, refined_ate_full=run.refined_ate,
+                single_engine_ate_full=ate, single_engine_refined_ate_full=refined, equal_to_single_engine=same,
+                single_engine_schur_ba_cg_s=single_info["schur_ba_cg_s"], phase_s=time.perf_counter() - t0)
+    emit("backend, sharded blackout", **info)
+    _check_backend_common("blackout", run, parsed, probe, n, root, out_tag="blackout_sharded")
+    check(type(run.engine.engine).__name__ == "ShardedXSlamEngine", f"sharded blackout: wrapped {info['engine']}")
+    check(all(same.values()), f"sharded blackout: not the single engine's run: {same}")
+    return info
+
+
 # the phases in their order: (name, function)
 PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), ("fuse_volume", phase_fusion),
           ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("B15", phase_b15), ("march_fixed", phase_march),
@@ -4797,7 +5138,7 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("dense marches", phase_dense_marches), ("extract", phase_extract),
           ("maps", phase_maps), ("icp_system", phase_icp), ("B19", phase_b19), ("B19 columns", phase_b19_columns),
           ("four levels", phase_levels),
-          ("tsdf_loss", phase_tsdf_loss),
+          ("tsdf_loss", phase_tsdf_loss), ("schur_cg", phase_schur_cg),
           ("relocalize path", phase_relocalize_path), ("odometry path", phase_odometry_path),
           ("probes", phase_probes),
           ("main path", phase_main_path),
@@ -4814,12 +5155,14 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           *((tag, lambda ctx, tag=tag: phase_main_path(ctx, tag)) for tag in B15_RUNS),
           *((tag, lambda ctx, tag=tag: phase_main_path_sharded(ctx, tag)) for tag in SHARDED_RUNS),
           ("main path, sharded bench refresh, 2 ranks", phase_main_path_sharded_two_ranks),
+          ("sharded BA", phase_sharded_ba),
           ("process_frames", phase_process_frames),
           ("main path, ICL realistic", phase_main_path_icl),
           ("main path, 7-Scenes realistic", phase_main_path_7scenes),
           ("backend, blackout", phase_backend_blackout),
           ("backend, loop", phase_backend_loop),
-          ("backend, realistic", phase_backend_realistic))
+          ("backend, realistic", phase_backend_realistic),
+          ("backend, sharded blackout", phase_backend_sharded_blackout))
 
 
 def main() -> int:
@@ -4903,6 +5246,7 @@ def main() -> int:
     results.update(results.pop("dense marches"))
     results.update(results.pop("B19"))
     results.update(results.pop("B19 columns"))
+    results.update(results.pop("schur_cg"))
     # B5b's latency floor: its longest ray's rounds, each at least one dependent gather of probe E
     skip = results["march_skip"]
     skip["latency_floor_ms"] = skip["longest_ray_rounds"] * results["probe_e"]["ms"] / PROBE_E_STEPS
@@ -4914,6 +5258,7 @@ def main() -> int:
                                                "main path, ICL realistic",
                                                "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]
+    counts["backend, blackout"] = {**{k: 0 for k in KERNELS}, **results["backend, blackout"]["kernels"]}
     table = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "path": path, "launches": counts[path][k],
          **({"folded_into": FOLDED[k]} if k in FOLDED else {}),

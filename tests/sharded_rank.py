@@ -13,7 +13,10 @@ imports paid once): ``{"name": ..., "config": SlamConfig}`` runs the
 engine over the frames (the first ``"frames"`` of them where the job
 says), ``{"name": ..., "stage": "refresh"}`` the per-rank
 refresh of the brick raycast on the state the job before it left
-(:func:`refresh_stage`). ``DEPTHS.npy``: a (K, H, W) uint16 stack;
+(:func:`refresh_stage`), ``{"name": ..., "ba": {...}}`` the
+observation-sharded ``schur_ba`` and ``schur_ba_cg`` on this rank's block of
+a problem (:func:`ba_job`), ``{"name": ..., "config": SlamConfig, "recover":
+True}`` the recovering engine over the sharded one (:func:`recover_job`). ``DEPTHS.npy``: a (K, H, W) uint16 stack;
 ``GT.npy``: (K, 4, 4) camera-to-world poses, given to the engine where a
 config sets ``use_gt_pose``. Rank r writes ``OUT_PREFIX.r.npz``: each
 frame's pose (value and derivative lanes), ``align_ok``, inlier count,
@@ -38,6 +41,8 @@ import torch
 import torch.distributed as dist
 
 from xslam_tpu_torch.geometry import se3
+from xslam_tpu_torch.models import ba
+from xslam_tpu_torch.models.recovery import RecoveringEngine
 from xslam_tpu_torch.ops import fusion, kernels, raycast_bricks
 from xslam_tpu_torch.parallel import sharded
 from xslam_tpu_torch.parallel.engine import ShardedXSlamEngine
@@ -129,6 +134,42 @@ def refresh_stage(engine, state) -> dict:
     return out
 
 
+def ba_job(spec: dict, group) -> dict:
+    """``schur_ba`` and ``schur_ba_cg`` with ``group`` on this rank's block
+    (:func:`xslam_tpu_torch.models.ba.observation_block`) of the problem of
+    ``spec`` (numpy ``frame_idx``, ``anchor_idx``, ``meas_cam``, the start
+    ``poses`` and ``anchors``, ``iters``): each solver's poses, anchors and
+    residual history, and the rank's rows."""
+    dev = group.device
+    problem = ba.BAProblem(*(torch.as_tensor(spec[k], device=dev) for k in ("frame_idx", "anchor_idx", "meas_cam")))
+    block = ba.observation_block(problem, group)
+    poses, anchors = (torch.as_tensor(spec[k], device=dev) for k in ("poses", "anchors"))
+    out = dict(rows=np.asarray(block.frame_idx.shape[0]))
+    for name, fn in (("dense", ba.schur_ba), ("cg", ba.schur_ba_cg)):
+        res = fn(poses, anchors, block, iters=spec["iters"], group=group)
+        out.update({f"{name}_poses": res.poses.cpu().numpy(), f"{name}_anchors": res.anchors.cpu().numpy(),
+                    f"{name}_hist": res.residual_history.cpu().numpy()})
+    return out
+
+
+def recover_job(config, depths: np.ndarray, group) -> dict:
+    """``RecoveringEngine`` over ``ShardedXSlamEngine`` on ``depths``, then
+    ``refine_trajectory()``: the pose log, each frame's ``align_ok``, the
+    recovery events (frame, accepted, the losses before and after, the pose
+    jump), the keyframes' frames, the loop edges' keyframe pairs and the
+    refined trajectory."""
+    engine = RecoveringEngine(config, engine=ShardedXSlamEngine(config, group=group))
+    state, oks = engine.init_state(), []
+    for depth in depths:
+        state, res = engine.process_frame(state, depth)
+        oks.append(bool(res.align_ok))
+    return dict(pose_log=np.stack(engine.pose_log), align_ok=np.asarray(oks),
+                events=np.asarray([tuple(e) for e in engine.recovery_events], np.float64).reshape(-1, 5),
+                keyframes=np.asarray([k.frame_index for k in engine.keyframes]),
+                loop_edges=np.asarray([(i, j) for i, j, _ in engine.loop_edges]).reshape(-1, 2),
+                refined=engine.refine_trajectory())
+
+
 def run(config, depths: np.ndarray, rank: int, world_size: int, init_method: str, device=None,
         gt: np.ndarray = None, backend=None) -> dict:
     """This rank's run over ``depths``: what :func:`main` writes."""
@@ -143,6 +184,10 @@ def run(config, depths: np.ndarray, rank: int, world_size: int, init_method: str
         for job in config:
             if "stage" in job:
                 result = refresh_stage(*last)
+            elif "ba" in job:
+                result = ba_job(job["ba"], group)
+            elif job.get("recover"):
+                result = recover_job(job["config"], depths[:job.get("frames", len(depths))], group)
             else:
                 engine = ShardedXSlamEngine(job["config"], group=group)
                 k = job.get("frames", len(depths))

@@ -126,13 +126,6 @@ def test_segment_sums(rows):
     assert torch.equal(out, seg(_t(vals)))
 
 
-def test_axis_name_is_not_ported():
-    prob = tba.BAProblem(torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3))
-    for fn in (tba.schur_ba, tba.schur_ba_cg):
-        with pytest.raises(NotImplementedError, match="axis_name"):
-            fn(torch.zeros(1, 6), torch.zeros(1, 3), prob, axis_name="space")
-
-
 # ---------------------------------------------------------------- pose graphs
 @pytest.fixture(scope="module")
 def loop_graph():

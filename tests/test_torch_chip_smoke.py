@@ -74,7 +74,7 @@ def test_kernel_table_names_every_counted_wrapper():
         "main path, bench refresh", "main path, hier2", "main path, skip", "main path, hier", "main path, hier_skip",
         "main path, bench bilinear", "main path, ICL realistic", "relocalize path", "probe path",
         *chip_smoke.SHARDED_RUNS, "main path, sharded bench refresh, 2 ranks", *chip_smoke.BRICK_RAYCASTS,
-        *chip_smoke.B15_RUNS}
+        *chip_smoke.B15_RUNS, "backend, blackout"}
     assert chip_smoke.KERNELS["raycast_refine_bricks"][2] == "main path, brick skip"  # K5r
     assert chip_smoke.KERNELS["window_march_first_event"][2] == "main path, bench phase1"  # B16
     assert set(chip_smoke.FRAME_LAUNCHES) <= {name for name, _ in chip_smoke.PHASES}
@@ -150,8 +150,12 @@ def test_backend_phases_come_last():
     phase in its order; each runs a shipped backend config on data the port's
     generator renders, cut by ``--frames`` only."""
     names = [name for name, _ in chip_smoke.PHASES]
-    assert names[-4:] == ["main path, 7-Scenes realistic", "backend, blackout", "backend, loop", "backend, realistic"]
-    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 55
+    assert names[-5:] == ["main path, 7-Scenes realistic", "backend, blackout", "backend, loop", "backend, realistic",
+                          "backend, sharded blackout"]
+    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 58
+    # B18 after B12's kernel phase; the sharded BA after the two ranks' main path
+    assert names[names.index("tsdf_loss") + 1] == "schur_cg"
+    assert names[names.index("main path, sharded bench refresh, 2 ranks") + 1] == "sharded BA"
     # B19's hooks and column blocks after K4's phase, C3's four levels after them; the sharded main paths (one rank
     # in each setting, then two ranks on the card) after B15's settings
     assert names[names.index("icp_system") + 1: names.index("icp_system") + 4] == ["B19", "B19 columns", "four levels"]
@@ -187,8 +191,9 @@ def test_kernel_table_rows_unchanged():
     own, and so have B19's slab hooks (K2, B3b and B3c with a slab's offset,
     K3 and K5 in their slab modes, K5's finalize, K4's tail) on the sharded
     engine's main paths, and B19e's two kernels (B5a's mask over a slab, its
-    distance over the gathered mask) on the two ranks' path (46 in all), each
-    on the main path setting that runs it."""
+    distance over the gathered mask) on the two ranks' path, and B18's two
+    passes on the blackout run's refinement (48 in all), each on the path
+    that runs it."""
     assert list(chip_smoke.KERNELS) == [
         "bilateral_filter", "fuse_volume", "march_fixed", "raycast_refine", "resize_model_maps", "depth_pyramid",
         "depth_mips", "classify_bricks", "fuse_bricks", "vertex_normal_maps", "icp_system", "icp_associate",
@@ -197,7 +202,9 @@ def test_kernel_table_rows_unchanged():
         "tsdf_loss", "tsdf_band", "classify_bricks_split", "classify_bricks_fine", "classify_subcells",
         "fuse_bricks_mixed", "fuse_bricks_subcell", "fuse_volume_slab", "classify_bricks_slab", "fuse_bricks_slab",
         "march_fixed_shard", "raycast_refine_shard", "raycast_finalize", "icp_tail", "event_mask", "skip_distance",
-        "probe_a", "probe_b", "probe_c", "probe_d", "probe_e"]
+        "schur_cg_anchors", "schur_cg_keyframes", "probe_a", "probe_b", "probe_c", "probe_d", "probe_e"]
+    assert chip_smoke.KERNELS["schur_cg_anchors"][::2] == chip_smoke.KERNELS["schur_cg_keyframes"][::2] == (
+        "xslam_tpu_torch/csrc/schur_cg.cu", "backend, blackout")
     assert chip_smoke.KERNELS["event_mask"][2] == chip_smoke.KERNELS["skip_distance"][2] == (
         "main path, sharded bench refresh, 2 ranks")
     assert {k: chip_smoke.KERNELS[k][2] for k in ("fuse_volume_slab", "classify_bricks_slab", "fuse_bricks_slab",

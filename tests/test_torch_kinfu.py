@@ -137,21 +137,14 @@ def test_default_device_needs_cuda():
         TorchEngine(torch_config(small_config()))
 
 
-@pytest.mark.parametrize("case", ["schur_ba", "schur_ba_cg", "brick_layout_dense_fusion"])
+@pytest.mark.parametrize("case", ["brick_layout_dense_fusion"])
 def test_options_outside_the_slice_raise(case):
-    """What the port has no path for raises: the observation-sharded BA
-    (``axis_name``, not ported); and the JAX engine's own checks raise as
-    there (the brick layout needs brick fusion). B15's fusion options, which
-    raised here, now run: tests/test_torch_fusion_classifier_runs.py."""
-    from xslam_tpu_torch.models import ba as tba
-
-    if case == "brick_layout_dense_fusion":
-        with pytest.raises(ValueError, match="fusion_mode='brick'"):
-            TorchEngine(torch_config(small_config(volume_layout="brick", fusion_mode="dense")), device="cpu")
-        return
-    prob = tba.BAProblem(torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3))
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        getattr(tba, case)(torch.zeros(1, 6), torch.zeros(1, 3), prob, axis_name="space")
+    """The JAX engine's own checks raise as there (the brick layout needs
+    brick fusion). B15's fusion options, which raised here, now run:
+    tests/test_torch_fusion_classifier_runs.py; the observation-sharded BA
+    runs: tests/test_torch_sharded_backend.py."""
+    with pytest.raises(ValueError, match="fusion_mode='brick'"):
+        TorchEngine(torch_config(small_config(volume_layout="brick", fusion_mode="dense")), device="cpu")
 
 
 def _port_run(n, **options):

@@ -24,9 +24,9 @@ port's own single engine, on the CPU at the tests' scale (160x120, 64^3).
 - Every ``config.<knob>`` the single engine reads, the sharded engine reads
   (``tests/test_sharded.py::test_config_surface_parity_single_vs_sharded``).
 - The brick layout builds (its runs: ``tests/test_torch_sharded_bricks.py``);
-  a recovering engine over the sharded one raises ``NotImplementedError``
-  naming its slice (A11c); ``run_slam --sharded`` runs the dense and the
-  brick config on the CPU with the single engine's ATE.
+  a recovering engine wraps the sharded one and runs (its runs:
+  ``tests/test_torch_sharded_backend.py``); ``run_slam --sharded`` runs the
+  dense and the brick config on the CPU with the single engine's ATE.
 """
 
 import os
@@ -277,15 +277,20 @@ def test_config_surface_parity_single_vs_sharded():
 
 
 def test_brick_layout_and_recovery_are_the_next_slices(one_rank):
-    """The brick layout builds (A11b); a recovering engine over the sharded
-    one is the next slice (A11c)."""
+    """The brick layout builds (A11b); a recovering engine wraps the sharded
+    one and runs (A11c): two frames logged, both aligned."""
     brick = torch_config(small_config(volume_layout="brick", fusion_mode="brick"))
     engine = ShardedXSlamEngine(brick, group=one_rank)
     state = engine.init_state()
     assert engine.brick and tuple(state.volume.value.shape) == (8 * 8 * 8, 512)
-    cfg = torch_config(small_config())
-    with pytest.raises(NotImplementedError, match="A11c"):
-        RecoveringEngine(cfg, engine=ShardedXSlamEngine(cfg, group=one_rank))
+    cfg = torch_config(small_config(reloc_after_failures=2))
+    recovering = RecoveringEngine(cfg, engine=ShardedXSlamEngine(cfg, group=one_rank))
+    depths, _ = _depths(2)
+    state = recovering.init_state()
+    for d in depths:
+        state, res = recovering.process_frame(state, d)
+        assert bool(res.align_ok)
+    assert len(recovering.pose_log) == 2 and not recovering.recovery_events
 
 
 def test_run_slam_sharded_on_the_cpu(tmp_path):

@@ -44,6 +44,7 @@ BLOCK_THREADS = {
     "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,
     "tsdf_band_count_kernel": 256, "tsdf_band_list_kernel": 256,
     "march_shard_kernel": 256, "refine_shard_kernel": 64, "refine_finalize_kernel": 256, "icp_tail_kernel": 128,
+    "schur_cg_kernel": 256,
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64

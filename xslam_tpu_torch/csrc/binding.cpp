@@ -1,6 +1,6 @@
 // Python binding of the kernels' C entry points (bilateral.cu, fusion.cu,
 // bricks.cu, march.cu, refine.cu, maps.cu, icp.cu, window.cu, skip.cu,
-// extract.cu, tsdf_loss.cu, gather_probes.cu), built with them by
+// extract.cu, tsdf_loss.cu, schur_cg.cu, gather_probes.cu), built with them by
 // torch.utils.cpp_extension.load. The only
 // source that includes PyTorch's headers. The wrappers in ops/kernels.py
 // check device, type, shape and contiguity; each function here launches on
@@ -100,6 +100,14 @@ extern "C" int xs_tsdf_loss(const void* value, const void* depth, const void* po
 extern "C" int xs_tsdf_field(const void* value, const void* depth, const void* poses, int P, int field_pair,
                              void* field, void* field_mask, int X, int Y, int Z, int H, int W, int x_offset, float vs,
                              float fx, float fy, float cx, float cy, float trunc, float inv_trunc, void* stream);
+extern "C" int xs_schur_cg_anchors(const void* jc, const void* jl, const void* order, const void* keys,
+                                   const void* start, const void* end, const void* frame_idx, const void* x,
+                                   void* first, void* last, void* ticket, void* v, int n, int R, int n_keys,
+                                   int n_chunks, void* stream);
+extern "C" int xs_schur_cg_keyframes(const void* jc, const void* jl, const void* order, const void* keys,
+                                     const void* start, const void* end, const void* anchor_idx, const void* x,
+                                     const void* hll_inv, const void* v, void* first, void* last, void* ticket,
+                                     void* hz, int n, int R, int n_keys, int n_chunks, void* stream);
 extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_b(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_c(const void* table, void* out, void* stream);
@@ -567,6 +575,29 @@ int tsdf_field(const torch::Tensor& value, const torch::Tensor& depth, const tor
                        as_stream(stream));
 }
 
+// B18's passes: jc (N, R, 6), jl (N, R, 3) float32; order, keys (N,), start, end (n_keys,), frame_idx or
+// anchor_idx (N,) int32; first, last (n_chunks, D) float64 and ticket (1,) int32: the scratch; v (L, 3), hz (K, 12)
+int schur_cg_anchors(const torch::Tensor& jc, const torch::Tensor& jl, const torch::Tensor& order,
+                     const torch::Tensor& keys, const torch::Tensor& start, const torch::Tensor& end,
+                     const torch::Tensor& frame_idx, const torch::Tensor& x, torch::Tensor first, torch::Tensor last,
+                     torch::Tensor ticket, torch::Tensor v, int64_t stream) {
+  return xs_schur_cg_anchors(jc.data_ptr(), jl.data_ptr(), order.data_ptr(), keys.data_ptr(), start.data_ptr(),
+                             end.data_ptr(), frame_idx.data_ptr(), x.data_ptr(), first.data_ptr(), last.data_ptr(),
+                             ticket.data_ptr(), v.data_ptr(), jc.size(0), jc.size(1), v.size(0), first.size(0),
+                             as_stream(stream));
+}
+
+int schur_cg_keyframes(const torch::Tensor& jc, const torch::Tensor& jl, const torch::Tensor& order,
+                       const torch::Tensor& keys, const torch::Tensor& start, const torch::Tensor& end,
+                       const torch::Tensor& anchor_idx, const torch::Tensor& x, const torch::Tensor& hll_inv,
+                       const torch::Tensor& v, torch::Tensor first, torch::Tensor last, torch::Tensor ticket,
+                       torch::Tensor hz, int64_t stream) {
+  return xs_schur_cg_keyframes(jc.data_ptr(), jl.data_ptr(), order.data_ptr(), keys.data_ptr(), start.data_ptr(),
+                               end.data_ptr(), anchor_idx.data_ptr(), x.data_ptr(), hll_inv.data_ptr(), v.data_ptr(),
+                               first.data_ptr(), last.data_ptr(), ticket.data_ptr(), hz.data_ptr(), jc.size(0),
+                               jc.size(1), hz.size(0), first.size(0), as_stream(stream));
+}
+
 int probe_a(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {
   return xs_probe_a(table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.numel(), as_stream(stream));
 }
@@ -629,6 +660,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tsdf_band", &tsdf_band);
   m.def("tsdf_loss", &tsdf_loss);
   m.def("tsdf_field", &tsdf_field);
+  m.def("schur_cg_anchors", &schur_cg_anchors);
+  m.def("schur_cg_keyframes", &schur_cg_keyframes);
   m.def("probe_a", &probe_a);
   m.def("probe_b", &probe_b);
   m.def("probe_c", &probe_c);

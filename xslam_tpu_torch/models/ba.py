@@ -31,8 +31,19 @@ anchor (JAX's ``.at[].add``) are in an order fixed by the problem
 (:class:`_Segments`): two calls on the same inputs give the same bits on the
 card, where ``index_add_`` would add with atomics in no fixed order.
 
-The sharded forms (``axis_name``, observations split over devices with the
-blocks summed across them) are not ported: ``axis_name`` must be ``None``.
+Every ``S @ x`` of :func:`schur_ba_cg` is B18 on the card
+(``csrc/schur_cg.cu``): two launches, the sum by anchor and the sum by
+keyframe (:func:`schur_cg_anchors`, :func:`schur_cg_keyframes`; plain
+versions :func:`_anchors_plain`, :func:`_keyframes_plain`, whose products
+are added in the kernel's order).
+
+The observation-sharded forms (JAX's ``axis_name``): ``group``, a
+:class:`~xslam_tpu_torch.parallel.mesh.SpaceGroup` whose ranks each pass
+their own block of the observations (:func:`observation_block`); every block
+and sum that JAX ``psum``s is summed by ``dist.all_reduce`` at the same point,
+so every operand after it is replicated and CG's dot products need no
+collective. ``group=None`` is the single form. As in the JAX package, no
+entry point passes a group.
 """
 
 from __future__ import annotations
@@ -41,12 +52,16 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..csfd import single as cs
 from ..geometry import se3
+from ..ops import kernels
+from ..parallel.mesh import SpaceGroup
 
 # rows of a block of the prefix sums (_prefix): the scan's rows are short and many
 _BLOCK = 256
+CG_CHUNK = 256  # B18's sorted positions a block (csrc/schur_cg.cu CG_THREADS)
 
 
 def _exp(xi) -> torch.Tensor:
@@ -134,20 +149,25 @@ class _Segments:
     an order fixed by the keys alone: the rows sorted by key once (a stable
     sort), prefix sums in float64 (:func:`_prefix`), and each segment's sum
     the difference of the prefix at its ends, rounded to float32. Keys
-    outside ``[0, n)`` add nothing, as JAX drops them. No host read."""
+    outside ``[0, n)`` add nothing, as JAX drops them. No host read. The
+    order, the sorted keys and each key's segment are int32, the form B18
+    reads (the problems' indices are int32)."""
 
     def __init__(self, keys: torch.Tensor, n: int):
         self.n = n
-        self.order = torch.argsort(keys, stable=True)
-        sorted_keys = keys[self.order].contiguous()
-        seg = torch.arange(n, dtype=sorted_keys.dtype, device=keys.device)
-        self.start = torch.searchsorted(sorted_keys, seg)
-        self.end = torch.searchsorted(sorted_keys, seg, right=True)
+        keys = keys.to(torch.int32)
+        self.order = torch.argsort(keys, stable=True).to(torch.int32)
+        self.sorted_keys = keys[self.order].contiguous()
+        seg = torch.arange(n, dtype=torch.int32, device=keys.device)
+        self.start = torch.searchsorted(self.sorted_keys, seg, out_int32=True)
+        self.end = torch.searchsorted(self.sorted_keys, seg, right=True, out_int32=True)
 
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         shape = rows.shape[1:]
-        prefix = _prefix(rows[self.order].reshape(rows.shape[0], -1).to(torch.float64))
-        return (prefix[self.end] - prefix[self.start]).to(torch.float32).reshape((self.n,) + shape)
+        # index_select takes the int32 tables as they are (advanced indexing would widen them a launch each)
+        prefix = _prefix(rows.index_select(0, self.order).reshape(rows.shape[0], -1).to(torch.float64))
+        ends = prefix.index_select(0, self.end) - prefix.index_select(0, self.start)
+        return ends.to(torch.float32).reshape((self.n,) + shape)
 
 
 def _outer(J: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -177,9 +197,22 @@ def _gauge(K: int, device) -> torch.Tensor:
     return g
 
 
-def _no_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError("observation-sharded BA (axis_name) is not ported")
+def _summed(x: torch.Tensor, group: Optional[SpaceGroup]) -> torch.Tensor:
+    """``x`` (a new contiguous tensor) summed over ``group``'s ranks in place
+    (JAX's ``lax.psum``); ``x`` itself when ``group`` is None."""
+    if group is not None:
+        dist.all_reduce(x, group=group.group)
+    return x
+
+
+def _summed_all(xs, group: Optional[SpaceGroup]):
+    """The tensors ``xs`` each summed over ``group``'s ranks, in one
+    ``all_reduce`` of their concatenation; ``xs`` as they are when ``group``
+    is None."""
+    if group is None:
+        return tuple(xs)
+    flat = _summed(torch.cat([x.reshape(-1) for x in xs]), group)
+    return tuple(part.view(x.shape) for part, x in zip(flat.split([x.numel() for x in xs]), xs))
 
 
 def _pcg(matvec, precond, b: torch.Tensor, cg_iters: int) -> torch.Tensor:
@@ -487,6 +520,22 @@ def pad_problem(problem: BAProblem, bucket: int) -> BAProblem:
     )
 
 
+def observation_block(problem: BAProblem, group: SpaceGroup) -> BAProblem:
+    """This rank's block of the observations, as ``shard_map``'s
+    ``P(SPACE_AXIS)`` splits the observation axis: the problem padded by
+    :func:`pad_problem` to a multiple of the world size (weight-0 rows), then
+    the rank's contiguous ``1 / world_size`` of its rows. The problem itself
+    on one rank."""
+    n = group.world_size
+    if n == 1:
+        return problem
+    rows = int(problem.frame_idx.shape[0])
+    padded = pad_problem(problem, -(-rows // n) * n)
+    per = int(padded.frame_idx.shape[0]) // n
+    lo = group.rank * per
+    return BAProblem(*(None if a is None else a[lo:lo + per] for a in padded))
+
+
 class BAResult(NamedTuple):
     poses: torch.Tensor  # (K, 6)
     anchors: torch.Tensor  # (L, 3)
@@ -561,13 +610,132 @@ def _indices(problem: BAProblem):
     return problem.frame_idx.to(torch.int64), problem.anchor_idx.to(torch.int64)
 
 
+# ---------------------------------------------------------------------------
+# B18: the two passes of S x in schur_ba_cg
+def _dot(J: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``(J * y).sum(-1)`` with the products added in index order, as B18
+    adds them (``csrc/schur_cg.cu``): each product and each sum rounded to
+    float32 once, on every device."""
+    acc = J[..., 0] * y[..., 0]
+    for i in range(1, J.shape[-1]):
+        acc = acc + J[..., i] * y[..., i]
+    return acc
+
+
+class _CgPass(NamedTuple):
+    """One pass of B18 as the kernel reads it: the pass's :class:`_Segments`
+    (its int32 order, sorted keys and segments), the observations' other
+    index (int32), and its scratch: the chunks' first and last partial sums
+    (float64) and the ticket of the block that sums the keys crossing a
+    chunk."""
+
+    seg: _Segments
+    other: torch.Tensor
+    first: torch.Tensor
+    last: torch.Tensor
+    ticket: torch.Tensor
+
+
+def _cg_pass(seg: _Segments, other: torch.Tensor, width: int) -> _CgPass:
+    dev = other.device
+    chunks = -(-int(seg.order.shape[0]) // CG_CHUNK)
+    return _CgPass(seg, other.to(torch.int32).contiguous(),
+                   torch.empty((chunks, width), dtype=torch.float64, device=dev),
+                   torch.empty((chunks, width), dtype=torch.float64, device=dev),
+                   torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+class SchurCgPlan:
+    """What the two passes of ``S x`` read for a whole :func:`schur_ba_cg`
+    call: the observations' keyframes ``ks`` and anchors ``ls``, their
+    :class:`_Segments` by keyframe and by anchor, and on the card each pass's
+    :class:`_CgPass` (made once a call, no host read)."""
+
+    def __init__(self, problem: BAProblem, K: int, L: int):
+        self.ks, self.ls = _indices(problem)
+        self.seg_k, self.seg_l = _Segments(self.ks, K), _Segments(self.ls, L)
+        self.anchors = self.keyframes = None
+        if self.ks.device.type == "cuda":
+            self.anchors = _cg_pass(self.seg_l, problem.frame_idx, 3)
+            self.keyframes = _cg_pass(self.seg_k, problem.anchor_idx, 12)
+
+
+def _anchors_plain(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Pass L of ``S x``: ``v[l] = sum over l's observations of Jl^T (Jc x[k])``
+    (L, 3), each anchor's sum ordered by :class:`_Segments`."""
+    u = _dot(Jc, x[plan.ks][:, None, :])  # (N, R)
+    return plan.seg_l(_dot(Jl.transpose(1, 2), u[:, None, :]))
+
+
+def _keyframes_plain(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, Hll_inv: torch.Tensor,
+                     v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Pass K of ``S x``: with ``u = Jc x[k]`` and ``z = Jl (Hll_inv v)[l]``,
+    each keyframe's sums of ``Jc^T u`` and of ``Jc^T z`` side by side (K, 12),
+    ordered by :class:`_Segments`."""
+    u = _dot(Jc, x[plan.ks][:, None, :])
+    w = _dot(Hll_inv, v[:, None, :])  # (L, 3)
+    z = _dot(Jl, w[plan.ls][:, None, :])  # (N, R)
+    jc_t = Jc.transpose(1, 2)
+    return plan.seg_k(torch.cat([_dot(jc_t, u[:, None, :]), _dot(jc_t, z[:, None, :])], 1))
+
+
+def _check_rows(Jc: torch.Tensor, Jl: torch.Tensor, x: torch.Tensor, plan: SchurCgPlan) -> None:
+    N, R = Jc.shape[:2]
+    if R not in (3, 4):
+        raise ValueError(f"Jc: R must be 3 or 4, got {R}")
+    kernels.check_tensor(Jc, "Jc", torch.float32, (N, R, 6))
+    kernels.check_tensor(Jl, "Jl", torch.float32, (N, R, 3))
+    kernels.check_tensor(x, "x", torch.float32, (plan.seg_k.n, 6))
+    if plan.anchors is None or plan.ks.device != Jc.device:
+        raise ValueError(f"the plan was made on {plan.ks.device}, the rows lie on {Jc.device}")
+
+
+def schur_cg_anchors(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """B18's pass L (``xslam_tpu/models/ba.py:604-605``): each anchor's
+    ``sum Jl^T (Jc x[k])`` over its observations, (L, 3) float32. ``Jc`` (N,
+    R, 6), ``Jl`` (N, R, 3) contiguous, ``x`` (K, 6) gauge-masked. On CPU
+    tensors :func:`_anchors_plain`; on the card one launch of
+    ``csrc/schur_cg.cu``."""
+    if kernels.on_cpu(Jc, Jl, x):
+        return _anchors_plain(plan, Jc, Jl, x)
+    _check_rows(Jc, Jl, x, plan)
+    p, s = plan.anchors, plan.seg_l
+    v = torch.empty((s.n, 3), dtype=torch.float32, device=Jc.device)
+    kernels.launch("schur_cg_anchors", Jc.device, Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x,
+                   p.first, p.last, p.ticket, v)
+    kernels.launch_counts["schur_cg_anchors"] += 1
+    return v
+
+
+def schur_cg_keyframes(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, Hll_inv: torch.Tensor,
+                       v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """B18's pass K (``xslam_tpu/models/ba.py:606-608``): with ``v`` summed
+    over the ranks, each keyframe's ``sum Jc^T (Jc x[k])`` and ``sum Jc^T (Jl
+    (Hll_inv v)[l])`` side by side, (K, 12) float32; their difference is
+    ``S x``'s. On CPU tensors :func:`_keyframes_plain`; on the card one launch
+    of ``csrc/schur_cg.cu``."""
+    if kernels.on_cpu(Jc, Jl, Hll_inv, v, x):
+        return _keyframes_plain(plan, Jc, Jl, Hll_inv, v, x)
+    _check_rows(Jc, Jl, x, plan)
+    L = plan.seg_l.n
+    kernels.check_tensor(Hll_inv, "Hll_inv", torch.float32, (L, 3, 3))
+    kernels.check_tensor(v, "v", torch.float32, (L, 3))
+    p, s = plan.keyframes, plan.seg_k
+    hz = torch.empty((s.n, 12), dtype=torch.float32, device=Jc.device)
+    kernels.launch("schur_cg_keyframes", Jc.device, Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x,
+                   Hll_inv, v, p.first, p.last, p.ticket, hz)
+    kernels.launch_counts["schur_cg_keyframes"] += 1
+    return hz
+
+
+# ---------------------------------------------------------------------------
 def schur_ba(
     poses_init: torch.Tensor,
     anchors_init: torch.Tensor,
     problem: BAProblem,
     iters: int = 8,
     damping: float = 1e-4,
-    axis_name: Optional[str] = None,
+    group: Optional[SpaceGroup] = None,
 ) -> BAResult:
     """Gauss-Newton with Schur elimination of the anchor blocks.
 
@@ -575,8 +743,12 @@ def schur_ba(
     ``Hcc (6K,6K)``, ``Hll (L,3,3)``, ``Hcl (K,L,6,3)``, gradients — then the
     reduced camera system ``(Hcc - Hcl Hll^-1 Hlc) dc = -(gc - Hcl Hll^-1 gl)``,
     solved densely. Keyframe 0 is gauge-fixed. The oracle that
-    :func:`schur_ba_cg` is tested against; ``axis_name`` must be ``None``."""
-    _no_axis(axis_name)
+    :func:`schur_ba_cg` is tested against.
+
+    With ``group`` each rank passes its block of the observations
+    (:func:`observation_block`) and the blocks, gradients and squared
+    residual are summed over the ranks (one ``all_reduce`` an iteration,
+    ``xslam_tpu/models/ba.py:471``)."""
     poses = _f32(poses_init)
     dev = poses.device
     anchors = _f32(anchors_init, dev)
@@ -598,6 +770,7 @@ def schur_ba(
         gc = seg_k(_jT(Jcs, rs))
         gl = seg_l(_jT(Jls, rs))
         sq = torch.sum(rs * rs)
+        Hcc, Hll, Hcl, gc, gl, sq = _summed_all((Hcc, Hll, Hcl, gc, gl, sq), group)
 
         Hll_inv = torch.linalg.inv_ex(Hll + damping * eye3)[0]  # (L,3,3) parallel
         # S = Hcc - Hcl Hll^-1 Hlc  (camera-block Schur complement)
@@ -627,7 +800,7 @@ def schur_ba_cg(
     iters: int = 8,
     damping: float = 1e-4,
     cg_iters: int = 40,
-    axis_name: Optional[str] = None,
+    group: Optional[SpaceGroup] = None,
 ) -> BAResult:
     """Scalable Schur-complement BA: matrix-free CG on the reduced camera
     system — the production path for real keyframe counts.
@@ -636,58 +809,65 @@ def schur_ba_cg(
     per-observation Jacobians (``Jc (N,R,6)``, ``Jl (N,R,3)``) and the
     block-diagonal ``Hll (L,3,3)``, and solves ``S dc = -(gc - Hcl Hll^-1
     gl)`` by conjugate gradients where every ``S @ x`` is two segment sums
-    over the observations (:class:`_Segments`, the order fixed by the
-    problem):
+    over the observations (B18: :func:`schur_cg_anchors` and
+    :func:`schur_cg_keyframes`, the order fixed by the problem):
 
         u = Jc x[k]                  (N,R)   per observation
-        Hcc x   = sum_k Jc^T u               (K,6)
-        v       = sum_l Jl^T u               (L,3)
+        v       = sum_l Jl^T u               (L,3)   [summed over the ranks]
         w       = Hll^-1 v                   (L,3)   block-diagonal
+        Hcc x   = sum_k Jc^T u               (K,6)
         Hcl w   = sum_k Jc^T (Jl w[l])       (K,6)
-        S x     = Hcc x - Hcl w + damping*x
+        S x     = Hcc x - Hcl w + damping*x          [the difference summed]
 
     O(N + K + L) memory, O(cg_iters * N) work per GN step. Preconditioner:
     inverse block diagonal of Hcc (6x6 per keyframe). Keyframe 0 is
-    gauge-fixed. ``axis_name`` must be ``None`` (no sharded form).
+    gauge-fixed.
+
+    With ``group`` each rank passes its block of the observations
+    (:func:`observation_block`); ``gc``, ``Hcc``'s diagonal, ``gl``, ``Hll``
+    and the squared residual (one ``all_reduce`` an iteration), ``v`` and the
+    difference of each ``S @ x``, the right-hand side's sum and the
+    back-substitution's are summed over the ranks
+    (``xslam_tpu/models/ba.py:583-654``): two small sums a CG step.
     """
-    _no_axis(axis_name)
     poses = _f32(poses_init)
     dev = poses.device
     anchors = _f32(anchors_init, dev)
     K, L = poses.shape[0], anchors.shape[0]
-    ks, ls = _indices(problem)
+    plan = SchurCgPlan(problem, K, L)
+    ks, ls = plan.ks, plan.ls
     gauge = _gauge(K, dev)
-    seg_k, seg_l = _Segments(ks, K), _Segments(ls, L)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     hist = []
     for _ in range(iters):
         rs, Jcs, Jls = _obs_terms(poses, anchors, problem, ks, ls)
-        # gc with Hcc's block diagonal, gl with Hll: one ordered sum each
-        by_k = seg_k(torch.cat([_jT(Jcs, rs), _outer(Jcs, Jcs).reshape(-1, 36)], 1))
-        by_l = seg_l(torch.cat([_jT(Jls, rs), _outer(Jls, Jls).reshape(-1, 9)], 1))
+        jc_rows, jl_rows = Jcs.contiguous(), Jls.contiguous()  # B18's rows
+        # gc with Hcc's block diagonal, gl with Hll: one ordered sum each; summed over the ranks with the residual
+        by_k = plan.seg_k(torch.cat([_jT(Jcs, rs), _outer(Jcs, Jcs).reshape(-1, 36)], 1))
+        by_l = plan.seg_l(torch.cat([_jT(Jls, rs), _outer(Jls, Jls).reshape(-1, 9)], 1))
+        by_k, by_l, sq = _summed_all((by_k, by_l, torch.sum(rs * rs)), group)
         gc, Hcc_diag = by_k[:, :6], by_k[:, 6:].reshape(K, 6, 6)
         gl, Hll = by_l[:, :3], by_l[:, 3:].reshape(L, 3, 3)
         Hll_inv = torch.linalg.inv_ex(Hll + damping * eye3)[0]
+        hll_rows = Hll_inv.contiguous()  # B18's (the card's inverse comes column-major)
         # Jacobi block preconditioner from the Hcc block diagonal
         M_inv = torch.linalg.inv_ex(Hcc_diag + damping * eye6)[0]
 
         def matvec(x):  # (K,6) -> S x, gauge-masked
             x = x * gauge
-            u = _j(Jcs, x[ks])  # (N,R)
-            w = _block_solve(Hll_inv, seg_l(_jT(Jls, u)))
-            z = _j(Jls, w[ls])  # (N,R)
-            hz = seg_k(torch.cat([_jT(Jcs, u), _jT(Jcs, z)], 1))
-            return (hz[:, :6] - hz[:, 6:] + damping * x) * gauge
+            v = _summed(schur_cg_anchors(plan, jc_rows, jl_rows, x), group)
+            hz = schur_cg_keyframes(plan, jc_rows, jl_rows, hll_rows, v, x)
+            return (_summed(hz[:, :6] - hz[:, 6:], group) + damping * x) * gauge
 
         # rhs: b = -(gc - Hcl Hll^-1 gl)
         z0 = _j(Jls, _block_solve(Hll_inv, gl)[ls])
-        b = -(gc - seg_k(_jT(Jcs, z0))) * gauge
+        b = -(gc - _summed(plan.seg_k(_jT(Jcs, z0)), group)) * gauge
         dc = _pcg(matvec, lambda r: _block_solve(M_inv, r) * gauge, b, cg_iters) * gauge
 
         # back-substitute anchors: dl = -Hll^-1 (gl + Hlc dc)
-        hlc_dc = seg_l(_jT(Jls, _j(Jcs, dc[ks])))
+        hlc_dc = _summed(plan.seg_l(_jT(Jls, _j(Jcs, dc[ks]))), group)
         dl = -_block_solve(Hll_inv, gl + hlc_dc)
-        hist.append(torch.sum(rs * rs))
+        hist.append(sq)
         poses, anchors = poses + dc, anchors + dl
     return BAResult(poses=poses, anchors=anchors, residual_history=_history(hist, dev))

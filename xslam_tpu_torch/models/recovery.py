@@ -161,11 +161,20 @@ class RecoveringEngine:
     record what happened. Builds ``XSlamEngine(config, device=device)`` when
     no engine is given, so it needs CUDA unless ``device="cpu"``. The
     backend's device work runs on the engine's device.
+
+    Engine-agnostic, as the JAX wrapper is: any engine with ``init_state``,
+    ``process_frame`` and ``dense_volume`` works, the sharded
+    :class:`~xslam_tpu_torch.parallel.engine.ShardedXSlamEngine` too. There
+    every rank runs this host logic on the same values: ``align_ok`` is the
+    same on every rank (the ICP systems are summed), ``_recover`` gathers
+    the whole volume on every rank at the same frames (``dense_volume``, a
+    collective), and ``relocalize`` and ``_depth_icp`` give every rank the
+    same decision (B12 sums in a fixed order, with no float atomic), so the
+    ranks reach each collective together. ``refine_trajectory`` runs on each
+    rank, with the single-device BA.
     """
 
     def __init__(self, config: SlamConfig, engine=None, device=None):
-        if getattr(engine, "sharded", False):
-            raise NotImplementedError("recovery over the sharded engine is not ported yet (A11c)")
         self.config = config
         self.engine = engine if engine is not None else XSlamEngine(config, device=device)
         self.device = self.engine.device

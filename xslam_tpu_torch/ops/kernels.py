@@ -40,7 +40,9 @@ and B5a's two kernels apart for the sharded engine (B19e) in
 :mod:`xslam_tpu_torch.ops.bricks`, the point extraction B13
 (``csrc/extract.cu``) in :mod:`xslam_tpu_torch.ops.extract`, the
 relocalization loss B12 and its band pass (``csrc/tsdf_loss.cu``) in
-:mod:`xslam_tpu_torch.ops.tsdf_loss`, and
+:mod:`xslam_tpu_torch.ops.tsdf_loss`, the two passes of bundle adjustment's
+Schur-complement product B18 (``csrc/schur_cg.cu``) in
+:mod:`xslam_tpu_torch.models.ba`, and
 the five gather probes
 (``csrc/gather_probes.cu``) in :mod:`xslam_tpu_torch.apps.probe_gather`.
 
@@ -84,7 +86,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "binding.cpp", "bilateral.cu", "fusion.cu", "bricks.cu", "march.cu", "refine.cu", "maps.cu", "icp.cu",
-    "window.cu", "skip.cu", "extract.cu", "tsdf_loss.cu", "gather_probes.cu",
+    "window.cu", "skip.cu", "extract.cu", "tsdf_loss.cu", "schur_cg.cu", "gather_probes.cu",
 )
 HEADERS = ("dual.cuh", "rays.cuh", "fusion.cuh", "rows.cuh")  # included by the sources above
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
@@ -115,6 +117,8 @@ launch_counts = {
     "raycast_refine_shard": 0, "raycast_finalize": 0, "icp_tail": 0,
     # B19e, B5a's two kernels apart over a slab's rows and the gathered mask (the sharded engine's brick layout)
     "event_mask": 0, "skip_distance": 0,
+    # B18, the two passes of S·x in bundle adjustment's Schur-complement CG (xslam_tpu_torch/models/ba.py)
+    "schur_cg_anchors": 0, "schur_cg_keyframes": 0,
 }
 _ext = None  # the built extension module
 _bilateral_weights: dict = {}  # device -> K1's weight table, made at the first launch there

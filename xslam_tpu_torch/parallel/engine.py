@@ -40,8 +40,9 @@ engine in:
   that the model maps' width divide by the ranks (``ValueError``,
   ``engine.py:61-66``).
 
-A recovering engine over this one raises ``NotImplementedError`` (A11c,
-:class:`xslam_tpu_torch.models.recovery.RecoveringEngine`).
+:class:`xslam_tpu_torch.models.recovery.RecoveringEngine` wraps this engine
+as it wraps the single one (relocalization, keyframes, loop closures and the
+end-of-run refinement, on every rank).
 """
 
 from __future__ import annotations
@@ -71,8 +72,6 @@ class ShardedXSlamEngine:
     """The host side of the sharded step, with :class:`XSlamEngine`'s
     methods. ``group``: the ranks (:func:`init_space_group` of ``device`` when
     None: NCCL on the card, gloo with ``device="cpu"``)."""
-
-    sharded = True  # read by RecoveringEngine, which does not wrap this engine yet (A11c)
 
     def __init__(self, config: SlamConfig, group: Optional[SpaceGroup] = None, device=None):
         _check_config(config)

@@ -78,6 +78,8 @@ HAND_KERNELS = {
     # B19, the sharded engine's own launches (its slab fusion runs K2's and the brick kernels above)
     "march_fixed_shard": "march_shard_kernel", "raycast_refine_shard": "refine_shard_kernel",
     "raycast_finalize": "refine_finalize_kernel", "icp_tail": "icp_tail_kernel",
+    # B18, bundle adjustment's Schur-complement product (models/ba.py), off the frame
+    "schur_cg_anchors": r"schur_cg_kernel<\d, false>", "schur_cg_keyframes": r"schur_cg_kernel<\d, true>",
 }
 
 

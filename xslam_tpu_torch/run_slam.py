@@ -23,8 +23,10 @@ note and runs the per-frame loop.
 (``apps/run_slam.py:44,77-79``): as a single process a group of one rank
 (NCCL on the card, gloo with ``--device cpu``), under ``torchrun`` one rank a
 process. It takes both volume layouts (bench.py's configuration too, the
-brick layout with the options above) and no recovery
-(``reloc_after_failures > 0`` raises ``NotImplementedError``).
+brick layout with the options above) and, with ``reloc_after_failures > 0``,
+the recovering engine below over it (``apps/run_slam.py:85-93``). Under
+``torchrun`` every rank writes the pose files, the refined ones too, with the
+same contents.
 
 With ``reloc_after_failures > 0`` (the backend configs
 ``ICL_realistic_backend.yaml``, ``ICL_blackout.yaml``,
