@@ -63,7 +63,11 @@ Phases, in order:
    bit, timed beside B4 on the same anchors; B13 (point extraction:
    count, points, normals and the zero rows past the count) on that volume
    and on the dense twin of its brick rows, at run_slam's capacity of
-   1,000,000 and at half the count, bit for bit, timed warm and cold; K4
+   1,000,000 and at half the count, bit for bit, timed warm and cold; B17t
+   and B17m (the meshers: marching tetrahedra and marching cubes) on the same
+   three volumes at run_slam's capacity of 2,000,000 and at half the count
+   against their plain versions, bit for bit (count, vertices, the zero rows),
+   a second launch equal, timed warm and cold beside the plain version; K4
    (the ICP system, its tail, the association that
    a level's first launch writes, and the association kernel it is held
    against) on model maps raycast from that volume and the next frame's
@@ -109,7 +113,13 @@ Phases, in order:
    print each frame's anchor coverage and must give the same ATE digits in a
    second run; in the bench run's second run frame 3's depth is a uint16
    tensor already on the card, and its pose must equal the first run's
-   (host depth) bit for bit. A profiled frame's window opens with 256 spin
+   (host depth) bit for bit; after the bench run, "A12" takes its final
+   state: ``export_model_maps_ply`` writes a point a valid pixel,
+   ``export_current_maps_ply`` at levels 0 and 1 equals the plain functions'
+   composition on the card bit for bit, ``Timer`` waits on a device sleep
+   only when given a tensor, ``assert_state_sane`` passes and
+   ``state_health`` on the card equals its CPU copy's. A profiled frame's
+   window opens with 256 spin
    kernels, which take the first device events the profiler drops (more the
    longer the run has gone on) and are left out of the record. The
    profiler's record of a frame is trusted only where its device events are
@@ -140,11 +150,13 @@ Phases, in order:
    configs/ICL_realistic.yaml's dataset (cut from 301) with ``--mesh
    tetra``: every pose file, ATE < 0.02 m, B13 launched once (``draw_pcd``),
    ``pcd.ply`` read back with B13's count, B13 on the final volume equal to
-   the plain extraction, ``mesh.ply`` with triangles (the mesher timed again
-   with its peak memory), and a checkpoint after 15 frames loaded into a new
-   engine and run to the end giving the run's poses bit for bit; then 10
-   frames of configs/7scenes_realistic.yaml's (``SevenScenesDataset``),
-   ATE < 0.02 m;
+   the plain extraction, B17t launched once and ``mesh.ply`` with its
+   triangles, B17t and B17m on the final volume equal to the plain meshers
+   bit for bit (each timed with its peak memory), and a checkpoint after 15
+   frames loaded into a new engine and run to the end giving the run's poses
+   bit for bit; then 10 frames of configs/7scenes_realistic.yaml's
+   (``SevenScenesDataset``) with ``--mesh mc``, ATE < 0.02 m, B17m launched
+   once, its triangles the plain marching cubes' count;
 8. the backend configs, through ``run_slam.main`` with ``--frames`` on data
    the port's generator renders first (three processes side by side, all
    waited for before the first run; ``BACKEND_RUNS``), each under a
@@ -310,6 +322,15 @@ PROBE_E_STEPS = 64  # probe E's dependent steps a ray (phase_probes): B5b's late
 PREPROCESS_LAUNCHES = 3
 PROBES_SRC = "xslam_tpu_torch/csrc/gather_probes.cu"
 POINT_CAPACITY = 1_000_000  # run_slam's draw_pcd capacity
+MESH_CAPACITY = 2_000_000  # run_slam's --mesh capacity
+# B17's least operations (csrc/mesh.cu): a cell's observed test (W > 0, |F| < 1 and the and, at its 8 corners) 24;
+# its inside-codes, a compare and an or a corner, 6 tetrahedra of 4 corners 48 or the cube's 8 corners 16; a
+# triangle's three vertices, each a difference, a division, the clamp's two, 1 - frac and per axis two corner
+# positions (2 each) and the blend (3) 6 + 3 * 7 = 27, 81 a triangle
+MESH_CELL_OPS = 24
+MESH_CODE_OPS = {"mesh_tetra": 48, "mesh_mc": 16}
+MESH_TRIANGLE_OPS = 81
+MESH_SLAB = 16  # extract_mesh_mc's default X-slab, run_slam's
 # the realistic paths: configs/ICL_realistic.yaml's dataset cut from 301 frames to 30 (ATE < 0.02 m, a checkpoint
 # after 15 frames resumed to the end), configs/7scenes_realistic.yaml's to 10, both rendered by the port's generator
 N_FRAMES_ICL = 30
@@ -362,6 +383,8 @@ DEVICE_KERNELS = {"classify_bricks": ("classify_bricks_kernel",),
                   "skip_field": ("event_mask_kernel", "skip_distance_kernel"),
                   "skip_field_dense": ("event_mask_kernel", "skip_distance_kernel"),
                   "extract_points": ("extract_count_kernel", "extract_points_kernel", "extract_normals_kernel"),
+                  "mesh_tetra": ("mesh_count_kernel", "mesh_scan_kernel", "mesh_rows_kernel"),
+                  "mesh_mc": ("mesh_count_kernel", "mesh_scan_kernel", "mesh_rows_kernel"),
                   "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel")}
 KERNELS = {
     "bilateral_filter": ("xslam_tpu_torch/csrc/bilateral.cu", "xslam_tpu/ops/pallas_kernels.py:99", "main path"),
@@ -397,6 +420,9 @@ KERNELS = {
     "skip_field": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/bricks.py:139,151", "main path, bench refresh"),
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
     "extract_points": ("xslam_tpu_torch/csrc/extract.cu", "xslam_tpu/ops/extract.py:59", "main path, ICL realistic"),
+    # B17: run_slam --mesh tetra on the ICL run, --mesh mc on the 7-Scenes run
+    "mesh_tetra": ("xslam_tpu_torch/csrc/mesh.cu", "xslam_tpu/ops/extract.py:154", "main path, ICL realistic"),
+    "mesh_mc": ("xslam_tpu_torch/csrc/mesh.cu", "xslam_tpu/ops/extract.py:332", "main path, 7-Scenes realistic"),
     # B12's count stands for tsdf_loss_kernel (REDUCE, VALUE) and tsdf_field_kernel (FIELD, on no path)
     "tsdf_loss": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:65", "relocalize path"),
     "tsdf_band": ("xslam_tpu_torch/csrc/tsdf_loss.cu", "xslam_tpu/ops/tsdf_loss.py:99", "relocalize path"),
@@ -3329,6 +3355,8 @@ def phase_main_path(ctx, tag: str = "main path"):
     elif tag == "main path":
         ctx["ate"] = ate
     check_frame_record(rec, attempts, iterations, FRAME_LAUNCHES[tag])
+    if tag == "main path, bench":
+        ctx["bench_run"] = (engine, state)  # the A12 phase's state, dropped there
     return counts
 
 
@@ -3378,6 +3406,119 @@ def phase_main_path_brick(ctx):
 
 def phase_main_path_bench(ctx):
     return phase_main_path(ctx, "main path, bench")
+
+
+def _maps_equal(a, b) -> bool:
+    return bool(torch.equal(torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0))) and same_nans(a, b)
+
+
+def phase_a12(ctx):
+    """The port's last modules on the bench run's final state and frames, on
+    the card: ``export_model_maps_ply`` writes a point for each pixel whose
+    level-0 maps are both numbers; ``export_current_maps_ply`` (K1, K7, K8)
+    at levels 0 and 1, from a host depth and from a uint16 tensor on the
+    card, gives the maps of the plain functions' composition on the card
+    (``preprocess.bilateral_filter``, ``pyr_down``, ``create_vmap``,
+    ``create_nmap``) bit for bit and the same file; ``Timer.lap_ms(sync=t)``
+    after a device sleep of at least 20 ms reads at least the sleep, and
+    without ``sync`` far less; ``assert_state_sane`` passes, and
+    ``state_health`` on the card gives the names and numbers it gives on a
+    CPU copy of the state."""
+    import tempfile
+
+    from xslam_tpu_torch.io.ply import export_ply, read_ply
+    from xslam_tpu_torch.ops import kernels, preprocess
+    from xslam_tpu_torch.utils import Timer
+    from xslam_tpu_torch.utils.debug import assert_state_sane, state_health
+
+    engine, state = ctx.pop("bench_run")
+    dev = ctx["device"]
+    depth_host = ctx["depths"][DEVICE_DEPTH_FRAME]
+    depth_card = torch.as_tensor(np.asarray(depth_host, np.uint16)).to(dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.ply")
+        engine.export_model_maps_ply(state, path, 0)
+        points, _ = read_ply(path)
+        valid = int((~torch.isnan(state.vmaps_prev[0].v[0]) & ~torch.isnan(state.nmaps_prev[0].v[0])).sum())
+        out["model_maps_points"] = len(points)
+        out["model_maps_valid_pixels"] = valid
+        check(len(points) == valid > 1_000, f"the model maps' PLY holds {len(points)} points for {valid} valid pixels")
+
+        for level, depth in ((0, depth_host), (1, depth_card)):
+            kernels.reset_launch_counts()
+            path = os.path.join(tmp, f"current{level}.ply")
+            engine.export_current_maps_ply(depth, path, level)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in kernels.launch_counts.items() if n}
+            # the same composition: the kernels' maps, then the plain functions' on the card
+            d = kernels.depth_pyramid(kernels.bilateral_filter(depth_card), level + 1)[level]
+            vk, nk = (m[0] for m in kernels.vertex_normal_pyramid([engine.intr.level(level)], [d]))
+            p = preprocess.bilateral_filter(depth_card)
+            for _ in range(level):
+                p = preprocess.pyr_down(p)
+            vp = preprocess.create_vmap(engine.intr.level(level), p)
+            np_ = preprocess.create_nmap(vp)
+            equal = _maps_equal(vk, vp) and _maps_equal(nk, np_)
+            ok = ~torch.isnan(vp[0]) & ~torch.isnan(np_[0])
+            ref = os.path.join(tmp, f"plain{level}.ply")
+            export_ply(ref, vp[:, ok].T.cpu().numpy(), np_[:, ok].T.cpu().numpy())
+            with open(path) as f, open(ref) as g:
+                same_file = f.read() == g.read()
+            out[f"current_maps_level{level}"] = dict(points=int(ok.sum()), maps_bit_equal=equal,
+                                                     same_file=same_file, launches=launched,
+                                                     depth="uint16 tensor on the card" if level else "host array")
+            check(equal and same_file and int(ok.sum()) > 1_000,
+                  f"export_current_maps_ply at level {level}: maps equal {equal}, file equal {same_file}")
+            want = {"bilateral_filter": 1, "vertex_normal_maps": 1, **({"depth_pyramid": 1} if level else {})}
+            check(launched == want, f"export_current_maps_ply at level {level} launched {launched}, not {want}")
+
+    # Timer: a device sleep of 2 * HOLD_CYCLES, timed by CUDA events, against the host lap with and without sync
+    timer = Timer()
+    t = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timer.reset()
+    start.record()
+    torch.cuda._sleep(2 * HOLD_CYCLES)
+    end.record()
+    t.add_(1.0)
+    synced = timer.lap_ms(sync=(t, {"state": [t]}))
+    sleep_ms = start.elapsed_time(end)
+    torch.cuda.synchronize()
+    timer.reset()
+    torch.cuda._sleep(2 * HOLD_CYCLES)
+    unsynced = timer.lap_ms()
+    torch.cuda.synchronize()
+    out["timer"] = dict(sleep_ms=sleep_ms, lap_ms_sync=synced, lap_ms_no_sync=unsynced)
+    check(sleep_ms >= 20.0 and synced >= sleep_ms and unsynced < sleep_ms / 2,
+          f"Timer: a {sleep_ms} ms device sleep read {synced} ms with sync and {unsynced} ms without")
+
+    # state_health on the card against a CPU copy of the state
+    t0 = time.perf_counter()
+    health = state_health(state)
+    health_s = time.perf_counter() - t0
+    cpu = state_health(_to_cpu(state))
+    assert_state_sane(state)
+    out["state_health"] = dict(leaves=len(health), seconds=health_s, names=sorted(health),
+                               volume_value=health.get(".volume.value"))
+    check(health == cpu and ".volume.value" in health and ".vmaps_prev[0].v" in health,
+          f"state_health on the card {health} differs from the CPU copy's {cpu}")
+    emit("A12", **out)
+    return out
+
+
+def _to_cpu(tree):
+    """A nest of NamedTuples, tuples, lists and dicts with its tensors copied to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_cpu(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
 
 
 def phase_main_path_bench_refresh(ctx):
@@ -3549,6 +3690,99 @@ def phase_extract(ctx):
                                    bound_by=by, kernel_ms=split, count=n, capacity=POINT_CAPACITY)}
 
 
+def _mesh_bytes_ops(kernel: str, shape, capacity: int, count: int):
+    """B17's least work: both planes read once (8 B a voxel), the buffer
+    written once (36 B a row) and the count; each cell's observed test and
+    inside-codes, each triangle's vertices (``MESH_*_OPS``)."""
+    X, Y, Z = shape
+    cells = (X - 1) * (Y - 1) * (Z - 1)
+    return X * Y * Z * 8 + capacity * 36 + 4, cells * (MESH_CELL_OPS + MESH_CODE_OPS[kernel]) + count * MESH_TRIANGLE_OPS
+
+
+def _same_mesh(a, b) -> bool:
+    return int(a.count) == int(b.count) and bool(torch.equal(a.vertices, b.vertices))
+
+
+def phase_meshers(ctx):
+    """B17t and B17m against their plain versions, bit for bit (count, every
+    vertex, the zero rows past the count): on the fused 256^3 volume, the
+    dense twin of its brick rows and the 201x203x205 crop (B13's three), at
+    run_slam's capacity and at half the count, a second launch equal to the
+    first. Timed from prepared arguments, warm and cold, on the fused volume
+    at run_slam's capacity, beside the plain version and the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xslam_tpu_torch.ops import bricks, extract, kernels
+    from xslam_tpu_torch.ops.fusion import VolumeState
+
+    eng, dev = ctx["engine_cfg"], ctx["device"]
+    vol = ctx["volume"]
+    twin = bricks.to_dense(bricks.from_dense(*vol), eng.resolution)
+    crop = VolumeState(*(x[:201, :203, :205].contiguous() for x in vol))
+    meshers = {"mesh_tetra": (extract.extract_mesh, extract.extract_mesh_plain),
+               "mesh_mc": (extract.extract_mesh_mc, extract.extract_mesh_mc_plain)}
+    out = {}
+    for name, (kernel, plain) in meshers.items():
+        worst = 0.0
+        for case, v in (("fused volume", vol), ("brick rows' dense twin", twin), ("crop 201x203x205", crop)):
+            full = kernel(v, eng, MESH_CAPACITY)
+            n = int(full.count)
+            for capacity in (MESH_CAPACITY, n // 2):
+                k = full if capacity == MESH_CAPACITY else kernel(v, eng, capacity)
+                p = plain(v, eng, capacity)
+                torch.cuda.synchronize()
+                equal = _same_mesh(k, p)
+                err = max_abs(k.vertices, p.vertices)
+                worst = max(worst, err)
+                zero_tail = not bool(k.vertices[int(k.count):].any())
+                emit(f"B17 {name}", case=case, capacity=capacity, count=int(k.count), plain_count=int(p.count),
+                     bit_equal=equal, max_abs_err=err, zero_rows_past_count=zero_tail)
+                check(equal and zero_tail, f"B17 {name} is not bit-equal to its plain version ({case}, capacity "
+                                           f"{capacity})")
+                check(int(k.count) == min(n, capacity) and n > 1_000, f"B17 {name} ({case}): count {int(k.count)} "
+                                                                       f"of {n}")
+                del k, p
+            check(_same_mesh(kernel(v, eng, MESH_CAPACITY), full), f"B17 {name} ({case}): a second launch differs")
+            del full
+
+        # the launch from prepared arguments, warm and cold, on the fused volume at run_slam's capacity
+        X, Y, Z = vol.value.shape
+        mc = name == "mesh_mc"
+        slots = extract._MC_TABLE.shape[1] if mc else 2 * len(extract._TETS)
+        slab = MESH_SLAB if mc else X - 1
+        ext = kernels.build_kernels()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        vertices = torch.empty((MESH_CAPACITY, 3, 3), dtype=torch.float32, device=dev)
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        scratch = torch.empty(extract.mesh_scratch_ints((X, Y, Z), slots, slab), dtype=torch.int32, device=dev)
+        table = torch.as_tensor(extract.mesh_table(mc)).to(dev)
+        args = ((vol.value, vol.weight, table, scratch, vertices, count) + ((slab,) if mc else ())
+                + (kernels.f32(eng.voxel_size), stream))
+        fn = getattr(ext, name)
+
+        def launch():
+            check(fn(*args) == 0, f"{name} launch failed")
+
+        ms, cold = time_ms(launch, 50), time_cold_ms(launch, 20)
+        n = int(count)
+        plain_ms = time_ms(lambda: plain(VolumeState(*vol), eng, MESH_CAPACITY), 2)
+        bms, by = bound_ms(*_mesh_bytes_ops(name, (X, Y, Z), MESH_CAPACITY, n))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                launch()
+            torch.cuda.synchronize()
+        split = {k: sum(e.device_time_total for e in prof.key_averages() if k in e.key) / 20 / 1e3
+                 for k in DEVICE_KERNELS[name]}
+        emit(f"B17 {name} timing", shape=[X, Y, Z], capacity=MESH_CAPACITY, count=n, ms=ms, cold_ms=cold,
+             plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_counts="planes once, the buffer once, the cells' "
+             "observed tests and codes, the triangles' vertices", kernel_ms=split, library_ms=None,
+             library_note="no single PyTorch call computes it")
+        out[name] = dict(max_abs_err=worst, ms=ms, cold_ms=cold, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         kernel_ms=split, count=n, capacity=MESH_CAPACITY)
+        del vertices, scratch
+    return out
+
+
 def _realistic_run(tmp: str, config: str, fmt: str, n_frames: int, extra=()):
     """Render ``n_frames`` of the realistic dataset with the port's generator,
     then run ``run_slam.main`` on a copy of ``config`` that reads it, with the
@@ -3602,15 +3836,19 @@ def phase_main_path_icl(ctx):
     and ``ICLDataset``), with ``--mesh tetra``: every pose file, ATE < 0.02 m,
     B13 launched exactly once for ``draw_pcd``, ``pcd.ply`` read back with
     B13's count, the plain extraction of the final volume equal to B13's,
-    ``mesh.ply`` with triangles (the mesher timed again with its peak
-    memory), and a checkpoint after 15 frames, loaded and run to the end,
+    B17t launched exactly once for ``--mesh tetra`` (timed in the run) and
+    ``mesh.ply`` with its triangles; on the final volume B17t, the plain
+    tetrahedra, B17m (one ``--mesh mc`` call) and the plain marching cubes,
+    each timed with its peak memory, the kernels' meshes the plain ones bit
+    for bit; and a checkpoint after 15 frames, loaded and run to the end,
     giving the run's poses bit for bit."""
     import tempfile
 
     from xslam_tpu_torch.io.dataset import ICLDataset
     from xslam_tpu_torch.io.ply import read_ply
     from xslam_tpu_torch.models.kinfu import XSlamEngine
-    from xslam_tpu_torch.ops.extract import extract_mesh, extract_points, extract_points_plain
+    from xslam_tpu_torch.ops.extract import (extract_mesh, extract_mesh_mc, extract_mesh_mc_plain, extract_mesh_plain,
+                                             extract_points, extract_points_plain)
     from xslam_tpu_torch.utils import checkpoint
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3624,6 +3862,8 @@ def phase_main_path_icl(ctx):
         with open(os.path.join(out, "mesh.ply")) as f:
             mesh_head = f.read(400)
         check(counts["extract_points"] == 1, f"the ICL run launched B13 {counts['extract_points']} times")
+        check(counts["mesh_tetra"] == 1 and counts["mesh_mc"] == 0,
+              f"the ICL run (--mesh tetra) launched B17t {counts['mesh_tetra']} and B17m {counts['mesh_mc']} times")
         check(len(points) == n > 5_000 and f"element face {k}\n" in mesh_head and k > 0,
               f"pcd.ply holds {len(points)} points for B13's {n}; mesh.ply's head {mesh_head[:200]!r} for {k}")
         iterations = sum(engine.config.icp_iterations[: engine.config.num_levels])
@@ -3638,16 +3878,29 @@ def phase_main_path_icl(ctx):
             dense, engine.vol_cfg, POINT_CAPACITY)
         same = _same_cloud(kernel, plain) and int(kernel.count) == n
         check(same, f"B13 on the run's final volume differs from the plain extraction (count {int(kernel.count)})")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        mesh = extract_mesh(dense, engine.vol_cfg, capacity=2_000_000)
-        again = int(mesh.count)
-        mesh_again_s = time.perf_counter() - t0
-        mesh_peak = torch.cuda.max_memory_allocated() - base
-        check(again == k, f"the tetra mesh of the final volume has {again} triangles, run_slam wrote {k}")
-        del mesh, kernel, plain
+        del kernel, plain
+        # the meshers on the final volume, each timed once on the host's clock with its peak memory: B17t (a
+        # comparison launch, not counted) against run_slam's count and the plain version, then one --mesh mc
+        # call, B17m, against the plain marching cubes
+        meshes = {}
+        for tag, mesher in (("tetra", extract_mesh), ("tetra plain", extract_mesh_plain), ("mc", extract_mesh_mc),
+                            ("mc plain", extract_mesh_mc_plain)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            mesh = mesher(dense, engine.vol_cfg, capacity=MESH_CAPACITY)
+            got = int(mesh.count)
+            meshes[tag] = dict(triangles=got, s=time.perf_counter() - t0,
+                               peak_mem_bytes=torch.cuda.max_memory_allocated() - base, mesh=mesh)
+        same_tetra = _same_mesh(meshes["tetra"].pop("mesh"), meshes["tetra plain"].pop("mesh"))
+        same_mc = _same_mesh(meshes["mc"].pop("mesh"), meshes["mc plain"].pop("mesh"))
+        check(meshes["tetra"]["triangles"] == k and same_tetra,
+              f"B17t on the final volume gives {meshes['tetra']['triangles']} triangles (run_slam wrote {k}; bits "
+              f"equal to the plain version: {same_tetra})")
+        check(meshes["mc"]["triangles"] == meshes["mc plain"]["triangles"] > 0 and same_mc,
+              f"B17m on the final volume gives {meshes['mc']['triangles']} triangles, the plain marching cubes "
+              f"{meshes['mc plain']['triangles']} (bits equal: {same_mc})")
 
         # a checkpoint after CHECKPOINT_AT frames, loaded into a new engine and run to the end
         ds = ICLDataset(os.path.join(tmp, "data"), 0, N_FRAMES_ICL)
@@ -3667,7 +3920,7 @@ def phase_main_path_icl(ctx):
             a.tobytes() == b.tobytes() for a, b in zip(resumed.pose_log, engine.pose_log))
     emit("main path, ICL realistic", **info, points=n, unit_normal_fraction=float(
         (np.abs(np.linalg.norm(normals, axis=1) - 1) < 1e-3).mean()), b13_equals_plain_on_final_volume=same,
-         mesh_triangles=k, mesh_s_in_run=mesh_s, mesh_s=mesh_again_s, mesh_peak_mem_bytes=mesh_peak,
+         mesh_triangles=k, mesh_s_in_run=mesh_s, meshers_on_final_volume=meshes,
          checkpoint_after_frames=CHECKPOINT_AT, resumed_poses_bit_equal=resume_same)
     check(resume_same, f"the run resumed from a checkpoint after {CHECKPOINT_AT} frames differs from the "
                        "uninterrupted run's poses")
@@ -3677,14 +3930,26 @@ def phase_main_path_icl(ctx):
 def phase_main_path_7scenes(ctx):
     """``run_slam.main`` on configs/7scenes_realistic.yaml's configuration over
     10 frames the port's generator renders (``SevenScenesDataset`` through
-    its info file): every pose file and ATE < 0.02 m."""
+    its info file), with ``--mesh mc``: every pose file and ATE < 0.02 m,
+    B17m launched exactly once (timed in the run), ``mesh.ply`` with as many
+    triangles as the plain marching cubes of the final volume."""
     import tempfile
 
+    from xslam_tpu_torch.ops.extract import extract_mesh_mc_plain
+
     with tempfile.TemporaryDirectory() as tmp:
-        _, _, counts, _, info = _realistic_run(tmp, "configs/7scenes_realistic.yaml", "7scenes", N_FRAMES_7SCENES)
-    emit("main path, 7-Scenes realistic", **info)
-    check(counts["bilateral_filter"] == N_FRAMES_7SCENES and counts["extract_points"] == 0,
-          f"the 7-Scenes run's launches: {counts}")
+        run, text, counts, out, info = _realistic_run(tmp, "configs/7scenes_realistic.yaml", "7scenes",
+                                                      N_FRAMES_7SCENES, ("--mesh", "mc"))
+        k = int(text.split(" mc triangles")[0].split("exported ")[-1])
+        mesh_s = float(text.split(" mc triangles (")[1].split(" s)")[0])
+        with open(os.path.join(out, "mesh.ply")) as f:
+            mesh_head = f.read(400)
+        plain = int(extract_mesh_mc_plain(run.engine.dense_volume(run.state), run.engine.vol_cfg, MESH_CAPACITY).count)
+    emit("main path, 7-Scenes realistic", **info, mesh_triangles=k, mesh_s_in_run=mesh_s, plain_mc_triangles=plain)
+    check(counts["bilateral_filter"] == N_FRAMES_7SCENES and counts["extract_points"] == 0
+          and counts["mesh_mc"] == 1 and counts["mesh_tetra"] == 0, f"the 7-Scenes run's launches: {counts}")
+    check(k == plain > 0 and f"element face {k}\n" in mesh_head,
+          f"the 7-Scenes run wrote {k} mc triangles, the plain marching cubes of its volume has {plain}")
     return counts
 
 
@@ -5135,7 +5400,7 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("bricks", phase_bricks), ("bilinear", phase_bilinear), ("B15", phase_b15), ("march_fixed", phase_march),
           ("raycast_refine", phase_refine), ("window", phase_window), ("normals", phase_normals), ("skip", phase_skip),
           ("brick refine", phase_brick_refine), ("first-event window", phase_first_event),
-          ("dense marches", phase_dense_marches), ("extract", phase_extract),
+          ("dense marches", phase_dense_marches), ("extract", phase_extract), ("B17 meshers", phase_meshers),
           ("maps", phase_maps), ("icp_system", phase_icp), ("B19", phase_b19), ("B19 columns", phase_b19_columns),
           ("four levels", phase_levels),
           ("tsdf_loss", phase_tsdf_loss), ("schur_cg", phase_schur_cg),
@@ -5145,6 +5410,7 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("main path, fixed association", phase_main_path_fixed_assoc),
           ("main path, brick fusion", phase_main_path_brick),
           ("main path, bench", phase_main_path_bench),
+          ("A12", phase_a12),
           ("main path, bench refresh", phase_main_path_bench_refresh),
           ("main path, hier2", phase_main_path_hier2),
           ("main path, skip", phase_main_path_skip),
@@ -5240,6 +5506,8 @@ def main() -> int:
     results.update(results.pop("brick refine"))
     results.update(results.pop("first-event window"))
     results.update(results.pop("extract"))
+    results.update(results.pop("B17 meshers"))
+    results.pop("A12")
     results.update(results.pop("bilinear"))
     results.update(results.pop("B15"))
     results.update(results.pop("march_fixed"))
@@ -5255,7 +5523,7 @@ def main() -> int:
                                                "main path, skip", "main path, hier", "main path, hier_skip",
                                                "main path, bench bilinear", *BRICK_RAYCASTS, *B15_RUNS,
                                                *SHARDED_RUNS, "main path, sharded bench refresh, 2 ranks",
-                                               "main path, ICL realistic",
+                                               "main path, ICL realistic", "main path, 7-Scenes realistic",
                                                "relocalize path", "odometry path")}
     counts["probe path"] = ctx["probe_counts"]
     counts["backend, blackout"] = {**{k: 0 for k in KERNELS}, **results["backend, blackout"]["kernels"]}

@@ -73,7 +73,7 @@ def test_checkpoints_cross_the_packages(tmp_path, layout):
     log = [rng.standard_normal((4, 4)).astype(np.float32) for _ in range(3)]
 
     jcheckpoint.save_state(str(tmp_path / "jax.npz"), _jax_state(d), log)
-    state, pose_log = tcheckpoint.load_state(str(tmp_path / "jax.npz"))
+    state, pose_log = tcheckpoint.load_state(str(tmp_path / "jax.npz"), device="cpu")
     assert isinstance(state.volume, BrickVolume) == (layout == "brick")
     assert isinstance(state.frame_idx, int) and state.frame_idx == 7
     _same(state_to_numpy(state), d)
@@ -97,7 +97,7 @@ def test_checkpoint_without_anchors_loads_cold(tmp_path):
     z = dict(np.load(str(tmp_path / "c.npz")))
     del z["t_prev"]
     np.savez(str(tmp_path / "old.npz"), **z)
-    state, pose_log = tcheckpoint.load_state(str(tmp_path / "old"))
+    state, pose_log = tcheckpoint.load_state(str(tmp_path / "old"), device="cpu")
     assert pose_log == []
     assert state.t_prev.shape == (12, 16) and bool(torch.isinf(state.t_prev).all())
 

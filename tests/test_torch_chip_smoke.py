@@ -72,7 +72,8 @@ def test_kernel_table_names_every_counted_wrapper():
     assert "relocalize path" in paths and paths <= {
         "main path", "main path, fixed association", "main path, brick fusion", "main path, bench",
         "main path, bench refresh", "main path, hier2", "main path, skip", "main path, hier", "main path, hier_skip",
-        "main path, bench bilinear", "main path, ICL realistic", "relocalize path", "probe path",
+        "main path, bench bilinear", "main path, ICL realistic", "main path, 7-Scenes realistic", "relocalize path",
+        "probe path",
         *chip_smoke.SHARDED_RUNS, "main path, sharded bench refresh, 2 ranks", *chip_smoke.BRICK_RAYCASTS,
         *chip_smoke.B15_RUNS, "backend, blackout"}
     assert chip_smoke.KERNELS["raycast_refine_bricks"][2] == "main path, brick skip"  # K5r
@@ -152,7 +153,10 @@ def test_backend_phases_come_last():
     names = [name for name, _ in chip_smoke.PHASES]
     assert names[-5:] == ["main path, 7-Scenes realistic", "backend, blackout", "backend, loop", "backend, realistic",
                           "backend, sharded blackout"]
-    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 58
+    assert names[:3] == ["rounding", "bilateral_filter", "fuse_volume"] and len(names) == len(set(names)) == 60
+    # B17's kernels after B13's; A12 on the bench run's final state, right after that run
+    assert names[names.index("extract") + 1] == "B17 meshers"
+    assert names[names.index("main path, bench") + 1] == "A12"
     # B18 after B12's kernel phase; the sharded BA after the two ranks' main path
     assert names[names.index("tsdf_loss") + 1] == "schur_cg"
     assert names[names.index("main path, sharded bench refresh, 2 ranks") + 1] == "sharded BA"
@@ -192,14 +196,14 @@ def test_kernel_table_rows_unchanged():
     K3 and K5 in their slab modes, K5's finalize, K4's tail) on the sharded
     engine's main paths, and B19e's two kernels (B5a's mask over a slab, its
     distance over the gathered mask) on the two ranks' path, and B18's two
-    passes on the blackout run's refinement (48 in all), each on the path
-    that runs it."""
+    passes on the blackout run's refinement, and B17's two meshers on the
+    realistic runs (50 in all), each on the path that runs it."""
     assert list(chip_smoke.KERNELS) == [
         "bilateral_filter", "fuse_volume", "march_fixed", "raycast_refine", "resize_model_maps", "depth_pyramid",
         "depth_mips", "classify_bricks", "fuse_bricks", "vertex_normal_maps", "icp_system", "icp_associate",
         "window_march", "window_march_first_event", "raycast_refine_bricks", "fuse_volume_bilinear", "fuse_bricks_bilinear", "march_fixed_strided", "skip_field_dense",
         "march_skip_dense", "window_march_dense", "model_map_normals", "skip_field", "march_skip", "extract_points",
-        "tsdf_loss", "tsdf_band", "classify_bricks_split", "classify_bricks_fine", "classify_subcells",
+        "mesh_tetra", "mesh_mc", "tsdf_loss", "tsdf_band", "classify_bricks_split", "classify_bricks_fine", "classify_subcells",
         "fuse_bricks_mixed", "fuse_bricks_subcell", "fuse_volume_slab", "classify_bricks_slab", "fuse_bricks_slab",
         "march_fixed_shard", "raycast_refine_shard", "raycast_finalize", "icp_tail", "event_mask", "skip_distance",
         "schur_cg_anchors", "schur_cg_keyframes", "probe_a", "probe_b", "probe_c", "probe_d", "probe_e"]
@@ -226,6 +230,9 @@ def test_kernel_table_rows_unchanged():
         "classify_subcells": "main path, bench subcell", "fuse_bricks_mixed": "main path, bench split",
         "fuse_bricks_subcell": "main path, bench subcell"}
     assert chip_smoke.DEVICE_KERNELS["tsdf_band"] == ("tsdf_band_count_kernel", "tsdf_band_list_kernel")
+    assert {k: chip_smoke.KERNELS[k][2] for k in ("mesh_tetra", "mesh_mc")} == {
+        "mesh_tetra": "main path, ICL realistic", "mesh_mc": "main path, 7-Scenes realistic"}
+    assert len(chip_smoke.KERNELS) == 50
 
 
 def test_parse_backend_stdout():

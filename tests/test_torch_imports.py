@@ -63,7 +63,8 @@ def test_every_port_module_is_probed():
             "xslam_tpu_torch.apps.csfd_bench", "xslam_tpu_torch.models.ba",
             "xslam_tpu_torch.models.recovery", "xslam_tpu_torch.parallel", "xslam_tpu_torch.parallel.mesh",
             "xslam_tpu_torch.parallel.sharded", "xslam_tpu_torch.parallel.engine",
-            "xslam_tpu_torch.apps.run_distributed", "chip_smoke", "tests.sharded_rank"} <= set(MODULES)
+            "xslam_tpu_torch.apps.run_distributed", "xslam_tpu_torch.utils.timers", "xslam_tpu_torch.utils.debug",
+            "xslam_tpu_torch.apps.view_cloud", "chip_smoke", "tests.sharded_rank"} <= set(MODULES)
 
 
 def test_profile_step_needs_the_card():

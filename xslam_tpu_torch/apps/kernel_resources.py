@@ -15,7 +15,9 @@ and, for the block size given here, how many blocks and warps an SM of
 65,536 registers holds by registers alone. Each instantiation is listed
 apart (``refine_kernel<false>`` K5, ``refine_kernel<true>`` K5r over the
 brick rows; ``window_march_kernel<false, false>`` B4, ``<true, false>``
-B14c, ``<false, true>`` B16), with the wrappers whose launches run it
+B14c, ``<false, true>`` B16; ``mesh_count_kernel<false>`` and
+``mesh_rows_kernel<false>`` B17t, ``<true>`` B17m, ``mesh_scan_kernel``
+both), with the wrappers whose launches run it
 (``wrappers``: the launch counts' names, as ``profile_step.HAND_KERNELS``
 maps them). Needs ``nvcc``; loads nothing onto a card.
 """
@@ -44,7 +46,7 @@ BLOCK_THREADS = {
     "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,
     "tsdf_band_count_kernel": 256, "tsdf_band_list_kernel": 256,
     "march_shard_kernel": 256, "refine_shard_kernel": 64, "refine_finalize_kernel": 256, "icp_tail_kernel": 128,
-    "schur_cg_kernel": 256,
+    "schur_cg_kernel": 256, "mesh_count_kernel": 256, "mesh_scan_kernel": 1024, "mesh_rows_kernel": 256,
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64

@@ -1,6 +1,6 @@
 // Python binding of the kernels' C entry points (bilateral.cu, fusion.cu,
 // bricks.cu, march.cu, refine.cu, maps.cu, icp.cu, window.cu, skip.cu,
-// extract.cu, tsdf_loss.cu, schur_cg.cu, gather_probes.cu), built with them by
+// extract.cu, mesh.cu, tsdf_loss.cu, schur_cg.cu, gather_probes.cu), built with them by
 // torch.utils.cpp_extension.load. The only
 // source that includes PyTorch's headers. The wrappers in ops/kernels.py
 // check device, type, shape and contiguity; each function here launches on
@@ -90,6 +90,9 @@ extern "C" int xs_icp_associate(const void* vcurr, const void* pose, void* assoc
 extern "C" int xs_extract_points(const void* value, const void* weight, void* scratch, long long scratch_ints,
                                  void* points, void* normals, void* count, int X, int Y, int Z, int capacity,
                                  float vs, float inv_vs, float half, void* stream);
+extern "C" int xs_extract_mesh(const void* value, const void* weight, const void* table, void* scratch,
+                               long long scratch_ints, void* vertices, void* count, int X, int Y, int Z,
+                               int capacity, int mc, int slab, float vs, void* stream);
 extern "C" int xs_tsdf_band(const void* value, long long n, void* scratch, long long scratch_ints, void* band,
                             void* band_count, void* stream);
 extern "C" int xs_tsdf_loss(const void* value, const void* depth, const void* poses, int P, int mode,
@@ -546,6 +549,24 @@ int extract_points(const torch::Tensor& value, const torch::Tensor& weight, torc
                            value.size(2), points.size(0), vs, inv_vs, half, as_stream(stream));
 }
 
+// table: B17's (slots, codes, 3) uint8; scratch: int32 (the tiles' counts and rows, the rounds' marks); vertices:
+// (capacity, 3, 3) float32; count: () int32. B17t: marching tetrahedra over every cell
+int mesh_tetra(const torch::Tensor& value, const torch::Tensor& weight, const torch::Tensor& table,
+               torch::Tensor scratch, torch::Tensor vertices, torch::Tensor count, float vs, int64_t stream) {
+  return xs_extract_mesh(value.data_ptr(), weight.data_ptr(), table.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                         vertices.data_ptr(), count.data_ptr(), value.size(0), value.size(1), value.size(2),
+                         vertices.size(0), 0, value.size(0) - 1, vs, as_stream(stream));
+}
+
+// B17m: marching cubes over X-slabs of `slab` cells
+int mesh_mc(const torch::Tensor& value, const torch::Tensor& weight, const torch::Tensor& table,
+            torch::Tensor scratch, torch::Tensor vertices, torch::Tensor count, int64_t slab, float vs,
+            int64_t stream) {
+  return xs_extract_mesh(value.data_ptr(), weight.data_ptr(), table.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                         vertices.data_ptr(), count.data_ptr(), value.size(0), value.size(1), value.size(2),
+                         vertices.size(0), 1, slab, vs, as_stream(stream));
+}
+
 // band: (X * Y * Z,) int32, band_count: () int32, listed by B12's band pass; scratch: int32 (the tiles' and
 // segments' counts)
 int tsdf_band(const torch::Tensor& value, torch::Tensor scratch, torch::Tensor band, torch::Tensor band_count,
@@ -657,6 +678,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("icp_associate", &icp_associate);
   m.def("icp_tail", &icp_tail);
   m.def("extract_points", &extract_points);
+  m.def("mesh_tetra", &mesh_tetra);
+  m.def("mesh_mc", &mesh_mc);
   m.def("tsdf_band", &tsdf_band);
   m.def("tsdf_loss", &tsdf_loss);
   m.def("tsdf_field", &tsdf_field);

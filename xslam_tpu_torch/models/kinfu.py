@@ -69,6 +69,7 @@ from ..csfd.single import CSFD, lift
 from ..geometry import se3
 from ..geometry.intrinsics import Intrinsics
 from ..io.config import SlamConfig
+from ..io.ply import export_ply
 from ..ops import bricks, fusion, icp, kernels, preprocess, raycast, raycast_bricks
 
 
@@ -209,18 +210,21 @@ class XSlamEngine:
         ``depth_u16`` (H, W) in mm: a host array, uploaded here, or a uint16
         tensor already on the engine's device, taken as it is (no host round
         trip); a tensor of another type or on another device raises."""
+        gt = np.eye(4, dtype=np.float32) if gt_pose is None else np.asarray(gt_pose, np.float32)
+        return process_frame(
+            state, self._depth(depth_u16), gt, config=self.config, intr=self.intr, vol_cfg=self.vol_cfg,
+            world2volume=self.world2volume, volume2world=self.volume2world,
+        )
+
+    def _depth(self, depth_u16) -> torch.Tensor:
+        """A frame's depth on the engine's device: a host array uploaded, or a
+        uint16 tensor already there taken as it is; any other tensor raises."""
         if isinstance(depth_u16, torch.Tensor):
             if depth_u16.dtype != torch.uint16 or depth_u16.device != self._placed:
                 raise ValueError(f"depth: expected a uint16 tensor on {self._placed}, got {depth_u16.dtype} on "
                                  f"{depth_u16.device}")
-            depth = depth_u16
-        else:
-            depth = torch.as_tensor(np.asarray(depth_u16, np.uint16)).to(self.device)
-        gt = np.eye(4, dtype=np.float32) if gt_pose is None else np.asarray(gt_pose, np.float32)
-        return process_frame(
-            state, depth, gt, config=self.config, intr=self.intr, vol_cfg=self.vol_cfg,
-            world2volume=self.world2volume, volume2world=self.volume2world,
-        )
+            return depth_u16
+        return torch.as_tensor(np.asarray(depth_u16, np.uint16)).to(self.device)
 
     def process_frames(self, state: SlamState, depths_u16, gt_poses: Optional[np.ndarray] = None,
                        unroll: bool = False) -> Tuple[SlamState, FrameResult]:
@@ -251,6 +255,32 @@ class XSlamEngine:
         if self.config.volume_layout == "brick":
             return bricks.to_dense(state.volume, self.vol_cfg.resolution)
         return state.volume
+
+    def export_model_maps_ply(self, state: SlamState, path: str, level: int = 0) -> None:
+        """Dump the raycast model maps of ``level`` as a point cloud, the
+        pixels where neither map is NaN (the debugging helper
+        ``generatePrevPC``, KinectFusionReconstruction.cpp:480-508)."""
+        _export_maps(path, state.vmaps_prev[level].v, state.nmaps_prev[level].v)
+
+    def export_current_maps_ply(self, depth_u16, path: str, level: int = 0) -> None:
+        """The current frame's camera-space maps of ``level`` as a point cloud
+        (``generateCurrPC``, KinectFusionReconstruction.cpp:449-478): the
+        bilateral filter (K1), ``level`` halvings (K7) and the vertex and
+        normal maps at ``intr.level(level)`` (K8), as the JAX engine computes
+        them. ``depth_u16`` (H, W) in mm as :meth:`process_frame` takes it: a
+        host array or a uint16 tensor on the engine's device."""
+        depth = self._depth(depth_u16)
+        depths = kernels.depth_pyramid(kernels.bilateral_filter(depth), level + 1)
+        vmaps, nmaps = kernels.vertex_normal_pyramid([self.intr.level(level)], [depths[level]])
+        _export_maps(path, vmaps[0], nmaps[0])
+
+
+def _export_maps(path: str, vmap: torch.Tensor, nmap: torch.Tensor) -> None:
+    """A (3, H, W) vertex map and its normal map as a point cloud: the pixels
+    where neither map's x is NaN, in row-major order."""
+    v, n = vmap.cpu().numpy(), nmap.cpu().numpy()
+    ok = ~np.isnan(v[0]) & ~np.isnan(n[0])
+    export_ply(path, v[:, ok].T, n[:, ok].T)
 
 
 def stack_results(results) -> FrameResult:

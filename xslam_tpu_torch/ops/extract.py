@@ -9,11 +9,14 @@ normals, compacted into a fixed-capacity buffer in the JAX function's order
 :func:`extract_points_plain`. The wrapper runs the plain version on CPU
 tensors and launches the kernel on CUDA tensors; any other device raises.
 
-Meshes: :func:`extract_mesh` (marching tetrahedra) and
-:func:`extract_mesh_mc` (256-case marching cubes, its table derived at
-import), plain PyTorch, triangles in the JAX functions' order. Both sweep
-the cells in X-slabs, so their per-cell tensors stay O(slab * Y * Z): at
-256^3 the unslabbed ones are several GB.
+Meshes: kernels B17t, :func:`extract_mesh` (marching tetrahedra), and
+B17m, :func:`extract_mesh_mc` (256-case marching cubes, its table derived at
+import), both in ``csrc/mesh.cu``: the triangles in the JAX functions' order,
+compacted as B13 compacts its points. Their plain versions,
+:func:`extract_mesh_plain` and :func:`extract_mesh_mc_plain`, sweep the cells
+in X-slabs, so their per-cell tensors stay O(slab * Y * Z): at 256^3 the
+unslabbed ones are several GB. The wrappers run the plain versions on CPU
+tensors and launch the kernels on CUDA tensors; any other device raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from .raycast import trilinear_tsdf_shard
 
 EXTRACT_TILE = 16384  # voxels a block of B13 counts and compacts (csrc/extract.cu::EXTRACT_TILE)
 EXTRACT_CHUNK = 32  # voxels of one of B13's chunks, a warp's (csrc/extract.cu)
+MESH_TILE = 16384  # cells a block of B17 counts and compacts (csrc/mesh.cu::MESH_TILE)
+MESH_ROUNDS = 64  # rounds of MESH_TILE / MESH_ROUNDS cells in one of B17's tiles (csrc/mesh.cu::MESH_ROUNDS)
 
 
 def extract_scratch_ints(n_voxels: int) -> int:
@@ -221,12 +226,12 @@ def _compact(parts, capacity: int, device) -> Mesh:
     return Mesh(vertices=buf, count=torch.tensor(count, dtype=torch.int32, device=device))
 
 
-def extract_mesh(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_000) -> Mesh:
-    """Isosurface triangles by marching tetrahedra over observed cells, in
-    the JAX function's order: tet by tet, its first then its second
-    triangle, each over the cells in C order. The cells are swept in X-slabs
-    of :data:`TETRA_SLAB`; each (tet, triangle) keeps its slabs' triangles in
-    order."""
+def extract_mesh_plain(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_000) -> Mesh:
+    """Plain version of B17t: isosurface triangles by marching tetrahedra
+    over observed cells, in the JAX function's order: tet by tet, its first
+    then its second triangle, each over the cells in C order. The cells are
+    swept in X-slabs of :data:`TETRA_SLAB`; each (tet, triangle) keeps its
+    slabs' triangles in order."""
     X, Y, Z = vol.value.shape
     vs = cfg.voxel_size
     dev = vol.value.device
@@ -328,11 +333,12 @@ def _build_mc_table():
 _MC_TABLE = _build_mc_table()  # (256, max_tris, 3) edge ids, -1 padded
 
 
-def extract_mesh_mc(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_000, slab: int = 16) -> Mesh:
-    """Isosurface triangles by full 256-case marching cubes over observed
-    cells — same contract as :func:`extract_mesh`, in the JAX function's
-    order: X-slab by X-slab of ``slab`` cells, then the case table's rows,
-    then the slab's cells in C order."""
+def extract_mesh_mc_plain(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_000,
+                          slab: int = 16) -> Mesh:
+    """Plain version of B17m: isosurface triangles by full 256-case marching
+    cubes over observed cells — same contract as :func:`extract_mesh`, in
+    the JAX function's order: X-slab by X-slab of ``slab`` cells, then the
+    case table's rows, then the slab's cells in C order."""
     X, Y, Z = vol.value.shape
     vs = cfg.voxel_size
     dev = vol.value.device
@@ -350,3 +356,92 @@ def extract_mesh_mc(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_0
             m = observed & (edge_idx[:, 0] >= 0)
             parts.append(_gather_triangles(e_pts[m], edge_idx[m]))
     return _compact(parts, capacity, dev)
+
+
+# ------------------------------------------------------------ B17 wrappers
+def mesh_table(mc: bool) -> np.ndarray:
+    """B17's triangle table, (slots, codes, 3) uint8: for each slot (B17t:
+    tet ``s // 2``'s triangle ``s % 2``, over its 16 inside-codes; B17m: the
+    MC table's row, over the 256 cases) and code, the three vertices' edges
+    as cube-corner pairs ``a | b << 4``, or 0xFF where the slot has no
+    triangle. The plain versions' tables, rewritten for ``csrc/mesh.cu``."""
+    if mc:
+        out = np.full((_MC_TABLE.shape[1], 256, 3), 0xFF, np.uint8)
+        for case in range(256):
+            for t in range(_MC_TABLE.shape[1]):
+                if _MC_TABLE[case, t, 0] >= 0:
+                    pairs = _MC_EDGES[_MC_TABLE[case, t]]
+                    out[t, case] = pairs[:, 0] | pairs[:, 1] << 4
+        return out
+    out = np.full((2 * len(_TETS), 16, 3), 0xFF, np.uint8)
+    for t, ids in enumerate(_TETS):
+        for k in range(2):
+            for code in range(16):
+                if _TET_NTRIS[code] >= k + 1:
+                    pairs = ids[_TET_EDGES[_TET_TRI[k, code]]]
+                    out[2 * t + k, code] = pairs[:, 0] | pairs[:, 1] << 4
+    return out
+
+
+def mesh_scratch_ints(shape, slots: int, slab: int) -> int:
+    """B17's scratch, int32, for a volume of ``shape`` swept in X-slabs of
+    ``slab`` cells (B17t: one slab of every cell), a block a tile of a slab:
+    each tile's count of each slot, then its first row of each slot, then
+    its rounds' marks (the warps that hold a triangle)."""
+    X, Y, Z = shape
+    groups = -(-(X - 1) // slab)
+    tiles = -(-(min(slab, X - 1) * (Y - 1) * (Z - 1)) // MESH_TILE)
+    return groups * tiles * (2 * slots + MESH_ROUNDS)
+
+
+_MESH_TABLES = {mc: mesh_table(mc) for mc in (False, True)}  # B17t's and B17m's tables, copied to the card a launch
+
+
+def _launch_mesh(kernel: str, vol: VolumeState, cfg: VolumeConfig, capacity: int, slab: int) -> Mesh:
+    """One launch of B17t (``mesh_tetra``) or B17m (``mesh_mc``) on the
+    card."""
+    if vol.value.dim() != 3:
+        raise ValueError(f"value: expected (X, Y, Z), got {tuple(vol.value.shape)}")
+    X, Y, Z = vol.value.shape
+    kernels.check_tensor(vol.value, "value", torch.float32)
+    kernels.check_tensor(vol.weight, "weight", torch.float32, (X, Y, Z))
+    mc = kernel == "mesh_mc"
+    slots = _MC_TABLE.shape[1] if mc else 2 * len(_TETS)
+    if min(X, Y, Z) < 2:
+        raise ValueError(f"B17 needs a cell: at least 2 voxels along each axis, got {(X, Y, Z)}")
+    if X * Y * Z >= 1 << 31 or slots * (X - 1) * (Y - 1) * (Z - 1) >= 1 << 31:
+        raise ValueError(f"B17 indexes the voxels and the (slot, cell) pairs with 32 bits, got {X * Y * Z} voxels")
+    dev = vol.value.device
+    table = torch.from_numpy(_MESH_TABLES[mc]).to(dev)
+    vertices = torch.empty((capacity, 3, 3), dtype=torch.float32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(mesh_scratch_ints((X, Y, Z), slots, slab), dtype=torch.int32, device=dev)
+    args = (vol.value, vol.weight, table, scratch, vertices, count) + ((slab,) if mc else ())
+    kernels.launch(kernel, dev, *args, kernels.f32(cfg.voxel_size))
+    kernels.launch_counts[kernel] += 1
+    return Mesh(vertices=vertices, count=count)
+
+
+def extract_mesh(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_000) -> Mesh:
+    """Isosurface triangles by marching tetrahedra over observed cells
+    (:func:`extract_mesh_plain`'s contract and order): a fixed-capacity
+    ``(capacity, 3, 3)`` buffer with ``count`` valid leading triangles and
+    zeros after them. On CUDA tensors one launch of B17t."""
+    if capacity < 1:
+        raise ValueError(f"capacity: expected at least 1, got {capacity}")
+    if kernels.on_cpu(vol.value, vol.weight):
+        return extract_mesh_plain(vol, cfg, capacity)
+    return _launch_mesh("mesh_tetra", vol, cfg, capacity, vol.value.shape[0] - 1)
+
+
+def extract_mesh_mc(vol: VolumeState, cfg: VolumeConfig, capacity: int = 1_000_000, slab: int = 16) -> Mesh:
+    """Isosurface triangles by 256-case marching cubes over observed cells
+    (:func:`extract_mesh_mc_plain`'s contract and order, X-slabs of ``slab``
+    cells). On CUDA tensors one launch of B17m."""
+    if capacity < 1:
+        raise ValueError(f"capacity: expected at least 1, got {capacity}")
+    if slab < 1:
+        raise ValueError(f"slab: expected at least 1, got {slab}")
+    if kernels.on_cpu(vol.value, vol.weight):
+        return extract_mesh_mc_plain(vol, cfg, capacity, slab)
+    return _launch_mesh("mesh_mc", vol, cfg, capacity, slab)

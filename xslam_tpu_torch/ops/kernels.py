@@ -38,7 +38,8 @@ normals B4n (computed in K6's launch, ``csrc/maps.cu``) in
 :mod:`xslam_tpu_torch.models.kinfu`, its skip field B5a (``csrc/skip.cu``)
 and B5a's two kernels apart for the sharded engine (B19e) in
 :mod:`xslam_tpu_torch.ops.bricks`, the point extraction B13
-(``csrc/extract.cu``) in :mod:`xslam_tpu_torch.ops.extract`, the
+(``csrc/extract.cu``) and the meshers B17t and B17m (``csrc/mesh.cu``) in
+:mod:`xslam_tpu_torch.ops.extract`, the
 relocalization loss B12 and its band pass (``csrc/tsdf_loss.cu``) in
 :mod:`xslam_tpu_torch.ops.tsdf_loss`, the two passes of bundle adjustment's
 Schur-complement product B18 (``csrc/schur_cg.cu``) in
@@ -86,7 +87,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "binding.cpp", "bilateral.cu", "fusion.cu", "bricks.cu", "march.cu", "refine.cu", "maps.cu", "icp.cu",
-    "window.cu", "skip.cu", "extract.cu", "tsdf_loss.cu", "schur_cg.cu", "gather_probes.cu",
+    "window.cu", "skip.cu", "extract.cu", "mesh.cu", "tsdf_loss.cu", "schur_cg.cu", "gather_probes.cu",
 )
 HEADERS = ("dual.cuh", "rays.cuh", "fusion.cuh", "rows.cuh")  # included by the sources above
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false")
@@ -108,6 +109,8 @@ launch_counts = {
     "fuse_bricks_subcell": 0,
     "model_map_normals": 0, "window_march": 0, "window_march_first_event": 0, "raycast_refine_bricks": 0,
     "skip_field": 0, "march_skip": 0, "extract_points": 0,
+    # B17, the meshers (xslam_tpu_torch/ops/extract.py): marching tetrahedra and marching cubes
+    "mesh_tetra": 0, "mesh_mc": 0,
     "skip_field_dense": 0, "march_skip_dense": 0, "window_march_dense": 0,
     "tsdf_loss": 0, "tsdf_band": 0,
     "probe_a": 0, "probe_b": 0, "probe_c": 0, "probe_d": 0, "probe_e": 0,

@@ -80,6 +80,9 @@ HAND_KERNELS = {
     "raycast_finalize": "refine_finalize_kernel", "icp_tail": "icp_tail_kernel",
     # B18, bundle adjustment's Schur-complement product (models/ba.py), off the frame
     "schur_cg_anchors": r"schur_cg_kernel<\d, false>", "schur_cg_keyframes": r"schur_cg_kernel<\d, true>",
+    # B17, the meshers (ops/extract.py), after a run; their scan kernel is shared
+    "mesh_tetra": ("mesh_count_kernel<false>", "mesh_scan_kernel", "mesh_rows_kernel<false>"),
+    "mesh_mc": ("mesh_count_kernel<true>", "mesh_scan_kernel", "mesh_rows_kernel<true>"),
 }
 
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..csfd.single import CSFD
-from ..models.kinfu import SlamState
+from ..models.kinfu import SlamState, _device
 from ..ops.bricks import BrickVolume
 from ..ops.fusion import VolumeState
 
@@ -50,11 +50,14 @@ def save_state(path: str, state: SlamState, pose_log: List[np.ndarray] | None = 
     np.savez(path, **payload)
 
 
-def load_state(path: str, device="cpu") -> Tuple[SlamState, List[np.ndarray]]:
-    """The state and the pose log of a checkpoint, the state on ``device``.
+def load_state(path: str, device=None) -> Tuple[SlamState, List[np.ndarray]]:
+    """The state and the pose log of a checkpoint, the state on ``device``:
+    the card by default, as the JAX package loads onto its accelerator
+    (``RuntimeError`` where CUDA is missing; ``device="cpu"`` for the CPU).
     A checkpoint without ``t_prev`` (written before the temporal march's
     anchors were saved) gets an all-inf anchor map, the cold anchor that
     makes the next frame refresh."""
+    device = _device(device, "load_state")
     z = np.load(path if path.endswith(".npz") else path + ".npz")
 
     def t(key):
