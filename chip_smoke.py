@@ -419,6 +419,8 @@ KERNELS = {
     "model_map_normals": ("xslam_tpu_torch/csrc/maps.cu", "xslam_tpu/ops/raycast.py:1087", "main path, bench"),
     "skip_field": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/bricks.py:139,151", "main path, bench refresh"),
     "march_skip": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, bench refresh"),
+    # B5b's ray form, a thread a ray, over the brick skip march's 240x320 rays (B14b's launches take it too)
+    "march_skip_rays": ("xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, brick skip"),
     "extract_points": ("xslam_tpu_torch/csrc/extract.cu", "xslam_tpu/ops/extract.py:59", "main path, ICL realistic"),
     # B17: run_slam --mesh tetra on the ICL run, --mesh mc on the 7-Scenes run
     "mesh_tetra": ("xslam_tpu_torch/csrc/mesh.cu", "xslam_tpu/ops/extract.py:154", "main path, ICL realistic"),
@@ -1315,9 +1317,17 @@ def phase_dense_marches(ctx):
     fixed march's accepted rays and ``t_found`` on them; B14c at stride 2
     (``hier2``'s middle repair, window 12, anchored at K3's stride-4 hits) and
     1 (its last repair, the configuration's ``raycast_hier_window``, anchored
-    at that), both events bit for bit. Each timed warm and cold."""
+    at that), both events bit for bit. Each timed warm and cold. Then the
+    skip march's two forms (a warp a ray, a thread a ray; B14b and B5b) on
+    both layouts at 4,800, 19,200, 76,800 and 307,200 rays (the dense planes
+    along the 480x640 rays at strides 8, 4, 2, 1; the brick rows along the
+    240x320 model maps' at strides 4, 2, 1 and the 480x640 at 1): each form
+    bit-equal to the other and to ``march_skip_plain``, timed warm in turns
+    (warp, thread, thread, warp) and cold; B5b's ray form at the brick skip
+    march's 240x320 is the ``march_skip_rays`` row."""
     from xslam_tpu_torch.csfd.single import CSFD
     from xslam_tpu_torch.ops import bricks, kernels, raycast
+    from xslam_tpu_torch.ops import raycast_bricks as rb
     from xslam_tpu_torch.ops.kernels import INF_T
 
     cfg, eng, dev = ctx["config"], ctx["engine_cfg"], ctx["device"]
@@ -1380,7 +1390,8 @@ def phase_dense_marches(ctx):
         m_ms, m_cold = time_ms(run_march, 50), time_cold_ms(run_march, 30)
         m_plain = time_ms(lambda: raycast.march_skip_plain(ray_start, dirs, eng, packed_read, res), 3)
         m_bound = bound_ms(Hs * Ws * 8 + 192, Hs * Ws * 60 + stats["samples"] * 25)
-        emit("B14b march_skip_dense", stride=s, shape=[Hs, Ws], **eq, lanes=lanes,
+        emit("B14b march_skip_dense", stride=s, shape=[Hs, Ws], **eq,
+             form="a thread a ray" if raycast.skip_ray_form(Hs, Ws) else f"a warp a ray ({lanes} lanes)",
              accepted_rays_equal_to_fixed_march=accept_equal, t_found_equal_to_fixed_march_on_accepted_rays=found_equal,
              hit_fraction=float(acc_k.float().mean()), samples=stats["samples"],
              longest_ray_rounds=int(stats["ray_rounds"].max()), mean_ray_samples=float(stats["ray_samples"].double().mean()),
@@ -1389,7 +1400,62 @@ def phase_dense_marches(ctx):
         check(accept_equal and found_equal, f"B14b (stride {s}) against the plain fixed march: accepted rays "
                                             f"{accept_equal}, t_found on them {found_equal}")
         skip_rows[s] = dict(max_abs_err=eq["max_abs_err"], ms=m_ms, cold_ms=m_cold, plain_ms=m_plain,
-                            bound_ms=m_bound[0], bound_by=m_bound[1])
+                            bound_ms=m_bound[0], bound_by=m_bound[1], ray_form=raycast.skip_ray_form(Hs, Ws))
+
+    # the skip march's two forms on both layouts, in turns; the brick rows take the same distances (brick order)
+    rows = _bench_inputs(ctx)[0]  # the same fused volume's brick rows
+    rows_read = rb._value_reader(bricks.pack_rows(rows.value, dist_plain), res)
+    lvl1 = intr.level(1)
+    spc = f32(bricks.BRICK * eng.voxel_size / step)
+    forms = {}
+    for layout, cintr, s in (("dense", intr, 8), ("dense", intr, 4), ("dense", intr, 2), ("dense", intr, 1),
+                             ("rows", lvl1, 4), ("rows", lvl1, 2), ("rows", lvl1, 1), ("rows", intr, 1)):
+        plane, dense = (vol.value, 1) if layout == "dense" else (rows.value, 0)
+        Hs, Ws = kernels.strided(cintr.height, s), kernels.strided(cintr.width, s)
+        outs = [(torch.empty((Hs, Ws), dtype=torch.float32, device=dev),
+                 torch.empty((Hs, Ws), dtype=torch.float32, device=dev)) for _ in range(2)]
+        fargs = (*nb, s, kernels.march_steps(eng.trunc_dist), f32(eng.voxel_size),
+                 kernels.reciprocal_f32(eng.voxel_size), f32(step), spc, *kernels.camera_args(cintr), dense)
+
+        def run_form(form, plane=plane, outs=outs, fargs=fargs):
+            check(ext.march_skip_form(plane, dist, pose, *outs[form], *fargs, form, stream) == 0,
+                  "march_skip_form failed")
+
+        run_form(0), run_form(1)
+        cdir, cstart = kernels.camera_rays(parts[0], parts[1], cintr)
+        cdirs = cdir.v[:, ::s, ::s]
+        stats = {"lanes": lanes}
+        plain = raycast.march_skip_plain(cstart, cdirs, eng, packed_read if dense else rows_read, res, stats=stats)
+        torch.cuda.synchronize()
+        forms_equal = all(_bits(a, b) for a, b in zip(outs[0], outs[1]))
+        plain_equal = all(_bits(a, b) for a, b in zip(outs[1], (plain.t_found, plain.t_dead)))
+        turns = [time_ms(lambda: run_form(f), 50) for f in (0, 1, 1, 0)]
+        cold = [time_cold_ms(lambda: run_form(f), 30) for f in (0, 1)]
+        picked = raycast.skip_ray_form(Hs, Ws)
+        emit("skip march forms", layout=layout, rays=Hs * Ws, shape=[Hs, Ws], stride=s,
+             forms_bit_equal=forms_equal, bit_equal_to_plain=plain_equal, lanes_ms=[turns[0], turns[3]],
+             rays_ms=[turns[1], turns[2]], lanes_cold_ms=cold[0], rays_cold_ms=cold[1],
+             picked="a thread a ray" if picked else "a warp a ray", samples=stats["samples"],
+             mean_ray_samples=float(stats["ray_samples"].double().mean()),
+             longest_ray_samples=int(stats["ray_samples"].max()))
+        check(forms_equal and plain_equal, f"skip march forms ({layout}, {Hs}x{Ws}): the forms equal "
+                                           f"{forms_equal}, the ray form equal to plain {plain_equal}")
+        forms[(layout, Hs * Ws, cintr.width)] = dict(lanes_ms=[turns[0], turns[3]], rays_ms=[turns[1], turns[2]],
+                                                     lanes_cold_ms=cold[0], rays_cold_ms=cold[1], stats=stats,
+                                                     plain=(cstart, cdirs))
+    # the brick skip march's 240x320 in the ray form: the march_skip_rays row
+    brick_skip = forms[("rows", lvl1.height * lvl1.width, lvl1.width)]
+    cstart, cdirs = brick_skip["plain"]
+    r_plain = time_ms(lambda: raycast.march_skip_plain(cstart, cdirs, eng, rows_read, res), 3)
+    n_rays = lvl1.height * lvl1.width
+    r_bound = bound_ms(n_rays * 8 + 192, n_rays * 60 + brick_skip["stats"]["samples"] * 25)
+    rays_row = dict(max_abs_err=0.0, ms=min(brick_skip["rays_ms"]), cold_ms=brick_skip["rays_cold_ms"],
+                    plain_ms=r_plain, bound_ms=r_bound[0], bound_by=r_bound[1], shape=[lvl1.height, lvl1.width],
+                    lanes_ms=min(brick_skip["lanes_ms"]), lanes_cold_ms=brick_skip["lanes_cold_ms"])
+    for sd, key in ((1, ("dense", intr.height * intr.width, intr.width)),
+                    (2, ("dense", intr.height * intr.width // 4, intr.width))):
+        skip_rows[sd].update(lanes_ms=min(forms[key]["lanes_ms"]), lanes_cold_ms=forms[key]["lanes_cold_ms"])
+    del rows_read
 
     # B14c: hier2's middle repair (stride 2, window 12) on K3's stride-4 hits, then its last (stride 1)
     coarse = raycast.RaycastHit(*kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist, stride=4))
@@ -1428,14 +1494,18 @@ def phase_dense_marches(ctx):
         "skip_field_dense": dict(max_abs_err=0.0, ms=f_ms, cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0],
                                  bound_by=f_bound[1]),
         "march_skip_dense": dict(skip_rows[1], stride=1, stride_2=skip_rows[2]),
+        "march_skip_rays": rays_row,
         "window_march_dense": dict(window_rows[1], stride=1, stride_2=window_rows[2]),
     }
 
 
-def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng, rows=None):
+def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng, rows=None, core=None):
     """What this run's march must read: the distinct voxels its rays sample
     up to the step where both events are known, plus rays in and times out;
-    with ``rows`` (a slab's [first, stop) x rows) only the voxels it holds."""
+    with ``rows`` (a slab's [first, stop) x rows) only the voxels it holds;
+    with ``core`` (its [core_start, core_end) x rows) only the samples a
+    slab's events need: those inside the volume in the core rows, and the
+    one before each (its sign)."""
     from xslam_tpu_torch.ops.kernels import INF_T, RAY_MIN_M, march_steps
 
     X, Y, Z = vol_value.shape
@@ -1455,6 +1525,9 @@ def _march_bytes_ops(vol_value, start, dirs, t_found, t_dead, eng, rows=None):
     g[:, 0] = torch.stack([g[0, 0].clamp(0, X - 1), g[1, 0].clamp(0, Y - 1), g[2, 0].clamp(0, Z - 1)])
     live = (ks[:, None] <= k_stop[None].float())
     inside = (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
+    if core is not None:
+        owned = inside & (g[0] >= core[0]) & (g[0] < core[1])
+        live = live & (owned | torch.cat([owned[1:], torch.zeros_like(owned[:1])]))
     if rows is not None:
         inside = inside & (g[0] >= rows[0]) & (g[0] < rows[1])
     idx = (g[0] * Y + g[1]) * Z + g[2]
@@ -3155,7 +3228,8 @@ def phase_main_path(ctx, tag: str = "main path"):
     import dataclasses
 
     from xslam_tpu_torch.models.kinfu import XSlamEngine
-    from xslam_tpu_torch.ops import kernels
+    from xslam_tpu_torch.ops import kernels, raycast
+    from xslam_tpu_torch.ops import raycast_bricks as rb
     from xslam_tpu_torch.utils.evaluation import ate_rmse, normalize_to_first
 
     cfg, n_frames = ctx["config"], N_FRAMES
@@ -3333,7 +3407,13 @@ def phase_main_path(ctx, tag: str = "main path"):
     want.update(window_march=windows * n_frames, window_march_first_event=n_frames if first_event else 0,
                 raycast_refine_bricks=n_frames if bench and cfg.raycast_refine == "secant2" else 0,
                 model_map_normals=n_frames if screen else 0, resize_model_maps=0 if screen else n_frames)
-    want.update({k: n_frames if skips else 0 for k in ("skip_field", "march_skip")})
+    # B5b in its ray form where the skip march has many rays (the brick skip march's 240x320), else a warp a ray
+    map_intr = cfg.intrinsics.level(L)
+    skip_stride = rb.SKIP_STRIDE if refresh else {"skip": 1, "hier_skip": 2}.get(brick_march, rb.SKIP_STRIDE)
+    ray_form = skips and raycast.skip_ray_form(kernels.strided(map_intr.height, skip_stride),
+                                               kernels.strided(map_intr.width, skip_stride))
+    want.update(skip_field=n_frames if skips else 0, march_skip=n_frames if skips and not ray_form else 0,
+                march_skip_rays=n_frames if ray_form else 0)
     check(all(counts[k] == n for k, n in want.items()), f"launch counts {counts}, expected {want}")
     if brick:
         # the ACTIVE list never overflowed; with the dense layout the volume is dense fusion's bit for bit, so
@@ -4272,18 +4352,76 @@ def phase_backend_realistic(ctx):
 SLAB_RANKS = 2  # the B19 phase's split of the volume's X into slabs, as two ranks hold it
 
 
-def _slab_rows(plane: torch.Tensor, k: int, h: int = 0) -> torch.Tensor:
+def _slab_rows(plane: torch.Tensor, k: int, h: int = 0, ranks: int = SLAB_RANKS) -> torch.Tensor:
     """Rows [k * local - h, (k + 1) * local + h) of an (X, Y, Z) plane for
-    slab k of SLAB_RANKS, wrapping at the volume's ends as the ranks' ring
+    slab k of ``ranks``, wrapping at the volume's ends as the ranks' ring
     does: a slab with its halo."""
     X = plane.shape[0]
-    local = X // SLAB_RANKS
+    local = X // ranks
     rows = torch.arange(k * local - h, (k + 1) * local + h, device=plane.device) % X
     return plane.index_select(0, rows).contiguous()
 
 
 def _bits_all(a, b) -> bool:
     return all(bool(torch.equal(x.view(torch.int32), y.view(torch.int32))) for x, y in zip(a, b))
+
+
+def _b19b_designs(ctx, rpose, ray_start, ray_dir) -> dict:
+    """B19b, K3 over a slab marching only the steps the slab can own,
+    against its earlier design (the full loop, ``ext.march_fixed_shard_full``)
+    bit for bit on each slab of a 2- and a 4-rank split (with the halo) and
+    at one rank (the whole volume, no halo, as ``sharded_raycast`` places
+    it); each timed warm in turns (full loop, slab steps, slab steps, full
+    loop) and cold."""
+    from xslam_tpu_torch.ops import kernels, raycast
+    from xslam_tpu_torch.parallel.sharded import halo_width
+
+    eng, intr, dev = ctx["engine_cfg"], ctx["config"].intrinsics, ctx["device"]
+    value = ctx["volume"].value
+    X = value.shape[0]
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = kernels.f32
+    full_args = (kernels.march_steps(eng.trunc_dist), f32(eng.voxel_size), f32(eng.trunc_dist * 0.8),
+                 *kernels.camera_args(intr))
+    rows, equal = [], True
+    for ranks in (1, 2, 4):
+        local = X // ranks
+        h = halo_width(eng, local) if ranks > 1 else 0
+        for k in range(ranks):
+            spec = raycast.ShardSpec(x_base=k * local - h, x_total=X, core_start=k * local, core_end=(k + 1) * local)
+            plane = _slab_rows(value, k, h, ranks) if ranks > 1 else value
+            slab = list(kernels.resolve_spec(spec, plane.shape[0]))
+            of = torch.empty((intr.height, intr.width), dtype=torch.float32, device=dev)
+            od = torch.empty_like(of)
+
+            def run_new(plane=plane, spec=spec):
+                return kernels.march_fixed(plane, rpose, intr, eng.voxel_size, eng.trunc_dist, spec=spec)
+
+            def run_full(plane=plane, slab=slab, of=of, od=od):
+                check(ext.march_fixed_shard_full(plane, rpose, of, od, *full_args, slab, stream) == 0,
+                      "march_fixed_shard_full failed")
+
+            nf, nd = run_new()
+            run_full()
+            torch.cuda.synchronize()
+            bits = _bits(nf, of) and _bits(nd, od)
+            equal = equal and bits
+            turns = [time_ms(fn, 50) for fn in (run_full, run_new, run_new, run_full)]
+            cold = [time_cold_ms(fn, 30) for fn in (run_full, run_new)]
+            n_bytes, n_ops, samples = _march_bytes_ops(value, ray_start.v, ray_dir.v, nf, nd, eng,
+                                                       rows=(spec.x_base, spec.x_base + plane.shape[0]),
+                                                       core=(spec.core_start, spec.core_end))
+            bound = bound_ms(n_bytes, n_ops)
+            row = dict(ranks=ranks, slab=k, halo=h, rows=plane.shape[0], bit_equal_to_full_loop=bits,
+                       full_loop_ms=[turns[0], turns[3]], slab_steps_ms=[turns[1], turns[2]],
+                       full_loop_cold_ms=cold[0], slab_steps_cold_ms=cold[1], owned_samples=samples,
+                       bound_ms=bound[0], bound_by=bound[1],
+                       owned_crossings=int((nf < kernels.INF_T).sum()))
+            emit("B19b designs", **row)
+            rows.append(row)
+    check(equal, "B19b: the slab-step march is not the full loop's bits on every slab")
+    return dict(designs=rows)
 
 
 def phase_b19(ctx):
@@ -4467,10 +4605,11 @@ def phase_b19(ctx):
     plain3 = time_ms(lambda: kernels.march_fixed_plain(ext.value, ray_start, ray_dir, eng.voxel_size, eng.trunc_dist,
                                                        spec), 3)
     n_bytes, n_ops, _ = _march_bytes_ops(vol.value, ray_start.v, ray_dir.v, s["tf"], s["td"], eng,
-                                         rows=(spec.x_base, spec.x_base + ext.value.shape[0]))
+                                         rows=(spec.x_base, spec.x_base + ext.value.shape[0]),
+                                         core=(spec.core_start, spec.core_end))
     b3 = bound_ms(n_bytes, n_ops)
     out["march_fixed_shard"] = dict(max_abs_err=0.0, ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
-                                    slab=1, halo=h)
+                                    slab=1, halo=h, **_b19b_designs(ctx, rpose, ray_start, ray_dir))
     ms5 = time_ms(lambda: raycast.raycast_refine_shard(ext, rpose, s["tf"], found_min, dead_min, intr, eng, spec), 50)
     plain5 = time_ms(lambda: raycast.raycast_refine_shard_plain(ext, rpose, s["tf"], found_min, dead_min, intr, eng,
                                                                 spec), 3)
@@ -5431,6 +5570,33 @@ PHASES = (("rounding", phase_rounding), ("bilateral_filter", phase_bilateral), (
           ("backend, sharded blackout", phase_backend_sharded_blackout))
 
 
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+
+
+def make_context(card: str) -> dict:
+    """The phases' shared inputs: the synthetic orbit's configuration, depths and poses."""
+    from xslam_tpu_torch.io.config import load_config
+    from xslam_tpu_torch.io.synthetic import SyntheticDataset
+    from xslam_tpu_torch.models.kinfu import XSlamEngine
+
+    config = load_config(os.path.join(ROOT, "configs", "synthetic.yaml"))
+    config.end_frame = N_FRAMES
+    n_depths = N_FRAMES + PROFILE_RETAKES  # a main path's frames and the frames a retaken profile takes
+    ds = SyntheticDataset(n_frames=n_depths, intr=config.intrinsics)
+    return {
+        "card": card,
+        "device": torch.device("cuda"),
+        "config": config,
+        "engine_cfg": XSlamEngine(config).vol_cfg,
+        "depths": [ds.get_depth(i) for i in range(n_depths)],
+        "gt": [ds.get_pose(i) for i in range(n_depths)],
+    }
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5438,14 +5604,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import xslam_tpu_torch  # noqa: F401  (sets the float32 precision pins)
-    from xslam_tpu_torch.io.config import load_config
-    from xslam_tpu_torch.io.synthetic import SyntheticDataset
-    from xslam_tpu_torch.models.kinfu import XSlamEngine
     from xslam_tpu_torch.ops import kernels
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    card = card_name()
     print(f"card: {card}", flush=True)
     print(f"pins: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -5456,18 +5617,7 @@ def main() -> int:
     kernels.build_kernels()
     emit("build", seconds=time.perf_counter() - t0)
 
-    config = load_config(os.path.join(ROOT, "configs", "synthetic.yaml"))
-    config.end_frame = N_FRAMES
-    n_depths = N_FRAMES + PROFILE_RETAKES  # a main path's frames and the frames a retaken profile takes
-    ds = SyntheticDataset(n_frames=n_depths, intr=config.intrinsics)
-    ctx = {
-        "card": card,
-        "device": torch.device("cuda"),
-        "config": config,
-        "engine_cfg": XSlamEngine(config).vol_cfg,
-        "depths": [ds.get_depth(i) for i in range(n_depths)],
-        "gt": [ds.get_pose(i) for i in range(n_depths)],
-    }
+    ctx = make_context(card)
 
     results, failed = {}, []
     for name, phase in PHASES:

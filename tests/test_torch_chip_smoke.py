@@ -197,12 +197,14 @@ def test_kernel_table_rows_unchanged():
     engine's main paths, and B19e's two kernels (B5a's mask over a slab, its
     distance over the gathered mask) on the two ranks' path, and B18's two
     passes on the blackout run's refinement, and B17's two meshers on the
-    realistic runs (50 in all), each on the path that runs it."""
+    realistic runs, and B5b's ray form (a thread a ray) on the brick skip
+    march (51 in all), each on the path that runs it."""
     assert list(chip_smoke.KERNELS) == [
         "bilateral_filter", "fuse_volume", "march_fixed", "raycast_refine", "resize_model_maps", "depth_pyramid",
         "depth_mips", "classify_bricks", "fuse_bricks", "vertex_normal_maps", "icp_system", "icp_associate",
         "window_march", "window_march_first_event", "raycast_refine_bricks", "fuse_volume_bilinear", "fuse_bricks_bilinear", "march_fixed_strided", "skip_field_dense",
-        "march_skip_dense", "window_march_dense", "model_map_normals", "skip_field", "march_skip", "extract_points",
+        "march_skip_dense", "window_march_dense", "model_map_normals", "skip_field", "march_skip", "march_skip_rays",
+        "extract_points",
         "mesh_tetra", "mesh_mc", "tsdf_loss", "tsdf_band", "classify_bricks_split", "classify_bricks_fine", "classify_subcells",
         "fuse_bricks_mixed", "fuse_bricks_subcell", "fuse_volume_slab", "classify_bricks_slab", "fuse_bricks_slab",
         "march_fixed_shard", "raycast_refine_shard", "raycast_finalize", "icp_tail", "event_mask", "skip_distance",
@@ -232,7 +234,9 @@ def test_kernel_table_rows_unchanged():
     assert chip_smoke.DEVICE_KERNELS["tsdf_band"] == ("tsdf_band_count_kernel", "tsdf_band_list_kernel")
     assert {k: chip_smoke.KERNELS[k][2] for k in ("mesh_tetra", "mesh_mc")} == {
         "mesh_tetra": "main path, ICL realistic", "mesh_mc": "main path, 7-Scenes realistic"}
-    assert len(chip_smoke.KERNELS) == 50
+    assert chip_smoke.KERNELS["march_skip_rays"] == (
+        "xslam_tpu_torch/csrc/skip.cu", "xslam_tpu/ops/raycast.py:254", "main path, brick skip")
+    assert len(chip_smoke.KERNELS) == 51
 
 
 def test_parse_backend_stdout():

@@ -265,6 +265,26 @@ def test_profile_step_names_each_hand_kernel_once():
     assert sum(ms.values()) == 51.875 + 64.0 + 128.0 + 768.0 + 1024.0 + 2048.0 + 4096.0 + 8192.0 + 16384.0
 
 
+def test_profile_step_names_the_skip_march_forms_and_b19b():
+    """The skip march's ray form is B14b's time on the dense planes and
+    ``march_skip_rays``' on the brick rows, apart from the warp form's
+    ``march_skip``; B19b is ``march_shard_kernel<true>``, its earlier design
+    no wrapper's."""
+    from xslam_tpu_torch.profile_step import hand_kernel_ms
+
+    ms = hand_kernel_ms({
+        "void (anonymous namespace)::march_skip_kernel<false>(float const*, int const*)": [1.0, 1],
+        "void (anonymous namespace)::march_skip_ray_kernel<false>(float const*, int const*)": [2.0, 1],
+        "void (anonymous namespace)::march_skip_kernel<true>(float const*, int const*)": [4.0, 1],
+        "void (anonymous namespace)::march_skip_ray_kernel<true>(float const*, int const*)": [8.0, 1],
+        "void (anonymous namespace)::march_shard_kernel<true>((anonymous namespace)::Volume, float const*)": [16.0, 1],
+        "void (anonymous namespace)::march_shard_kernel<false>((anonymous namespace)::Volume, float const*)":
+            [32.0, 1],
+    })
+    assert ms["march_skip"] == 1.0 and ms["march_skip_rays"] == 2.0 and ms["march_skip_dense"] == 12.0
+    assert ms["march_fixed_shard"] == 16.0 and ms["march_fixed"] == 0.0 and sum(ms.values()) == 31.0
+
+
 @pytest.mark.parametrize("function, wrappers", [
     ("refine_kernel<false>", ["raycast_refine"]),  # K5
     ("refine_kernel<true>", ["raycast_refine_bricks"]),  # K5r, the brick rows
@@ -280,12 +300,20 @@ def test_profile_step_names_each_hand_kernel_once():
     ("fuse_bricks_kernel<true, false>", ["fuse_bricks"]),  # B3c on the rows
     ("fuse_bricks_mixed_kernel<true, true>", ["fuse_bricks_mixed"]),  # B3c's MIXED variant, bilinear, rows
     ("fuse_bricks_subcell_kernel<false, false>", ["fuse_bricks_subcell"]),  # B3c's subcell variant
+    ("march_skip_kernel<false>", ["march_skip"]),  # B5b, a warp a ray
+    ("march_skip_ray_kernel<false>", ["march_skip_rays"]),  # B5b's ray form
+    ("march_skip_kernel<true>", ["march_skip_dense"]),  # B14b, either form
+    ("march_skip_ray_kernel<true>", ["march_skip_dense"]),
+    ("march_shard_kernel<true>", ["march_fixed_shard"]),  # B19b
+    ("march_shard_kernel<false>", []),  # B19b's earlier design, a test-only entry
 ])
 def test_kernel_resources_names_each_instantiations_wrappers(function, wrappers):
     """The resource report lists each instantiation of a kernel apart, with
     the wrappers whose launches run it: K5r and B16 are instantiations of K5's
     and B4's kernels; B15's classifiers and B3c's variants are kernels of their
-    own, each with one wrapper."""
+    own, each with one wrapper; the skip march's two forms are B5b's two counts
+    on the brick rows and B14b's one on the dense planes; B19b's earlier design
+    runs on no wrapper."""
     from xslam_tpu_torch.apps.kernel_resources import wrappers_of
 
     assert wrappers_of(function) == wrappers

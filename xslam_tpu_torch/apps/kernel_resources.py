@@ -15,7 +15,9 @@ and, for the block size given here, how many blocks and warps an SM of
 65,536 registers holds by registers alone. Each instantiation is listed
 apart (``refine_kernel<false>`` K5, ``refine_kernel<true>`` K5r over the
 brick rows; ``window_march_kernel<false, false>`` B4, ``<true, false>``
-B14c, ``<false, true>`` B16; ``mesh_count_kernel<false>`` and
+B14c, ``<false, true>`` B16; ``march_skip_ray_kernel<false>`` B5b's ray
+form, ``<true>`` B14b's; ``march_shard_kernel<true>`` B19b,
+``<false>`` its earlier design; ``mesh_count_kernel<false>`` and
 ``mesh_rows_kernel<false>`` B17t, ``<true>`` B17m, ``mesh_scan_kernel``
 both), with the wrappers whose launches run it
 (``wrappers``: the launch counts' names, as ``profile_step.HAND_KERNELS``
@@ -42,7 +44,7 @@ BLOCK_THREADS = {
     "classify_bricks_split_kernel": 256, "classify_bricks_fine_kernel": 256, "classify_subcells_kernel": 256,
     "fuse_bricks_mixed_kernel": 128, "fuse_bricks_subcell_kernel": 128,
     "window_march_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
-    "march_skip_kernel": 128, "extract_count_kernel": 256, "extract_points_kernel": 256,
+    "march_skip_kernel": 128, "march_skip_ray_kernel": 128, "extract_count_kernel": 256, "extract_points_kernel": 256,
     "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,
     "tsdf_band_count_kernel": 256, "tsdf_band_list_kernel": 256,
     "march_shard_kernel": 256, "refine_shard_kernel": 64, "refine_finalize_kernel": 256, "icp_tail_kernel": 128,

@@ -47,7 +47,7 @@ extern "C" int xs_skip_distance(const void* mask, void* dist, int nbx, int nby, 
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-                             int dense, void* stream);
+                             int dense, int form, void* stream);
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, int shard, int x_base, int x_total, int core_start,
@@ -314,19 +314,19 @@ int skip_distance(const torch::Tensor& mask, torch::Tensor dist, int64_t nbx, in
 int march_skip_on(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
                   torch::Tensor t_found, torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride,
                   int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell, float cx, float cy,
-                  float inv_fx, float inv_fy, int dense, int64_t stream) {
+                  float inv_fx, float inv_fy, int dense, int form, int64_t stream) {
   return xs_march_skip(value.data_ptr(), dist.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), nbx,
                        nby, nbz, t_found.size(0), t_found.size(1), stride, n_steps, vs, inv_vs, step, steps_per_cell,
-                       cx, cy, inv_fx, inv_fy, dense, as_stream(stream));
+                       cx, cy, inv_fx, inv_fy, dense, form, as_stream(stream));
 }
 
-// the brick rows (B5b) or the dense value plane (B14b)
+// the brick rows (B5b) or the dense value plane (B14b), in the form the ray count picks
 int march_skip(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose, torch::Tensor t_found,
                torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride, int64_t n_steps, float vs,
                float inv_vs, float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
                int64_t stream) {
   return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
-                       steps_per_cell, cx, cy, inv_fx, inv_fy, 0, stream);
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, 0, -1, stream);
 }
 
 int march_skip_dense(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
@@ -334,7 +334,18 @@ int march_skip_dense(const torch::Tensor& value, const torch::Tensor& dist, cons
                      int64_t stride, int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell,
                      float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
   return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
-                       steps_per_cell, cx, cy, inv_fx, inv_fy, 1, stream);
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, 1, -1, stream);
+}
+
+// either layout (dense 0 or 1) in the form asked (0 a warp a ray, 1 a thread a ray), whatever the ray count: a
+// test-only entry, by which the smoke run holds the two forms to each other and times both
+int march_skip_form(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
+                    torch::Tensor t_found, torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride,
+                    int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell, float cx, float cy,
+                    float inv_fx, float inv_fy, int64_t dense, int64_t form, int64_t stream) {
+  if (form != 0 && form != 1) return 1;  // cudaErrorInvalidValue
+  return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, dense ? 1 : 0, (int)form, stream);
 }
 
 // t_found, t_dead: (H, W), the camera's every stride-th pixel in each axis; slab: empty for the whole volume, or
@@ -348,6 +359,16 @@ int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Te
                         value.size(1), value.size(2), t_found.size(0), t_found.size(1), stride, n_steps, vs, step, cx,
                         cy, inv_fx, inv_fy, shard ? 1 : 0, shard ? (int)slab[0] : 0, shard ? (int)slab[1] : 0,
                         shard ? (int)slab[2] : 0, shard ? (int)slab[3] : 0, as_stream(stream));
+}
+
+// B19b's earlier design (the full loop over a slab), a test-only entry; slab as march_fixed's
+int march_fixed_shard_full(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found,
+                           torch::Tensor t_dead, int64_t n_steps, float vs, float step, float cx, float cy,
+                           float inv_fx, float inv_fy, const std::vector<int64_t>& slab, int64_t stream) {
+  if (slab.size() != 4) return 1;  // cudaErrorInvalidValue
+  return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
+                        value.size(1), value.size(2), t_found.size(0), t_found.size(1), 1, n_steps, vs, step, cx, cy,
+                        inv_fx, inv_fy, 2, (int)slab[0], (int)slab[1], (int)slab[2], (int)slab[3], as_stream(stream));
 }
 
 int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
@@ -664,8 +685,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("skip_distance", &skip_distance);
   m.def("march_skip", &march_skip);
   m.def("march_skip_dense", &march_skip_dense);
+  m.def("march_skip_form", &march_skip_form);
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
+  m.def("march_fixed_shard_full", &march_fixed_shard_full);
   m.def("raycast_refine", &raycast_refine);
   m.def("raycast_refine_bricks", &raycast_refine_bricks);
   m.def("raycast_refine_shard", &raycast_refine_shard);

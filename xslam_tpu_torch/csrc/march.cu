@@ -58,7 +58,24 @@
 // fills), is inside where g lies in the x_total-row volume, and records a crossing or a -->+ death only where
 // g lies in the slab's core rows [core_start, core_end); an exit from the volume is every slab's death. The
 // ranks' events then meet in a min (xslam_tpu/parallel/sharded.py:132-133). march_kernel, the whole
-// volume, is the code above unchanged (one body, march_body<SHARD>, for both).
+// volume, is the code above unchanged (one body, march_body<SHARD, SLAB_STEPS>, for both).
+//
+// B19b marches only the steps its slab can own (march_shard_kernel<true>). Each voxel coordinate of a ray's
+// samples is a monotone function of the step k (t = 0.2 + (k + 1) step rises with k, s + d t moves one way as
+// IEEE rounding is monotone, floor_div is the IEEE quotient's floor), so along a ray three sets of steps are
+// each an interval: those inside the whole volume (I), those owned, inside the volume and in the core rows (C),
+// and each coordinate's own range. An event other than an exit from the volume lies in C; an exit is the first
+// step outside I. So the kernel finds where C starts by a bisection over k a coordinate (a few floor_divs a
+// probe, no loads), marches from there (one step early for prev: the read the full loop had there, a halo
+// value or 0 + 1e-5) until both events are known or a sample leaves C, and takes the exit death apart: step 0
+// where the camera starts outside the volume, else, where no death was met and the march left C inside the
+// volume (or C is empty), the first step whose coordinate leaves the volume from there, again by bisection. The
+// events are the full loop's: its first crossing and its first death, the minimum of a death met in C and the
+// exit. The earlier design, which marches from step 0 until both events are known (every step of a ray whose
+// surface lies in another slab), is march_shard_kernel<false>, kept as a test-only entry (xs_march_fixed's shard
+// 2): the smoke run holds the two to each other bit for bit and times both in one call. At one rank the slab is
+// the whole volume and every step is owned: there the kernel runs K3's body (march_kernel's), the same events,
+// where the slab-step body runs 2% slower than the full loop (the slab's sample and the steps' bookkeeping).
 //
 // xs_march_fixed_chain is the earlier design (one thread a ray over a flat
 // pixel index, direction planes read from memory, three divisions and
@@ -141,7 +158,9 @@ __device__ __forceinline__ float first_sample(const Volume& vol, const Slab& sla
 }
 
 // B19b: a sample's voxel g on a slab: `inside` the whole volume, `own` (in the core rows), and the value read
-// from local row g - x_base (0 outside the slab) + 1e-5
+// from local row g - x_base (0 outside the slab) + 1e-5; with IN_C `own` is whether g lies in C: inside the
+// volume and in the core rows
+template <bool IN_C>
 __device__ __forceinline__ float slab_sample(const Volume& vol, const Slab& slab, float inv_vs, const float s[3],
                                              const float d[3], float t, bool& inside, bool& own) {
   const int gx = floor_div(s[0] + d[0] * t, vol.vs, inv_vs);
@@ -149,18 +168,88 @@ __device__ __forceinline__ float slab_sample(const Volume& vol, const Slab& slab
   const int gz = floor_div(s[2] + d[2] * t, vol.vs, inv_vs);
   const bool in_yz = (unsigned)gy < (unsigned)vol.Y && (unsigned)gz < (unsigned)vol.Z;
   inside = (unsigned)gx < (unsigned)slab.x_total && in_yz;
-  own = gx >= slab.core_start && gx < slab.core_end;
+  if (IN_C) {
+    // C's rows [c_lo, c_lo + c_w): one unsigned compare, as inside's (hoisted out of the loop)
+    const int c_lo = max(slab.core_start, 0);
+    const unsigned c_w = (unsigned)max(min(slab.core_end, slab.x_total) - c_lo, 0);
+    own = (unsigned)gx - (unsigned)c_lo < c_w && in_yz;
+  } else {
+    own = gx >= slab.core_start && gx < slab.core_end;
+  }
   const int lx = gx - slab.x_base;
   const bool readable = (unsigned)lx < (unsigned)vol.X && in_yz;
   const unsigned offset = ((unsigned)lx * (unsigned)vol.Y + (unsigned)gy) * (unsigned)vol.Z + (unsigned)gz;
   return (readable ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
 }
 
-template <bool SHARD>
+// B19b: the voxel coordinate along axis i of step k's sample, as slab_sample computes it
+__device__ __forceinline__ int step_coord(const Volume& vol, float inv_vs, const float s[3], const float d[3],
+                                          float step, int i, int k) {
+  return floor_div(s[i] + d[i] * (RAY_MIN + (float)(k + 1) * step), vol.vs, inv_vs);
+}
+
+// B19b: the first step in [lo, hi) at which axis i's coordinate has reached `bound` (up, as it rises with k where
+// d[i] > 0: coordinate >= bound; else coordinate < bound), hi where none: a bisection, the predicate monotone in k
+__device__ int first_step(const Volume& vol, float inv_vs, const float s[3], const float d[3], float step, int i,
+                          bool up, int bound, int lo, int hi) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int g = step_coord(vol, inv_vs, s, d, step, i, mid);
+    if (up ? g >= bound : g < bound)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// B19b: the first step of C (owned, inside the volume), n_steps where C is empty. Each axis's range [lo, hi) of
+// C's coordinates is an interval of steps, which starts at step 0 where step 0's coordinate g0 lies in it; C,
+// their intersection, starts at the latest of their starts if it is not empty, and the sample there tells
+// whether it is
+__device__ int owned_start(const Volume& vol, const Slab& slab, float inv_vs, const float s[3], const float d[3],
+                           float step, const int g0[3], int n_steps) {
+  const int lo[3] = {max(slab.core_start, 0), 0, 0};
+  const int hi[3] = {min(slab.core_end, slab.x_total), vol.Y, vol.Z};
+  int k0 = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const bool up = d[i] > 0.0f;
+    if (g0[i] < lo[i] || g0[i] >= hi[i])
+      k0 = max(k0, first_step(vol, inv_vs, s, d, step, i, up, up ? lo[i] : hi[i], 0, n_steps));
+  }
+  if (k0 >= n_steps) return n_steps;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int g = step_coord(vol, inv_vs, s, d, step, i, k0);
+    if (g < lo[i] || g >= hi[i]) return n_steps;
+  }
+  return k0;
+}
+
+// B19b: the first step in [from, n_steps) whose sample lies outside the whole volume, for a ray whose steps
+// 0 .. from lie inside (each coordinate leaves its range across the bound it moves toward), n_steps where none.
+// An axis still in range at the last step is not searched
+__device__ int exit_step(const Volume& vol, const Slab& slab, float inv_vs, const float s[3], const float d[3],
+                         float step, int from, int n_steps) {
+  const int hi[3] = {slab.x_total, vol.Y, vol.Z};
+  int e = n_steps;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const bool up = d[i] > 0.0f;
+    const int bound = up ? hi[i] : 0, last = step_coord(vol, inv_vs, s, d, step, i, n_steps - 1);
+    if (up ? last >= bound : last < bound)
+      e = min(e, first_step(vol, inv_vs, s, d, step, i, up, bound, from, n_steps - 1));
+  }
+  return e;
+}
+
+template <bool SHARD, bool SLAB_STEPS>
 __device__ __forceinline__ void march_body(const Volume& vol, const float* __restrict__ pose,
                                            float* __restrict__ t_found_out, float* __restrict__ t_dead_out, int H,
                                            int W, int stride, int n_steps, float step, const xs::Camera& cam,
                                            const Slab& slab) {
+  static_assert(SHARD || !SLAB_STEPS, "the steps a slab owns: a slab's march");
   __shared__ float c2v[24];
   const int tid = threadIdx.x;
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
@@ -184,13 +273,35 @@ __device__ __forceinline__ void march_body(const Volume& vol, const float* __res
   }
 
   const float inv_vs = 1.0f / vol.vs;
-  float prev = first_sample<SHARD>(vol, slab, s, d);
+  int k_first = 0;  // the first step marched
+  bool inside_at_0 = true;
+  if (SLAB_STEPS) {
+    int g[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) g[i] = step_coord(vol, inv_vs, s, d, step, i, 0);
+    inside_at_0 = (unsigned)g[0] < (unsigned)slab.x_total && (unsigned)g[1] < (unsigned)vol.Y &&
+                  (unsigned)g[2] < (unsigned)vol.Z;
+    if (!inside_at_0) t_dead = RAY_MIN + 0.0f * step;  // the camera starts outside: a death at step 0
+    const bool owned_at_0 = inside_at_0 && g[0] >= slab.core_start && g[0] < slab.core_end;
+    k_first = owned_at_0 ? 0 : owned_start(vol, slab, inv_vs, s, d, step, g, n_steps);
+  }
+  // where the exit from the volume is still to be found, the step to look from: 0 for a ray that owns no step,
+  // else the step at which the march leaves C inside the volume (one whose march leaves C outside dies there,
+  // and one that marches to n_steps in C exits past it)
+  int exit_from = k_first >= n_steps ? 0 : -1;
+  float prev = 0.0f;
+  if (k_first == 0) {
+    prev = first_sample<SHARD>(vol, slab, s, d);
+  } else if (k_first < n_steps) {
+    bool inside_prev, own_prev;  // step k_first - 1's read, at the march time of step k_first
+    prev = slab_sample<false>(vol, slab, inv_vs, s, d, RAY_MIN + (float)k_first * step, inside_prev, own_prev);
+  }
   // the step number as a float (exact; no conversion in the loop), and the
   // march time of the sample before the next one: step k's t_curr is step
   // k - 1's t_next, the same expression
-  float kf = 0.0f, t_last = RAY_MIN + 0.0f * step;
+  float kf = (float)k_first, t_last = RAY_MIN + kf * step;
   bool done = false;
-  for (int k0 = 0; k0 < n_steps && !done; k0 += U) {
+  for (int k0 = k_first; k0 < n_steps && !done; k0 += U) {
     float tsdf[U], t_at[U + 1];
     bool inside[U], own[U];
     t_at[0] = t_last;
@@ -200,7 +311,7 @@ __device__ __forceinline__ void march_body(const Volume& vol, const float* __res
       const float t_next = RAY_MIN + kf * step;
       t_at[j + 1] = t_next;
       if (SHARD) {
-        tsdf[j] = slab_sample(vol, slab, inv_vs, s, d, t_next, inside[j], own[j]);
+        tsdf[j] = slab_sample<SLAB_STEPS>(vol, slab, inv_vs, s, d, t_next, inside[j], own[j]);
       } else {
         unsigned offset;
         inside[j] = sample_voxel_fast(vol, inv_vs, s, d, t_next, offset);
@@ -211,18 +322,27 @@ __device__ __forceinline__ void march_body(const Volume& vol, const float* __res
     t_last = t_at[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      // an event needs a sample outside, or a change of sign: the exact tests run only then
-      const bool maybe = !inside[j] || (__float_as_int(prev) ^ __float_as_int(tsdf[j])) < 0;
+      // an event needs a sample outside, or a change of sign: the exact tests run only then (with SLAB_STEPS,
+      // where own is C's membership, a sample outside C, which ends the march)
+      const bool maybe =
+          (SLAB_STEPS ? !own[j] : !inside[j]) || (__float_as_int(prev) ^ __float_as_int(tsdf[j])) < 0;
       if (maybe && !done && k0 + j < n_steps) {
         const float t_curr = t_at[j];
         const bool death = !inside[j] || (own[j] && prev < 0.0f && tsdf[j] > 0.0f);
         const bool crossing = own[j] && inside[j] && prev > 0.0f && tsdf[j] < 0.0f;
         if (crossing && t_curr < t_found) t_found = t_curr;
         if (death && t_curr < t_dead) t_dead = t_curr;
-        done = t_found < INF_T && t_dead < INF_T;
+        const bool leaves = SLAB_STEPS && !own[j];
+        if (leaves && inside[j]) exit_from = k0 + j;
+        done = (t_found < INF_T && t_dead < INF_T) || leaves;
       }
       prev = tsdf[j];
     }
+  }
+  if (SLAB_STEPS && t_dead >= INF_T && exit_from >= 0) {
+    // no death met (so the camera starts inside): the ray's exit from the volume, if within n_steps
+    const int e = exit_step(vol, slab, inv_vs, s, d, step, exit_from, n_steps);
+    if (e < n_steps) t_dead = RAY_MIN + (float)e * step;
   }
   t_found_out[y * W + x] = t_found;
   t_dead_out[y * W + x] = t_dead;
@@ -231,15 +351,22 @@ __device__ __forceinline__ void march_body(const Volume& vol, const float* __res
 __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
     march_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
                  float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step, xs::Camera cam) {
-  march_body<false>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, Slab{});
+  march_body<false, false>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, Slab{});
 }
 
-// B19b: the march over a slab (see the header)
+// B19b: the march over a slab (see the header); SLAB_STEPS false is the earlier design, a test-only entry. A slab
+// that is the whole volume (one rank: no halo, every row owned) owns every step, and its march is the whole
+// volume's, K3's body, whose sample is cheaper: the same reads, tests and bits
+template <bool SLAB_STEPS>
 __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
     march_shard_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
                        float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step,
                        xs::Camera cam, Slab slab) {
-  march_body<true>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, slab);
+  if (SLAB_STEPS && slab.x_base == 0 && vol.X == slab.x_total && slab.core_start <= 0 &&
+      slab.core_end >= slab.x_total)
+    march_body<false, false>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, Slab{});
+  else
+    march_body<true, SLAB_STEPS>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, slab);
 }
 
 // the earlier design: see the header
@@ -275,7 +402,8 @@ __global__ void march_chain_kernel(const float* __restrict__ value, const float*
 
 // H, W: the output's size, the camera's every stride-th pixel in each axis. shard: 0 for the whole (X, Y, Z)
 // volume, 1 for a slab of it (B19b: x_base, x_total, core_start, core_end as xslam_tpu/ops/raycast.py::ShardSpec
-// resolves them; X the slab's rows with its halo)
+// resolves them; X the slab's rows with its halo), 2 for a slab by the earlier design (a test-only
+// entry: the binding's march_fixed_shard_full)
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, int shard, int x_base, int x_total, int core_start,
@@ -286,8 +414,11 @@ extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
   const Slab slab{x_base, x_total, core_start, core_end};
   const dim3 grid((W + xs::BLOCK_W - 1) / xs::BLOCK_W, (H + xs::BLOCK_H - 1) / xs::BLOCK_H);
-  if (shard)
-    march_shard_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
+  if (shard == 2)
+    march_shard_kernel<false><<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
+        vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam, slab);
+  else if (shard)
+    march_shard_kernel<true><<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam, slab);
   else
     march_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(

@@ -109,6 +109,9 @@ launch_counts = {
     "fuse_bricks_subcell": 0,
     "model_map_normals": 0, "window_march": 0, "window_march_first_event": 0, "raycast_refine_bricks": 0,
     "skip_field": 0, "march_skip": 0, "extract_points": 0,
+    # B5b's ray form, a thread a ray, from ops/raycast.py::SKIP_RAY_FORM_MIN_RAYS rays (march_skip counts its warp
+    # form; B14b's march_skip_dense counts either form)
+    "march_skip_rays": 0,
     # B17, the meshers (xslam_tpu_torch/ops/extract.py): marching tetrahedra and marching cubes
     "mesh_tetra": 0, "mesh_mc": 0,
     "skip_field_dense": 0, "march_skip_dense": 0, "window_march_dense": 0,

@@ -62,6 +62,14 @@ MARCH_MODES = ("fixed", "skip", "hier", "hier_skip", "hier2")
 # the hier2 march's half-resolution repair window, dense and brick layout (xslam_tpu/ops/raycast.py:561,
 # xslam_tpu/ops/raycast_bricks.py::hier2_hit)
 HIER2_MID_WINDOW = 12
+# the rays from which the skip march (B5b, B14b; csrc/skip.cu's RAY_FORM_MIN_RAYS) launches its ray form, a thread
+# a ray, instead of a warp a ray
+SKIP_RAY_FORM_MIN_RAYS = 32768
+
+
+def skip_ray_form(H: int, W: int) -> bool:
+    """Whether the skip march over ``H x W`` rays launches its ray form."""
+    return H * W >= SKIP_RAY_FORM_MIN_RAYS
 
 
 @dataclass(frozen=True)
@@ -474,13 +482,15 @@ def _strided_rays(pose: torch.Tensor, intr: Intrinsics, stride: int):
 
 def march_skip_dense(vol: VolumeState, dist: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig,
                      stride: int = 1) -> RaycastHit:
-    """Kernel B14b (``csrc/skip.cu``, ``march_skip_kernel<true>``): the
-    dense volume's skip march (``xslam_tpu/ops/raycast.py::march_skip``)
+    """Kernel B14b (``csrc/skip.cu``, ``march_skip_ray_kernel<true>`` from
+    :data:`SKIP_RAY_FORM_MIN_RAYS` rays, ``march_skip_kernel<true>`` below):
+    the dense volume's skip march (``xslam_tpu/ops/raycast.py::march_skip``)
     along the rays of every ``stride``-th pixel of ``intr`` at the packed
     pose, over the value plane and B14a's distance: a cell at distance >= 2
     reads as ``JUMP_BASE + dist``, as :func:`skip_volume` packs it, without
     the packed copy. On CPU tensors its plain version, :func:`march_skip_plain`
-    over :func:`pack_dense`. The events are the fixed march's on these rays."""
+    over :func:`pack_dense`. The events are the fixed march's on these rays.
+    Counted as ``march_skip_dense`` in either form."""
     res = tuple(cfg.resolution)
     if kernels.on_cpu(vol.value, dist, pose):
         ray_start, dirs = _strided_rays(pose, intr, stride)

@@ -60,7 +60,7 @@ from .fusion import VolumeConfig
 from .kernels import INF_T
 from .raycast import (
     HIER2_MID_WINDOW, RaycastHit, _window_repair, finalize_maps, march_skip_plain, march_temporal,
-    march_temporal_compact, refine, refine_from_samples, screen_normals_plain,
+    march_temporal_compact, refine, refine_from_samples, screen_normals_plain, skip_ray_form,
 )
 from .sampling import to_index
 
@@ -428,7 +428,9 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
     >= 2 reads as ``JUMP_BASE + dist``, as :func:`bricks.skip_rows` packs
     it, without the packed copy. On CPU tensors its plain version,
     :func:`march_skip_plain` over :func:`bricks.pack_rows`. The events are
-    the fixed march's on these rays."""
+    the fixed march's on these rays. Counted as ``march_skip`` (a warp a
+    ray) or, from :data:`~xslam_tpu_torch.ops.raycast.SKIP_RAY_FORM_MIN_RAYS`
+    rays, ``march_skip_rays`` (a thread a ray)."""
     res = cfg.resolution
     if kernels.on_cpu(bvol.value, dist, pose):
         ray_start, ray_dir, _, _ = _rays(pose, intr)
@@ -450,7 +452,7 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
         kernels.march_steps(cfg.trunc_dist), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
         f32(steps_per_cell), *kernels.camera_args(intr),
     )
-    kernels.launch_counts["march_skip"] += 1
+    kernels.launch_counts["march_skip_rays" if skip_ray_form(H, W) else "march_skip"] += 1
     return RaycastHit(t_found, t_dead)
 
 

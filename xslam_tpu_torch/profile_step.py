@@ -55,7 +55,8 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 # pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
 # window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation, the
 # bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14 the brick layout's kernels' <true>
-# (B14c: <true, false>), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's <false, true>
+# (B14c: <true, false>), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's <false, true>; the
+# skip march's ray form (march_skip_ray_kernel) is B14b's launch on the dense layout and march_skip_rays on the rows
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel<false>",
     "fuse_volume_bilinear": "fuse_kernel<true>", "march_fixed": "march_kernel",
@@ -73,10 +74,11 @@ HAND_KERNELS = {
     "window_march_first_event": "window_march_kernel<false, true>",
     "skip_field": ("event_mask_kernel<false>", "skip_distance_kernel<false>"),
     "skip_field_dense": ("event_mask_kernel<true>", "skip_distance_kernel<true>"),
-    "march_skip": "march_skip_kernel<false>", "march_skip_dense": "march_skip_kernel<true>",
+    "march_skip": "march_skip_kernel<false>", "march_skip_rays": "march_skip_ray_kernel<false>",
+    "march_skip_dense": ("march_skip_kernel<true>", "march_skip_ray_kernel<true>"),
     "tsdf_loss": "tsdf_loss_kernel", "tsdf_band": ("tsdf_band_count_kernel", "tsdf_band_list_kernel"),
     # B19, the sharded engine's own launches (its slab fusion runs K2's and the brick kernels above)
-    "march_fixed_shard": "march_shard_kernel", "raycast_refine_shard": "refine_shard_kernel",
+    "march_fixed_shard": "march_shard_kernel<true>", "raycast_refine_shard": "refine_shard_kernel",
     "raycast_finalize": "refine_finalize_kernel", "icp_tail": "icp_tail_kernel",
     # B18, bundle adjustment's Schur-complement product (models/ba.py), off the frame
     "schur_cg_anchors": r"schur_cg_kernel<\d, false>", "schur_cg_keyframes": r"schur_cg_kernel<\d, true>",
