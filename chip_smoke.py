@@ -1382,7 +1382,8 @@ def phase_dense_marches(ctx):
         Hs, Ws = hit.t_found.shape
         tf, td = torch.empty_like(hit.t_found), torch.empty_like(hit.t_dead)
         margs = (*nb, s, kernels.march_steps(eng.trunc_dist), f32(eng.voxel_size),
-                 kernels.reciprocal_f32(eng.voxel_size), f32(step), f32(bricks.BRICK * eng.voxel_size / step), *cam)
+                 kernels.reciprocal_f32(eng.voxel_size), f32(step), f32(bricks.BRICK * eng.voxel_size / step), *cam,
+                 int(raycast.skip_ray_form(Hs, Ws)))
 
         def run_march(margs=margs, tf=tf, td=td):
             check(ext.march_skip_dense(vol.value, dist, pose, tf, td, *margs, stream) == 0, "march_skip_dense failed")
@@ -1415,11 +1416,12 @@ def phase_dense_marches(ctx):
         outs = [(torch.empty((Hs, Ws), dtype=torch.float32, device=dev),
                  torch.empty((Hs, Ws), dtype=torch.float32, device=dev)) for _ in range(2)]
         fargs = (*nb, s, kernels.march_steps(eng.trunc_dist), f32(eng.voxel_size),
-                 kernels.reciprocal_f32(eng.voxel_size), f32(step), spc, *kernels.camera_args(cintr), dense)
+                 kernels.reciprocal_f32(eng.voxel_size), f32(step), spc, *kernels.camera_args(cintr))
+        march = ext.march_skip_dense if dense else ext.march_skip
 
-        def run_form(form, plane=plane, outs=outs, fargs=fargs):
-            check(ext.march_skip_form(plane, dist, pose, *outs[form], *fargs, form, stream) == 0,
-                  "march_skip_form failed")
+        def run_form(form, plane=plane, outs=outs, fargs=fargs, march=march):
+            check(march(plane, dist, pose, *outs[form], *fargs, form, stream) == 0,
+                  f"the skip march (form {form}) failed")
 
         run_form(0), run_form(1)
         cdir, cstart = kernels.camera_rays(parts[0], parts[1], cintr)
@@ -2240,7 +2242,8 @@ def phase_skip(ctx):
     tf, td = torch.empty_like(hit.t_found), torch.empty_like(hit.t_dead)
     f32 = kernels.f32
     margs = (*nb, q, kernels.march_steps(eng.trunc_dist), f32(eng.voxel_size), kernels.reciprocal_f32(eng.voxel_size),
-             step, f32(bricks.BRICK * eng.voxel_size / (eng.trunc_dist * 0.8)), *kernels.camera_args(intr))
+             step, f32(bricks.BRICK * eng.voxel_size / (eng.trunc_dist * 0.8)), *kernels.camera_args(intr),
+             int(raycast.skip_ray_form(Hq, Wq)))
 
     def run_march():
         check(ext.march_skip(rows.value, dist, pose, tf, td, *margs, stream) == 0, "march_skip launch failed")

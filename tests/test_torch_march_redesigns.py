@@ -15,14 +15,11 @@ themselves to these plain versions and to their earlier designs on the card).
   the whole volume gives the whole volume's march (the kernel runs K3's body
   there).
 - The skip march's ray form (``csrc/skip.cu``, ``march_skip_ray_kernel``),
-  a thread a ray reading ``RAY_AHEAD`` steps before it tests them: a twin of
-  its rounds equal to ``raycast.march_skip_plain`` bit for bit on the
-  scene's skip-packed dense volume, for the source's ``RAY_AHEAD`` and for 1,
-  2 and 4 steps ahead; and the ray count at which the wrappers count the ray
-  form is the source's. ``apps/skip_sweep.py``'s variants of the source.
+  a thread a ray stepping by the serial rule: a twin of its loop equal to
+  ``raycast.march_skip_plain`` bit for bit on the scene's skip-packed dense
+  volume and on a sphere's, whose rays jump; and the ray counts at which the
+  wrappers launch it.
 """
-
-import re
 
 import numpy as np
 import pytest
@@ -34,18 +31,12 @@ from xslam_tpu_torch.csfd.single import CSFD
 from xslam_tpu_torch.geometry.intrinsics import Intrinsics
 from xslam_tpu_torch.models.kinfu import XSlamEngine
 from xslam_tpu_torch.ops import kernels, raycast
-from xslam_tpu_torch.ops.kernels import CSRC_DIR, INF_T, RAY_MIN_M
+from xslam_tpu_torch.ops.kernels import INF_T, RAY_MIN_M
 from xslam_tpu_torch.ops.sampling import gather3d, to_index
 from xslam_tpu_torch.parallel.sharded import halo_width
 
 TINTR = Intrinsics(*SMALL_INTR)
 RAY_MIN32 = torch.tensor(np.float32(RAY_MIN_M))
-
-
-def csrc_constant(source: str, name: str) -> int:
-    m = re.search(rf"constexpr (?:int|long long) {name} = (\d+);", (CSRC_DIR / source).read_text())
-    assert m, name
-    return int(m.group(1))
 
 
 @pytest.fixture(scope="module")
@@ -293,13 +284,12 @@ def test_voxel_coordinates_are_monotone_in_the_step(seed):
 
 
 # ------------------------------------------------------------------ the skip march's ray form
-def skip_ray_twin(ray_start: CSFD, dirs_v, cfg, packed_read, shape, ahead: int):
-    """``march_skip_ray_kernel``'s rounds, ray by ray: read the samples of
-    steps k .. k + ahead - 1, then test them in order with the carried prev
-    (a crossing, a death or the n_steps stop ends the ray; a jumping step
-    moves the next round to its landing with prev 1.0 and drops the later
-    reads), else go on at k + ahead with the last sample as prev. Returns
-    the events, each ray's tested steps and the jumps taken."""
+def skip_ray_twin(ray_start: CSFD, dirs_v, cfg, packed_read, shape):
+    """``march_skip_ray_kernel``'s loop, every ray at once: test step k's
+    sample with the carried prev (a crossing or a death ends the ray); then
+    the n_steps stop; else a jumping step moves to its landing with prev 1.0
+    and any other to k + 1 with its sample as prev. Returns the events, each
+    ray's tested steps and the jumps taken."""
     from xslam_tpu_torch.ops.bricks import BRICK, JUMP_BASE
 
     voxel, step = cfg.voxel_size, cfg.trunc_dist * 0.8
@@ -309,43 +299,33 @@ def skip_ray_twin(ray_start: CSFD, dirs_v, cfg, packed_read, shape, ahead: int):
     start = ray_start.v.reshape(3, 1)
     dirs = dirs_v.reshape(3, -1)
     R = dirs.shape[1]
-
-    def sample(k):
-        p = start + dirs * (RAY_MIN_M + (k.to(torch.float32) + 1.0) * step)
-        g = to_index(torch.floor(p / voxel))
-        ins = (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
-        return packed_read(g), ins
-
     g0 = to_index(torch.floor((start + dirs * RAY_MIN_M) / voxel))
     g0 = torch.stack([g0[0].clamp(0, X - 1), g0[1].clamp(0, Y - 1), g0[2].clamp(0, Z - 1)])
     prev = torch.clamp(packed_read(g0), max=1.0)
     t_found = torch.full((R,), INF_T, dtype=torch.float32)
     t_dead = torch.full_like(t_found, INF_T)
     k = torch.zeros(R, dtype=torch.int64)
-    done = torch.zeros(R, dtype=torch.bool)
+    live = torch.ones(R, dtype=torch.bool)
     tested = torch.zeros(R, dtype=torch.int64)
     jumps = 0
-    while not bool(done.all()):
-        reads = [sample(k + j) for j in range(ahead)]
-        nxt = k + ahead
-        live = ~done
-        for j, (c, ins) in enumerate(reads):
-            kj = k + j
-            can_jump = ins & (c >= JUMP_BASE - 0.5)
-            t_curr = RAY_MIN_M + kj.to(torch.float32) * step
-            crossing = live & ~can_jump & ins & (prev > 0.0) & (c < 0.0)
-            death = live & ~can_jump & ~crossing & (~ins | ((prev < 0.0) & (c > 0.0)))
-            t_found = torch.where(crossing, t_curr, t_found)
-            t_dead = torch.where(death, t_curr, t_dead)
-            tested += live
-            ends = live & (crossing | death | (kj + 1 >= n))
-            n_jump = torch.clamp(to_index(torch.floor((c - JUMP_BASE - 1.0) * steps_per_cell)), min=1)
-            nxt = torch.where(live & ~ends & can_jump, kj + n_jump, nxt)
-            jumps += int((live & ~ends & can_jump).sum())
-            prev = torch.where(live, torch.where(can_jump, torch.tensor(1.0), c), prev)
-            done = done | ends
-            live = live & ~ends & ~can_jump
-        k = torch.where(done, k, nxt)
+    while bool(live.any()):
+        g = to_index(torch.floor((start + dirs * (RAY_MIN_M + (k.to(torch.float32) + 1.0) * step)) / voxel))
+        ins = (g[0] >= 0) & (g[0] < X) & (g[1] >= 0) & (g[1] < Y) & (g[2] >= 0) & (g[2] < Z)
+        c = packed_read(g)
+        can_jump = ins & (c >= JUMP_BASE - 0.5)
+        t_curr = RAY_MIN_M + k.to(torch.float32) * step
+        crossing = live & ~can_jump & ins & (prev > 0.0) & (c < 0.0)
+        death = live & ~can_jump & ~crossing & (~ins | ((prev < 0.0) & (c > 0.0)))
+        t_found = torch.where(crossing, t_curr, t_found)
+        t_dead = torch.where(death, t_curr, t_dead)
+        tested += live
+        ends = crossing | death | (k + 1 >= n)
+        n_jump = torch.clamp(to_index(torch.floor((c - JUMP_BASE - 1.0) * steps_per_cell)), min=1)
+        go = live & ~ends
+        jumps += int((go & can_jump).sum())
+        k = torch.where(go, k + torch.where(can_jump, n_jump, 1), k)
+        prev = torch.where(go, torch.where(can_jump, torch.tensor(1.0), c), prev)
+        live = go
     shape2 = dirs_v.shape[1:]
     return t_found.reshape(shape2), t_dead.reshape(shape2), tested.reshape(shape2), jumps
 
@@ -370,11 +350,10 @@ def _sphere_volume():
     return value, torch.ones_like(value), vcfg, _rays(c2v)
 
 
-@pytest.mark.parametrize("ahead", sorted({1, 2, 4, csrc_constant("skip.cu", "RAY_AHEAD")}))
-def test_skip_ray_form_equals_the_serial_march(scene, ahead):
-    """The ray form's rounds give ``march_skip_plain``'s events bit for bit on
+def test_skip_ray_form_equals_the_serial_march(scene):
+    """The ray form's loop gives ``march_skip_plain``'s events bit for bit on
     the skip-packed dense volume, at full resolution and at stride 2, and
-    test the steps the serial loop visits (its reads after the first): on
+    tests the steps the serial loop visits (its reads after the first): on
     the scene's volume and on a sphere's, whose rays jump."""
     vol, vcfg = scene["volume"], scene["vcfg"]
     cases = [(vol.value, vol.weight, vcfg, scene["rays"]), _sphere_volume()]
@@ -386,7 +365,7 @@ def test_skip_ray_form_equals_the_serial_march(scene, ahead):
             dirs = ray_dir.v[:, ::s, ::s]
             stats = {}
             plain = raycast.march_skip_plain(ray_start, dirs, cfg, read, shape, stats=stats)
-            tf, td, tested, n_jumps = skip_ray_twin(ray_start, dirs, cfg, read, shape, ahead)
+            tf, td, tested, n_jumps = skip_ray_twin(ray_start, dirs, cfg, read, shape)
             assert torch.equal(tf.view(torch.int32), plain.t_found.view(torch.int32))
             assert torch.equal(td.view(torch.int32), plain.t_dead.view(torch.int32))
             assert torch.equal(tested, stats["ray_samples"] - 1)
@@ -394,23 +373,11 @@ def test_skip_ray_form_equals_the_serial_march(scene, ahead):
     assert jumps > 0
 
 
-def test_skip_ray_form_threshold_is_the_sources():
-    """The wrappers count the form the kernel entry picks: the ray form from
-    the source's ``RAY_FORM_MIN_RAYS`` rays; the refresh's 60 x 80 rays keep a
-    warp a ray, the brick skip march's 240 x 320 and B14b's 480 x 640 take the
-    ray form."""
-    assert raycast.SKIP_RAY_FORM_MIN_RAYS == csrc_constant("skip.cu", "RAY_FORM_MIN_RAYS")
+def test_skip_ray_form_by_the_number_of_rays():
+    """The wrappers launch the ray form from ``SKIP_RAY_FORM_MIN_RAYS`` rays:
+    the refresh's 60 x 80 rays keep a warp a ray, the brick skip march's
+    240 x 320 and B14b's 480 x 640 take the ray form."""
+    n = raycast.SKIP_RAY_FORM_MIN_RAYS
+    assert not raycast.skip_ray_form(1, n - 1) and raycast.skip_ray_form(1, n)
     assert not raycast.skip_ray_form(60, 80)
     assert raycast.skip_ray_form(240, 320) and raycast.skip_ray_form(480, 640)
-
-
-def test_skip_sweep_sets_the_ray_forms_constants():
-    """``apps/skip_sweep.py`` builds each variant from ``skip.cu`` with its
-    ray form's block size and read-ahead set, and refuses a source without
-    them."""
-    from xslam_tpu_torch.apps.skip_sweep import variant_source
-
-    text = variant_source((CSRC_DIR / "skip.cu").read_text(), 64, 4)
-    assert "constexpr int RAY_THREADS = 64;" in text and "constexpr int RAY_AHEAD = 4;" in text
-    with pytest.raises(ValueError):
-        variant_source("constexpr int RAY_THREADS = 128;", 64, 4)

@@ -320,32 +320,21 @@ int march_skip_on(const torch::Tensor& value, const torch::Tensor& dist, const t
                        cx, cy, inv_fx, inv_fy, dense, form, as_stream(stream));
 }
 
-// the brick rows (B5b) or the dense value plane (B14b), in the form the ray count picks
+// the brick rows (B5b) or the dense value plane (B14b); form: 0 a warp a ray, 1 a thread a ray
 int march_skip(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose, torch::Tensor t_found,
                torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride, int64_t n_steps, float vs,
                float inv_vs, float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
-               int64_t stream) {
+               int64_t form, int64_t stream) {
   return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
-                       steps_per_cell, cx, cy, inv_fx, inv_fy, 0, -1, stream);
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, 0, (int)form, stream);
 }
 
 int march_skip_dense(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
                      torch::Tensor t_found, torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz,
                      int64_t stride, int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell,
-                     float cx, float cy, float inv_fx, float inv_fy, int64_t stream) {
+                     float cx, float cy, float inv_fx, float inv_fy, int64_t form, int64_t stream) {
   return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
-                       steps_per_cell, cx, cy, inv_fx, inv_fy, 1, -1, stream);
-}
-
-// either layout (dense 0 or 1) in the form asked (0 a warp a ray, 1 a thread a ray), whatever the ray count: a
-// test-only entry, by which the smoke run holds the two forms to each other and times both
-int march_skip_form(const torch::Tensor& value, const torch::Tensor& dist, const torch::Tensor& pose,
-                    torch::Tensor t_found, torch::Tensor t_dead, int64_t nbx, int64_t nby, int64_t nbz, int64_t stride,
-                    int64_t n_steps, float vs, float inv_vs, float step, float steps_per_cell, float cx, float cy,
-                    float inv_fx, float inv_fy, int64_t dense, int64_t form, int64_t stream) {
-  if (form != 0 && form != 1) return 1;  // cudaErrorInvalidValue
-  return march_skip_on(value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride, n_steps, vs, inv_vs, step,
-                       steps_per_cell, cx, cy, inv_fx, inv_fy, dense ? 1 : 0, (int)form, stream);
+                       steps_per_cell, cx, cy, inv_fx, inv_fy, 1, (int)form, stream);
 }
 
 // t_found, t_dead: (H, W), the camera's every stride-th pixel in each axis; slab: empty for the whole volume, or
@@ -685,7 +674,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("skip_distance", &skip_distance);
   m.def("march_skip", &march_skip);
   m.def("march_skip_dense", &march_skip_dense);
-  m.def("march_skip_form", &march_skip_form);
   m.def("march_fixed", &march_fixed);
   m.def("march_fixed_chain", &march_fixed_chain);
   m.def("march_fixed_shard_full", &march_fixed_shard_full);

@@ -51,12 +51,9 @@
 //   replayed step, while a thread a ray fills the card's ~270,000 resident
 //   threads on its own. Its warps own 8 x 4 pixel tiles (rays.cuh::
 //   tile_pixel), so a warp's 32 samples of one step fall into few bricks, and
-//   each thread makes its own ray. It reads RAY_AHEAD steps' samples before
-//   it tests them (the distance of each, then the values below distance 2),
-//   the serial rule then taking them in order up to the first that ends the
-//   ray or jumps; the reads past that one are ignored. xs_march_skip takes
-//   the ray form from RAY_FORM_MIN_RAYS rays (the refresh's 4,800 keep the
-//   warp a ray) on either layout; both give the serial rule's bits.
+//   each thread makes its own ray. The caller picks the form
+//   (ops/raycast.py::skip_ray_form, by the number of rays); both give the
+//   serial rule's bits.
 //
 // B14a and B14b, their dense variants (DENSE: the volume's (X, Y, Z) planes,
 // voxel (x * Y + y) * Z + z; rows.cuh::voxel_index<true>), replace the XLA
@@ -95,16 +92,8 @@ constexpr float JUMP_BASE = 1000.0f;  // ops/bricks.py::JUMP_BASE
 constexpr int DIST_CAP = 5;           // ops/bricks.py::DIST_CAP
 constexpr int LANES = 32;             // B5b: lanes a ray
 constexpr int MARCH_THREADS = 128;    // B5b: a block's threads, 4 rays
-// the ray form's block (a ray a thread, a 32 x 4 pixel tile) and the steps a ray reads before it tests them: the
-// fastest of 64, 128, 256 threads and 1, 2, 4 steps, or within 4% of it (apps/skip_sweep.py, NVIDIA H100 80GB
-// HBM3, 700 W: reading ahead costs 8-17% at 2 steps and 17-42% at 4, the reads past a jump dropped)
+// the ray form's block, a ray a thread (a 32 x 4 pixel tile): the fastest of 64, 128 and 256 (PERF.md, B14b)
 constexpr int RAY_THREADS = 128;
-constexpr int RAY_AHEAD = 1;
-// the rays from which xs_march_skip takes the ray form (ops/raycast.py::SKIP_RAY_FORM_MIN_RAYS): on the same card
-// the warp a ray took 0.0077 / 0.0189 / 0.0619 ms at 4,800 / 19,200 / 76,800 rays of the brick rows, the ray form
-// 0.026 at each (its longest ray's chain of dependent reads), so they cross near 29,000 rays (apps/skip_sweep.py,
-// chip_smoke.py's "skip march forms")
-constexpr long long RAY_FORM_MIN_RAYS = 32768;
 constexpr int MASK_WARPS = 8;         // bricks of an event_mask block, a warp each
 constexpr int TX = 8, TY = 8, TZ = 4;  // bricks of a skip_distance block, a thread each
 constexpr int HX = TX + 2 * DIST_CAP, HY = TY + 2 * DIST_CAP, HZ = TZ + 2 * DIST_CAP;
@@ -303,11 +292,8 @@ __global__ void __launch_bounds__(MARCH_THREADS)
   }
 }
 
-// The ray form: a thread a ray, the serial rule of ops/raycast.py::march_skip_plain. A round reads the samples of
-// steps k .. k + RAY_AHEAD - 1, then tests them in order with the carried prev: a crossing, a death or the n_steps
-// stop ends the ray; a jumping step moves the next round to its landing (prev 1.0) and drops the round's later
-// reads; else the next round starts at k + RAY_AHEAD with prev the last sample. Each test reads the serial loop's
-// numbers, so the events are its bits.
+// The ray form: a thread a ray, the serial rule of ops/raycast.py::march_skip_plain step by step: a crossing, a
+// death or the n_steps stop ends the ray; a jumping step moves to its landing with prev 1.0.
 template <bool DENSE>
 __global__ void __launch_bounds__(RAY_THREADS)
     march_skip_ray_kernel(const float* __restrict__ value, const int* __restrict__ dist,
@@ -325,33 +311,23 @@ __global__ void __launch_bounds__(RAY_THREADS)
   float prev = first_sample<DENSE>(value, dist, p, s, d);
   float t_found = INF_T, t_dead = INF_T;
   for (int k = 0;;) {
-    float c[RAY_AHEAD];
-    bool inside[RAY_AHEAD];
-#pragma unroll
-    for (int j = 0; j < RAY_AHEAD; ++j) c[j] = step_sample<DENSE>(value, dist, p, s, d, k + j, inside[j]);
-    int next = k + RAY_AHEAD;
-    bool live = true, done = false;
-#pragma unroll
-    for (int j = 0; j < RAY_AHEAD; ++j) {
-      if (!live) continue;
-      const bool can_jump = inside[j] && c[j] >= JUMP_BASE - 0.5f;
-      if (!can_jump) {
-        const float t_curr = RAY_MIN + (float)(k + j) * p.step;
-        if (inside[j] && prev > 0.0f && c[j] < 0.0f) {
-          t_found = t_curr;
-          done = true;
-        } else if (!inside[j] || (prev < 0.0f && c[j] > 0.0f)) {
-          t_dead = t_curr;
-          done = true;
-        }
+    bool inside;
+    const float c = step_sample<DENSE>(value, dist, p, s, d, k, inside);
+    const bool can_jump = inside && c >= JUMP_BASE - 0.5f;
+    if (!can_jump) {
+      const float t_curr = RAY_MIN + (float)k * p.step;
+      if (inside && prev > 0.0f && c < 0.0f) {
+        t_found = t_curr;
+        break;
       }
-      done = done || k + j + 1 >= p.n_steps;
-      if (!done && can_jump) next = k + j + jump_steps(c[j], p);
-      prev = can_jump ? 1.0f : c[j];
-      live = !done && !can_jump;
+      if (!inside || (prev < 0.0f && c > 0.0f)) {
+        t_dead = t_curr;
+        break;
+      }
     }
-    if (done) break;
-    k = next;
+    if (k + 1 >= p.n_steps) break;
+    k += can_jump ? jump_steps(c, p) : 1;
+    prev = can_jump ? 1.0f : c;
   }
   t_found_out[y * p.W + x] = t_found;
   t_dead_out[y * p.W + x] = t_dead;
@@ -414,19 +390,19 @@ extern "C" int xs_skip_distance(const void* mask, void* dist, int nbx, int nby, 
 }
 
 // value: the (NB, 512) value rows or, with dense, the (X, Y, Z) value plane; dist: skip_field's (NB,) distances;
-// pose: the 48 packed floats; t_found, t_dead: (H, W), the march's every stride-th pixel of the camera. form: -1
-// the form the ray count picks (the ray form from RAY_FORM_MIN_RAYS rays), 0 a warp a ray, 1 a thread a ray
+// pose: the 48 packed floats; t_found, t_dead: (H, W), the march's every stride-th pixel of the camera; form: 0 a
+// warp a ray, 1 a thread a ray
 extern "C" int xs_march_skip(const void* value, const void* dist, const void* pose, void* t_found, void* t_dead,
                              int nbx, int nby, int nbz, int H, int W, int stride, int n_steps, float vs, float inv_vs,
                              float step, float steps_per_cell, float cx, float cy, float inv_fx, float inv_fy,
                              int dense, int form, void* stream) {
   const long long voxels = (long long)nbx * nby * nbz * xs::BRICK_LANES;
-  if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || n_steps < 1 || form < -1 || form > 1)
+  if (voxels >= (1ll << 31) || H < 1 || W < 1 || stride < 1 || n_steps < 1 || form < 0 || form > 1)
     return (int)cudaErrorInvalidValue;
   const SkipParams p{xs::make_rows(nbx, nby, nbz), H, W, stride, n_steps, vs, inv_vs, step, steps_per_cell,
                      xs::Camera{cx, cy, inv_fx, inv_fy}};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (form == 1 || (form == -1 && (long long)H * W >= RAY_FORM_MIN_RAYS)) {
+  if (form == 1) {
     const dim3 grid = xs::tile_grid<RAY_THREADS>(H, W);
     if (dense)
       march_skip_ray_kernel<true><<<grid, RAY_THREADS, 0, s>>>((const float*)value, (const int*)dist,

@@ -109,8 +109,10 @@ launch_counts = {
     "fuse_bricks_subcell": 0,
     "model_map_normals": 0, "window_march": 0, "window_march_first_event": 0, "raycast_refine_bricks": 0,
     "skip_field": 0, "march_skip": 0, "extract_points": 0,
-    # B5b's ray form, a thread a ray, from ops/raycast.py::SKIP_RAY_FORM_MIN_RAYS rays (march_skip counts its warp
-    # form; B14b's march_skip_dense counts either form)
+    # B5b's ray form, a thread a ray, from ops/raycast.py::SKIP_RAY_FORM_MIN_RAYS rays; march_skip counts its warp
+    # form. The brick rows run both forms on a path (the refresh's 60x80 rays, the brick skip march's 240x320), each
+    # a row of the kernel table; B14b's march_skip_dense counts either form, as every dense path's skip march (480x640
+    # at stride 1 and 2) takes the ray form and the warp form there runs only for cameras under that many rays
     "march_skip_rays": 0,
     # B17, the meshers (xslam_tpu_torch/ops/extract.py): marching tetrahedra and marching cubes
     "mesh_tetra": 0, "mesh_mc": 0,

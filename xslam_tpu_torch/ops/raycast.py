@@ -62,8 +62,10 @@ MARCH_MODES = ("fixed", "skip", "hier", "hier_skip", "hier2")
 # the hier2 march's half-resolution repair window, dense and brick layout (xslam_tpu/ops/raycast.py:561,
 # xslam_tpu/ops/raycast_bricks.py::hier2_hit)
 HIER2_MID_WINDOW = 12
-# the rays from which the skip march (B5b, B14b; csrc/skip.cu's RAY_FORM_MIN_RAYS) launches its ray form, a thread
-# a ray, instead of a warp a ray
+# the rays from which the skip march (B5b, B14b) launches its ray form, a thread a ray, instead of a warp a ray: on
+# an NVIDIA H100 80GB HBM3 at 700 W the warp a ray took 0.0077 / 0.0189 / 0.0619 ms at 4,800 / 19,200 / 76,800 rays
+# of the brick rows and the ray form 0.026 at each (its longest ray's chain of dependent reads), so they cross near
+# 29,000 rays (chip_smoke.py's "skip march forms")
 SKIP_RAY_FORM_MIN_RAYS = 32768
 
 
@@ -490,7 +492,8 @@ def march_skip_dense(vol: VolumeState, dist: torch.Tensor, pose: torch.Tensor, i
     reads as ``JUMP_BASE + dist``, as :func:`skip_volume` packs it, without
     the packed copy. On CPU tensors its plain version, :func:`march_skip_plain`
     over :func:`pack_dense`. The events are the fixed march's on these rays.
-    Counted as ``march_skip_dense`` in either form."""
+    Counted as ``march_skip_dense`` in either form: every dense path's skip
+    march has enough rays for the ray form (``kernels.launch_counts``)."""
     res = tuple(cfg.resolution)
     if kernels.on_cpu(vol.value, dist, pose):
         ray_start, dirs = _strided_rays(pose, intr, stride)
@@ -507,7 +510,7 @@ def march_skip_dense(vol: VolumeState, dist: torch.Tensor, pose: torch.Tensor, i
     kernels.launch(
         "march_skip_dense", pose.device, vol.value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride,
         kernels.march_steps(cfg.trunc_dist), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
-        f32(BRICK * cfg.voxel_size / step), *kernels.camera_args(intr),
+        f32(BRICK * cfg.voxel_size / step), *kernels.camera_args(intr), int(skip_ray_form(H, W)),
     )
     kernels.launch_counts["march_skip_dense"] += 1
     return RaycastHit(t_found, t_dead)

@@ -446,13 +446,14 @@ def march_skip(bvol: BrickVolume, dist: torch.Tensor, pose: torch.Tensor, intr: 
     t_dead = torch.empty_like(t_found)
     step = cfg.trunc_dist * 0.8
     steps_per_cell = bricks.BRICK * cfg.voxel_size / step
+    ray_form = skip_ray_form(H, W)
     f32 = kernels.f32
     kernels.launch(
         "march_skip", pose.device, bvol.value, dist, pose, t_found, t_dead, nbx, nby, nbz, stride,
         kernels.march_steps(cfg.trunc_dist), f32(cfg.voxel_size), kernels.reciprocal_f32(cfg.voxel_size), f32(step),
-        f32(steps_per_cell), *kernels.camera_args(intr),
+        f32(steps_per_cell), *kernels.camera_args(intr), int(ray_form),
     )
-    kernels.launch_counts["march_skip_rays" if skip_ray_form(H, W) else "march_skip"] += 1
+    kernels.launch_counts["march_skip_rays" if ray_form else "march_skip"] += 1
     return RaycastHit(t_found, t_dead)
 
 
