@@ -42,7 +42,9 @@ Phases, in order:
    on the planes and the rows, the bilinear branch against plain, a starved
    subcell capacity of 4 ("flag" as plain, "dense" as K2), timed beside B3b
    and B3c; K3 at strides 2 and 4 (bit-equal
-   to the stride-1 march subsampled and to its earlier design); the dense
+   to the stride-1 march subsampled, to its earlier design and to one lane a
+   ray; the wrapper's lanes a ray timed in turns against one lane, warm and
+   cold, with the blocks launched and the warps an SM); the dense
    layout's B14a (distance), B14b (skip march, strides 1 and 2) and B14c
    (window repair, strides 2 and 1) on the 256^3 volume along the 480x640
    rays, bit for bit; the brick layout's
@@ -202,7 +204,10 @@ a seeded problem of the loop backend's shape (184,320 observations, 41
 keyframes, 12,253 anchors, R = 4): each output within ``SCHUR_MAX_ULP`` (the ulp
 histograms printed), ``S x`` also against the matvec before B18 (within
 ``B18_BEFORE_TOL`` of its scale), a second call's bits equal, each pass warm, cold, plain,
-bound and ``torch.segment_reduce`` over its rows (a yardstick), one ``S x``'s
+bound and ``torch.segment_reduce`` over its rows (a yardstick), each pass's
+earlier design (a test-only entry: a thread a position, a shared-memory scan)
+within ``SCHUR_MAX_ULP`` too and timed in turns with it, warm and cold (the
+keyframe pass must be the faster), one ``S x``'s
 launches before B18 and through it, and ``schur_ba_cg`` through B18 against the
 plain passes; after the two ranks' main path, "sharded BA" runs
 ``schur_ba(group=)`` and ``schur_ba_cg(group=)`` at one NCCL rank (the single
@@ -1619,13 +1624,26 @@ def phase_march(ctx):
           f"K3 is not bit-equal to its earlier design: {chain_equal}, NaN and inf rays {odd_equal}")
 
     # K3 at the hierarchical marches' strides (hier's 2, hier2's 4): the rays of every s-th pixel, so the
-    # stride-1 march's events at those pixels and the earlier design's on the strided rays, bit for bit
+    # stride-1 march's events at those pixels and the earlier design's on the strided rays, bit for bit; the
+    # wrapper's lanes a ray (march_group_kernel) against one lane a ray (K3's body) through the binding, bit for
+    # bit, timed in turns (one lane, the wrapper's, the wrapper's, one lane), warm and cold
+    group_threads = csrc_constant("march.cu", "GROUP_THREADS")
+    sms = torch.cuda.get_device_properties(ctx["device"]).multi_processor_count
     strided = {}
     for s in (2, 4):
         def run_s(s=s):
             return kernels.march_fixed(vol.value, pose, intr, eng.voxel_size, eng.trunc_dist, stride=s)
 
         sf, sd = run_s()
+        H_s, W_s = sf.shape
+        lanes = kernels.march_lanes(H_s, W_s, s)
+        one_f, one_d = torch.empty_like(sf), torch.empty_like(sd)
+
+        def run_lanes(g, out=(one_f, one_d), s=s):
+            check(ext.march_fixed(vol.value, pose, out[0], out[1], s, n_steps, vs, step, *kernels.camera_args(intr),
+                                  [], g, stream) == 0, f"march_fixed at {g} lanes a ray failed to launch")
+
+        run_lanes(1)
         dirs_s = ray_dir.v[:, ::s, ::s].contiguous()
         pf_s, pd_s = kernels.march_fixed_plain(vol.value, ray_start, CSFD(dirs_s, dirs_s), eng.voxel_size,
                                                eng.trunc_dist)
@@ -1635,21 +1653,32 @@ def phase_march(ctx):
         torch.cuda.synchronize()
         sub_equal = bool(torch.equal(sf, tf[::s, ::s])) and bool(torch.equal(sd, td[::s, ::s]))
         chain_s = bool(torch.equal(sf, cf_s)) and bool(torch.equal(sd, cd_s))
+        one_lane_s = _bits(sf, one_f) and _bits(sd, one_d)
         eq_s = min(frac_equal(sf, pf_s), frac_equal(sd, pd_s))
         err_s = max_abs(sf, pf_s, (sf < INF_T) & (pf_s < INF_T))
-        ms_s, cold_s = time_ms(run_s, 50), time_cold_ms(run_s, 30)
+        turns = [time_ms(fn, 50) for fn in (lambda: run_lanes(1), run_s, run_s, lambda: run_lanes(1))]
+        cold_turns = [time_cold_ms(fn, 30) for fn in (lambda: run_lanes(1), run_s, run_s, lambda: run_lanes(1))]
+        ms_s, cold_s = min(turns[1:3]), min(cold_turns[1:3])
         plain_s = time_ms(lambda: kernels.march_fixed_plain(vol.value, ray_start, CSFD(dirs_s, dirs_s),
                                                             eng.voxel_size, eng.trunc_dist), 3)
         nb_s, no_s, samples_s = _march_bytes_ops(vol.value, ray_start.v, dirs_s, sf, sd, eng)
         b_s = bound_ms(nb_s, no_s)
-        emit("K3 march_fixed strided", stride=s, shape=list(sf.shape), bit_equal_to_stride_1_subsampled=sub_equal,
-             bit_equal_to_earlier_design=chain_s, frac_equal_to_plain=eq_s, max_abs_err_t_found=err_s,
-             samples=samples_s, ms=ms_s, cold_ms=cold_s, plain_ms=plain_s, bound_ms=b_s[0], bound_by=b_s[1],
+        blocks = {1: -(-W_s // 32) * -(-H_s // 8), lanes: -(-H_s * W_s * lanes // group_threads)}
+        threads = {1: 256, lanes: group_threads}
+        emit("K3 march_fixed strided", stride=s, shape=list(sf.shape), lanes=lanes,
+             bit_equal_to_stride_1_subsampled=sub_equal, bit_equal_to_earlier_design=chain_s,
+             bit_equal_to_one_lane=one_lane_s, frac_equal_to_plain=eq_s, max_abs_err_t_found=err_s,
+             samples=samples_s, ms=ms_s, cold_ms=cold_s, one_lane_ms=[turns[0], turns[3]],
+             lanes_ms=turns[1:3], one_lane_cold_ms=[cold_turns[0], cold_turns[3]], lanes_cold_ms=cold_turns[1:3],
+             blocks={g: blocks[g] for g in (1, lanes)},
+             warps_per_sm={g: blocks[g] * threads[g] / 32 / sms for g in (1, lanes)},
+             plain_ms=plain_s, bound_ms=b_s[0], bound_by=b_s[1],
              library_ms=None, library_note="no single PyTorch call computes it")
-        check(sub_equal and chain_s and eq_s >= 0.999,
-              f"K3 at stride {s}: stride 1 subsampled {sub_equal}, earlier design {chain_s}, plain {eq_s}")
+        check(sub_equal and chain_s and one_lane_s and eq_s >= 0.999,
+              f"K3 at stride {s}: stride 1 subsampled {sub_equal}, earlier design {chain_s}, one lane a ray "
+              f"{one_lane_s}, plain {eq_s}")
         strided[s] = dict(max_abs_err=err_s, ms=ms_s, cold_ms=cold_s, plain_ms=plain_s, bound_ms=b_s[0],
-                          bound_by=b_s[1])
+                          bound_by=b_s[1], lanes=lanes, one_lane_ms=min(turns[0], turns[3]))
     return {"march_fixed": dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by),
             "march_fixed_strided": dict(strided[2], stride=2, stride_4=strided[4])}
 
@@ -5388,6 +5417,27 @@ def phase_schur_cg(ctx):
                                     lambda: ba._keyframes_plain(plan, Jc, Jl, Hll_inv, v_plain, x))}
     rows = {"schur_cg_anchors": (plan.seg_l, torch.randn((N, 3), generator=gen, device=dev)),
             "schur_cg_keyframes": (plan.seg_k, torch.randn((N, 12), generator=gen, device=dev))}
+    # the earlier design (PR 23: a thread a position, a shared-memory scan; a test-only entry, its own scratch of
+    # a row a chunk of SCAN_CHUNK positions) on the same inputs
+    ext = kernels.build_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scan_chunks = -(-N // csrc_constant("schur_cg.cu", "SCAN_CHUNK"))
+    earlier_out = {"schur_cg_anchors": torch.empty_like(v), "schur_cg_keyframes": torch.empty_like(hz)}
+
+    def earlier(name, out=None):
+        p, s = (plan.anchors, plan.seg_l) if name == "schur_cg_anchors" else (plan.keyframes, plan.seg_k)
+        out = earlier_out[name] if out is None else out
+        first = torch.empty((scan_chunks, out.shape[1]), dtype=torch.float64, device=dev)
+        scratch = (first, torch.empty_like(first), torch.zeros(1, dtype=torch.int32, device=dev))
+        head = (Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x)
+        args = head if name == "schur_cg_anchors" else (*head, Hll_inv, v_plain)
+        check(getattr(ext, name)(*args, *scratch, out, 1, stream) == 0, f"{name}: the earlier design failed")
+
+    for name in earlier_out:
+        earlier(name)
+    torch.cuda.synchronize()
+    earlier_ulp = {k: max_ulp(earlier_out[k], outs[k][1]) for k in earlier_out}
+    earlier_hist = {k: _ulp_hist(earlier_out[k], outs[k][0]) for k in earlier_out}
     ops = _schur_ops(R)
     result = {}
     for name, (kernel_call, plain_call) in calls.items():
@@ -5395,13 +5445,23 @@ def phase_schur_cg(ctx):
         sorted_rows = contrib[seg.order].contiguous()
         lengths = (seg.end - seg.start).to(torch.int64)
         library = time_ms(lambda: torch.segment_reduce(sorted_rows, "sum", lengths=lengths, axis=0), 20)
-        ms, cold = time_ms(kernel_call, 50), time_cold_ms(kernel_call, 20)
+        # in turns: earlier design, this one, this one, earlier design; warm, then cold
+        spare = torch.empty_like(earlier_out[name])
+        turn = (lambda: earlier(name, spare), kernel_call, kernel_call, lambda: earlier(name, spare))
+        warm = [time_ms(fn, 50) for fn in turn]
+        cold_turns = [time_cold_ms(fn, 20) for fn in turn]
+        ms, cold = min(warm[1:3]), min(cold_turns[1:3])
         plain = time_ms(plain_call, 5)
         n_bytes = _schur_bytes(name, N, R, K, L)
         bms, by = bound_ms(n_bytes, N * ops[name])
         a, b = outs[name]
         result[name] = dict(shape=dict(N=N, K=K, L=L, R=R), max_abs_err=max_abs(a, b), max_ulp=worst[name],
                             ulp_histogram=hists[name], frac_equal=frac_equal(a, b), ms=ms, cold_ms=cold,
+                            warm_turns_ms=warm, cold_turns_ms=cold_turns,
+                            earlier_design_ms=min(warm[0], warm[3]), earlier_design_cold_ms=min(cold_turns[0],
+                                                                                                cold_turns[3]),
+                            earlier_design_max_ulp_vs_plain=earlier_ulp[name],
+                            earlier_design_ulp_histogram_vs_this=earlier_hist[name],
                             plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
                             bound_ops=N * ops[name], library_ms=library,
                             library_note="torch.segment_reduce of the pass's rows in its order: one pass's sum "
@@ -5437,6 +5497,10 @@ def phase_schur_cg(ctx):
     check(again, "B18: a second call gave other bits")
     check(all(w <= SCHUR_MAX_ULP for w in worst.values()), f"B18 against its plain passes: {worst} ulp, "
                                                             f"histograms {hists}")
+    check(all(w <= SCHUR_MAX_ULP for w in earlier_ulp.values()), f"B18's earlier design: {earlier_ulp} ulp")
+    keyframes = result["schur_cg_keyframes"]
+    check(keyframes["ms"] < keyframes["earlier_design_ms"],
+          f"B18's keyframe pass: {keyframes['warm_turns_ms']} ms in turns, not below the earlier design's")
     check(after["kernel_events"] == 2, f"B18: {after['kernel_events']} kernel events in one S x, expected 2")
     check(vs_before["share_of_scale"] <= B18_BEFORE_TOL, f"B18's S x against the matvec before it: {vs_before}")
     check(solver_err <= B18_SOLVER_TOL and b18_launches["schur_cg_anchors"] == BA_ITERS * 40,

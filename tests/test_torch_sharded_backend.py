@@ -25,9 +25,11 @@ Tolerances, and why:
   not the index order the kernel takes): within 2e-6 of each output's largest
   magnitude (float32 rounding of the products, measured 1.2e-7 of it), the
   same bits on a second call, and no launch on CPU tensors.
-- B18's sum order (a numpy twin of the kernel's chunks, segmented scans and
-  crossing sums): every key written once, each sum within 1 float32 ulp of
-  ``_Segments``' (both sum in float64 and round once; the orders differ).
+- B18's sum order (a numpy twin of the kernel's chunks, its threads' serial
+  runs, warp scans and block carries, and its crossing sums,
+  ``tests/torch_port_helpers.py::b18_sums``): every key written once, each sum
+  within 1 float32 ulp of ``_Segments``' (both sum in float64 and round once;
+  the orders differ).
 """
 
 import os
@@ -45,7 +47,7 @@ import yaml
 
 import tests.torch_port_helpers  # noqa: F401  (sets one intra-op thread)
 from tests.helpers import small_config, small_dataset
-from tests.torch_port_helpers import torch_config
+from tests.torch_port_helpers import b18_sums, torch_config
 from xslam_tpu.geometry import se3 as jse3
 from xslam_tpu.models import ba as jba
 from xslam_tpu_torch import run_slam
@@ -335,58 +337,12 @@ def test_plain_passes_are_the_matvec(normals):
         assert float((got - ref).abs().max()) <= PLAIN_PASS_TOL * float(ref.abs().max())
 
 
-def _kernel_order_sums(keys, rows, start, end, chunk):
-    """A numpy twin of csrc/schur_cg.cu's sums: ``rows`` (sorted positions,
-    D) summed by ``keys`` (sorted) in the kernel's order: a segmented
-    Hillis-Steele scan a chunk in float64, each run's sum written to the
-    output, a chunk's first or last partial, then the crossing keys' partials
-    in chunk order. Returns (float32 sums, times each key was written)."""
-    N, D = rows.shape
-    n_keys = len(start)
-    out = np.zeros((n_keys, D), np.float32)
-    writes = (start == end).astype(int)
-    n_chunks = -(-N // chunk)
-    first, last = np.full((n_chunks, D), np.nan), np.full((n_chunks, D), np.nan)
-    t = np.arange(chunk)
-    for c in range(n_chunks):
-        pos = c * chunk + t
-        valid = pos < N
-        key = np.where(valid, keys[np.minimum(pos, N - 1)], -1)
-        val = np.where(valid[:, None], rows[np.minimum(pos, N - 1)].astype(np.float64), 0.0)
-        flag = np.concatenate([[True], key[1:] != key[:-1]])
-        off = 1
-        while off < chunk:
-            take = (t >= off) & ~flag
-            src = np.maximum(t - off, 0)
-            val = np.where(take[:, None], val[src] + val, val)
-            flag = np.where(take, flag[src], flag)
-            off *= 2
-        run_end = np.concatenate([key[:-1] != key[1:], [True]]) | (pos == N - 1)
-        for i in np.nonzero(valid & run_end & (key >= 0) & (key < n_keys))[0]:
-            k = key[i]
-            if start[k] < c * chunk:
-                first[c] = val[i]
-            elif end[k] > pos[i] + 1:
-                last[c] = val[i]
-            else:
-                out[k] = val[i].astype(np.float32)
-                writes[k] += 1
-    for c in range(1, n_chunks):
-        k = keys[c * chunk]
-        if not 0 <= k < n_keys or start[k] // chunk + 1 != c:
-            continue
-        acc = last[c - 1].copy()
-        for cc in range(c, (end[k] - 1) // chunk + 1):
-            acc = acc + first[cc]
-        out[k] = acc.astype(np.float32)
-        writes[k] += 1
-    return out, writes
-
-
-@pytest.mark.parametrize("chunk", [8, 256])
+@pytest.mark.parametrize("chunk", [8, 256, tba.CG_CHUNK])
 def test_kernel_sum_order(chunk):
     """Keys with runs from 0 to 3,000 rows (empty keys, runs crossing many
-    chunks and ending on a chunk's edge) and some outside the range."""
+    chunks and ending on a chunk's edge) and some outside the range, summed as
+    the kernel sums them (:func:`b18_sums`: 4 positions a thread, chunks of
+    ``chunk`` positions; the kernel's is ``CG_CHUNK``)."""
     rng = np.random.default_rng(chunk)
     n_keys = 60
     lengths = rng.choice([0, 1, 2, 5, 17, 255, 256, 257, 3000], n_keys)
@@ -396,7 +352,8 @@ def test_kernel_sum_order(chunk):
     seg = tba._Segments(_t(keys), n_keys)
     ref = seg(_t(rows)).numpy()
     order = seg.order.numpy()
-    out, writes = _kernel_order_sums(seg.sorted_keys.numpy(), rows[order], seg.start.numpy(), seg.end.numpy(), chunk)
+    out, writes = b18_sums(seg.sorted_keys.numpy(), rows[order], seg.start.numpy(), seg.end.numpy(),
+                           chunk // tba.CG_PER_THREAD, tba.CG_PER_THREAD)
     assert (writes == 1).all(), writes
     def ordered(a):
         i = a.view(np.int32).astype(np.int64)

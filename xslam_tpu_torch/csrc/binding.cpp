@@ -51,7 +51,7 @@ extern "C" int xs_march_skip(const void* value, const void* dist, const void* po
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, int shard, int x_base, int x_total, int core_start,
-                              int core_end, void* stream);
+                              int core_end, int lanes, void* stream);
 extern "C" int xs_march_fixed_chain(const void* value, const void* start, const void* dirs, void* t_found,
                                     void* t_dead, int X, int Y, int Z, int H, int W, int n_steps, float vs,
                                     float step, void* stream);
@@ -106,11 +106,11 @@ extern "C" int xs_tsdf_field(const void* value, const void* depth, const void* p
 extern "C" int xs_schur_cg_anchors(const void* jc, const void* jl, const void* order, const void* keys,
                                    const void* start, const void* end, const void* frame_idx, const void* x,
                                    void* first, void* last, void* ticket, void* v, int n, int R, int n_keys,
-                                   int n_chunks, void* stream);
+                                   int n_chunks, int design, void* stream);
 extern "C" int xs_schur_cg_keyframes(const void* jc, const void* jl, const void* order, const void* keys,
                                      const void* start, const void* end, const void* anchor_idx, const void* x,
                                      const void* hll_inv, const void* v, void* first, void* last, void* ticket,
-                                     void* hz, int n, int R, int n_keys, int n_chunks, void* stream);
+                                     void* hz, int n, int R, int n_keys, int n_chunks, int design, void* stream);
 extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_b(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_c(const void* table, void* out, void* stream);
@@ -338,16 +338,17 @@ int march_skip_dense(const torch::Tensor& value, const torch::Tensor& dist, cons
 }
 
 // t_found, t_dead: (H, W), the camera's every stride-th pixel in each axis; slab: empty for the whole volume, or
-// (x_base, x_total, core_start, core_end) of a slab with its halo (B19b)
+// (x_base, x_total, core_start, core_end) of a slab with its halo (B19b); lanes: a ray's lanes over the whole volume
+// (1: K3's body; 2 to 32: the group march)
 int march_fixed(const torch::Tensor& value, const torch::Tensor& pose, torch::Tensor t_found, torch::Tensor t_dead,
                 int64_t stride, int64_t n_steps, float vs, float step, float cx, float cy, float inv_fx, float inv_fy,
-                const std::vector<int64_t>& slab, int64_t stream) {
+                const std::vector<int64_t>& slab, int64_t lanes, int64_t stream) {
   if (!slab.empty() && slab.size() != 4) return 1;  // cudaErrorInvalidValue
   const bool shard = !slab.empty();
   return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
                         value.size(1), value.size(2), t_found.size(0), t_found.size(1), stride, n_steps, vs, step, cx,
                         cy, inv_fx, inv_fy, shard ? 1 : 0, shard ? (int)slab[0] : 0, shard ? (int)slab[1] : 0,
-                        shard ? (int)slab[2] : 0, shard ? (int)slab[3] : 0, as_stream(stream));
+                        shard ? (int)slab[2] : 0, shard ? (int)slab[3] : 0, (int)lanes, as_stream(stream));
 }
 
 // B19b's earlier design (the full loop over a slab), a test-only entry; slab as march_fixed's
@@ -357,7 +358,8 @@ int march_fixed_shard_full(const torch::Tensor& value, const torch::Tensor& pose
   if (slab.size() != 4) return 1;  // cudaErrorInvalidValue
   return xs_march_fixed(value.data_ptr(), pose.data_ptr(), t_found.data_ptr(), t_dead.data_ptr(), value.size(0),
                         value.size(1), value.size(2), t_found.size(0), t_found.size(1), 1, n_steps, vs, step, cx, cy,
-                        inv_fx, inv_fy, 2, (int)slab[0], (int)slab[1], (int)slab[2], (int)slab[3], as_stream(stream));
+                        inv_fx, inv_fy, 2, (int)slab[0], (int)slab[1], (int)slab[2], (int)slab[3], 1,
+                        as_stream(stream));
 }
 
 int march_fixed_chain(const torch::Tensor& value, const torch::Tensor& start, const torch::Tensor& dirs,
@@ -607,26 +609,27 @@ int tsdf_field(const torch::Tensor& value, const torch::Tensor& depth, const tor
 }
 
 // B18's passes: jc (N, R, 6), jl (N, R, 3) float32; order, keys (N,), start, end (n_keys,), frame_idx or
-// anchor_idx (N,) int32; first, last (n_chunks, D) float64 and ticket (1,) int32: the scratch; v (L, 3), hz (K, 12)
+// anchor_idx (N,) int32; first, last (n_chunks, D) float64 and ticket (1,) int32: the scratch; v (L, 3), hz (K, 12);
+// design 0, or 1 for the earlier design (a test-only entry, its chunks of 256 positions)
 int schur_cg_anchors(const torch::Tensor& jc, const torch::Tensor& jl, const torch::Tensor& order,
                      const torch::Tensor& keys, const torch::Tensor& start, const torch::Tensor& end,
                      const torch::Tensor& frame_idx, const torch::Tensor& x, torch::Tensor first, torch::Tensor last,
-                     torch::Tensor ticket, torch::Tensor v, int64_t stream) {
+                     torch::Tensor ticket, torch::Tensor v, int64_t design, int64_t stream) {
   return xs_schur_cg_anchors(jc.data_ptr(), jl.data_ptr(), order.data_ptr(), keys.data_ptr(), start.data_ptr(),
                              end.data_ptr(), frame_idx.data_ptr(), x.data_ptr(), first.data_ptr(), last.data_ptr(),
                              ticket.data_ptr(), v.data_ptr(), jc.size(0), jc.size(1), v.size(0), first.size(0),
-                             as_stream(stream));
+                             (int)design, as_stream(stream));
 }
 
 int schur_cg_keyframes(const torch::Tensor& jc, const torch::Tensor& jl, const torch::Tensor& order,
                        const torch::Tensor& keys, const torch::Tensor& start, const torch::Tensor& end,
                        const torch::Tensor& anchor_idx, const torch::Tensor& x, const torch::Tensor& hll_inv,
                        const torch::Tensor& v, torch::Tensor first, torch::Tensor last, torch::Tensor ticket,
-                       torch::Tensor hz, int64_t stream) {
+                       torch::Tensor hz, int64_t design, int64_t stream) {
   return xs_schur_cg_keyframes(jc.data_ptr(), jl.data_ptr(), order.data_ptr(), keys.data_ptr(), start.data_ptr(),
                                end.data_ptr(), anchor_idx.data_ptr(), x.data_ptr(), hll_inv.data_ptr(), v.data_ptr(),
                                first.data_ptr(), last.data_ptr(), ticket.data_ptr(), hz.data_ptr(), jc.size(0),
-                               jc.size(1), hz.size(0), first.size(0), as_stream(stream));
+                               jc.size(1), hz.size(0), first.size(0), (int)design, as_stream(stream));
 }
 
 int probe_a(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {

@@ -77,6 +77,20 @@
 // the whole volume and every step is owned: there the kernel runs K3's body (march_kernel's), the same events,
 // where the slab-step body runs 2% slower than the full loop (the slab's sample and the steps' bookkeeping).
 //
+// K3 at a stride (the hierarchical marches' coarse pass: 76,800 rays at stride 2, 19,200 at stride 4 of a
+// 480x640 camera) marches too few rays for a thread a ray to fill the card: 300 / 75 blocks of 256 on 132 SMs,
+// each block waiting for its slowest ray. There march_group_kernel<G> gives a ray a group of G lanes (G a power of
+// two up to 32, chosen by the wrapper from the number of rays: ops/kernels.py::march_lanes). A round takes G x
+// GROUP_U steps: lane j reads steps k0 + u G + j for u < GROUP_U, all loads before any test (GROUP_U steps in
+// flight a lane, as K3's U), then the serial rule is replayed sub-round by sub-round in step order: step k's prev
+// is lane j - 1's sample (__shfl_up_sync), lane 0's the last lane's of the sub-round before (the first sample, for
+// step 0); the first crossing and the first death are the lowest lanes whose exact tests fire (ballots), and the
+// group's tests stop after the sub-round in which both are known. Each step's test reads the numbers K3's loop reads at
+// that step, and the march times are the same expressions of k, so the events are K3's bits. Rays lie in image
+// order, GROUP_THREADS / G a block; a warp's groups step together until its slowest ray is done (shuffles and
+// ballots over the whole warp: with a group's own mask the groups drifted apart and ran one after another, 2 lanes
+// a ray 4x slower than one). At G = 1 (stride 1 always) the launch is march_kernel, K3's body.
+//
 // xs_march_fixed_chain is the earlier design (one thread a ray over a flat
 // pixel index, direction planes read from memory, three divisions and
 // to_index a sample, one load in flight), kept as a test-only entry: the
@@ -92,6 +106,8 @@ namespace {
 constexpr float RAY_MIN = 0.2f;
 constexpr float INF_T = 1e9f;
 constexpr int U = 4;  // march steps taken together
+constexpr int GROUP_THREADS = 256;  // threads a block of march_group_kernel
+constexpr int GROUP_U = 4;          // its steps a lane reads together in a round
 
 struct Volume {
   const float* value;
@@ -354,6 +370,72 @@ __global__ void __launch_bounds__(xs::BLOCK_W* xs::BLOCK_H)
   march_body<false, false>(vol, pose, t_found_out, t_dead_out, H, W, stride, n_steps, step, cam, Slab{});
 }
 
+// K3 at a stride, a group of G lanes a ray (see the header)
+template <int G>
+__global__ void __launch_bounds__(GROUP_THREADS)
+    march_group_kernel(Volume vol, const float* __restrict__ pose, float* __restrict__ t_found_out,
+                       float* __restrict__ t_dead_out, int H, int W, int stride, int n_steps, float step,
+                       xs::Camera cam) {
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0 && GROUP_THREADS % 32 == 0, "lanes a ray: 2 to 32");
+  constexpr unsigned FULL = 0xffffffffu, LANE_BITS = FULL >> (32 - G);
+  __shared__ float c2v[24];
+  const int tid = threadIdx.x, j = tid & (G - 1);
+  if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
+  __syncthreads();
+  // a warp's groups step together until its slowest ray is done: the shuffles and ballots take the whole warp, which
+  // keeps its groups converged (a group's own mask let them drift apart and run one after another); a lane past the
+  // last ray or of a finished ray takes part without effect
+  const int ray = blockIdx.x * (GROUP_THREADS / G) + tid / G;
+  const bool real = ray < H * W;
+  const unsigned shift = (tid & 31) & ~(G - 1);  // the ray's lanes in the warp's ballots
+  const int x = real ? ray % W : 0, y = real ? ray / W : 0;
+  xs::Dual dir[3];
+  xs::camera_ray(c2v, (float)(x * stride), (float)(y * stride), cam, dir);
+  const float s[3] = {c2v[18], c2v[19], c2v[20]};
+  const float d[3] = {dir[0].v, dir[1].v, dir[2].v};
+  const bool finite =
+      isfinite(s[0]) && isfinite(s[1]) && isfinite(s[2]) && isfinite(d[0]) && isfinite(d[1]) && isfinite(d[2]);
+  if (real && !finite && j == 0) {  // every sample outside: a death at the first step
+    t_found_out[ray] = INF_T;
+    t_dead_out[ray] = RAY_MIN + 0.0f * step;
+  }
+  bool done = !real || !finite;  // the same in every lane of the group
+  if (__all_sync(FULL, done)) return;
+  const float inv_vs = 1.0f / vol.vs;
+  float prev = done ? 0.0f : first_sample<false>(vol, Slab{}, s, d);  // lane 0's prev at the next sub-round
+  float t_found = INF_T, t_dead = INF_T;
+  for (int k0 = 0; k0 < n_steps && __any_sync(FULL, !done); k0 += G * GROUP_U) {
+    float tsdf[GROUP_U];
+    bool inside[GROUP_U];
+#pragma unroll
+    for (int u = 0; u < GROUP_U; ++u) {
+      unsigned offset;
+      inside[u] = !done && sample_voxel_fast(vol, inv_vs, s, d, RAY_MIN + (float)(k0 + u * G + j + 1) * step, offset);
+      tsdf[u] = (inside[u] ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
+    }
+#pragma unroll
+    for (int u = 0; u < GROUP_U; ++u) {
+      const int k = k0 + u * G + j;
+      const float left = __shfl_up_sync(FULL, tsdf[u], 1, G);  // lane j - 1's sample: step k - 1's
+      const float pv = j == 0 ? prev : left;
+      const bool live = !done && k < n_steps;
+      const bool death = live && (!inside[u] || (pv < 0.0f && tsdf[u] > 0.0f));
+      const bool crossing = live && inside[u] && pv > 0.0f && tsdf[u] < 0.0f;
+      const unsigned deaths = (__ballot_sync(FULL, death) >> shift) & LANE_BITS;
+      const unsigned crossings = (__ballot_sync(FULL, crossing) >> shift) & LANE_BITS;
+      const int k_lane0 = k0 + u * G;
+      if (crossings && t_found >= INF_T) t_found = RAY_MIN + (float)(k_lane0 + __ffs(crossings) - 1) * step;
+      if (deaths && t_dead >= INF_T) t_dead = RAY_MIN + (float)(k_lane0 + __ffs(deaths) - 1) * step;
+      prev = __shfl_sync(FULL, tsdf[u], G - 1, G);
+      done = done || (t_found < INF_T && t_dead < INF_T);
+    }
+  }
+  if (real && finite && j == 0) {
+    t_found_out[ray] = t_found;
+    t_dead_out[ray] = t_dead;
+  }
+}
+
 // B19b: the march over a slab (see the header); SLAB_STEPS false is the earlier design, a test-only entry. A slab
 // that is the whole volume (one rank: no halo, every row owned) owns every step, and its march is the whole
 // volume's, K3's body, whose sample is cheaper: the same reads, tests and bits
@@ -398,17 +480,28 @@ __global__ void march_chain_kernel(const float* __restrict__ value, const float*
   t_dead_out[pix] = t_dead;
 }
 
+// the group march's launch at G lanes a ray
+template <int G>
+void launch_group(const Volume& vol, const float* pose, float* t_found, float* t_dead, int H, int W, int stride,
+                  int n_steps, float step, const xs::Camera& cam, cudaStream_t stream) {
+  constexpr int rays = GROUP_THREADS / G;
+  march_group_kernel<G><<<(H * W + rays - 1) / rays, GROUP_THREADS, 0, stream>>>(vol, pose, t_found, t_dead, H, W,
+                                                                                 stride, n_steps, step, cam);
+}
+
 }  // namespace
 
 // H, W: the output's size, the camera's every stride-th pixel in each axis. shard: 0 for the whole (X, Y, Z)
 // volume, 1 for a slab of it (B19b: x_base, x_total, core_start, core_end as xslam_tpu/ops/raycast.py::ShardSpec
 // resolves them; X the slab's rows with its halo), 2 for a slab by the earlier design (a test-only
-// entry: the binding's march_fixed_shard_full)
+// entry: the binding's march_fixed_shard_full). lanes: a ray's lanes over the whole volume, 1 (K3's body) or a
+// power of two up to 32 (march_group_kernel)
 extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found, void* t_dead, int X, int Y,
                               int Z, int H, int W, int stride, int n_steps, float vs, float step, float cx, float cy,
                               float inv_fx, float inv_fy, int shard, int x_base, int x_total, int core_start,
-                              int core_end, void* stream) {
+                              int core_end, int lanes, void* stream) {
   if ((long long)X * Y * Z >= (1ll << 31) || stride < 1) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || (lanes > 1 && shard)) return (int)cudaErrorInvalidValue;
   if (shard && (x_total < 1 || (long long)x_total * Y * Z >= (1ll << 31))) return (int)cudaErrorInvalidValue;
   const Volume vol{(const float*)value, X, Y, Z, vs};
   const xs::Camera cam{cx, cy, inv_fx, inv_fy};
@@ -420,9 +513,16 @@ extern "C" int xs_march_fixed(const void* value, const void* pose, void* t_found
   else if (shard)
     march_shard_kernel<true><<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam, slab);
-  else
+  else if (lanes == 1)
     march_kernel<<<grid, xs::BLOCK_W * xs::BLOCK_H, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam);
+  else {
+    void (*run)(const Volume&, const float*, float*, float*, int, int, int, int, float, const xs::Camera&,
+                cudaStream_t) = lanes == 2 ? &launch_group<2> : lanes == 4 ? &launch_group<4>
+                               : lanes == 8 ? &launch_group<8> : lanes == 16 ? &launch_group<16> : &launch_group<32>;
+    run(vol, (const float*)pose, (float*)t_found, (float*)t_dead, H, W, stride, n_steps, step, cam,
+        (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }
 

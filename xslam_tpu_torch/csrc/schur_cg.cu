@@ -25,20 +25,37 @@
 // an output may lie an ulp from the plain version's. No float atomics: the
 // same bits on every call.
 //
-// Design: a block a chunk of CG_THREADS consecutive sorted positions, a
-// thread a position (N / 256 blocks: 720 at the loop backend's N = 184,320,
-// where a block a keyframe would give 41 blocks to 132 SMs). A block computes
-// its positions' contributions, converts them to double and takes a
-// segmented inclusive scan by key in shared memory (Hillis-Steele: a fixed
-// tree). At the end of each run of one key in the chunk the thread writes the
-// run's sum: to the output, rounded, where the key's whole segment lies in
-// the chunk; else to the chunk's `first` partial (the run began in an earlier
-// chunk) or `last` partial (it goes on in a later one). The block that takes
-// the last ticket (an integer atomic) sums each key that crosses a chunk
-// boundary in chunk order, last[c0] + first[c0 + 1] + ... + first[c1], going
-// over the chunk boundaries (n_chunks of them, not the keys), and resets the
-// ticket. Keys with no observation are zeroed by a grid-stride loop of stage
-// one. One launch a pass: two a CG step.
+// Design: a block a chunk of CG_CHUNK = CG_THREADS x CG_PER_THREAD
+// consecutive sorted positions, a thread CG_PER_THREAD consecutive ones (the
+// chunks outnumber the 41 blocks that a block a keyframe would give 132 SMs).
+// A thread forms its positions' contributions and adds each run of one key
+// serially in float64: a run that begins and ends inside the thread is its
+// key's whole segment, written at once (rounded); the thread keeps the sum of
+// its first run (`head`) and of its last. A segmented inclusive scan over the
+// threads' (a run starts in the thread, the last run's sum) pairs by
+// __shfl_up_sync within each warp, and the warps' totals through shared
+// memory laid out plane-major (s[j * WARPS + w]: broadcast reads, no bank
+// conflict), give each thread the sum that its first run carries in from the
+// threads before it in the chunk. The first run's sum, where it ends inside
+// the thread, and the last run's, where it ends at the thread's last
+// position, are written as a run's end was before: to the output, rounded,
+// where the key's whole segment lies in the chunk; else to the chunk's
+// `first` partial (the run began in an earlier chunk) or `last` partial (it
+// goes on in a later one). The block that takes the last ticket (an integer
+// atomic) sums each key that crosses a chunk boundary in chunk order,
+// last[c0] + first[c0 + 1] + ... + first[c1], going over the chunk boundaries
+// (n_chunks of them, not the keys), and resets the ticket. Keys with no
+// observation are zeroed by a grid-stride loop. One launch a pass: two a CG
+// step. The Jacobian rows are read as float4 (float2 or floats where a row's
+// bytes are not a multiple of 16: R = 3) into registers before the
+// arithmetic; the launch refuses tensors that are not 16-byte aligned.
+//
+// The earlier design (PR 23) is kept as a test-only entry (design 1 of the C
+// entry points; the smoke run holds the two to each other and times both in
+// one call): schur_cg_scan_kernel, a thread a position in chunks of
+// SCAN_CHUNK, an 8-step Hillis-Steele segmented scan of D doubles a thread in
+// shared memory (16 __syncthreads; pass K's 96 B stride a 4-way bank
+// conflict) that builds partial sums no run's end reads.
 //
 // Bound: bytes. Each pass reads Jc and Jl once (72 B + 36 B an observation at
 // R = 4 ... 144 B) with the sorted order, the keys and the observations'
@@ -49,9 +66,15 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int CG_THREADS = 256;  // sorted positions of a chunk: models/ba.py::CG_CHUNK
+constexpr int CG_THREADS = 256;                       // threads a block
+constexpr int CG_PER_THREAD = 4;                      // sorted positions a thread
+constexpr int CG_CHUNK = CG_THREADS * CG_PER_THREAD;  // sorted positions a block: models/ba.py::CG_CHUNK
+constexpr int SCAN_CHUNK = 256;                       // the earlier design's: a thread a position
+constexpr unsigned FULL = 0xffffffffu;
 
 struct CgParams {
   const float* jc;        // (N, R, 6)
@@ -70,6 +93,28 @@ struct CgParams {
   float* out;             // (n_keys, D)
   int n, n_keys, n_chunks;
 };
+
+// the N floats of a row at `src` into `dst`: float4 loads where the row's bytes are a multiple of 16, float2 where
+// of 8 (the row then starts as aligned: the tensor is 16-byte aligned), else one at a time
+template <int N>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float* dst) {
+  if (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(src) + i);
+      dst[4 * i] = q.x, dst[4 * i + 1] = q.y, dst[4 * i + 2] = q.z, dst[4 * i + 3] = q.w;
+    }
+  } else if (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(src) + i);
+      dst[2 * i] = q.x, dst[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = __ldg(src + i);
+  }
+}
 
 // u_r = Jc_r . x (index order), r < R
 template <int R>
@@ -95,11 +140,11 @@ __device__ __forceinline__ void transposed(const float* J, const float* y, float
   }
 }
 
-// the contribution of observation o (key `key`) to its key's sum
+// the contribution of observation o (key `key`) to its key's sum, its Jacobian rows at jc and jl (read where
+// they lie: device memory for the earlier design, registers for this one)
 template <int R, bool KEYFRAMES>
-__device__ __forceinline__ void contribution(const CgParams& p, int o, int key, float* c) {
-  const float* jc = p.jc + (long long)o * (R * 6);
-  const float* jl = p.jl + (long long)o * (R * 3);
+__device__ __forceinline__ void contribution(const CgParams& p, const float* jc, const float* jl, int o, int key,
+                                             float* c) {
   const int k = KEYFRAMES ? key : p.other[o];
   float u[R];
   camera_rows<R>(jc, p.x + k * 6, u);
@@ -127,22 +172,182 @@ __device__ __forceinline__ void contribution(const CgParams& p, int o, int key, 
   transposed<R, 6>(jc, z, c + 6);
 }
 
+// the same with the rows loaded into registers first, as vectors
+template <int R, bool KEYFRAMES>
+__device__ __forceinline__ void loaded_contribution(const CgParams& p, int o, int key, float* c) {
+  float jc[R * 6], jl[R * 3];
+  load_row<R * 6>(p.jc + (long long)o * (R * 6), jc);
+  load_row<R * 3>(p.jl + (long long)o * (R * 3), jl);
+  contribution<R, KEYFRAMES>(p, jc, jl, o, key, c);
+}
+
+__device__ __forceinline__ bool in_range(const CgParams& p, int key) { return key >= 0 && key < p.n_keys; }
+
+// the sorted key at `pos`, -1 past the end (no sum is written for it)
+__device__ __forceinline__ int key_at(const CgParams& p, int pos) { return pos < p.n ? p.keys[pos] : -1; }
+
+// keys with no observation: zero sums (a grid-stride loop over the keys)
+template <int D>
+__device__ __forceinline__ void zero_empty_keys(const CgParams& p) {
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < p.n_keys; k += gridDim.x * blockDim.x)
+    if (p.start[k] == p.end[k])
+      for (int j = 0; j < D; ++j) p.out[k * D + j] = 0.0f;
+}
+
+// the sum `s` of a run of `key` that ends at `pos` in chunk `chunk` (first position c0): to the output where the
+// key's whole segment lies in the chunk, else to the chunk's first partial (the key began in an earlier chunk) or
+// last partial (it goes on in a later one)
+template <int D>
+__device__ __forceinline__ void put_run(const CgParams& p, int chunk, int c0, int key, int pos, const double* s) {
+  if (!in_range(p, key)) return;
+  if (p.start[key] < c0) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) p.first[chunk * D + j] = s[j];
+  } else if (p.end[key] > pos + 1) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) p.last[chunk * D + j] = s[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < D; ++j) p.out[key * D + j] = (float)s[j];
+  }
+}
+
+// the last block to finish sums the keys that cross a boundary of chunks of CHUNK positions, in chunk order, and
+// resets the ticket
+template <int D, int CHUNK>
+__device__ __forceinline__ void cross_chunk_sums(const CgParams& p) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int c = threadIdx.x + 1; c < p.n_chunks; c += blockDim.x) {
+    const int k = p.keys[c * CHUNK];
+    if (!in_range(p, k)) continue;
+    const int first_chunk = p.start[k] / CHUNK;
+    if (first_chunk + 1 != c) continue;  // not the key's first boundary, or the key begins here
+    const int last_chunk = (p.end[k] - 1) / CHUNK;
+    double acc[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) acc[j] = __ldcg(p.last + first_chunk * D + j);
+    for (int cc = c; cc <= last_chunk; ++cc)
+#pragma unroll
+      for (int j = 0; j < D; ++j) acc[j] = acc[j] + __ldcg(p.first + cc * D + j);
+#pragma unroll
+    for (int j = 0; j < D; ++j) p.out[k * D + j] = (float)acc[j];
+  }
+  if (threadIdx.x == 0) *p.ticket = 0u;
+}
+
 template <int R, bool KEYFRAMES>
 __global__ void __launch_bounds__(CG_THREADS) schur_cg_kernel(CgParams p) {
   constexpr int D = KEYFRAMES ? 12 : 3;
-  __shared__ double s_val[CG_THREADS * D];
-  __shared__ int s_flag[CG_THREADS];
-  __shared__ int s_key[CG_THREADS];
-  __shared__ bool s_last;
+  constexpr int P = CG_PER_THREAD, WARPS = CG_THREADS / 32;
+  __shared__ double s_total[D * WARPS];  // each warp's inclusive scan at its last lane, plane-major
+  __shared__ int s_starts[WARPS];        // whether a run starts in the warp
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int chunk = blockIdx.x, c0 = chunk * CG_CHUNK, p0 = c0 + t * P;
+  zero_empty_keys<D>(p);
+
+  // the thread's positions in order, each run's sum in float64; a run between two key changes is written at once
+  const int head_key = key_at(p, p0);
+  int run_key = head_key, head_end = p0 + P - 1;
+  bool broken = false;  // a key change inside the thread
+  double acc[D], head[D];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int pos = p0 + i, key = i == 0 ? head_key : key_at(p, pos);
+    float c[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) c[j] = 0.0f;
+    if (pos < p.n && in_range(p, key)) loaded_contribution<R, KEYFRAMES>(p, p.order[pos], key, c);
+    const bool change = i > 0 && key != run_key;
+    if (change) {
+      if (broken) {
+        put_run<D>(p, chunk, c0, run_key, pos - 1, acc);  // the key's whole segment
+      } else {
+        head_end = pos - 1;
+#pragma unroll
+        for (int j = 0; j < D; ++j) head[j] = acc[j];
+      }
+      broken = true;
+      run_key = key;
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) acc[j] = i == 0 || change ? (double)c[j] : acc[j] + (double)c[j];
+  }
+
+  // segmented inclusive scan of (a run starts in the thread, the last run's sum) over the warp
+  const bool head_starts = t == 0 || key_at(p, p0 - 1) != head_key;
+  int f = head_starts || broken;
+  double v[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) v[j] = acc[j];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int fu = __shfl_up_sync(FULL, f, off);
+    double u[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) u[j] = __shfl_up_sync(FULL, v[j], off);
+    if (lane >= off && !f) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) v[j] = u[j] + v[j];
+      f = fu;
+    }
+  }
+  const int fe = __shfl_up_sync(FULL, f, 1);  // the lanes before this one
+  double ve[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) ve[j] = __shfl_up_sync(FULL, v[j], 1);
+  if (lane == 31) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) s_total[j * WARPS + w] = v[j];
+    s_starts[w] = f;
+  }
+  __syncthreads();
+  // the sum the thread's first run carries in: the warps before this one in order, then the lanes before it
+  double carry[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) carry[j] = 0.0;
+  for (int ww = 0; ww < w; ++ww) {
+    const bool starts = s_starts[ww];
+#pragma unroll
+    for (int j = 0; j < D; ++j) carry[j] = starts ? s_total[j * WARPS + ww] : carry[j] + s_total[j * WARPS + ww];
+  }
+  if (lane > 0) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) carry[j] = fe ? ve[j] : carry[j] + ve[j];
+  }
+
+  // the first run's sum (where it ends inside the thread) and the last run's (where it ends at the last position)
+  double total[D], tail[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const double own = broken ? head[j] : acc[j];
+    total[j] = head_starts ? own : carry[j] + own;
+    tail[j] = broken ? acc[j] : total[j];
+  }
+  if (broken) put_run<D>(p, chunk, c0, head_key, head_end, total);
+  const int p_last = p0 + P - 1;
+  if (t == CG_THREADS - 1 || key_at(p, p_last + 1) != run_key) put_run<D>(p, chunk, c0, run_key, p_last, tail);
+
+  cross_chunk_sums<D, CG_CHUNK>(p);
+}
+
+// the earlier design (see the header), a test-only entry
+template <int R, bool KEYFRAMES>
+__global__ void __launch_bounds__(SCAN_CHUNK) schur_cg_scan_kernel(CgParams p) {
+  constexpr int D = KEYFRAMES ? 12 : 3;
+  __shared__ double s_val[SCAN_CHUNK * D];
+  __shared__ int s_flag[SCAN_CHUNK];
+  __shared__ int s_key[SCAN_CHUNK];
   const int t = threadIdx.x;
   const int chunk = blockIdx.x;
-  const int c0 = chunk * CG_THREADS;
+  const int c0 = chunk * SCAN_CHUNK;
   const int pos = c0 + t;
-
-  // keys with no observation: zero sums
-  for (int k = blockIdx.x * CG_THREADS + t; k < p.n_keys; k += gridDim.x * CG_THREADS)
-    if (p.start[k] == p.end[k])
-      for (int j = 0; j < D; ++j) p.out[k * D + j] = 0.0f;
+  zero_empty_keys<D>(p);
 
   int key = -1;
   double val[D];
@@ -150,9 +355,10 @@ __global__ void __launch_bounds__(CG_THREADS) schur_cg_kernel(CgParams p) {
   for (int j = 0; j < D; ++j) val[j] = 0.0;
   if (pos < p.n) {
     key = p.keys[pos];
-    if (key >= 0 && key < p.n_keys) {
+    if (in_range(p, key)) {
       float c[D];
-      contribution<R, KEYFRAMES>(p, p.order[pos], key, c);
+      const int o = p.order[pos];
+      contribution<R, KEYFRAMES>(p, p.jc + (long long)o * (R * 6), p.jl + (long long)o * (R * 3), o, key, c);
 #pragma unroll
       for (int j = 0; j < D; ++j) val[j] = (double)c[j];
     }
@@ -163,7 +369,7 @@ __global__ void __launch_bounds__(CG_THREADS) schur_cg_kernel(CgParams p) {
   __syncthreads();
   s_flag[t] = t == 0 || s_key[t - 1] != key;
   // segmented inclusive scan: s_val[t] becomes the sum of its run from the run's first position in the chunk
-  for (int off = 1; off < CG_THREADS; off <<= 1) {
+  for (int off = 1; off < SCAN_CHUNK; off <<= 1) {
     __syncthreads();
     const bool take = t >= off && !s_flag[t];
     int flag = s_flag[t];
@@ -179,80 +385,55 @@ __global__ void __launch_bounds__(CG_THREADS) schur_cg_kernel(CgParams p) {
       s_flag[t] = flag;
     }
   }
-  const bool run_end = t == CG_THREADS - 1 || pos == p.n - 1 || s_key[t + 1] != key;
-  if (pos < p.n && run_end && key >= 0 && key < p.n_keys) {
-    const int s = p.start[key], e = p.end[key];
-    if (s < c0) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) p.first[chunk * D + j] = val[j];
-    } else if (e > pos + 1) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) p.last[chunk * D + j] = val[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < D; ++j) p.out[key * D + j] = (float)val[j];
-    }
-  }
+  const bool run_end = t == SCAN_CHUNK - 1 || pos == p.n - 1 || s_key[t + 1] != key;
+  if (pos < p.n && run_end) put_run<D>(p, chunk, c0, key, pos, val);
 
-  // the last block to finish sums the keys that cross a chunk boundary
-  __threadfence();
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int c = t + 1; c < p.n_chunks; c += CG_THREADS) {
-    const int k = p.keys[c * CG_THREADS];
-    if (k < 0 || k >= p.n_keys) continue;
-    const int s = p.start[k];
-    const int first_chunk = s / CG_THREADS;
-    if (first_chunk + 1 != c) continue;  // not the key's first boundary, or the key begins here
-    const int last_chunk = (p.end[k] - 1) / CG_THREADS;
-    double acc[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) acc[j] = __ldcg(p.last + first_chunk * D + j);
-    for (int cc = c; cc <= last_chunk; ++cc)
-#pragma unroll
-      for (int j = 0; j < D; ++j) acc[j] = acc[j] + __ldcg(p.first + cc * D + j);
-#pragma unroll
-    for (int j = 0; j < D; ++j) p.out[k * D + j] = (float)acc[j];
-  }
-  if (t == 0) *p.ticket = 0u;
+  cross_chunk_sums<D, SCAN_CHUNK>(p);
 }
 
 template <bool KEYFRAMES>
-int launch(const CgParams& p, int R, cudaStream_t s) {
-  if (p.n < 1 || p.n_keys < 1 || p.n_chunks != (p.n + CG_THREADS - 1) / CG_THREADS) return (int)cudaErrorInvalidValue;
-  if (R == 4)
-    schur_cg_kernel<4, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
-  else if (R == 3)
-    schur_cg_kernel<3, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
-  else
+int launch(const CgParams& p, int R, int design, cudaStream_t s) {
+  const int chunk = design == 0 ? CG_CHUNK : SCAN_CHUNK;
+  if (design < 0 || design > 1 || p.n < 1 || p.n_keys < 1 || p.n_chunks != (p.n + chunk - 1) / chunk)
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)p.jc | (uintptr_t)p.jl) & 15) return (int)cudaErrorMisalignedAddress;
+  if (R != 3 && R != 4) return (int)cudaErrorInvalidValue;
+  if (design == 0) {
+    if (R == 4)
+      schur_cg_kernel<4, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
+    else
+      schur_cg_kernel<3, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
+  } else {
+    if (R == 4)
+      schur_cg_scan_kernel<4, KEYFRAMES><<<p.n_chunks, SCAN_CHUNK, 0, s>>>(p);
+    else
+      schur_cg_scan_kernel<3, KEYFRAMES><<<p.n_chunks, SCAN_CHUNK, 0, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// pass L: v (n_keys = L, 3) from x
+// pass L: v (n_keys = L, 3) from x; design 0 the kernel above, 1 the earlier design (a test-only entry), whose
+// scratch has a row a chunk of SCAN_CHUNK positions
 extern "C" int xs_schur_cg_anchors(const void* jc, const void* jl, const void* order, const void* keys,
                                    const void* start, const void* end, const void* frame_idx, const void* x,
                                    void* first, void* last, void* ticket, void* v, int n, int R, int n_keys,
-                                   int n_chunks, void* stream) {
+                                   int n_chunks, int design, void* stream) {
   const CgParams p{(const float*)jc, (const float*)jl, (const int*)order, (const int*)keys, (const int*)start,
                    (const int*)end, (const int*)frame_idx, (const float*)x, nullptr, nullptr, (double*)first,
                    (double*)last, (unsigned*)ticket, (float*)v, n, n_keys, n_chunks};
-  return launch<false>(p, R, (cudaStream_t)stream);
+  return launch<false>(p, R, design, (cudaStream_t)stream);
 }
 
-// pass K: hz (n_keys = K, 12) from x, Hll_inv and the summed v
+// pass K: hz (n_keys = K, 12) from x, Hll_inv and the summed v; design as pass L's
 extern "C" int xs_schur_cg_keyframes(const void* jc, const void* jl, const void* order, const void* keys,
                                      const void* start, const void* end, const void* anchor_idx, const void* x,
                                      const void* hll_inv, const void* v, void* first, void* last, void* ticket,
-                                     void* hz, int n, int R, int n_keys, int n_chunks, void* stream) {
+                                     void* hz, int n, int R, int n_keys, int n_chunks, int design, void* stream) {
   const CgParams p{(const float*)jc, (const float*)jl, (const int*)order, (const int*)keys, (const int*)start,
                    (const int*)end, (const int*)anchor_idx, (const float*)x, (const float*)hll_inv,
                    (const float*)v, (double*)first, (double*)last, (unsigned*)ticket, (float*)hz, n, n_keys,
                    n_chunks};
-  return launch<true>(p, R, (cudaStream_t)stream);
+  return launch<true>(p, R, design, (cudaStream_t)stream);
 }

@@ -61,7 +61,8 @@ from ..parallel.mesh import SpaceGroup
 
 # rows of a block of the prefix sums (_prefix): the scan's rows are short and many
 _BLOCK = 256
-CG_CHUNK = 256  # B18's sorted positions a block (csrc/schur_cg.cu CG_THREADS)
+CG_PER_THREAD = 4  # B18's sorted positions a thread (csrc/schur_cg.cu CG_PER_THREAD)
+CG_CHUNK = 256 * CG_PER_THREAD  # its sorted positions a block of 256 threads (CG_CHUNK)
 
 
 def _exp(xi) -> torch.Tensor:
@@ -686,6 +687,8 @@ def _check_rows(Jc: torch.Tensor, Jl: torch.Tensor, x: torch.Tensor, plan: Schur
     kernels.check_tensor(Jc, "Jc", torch.float32, (N, R, 6))
     kernels.check_tensor(Jl, "Jl", torch.float32, (N, R, 3))
     kernels.check_tensor(x, "x", torch.float32, (plan.seg_k.n, 6))
+    if Jc.data_ptr() % 16 or Jl.data_ptr() % 16:
+        raise ValueError("Jc, Jl: B18 reads their rows as float4, the tensors must be 16-byte aligned")
     if plan.anchors is None or plan.ks.device != Jc.device:
         raise ValueError(f"the plan was made on {plan.ks.device}, the rows lie on {Jc.device}")
 
@@ -702,7 +705,7 @@ def schur_cg_anchors(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, x: t
     p, s = plan.anchors, plan.seg_l
     v = torch.empty((s.n, 3), dtype=torch.float32, device=Jc.device)
     kernels.launch("schur_cg_anchors", Jc.device, Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x,
-                   p.first, p.last, p.ticket, v)
+                   p.first, p.last, p.ticket, v, 0)
     kernels.launch_counts["schur_cg_anchors"] += 1
     return v
 
@@ -723,7 +726,7 @@ def schur_cg_keyframes(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, Hl
     p, s = plan.keyframes, plan.seg_k
     hz = torch.empty((s.n, 12), dtype=torch.float32, device=Jc.device)
     kernels.launch("schur_cg_keyframes", Jc.device, Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x,
-                   Hll_inv, v, p.first, p.last, p.ticket, hz)
+                   Hll_inv, v, p.first, p.last, p.ticket, hz, 0)
     kernels.launch_counts["schur_cg_keyframes"] += 1
     return hz
 

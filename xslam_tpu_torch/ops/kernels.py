@@ -534,6 +534,24 @@ def resolve_spec(spec, local_x: int) -> Tuple[int, int, int, int]:
     return int(spec.x_base), int(x_total), int(spec.core_start), int(core_end)
 
 
+# the threads K3 at a stride should run (rays x lanes a ray) to fill the card: 132 SMs of 2,048 threads on an H100
+MARCH_FILL_THREADS = 132 * 2048
+MARCH_MAX_LANES = 32
+
+
+def march_lanes(H: int, W: int, stride: int) -> int:
+    """The lanes a ray of K3's march over ``H x W`` rays at ``stride``: 1
+    at stride 1 (K3's body, a thread a ray), else the least power of two up to
+    :data:`MARCH_MAX_LANES` whose lanes over all rays reach
+    :data:`MARCH_FILL_THREADS` (``csrc/march.cu``, ``march_group_kernel``)."""
+    if stride == 1:
+        return 1
+    lanes = 1
+    while lanes < MARCH_MAX_LANES and H * W * lanes < MARCH_FILL_THREADS:
+        lanes *= 2
+    return lanes
+
+
 def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel_size: float, trunc_dist: float,
                 stride: int = 1, spec=None):
     """Lockstep fixed-trip ray march over the value plane (RayCaster.cu:226-247)
@@ -549,7 +567,10 @@ def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel
     ``spec`` (B19b; a :class:`xslam_tpu_torch.ops.raycast.ShardSpec`, at
     stride 1): ``value`` is a slab of the volume with its halo, placed as the
     spec says; the events are ``xslam_tpu/ops/raycast.py::march(spec=)``'s
-    (:func:`march_fixed_plain`). Counted as ``march_fixed_shard``."""
+    (:func:`march_fixed_plain`). Counted as ``march_fixed_shard``.
+
+    On the card a ray takes :func:`march_lanes` lanes: at a stride a group
+    of them steps it (``march_group_kernel``, the same bits)."""
     if stride < 1:
         raise ValueError(f"stride: expected at least 1, got {stride}")
     if spec is not None and stride != 1:
@@ -565,15 +586,15 @@ def march_fixed(value: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, voxel
     if value.numel() >= 1 << 31:
         raise ValueError(f"value: K3 indexes the volume with 32 bits, got {value.numel()} voxels")
     check_tensor(pose, "pose", torch.float32, (RAY_POSE_FLOATS,))
-    t_found = torch.empty((strided(intr.height, stride), strided(intr.width, stride)), dtype=torch.float32,
-                          device=value.device)
+    H, W = strided(intr.height, stride), strided(intr.width, stride)
+    t_found = torch.empty((H, W), dtype=torch.float32, device=value.device)
     t_dead = torch.empty_like(t_found)
     slab = [] if spec is None else list(resolve_spec(spec, value.shape[0]))
     if spec is not None and slab[1] * value.shape[1] * value.shape[2] >= 1 << 31:
         raise ValueError("value: K3 indexes the whole volume with 32 bits")
     launch(
         "march_fixed", value.device, value, pose, t_found, t_dead, stride, march_steps(trunc_dist), f32(voxel_size),
-        f32(trunc_dist * 0.8), *camera_args(intr), slab,
+        f32(trunc_dist * 0.8), *camera_args(intr), slab, march_lanes(H, W, stride),
     )
     launch_counts["march_fixed_shard" if spec is not None else
                   "march_fixed" if stride == 1 else "march_fixed_strided"] += 1

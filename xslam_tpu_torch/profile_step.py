@@ -56,10 +56,12 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 # window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation, the
 # bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14 the brick layout's kernels' <true>
 # (B14c: <true, false>), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's <false, true>; the
-# skip march's ray form (march_skip_ray_kernel) is B14b's launch on the dense layout and march_skip_rays on the rows
+# skip march's ray form (march_skip_ray_kernel) is B14b's launch on the dense layout and march_skip_rays on the rows;
+# K3 at a stride launches march_group_kernel<G> (G lanes a ray; march_kernel where the wrapper picks one lane)
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel<false>",
     "fuse_volume_bilinear": "fuse_kernel<true>", "march_fixed": "march_kernel",
+    "march_fixed_strided": r"march_group_kernel<\d+>",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
     "raycast_refine": "refine_kernel<false>", "raycast_refine_bricks": "refine_kernel<true>",
     "resize_model_maps": r"model_map_pyramid_kernel<\w+, false>",
