@@ -5417,7 +5417,7 @@ def phase_schur_cg(ctx):
                                     lambda: ba._keyframes_plain(plan, Jc, Jl, Hll_inv, v_plain, x))}
     rows = {"schur_cg_anchors": (plan.seg_l, torch.randn((N, 3), generator=gen, device=dev)),
             "schur_cg_keyframes": (plan.seg_k, torch.randn((N, 12), generator=gen, device=dev))}
-    # the earlier design (PR 23: a thread a position, a shared-memory scan; a test-only entry, its own scratch of
+    # the earlier design (a thread a position, a shared-memory scan; a test-only entry, its own scratch of
     # a row a chunk of SCAN_CHUNK positions) on the same inputs
     ext = kernels.build_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -13,9 +13,9 @@ versions and to their earlier designs on the card).
   of the chunk, at each thread count and P that the kernel was swept at; and
   the Python chunk is the source's.
 - K3 at a stride (``csrc/march.cu``, ``march_group_kernel<G>``): a torch twin
-  of its group schedule (lane j reads step k0 + u G + j, the serial rule
-  replayed sub-round by sub-round with lane j - 1's sample as prev and lane 0's
-  carried from the last lane, the first crossing and death the lowest lanes
+  of its group schedule (lane j reads step k0 + j of a round of G, the serial
+  rule replayed with lane j - 1's sample as prev and lane 0's carried from the
+  last lane of the round before, the first crossing and death the lowest lanes
   whose tests fire, a stop once both are known) equal to
   ``kernels.march_fixed_plain`` bit for bit on ``ray_dir[:, ::s, ::s]`` at s =
   2 and 4 for every G from 1 to 32: a sphere's volume seen from inside it
@@ -75,21 +75,22 @@ def test_b18_schedule_sums_each_key_once_within_an_ulp(threads, per_thread):
     assert not out[np.nonzero(seg.start.numpy() == seg.end.numpy())[0]].any()  # empty keys: zero sums
 
 
+def _source_constant(source: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", (kernels.CSRC_DIR / source).read_text()).group(1))
+
+
 def test_b18_chunk_is_the_sources():
     """``models/ba.py``'s chunk and P are ``csrc/schur_cg.cu``'s (the scratch's rows and the twin's schedule)."""
-    text = (kernels.CSRC_DIR / "schur_cg.cu").read_text()
-    threads = int(re.search(r"constexpr int CG_THREADS = (\d+);", text).group(1))
-    per_thread = int(re.search(r"constexpr int CG_PER_THREAD = (\d+);", text).group(1))
+    threads, per_thread = _source_constant("schur_cg.cu", "CG_THREADS"), _source_constant("schur_cg.cu", "CG_PER_THREAD")
     assert (per_thread, threads * per_thread) == (tba.CG_PER_THREAD, tba.CG_CHUNK)
 
 
 # ------------------------------------------------------------------ K3 at a stride
-GROUP_U = 4  # csrc/march.cu GROUP_U: the steps a lane reads together in a round
 N_VOX, VOXEL, TRUNC, RADIUS = 64, 0.04, 0.06, 0.7  # 101 steps of 0.048 m
 INTR = Intrinsics(30.0, 30.0, 19.5, 14.5, 40, 30)
 
 
-def group_march_twin(value, ray_start: CSFD, dirs_v, voxel, trunc_dist, lanes, per_lane=GROUP_U):
+def group_march_twin(value, ray_start: CSFD, dirs_v, voxel, trunc_dist, lanes):
     """A torch twin of ``march_group_kernel<lanes>``'s schedule, the events
     as (H, W) planes like :func:`kernels.march_fixed_plain`'s."""
     X, Y, Z = value.shape
@@ -111,24 +112,23 @@ def group_march_twin(value, ray_start: CSFD, dirs_v, voxel, trunc_dist, lanes, p
     t_found = torch.full(finite.shape, INF_T, dtype=torch.float32)
     t_dead = torch.where(finite, t_found, torch.tensor(np.float32(RAY_MIN_M) + np.float32(0) * step))
     marching = finite.clone()
-    for k0 in range(0, n, lanes * per_lane):
-        ks = k0 + np.arange(per_lane)[:, None] * lanes + np.arange(lanes)[None]  # (U, G): lane j's steps
+    for k0 in range(0, n, lanes):
+        ks = k0 + np.arange(lanes)  # lane j's step
         t_next = torch.from_numpy(np.float32(RAY_MIN_M) + (ks + 1).astype(np.float32) * step)
         t_curr = torch.from_numpy(np.float32(RAY_MIN_M) + ks.astype(np.float32) * step)
-        g = voxel_of(s[:, None, None] + d[:, None, None, :] * t_next[None, :, :, None])  # (3, U, G, R)
+        g = voxel_of(s[:, None] + d[:, None, :] * t_next[None, :, None])  # (3, G, R)
         ins = inside(g)
-        tsdf = gather3d(value, g[0], g[1], g[2]) + 1e-5  # (U, G, R): every load before any test
-        for u in range(per_lane):
-            pv = torch.cat([prev[None], tsdf[u, :-1]], 0)  # lane j's prev: lane j - 1's sample; lane 0 the carry
-            live = torch.from_numpy(ks[u] < n)[:, None]
-            death = live & (~ins[u] | ((pv < 0.0) & (tsdf[u] > 0.0)))
-            crossing = live & ins[u] & (pv > 0.0) & (tsdf[u] < 0.0)
-            for events, times in ((crossing, t_found), (death, t_dead)):
-                lowest = torch.argmax(events.to(torch.int32), 0)  # the lowest lane that fires (a ballot's ffs)
-                hit = marching & events.any(0) & (times >= INF_T)
-                times.copy_(torch.where(hit, t_curr[u][lowest], times))
-            prev = torch.where(marching, tsdf[u, -1], prev)  # the last lane's sample
-            marching = marching & ~((t_found < INF_T) & (t_dead < INF_T))
+        tsdf = gather3d(value, g[0], g[1], g[2]) + 1e-5
+        pv = torch.cat([prev[None], tsdf[:-1]], 0)  # lane j's prev: lane j - 1's sample; lane 0 the carry
+        live = torch.from_numpy(ks < n)[:, None]
+        death = live & (~ins | ((pv < 0.0) & (tsdf > 0.0)))
+        crossing = live & ins & (pv > 0.0) & (tsdf < 0.0)
+        for events, times in ((crossing, t_found), (death, t_dead)):
+            lowest = torch.argmax(events.to(torch.int32), 0)  # the lowest lane that fires (a ballot's ffs)
+            hit = marching & events.any(0) & (times >= INF_T)
+            times.copy_(torch.where(hit, t_curr[lowest], times))
+        prev = torch.where(marching, tsdf[-1], prev)  # the last lane's sample
+        marching = marching & ~((t_found < INF_T) & (t_dead < INF_T))
         if not bool(marching.any()):
             break
     return t_found.reshape(H, W), t_dead.reshape(H, W)
@@ -195,14 +195,14 @@ def test_group_schedule_equals_the_plain_march(sphere, lanes):
 
 def test_group_cases_cover_the_events(sphere):
     """The cases hold what the schedule must replay: crossings past a round
-    of 4 lanes and deaths past a round of 8, rays with no crossing, a camera
+    of 16 lanes and deaths past a round of 32, rays with no crossing, a camera
     outside (a death at step 0, then a crossing), NaN and infinite rays."""
     _, runs = sphere
     t0, step = np.float32(RAY_MIN_M), np.float32(TRUNC * 0.8)
     _, _, (f_in, d_in) = runs["inside", 2]
     assert bool((f_in < INF_T).any()) and bool((f_in == INF_T).any()) and bool((d_in < INF_T).all())
-    assert float(f_in[f_in < INF_T].max()) > t0 + 4 * GROUP_U * step
-    assert float(d_in.max()) > t0 + 8 * GROUP_U * step
+    assert float(f_in[f_in < INF_T].max()) > t0 + 16 * step
+    assert float(d_in.max()) > t0 + 32 * step
     _, _, (f_away, _) = runs["away", 4]
     assert bool((f_away == INF_T).all())
     _, _, (f_out, d_out) = runs["outside", 2]

@@ -80,16 +80,17 @@
 // K3 at a stride (the hierarchical marches' coarse pass: 76,800 rays at stride 2, 19,200 at stride 4 of a
 // 480x640 camera) marches too few rays for a thread a ray to fill the card: 300 / 75 blocks of 256 on 132 SMs,
 // each block waiting for its slowest ray. There march_group_kernel<G> gives a ray a group of G lanes (G a power of
-// two up to 32, chosen by the wrapper from the number of rays: ops/kernels.py::march_lanes). A round takes G x
-// GROUP_U steps: lane j reads steps k0 + u G + j for u < GROUP_U, all loads before any test (GROUP_U steps in
-// flight a lane, as K3's U), then the serial rule is replayed sub-round by sub-round in step order: step k's prev
-// is lane j - 1's sample (__shfl_up_sync), lane 0's the last lane's of the sub-round before (the first sample, for
-// step 0); the first crossing and the first death are the lowest lanes whose exact tests fire (ballots), and the
-// group's tests stop after the sub-round in which both are known. Each step's test reads the numbers K3's loop reads at
-// that step, and the march times are the same expressions of k, so the events are K3's bits. Rays lie in image
-// order, GROUP_THREADS / G a block; a warp's groups step together until its slowest ray is done (shuffles and
-// ballots over the whole warp: with a group's own mask the groups drifted apart and ran one after another, 2 lanes
-// a ray 4x slower than one). At G = 1 (stride 1 always) the launch is march_kernel, K3's body.
+// two up to 32, chosen by the wrapper from the number of rays: ops/kernels.py::march_lanes). A round takes G steps,
+// lane j step k0 + j, and the serial rule is replayed over them: step k's prev is lane j - 1's sample
+// (__shfl_up_sync), lane 0's the last lane's of the round before (the first sample, for step 0); the first
+// crossing and the first death are the lowest lanes whose exact tests fire (ballots), and the group's tests stop
+// after the round in which both are known. Each step's test reads the numbers K3's loop reads at that step, and
+// the march times are the same expressions of k, so the events are K3's bits. Rays lie in image order,
+// GROUP_THREADS / G a block; a warp's groups step together until its slowest ray is done (shuffles and ballots
+// over the whole warp: with a group's own mask the groups drifted apart and ran one after another, 2 lanes a ray
+// 4x slower than one). Blocks of 128 and a step a lane a round were the fastest of 128, 256 threads and 1, 2, 4
+// steps a lane read before the tests (the sweep in PERF.md): the G lanes already hold G steps in flight. At G =
+// 1 (stride 1 always) the launch is march_kernel, K3's body.
 //
 // xs_march_fixed_chain is the earlier design (one thread a ray over a flat
 // pixel index, direction planes read from memory, three divisions and
@@ -106,8 +107,7 @@ namespace {
 constexpr float RAY_MIN = 0.2f;
 constexpr float INF_T = 1e9f;
 constexpr int U = 4;  // march steps taken together
-constexpr int GROUP_THREADS = 256;  // threads a block of march_group_kernel
-constexpr int GROUP_U = 4;          // its steps a lane reads together in a round
+constexpr int GROUP_THREADS = 128;  // threads a block of march_group_kernel
 
 struct Volume {
   const float* value;
@@ -382,9 +382,8 @@ __global__ void __launch_bounds__(GROUP_THREADS)
   const int tid = threadIdx.x, j = tid & (G - 1);
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
   __syncthreads();
-  // a warp's groups step together until its slowest ray is done: the shuffles and ballots take the whole warp, which
-  // keeps its groups converged (a group's own mask let them drift apart and run one after another); a lane past the
-  // last ray or of a finished ray takes part without effect
+  // the shuffles and ballots take the whole warp (see the header): a lane past the last ray or of a finished ray
+  // takes part without effect
   const int ray = blockIdx.x * (GROUP_THREADS / G) + tid / G;
   const bool real = ray < H * W;
   const unsigned shift = (tid & 31) & ~(G - 1);  // the ray's lanes in the warp's ballots
@@ -402,33 +401,24 @@ __global__ void __launch_bounds__(GROUP_THREADS)
   bool done = !real || !finite;  // the same in every lane of the group
   if (__all_sync(FULL, done)) return;
   const float inv_vs = 1.0f / vol.vs;
-  float prev = done ? 0.0f : first_sample<false>(vol, Slab{}, s, d);  // lane 0's prev at the next sub-round
+  float prev = done ? 0.0f : first_sample<false>(vol, Slab{}, s, d);  // lane 0's prev at the next round
   float t_found = INF_T, t_dead = INF_T;
-  for (int k0 = 0; k0 < n_steps && __any_sync(FULL, !done); k0 += G * GROUP_U) {
-    float tsdf[GROUP_U];
-    bool inside[GROUP_U];
-#pragma unroll
-    for (int u = 0; u < GROUP_U; ++u) {
-      unsigned offset;
-      inside[u] = !done && sample_voxel_fast(vol, inv_vs, s, d, RAY_MIN + (float)(k0 + u * G + j + 1) * step, offset);
-      tsdf[u] = (inside[u] ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
-    }
-#pragma unroll
-    for (int u = 0; u < GROUP_U; ++u) {
-      const int k = k0 + u * G + j;
-      const float left = __shfl_up_sync(FULL, tsdf[u], 1, G);  // lane j - 1's sample: step k - 1's
-      const float pv = j == 0 ? prev : left;
-      const bool live = !done && k < n_steps;
-      const bool death = live && (!inside[u] || (pv < 0.0f && tsdf[u] > 0.0f));
-      const bool crossing = live && inside[u] && pv > 0.0f && tsdf[u] < 0.0f;
-      const unsigned deaths = (__ballot_sync(FULL, death) >> shift) & LANE_BITS;
-      const unsigned crossings = (__ballot_sync(FULL, crossing) >> shift) & LANE_BITS;
-      const int k_lane0 = k0 + u * G;
-      if (crossings && t_found >= INF_T) t_found = RAY_MIN + (float)(k_lane0 + __ffs(crossings) - 1) * step;
-      if (deaths && t_dead >= INF_T) t_dead = RAY_MIN + (float)(k_lane0 + __ffs(deaths) - 1) * step;
-      prev = __shfl_sync(FULL, tsdf[u], G - 1, G);
-      done = done || (t_found < INF_T && t_dead < INF_T);
-    }
+  for (int k0 = 0; k0 < n_steps && __any_sync(FULL, !done); k0 += G) {
+    const int k = k0 + j;
+    unsigned offset;
+    const bool inside = !done && sample_voxel_fast(vol, inv_vs, s, d, RAY_MIN + (float)(k + 1) * step, offset);
+    const float tsdf = (inside ? __ldg(vol.value + offset) : 0.0f) + 1e-5f;
+    const float left = __shfl_up_sync(FULL, tsdf, 1, G);  // lane j - 1's sample: step k - 1's
+    const float pv = j == 0 ? prev : left;
+    const bool live = !done && k < n_steps;
+    const bool death = live && (!inside || (pv < 0.0f && tsdf > 0.0f));
+    const bool crossing = live && inside && pv > 0.0f && tsdf < 0.0f;
+    const unsigned deaths = (__ballot_sync(FULL, death) >> shift) & LANE_BITS;
+    const unsigned crossings = (__ballot_sync(FULL, crossing) >> shift) & LANE_BITS;
+    if (crossings && t_found >= INF_T) t_found = RAY_MIN + (float)(k0 + __ffs(crossings) - 1) * step;
+    if (deaths && t_dead >= INF_T) t_dead = RAY_MIN + (float)(k0 + __ffs(deaths) - 1) * step;
+    prev = __shfl_sync(FULL, tsdf, G - 1, G);
+    done = done || (t_found < INF_T && t_dead < INF_T);
   }
   if (real && finite && j == 0) {
     t_found_out[ray] = t_found;

@@ -46,11 +46,16 @@
 // last[c0] + first[c0 + 1] + ... + first[c1], going over the chunk boundaries
 // (n_chunks of them, not the keys), and resets the ticket. Keys with no
 // observation are zeroed by a grid-stride loop. One launch a pass: two a CG
-// step. The Jacobian rows are read as float4 (float2 or floats where a row's
-// bytes are not a multiple of 16: R = 3) into registers before the
-// arithmetic; the launch refuses tensors that are not 16-byte aligned.
+// step. 128 threads of 4 positions read fastest of 128 and 256 threads of 1,
+// 2, 4 and 8 positions for the keyframe pass (its 151 registers a thread
+// leave 3 blocks of 128 an SM) and within 6% of the best for the anchor pass
+// in the sweep in PERF.md, whose keyframe reading later runs did not
+// reproduce (PERF.md, open questions). The Jacobian rows are read as float4
+// (float2 or floats where a row's bytes are not a multiple of 16: R = 3) into
+// registers before the arithmetic; the launch refuses tensors that are not
+// 16-byte aligned.
 //
-// The earlier design (PR 23) is kept as a test-only entry (design 1 of the C
+// The earlier design is kept as a test-only entry (design 1 of the C
 // entry points; the smoke run holds the two to each other and times both in
 // one call): schur_cg_scan_kernel, a thread a position in chunks of
 // SCAN_CHUNK, an 8-step Hillis-Steele segmented scan of D doubles a thread in
@@ -70,7 +75,7 @@
 
 namespace {
 
-constexpr int CG_THREADS = 256;                       // threads a block
+constexpr int CG_THREADS = 128;                       // threads a block
 constexpr int CG_PER_THREAD = 4;                      // sorted positions a thread
 constexpr int CG_CHUNK = CG_THREADS * CG_PER_THREAD;  // sorted positions a block: models/ba.py::CG_CHUNK
 constexpr int SCAN_CHUNK = 256;                       // the earlier design's: a thread a position

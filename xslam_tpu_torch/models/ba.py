@@ -62,7 +62,7 @@ from ..parallel.mesh import SpaceGroup
 # rows of a block of the prefix sums (_prefix): the scan's rows are short and many
 _BLOCK = 256
 CG_PER_THREAD = 4  # B18's sorted positions a thread (csrc/schur_cg.cu CG_PER_THREAD)
-CG_CHUNK = 256 * CG_PER_THREAD  # its sorted positions a block of 256 threads (CG_CHUNK)
+CG_CHUNK = 128 * CG_PER_THREAD  # its sorted positions a block of 128 threads (CG_CHUNK)
 
 
 def _exp(xi) -> torch.Tensor:
