@@ -4,7 +4,7 @@ versions and to their earlier designs on the card).
 
 - B18, the two passes of ``S x`` in bundle adjustment's Schur-complement CG
   (``csrc/schur_cg.cu``, ``schur_cg_kernel``): a numpy twin of its sums
-  (``tests/torch_port_helpers.py::b18_sums``: P sorted positions a thread
+  (:func:`b18_sums`: P sorted positions a thread
   added serially in float64, a segmented warp scan, the warps' carries in
   order, the keys that cross a chunk summed in chunk order) writes every key
   once and lies within 1 float32 ulp of ``models/ba.py::_Segments`` (both sum
@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_helpers import b18_sums
 from xslam_tpu_torch.csfd.single import CSFD
 from xslam_tpu_torch.geometry.intrinsics import Intrinsics
 from xslam_tpu_torch.models import ba as tba
@@ -41,6 +40,112 @@ from xslam_tpu_torch.ops.sampling import gather3d, to_index
 
 
 # ------------------------------------------------------------------ B18
+def b18_sums(keys, rows, start, end, threads: int, per_thread: int, warp: int = 32):
+    """A numpy twin of B18's sums (``csrc/schur_cg.cu``, ``schur_cg_kernel``):
+    ``rows`` (sorted positions, D; float32) summed by ``keys`` (sorted;
+    ``start``, ``end`` each key's segment) in the kernel's order. A chunk of
+    ``threads x per_thread`` positions a block; a thread adds its positions'
+    runs serially in float64 and writes a run between two key changes at once;
+    a segmented inclusive scan of (a run starts in the thread, its last run's
+    sum) over each warp of ``warp`` lanes (Hillis-Steele, as the shuffles
+    take it) and the warps' totals in order give each thread its first run's
+    carry; the first run's end and the last run's are written to the output
+    (rounded once), or to the chunk's first or last partial; then each key
+    that crosses a chunk is summed in chunk order. Returns (float32 sums,
+    times each key was written; an empty key counts as zeroed once)."""
+    N, D = rows.shape
+    n_keys = len(start)
+    P, chunk = per_thread, threads * per_thread
+    n_chunks = -(-N // chunk)
+    out = np.zeros((n_keys, D), np.float32)
+    writes = (start == end).astype(int)
+    first, last = np.full((n_chunks, D), np.nan), np.full((n_chunks, D), np.nan)
+    zero = np.zeros(D)
+
+    def key_at(pos):
+        return int(keys[pos]) if pos < N else -1
+
+    def in_range(k):
+        return 0 <= k < n_keys
+
+    def put(c, c0, key, pos, s):
+        if not in_range(key):
+            return
+        if start[key] < c0:
+            first[c] = s
+        elif end[key] > pos + 1:
+            last[c] = s
+        else:
+            out[key] = s.astype(np.float32)
+            writes[key] += 1
+
+    for c in range(n_chunks):
+        c0 = c * chunk
+        heads, tails = [], []
+        for t in range(threads):
+            p0 = c0 + t * P
+            head_key = key_at(p0)
+            run_key, broken, head_end, head, acc = head_key, False, p0 + P - 1, None, None
+            for i in range(P):
+                pos = p0 + i
+                key = head_key if i == 0 else key_at(pos)
+                cv = rows[pos].astype(np.float64) if pos < N and in_range(key) else zero
+                change = i > 0 and key != run_key
+                if change:
+                    if broken:
+                        put(c, c0, run_key, pos - 1, acc)
+                    else:
+                        head_end, head = pos - 1, acc
+                    broken, run_key = True, key
+                acc = cv.copy() if i == 0 or change else acc + cv
+            head_starts = t == 0 or key_at(p0 - 1) != head_key
+            heads.append((head_key, head_end, head, head_starts, broken))
+            tails.append((run_key, acc))
+        f = np.array([h[3] or h[4] for h in heads])
+        v = np.stack([a for _, a in tails])
+        carries = np.zeros((threads, D))
+        totals = []  # each warp's inclusive scan at its last lane
+        for w0 in range(0, threads, warp):
+            fw, vw = f[w0:w0 + warp].copy(), v[w0:w0 + warp].copy()
+            off = 1
+            while off < warp:
+                fu, vu = np.roll(fw, off), np.roll(vw, off, axis=0)
+                take = (np.arange(len(fw)) >= off) & ~fw
+                vw = np.where(take[:, None], vu + vw, vw)
+                fw = np.where(take, fu, fw)
+                off *= 2
+            carry = zero
+            for fo, vo in totals:
+                carry = vo if fo else carry + vo
+            for lane in range(len(fw)):
+                if lane > 0:
+                    carry_l = vw[lane - 1] if fw[lane - 1] else carry + vw[lane - 1]
+                else:
+                    carry_l = carry
+                carries[w0 + lane] = carry_l
+            totals.append((fw[-1], vw[-1]))
+        for t in range(threads):
+            head_key, head_end, head, head_starts, broken = heads[t]
+            run_key, acc = tails[t]
+            own = head if broken else acc
+            total = own if head_starts else carries[t] + own
+            if broken:
+                put(c, c0, head_key, head_end, total)
+            p_last = c0 + t * P + P - 1
+            if t == threads - 1 or key_at(p_last + 1) != run_key:
+                put(c, c0, run_key, p_last, acc if broken else total)
+    for c in range(1, n_chunks):
+        k = int(keys[c * chunk])
+        if not in_range(k) or start[k] // chunk + 1 != c:
+            continue
+        acc = last[c - 1].copy()
+        for cc in range(c, (end[k] - 1) // chunk + 1):
+            acc = acc + first[cc]
+        out[k] = acc.astype(np.float32)
+        writes[k] += 1
+    return out, writes
+
+
 def _ordered(a: np.ndarray) -> np.ndarray:
     i = a.view(np.int32).astype(np.int64)
     return np.where(i < 0, -(i & 0x7FFFFFFF), i)

@@ -27,7 +27,7 @@ Tolerances, and why:
   same bits on a second call, and no launch on CPU tensors.
 - B18's sum order (a numpy twin of the kernel's chunks, its threads' serial
   runs, warp scans and block carries, and its crossing sums,
-  ``tests/torch_port_helpers.py::b18_sums``): every key written once, each sum
+  ``tests/test_torch_cg_march_redesigns.py::b18_sums``): every key written once, each sum
   within 1 float32 ulp of ``_Segments``' (both sum in float64 and round once;
   the orders differ).
 """
@@ -47,7 +47,8 @@ import yaml
 
 import tests.torch_port_helpers  # noqa: F401  (sets one intra-op thread)
 from tests.helpers import small_config, small_dataset
-from tests.torch_port_helpers import b18_sums, torch_config
+from tests.test_torch_cg_march_redesigns import b18_sums
+from tests.torch_port_helpers import torch_config
 from xslam_tpu.geometry import se3 as jse3
 from xslam_tpu.models import ba as jba
 from xslam_tpu_torch import run_slam
