@@ -204,10 +204,7 @@ a seeded problem of the loop backend's shape (184,320 observations, 41
 keyframes, 12,253 anchors, R = 4): each output within ``SCHUR_MAX_ULP`` (the ulp
 histograms printed), ``S x`` also against the matvec before B18 (within
 ``B18_BEFORE_TOL`` of its scale), a second call's bits equal, each pass warm, cold, plain,
-bound and ``torch.segment_reduce`` over its rows (a yardstick), each pass's
-earlier design (a test-only entry: a thread a position, a shared-memory scan)
-within ``SCHUR_MAX_ULP`` too and timed in turns with it, warm and cold (the
-keyframe pass must be the faster), one ``S x``'s
+bound and ``torch.segment_reduce`` over its rows (a yardstick), one ``S x``'s
 launches before B18 and through it, and ``schur_ba_cg`` through B18 against the
 plain passes; after the two ranks' main path, "sharded BA" runs
 ``schur_ba(group=)`` and ``schur_ba_cg(group=)`` at one NCCL rank (the single
@@ -5417,27 +5414,6 @@ def phase_schur_cg(ctx):
                                     lambda: ba._keyframes_plain(plan, Jc, Jl, Hll_inv, v_plain, x))}
     rows = {"schur_cg_anchors": (plan.seg_l, torch.randn((N, 3), generator=gen, device=dev)),
             "schur_cg_keyframes": (plan.seg_k, torch.randn((N, 12), generator=gen, device=dev))}
-    # the earlier design (a thread a position, a shared-memory scan; a test-only entry, its own scratch of
-    # a row a chunk of SCAN_CHUNK positions) on the same inputs
-    ext = kernels.build_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scan_chunks = -(-N // csrc_constant("schur_cg.cu", "SCAN_CHUNK"))
-    earlier_out = {"schur_cg_anchors": torch.empty_like(v), "schur_cg_keyframes": torch.empty_like(hz)}
-
-    def earlier(name, out=None):
-        p, s = (plan.anchors, plan.seg_l) if name == "schur_cg_anchors" else (plan.keyframes, plan.seg_k)
-        out = earlier_out[name] if out is None else out
-        first = torch.empty((scan_chunks, out.shape[1]), dtype=torch.float64, device=dev)
-        scratch = (first, torch.empty_like(first), torch.zeros(1, dtype=torch.int32, device=dev))
-        head = (Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x)
-        args = head if name == "schur_cg_anchors" else (*head, Hll_inv, v_plain)
-        check(getattr(ext, name)(*args, *scratch, out, 1, stream) == 0, f"{name}: the earlier design failed")
-
-    for name in earlier_out:
-        earlier(name)
-    torch.cuda.synchronize()
-    earlier_ulp = {k: max_ulp(earlier_out[k], outs[k][1]) for k in earlier_out}
-    earlier_hist = {k: _ulp_hist(earlier_out[k], outs[k][0]) for k in earlier_out}
     ops = _schur_ops(R)
     result = {}
     for name, (kernel_call, plain_call) in calls.items():
@@ -5445,23 +5421,13 @@ def phase_schur_cg(ctx):
         sorted_rows = contrib[seg.order].contiguous()
         lengths = (seg.end - seg.start).to(torch.int64)
         library = time_ms(lambda: torch.segment_reduce(sorted_rows, "sum", lengths=lengths, axis=0), 20)
-        # in turns: earlier design, this one, this one, earlier design; warm, then cold
-        spare = torch.empty_like(earlier_out[name])
-        turn = (lambda: earlier(name, spare), kernel_call, kernel_call, lambda: earlier(name, spare))
-        warm = [time_ms(fn, 50) for fn in turn]
-        cold_turns = [time_cold_ms(fn, 20) for fn in turn]
-        ms, cold = min(warm[1:3]), min(cold_turns[1:3])
+        ms, cold = time_ms(kernel_call, 50), time_cold_ms(kernel_call, 20)
         plain = time_ms(plain_call, 5)
         n_bytes = _schur_bytes(name, N, R, K, L)
         bms, by = bound_ms(n_bytes, N * ops[name])
         a, b = outs[name]
         result[name] = dict(shape=dict(N=N, K=K, L=L, R=R), max_abs_err=max_abs(a, b), max_ulp=worst[name],
                             ulp_histogram=hists[name], frac_equal=frac_equal(a, b), ms=ms, cold_ms=cold,
-                            warm_turns_ms=warm, cold_turns_ms=cold_turns,
-                            earlier_design_ms=min(warm[0], warm[3]), earlier_design_cold_ms=min(cold_turns[0],
-                                                                                                cold_turns[3]),
-                            earlier_design_max_ulp_vs_plain=earlier_ulp[name],
-                            earlier_design_ulp_histogram_vs_this=earlier_hist[name],
                             plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
                             bound_ops=N * ops[name], library_ms=library,
                             library_note="torch.segment_reduce of the pass's rows in its order: one pass's sum "
@@ -5497,10 +5463,6 @@ def phase_schur_cg(ctx):
     check(again, "B18: a second call gave other bits")
     check(all(w <= SCHUR_MAX_ULP for w in worst.values()), f"B18 against its plain passes: {worst} ulp, "
                                                             f"histograms {hists}")
-    check(all(w <= SCHUR_MAX_ULP for w in earlier_ulp.values()), f"B18's earlier design: {earlier_ulp} ulp")
-    keyframes = result["schur_cg_keyframes"]
-    check(keyframes["ms"] < keyframes["earlier_design_ms"],
-          f"B18's keyframe pass: {keyframes['warm_turns_ms']} ms in turns, not below the earlier design's")
     check(after["kernel_events"] == 2, f"B18: {after['kernel_events']} kernel events in one S x, expected 2")
     check(vs_before["share_of_scale"] <= B18_BEFORE_TOL, f"B18's S x against the matvec before it: {vs_before}")
     check(solver_err <= B18_SOLVER_TOL and b18_launches["schur_cg_anchors"] == BA_ITERS * 40,

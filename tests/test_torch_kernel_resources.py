@@ -294,7 +294,6 @@ def test_profile_step_names_the_skip_march_forms_and_b19b():
     ("march_kernel", ["march_fixed"]),  # K3 at stride 1 (and at a stride where one lane a ray is picked)
     ("march_group_kernel<16>", ["march_fixed_strided"]),  # K3 at a stride, a group of lanes a ray
     ("schur_cg_kernel<4, true>", ["schur_cg_keyframes"]),  # B18's pass K
-    ("schur_cg_scan_kernel<4, true>", []),  # B18's earlier design, a test-only entry
     ("skip_distance_kernel<true>", ["skip_field_dense"]),
     ("classify_bricks_kernel", ["classify_bricks"]),  # B3b
     ("classify_bricks_split_kernel", ["classify_bricks_split"]),  # B15s
@@ -316,8 +315,8 @@ def test_kernel_resources_names_each_instantiations_wrappers(function, wrappers)
     and B4's kernels; B15's classifiers and B3c's variants are kernels of their
     own, each with one wrapper; the skip march's two forms are B5b's two counts
     on the brick rows and B14b's one on the dense planes; K3 at a stride, a
-    group of lanes a ray, is ``march_fixed_strided``'s; B19b's and B18's
-    earlier designs run on no wrapper."""
+    group of lanes a ray, is ``march_fixed_strided``'s; B19b's earlier
+    design runs on no wrapper."""
     from xslam_tpu_torch.apps.kernel_resources import wrappers_of
 
     assert wrappers_of(function) == wrappers

@@ -18,8 +18,8 @@ brick rows; ``window_march_kernel<false, false>`` B4, ``<true, false>``
 B14c, ``<false, true>`` B16; ``march_skip_ray_kernel<false>`` B5b's ray
 form, ``<true>`` B14b's; ``march_shard_kernel<true>`` B19b,
 ``<false>`` its earlier design; ``march_group_kernel<G>`` K3 at a stride,
-G lanes a ray; ``schur_cg_kernel<R, KEYFRAMES>`` B18's passes,
-``schur_cg_scan_kernel`` their earlier design; ``mesh_count_kernel<false>`` and
+G lanes a ray; ``schur_cg_kernel<R, KEYFRAMES>`` B18's passes;
+``mesh_count_kernel<false>`` and
 ``mesh_rows_kernel<false>`` B17t, ``<true>`` B17m, ``mesh_scan_kernel``
 both), with the wrappers whose launches run it
 (``wrappers``: the launch counts' names, as ``profile_step.HAND_KERNELS``
@@ -50,7 +50,8 @@ BLOCK_THREADS = {
     "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,
     "tsdf_band_count_kernel": 256, "tsdf_band_list_kernel": 256,
     "march_shard_kernel": 256, "refine_shard_kernel": 64, "refine_finalize_kernel": 256, "icp_tail_kernel": 128,
-    "schur_cg_kernel": 128, "schur_cg_scan_kernel": 256, "march_group_kernel": 128, "mesh_count_kernel": 256, "mesh_scan_kernel": 1024, "mesh_rows_kernel": 256,
+    "schur_cg_kernel": 128, "march_group_kernel": 128, "mesh_count_kernel": 256, "mesh_scan_kernel": 1024,
+    "mesh_rows_kernel": 256,
 }
 SM_REGISTERS = 65_536
 SM_MAX_WARPS = 64

@@ -106,11 +106,11 @@ extern "C" int xs_tsdf_field(const void* value, const void* depth, const void* p
 extern "C" int xs_schur_cg_anchors(const void* jc, const void* jl, const void* order, const void* keys,
                                    const void* start, const void* end, const void* frame_idx, const void* x,
                                    void* first, void* last, void* ticket, void* v, int n, int R, int n_keys,
-                                   int n_chunks, int design, void* stream);
+                                   int n_chunks, void* stream);
 extern "C" int xs_schur_cg_keyframes(const void* jc, const void* jl, const void* order, const void* keys,
                                      const void* start, const void* end, const void* anchor_idx, const void* x,
                                      const void* hll_inv, const void* v, void* first, void* last, void* ticket,
-                                     void* hz, int n, int R, int n_keys, int n_chunks, int design, void* stream);
+                                     void* hz, int n, int R, int n_keys, int n_chunks, void* stream);
 extern "C" int xs_probe_a(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_b(const void* table, const void* idx, void* out, int n, void* stream);
 extern "C" int xs_probe_c(const void* table, void* out, void* stream);
@@ -609,27 +609,26 @@ int tsdf_field(const torch::Tensor& value, const torch::Tensor& depth, const tor
 }
 
 // B18's passes: jc (N, R, 6), jl (N, R, 3) float32; order, keys (N,), start, end (n_keys,), frame_idx or
-// anchor_idx (N,) int32; first, last (n_chunks, D) float64 and ticket (1,) int32: the scratch; v (L, 3), hz (K, 12);
-// design 0, or 1 for the earlier design (a test-only entry, its chunks of 256 positions)
+// anchor_idx (N,) int32; first, last (n_chunks, D) float64 and ticket (1,) int32: the scratch; v (L, 3), hz (K, 12)
 int schur_cg_anchors(const torch::Tensor& jc, const torch::Tensor& jl, const torch::Tensor& order,
                      const torch::Tensor& keys, const torch::Tensor& start, const torch::Tensor& end,
                      const torch::Tensor& frame_idx, const torch::Tensor& x, torch::Tensor first, torch::Tensor last,
-                     torch::Tensor ticket, torch::Tensor v, int64_t design, int64_t stream) {
+                     torch::Tensor ticket, torch::Tensor v, int64_t stream) {
   return xs_schur_cg_anchors(jc.data_ptr(), jl.data_ptr(), order.data_ptr(), keys.data_ptr(), start.data_ptr(),
                              end.data_ptr(), frame_idx.data_ptr(), x.data_ptr(), first.data_ptr(), last.data_ptr(),
                              ticket.data_ptr(), v.data_ptr(), jc.size(0), jc.size(1), v.size(0), first.size(0),
-                             (int)design, as_stream(stream));
+                             as_stream(stream));
 }
 
 int schur_cg_keyframes(const torch::Tensor& jc, const torch::Tensor& jl, const torch::Tensor& order,
                        const torch::Tensor& keys, const torch::Tensor& start, const torch::Tensor& end,
                        const torch::Tensor& anchor_idx, const torch::Tensor& x, const torch::Tensor& hll_inv,
                        const torch::Tensor& v, torch::Tensor first, torch::Tensor last, torch::Tensor ticket,
-                       torch::Tensor hz, int64_t design, int64_t stream) {
+                       torch::Tensor hz, int64_t stream) {
   return xs_schur_cg_keyframes(jc.data_ptr(), jl.data_ptr(), order.data_ptr(), keys.data_ptr(), start.data_ptr(),
                                end.data_ptr(), anchor_idx.data_ptr(), x.data_ptr(), hll_inv.data_ptr(), v.data_ptr(),
                                first.data_ptr(), last.data_ptr(), ticket.data_ptr(), hz.data_ptr(), jc.size(0),
-                               jc.size(1), hz.size(0), first.size(0), (int)design, as_stream(stream));
+                               jc.size(1), hz.size(0), first.size(0), as_stream(stream));
 }
 
 int probe_a(const torch::Tensor& table, const torch::Tensor& idx, torch::Tensor out, int64_t stream) {

@@ -55,12 +55,11 @@
 // registers before the arithmetic; the launch refuses tensors that are not
 // 16-byte aligned.
 //
-// The earlier design is kept as a test-only entry (design 1 of the C
-// entry points; the smoke run holds the two to each other and times both in
-// one call): schur_cg_scan_kernel, a thread a position in chunks of
-// SCAN_CHUNK, an 8-step Hillis-Steele segmented scan of D doubles a thread in
-// shared memory (16 __syncthreads; pass K's 96 B stride a 4-way bank
-// conflict) that builds partial sums no run's end reads.
+// The earlier design (a thread a position in chunks of 256, an 8-step
+// Hillis-Steele segmented scan of D doubles a thread in shared memory: 16
+// __syncthreads, pass K's 96 B stride a 4-way bank conflict, partial sums no
+// run's end reads) was timed beside this one in one call and taken out; its
+// times are in PERF.md.
 //
 // Bound: bytes. Each pass reads Jc and Jl once (72 B + 36 B an observation at
 // R = 4 ... 144 B) with the sorted order, the keys and the observations'
@@ -78,7 +77,6 @@ namespace {
 constexpr int CG_THREADS = 128;                       // threads a block
 constexpr int CG_PER_THREAD = 4;                      // sorted positions a thread
 constexpr int CG_CHUNK = CG_THREADS * CG_PER_THREAD;  // sorted positions a block: models/ba.py::CG_CHUNK
-constexpr int SCAN_CHUNK = 256;                       // the earlier design's: a thread a position
 constexpr unsigned FULL = 0xffffffffu;
 
 struct CgParams {
@@ -145,11 +143,12 @@ __device__ __forceinline__ void transposed(const float* J, const float* y, float
   }
 }
 
-// the contribution of observation o (key `key`) to its key's sum, its Jacobian rows at jc and jl (read where
-// they lie: device memory for the earlier design, registers for this one)
+// the contribution of observation o (key `key`) to its key's sum, its Jacobian rows loaded into registers first
 template <int R, bool KEYFRAMES>
-__device__ __forceinline__ void contribution(const CgParams& p, const float* jc, const float* jl, int o, int key,
-                                             float* c) {
+__device__ __forceinline__ void contribution(const CgParams& p, int o, int key, float* c) {
+  float jc[R * 6], jl[R * 3];
+  load_row<R * 6>(p.jc + (long long)o * (R * 6), jc);
+  load_row<R * 3>(p.jl + (long long)o * (R * 3), jl);
   const int k = KEYFRAMES ? key : p.other[o];
   float u[R];
   camera_rows<R>(jc, p.x + k * 6, u);
@@ -175,15 +174,6 @@ __device__ __forceinline__ void contribution(const CgParams& p, const float* jc,
   }
   transposed<R, 6>(jc, u, c);
   transposed<R, 6>(jc, z, c + 6);
-}
-
-// the same with the rows loaded into registers first, as vectors
-template <int R, bool KEYFRAMES>
-__device__ __forceinline__ void loaded_contribution(const CgParams& p, int o, int key, float* c) {
-  float jc[R * 6], jl[R * 3];
-  load_row<R * 6>(p.jc + (long long)o * (R * 6), jc);
-  load_row<R * 3>(p.jl + (long long)o * (R * 3), jl);
-  contribution<R, KEYFRAMES>(p, jc, jl, o, key, c);
 }
 
 __device__ __forceinline__ bool in_range(const CgParams& p, int key) { return key >= 0 && key < p.n_keys; }
@@ -217,9 +207,8 @@ __device__ __forceinline__ void put_run(const CgParams& p, int chunk, int c0, in
   }
 }
 
-// the last block to finish sums the keys that cross a boundary of chunks of CHUNK positions, in chunk order, and
-// resets the ticket
-template <int D, int CHUNK>
+// the last block to finish sums the keys that cross a chunk boundary, in chunk order, and resets the ticket
+template <int D>
 __device__ __forceinline__ void cross_chunk_sums(const CgParams& p) {
   __shared__ bool s_last;
   __threadfence();
@@ -229,11 +218,11 @@ __device__ __forceinline__ void cross_chunk_sums(const CgParams& p) {
   if (!s_last) return;
   __threadfence();
   for (int c = threadIdx.x + 1; c < p.n_chunks; c += blockDim.x) {
-    const int k = p.keys[c * CHUNK];
+    const int k = p.keys[c * CG_CHUNK];
     if (!in_range(p, k)) continue;
-    const int first_chunk = p.start[k] / CHUNK;
+    const int first_chunk = p.start[k] / CG_CHUNK;
     if (first_chunk + 1 != c) continue;  // not the key's first boundary, or the key begins here
-    const int last_chunk = (p.end[k] - 1) / CHUNK;
+    const int last_chunk = (p.end[k] - 1) / CG_CHUNK;
     double acc[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) acc[j] = __ldcg(p.last + first_chunk * D + j);
@@ -267,7 +256,7 @@ __global__ void __launch_bounds__(CG_THREADS) schur_cg_kernel(CgParams p) {
     float c[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) c[j] = 0.0f;
-    if (pos < p.n && in_range(p, key)) loaded_contribution<R, KEYFRAMES>(p, p.order[pos], key, c);
+    if (pos < p.n && in_range(p, key)) contribution<R, KEYFRAMES>(p, p.order[pos], key, c);
     const bool change = i > 0 && key != run_key;
     if (change) {
       if (broken) {
@@ -338,107 +327,43 @@ __global__ void __launch_bounds__(CG_THREADS) schur_cg_kernel(CgParams p) {
   const int p_last = p0 + P - 1;
   if (t == CG_THREADS - 1 || key_at(p, p_last + 1) != run_key) put_run<D>(p, chunk, c0, run_key, p_last, tail);
 
-  cross_chunk_sums<D, CG_CHUNK>(p);
-}
-
-// the earlier design (see the header), a test-only entry
-template <int R, bool KEYFRAMES>
-__global__ void __launch_bounds__(SCAN_CHUNK) schur_cg_scan_kernel(CgParams p) {
-  constexpr int D = KEYFRAMES ? 12 : 3;
-  __shared__ double s_val[SCAN_CHUNK * D];
-  __shared__ int s_flag[SCAN_CHUNK];
-  __shared__ int s_key[SCAN_CHUNK];
-  const int t = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int c0 = chunk * SCAN_CHUNK;
-  const int pos = c0 + t;
-  zero_empty_keys<D>(p);
-
-  int key = -1;
-  double val[D];
-#pragma unroll
-  for (int j = 0; j < D; ++j) val[j] = 0.0;
-  if (pos < p.n) {
-    key = p.keys[pos];
-    if (in_range(p, key)) {
-      float c[D];
-      const int o = p.order[pos];
-      contribution<R, KEYFRAMES>(p, p.jc + (long long)o * (R * 6), p.jl + (long long)o * (R * 3), o, key, c);
-#pragma unroll
-      for (int j = 0; j < D; ++j) val[j] = (double)c[j];
-    }
-  }
-  s_key[t] = key;
-#pragma unroll
-  for (int j = 0; j < D; ++j) s_val[t * D + j] = val[j];
-  __syncthreads();
-  s_flag[t] = t == 0 || s_key[t - 1] != key;
-  // segmented inclusive scan: s_val[t] becomes the sum of its run from the run's first position in the chunk
-  for (int off = 1; off < SCAN_CHUNK; off <<= 1) {
-    __syncthreads();
-    const bool take = t >= off && !s_flag[t];
-    int flag = s_flag[t];
-    if (take) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) val[j] = s_val[(t - off) * D + j] + val[j];
-      flag = s_flag[t - off];
-    }
-    __syncthreads();
-    if (take) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) s_val[t * D + j] = val[j];
-      s_flag[t] = flag;
-    }
-  }
-  const bool run_end = t == SCAN_CHUNK - 1 || pos == p.n - 1 || s_key[t + 1] != key;
-  if (pos < p.n && run_end) put_run<D>(p, chunk, c0, key, pos, val);
-
-  cross_chunk_sums<D, SCAN_CHUNK>(p);
+  cross_chunk_sums<D>(p);
 }
 
 template <bool KEYFRAMES>
-int launch(const CgParams& p, int R, int design, cudaStream_t s) {
-  const int chunk = design == 0 ? CG_CHUNK : SCAN_CHUNK;
-  if (design < 0 || design > 1 || p.n < 1 || p.n_keys < 1 || p.n_chunks != (p.n + chunk - 1) / chunk)
-    return (int)cudaErrorInvalidValue;
+int launch(const CgParams& p, int R, cudaStream_t s) {
+  if (p.n < 1 || p.n_keys < 1 || p.n_chunks != (p.n + CG_CHUNK - 1) / CG_CHUNK) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)p.jc | (uintptr_t)p.jl) & 15) return (int)cudaErrorMisalignedAddress;
-  if (R != 3 && R != 4) return (int)cudaErrorInvalidValue;
-  if (design == 0) {
-    if (R == 4)
-      schur_cg_kernel<4, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
-    else
-      schur_cg_kernel<3, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
-  } else {
-    if (R == 4)
-      schur_cg_scan_kernel<4, KEYFRAMES><<<p.n_chunks, SCAN_CHUNK, 0, s>>>(p);
-    else
-      schur_cg_scan_kernel<3, KEYFRAMES><<<p.n_chunks, SCAN_CHUNK, 0, s>>>(p);
-  }
+  if (R == 4)
+    schur_cg_kernel<4, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
+  else if (R == 3)
+    schur_cg_kernel<3, KEYFRAMES><<<p.n_chunks, CG_THREADS, 0, s>>>(p);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// pass L: v (n_keys = L, 3) from x; design 0 the kernel above, 1 the earlier design (a test-only entry), whose
-// scratch has a row a chunk of SCAN_CHUNK positions
+// pass L: v (n_keys = L, 3) from x
 extern "C" int xs_schur_cg_anchors(const void* jc, const void* jl, const void* order, const void* keys,
                                    const void* start, const void* end, const void* frame_idx, const void* x,
                                    void* first, void* last, void* ticket, void* v, int n, int R, int n_keys,
-                                   int n_chunks, int design, void* stream) {
+                                   int n_chunks, void* stream) {
   const CgParams p{(const float*)jc, (const float*)jl, (const int*)order, (const int*)keys, (const int*)start,
                    (const int*)end, (const int*)frame_idx, (const float*)x, nullptr, nullptr, (double*)first,
                    (double*)last, (unsigned*)ticket, (float*)v, n, n_keys, n_chunks};
-  return launch<false>(p, R, design, (cudaStream_t)stream);
+  return launch<false>(p, R, (cudaStream_t)stream);
 }
 
-// pass K: hz (n_keys = K, 12) from x, Hll_inv and the summed v; design as pass L's
+// pass K: hz (n_keys = K, 12) from x, Hll_inv and the summed v
 extern "C" int xs_schur_cg_keyframes(const void* jc, const void* jl, const void* order, const void* keys,
                                      const void* start, const void* end, const void* anchor_idx, const void* x,
                                      const void* hll_inv, const void* v, void* first, void* last, void* ticket,
-                                     void* hz, int n, int R, int n_keys, int n_chunks, int design, void* stream) {
+                                     void* hz, int n, int R, int n_keys, int n_chunks, void* stream) {
   const CgParams p{(const float*)jc, (const float*)jl, (const int*)order, (const int*)keys, (const int*)start,
                    (const int*)end, (const int*)anchor_idx, (const float*)x, (const float*)hll_inv,
                    (const float*)v, (double*)first, (double*)last, (unsigned*)ticket, (float*)hz, n, n_keys,
                    n_chunks};
-  return launch<true>(p, R, design, (cudaStream_t)stream);
+  return launch<true>(p, R, (cudaStream_t)stream);
 }

@@ -705,7 +705,7 @@ def schur_cg_anchors(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, x: t
     p, s = plan.anchors, plan.seg_l
     v = torch.empty((s.n, 3), dtype=torch.float32, device=Jc.device)
     kernels.launch("schur_cg_anchors", Jc.device, Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x,
-                   p.first, p.last, p.ticket, v, 0)
+                   p.first, p.last, p.ticket, v)
     kernels.launch_counts["schur_cg_anchors"] += 1
     return v
 
@@ -726,7 +726,7 @@ def schur_cg_keyframes(plan: SchurCgPlan, Jc: torch.Tensor, Jl: torch.Tensor, Hl
     p, s = plan.keyframes, plan.seg_k
     hz = torch.empty((s.n, 12), dtype=torch.float32, device=Jc.device)
     kernels.launch("schur_cg_keyframes", Jc.device, Jc, Jl, s.order, s.sorted_keys, s.start, s.end, p.other, x,
-                   Hll_inv, v, p.first, p.last, p.ticket, hz, 0)
+                   Hll_inv, v, p.first, p.last, p.ticket, hz)
     kernels.launch_counts["schur_cg_keyframes"] += 1
     return hz
 
