@@ -92,9 +92,16 @@
 //   MIXED (4), listed as work, and its window goes out as three ints (ops/fusion_brick.py::pack_aux: the far
 //   cells with the cell edge, the window's origin across and down in pixels, so that no image size is refused
 //   as the JAX package's four int32 arrays refuse none). About 780 operations a brick.
-// B15f classify_bricks_fine_kernel: B3b on the 4^3 subcells: a brick's group classifies its 8 subcells one after
-//   another (boxes i * 4 vs, the fine grid's own rounding) and folds them (all NONE, all FAR, all far-ish, else
-//   ACTIVE) before the ballots: 8x B3b's chain, the same lanes, ranks and lists.
+// B15f classify_bricks_fine_kernel: B3b on the 4^3 subcells (boxes i * 4 vs, the fine grid's own rounding). A
+//   brick has FINE_LANES (4) lanes, a box a lane (FINE_BOX_LANES: the 8 corners, the level search and the window's
+//   4 cells in one lane), each lane classifying 2 of the brick's 8 subcells in turn; the lanes' classes fold (all
+//   NONE, all FAR, all far-ish, else ACTIVE) by ballots masked to the brick, then B3b's ballots, ranks and lists
+//   over tiles of FINE_TILE (256) bricks, blocks of FINE_THREADS (1024), which cap a thread at 64 registers. The
+//   work is 262,144 boxes' chains, and it is bound by the instructions it issues, not by a chain's latency: B3b's
+//   two lanes a box repeat the chain's tail (the level search, the cells, the intervals) on both lanes, one lane a
+//   box runs it once, and the cap keeps 32 warps an SM to hide the table reads (PERF.md holds the sweep: 1 or 2
+//   lanes a box, 1 to 16 lanes a brick, 256 to 1024 threads). classify_bricks_fine_serial_kernel is the earlier
+//   design (a brick's two lanes classify its 8 subcells in turn), a test-only entry.
 // B15c classify_subcells_kernel: the subcell stage's classes and lists, a launch between B3b and B3c (below).
 // B19a, a slab of the sharded engine (parallel/sharded.py) whose local x 0 is global x x_offset: the classifiers'
 //   boxes and B3c's voxels take their global positions, each in the JAX package's own rounding (ClassifyParams,
@@ -125,18 +132,11 @@ constexpr int MIP_INFLIGHT = 8;     // loads a depth_mips thread keeps in flight
 constexpr int MIP_MIN_BLOCKS = 6;   // depth_mips blocks an SM holds at least: at most 40 registers a thread
 constexpr int CLASSIFY_THREADS = 256;  // threads of a classify_bricks block
 constexpr int CORNER_LANES = 2;        // lanes that classify one brick, a corner each
-constexpr int CORNERS_PER_LANE = 8 / CORNER_LANES;
-constexpr int CELL_LANES = CORNER_LANES < 4 ? CORNER_LANES : 4;  // lanes that read the window's 4 cells
-constexpr int CELLS_PER_LANE = 4 / CELL_LANES;
 constexpr int CLASSIFY_TILE = CLASSIFY_THREADS / CORNER_LANES;  // bricks of a block: ops/fusion_brick.py
-constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + CORNER_LANES - 1) / CORNER_LANES;  // levels a lane counts
-constexpr unsigned GROUP_BITS = (1u << CORNER_LANES) - 1u;
 constexpr int DIVIDE_LIMIT = 1 << 16;  // the classifier divides pixel indices below this by a multiply-high
 constexpr int LOOK_BACK_LOADS = 8;  // status words a lane of a classify_bricks look-back loads at once
 constexpr int STATUS_STRIDE = 16;   // 8-byte words from one tile's status word to the next: one a 128 B line
 constexpr unsigned long long LOOK_BACK_LIMIT_NS = 1000000000ull;  // a classify_bricks wait lasts less
-static_assert(8 % CORNER_LANES == 0, "a brick's lanes share its 8 corners");
-static_assert(CLASSIFY_THREADS / 32 <= 32, "warp 0 scans a block's ballots, one a lane");
 constexpr int FUSE_WARPS = 4;       // warps of a fuse_bricks block, one brick each at a time
 constexpr int FUSE_THREADS = 32 * FUSE_WARPS;
 constexpr int FUSE_MIN_BLOCKS = 6;  // fuse_bricks blocks an SM holds at least: at most 80 registers a thread
@@ -145,7 +145,15 @@ constexpr int INDEX_LIMIT = 1 << 30;  // ops/sampling.py::_INDEX_LIMIT
 enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3, MIXED = 4 };
 // the classifier's variants: B3b's coarse classes, B15s's split classes with MIXED and the windows, B15f's classes
 // of the 4^3 subcells folded by brick
-enum : int { COARSE = 0, SPLIT = 1, FINE = 2 };
+enum : int { COARSE = 0, SPLIT = 1, FINE = 2, FINE_SERIAL = 3 };
+// B15f: a brick's FINE_LANES lanes are groups of FINE_BOX_LANES, each classifying its share of the brick's 8
+// subcells in turn; a block of FINE_THREADS threads holds FINE_TILE bricks, the tile of its scan
+constexpr int FINE_BOX_LANES = 1;
+constexpr int FINE_LANES = 4;
+constexpr int FINE_THREADS = 1024;
+constexpr int FINE_TILE = FINE_THREADS / FINE_LANES;
+static_assert(FINE_LANES % FINE_BOX_LANES == 0 && FINE_LANES <= 16 && 8 % (FINE_LANES / FINE_BOX_LANES) == 0,
+              "a brick's groups share its 8 subcells");
 constexpr int SUBCELL_THREADS = 256;  // threads of a classify_subcells block
 constexpr int SUBCELL_ROWS = SUBCELL_THREADS / (8 * CORNER_LANES);  // candidate rows a block: ops/fusion_brick.py
 static_assert(SUBCELL_THREADS % (8 * CORNER_LANES) == 0, "a block takes whole candidate rows");
@@ -382,15 +390,21 @@ __device__ __forceinline__ void axis_interval(float b0, float bm, float o, float
 }
 
 // The class of the box of edge bm at (bx0, by0, bz0) (a brick, a subcell of the 4^3 grid, a candidate's
-// subcell), computed by the CORNER_LANES lanes of its group, j the lane's place in it (all 32 lanes of the warp call
-// this together: it ballots); every lane of the group returns the class. With SPLIT (B15s) the window's four cells
+// subcell), computed by the LANES lanes of its group (a power of two up to 8), j the lane's place in it (all 32
+// lanes of the warp call this together: it ballots); every lane of the group returns the class. With SPLIT (B15s) the window's four cells
 // are also tested one by one and the class may be MIXED; aux[0..2] are then the window's ints
 // (ops/fusion_brick.py::pack_aux): the far cells (15 for FAR and FAR_PARTIAL) with the cell edge, the window's
 // origin across and down in pixels.
-template <bool SPLIT>
+template <bool SPLIT, int LANES = CORNER_LANES>
 __device__ __forceinline__ int classify_box(const float* __restrict__ table, const float* __restrict__ pose,
                                             const ClassifyParams& p, float bx0, float by0, float bz0, float bm, int j,
                                             int* aux) {
+  constexpr int CORNERS_PER_LANE = 8 / LANES;
+  constexpr int CELL_LANES = LANES < 4 ? LANES : 4;  // lanes that read the window's 4 cells
+  constexpr int CELLS_PER_LANE = 4 / CELL_LANES;
+  constexpr int LEVEL_ROUNDS = (MAX_MIP_LEVELS + LANES - 1) / LANES;  // levels a lane counts
+  constexpr unsigned GROUP_BITS = (1u << LANES) - 1u;
+  static_assert(8 % LANES == 0, "a box's lanes share its 8 corners");
   const float* R = pose;       // value lane of the rotation
   const float* t = pose + 18;  // value lane of the translation
   const float fW = (float)p.W, fH = (float)p.H;
@@ -432,14 +446,14 @@ __device__ __forceinline__ int classify_box(const float* __restrict__ table, con
       for (int i = 0; i < 4; ++i) plane_max[i] = max_nan(plane_max[i], val[i]);
     }
   }
-  umin = group_min<CORNER_LANES>(umin);
-  umax = group_max<CORNER_LANES>(umax);
-  vmin = group_min<CORNER_LANES>(vmin);
-  vmax = group_max<CORNER_LANES>(vmax);
-  zmin = group_min<CORNER_LANES>(zmin);
-  zmax = group_max<CORNER_LANES>(zmax);
+  umin = group_min<LANES>(umin);
+  umax = group_max<LANES>(umax);
+  vmin = group_min<LANES>(vmin);
+  vmax = group_max<LANES>(vmax);
+  zmin = group_min<LANES>(zmin);
+  zmax = group_max<LANES>(zmax);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) plane_max[i] = group_max<CORNER_LANES>(plane_max[i]);
+  for (int i = 0; i < 4; ++i) plane_max[i] = group_max<LANES>(plane_max[i]);
   const bool frustum_out = plane_max[0] < 0.0f || plane_max[1] < 0.0f || plane_max[2] < 0.0f || plane_max[3] < 0.0f;
 
   // the camera's distance interval to the solid brick (camera origin in volume coordinates: -R^T t)
@@ -466,7 +480,7 @@ __device__ __forceinline__ int classify_box(const float* __restrict__ table, con
 
   // The level: the smallest at or above searchsorted(sizes, pr) (left side: the count of tiles smaller than
   // pr, counted by the group's lanes together) whose aligned 2 x 2 window covers the clipped footprint. The
-  // group tests CORNER_LANES levels a round upward from there, a level a lane, and stops at the first round
+  // group tests LANES levels a round upward from there, a level a lane, and stops at the first round
   // whose ballot has a covering level: its lowest. The loop runs while any group of the warp searches.
   const MipLevels& m = p.m;
   const int cu = min(max(to_index(u - pr), 0), p.W - 1);
@@ -475,15 +489,15 @@ __device__ __forceinline__ int classify_box(const float* __restrict__ table, con
   int base = 0;
 #pragma unroll
   for (int r = 0; r < LEVEL_ROUNDS; ++r) {
-    const int k = r * CORNER_LANES + j;
+    const int k = r * LANES + j;
     base += (k < m.n && (float)m.ts[k] < pr) ? 1 : 0;
   }
 #pragma unroll
-  for (int off = 1; off < CORNER_LANES; off <<= 1) base += __shfl_xor_sync(0xffffffffu, base, off);
-  const int group_first = ((int)threadIdx.x & 31) & ~(CORNER_LANES - 1);
+  for (int off = 1; off < LANES; off <<= 1) base += __shfl_xor_sync(0xffffffffu, base, off);
+  const int group_first = ((int)threadIdx.x & 31) & ~(LANES - 1);
   int level = m.n;
   bool searching = base < m.n;
-  for (int k0 = base; __any_sync(0xffffffffu, searching); k0 += CORNER_LANES) {
+  for (int k0 = base; __any_sync(0xffffffffu, searching); k0 += LANES) {
     const int k = k0 + j;
     bool cover = false;
     if (searching && k < m.n) {
@@ -492,7 +506,7 @@ __device__ __forceinline__ int classify_box(const float* __restrict__ table, con
     }
     const unsigned bits = (__ballot_sync(0xffffffffu, cover) >> group_first) & GROUP_BITS;
     if (searching && bits != 0u) level = k0 + __ffs((int)bits) - 1;
-    searching = searching && bits == 0u && k0 + CORNER_LANES < m.n;
+    searching = searching && bits == 0u && k0 + LANES < m.n;
   }
   const bool level_ok = level < m.n;
   const int lv = level_ok ? level : m.n - 1;
@@ -596,7 +610,6 @@ __device__ __forceinline__ int classify_box(const float* __restrict__ table, con
 // ACTIVE count and its work count, 11 bits each. Words of earlier launches carry their own epochs: no launch
 // has to clear them.
 constexpr int STATUS_COUNT_BITS = 11;
-static_assert(CLASSIFY_TILE < (1 << STATUS_COUNT_BITS), "a tile's counts fit their bits");
 __device__ __forceinline__ unsigned long long tile_status(unsigned long long epoch, int n_active, int n_work) {
   return (epoch << (2 * STATUS_COUNT_BITS)) | ((unsigned long long)n_active << STATUS_COUNT_BITS) |
          (unsigned long long)n_work;
@@ -660,21 +673,30 @@ __device__ __forceinline__ void counts_before(const unsigned long long* status, 
   before_w = w;
 }
 
-// One launch: the classes, then the ranks in flat brick order by a single-pass scan over tiles of
-// CLASSIFY_TILE bricks. A block takes its tile by an atomic ticket, publishes the tile's counts and sums the
-// counts of the tiles before it (counts_before): no chain from tile to tile. scratch: word 0 holds the ticket
-// counter (an unsigned int that runs on from launch to launch), words 1.. the tiles' status words; zeroed
-// once per device and stream. MODE: COARSE (B3b), SPLIT (B15s: MIXED listed as work, the windows into aux) or
-// FINE (B15f: a brick's group classifies its 8 subcells of the 4^3 grid one after another, boxes i * sub_edge,
-// and folds them: NONE if all are, FAR if all are, FAR_PARTIAL if all are FAR or FAR_PARTIAL, else ACTIVE).
-template <int MODE>
+// One launch: the classes, then the ranks in flat brick order by a single-pass scan over tiles of THREADS /
+// BRICK_LANES bricks. A block takes its tile by an atomic ticket, publishes the tile's counts and sums the counts
+// of the tiles before it (counts_before): no chain from tile to tile. scratch: word 0 holds the ticket counter (an
+// unsigned int that runs on from launch to launch), words 1.. the tiles' status words; zeroed once per device and
+// stream. MODE: COARSE (B3b), SPLIT (B15s: MIXED listed as work, the windows into aux), each a brick's
+// CORNER_LANES lanes; or FINE (B15f): a brick's BRICK_LANES lanes are groups of BOX_LANES, each classifying
+// its share of the brick's 8 subcells of the 4^3 grid (boxes i * sub_edge) in turn, and the groups' classes fold
+// into the brick's by ballots of the group leaders: NONE if all are, FAR if all are, FAR_PARTIAL if all are FAR
+// or FAR_PARTIAL, else ACTIVE.
+template <int MODE, int THREADS, int BRICK_LANES, int BOX_LANES = CORNER_LANES>
 __device__ __forceinline__ void classify_and_rank(const float* __restrict__ table, const float* __restrict__ pose,
                                                   int* __restrict__ cls, unsigned long long* __restrict__ scratch,
                                                   int* __restrict__ rank, int* __restrict__ active_ids,
                                                   int* __restrict__ work_ids, int* __restrict__ totals,
                                                   unsigned char* __restrict__ overflow, int* __restrict__ aux,
                                                   const ClassifyParams& p) {
-  constexpr int WARPS = CLASSIFY_THREADS / 32;
+  constexpr int WARPS = THREADS / 32;
+  constexpr int TILE = THREADS / BRICK_LANES;
+  constexpr int GROUPS = BRICK_LANES / BOX_LANES;  // boxes of a brick classified at once
+  constexpr int SERIAL = 8 / GROUPS;                  // FINE: subcells a group classifies in turn
+  static_assert(WARPS <= 32, "warp 0 scans a block's ballots, one a lane");
+  static_assert(TILE < (1 << STATUS_COUNT_BITS), "a tile's counts fit their bits");
+  static_assert(MODE == FINE || (BRICK_LANES == CORNER_LANES && BOX_LANES == CORNER_LANES),
+                "a brick box takes one group");
   __shared__ unsigned s_active[WARPS], s_work[WARPS];  // each warp's ballot of ACTIVE and of work bricks
   __shared__ int s_before_a[WARPS], s_before_w[WARPS];  // the bricks of the tile before each warp's
   __shared__ int s_prefix[2];  // the counts of every brick before the tile
@@ -682,7 +704,7 @@ __device__ __forceinline__ void classify_and_rank(const float* __restrict__ tabl
   unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
   unsigned long long* status = scratch + 1;
   const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
-  const int j = lane & (CORNER_LANES - 1);
+  const int j = lane & (BOX_LANES - 1);
   const int n = p.nbx * p.nby * p.nbz;
 
   if (threadIdx.x == 0) {
@@ -693,22 +715,33 @@ __device__ __forceinline__ void classify_and_rank(const float* __restrict__ tabl
   __syncthreads();
   const int tile = s_tile;
 
-  // brick b: the tile's threadIdx.x / CORNER_LANES-th, in flat order
-  const int b = tile * CLASSIFY_TILE + (int)threadIdx.x / CORNER_LANES;
+  // brick b: the tile's threadIdx.x / BRICK_LANES-th, in flat order
+  const int b = tile * TILE + (int)threadIdx.x / BRICK_LANES;
   const int bb = min(b, n - 1);  // past the volume's end the lanes repeat its last brick, for the ballots
   const int bz = bb % p.nbz, by = (bb / p.nbz) % p.nby, bx = bb / (p.nby * p.nbz);
   int win[AUX_INTS] = {0, 0, 0};
   int c;
   if (MODE == FINE) {
+    const int q = (lane & (BRICK_LANES - 1)) / BOX_LANES;  // the group's place in the brick
     bool all_none = true, all_far = true, all_farish = true;
 #pragma unroll 1
-    for (int k = 0; k < 8; ++k) {
+    for (int i = 0; i < SERIAL; ++i) {
+      const int k = q * SERIAL + i;
       const float ox = (float)(2 * bx + (k >> 2)) * p.sub_edge + p.x_off_m;
       const float oy = (float)(2 * by + ((k >> 1) & 1)) * p.sub_edge, oz = (float)(2 * bz + (k & 1)) * p.sub_edge;
-      const int sc = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, win);
+      const int sc = classify_box<false, BOX_LANES>(table, pose, p, ox, oy, oz, p.sub_edge, j, win);
       all_none = all_none && sc == NONE;
       all_far = all_far && sc == FAR;
       all_farish = all_farish && (sc == FAR || sc == FAR_PARTIAL);
+    }
+    if (GROUPS > 1) {
+      // the brick's groups: a ballot of their leaders a fold, masked to the brick's lanes
+      constexpr unsigned BRICK_BITS = (1u << BRICK_LANES) - 1u;
+      const int shift = lane & ~(BRICK_LANES - 1);
+      const bool group_leader = j == 0;
+      all_none = ((__ballot_sync(0xffffffffu, group_leader && !all_none) >> shift) & BRICK_BITS) == 0u;
+      all_far = ((__ballot_sync(0xffffffffu, group_leader && !all_far) >> shift) & BRICK_BITS) == 0u;
+      all_farish = ((__ballot_sync(0xffffffffu, group_leader && !all_farish) >> shift) & BRICK_BITS) == 0u;
     }
     c = all_none ? NONE : (all_far ? FAR : (all_farish ? FAR_PARTIAL : ACTIVE));
   } else {
@@ -716,7 +749,7 @@ __device__ __forceinline__ void classify_and_rank(const float* __restrict__ tabl
                                     (float)bz * p.bm, p.bm, j, win);
   }
   if (b >= n) c = NONE;
-  const bool leader = j == 0;
+  const bool leader = (lane & (BRICK_LANES - 1)) == 0;
   const unsigned active = __ballot_sync(0xffffffffu, leader && c == ACTIVE);
   const unsigned work = __ballot_sync(0xffffffffu, leader && c != NONE);
   if (lane == 0) {
@@ -780,13 +813,21 @@ __device__ __forceinline__ void classify_and_rank(const float* __restrict__ tabl
       int *__restrict__ aux, const __grid_constant__ ClassifyParams p
 
 __global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_kernel(CLASSIFY_ARGS) {
-  classify_and_rank<COARSE>(table, pose, cls, scratch, rank, active_ids, work_ids, totals, overflow, aux, p);
+  classify_and_rank<COARSE, CLASSIFY_THREADS, CORNER_LANES>(table, pose, cls, scratch, rank, active_ids, work_ids,
+                                                            totals, overflow, aux, p);
 }
 __global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_split_kernel(CLASSIFY_ARGS) {
-  classify_and_rank<SPLIT>(table, pose, cls, scratch, rank, active_ids, work_ids, totals, overflow, aux, p);
+  classify_and_rank<SPLIT, CLASSIFY_THREADS, CORNER_LANES>(table, pose, cls, scratch, rank, active_ids, work_ids,
+                                                           totals, overflow, aux, p);
 }
-__global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_fine_kernel(CLASSIFY_ARGS) {
-  classify_and_rank<FINE>(table, pose, cls, scratch, rank, active_ids, work_ids, totals, overflow, aux, p);
+__global__ void __launch_bounds__(FINE_THREADS) classify_bricks_fine_kernel(CLASSIFY_ARGS) {
+  classify_and_rank<FINE, FINE_THREADS, FINE_LANES, FINE_BOX_LANES>(table, pose, cls, scratch, rank, active_ids,
+                                                                    work_ids, totals, overflow, aux, p);
+}
+// the earlier design of B15f (a brick's two lanes classify its 8 subcells in turn), a test-only entry
+__global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_fine_serial_kernel(CLASSIFY_ARGS) {
+  classify_and_rank<FINE, CLASSIFY_THREADS, CORNER_LANES>(table, pose, cls, scratch, rank, active_ids, work_ids,
+                                                          totals, overflow, aux, p);
 }
 #undef CLASSIFY_ARGS
 
@@ -1259,13 +1300,14 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 }
 
 // table: depth_mips' (rows, 3); pose: the 24 floats of the dual volume->camera pose (value lanes read);
-// scratch: scratch_words 8-byte words, zeroed when made, 1 + STATUS_STRIDE a tile of CLASSIFY_TILE bricks at
-// least, that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their
-// tiles, mod 2^32); epoch: its launches so far, this one included (from 1, below 2^42); cls, rank,
-// active_ids, work_ids: one int a brick; totals: n_active, n_work; overflow: one byte. consts: brick edge,
-// fx, fy, cx, cy, the four plane constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, the slab's x origin shift (B19a;
-// 0 for the whole volume), each a float32. mode: COARSE (B3b), SPLIT (B15s; aux: AUX_INTS ints a brick, the
-// windows) or FINE (B15f; sub_edge: the subcell edge, float32)
+// scratch: scratch_words 8-byte words, zeroed when made, 1 + STATUS_STRIDE a tile of the launch at least, that
+// belong to one stream at a time; ticket_base: the tickets its earlier launches took (their tiles, mod 2^32);
+// epoch: its launches so far, this one included (from 1, below 2^42); cls, rank, active_ids, work_ids: one int a
+// brick; totals: n_active, n_work; overflow: one byte. consts: brick edge, fx, fy, cx, cy, the four plane
+// constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, the slab's x origin shift (B19a; 0 for the whole volume), each a
+// float32. mode: COARSE (B3b), SPLIT (B15s; aux: AUX_INTS ints a brick, the
+// windows) or FINE (B15f; sub_edge: the subcell edge, float32; tiles of FINE_TILE bricks); FINE_SERIAL its earlier
+// design, a test-only entry (tiles of CLASSIFY_TILE)
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
                                   long long scratch_words, unsigned ticket_base, unsigned long long epoch,
                                   void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
@@ -1274,17 +1316,19 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
                                   void* stream) {
   ClassifyParams p{};
   if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
-  if (mode < COARSE || mode > FINE || (mode == SPLIT && aux == nullptr)) return (int)cudaErrorInvalidValue;
+  if (mode < COARSE || mode > FINE_SERIAL || (mode == SPLIT && aux == nullptr)) return (int)cudaErrorInvalidValue;
   p.sub_edge = sub_edge;
   p.ticket_base = ticket_base;
   p.epoch = epoch;
   if (epoch < 1 || epoch >= (1ull << (64 - 2 * STATUS_COUNT_BITS))) return (int)cudaErrorInvalidValue;
   const long long n = (long long)nbx * nby * nbz;
-  p.tiles = (int)((n + CLASSIFY_TILE - 1) / CLASSIFY_TILE);
+  const int tile = mode == FINE ? FINE_TILE : CLASSIFY_TILE;
+  p.tiles = (int)((n + tile - 1) / tile);
   if (scratch_words < 1 + (long long)p.tiles * STATUS_STRIDE) return (int)cudaErrorInvalidValue;
   const auto kernel = mode == FINE ? classify_bricks_fine_kernel
-                                   : (mode == SPLIT ? classify_bricks_split_kernel : classify_bricks_kernel);
-  kernel<<<p.tiles, CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
+                      : mode == FINE_SERIAL ? classify_bricks_fine_serial_kernel
+                      : (mode == SPLIT ? classify_bricks_split_kernel : classify_bricks_kernel);
+  kernel<<<p.tiles, mode == FINE ? FINE_THREADS : CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (int*)cls, (unsigned long long*)scratch, (int*)rank, (int*)active_ids,
       (int*)work_ids, (int*)totals, (unsigned char*)overflow, (int*)aux, p);
   return (int)cudaGetLastError();

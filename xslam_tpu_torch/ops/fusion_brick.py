@@ -83,6 +83,9 @@ NONE, FAR, ACTIVE, FAR_PARTIAL, MIXED = 0, 1, 2, 3, 4
 SUBCELL = 4  # voxels along a subcell's edge: a brick holds 2^3 of them
 AUX_INTS = 3  # a window's ints in pack_aux: far cells | cell edge << 4, the origin across and down in pixels
 CLASSIFY_TILE = 128  # bricks a tile (a block) of csrc/bricks.cu's classifier scan
+# B15f's lanes a subcell, lanes a brick (its groups classify the 8 subcells, a share each, in turn) and threads a block
+FINE_BOX_LANES, FINE_LANES, FINE_THREADS = 1, 4, 1024
+FINE_TILE = FINE_THREADS // FINE_LANES  # bricks a tile of B15f's scan
 CLASSIFY_STATUS_STRIDE = 16  # 8-byte words of the classifier's scratch a tile: its status word, one a 128 B line
 SUBCELL_ROWS = 16  # candidate rows a block of csrc/bricks.cu's subcell classifier takes (8 subcells, 2 lanes each)
 
@@ -566,10 +569,11 @@ def subcell_consts(cfg) -> list:
 
 
 class ClassifyScratch:
-    """B3b's scratch on one device and stream, since launches on one stream
-    run in order: word 0 the ticket counter, which runs on from launch to
-    launch, then a status word a tile of :data:`CLASSIFY_TILE` bricks every
-    :data:`CLASSIFY_STATUS_STRIDE` words, tagged with the launch's epoch.
+    """The classifiers' scratch on one device and stream, since launches on
+    one stream run in order: word 0 the ticket counter, which runs on from
+    launch to launch, then a status word a tile of the launch
+    (:func:`classify_tiles`) every :data:`CLASSIFY_STATUS_STRIDE` words,
+    tagged with the launch's epoch.
     Zeroed once when made; the host counts the tickets taken and the
     launches made, so no launch clears anything."""
 
@@ -596,18 +600,20 @@ _subcell_scratch: dict = {}  # (device, stream) -> B15c's ClassifyScratch: its t
 
 
 def classify_scratch(device: torch.device, n_bricks: int) -> ClassifyScratch:
-    """B3b's :class:`ClassifyScratch` on ``device``'s current stream, made
-    anew where a larger volume needs more tiles."""
+    """The classifiers' :class:`ClassifyScratch` on ``device``'s current
+    stream, room for either tiling, made anew where a larger volume needs
+    more tiles."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    words = 1 + classify_tiles(n_bricks) * CLASSIFY_STATUS_STRIDE
+    words = 1 + max(classify_tiles(n_bricks), classify_tiles(n_bricks, fine=True)) * CLASSIFY_STATUS_STRIDE
     if key not in _classify_scratch or _classify_scratch[key].words.numel() < words:
         _classify_scratch[key] = ClassifyScratch(device, words)
     return _classify_scratch[key]
 
 
-def classify_tiles(n_bricks: int) -> int:
-    """Blocks of a B3b launch: tiles of :data:`CLASSIFY_TILE` bricks."""
-    return -(-n_bricks // CLASSIFY_TILE)
+def classify_tiles(n_bricks: int, fine: bool = False) -> int:
+    """Blocks of a B3b or B15s launch: tiles of :data:`CLASSIFY_TILE` bricks;
+    of a B15f launch (``fine``): tiles of :data:`FINE_TILE`."""
+    return -(-n_bricks // (FINE_TILE if fine else CLASSIFY_TILE))
 
 
 def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, cfg, cap: int, split: bool = False,
@@ -659,7 +665,7 @@ def classify_bricks(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics, c
     else:
         kernel = "classify_bricks" if x_offset is None else "classify_bricks_slab"
         kernels.launch("classify_bricks", dev, *args, *consts, int(cap))
-    scratch.launched(classify_tiles(n))
+    scratch.launched(classify_tiles(n, fine))
     kernels.launch_counts[kernel] += 1
     return BrickClasses(cls, rank, active_ids, work_ids, totals, overflow, aux)
 

@@ -518,8 +518,8 @@ def march_skip_dense(vol: VolumeState, dist: torch.Tensor, pose: torch.Tensor, i
 
 def window_march_dense(vol: VolumeState, pose: torch.Tensor, intr: Intrinsics, cfg: VolumeConfig,
                        coarse: RaycastHit, window: int, stride: int = 1) -> RaycastHit:
-    """Kernel B14c (``csrc/window.cu``, ``window_march_kernel<true>``
-    without the refine): the dense volume's window repair
+    """Kernel B14c (``csrc/window.cu``, ``window_dense_kernel``): the
+    dense volume's window repair
     (``xslam_tpu/ops/raycast.py::_window_repair``) along the rays of every
     ``stride``-th pixel of ``intr``, each marched ``window`` steps around the
     earliest event of its 2x2 neighbourhood in ``coarse``, the hits one level
@@ -678,7 +678,8 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
     ``return_samples`` also the two samples bracketing each recorded crossing,
     ``(f0, f1)``; (1, -1) where none. ``stats``, where given, gets
     ``"samples"``: the reads a march that stops once both events are known
-    (or past 5 m) takes, the first one included. ``first_event``: a ray
+    (or past 5 m) takes, the first one included, and ``"voxels"``: the
+    distinct voxels inside the volume those reads touch. ``first_event``: a ray
     stops at its first event, a crossing or a death, so it records one of
     the two (:func:`march_temporal_compact`'s rule; ``stats`` then counts the
     reads up to that event)."""
@@ -694,7 +695,15 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
     t_begin = RAY_MIN_M + torch.clamp(k0, min=0.0) * step
     start_v = ray_start.v[:, None, None]
 
-    prev = read_fn(_clamped(to_index(torch.floor((start_v + dirs_v * t_begin) / voxel)), shape))
+    g_first = _clamped(to_index(torch.floor((start_v + dirs_v * t_begin) / voxel)), shape)
+    prev = read_fn(g_first)
+    read_at = []  # with stats: the flat voxel of every read inside the volume
+
+    def flat(g, mask):
+        return ((g[0] * shape[1] + g[1]) * shape[2] + g[2])[mask]
+
+    if stats is not None:
+        read_at.append(flat(g_first, has_anchor))
     t_found = torch.full((H, W), INF_T, dtype=torch.float32, device=dev)
     t_dead = torch.full_like(t_found, INF_T)
     f0 = torch.ones((H, W), dtype=torch.float32, device=dev)
@@ -707,9 +716,11 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
         g = to_index(torch.floor((start_v + dirs_v * (t_curr + step)) / voxel))
         # the reference's loop condition is on t_curr (RayCaster.cu:236)
         live = has_anchor & (t_curr < RAY_MAX_M) & ~done
-        if stats is not None:
-            samples += int((live & ~((t_found < INF_T) & (t_dead < INF_T))).sum())
         in_vol = _in_volume(g, shape)
+        if stats is not None:
+            reads = live & ~((t_found < INF_T) & (t_dead < INF_T))
+            samples += int(reads.sum())
+            read_at.append(flat(g, reads & in_vol))
         inside = in_vol & live
         tsdf = read_fn(g)
         death = live & (~in_vol | (inside & (prev < 0.0) & (tsdf > 0.0)))
@@ -724,6 +735,7 @@ def _window_repair(ray_start: CSFD, dirs_v: torch.Tensor, coarse: RaycastHit, wi
             done = done | crossing | death
     if stats is not None:
         stats["samples"] = samples
+        stats["voxels"] = int(torch.unique(torch.cat(read_at)).numel())
     hit = RaycastHit(t_found, t_dead)
     return (hit, f0, f1) if return_samples else hit
 

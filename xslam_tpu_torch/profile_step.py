@@ -72,7 +72,7 @@ HAND_KERNELS = {
     "classify_bricks_split": "classify_bricks_split_kernel", "classify_bricks_fine": "classify_bricks_fine_kernel",
     "classify_subcells": "classify_subcells_kernel", "fuse_bricks_mixed": r"fuse_bricks_mixed_kernel<\w+, \w+>",
     "fuse_bricks_subcell": r"fuse_bricks_subcell_kernel<\w+, \w+>",
-    "window_march": "window_march_kernel<false, false>", "window_march_dense": "window_march_kernel<true, false>",
+    "window_march": "window_march_kernel<false, false>", "window_march_dense": "window_dense_kernel",
     "window_march_first_event": "window_march_kernel<false, true>",
     "skip_field": ("event_mask_kernel<false>", "skip_distance_kernel<false>"),
     "skip_field_dense": ("event_mask_kernel<true>", "skip_distance_kernel<true>"),
