@@ -46,8 +46,8 @@ Phases, in order:
    ray; the wrapper's lanes a ray timed in turns against one lane, warm and
    cold, with the blocks launched and the warps an SM); the dense
    layout's B14a (distance), B14b (skip march, strides 1 and 2) and B14c
-   (window repair, strides 2 and 1) on the 256^3 volume along the 480x640
-   rays, bit for bit; the brick layout's
+   (window repair, strides 2 and 1; its bound counts the distinct voxels its
+   samples read) on the 256^3 volume along the 480x640 rays, bit for bit; the brick layout's
    raycast kernels on the brick rows of that volume at the bench path's
    shapes (240x320 model maps): B4 (the anchored window march) with its
    ``reuse`` refine on frame 3's depth anchors and without it at the
@@ -1053,26 +1053,6 @@ def _step_depth(column: int, H: int, W: int) -> np.ndarray:
     return depth
 
 
-def _fine_earlier(table, pose, intr, eng, cap):
-    """B15f's earlier design (a brick's two lanes classify its 8 subcells in turn; a test-only entry) on the
-    classifiers' scratch, as ``classify_bricks(fine=True)`` launches B15f."""
-    from xslam_tpu_torch.ops import kernels
-    from xslam_tpu_torch.ops import fusion_brick as fb
-
-    nb = tuple(s // fb.BRICK for s in eng.resolution)
-    n, dev = nb[0] * nb[1] * nb[2], table.device
-    out = fb.BrickClasses(torch.empty(nb, dtype=torch.int32, device=dev),
-                          *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)),
-                          torch.empty(2, dtype=torch.int32, device=dev), torch.empty((), dtype=torch.bool, device=dev))
-    scratch = fb.classify_scratch(dev, n)
-    kernels.launch("classify_bricks_fine_serial", dev, table, pose, out.cls, scratch.words, *scratch.next_launch(),
-                   out.rank, out.active_ids, out.work_ids, out.totals, out.overflow, intr.height, intr.width,
-                   fb._layout_ints(fb.mip_layout(intr.height, intr.width)), fb.classify_consts(intr, eng),
-                   fb.subcell_consts(eng)[1], int(cap))
-    scratch.launched(fb.classify_tiles(n))
-    return out
-
-
 def phase_b15(ctx):
     """B15 on the card: the split classifier (B15s), the fine classifier
     (B15f), the subcell classifier and lists (B15c) and B3c's MIXED and
@@ -1147,7 +1127,6 @@ def phase_b15(ctx):
         fine = fb.classify_bricks(table, pose, intr, eng, cap, fine=True)
         fine_plain = fb.rank_bricks_plain(fb.classify_bricks_fine_plain(table, pose, intr, eng), cap)
         split_equal, fine_equal = _bricks_equal(split, split_plain), _bricks_equal(fine, fine_plain)
-        fine_earlier_equal = _bricks_equal(_fine_earlier(table, pose, intr, eng, cap), fine_plain)
         # B15c on the coarse classes at cap, lists of the cap; also on the split and the fine classes
         coarse = fb.classify_bricks(table, pose, intr, eng, cap)
         subcell_equal = []
@@ -1264,11 +1243,6 @@ def phase_b15(ctx):
             }
             ms = {k: time_ms(fn, 50 if k.startswith("classify") else 20) for k, fn in timed.items()}
             cold = {k: time_cold_ms(fn, 20) for k, fn in timed.items()}
-            # B15f's earlier design, in turns with it (earlier, B15f, B15f, earlier), warm, and cold
-            earlier = classify("classify_bricks_fine_serial", tail=(sub_consts[1],))
-            fine_turns = [time_ms(fn, 50) for fn in (earlier, timed["classify_bricks_fine"],
-                                                     timed["classify_bricks_fine"], earlier)]
-            fine_earlier_cold = time_cold_ms(earlier, 20)
             plain_ms = {
                 "classify_bricks_split": time_ms(
                     lambda: fb.classify_bricks_full_plain(table, pose, intr, eng, split=True), 2),
@@ -1310,15 +1284,13 @@ def phase_b15(ctx):
              classes_split=dict(zip(("none", "far", "active", "far_partial", "mixed"), counts)),
              n_active=dict(coarse=n_active, split=n_split[0], fine=n_fine[0]), cap=cap,
              subcells_listed=listed, subcell_counts=sub.counts.tolist(), split_equal_to_plain=split_equal,
-             fine_equal_to_plain=fine_equal, fine_earlier_equal_to_plain=fine_earlier_equal,
-             subcells_equal_to_plain=subcell_equal, fuse_variants=equal,
+             fine_equal_to_plain=fine_equal, subcells_equal_to_plain=subcell_equal, fuse_variants=equal,
              bilinear_equal_to_plain=bilinear_equal, starved_subcell_cap=starved, voxels_updated=updated, ms=ms,
              cold_ms=cold, plain_ms=plain_ms, bound_ms={k: b[0] for k, b in bounds.items()},
              bound_by={k: b[1] for k, b in bounds.items()}, library_ms=None,
              library_note="no single PyTorch call computes any of them")
-        check(split_equal and fine_equal and fine_earlier_equal and all(subcell_equal),
-              f"B15 classifiers at {name}: split {split_equal}, fine {fine_equal} (earlier design "
-              f"{fine_earlier_equal}), subcells {subcell_equal}")
+        check(split_equal and fine_equal and all(subcell_equal),
+              f"B15 classifiers at {name}: split {split_equal}, fine {fine_equal}, subcells {subcell_equal}")
         check(all(all(v.values()) for v in equal.values()), f"B3c's B15 variants at {name}: {equal}")
         check(bilinear_equal is None or all(bilinear_equal.values()), f"B15 bilinear at {name}: {bilinear_equal}")
         check(starved is None or (starved["overflow"] and starved["lists_overflow"] and starved["lists_equal"]
@@ -1334,10 +1306,8 @@ def phase_b15(ctx):
                                    bound_ms=bounds[k][0], bound_by=bounds[k][1], classify_bricks_ms=ms["classify_bricks"],
                                    classify_bricks_cold_ms=cold["classify_bricks"], fuse_bricks_ms=ms["fuse_bricks"],
                                    fuse_bricks_cold_ms=cold["fuse_bricks"])
-            rows_out["classify_bricks_fine"].update(
-                turns_ms=fine_turns[1:3], earlier_ms=[fine_turns[0], fine_turns[3]],
-                earlier_cold_ms=fine_earlier_cold, lanes=fb.FINE_LANES, threads=fb.FINE_THREADS,
-                blocks=fb.classify_tiles(n, True))
+            rows_out["classify_bricks_fine"].update(lanes=fb.FINE_LANES, threads=fb.FINE_THREADS,
+                                                    blocks=fb.classify_tiles(n, True))
         del k2, k2_rows
     return rows_out
 
@@ -1352,7 +1322,9 @@ def phase_dense_marches(ctx):
     fixed march's accepted rays and ``t_found`` on them; B14c at stride 2
     (``hier2``'s middle repair, window 12, anchored at K3's stride-4 hits) and
     1 (its last repair, the configuration's ``raycast_hier_window``, anchored
-    at that), both events bit for bit. Each timed warm and cold. Then the
+    at that), both events bit for bit, its bound by the distinct voxels
+    ``_window_repair``'s samples read (its share of that bound printed).
+    Each timed warm and cold. Then the
     skip march's two forms (a warp a ray, a thread a ray; B14b and B5b) on
     both layouts at 4,800, 19,200, 76,800 and 307,200 rays (the dense planes
     along the 480x640 rays at strides 8, 4, 2, 1; the brick rows along the
@@ -1518,33 +1490,17 @@ def phase_dense_marches(ctx):
         w_ms, w_cold = time_ms(run_window, 50), time_cold_ms(run_window, 30)
         w_plain = time_ms(lambda: raycast._window_repair(ray_start, ray_dir.v[:, ::s, ::s], coarse, window, eng,
                                                          raycast._dense_reader(vol.value), res), 3)
-        # B14c's earlier design (B4's body over the planes, a test-only entry): its bits, then in turns with B14c
-        # (earlier, B14c, B14c, earlier), warm, and cold
-        etf, etd = torch.empty_like(tf), torch.empty_like(td)
-
-        def run_earlier(c=coarse, wargs=wargs):
-            check(ext.window_march_dense_earlier(vol.value, vol.grad, pose, c.t_found, c.t_dead, None, None, etf,
-                                                 etd, *wargs, stream) == 0, "window_march_dense_earlier failed")
-
-        run_earlier()
-        torch.cuda.synchronize()
-        earlier_equal = bool(torch.equal(etf, plain.t_found) and torch.equal(etd, plain.t_dead))
-        check(earlier_equal, f"B14c's earlier design (stride {s}) differs from _window_repair")
-        w_turns = [time_ms(fn, 50) for fn in (run_earlier, run_window, run_window, run_earlier)]
-        w_earlier_cold = time_cold_ms(run_earlier, 30)
         # bytes: the coarse hits in, both times out, the pose, the distinct voxels the samples read (4 B each);
         # operations: ~60 to make a ray, ~20 a sample
         w_bound = bound_ms(ch * cw * 8 + Hs * Ws * 8 + 192 + stats["voxels"] * 4,
                            Hs * Ws * 60 + stats["samples"] * 20)
         emit("B14c window_march_dense", stride=s, window=window, shape=[Hs, Ws], coarse_shape=[ch, cw], **eq,
              hit_fraction=float((hit.t_found < torch.clamp(hit.t_dead, max=INF_T)).float().mean()),
-             samples=stats["samples"], voxels=stats["voxels"], ms=w_ms, cold_ms=w_cold, turns_ms=w_turns[1:3],
-             earlier_ms=[w_turns[0], w_turns[3]], earlier_cold_ms=w_earlier_cold, earlier_equal=earlier_equal,
-             plain_ms=w_plain, bound_ms=w_bound[0], bound_by=w_bound[1], share_of_bound=w_bound[0] / w_ms,
-             library_ms=None, library_note="no single PyTorch call computes it")
+             samples=stats["samples"], voxels=stats["voxels"], ms=w_ms, cold_ms=w_cold, plain_ms=w_plain,
+             bound_ms=w_bound[0], bound_by=w_bound[1], share_of_bound=w_bound[0] / w_ms, library_ms=None,
+             library_note="no single PyTorch call computes it")
         window_rows[s] = dict(max_abs_err=eq["max_abs_err"], ms=w_ms, cold_ms=w_cold, plain_ms=w_plain,
-                              bound_ms=w_bound[0], bound_by=w_bound[1], window=window, voxels=stats["voxels"],
-                              earlier_ms=min(w_turns[0], w_turns[3]), earlier_cold_ms=w_earlier_cold)
+                              bound_ms=w_bound[0], bound_by=w_bound[1], window=window, voxels=stats["voxels"])
         coarse = hit
     return {
         "skip_field_dense": dict(max_abs_err=0.0, ms=f_ms, cold_ms=f_cold, plain_ms=f_plain, bound_ms=f_bound[0],

@@ -14,8 +14,8 @@ code, not loads executed: a branch's loads count whether it runs or not),
 and, for the block size given here, how many blocks and warps an SM of
 65,536 registers holds by registers alone. Each instantiation is listed
 apart (``refine_kernel<false>`` K5, ``refine_kernel<true>`` K5r over the
-brick rows; ``window_march_kernel<false, false>`` B4, ``<true, false>``
-B14c, ``<false, true>`` B16; ``march_skip_ray_kernel<false>`` B5b's ray
+brick rows; ``window_march_kernel<false, false>`` B4, ``<false, true>``
+B16; ``march_skip_ray_kernel<false>`` B5b's ray
 form, ``<true>`` B14b's; ``march_shard_kernel<true>`` B19b,
 ``<false>`` its earlier design; ``march_group_kernel<G>`` K3 at a stride,
 G lanes a ray; ``schur_cg_kernel<R, KEYFRAMES>`` B18's passes;
@@ -43,10 +43,10 @@ BLOCK_THREADS = {
     "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 64,
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
-    "classify_bricks_split_kernel": 256, "classify_bricks_fine_kernel": 1024, "classify_bricks_fine_serial_kernel": 256,
+    "classify_bricks_split_kernel": 256, "classify_bricks_fine_kernel": 1024,
     "classify_subcells_kernel": 256,
     "fuse_bricks_mixed_kernel": 128, "fuse_bricks_subcell_kernel": 128,
-    "window_march_kernel": 128, "window_dense_kernel": 128, "window_group_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
+    "window_march_kernel": 128, "window_dense_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
     "march_skip_kernel": 128, "march_skip_ray_kernel": 128, "extract_count_kernel": 256, "extract_points_kernel": 256,
     "extract_normals_kernel": 256, "tsdf_loss_kernel": 128, "tsdf_field_kernel": 128,
     "tsdf_band_count_kernel": 256, "tsdf_band_list_kernel": 256,

@@ -203,16 +203,6 @@ int classify_bricks_fine(const torch::Tensor& table, const torch::Tensor& pose, 
                      nullptr, H, W, levels, consts, (float)sub_edge, cap, 2, stream);
 }
 
-// B15f's earlier design (a brick's two lanes classify its 8 subcells in turn), a test-only entry
-int classify_bricks_fine_serial(const torch::Tensor& table, const torch::Tensor& pose, torch::Tensor cls,
-                                torch::Tensor scratch, int64_t ticket_base, int64_t epoch, torch::Tensor rank,
-                                torch::Tensor active_ids, torch::Tensor work_ids, torch::Tensor totals,
-                                torch::Tensor overflow, int64_t H, int64_t W, const std::vector<int64_t>& levels,
-                                const std::vector<double>& consts, double sub_edge, int64_t cap, int64_t stream) {
-  return classify_on(table, pose, cls, scratch, ticket_base, epoch, rank, active_ids, work_ids, totals, overflow,
-                     nullptr, H, W, levels, consts, (float)sub_edge, cap, 3, stream);
-}
-
 // B15c. overflow: classify_bricks' flag, ORed with the lists'; scratch: a ClassifyScratch whose word 0 is the
 // ticket counter; scls, srank: (cap, 8) int32; counts: (8,) int32; sub_overflow: () bool; sub_consts: the voxel
 // size and the subcell edge as float32; x_offset: a slab's first x (B19a), 0 for the whole volume
@@ -430,18 +420,6 @@ int window_march_dense(const torch::Tensor& value, const torch::Tensor& grad, co
                        float inv_fy, int64_t stream) {
   return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
                          W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 1, 0, stream);
-}
-
-// B14c's earlier design (B4's body over the dense planes), a test-only entry
-int window_march_dense_earlier(const torch::Tensor& value, const torch::Tensor& grad, const torch::Tensor& pose,
-                               const torch::Tensor& anchor, const std::optional<torch::Tensor>& anchor_dead,
-                               const std::optional<torch::Tensor>& vmap_v, const std::optional<torch::Tensor>& vmap_g,
-                               torch::Tensor t_found, const std::optional<torch::Tensor>& t_dead, int64_t nbx,
-                               int64_t nby, int64_t nbz, int64_t H, int64_t W, int64_t ch, int64_t cw, int64_t stride,
-                               int64_t window, float vs, float inv_vs, float step, float inv_step, float cx, float cy,
-                               float inv_fx, float inv_fy, int64_t stream) {
-  return window_march_on(value, grad, pose, anchor, anchor_dead, vmap_v, vmap_g, t_found, t_dead, nbx, nby, nbz, H,
-                         W, ch, cw, stride, window, vs, inv_vs, step, inv_step, cx, cy, inv_fx, inv_fy, 2, 0, stream);
 }
 
 // vmap_v, vmap_g, nmap_v, nmap_g: the (3, H, W) outputs; direct: an int32 counter of the normal samples read
@@ -685,7 +663,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("classify_bricks", &classify_bricks);
   m.def("classify_bricks_split", &classify_bricks_split);
   m.def("classify_bricks_fine", &classify_bricks_fine);
-  m.def("classify_bricks_fine_serial", &classify_bricks_fine_serial);
   m.def("classify_subcells", &classify_subcells);
   m.def("fuse_bricks", &fuse_bricks);
   m.def("fuse_bricks_mixed", &fuse_bricks_mixed);
@@ -693,7 +670,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("window_march", &window_march);
   m.def("window_march_first_event", &window_march_first_event);
   m.def("window_march_dense", &window_march_dense);
-  m.def("window_march_dense_earlier", &window_march_dense_earlier);
   m.def("skip_field", &skip_field);
   m.def("skip_field_dense", &skip_field_dense);
   m.def("event_mask", &event_mask);

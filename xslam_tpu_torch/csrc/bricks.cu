@@ -100,8 +100,7 @@
 //   work is 262,144 boxes' chains, and it is bound by the instructions it issues, not by a chain's latency: B3b's
 //   two lanes a box repeat the chain's tail (the level search, the cells, the intervals) on both lanes, one lane a
 //   box runs it once, and the cap keeps 32 warps an SM to hide the table reads (PERF.md holds the sweep: 1 or 2
-//   lanes a box, 1 to 16 lanes a brick, 256 to 1024 threads). classify_bricks_fine_serial_kernel is the earlier
-//   design (a brick's two lanes classify its 8 subcells in turn), a test-only entry.
+//   lanes a box, 1 to 16 lanes a brick, 256 to 1024 threads).
 // B15c classify_subcells_kernel: the subcell stage's classes and lists, a launch between B3b and B3c (below).
 // B19a, a slab of the sharded engine (parallel/sharded.py) whose local x 0 is global x x_offset: the classifiers'
 //   boxes and B3c's voxels take their global positions, each in the JAX package's own rounding (ClassifyParams,
@@ -145,7 +144,7 @@ constexpr int INDEX_LIMIT = 1 << 30;  // ops/sampling.py::_INDEX_LIMIT
 enum : int { NONE = 0, FAR = 1, ACTIVE = 2, FAR_PARTIAL = 3, MIXED = 4 };
 // the classifier's variants: B3b's coarse classes, B15s's split classes with MIXED and the windows, B15f's classes
 // of the 4^3 subcells folded by brick
-enum : int { COARSE = 0, SPLIT = 1, FINE = 2, FINE_SERIAL = 3 };
+enum : int { COARSE = 0, SPLIT = 1, FINE = 2 };
 // B15f: a brick's FINE_LANES lanes are groups of FINE_BOX_LANES, each classifying its share of the brick's 8
 // subcells in turn; a block of FINE_THREADS threads holds FINE_TILE bricks, the tile of its scan
 constexpr int FINE_BOX_LANES = 1;
@@ -824,11 +823,6 @@ __global__ void __launch_bounds__(FINE_THREADS) classify_bricks_fine_kernel(CLAS
   classify_and_rank<FINE, FINE_THREADS, FINE_LANES, FINE_BOX_LANES>(table, pose, cls, scratch, rank, active_ids,
                                                                     work_ids, totals, overflow, aux, p);
 }
-// the earlier design of B15f (a brick's two lanes classify its 8 subcells in turn), a test-only entry
-__global__ void __launch_bounds__(CLASSIFY_THREADS) classify_bricks_fine_serial_kernel(CLASSIFY_ARGS) {
-  classify_and_rank<FINE, CLASSIFY_THREADS, CORNER_LANES>(table, pose, cls, scratch, rank, active_ids, work_ids,
-                                                          totals, overflow, aux, p);
-}
 #undef CLASSIFY_ARGS
 
 // Candidate row r's 8 subcell classes from L2 (other blocks wrote them), or NONE at r >= end.
@@ -1306,8 +1300,7 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 // brick; totals: n_active, n_work; overflow: one byte. consts: brick edge, fx, fy, cx, cy, the four plane
 // constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, the slab's x origin shift (B19a; 0 for the whole volume), each a
 // float32. mode: COARSE (B3b), SPLIT (B15s; aux: AUX_INTS ints a brick, the
-// windows) or FINE (B15f; sub_edge: the subcell edge, float32; tiles of FINE_TILE bricks); FINE_SERIAL its earlier
-// design, a test-only entry (tiles of CLASSIFY_TILE)
+// windows) or FINE (B15f; sub_edge: the subcell edge, float32; tiles of FINE_TILE bricks)
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
                                   long long scratch_words, unsigned ticket_base, unsigned long long epoch,
                                   void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,
@@ -1316,7 +1309,7 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
                                   void* stream) {
   ClassifyParams p{};
   if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
-  if (mode < COARSE || mode > FINE_SERIAL || (mode == SPLIT && aux == nullptr)) return (int)cudaErrorInvalidValue;
+  if (mode < COARSE || mode > FINE || (mode == SPLIT && aux == nullptr)) return (int)cudaErrorInvalidValue;
   p.sub_edge = sub_edge;
   p.ticket_base = ticket_base;
   p.epoch = epoch;
@@ -1326,8 +1319,7 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   p.tiles = (int)((n + tile - 1) / tile);
   if (scratch_words < 1 + (long long)p.tiles * STATUS_STRIDE) return (int)cudaErrorInvalidValue;
   const auto kernel = mode == FINE ? classify_bricks_fine_kernel
-                      : mode == FINE_SERIAL ? classify_bricks_fine_serial_kernel
-                      : (mode == SPLIT ? classify_bricks_split_kernel : classify_bricks_kernel);
+                                   : (mode == SPLIT ? classify_bricks_split_kernel : classify_bricks_kernel);
   kernel<<<p.tiles, mode == FINE ? FINE_THREADS : CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (int*)cls, (unsigned long long*)scratch, (int*)rank, (int*)active_ids,
       (int*)work_ids, (int*)totals, (unsigned char*)overflow, (int*)aux, p);

@@ -41,9 +41,6 @@
 // 2 or 4 lanes a ray lost too (PERF.md holds the sweep). Plain version:
 // ops/raycast.py::_window_repair with the dense reader. Bound: the coarse
 // hits in, both times out, the distinct voxels its samples read.
-// window_group_kernel<G> (G lanes a ray) is the sweep's other candidate, and
-// xs_window_march's dense = 2 the earlier design (B4's body over the planes),
-// a test-only entry.
 //
 // B16, the first-event variant (window_march_kernel<false, true>: the brick
 // rows, an anchor map), replaces the XLA code of
@@ -98,7 +95,6 @@ constexpr int BATCH = 4;                                   // steps a ray reads 
 constexpr int NO_STEP = 0x7fffffff;
 constexpr int DENSE_THREADS = 128;  // threads of a B14c block
 constexpr int DENSE_ROUND = 4;      // steps B14c reads before it tests them
-constexpr int DENSE_LANES = 1;      // lanes a ray of B14c: 1 window_dense_kernel, 2 or 4 window_group_kernel
 
 struct WindowParams {
   xs::Rows r;
@@ -308,30 +304,6 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
   store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
 }
 
-// B14c's anchor: the earliest event of pixel (x, y)'s 2x2 coarse neighbourhood, and t_begin on the global grid one
-// step early; false where the neighbourhood has none
-__device__ __forceinline__ bool dense_begin(const float* __restrict__ anchor, const float* __restrict__ dead, int x,
-                                            int y, const WindowParams& p, float& t_begin) {
-  const int i0 = y >> 1, j0 = x >> 1;
-  const float t0 = fminf(fminf(coarse_event(anchor, dead, i0, j0, p), coarse_event(anchor, dead, i0 + 1, j0, p)),
-                         fminf(coarse_event(anchor, dead, i0, j0 + 1, p), coarse_event(anchor, dead, i0 + 1, j0 + 1, p)));
-  const bool has_anchor = t0 < INF_T;
-  const float k0 = fmaxf(floorf(((has_anchor ? t0 : RAY_MIN) - RAY_MIN) * p.inv_step) - 1.0f, 0.0f);
-  t_begin = RAY_MIN + k0 * p.step;
-  return has_anchor;
-}
-
-// the value at the clamped voxel of t_begin: step 0's prev
-__device__ __forceinline__ float dense_first(const float* __restrict__ value, const WindowParams& p,
-                                             const float s[3], const float d[3], float t_begin) {
-  int g[3];
-  xs::sample_voxel(s, d, t_begin, p.inv_vs, g);
-  g[0] = min(max(g[0], 0), p.r.X - 1);
-  g[1] = min(max(g[1], 0), p.r.Y - 1);
-  g[2] = min(max(g[2], 0), p.r.Z - 1);
-  return read_voxel<true>(value, p.r, g, true);
-}
-
 // B14c: a thread a ray; prev, then rounds of DENSE_ROUND steps, each read before any test and tested in order (see
 // the header)
 __global__ void __launch_bounds__(DENSE_THREADS)
@@ -345,15 +317,28 @@ __global__ void __launch_bounds__(DENSE_THREADS)
   int x, y;
   xs::tile_pixel<DENSE_THREADS>(tid, x, y);
   if (x >= p.W || y >= p.H) return;
-  float t_begin;
-  const bool has_anchor = dense_begin(anchor, anchor_dead, x, y, p, t_begin);
+
+  // the anchor: the earliest event of the 2x2 coarse neighbourhood, on the global grid one step early
+  const int i0 = y >> 1, j0 = x >> 1;
+  const float t0 = fminf(fminf(coarse_event(anchor, anchor_dead, i0, j0, p), coarse_event(anchor, anchor_dead, i0 + 1, j0, p)),
+                         fminf(coarse_event(anchor, anchor_dead, i0, j0 + 1, p),
+                               coarse_event(anchor, anchor_dead, i0 + 1, j0 + 1, p)));
+  const bool has_anchor = t0 < INF_T;
+  const float k0 = fmaxf(floorf(((has_anchor ? t0 : RAY_MIN) - RAY_MIN) * p.inv_step) - 1.0f, 0.0f);
+  const float t_begin = RAY_MIN + k0 * p.step;
   int kc = NO_STEP, kd = NO_STEP;  // the ray's first crossing and first death, by step
   if (has_anchor) {
     Dual dir[3];
     xs::camera_ray(c2v, (float)(x * p.stride), (float)(y * p.stride), p.cam, dir);
     const float s[3] = {c2v[18], c2v[19], c2v[20]};
     const float d[3] = {dir[0].v, dir[1].v, dir[2].v};
-    float prev = dense_first(value, p, s, d, t_begin);
+    // step 0's prev: the read at the clamped voxel of t_begin
+    int g[3];
+    xs::sample_voxel(s, d, t_begin, p.inv_vs, g);
+    g[0] = min(max(g[0], 0), p.r.X - 1);
+    g[1] = min(max(g[1], 0), p.r.Y - 1);
+    g[2] = min(max(g[2], 0), p.r.Z - 1);
+    float prev = read_voxel<true>(value, p.r, g, true);
     for (int base = 0; base < p.window && t_begin + (float)base * p.step < RAY_MAX; base += DENSE_ROUND) {
       float smp[DENSE_ROUND];
       unsigned live = 0u, inside = 0u;
@@ -361,7 +346,6 @@ __global__ void __launch_bounds__(DENSE_THREADS)
       for (int j = 0; j < DENSE_ROUND; ++j) {  // every read of the round, before any test
         const int k = base + j;
         const float t_curr = t_begin + (float)k * p.step;
-        int g[3];
         xs::sample_voxel(s, d, t_curr + p.step, p.inv_vs, g);
         const bool lv = k < p.window && t_curr < RAY_MAX, in = xs::in_volume(p.r, g);
         live |= (unsigned)lv << j;
@@ -386,84 +370,13 @@ __global__ void __launch_bounds__(DENSE_THREADS)
   t_dead_out[pix] = kd != NO_STEP ? t_begin + (float)kd * p.step : INF_T;
 }
 
-// B14c by a group of G lanes a ray: a round of DENSE_ROUND steps, lane j's u-th step k = base + j + G u, all read
-// before any test; step k's prev is lane j - 1's sample (lane 0's: the last lane's of step u - 1, or the round's
-// carry); each lane's first events, then the group's lowest step by shuffles. Rays of a block on an 8-wide tile
-template <int G>
-__global__ void __launch_bounds__(DENSE_THREADS)
-    window_group_kernel(const float* __restrict__ value, const float* __restrict__ pose,
-                        const float* __restrict__ anchor, const float* __restrict__ anchor_dead,
-                        float* __restrict__ t_found_out, float* __restrict__ t_dead_out, const WindowParams p) {
-  constexpr int U = DENSE_ROUND / G;
-  constexpr unsigned FULL = 0xffffffffu;
-  __shared__ float c2v[24];
-  const int tid = threadIdx.x, j = tid & (G - 1), r = tid / G;
-  if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
-  __syncthreads();
-  const int x = blockIdx.x * 8 + (r & 7), y = blockIdx.y * (DENSE_THREADS / G / 8) + (r >> 3);
-  const bool real = x < p.W && y < p.H;
-  float t_begin = RAY_MIN;
-  const bool has_anchor = real && dense_begin(anchor, anchor_dead, x, y, p, t_begin);
-  Dual dir[3];
-  xs::camera_ray(c2v, (float)(x * p.stride), (float)(y * p.stride), p.cam, dir);
-  const float s[3] = {c2v[18], c2v[19], c2v[20]};
-  const float d[3] = {dir[0].v, dir[1].v, dir[2].v};
-  bool done = !has_anchor;  // the same in every lane of the group
-  float carry = has_anchor ? dense_first(value, p, s, d, t_begin) : 0.0f;
-  int kc = NO_STEP, kd = NO_STEP;
-  for (int base = 0; __any_sync(FULL, !done); base += DENSE_ROUND) {
-    float smp[U];
-    unsigned live = 0u, inside = 0u;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = base + j + G * u;
-      const float t_curr = t_begin + (float)k * p.step;
-      int g[3];
-      xs::sample_voxel(s, d, t_curr + p.step, p.inv_vs, g);
-      const bool lv = !done && k < p.window && t_curr < RAY_MAX, in = xs::in_volume(p.r, g);
-      live |= (unsigned)lv << u;
-      inside |= (unsigned)in << u;
-      smp[u] = read_voxel<true>(value, p.r, g, lv && in);
-    }
-    int lc = NO_STEP, ld = NO_STEP;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const float left = __shfl_up_sync(FULL, smp[u], 1, G);
-      const float last = __shfl_sync(FULL, u > 0 ? smp[u > 0 ? u - 1 : 0] : 0.0f, G - 1, G);
-      const float pv = j > 0 ? left : (u > 0 ? last : carry);
-      const float tsdf = smp[u];
-      if ((live >> u) & 1u) {
-        const bool in = (inside >> u) & 1u;
-        const int k = base + j + G * u;
-        if (in && pv > 0.0f && tsdf < 0.0f && lc == NO_STEP) lc = k;
-        if ((!in || (pv < 0.0f && tsdf > 0.0f)) && ld == NO_STEP) ld = k;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < G; off <<= 1) {
-      lc = min(lc, __shfl_xor_sync(FULL, lc, off));
-      ld = min(ld, __shfl_xor_sync(FULL, ld, off));
-    }
-    if (kc == NO_STEP) kc = lc;
-    if (kd == NO_STEP) kd = ld;
-    carry = __shfl_sync(FULL, smp[U - 1], G - 1, G);
-    const int next = base + DENSE_ROUND;
-    done = done || (kc != NO_STEP && kd != NO_STEP) || next >= p.window || t_begin + (float)next * p.step >= RAY_MAX;
-  }
-  if (real && j == 0) {
-    const int pix = y * p.W + x;
-    t_found_out[pix] = kc != NO_STEP ? t_begin + (float)kc * p.step : INF_T;
-    t_dead_out[pix] = kd != NO_STEP ? t_begin + (float)kd * p.step : INF_T;
-  }
-}
-
 }  // namespace
 
 // value, grad: the (NB, 512) brick rows or, with dense, the (X, Y, Z) planes of the same grid; pose: the 48
 // packed floats; anchor, anchor_dead: the coarse (ch, cw) hits, or anchor_dead null and anchor the (H, W) map to
 // pool (ch = H / 2, cw = W / 2); vmap_v, vmap_g: the (3, H, W) refine outputs, or null for none (then t_dead is
-// written); t_found, t_dead: (H, W); dense: 1 the (X, Y, Z) planes (B14c: coarse hits, no refine), 2 B14c's
-// earlier design (B4's body over the planes), a test-only entry; first_event: B16 (rows, an anchor map)
+// written); t_found, t_dead: (H, W); dense: the (X, Y, Z) planes (B14c: coarse hits, no refine); first_event:
+// B16 (rows, an anchor map)
 extern "C" int xs_window_march(const void* value, const void* grad, const void* pose, const void* anchor,
                                const void* anchor_dead, void* vmap_v, void* vmap_g, void* t_found, void* t_dead,
                                int nbx, int nby, int nbz, int H, int W, int ch, int cw, int stride, int window,
@@ -476,8 +389,7 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
   if (2 * ch < H || 2 * cw < W) return (int)cudaErrorInvalidValue;
   // B16 takes an anchor map on the brick rows; B14c coarse hits, no refine
   if (first_event && (dense || anchor_dead != nullptr)) return (int)cudaErrorInvalidValue;
-  if (dense < 0 || dense > 2 || (dense == 1 && (anchor_dead == nullptr || vmap_v != nullptr)))
-    return (int)cudaErrorInvalidValue;
+  if (dense && (anchor_dead == nullptr || vmap_v != nullptr)) return (int)cudaErrorInvalidValue;
   const WindowParams p{xs::make_rows(nbx, nby, nbz), H, W, ch, cw, stride, window, vs, inv_vs, step, inv_step,
                        xs::Camera{cx, cy, inv_fx, inv_fy}};
   const dim3 grid = xs::tile_grid<WINDOW_THREADS>(H, W);
@@ -487,16 +399,9 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
   const float* po = (const float*)pose;
   const float* an = (const float*)anchor;
   const float* ad = (const float*)anchor_dead;
-  if (dense == 1 && DENSE_LANES == 1)
+  if (dense)
     window_dense_kernel<<<xs::tile_grid<DENSE_THREADS>(H, W), DENSE_THREADS, 0, s>>>(v, po, an, ad, (float*)t_found,
                                                                                     (float*)t_dead, p);
-  else if (dense == 1)
-    window_group_kernel<DENSE_LANES><<<dim3((W + 7) / 8, (H + DENSE_THREADS / DENSE_LANES / 8 - 1) /
-                                                            (DENSE_THREADS / DENSE_LANES / 8)),
-                                       DENSE_THREADS, 0, s>>>(v, po, an, ad, (float*)t_found, (float*)t_dead, p);
-  else if (dense)
-    window_march_kernel<true, false><<<grid, WINDOW_THREADS, 0, s>>>(
-        v, gr, po, an, ad, (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
   else if (first_event)
     window_march_kernel<false, true><<<grid, WINDOW_THREADS, 0, s>>>(
         v, gr, po, an, ad, (float*)vmap_v, (float*)vmap_g, (float*)t_found, (float*)t_dead, p);
