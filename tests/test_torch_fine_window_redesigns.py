@@ -14,7 +14,7 @@ versions and to their earlier designs on the card).
   grids with a cut last tile; and the wrapper's tile is the source's.
 - B14c, the dense window repair (``csrc/window.cu``, ``window_dense_kernel``):
   a torch twin of its schedule (prev and every step of a round of
-  ``DENSE_ROUND`` read before any test, the steps tested in order, the next
+  ``BATCH`` read before any test, the steps tested in order, the next
   round only while an event is unknown) gives ``_window_repair``'s events bit
   for bit at windows 8, 12 and one above the round, strides 1 and 2, on the
   volume of ``tests/test_torch_dense_marches.py``'s scene (the small sweep's
@@ -54,7 +54,7 @@ def _source_constant(source: str, name: str) -> int:
 
 
 CORNER_LANES = _source_constant("bricks.cu", "CORNER_LANES")
-DENSE_ROUND = _source_constant("window.cu", "DENSE_ROUND")
+DENSE_ROUND = _source_constant("window.cu", "BATCH")  # the steps window_dense_kernel reads before it tests them
 
 
 # ------------------------------------------------------------------ B15f

@@ -390,8 +390,8 @@ __device__ __forceinline__ void axis_interval(float b0, float bm, float o, float
 
 // The class of the box of edge bm at (bx0, by0, bz0) (a brick, a subcell of the 4^3 grid, a candidate's
 // subcell), computed by the LANES lanes of its group (a power of two up to 8), j the lane's place in it (all 32
-// lanes of the warp call this together: it ballots); every lane of the group returns the class. With SPLIT (B15s) the window's four cells
-// are also tested one by one and the class may be MIXED; aux[0..2] are then the window's ints
+// lanes of the warp call this together: it ballots); every lane of the group returns the class. With SPLIT (B15s)
+// the window's four cells are also tested one by one and the class may be MIXED; aux[0..2] are then the window's ints
 // (ops/fusion_brick.py::pack_aux): the far cells (15 for FAR and FAR_PARTIAL) with the cell edge, the window's
 // origin across and down in pixels.
 template <bool SPLIT, int LANES = CORNER_LANES>
@@ -1299,8 +1299,8 @@ extern "C" int xs_depth_mips(const void* depth, void* table, int H, int W, const
 // epoch: its launches so far, this one included (from 1, below 2^42); cls, rank, active_ids, work_ids: one int a
 // brick; totals: n_active, n_work; overflow: one byte. consts: brick edge, fx, fy, cx, cy, the four plane
 // constants, 1 / |fx|, 1 / |fy|, trunc, -trunc, the slab's x origin shift (B19a; 0 for the whole volume), each a
-// float32. mode: COARSE (B3b), SPLIT (B15s; aux: AUX_INTS ints a brick, the
-// windows) or FINE (B15f; sub_edge: the subcell edge, float32; tiles of FINE_TILE bricks)
+// float32. mode: COARSE (B3b), SPLIT (B15s; aux: AUX_INTS ints a brick, the windows) or FINE (B15f; sub_edge:
+// the subcell edge, float32; tiles of FINE_TILE bricks)
 extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls, void* scratch,
                                   long long scratch_words, unsigned ticket_base, unsigned long long epoch,
                                   void* rank, void* active_ids, void* work_ids, void* totals, void* overflow,

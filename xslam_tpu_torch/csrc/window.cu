@@ -32,8 +32,8 @@
 // ::march_hier (:518, with and without weight) and ::march_hier2 (:555) call
 // it: anchors from the coarse hits, strides 1 and 2, no refine (the dense
 // layout refines with K5). It is B4's march without the refine and the brick
-// rows: a thread a ray on 8 x 4 pixel tiles, blocks of DENSE_THREADS, the
-// (X, Y, Z) value plane (rows.cuh::voxel_index<true>), DENSE_ROUND steps read
+// rows: a thread a ray on 8 x 4 pixel tiles, blocks of WINDOW_THREADS, the
+// (X, Y, Z) value plane (rows.cuh::voxel_index<true>), BATCH steps read
 // before they are tested, until both events are known. Without the refine
 // it takes 32 registers a thread where B4's body takes 48, so an SM holds 64
 // warps where it held 40, and that is what held the launch: reading the
@@ -93,8 +93,6 @@ constexpr float TAP_BIAS = 1e-5f;  // readTsdf's bias (RayCaster.cu:77)
 constexpr int WINDOW_THREADS = 128;  // a block's threads
 constexpr int BATCH = 4;                                   // steps a ray reads before it tests them
 constexpr int NO_STEP = 0x7fffffff;
-constexpr int DENSE_THREADS = 128;  // threads of a B14c block
-constexpr int DENSE_ROUND = 4;      // steps B14c reads before it tests them
 
 struct WindowParams {
   xs::Rows r;
@@ -304,9 +302,9 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
   store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
 }
 
-// B14c: a thread a ray; prev, then rounds of DENSE_ROUND steps, each read before any test and tested in order (see
+// B14c: a thread a ray; prev, then rounds of BATCH steps, each read before any test and tested in order (see
 // the header)
-__global__ void __launch_bounds__(DENSE_THREADS)
+__global__ void __launch_bounds__(WINDOW_THREADS)
     window_dense_kernel(const float* __restrict__ value, const float* __restrict__ pose,
                         const float* __restrict__ anchor, const float* __restrict__ anchor_dead,
                         float* __restrict__ t_found_out, float* __restrict__ t_dead_out, const WindowParams p) {
@@ -315,12 +313,13 @@ __global__ void __launch_bounds__(DENSE_THREADS)
   if (tid < 24) c2v[tid] = pose[xs::POSE_C2V + tid];
   __syncthreads();
   int x, y;
-  xs::tile_pixel<DENSE_THREADS>(tid, x, y);
+  xs::tile_pixel<WINDOW_THREADS>(tid, x, y);
   if (x >= p.W || y >= p.H) return;
 
   // the anchor: the earliest event of the 2x2 coarse neighbourhood, on the global grid one step early
   const int i0 = y >> 1, j0 = x >> 1;
-  const float t0 = fminf(fminf(coarse_event(anchor, anchor_dead, i0, j0, p), coarse_event(anchor, anchor_dead, i0 + 1, j0, p)),
+  const float t0 = fminf(fminf(coarse_event(anchor, anchor_dead, i0, j0, p),
+                               coarse_event(anchor, anchor_dead, i0 + 1, j0, p)),
                          fminf(coarse_event(anchor, anchor_dead, i0, j0 + 1, p),
                                coarse_event(anchor, anchor_dead, i0 + 1, j0 + 1, p)));
   const bool has_anchor = t0 < INF_T;
@@ -339,11 +338,11 @@ __global__ void __launch_bounds__(DENSE_THREADS)
     g[1] = min(max(g[1], 0), p.r.Y - 1);
     g[2] = min(max(g[2], 0), p.r.Z - 1);
     float prev = read_voxel<true>(value, p.r, g, true);
-    for (int base = 0; base < p.window && t_begin + (float)base * p.step < RAY_MAX; base += DENSE_ROUND) {
-      float smp[DENSE_ROUND];
+    for (int base = 0; base < p.window && t_begin + (float)base * p.step < RAY_MAX; base += BATCH) {
+      float smp[BATCH];
       unsigned live = 0u, inside = 0u;
 #pragma unroll
-      for (int j = 0; j < DENSE_ROUND; ++j) {  // every read of the round, before any test
+      for (int j = 0; j < BATCH; ++j) {  // every read of the round, before any test
         const int k = base + j;
         const float t_curr = t_begin + (float)k * p.step;
         xs::sample_voxel(s, d, t_curr + p.step, p.inv_vs, g);
@@ -353,7 +352,7 @@ __global__ void __launch_bounds__(DENSE_THREADS)
         smp[j] = read_voxel<true>(value, p.r, g, lv && in);
       }
 #pragma unroll
-      for (int j = 0; j < DENSE_ROUND; ++j) {
+      for (int j = 0; j < BATCH; ++j) {
         const float tsdf = smp[j];
         if ((live >> j) & 1u) {
           const bool in = (inside >> j) & 1u;
@@ -400,7 +399,7 @@ extern "C" int xs_window_march(const void* value, const void* grad, const void* 
   const float* an = (const float*)anchor;
   const float* ad = (const float*)anchor_dead;
   if (dense)
-    window_dense_kernel<<<xs::tile_grid<DENSE_THREADS>(H, W), DENSE_THREADS, 0, s>>>(v, po, an, ad, (float*)t_found,
+    window_dense_kernel<<<xs::tile_grid<WINDOW_THREADS>(H, W), WINDOW_THREADS, 0, s>>>(v, po, an, ad, (float*)t_found,
                                                                                     (float*)t_dead, p);
   else if (first_event)
     window_march_kernel<false, true><<<grid, WINDOW_THREADS, 0, s>>>(
