@@ -302,6 +302,31 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
   store3(vmap_v, vmap_g, HW, pix, true, vertex_w);
 }
 
+// B14c's anchor: the earliest event of pixel (x, y)'s 2x2 coarse neighbourhood, and t_begin on the global grid one
+// step early; false where the neighbourhood has none
+__device__ __forceinline__ bool dense_begin(const float* __restrict__ anchor, const float* __restrict__ dead, int x,
+                                            int y, const WindowParams& p, float& t_begin) {
+  const int i0 = y >> 1, j0 = x >> 1;
+  const float t0 = fminf(fminf(coarse_event(anchor, dead, i0, j0, p), coarse_event(anchor, dead, i0 + 1, j0, p)),
+                         fminf(coarse_event(anchor, dead, i0, j0 + 1, p),
+                               coarse_event(anchor, dead, i0 + 1, j0 + 1, p)));
+  const bool has_anchor = t0 < INF_T;
+  const float k0 = fmaxf(floorf(((has_anchor ? t0 : RAY_MIN) - RAY_MIN) * p.inv_step) - 1.0f, 0.0f);
+  t_begin = RAY_MIN + k0 * p.step;
+  return has_anchor;
+}
+
+// the value at the clamped voxel of t_begin: step 0's prev
+__device__ __forceinline__ float dense_first(const float* __restrict__ value, const WindowParams& p,
+                                             const float s[3], const float d[3], float t_begin) {
+  int g[3];
+  xs::sample_voxel(s, d, t_begin, p.inv_vs, g);
+  g[0] = min(max(g[0], 0), p.r.X - 1);
+  g[1] = min(max(g[1], 0), p.r.Y - 1);
+  g[2] = min(max(g[2], 0), p.r.Z - 1);
+  return read_voxel<true>(value, p.r, g, true);
+}
+
 // B14c: a thread a ray; prev, then rounds of BATCH steps, each read before any test and tested in order (see
 // the header)
 __global__ void __launch_bounds__(WINDOW_THREADS)
@@ -315,29 +340,15 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
   int x, y;
   xs::tile_pixel<WINDOW_THREADS>(tid, x, y);
   if (x >= p.W || y >= p.H) return;
-
-  // the anchor: the earliest event of the 2x2 coarse neighbourhood, on the global grid one step early
-  const int i0 = y >> 1, j0 = x >> 1;
-  const float t0 = fminf(fminf(coarse_event(anchor, anchor_dead, i0, j0, p),
-                               coarse_event(anchor, anchor_dead, i0 + 1, j0, p)),
-                         fminf(coarse_event(anchor, anchor_dead, i0, j0 + 1, p),
-                               coarse_event(anchor, anchor_dead, i0 + 1, j0 + 1, p)));
-  const bool has_anchor = t0 < INF_T;
-  const float k0 = fmaxf(floorf(((has_anchor ? t0 : RAY_MIN) - RAY_MIN) * p.inv_step) - 1.0f, 0.0f);
-  const float t_begin = RAY_MIN + k0 * p.step;
+  float t_begin;
+  const bool has_anchor = dense_begin(anchor, anchor_dead, x, y, p, t_begin);
   int kc = NO_STEP, kd = NO_STEP;  // the ray's first crossing and first death, by step
   if (has_anchor) {
     Dual dir[3];
     xs::camera_ray(c2v, (float)(x * p.stride), (float)(y * p.stride), p.cam, dir);
     const float s[3] = {c2v[18], c2v[19], c2v[20]};
     const float d[3] = {dir[0].v, dir[1].v, dir[2].v};
-    // step 0's prev: the read at the clamped voxel of t_begin
-    int g[3];
-    xs::sample_voxel(s, d, t_begin, p.inv_vs, g);
-    g[0] = min(max(g[0], 0), p.r.X - 1);
-    g[1] = min(max(g[1], 0), p.r.Y - 1);
-    g[2] = min(max(g[2], 0), p.r.Z - 1);
-    float prev = read_voxel<true>(value, p.r, g, true);
+    float prev = dense_first(value, p, s, d, t_begin);
     for (int base = 0; base < p.window && t_begin + (float)base * p.step < RAY_MAX; base += BATCH) {
       float smp[BATCH];
       unsigned live = 0u, inside = 0u;
@@ -345,6 +356,7 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
       for (int j = 0; j < BATCH; ++j) {  // every read of the round, before any test
         const int k = base + j;
         const float t_curr = t_begin + (float)k * p.step;
+        int g[3];
         xs::sample_voxel(s, d, t_curr + p.step, p.inv_vs, g);
         const bool lv = k < p.window && t_curr < RAY_MAX, in = xs::in_volume(p.r, g);
         live |= (unsigned)lv << j;
