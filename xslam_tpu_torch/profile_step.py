@@ -54,9 +54,10 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 # B12 and its band pass run in a frame only where the recovering engine relocalizes): each a
 # pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
 # window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation, the
-# bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14 the brick layout's kernels' <true>
-# (B14c: <true, false>), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's <false, true>; the
-# skip march's ray form (march_skip_ray_kernel) is B14b's launch on the dense layout and march_skip_rays on the rows;
+# bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14a-b the brick layout's kernels' <true>
+# (B14c: window_dense_kernel, its own), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's
+# <false, true>; the skip march's ray form (march_skip_ray_kernel) is B14b's launch on the dense layout and
+# march_skip_rays on the rows;
 # K3 at a stride launches march_group_kernel<G> (G lanes a ray; march_kernel where the wrapper picks one lane)
 HAND_KERNELS = {
     "bilateral_filter": "bilateral_kernel", "fuse_volume": "fuse_kernel<false>",
