@@ -1216,12 +1216,13 @@ def phase_b15(ctx):
                 return go
 
             sub_out = fb.classify_subcells(table, pose, intr, eng, copy(coarse), cap, cap)
-            sub_scratch = fb.ClassifyScratch(table.device, 1)
+            sub_scratch = fb.ClassifyScratch(table.device, 1 + fb.subcell_tiles(cap) * fb.CLASSIFY_STATUS_STRIDE,
+                                             fb.SUBCELL_EPOCH_BITS)
             sub_flag = coarse.overflow.clone()
 
             def subcells():
                 run("classify_subcells", table, pose, coarse.active_ids, coarse.totals, sub_flag, sub_scratch.words,
-                    sub_scratch.next_launch()[0], sub_out.cls, sub_out.rank, sub_out.counts, sub_out.overflow,
+                    *sub_scratch.next_launch(), sub_out.cls, sub_out.rank, sub_out.counts, sub_out.overflow,
                     *(s // fb.BRICK for s in res), H, W, lv, consts, sub_consts, cap, cap, 0)
                 sub_scratch.launched(fb.subcell_blocks(cap))
 

@@ -18,14 +18,11 @@ engine, on the CPU at the tests' scale (the 64^3 brick volume of
   rays (as the march tests hold them).
 - ``raycast_bricks`` through the wrappers (B5a, B5b, B4, K5r, B4n in K6's
   plain versions on the CPU) equals ``raycast_bricks_rays`` bit for bit.
-- The engines in bench.py's brick configuration with each march and normals
-  mode (3 frames): every frame aligns; the first tracked frame within 5e-4
-  and the ATE in one class, as ``tests/test_torch_raycast_bricks.py`` holds
-  bench.py's; frame 0's model maps as the jitted raycast's above; ``t_prev`` holds the march's
-  hits after every frame in both, at the same step on >= 99.9% of rays
-  after frame 0 (one pose) and >= 99% after the tracked frames (poses
-  1e-4 apart). The JAX engine's aliases (``fixed``, ``hier``, ``hier2``)
-  run the marches they map to, bit for bit.
+- The JAX engine's aliases (``fixed``, ``hier``, ``hier2``) run the marches
+  they map to, bit for bit.
+
+The engines with each march and normals mode are in
+``tests/test_torch_brick_raycast_engines.py``.
 """
 
 import jax
@@ -37,12 +34,11 @@ import torch
 from tests.helpers import SMALL_INTR
 from tests.test_torch_raycast_bricks import BENCH, TINTR, _map_close, _step_index
 from tests.test_torch_raycast_bricks import scene  # noqa: F401  (the module's fixture)
-from tests.torch_port_helpers import paired_engine_runs, torch_config
+from tests.torch_port_helpers import torch_config
 from xslam_tpu.csfd.single import CSFD as JCSFD
 from xslam_tpu.ops import fusion as jfusion
 from xslam_tpu.ops import raycast as jraycast
 from xslam_tpu.ops import raycast_bricks as jrb
-from xslam_tpu.utils.evaluation import ate_rmse, normalize_to_first
 from xslam_tpu_torch.models import kinfu as tkinfu
 from xslam_tpu_torch.ops import kernels
 from xslam_tpu_torch.ops import raycast as traycast
@@ -197,43 +193,6 @@ def test_raycast_bricks_rays_checks(scene, option, error):
     f = scene["frames"][3]
     with pytest.raises(error):
         trb.raycast_bricks_rays(scene["tvol"], f["tstart"], f["tdir"], *f["targs"][2:], scene["tcfg"], **option)
-
-
-# ------------------------------------------------------------- the engines
-ENGINE_CASES = {f"{m}-{n}": dict(SECANT, raycast_march=m, raycast_normals=n)
-                for m in ("skip", "hier_skip", "hier2_skip", "temporal") for n in ("screen", "tsdf")}
-
-
-@pytest.fixture(scope="module", params=sorted(ENGINE_CASES))
-def engines(request):
-    return paired_engine_runs(ENGINE_CASES[request.param], N_FRAMES)
-
-
-def test_engines_first_tracked_frame(engines):
-    assert all(engines["jax"]["ok"]) and all(engines["port"]["ok"])
-    np.testing.assert_allclose(engines["port"]["poses"][1], engines["jax"]["poses"][1], atol=5e-4)
-
-
-def test_engines_ate_class(engines):
-    ate_j = ate_rmse(normalize_to_first(engines["jax"]["poses"]), engines["gt"])
-    ate_t = ate_rmse(normalize_to_first(engines["port"]["poses"]), engines["gt"])
-    assert ate_j < 0.06 and ate_t < 0.06, (ate_j, ate_t)
-    assert abs(ate_j - ate_t) < 5e-3, (ate_j, ate_t)
-
-
-def test_engines_model_maps_after_frame_0(engines):
-    (jv, jn), (tv, tn) = engines["jax"]["maps"], engines["port"]["maps"]
-    _k5_close(jv, tv, rtol=1e-3)  # the jitted engine: XLA's fused multiply-adds, as in the raycast tests
-    _k5_close(jn, tn, rtol=1e-3)
-
-
-def test_engines_t_prev_holds_the_march_hits(engines):
-    """Every brick march stores its hits as the next frame's anchors (1e9
-    where none), in both engines."""
-    for i, (j, t) in enumerate(zip(engines["jax"]["t_prev"], engines["port"]["t_prev"])):
-        assert np.isfinite(t).all() and (t == INF_T).any() and (t < INF_T).mean() > 0.5
-        agree = np.mean(_step_index(j, STEP) == _step_index(t, STEP))
-        assert agree >= (0.999 if i == 0 else 0.99), (i, agree)
 
 
 @pytest.mark.parametrize("alias, march", [("fixed", "skip"), ("hier", "hier_skip"), ("hier2", "hier2_skip")])

@@ -25,9 +25,8 @@ and against the port's own dense fusion, on the CPU at the JAX tests' scale
 - A starved ``subcell_cap`` under ``"flag"`` raises the flag and leaves the
   same voxels unfused as the JAX function (weights equal everywhere);
   under ``"dense"`` the frame is dense fusion's.
-- The packed window word round-trips, and B15c's last-block scan (a thread
-  a run of rows, the counts scanned across the block) has a numpy twin that
-  gives the plain ranks.
+- The packed window word round-trips. B15c's single-pass scan has its
+  numpy twin in ``tests/test_torch_subcell_rows_redesigns.py``.
 
 Alone this file takes about 65 s (the JAX functions run eagerly: under jit
 XLA may fuse the interval arithmetic so that a bound moves by an ulp). The
@@ -372,44 +371,3 @@ def test_b15_wrappers_launch_nothing_on_cpu(pre_volume):
     for name in ("classify_bricks_split", "classify_bricks_fine", "classify_subcells", "fuse_bricks_mixed",
                  "fuse_bricks_subcell"):
         assert before[name] == 0
-
-
-# ------------------------------------------------------- B15c's scan, a twin
-SUBCELL_THREADS = 256  # csrc/bricks.cu: threads of the subcell classifier's block (the last one ranks)
-
-
-def _twin_subcell_scan(cls, threads=SUBCELL_THREADS):
-    """csrc/bricks.cu::classify_subcells_kernel's last block: warp w takes
-    rows [w * seg, (w + 1) * seg), 32 a round, a lane a row; a ballot an id
-    counts each round's ACTIVE subcells; the warps' counts are summed in
-    order; a second walk ranks each row from its warp's start, the rounds
-    before and its lane's place in the round's ballot."""
-    cap = cls.shape[0]
-    warps = threads // 32
-    seg = -(-cap // warps)
-    counts = np.zeros((warps, 8), np.int64)
-    for w in range(warps):
-        for r0 in range(w * seg, min((w + 1) * seg, cap), 32):
-            rows = cls[r0:min(r0 + 32, (w + 1) * seg, cap)]
-            counts[w] += (rows == tbrick.ACTIVE).sum(0)  # the popcounts of the round's ballots
-    rank = np.full(cls.shape, -9)
-    for w in range(warps):
-        run = counts[:w].sum(0)
-        for r0 in range(w * seg, min((w + 1) * seg, cap), 32):
-            rows = cls[r0:min(r0 + 32, (w + 1) * seg, cap)] == tbrick.ACTIVE
-            for lane in range(len(rows)):
-                below = rows[:lane].sum(0)  # popc(ballot & below)
-                rank[r0 + lane] = np.where(rows[lane], run + below, -1)
-            run = run + rows.sum(0)
-    return rank, counts.sum(0)
-
-
-@pytest.mark.parametrize("cap", [1, 16, 300, 2816, 5000])
-def test_subcell_scan_twin_gives_the_plain_ranks(cap):
-    rng = np.random.default_rng(cap)
-    cls = rng.integers(0, 4, (cap, 8))
-    active = cls == tbrick.ACTIVE
-    plain = np.where(active, np.cumsum(active, axis=0) - 1, -1)
-    rank, counts = _twin_subcell_scan(cls)
-    np.testing.assert_array_equal(rank, plain)
-    np.testing.assert_array_equal(counts, active.sum(0))

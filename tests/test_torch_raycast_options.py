@@ -21,6 +21,8 @@ jitted and XLA fuses multiply-adds, 1e-3 of themselves), as the settings
 without the option are held (``tests/test_torch_brick_raycasts.py``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +49,14 @@ CASES = {
 
 
 def _port_run(options):
+    return _port_run_cached(tuple(sorted(options.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_run_cached(items):
+    """The port's run of a setting, once a module: cases that read their
+    options in one setting share its run without them."""
+    options = dict(items)
     ds = small_dataset(N_FRAMES, degrees_per_frame=1.0)
     engine = TorchEngine(torch_config(small_config(end_frame=N_FRAMES, **options)), device="cpu")
     state = engine.init_state()

@@ -24,10 +24,11 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
                                   int rows, const float* consts, int cap, int mode, void* aux, float sub_edge,
                                   void* stream);
 extern "C" int xs_classify_subcells(const void* table, const void* pose, const void* active_ids, const void* totals,
-                                    void* overflow, void* ticket, unsigned ticket_base, void* scls, void* srank,
-                                    void* counts, void* sub_overflow, int nbx, int nby, int nbz, int H, int W,
-                                    const int* levels, int n_levels, int rows, const float* consts, float vs,
-                                    float sub_edge, int cap, int subcell_cap, int x_offset, void* stream);
+                                    void* overflow, void* scratch, long long scratch_words, unsigned ticket_base,
+                                    unsigned long long epoch, void* scls, void* srank, void* counts,
+                                    void* sub_overflow, int nbx, int nby, int nbz, int H, int W, const int* levels,
+                                    int n_levels, int rows, const float* consts, float vs, float sub_edge, int cap,
+                                    int subcell_cap, int x_offset, void* stream);
 extern "C" int xs_fuse_bricks(void* value, void* grad, void* weight, const void* depth, const void* pose,
                               const void* cls, const void* rank, const void* work_ids, const void* totals,
                               const void* overflow, int X, int Y, int Z, int H, int W, float vs, float fx, float fy,
@@ -203,23 +204,25 @@ int classify_bricks_fine(const torch::Tensor& table, const torch::Tensor& pose, 
                      nullptr, H, W, levels, consts, (float)sub_edge, cap, 2, stream);
 }
 
-// B15c. overflow: classify_bricks' flag, ORed with the lists'; scratch: a ClassifyScratch whose word 0 is the
-// ticket counter; scls, srank: (cap, 8) int32; counts: (8,) int32; sub_overflow: () bool; sub_consts: the voxel
-// size and the subcell edge as float32; x_offset: a slab's first x (B19a), 0 for the whole volume
+// B15c. overflow: classify_bricks' flag, ORed with the lists'; scratch: a ClassifyScratch (word 0 the ticket
+// counter, then the tiles' status words), ticket_base and epoch its next launch's; scls, srank: (cap, 8) int32;
+// counts: (8,) int32; sub_overflow: () bool; sub_consts: the voxel size and the subcell edge as float32; x_offset:
+// a slab's first x (B19a), 0 for the whole volume
 int classify_subcells(const torch::Tensor& table, const torch::Tensor& pose, const torch::Tensor& active_ids,
                       const torch::Tensor& totals, torch::Tensor overflow, torch::Tensor scratch, int64_t ticket_base,
-                      torch::Tensor scls, torch::Tensor srank, torch::Tensor counts, torch::Tensor sub_overflow,
-                      int64_t nbx, int64_t nby, int64_t nbz, int64_t H, int64_t W, const std::vector<int64_t>& levels,
-                      const std::vector<double>& consts, const std::vector<double>& sub_consts, int64_t cap,
+                      int64_t epoch, torch::Tensor scls, torch::Tensor srank, torch::Tensor counts,
+                      torch::Tensor sub_overflow, int64_t nbx, int64_t nby, int64_t nbz, int64_t H, int64_t W,
+                      const std::vector<int64_t>& levels, const std::vector<double>& consts, const std::vector<double>& sub_consts, int64_t cap,
                       int64_t subcell_cap, int64_t x_offset, int64_t stream) {
-  if (levels.size() % 4 != 0 || consts.size() != 14 || sub_consts.size() != 2) return 1;  // cudaErrorInvalidValue
+  if (levels.size() % 4 != 0 || consts.size() != 14 || sub_consts.size() != 2 || epoch < 1) return 1;
   if (scls.numel() != 8 * cap || srank.numel() != 8 * cap || counts.numel() != 8) return 1;
   const std::vector<int> lv(levels.begin(), levels.end());
   const std::vector<float> c(consts.begin(), consts.end());
   return xs_classify_subcells(table.data_ptr(), pose.data_ptr(), active_ids.data_ptr(), totals.data_ptr(),
-                              overflow.data_ptr(), scratch.data_ptr(), (unsigned)(ticket_base & 0xffffffffll),
-                              scls.data_ptr(), srank.data_ptr(), counts.data_ptr(), sub_overflow.data_ptr(), nbx, nby,
-                              nbz, H, W, lv.data(), (int)(lv.size() / 4), table.size(0), c.data(),
+                              overflow.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                              (unsigned)(ticket_base & 0xffffffffll), (unsigned long long)epoch, scls.data_ptr(),
+                              srank.data_ptr(), counts.data_ptr(), sub_overflow.data_ptr(), nbx, nby, nbz, H, W,
+                              lv.data(), (int)(lv.size() / 4), table.size(0), c.data(),
                               (float)sub_consts[0], (float)sub_consts[1], cap, subcell_cap, (int)x_offset,
                               as_stream(stream));
 }

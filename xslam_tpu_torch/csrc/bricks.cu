@@ -153,9 +153,21 @@ constexpr int FINE_THREADS = 1024;
 constexpr int FINE_TILE = FINE_THREADS / FINE_LANES;
 static_assert(FINE_LANES % FINE_BOX_LANES == 0 && FINE_LANES <= 16 && 8 % (FINE_LANES / FINE_BOX_LANES) == 0,
               "a brick's groups share its 8 subcells");
-constexpr int SUBCELL_THREADS = 256;  // threads of a classify_subcells block
-constexpr int SUBCELL_ROWS = SUBCELL_THREADS / (8 * CORNER_LANES);  // candidate rows a block: ops/fusion_brick.py
-static_assert(SUBCELL_THREADS % (8 * CORNER_LANES) == 0, "a block takes whole candidate rows");
+// B15c: a subcell box takes SUBCELL_BOX_LANES lanes, a block of SUBCELL_THREADS threads SUBCELL_ROWS candidate rows
+// (8 boxes a row), cut into tiles of SUBCELL_TILE rows, each a pair of status words in the scan
+constexpr int SUBCELL_BOX_LANES = 1;
+constexpr int SUBCELL_THREADS = 256;
+constexpr int SUBCELL_TILE = 32;
+constexpr int SUBCELL_ROWS = SUBCELL_THREADS / (8 * SUBCELL_BOX_LANES);  // ops/fusion_brick.py
+constexpr int SUBCELL_WARP_ROWS = 32 / (8 * SUBCELL_BOX_LANES);          // candidate rows a warp
+constexpr int SUBCELL_LOOK_BACK_LOADS = 4;  // tiles (two status words each) a lane of the look-back loads at once
+// the sweep's alternatives (taken out after it): 1 launches classify_subcells_last_kernel; 0 skips the look-back
+// (the ranks of block 0 alone are right): the scan's cost, timed
+constexpr int SUBCELL_LAST_BLOCK = 0;
+constexpr int SUBCELL_SCAN = 1;
+static_assert(SUBCELL_BOX_LANES == 1 || SUBCELL_BOX_LANES == 2, "a box's lanes hold a warp's whole rows");
+static_assert(SUBCELL_ROWS % SUBCELL_TILE == 0 && SUBCELL_TILE % SUBCELL_WARP_ROWS == 0,
+              "a block takes whole tiles, a tile whole warps");
 
 // the table's levels: tile size, tiles down, tiles across, first row; and depth_mips' blocks of each level
 struct MipLevels {
@@ -825,7 +837,193 @@ __global__ void __launch_bounds__(FINE_THREADS) classify_bricks_fine_kernel(CLAS
 }
 #undef CLASSIFY_ARGS
 
-// Candidate row r's 8 subcell classes from L2 (other blocks wrote them), or NONE at r >= end.
+// B15c's status words: a tile's pair, word h holding the launch's epoch (40 bits) above the tile's ACTIVE subcells
+// of ids 4 h .. 4 h + 3, SUBCELL_COUNT_BITS each (a tile has fewer than 64 rows). Each word is stored whole; a tile
+// counts once both of its words carry the launch's epoch. Words of earlier launches carry their own epochs: no
+// launch has to clear them.
+constexpr int SUBCELL_COUNT_BITS = 6;
+constexpr int SUBCELL_EPOCH_SHIFT = 4 * SUBCELL_COUNT_BITS;
+static_assert(SUBCELL_TILE < (1 << SUBCELL_COUNT_BITS), "a tile's counts fit their bits");
+
+// the lanes that hold subcell id 0 of each of `rows` candidate rows of a warp (a box's first lane): id s's are
+// these shifted by s * SUBCELL_BOX_LANES
+__host__ __device__ constexpr unsigned row_lanes(int rows) {
+  return rows == 0 ? 0u : 1u | (row_lanes(rows - 1) << (8 * SUBCELL_BOX_LANES));
+}
+
+// Each id's ACTIVE subcells in the tiles before `tile`, by one warp: lane i takes tiles i, i + 32, ...,
+// SUBCELL_LOOK_BACK_LOADS of them (both words of each) in flight, and reloads those not yet published, all
+// together, until every one is; then the lanes' sums over the warp. As in counts_before, every earlier tile
+// belongs to a block that has started (the ticket) and publishes before it waits on anything; a wait of
+// LOOK_BACK_LIMIT_NS traps. Integer sums: the same in any order. Every lane gets the sums.
+__device__ __forceinline__ void subcell_counts_before(const unsigned long long* status, int tile, int lane,
+                                                      unsigned long long epoch, int (&before)[8]) {
+  constexpr unsigned long long COUNT_MASK = (1ull << SUBCELL_COUNT_BITS) - 1ull;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) before[i] = 0;
+  for (int first = lane; first < tile; first += SUBCELL_LOOK_BACK_LOADS * 32) {
+    unsigned long long s[SUBCELL_LOOK_BACK_LOADS][2];
+    unsigned pending = 0u;
+#pragma unroll
+    for (int k = 0; k < SUBCELL_LOOK_BACK_LOADS; ++k)
+      if (first + 32 * k < tile) pending |= 1u << k;
+    const unsigned long long since = global_ns();
+    for (;;) {
+#pragma unroll
+      for (int k = 0; k < SUBCELL_LOOK_BACK_LOADS; ++k) {
+        if ((pending >> k) & 1u) {
+          const unsigned long long* w = status + (size_t)(first + 32 * k) * STATUS_STRIDE;
+          s[k][0] = load_status(w);
+          s[k][1] = load_status(w + 1);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SUBCELL_LOOK_BACK_LOADS; ++k) {
+        if (((pending >> k) & 1u) && (s[k][0] >> SUBCELL_EPOCH_SHIFT) == epoch &&
+            (s[k][1] >> SUBCELL_EPOCH_SHIFT) == epoch) {
+          pending &= ~(1u << k);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            before[i] += (int)((s[k][i >> 2] >> (SUBCELL_COUNT_BITS * (i & 3))) & COUNT_MASK);
+        }
+      }
+      if (pending == 0u) break;
+      if (global_ns() - since > LOOK_BACK_LIMIT_NS) __trap();
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) before[i] += __shfl_xor_sync(0xffffffffu, before[i], off);
+  }
+}
+
+// Candidate row `row`'s subcell s: its class by the box's SUBCELL_BOX_LANES lanes (classify_box: the box ((8 b +
+// 4 s) * vs, edge sub_edge), b the brick of that rank in active_ids), NONE past the n_rows candidates. The whole
+// warp calls it (classify_box ballots).
+__device__ __forceinline__ int classify_candidate(const float* __restrict__ table, const float* __restrict__ pose,
+                                                  const int* __restrict__ active_ids, const ClassifyParams& p,
+                                                  int row, int s, int n_rows, int j) {
+  const bool valid = row < n_rows;
+  if (!__any_sync(0xffffffffu, valid)) return NONE;
+  const int n = p.nbx * p.nby * p.nbz;
+  const int b = valid ? min(max(active_ids[row], 0), n - 1) : 0;
+  const int bz = b % p.nbz, by = (b / p.nbz) % p.nby, bx = b / (p.nby * p.nbz);
+  const float ox = (float)(BRICK * bx + 4 * (s >> 2) + p.x_offset) * p.vs;
+  const float oy = (float)(BRICK * by + 4 * ((s >> 1) & 1)) * p.vs, oz = (float)(BRICK * bz + 4 * (s & 1)) * p.vs;
+  int unused[AUX_INTS];
+  const int c = classify_box<false, SUBCELL_BOX_LANES>(table, pose, p, ox, oy, oz, p.sub_edge, j, unused);
+  return valid ? c : NONE;
+}
+
+// B15c: the subcell stage's classes and lists in one launch. A block takes its place in row order by an atomic
+// ticket: SUBCELL_ROWS candidate rows, box g of the block (SUBCELL_BOX_LANES lanes) subcell g % 8 of row g / 8, the
+// rows below min(totals[0], cap) read on the device. A block past them writes NONE and no rank and leaves. Else the
+// warps' ballots count each id's ACTIVE subcells, the block publishes each of its tiles' counts (a pair of status
+// words tagged with the launch's epoch, one pair a 128-byte line), then warp 0 sums the counts of every earlier
+// tile, all its loads in flight (subcell_counts_before), and a box's rank is the subcells of its id before its
+// block, before its warp and below it in its warp's ballot: no block walks another's rows. Integer sums, so the
+// ranks are row order however the blocks run. The block holding the last candidate writes the ids' counts, the
+// lists' flag (a count above subcell_cap) and ORs it into B3b's flag (the fusion pass and the caller read both);
+// with no candidate the first block writes zeros. scratch: word 0 the ticket counter (running on from launch to
+// launch), words 1.. the tiles' status words; zeroed once per device and stream; the wrapper passes the tickets
+// taken before and the epoch. Bound: operations, ~600 a subcell (B3b's chain).
+__global__ void __launch_bounds__(SUBCELL_THREADS)
+    classify_subcells_kernel(const float* __restrict__ table, const float* __restrict__ pose,
+                             const int* __restrict__ active_ids, const int* __restrict__ totals,
+                             unsigned char* __restrict__ overflow, unsigned long long* __restrict__ scratch,
+                             int* __restrict__ scls, int* __restrict__ srank, int* __restrict__ counts,
+                             unsigned char* __restrict__ sub_overflow, const __grid_constant__ ClassifyParams p) {
+  constexpr int WARPS = SUBCELL_THREADS / 32;
+  constexpr int TILES = SUBCELL_ROWS / SUBCELL_TILE;               // tiles of a block
+  constexpr int TILE_WARPS = SUBCELL_TILE / SUBCELL_WARP_ROWS;     // warps of a tile
+  constexpr unsigned ID_LANES = row_lanes(SUBCELL_WARP_ROWS);
+  __shared__ int s_count[WARPS][8];  // each warp's ACTIVE subcells of each id
+  __shared__ int s_base[WARPS][8];   // each id's ACTIVE subcells before each warp's rows
+  __shared__ int s_block;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* status = scratch + 1;
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int j = lane & (SUBCELL_BOX_LANES - 1), g = (int)threadIdx.x / SUBCELL_BOX_LANES;
+
+  // the ticket and the candidates' count, both in flight together
+  const int n_active = __ldg(totals);
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u) - p.ticket_base;
+    if (t >= gridDim.x) __trap();  // the scratch's counter does not follow its launches
+    s_block = (int)t;
+  }
+  __syncthreads();
+  const int block = s_block;
+  const int row = block * SUBCELL_ROWS + g / 8, s = g % 8;
+  const bool stored = j == 0 && row < p.cap;
+  const int n_rows = min(n_active, p.cap);
+  if (block * SUBCELL_ROWS >= n_rows) {  // no candidate here: no later block reads this one's counts
+    if (stored) {
+      scls[(size_t)row * 8 + s] = NONE;
+      srank[(size_t)row * 8 + s] = -1;
+    }
+    if (block == 0 && threadIdx.x < 8) counts[threadIdx.x] = 0;
+    if (block == 0 && threadIdx.x == 0) *sub_overflow = 0;
+    return;
+  }
+
+  const int c = classify_candidate(table, pose, active_ids, p, row, s, n_rows, j);
+  const unsigned active = __ballot_sync(0xffffffffu, j == 0 && c == ACTIVE);
+  if (lane < 8) s_count[warp][lane] = __popc(active & (ID_LANES << (lane * SUBCELL_BOX_LANES)));
+  __syncthreads();
+
+  if (warp == 0) {
+    // each tile's counts, published at once: lane i of the first 8 sums id i's, lanes 0 and 4 store the words
+    const int id = lane & 7;
+    const int tile0 = block * TILES;
+#pragma unroll
+    for (int t = 0; t < TILES; ++t) {
+      int count = 0;
+#pragma unroll
+      for (int w = 0; w < TILE_WARPS; ++w) count += s_count[t * TILE_WARPS + w][id];
+      unsigned long long word = (unsigned long long)count << (SUBCELL_COUNT_BITS * (id & 3));
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) word |= __shfl_xor_sync(0xffffffffu, word, off);
+      if (lane == 0 || lane == 4)
+        store_status(status + (size_t)(tile0 + t) * STATUS_STRIDE + (lane >> 2),
+                     (p.epoch << SUBCELL_EPOCH_SHIFT) | word);
+    }
+    int before[8];
+    subcell_counts_before(status, SUBCELL_SCAN ? tile0 : 0, lane, p.epoch, before);
+    if (lane < 8) {
+      int run = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) run = i == lane ? before[i] : run;
+      for (int w = 0; w < WARPS; ++w) {
+        s_base[w][lane] = run;
+        run += s_count[w][lane];
+      }
+      const bool over = __ballot_sync(0xffu, run > p.subcell_cap) != 0u;
+      if ((block + 1) * SUBCELL_ROWS >= n_rows) {  // the block of the last candidate: the lists' counts and flags
+        counts[lane] = run;
+        if (lane == 0) {
+          *sub_overflow = over ? 1 : 0;
+          if (over) *overflow = 1;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  if (!stored) return;
+  const unsigned below = (1u << lane) - 1u;
+  scls[(size_t)row * 8 + s] = c;
+  srank[(size_t)row * 8 + s] =
+      c == ACTIVE ? s_base[warp][s] + __popc(active & (ID_LANES << (s * SUBCELL_BOX_LANES)) & below) : -1;
+}
+
+// The sweep's alternative that keeps a last block (SUBCELL_LAST_BLOCK 1; taken out after the sweep): the grid
+// classifies as classify_subcells_kernel does (a block a run of rows in blockIdx order), fences its classes and
+// takes a ticket; the last block to take one ranks every row in one walk: warp w's rows [w seg, (w + 1) seg) in
+// rounds of 32, every round's classes loaded before any ballot and kept in registers (at most LAST_ROUNDS rounds).
+constexpr int LAST_ROUNDS = 4;
+
 __device__ __forceinline__ void subcell_row(const int* scls, int r, int end, int (&c)[8]) {
   int4 a = make_int4(NONE, NONE, NONE, NONE), b = a;
   if (r < end) {
@@ -835,65 +1033,46 @@ __device__ __forceinline__ void subcell_row(const int* scls, int r, int end, int
   c[0] = a.x, c[1] = a.y, c[2] = a.z, c[3] = a.w, c[4] = b.x, c[5] = b.y, c[6] = b.z, c[7] = b.w;
 }
 
-// B15c: the subcell stage's classes and lists in one launch. Group g of CORNER_LANES lanes classifies subcell
-// g % 8 of candidate row blockIdx.x * SUBCELL_ROWS + g / 8 (classify_box: the box ((8 b + 4 s) * vs, edge
-// sub_edge), b the brick of that rank in active_ids, for the rows below min(totals[0], cap) read on the device;
-// NONE past them). Each block then fences its writes and takes a ticket; the last block to take one (the
-// wrapper passes the tickets taken before) rereads every row from L2 and ranks each id's ACTIVE subcells in row
-// order: warp w takes the w-th run of rows, a lane a row, and counts each id's ACTIVE subcells by ballots; the
-// warps' counts are summed in order, and a second walk ranks the rows by the ballots. The ids' counts out, and
-// where one exceeds subcell_cap the flag of the lists and B3b's flag (ORed: the fusion pass and the caller read
-// both). No atomics but the ticket; integer sums. Bound: operations, ~600 a subcell (B3b's chain).
 __global__ void __launch_bounds__(SUBCELL_THREADS)
-    classify_subcells_kernel(const float* __restrict__ table, const float* __restrict__ pose,
-                             const int* __restrict__ active_ids, const int* __restrict__ totals,
-                             unsigned char* __restrict__ overflow, unsigned* __restrict__ ticket,
-                             int* __restrict__ scls, int* __restrict__ srank, int* __restrict__ counts,
-                             unsigned char* __restrict__ sub_overflow, const __grid_constant__ ClassifyParams p) {
+    classify_subcells_last_kernel(const float* __restrict__ table, const float* __restrict__ pose,
+                                  const int* __restrict__ active_ids, const int* __restrict__ totals,
+                                  unsigned char* __restrict__ overflow, unsigned long long* __restrict__ scratch,
+                                  int* __restrict__ scls, int* __restrict__ srank, int* __restrict__ counts,
+                                  unsigned char* __restrict__ sub_overflow, const __grid_constant__ ClassifyParams p) {
   constexpr int WARPS = SUBCELL_THREADS / 32;
   __shared__ int s_warp[WARPS][8];
   __shared__ bool s_last;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
   const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
-  const int j = lane & (CORNER_LANES - 1), g = (int)threadIdx.x / CORNER_LANES;
+  const int j = lane & (SUBCELL_BOX_LANES - 1), g = (int)threadIdx.x / SUBCELL_BOX_LANES;
   const int row = (int)blockIdx.x * SUBCELL_ROWS + g / 8, s = g % 8;
   const int n_rows = min(totals[0], p.cap);
-  const bool valid = row < n_rows;
-  int c = NONE;
-  if (__any_sync(0xffffffffu, valid)) {
-    const int n = p.nbx * p.nby * p.nbz;
-    const int b = valid ? min(max(active_ids[row], 0), n - 1) : 0;
-    const int bz = b % p.nbz, by = (b / p.nbz) % p.nby, bx = b / (p.nby * p.nbz);
-    const float ox = (float)(BRICK * bx + 4 * (s >> 2) + p.x_offset) * p.vs;
-    const float oy = (float)(BRICK * by + 4 * ((s >> 1) & 1)) * p.vs, oz = (float)(BRICK * bz + 4 * (s & 1)) * p.vs;
-    int unused[AUX_INTS];
-    c = classify_box<false>(table, pose, p, ox, oy, oz, p.sub_edge, j, unused);
-  }
-  if (j == 0 && row < p.cap) scls[row * 8 + s] = valid ? c : NONE;
+  const int c = classify_candidate(table, pose, active_ids, p, row, s, n_rows, j);
+  if (j == 0 && row < p.cap) scls[(size_t)row * 8 + s] = c;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
     const unsigned t = atomicAdd(ticket, 1u) - p.ticket_base;
-    if (t >= gridDim.x) __trap();  // the counter does not follow its launches
+    if (t >= gridDim.x) __trap();
     s_last = t == gridDim.x - 1;
   }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
 
-  // the last block: each id's ACTIVE subcells ranked in row order. Warp w takes the w-th run of rows, 32 rows a
-  // round, a lane a row (its 8 classes in two 16-byte loads, coalesced); a ballot an id counts the round's ACTIVE
-  // subcells, then the warps' counts are summed in order and a second walk ranks each row by the ballots
   const int seg = (p.cap + WARPS - 1) / WARPS;
+  if (seg > LAST_ROUNDS * 32) __trap();
   const int w0 = warp * seg, w1 = min(w0 + seg, p.cap);
   const unsigned below = (1u << lane) - 1u;
+  int cl[LAST_ROUNDS][8];
+#pragma unroll
+  for (int q = 0; q < LAST_ROUNDS; ++q) subcell_row(scls, w0 + 32 * q + lane, w1, cl[q]);
   int cnt[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) cnt[k] = 0;
-  for (int r0 = w0; r0 < w1; r0 += 32) {
-    int cl[8];
-    subcell_row(scls, r0 + lane, w1, cl);
+  for (int k = 0; k < 8; ++k) {
+    cnt[k] = 0;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) cnt[k] += __popc(__ballot_sync(0xffffffffu, cl[k] == ACTIVE));
+    for (int q = 0; q < LAST_ROUNDS; ++q) cnt[k] += __popc(__ballot_sync(0xffffffffu, cl[q][k] == ACTIVE));
   }
   if (lane == 0) {
 #pragma unroll
@@ -912,14 +1091,14 @@ __global__ void __launch_bounds__(SUBCELL_THREADS)
     cnt[k] = total;
     if (threadIdx.x == 0) counts[k] = total;
   }
-  for (int r0 = w0; r0 < w1; r0 += 32) {
-    const int r = r0 + lane;
-    int cl[8], out[8];
-    subcell_row(scls, r, w1, cl);
+#pragma unroll
+  for (int q = 0; q < LAST_ROUNDS; ++q) {
+    const int r = w0 + 32 * q + lane;
+    int out[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const unsigned bits = __ballot_sync(0xffffffffu, cl[k] == ACTIVE);
-      out[k] = cl[k] == ACTIVE ? run[k] + __popc(bits & below) : -1;
+      const unsigned bits = __ballot_sync(0xffffffffu, cl[q][k] == ACTIVE);
+      out[k] = cl[q][k] == ACTIVE ? run[k] + __popc(bits & below) : -1;
       run[k] += __popc(bits);
     }
     if (r < w1) {
@@ -1326,26 +1505,35 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
   return (int)cudaGetLastError();
 }
 
-// B15c. active_ids, totals, overflow: classify_bricks' (overflow ORed with the lists' own); ticket: an unsigned
-// int counter that belongs to one stream, zeroed when made, ticket_base the tickets its earlier launches took;
-// scls, srank: (cap, 8) ints; counts: 8 ints; sub_overflow: one byte; consts as classify_bricks'; vs, sub_edge:
-// the voxel size and the subcell edge, float32; x_offset: the slab's first x (B19a; 0 for the whole volume)
+// B15c. active_ids, totals, overflow: classify_bricks' (overflow ORed with the lists' own); scratch: scratch_words
+// 8-byte words, zeroed when made, 1 + STATUS_STRIDE a tile of the launch at least (ceil(cap / SUBCELL_TILE)
+// tiles), that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their blocks, mod
+// 2^32); epoch: its launches so far, this one included (from 1, below 2^40); scls, srank: (cap, 8) ints; counts: 8
+// ints; sub_overflow: one byte; consts as classify_bricks'; vs, sub_edge: the voxel size and the subcell edge,
+// float32; x_offset: the slab's first x (B19a; 0 for the whole volume)
 extern "C" int xs_classify_subcells(const void* table, const void* pose, const void* active_ids, const void* totals,
-                                    void* overflow, void* ticket, unsigned ticket_base, void* scls, void* srank,
-                                    void* counts, void* sub_overflow, int nbx, int nby, int nbz, int H, int W,
-                                    const int* levels, int n_levels, int rows, const float* consts, float vs,
-                                    float sub_edge, int cap, int subcell_cap, int x_offset, void* stream) {
+                                    void* overflow, void* scratch, long long scratch_words, unsigned ticket_base,
+                                    unsigned long long epoch, void* scls, void* srank, void* counts,
+                                    void* sub_overflow, int nbx, int nby, int nbz, int H, int W, const int* levels,
+                                    int n_levels, int rows, const float* consts, float vs, float sub_edge, int cap,
+                                    int subcell_cap, int x_offset, void* stream) {
   ClassifyParams p{};
   if (!classify_params(nbx, nby, nbz, H, W, levels, n_levels, rows, consts, cap, p)) return (int)cudaErrorInvalidValue;
   if (cap < 1 || subcell_cap < 1 || cap > (1 << 27)) return (int)cudaErrorInvalidValue;
+  if (epoch < 1 || epoch >= (1ull << (64 - SUBCELL_EPOCH_SHIFT))) return (int)cudaErrorInvalidValue;
+  const int blocks = (cap + SUBCELL_ROWS - 1) / SUBCELL_ROWS;
+  if (scratch_words < 1 + (long long)blocks * (SUBCELL_ROWS / SUBCELL_TILE) * STATUS_STRIDE)
+    return (int)cudaErrorInvalidValue;
   p.vs = vs;
   p.sub_edge = sub_edge;
   p.subcell_cap = subcell_cap;
   p.x_offset = x_offset;
   p.ticket_base = ticket_base;
-  classify_subcells_kernel<<<(cap + SUBCELL_ROWS - 1) / SUBCELL_ROWS, SUBCELL_THREADS, 0, (cudaStream_t)stream>>>(
+  p.epoch = epoch;
+  const auto kernel = SUBCELL_LAST_BLOCK ? classify_subcells_last_kernel : classify_subcells_kernel;
+  kernel<<<blocks, SUBCELL_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (const int*)active_ids, (const int*)totals, (unsigned char*)overflow,
-      (unsigned*)ticket, (int*)scls, (int*)srank, (int*)counts, (unsigned char*)sub_overflow, p);
+      (unsigned long long*)scratch, (int*)scls, (int*)srank, (int*)counts, (unsigned char*)sub_overflow, p);
   return (int)cudaGetLastError();
 }
 

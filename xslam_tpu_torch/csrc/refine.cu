@@ -61,16 +61,19 @@
 // together takes 126; neither was faster.
 //
 // K5r, its variant over the brick rows (refine_kernel<true>: the (NB, 512)
-// rows of ops/bricks.py, each voxel addressed by rows.cuh::row_index),
-// replaces the XLA code of xslam_tpu/ops/raycast.py::refine with trilin_fn =
+// rows of ops/bricks.py, rows.cuh's addressing), replaces the XLA code of xslam_tpu/ops/raycast.py::refine with trilin_fn =
 // xslam_tpu/ops/raycast_bricks.py::trilinear_pair_bricks (the brick layout's
 // `secant2` refine) and ::finalize_maps. Plain version: refine through
 // xslam_tpu_torch/ops/raycast_bricks.py::trilinear_pair_bricks, then
 // finalize_maps. The pair taps are the dense taps' bits on the volume's dense
 // twin and every cell is the same, so K5r gives K5's bits on that twin: only
 // the voxels' addresses differ. A brick row's neighbours along an axis are
-// not a fixed stride apart, so each tap's address is its own row_index
-// instead of a corner offset from its cell's base.
+// not a fixed stride apart, so a tap cannot be a corner offset from its
+// cell's base; but row_index is a sum of one term an axis (row_term), so a
+// cell's 8 taps take 6 terms and 8 sums, and the normal stage's 12 face taps
+// take the vertex cell's terms and one more term an axis: 9 terms for the 20
+// voxels, where each tap computed its own row_index (two multiplies, the
+// shifts and masks) before.
 
 // B19c, K5's shard mode (refine_shard_kernel, refine_body<SLAB>), the refine of one slab of the sharded engine
 // (parallel/sharded.py), following xslam_tpu/ops/raycast.py::refine with a ShardSpec as
@@ -97,6 +100,11 @@ using xs::lift;
 constexpr float INF_T = 1e9f;
 enum : int { L_DENSE = 0, L_ROWS = 1, L_SLAB = 2 };  // the volume's layout: (X, Y, Z) planes, brick rows, a slab's
 constexpr int BLOCK_W = 8, BLOCK_H = 8, BLOCK_THREADS = BLOCK_W * BLOCK_H;  // two warps of 8 x 4 pixels
+// K5r's block: ROWS_BLOCK_H / 4 warps of 8 x 4 pixels; ROWS_MIN_BLOCKS: the blocks an SM holds at least (its
+// register cap)
+constexpr int ROWS_BLOCK_H = 8;
+constexpr int ROWS_MIN_BLOCKS = 10;
+constexpr int ROWS_THREADS = BLOCK_W * ROWS_BLOCK_H;
 
 struct Volume {
   const float* value;
@@ -160,14 +168,38 @@ __device__ __forceinline__ Dual tap_at(const Volume& vol, unsigned off) {
   return {__ldg(vol.value + off) + 1e-5f, __ldg(vol.grad + off)};
 }
 
-// the tap of voxel (x, y, z), y and z inside the volume: in the brick rows, or in a slab (global x; 0 outside
-// the slab) (the dense planes address a cell's taps from its base instead)
-template <int LAYOUT>
+// the tap of voxel (x, y, z) of a slab (global x; 0 outside the slab), y and z inside the volume (the dense planes
+// address a cell's taps from its base, the brick rows from their axes' terms instead)
 __device__ __forceinline__ Dual tap_xyz(const Volume& vol, int x, int y, int z) {
-  if (LAYOUT == L_ROWS) return tap_at(vol, xs::row_index(vol.r, x, y, z));
   const int lx = x - vol.x_base;
   if ((unsigned)lx >= (unsigned)vol.X) return {0.0f + 1e-5f, 0.0f};
   return tap_at(vol, offset_of(vol, lx, y, z));
+}
+
+// K5r: rows.cuh::row_index regrouped as a sum of one term an axis, ((x >> 3) nby nbz + (y >> 3) nbz + (z >> 3))
+// 512 + (x & 7) 64 + (y & 7) 8 + (z & 7) = term<0>(x) + term<1>(y) + term<2>(z), exact in 32-bit unsigned
+// arithmetic (the wrapper keeps the volume under 2^31 voxels): the same address, so the same bits. A brick row's
+// neighbours along an axis are not a fixed stride apart, but a cell's 8 taps need only its two terms an axis.
+template <int A>
+__device__ __forceinline__ unsigned row_term(const Volume& vol, int v) {
+  const unsigned brick = A == 0 ? (unsigned)vol.r.nby * (unsigned)vol.r.nbz * (unsigned)xs::BRICK_LANES
+                                : A == 1 ? (unsigned)vol.r.nbz * (unsigned)xs::BRICK_LANES : (unsigned)xs::BRICK_LANES;
+  return (unsigned)(v >> 3) * brick + ((unsigned)(v & 7) << (A == 0 ? 6 : A == 1 ? 3 : 0));
+}
+
+// the terms of base b and of b + 1 on each axis: a cell's taps' addresses (b inside the volume)
+__device__ __forceinline__ void cell_terms(const Volume& vol, const int b[3], unsigned term[3][2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    term[0][e] = row_term<0>(vol, b[0] + e);
+    term[1][e] = row_term<1>(vol, b[1] + e);
+    term[2][e] = row_term<2>(vol, b[2] + e);
+  }
+}
+
+__device__ __forceinline__ void load_terms(const Volume& vol, const unsigned term[3][2], Dual tap[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) tap[k] = tap_at(vol, term[0][k >> 2] + term[1][(k >> 1) & 1] + term[2][k & 1]);
 }
 
 // the eight taps weighted and added in the plain version's order; (NaN, 0)
@@ -188,10 +220,17 @@ __device__ __forceinline__ Dual combine(const Cell& c, const Dual tap[8]) {
 // then discarded by combine)
 template <int LAYOUT>
 __device__ __forceinline__ void load_taps(const Volume& vol, const Cell& c, Dual tap[8]) {
-  if (LAYOUT != L_DENSE) {
-    const int bx = c.ok ? c.b[0] : (LAYOUT == L_SLAB ? vol.x_base : 0), by = c.ok ? c.b[1] : 0, bz = c.ok ? c.b[2] : 0;
+  if (LAYOUT == L_ROWS) {
+    const int b[3] = {c.ok ? c.b[0] : 0, c.ok ? c.b[1] : 0, c.ok ? c.b[2] : 0};
+    unsigned term[3][2];
+    cell_terms(vol, b, term);
+    load_terms(vol, term, tap);
+    return;
+  }
+  if (LAYOUT == L_SLAB) {
+    const int bx = c.ok ? c.b[0] : vol.x_base, by = c.ok ? c.b[1] : 0, bz = c.ok ? c.b[2] : 0;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) tap[k] = tap_xyz<LAYOUT>(vol, bx + (k >> 2), by + ((k >> 1) & 1), bz + (k & 1));
+    for (int k = 0; k < 8; ++k) tap[k] = tap_xyz(vol, bx + (k >> 2), by + ((k >> 1) & 1), bz + (k & 1));
     return;
   }
   const unsigned base = c.ok ? offset_of(vol, c.b[0], c.b[1], c.b[2]) : 0u;
@@ -207,10 +246,12 @@ __device__ __forceinline__ constexpr int corner_index(int e, int j) {
 }
 
 // the difference of the trilinears at vertex + half and vertex - half along
-// axis A, from the vertex's block `ctr` (base cv) and the face across axis A
+// axis A, from the vertex's block `ctr` (base cv) and the face across axis A; vt: with L_ROWS the vertex cell's
+// terms (cell_terms), from which the face and a sample's own cell take the other two axes' terms
 template <int A, int LAYOUT>
 __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual vertex[3], const int gv[3],
-                                                const Cell& vc, const Dual ctr[8], unsigned* direct) {
+                                                const Cell& vc, const Dual ctr[8], const unsigned vt[3][2],
+                                                unsigned* direct) {
   constexpr int O1 = A == 0 ? 1 : 0, O2 = A == 2 ? 1 : 2;  // the other axes
   const int* cv = vc.b;
   const bool upper = cv[A] == gv[A];                      // h = 1
@@ -220,14 +261,16 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
   const unsigned fbase = offset_of(vol, fb[0], fb[1], fb[2]);
   const unsigned step1 = O1 == 0 ? (unsigned)vol.Y * (unsigned)vol.Z : (unsigned)vol.Z;
   const unsigned step2 = O2 == 2 ? 1u : (unsigned)vol.Z;
+  const unsigned fterm = LAYOUT == L_ROWS ? row_term<A>(vol, fb[A]) : 0u;  // the face's term on axis A
   Dual line[3][4];  // the voxels at g - 1, g, g + 1 on axis A; j across it
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     int q[3] = {fb[0], fb[1], fb[2]};
     q[O1] += j >> 1;
     q[O2] += j & 1;
-    const Dual face = LAYOUT != L_DENSE ? tap_xyz<LAYOUT>(vol, q[0], q[1], q[2])
-                                      : tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
+    const Dual face = LAYOUT == L_ROWS   ? tap_at(vol, fterm + vt[O1][j >> 1] + vt[O2][j & 1])
+                      : LAYOUT == L_SLAB ? tap_xyz(vol, q[0], q[1], q[2])
+                                         : tap_at(vol, fbase + (unsigned)(j >> 1) * step1 + (unsigned)(j & 1) * step2);
     const Dual& lo = ctr[corner_index<A>(0, j)];
     const Dual& hi = ctr[corner_index<A>(1, j)];
     line[0][j] = upper ? face : lo;
@@ -252,6 +295,15 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
         const int j = A == 0 ? k & 3 : A == 1 ? ((k >> 2) << 1) | (k & 1) : k >> 1;
         tap[k] = line[e + 1 - s][j];
       }
+    } else if (LAYOUT == L_ROWS) {
+      // the sample's own cell: the vertex cell's terms on the other two axes (the same bases), its own on axis A
+      // (the vertex cell's base where out of bounds: read, then discarded by combine)
+      unsigned term[3][2] = {{vt[0][0], vt[0][1]}, {vt[1][0], vt[1][1]}, {vt[2][0], vt[2][1]}};
+      const int b = c.ok ? c.b[A] : cv[A];
+      term[A][0] = row_term<A>(vol, b);
+      term[A][1] = row_term<A>(vol, b + 1);
+      load_terms(vol, term, tap);
+      if (direct != nullptr) atomicAdd(direct, 1u);
     } else {
       load_taps<LAYOUT>(vol, c, tap);
       if (direct != nullptr) atomicAdd(direct, 1u);
@@ -261,11 +313,12 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
   return res[0] - res[1];
 }
 
-// the pixel of thread `tid`: warp w of a block owns the 8 x 4 tile at rows 4 w
+// the pixel of thread `tid`: warp w of a block of 8 x BH pixels owns the 8 x 4 tile at rows 4 w
+template <int BH>
 __device__ __forceinline__ void tile_pixel(int tid, int& x, int& y) {
   const int warp = tid >> 5, lane = tid & 31;
   x = blockIdx.x * BLOCK_W + (lane & 7);
-  y = blockIdx.y * BLOCK_H + warp * 4 + (lane >> 3);
+  y = blockIdx.y * BH + warp * 4 + (lane >> 3);
 }
 
 __device__ __forceinline__ void point_at(const Dual start[3], const Dual dir[3], Dual t, Dual p[3]) {
@@ -300,7 +353,7 @@ __device__ __forceinline__ void refine_body(const Volume& vol, const float* __re
   if (tid < xs::POSE_FLOATS) sp[tid] = pose[tid];
   __syncthreads();
   int x, y;
-  tile_pixel(tid, x, y);
+  tile_pixel<LAYOUT == L_ROWS ? ROWS_BLOCK_H : BLOCK_H>(tid, x, y);
   if (x >= W || y >= H) return;
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
@@ -359,14 +412,21 @@ __device__ __forceinline__ void refine_body(const Volume& vol, const float* __re
   }
   Dual n_w[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
   if (n_ok) {
-    // the vertex's own cell: base g - 1 + h on each axis; inside the margin all 20 voxels lie in the volume
+    // the vertex's own cell: base g - 1 + h on each axis; inside the margin all 20 voxels lie in the volume (and
+    // the cell is in bounds: its index is gv)
     const Cell cv = cell_at<LAYOUT>(vol, vertex);
     Dual ctr[8];
-    load_taps<LAYOUT>(vol, cv, ctr);
+    unsigned vt[3][2];  // L_ROWS: the cell's terms, shared with the faces
+    if (LAYOUT == L_ROWS) {
+      cell_terms(vol, cv.b, vt);
+      load_terms(vol, vt, ctr);
+    } else {
+      load_taps<LAYOUT>(vol, cv, ctr);
+    }
     Dual n[3];
-    n[0] = axis_difference<0, LAYOUT>(vol, vertex, gv, cv, ctr, direct);
-    n[1] = axis_difference<1, LAYOUT>(vol, vertex, gv, cv, ctr, direct);
-    n[2] = axis_difference<2, LAYOUT>(vol, vertex, gv, cv, ctr, direct);
+    n[0] = axis_difference<0, LAYOUT>(vol, vertex, gv, cv, ctr, vt, direct);
+    n[1] = axis_difference<1, LAYOUT>(vol, vertex, gv, cv, ctr, vt, direct);
+    n[2] = axis_difference<2, LAYOUT>(vol, vertex, gv, cv, ctr, vt, direct);
     const Dual nsq = xs::dot3(n, n);
     n_ok = nsq.v > 0.0f && !isnan(nsq.v);
     if (n_ok) {
@@ -378,16 +438,26 @@ __device__ __forceinline__ void refine_body(const Volume& vol, const float* __re
   store3<LAYOUT>(nmap_v, nmap_g, HW, pix, n_ok, n_w, n_mask);
 }
 
-// K5 over the dense planes (ROWS false) or K5r over the brick rows
+// K5 over the dense planes (ROWS false) or K5r over the brick rows, each with its own launch bounds
+#define REFINE_ARGS                                                                                              \
+  Volume vol, const float *__restrict__ pose, const float *__restrict__ t_found, const float *__restrict__ t_dead, \
+      float *__restrict__ vmap_v, float *__restrict__ vmap_g, float *__restrict__ nmap_v,                        \
+      float *__restrict__ nmap_g, int H, int W, float step, xs::Camera cam, unsigned *direct
 template <bool ROWS>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    refine_kernel(Volume vol, const float* __restrict__ pose, const float* __restrict__ t_found,
-                  const float* __restrict__ t_dead, float* __restrict__ vmap_v, float* __restrict__ vmap_g,
-                  float* __restrict__ nmap_v, float* __restrict__ nmap_g, int H, int W, float step, xs::Camera cam,
-                  unsigned* direct) {
-  refine_body<ROWS ? L_ROWS : L_DENSE>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr,
-                                       H, W, step, cam, direct);
+__global__ void refine_kernel(REFINE_ARGS);
+
+template <>
+__global__ void __launch_bounds__(BLOCK_THREADS) refine_kernel<false>(REFINE_ARGS) {
+  refine_body<L_DENSE>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, H, W, step, cam,
+                       direct);
 }
+
+template <>
+__global__ void __launch_bounds__(ROWS_THREADS, ROWS_MIN_BLOCKS) refine_kernel<true>(REFINE_ARGS) {
+  refine_body<L_ROWS>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, H, W, step, cam,
+                      direct);
+}
+#undef REFINE_ARGS
 
 // B19c: K5's shard mode over a slab's planes
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -404,13 +474,15 @@ template <int LAYOUT>
 int launch_refine(const Volume& vol, const void* pose, const void* t_found, const void* t_dead, const void* t_min,
                   void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, void* ok_out, void* direct, int H, int W,
                   float step, const xs::Camera& cam, void* stream) {
-  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
+  const int bh = LAYOUT == L_ROWS ? ROWS_BLOCK_H : BLOCK_H;
+  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + bh - 1) / bh);
   if (LAYOUT == L_SLAB)
     refine_shard_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (const float*)t_min, (float*)vmap_v,
         (float*)vmap_g, (float*)nmap_v, (float*)nmap_g, (float*)ok_out, H, W, step, cam);
   else
-    refine_kernel<LAYOUT == L_ROWS><<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+    refine_kernel<LAYOUT == L_ROWS><<<grid, LAYOUT == L_ROWS ? ROWS_THREADS : BLOCK_THREADS, 0,
+                                      (cudaStream_t)stream>>>(
         vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
         (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
   return (int)cudaGetLastError();

@@ -87,7 +87,10 @@ CLASSIFY_TILE = 128  # bricks a tile (a block) of csrc/bricks.cu's classifier sc
 FINE_BOX_LANES, FINE_LANES, FINE_THREADS = 1, 4, 1024
 FINE_TILE = FINE_THREADS // FINE_LANES  # bricks a tile of B15f's scan
 CLASSIFY_STATUS_STRIDE = 16  # 8-byte words of the classifier's scratch a tile: its status word, one a 128 B line
-SUBCELL_ROWS = 16  # candidate rows a block of csrc/bricks.cu's subcell classifier takes (8 subcells, 2 lanes each)
+# B15c's lanes a subcell box, threads a block and candidate rows a tile of its scan (csrc/bricks.cu)
+SUBCELL_BOX_LANES, SUBCELL_THREADS, SUBCELL_TILE = 1, 256, 32
+SUBCELL_ROWS = SUBCELL_THREADS // (8 * SUBCELL_BOX_LANES)  # candidate rows a block (8 subcells a row)
+SUBCELL_EPOCH_BITS = 40  # a B15c status word's epoch: the rest holds four ids' counts of a tile
 
 
 class MipLayout(NamedTuple):
@@ -524,9 +527,11 @@ def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics,
                       subcell_cap: int, x_offset: int = 0) -> Subcells:
     """B15c: the subcell stage's classes and lists (:func:`classify_subcells_plain`'s
     contract), its overflow ORed into ``classes.overflow`` in place. On the
-    card one launch after B3b's: a subcell two lanes, the rows read from
-    ``classes`` on the device (no host read), then the last block to finish
-    lists each id's ACTIVE subcells in row order by a scan."""
+    card one launch after B3b's: a subcell a lane, the rows read from
+    ``classes`` on the device (no host read), each id's ACTIVE subcells ranked
+    in row order in the same launch by a single-pass scan over tiles of
+    :data:`SUBCELL_TILE` rows (a block a run of :data:`SUBCELL_ROWS` rows,
+    taken by an atomic ticket)."""
     if cap < 1 or subcell_cap < 1:
         raise ValueError(f"the subcell stage needs cap and subcell_cap >= 1, got {cap}, {subcell_cap}")
     if kernels.on_cpu(table, pose, classes.cls):
@@ -542,12 +547,9 @@ def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics,
     cls, rank = (torch.empty((cap, 8), dtype=torch.int32, device=dev) for _ in range(2))
     counts = torch.empty(8, dtype=torch.int32, device=dev)
     sub_overflow = torch.empty((), dtype=torch.bool, device=dev)
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    if key not in _subcell_scratch:  # zeroed once per device and stream
-        _subcell_scratch[key] = ClassifyScratch(dev, 1)
-    scratch = _subcell_scratch[key]
+    scratch = subcell_scratch(dev, cap)
     kernels.launch("classify_subcells", dev, table, pose, classes.active_ids, classes.totals, classes.overflow,
-                   scratch.words, scratch.next_launch()[0], cls, rank, counts, sub_overflow, *nb, H, W,
+                   scratch.words, *scratch.next_launch(), cls, rank, counts, sub_overflow, *nb, H, W,
                    _layout_ints(layout), classify_consts(intr, cfg, x_offset), subcell_consts(cfg), int(cap),
                    int(subcell_cap), int(x_offset))
     scratch.launched(subcell_blocks(cap))
@@ -558,6 +560,12 @@ def classify_subcells(table: torch.Tensor, pose: torch.Tensor, intr: Intrinsics,
 def subcell_blocks(cap: int) -> int:
     """Blocks of a B15c launch: :data:`SUBCELL_ROWS` candidate rows each."""
     return -(-cap // SUBCELL_ROWS)
+
+
+def subcell_tiles(cap: int) -> int:
+    """Tiles of a B15c launch's scan: its blocks' runs of rows cut into
+    tiles of :data:`SUBCELL_TILE`."""
+    return subcell_blocks(cap) * (SUBCELL_ROWS // SUBCELL_TILE)
 
 
 def subcell_consts(cfg) -> list:
@@ -572,19 +580,20 @@ class ClassifyScratch:
     """The classifiers' scratch on one device and stream, since launches on
     one stream run in order: word 0 the ticket counter, which runs on from
     launch to launch, then a status word a tile of the launch
-    (:func:`classify_tiles`) every :data:`CLASSIFY_STATUS_STRIDE` words,
-    tagged with the launch's epoch.
-    Zeroed once when made; the host counts the tickets taken and the
+    (:func:`classify_tiles`; B15c's :func:`subcell_tiles`, a pair of words)
+    every :data:`CLASSIFY_STATUS_STRIDE` words, tagged with the launch's
+    epoch. Zeroed once when made; the host counts the tickets taken and the
     launches made, so no launch clears anything."""
 
-    def __init__(self, device: torch.device, words: int):
+    def __init__(self, device: torch.device, words: int, epoch_bits: int = 42):
         self.words = torch.zeros(words, dtype=torch.int64, device=device)
         self.tickets = 0
         self.launches = 0
+        self.epoch_bits = epoch_bits  # the status words' room for the epoch: 42 for B3b's, 40 for B15c's
 
     def next_launch(self) -> Tuple[int, int]:
         """(ticket base, epoch) of the next launch on the scratch."""
-        if self.launches + 1 >= 2 ** 42:
+        if self.launches + 1 >= 2 ** self.epoch_bits:
             raise RuntimeError("the classifier's scratch has run out of epochs")
         return self.tickets % 2 ** 32, self.launches + 1
 
@@ -596,7 +605,7 @@ class ClassifyScratch:
 
 
 _classify_scratch: dict = {}  # (device, stream) -> ClassifyScratch
-_subcell_scratch: dict = {}  # (device, stream) -> B15c's ClassifyScratch: its ticket counter alone
+_subcell_scratch: dict = {}  # (device, stream) -> B15c's ClassifyScratch
 
 
 def classify_scratch(device: torch.device, n_bricks: int) -> ClassifyScratch:
@@ -608,6 +617,17 @@ def classify_scratch(device: torch.device, n_bricks: int) -> ClassifyScratch:
     if key not in _classify_scratch or _classify_scratch[key].words.numel() < words:
         _classify_scratch[key] = ClassifyScratch(device, words)
     return _classify_scratch[key]
+
+
+def subcell_scratch(device: torch.device, cap: int) -> ClassifyScratch:
+    """B15c's :class:`ClassifyScratch` on ``device``'s current stream (a
+    pair of status words a tile, :data:`SUBCELL_EPOCH_BITS` of epoch), made
+    anew where a larger cap needs more tiles."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    words = 1 + subcell_tiles(cap) * CLASSIFY_STATUS_STRIDE
+    if key not in _subcell_scratch or _subcell_scratch[key].words.numel() < words:
+        _subcell_scratch[key] = ClassifyScratch(device, words, SUBCELL_EPOCH_BITS)
+    return _subcell_scratch[key]
 
 
 def classify_tiles(n_bricks: int, fine: bool = False) -> int:
