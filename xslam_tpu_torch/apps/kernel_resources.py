@@ -44,7 +44,7 @@ BLOCK_THREADS = {
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
     "classify_bricks_split_kernel": 256, "classify_bricks_fine_kernel": 1024,
-    "classify_subcells_kernel": 256, "classify_subcells_last_kernel": 1024,
+    "classify_subcells_kernel": 256,
     "fuse_bricks_mixed_kernel": 128, "fuse_bricks_subcell_kernel": 128,
     "window_march_kernel": 128, "window_dense_kernel": 128, "event_mask_kernel": 256, "skip_distance_kernel": 256,
     "march_skip_kernel": 128, "march_skip_ray_kernel": 128, "extract_count_kernel": 256, "extract_points_kernel": 256,

@@ -212,8 +212,9 @@ int classify_subcells(const torch::Tensor& table, const torch::Tensor& pose, con
                       const torch::Tensor& totals, torch::Tensor overflow, torch::Tensor scratch, int64_t ticket_base,
                       int64_t epoch, torch::Tensor scls, torch::Tensor srank, torch::Tensor counts,
                       torch::Tensor sub_overflow, int64_t nbx, int64_t nby, int64_t nbz, int64_t H, int64_t W,
-                      const std::vector<int64_t>& levels, const std::vector<double>& consts, const std::vector<double>& sub_consts, int64_t cap,
-                      int64_t subcell_cap, int64_t x_offset, int64_t stream) {
+                      const std::vector<int64_t>& levels, const std::vector<double>& consts,
+                      const std::vector<double>& sub_consts, int64_t cap, int64_t subcell_cap, int64_t x_offset,
+                      int64_t stream) {
   if (levels.size() % 4 != 0 || consts.size() != 14 || sub_consts.size() != 2 || epoch < 1) return 1;
   if (scls.numel() != 8 * cap || srank.numel() != 8 * cap || counts.numel() != 8) return 1;
   const std::vector<int> lv(levels.begin(), levels.end());

@@ -161,10 +161,6 @@ constexpr int SUBCELL_TILE = 32;
 constexpr int SUBCELL_ROWS = SUBCELL_THREADS / (8 * SUBCELL_BOX_LANES);  // ops/fusion_brick.py
 constexpr int SUBCELL_WARP_ROWS = 32 / (8 * SUBCELL_BOX_LANES);          // candidate rows a warp
 constexpr int SUBCELL_LOOK_BACK_LOADS = 4;  // tiles (two status words each) a lane of the look-back loads at once
-// the sweep's alternatives (taken out after it): 1 launches classify_subcells_last_kernel; 0 skips the look-back
-// (the ranks of block 0 alone are right): the scan's cost, timed
-constexpr int SUBCELL_LAST_BLOCK = 0;
-constexpr int SUBCELL_SCAN = 1;
 static_assert(SUBCELL_BOX_LANES == 1 || SUBCELL_BOX_LANES == 2, "a box's lanes hold a warp's whole rows");
 static_assert(SUBCELL_ROWS % SUBCELL_TILE == 0 && SUBCELL_TILE % SUBCELL_WARP_ROWS == 0,
               "a block takes whole tiles, a tile whole warps");
@@ -990,7 +986,7 @@ __global__ void __launch_bounds__(SUBCELL_THREADS)
                      (p.epoch << SUBCELL_EPOCH_SHIFT) | word);
     }
     int before[8];
-    subcell_counts_before(status, SUBCELL_SCAN ? tile0 : 0, lane, p.epoch, before);
+    subcell_counts_before(status, tile0, lane, p.epoch, before);
     if (lane < 8) {
       int run = 0;
 #pragma unroll
@@ -1016,104 +1012,6 @@ __global__ void __launch_bounds__(SUBCELL_THREADS)
   scls[(size_t)row * 8 + s] = c;
   srank[(size_t)row * 8 + s] =
       c == ACTIVE ? s_base[warp][s] + __popc(active & (ID_LANES << (s * SUBCELL_BOX_LANES)) & below) : -1;
-}
-
-// The sweep's alternative that keeps a last block (SUBCELL_LAST_BLOCK 1; taken out after the sweep): the grid
-// classifies as classify_subcells_kernel does (a block a run of rows in blockIdx order), fences its classes and
-// takes a ticket; the last block to take one ranks every row in one walk: warp w's rows [w seg, (w + 1) seg) in
-// rounds of 32, every round's classes loaded before any ballot and kept in registers (at most LAST_ROUNDS rounds).
-constexpr int LAST_ROUNDS = 4;
-
-__device__ __forceinline__ void subcell_row(const int* scls, int r, int end, int (&c)[8]) {
-  int4 a = make_int4(NONE, NONE, NONE, NONE), b = a;
-  if (r < end) {
-    a = __ldcg(reinterpret_cast<const int4*>(scls + (size_t)r * 8));
-    b = __ldcg(reinterpret_cast<const int4*>(scls + (size_t)r * 8) + 1);
-  }
-  c[0] = a.x, c[1] = a.y, c[2] = a.z, c[3] = a.w, c[4] = b.x, c[5] = b.y, c[6] = b.z, c[7] = b.w;
-}
-
-__global__ void __launch_bounds__(SUBCELL_THREADS)
-    classify_subcells_last_kernel(const float* __restrict__ table, const float* __restrict__ pose,
-                                  const int* __restrict__ active_ids, const int* __restrict__ totals,
-                                  unsigned char* __restrict__ overflow, unsigned long long* __restrict__ scratch,
-                                  int* __restrict__ scls, int* __restrict__ srank, int* __restrict__ counts,
-                                  unsigned char* __restrict__ sub_overflow, const __grid_constant__ ClassifyParams p) {
-  constexpr int WARPS = SUBCELL_THREADS / 32;
-  __shared__ int s_warp[WARPS][8];
-  __shared__ bool s_last;
-  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
-  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
-  const int j = lane & (SUBCELL_BOX_LANES - 1), g = (int)threadIdx.x / SUBCELL_BOX_LANES;
-  const int row = (int)blockIdx.x * SUBCELL_ROWS + g / 8, s = g % 8;
-  const int n_rows = min(totals[0], p.cap);
-  const int c = classify_candidate(table, pose, active_ids, p, row, s, n_rows, j);
-  if (j == 0 && row < p.cap) scls[(size_t)row * 8 + s] = c;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned t = atomicAdd(ticket, 1u) - p.ticket_base;
-    if (t >= gridDim.x) __trap();
-    s_last = t == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  const int seg = (p.cap + WARPS - 1) / WARPS;
-  if (seg > LAST_ROUNDS * 32) __trap();
-  const int w0 = warp * seg, w1 = min(w0 + seg, p.cap);
-  const unsigned below = (1u << lane) - 1u;
-  int cl[LAST_ROUNDS][8];
-#pragma unroll
-  for (int q = 0; q < LAST_ROUNDS; ++q) subcell_row(scls, w0 + 32 * q + lane, w1, cl[q]);
-  int cnt[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    cnt[k] = 0;
-#pragma unroll
-    for (int q = 0; q < LAST_ROUNDS; ++q) cnt[k] += __popc(__ballot_sync(0xffffffffu, cl[q][k] == ACTIVE));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s_warp[warp][k] = cnt[k];
-  }
-  __syncthreads();
-  int run[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    int before = 0, total = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      before += w < warp ? s_warp[w][k] : 0;
-      total += s_warp[w][k];
-    }
-    run[k] = before;
-    cnt[k] = total;
-    if (threadIdx.x == 0) counts[k] = total;
-  }
-#pragma unroll
-  for (int q = 0; q < LAST_ROUNDS; ++q) {
-    const int r = w0 + 32 * q + lane;
-    int out[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const unsigned bits = __ballot_sync(0xffffffffu, cl[q][k] == ACTIVE);
-      out[k] = cl[q][k] == ACTIVE ? run[k] + __popc(bits & below) : -1;
-      run[k] += __popc(bits);
-    }
-    if (r < w1) {
-      int4* dst = reinterpret_cast<int4*>(srank + (size_t)r * 8);
-      dst[0] = make_int4(out[0], out[1], out[2], out[3]);
-      dst[1] = make_int4(out[4], out[5], out[6], out[7]);
-    }
-  }
-  if (threadIdx.x == 0) {
-    bool over = false;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) over = over || cnt[k] > p.subcell_cap;
-    *sub_overflow = over ? 1 : 0;
-    if (over) *overflow = 1;
-  }
 }
 
 // ---------------------------------------------------------------- B3c
@@ -1530,8 +1428,7 @@ extern "C" int xs_classify_subcells(const void* table, const void* pose, const v
   p.x_offset = x_offset;
   p.ticket_base = ticket_base;
   p.epoch = epoch;
-  const auto kernel = SUBCELL_LAST_BLOCK ? classify_subcells_last_kernel : classify_subcells_kernel;
-  kernel<<<blocks, SUBCELL_THREADS, 0, (cudaStream_t)stream>>>(
+  classify_subcells_kernel<<<blocks, SUBCELL_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pose, (const int*)active_ids, (const int*)totals, (unsigned char*)overflow,
       (unsigned long long*)scratch, (int*)scls, (int*)srank, (int*)counts, (unsigned char*)sub_overflow, p);
   return (int)cudaGetLastError();

@@ -61,7 +61,8 @@
 // together takes 126; neither was faster.
 //
 // K5r, its variant over the brick rows (refine_kernel<true>: the (NB, 512)
-// rows of ops/bricks.py, rows.cuh's addressing), replaces the XLA code of xslam_tpu/ops/raycast.py::refine with trilin_fn =
+// rows of ops/bricks.py, rows.cuh's addressing), replaces the XLA code of
+// xslam_tpu/ops/raycast.py::refine with trilin_fn =
 // xslam_tpu/ops/raycast_bricks.py::trilinear_pair_bricks (the brick layout's
 // `secant2` refine) and ::finalize_maps. Plain version: refine through
 // xslam_tpu_torch/ops/raycast_bricks.py::trilinear_pair_bricks, then
@@ -73,7 +74,13 @@
 // cell's 8 taps take 6 terms and 8 sums, and the normal stage's 12 face taps
 // take the vertex cell's terms and one more term an axis: 9 terms for the 20
 // voxels, where each tap computed its own row_index (two multiplies, the
-// shifts and masks) before.
+// shifts and masks) before. What held it was its registers, not the
+// addressing (measured on the H100, PERF.md): at the compiler's 128 a thread
+// an SM holds 8 blocks of 64, so 240 x 320's 1,200 blocks take 1.14 waves;
+// its own launch bound (ROWS_MIN_BLOCKS) caps it at 96 (4 bytes spilled) and
+// the grid takes one wave. The cap alone bought 12% at 240 x 320, the terms
+// alone nothing there and 3% at 480 x 640, both together 13% and 4%. K5
+// keeps its own bound: the compiler gives it 96 registers unasked.
 
 // B19c, K5's shard mode (refine_shard_kernel, refine_body<SLAB>), the refine of one slab of the sharded engine
 // (parallel/sharded.py), following xslam_tpu/ops/raycast.py::refine with a ShardSpec as
@@ -100,11 +107,8 @@ using xs::lift;
 constexpr float INF_T = 1e9f;
 enum : int { L_DENSE = 0, L_ROWS = 1, L_SLAB = 2 };  // the volume's layout: (X, Y, Z) planes, brick rows, a slab's
 constexpr int BLOCK_W = 8, BLOCK_H = 8, BLOCK_THREADS = BLOCK_W * BLOCK_H;  // two warps of 8 x 4 pixels
-// K5r's block: ROWS_BLOCK_H / 4 warps of 8 x 4 pixels; ROWS_MIN_BLOCKS: the blocks an SM holds at least (its
-// register cap)
-constexpr int ROWS_BLOCK_H = 8;
+// K5r's blocks an SM holds at least: its register cap (96), so that 240 x 320's 1,200 blocks take one wave
 constexpr int ROWS_MIN_BLOCKS = 10;
-constexpr int ROWS_THREADS = BLOCK_W * ROWS_BLOCK_H;
 
 struct Volume {
   const float* value;
@@ -313,12 +317,11 @@ __device__ __forceinline__ Dual axis_difference(const Volume& vol, const Dual ve
   return res[0] - res[1];
 }
 
-// the pixel of thread `tid`: warp w of a block of 8 x BH pixels owns the 8 x 4 tile at rows 4 w
-template <int BH>
+// the pixel of thread `tid`: warp w of a block owns the 8 x 4 tile at rows 4 w
 __device__ __forceinline__ void tile_pixel(int tid, int& x, int& y) {
   const int warp = tid >> 5, lane = tid & 31;
   x = blockIdx.x * BLOCK_W + (lane & 7);
-  y = blockIdx.y * BH + warp * 4 + (lane >> 3);
+  y = blockIdx.y * BLOCK_H + warp * 4 + (lane >> 3);
 }
 
 __device__ __forceinline__ void point_at(const Dual start[3], const Dual dir[3], Dual t, Dual p[3]) {
@@ -353,7 +356,7 @@ __device__ __forceinline__ void refine_body(const Volume& vol, const float* __re
   if (tid < xs::POSE_FLOATS) sp[tid] = pose[tid];
   __syncthreads();
   int x, y;
-  tile_pixel<LAYOUT == L_ROWS ? ROWS_BLOCK_H : BLOCK_H>(tid, x, y);
+  tile_pixel(tid, x, y);
   if (x >= W || y >= H) return;
   const int HW = H * W, pix = y * W + x;
   const Dual none[3] = {lift(0.0f), lift(0.0f), lift(0.0f)};
@@ -453,7 +456,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) refine_kernel<false>(REFINE_ARG
 }
 
 template <>
-__global__ void __launch_bounds__(ROWS_THREADS, ROWS_MIN_BLOCKS) refine_kernel<true>(REFINE_ARGS) {
+__global__ void __launch_bounds__(BLOCK_THREADS, ROWS_MIN_BLOCKS) refine_kernel<true>(REFINE_ARGS) {
   refine_body<L_ROWS>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, H, W, step, cam,
                       direct);
 }
@@ -474,15 +477,13 @@ template <int LAYOUT>
 int launch_refine(const Volume& vol, const void* pose, const void* t_found, const void* t_dead, const void* t_min,
                   void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, void* ok_out, void* direct, int H, int W,
                   float step, const xs::Camera& cam, void* stream) {
-  const int bh = LAYOUT == L_ROWS ? ROWS_BLOCK_H : BLOCK_H;
-  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + bh - 1) / bh);
+  const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
   if (LAYOUT == L_SLAB)
     refine_shard_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (const float*)t_min, (float*)vmap_v,
         (float*)vmap_g, (float*)nmap_v, (float*)nmap_g, (float*)ok_out, H, W, step, cam);
   else
-    refine_kernel<LAYOUT == L_ROWS><<<grid, LAYOUT == L_ROWS ? ROWS_THREADS : BLOCK_THREADS, 0,
-                                      (cudaStream_t)stream>>>(
+    refine_kernel<LAYOUT == L_ROWS><<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
         (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
   return (int)cudaGetLastError();
