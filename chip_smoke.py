@@ -1216,8 +1216,7 @@ def phase_b15(ctx):
                 return go
 
             sub_out = fb.classify_subcells(table, pose, intr, eng, copy(coarse), cap, cap)
-            sub_scratch = fb.ClassifyScratch(table.device, 1 + fb.subcell_tiles(cap) * fb.CLASSIFY_STATUS_STRIDE,
-                                             fb.SUBCELL_EPOCH_BITS)
+            sub_scratch = fb.subcell_scratch(table.device, cap)
             sub_flag = coarse.overflow.clone()
 
             def subcells():

@@ -243,8 +243,8 @@ def test_profile_step_names_each_hand_kernel_once():
         "(anonymous namespace)::window_dense_kernel(float const*, float const*, float const*)": [2048.0, 1],
         "void (anonymous namespace)::window_march_kernel<false, true>(float const*, float const*, float const*)":
             [4096.0, 1],
-        "void (anonymous namespace)::refine_kernel<false>((anonymous namespace)::Volume, float const*)": [8192.0, 1],
-        "void (anonymous namespace)::refine_kernel<true>((anonymous namespace)::Volume, float const*)": [16384.0, 1],
+        "(anonymous namespace)::refine_kernel((anonymous namespace)::Volume, float const*)": [8192.0, 1],
+        "(anonymous namespace)::refine_rows_kernel((anonymous namespace)::Volume, float const*)": [16384.0, 1],
         "void (anonymous namespace)::model_map_pyramid_kernel<true, false>((anonymous namespace)::ModelPyramid)":
             [16.0, 1],
         "void (anonymous namespace)::model_map_pyramid_kernel<false, true>((anonymous namespace)::ModelPyramid)":
@@ -285,8 +285,8 @@ def test_profile_step_names_the_skip_march_forms_and_b19b():
 
 
 @pytest.mark.parametrize("function, wrappers", [
-    ("refine_kernel<false>", ["raycast_refine"]),  # K5
-    ("refine_kernel<true>", ["raycast_refine_bricks"]),  # K5r, the brick rows
+    ("refine_kernel", ["raycast_refine"]),  # K5
+    ("refine_rows_kernel", ["raycast_refine_bricks"]),  # K5r, the brick rows, a kernel of its own for its launch bound
     ("window_march_kernel<false, false>", ["window_march"]),  # B4
     ("window_dense_kernel", ["window_march_dense"]),  # B14c, a kernel of its own since B4's body lost to it
     ("window_march_kernel<false, true>", ["window_march_first_event"]),  # B16

@@ -15,7 +15,7 @@ versions on the card).
   past the ACTIVE count and stale words of an earlier launch on the scratch;
   and on the classifier scenes' own subcell classes. The wrapper's constants
   are the source's.
-- K5r, the refine over brick rows (``csrc/refine.cu``, ``refine_kernel<true>``):
+- K5r, the refine over brick rows (``csrc/refine.cu``, ``refine_rows_kernel``):
   the per-axis row terms sum to ``ops/bricks.py::flat_index`` (rows.cuh's
   ``row_index``) at every voxel of grids whose brick counts differ on every
   axis; the normal stage's block of 20 voxels, addressed from the vertex

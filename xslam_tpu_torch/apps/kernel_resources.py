@@ -13,8 +13,9 @@ in its machine code as ``cuobjdump -sass`` lists them (instructions in the
 code, not loads executed: a branch's loads count whether it runs or not),
 and, for the block size given here, how many blocks and warps an SM of
 65,536 registers holds by registers alone. Each instantiation is listed
-apart (``refine_kernel<false>`` K5, ``refine_kernel<true>`` K5r over the
-brick rows; ``window_march_kernel<false, false>`` B4, ``<false, true>``
+apart (``refine_kernel`` K5 and ``refine_rows_kernel`` K5r over the brick
+rows, two kernels since PR 28 for their launch bounds;
+``window_march_kernel<false, false>`` B4, ``<false, true>``
 B16; ``march_skip_ray_kernel<false>`` B5b's ray
 form, ``<true>`` B14b's; ``march_shard_kernel<true>`` B19b,
 ``<false>`` its earlier design; ``march_group_kernel<G>`` K3 at a stride,
@@ -41,6 +42,7 @@ from ..ops.kernels import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, SOURCES
 BLOCK_THREADS = {
     "icp_system_kernel": 256, "icp_associate_kernel": 256, "fuse_kernel": 256, "bilateral_kernel": 256,
     "bilateral_weights_kernel": 256, "march_kernel": 256, "march_chain_kernel": 256, "refine_kernel": 64,
+    "refine_rows_kernel": 64,
     "model_map_pyramid_kernel": 32, "depth_pyramid_kernel": 128, "vertex_normal_maps_kernel": 256,
     "depth_mips_kernel": 256, "classify_bricks_kernel": 256, "fuse_bricks_kernel": 128,
     "classify_bricks_split_kernel": 256, "classify_bricks_fine_kernel": 1024,

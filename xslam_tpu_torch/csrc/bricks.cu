@@ -101,7 +101,8 @@
 //   two lanes a box repeat the chain's tail (the level search, the cells, the intervals) on both lanes, one lane a
 //   box runs it once, and the cap keeps 32 warps an SM to hide the table reads (PERF.md holds the sweep: 1 or 2
 //   lanes a box, 1 to 16 lanes a brick, 256 to 1024 threads).
-// B15c classify_subcells_kernel: the subcell stage's classes and lists, a launch between B3b and B3c (below).
+// B15c classify_subcells_kernel: the subcell stage's classes and lists, a launch between B3b and B3c (below): a
+//   lane a candidate subcell, the lists' ranks in the same launch by B3b's single-pass scan over tiles of rows.
 // B19a, a slab of the sharded engine (parallel/sharded.py) whose local x 0 is global x x_offset: the classifiers'
 //   boxes and B3c's voxels take their global positions, each in the JAX package's own rounding (ClassifyParams,
 //   fusion.cuh::FuseParams); at 0 every bit and launch is the whole volume's.
@@ -1404,8 +1405,8 @@ extern "C" int xs_classify_bricks(const void* table, const void* pose, void* cls
 }
 
 // B15c. active_ids, totals, overflow: classify_bricks' (overflow ORed with the lists' own); scratch: scratch_words
-// 8-byte words, zeroed when made, 1 + STATUS_STRIDE a tile of the launch at least (ceil(cap / SUBCELL_TILE)
-// tiles), that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their blocks, mod
+// 8-byte words, zeroed when made, 1 + STATUS_STRIDE a tile of the launch at least (its blocks' SUBCELL_ROWS /
+// SUBCELL_TILE each: ops/fusion_brick.py::subcell_tiles), that belong to one stream at a time; ticket_base: the tickets its earlier launches took (their blocks, mod
 // 2^32); epoch: its launches so far, this one included (from 1, below 2^40); scls, srank: (cap, 8) ints; counts: 8
 // ints; sub_overflow: one byte; consts as classify_bricks'; vs, sub_edge: the voxel size and the subcell edge,
 // float32; x_offset: the slab's first x (B19a; 0 for the whole volume)

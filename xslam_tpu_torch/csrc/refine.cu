@@ -60,7 +60,7 @@
 // or fewer for more warps spills, and issuing the normal stage's 40 loads
 // together takes 126; neither was faster.
 //
-// K5r, its variant over the brick rows (refine_kernel<true>: the (NB, 512)
+// K5r, its variant over the brick rows (refine_rows_kernel: the (NB, 512)
 // rows of ops/bricks.py, rows.cuh's addressing), replaces the XLA code of
 // xslam_tpu/ops/raycast.py::refine with trilin_fn =
 // xslam_tpu/ops/raycast_bricks.py::trilinear_pair_bricks (the brick layout's
@@ -441,22 +441,17 @@ __device__ __forceinline__ void refine_body(const Volume& vol, const float* __re
   store3<LAYOUT>(nmap_v, nmap_g, HW, pix, n_ok, n_w, n_mask);
 }
 
-// K5 over the dense planes (ROWS false) or K5r over the brick rows, each with its own launch bounds
+// K5 over the dense planes and K5r over the brick rows, each with its own launch bounds
 #define REFINE_ARGS                                                                                              \
   Volume vol, const float *__restrict__ pose, const float *__restrict__ t_found, const float *__restrict__ t_dead, \
       float *__restrict__ vmap_v, float *__restrict__ vmap_g, float *__restrict__ nmap_v,                        \
       float *__restrict__ nmap_g, int H, int W, float step, xs::Camera cam, unsigned *direct
-template <bool ROWS>
-__global__ void refine_kernel(REFINE_ARGS);
-
-template <>
-__global__ void __launch_bounds__(BLOCK_THREADS) refine_kernel<false>(REFINE_ARGS) {
+__global__ void __launch_bounds__(BLOCK_THREADS) refine_kernel(REFINE_ARGS) {
   refine_body<L_DENSE>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, H, W, step, cam,
                        direct);
 }
 
-template <>
-__global__ void __launch_bounds__(BLOCK_THREADS, ROWS_MIN_BLOCKS) refine_kernel<true>(REFINE_ARGS) {
+__global__ void __launch_bounds__(BLOCK_THREADS, ROWS_MIN_BLOCKS) refine_rows_kernel(REFINE_ARGS) {
   refine_body<L_ROWS>(vol, pose, t_found, t_dead, nullptr, vmap_v, vmap_g, nmap_v, nmap_g, nullptr, H, W, step, cam,
                       direct);
 }
@@ -478,12 +473,13 @@ int launch_refine(const Volume& vol, const void* pose, const void* t_found, cons
                   void* vmap_v, void* vmap_g, void* nmap_v, void* nmap_g, void* ok_out, void* direct, int H, int W,
                   float step, const xs::Camera& cam, void* stream) {
   const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
+  const auto kernel = LAYOUT == L_ROWS ? refine_rows_kernel : refine_kernel;
   if (LAYOUT == L_SLAB)
     refine_shard_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (const float*)t_min, (float*)vmap_v,
         (float*)vmap_g, (float*)nmap_v, (float*)nmap_g, (float*)ok_out, H, W, step, cam);
   else
-    refine_kernel<LAYOUT == L_ROWS><<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         vol, (const float*)pose, (const float*)t_found, (const float*)t_dead, (float*)vmap_v, (float*)vmap_g,
         (float*)nmap_v, (float*)nmap_g, H, W, step, cam, (unsigned*)direct);
   return (int)cudaGetLastError();

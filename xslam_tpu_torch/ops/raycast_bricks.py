@@ -385,7 +385,7 @@ def window_march(bvol: BrickVolume, pose: torch.Tensor, intr: Intrinsics, cfg: V
 def raycast_refine_bricks(bvol: BrickVolume, pose: torch.Tensor, t_found: torch.Tensor, t_dead: torch.Tensor,
                           intr: Intrinsics, cfg: VolumeConfig, direct: Optional[torch.Tensor] = None
                           ) -> Tuple[CSFD, CSFD]:
-    """Kernel K5r (``csrc/refine.cu``, ``refine_kernel<true>``): K5, the
+    """Kernel K5r (``csrc/refine.cu``, ``refine_rows_kernel``): K5, the
     ``secant2`` refine with TSDF normals and the maps' NaN sentinels
     (:func:`xslam_tpu_torch.ops.raycast.raycast_refine`), over the brick
     rows: ``(vmap, nmap)``, dual, world coordinates, (3, H, W), from the

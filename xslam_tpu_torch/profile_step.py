@@ -55,7 +55,8 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")  
 # pattern that a device event's demangled name holds after "::" and before "(" or "<" (so march_kernel is not
 # window_march_kernel); K6's launch with the screen normals (B4n) is its kernel's <PAIRS, true> instantiation, the
 # bilinear branch (B11) K2's and B3c's <..., true>, the dense layout's B14a-b the brick layout's kernels' <true>
-# (B14c: window_dense_kernel, its own), K5r over the brick rows K5's <true>, B16 (the first-event march) B4's
+# (B14c: window_dense_kernel, its own), K5r over the brick rows refine_rows_kernel (K5's body under its own
+# launch bound), B16 (the first-event march) B4's
 # <false, true>; the skip march's ray form (march_skip_ray_kernel) is B14b's launch on the dense layout and
 # march_skip_rays on the rows;
 # K3 at a stride launches march_group_kernel<G> (G lanes a ray; march_kernel where the wrapper picks one lane)
@@ -64,7 +65,7 @@ HAND_KERNELS = {
     "fuse_volume_bilinear": "fuse_kernel<true>", "march_fixed": "march_kernel",
     "march_fixed_strided": r"march_group_kernel<\d+>",
     "icp_system": "icp_system_kernel", "icp_associate": "icp_associate_kernel",
-    "raycast_refine": "refine_kernel<false>", "raycast_refine_bricks": "refine_kernel<true>",
+    "raycast_refine": "refine_kernel", "raycast_refine_bricks": "refine_rows_kernel",
     "resize_model_maps": r"model_map_pyramid_kernel<\w+, false>",
     "model_map_normals": r"model_map_pyramid_kernel<\w+, true>",
     "depth_pyramid": "depth_pyramid_kernel", "vertex_normal_maps": "vertex_normal_maps_kernel",
